@@ -1,0 +1,74 @@
+"""Carries reference (JAX) weights into the port's modules.
+
+`LoadJaxTheta(module, theta_np)` takes a lingvo_tpu theta as a nested
+dict (NestedMap) of numpy arrays, lists for stacked `x_layers`, and copies
+every leaf into the module's parameter of the same path. Layouts are the
+reference's (w_query [D, N, H], emb [V, D], ...), so each leaf copies
+unchanged; the one structural difference is the repeat stack, whose
+reference leaves carry a leading [num_layers] axis that is unstacked into
+`RepeatedTransformerLayer.body[i]`. A missing, extra or mis-shaped leaf
+raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lingvo_tpu_torch.core import transformer
+
+
+def _Unstack(tree, i):
+  if isinstance(tree, dict):
+    return {k: _Unstack(v, i) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    return [_Unstack(v, i) for v in tree]
+  return np.asarray(tree)[i]
+
+
+def _Load(module, tree, path: str, loaded: list) -> None:
+  if isinstance(module, transformer.RepeatedTransformerLayer):
+    if set(tree) != {"body"}:
+      raise ValueError(f"{path}: repeat theta has keys {sorted(tree)}, "
+                       "expected ['body']")
+    for i, layer in enumerate(module.body):
+      _Load(layer, _Unstack(tree["body"], i), f"{path}.body[{i}]", loaded)
+    return
+  own = dict(module.named_parameters(recurse=False))
+  kids = dict(module.named_children())
+  for key, value in tree.items():
+    sub = f"{path}.{key}" if path else key
+    if key in own:
+      param = own.pop(key)
+      arr = np.asarray(value)
+      if tuple(arr.shape) != tuple(param.shape):
+        raise ValueError(f"{sub}: theta leaf {arr.shape} vs parameter "
+                         f"{tuple(param.shape)}")
+      with torch.no_grad():
+        param.copy_(torch.tensor(arr))
+      loaded.append(sub)
+    elif key in kids:
+      child = kids.pop(key)
+      if isinstance(child, torch.nn.ModuleList):
+        if len(value) != len(child):
+          raise ValueError(f"{sub}: {len(value)} theta entries for "
+                           f"{len(child)} layers")
+        for i, (c, v) in enumerate(zip(child, value)):
+          _Load(c, v, f"{sub}[{i}]", loaded)
+      else:
+        _Load(child, value, sub, loaded)
+    else:
+      raise ValueError(f"{sub}: theta leaf has no parameter in the port")
+  missing = list(own) + [
+      k for k, c in kids.items() if any(True for _ in c.parameters())]
+  if missing:
+    raise ValueError(f"{path or '<root>'}: no theta for {sorted(missing)}")
+
+
+def LoadJaxTheta(module: torch.nn.Module, theta_np) -> list[str]:
+  """Copies the reference theta into `module` in place.
+
+  Returns the dotted paths of the theta leaves it consumed, each once."""
+  loaded: list[str] = []
+  _Load(module, theta_np, "", loaded)
+  return loaded

@@ -1,0 +1,164 @@
+"""BaseLayer: Params-configured layers as `torch.nn.Module`s.
+
+Port of lingvo_tpu/core/base_layer.py. The reference's layers only declare
+weight specs and receive their weights as an explicit theta pytree; here
+a layer owns its weights as `nn.Parameter`s, registered under the same
+names the reference gives its theta leaves, and children are registered
+under the same child names. So a module's `named_parameters()` paths are
+the reference's theta paths (with a repeat stack's leading axis unrolled
+into a `ModuleList`, see core/transformer.py), which is what lets
+`convert.LoadJaxTheta` copy a reference theta leaf for leaf.
+
+Lifecycle:
+  p = MyLayer.Params().Set(...); layer = p.Instantiate(device="cuda")
+  layer.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  out = layer.FProp(inputs)
+
+Every layer lives on one explicit device, resolved once at construction
+and inherited by its children: `device=None` means CUDA, and raises when
+no CUDA device exists rather than running on the CPU unasked.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from lingvo_tpu_torch.core import hyperparams
+from lingvo_tpu_torch.core import py_utils
+from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
+
+
+def ResolveDevice(device: Any = None) -> torch.device:
+  """The device an entry point runs on: CUDA unless the caller names one.
+
+  Raises when CUDA is asked for (explicitly or by default) and absent."""
+  dev = torch.device("cuda" if device is None else device)
+  if dev.type == "cuda":
+    if not torch.cuda.is_available():
+      raise RuntimeError(
+          "no CUDA device is available; pass device='cpu' to run on the CPU")
+    if dev.index is None:
+      dev = torch.device("cuda", torch.cuda.current_device())
+  return dev
+
+
+class BaseLayer(nn.Module):
+  """Base class for all layers of the port."""
+
+  @classmethod
+  def Params(cls) -> hyperparams.InstantiableParams:
+    p = hyperparams.InstantiableParams(cls)
+    p.Define("name", "", "Layer name; forms variable paths.")
+    p.Define("dtype", torch.float32, "Weight dtype.")
+    p.Define("params_init", WeightInit.Xavier(),
+             "Default weight initializer for this layer.")
+    return p
+
+  def __init__(self, params: hyperparams.InstantiableParams, device=None):
+    super().__init__()
+    if not params.name:
+      params = params.Copy().Set(name=type(self).__name__.lower())
+    self._params = params.Copy()
+    self._params.Freeze()
+    self.device = ResolveDevice(device)
+    self._variable_specs: dict[str, WeightParams] = {}
+    self._path: str | None = None
+
+  # ---- properties ----------------------------------------------------------
+
+  @property
+  def params(self) -> hyperparams.InstantiableParams:
+    return self._params
+
+  @property
+  def p(self) -> hyperparams.InstantiableParams:
+    return self._params
+
+  @property
+  def path(self) -> str:
+    """Full slash path from the root layer (set by FinalizePaths)."""
+    return self._path if self._path is not None else self.p.name
+
+  def FinalizePaths(self, root_path: str | None = None) -> None:
+    """Assigns full paths to this layer tree, as the reference names them."""
+    self._AssignPaths(root_path or self.p.name)
+
+  def _AssignPaths(self, path: str) -> None:
+    self._path = path
+    for cname, child in self.named_children():
+      if isinstance(child, nn.ModuleList):
+        for i, c in enumerate(child):
+          c._AssignPaths(f"{path}/{cname}_{i}")
+      else:
+        child._AssignPaths(f"{path}/{cname}")
+
+  # ---- construction API ----------------------------------------------------
+
+  def CopyBaseParams(self, child_p: hyperparams.InstantiableParams
+                     ) -> hyperparams.InstantiableParams:
+    """Propagates a non-default init down to a child (reference rule;
+    dtype needs no propagation while only float32 is ported)."""
+    p = self.p
+    if ("params_init" in child_p and
+        child_p.params_init == WeightInit.Xavier() and
+        p.params_init != WeightInit.Xavier()):
+      child_p.params_init = p.params_init
+    return child_p
+
+  def _Instantiate(self, child_params, default_name: str):
+    cp = child_params.Copy()
+    if "name" in cp and not cp.name:
+      cp.name = default_name
+    self.CopyBaseParams(cp)
+    return cp.Instantiate(device=self.device)
+
+  def CreateChild(self, name: str,
+                  child_params: hyperparams.InstantiableParams):
+    """Instantiates a child layer under `name`, on this layer's device."""
+    if name in self._modules:
+      raise ValueError(f"Child {name!r} already exists on {self.p.name}")
+    child = self._Instantiate(child_params, name)
+    self.add_module(name, child)
+    return child
+
+  def CreateChildren(self, name: str,
+                     params_list: Sequence[hyperparams.InstantiableParams]):
+    """Instantiates a list of child layers under `name` (a ModuleList)."""
+    if name in self._modules:
+      raise ValueError(f"Children {name!r} already exist on {self.p.name}")
+    children = nn.ModuleList(
+        [self._Instantiate(cp, f"{name}_{i}")
+         for i, cp in enumerate(params_list)])
+    self.add_module(name, children)
+    return children
+
+  def CreateVariable(self, name: str, wp: WeightParams):
+    """Registers an (uninitialized) parameter; InstantiateVariables fills it.
+
+    Serving-only weights in this port: requires_grad is off."""
+    if name in self._variable_specs:
+      raise ValueError(f"Variable {name!r} already declared on {self.p.name}")
+    if wp.dtype != torch.float32:
+      raise NotImplementedError(
+          f"{self.p.name}/{name}: only float32 weights are ported; bf16 and "
+          "int8 weights come with the quantized-serving slice")
+    self._variable_specs[name] = wp
+    self.register_parameter(name, nn.Parameter(
+        torch.empty(wp.shape, dtype=wp.dtype, device=self.device),
+        requires_grad=False))
+
+  # ---- variable materialization --------------------------------------------
+
+  @torch.no_grad()
+  def InstantiateVariables(self, generator: torch.Generator) -> "BaseLayer":
+    """Initializes every weight of the tree from `generator`, in module
+    registration order (deterministic for a given seed and device)."""
+    if self._path is None:
+      self.FinalizePaths()
+    for module in self.modules():
+      for name, wp in getattr(module, "_variable_specs", {}).items():
+        py_utils.InitWeight(getattr(module, name), wp, generator)
+    return self

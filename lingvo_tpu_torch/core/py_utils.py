@@ -1,0 +1,153 @@
+"""Weight specs and initializers (port of part of lingvo_tpu/core/py_utils.py).
+
+Only what layers need to declare and initialize their weights: the
+`WeightInit` catalogue, the `WeightParams` spec and `InitWeight`, which
+fills a tensor in place from an explicit `torch.Generator`. The init
+laws (fans, scales, truncation at two sigma) are the reference's; the
+random numbers are torch's and differ from JAX's, so tests carry weights
+across with `convert.LoadJaxTheta` rather than re-drawing them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import math
+from typing import Any, Sequence
+
+import torch
+
+from lingvo_tpu_torch.core.hyperparams import RegisterSerializableType
+
+
+def GenerateSeedFromName(name: str) -> int:
+  """Stable uint32 seed derived from a variable/layer path name."""
+  digest = hashlib.md5(name.encode("utf-8")).hexdigest()
+  return int(digest[:8], 16)
+
+
+@RegisterSerializableType
+@dataclasses.dataclass(frozen=True)
+class WeightInit:
+  """An initializer spec: method name + scale (the reference's catalogue)."""
+
+  method: str = "xavier"
+  scale: float = 1.0
+
+  @classmethod
+  def Gaussian(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("gaussian", scale)
+
+  @classmethod
+  def Uniform(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("uniform", scale)
+
+  @classmethod
+  def UniformUnitScaling(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("uniform_unit_scaling", scale)
+
+  @classmethod
+  def Xavier(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("xavier", scale)
+
+  @classmethod
+  def GaussianSqrtDim(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("gaussian_sqrt_dim", scale)
+
+  @classmethod
+  def GaussianSqrtFanIn(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("gaussian_sqrt_fanin", scale)
+
+  @classmethod
+  def GaussianSqrtFanOut(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("gaussian_sqrt_fanout", scale)
+
+  @classmethod
+  def UniformSqrtDim(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("uniform_sqrt_dim", scale)
+
+  @classmethod
+  def Constant(cls, scale: float = 0.0) -> "WeightInit":
+    return cls("constant", scale)
+
+  @classmethod
+  def TruncatedGaussian(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("truncated_gaussian", scale)
+
+  @classmethod
+  def TruncatedGaussianSqrtDim(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("truncated_gaussian_sqrt_dim", scale)
+
+  @classmethod
+  def TruncatedGaussianSqrtFanIn(cls, scale: float = 1.0) -> "WeightInit":
+    return cls("truncated_gaussian_sqrt_fanin", scale)
+
+
+@dataclasses.dataclass
+class WeightParams:
+  """Spec for one learnable weight: shape, initializer and dtype."""
+
+  shape: Sequence[int]
+  init: WeightInit = dataclasses.field(default_factory=WeightInit)
+  dtype: Any = torch.float32
+
+  def __post_init__(self):
+    self.shape = tuple(int(d) for d in self.shape)
+
+
+@torch.no_grad()
+def InitWeight(out: torch.Tensor, wp: WeightParams,
+               generator: torch.Generator) -> torch.Tensor:
+  """Fills `out` (shape wp.shape) in place by wp.init; returns it.
+
+  `generator` must live on out's device."""
+  shape = tuple(wp.shape)
+  method, scale = wp.init.method, wp.init.scale
+
+  def _dim0():
+    return max(1, shape[0]) if shape else 1
+
+  def _fans():
+    if len(shape) < 1:
+      return 1, 1
+    if len(shape) == 1:
+      return shape[0], shape[0]
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    return shape[-2] * receptive, shape[-1] * receptive
+
+  def _Normal(std):
+    return out.normal_(0.0, std, generator=generator)
+
+  def _Uniform(limit):
+    return out.uniform_(-limit, limit, generator=generator)
+
+  def _Truncated(std):
+    return torch.nn.init.trunc_normal_(out, 0.0, std, -2.0 * std, 2.0 * std,
+                                       generator=generator)
+
+  if method == "constant":
+    return out.fill_(scale)
+  if method == "gaussian":
+    return _Normal(scale)
+  if method == "uniform":
+    return _Uniform(scale)
+  if method == "uniform_unit_scaling":
+    return _Uniform(scale * math.sqrt(3.0 / _dim0()))
+  if method == "gaussian_sqrt_dim":
+    return _Normal(scale / math.sqrt(_dim0()))
+  if method == "uniform_sqrt_dim":
+    return _Uniform(scale / math.sqrt(_dim0()))
+  if method == "gaussian_sqrt_fanin":
+    return _Normal(scale / math.sqrt(_fans()[0]))
+  if method == "gaussian_sqrt_fanout":
+    return _Normal(scale / math.sqrt(_fans()[1]))
+  if method == "xavier":
+    fan_in, fan_out = _fans()
+    return _Uniform(scale * math.sqrt(6.0 / (fan_in + fan_out)))
+  if method == "truncated_gaussian":
+    return _Truncated(scale)
+  if method == "truncated_gaussian_sqrt_dim":
+    return _Truncated(scale / math.sqrt(_dim0()))
+  if method == "truncated_gaussian_sqrt_fanin":
+    return _Truncated(scale / math.sqrt(_fans()[0]))
+  raise ValueError(f"Unknown init method {method!r}")

@@ -1,0 +1,227 @@
+"""Packed-token ragged paged attention (port of lingvo_tpu/ops/ragged_block_attend.py).
+
+One op serves every row shape of the continuous-batching step: the batch
+axis is a PACKED TOKEN axis. Token t belongs to block-table row
+`row_of[t]` and attends over that row's KV slots [0, q_end[t]), so a
+decode row is one token, a prefill chunk several tokens with ascending
+`q_end` (causal within the chunk for free), and `q_end[t] == 0` marks a
+padding token whose output is exactly 0. q arrives PRE-SCALED. Tree rows
+add a 64-bit in-step ancestor mask (`q_start`, `anc_lo`, `anc_hi`); chain
+rows carry the sentinel -1/-1, which keeps every column visible.
+
+Layout contract (the serving engine maintains it): a row's logical slot s
+lives at pool page `block_tables[row, s // P]`, offset `s % P`; each
+token's own K/V was written before the call; table entries past a row's
+live pages are unspecified and must never influence the output.
+
+Two implementations of one function:
+
+- the CUDA kernel `ops/csrc/ragged_block_attend.cu` (one thread block per
+  (token, head), walking only the token's live pages), launched for CUDA
+  tensors;
+- `_PlainRaggedAttend`, a loop over pages with the reference twin's
+  per-page op order (`_XlaRaggedAttend` and `flash_decode._PageAttend`),
+  used for CPU tensors and as the kernel's yardstick on the card.
+
+`RaggedAttend` picks between them by the device of the tensors it is
+given, and only by that: a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lingvo_tpu_torch.ops import cuda_build
+
+NEG_INF = -1.0e30   # the reference's flash_attention.NEG_INF
+MIN_PAGE_SIZE, MAX_PAGE_SIZE, MAX_HEAD_DIM = 8, 128, 256  # kernel limits
+
+
+# -- plain PyTorch version (the CPU path) -----------------------------------
+
+
+def _PageAttend(q, k_page, v_page, keep, m, l, acc):
+  """One page of online-softmax attention for every token at once.
+
+  q: [T, N, H] (pre-scaled), k_page/v_page: [T, P, N, H], keep: f32
+  [T, 1, P] (1.0 = attend), m/l: f32 [T, N, 1], acc: f32 [T, N, H].
+  The reference `_PageAttend`, batched over tokens. A masked slot gets
+  probability exactly 0 and its V row is not read (replaced by 0), so
+  stale bytes in dead slots, even non-finite ones, never reach acc."""
+  s = torch.einsum("tnh,tpnh->tnp", q, k_page)
+  s = torch.where(keep > 0.5, s, NEG_INF)                 # [T, N, P]
+  m_cur = torch.amax(s, dim=-1, keepdim=True)             # [T, N, 1]
+  m_new = torch.maximum(m, m_cur)
+  # all-masked-so-far rows have m_new = NEG_INF; exp(s - m_new) would turn
+  # masked entries into exp(0) = 1 (the reference's m_safe guard)
+  m_safe = torch.where(m_new <= NEG_INF * 0.5, 0.0, m_new)
+  p = torch.exp(s - m_safe)
+  alpha = torch.exp(m - m_new)
+  l_new = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+  v_live = torch.where(keep.transpose(1, 2)[..., None] > 0.5, v_page, 0.0)
+  pv = torch.einsum("tnp,tpnh->tnh", p, v_live)
+  return m_new, l_new, acc * alpha + pv
+
+
+def _Finish(l, acc, dtype):
+  return (acc / torch.clamp(l, min=1e-20)).to(dtype)
+
+
+def _AncestorOk(slot, c, lo, hi):
+  """In-step ancestor visibility (the reference `_AncestorOk`).
+
+  c = slot - q_start; bit clip(c, 0, 63) of the token's (lo | hi << 32)
+  mask says whether that step column is an ancestor-or-self. Chain rows
+  ship lo = hi = -1, so every bit reads 1."""
+  cc = torch.clamp(c, 0, 63)
+  word = torch.where(cc < 32, lo, hi).to(torch.int64) & 0xFFFFFFFF
+  sh = torch.where(cc < 32, cc, cc - 32)
+  return ((word >> sh) & 1) == 1
+
+
+def _PlainRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
+                       page_size: int, q_start, anc_lo, anc_hi):
+  """q: [T, N, H]; pools [NP, P, N, H]; tables [B, t_pages] int32;
+  row_of/q_end/q_start/anc_lo/anc_hi [T] int32 -> [T, N, H].
+
+  Trip count ceil(max(q_end) / P) over per-token gathered pages; tokens
+  whose horizon ends earlier see their extra pages fully masked (a no-op
+  through _PageAttend, exactly as in the reference twin)."""
+  t, n, h = q.shape
+  np_total = k_pool.shape[0]
+  t_pages = block_tables.shape[1]
+  dev = q.device
+  ends = q_end.to(torch.int64)
+  starts, lo, hi = (x.to(torch.int64) for x in (q_start, anc_lo, anc_hi))
+  max_end = int(ends.max()) if t else 0
+  trip = min(max((max_end + page_size - 1) // page_size, 0), t_pages)
+  tables = torch.clamp(block_tables.to(torch.int64), 0, np_total - 1)
+  rows = torch.clamp(row_of.to(torch.int64), 0, tables.shape[0] - 1)
+  tok_tables = tables[rows]                                 # [T, t_pages]
+  m = torch.full((t, n, 1), NEG_INF, dtype=torch.float32, device=dev)
+  l = torch.zeros((t, n, 1), dtype=torch.float32, device=dev)
+  acc = torch.zeros((t, n, h), dtype=torch.float32, device=dev)
+  offsets = torch.arange(page_size, dtype=torch.int64, device=dev)
+  for j in range(trip):
+    pid = tok_tables[:, j]
+    slot = j * page_size + offsets                          # [P]
+    causal = slot[None, :] < ends[:, None]                  # [T, P]
+    ok = _AncestorOk(slot[None, :], slot[None, :] - starts[:, None],
+                     lo[:, None], hi[:, None])
+    keep = (causal & ok).to(torch.float32)[:, None, :]      # [T, 1, P]
+    m, l, acc = _PageAttend(q.float(), k_pool[pid].float(),
+                            v_pool[pid].float(), keep, m, l, acc)
+  return _Finish(l, acc, q.dtype)
+
+
+# -- the CUDA kernel ---------------------------------------------------------
+
+
+_lib = None   # the loaded kernel library, with its C signatures declared
+
+
+def _Lib():
+  global _lib
+  if _lib is None:
+    lib = cuda_build.Load("ragged_block_attend")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.RaggedAttendF32.argtypes = [vp] * 10 + [ci] * 7 + [vp]
+    lib.RaggedAttendF32.restype = ci
+    lib.RaggedAttendErrorString.argtypes = [ci]
+    lib.RaggedAttendErrorString.restype = ctypes.c_char_p
+    _lib = lib
+  return _lib
+
+
+def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
+                      page_size, q_start, anc_lo, anc_hi):
+  t, n, h = q.shape
+  np_total, p = k_pool.shape[0], k_pool.shape[1]
+  b, t_pages = block_tables.shape
+  if q.dtype != torch.float32 or k_pool.dtype != torch.float32 or (
+      v_pool.dtype != torch.float32):
+    raise TypeError(
+        f"RaggedAttend kernel takes float32 q and pools, got {q.dtype}, "
+        f"{k_pool.dtype}, {v_pool.dtype}")
+  if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
+    raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
+                     f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+  if p != page_size or not MIN_PAGE_SIZE <= p <= MAX_PAGE_SIZE:
+    raise ValueError(f"page_size {page_size} (pool pages of {p}) outside the "
+                     f"kernel's [{MIN_PAGE_SIZE}, {MAX_PAGE_SIZE}]")
+  if h > MAX_HEAD_DIM:
+    raise ValueError(f"head dim {h} above the kernel's {MAX_HEAD_DIM}")
+  ints = [block_tables, row_of, q_end, q_start, anc_lo, anc_hi]
+  for name, x in zip(("block_tables", "row_of", "q_end", "q_start",
+                      "anc_lo", "anc_hi"), ints):
+    if x.dtype != torch.int32:
+      raise TypeError(f"{name} must be int32, got {x.dtype}")
+    if name != "block_tables" and tuple(x.shape) != (t,):
+      raise ValueError(f"{name} shape {tuple(x.shape)} != ({t},)")
+  for x in [q, k_pool, v_pool] + ints:
+    if x.device != q.device:
+      raise ValueError(f"tensor on {x.device}, q on {q.device}")
+    if not x.is_contiguous():
+      raise ValueError("RaggedAttend kernel takes contiguous tensors")
+  out = torch.empty_like(q)
+  if t == 0:
+    return out
+  lib = _Lib()
+  stream = torch.cuda.current_stream(q.device).cuda_stream
+  rc = lib.RaggedAttendF32(
+      q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+      block_tables.data_ptr(), row_of.data_ptr(), q_end.data_ptr(),
+      q_start.data_ptr(), anc_lo.data_ptr(), anc_hi.data_ptr(),
+      out.data_ptr(), t, n, h, np_total, p, b, t_pages, stream)
+  if rc != 0:
+    raise RuntimeError("RaggedAttend kernel launch failed: "
+                       + lib.RaggedAttendErrorString(rc).decode())
+  RaggedAttend.launches += 1
+  return out
+
+
+# -- public entry ------------------------------------------------------------
+
+
+def RaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end, *,
+                 page_size: int, k_scale=None, v_scale=None,
+                 q_start=None, anc_lo=None, anc_hi=None):
+  """Packed-token ragged paged attention — decode, prefill and tree rows
+  in one call.
+
+  q: [T, N, H] packed query tokens, already scaled; every token's K/V was
+  written to the pool before the call.
+  k_pool/v_pool: [num_pages, page_size, N, H] float32 page pool.
+  block_tables: [B, pages_per_seq] int32 physical page ids.
+  row_of / q_end: [T] int32 row of each token and one past its highest
+  attendable slot (0 = padding token, output 0).
+  q_start/anc_lo/anc_hi: [T] int32 tree operands, all three or none
+  (none = chain semantics).
+  k_scale/v_scale: int8 pools are not ported yet; passing them raises.
+
+  CPU tensors run the plain version; CUDA tensors launch the kernel (and
+  count one launch in `RaggedAttend.launches`) or raise."""
+  if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
+    raise NotImplementedError(
+        "int8 KV pools come with the quantized-serving slice of the port")
+  tree_args = (q_start is not None, anc_lo is not None, anc_hi is not None)
+  if any(tree_args) and not all(tree_args):
+    raise ValueError("pass q_start, anc_lo and anc_hi together or none")
+  if q.ndim != 3:
+    raise ValueError(f"q must be [T, N, H], got {tuple(q.shape)}")
+  if q_start is None:   # chain semantics: the -1/-1 sentinel sees every slot
+    t = q.shape[0]
+    q_start = torch.zeros((t,), dtype=torch.int32, device=q.device)
+    anc_lo = anc_hi = torch.full((t,), -1, dtype=torch.int32, device=q.device)
+  if q.device.type == "cpu":
+    return _PlainRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
+                              page_size, q_start, anc_lo, anc_hi)
+  if q.device.type != "cuda":
+    raise ValueError(f"RaggedAttend runs on cpu or cuda, not {q.device}")
+  return _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
+                           page_size, q_start, anc_lo, anc_hi)
+
+
+RaggedAttend.launches = 0   # kernel launches (the plain version counts none)

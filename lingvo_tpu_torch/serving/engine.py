@@ -1,0 +1,321 @@
+"""ServingLoop: the continuous-batching serving engine (port of lingvo_tpu/serving/engine.py).
+
+Glues the layers below into a running service:
+
+    ops/ragged_block_attend.py   the packed-token paged attention kernel
+    serving/kv_cache.py          host-side page ownership
+    serving/scheduler.py         admission / step building / retirement
+
+Every iteration packs its work onto one [T] token axis (core/ragged.py):
+a decode row contributes 1 token, a prefilling row a token-budgeted
+prompt chunk, with T = max_batch + prefill_chunk fixed at
+construction, as in the reference's one compiled step. The device pools
+are updated in place; admission and retirement only rewrite the int32
+block tables between steps.
+
+Ported: step_mode='ragged', fifo scheduling, greedy sampling, float32 KV
+pools. Speculative decoding, the prefix cache, int8 KV pools, int8
+weights, priority scheduling, the legacy step mode and temperature > 0
+raise NotImplementedError naming the slice that brings them.
+
+Two front doors, as in the reference:
+- async: `Start()` + `Submit(prompt, max_new) -> StreamHandle`, tokens
+  stream out per request as they are committed; `Stop()` drains.
+- sync: `RunBatch(prompts, prompt_lens)` drives the loop inline and
+  returns `[B, max_new]` outputs in submission order.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lingvo_tpu_torch.core import base_layer
+from lingvo_tpu_torch.core import ragged as ragged_lib
+from lingvo_tpu_torch.core import sampling
+from lingvo_tpu_torch.serving import kv_cache
+from lingvo_tpu_torch.serving import scheduler as scheduler_lib
+
+_END = object()   # stream sentinel
+
+
+class StreamHandle:
+  """Per-request streaming output + lifecycle handle."""
+
+  def __init__(self, req_id, submit_time: float):
+    self.id = req_id
+    self._q = queue.Queue()
+    self._tokens = []
+    self._done = threading.Event()
+    self.finish_reason: Optional[str] = None
+    self.submit_time = submit_time
+    self.first_token_time: Optional[float] = None
+    self.finish_time: Optional[float] = None
+
+  # engine-side
+  def _Push(self, token: int):
+    if self.first_token_time is None:
+      self.first_token_time = time.perf_counter()
+    self._tokens.append(token)
+    self._q.put(token)
+
+  def _Finish(self, reason: str):
+    self.finish_reason = reason
+    self.finish_time = time.perf_counter()
+    self._done.set()
+    self._q.put(_END)
+
+  # user-side
+  def Tokens(self, timeout: Optional[float] = None):
+    """Yields tokens as they are generated; returns on completion."""
+    while True:
+      item = self._q.get(timeout=timeout)
+      if item is _END:
+        return
+      yield item
+
+  def Result(self, timeout: Optional[float] = None) -> list:
+    """Blocks until the request finishes; returns all generated tokens."""
+    if not self._done.wait(timeout=timeout):
+      raise TimeoutError(f"request {self.id!r} still running")
+    return list(self._tokens)
+
+
+_COUNTER_KEYS = ("steps", "decode_steps", "mixed_steps", "tokens_emitted",
+                 "prompt_tokens")
+
+
+class ServingLoop:
+  """Continuous-batching decode service over a block-table page pool."""
+
+  def __init__(self, task, *, page_size: int, num_pages: int,
+               max_batch: int, max_seq_len: int, prefill_chunk: int = 8,
+               default_max_new: int = 32, eos_id: Optional[int] = None,
+               temperature: float = 0.0,
+               kv_cache_dtype: Optional[str] = None,
+               serve_int8_weights: bool = False, spec=None,
+               prefix_cache=None, step_mode: str = "ragged",
+               scheduler_mode: str = "fifo", device=None):
+    """task: a TransformerLm (exposing InitPagedDecodeState / RaggedStep)
+    that holds its weights on `device`. num_pages: allocator-owned pages
+    (the device pool gets one extra trash page). max_seq_len: static
+    per-sequence capacity (block-table width = ceil(max_seq_len /
+    page_size)). prefill_chunk: prompt tokens a step packs beyond one
+    token per slot (the reference's default prefill_token_budget). device:
+    where the engine runs; None means CUDA and raises when there is none.
+    The other arguments name reference features that raise until ported."""
+    if step_mode == "legacy":
+      raise NotImplementedError(
+          "step_mode='legacy' (block_decode programs) comes with a later "
+          "serving slice; the port serves step_mode='ragged'")
+    if step_mode != "ragged":
+      raise ValueError(f"step_mode must be 'ragged' or 'legacy', got "
+                       f"{step_mode!r}")
+    if spec is not None:
+      raise NotImplementedError(
+          "speculative decoding comes with the spec-decode serving slice")
+    if prefix_cache is not None and prefix_cache is not False:
+      raise NotImplementedError(
+          "the prefix cache comes with the prefix-cache serving slice")
+    if kv_cache_dtype not in (None, "float32"):
+      raise NotImplementedError(
+          f"kv_cache_dtype={kv_cache_dtype!r} comes with the quantized-"
+          "serving slice; the port serves float32 KV pools")
+    if serve_int8_weights:
+      raise NotImplementedError(
+          "int8 weight serving comes with the quantized-serving slice")
+    if scheduler_mode != "fifo":
+      raise NotImplementedError(
+          f"scheduler_mode={scheduler_mode!r} comes with the priority-"
+          "scheduling slice; the port schedules fifo")
+    if temperature > 0.0:
+      raise NotImplementedError(
+          "temperature > 0 sampling comes with a later serving slice; the "
+          "port samples greedily")
+    assert page_size >= 1 and num_pages >= 1 and max_batch >= 1
+    assert max_seq_len >= page_size
+    self.device = base_layer.ResolveDevice(device)
+    if task.device != self.device:
+      raise ValueError(f"the task lives on {task.device}, the engine was "
+                       f"asked to run on {self.device}")
+    # float32 everywhere: matmuls and convolutions in full float32, never
+    # TF32 (the reference's numerics; the parity tests assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    self._task = task
+    self.page_size = page_size
+    self.num_pages = num_pages
+    self.max_batch = max_batch
+    self.default_max_new = default_max_new
+    self.eos_id = eos_id
+    self.temperature = float(temperature)
+    # pool page num_pages (the +1) is the trash page padding writes hit
+    with torch.no_grad():
+      self._states = task.InitPagedDecodeState(num_pages + 1, page_size,
+                                               max_batch)
+    pool_slots = (num_pages + 1) * page_size
+    self.kv_bytes_per_token = sum(
+        x.numel() * x.element_size() for x in self._states.Flatten()
+    ) // pool_slots
+    self.alloc = kv_cache.PageAllocator(
+        num_pages, page_size,
+        page_bytes=page_size * self.kv_bytes_per_token)
+    self.sched = scheduler_lib.Scheduler(
+        max_batch, self.alloc, self.alloc.PagesFor(max_seq_len))
+    # unified ragged step geometry: one token per slot (every decode row)
+    # plus the prefill token budget (prefill_chunk); wmax is the widest row
+    self._ragged_t = max_batch + prefill_chunk
+    self._ragged_wmax = prefill_chunk
+    self.paged_path = "cuda" if self.device.type == "cuda" else "plain"
+    self._counters = {k: 0 for k in _COUNTER_KEYS}
+    self._handles: dict = {}
+    self._lock = threading.RLock()
+    self._work = threading.Condition(self._lock)
+    self._thread: Optional[threading.Thread] = None
+    self._running = False
+    self._seq_counter = 0
+
+  # -- async API -------------------------------------------------------------
+
+  def Start(self):
+    with self._lock:
+      if self._running:
+        return self
+      self._running = True
+      self._thread = threading.Thread(target=self._Loop, daemon=True,
+                                      name="serving-loop")
+      self._thread.start()
+    return self
+
+  def Stop(self, timeout: float = 60.0):
+    """Finishes in-flight and queued work, then stops the loop thread."""
+    with self._lock:
+      if not self._running:
+        return
+      self._work.notify_all()
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+      with self._lock:
+        if not self.sched.HasWork():
+          break
+      time.sleep(0.005)
+    with self._lock:
+      self._running = False
+      self._work.notify_all()
+    if self._thread is not None:
+      self._thread.join(timeout=timeout)
+      if self._thread.is_alive():
+        raise TimeoutError("serving loop did not stop")
+      self._thread = None
+
+  def Submit(self, prompt, max_new_tokens: Optional[int] = None,
+             eos_id=_END) -> StreamHandle:
+    """Queues a request; returns its streaming handle immediately."""
+    max_new = max_new_tokens or self.default_max_new
+    eos = self.eos_id if eos_id is _END else eos_id
+    with self._lock:
+      self._seq_counter += 1
+      req_id = self._seq_counter
+      req = scheduler_lib.Request(req_id, prompt, max_new, eos)
+      total = len(req.prompt) + req.max_new
+      if self.alloc.PagesFor(total) > self.alloc.num_pages:
+        raise ValueError(
+            f"request needs {self.alloc.PagesFor(total)} pages; the pool "
+            f"only has {self.alloc.num_pages} — it could never be admitted")
+      self.sched.Submit(req)
+      handle = StreamHandle(req_id, time.perf_counter())
+      self._handles[req_id] = handle
+      self._work.notify_all()
+    return handle
+
+  def _Loop(self):
+    while True:
+      with self._lock:
+        if not self._running:
+          return
+        if not self.sched.HasWork():
+          self._work.wait(timeout=0.05)
+          continue
+      self.StepOnce()
+
+  # -- core step (shared by sync and async modes) ----------------------------
+
+  def StepOnce(self) -> int:
+    """One admit -> device step -> commit iteration through the ragged
+    step; returns the number of committed-token events."""
+    with self._lock:
+      self.sched.Admit()
+      batch = self.sched.BuildRaggedStep(self._ragged_t, self._ragged_wmax)
+      if batch is None:
+        return 0
+      tables = np.array(self.sched.block_tables)  # freeze under the lock
+    dev = self.device
+    rows = ragged_lib.ToTorch(batch.rows_desc, dev)
+    with torch.no_grad():
+      logits, self._states = self._task.RaggedStep(
+          torch.as_tensor(batch.tok_ids).to(dev)[None], self._states,
+          torch.as_tensor(tables).to(dev), rows)
+      sampled = sampling.SampleFromLogits(logits[0],
+                                          temperature=self.temperature)
+    sampled = sampled.cpu().numpy()
+    with self._lock:
+      events = self.sched.CommitRaggedStep(batch, sampled)
+      self._counters["steps"] += 1
+      self._counters["mixed_steps" if batch.mixed else "decode_steps"] += 1
+      self._counters["prompt_tokens"] += batch.prompt_tokens
+      self._PushEvents(events)
+    return len(events)
+
+  def _PushEvents(self, events):
+    """Streams committed tokens to their handles (caller holds the lock)."""
+    for req_id, tok, finished in events:
+      self._counters["tokens_emitted"] += 1
+      h = self._handles.get(req_id)
+      if h is None:
+        continue
+      h._Push(tok)
+      if finished:
+        h._Finish(self.sched._by_id[req_id].finish_reason)
+
+  # -- sync mode ---------------------------------------------------------------
+
+  def RunBatch(self, prompts: np.ndarray, prompt_lens: np.ndarray,
+               max_new_tokens: Optional[int] = None) -> np.ndarray:
+    """Decodes a fixed prompt set inline; returns [B, max_new] int32.
+
+    eos is ignored here: every request decodes exactly max_new tokens."""
+    if self._thread is not None:
+      raise RuntimeError("RunBatch drives the loop inline; Stop() first")
+    prompts = np.asarray(prompts)
+    max_new = max_new_tokens or self.default_max_new
+    handles = []
+    for i in range(prompts.shape[0]):
+      ln = int(prompt_lens[i])
+      handles.append(self.Submit(prompts[i, :ln], max_new, eos_id=None))
+    while True:
+      with self._lock:
+        if not self.sched.HasWork():
+          break
+      self.StepOnce()
+    out = np.zeros((prompts.shape[0], max_new), np.int32)
+    for i, h in enumerate(handles):
+      toks = h.Result(timeout=0)
+      out[i, :len(toks)] = toks
+    return out
+
+  # -- introspection ---------------------------------------------------------
+
+  def Stats(self) -> dict:
+    """Atomic engine snapshot; its keys are a subset of the reference's."""
+    with self._lock:
+      stats = dict(self._counters)
+      stats["paged_path"] = self.paged_path
+      stats["kv_bytes_per_token"] = self.kv_bytes_per_token
+      stats["scheduler"] = self.sched.Stats()
+      stats["kv_pages"] = self.alloc.Stats()
+    return stats

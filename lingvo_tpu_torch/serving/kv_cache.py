@@ -1,0 +1,93 @@
+"""KV block allocator: host-side ownership of the global page pool.
+
+Port of `PageAllocator` and `OutOfPages` from lingvo_tpu/serving/kv_cache.py,
+without the prefix-sharing refcounts and the preemption spill surface
+(those come with the prefix-cache and priority-scheduling slices). The
+device side is a plain `[num_pages, page_size, N, H]` pool per layer;
+which pages belong to which sequence lives here, in Python, updated
+between steps. A min-heap free list always hands out the lowest free
+page, so the live set stays packed toward the low end of the pool.
+"""
+
+from __future__ import annotations
+
+import heapq
+
+
+class OutOfPages(Exception):
+  """Raised by Allocate when the pool cannot satisfy the request."""
+
+
+class PageAllocator:
+  """Owns [0, num_pages) of the device pool; sequences hold disjoint sets.
+
+  Not thread-safe on its own: the serving engine serializes all calls
+  under its lock. The trash page the engine appends to the device pool is
+  outside [0, num_pages) and never managed here."""
+
+  def __init__(self, num_pages: int, page_size: int, page_bytes: int = 0):
+    assert num_pages > 0 and page_size > 0, (num_pages, page_size)
+    self.num_pages = num_pages
+    self.page_size = page_size
+    # device bytes one logical page costs across every layer's pool
+    self.page_bytes = int(page_bytes)
+    self._free = list(range(num_pages))  # already a valid min-heap
+    self._owned: dict[object, list[int]] = {}
+    self.peak_in_use = 0
+
+  # -- queries ---------------------------------------------------------------
+
+  @property
+  def num_free(self) -> int:
+    return len(self._free)
+
+  @property
+  def num_in_use(self) -> int:
+    return self.num_pages - len(self._free)
+
+  def PagesFor(self, num_tokens: int) -> int:
+    """Pages needed to hold num_tokens logical slots."""
+    return -(-num_tokens // self.page_size)
+
+  def CanAllocate(self, n: int) -> bool:
+    return n <= len(self._free)
+
+  def PagesOf(self, seq_id) -> list[int]:
+    """The sequence's pages in logical order (index i = logical page i)."""
+    return list(self._owned[seq_id])
+
+  def Stats(self) -> dict:
+    out = {
+        "num_pages": self.num_pages,
+        "page_size": self.page_size,
+        "in_use": self.num_in_use,
+        "free": self.num_free,
+        "utilization": self.num_in_use / self.num_pages,
+        "peak_in_use": self.peak_in_use,
+        "num_sequences": len(self._owned),
+    }
+    if self.page_bytes:
+      out["page_bytes"] = self.page_bytes
+      out["pool_bytes"] = self.page_bytes * self.num_pages
+    return out
+
+  # -- mutations -------------------------------------------------------------
+
+  def Allocate(self, seq_id, n: int) -> list[int]:
+    """Grants n MORE pages to seq_id (appended to its logical order).
+
+    All-or-nothing: raises OutOfPages without side effects if fewer than n
+    pages are free."""
+    if n > len(self._free):
+      raise OutOfPages(f"need {n} pages, {len(self._free)} free")
+    got = [heapq.heappop(self._free) for _ in range(n)]
+    self._owned.setdefault(seq_id, []).extend(got)
+    self.peak_in_use = max(self.peak_in_use, self.num_in_use)
+    return got
+
+  def Free(self, seq_id) -> int:
+    """Returns seq_id's pages to the pool; the count released. Idempotent."""
+    pages = self._owned.pop(seq_id, [])
+    for pg in pages:
+      heapq.heappush(self._free, pg)
+    return len(pages)

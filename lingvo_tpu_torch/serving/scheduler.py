@@ -1,0 +1,258 @@
+"""Continuous-batching request scheduler, fifo subset (port of lingvo_tpu/serving/scheduler.py).
+
+Owns the host-side serving state machine: a FIFO of waiting requests, B
+decode slots and the page allocator. Each engine iteration is
+admit -> build -> (device step) -> commit:
+
+- `Admit` moves queued requests into free slots while the allocator can
+  reserve their WHOLE worst-case footprint (ceil((prompt + max_new) /
+  page_size) pages) up front, so an admitted sequence never runs out of
+  pages mid-flight; pool pressure shows up only as queueing. Head-of-line
+  blocking is intentional (no starvation of long requests).
+- `BuildRaggedStep` packs every live slot into ONE [T]-token step: decode
+  rows first (1 token each), then prefill rows take the leftover budget in
+  slot order.
+- `CommitRaggedStep` folds the sampled tokens back in: advances prompt
+  cursors, turns finished prefills into decoders (their first generated
+  token is the draw at the last prompt token), appends decode tokens,
+  retires sequences on max_new/EOS and frees their slot and pages.
+
+Priority scheduling, prefix sharing, speculative rows and cancellation
+come with later serving slices. The scheduler is device-free (Python +
+numpy), as in the reference.
+"""
+
+from __future__ import annotations
+
+import collections
+import enum
+from typing import Optional
+
+import numpy as np
+
+from lingvo_tpu_torch.core import ragged
+from lingvo_tpu_torch.serving import kv_cache
+
+
+class SeqState(enum.Enum):
+  QUEUED = "queued"
+  PREFILL = "prefill"
+  DECODE = "decode"
+  FINISHED = "finished"
+
+
+class Request:
+  """One user request: prompt ids + generation budget."""
+
+  def __init__(self, req_id, prompt, max_new_tokens: int,
+               eos_id: Optional[int] = None):
+    prompt = [int(t) for t in prompt]
+    if not prompt:
+      raise ValueError("empty prompt")
+    if max_new_tokens < 1:
+      raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    self.id = req_id
+    self.prompt = prompt
+    self.max_new = int(max_new_tokens)
+    self.eos_id = eos_id
+
+
+class Sequence:
+  """A request's in-flight decode state (slot-resident)."""
+
+  def __init__(self, request: Request):
+    self.req = request
+    self.state = SeqState.QUEUED
+    self.pos = 0          # tokens WRITTEN to the KV cache so far
+    self.out = []         # generated tokens (out[-1] may not be cached yet)
+    self.finish_reason = None
+
+  @property
+  def id(self):
+    return self.req.id
+
+  @property
+  def prompt_remaining(self) -> int:
+    return len(self.req.prompt) - self.pos
+
+
+class RaggedBatch:
+  """One packed ragged device step (numpy; the engine moves it on device)."""
+
+  def __init__(self, tok_ids, rows_desc: ragged.RaggedRows, rows,
+               mixed: bool, prompt_tokens: int):
+    self.tok_ids = tok_ids        # [T] int32 packed token stream
+    self.rows_desc = rows_desc    # core/ragged.RaggedRows (numpy members)
+    self.rows = rows              # slot -> Sequence or None, frozen at build
+    self.mixed = mixed            # True if any prompt token rode this step
+    self.prompt_tokens = prompt_tokens
+
+
+class Scheduler:
+  """Admission + step building + commit over B slots and a page pool."""
+
+  def __init__(self, max_slots: int, allocator: kv_cache.PageAllocator,
+               table_pages: int):
+    """table_pages: block-table width (pages per sequence), the static
+    max_seq_len / page_size bound."""
+    assert max_slots >= 1 and table_pages >= 1
+    self.max_slots = max_slots
+    self.alloc = allocator
+    self.table_pages = table_pages
+    self.waiting = collections.deque()        # of Sequence (QUEUED)
+    self.slots: list[Optional[Sequence]] = [None] * max_slots
+    self._by_id: dict[object, Sequence] = {}
+    # block tables as one stable [B, table_pages] array, rewritten on
+    # admit only (steady-state decode steps reuse it as-is)
+    self.block_tables = np.zeros((max_slots, table_pages), np.int32)
+    self.admitted = 0
+    self.finished = 0
+    self.rejected_overlong = 0
+    self.slots_live_peak = 0
+
+  # -- submission ------------------------------------------------------------
+
+  def Submit(self, request: Request) -> Sequence:
+    total = len(request.prompt) + request.max_new
+    if self.alloc.PagesFor(total) > self.table_pages:
+      self.rejected_overlong += 1
+      raise ValueError(
+          f"request {request.id!r} needs {self.alloc.PagesFor(total)} pages "
+          f"(prompt {len(request.prompt)} + max_new {request.max_new}) but "
+          f"block tables hold {self.table_pages}")
+    seq = Sequence(request)
+    self._by_id[request.id] = seq
+    self.waiting.append(seq)
+    return seq
+
+  # -- boundary phases -------------------------------------------------------
+
+  def Admit(self) -> list:
+    """Admits waiting requests (fifo, the only mode ported)."""
+    return self._AdmitFifo()
+
+  def _AdmitFifo(self) -> list:
+    """Admits waiting requests into free slots while pages last; stops at
+    the first head that does not fit (head-of-line blocking)."""
+    admitted = []
+    for i in range(self.max_slots):
+      if self.slots[i] is not None or not self.waiting:
+        continue
+      seq = self.waiting[0]
+      need = self.alloc.PagesFor(len(seq.req.prompt) + seq.req.max_new)
+      if not self.alloc.CanAllocate(need):
+        break
+      pages = self.alloc.Allocate(seq.id, need)
+      self.waiting.popleft()
+      self.slots[i] = seq
+      seq.state = SeqState.PREFILL
+      self.block_tables[i, :] = 0
+      self.block_tables[i, :len(pages)] = pages
+      self.admitted += 1
+      self.slots_live_peak = max(
+          self.slots_live_peak, sum(s is not None for s in self.slots))
+      admitted.append(seq)
+    return admitted
+
+  def HasWork(self) -> bool:
+    return any(s is not None for s in self.slots) or bool(self.waiting)
+
+  # -- unified ragged step ----------------------------------------------------
+
+  def BuildRaggedStep(self, t: int, wmax: int) -> Optional[RaggedBatch]:
+    """Packs every live slot into ONE [T]-token ragged step (None if idle).
+
+    t: packed token width, static (max_slots + prefill token budget).
+    wmax: widest row the step admits. Decode rows are packed first, one
+    token each; prefill rows then take the leftover budget in slot order,
+    up to min(wmax, budget, prompt_remaining) tokens. Rows that fit no
+    budget this step ride with row_len == 0."""
+    rows = list(self.slots)
+    if not any(s is not None for s in rows):
+      return None
+    b = self.max_slots
+    row_len = np.zeros((b,), np.int32)
+    row_q_pos = np.ones((b,), np.int32)  # empty slot: 1 (reference layout)
+    budget = t
+    for i, seq in enumerate(rows):
+      if seq is None:
+        continue
+      row_q_pos[i] = seq.pos
+      if seq.state is SeqState.DECODE:
+        row_len[i] = 1
+        budget -= 1
+    assert budget >= 0, (t, row_len)  # the engine sizes t for every decode row
+    prompt_tokens = 0
+    for i, seq in enumerate(rows):
+      if seq is None or seq.state is not SeqState.PREFILL:
+        continue
+      n = min(wmax, budget, seq.prompt_remaining)
+      row_len[i] = n
+      budget -= n
+      prompt_tokens += n
+    desc = ragged.BuildRaggedRows(row_len, row_q_pos, t, wmax)
+    tok_ids = np.zeros((t,), np.int32)
+    for i, seq in enumerate(rows):
+      n = int(row_len[i])
+      if seq is None or n == 0:
+        continue
+      cols = desc.row_cols[i, :n]
+      if seq.state is SeqState.PREFILL:
+        tok_ids[cols] = seq.req.prompt[seq.pos:seq.pos + n]
+      else:
+        tok_ids[cols[0]] = seq.out[-1]   # feeds (and caches) the last draw
+    return RaggedBatch(tok_ids, desc, rows, prompt_tokens > 0, prompt_tokens)
+
+  def CommitRaggedStep(self, batch: RaggedBatch,
+                       sampled_tok: np.ndarray) -> list:
+    """Folds one ragged step's per-token draws [T] back in.
+
+    A prefill row reads the draw at its LAST prompt token's column, a
+    decode row its only column. Returns [(request_id, token, finished)]
+    events in slot order."""
+    events = []
+    desc = batch.rows_desc
+    for i, seq in enumerate(batch.rows):
+      if seq is None:
+        continue
+      n = int(desc.row_len[i])
+      if seq.state is SeqState.PREFILL:
+        if n == 0:
+          continue                       # out of token budget this step
+        seq.pos += n
+        if seq.prompt_remaining > 0:
+          continue                       # more prompt tokens to go
+        tok = int(sampled_tok[desc.row_cols[i, n - 1]])
+        seq.state = SeqState.DECODE
+      elif seq.state is SeqState.DECODE:
+        seq.pos += 1                     # the fed-back token is now cached
+        tok = int(sampled_tok[desc.row_cols[i, 0]])
+      else:
+        continue
+      seq.out.append(tok)
+      done_eos = (seq.req.eos_id is not None and tok == seq.req.eos_id)
+      if done_eos or len(seq.out) >= seq.req.max_new:
+        self.slots[i] = None
+        self.alloc.Free(seq.id)
+        self.finished += 1
+        seq.state = SeqState.FINISHED
+        seq.finish_reason = "eos" if done_eos else "length"
+        events.append((seq.id, tok, True))
+      else:
+        events.append((seq.id, tok, False))
+    return events
+
+  # -- introspection ---------------------------------------------------------
+
+  def Stats(self) -> dict:
+    live = [s for s in self.slots if s is not None]
+    return {
+        "slots": self.max_slots,
+        "slots_live": len(live),
+        "slots_prefill": sum(s.state is SeqState.PREFILL for s in live),
+        "queue_depth": len(self.waiting),
+        "admitted": self.admitted,
+        "finished": self.finished,
+        "rejected_overlong": self.rejected_overlong,
+        "slots_live_peak": self.slots_live_peak,
+    }
