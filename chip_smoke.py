@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Versions, the card's name and power limit, the TF32 flags (off).
-2. Builds every CUDA kernel of the port from the sources in this checkout.
+2. Builds every CUDA kernel of the port from the sources in this checkout,
+   one nvcc per source, all started together; prints each build's seconds
+   and ptxas registers, shared memory and spills.
 3. Holds the ragged paged-attention kernel against its plain PyTorch
    version on the card, at the serving step's shapes (N=16, H=128, T=264,
    page_size 16 with 64-page tables, then page_size 128), on a pack of
@@ -12,21 +14,43 @@
    padding tokens, with freed pages, stale slots and table entries past
    each row's pages poisoned with NaN. Tolerance: float32, max abs
    difference <= 1e-5. Times the kernel, the plain version and the bound.
-4. Serves DenseLm1B at full width and depth (random weights from a seeded
-   torch.Generator) through `ServingLoop`: 8 requests with prompts of
-   64..768 tokens, 32 new tokens each, through Start/Submit/Result/Stop.
-   Checks the streams, and that the kernel ran exactly 24 times per step.
-   Before that, a DenseLmTiny engine on the card must reproduce the same
-   model's CPU streams (the CPU path is held against the JAX reference by
-   tests/test_torch_*.py). After the counted run, the same requests are
-   served again with torch.profiler on over the first 4 and the last 4
-   steps, to show where the device time goes.
-5. Prints the per-kernel JSON line, then the result line.
+4. Serving main path: DenseLm1B at full width and depth (random weights
+   from a seeded torch.Generator) through `ServingLoop`: 8 requests with
+   prompts of 64..768 tokens, 32 new tokens each, through
+   Start/Submit/Result/Stop. Checks the streams, and that the ragged kernel
+   ran exactly 24 times per step and no training kernel ran. Before that, a
+   DenseLmTiny engine on the card must reproduce the same model's CPU
+   streams. After the counted run, the same requests are served again with
+   torch.profiler on over the first 4 and the last 4 steps. The serving
+   model is freed before the training phases.
+5. Holds the flash-attention forward, dK/dV and dQ kernels against the
+   plain version at the training step's shapes ([8, 1024, 16, 128], causal,
+   two segments of 512, one row ending in 100 padding tokens): out, lse,
+   dq, dk, dv finite and within the printed tolerances. Times each kernel,
+   the plain version, the bound and SDPA with the same boolean mask.
+6. Holds the fused-xent statistics kernel against `_PlainStats` at
+   [8192, 2048] x [32000, 2048] (block 1280, cap 30), and at block 1536
+   with label smoothing 0.1 (a ragged vocab tail): lse, label logit and
+   logit sum within tolerance, argmax equal except on near-ties.
+7. Training main path: DenseLmTiny (flash on, xent block 1280, warmup 2)
+   trains 3 steps on the card and on the CPU from the same weights (losses
+   and theta within 1e-4); then DenseLm1B (flash on, xent block 1280,
+   remat 'full', random weights from a seeded generator) through
+   `TrainProgram` on `SyntheticLmInput(seed 0)`: 1 warm-up step, then 4
+   counted steps with every kernel count set to 0 just before. Checks
+   finite loss and grad_norm, no skipped step, and exactly 48 / 24 / 24 / 1
+   launches per step of the flash forward, dK/dV, dQ and xent kernels (and
+   0 of the ragged kernel); prints ms per step, tokens per second, model
+   FLOPs and achieved TFLOP/s, peak memory, and a torch.profiler breakdown
+   of one more step.
+8. Prints the per-kernel JSON line, then the result line.
 
 Exits non-zero, printing no result line, if any phase fails, if CUDA is
 not available, or if the lingvo_tpu_torch package is not beside it.
 """
 
+import concurrent.futures
+import gc
 import json
 import os
 import subprocess
@@ -170,6 +194,307 @@ def _TinyReference(torch, spi, engine, ragged):
         f"{len(lens)} greedy streams identical to the CPU path")
 
 
+def _FlashInputs(torch, rng):
+  """The flash check at the training step's shapes: [8, 1024, 16, 128],
+  causal, two segments of 512 per row, and row 0's last 100 tokens padding
+  (segment 0)."""
+  b, t, n, h = 8, 1024, 16, 128
+  seg = np.repeat(np.array([[1] * 512 + [2] * 512]), b, axis=0)
+  seg[0, -100:] = 0
+  seg = seg.astype(np.int32)
+  q, k, v, do = (rng.randn(b, t, n, h).astype(np.float32) for _ in range(4))
+  keep = (seg[:, :, None] == seg[:, None, :]) & np.tril(
+      np.ones((t, t), bool))[None]
+  pairs = int(keep.sum()) * n            # attended (query, key) pairs
+  x = {k_: torch.as_tensor(a).cuda() for k_, a in
+       dict(q=q, k=k, v=v, do=do, seg=seg).items()}
+  return x, torch.as_tensor(keep).cuda(), pairs
+
+
+def _Bound(moved, flops):
+  bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+  ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+  return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def _CheckFlash(torch, fa, rng):
+  """The three flash kernels against the plain version on the card."""
+  x, keep, pairs = _FlashInputs(torch, rng)
+  q, k, v, do, seg = x["q"], x["k"], x["v"], x["do"], x["seg"]
+  b, t, n, h = q.shape
+  out, lse = fa.FlashForward(q, k, v, seg, True)
+  out_p, lse_p = fa._PlainForward(q, k, v, seg, True)
+  delta = fa.RowDelta(do, out)
+  dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True)
+  dq = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
+  dq_p, dk_p, dv_p = fa._PlainBackward(q, k, v, seg, do, True)
+  torch.cuda.synchronize()
+  errs = {}
+  print("tolerances: out, lse 2e-5 (one float32 softmax over <= 512 keys, "
+        "summed in two orders); dq, dk, dv 1e-4 x max|grad| (float32 sums "
+        "over up to 512 queries or keys of O(1) products, so the bar scales "
+        "with the gradient's size)")
+  for name, got, want, tol in (
+      ("out", out, out_p, 2e-5), ("lse", lse, lse_p, 2e-5),
+      ("dq", dq, dq_p, 1e-4 * float(dq_p.abs().max())),
+      ("dk", dk, dk_p, 1e-4 * float(dk_p.abs().max())),
+      ("dv", dv, dv_p, 1e-4 * float(dv_p.abs().max()))):
+    _Check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite")
+    err = float((got - want).abs().max())
+    print(f"flash {name}: max abs err {err:.3g} (tol {tol:.3g})")
+    _Check(err <= tol, f"flash {name}: max abs err {err} > {tol}")
+    errs[name] = err
+  it = 10
+  t_fwd = _TimeMs(torch, lambda: fa.FlashForward(q, k, v, seg, True), it)
+  t_dkdv = _TimeMs(torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta,
+                                               True), it)
+  t_dq = _TimeMs(torch, lambda: fa.FlashDq(q, k, v, seg, do, lse, delta,
+                                           True), it)
+  p_fwd = _TimeMs(torch, lambda: fa._PlainForward(q, k, v, seg, True), 3)
+  p_bwd = _TimeMs(torch, lambda: fa._PlainBackward(q, k, v, seg, do, True),
+                  3)
+  # the library yardstick: SDPA with the boolean causal-and-segment mask
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  mask = keep[:, None]
+  qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+  l_fwd = _TimeMs(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), it)
+  leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
+  with torch.enable_grad():
+    ref = sdpa(*leaves, attn_mask=mask)
+  dot = do.transpose(1, 2)
+  l_bwd = _TimeMs(torch, lambda: torch.autograd.grad(
+      ref, leaves, dot, retain_graph=True), it)
+  row = b * t * n * h * 4                 # one [b, t, n, h] f32 tensor
+  stats = b * n * t * 4                   # one [b, n, t] f32 row statistic
+  seg_b = b * t * 4
+  res = {
+      "fwd": dict(ms=t_fwd, plain_ms=p_fwd, library_ms=l_fwd,
+                  bound=_Bound(4 * row + stats + seg_b, 4 * h * pairs),
+                  err=max(errs["out"], errs["lse"])),
+      "dkdv": dict(ms=t_dkdv, plain_ms=p_bwd, library_ms=l_bwd,
+                   bound=_Bound(6 * row + 2 * stats + seg_b, 8 * h * pairs),
+                   err=max(errs["dk"], errs["dv"])),
+      "dq": dict(ms=t_dq, plain_ms=p_bwd, library_ms=l_bwd,
+                 bound=_Bound(5 * row + 2 * stats + seg_b, 6 * h * pairs),
+                 err=errs["dq"]),
+  }
+  for name, r in res.items():
+    print(f"flash {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+          f"ms, bound {r['bound'][0]:.3f} ms ({r['bound'][1]}), SDPA "
+          f"{r['library_ms']:.3f} ms")
+  print(f"flash backward: dK/dV + dQ kernels {t_dkdv + t_dq:.3f} ms vs SDPA "
+        f"backward {l_bwd:.3f} ms (the plain backward, {p_bwd:.3f} ms, and "
+        "SDPA's each compute dq, dk and dv at once)")
+  print(f"attended pairs {pairs} ({pairs / (b * n):.0f} per (b, n))")
+  return res
+
+
+def _CheckXent(torch, fx, rng, block, ls, time_it):
+  """The fused-xent statistics kernel against `_PlainStats` on the card:
+  x [8192, 2048], the tied table [32000, 2048], cap 30."""
+  m, d, vocab = 8192, 2048, 32000
+  x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda()
+  w = torch.as_tensor((rng.randn(vocab, d) / np.sqrt(d)).astype(
+      np.float32)).cuda()
+  bias = torch.zeros(vocab, device="cuda")
+  labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
+  cfg = fx._Cfg(block_size=block, vocab=vocab, vd=True, soft_cap=30.0,
+                label_smoothing=ls)
+  got = fx.FusedXentStats(x, w, bias, labels, cfg)
+  want = fx._PlainStats(x, w, bias, labels, cfg)
+  torch.cuda.synchronize()
+  errs = []
+  print("tolerances: lse, label logit 1e-4 (capped logits of O(1), each a "
+        "2048-term float32 dot in two orders); logit sum 5e-3 (adds 32000 "
+        "of them)")
+  for name, a, b_, tol in (("lse", got[0], want[0], 1e-4),
+                           ("label_logit", got[1], want[1], 1e-4),
+                           ("logit_sum", got[2], want[2], 5e-3)):
+    if b_ is None:
+      continue
+    _Check(bool(torch.isfinite(a).all()), f"xent {name}: non-finite")
+    err = float((a - b_).abs().max())
+    print(f"xent block {block} ls {ls}: {name} max abs err {err:.3g} "
+          f"(tol {tol})")
+    _Check(err <= tol, f"xent {name}: {err} > {tol}")
+    errs.append(err)
+  differ = torch.nonzero(got[3] != want[3]).flatten()
+  if len(differ):
+    rows = x[differ]
+    cap = lambda s: 30.0 * torch.tanh(s / 30.0)
+    s_k = cap((rows * w[got[3][differ].long()]).sum(-1))
+    s_p = cap((rows * w[want[3][differ].long()]).sum(-1))
+    gap = float((s_k - s_p).abs().max())
+    _Check(gap <= 1e-5, f"xent argmax differs on {len(differ)} rows whose "
+           f"top logits differ by {gap} > 1e-5")
+  print(f"xent block {block}: argmax equal on {m - len(differ)} of {m} rows "
+        f"(the rest are ties within 1e-5)")
+  if not time_it:
+    return None
+  ms = _TimeMs(torch, lambda: fx.FusedXentStats(x, w, bias, labels, cfg), 5)
+  plain_ms = _TimeMs(torch, lambda: fx._PlainStats(x, w, bias, labels, cfg),
+                     3)
+  bound = _Bound((m * d + vocab * d + vocab + m) * 4 + 4 * m * 4,
+                 2 * m * vocab * d)
+  print(f"xent stats: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms ({bound[1]})")
+  return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=max(errs),
+              library_ms=None)
+
+
+
+def _TrainTask(cfg, warmup_steps=None):
+  """cfg's Task with the flash kernel and the fused xent switched on (block
+  1280), as the training main path runs it."""
+  from lingvo_tpu_torch.core import attention
+  p = cfg.Task()
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      use_flash_attention=True)
+  p.xent_block_size = 1280
+  if warmup_steps is not None:
+    p.train.learner.lr_schedule.warmup_steps = warmup_steps
+  return p
+
+
+def _TinyTrainReference(torch, spi, program):
+  """DenseLmTiny (both switches on, warmup 2 so that theta moves) trains 3
+  steps on the card and on the CPU from the same weights; the losses and
+  theta must agree within 1e-4 (float32; the CPU path is held against the
+  JAX reference by tests/test_torch_train.py)."""
+  from lingvo_tpu_torch import convert
+  cfg = spi.DenseLmTiny()
+  p = _TrainTask(cfg, warmup_steps=2)
+  cpu_lm = p.Instantiate(device="cpu")
+  cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(2))
+  init = convert.ThetaToNumpy(cpu_lm).Flatten()
+  gpu_lm = p.Instantiate(device="cuda")
+  gpu_lm.load_state_dict(cpu_lm.state_dict())
+  res = {}
+  for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
+    state = lm.CreateTrainState()
+    prog = program.TrainProgram(
+        program.TrainProgram.Params().Set(steps_per_loop=1), task=lm,
+        input_generator=cfg.Train().Instantiate())
+    losses = [prog.Run(state)[1]["loss"] for _ in range(3)]
+    res[name] = (losses, convert.ThetaToNumpy(lm).Flatten())
+  loss_err = max(abs(a - b) for a, b in zip(res["cpu"][0], res["cuda"][0]))
+  theta_err = max(float(np.abs(a - b).max())
+                  for a, b in zip(res["cpu"][1], res["cuda"][1]))
+  moved = max(float(np.abs(a - b).max()) for a, b in zip(init, res["cpu"][1]))
+  _Check(moved > 1e-4, f"tiny train: theta did not move ({moved})")
+  _Check(loss_err <= 1e-4, f"tiny train losses cuda vs cpu: {loss_err}")
+  _Check(theta_err <= 1e-4, f"tiny train theta cuda vs cpu: {theta_err}")
+  print(f"tiny train reference: losses {res['cpu'][0]} (cpu), "
+        f"{res['cuda'][0]} (cuda); max loss err {loss_err:.3g}, max theta "
+        f"err {theta_err:.3g} (<= 1e-4); theta moved by up to {moved:.3g}")
+
+
+def _ModelFlops(lm, cfg, pairs_per_layer):
+  """(model FLOPs of one training step, the formula). N = non-embedding
+  parameters, T = tokens, P = attended pairs per layer, L = layers:
+  6 N T (forward and backward of the matmuls) + 2 N T (their remat
+  forward) + 6 V D T (the tied head: forward, d_hidden, d_emb) +
+  L (4 + 8 + 4) H P (attention forward, backward, remat forward)."""
+  n = sum(x.numel() for x in lm.parameters()) - lm.emb.emb.numel()
+  tokens = cfg.BATCH_SIZE * cfg.SEQUENCE_LENGTH
+  h = cfg.MODEL_DIM // cfg.NUM_HEADS
+  flops = (8 * n * tokens + 6 * cfg.VOCAB_SIZE * cfg.MODEL_DIM * tokens
+           + cfg.NUM_LAYERS * 16 * h * pairs_per_layer)
+  return flops, ("8 N T + 6 V D T + 16 L H P with N = "
+                 f"{n}, T = {tokens}, V = {cfg.VOCAB_SIZE}, D = "
+                 f"{cfg.MODEL_DIM}, L = {cfg.NUM_LAYERS}, H = {h}, P = "
+                 f"{pairs_per_layer}")
+
+
+def _ProfileTrainStep(torch, prog, state):
+  """One training step under torch.profiler: device busy ms, the shares of
+  the GEMMs, the three flash kernels and the xent kernel, the top 5."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    prog.Run(state)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and _DevUs(e) > 0]
+  busy_ms = sum(_DevUs(e) for e in kernels) / 1e3
+  if busy_ms == 0:
+    print("profiled train step: the profiler recorded no device time")
+    return
+  kernels.sort(key=_DevUs, reverse=True)
+  share = lambda *keys: sum(_DevUs(e) for e in kernels if any(
+      k in e.key for k in keys)) / 1e3 / busy_ms
+  gemm = sum(_DevUs(e) for e in kernels if "gemm" in e.key.lower()
+             or "cutlass" in e.key.lower()) / 1e3 / busy_ms
+  print(f"profiled one train step: device busy {busy_ms:.1f} ms of "
+        f"{wall_ms:.1f} ms wall ({busy_ms / wall_ms:.1%}); GEMMs {gemm:.1%},"
+        f" flash fwd {share('FlashFwdKernel'):.1%}, dK/dV "
+        f"{share('FlashDkDvKernel'):.1%}, dQ {share('FlashDqKernel'):.1%}, "
+        f"fused xent {share('FusedXentStatsKernel'):.1%} of busy")
+  for e in kernels[:5]:
+    print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+
+
+def _TrainMain(torch, spi, program, counters, pairs_per_layer):
+  """DenseLm1B (flash on, xent block 1280, remat 'full') trained through
+  TrainProgram on SyntheticLmInput(seed 0): 1 warm-up step, then 4 counted
+  steps with the kernel counts set to 0 just before; then one profiled
+  step. Returns the counted run's launches."""
+  cfg = spi.DenseLm1B()
+  p = _TrainTask(cfg)
+  t0 = time.perf_counter()
+  lm = p.Instantiate(device="cuda")
+  state = lm.CreateTrainState(torch.Generator("cuda").manual_seed(0))
+  gen = cfg.Train().Set(seed=0).Instantiate()
+  prog = lambda n: program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=n), task=lm,
+      input_generator=gen)
+  torch.cuda.synchronize()
+  print(f"DenseLm1B train task: {sum(x.numel() for x in lm.parameters()):,}"
+        f" params, remat {p.remat_policy!r}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+  t0 = time.perf_counter()
+  state, out = prog(1).Run(state)
+  print(f"warm-up step: {time.perf_counter() - t0:.2f} s, loss "
+        f"{out['loss']:.4f}")
+  counted = prog(4)
+  torch.cuda.synchronize()
+  for fn in counters.values():
+    fn.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  state, out = counted.Run(state)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = {name: fn.launches for name, fn in counters.items()}
+  _Check(np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]),
+         f"non-finite loss or grad_norm: {out}")
+  _Check(out["skipped_step"] == 0, f"a step was skipped: {out}")
+  want = dict(ragged_block_attend=0, flash_attention_fwd=48 * 4,
+              flash_attention_dkdv=24 * 4, flash_attention_dq=24 * 4,
+              fused_xent_fwd=4)
+  _Check(launches == want, f"launches {launches} != {want} (4 steps)")
+  flops, formula = _ModelFlops(lm, cfg, pairs_per_layer)
+  ms = wall / 4 * 1e3
+  print(f"trained 4 steps: {ms:.1f} ms/step, "
+        f"{4 * cfg.BATCH_SIZE * cfg.SEQUENCE_LENGTH / wall:.1f} tokens/s, "
+        f"loss {out['loss']:.4f}, grad_norm {out['grad_norm']:.4f}, "
+        f"learning_rate {out['learning_rate']:.3g}, skipped "
+        f"{out['skipped_step']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+  print(f"launches in the 4 counted steps: {launches} (per step: flash fwd "
+        "24 + 24 remat recompute, dK/dV 24, dQ 24, xent 1)")
+  print(f"model FLOPs per step {flops / 1e12:.2f} TFLOP ({formula}); "
+        f"achieved {flops / (ms / 1e3) / 1e12:.2f} TFLOP/s = "
+        f"{flops / (ms / 1e3) / FP32_FLOPS_PER_S:.1%} of the 67 TFLOP/s "
+        "float32 peak")
+  _ProfileTrainStep(torch, prog(1), state)
+  return launches, ms
+
+
 def _DevUs(e):
   return (getattr(e, "self_device_time_total", 0)
           or getattr(e, "self_cuda_time_total", 0))
@@ -234,7 +559,10 @@ def main():
   from lingvo_tpu_torch.core import ragged
   from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
   from lingvo_tpu_torch.ops import cuda_build
+  from lingvo_tpu_torch.ops import flash_attention as fa
+  from lingvo_tpu_torch.ops import fused_xent as fx
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
+  from lingvo_tpu_torch.runners import program
   from lingvo_tpu_torch.serving import engine
 
   _Phase("1. versions and card")
@@ -251,21 +579,29 @@ def main():
   print(f"tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
-  _Phase("2. build kernels")
-  t0 = time.perf_counter()
-  cuda_build.Load("ragged_block_attend")
-  print(f"built ragged_block_attend in {time.perf_counter() - t0:.2f} s")
-  for line in cuda_build.BuildLog("ragged_block_attend").splitlines():
-    if "registers" in line or "spill" in line:
-      print(f"  {line.strip()}")
+  _Phase("2. build kernels (one nvcc per source, in parallel)")
+  sources = ("ragged_block_attend", "flash_attention", "fused_xent")
+
+  def _Build(name):
+    t0 = time.perf_counter()
+    cuda_build.Load(name)
+    return time.perf_counter() - t0
+
+  with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    seconds = dict(zip(sources, pool.map(_Build, sources)))
+  for name in sources:
+    print(f"built {name} in {seconds[name]:.2f} s")
+    for line in cuda_build.BuildLog(name).splitlines():
+      if "registers" in line or "spill" in line or "smem" in line:
+        print(f"  {line.strip()}")
 
   _Phase("3. ragged attention kernel vs plain version (f32, tol 1e-5)")
-  print("library_ms: null (no single PyTorch call computes paged ragged "
-        "attention over block tables)")
+  print("ragged library_ms: null (no single PyTorch call computes paged "
+        "ragged attention over block tables)")
   rng = np.random.RandomState(0)
   checks = [_CheckKernel(torch, rba, ragged, page, rng) for page in (16, 128)]
 
-  _Phase("4. main path: DenseLm1B through ServingLoop")
+  _Phase("4. serving main path: DenseLm1B through ServingLoop")
   _TinyReference(torch, spi, engine, ragged)
   t0 = time.perf_counter()
   cfg = spi.DenseLm1B()
@@ -284,7 +620,13 @@ def main():
   lens = prng.permutation(np.linspace(64, 768, 8).astype(np.int32))
   prompts = [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
   steps0 = eng.Stats()["steps"]
-  rba.RaggedAttend.launches = 0
+  counters = dict(ragged_block_attend=rba.RaggedAttend,
+                  flash_attention_fwd=fa.FlashForward,
+                  flash_attention_dkdv=fa.FlashDkDv,
+                  flash_attention_dq=fa.FlashDq,
+                  fused_xent_fwd=fx.FusedXentStats)
+  for fn in counters.values():
+    fn.launches = 0
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   eng.Start()
@@ -292,15 +634,18 @@ def main():
   streams = [h.Result(timeout=900) for h in handles]
   eng.Stop()
   wall = time.perf_counter() - t0
-  launches = rba.RaggedAttend.launches
+  serve_launches = {name: fn.launches for name, fn in counters.items()}
   steps = eng.Stats()["steps"] - steps0
   for s in streams:
     _Check(len(s) == 32 and all(0 <= x < cfg.VOCAB_SIZE for x in s),
            f"bad stream {s}")
   ttft = sorted(h.first_token_time - h.submit_time for h in handles)
   tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
+  launches = serve_launches["ragged_block_attend"]
   _Check(launches == 24 * steps,
          f"kernel launches {launches} != 24 layers x {steps} steps")
+  _Check(sum(serve_launches.values()) == launches,
+         f"serving launched a training kernel: {serve_launches}")
   print(f"served 8 requests (prompts {sorted(lens.tolist())}): {steps} steps,"
         f" {wall / steps * 1e3:.2f} ms/step, "
         f"{8 * 32 / wall:.1f} generated tok/s, "
@@ -311,10 +656,36 @@ def main():
         f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
         f"{np.mean(tpot) * 1e3:.2f} ms")
   _Profile(torch, eng, prompts, steps)
+  del eng, lm, handles
+  gc.collect()
+  torch.cuda.empty_cache()
 
-  _Phase("5. result")
+  _Phase("5. flash-attention kernels vs plain version at [8, 1024, 16, 128]")
+  flash = _CheckFlash(torch, fa, np.random.RandomState(5))
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("6. fused-xent kernel vs plain version at [8192, 2048] x "
+         "[32000, 2048]")
+  print("fused xent library_ms: null (no single PyTorch call computes "
+        "capped logits with an online lse, the label logit and the argmax)")
+  xent = _CheckXent(torch, fx, np.random.RandomState(6), 1280, 0.0, True)
+  _CheckXent(torch, fx, np.random.RandomState(7), 1536, 0.1, False)
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("7. training main path: DenseLm1B through TrainProgram")
+  _TinyTrainReference(torch, spi, program)
+  tcfg = spi.DenseLm1B()
+  half = tcfg.SEQUENCE_LENGTH // 2
+  pairs_per_layer = (tcfg.BATCH_SIZE * tcfg.NUM_HEADS * 2 * half
+                     * (half + 1) // 2)
+  train_launches, _ = _TrainMain(torch, spi, program, counters,
+                                 pairs_per_layer)
+
+  _Phase("8. result")
   main_check = checks[0]
-  kernel = {
+  kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
       "source": "lingvo_tpu_torch/ops/csrc/ragged_block_attend.cu",
       "replaces": "lingvo_tpu/ops/ragged_block_attend.py:252",
@@ -322,8 +693,27 @@ def main():
       "max_abs_err": max(c["max_abs_err"] for c in checks),
       "ms": main_check["kernel_ms"], "plain_ms": main_check["plain_ms"],
       "bound_ms": main_check["bound_ms"], "bound_by": main_check["bound_by"],
-      "library_ms": None}
-  print(json.dumps({"kernels": [kernel]}))
+      "library_ms": None}]
+  for name, res, line in (("flash_attention_fwd", flash["fwd"], 230),
+                          ("flash_attention_dkdv", flash["dkdv"], 368),
+                          ("flash_attention_dq", flash["dq"], 408)):
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "lingvo_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": f"lingvo_tpu/ops/flash_attention.py:{line}",
+        "launches": train_launches[name], "max_abs_err": res["err"],
+        "ms": res["ms"], "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+        "library_ms": res["library_ms"]})
+  kernels.append({
+      "name": "fused_xent_fwd", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/fused_xent.cu",
+      "replaces": "lingvo_tpu/ops/fused_xent.py:277",
+      "launches": train_launches["fused_xent_fwd"],
+      "max_abs_err": xent["err"], "ms": xent["ms"],
+      "plain_ms": xent["plain_ms"], "bound_ms": xent["bound"][0],
+      "bound_by": xent["bound"][1], "library_ms": None})
+  print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))

@@ -8,6 +8,10 @@ unchanged; the one structural difference is the repeat stack, whose
 reference leaves carry a leading [num_layers] axis that is unstacked into
 `RepeatedTransformerLayer.body[i]`. A missing, extra or mis-shaped leaf
 raises.
+
+`ThetaToNumpy(module)` is the inverse: the module's parameters as the
+reference's theta, a NestedMap of numpy arrays with the repeat stack's
+per-layer parameters restacked on the leading [num_layers] axis.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import transformer
 
 
@@ -72,3 +77,14 @@ def LoadJaxTheta(module: torch.nn.Module, theta_np) -> list[str]:
   loaded: list[str] = []
   _Load(module, theta_np, "", loaded)
   return loaded
+
+
+def _ToNumpy(leaf) -> np.ndarray:
+  if isinstance(leaf, base_layer.StackedLeaf):
+    return np.stack([_ToNumpy(x) for x in leaf.layers])
+  return leaf.detach().cpu().numpy()
+
+
+def ThetaToNumpy(module: base_layer.BaseLayer):
+  """The module's theta in the reference's structure, as numpy copies."""
+  return module.ThetaTree().Transform(_ToNumpy)

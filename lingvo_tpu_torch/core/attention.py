@@ -1,16 +1,20 @@
-"""Multi-headed attention for the continuous-batching step.
+"""Multi-headed attention: the training FProp and the continuous-batching step.
 
-Port of the serving half of lingvo_tpu/core/attention.py
-`MultiHeadedAttention`: the projections (`_HeadsProj`, `_PostProj`), the
-learned per-dim query scale, the global KV page pool (`InitPagedStates`)
-and the packed-token `RaggedStep`. Weights keep the reference's layouts:
-w_query/w_key/w_value/w_post [D, N, H], biases [N, H] and [D].
-Activations are [B, T, N, H]. Only the Params fields the served models set
-are ported, plus those whose other values must raise.
+Port of lingvo_tpu/core/attention.py `MultiHeadedAttention`: the
+projections (`_HeadsProj`, `_PostProj`), the learned per-dim query scale,
+the training `FProp` (causal, padding and segment masks; the fused flash
+kernel of `ops/flash_attention.py` when `use_flash_attention` is set and
+the call is eligible, else the einsum path `_Atten`), the global KV page
+pool (`InitPagedStates`) and the packed-token `RaggedStep`. Weights keep
+the reference's layouts: w_query/w_key/w_value/w_post [D, N, H], biases
+[N, H] and [D]. Activations are [B, T, N, H]. Only the Params fields the
+DenseLm models set are ported, plus those whose other values must raise.
 
 The page pool is updated IN PLACE (`index_put_`) where the reference
 donated it to the jitted step and got a new array back: one KV pool per
-layer lives for the life of the serving engine.
+layer lives for the life of the serving engine. `RaggedStep` runs under
+`torch.no_grad()`: the serving step takes no gradient, and the pools
+never join an autograd graph.
 """
 
 from __future__ import annotations
@@ -21,9 +25,31 @@ import torch
 
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import layers as layers_lib
+from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
+from lingvo_tpu_torch.ops import flash_attention
 from lingvo_tpu_torch.ops import ragged_block_attend
+
+_NEG_INF = -2.3819763e38  # the reference's additive mask value
+
+
+def CausalMask(t: int, device=None) -> torch.Tensor:
+  """[1, 1, t, t] additive mask: 0 on/below the diagonal, _NEG_INF above."""
+  keep = torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
+  return torch.where(keep, 0.0, _NEG_INF)[None, None]
+
+
+def PaddingsToMask(paddings: torch.Tensor) -> torch.Tensor:
+  """[b, s] paddings -> [b, 1, 1, s] additive key mask."""
+  return (paddings[:, None, None, :] * _NEG_INF).float()
+
+
+def SegmentMask(q_segment_ids: torch.Tensor,
+                k_segment_ids: torch.Tensor) -> torch.Tensor:
+  """Packed-sequence mask [b, 1, t, s]; cross-segment pairs masked."""
+  same = q_segment_ids[:, :, None] == k_segment_ids[:, None, :]
+  return torch.where(same, 0.0, _NEG_INF)[:, None]
 
 
 class PerDimScaleLayer(base_layer.BaseLayer):
@@ -48,7 +74,7 @@ class PerDimScaleLayer(base_layer.BaseLayer):
 
 
 class MultiHeadedAttention(base_layer.BaseLayer):
-  """Dot-product multi-headed attention, serving step only."""
+  """Dot-product multi-headed attention: FProp and the serving step."""
 
   @classmethod
   def Params(cls):
@@ -59,6 +85,11 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     p.Define("atten_dropout_prob", 0.0, "Attention prob dropout.")
     p.Define("atten_logit_cap", 0.0, "If >0, tanh-cap logits.")
     p.Define("use_rotary_position_emb", False, "Apply RoPE to q/k.")
+    p.Define(
+        "use_flash_attention", False,
+        "FProp runs the fused flash kernel when eligible (self-attention "
+        "with only causal/padding/segment masking, no logit cap or "
+        "dropout, t a multiple of 16); the einsum path otherwise.")
     p.Define("kv_cache_dtype", None,
              "KV page pool storage dtype: None/'float32' (ported) or "
              "'int8' (the quantized-serving slice).")
@@ -104,6 +135,87 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     """[B, T, N, H] contracted with [D, N, H] over (N, H) -> [B, T, D]."""
     return torch.einsum("btnh,dnh->btd", ctx, self.w_post) + self.b_post
 
+  # -- training forward --------------------------------------------------------
+
+  def _Atten(self, q, k, v, atten_mask):
+    """q [B, T, N, H], k/v [B, S, N, H], additive mask broadcastable to
+    [B, N, T, S] -> [B, T, N, H] context and the [B, N, T, S] probs."""
+    p = self.p
+    logits = torch.einsum("btnh,bsnh->bnts", q, k)
+    if p.atten_logit_cap > 0:
+      logits = p.atten_logit_cap * torch.tanh(logits / p.atten_logit_cap)
+    logits = logits.float()
+    if atten_mask is not None:
+      logits = logits + atten_mask.float()
+    # stacked masks can sum below f32 min (-inf -> NaN softmax rows on
+    # fully masked queries); the clamp keeps rows finite
+    logits = torch.clamp(logits, min=_NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnts,bsnh->btnh", probs, v), probs
+
+  def _FlashEligible(self, key_vec, atten_mask, t) -> bool:
+    """Self-attention with only causal/padding/segment masking runs the
+    fused kernel (paddings and segment ids fold into its segment mask).
+    The reference also gates on its TPU tiling here; the CUDA kernels take
+    any t, and their own limits are checked by their wrappers."""
+    p = self.p
+    return (p.use_flash_attention and key_vec is None and atten_mask is None
+            and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0
+            and t % 16 == 0)
+
+  def FProp(self, query_vec, key_vec=None, value_vec=None, paddings=None,
+            atten_mask=None, segment_ids=None, causal=False):
+    """Returns ([B, T, D] output, [B, N, T, S] probs or None on the flash
+    path).
+
+    atten_mask: optional additive mask. paddings: key paddings [B, S].
+    segment_ids: [B, T] packed-input ids for both q and k (self-attention).
+    causal=True masks the future as a flag, so the flash kernel can run.
+    Rotary positions are arange(T)."""
+    if self.p.atten_dropout_prob > 0:
+      raise NotImplementedError(
+          "attention dropout comes with a later training slice of the port")
+    use_flash = self._FlashEligible(key_vec, atten_mask, query_vec.shape[1])
+    key_vec = query_vec if key_vec is None else key_vec
+    value_vec = key_vec if value_vec is None else value_vec
+    q = self._HeadsProj("query", query_vec)
+    k = self._HeadsProj("key", key_vec)
+    v = self._HeadsProj("value", value_vec)
+    if self.p.use_rotary_position_emb:
+      q = self.rotary.FProp(q)
+      k = self.rotary.FProp(k)
+    q = self.per_dim_scale.FProp(q)
+    if use_flash:
+      # paddings and segment ids both become the kernel's segment mask:
+      # padding gets segment 0, so pad keys never reach real queries
+      seg = segment_ids
+      if paddings is not None:
+        base = segment_ids if segment_ids is not None else torch.ones_like(
+            paddings, dtype=torch.int32)
+        seg = torch.where(paddings > 0.5, 0, base).to(torch.int32)
+      # the kernel scales by 1/sqrt(h) inside; q already carries the
+      # learned query scale, so cancel the kernel's factor
+      ctx = flash_attention.FlashAttention(
+          (q * math.sqrt(self._dim_per_head)).contiguous(), k.contiguous(),
+          v.contiguous(), causal=causal, segment_ids=seg)
+      if paddings is not None:
+        # pad queries attend only pad keys here and real keys on the
+        # einsum path: both garbage, zeroed for path parity
+        ctx = py_utils.ApplyPadding(paddings, ctx)
+      return self._PostProj(ctx), None
+    mask = atten_mask
+    if causal:
+      cm = CausalMask(query_vec.shape[1], device=query_vec.device)
+      mask = cm if mask is None else mask + cm
+    if paddings is not None:
+      pm = PaddingsToMask(paddings)
+      mask = pm if mask is None else mask + pm
+    if segment_ids is not None:
+      sm = SegmentMask(segment_ids, segment_ids)
+      mask = sm if mask is None else mask + sm
+    ctx, probs = self._Atten(q, k, v, mask)
+    return self._PostProj(ctx), probs
+
   # -- block-table paged serving ---------------------------------------------
 
   def InitPagedStates(self, num_pages: int, page_size: int,
@@ -132,6 +244,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     return (page_size > 0 and p.rel_pos_emb_dim == 0
             and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0)
 
+  @torch.no_grad()
   def RaggedStep(self, query_vec, cached_states: NestedMap, block_tables,
                  rows):
     """One PACKED continuous-batching step (core/ragged.py RaggedRows).

@@ -17,10 +17,17 @@ Lifecycle:
 Every layer lives on one explicit device, resolved once at construction
 and inherited by its children: `device=None` means CUDA, and raises when
 no CUDA device exists rather than running on the CPU unasked.
+
+Weights are trainable `nn.Parameter`s (requires_grad=True): the train step
+takes their gradients with `loss.backward()` and its optimizer updates
+them in place. The serving step runs under `torch.no_grad()`.
+`ThetaTree()` gives the reference's theta structure over the parameters,
+which the learner walks and `convert.ThetaToNumpy` exports.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
 import torch
@@ -28,6 +35,7 @@ from torch import nn
 
 from lingvo_tpu_torch.core import hyperparams
 from lingvo_tpu_torch.core import py_utils
+from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
 
 
@@ -43,6 +51,18 @@ def ResolveDevice(device: Any = None) -> torch.device:
     if dev.index is None:
       dev = torch.device("cuda", torch.cuda.current_device())
   return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedLeaf:
+  """One theta leaf of a repeat stack: the per-layer parameters that the
+  reference keeps stacked on a leading [num_layers] axis, in layer order."""
+
+  layers: tuple
+
+  @property
+  def shape(self) -> tuple:
+    return (len(self.layers),) + tuple(self.layers[0].shape)
 
 
 class BaseLayer(nn.Module):
@@ -136,9 +156,8 @@ class BaseLayer(nn.Module):
     return children
 
   def CreateVariable(self, name: str, wp: WeightParams):
-    """Registers an (uninitialized) parameter; InstantiateVariables fills it.
-
-    Serving-only weights in this port: requires_grad is off."""
+    """Registers an (uninitialized) trainable parameter;
+    InstantiateVariables fills it."""
     if name in self._variable_specs:
       raise ValueError(f"Variable {name!r} already declared on {self.p.name}")
     if wp.dtype != torch.float32:
@@ -148,7 +167,24 @@ class BaseLayer(nn.Module):
     self._variable_specs[name] = wp
     self.register_parameter(name, nn.Parameter(
         torch.empty(wp.shape, dtype=wp.dtype, device=self.device),
-        requires_grad=False))
+        requires_grad=True))
+
+  def ThetaTree(self) -> NestedMap:
+    """This layer's parameters in the reference's theta structure: own
+    weights by name, children by child name (a ModuleList as a list),
+    children without weights left out. The tensors are the parameters
+    themselves, not copies."""
+    tree = NestedMap()
+    for name, prm in self.named_parameters(recurse=False):
+      tree[name] = prm
+    for cname, child in self.named_children():
+      if isinstance(child, nn.ModuleList):
+        sub = [c.ThetaTree() for c in child]
+      else:
+        sub = child.ThetaTree()
+      if any(True for _ in child.parameters()):
+        tree[cname] = sub
+    return tree
 
   # ---- variable materialization --------------------------------------------
 

@@ -1,0 +1,119 @@
+"""BaseTask: the trainable unit (port of part of lingvo_tpu/core/base_model.py).
+
+A task splits into `ComputePredictions` / `ComputeLoss`, returning a
+metrics NestedMap of (value, weight) pairs, as in the reference. The
+reference's `TrainStep(state) -> new_state` is pure; here the parameters
+are the module's own and `TrainStep` updates them and the optimizer slots
+IN PLACE: the gradient comes from `loss.backward()`, the learner applies
+it under `torch.no_grad()`, and `state` carries the step counter and the
+optimizer state.
+
+One learner per task; the EMA of theta and multiple learners (GANs) raise
+NotImplementedError until a later slice ports them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lingvo_tpu_torch.core import base_layer
+from lingvo_tpu_torch.core import hyperparams
+from lingvo_tpu_torch.core import learner as learner_lib
+from lingvo_tpu_torch.core import optimizer as optimizer_lib
+from lingvo_tpu_torch.core.nested_map import NestedMap
+
+
+class BaseTask(base_layer.BaseLayer):
+  """A trainable task: model graph + loss."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("input", None, "Input generator params for this task.")
+    tp = hyperparams.Params()
+    tp.Define("learner", learner_lib.Learner.Params(),
+              "The Learner (a list of several is not ported).")
+    tp.Define("ema_decay", 0.0, "If >0, keep an EMA copy of theta (not "
+              "ported: raises).")
+    p.Define("train", tp, "Training hyperparams.")
+    return p
+
+  def __init__(self, params, device=None):
+    super().__init__(params, device)
+    tp = self.p.train
+    lp = tp.learner
+    if isinstance(lp, (list, tuple)):
+      if len(lp) != 1:
+        raise NotImplementedError(
+            "multiple learners come with a later training slice")
+      lp = lp[0]
+    if tp.ema_decay > 0:
+      raise NotImplementedError(
+          "the EMA of theta comes with a later training slice")
+    self._learner_params = lp
+
+  @property
+  def learner(self) -> learner_lib.Learner:
+    """The learner, built on first use: serving never needs one."""
+    if "learners" not in self._modules:
+      self.CreateChildren("learners", [self._learner_params])
+    return self.learners[0]
+
+  # ---- subclass points -------------------------------------------------------
+
+  def ComputePredictions(self, input_batch: NestedMap) -> NestedMap:
+    raise NotImplementedError
+
+  def ComputeLoss(self, predictions: NestedMap,
+                  input_batch: NestedMap) -> tuple[NestedMap, NestedMap]:
+    """(metrics NestedMap of (value, weight), per_example NestedMap);
+    metrics holds the learner's loss_name entry ('loss' by default)."""
+    raise NotImplementedError
+
+  def FProp(self, input_batch: NestedMap) -> tuple[NestedMap, NestedMap]:
+    predictions = self.ComputePredictions(input_batch)
+    return self.ComputeLoss(predictions, input_batch)
+
+  # ---- train state -------------------------------------------------------------
+
+  def TrainableTheta(self) -> dict:
+    """{theta path: parameter or StackedLeaf} this task's learner trains."""
+    lrn = self.learner
+    return {k: v for k, v in self.ThetaTree().FlattenItems()
+            if lrn.TrainableFilter(k)}
+
+  def CreateTrainState(self, generator: torch.Generator | None = None
+                       ) -> NestedMap:
+    """NestedMap(step=0, opt_states=[slots]): the step counter and the
+    optimizer state of the weights the module holds now. With a
+    generator, initializes the weights from it first."""
+    if generator is not None:
+      self.InstantiateVariables(generator)
+    return NestedMap(step=0,
+                     opt_states=[self.learner.InitState(self.TrainableTheta())])
+
+  def TrainStep(self, state: NestedMap, input_batch: NestedMap) -> NestedMap:
+    """One training step, IN PLACE: the parameters and state.opt_states
+    are updated and state.step advances by one. Returns
+    NestedMap(metrics, stats, per_example), every value detached."""
+    lrn = self.learner
+    params = self.TrainableTheta()
+    for prm in self.parameters():
+      prm.grad = None
+    with torch.enable_grad():
+      metrics, per_example = self.FProp(input_batch)
+      metrics[lrn.p.loss_name][0].float().backward()
+    grads = {}
+    for key, leaf in params.items():
+      members = [m.grad if m.grad is not None else torch.zeros_like(m)
+                 for m in optimizer_lib.Members(leaf)]
+      grads[key] = (base_layer.StackedLeaf(tuple(members))
+                    if isinstance(leaf, base_layer.StackedLeaf) else
+                    members[0])
+    stats = lrn.Apply(params, grads, state.step, state.opt_states[0])
+    for prm in self.parameters():
+      prm.grad = None
+    state.step += 1
+    detach = lambda x: x.detach() if isinstance(x, torch.Tensor) else x
+    return NestedMap(metrics=metrics.Transform(detach), stats=stats,
+                     per_example=per_example.Transform(detach))

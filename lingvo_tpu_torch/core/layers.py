@@ -1,9 +1,12 @@
-"""Core NN layers the served LM uses (port of part of lingvo_tpu/core/layers.py).
+"""Core NN layers the LM uses (port of part of lingvo_tpu/core/layers.py).
 
 `ProjectionLayer`, `LayerNorm`, `RotaryPositionalEmbeddingLayer` and the
 tied `SharedEmbeddingSoftmaxLayer` (lookup with the sqrt(d) scale, logits
-with the tanh cap), with the reference's Params field names, weight names
-and float32 op order. Only the fields the served models set are ported.
+with the tanh cap, and the training loss: the dense `XentLossFromLogits`
+or, with `xent_block_size > 0`, the fused blockwise xent of
+`ops/fused_xent.py`), with the reference's Params field names, weight
+names and float32 op order. Only the fields the DenseLm models set are
+ported.
 """
 
 from __future__ import annotations
@@ -14,7 +17,9 @@ import torch
 
 from lingvo_tpu_torch.core import activations
 from lingvo_tpu_torch.core import base_layer
+from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
+from lingvo_tpu_torch.ops import fused_xent
 
 
 class ProjectionLayer(base_layer.BaseLayer):
@@ -81,10 +86,11 @@ class RotaryPositionalEmbeddingLayer(base_layer.BaseLayer):
     p.Define("max_timescale", 1e4, "Max timescale.")
     return p
 
-  def FProp(self, inputs, position):
+  def FProp(self, inputs, position=None):
     """inputs: [..., t, n, h]; position: float32, broadcastable to the
-    leading [..., t] dims. Rotates the first embedding_dim features of h;
-    the rest pass through (partial rotary).
+    leading [..., t] dims, or None for arange(t) (the training step).
+    Rotates the first embedding_dim features of h; the rest pass through
+    (partial rotary).
 
     The timescale is built in float32 exactly as the reference builds it:
     min * (max / min) ** (arange(half) / half)."""
@@ -98,6 +104,12 @@ class RotaryPositionalEmbeddingLayer(base_layer.BaseLayer):
     base = torch.tensor(p.max_timescale / p.min_timescale,
                         dtype=torch.float32, device=inputs.device)
     timescale = p.min_timescale * torch.pow(base, fraction)
+    if position is None:
+      t_ax = inputs.ndim - 3
+      shape = [1] * inputs.ndim
+      shape[t_ax] = inputs.shape[t_ax]
+      position = torch.arange(inputs.shape[t_ax], dtype=torch.float32,
+                              device=inputs.device).reshape(shape)
     while position.ndim < inputs.ndim:
       position = position[..., None]
     sinusoid = position / timescale
@@ -120,6 +132,10 @@ class SharedEmbeddingSoftmaxLayer(base_layer.BaseLayer):
     p.Define("vocab_size", 0, "Vocab.")
     p.Define("embedding_dim", 0, "Depth.")
     p.Define("logits_soft_max", 0.0, "If >0, cap logits with tanh.")
+    p.Define("xent_block_size", 0,
+             "If >0, FProp with class_ids computes the fused blockwise "
+             "xent (ops/fused_xent.py) over the tied table and never "
+             "materializes [..., V] logits. 0 = the dense path.")
     return p
 
   def __init__(self, params, device=None):
@@ -142,3 +158,49 @@ class SharedEmbeddingSoftmaxLayer(base_layer.BaseLayer):
     if cap > 0:
       logits = cap * torch.tanh(logits / cap)
     return logits
+
+  def FProp(self, inputs, class_ids=None, class_probabilities=None,
+            label_smoothing=0.0):
+    """NestedMap(per_example_xent, log_probs, logits) on the dense path;
+    on the fused path logits and log_probs are None and label_log_probs
+    and argmax (int32) come out of the streaming pass instead."""
+    if FusedXentEligible(self.p, class_ids, class_probabilities):
+      out = fused_xent.FusedXent(
+          inputs, self.emb, class_ids, block_size=self.p.xent_block_size,
+          logits_soft_max=self.p.logits_soft_max,
+          label_smoothing=label_smoothing, weight_layout="vd")
+      return NestedMap(per_example_xent=out.per_example_xent,
+                       log_probs=None, logits=None,
+                       label_log_probs=out.label_log_prob,
+                       argmax=out.argmax)
+    logits = self.Logits(inputs)
+    out = XentLossFromLogits(logits, self.p.vocab_size, class_ids,
+                             class_probabilities, label_smoothing)
+    out.logits = logits
+    return out
+
+
+def FusedXentEligible(p, class_ids, class_probabilities) -> bool:
+  """Gate for the blockwise fused LM-head xent: opted in via
+  p.xent_block_size, needs integer labels (dense class_probabilities would
+  re-materialize [..., V] anyway)."""
+  return (p.xent_block_size > 0 and class_ids is not None
+          and class_probabilities is None)
+
+
+def XentLossFromLogits(logits, num_classes, class_ids=None,
+                       class_probabilities=None, label_smoothing=0.0):
+  """Softmax cross-entropy in float32; returns NestedMap(per_example_xent,
+  log_probs)."""
+  log_probs = torch.log_softmax(logits.float(), dim=-1)
+  if class_probabilities is None:
+    if class_ids is None:
+      raise ValueError("XentLossFromLogits needs class_ids or "
+                       "class_probabilities")
+    class_probabilities = torch.nn.functional.one_hot(
+        class_ids.long(), num_classes).float()
+  if label_smoothing > 0.0:
+    class_probabilities = ((1.0 - label_smoothing) * class_probabilities +
+                           label_smoothing / num_classes)
+  per_example_xent = -torch.sum(class_probabilities * log_probs, dim=-1)
+  return NestedMap(per_example_xent=per_example_xent, log_probs=log_probs)

@@ -1,11 +1,14 @@
-"""Weight specs and initializers (port of part of lingvo_tpu/core/py_utils.py).
+"""Weight specs, initializers and tensor helpers (port of part of lingvo_tpu/core/py_utils.py).
 
-Only what layers need to declare and initialize their weights: the
+What layers need to declare and initialize their weights: the
 `WeightInit` catalogue, the `WeightParams` spec and `InitWeight`, which
 fills a tensor in place from an explicit `torch.Generator`. The init
 laws (fans, scales, truncation at two sigma) are the reference's; the
 random numbers are torch's and differ from JAX's, so tests carry weights
 across with `convert.LoadJaxTheta` rather than re-drawing them.
+
+And what the train step needs: `ApplyPadding`, `SequenceMask` and
+`GlobalNorm`, in the reference's float32 op order.
 """
 
 from __future__ import annotations
@@ -151,3 +154,23 @@ def InitWeight(out: torch.Tensor, wp: WeightParams,
   if method == "truncated_gaussian_sqrt_fanin":
     return _Truncated(scale / math.sqrt(_fans()[0]))
   raise ValueError(f"Unknown init method {method!r}")
+
+
+def ApplyPadding(padding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """Zeroes padded positions; padding broadcast against x."""
+  while padding.ndim < x.ndim:
+    padding = padding[..., None]
+  return x * (1.0 - padding).to(x.dtype)
+
+
+def SequenceMask(paddings: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+  return (1.0 - paddings).to(dtype)
+
+
+def GlobalNorm(tensors) -> torch.Tensor:
+  """sqrt of the sum of squares of every tensor (float32), as one 0-d
+  tensor on the tensors' device; 0.0 for an empty list."""
+  tensors = list(tensors)
+  if not tensors:
+    return torch.zeros(())
+  return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))

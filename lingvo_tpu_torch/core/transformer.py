@@ -1,4 +1,4 @@
-"""Transformer layers and stacks, serving step (port of lingvo_tpu/core/transformer.py).
+"""Transformer layers and stacks, training FProp and serving step (port of lingvo_tpu/core/transformer.py).
 
 `TransformerFeedForwardLayer`, `TransformerAttentionLayer` and
 `TransformerLayer` keep the reference's pre-LN/residual structure and child
@@ -7,19 +7,27 @@ names. `StackedTransformerLayers` holds N distinct layers.
 reference keeps one body with every weight stacked on a leading axis and
 scans it; here `body` is an `nn.ModuleList` of num_layers layers walked
 in a Python loop (the converter unstacks the reference's axis into it).
-The repeat's KV pools stay stacked, [num_layers, pages, P, N, H], as in
-the reference, and each layer updates its own slice in place.
+Its `remat_policy='full'` wraps each layer of the loop in
+`torch.utils.checkpoint` (the reference's `jax.checkpoint` of the scan
+body): only the layer boundaries are saved and the backward recomputes
+each layer's forward. The repeat's KV pools stay stacked,
+[num_layers, pages, P, N, H], as in the reference, and each layer updates
+its own slice in place.
 
-Only the Params fields the served models set are ported (no dropout,
-gating, remat or cross-attention fields: serving runs none of them).
+Only the Params fields the DenseLm models set are ported (no dropout,
+gating or cross-attention fields).
 """
 
 from __future__ import annotations
+
+import torch
+from torch.utils import checkpoint as checkpoint_lib
 
 from lingvo_tpu_torch.core import activations
 from lingvo_tpu_torch.core import attention as attention_lib
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import layers as layers_lib
+from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 
 
@@ -49,10 +57,13 @@ class TransformerFeedForwardLayer(base_layer.BaseLayer):
         layers_lib.ProjectionLayer.Params().Set(
             input_dim=p.hidden_dim, output_dim=p.input_dim))
 
-  def FProp(self, inputs):
+  def FProp(self, inputs, paddings=None):
     h = activations.GetFn(self.p.activation)(
         self.ffn_in.FProp(self.ln.FProp(inputs)))
-    return inputs + self.ffn_out.FProp(h)
+    out = self.ffn_out.FProp(h)
+    if paddings is not None:
+      out = py_utils.ApplyPadding(paddings, out)
+    return inputs + out
 
 
 class TransformerAttentionLayer(base_layer.BaseLayer):
@@ -65,6 +76,7 @@ class TransformerAttentionLayer(base_layer.BaseLayer):
     p.Define("num_heads", 8, "Heads.")
     p.Define("atten_tpl", attention_lib.MultiHeadedAttention.Params(),
              "Attention template.")
+    p.Define("is_masked", False, "Causal self-attention.")
     return p
 
   def __init__(self, params, device=None):
@@ -77,6 +89,16 @@ class TransformerAttentionLayer(base_layer.BaseLayer):
         hidden_dim=p.atten_tpl.hidden_dim or p.input_dim,
         num_heads=p.num_heads)
     self.CreateChild("atten", atten_p)
+
+  def FProp(self, query_vec, paddings=None, atten_mask=None,
+            segment_ids=None):
+    """Self-attention; causality is passed as a flag (not a materialized
+    mask) so the fused flash kernel can take over when eligible."""
+    x = self.ln.FProp(query_vec)
+    out, probs = self.atten.FProp(x, paddings=paddings, atten_mask=atten_mask,
+                                  segment_ids=segment_ids,
+                                  causal=self.p.is_masked)
+    return query_vec + out, probs
 
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
@@ -92,7 +114,7 @@ class TransformerAttentionLayer(base_layer.BaseLayer):
 
 
 class TransformerLayer(base_layer.BaseLayer):
-  """Self-attention + FFN (decoder-only serving)."""
+  """Self-attention + FFN (decoder-only)."""
 
   @classmethod
   def Params(cls):
@@ -100,6 +122,7 @@ class TransformerLayer(base_layer.BaseLayer):
     p.Define("input_dim", 0, "Model dim.")
     p.Define("num_heads", 8, "Heads.")
     p.Define("hidden_dim", 0, "FFN inner dim (0 = 4*input).")
+    p.Define("mask_self_atten", False, "Causal self-attention (decoder).")
     p.Define("tr_atten_tpl", TransformerAttentionLayer.Params(),
              "Self-attention template.")
     p.Define("tr_fflayer_tpl", TransformerFeedForwardLayer.Params(),
@@ -110,12 +133,18 @@ class TransformerLayer(base_layer.BaseLayer):
     super().__init__(params, device)
     p = self.p
     self.CreateChild("self_atten", p.tr_atten_tpl.Copy().Set(
-        input_dim=p.input_dim, num_heads=p.num_heads))
+        input_dim=p.input_dim, num_heads=p.num_heads,
+        is_masked=p.mask_self_atten))
     self.CreateChild(
         "fflayer",
         p.tr_fflayer_tpl.Copy().Set(
             input_dim=p.input_dim,
             hidden_dim=p.hidden_dim or 4 * p.input_dim))
+
+  def FProp(self, inputs, paddings=None, segment_ids=None):
+    x, _ = self.self_atten.FProp(inputs, paddings=paddings,
+                                 segment_ids=segment_ids)
+    return self.fflayer.FProp(x, paddings)
 
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
@@ -152,6 +181,12 @@ class StackedTransformerLayers(base_layer.BaseLayer):
         t.input_dim = p.input_dim
     self.CreateChildren("x_layers", tpls)
 
+  def FProp(self, inputs, paddings=None, segment_ids=None):
+    x = inputs
+    for layer in self.x_layers:
+      x = layer.FProp(x, paddings, segment_ids)
+    return x
+
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
     return NestedMap(x_layers=[
@@ -176,12 +211,47 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
     p = super().Params()
     p.Define("num_layers", 0, "Repeat count.")
     p.Define("body", TransformerLayer.Params(), "The repeated layer.")
+    p.Define(
+        "remat_policy", "full",
+        "What the per-layer checkpoint saves: 'full' = only the layer "
+        "boundary, the backward recomputes the layer; 'none' = no remat; "
+        "'dots' (save matmul outputs) comes with a later training slice.")
     return p
 
   def __init__(self, params, device=None):
     super().__init__(params, device)
     assert self.p.num_layers > 0
+    if self.p.remat_policy not in ("full", "dots", "none"):
+      raise ValueError(f"remat_policy {self.p.remat_policy!r}")
     self.CreateChildren("body", [self.p.body] * self.p.num_layers)
+
+  def ThetaTree(self) -> NestedMap:
+    """The reference's repeat theta: each leaf of the body as a
+    StackedLeaf of the num_layers per-layer parameters."""
+    trees = [layer.ThetaTree() for layer in self.body]
+    leaves = zip(*(t.Flatten() for t in trees))
+    return NestedMap(body=trees[0].Pack(
+        [base_layer.StackedLeaf(tuple(ls)) for ls in leaves]))
+
+  def FProp(self, inputs, paddings=None, segment_ids=None):
+    """Runs the layers in order. Under remat_policy='full' (and with grad
+    enabled) each layer is a `torch.utils.checkpoint` region: its
+    activations are freed after the forward and recomputed, flash forward
+    kernel included, when the backward reaches it."""
+    p = self.p
+    remat = p.remat_policy != "none" and torch.is_grad_enabled()
+    if remat and p.remat_policy == "dots":
+      raise NotImplementedError(
+          "remat_policy='dots' (save matmul outputs) comes with a later "
+          "training slice of the port; use 'full' or 'none'")
+    x = inputs
+    for layer in self.body:
+      if remat:
+        x = checkpoint_lib.checkpoint(layer.FProp, x, paddings, segment_ids,
+                                      use_reentrant=False)
+      else:
+        x = layer.FProp(x, paddings, segment_ids)
+    return x
 
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):

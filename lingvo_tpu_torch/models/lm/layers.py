@@ -1,13 +1,20 @@
-"""Decoder-only transformer LM, serving step (port of lingvo_tpu/models/lm/layers.py).
+"""Decoder-only transformer LM: training step and serving step (port of lingvo_tpu/models/lm/layers.py).
 
-`TransformerLm` carries the reference's Params and builds the
+`TransformerLm` is a `BaseTask` with the reference's Params. It builds the
 attention-only stack: tied embedding/softmax (`emb`), a repeated or
-stacked transformer (`stack`) and `final_ln`. It implements the
-continuous-batching surface the serving engine drives:
-`InitPagedDecodeState` and `RaggedStep`. Only the Params fields the served
-models set are ported, plus those whose other values raise
-NotImplementedError naming the slice that brings them (MoE, SSM mixers,
-int8 KV pools, attention dropout, the sampled softmax).
+stacked transformer (`stack`) and `final_ln`, and implements:
+
+- the training surface: `ComputePredictions` / `ComputeLoss` over packed
+  batches (ids, labels, paddings, segment_ids), with the dense head or,
+  with `xent_block_size > 0`, the fused blockwise xent; `BaseTask.TrainStep`
+  drives them;
+- the continuous-batching surface the serving engine drives:
+  `InitPagedDecodeState` and `RaggedStep`.
+
+Only the Params fields the DenseLm models set are ported, plus those whose
+other values raise NotImplementedError naming the slice that brings them
+(MoE, SSM mixers, int8 KV pools, attention dropout, the sampled softmax,
+the bidirectional encoder).
 
 Construct on an explicit device: `TransformerLm.Params().Set(...)
 .Instantiate(device="cpu")`; with no device the model goes to CUDA and
@@ -16,13 +23,22 @@ raises when there is none.
 
 from __future__ import annotations
 
-from lingvo_tpu_torch.core import base_layer
+import torch
+
+from lingvo_tpu_torch.core import base_model
 from lingvo_tpu_torch.core import layers as layers_lib
+from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import transformer as transformer_lib
+from lingvo_tpu_torch.core.nested_map import NestedMap
 
 
-class TransformerLm(base_layer.BaseLayer):
-  """Decoder-only transformer LM (serving step)."""
+class TransformerLm(base_model.BaseTask):
+  """Decoder-only transformer LM.
+
+  Input batch fields (packed format), torch tensors on the model's device:
+    ids: [b, t] int32        labels: [b, t] int32
+    paddings: [b, t] f32     (optional) segment_ids: [b, t] int32
+  """
 
   @classmethod
   def Params(cls):
@@ -34,8 +50,19 @@ class TransformerLm(base_layer.BaseLayer):
     p.Define("hidden_dim", 2048, "FFN inner dim.")
     p.Define("use_repeat_layer", True,
              "Repeated (True) vs distinct (False) layers.")
-    p.Define("use_rotary", True, "RoPE on q/k at the tokens' positions.")
+    p.Define("remat_policy", "full",
+             "Per-layer rematerialization under use_repeat_layer: 'full' | "
+             "'none' ('dots' comes with a later training slice).")
+    p.Define("atten_tpl", None, "Optional attention template override.")
+    p.Define("use_rotary", True, "RoPE on q/k.")
+    p.Define("bidirectional", False,
+             "No causal mask (the BERT-style encoder slice; False only).")
+    p.Define("label_smoothing", 0.0, "Label smoothing.")
     p.Define("softmax_logits_soft_max", 30.0, "Logit tanh cap.")
+    p.Define("xent_block_size", 0,
+             "If >0, the train loss runs the fused blockwise LM-head xent "
+             "(ops/fused_xent.py) this many vocab entries at a time and the "
+             "[B, T, V] logits never exist. 0 = the dense head.")
     # fields whose non-default values raise until their slice is ported
     p.Define("mixer_tpl", None,
              "O(1)-state sequence mixer template (the SSM-hybrid slice).")
@@ -43,9 +70,10 @@ class TransformerLm(base_layer.BaseLayer):
              "KV page pool dtype for every attention layer: None (float32); "
              "'int8' comes with the quantized-serving slice.")
     p.Define("atten_dropout_prob", 0.0,
-             "Attention dropout (needs the gather-dense serving fallback).")
+             "Attention dropout (a later training slice; the serving step "
+             "needs the gather-dense fallback).")
     p.Define("softmax_num_sampled", 0,
-             "Sampled-softmax training head (comes with the training slice).")
+             "Sampled-softmax training head (the sampled-softmax slice).")
     p.Define("num_experts", 0, "GShard MoE experts (the MoE slice).")
     return p
 
@@ -59,15 +87,22 @@ class TransformerLm(base_layer.BaseLayer):
           "SSM sequence mixers come with the SSM-hybrid slice of the port")
     if p.softmax_num_sampled > 0:
       raise NotImplementedError(
-          "the sampled-softmax head comes with the training slice")
+          "the sampled-softmax head comes with the sampled-softmax slice of "
+          "the port")
+    if p.bidirectional:
+      raise NotImplementedError(
+          "the bidirectional (BERT-style) encoder comes with a later slice")
     self.CreateChild(
         "emb",
         layers_lib.SharedEmbeddingSoftmaxLayer.Params().Set(
             vocab_size=p.vocab_size, embedding_dim=p.model_dim,
-            logits_soft_max=p.softmax_logits_soft_max))
+            logits_soft_max=p.softmax_logits_soft_max,
+            xent_block_size=p.xent_block_size))
     layer_body = transformer_lib.TransformerLayer.Params().Set(
         input_dim=p.model_dim, num_heads=p.num_heads,
-        hidden_dim=p.hidden_dim)
+        hidden_dim=p.hidden_dim, mask_self_atten=not p.bidirectional)
+    if p.atten_tpl is not None:
+      layer_body.tr_atten_tpl.atten_tpl = p.atten_tpl.Copy()
     layer_body.tr_atten_tpl.atten_tpl.Set(
         use_rotary_position_emb=p.use_rotary,
         kv_cache_dtype=p.kv_cache_dtype,
@@ -76,7 +111,8 @@ class TransformerLm(base_layer.BaseLayer):
       self.CreateChild(
           "stack",
           transformer_lib.RepeatedTransformerLayer.Params().Set(
-              num_layers=p.num_layers, body=layer_body))
+              num_layers=p.num_layers, body=layer_body,
+              remat_policy=p.remat_policy))
     else:
       self.CreateChild(
           "stack",
@@ -85,6 +121,52 @@ class TransformerLm(base_layer.BaseLayer):
               transformer_layer_params_tpl=layer_body))
     self.CreateChild(
         "final_ln", layers_lib.LayerNorm.Params().Set(input_dim=p.model_dim))
+
+  # -- training forward ----------------------------------------------------------
+
+  def ComputePredictions(self, input_batch: NestedMap) -> NestedMap:
+    """NestedMap(hidden [b, t, D]) with the fused head, else
+    NestedMap(logits [b, t, V])."""
+    if not self.p.use_rotary:
+      raise NotImplementedError(
+          "absolute position embeddings come with a later training slice; "
+          "the DenseLm models are rotary")
+    x = self.emb.EmbLookup(input_batch.ids)
+    x = self.stack.FProp(x, paddings=input_batch.paddings,
+                         segment_ids=input_batch.Get("segment_ids"))
+    x = self.final_ln.FProp(x)
+    if self.p.xent_block_size > 0:
+      return NestedMap(hidden=x)
+    return NestedMap(logits=self.emb.Logits(x))
+
+  def ComputeLoss(self, predictions: NestedMap, input_batch: NestedMap):
+    """(metrics of (value, weight) pairs, NestedMap(xent [b, t])), as the
+    reference: the loss is the padding-weighted mean xent."""
+    p = self.p
+    labels = input_batch.labels
+    weights = py_utils.SequenceMask(input_batch.paddings)
+    tot_weight = torch.clamp(torch.sum(weights), min=1e-8)
+    if "hidden" in predictions:
+      # fused blockwise xent: the per-token loss and the argmax metric come
+      # out of the streaming pass
+      out = self.emb.FProp(predictions.hidden, class_ids=labels,
+                           label_smoothing=p.label_smoothing)
+      correct = out.argmax == labels
+    else:
+      out = layers_lib.XentLossFromLogits(
+          predictions.logits, p.vocab_size, class_ids=labels,
+          label_smoothing=p.label_smoothing)
+      correct = torch.argmax(predictions.logits, dim=-1) == labels
+    avg_xent = torch.sum(out.per_example_xent * weights) / tot_weight
+    metrics = NestedMap(
+        loss=(avg_xent, tot_weight),
+        log_pplx=(avg_xent, tot_weight),
+        fraction_of_correct_next_step_preds=(
+            torch.sum(correct * weights) / tot_weight, tot_weight),
+        num_predictions=(tot_weight, 1.0))
+    return metrics, NestedMap(xent=out.per_example_xent)
+
+  # -- serving ---------------------------------------------------------------
 
   def InitPagedDecodeState(self, num_pages: int, page_size: int,
                            num_slots: int = 0,
@@ -95,6 +177,7 @@ class TransformerLm(base_layer.BaseLayer):
                                       num_slots=num_slots,
                                       kv_cache_dtype=kv_cache_dtype)
 
+  @torch.no_grad()
   def RaggedStep(self, ids, states, block_tables, rows):
     """Packed-token continuous-batching step: ids [1, T] -> (logits
     [1, T, vocab], states).

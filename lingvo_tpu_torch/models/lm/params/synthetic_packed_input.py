@@ -1,17 +1,24 @@
-"""Dense LM configs, serving fields (port of lingvo_tpu/models/lm/params/synthetic_packed_input.py).
+"""Dense LM configs (port of lingvo_tpu/models/lm/params/synthetic_packed_input.py).
 
-The DenseLm family's model shapes exactly as the reference defines them.
-Only `Task()` is ported, with the model fields the serving step reads;
-the input generator and the learner come with the training slice.
+The DenseLm family's model shapes, synthetic packed input and learner
+exactly as the reference defines them: `Train()` (the input), `Task()`
+(the model and its `train.learner`: Adafactor with beta1 0.9 and no
+parameter scaling, LinearRampupCosineDecay with 1000 warmup steps,
+global-norm clip 1.0). The reference's mesh, eval input and registry stay
+behind; configs are classes the caller instantiates.
 """
 
 from __future__ import annotations
 
+from lingvo_tpu_torch.core import learner as learner_lib
+from lingvo_tpu_torch.core import optimizer as opt_lib
+from lingvo_tpu_torch.core import schedule as sched_lib
+from lingvo_tpu_torch.models.lm import input_generator
 from lingvo_tpu_torch.models.lm import layers as lm_layers
 
 
 class DenseLmTemplate:
-  """Shared recipe for the DenseLm family (model widths)."""
+  """Shared recipe for the DenseLm family."""
 
   SEQUENCE_LENGTH = 1024
   BATCH_SIZE = 8  # per host
@@ -21,6 +28,16 @@ class DenseLmTemplate:
   NUM_HEADS = 16
   HIDDEN_DIM = 4096
   USE_REPEAT = True
+  # If >0, the fused blockwise LM-head xent: the [B, T, V] logits are never
+  # materialized. Prefer a value dividing VOCAB_SIZE; 0 = the dense head.
+  XENT_BLOCK_SIZE = 0
+  LEARNING_RATE = 2.5e-4
+  MAX_STEPS = 1_000_000
+
+  def Train(self):
+    return input_generator.SyntheticLmInput.Params().Set(
+        batch_size=self.BATCH_SIZE, seq_len=self.SEQUENCE_LENGTH,
+        vocab_size=self.VOCAB_SIZE, packing=True)
 
   def Task(self):
     p = lm_layers.TransformerLm.Params()
@@ -31,6 +48,14 @@ class DenseLmTemplate:
     p.num_heads = self.NUM_HEADS
     p.hidden_dim = self.HIDDEN_DIM
     p.use_repeat_layer = self.USE_REPEAT
+    p.xent_block_size = self.XENT_BLOCK_SIZE
+    p.train.learner = learner_lib.Learner.Params().Set(
+        learning_rate=self.LEARNING_RATE,
+        optimizer=opt_lib.Adafactor.Params().Set(
+            beta1=0.9, multiply_by_parameter_scale=False),
+        lr_schedule=sched_lib.LinearRampupCosineDecay.Params().Set(
+            warmup_steps=1000, total_steps=self.MAX_STEPS),
+        clip_gradient_norm_to_value=1.0)
     return p
 
 
@@ -44,6 +69,8 @@ class DenseLmTiny(DenseLmTemplate):
   NUM_LAYERS = 2
   NUM_HEADS = 4
   HIDDEN_DIM = 128
+  LEARNING_RATE = 3e-3
+  MAX_STEPS = 2000
 
 
 class DenseLm1B(DenseLmTemplate):

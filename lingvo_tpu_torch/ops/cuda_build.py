@@ -10,7 +10,8 @@ The build happens at first use, into `build/lingvo_tpu_torch/` under the
 repository root, keyed by a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one loads the library already
 there. The ptxas report (registers, shared memory, spills) is kept beside
-each library as `<lib>.log`.
+each library as `<lib>.log`. Loads of different sources may run in
+parallel threads (one nvcc each); loads of one source are serialized.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "lingvo_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -57,7 +59,9 @@ def BuildLog(name: str) -> str:
 def Load(name: str) -> ctypes.CDLL:
   """`name`'s library, compiled first if it is missing; loaded once per
   process. Raises with nvcc's output if the compile fails."""
-  with _lock:
+  with _locks_lock:
+    lock = _locks.setdefault(name, threading.Lock())
+  with lock:
     lib = _loaded.get(name)
     if lib is None:
       path = LibraryPath(name)

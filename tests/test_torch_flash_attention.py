@@ -1,0 +1,230 @@
+"""lingvo_tpu_torch flash attention against the JAX reference on the CPU.
+
+- The plain `FlashAttention` (the CPU path) against the JAX `FlashAttention`
+  run as the Pallas kernel in interpret mode (`block_q = block_k = 16`) at
+  [2, 32, 2, 16]: causal and full, without segments and with a packed
+  segment mask that starts a segment mid-block and ends in a padding tail
+  of id 0. Out, the row logsumexp and the gradients of sum(out**2) agree
+  within atol 2e-5 (float32; the frameworks sum in different orders).
+- The autograd Function that ties the three kernels together, driven
+  through the wrappers' CPU paths, gives the same gradients.
+- `MultiHeadedAttention.FProp` with `use_flash_attention` on and off
+  against the reference's, with paddings and segments.
+- The wrappers raise on bfloat16 and bad shapes; the kernels themselves
+  are checked on the card by the `cuda`-marked cases, which skip here. The
+  module imports JAX only inside `_Jax`, so on a machine with a card and
+  no JAX the kernel cases run alone:
+
+    python -m pytest tests/test_torch_flash_attention.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lingvo_tpu_torch import convert
+from lingvo_tpu_torch.core import attention
+from lingvo_tpu_torch.ops import flash_attention as fa
+
+ATOL = 2e-5
+B, T, N, H = 2, 32, 2, 16
+
+
+def _Jax():
+  """(jax, jax.numpy, the reference flash_attention, the reference
+  attention module)."""
+  import jax
+  import jax.numpy as jnp
+  from lingvo_tpu.core import attention as jax_attention
+  from lingvo_tpu.ops import flash_attention as jax_fa
+  return jax, jnp, jax_fa, jax_attention
+
+
+def _Segments():
+  """Row 0: segments 1 | 2 split mid-block (at 11), then a padding tail of
+  id 0 from 25; row 1: one segment 1 | 2 split at the block edge 16."""
+  seg = np.zeros((B, T), np.int32)
+  seg[0, :11], seg[0, 11:25] = 1, 2
+  seg[1, :16], seg[1, 16:] = 1, 2
+  return seg
+
+
+def _Inputs(seed):
+  rng = np.random.RandomState(seed)
+  return [rng.randn(B, T, N, H).astype(np.float32) for _ in range(3)]
+
+
+def _JaxForward(q, k, v, seg, causal):
+  """(out [b, t, n, h], lse [b, n, t]) of the Pallas kernel, interpreted."""
+  _, jnp, jax_fa, _ = _Jax()
+  flat = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * N, T, H)
+  out, lse = jax_fa._FlashForward(
+      flat(q), flat(k), flat(v), None if seg is None else jnp.asarray(seg),
+      16, 16, causal, True)
+  out = np.asarray(out).reshape(B, N, T, H).transpose(0, 2, 1, 3)
+  return out, np.asarray(lse[..., 0]).reshape(B, N, T)
+
+
+def _JaxGrads(q, k, v, seg, causal):
+  jax, jnp, jax_fa, _ = _Jax()
+  def Loss(q, k, v):
+    out = jax_fa.FlashAttention(
+        q, k, v, causal=causal,
+        segment_ids=None if seg is None else jnp.asarray(seg),
+        block_q=16, block_k=16, interpret=True)
+    return jnp.sum(out ** 2)
+  return jax.grad(Loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+
+
+def _TorchGrads(fn, q, k, v):
+  leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+  torch.sum(fn(*leaves) ** 2).backward()
+  return [x.grad.numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_seg", [False, True])
+def test_plain_matches_interpreted_kernel(causal, with_seg):
+  q, k, v = _Inputs(0)
+  seg = _Segments() if with_seg else None
+  out_j, lse_j = _JaxForward(q, k, v, seg, causal)
+  tseg = None if seg is None else torch.as_tensor(seg)
+  out_t, lse_t = fa.FlashForward(*map(torch.as_tensor, (q, k, v)), tseg,
+                                 causal)
+  np.testing.assert_allclose(out_t.numpy(), out_j, atol=ATOL, rtol=0)
+  np.testing.assert_allclose(lse_t.numpy(), lse_j, atol=ATOL, rtol=0)
+  public = fa.FlashAttention(*map(torch.as_tensor, (q, k, v)), causal=causal,
+                             segment_ids=tseg)
+  np.testing.assert_allclose(public.numpy(), out_j, atol=ATOL, rtol=0)
+  grads_j = _JaxGrads(q, k, v, seg, causal)
+  grads_t = _TorchGrads(lambda *x: fa.FlashAttention(
+      *x, causal=causal, segment_ids=tseg), q, k, v)
+  for gj, gt in zip(grads_j, grads_t):
+    np.testing.assert_allclose(gt, np.asarray(gj), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_autograd_function_wires_the_three_kernels(causal):
+  """The Function the CUDA path runs (forward kernel, delta, dK/dV, dQ),
+  driven through the wrappers' CPU paths, matches autograd of the plain
+  version; on the CPU it counts no launch."""
+  q, k, v = _Inputs(1)
+  seg = torch.as_tensor(_Segments())
+  before = (fa.FlashForward.launches, fa.FlashDkDv.launches,
+            fa.FlashDq.launches)
+  via_fn = _TorchGrads(
+      lambda *x: fa._FlashFunction.apply(*x, seg, causal), q, k, v)
+  plain = _TorchGrads(lambda *x: fa._PlainAttention(*x, seg, causal), q, k, v)
+  for a, b in zip(via_fn, plain):
+    np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+  assert (fa.FlashForward.launches, fa.FlashDkDv.launches,
+          fa.FlashDq.launches) == before
+
+
+def test_row_delta_layout():
+  rng = np.random.RandomState(2)
+  do, out = (torch.as_tensor(rng.randn(B, T, N, H).astype(np.float32))
+             for _ in range(2))
+  delta = fa.RowDelta(do, out)
+  assert delta.shape == (B, N, T) and delta.is_contiguous()
+  np.testing.assert_allclose(
+      delta.numpy(), np.einsum("btnh,btnh->bnt", do.numpy(), out.numpy()),
+      atol=1e-5)
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_mha_fprop_matches_reference(use_flash):
+  """Causal self-attention with rotary, key paddings and segments: the
+  flash path (paddings folded into the segment mask, ctx zeroed at pads)
+  and the einsum path each match the reference's same path."""
+  jax, jnp, _, jax_attention = _Jax()
+  fields = dict(name="a", input_dim=24, num_heads=2,
+                use_rotary_position_emb=True, use_flash_attention=use_flash)
+  jl = jax_attention.MultiHeadedAttention.Params().Set(**fields).Instantiate()
+  theta = jl.InstantiateVariables(jax.random.PRNGKey(3))
+  rng = np.random.RandomState(3)
+  theta = jax.tree_util.tree_map(
+      lambda x: np.asarray(x) + 0.1 * rng.randn(*x.shape).astype(np.float32),
+      theta)
+  tl = attention.MultiHeadedAttention.Params().Set(**fields).Instantiate(
+      device="cpu")
+  convert.LoadJaxTheta(tl, theta)
+  x = rng.randn(B, T, 24).astype(np.float32)
+  paddings = np.zeros((B, T), np.float32)
+  paddings[0, 25:] = 1.0
+  seg = _Segments()
+  out_j, _ = jl.FProp(theta, jnp.asarray(x), paddings=jnp.asarray(paddings),
+                      segment_ids=jnp.asarray(seg), causal=True)
+  out_t, probs = tl.FProp(torch.as_tensor(x),
+                          paddings=torch.as_tensor(paddings),
+                          segment_ids=torch.as_tensor(seg), causal=True)
+  assert (probs is None) == use_flash
+  np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
+                             atol=ATOL, rtol=1e-5)
+
+
+def test_mha_flash_eligibility():
+  tl = attention.MultiHeadedAttention.Params().Set(
+      name="a", input_dim=8, num_heads=2,
+      use_flash_attention=True).Instantiate(device="cpu")
+  assert tl._FlashEligible(None, None, 32)
+  assert not tl._FlashEligible(None, None, 30)          # t % 16
+  assert not tl._FlashEligible(torch.zeros(1), None, 32)  # cross-attention
+  assert not tl._FlashEligible(None, torch.zeros(1), 32)  # additive mask
+
+
+def test_wrappers_raise_on_bf16_and_bad_shapes():
+  q = torch.zeros(1, 16, 2, 16)
+  with pytest.raises(TypeError, match="bf16-kernel slice"):
+    fa.FlashAttention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+  with pytest.raises(ValueError, match="one \\[b, t, n, h\\] shape"):
+    fa.FlashForward(q, q[:, :8], q[:, :8], None, True)
+  with pytest.raises(ValueError, match="segment ids must be int32"):
+    fa.FlashForward(q, q, q, torch.zeros(1, 15, dtype=torch.int32), True)
+  rows = torch.zeros(1, 2, 16)
+  with pytest.raises(ValueError, match="lse must be float32"):
+    fa.FlashDkDv(q, q, q, None, q, rows[:, :, :8], rows, True)
+  with pytest.raises(ValueError, match="runs on cpu or cuda"):
+    fa.FlashAttention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+# -- on the card ---------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+  if not torch.cuda.is_available():
+    pytest.skip("needs an NVIDIA GPU: the flash kernels are CUDA C++ with no "
+                "CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernels_match_plain_on_card(cuda, causal):
+  """The three kernels at t = 200 (a ragged last tile), h = 64, against
+  the plain version on the card."""
+  rng = np.random.RandomState(4)
+  q, k, v, do = (torch.as_tensor(rng.randn(2, 200, 3, 64).astype(
+      np.float32)).cuda() for _ in range(4))
+  seg = np.ones((2, 200), np.int32)
+  seg[0, 70:] = 2
+  seg[1, 150:] = 0
+  seg = torch.as_tensor(seg).cuda()
+  out, lse = fa.FlashForward(q, k, v, seg, causal)
+  out_p, lse_p = fa._PlainForward(q, k, v, seg, causal)
+  delta = fa.RowDelta(do, out)
+  dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, causal)
+  dq = fa.FlashDq(q, k, v, seg, do, lse, delta, causal)
+  dq_p, dk_p, dv_p = fa._PlainBackward(q, k, v, seg, do, causal)
+  torch.cuda.synchronize()
+  for got, want in ((out, out_p), (lse, lse_p)):
+    assert float((got - want).abs().max()) <= 2e-5
+  for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_raises_on_unsupported_head_dim(cuda):
+  q = torch.zeros(1, 16, 2, 24, device="cuda")
+  with pytest.raises(ValueError, match="multiple of 16"):
+    fa.FlashForward(q, q, q, None, True)
