@@ -9,30 +9,44 @@
    and ptxas registers, shared memory and spills.
 3. Holds the ragged paged-attention kernel against its plain PyTorch
    version on the card, at the serving step's shapes (N=16, H=128, T=264,
-   page_size 16 with 64-page tables, then page_size 128), on a pack of
-   decode rows, two prefill chunks, a tree row with real ancestor masks and
-   padding tokens, with freed pages, stale slots and table entries past
-   each row's pages poisoned with NaN. Tolerance: float32, max abs
-   difference <= 1e-5. Times the kernel, the plain version and the bound.
-4. Serving main path: DenseLm1B at full width and depth (random weights
+   page_size 16 with 64-page tables, then page_size 128; then H=64, the
+   hybrid's heads, at page_size 16), on a pack of decode rows, two prefill
+   chunks, a tree row with real ancestor masks and padding tokens, with
+   freed pages, stale slots and table entries past each row's pages
+   poisoned with NaN. Tolerance: float32, max abs difference <= 1e-5.
+   Times the kernel, the plain version and the bound.
+4. Holds the chunked SSD-scan kernel against `_ChunkedPlain` on the card
+   at the hybrid's serving shape ([8, 256, 16] with S = H = 64, chunk 64:
+   rows of mixed live lengths padded as identity steps, a reset, a nonzero
+   initial state) and its training shape ([8, 1024, 16], two segments of
+   512): y and the final state finite and within 2e-5 x max(1, max|want|).
+   Times the kernel, the plain version and the bound.
+5. Serving main path: DenseLm1B at full width and depth (random weights
    from a seeded torch.Generator) through `ServingLoop`: 8 requests with
    prompts of 64..768 tokens, 32 new tokens each, through
    Start/Submit/Result/Stop. Checks the streams, and that the ragged kernel
-   ran exactly 24 times per step and no training kernel ran. Before that, a
+   ran exactly 24 times per step and no other kernel ran. Before that, a
    DenseLmTiny engine on the card must reproduce the same model's CPU
    streams. After the counted run, the same requests are served again with
-   torch.profiler on over the first 4 and the last 4 steps. The serving
-   model is freed before the training phases.
-5. Holds the flash-attention forward, dK/dV and dQ kernels against the
+   torch.profiler on over the first 4 and the last 4 steps.
+6. Hybrid serving main path: DenseLmSsmHybridTiny on the card must
+   reproduce its CPU streams; then DenseLmSsmHybrid at full width and
+   depth (d 1024, 12 layers, attention every 6th, SSM state 64, chunk 64;
+   random weights from a seeded torch.Generator) serves the same 8 requests
+   through Start/Submit/Result/Stop. Checks exactly 10 scan and 2 ragged
+   launches per step and no training kernel; prints ms/step, tok/s, TTFT,
+   TPOT, peak memory and a torch.profiler split of busy time (GEMMs, scan,
+   ragged, rest). Each serving model is freed before the next phase.
+7. Holds the flash-attention forward, dK/dV and dQ kernels against the
    plain version at the training step's shapes ([8, 1024, 16, 128], causal,
    two segments of 512, one row ending in 100 padding tokens): out, lse,
    dq, dk, dv finite and within the printed tolerances. Times each kernel,
    the plain version, the bound and SDPA with the same boolean mask.
-6. Holds the fused-xent statistics kernel against `_PlainStats` at
+8. Holds the fused-xent statistics kernel against `_PlainStats` at
    [8192, 2048] x [32000, 2048] (block 1280, cap 30), and at block 1536
    with label smoothing 0.1 (a ragged vocab tail): lse, label logit and
    logit sum within tolerance, argmax equal except on near-ties.
-7. Training main path: DenseLmTiny (flash on, xent block 1280, warmup 2)
+9. Training main path: DenseLmTiny (flash on, xent block 1280, warmup 2)
    trains 3 steps on the card and on the CPU from the same weights (losses
    and theta within 1e-4); then DenseLm1B (flash on, xent block 1280,
    remat 'full', random weights from a seeded generator) through
@@ -40,10 +54,13 @@
    counted steps with every kernel count set to 0 just before. Checks
    finite loss and grad_norm, no skipped step, and exactly 48 / 24 / 24 / 1
    launches per step of the flash forward, dK/dV, dQ and xent kernels (and
-   0 of the ragged kernel); prints ms per step, tokens per second, model
-   FLOPs and achieved TFLOP/s, peak memory, and a torch.profiler breakdown
-   of one more step.
-8. Prints the per-kernel JSON line, then the result line.
+   0 of the ragged and scan kernels); prints ms per step, tokens per
+   second, model FLOPs and achieved TFLOP/s, peak memory, and a
+   torch.profiler breakdown of one more step.
+10. Prints the per-kernel JSON line, then the result line.
+
+Kernel times are device times: CUDA events around the call, after an L2
+flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
 
 Exits non-zero, printing no result line, if any phase fails, if CUDA is
 not available, or if the lingvo_tpu_torch package is not beside it.
@@ -74,28 +91,63 @@ def _Check(ok, msg):
     raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def _TimeMs(torch, fn, iters, flush_bytes=64 << 20):
+def _TimeMs(torch, fn, iters, flush_bytes=64 << 20, waits_as=None):
   """Mean device ms of fn() over iters launches, each after an L2 flush
-  (a 64 MB write), timed with CUDA events around fn alone."""
+  (a 64 MB write), timed with CUDA events around fn alone. A spin kernel
+  after the flush keeps the card busy for twice fn's host enqueue time (at
+  least 1 ms), so the start event fires only once fn's launches are queued
+  and the events time the device work, not the wrappers' host time.
+
+  Each iteration checks that: the host's enqueue of fn must end before the
+  spin does (the spin's device time, read from an event before it). An
+  iteration where it did not is timed again with the spin doubled. If the
+  enqueue still outlasts a spin four times as long, fn waits on the device
+  inside its call, and no spin can cover the host's work after that wait.
+  A kernel wrapper must not (waits_as=None: the run fails); a plain
+  version may (waits_as names it), and its time then includes that host
+  work, which is printed."""
   scratch = torch.empty(flush_bytes // 4, dtype=torch.float32, device="cuda")
   fn()
   torch.cuda.synchronize()
-  total = 0.0
-  for _ in range(iters):
+  t0 = time.perf_counter()
+  fn()
+  host_s = time.perf_counter() - t0
+  torch.cuda.synchronize()
+  spin_cycles = int(2e9 * max(1e-3, 2 * host_s))   # about 2 GHz clocks
+  total, done, misses, waits = 0.0, 0, 0, False
+  while done < iters:
     scratch.zero_()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+    spin, start, end = (torch.cuda.Event(enable_timing=True)
+                        for _ in range(3))
+    spin.record()
+    torch.cuda._sleep(spin_cycles)
+    t0 = time.perf_counter()
     start.record()
     fn()
     end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
+    spin_ms = spin.elapsed_time(start)
+    if enqueue_ms >= spin_ms and not waits:
+      misses += 1
+      if misses < 3:
+        spin_cycles *= 2
+        continue
+      _Check(waits_as is not None,
+             f"_TimeMs: a kernel wrapper's enqueue ({enqueue_ms:.3f} ms) "
+             f"outlasted a spin of {spin_ms:.3f} ms: it waits on the device")
+      waits = True
+      print(f"{waits_as}: waits on the device inside its call; its time "
+            f"includes the host's work after the wait")
     total += start.elapsed_time(end)
+    done += 1
   return total / iters
 
 
-def _AttendPack(torch, ragged, page, rng):
-  """The kernel-check pack at page size `page` (see the module docstring)."""
-  n, h, t, b, max_seq = 16, 128, 264, 8, 1024
+def _AttendPack(torch, ragged, page, h, rng):
+  """The kernel-check pack at page size `page` and head dim `h` (see the
+  module docstring)."""
+  n, t, b, max_seq = 16, 264, 8, 1024
   t_pages = max_seq // page
   num_pages = 512 * 16 // page
   parents = np.array([-1, 0, 1, -1, 3, 4], np.int32)   # 2 branches of 3
@@ -132,26 +184,27 @@ def _AttendPack(torch, ragged, page, rng):
   return cuda, q_end == 0, moved, flops
 
 
-def _CheckKernel(torch, rba, ragged, page, rng):
-  x, pad, moved, flops = _AttendPack(torch, ragged, page, rng)
+def _CheckKernel(torch, rba, ragged, page, rng, h=128):
+  x, pad, moved, flops = _AttendPack(torch, ragged, page, h, rng)
   args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["row_of"],
           x["q_end"])
   tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
   out = rba.RaggedAttend(*args, page_size=page, **tree)
   plain = rba._PlainRaggedAttend(*args, page, **tree)
   torch.cuda.synchronize()
-  _Check(bool(torch.isfinite(out).all()), f"P={page}: non-finite output")
+  _Check(bool(torch.isfinite(out).all()), f"P={page} H={h}: non-finite")
   _Check(bool((out[torch.as_tensor(pad).cuda()] == 0).all()),
-         f"P={page}: padding outputs not exactly zero")
+         f"P={page} H={h}: padding outputs not exactly zero")
   err = float((out - plain).abs().max())
-  _Check(err <= TOL, f"P={page}: kernel vs plain max abs err {err} > {TOL}")
+  _Check(err <= TOL, f"P={page} H={h}: kernel vs plain max abs err {err} > "
+         f"{TOL}")
   kernel_ms = _TimeMs(torch, lambda: rba.RaggedAttend(
       *args, page_size=page, **tree), iters=20)
   plain_ms = _TimeMs(torch, lambda: rba._PlainRaggedAttend(
-      *args, page, **tree), iters=3)
+      *args, page, **tree), iters=3, waits_as="plain ragged")
   bytes_ms = moved / HBM_BYTES_PER_S * 1e3
   ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-  res = dict(page_size=page, max_abs_err=err, kernel_ms=kernel_ms,
+  res = dict(page_size=page, head_dim=h, max_abs_err=err, kernel_ms=kernel_ms,
              plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=moved, flops=flops, library_ms=None)
@@ -159,9 +212,10 @@ def _CheckKernel(torch, rba, ragged, page, rng):
   return res
 
 
-def _TinyReference(torch, spi, engine, ragged):
-  """DenseLmTiny on the card against the same weights on the CPU."""
-  p = spi.DenseLmTiny().Task()
+def _TinyReference(torch, cfg, engine, ragged):
+  """`cfg`, a tiny config, on the card against the same weights on the
+  CPU: one packed step's logits, then greedy streams."""
+  p = cfg.Task()
   cpu_lm = p.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
   gpu_lm = p.Instantiate(device="cuda")
@@ -171,7 +225,7 @@ def _TinyReference(torch, spi, engine, ragged):
   tables = np.arange(16, dtype=np.int32).reshape(4, 4)
   logits = {}
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
-    states = lm.InitPagedDecodeState(17, 8)
+    states = lm.InitPagedDecodeState(17, 8, num_slots=4)
     with torch.no_grad():
       out, _ = lm.RaggedStep(torch.as_tensor(ids).to(lm.device), states,
                              torch.as_tensor(tables).to(lm.device),
@@ -190,8 +244,80 @@ def _TinyReference(torch, spi, engine, ragged):
     streams[name] = eng.RunBatch(prompts, lens, max_new_tokens=8)
   _Check(np.array_equal(streams["cpu"], streams["cuda"]),
          f"tiny greedy streams differ:\n{streams['cpu']}\n{streams['cuda']}")
-  print(f"tiny reference: logits max abs err {err:.3g} (<= 1e-4), "
-        f"{len(lens)} greedy streams identical to the CPU path")
+  print(f"{type(cfg).__name__} reference: logits max abs err {err:.3g} "
+        f"(<= 1e-4), {len(lens)} greedy streams identical to the CPU path")
+
+SCAN_TOL = 2e-5   # x max(1, max|want|): float32, the two versions sum the
+                  # chunk products in other orders and the state carries the
+                  # differences from chunk to chunk
+
+
+def _ScanInputs(torch, ssd, rng, t, live, resets, with_s0):
+  """[8, t, 16] rows with S = H = 64: row i is live for live[i] steps and
+  padded after (dl = 0, v = 0), (row, step) in resets is a segment start
+  (dl = RESET_LOG), s0 nonzero or None. Returns the CUDA tensors and the
+  bytes a scan of them must move (each input read once, y and the final
+  state written once)."""
+  b, n, s, h = 8, 16, 64, 64
+  dl = -np.logaddexp(rng.randn(b, t, n), 0.0)
+  b_in, c_in = (0.5 * rng.randn(b, t, n, s) for _ in range(2))
+  v = 0.5 * rng.randn(b, t, n, h)
+  for row, step in resets:
+    dl[row, step] = ssd.RESET_LOG
+  pad = np.arange(t)[None] >= np.asarray(live)[:, None]
+  dl = np.where(pad[..., None], 0.0, dl)
+  v = np.where(pad[..., None, None], 0.0, v)
+  arrays = [dl, b_in, c_in, v]
+  if with_s0:
+    arrays.append(0.2 * rng.randn(b, n, h, s))
+  x = [torch.as_tensor(a.astype(np.float32)).cuda() for a in arrays]
+  moved = sum(a.size for a in arrays) * 4 + (b * t * n * h + b * n * h * s) * 4
+  return x, moved
+
+
+def _ScanFlops(t, q, s_dim, h):
+  """Operations one row's scan needs over t steps in chunks of q: per
+  chunk of qc steps, the inter-chunk output (c exp(cum)) s_in^T and the
+  state update (v exp(cum_Q - cum))^T b, 2 qc S H each, and the causal
+  lower triangle (diagonal included) of the two qc x qc products, G = c b^T
+  and (G o decay) v, qc (qc + 1) / 2 (S + H) FMAs. The upper triangle is
+  masked to 0 and adds nothing to the result, so it is not counted."""
+  total = 0
+  for start in range(0, t, q):
+    qc = min(q, t - start)
+    total += 2 * (2 * qc * s_dim * h + qc * (qc + 1) // 2 * (s_dim + h))
+  return total
+
+
+def _CheckScan(torch, ssd, label, x, moved, chunk=64):
+  """The scan kernel against `_ChunkedPlain` on the card; times both."""
+  dl, b_in, c_in, v = x[:4]
+  s0 = x[4] if len(x) > 4 else None
+  y, s_fin = ssd.SsdScan(dl, b_in, c_in, v, s0=s0, chunk_size=chunk)
+  y_p, s_p = ssd.SsdScan(dl, b_in, c_in, v, s0=s0, chunk_size=chunk,
+                         lowering="chunked")
+  torch.cuda.synchronize()
+  err = 0.0
+  for name, got, want in (("y", y, y_p), ("s_final", s_fin, s_p)):
+    _Check(bool(torch.isfinite(got).all()), f"scan {label} {name}: non-finite")
+    e = float((got - want).abs().max())
+    tol = SCAN_TOL * max(1.0, float(want.abs().max()))
+    print(f"scan {label} {name}: max abs err {e:.3g} (tol {tol:.3g})")
+    _Check(e <= tol, f"scan {label} {name}: {e} > {tol}")
+    err = max(err, e)
+  b, t, n = dl.shape
+  s_dim, h = b_in.shape[-1], v.shape[-1]
+  flops = _ScanFlops(t, min(chunk, t), s_dim, h) * b * n
+  ms = _TimeMs(torch, lambda: ssd.SsdScan(dl, b_in, c_in, v, s0=s0,
+                                          chunk_size=chunk), 20)
+  plain_ms = _TimeMs(torch, lambda: ssd.SsdScan(
+      dl, b_in, c_in, v, s0=s0, chunk_size=chunk, lowering="chunked"), 3,
+      waits_as="plain scan")
+  bound = _Bound(moved, flops)
+  print(f"scan {label} [{b}, {t}, {n}] S={s_dim} H={h} chunk {chunk}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
+        f"ms ({bound[1]}; {flops / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB)")
+  return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
 
 
 def _FlashInputs(torch, rng):
@@ -250,20 +376,22 @@ def _CheckFlash(torch, fa, rng):
                                                True), it)
   t_dq = _TimeMs(torch, lambda: fa.FlashDq(q, k, v, seg, do, lse, delta,
                                            True), it)
-  p_fwd = _TimeMs(torch, lambda: fa._PlainForward(q, k, v, seg, True), 3)
+  p_fwd = _TimeMs(torch, lambda: fa._PlainForward(q, k, v, seg, True), 3,
+                  waits_as="plain flash forward")
   p_bwd = _TimeMs(torch, lambda: fa._PlainBackward(q, k, v, seg, do, True),
-                  3)
+                  3, waits_as="plain flash backward")
   # the library yardstick: SDPA with the boolean causal-and-segment mask
   sdpa = torch.nn.functional.scaled_dot_product_attention
   mask = keep[:, None]
   qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-  l_fwd = _TimeMs(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), it)
+  l_fwd = _TimeMs(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), it,
+                  waits_as="SDPA forward")
   leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
   with torch.enable_grad():
     ref = sdpa(*leaves, attn_mask=mask)
   dot = do.transpose(1, 2)
   l_bwd = _TimeMs(torch, lambda: torch.autograd.grad(
-      ref, leaves, dot, retain_graph=True), it)
+      ref, leaves, dot, retain_graph=True), it, waits_as="SDPA backward")
   row = b * t * n * h * 4                 # one [b, t, n, h] f32 tensor
   stats = b * n * t * 4                   # one [b, n, t] f32 row statistic
   seg_b = b * t * 4
@@ -333,7 +461,7 @@ def _CheckXent(torch, fx, rng, block, ls, time_it):
     return None
   ms = _TimeMs(torch, lambda: fx.FusedXentStats(x, w, bias, labels, cfg), 5)
   plain_ms = _TimeMs(torch, lambda: fx._PlainStats(x, w, bias, labels, cfg),
-                     3)
+                     3, waits_as="plain xent stats")
   bound = _Bound((m * d + vocab * d + vocab + m) * 4 + 4 * m * 4,
                  2 * m * vocab * d)
   print(f"xent stats: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -473,7 +601,7 @@ def _TrainMain(torch, spi, program, counters, pairs_per_layer):
   _Check(np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]),
          f"non-finite loss or grad_norm: {out}")
   _Check(out["skipped_step"] == 0, f"a step was skipped: {out}")
-  want = dict(ragged_block_attend=0, flash_attention_fwd=48 * 4,
+  want = dict(ragged_block_attend=0, ssd_scan=0, flash_attention_fwd=48 * 4,
               flash_attention_dkdv=24 * 4, flash_attention_dq=24 * 4,
               fused_xent_fwd=4)
   _Check(launches == want, f"launches {launches} != {want} (4 steps)")
@@ -505,8 +633,8 @@ def _Profile(torch, eng, prompts, steps, window=4):
   two windows of `window` steps: the first (prefill chunks beside decode
   rows) and the last (decode only) of the `steps` the schedule takes.
   Prints, per window, device busy ms per step and its share of the wall,
-  the GEMMs' and the ragged attention kernel's shares, and the top
-  kernels."""
+  the shares of the GEMMs, the scan kernel, the ragged attention kernel
+  and the rest, and the top kernels."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   for pr in prompts:
@@ -533,17 +661,80 @@ def _Profile(torch, eng, prompts, steps, window=4):
       continue
     kernels.sort(key=_DevUs, reverse=True)
     attn = sum(_DevUs(e) for e in kernels if "RaggedAttend" in e.key) / 1e3
+    scan = sum(_DevUs(e) for e in kernels if "SsdScan" in e.key) / 1e3
     gemm = sum(_DevUs(e) for e in kernels
                if "gemm" in e.key.lower() or "cutlass" in e.key.lower()) / 1e3
+    rest = busy_ms - attn - scan - gemm
     print(f"profiled the {label} {window} of {steps} steps: device busy "
           f"{busy_ms / window:.2f} ms/step ({busy_ms / wall_ms:.1%} of the "
-          f"wall under the profiler, {wall_ms / window:.2f} ms/step), GEMMs "
-          f"{gemm / busy_ms:.1%} of busy, ragged attention "
-          f"{attn / busy_ms:.1%} of busy")
+          f"wall under the profiler, {wall_ms / window:.2f} ms/step); of "
+          f"busy: GEMMs {gemm / busy_ms:.1%}, scan {scan / busy_ms:.1%}, "
+          f"ragged attention {attn / busy_ms:.1%}, rest {rest / busy_ms:.1%}")
     for e in kernels[:5]:
       print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
   _Check(not eng.sched.HasWork() and done == steps,
          f"profiled re-run took more than the counted run's {steps} steps")
+
+
+def _ServeMain(torch, cfg, engine, counters, per_step):
+  """cfg's Task at full width and depth (random weights from a seeded
+  torch.Generator) through ServingLoop: 8 requests with prompts of 64..768
+  tokens (numpy seed 1) and 32 new tokens each, through
+  Start/Submit/Result/Stop, with every kernel count set to 0 just before.
+  per_step: {kernel: launches per engine step}; every other counted kernel
+  must launch 0 times. Then the profiled re-run. Returns (the counted
+  run's launches, its steps)."""
+  name = type(cfg).__name__
+  t0 = time.perf_counter()
+  lm = cfg.Task().Instantiate(device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  n_params = sum(p.numel() for p in lm.parameters())
+  eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
+                           max_batch=cfg.BATCH_SIZE,
+                           max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256)
+  torch.cuda.synchronize()
+  print(f"{name}: {n_params / 1e9:.3f} B params, engine T={eng._ragged_t}, "
+        f"mixers {eng.mixers}, kv_bytes_per_token {eng.kv_bytes_per_token}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+  eng.RunBatch(np.arange(1, 33, dtype=np.int32)[None], [32],
+               max_new_tokens=2)   # warm-up: cuBLAS handles, allocator
+  prng = np.random.RandomState(1)
+  lens = prng.permutation(np.linspace(64, 768, 8).astype(np.int32))
+  prompts = [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
+  steps0 = eng.Stats()["steps"]
+  torch.cuda.synchronize()
+  for fn in counters.values():
+    fn.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  eng.Start()
+  handles = [eng.Submit(pr, 32, eos_id=None) for pr in prompts]
+  streams = [h.Result(timeout=900) for h in handles]
+  eng.Stop()
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = {k: fn.launches for k, fn in counters.items()}
+  steps = eng.Stats()["steps"] - steps0
+  for st in streams:
+    _Check(len(st) == 32 and all(0 <= x < cfg.VOCAB_SIZE for x in st),
+           f"bad stream {st}")
+  want = {k: per_step.get(k, 0) * steps for k in counters}
+  _Check(launches == want, f"{name}: launches {launches} != {want} "
+         f"({per_step} per step x {steps} steps)")
+  ttft = sorted(h.first_token_time - h.submit_time for h in handles)
+  tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
+  print(f"{name} served 8 requests (prompts {sorted(lens.tolist())}): "
+        f"{steps} steps, {wall / steps * 1e3:.2f} ms/step, "
+        f"{8 * 32 / wall:.1f} generated tok/s, "
+        f"{int(lens.sum()) / wall:.1f} prompt tok/s, launches "
+        f"{ {k: v for k, v in launches.items() if v} } = {per_step} x "
+        f"{steps}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+  print(f"time to first token: median {np.median(ttft) * 1e3:.1f} ms, max "
+        f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
+        f"{np.mean(tpot) * 1e3:.2f} ms")
+  _Profile(torch, eng, prompts, steps)
+  return launches, steps
 
 
 def main():
@@ -562,6 +753,7 @@ def main():
   from lingvo_tpu_torch.ops import flash_attention as fa
   from lingvo_tpu_torch.ops import fused_xent as fx
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
+  from lingvo_tpu_torch.ops import ssd_scan as ssd
   from lingvo_tpu_torch.runners import program
   from lingvo_tpu_torch.serving import engine
 
@@ -580,7 +772,8 @@ def main():
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
   _Phase("2. build kernels (one nvcc per source, in parallel)")
-  sources = ("ragged_block_attend", "flash_attention", "fused_xent")
+  sources = ("ragged_block_attend", "ssd_scan", "flash_attention",
+             "fused_xent")
 
   def _Build(name):
     t0 = time.perf_counter()
@@ -600,72 +793,54 @@ def main():
         "ragged attention over block tables)")
   rng = np.random.RandomState(0)
   checks = [_CheckKernel(torch, rba, ragged, page, rng) for page in (16, 128)]
+  checks.append(_CheckKernel(torch, rba, ragged, 16, rng, h=64))
 
-  _Phase("4. serving main path: DenseLm1B through ServingLoop")
-  _TinyReference(torch, spi, engine, ragged)
-  t0 = time.perf_counter()
-  cfg = spi.DenseLm1B()
-  lm = cfg.Task().Instantiate(device="cuda")
-  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
-  n_params = sum(p.numel() for p in lm.parameters())
-  eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
-                           max_batch=cfg.BATCH_SIZE,
-                           max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256)
-  torch.cuda.synchronize()
-  print(f"DenseLm1B: {n_params / 1e9:.3f} B params, engine T="
-        f"{eng._ragged_t}, built in {time.perf_counter() - t0:.1f} s")
-  eng.RunBatch(np.arange(1, 33, dtype=np.int32)[None], [32],
-               max_new_tokens=2)   # warm-up: cuBLAS handles, allocator
-  prng = np.random.RandomState(1)
-  lens = prng.permutation(np.linspace(64, 768, 8).astype(np.int32))
-  prompts = [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
-  steps0 = eng.Stats()["steps"]
+  _Phase("4. SSD-scan kernel vs plain version at the hybrid's shapes")
+  print("scan library_ms: null (no single PyTorch call computes a gated "
+        "chunked linear recurrence)")
+  srng = np.random.RandomState(8)
+  # serving: 4 decode rows (1 live step of 256), prefill chunks of 256,
+  # 200 and 37, an idle row; a reset in row 5; a nonzero incoming state
+  x, moved = _ScanInputs(torch, ssd, srng, 256,
+                         [1, 256, 1, 200, 1, 37, 1, 0], [(5, 20)], True)
+  scan_serve = _CheckScan(torch, ssd, "serving", x, moved)
+  del x
+  # training: two segments of 512 in every row, zero incoming state
+  x, moved = _ScanInputs(torch, ssd, srng, 1024, [1024] * 8,
+                         [(r, 512) for r in range(8)], False)
+  scan_train = _CheckScan(torch, ssd, "training", x, moved)
+  del x
+  gc.collect()
+  torch.cuda.empty_cache()
+
   counters = dict(ragged_block_attend=rba.RaggedAttend,
+                  ssd_scan=ssd.SsdScan,
                   flash_attention_fwd=fa.FlashForward,
                   flash_attention_dkdv=fa.FlashDkDv,
                   flash_attention_dq=fa.FlashDq,
                   fused_xent_fwd=fx.FusedXentStats)
-  for fn in counters.values():
-    fn.launches = 0
-  torch.cuda.reset_peak_memory_stats()
-  t0 = time.perf_counter()
-  eng.Start()
-  handles = [eng.Submit(pr, 32, eos_id=None) for pr in prompts]
-  streams = [h.Result(timeout=900) for h in handles]
-  eng.Stop()
-  wall = time.perf_counter() - t0
-  serve_launches = {name: fn.launches for name, fn in counters.items()}
-  steps = eng.Stats()["steps"] - steps0
-  for s in streams:
-    _Check(len(s) == 32 and all(0 <= x < cfg.VOCAB_SIZE for x in s),
-           f"bad stream {s}")
-  ttft = sorted(h.first_token_time - h.submit_time for h in handles)
-  tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
-  launches = serve_launches["ragged_block_attend"]
-  _Check(launches == 24 * steps,
-         f"kernel launches {launches} != 24 layers x {steps} steps")
-  _Check(sum(serve_launches.values()) == launches,
-         f"serving launched a training kernel: {serve_launches}")
-  print(f"served 8 requests (prompts {sorted(lens.tolist())}): {steps} steps,"
-        f" {wall / steps * 1e3:.2f} ms/step, "
-        f"{8 * 32 / wall:.1f} generated tok/s, "
-        f"{int(lens.sum()) / wall:.1f} prompt tok/s, kernel launches "
-        f"{launches} = 24 x {steps}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-  print(f"time to first token: median {np.median(ttft) * 1e3:.1f} ms, max "
-        f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
-        f"{np.mean(tpot) * 1e3:.2f} ms")
-  _Profile(torch, eng, prompts, steps)
-  del eng, lm, handles
+
+  _Phase("5. serving main path: DenseLm1B through ServingLoop")
+  _TinyReference(torch, spi.DenseLmTiny(), engine, ragged)
+  serve_launches, _ = _ServeMain(torch, spi.DenseLm1B(), engine, counters,
+                                 dict(ragged_block_attend=24))
   gc.collect()
   torch.cuda.empty_cache()
 
-  _Phase("5. flash-attention kernels vs plain version at [8, 1024, 16, 128]")
+  _Phase("6. hybrid serving main path: DenseLmSsmHybrid through ServingLoop")
+  _TinyReference(torch, spi.DenseLmSsmHybridTiny(), engine, ragged)
+  hybrid_launches, _ = _ServeMain(
+      torch, spi.DenseLmSsmHybrid(), engine, counters,
+      dict(ssd_scan=10, ragged_block_attend=2))
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("7. flash-attention kernels vs plain version at [8, 1024, 16, 128]")
   flash = _CheckFlash(torch, fa, np.random.RandomState(5))
   gc.collect()
   torch.cuda.empty_cache()
 
-  _Phase("6. fused-xent kernel vs plain version at [8192, 2048] x "
+  _Phase("8. fused-xent kernel vs plain version at [8192, 2048] x "
          "[32000, 2048]")
   print("fused xent library_ms: null (no single PyTorch call computes "
         "capped logits with an online lse, the label logit and the argmax)")
@@ -674,7 +849,7 @@ def main():
   gc.collect()
   torch.cuda.empty_cache()
 
-  _Phase("7. training main path: DenseLm1B through TrainProgram")
+  _Phase("9. training main path: DenseLm1B through TrainProgram")
   _TinyTrainReference(torch, spi, program)
   tcfg = spi.DenseLm1B()
   half = tcfg.SEQUENCE_LENGTH // 2
@@ -683,16 +858,24 @@ def main():
   train_launches, _ = _TrainMain(torch, spi, program, counters,
                                  pairs_per_layer)
 
-  _Phase("8. result")
+  _Phase("10. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
       "source": "lingvo_tpu_torch/ops/csrc/ragged_block_attend.cu",
       "replaces": "lingvo_tpu/ops/ragged_block_attend.py:252",
-      "launches": launches,
+      "launches": serve_launches["ragged_block_attend"],
       "max_abs_err": max(c["max_abs_err"] for c in checks),
       "ms": main_check["kernel_ms"], "plain_ms": main_check["plain_ms"],
       "bound_ms": main_check["bound_ms"], "bound_by": main_check["bound_by"],
+      "library_ms": None}, {
+      "name": "ssd_scan", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/ssd_scan.cu",
+      "replaces": "lingvo_tpu/ops/ssd_scan.py:221",
+      "launches": hybrid_launches["ssd_scan"],
+      "max_abs_err": max(scan_serve["err"], scan_train["err"]),
+      "ms": scan_serve["ms"], "plain_ms": scan_serve["plain_ms"],
+      "bound_ms": scan_serve["bound"][0], "bound_by": scan_serve["bound"][1],
       "library_ms": None}]
   for name, res, line in (("flash_attention_fwd", flash["fwd"], 230),
                           ("flash_attention_dkdv", flash["dkdv"], 368),

@@ -6,8 +6,10 @@ every leaf into the module's parameter of the same path. Layouts are the
 reference's (w_query [D, N, H], emb [V, D], ...), so each leaf copies
 unchanged; the one structural difference is the repeat stack, whose
 reference leaves carry a leading [num_layers] axis that is unstacked into
-`RepeatedTransformerLayer.body[i]`. A missing, extra or mis-shaped leaf
-raises.
+`RepeatedTransformerLayer.body[i]`. For the hybrid stacks the body is a
+`StackedTransformerLayers` block, and each leaf of its `x_layers[j]`
+(attention or SSM mixer) is [num_layers // n, ...] in the reference. A
+missing, extra or mis-shaped leaf raises.
 
 `ThetaToNumpy(module)` is the inverse: the module's parameters as the
 reference's theta, a NestedMap of numpy arrays with the repeat stack's

@@ -236,6 +236,11 @@ class MultiHeadedAttention(base_layer.BaseLayer):
         key=torch.zeros(shape, dtype=torch.float32, device=self.device),
         value=torch.zeros(shape, dtype=torch.float32, device=self.device))
 
+  def KvBytesPerToken(self) -> int:
+    """K + V bytes one cached token costs in this layer's float32 pool
+    (the reference `quant/kv.KvBytesPerToken` for float32 pools)."""
+    return 2 * self.p.num_heads * self._dim_per_head * 4
+
   def BlockDecodeEligible(self, page_size: int) -> bool:
     """Plain masked-softmax attention only: what the ragged kernel serves.
     (The reference also checks its TPU tiling here; the CUDA kernel's own

@@ -2,17 +2,22 @@
 
 `TransformerFeedForwardLayer`, `TransformerAttentionLayer` and
 `TransformerLayer` keep the reference's pre-LN/residual structure and child
-names. `StackedTransformerLayers` holds N distinct layers.
+names; `TransformerLayer.mixer_tpl` swaps the attention inside
+`self_atten` for another sequence mixer (`core/ssm.GatedSSMLayer`).
+`StackedTransformerLayers` holds N distinct layers, from one template or
+from explicit per-layer `layer_tpls` (the hybrid attention/SSM stacks).
 `RepeatedTransformerLayer` is where the port differs in form: the
 reference keeps one body with every weight stacked on a leading axis and
-scans it; here `body` is an `nn.ModuleList` of num_layers layers walked
-in a Python loop (the converter unstacks the reference's axis into it).
+scans it; here `body` is an `nn.ModuleList` of num_layers bodies walked
+in a Python loop (the converter unstacks the reference's axis into it). A
+body is a `TransformerLayer` or, for the hybrid, a
+`StackedTransformerLayers` block such as [ssm x 5, attention].
 Its `remat_policy='full'` wraps each layer of the loop in
 `torch.utils.checkpoint` (the reference's `jax.checkpoint` of the scan
 body): only the layer boundaries are saved and the backward recomputes
 each layer's forward. The repeat's KV pools stay stacked,
 [num_layers, pages, P, N, H], as in the reference, and each layer updates
-its own slice in place.
+its own slice in place (the SSM layers' slot states likewise).
 
 Only the Params fields the DenseLm models set are ported (no dropout,
 gating or cross-attention fields).
@@ -127,14 +132,23 @@ class TransformerLayer(base_layer.BaseLayer):
              "Self-attention template.")
     p.Define("tr_fflayer_tpl", TransformerFeedForwardLayer.Params(),
              "FFN template.")
+    p.Define(
+        "mixer_tpl", None,
+        "Optional sequence-mixer template replacing the self-attention "
+        "inner layer (e.g. ssm.GatedSSMLayer.Params()); the pre-LN/residual "
+        "wrapper and the serving contract are shared. None = keep "
+        "tr_atten_tpl.atten_tpl.")
     return p
 
   def __init__(self, params, device=None):
     super().__init__(params, device)
     p = self.p
-    self.CreateChild("self_atten", p.tr_atten_tpl.Copy().Set(
+    atten_p = p.tr_atten_tpl.Copy().Set(
         input_dim=p.input_dim, num_heads=p.num_heads,
-        is_masked=p.mask_self_atten))
+        is_masked=p.mask_self_atten)
+    if p.mixer_tpl is not None:
+      atten_p.atten_tpl = p.mixer_tpl.Copy()
+    self.CreateChild("self_atten", atten_p)
     self.CreateChild(
         "fflayer",
         p.tr_fflayer_tpl.Copy().Set(
@@ -159,7 +173,7 @@ class TransformerLayer(base_layer.BaseLayer):
 
 
 class StackedTransformerLayers(base_layer.BaseLayer):
-  """N distinct transformer layers (as the LM builds them: no final LN)."""
+  """N distinct transformer layers."""
 
   @classmethod
   def Params(cls):
@@ -167,6 +181,13 @@ class StackedTransformerLayers(base_layer.BaseLayer):
     p.Define("num_layers", 0, "Depth.")
     p.Define("transformer_layer_params_tpl", TransformerLayer.Params(),
              "Per-layer template.")
+    p.Define(
+        "layer_tpls", None,
+        "Optional explicit per-layer templates (a list of num_layers "
+        "TransformerLayer Params) overriding transformer_layer_params_tpl: "
+        "the hook of the heterogeneous (hybrid attention/SSM) stacks, and "
+        "of the repeat body [ssm, ..., attention].")
+    p.Define("final_ln", True, "LayerNorm on the final output.")
     p.Define("input_dim", 0, "Model dim (propagated to layers).")
     return p
 
@@ -174,18 +195,31 @@ class StackedTransformerLayers(base_layer.BaseLayer):
     super().__init__(params, device)
     p = self.p
     assert p.num_layers > 0
-    tpls = [p.transformer_layer_params_tpl.Copy()
-            for _ in range(p.num_layers)]
+    if p.layer_tpls:
+      assert len(p.layer_tpls) == p.num_layers, (
+          len(p.layer_tpls), p.num_layers)
+      tpls = [t.Copy() for t in p.layer_tpls]
+    else:
+      tpls = [p.transformer_layer_params_tpl.Copy()
+              for _ in range(p.num_layers)]
     if p.input_dim:
       for t in tpls:
         t.input_dim = p.input_dim
     self.CreateChildren("x_layers", tpls)
+    if p.final_ln:
+      self.CreateChild(
+          "final_ln",
+          layers_lib.LayerNorm.Params().Set(
+              input_dim=p.input_dim or tpls[0].input_dim))
+
+  def _FinalLn(self, x):
+    return self.final_ln.FProp(x) if self.p.final_ln else x
 
   def FProp(self, inputs, paddings=None, segment_ids=None):
     x = inputs
     for layer in self.x_layers:
       x = layer.FProp(x, paddings, segment_ids)
-    return x
+    return self._FinalLn(x)
 
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
@@ -196,21 +230,25 @@ class StackedTransformerLayers(base_layer.BaseLayer):
     ])
 
   def RaggedStep(self, inputs, cached_states, block_tables, rows):
+    """Runs the layers in order; each updates its own states in place.
+    Returns (out, cached_states)."""
     x = inputs
     for i, layer in enumerate(self.x_layers):
       x, _ = layer.RaggedStep(x, cached_states.x_layers[i], block_tables,
                               rows)
-    return x, cached_states
+    return self._FinalLn(x), cached_states
 
 
 class RepeatedTransformerLayer(base_layer.BaseLayer):
-  """N identical-architecture layers; `body` is their ModuleList."""
+  """N identical-architecture bodies; `body` is their ModuleList."""
 
   @classmethod
   def Params(cls):
     p = super().Params()
     p.Define("num_layers", 0, "Repeat count.")
-    p.Define("body", TransformerLayer.Params(), "The repeated layer.")
+    p.Define("body", TransformerLayer.Params(),
+             "The repeated layer: a TransformerLayer, or a "
+             "StackedTransformerLayers block (the hybrid stacks).")
     p.Define(
         "remat_policy", "full",
         "What the per-layer checkpoint saves: 'full' = only the layer "
@@ -255,7 +293,8 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
 
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
-    """Every layer's pool stacked on a leading [num_layers] axis."""
+    """Every body's states (KV pools, SSM slot states) stacked on a
+    leading [num_layers] axis."""
     one = self.body[0].InitPagedStates(num_pages, page_size,
                                        num_slots=num_slots,
                                        kv_cache_dtype=kv_cache_dtype)
@@ -264,8 +303,8 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
         lambda x: x.new_zeros((n,) + tuple(x.shape))))
 
   def RaggedStep(self, inputs, cached_states, block_tables, rows):
-    """Runs the layers in order; layer i writes its slice of the stacked
-    pools in place. Returns (out, cached_states)."""
+    """Runs the bodies in order; body i writes its slice of the stacked
+    states in place. Returns (out, cached_states)."""
     x = inputs
     for i, layer in enumerate(self.body):
       x, _ = layer.RaggedStep(x, cached_states.body.Transform(lambda s: s[i]),

@@ -1,8 +1,11 @@
 """Decoder-only transformer LM: training step and serving step (port of lingvo_tpu/models/lm/layers.py).
 
-`TransformerLm` is a `BaseTask` with the reference's Params. It builds the
-attention-only stack: tied embedding/softmax (`emb`), a repeated or
-stacked transformer (`stack`) and `final_ln`, and implements:
+`TransformerLm` is a `BaseTask` with the reference's Params. It builds
+tied embedding/softmax (`emb`), a repeated or stacked transformer
+(`stack`) and `final_ln`. The stack is attention-only, or, with
+`mixer_tpl` (`core/ssm.GatedSSMLayer`), a hybrid: attention every
+`mixer_atten_every_n`-th layer and the O(1)-state mixer elsewhere, or the
+mixer everywhere (`mixer_atten_every_n == 0`). It implements:
 
 - the training surface: `ComputePredictions` / `ComputeLoss` over packed
   batches (ids, labels, paddings, segment_ids), with the dense head or,
@@ -13,8 +16,8 @@ stacked transformer (`stack`) and `final_ln`, and implements:
 
 Only the Params fields the DenseLm models set are ported, plus those whose
 other values raise NotImplementedError naming the slice that brings them
-(MoE, SSM mixers, int8 KV pools, attention dropout, the sampled softmax,
-the bidirectional encoder).
+(MoE, int8 KV pools, attention dropout, the sampled softmax, the
+bidirectional encoder).
 
 Construct on an explicit device: `TransformerLm.Params().Set(...)
 .Instantiate(device="cpu")`; with no device the model goes to CUDA and
@@ -63,9 +66,21 @@ class TransformerLm(base_model.BaseTask):
              "If >0, the train loss runs the fused blockwise LM-head xent "
              "(ops/fused_xent.py) this many vocab entries at a time and the "
              "[B, T, V] logits never exist. 0 = the dense head.")
+    p.Define(
+        "mixer_tpl", None,
+        "Optional O(1)-state sequence-mixer template (e.g. "
+        "ssm.GatedSSMLayer.Params()). When set, SSM layers replace "
+        "attention according to mixer_atten_every_n; the serving contract "
+        "is unchanged (the mixer keeps a fixed [N, H, S] state per slot).")
+    p.Define(
+        "mixer_atten_every_n", 0,
+        "Hybrid-stack layout with mixer_tpl: every n-th layer (layers n, "
+        "2n, ... 1-indexed) keeps full attention, the rest run the mixer, "
+        "e.g. 6 gives [ssm x5, attention] blocks. 0 = every layer runs the "
+        "mixer (pure-SSM stack, pageless serving); 1 = plain attention. "
+        "Under use_repeat_layer, num_layers must divide by n (the block is "
+        "the repeat body).")
     # fields whose non-default values raise until their slice is ported
-    p.Define("mixer_tpl", None,
-             "O(1)-state sequence mixer template (the SSM-hybrid slice).")
     p.Define("kv_cache_dtype", None,
              "KV page pool dtype for every attention layer: None (float32); "
              "'int8' comes with the quantized-serving slice.")
@@ -82,9 +97,6 @@ class TransformerLm(base_model.BaseTask):
     p = self.p
     if p.num_experts > 0:
       raise NotImplementedError("MoE layers come with the MoE slice")
-    if p.mixer_tpl is not None:
-      raise NotImplementedError(
-          "SSM sequence mixers come with the SSM-hybrid slice of the port")
     if p.softmax_num_sampled > 0:
       raise NotImplementedError(
           "the sampled-softmax head comes with the sampled-softmax slice of "
@@ -107,18 +119,55 @@ class TransformerLm(base_model.BaseTask):
         use_rotary_position_emb=p.use_rotary,
         kv_cache_dtype=p.kv_cache_dtype,
         atten_dropout_prob=p.atten_dropout_prob)
-    if p.use_repeat_layer:
+    ssm_body = None
+    if p.mixer_tpl is not None:
+      assert p.num_experts == 0, (
+          "hybrid SSM stacks don't compose with the MoE interleave yet")
+      assert not p.bidirectional, (
+          "GatedSSMLayer is causal; bidirectional stacks keep attention")
+      ssm_body = layer_body.Copy().Set(mixer_tpl=p.mixer_tpl.Copy())
+      if p.mixer_atten_every_n == 1:
+        # attention at every layer: the hybrid degenerates to the plain
+        # attention stack and the mixer template is never instantiated
+        ssm_body = None
+
+    if ssm_body is not None and p.mixer_atten_every_n > 1:
+      # hybrid stack: attention at layers n, 2n, ... (1-indexed), SSM
+      # elsewhere, as [ssm x (n-1), attention] blocks
+      n = p.mixer_atten_every_n
+      assert p.num_layers % n == 0, (p.num_layers, n)
+      if p.use_repeat_layer:
+        block = transformer_lib.StackedTransformerLayers.Params().Set(
+            num_layers=n, input_dim=p.model_dim,
+            layer_tpls=[ssm_body.Copy() for _ in range(n - 1)]
+            + [layer_body.Copy()],
+            final_ln=False)
+        self.CreateChild(
+            "stack",
+            transformer_lib.RepeatedTransformerLayer.Params().Set(
+                num_layers=p.num_layers // n, body=block,
+                remat_policy=p.remat_policy))
+      else:
+        tpls = [layer_body.Copy() if (i + 1) % n == 0 else ssm_body.Copy()
+                for i in range(p.num_layers)]
+        self.CreateChild(
+            "stack",
+            transformer_lib.StackedTransformerLayers.Params().Set(
+                num_layers=p.num_layers, input_dim=p.model_dim,
+                layer_tpls=tpls, final_ln=False))
+    elif p.use_repeat_layer:
       self.CreateChild(
           "stack",
           transformer_lib.RepeatedTransformerLayer.Params().Set(
-              num_layers=p.num_layers, body=layer_body,
+              num_layers=p.num_layers, body=ssm_body or layer_body,
               remat_policy=p.remat_policy))
     else:
       self.CreateChild(
           "stack",
           transformer_lib.StackedTransformerLayers.Params().Set(
               num_layers=p.num_layers, input_dim=p.model_dim,
-              transformer_layer_params_tpl=layer_body))
+              transformer_layer_params_tpl=ssm_body or layer_body,
+              final_ln=False))
     self.CreateChild(
         "final_ln", layers_lib.LayerNorm.Params().Set(input_dim=p.model_dim))
 
@@ -172,7 +221,8 @@ class TransformerLm(base_model.BaseTask):
                            num_slots: int = 0,
                            kv_cache_dtype: str | None = None):
     """Global KV page pools for the continuous-batching engine (the engine
-    passes allocator pages + 1; the last page is the trash page)."""
+    passes allocator pages + 1; the last page is the trash page), and one
+    state per slot for each O(1)-state mixer (num_slots = engine slots)."""
     return self.stack.InitPagedStates(num_pages, page_size,
                                       num_slots=num_slots,
                                       kv_cache_dtype=kv_cache_dtype)
@@ -185,8 +235,8 @@ class TransformerLm(base_model.BaseTask):
     Token t belongs to engine slot rows.row_of[t] at global kv slot
     rows.pos[t] (core/ragged.py RaggedRows). Rotary positions are the
     tokens' logical positions; no absolute position embedding is added
-    (serve rotary models), as in the reference. The pools in `states` are
-    updated in place."""
+    (serve rotary models), as in the reference. The KV pools and SSM slot
+    states in `states` are updated in place."""
     x = self.emb.EmbLookup(ids)
     x, states = self.stack.RaggedStep(x, states, block_tables, rows)
     x = self.final_ln.FProp(x)

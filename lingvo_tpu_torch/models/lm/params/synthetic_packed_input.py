@@ -1,7 +1,8 @@
 """Dense LM configs (port of lingvo_tpu/models/lm/params/synthetic_packed_input.py).
 
-The DenseLm family's model shapes, synthetic packed input and learner
-exactly as the reference defines them: `Train()` (the input), `Task()`
+The DenseLm family's model shapes (with the SSM-hybrid DenseLmSsmHybrid
+and its tiny twin), synthetic packed input and learner exactly as the
+reference defines them: `Train()` (the input), `Task()`
 (the model and its `train.learner`: Adafactor with beta1 0.9 and no
 parameter scaling, LinearRampupCosineDecay with 1000 warmup steps,
 global-norm clip 1.0). The reference's mesh, eval input and registry stay
@@ -13,6 +14,7 @@ from __future__ import annotations
 from lingvo_tpu_torch.core import learner as learner_lib
 from lingvo_tpu_torch.core import optimizer as opt_lib
 from lingvo_tpu_torch.core import schedule as sched_lib
+from lingvo_tpu_torch.core import ssm
 from lingvo_tpu_torch.models.lm import input_generator
 from lingvo_tpu_torch.models.lm import layers as lm_layers
 
@@ -81,3 +83,42 @@ class DenseLm1B(DenseLmTemplate):
   NUM_LAYERS = 24
   NUM_HEADS = 16
   HIDDEN_DIM = 8192
+
+
+class DenseLmSsmHybrid(DenseLmTemplate):
+  """Hybrid O(1)-cache stack: attention every 6th layer, gated-SSD SSM
+  mixers elsewhere. The serving state per sequence is 10 SSM matrices and
+  2 layers of KV pages instead of 12 layers of KV pages."""
+
+  SEQUENCE_LENGTH = 1024
+  MODEL_DIM = 1024
+  NUM_LAYERS = 12
+  NUM_HEADS = 16
+  HIDDEN_DIM = 4096
+  MIXER_ATTEN_EVERY_N = 6
+  SSM_STATE_DIM = 64
+  SSM_CHUNK_SIZE = 64
+
+  def Task(self):
+    p = super().Task()
+    p.mixer_tpl = ssm.GatedSSMLayer.Params().Set(
+        state_dim=self.SSM_STATE_DIM, chunk_size=self.SSM_CHUNK_SIZE)
+    p.mixer_atten_every_n = self.MIXER_ATTEN_EVERY_N
+    return p
+
+
+class DenseLmSsmHybridTiny(DenseLmSsmHybrid):
+  """Smoke-test scale of the hybrid stack: attention every 2nd layer."""
+
+  SEQUENCE_LENGTH = 64
+  BATCH_SIZE = 4
+  VOCAB_SIZE = 128
+  MODEL_DIM = 64
+  NUM_LAYERS = 2
+  NUM_HEADS = 4
+  HIDDEN_DIM = 128
+  MIXER_ATTEN_EVERY_N = 2
+  SSM_STATE_DIM = 16
+  SSM_CHUNK_SIZE = 8
+  LEARNING_RATE = 3e-3
+  MAX_STEPS = 2000

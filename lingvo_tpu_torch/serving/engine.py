@@ -3,8 +3,10 @@
 Glues the layers below into a running service:
 
     ops/ragged_block_attend.py   the packed-token paged attention kernel
-    serving/kv_cache.py          host-side page ownership
+    ops/ssd_scan.py              the SSM mixers' chunked scan kernel
+    serving/kv_cache.py          host-side page and state-slot ownership
     serving/scheduler.py         admission / step building / retirement
+    serving/spec_decode.py       the mixer census
 
 Every iteration packs its work onto one [T] token axis (core/ragged.py):
 a decode row contributes 1 token, a prefilling row a token-budgeted
@@ -12,6 +14,13 @@ prompt chunk, with T = max_batch + prefill_chunk fixed at
 construction, as in the reference's one compiled step. The device pools
 are updated in place; admission and retirement only rewrite the int32
 block tables between steps.
+
+O(1)-state mixers (core/ssm.py) plug in unchanged: each SSM layer keeps a
+[max_batch, N, H, S] state per slot, reset on the device on a sequence's
+first step (q_pos == 0). The engine takes a mixer census at construction:
+a hybrid stack prices both resources (KV pages for its attention layers,
+a `StateSlotPool` for its SSM layers), and a pure-SSM stack admits
+pageless, bounded by slots only (`paged_path == "ssm"`).
 
 Ported: step_mode='ragged', fifo scheduling, greedy sampling, float32 KV
 pools. Speculative decoding, the prefix cache, int8 KV pools, int8
@@ -40,6 +49,7 @@ from lingvo_tpu_torch.core import ragged as ragged_lib
 from lingvo_tpu_torch.core import sampling
 from lingvo_tpu_torch.serving import kv_cache
 from lingvo_tpu_torch.serving import scheduler as scheduler_lib
+from lingvo_tpu_torch.serving import spec_decode
 
 _END = object()   # stream sentinel
 
@@ -154,24 +164,37 @@ class ServingLoop:
     self.default_max_new = default_max_new
     self.eos_id = eos_id
     self.temperature = float(temperature)
-    # pool page num_pages (the +1) is the trash page padding writes hit
+    # mixer census: which resource(s) the stack's serving state occupies;
+    # a page is priced by the attention layers' float32 K/V only (the
+    # reference quant/kv.StackKvCensus), never by the SSM slot states
+    self.mixers = spec_decode.MixerCensus(task)
+    self.kv_bytes_per_token = self.mixers.pop("kv_bytes_per_token")
+    self.state_pool = None
+    if self.mixers["num_ssm"] > 0:
+      self.state_pool = kv_cache.StateSlotPool(
+          max_batch, self.mixers["decode_state_bytes_per_slot"])
+    # pool page num_pages (the +1) is the trash page padding writes hit;
+    # num_slots sizes the SSM layers' per-slot states
     with torch.no_grad():
       self._states = task.InitPagedDecodeState(num_pages + 1, page_size,
                                                max_batch)
-    pool_slots = (num_pages + 1) * page_size
-    self.kv_bytes_per_token = sum(
-        x.numel() * x.element_size() for x in self._states.Flatten()
-    ) // pool_slots
     self.alloc = kv_cache.PageAllocator(
         num_pages, page_size,
         page_bytes=page_size * self.kv_bytes_per_token)
     self.sched = scheduler_lib.Scheduler(
-        max_batch, self.alloc, self.alloc.PagesFor(max_seq_len))
+        max_batch, self.alloc, self.alloc.PagesFor(max_seq_len),
+        needs_kv_pages=self.mixers["num_attention"] > 0,
+        state_pool=self.state_pool)
     # unified ragged step geometry: one token per slot (every decode row)
     # plus the prefill token budget (prefill_chunk); wmax is the widest row
     self._ragged_t = max_batch + prefill_chunk
     self._ragged_wmax = prefill_chunk
-    self.paged_path = "cuda" if self.device.type == "cuda" else "plain"
+    # what the step's paged attention lowers to: the CUDA kernel or the
+    # plain version; 'ssm' = no attention layer, the page pool is unused
+    if self.mixers["num_attention"] == 0:
+      self.paged_path = "ssm"
+    else:
+      self.paged_path = "cuda" if self.device.type == "cuda" else "plain"
     self._counters = {k: 0 for k in _COUNTER_KEYS}
     self._handles: dict = {}
     self._lock = threading.RLock()
@@ -223,7 +246,8 @@ class ServingLoop:
       req_id = self._seq_counter
       req = scheduler_lib.Request(req_id, prompt, max_new, eos)
       total = len(req.prompt) + req.max_new
-      if self.alloc.PagesFor(total) > self.alloc.num_pages:
+      if self.sched.needs_kv_pages and (
+          self.alloc.PagesFor(total) > self.alloc.num_pages):
         raise ValueError(
             f"request needs {self.alloc.PagesFor(total)} pages; the pool "
             f"only has {self.alloc.num_pages} — it could never be admitted")
@@ -318,4 +342,7 @@ class ServingLoop:
       stats["kv_bytes_per_token"] = self.kv_bytes_per_token
       stats["scheduler"] = self.sched.Stats()
       stats["kv_pages"] = self.alloc.Stats()
+      stats["mixers"] = dict(self.mixers)
+      if self.state_pool is not None:
+        stats["state_slots"] = self.state_pool.Stats()
     return stats

@@ -1,8 +1,9 @@
-"""KV block allocator: host-side ownership of the global page pool.
+"""KV block allocator and O(1)-state slot pool: host-side ownership.
 
-Port of `PageAllocator` and `OutOfPages` from lingvo_tpu/serving/kv_cache.py,
-without the prefix-sharing refcounts and the preemption spill surface
-(those come with the prefix-cache and priority-scheduling slices). The
+Port of `PageAllocator`, `OutOfPages` and `StateSlotPool` from
+lingvo_tpu/serving/kv_cache.py, without the prefix-sharing refcounts and
+the preemption spill surface (those come with the prefix-cache and
+priority-scheduling slices). The
 device side is a plain `[num_pages, page_size, N, H]` pool per layer;
 which pages belong to which sequence lives here, in Python, updated
 between steps. A min-heap free list always hands out the lowest free
@@ -91,3 +92,60 @@ class PageAllocator:
     for pg in pages:
       heapq.heappush(self._free, pg)
     return len(pages)
+
+
+class StateSlotPool:
+  """Ownership of O(1) mixer-state slots (one per engine slot).
+
+  Device-side the state is a `[num_slots, ...]` tensor per SSM layer
+  (ssm.GatedSSMLayer.InitPagedStates); row i belongs to whichever sequence
+  the scheduler placed in slot i, and is reset on the device on that
+  sequence's first step (q_pos == 0), so acquiring a slot never touches the
+  device. Host bookkeeping only, serialized by the engine's lock.
+
+  bytes_per_slot: per-sequence mixer-state bytes across all SSM layers
+  (the sum of StateBytesPerSlot), constant in sequence length."""
+
+  def __init__(self, num_slots: int, bytes_per_slot: int):
+    assert num_slots > 0 and bytes_per_slot >= 0, (num_slots, bytes_per_slot)
+    self.num_slots = num_slots
+    self.bytes_per_slot = int(bytes_per_slot)
+    self._slot_of: dict[object, int] = {}
+    self._owner: dict[int, object] = {}
+    self.peak_in_use = 0
+
+  @property
+  def num_in_use(self) -> int:
+    return len(self._slot_of)
+
+  @property
+  def num_free(self) -> int:
+    return self.num_slots - len(self._slot_of)
+
+  def Acquire(self, seq_id, slot: int):
+    """Binds seq_id to engine slot `slot` (which must be free)."""
+    assert 0 <= slot < self.num_slots, (slot, self.num_slots)
+    assert slot not in self._owner, (
+        f"slot {slot} already owned by {self._owner[slot]!r}")
+    assert seq_id not in self._slot_of, seq_id
+    self._slot_of[seq_id] = slot
+    self._owner[slot] = seq_id
+    self.peak_in_use = max(self.peak_in_use, self.num_in_use)
+
+  def Release(self, seq_id) -> bool:
+    """Unbinds seq_id's slot. Idempotent, as PageAllocator.Free."""
+    slot = self._slot_of.pop(seq_id, None)
+    if slot is None:
+      return False
+    del self._owner[slot]
+    return True
+
+  def Stats(self) -> dict:
+    return {
+        "num_slots": self.num_slots,
+        "bytes_per_slot": self.bytes_per_slot,
+        "in_use": self.num_in_use,
+        "free": self.num_free,
+        "peak_in_use": self.peak_in_use,
+        "state_bytes_in_use": self.num_in_use * self.bytes_per_slot,
+    }

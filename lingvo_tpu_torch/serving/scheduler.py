@@ -8,7 +8,10 @@ admit -> build -> (device step) -> commit:
   reserve their WHOLE worst-case footprint (ceil((prompt + max_new) /
   page_size) pages) up front, so an admitted sequence never runs out of
   pages mid-flight; pool pressure shows up only as queueing. Head-of-line
-  blocking is intentional (no starvation of long requests).
+  blocking is intentional (no starvation of long requests). A pure
+  O(1)-mixer stack (`needs_kv_pages=False`) takes no pages: a free slot is
+  admission. With a `state_pool`, admission acquires the slot's mixer
+  state and retirement releases it.
 - `BuildRaggedStep` packs every live slot into ONE [T]-token step: decode
   rows first (1 token each), then prefill rows take the leftover budget in
   slot order.
@@ -92,13 +95,20 @@ class Scheduler:
   """Admission + step building + commit over B slots and a page pool."""
 
   def __init__(self, max_slots: int, allocator: kv_cache.PageAllocator,
-               table_pages: int):
+               table_pages: int, needs_kv_pages: bool = True,
+               state_pool: Optional[kv_cache.StateSlotPool] = None):
     """table_pages: block-table width (pages per sequence), the static
-    max_seq_len / page_size bound."""
+    max_seq_len / page_size bound. needs_kv_pages: False for pure
+    O(1)-mixer stacks (no attention layer writes the page pool): admission
+    is then bounded by slots only and the allocator is never charged.
+    state_pool: slot ownership of the O(1) mixer states (acquired on admit,
+    released on retirement)."""
     assert max_slots >= 1 and table_pages >= 1
     self.max_slots = max_slots
     self.alloc = allocator
     self.table_pages = table_pages
+    self.needs_kv_pages = needs_kv_pages
+    self.state_pool = state_pool
     self.waiting = collections.deque()        # of Sequence (QUEUED)
     self.slots: list[Optional[Sequence]] = [None] * max_slots
     self._by_id: dict[object, Sequence] = {}
@@ -139,15 +149,19 @@ class Scheduler:
       if self.slots[i] is not None or not self.waiting:
         continue
       seq = self.waiting[0]
-      need = self.alloc.PagesFor(len(seq.req.prompt) + seq.req.max_new)
-      if not self.alloc.CanAllocate(need):
-        break
-      pages = self.alloc.Allocate(seq.id, need)
+      pages = []
+      if self.needs_kv_pages:
+        need = self.alloc.PagesFor(len(seq.req.prompt) + seq.req.max_new)
+        if not self.alloc.CanAllocate(need):
+          break
+        pages = self.alloc.Allocate(seq.id, need)
       self.waiting.popleft()
       self.slots[i] = seq
       seq.state = SeqState.PREFILL
       self.block_tables[i, :] = 0
       self.block_tables[i, :len(pages)] = pages
+      if self.state_pool is not None:
+        self.state_pool.Acquire(seq.id, i)
       self.admitted += 1
       self.slots_live_peak = max(
           self.slots_live_peak, sum(s is not None for s in self.slots))
@@ -234,6 +248,8 @@ class Scheduler:
       if done_eos or len(seq.out) >= seq.req.max_new:
         self.slots[i] = None
         self.alloc.Free(seq.id)
+        if self.state_pool is not None:
+          self.state_pool.Release(seq.id)
         self.finished += 1
         seq.state = SeqState.FINISHED
         seq.finish_reason = "eos" if done_eos else "length"
@@ -255,4 +271,5 @@ class Scheduler:
         "finished": self.finished,
         "rejected_overlong": self.rejected_overlong,
         "slots_live_peak": self.slots_live_peak,
+        "needs_kv_pages": self.needs_kv_pages,
     }
