@@ -57,7 +57,35 @@
    0 of the ragged and scan kernels); prints ms per step, tokens per
    second, model FLOPs and achieved TFLOP/s, peak memory, and a
    torch.profiler breakdown of one more step.
-10. Prints the per-kernel JSON line, then the result line.
+10. Holds the block-decode kernel against its plain version on the card
+   at the legacy serving step's shapes (q [8, 1, 16, 128], pools
+   [513, 16, 16, 128], tables [8, 64]; seq_lens from 1 to 1024 and one
+   inactive row), then at page 128 (pools [65, 128, 16, 128], tables
+   [8, 8]), with the pages and table entries past each row's last live
+   page and the stale slots of that page poisoned with NaN. Tolerance
+   1e-5. Times the kernel, the plain version and the bound (library_ms
+   null: no single PyTorch call reads block tables).
+11. Holds the flash-decode kernel against its plain version at the
+   GShardDecode step's shapes ([8, 1152, 16, 128], page 128, the left-pad
+   cache paddings of the 8 prompts below in a 1024 bucket) at t = 1151 and
+   t = 700. Tolerance 1e-5. Times the kernel, the plain version, the bound
+   and SDPA over the whole cache with the same boolean mask.
+12. Legacy serving main path: DenseLmTiny with step_mode='legacy' on the
+   card must reproduce its CPU streams; then DenseLm1B (the weights of
+   phase 5) through `ServingLoop(step_mode='legacy')` with phase 5's
+   geometry and requests. Checks exactly 24 block-decode launches per
+   decode-only step and none on mixed steps, no other kernel, and streams
+   equal to phase 5's ragged streams; prints ms/step, tok/s and the
+   profiled busy split.
+13. GShardDecode main path: DenseLmTiny (decode_page_size 4) on the card
+   must reproduce its CPU continuations from one port checkpoint; then
+   DenseLm1B with decode_page_size 128: its random weights are written as
+   a port checkpoint to a temporary directory (deleted at the end; write
+   and read seconds printed) and `DecodeOnce` continues the 8 prompts
+   (bucket 1024) by 128 tokens with prefill chunks of 256. Checks exactly
+   24 x 128 = 3072 flash-decode launches and no other kernel; prints
+   prefill_s, decode_s, tokens/s and peak memory.
+14. Prints the per-kernel JSON line, then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -72,6 +100,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -212,9 +241,10 @@ def _CheckKernel(torch, rba, ragged, page, rng, h=128):
   return res
 
 
-def _TinyReference(torch, cfg, engine, ragged):
+def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged"):
   """`cfg`, a tiny config, on the card against the same weights on the
-  CPU: one packed step's logits, then greedy streams."""
+  CPU: one packed step's logits, then greedy streams of the engine in
+  `step_mode`."""
   p = cfg.Task()
   cpu_lm = p.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
@@ -240,12 +270,13 @@ def _TinyReference(torch, cfg, engine, ragged):
             prefill_chunk=8)
   streams = {}
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
-    eng = engine.ServingLoop(lm, device=lm.device, **kw)
+    eng = engine.ServingLoop(lm, device=lm.device, step_mode=step_mode, **kw)
     streams[name] = eng.RunBatch(prompts, lens, max_new_tokens=8)
   _Check(np.array_equal(streams["cpu"], streams["cuda"]),
          f"tiny greedy streams differ:\n{streams['cpu']}\n{streams['cuda']}")
   print(f"{type(cfg).__name__} reference: logits max abs err {err:.3g} "
-        f"(<= 1e-4), {len(lens)} greedy streams identical to the CPU path")
+        f"(<= 1e-4), {len(lens)} greedy streams of the {step_mode} engine "
+        "identical to the CPU path")
 
 SCAN_TOL = 2e-5   # x max(1, max|want|): float32, the two versions sum the
                   # chunk products in other orders and the state carries the
@@ -603,7 +634,7 @@ def _TrainMain(torch, spi, program, counters, pairs_per_layer):
   _Check(out["skipped_step"] == 0, f"a step was skipped: {out}")
   want = dict(ragged_block_attend=0, ssd_scan=0, flash_attention_fwd=48 * 4,
               flash_attention_dkdv=24 * 4, flash_attention_dq=24 * 4,
-              fused_xent_fwd=4)
+              fused_xent_fwd=4, block_decode=0, flash_decode=0)
   _Check(launches == want, f"launches {launches} != {want} (4 steps)")
   flops, formula = _ModelFlops(lm, cfg, pairs_per_layer)
   ms = wall / 4 * 1e3
@@ -633,8 +664,9 @@ def _Profile(torch, eng, prompts, steps, window=4):
   two windows of `window` steps: the first (prefill chunks beside decode
   rows) and the last (decode only) of the `steps` the schedule takes.
   Prints, per window, device busy ms per step and its share of the wall,
-  the shares of the GEMMs, the scan kernel, the ragged attention kernel
-  and the rest, and the top kernels."""
+  the shares of the GEMMs, the scan kernel, the attention kernel (ragged
+  or block-decode) and the rest, the top kernels and the top host ops by
+  their own host time."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   for pr in prompts:
@@ -660,7 +692,8 @@ def _Profile(torch, eng, prompts, steps, window=4):
       print(f"{label} {window} steps: profiler recorded no device time")
       continue
     kernels.sort(key=_DevUs, reverse=True)
-    attn = sum(_DevUs(e) for e in kernels if "RaggedAttend" in e.key) / 1e3
+    attn = sum(_DevUs(e) for e in kernels if "RaggedAttend" in e.key
+               or "BlockDecode" in e.key) / 1e3
     scan = sum(_DevUs(e) for e in kernels if "SsdScan" in e.key) / 1e3
     gemm = sum(_DevUs(e) for e in kernels
                if "gemm" in e.key.lower() or "cutlass" in e.key.lower()) / 1e3
@@ -669,39 +702,57 @@ def _Profile(torch, eng, prompts, steps, window=4):
           f"{busy_ms / window:.2f} ms/step ({busy_ms / wall_ms:.1%} of the "
           f"wall under the profiler, {wall_ms / window:.2f} ms/step); of "
           f"busy: GEMMs {gemm / busy_ms:.1%}, scan {scan / busy_ms:.1%}, "
-          f"ragged attention {attn / busy_ms:.1%}, rest {rest / busy_ms:.1%}")
+          f"attention kernel {attn / busy_ms:.1%}, rest "
+          f"{rest / busy_ms:.1%}")
     for e in kernels[:5]:
       print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(f"  host ops by self time (of {wall_ms / window:.2f} ms/step, "
+          "profiler overhead included):")
+    for e in host[:5]:
+      print(f"  {e.self_cpu_time_total / 1e3 / window:9.2f} ms/step "
+            f"{e.count // window:6d} x/step  {e.key[:70]}")
   _Check(not eng.sched.HasWork() and done == steps,
          f"profiled re-run took more than the counted run's {steps} steps")
 
 
-def _ServeMain(torch, cfg, engine, counters, per_step):
+def _Requests(cfg):
+  """The serving phases' 8 prompts: 64..768 tokens, numpy seed 1."""
+  prng = np.random.RandomState(1)
+  lens = prng.permutation(np.linspace(64, 768, 8).astype(np.int32))
+  return lens, [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
+
+
+def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
+               step_mode="ragged"):
   """cfg's Task at full width and depth (random weights from a seeded
-  torch.Generator) through ServingLoop: 8 requests with prompts of 64..768
-  tokens (numpy seed 1) and 32 new tokens each, through
+  torch.Generator) through ServingLoop in `step_mode`: 8 requests with
+  prompts of 64..768 tokens (numpy seed 1) and 32 new tokens each, through
   Start/Submit/Result/Stop, with every kernel count set to 0 just before.
-  per_step: {kernel: launches per engine step}; every other counted kernel
-  must launch 0 times. Then the profiled re-run. Returns (the counted
-  run's launches, its steps)."""
+  per_step: {kernel: launches per engine step}; per_decode_step: {kernel:
+  launches per decode-only step}; every other counted kernel must launch
+  0 times. Then the profiled re-run. Returns (the counted run's launches,
+  its steps, the streams)."""
   name = type(cfg).__name__
+  per_decode_step = per_decode_step or {}
   t0 = time.perf_counter()
   lm = cfg.Task().Instantiate(device="cuda")
   lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
   n_params = sum(p.numel() for p in lm.parameters())
   eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
                            max_batch=cfg.BATCH_SIZE,
-                           max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256)
+                           max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256,
+                           step_mode=step_mode)
   torch.cuda.synchronize()
-  print(f"{name}: {n_params / 1e9:.3f} B params, engine T={eng._ragged_t}, "
-        f"mixers {eng.mixers}, kv_bytes_per_token {eng.kv_bytes_per_token}, "
-        f"built in {time.perf_counter() - t0:.1f} s")
+  print(f"{name} ({step_mode}): {n_params / 1e9:.3f} B params, engine "
+        f"T={eng._ragged_t}, mixers {eng.mixers}, kv_bytes_per_token "
+        f"{eng.kv_bytes_per_token}, built in {time.perf_counter() - t0:.1f} s")
   eng.RunBatch(np.arange(1, 33, dtype=np.int32)[None], [32],
                max_new_tokens=2)   # warm-up: cuBLAS handles, allocator
-  prng = np.random.RandomState(1)
-  lens = prng.permutation(np.linspace(64, 768, 8).astype(np.int32))
-  prompts = [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
-  steps0 = eng.Stats()["steps"]
+  lens, prompts = _Requests(cfg)
+  stats0 = eng.Stats()
   torch.cuda.synchronize()
   for fn in counters.values():
     fn.launches = 0
@@ -714,27 +765,240 @@ def _ServeMain(torch, cfg, engine, counters, per_step):
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = {k: fn.launches for k, fn in counters.items()}
-  steps = eng.Stats()["steps"] - steps0
+  stats = eng.Stats()
+  steps = stats["steps"] - stats0["steps"]
+  decode_steps = stats["decode_steps"] - stats0["decode_steps"]
   for st in streams:
     _Check(len(st) == 32 and all(0 <= x < cfg.VOCAB_SIZE for x in st),
            f"bad stream {st}")
-  want = {k: per_step.get(k, 0) * steps for k in counters}
+  want = {k: per_step.get(k, 0) * steps
+          + per_decode_step.get(k, 0) * decode_steps for k in counters}
   _Check(launches == want, f"{name}: launches {launches} != {want} "
-         f"({per_step} per step x {steps} steps)")
+         f"({per_step} per step x {steps} steps, {per_decode_step} per "
+         f"decode-only step x {decode_steps})")
   ttft = sorted(h.first_token_time - h.submit_time for h in handles)
   tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
-  print(f"{name} served 8 requests (prompts {sorted(lens.tolist())}): "
-        f"{steps} steps, {wall / steps * 1e3:.2f} ms/step, "
+  print(f"{name} ({step_mode}) served 8 requests (prompts "
+        f"{sorted(lens.tolist())}): {steps} steps ({decode_steps} "
+        f"decode-only), {wall / steps * 1e3:.2f} ms/step, "
         f"{8 * 32 / wall:.1f} generated tok/s, "
         f"{int(lens.sum()) / wall:.1f} prompt tok/s, launches "
         f"{ {k: v for k, v in launches.items() if v} } = {per_step} x "
-        f"{steps}, peak memory "
+        f"{steps} + {per_decode_step} x {decode_steps}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
   print(f"time to first token: median {np.median(ttft) * 1e3:.1f} ms, max "
         f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
         f"{np.mean(tpot) * 1e3:.2f} ms")
   _Profile(torch, eng, prompts, steps)
-  return launches, steps
+  return launches, steps, streams
+
+
+def _DecodePool(torch, page, rng):
+  """The block-decode check at page size `page` (see the module
+  docstring): 8 rows of 16 heads of 128 with seq_lens 0..1024, their live
+  pages drawn from a 512 x 16-slot pool, every other page and table entry
+  NaN, and the slots past each row's length in its last page NaN. Returns
+  the CUDA tensors and the bytes and operations the read needs."""
+  b, n, h, max_seq = 8, 16, 128, 1024
+  t_pages = max_seq // page
+  num_pages = 512 * 16 // page
+  lens = np.array([0, 1, 130, 333, 512, 640, 901, 1024], np.int32)
+  need = [-(-int(x) // page) for x in lens]
+  perm = rng.permutation(num_pages)
+  owned = np.split(perm[:sum(need)], np.cumsum(need)[:-1])
+  freed = perm[sum(need):]
+  tables = rng.choice(freed, size=(b, t_pages)).astype(np.int32)
+  for r in range(b):
+    tables[r, :need[r]] = owned[r]
+  shape = (num_pages + 1, page, n, h)
+  k_pool = rng.randn(*shape).astype(np.float32)
+  v_pool = rng.randn(*shape).astype(np.float32)
+  for pool in (k_pool, v_pool):
+    pool[freed] = np.nan
+    for r in range(b):
+      if need[r]:
+        pool[owned[r][-1], lens[r] - (need[r] - 1) * page:] = np.nan
+  q = (rng.randn(b, 1, n, h) / np.sqrt(h)).astype(np.float32)
+  live = int(lens.sum())
+  moved = 2 * live * n * h * 4 + 2 * q.nbytes   # live K/V, q read, out written
+  flops = 4 * live * n * h
+  cuda = {k: torch.as_tensor(v).cuda() for k, v in dict(
+      q=q, k_pool=k_pool, v_pool=v_pool, tables=tables, lens=lens).items()}
+  return cuda, moved, flops
+
+
+def _CheckBlockDecode(torch, bd, page, rng):
+  """The block-decode kernel against `_PlainBlockDecode` on the card."""
+  x, moved, flops = _DecodePool(torch, page, rng)
+  args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lens"])
+  out = bd.BlockDecode(*args, page_size=page)
+  plain = bd._PlainBlockDecode(x["q"][:, 0], *args[1:], page)[:, None]
+  torch.cuda.synchronize()
+  _Check(bool(torch.isfinite(out).all()), f"block decode P={page}: "
+         "non-finite")
+  _Check(bool((out[0] == 0).all()), f"block decode P={page}: the inactive "
+         "row is not exactly zero")
+  err = float((out - plain).abs().max())
+  _Check(err <= TOL, f"block decode P={page}: kernel vs plain max abs err "
+         f"{err} > {TOL}")
+  ms = _TimeMs(torch, lambda: bd.BlockDecode(*args, page_size=page), 20)
+  plain_ms = _TimeMs(torch, lambda: bd._PlainBlockDecode(
+      x["q"][:, 0], *args[1:], page), 3, waits_as="plain block decode")
+  bound = _Bound(moved, flops)
+  print(f"block decode P={page} tables {tuple(x['tables'].shape)}: max abs "
+        f"err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound[0]:.4f} ms ({bound[1]}; {moved / 1e6:.1f} MB)")
+  return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err, library_ms=None)
+
+
+def _CheckFlashDecode(torch, fd, rng, prompt_lens):
+  """The flash-decode kernel against `_PlainDecode` on the card at
+  [8, 1152, 16, 128], page 128, with the left-pad cache paddings of
+  `prompt_lens` right-aligned in a 1024 bucket (as GShardDecode builds
+  them); padded slots hold NaN, and for t = 700 so do the slots past t.
+  Times the kernel, the plain version, SDPA over the whole cache with the
+  same boolean mask, and the bound: the live unpadded K/V slots, the
+  paddings of the live pages, q and out."""
+  b, s, n, h, page, p_len = 8, 1152, 16, 128, 128, 1024
+  slot = np.arange(s)
+  pad = (slot[None] < (p_len - np.asarray(prompt_lens))[:, None]).astype(
+      np.float32)
+  q = (rng.randn(b, 1, n, h) / np.sqrt(h)).astype(np.float32)
+  k = rng.randn(b, s, n, h).astype(np.float32)
+  v = rng.randn(b, s, n, h).astype(np.float32)
+  k[pad > 0.5] = np.nan
+  v[pad > 0.5] = np.nan
+  qc, padc = torch.as_tensor(q).cuda(), torch.as_tensor(pad).cuda()
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  res = {}
+  for t in (1151, 700):
+    kt, vt = k.copy(), v.copy()
+    kt[:, t + 1:] = np.nan
+    vt[:, t + 1:] = np.nan
+    kc, vc = torch.as_tensor(kt).cuda(), torch.as_tensor(vt).cuda()
+    out = fd.FlashDecode(qc, kc, vc, t, page_size=page, cache_paddings=padc)
+    plain = fd._PlainDecode(qc[:, 0], kc, vc, t, page, padc)[:, None]
+    torch.cuda.synchronize()
+    _Check(bool(torch.isfinite(out).all()), f"flash decode t={t}: "
+           "non-finite")
+    err = float((out - plain).abs().max())
+    _Check(err <= TOL, f"flash decode t={t}: kernel vs plain max abs err "
+           f"{err} > {TOL}")
+    keep = (slot[None] <= t) & (pad < 0.5)
+    live = int(keep.sum())
+    moved = (2 * live * n * h * 4 + b * (t // page + 1) * page * 4
+             + 2 * q.nbytes)
+    ms = _TimeMs(torch, lambda: fd.FlashDecode(
+        qc, kc, vc, t, page_size=page, cache_paddings=padc), 20)
+    plain_ms = _TimeMs(torch, lambda: fd._PlainDecode(
+        qc[:, 0], kc, vc, t, page, padc), 3, waits_as="plain flash decode")
+    mask = torch.as_tensor(keep).cuda()[:, None, None, :]
+    qs, ks, vs = (a.transpose(1, 2) for a in (qc, kc, vc))
+    lib_ms = _TimeMs(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask,
+                                         scale=1.0), 20, waits_as="SDPA")
+    bound = _Bound(moved, 4 * live * n * h)
+    print(f"flash decode [8, 1152, 16, 128] P={page} t={t}: {live} live "
+          f"slots, max abs err {err:.3g}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
+          f"({bound[1]}; {moved / 1e6:.1f} MB)")
+    res[t] = dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err,
+                  library_ms=lib_ms)
+    del kc, vc
+  return res
+
+
+def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp):
+  """DenseLmTiny (decode_page_size 4) through GShardDecode on the card and
+  on the CPU from one port checkpoint: the continuations must agree."""
+  p = spi.DenseLmTiny().Task()
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      decode_page_size=4)
+  cpu_lm = p.Instantiate(device="cpu")
+  cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
+  ckdir = os.path.join(tmp, "tiny")
+  checkpointer.Checkpointer(ckdir).Save(1, cpu_lm, force=True)
+  gpu_lm = p.Instantiate(device="cuda")   # DecodeOnce restores its weights
+  rng = np.random.RandomState(4)
+  lens = np.array([5, 13, 21, 8, 2, 30], np.int32)
+  prompts = rng.randint(1, 128, size=(len(lens), 30)).astype(np.int32)
+  outs = {}
+  for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
+    decoder = gshard.GShardDecode(
+        lm, ckdir, os.path.join(tmp, f"tiny_{name}.jsonl"),
+        max_decode_steps=12, prefill_chunk_size=8)
+    outs[name] = [r["output_ids"] for r in decoder.DecodeOnce(1, prompts,
+                                                             lens)]
+  _Check(outs["cpu"] == outs["cuda"], "tiny GShardDecode continuations "
+         f"differ:\n{outs['cpu']}\n{outs['cuda']}")
+  print(f"DenseLmTiny GShardDecode reference: {len(lens)} continuations of "
+        "12 tokens identical to the CPU path (paged read, page 4)")
+
+
+def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
+                ragged_streams):
+  """DenseLm1B (decode_page_size 128, random weights from a seeded
+  torch.Generator) through GShardDecode: a port checkpoint written and
+  read back, then DecodeOnce over the serving phases' 8 prompts (bucket
+  1024) for 128 tokens with prefill chunks of 256, every kernel count set
+  to 0 just before. Returns (launches, telemetry)."""
+  cfg = spi.DenseLm1B()
+  p = cfg.Task()
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      decode_page_size=128)
+  lm = p.Instantiate(device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  ckdir = os.path.join(tmp, "dense_lm_1b")
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  checkpointer.Checkpointer(ckdir).Save(1, lm, force=True)
+  write_s = time.perf_counter() - t0
+  size = sum(os.path.getsize(os.path.join(dp, f))
+             for dp, _, fs in os.walk(ckdir) for f in fs)
+  t0 = time.perf_counter()
+  checkpointer.Checkpointer(ckdir).Restore(lm, step=1)
+  torch.cuda.synchronize()
+  read_s = time.perf_counter() - t0
+  print(f"DenseLm1B port checkpoint: {size / 1e9:.3f} GB written in "
+        f"{write_s:.2f} s, read into the model in {read_s:.2f} s")
+  lens, prompts = _Requests(cfg)
+  arr = np.zeros((8, int(lens.max())), np.int32)
+  for i, pr in enumerate(prompts):
+    arr[i, :len(pr)] = pr
+  with torch.no_grad():   # warm-up: the decode path's first launches
+    states = lm.InitDecodeState(1, 256)
+    _, states = lm.Prefill(torch.ones((1, 128), dtype=torch.int32,
+                                      device="cuda"), states)
+    lm.ExtendStep(torch.ones((1, 1), dtype=torch.int32, device="cuda"),
+                  states)
+    del states
+  decoder = gshard.GShardDecode(lm, ckdir, os.path.join(tmp, "decode.jsonl"),
+                               max_decode_steps=128, prefill_chunk_size=256)
+  torch.cuda.synchronize()
+  for fn in counters.values():
+    fn.launches = 0
+  torch.cuda.reset_peak_memory_stats()
+  recs = decoder.DecodeOnce(1, arr, lens)
+  launches = {k: fn.launches for k, fn in counters.items()}
+  want = {k: 0 for k in counters}
+  want["flash_decode"] = 24 * 128
+  _Check(launches == want, f"GShardDecode launches {launches} != {want}")
+  for r in recs:
+    _Check(len(r["output_ids"]) == 128 and all(
+        0 <= x < cfg.VOCAB_SIZE for x in r["output_ids"]),
+           f"bad continuation {r['output_ids']}")
+  tel = recs[0]["telemetry"]
+  same = sum(r["output_ids"][:32] == list(st)
+             for r, st in zip(recs, ragged_streams))
+  print(f"DenseLm1B GShardDecode: 8 prompts (bucket 1024) x 128 tokens, "
+        f"prefill chunks of 256: prefill_s {tel['prefill_s']:.3f}, decode_s "
+        f"{tel['decode_s']:.3f} ({tel['decode_s'] / 128 * 1e3:.2f} ms per "
+        f"step), {tel['tokens_per_sec']:.1f} tokens/s, decode state "
+        f"{tel['decode_state_bytes_per_seq'] / 2**20:.1f} MiB per sequence, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches { {k: v for k, v in launches.items() if v} } (24 x 128)")
+  print(f"(information, not a check: {same} of 8 continuations begin with "
+        "the ragged engine's 32-token stream of phase 5)")
+  return launches, tel
 
 
 def main():
@@ -747,13 +1011,18 @@ def main():
           "script", file=sys.stderr)
     return 1
   sys.path.insert(0, REPO)
+  from lingvo_tpu_torch.core import attention
+  from lingvo_tpu_torch.core import checkpointer
   from lingvo_tpu_torch.core import ragged
   from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
+  from lingvo_tpu_torch.ops import block_decode as bd
   from lingvo_tpu_torch.ops import cuda_build
   from lingvo_tpu_torch.ops import flash_attention as fa
+  from lingvo_tpu_torch.ops import flash_decode as fd
   from lingvo_tpu_torch.ops import fused_xent as fx
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
   from lingvo_tpu_torch.ops import ssd_scan as ssd
+  from lingvo_tpu_torch.runners import gshard_decode as gshard
   from lingvo_tpu_torch.runners import program
   from lingvo_tpu_torch.serving import engine
 
@@ -773,7 +1042,7 @@ def main():
 
   _Phase("2. build kernels (one nvcc per source, in parallel)")
   sources = ("ragged_block_attend", "ssd_scan", "flash_attention",
-             "fused_xent")
+             "fused_xent", "block_decode", "flash_decode")
 
   def _Build(name):
     t0 = time.perf_counter()
@@ -818,18 +1087,20 @@ def main():
                   flash_attention_fwd=fa.FlashForward,
                   flash_attention_dkdv=fa.FlashDkDv,
                   flash_attention_dq=fa.FlashDq,
-                  fused_xent_fwd=fx.FusedXentStats)
+                  fused_xent_fwd=fx.FusedXentStats,
+                  block_decode=bd.BlockDecode,
+                  flash_decode=fd.FlashDecode)
 
   _Phase("5. serving main path: DenseLm1B through ServingLoop")
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged)
-  serve_launches, _ = _ServeMain(torch, spi.DenseLm1B(), engine, counters,
-                                 dict(ragged_block_attend=24))
+  serve_launches, _, ragged_streams = _ServeMain(
+      torch, spi.DenseLm1B(), engine, counters, dict(ragged_block_attend=24))
   gc.collect()
   torch.cuda.empty_cache()
 
   _Phase("6. hybrid serving main path: DenseLmSsmHybrid through ServingLoop")
   _TinyReference(torch, spi.DenseLmSsmHybridTiny(), engine, ragged)
-  hybrid_launches, _ = _ServeMain(
+  hybrid_launches, _, _ = _ServeMain(
       torch, spi.DenseLmSsmHybrid(), engine, counters,
       dict(ssd_scan=10, ragged_block_attend=2))
   gc.collect()
@@ -857,8 +1128,46 @@ def main():
                      * (half + 1) // 2)
   train_launches, _ = _TrainMain(torch, spi, program, counters,
                                  pairs_per_layer)
+  gc.collect()
+  torch.cuda.empty_cache()
 
-  _Phase("10. result")
+  _Phase("10. block-decode kernel vs plain version at the legacy step's "
+         "shapes")
+  print("block decode library_ms: null (no single PyTorch call computes "
+        "attention over block tables)")
+  brng = np.random.RandomState(10)
+  block = {page: _CheckBlockDecode(torch, bd, page, brng)
+           for page in (16, 128)}
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("11. flash-decode kernel vs plain version at [8, 1152, 16, 128]")
+  prompt_lens, _ = _Requests(spi.DenseLm1B())
+  fdec = _CheckFlashDecode(torch, fd, np.random.RandomState(11), prompt_lens)
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("12. legacy serving main path: DenseLm1B through "
+         "ServingLoop(step_mode='legacy')")
+  _TinyReference(torch, spi.DenseLmTiny(), engine, ragged, step_mode="legacy")
+  legacy_launches, _, legacy_streams = _ServeMain(
+      torch, spi.DenseLm1B(), engine, counters, {},
+      per_decode_step=dict(block_decode=24), step_mode="legacy")
+  differ = [i for i, (a, b) in enumerate(zip(legacy_streams, ragged_streams))
+            if list(a) != list(b)]
+  _Check(not differ, f"legacy streams differ from the ragged engine's in "
+         f"requests {differ}")
+  print("legacy streams: all 8 identical to the ragged engine's (phase 5)")
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("13. GShardDecode main path: DenseLm1B, decode_page_size 128")
+  with tempfile.TemporaryDirectory() as tmp:
+    _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp)
+    gshard_launches, _ = _GShardMain(torch, spi, attention, checkpointer,
+                                     gshard, counters, tmp, ragged_streams)
+
+  _Phase("14. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -896,6 +1205,26 @@ def main():
       "max_abs_err": xent["err"], "ms": xent["ms"],
       "plain_ms": xent["plain_ms"], "bound_ms": xent["bound"][0],
       "bound_by": xent["bound"][1], "library_ms": None})
+  main_block = block[16]
+  kernels.append({
+      "name": "block_decode", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/block_decode.cu",
+      "replaces": "lingvo_tpu/ops/block_decode.py:247",
+      "launches": legacy_launches["block_decode"],
+      "max_abs_err": max(r["err"] for r in block.values()),
+      "ms": main_block["ms"], "plain_ms": main_block["plain_ms"],
+      "bound_ms": main_block["bound"][0], "bound_by": main_block["bound"][1],
+      "library_ms": None})
+  main_fdec = fdec[1151]
+  kernels.append({
+      "name": "flash_decode", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/flash_decode.cu",
+      "replaces": "lingvo_tpu/ops/flash_decode.py:208",
+      "launches": gshard_launches["flash_decode"],
+      "max_abs_err": max(r["err"] for r in fdec.values()),
+      "ms": main_fdec["ms"], "plain_ms": main_fdec["plain_ms"],
+      "bound_ms": main_fdec["bound"][0], "bound_by": main_fdec["bound"][1],
+      "library_ms": main_fdec["library_ms"]})
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

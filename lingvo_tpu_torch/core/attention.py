@@ -1,20 +1,29 @@
-"""Multi-headed attention: the training FProp and the continuous-batching step.
+"""Multi-headed attention: the training FProp, incremental decode and the serving steps.
 
 Port of lingvo_tpu/core/attention.py `MultiHeadedAttention`: the
 projections (`_HeadsProj`, `_PostProj`), the learned per-dim query scale,
 the training `FProp` (causal, padding and segment masks; the fused flash
 kernel of `ops/flash_attention.py` when `use_flash_attention` is set and
-the call is eligible, else the einsum path `_Atten`), the global KV page
-pool (`InitPagedStates`) and the packed-token `RaggedStep`. Weights keep
+the call is eligible, else the einsum path `_Atten`), the dense
+per-batch KV cache of incremental decode (`InitStates`, `ExtendStep`,
+whose read goes through the paged flash-decode kernel of
+`ops/flash_decode.py` when `decode_page_size` is set, and the chunked
+`Prefill`), the global KV page pool (`InitPagedStates`), the legacy
+serving step `PagedStep` (the block-decode kernel of
+`ops/block_decode.py` on decode steps) and the packed-token
+`RaggedStep`. Weights keep
 the reference's layouts: w_query/w_key/w_value/w_post [D, N, H], biases
 [N, H] and [D]. Activations are [B, T, N, H]. Only the Params fields the
 DenseLm models set are ported, plus those whose other values must raise.
 
-The page pool is updated IN PLACE (`index_put_`) where the reference
-donated it to the jitted step and got a new array back: one KV pool per
-layer lives for the life of the serving engine. `RaggedStep` runs under
-`torch.no_grad()`: the serving step takes no gradient, and the pools
-never join an autograd graph.
+The page pool and the dense cache are updated IN PLACE (`index_put_`,
+slice assignment) where the reference donated them to the jitted step and
+got new arrays back: one KV pool per layer lives for the life of the
+serving engine, one cache per layer for a decode call. The decode cache's
+`time_step` is a host int (the next slot to write), so no device value is
+read back per step. The serving and decode steps run under
+`torch.no_grad()`: they take no gradient, and the pools and caches never
+join an autograd graph.
 """
 
 from __future__ import annotations
@@ -28,10 +37,16 @@ from lingvo_tpu_torch.core import layers as layers_lib
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
+from lingvo_tpu_torch.ops import block_decode
 from lingvo_tpu_torch.ops import flash_attention
+from lingvo_tpu_torch.ops import flash_decode
 from lingvo_tpu_torch.ops import ragged_block_attend
 
 _NEG_INF = -2.3819763e38  # the reference's additive mask value
+# Prefill reads the cache in tiles of this many slots with an online
+# softmax; a tile past every query is an exact no-op, so a trimmed read
+# (live_len) gives bitwise the full read's result.
+_PREFILL_TILE = 128
 
 
 def CausalMask(t: int, device=None) -> torch.Tensor:
@@ -90,6 +105,13 @@ class MultiHeadedAttention(base_layer.BaseLayer):
         "FProp runs the fused flash kernel when eligible (self-attention "
         "with only causal/padding/segment masking, no logit cap or "
         "dropout, t a multiple of 16); the einsum path otherwise.")
+    p.Define(
+        "decode_page_size", 0,
+        "If >0, ExtendStep reads the KV cache through the length-aware "
+        "paged flash-decode kernel (ops/flash_decode.py) in pages of this "
+        "many slots, touching only pages up to time_step. 0 = the dense "
+        "read. Requires max_len % decode_page_size == 0 and no logit cap "
+        "or dropout; ineligible configs take the dense read.")
     p.Define("kv_cache_dtype", None,
              "KV page pool storage dtype: None/'float32' (ported) or "
              "'int8' (the quantized-serving slice).")
@@ -216,6 +238,116 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     ctx, probs = self._Atten(q, k, v, mask)
     return self._PostProj(ctx), probs
 
+  # -- incremental decode (GShardDecode) --------------------------------------
+
+  def _CheckKvDtype(self, kv_cache_dtype=None):
+    dtype = kv_cache_dtype or self.p.kv_cache_dtype
+    if dtype not in (None, "float32"):
+      raise NotImplementedError(
+          f"kv_cache_dtype={dtype!r}: only float32 KV pools are ported; "
+          "int8 and bfloat16 pools come with the quantized-serving slice")
+
+  def InitStates(self, batch_size: int, max_len: int) -> NestedMap:
+    """Dense float32 KV cache [B, max_len, N, H] and time_step, the host
+    int of the next slot to write."""
+    self._CheckKvDtype()
+    shape = (batch_size, max_len, self.p.num_heads, self._dim_per_head)
+    return NestedMap(
+        key=torch.zeros(shape, dtype=torch.float32, device=self.device),
+        value=torch.zeros(shape, dtype=torch.float32, device=self.device),
+        time_step=0)
+
+  def PagedDecodeEligible(self, max_len: int) -> bool:
+    """The paged flash-decode read serves plain masked-softmax attention
+    on a cache that is a whole number of pages. (The reference also checks
+    its TPU tiling here; the CUDA kernel's own limits are checked by its
+    wrapper.)"""
+    p = self.p
+    return (flash_decode.SupportedShape(max_len, p.decode_page_size)
+            and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0)
+
+  def _ProjectStep(self, query_vec, position):
+    """q (scaled), k, v [B, C, N, H] of query_vec [B, C, D]; rotary at
+    `position`, float32 broadcastable to [B, C]."""
+    q = self._HeadsProj("query", query_vec)
+    k = self._HeadsProj("key", query_vec)
+    v = self._HeadsProj("value", query_vec)
+    if self.p.use_rotary_position_emb:
+      q = self.rotary.FProp(q, position)
+      k = self.rotary.FProp(k, position)
+    return self.per_dim_scale.FProp(q), k, v
+
+  @torch.no_grad()
+  def ExtendStep(self, query_vec, cached_states: NestedMap, paddings=None):
+    """query_vec [B, 1, D] at slot time_step; returns ([B, 1, D], states).
+
+    Writes the new K/V into the cache in place. paddings: optional [B, S]
+    float32 cache paddings, 1.0 = never attend (left-pad slots). With
+    `decode_page_size` set and an eligible shape the read is the paged
+    flash-decode op (only pages up to time_step); else the dense masked
+    softmax over the whole cache."""
+    t = cached_states.time_step
+    key_cache, value_cache = cached_states.key, cached_states.value
+    q, k_new, v_new = self._ProjectStep(
+        query_vec, torch.full((1, 1), float(t), device=query_vec.device))
+    key_cache[:, t] = k_new[:, 0]
+    value_cache[:, t] = v_new[:, 0]
+    max_len = key_cache.shape[1]
+    if self.PagedDecodeEligible(max_len):
+      # q carries the learned scale already; the op applies none
+      ctx = flash_decode.FlashDecode(
+          q, key_cache, value_cache, t, page_size=self.p.decode_page_size,
+          cache_paddings=paddings)
+    else:
+      slot = torch.arange(max_len, device=query_vec.device)
+      mask = torch.where(slot <= t, 0.0, _NEG_INF)[None, None, None, :]
+      if paddings is not None:
+        mask = mask + PaddingsToMask(paddings)
+      ctx, _ = self._Atten(q, key_cache, value_cache, mask)
+    return self._PostProj(ctx), NestedMap(key=key_cache, value=value_cache,
+                                          time_step=t + 1)
+
+  @torch.no_grad()
+  def Prefill(self, query_vec, cached_states: NestedMap, paddings=None,
+              live_len: int | None = None):
+    """Chunked prefill: query_vec [B, C, D] at slots [time_step,
+    time_step + C), K/V written in one slice assignment. Returns
+    ([B, C, D], states).
+
+    live_len: optional bound, time_step + C <= live_len: the read touches
+    only the cache tiles that hold slots [0, live_len). The read walks
+    the cache in tiles of _PREFILL_TILE slots with an online softmax, the
+    reference `_PageAttend` op order with queries batched; tiles past a
+    query are exact no-ops, so a trimmed read equals the full read
+    bitwise (the reference's dense read over [0, live_len) sums the
+    softmax in another order for each live_len and only matches to float
+    tolerance)."""
+    t = cached_states.time_step
+    c = query_vec.shape[1]
+    dev = query_vec.device
+    key_cache, value_cache = cached_states.key, cached_states.value
+    qpos = t + torch.arange(c, device=dev)                        # [C]
+    q, k_new, v_new = self._ProjectStep(query_vec, qpos.float()[None])
+    key_cache[:, t:t + c] = k_new
+    value_cache[:, t:t + c] = v_new
+    s_len = key_cache.shape[1]
+    live = s_len if live_len is None else live_len
+    b, _, n, h = q.shape
+    m = torch.full((b, c, n, 1), ragged_block_attend.NEG_INF, device=dev)
+    l = torch.zeros((b, c, n, 1), device=dev)
+    acc = torch.zeros((b, c, n, h), device=dev)
+    for start in range(0, live, _PREFILL_TILE):
+      sl = slice(start, min(start + _PREFILL_TILE, s_len))
+      slot = torch.arange(sl.start, sl.stop, device=dev)
+      keep = (slot[None, :] <= qpos[:, None])[None, :, None, :]  # [1,C,1,P]
+      if paddings is not None:
+        keep = keep & (paddings[:, None, None, sl] < 0.5)
+      m, l, acc = _TileAttend(q, key_cache[:, sl], value_cache[:, sl], keep,
+                              m, l, acc, self.p.atten_logit_cap)
+    ctx = ragged_block_attend._Finish(l, acc, q.dtype)
+    return self._PostProj(ctx), NestedMap(key=key_cache, value=value_cache,
+                                          time_step=t + c)
+
   # -- block-table paged serving ---------------------------------------------
 
   def InitPagedStates(self, num_pages: int, page_size: int,
@@ -226,11 +358,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     trash page padding tokens write to). num_slots is for O(1)-state
     mixers and ignored here."""
     del num_slots
-    dtype = kv_cache_dtype or self.p.kv_cache_dtype
-    if dtype not in (None, "float32"):
-      raise NotImplementedError(
-          f"kv_cache_dtype={dtype!r}: only float32 KV pools are ported; "
-          "int8 and bfloat16 pools come with the quantized-serving slice")
+    self._CheckKvDtype(kv_cache_dtype)
     shape = (num_pages, page_size, self.p.num_heads, self._dim_per_head)
     return NestedMap(
         key=torch.zeros(shape, dtype=torch.float32, device=self.device),
@@ -248,6 +376,50 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     p = self.p
     return (page_size > 0 and p.rel_pos_emb_dim == 0
             and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0)
+
+  @torch.no_grad()
+  def PagedStep(self, query_vec, cached_states: NestedMap, block_tables,
+                q_pos, in_len):
+    """One legacy continuous-batching step against the page pool.
+
+    query_vec: [B, C, D], row b's tokens for global slots [q_pos[b],
+    q_pos[b] + in_len[b]); queries past in_len[b] are padding, write to
+    the trash page and give outputs the engine discards. C == 1 is a
+    decode step (the block-decode op), C > 1 a mixed prefill step
+    (`BlockPrefill`). block_tables: [B, t_pages] int32; q_pos / in_len:
+    [B] int32, all on the layer's device. Writes the new K/V into
+    cached_states in place; returns ([B, C, D], cached_states)."""
+    k_pool, v_pool = cached_states.key, cached_states.value
+    np_total, page_size = k_pool.shape[0], k_pool.shape[1]
+    if not self.BlockDecodeEligible(page_size):
+      raise NotImplementedError(
+          "attention with a logit cap, dropout or relative bias needs the "
+          "gather-dense fallback, which comes with a later serving slice")
+    t_pages = block_tables.shape[1]
+    b, c, _ = query_vec.shape
+    dev = query_vec.device
+    cols = torch.arange(c, device=dev)
+    pos_i = q_pos.to(torch.int64)[:, None] + cols[None]            # [B, C]
+    q, k_new, v_new = self._ProjectStep(query_vec, pos_i.float())
+    # scatter the chunk's K/V through the block table before the read;
+    # padding queries write to the trash page (pool page np_total - 1)
+    valid = cols[None] < in_len.to(torch.int64)[:, None]           # [B, C]
+    logical = torch.clamp(pos_i // page_size, 0, t_pages - 1)
+    tables = torch.clamp(block_tables.to(torch.int64), 0, np_total - 1)
+    phys = torch.where(valid, torch.gather(tables, 1, logical), np_total - 1)
+    off = torch.where(valid, pos_i % page_size,
+                      (cols % page_size)[None].expand(b, c))
+    k_pool.index_put_((phys, off), k_new)
+    v_pool.index_put_((phys, off), v_new)
+    if c == 1:
+      ctx = block_decode.BlockDecode(
+          q, k_pool, v_pool, block_tables, (q_pos + in_len).to(torch.int32),
+          page_size=page_size)
+    else:
+      ctx = block_decode.BlockPrefill(
+          q, k_pool, v_pool, block_tables, q_pos, in_len,
+          page_size=page_size)
+    return self._PostProj(ctx), cached_states
 
   @torch.no_grad()
   def RaggedStep(self, query_vec, cached_states: NestedMap, block_tables,
@@ -274,15 +446,9 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     valid = rows.valid
     row = torch.clamp(rows.row_of.to(torch.int64), 0, b - 1)
     q_start = rows.row_q_pos[row].to(torch.int32)                  # [T]
-    q = self._HeadsProj("query", query_vec)                        # [1,T,N,H]
-    k_new = self._HeadsProj("key", query_vec)
-    v_new = self._HeadsProj("value", query_vec)
-    if self.p.use_rotary_position_emb:
-      # tree rows embed at their logical position pos_ids (== pos on chains)
-      posf = rows.pos_ids[None].to(torch.float32)
-      q = self.rotary.FProp(q, posf)
-      k_new = self.rotary.FProp(k_new, posf)
-    q = self.per_dim_scale.FProp(q)
+    # tree rows embed at their logical position pos_ids (== pos on chains)
+    q, k_new, v_new = self._ProjectStep(                           # [1,T,N,H]
+        query_vec, rows.pos_ids[None].to(torch.float32))
     # scatter each token's K/V through ITS row's block table before the
     # read (later tokens of a prefill chunk attend to earlier ones);
     # padding tokens write to the trash page (pool page np_total - 1)
@@ -302,3 +468,22 @@ class MultiHeadedAttention(base_layer.BaseLayer):
         row.to(torch.int32), q_end, page_size=page_size,
         q_start=q_start, anc_lo=rows.anc_lo, anc_hi=rows.anc_hi)[None]
     return self._PostProj(ctx), cached_states
+
+
+def _TileAttend(q, k_tile, v_tile, keep, m, l, acc, logit_cap=0.0):
+  """One cache tile of online-softmax attention for a chunk of queries
+  (the reference `_PageAttend` op order). q: [B, C, N, H], k_tile/v_tile
+  [B, P, N, H], keep bool broadcastable to [B, C, N, P], m/l [B, C, N, 1],
+  acc [B, C, N, H]; logit_cap > 0 tanh-caps the logits as `_Atten` does."""
+  neg_inf = ragged_block_attend.NEG_INF
+  s = torch.einsum("bcnh,bpnh->bcnp", q, k_tile)
+  if logit_cap > 0:
+    s = logit_cap * torch.tanh(s / logit_cap)
+  s = torch.where(keep, s, neg_inf)
+  m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+  m_safe = torch.where(m_new <= neg_inf * 0.5, 0.0, m_new)
+  p = torch.exp(s - m_safe)
+  alpha = torch.exp(m - m_new)
+  l_new = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+  return m_new, l_new, acc * alpha + torch.einsum("bcnp,bpnh->bcnh", p,
+                                                  v_tile)

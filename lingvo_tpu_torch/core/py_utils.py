@@ -8,7 +8,8 @@ random numbers are torch's and differ from JAX's, so tests carry weights
 across with `convert.LoadJaxTheta` rather than re-drawing them.
 
 And what the train step needs: `ApplyPadding`, `SequenceMask` and
-`GlobalNorm`, in the reference's float32 op order.
+`GlobalNorm`, in the reference's float32 op order; and the shape
+bucketing of batch decode, `RoundUpToBucket`.
 """
 
 from __future__ import annotations
@@ -174,3 +175,16 @@ def GlobalNorm(tensors) -> torch.Tensor:
   if not tensors:
     return torch.zeros(())
   return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
+
+
+def RoundUpToBucket(n: int, buckets) -> int:
+  """Smallest bucket >= n; n itself when it exceeds every bucket.
+
+  Decode-shape bucketing: rounding prompt widths up to a small fixed set
+  lets ragged widths share one decode setup (GShardDecode)."""
+  if n < 0:
+    raise ValueError(f"RoundUpToBucket needs n >= 0, got {n}")
+  for b in sorted(buckets):
+    if n <= b:
+      return int(b)
+  return int(n)

@@ -12,7 +12,7 @@ import torch
 
 
 def SampleFromLogits(logits, temperature: float = 0.0):
-  """[B, V] float logits -> [B] int32 token ids (greedy)."""
+  """[..., V] float logits -> [...] int32 token ids (greedy)."""
   if temperature > 0.0:
     raise NotImplementedError(
         "temperature > 0 sampling needs the per-request random streams, "

@@ -181,8 +181,8 @@ class GatedSSMLayer(base_layer.BaseLayer):
 
   def InitStates(self, *args, **kwargs):
     raise NotImplementedError(
-        "GatedSSMLayer.InitStates/ExtendStep/Prefill come with the "
-        "GShardDecode slice of the port")
+        "GatedSSMLayer.InitStates/ExtendStep/Prefill (its GShardDecode "
+        "contract) come with ROADMAP item 9.2 of the port")
 
   ExtendStep = Prefill = InitStates
 

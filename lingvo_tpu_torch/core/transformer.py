@@ -15,9 +15,18 @@ body is a `TransformerLayer` or, for the hybrid, a
 Its `remat_policy='full'` wraps each layer of the loop in
 `torch.utils.checkpoint` (the reference's `jax.checkpoint` of the scan
 body): only the layer boundaries are saved and the backward recomputes
-each layer's forward. The repeat's KV pools stay stacked,
-[num_layers, pages, P, N, H], as in the reference, and each layer updates
-its own slice in place (the SSM layers' slot states likewise).
+each layer's forward. The repeat's KV pools and decode caches stay
+stacked, [num_layers, pages, P, N, H] and [num_layers, B, S, N, H], as in
+the reference, and each layer updates its own slice in place (the SSM
+layers' slot states likewise); the decode caches' host-int time_step is
+one for the whole repeat.
+
+Every layer serves the three decode contracts of the reference:
+`InitStates` / `ExtendStep` / `Prefill` (incremental decode over a dense
+per-batch cache, GShardDecode), `InitPagedStates` / `PagedStep` (the
+legacy serving step, [B, C] rows) and `RaggedStep` (the packed serving
+step). `PagedStep` dispatches per mixer, so an SSM layer's own
+`PagedStep` serves its slot state.
 
 Only the Params fields the DenseLm models set are ported (no dropout,
 gating or cross-attention fields).
@@ -105,16 +114,39 @@ class TransformerAttentionLayer(base_layer.BaseLayer):
                                   causal=self.p.is_masked)
     return query_vec + out, probs
 
+  def InitStates(self, batch_size, max_len):
+    return self.atten.InitStates(batch_size, max_len)
+
+  def ExtendStep(self, query_vec, cached_states, cache_paddings=None):
+    return self._Step("ExtendStep", query_vec, cached_states,
+                      paddings=cache_paddings)
+
+  def Prefill(self, query_vec, cached_states, cache_paddings=None,
+              live_len=None):
+    """Whole-chunk cache priming: query_vec [B, C, D] -> ([B, C, D],
+    states)."""
+    return self._Step("Prefill", query_vec, cached_states,
+                      paddings=cache_paddings, live_len=live_len)
+
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
     return self.atten.InitPagedStates(num_pages, page_size,
                                       num_slots=num_slots,
                                       kv_cache_dtype=kv_cache_dtype)
 
+  def PagedStep(self, query_vec, cached_states, block_tables, q_pos, in_len):
+    return self._Step("PagedStep", query_vec, cached_states, block_tables,
+                      q_pos, in_len)
+
   def RaggedStep(self, query_vec, cached_states, block_tables, rows):
+    return self._Step("RaggedStep", query_vec, cached_states, block_tables,
+                      rows)
+
+  def _Step(self, method, query_vec, cached_states, *args, **kw):
+    """The pre-LN/residual wrapper around the mixer's `method`."""
     x = self.ln.FProp(query_vec)
-    out, new_states = self.atten.RaggedStep(x, cached_states, block_tables,
-                                            rows)
+    out, new_states = getattr(self.atten, method)(x, cached_states, *args,
+                                                  **kw)
     return query_vec + out, new_states
 
 
@@ -160,15 +192,36 @@ class TransformerLayer(base_layer.BaseLayer):
                                  segment_ids=segment_ids)
     return self.fflayer.FProp(x, paddings)
 
+  def InitStates(self, batch_size, max_len):
+    return NestedMap(
+        self_atten=self.self_atten.InitStates(batch_size, max_len))
+
+  def ExtendStep(self, inputs, cached_states, cache_paddings=None):
+    return self._Step("ExtendStep", inputs, cached_states,
+                      cache_paddings=cache_paddings)
+
+  def Prefill(self, inputs, cached_states, cache_paddings=None,
+              live_len=None):
+    return self._Step("Prefill", inputs, cached_states,
+                      cache_paddings=cache_paddings, live_len=live_len)
+
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
     return NestedMap(self_atten=self.self_atten.InitPagedStates(
         num_pages, page_size, num_slots=num_slots,
         kv_cache_dtype=kv_cache_dtype))
 
+  def PagedStep(self, inputs, cached_states, block_tables, q_pos, in_len):
+    return self._Step("PagedStep", inputs, cached_states, block_tables,
+                      q_pos, in_len)
+
   def RaggedStep(self, inputs, cached_states, block_tables, rows):
-    x, new_sa = self.self_atten.RaggedStep(
-        inputs, cached_states.self_atten, block_tables, rows)
+    return self._Step("RaggedStep", inputs, cached_states, block_tables,
+                      rows)
+
+  def _Step(self, method, inputs, cached_states, *args, **kw):
+    x, new_sa = getattr(self.self_atten, method)(
+        inputs, cached_states.self_atten, *args, **kw)
     return self.fflayer.FProp(x), NestedMap(self_atten=new_sa)
 
 
@@ -221,6 +274,19 @@ class StackedTransformerLayers(base_layer.BaseLayer):
       x = layer.FProp(x, paddings, segment_ids)
     return self._FinalLn(x)
 
+  def InitStates(self, batch_size, max_len):
+    return NestedMap(x_layers=[
+        layer.InitStates(batch_size, max_len) for layer in self.x_layers])
+
+  def ExtendStep(self, inputs, cached_states, cache_paddings=None):
+    return self._Step("ExtendStep", inputs, cached_states,
+                      cache_paddings=cache_paddings)
+
+  def Prefill(self, inputs, cached_states, cache_paddings=None,
+              live_len=None):
+    return self._Step("Prefill", inputs, cached_states,
+                      cache_paddings=cache_paddings, live_len=live_len)
+
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
     return NestedMap(x_layers=[
@@ -229,14 +295,24 @@ class StackedTransformerLayers(base_layer.BaseLayer):
         for layer in self.x_layers
     ])
 
+  def PagedStep(self, inputs, cached_states, block_tables, q_pos, in_len):
+    return self._Step("PagedStep", inputs, cached_states, block_tables,
+                      q_pos, in_len)
+
   def RaggedStep(self, inputs, cached_states, block_tables, rows):
-    """Runs the layers in order; each updates its own states in place.
-    Returns (out, cached_states)."""
+    return self._Step("RaggedStep", inputs, cached_states, block_tables,
+                      rows)
+
+  def _Step(self, method, inputs, cached_states, *args, **kw):
+    """Runs the layers' `method` in order; each updates its own states in
+    place. Returns (out, the layers' returned states)."""
     x = inputs
+    new_states = NestedMap(x_layers=[])
     for i, layer in enumerate(self.x_layers):
-      x, _ = layer.RaggedStep(x, cached_states.x_layers[i], block_tables,
-                              rows)
-    return self._FinalLn(x), cached_states
+      x, ns = getattr(layer, method)(x, cached_states.x_layers[i], *args,
+                                     **kw)
+      new_states.x_layers.append(ns)
+    return self._FinalLn(x), new_states
 
 
 class RepeatedTransformerLayer(base_layer.BaseLayer):
@@ -291,22 +367,56 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
         x = layer.FProp(x, paddings, segment_ids)
     return x
 
+  def _Stacked(self, one: NestedMap) -> NestedMap:
+    """One body's states stacked on a leading [num_layers] axis; host ints
+    (a decode cache's time_step) stay one value for the whole repeat."""
+    n = self.p.num_layers
+    return NestedMap(body=one.Transform(
+        lambda x: x.new_zeros((n,) + tuple(x.shape))
+        if isinstance(x, torch.Tensor) else x))
+
+  @staticmethod
+  def _Slice(body_states: NestedMap, i: int) -> NestedMap:
+    return body_states.Transform(
+        lambda s: s[i] if isinstance(s, torch.Tensor) else s)
+
+  def InitStates(self, batch_size, max_len):
+    """Every body's decode caches stacked on a leading [num_layers] axis."""
+    return self._Stacked(self.body[0].InitStates(batch_size, max_len))
+
+  def ExtendStep(self, inputs, cached_states, cache_paddings=None):
+    return self._Step("ExtendStep", inputs, cached_states,
+                      cache_paddings=cache_paddings)
+
+  def Prefill(self, inputs, cached_states, cache_paddings=None,
+              live_len=None):
+    return self._Step("Prefill", inputs, cached_states,
+                      cache_paddings=cache_paddings, live_len=live_len)
+
   def InitPagedStates(self, num_pages, page_size, num_slots=0,
                       kv_cache_dtype=None):
     """Every body's states (KV pools, SSM slot states) stacked on a
     leading [num_layers] axis."""
-    one = self.body[0].InitPagedStates(num_pages, page_size,
-                                       num_slots=num_slots,
-                                       kv_cache_dtype=kv_cache_dtype)
-    n = self.p.num_layers
-    return NestedMap(body=one.Transform(
-        lambda x: x.new_zeros((n,) + tuple(x.shape))))
+    return self._Stacked(self.body[0].InitPagedStates(
+        num_pages, page_size, num_slots=num_slots,
+        kv_cache_dtype=kv_cache_dtype))
+
+  def PagedStep(self, inputs, cached_states, block_tables, q_pos, in_len):
+    return self._Step("PagedStep", inputs, cached_states, block_tables,
+                      q_pos, in_len)
 
   def RaggedStep(self, inputs, cached_states, block_tables, rows):
-    """Runs the bodies in order; body i writes its slice of the stacked
-    states in place. Returns (out, cached_states)."""
-    x = inputs
+    return self._Step("RaggedStep", inputs, cached_states, block_tables,
+                      rows)
+
+  def _Step(self, method, inputs, cached_states, *args, **kw):
+    """Runs the bodies' `method` in order; body i writes its slice of the
+    stacked states in place. Returns (out, the stacked states, with the
+    host ints a body advanced, such as a decode cache's time_step)."""
+    x, ns = inputs, None
     for i, layer in enumerate(self.body):
-      x, _ = layer.RaggedStep(x, cached_states.body.Transform(lambda s: s[i]),
-                              block_tables, rows)
-    return x, cached_states
+      x, ns = getattr(layer, method)(x, self._Slice(cached_states.body, i),
+                                     *args, **kw)
+    return x, NestedMap(body=cached_states.body.Pack([
+        old if isinstance(old, torch.Tensor) else new
+        for old, new in zip(cached_states.body.Flatten(), ns.Flatten())]))

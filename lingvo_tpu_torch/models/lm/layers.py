@@ -11,8 +11,15 @@ mixer everywhere (`mixer_atten_every_n == 0`). It implements:
   batches (ids, labels, paddings, segment_ids), with the dense head or,
   with `xent_block_size > 0`, the fused blockwise xent; `BaseTask.TrainStep`
   drives them;
+- incremental decode over a dense per-batch KV cache, which
+  `runners/gshard_decode.GShardDecode` drives: `InitDecodeState`,
+  `ExtendStep` and the chunked `Prefill`;
 - the continuous-batching surface the serving engine drives:
-  `InitPagedDecodeState` and `RaggedStep`.
+  `InitPagedDecodeState`, `RaggedStep` (step_mode='ragged') and
+  `PagedStep` (step_mode='legacy').
+
+Decode follows the reference's position policy: rotary positions are the
+global cache slots and no absolute position embedding is added.
 
 Only the Params fields the DenseLm models set are ported, plus those whose
 other values raise NotImplementedError naming the slice that brings them
@@ -215,6 +222,37 @@ class TransformerLm(base_model.BaseTask):
         num_predictions=(tot_weight, 1.0))
     return metrics, NestedMap(xent=out.per_example_xent)
 
+  # -- incremental decode ----------------------------------------------------
+
+  def InitDecodeState(self, batch_size: int, max_len: int) -> NestedMap:
+    """Dense [B, max_len] KV caches of every attention layer (host-int
+    time_step 0)."""
+    return self.stack.InitStates(batch_size, max_len)
+
+  def _Head(self, x):
+    return self.emb.Logits(self.final_ln.FProp(x))
+
+  @torch.no_grad()
+  def ExtendStep(self, ids_t, states, cache_paddings=None):
+    """ids_t: [b, 1] -> (logits [b, vocab], states); the caches update in
+    place. cache_paddings: optional [b, max_len] float32, 1.0 marks cache
+    slots never to attend (the left-pad of right-aligned prompts)."""
+    x = self.emb.EmbLookup(ids_t)
+    x, states = self.stack.ExtendStep(x, states,
+                                      cache_paddings=cache_paddings)
+    return self._Head(x)[:, 0, :], states
+
+  @torch.no_grad()
+  def Prefill(self, ids, states, cache_paddings=None, live_len=None):
+    """Chunked prefill: ids [b, c] at cache slots [time_step, time_step +
+    c) -> (logits [b, c, vocab], states), one attention pass per layer.
+    live_len: optional bound (>= time_step + c) on the cache slots the
+    read touches (MultiHeadedAttention.Prefill)."""
+    x = self.emb.EmbLookup(ids)
+    x, states = self.stack.Prefill(x, states, cache_paddings=cache_paddings,
+                                   live_len=live_len)
+    return self._Head(x), states
+
   # -- serving ---------------------------------------------------------------
 
   def InitPagedDecodeState(self, num_pages: int, page_size: int,
@@ -228,6 +266,20 @@ class TransformerLm(base_model.BaseTask):
                                       kv_cache_dtype=kv_cache_dtype)
 
   @torch.no_grad()
+  def PagedStep(self, ids, states, block_tables, q_pos, in_len):
+    """Legacy continuous-batching step: ids [b, c] -> (logits [b, c,
+    vocab], states).
+
+    Row b's tokens land at its global slots [q_pos[b], q_pos[b] +
+    in_len[b]) through block_tables [b, t_pages]; c == 1 is a decode-only
+    step, c > 1 a mixed step (decode rows use in_len 1; padding columns
+    past in_len give logits the engine discards). The KV pools and SSM
+    slot states update in place."""
+    x = self.emb.EmbLookup(ids)
+    x, states = self.stack.PagedStep(x, states, block_tables, q_pos, in_len)
+    return self._Head(x), states
+
+  @torch.no_grad()
   def RaggedStep(self, ids, states, block_tables, rows):
     """Packed-token continuous-batching step: ids [1, T] -> (logits
     [1, T, vocab], states).
@@ -239,5 +291,4 @@ class TransformerLm(base_model.BaseTask):
     states in `states` are updated in place."""
     x = self.emb.EmbLookup(ids)
     x, states = self.stack.RaggedStep(x, states, block_tables, rows)
-    x = self.final_ln.FProp(x)
-    return self.emb.Logits(x), states
+    return self._Head(x), states

@@ -1,0 +1,241 @@
+"""Block-table paged decode attention over a global KV page pool (port of lingvo_tpu/ops/block_decode.py).
+
+The attention read of the legacy serving step (`MultiHeadedAttention
+.PagedStep`). K/V live in a global pool of pages `[num_pages, page_size,
+N, H]`; row b's logical slot s lives at pool page `block_tables[b, s //
+page_size]`, offset `s % page_size`. Table entries past a row's live
+pages are unspecified (freed pages may already belong to another row) and
+never influence the output. q arrives PRE-SCALED.
+
+- `BlockDecode`: one query per row over slots [0, seq_lens[b]); a row with
+  seq_len 0 is inactive and returns exactly 0. Two implementations of one
+  function: the CUDA kernel `ops/csrc/block_decode.cu` (one thread block
+  per (row, head), walking only the row's ceil(seq_len / P) live pages),
+  launched for CUDA tensors, and `_PlainBlockDecode`, the reference twin
+  `_XlaBlockDecode`'s loop over the batch's live pages through the shared
+  page step (`ragged_block_attend._PageAttend`), used for CPU tensors and
+  as the kernel's yardstick. A CUDA tensor launches the kernel or raises.
+- `BlockPrefill`: C chunk queries per row, causal within the chunk, for
+  the legacy engine's mixed steps. Plain PyTorch on every device: the
+  reference computes it outside any Pallas kernel too.
+- `GatherPages`: the dense [B, T * P, N, H] view of a row's pages.
+
+Float pools only: the int8 pools' scale sidecars (`k_scale`/`v_scale`)
+raise until ROADMAP item 2 ports the quantized pools.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lingvo_tpu_torch.ops import cuda_build
+from lingvo_tpu_torch.ops.ragged_block_attend import (NEG_INF, _Finish,
+                                                     _PageAttend)
+
+MAX_PAGE_SIZE = 128   # kernel limits
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+
+
+def _NoScales(k_scale, v_scale, k_pool):
+  if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
+    raise NotImplementedError(
+        "int8 KV pools (k_scale/v_scale) come with the quantized-serving "
+        "slice of the port (ROADMAP item 2)")
+
+
+def GatherPages(pool, block_tables):
+  """pool [NP, P, N, H] + tables [B, T] -> dense [B, T*P, N, H]: row b's
+  logical slots in order (out-of-range entries clamp; callers mask dead
+  slots)."""
+  b, t_pages = block_tables.shape
+  np_total, page, n, h = pool.shape
+  pages = pool[torch.clamp(block_tables.long(), 0, np_total - 1)]
+  return pages.reshape(b, t_pages * page, n, h)
+
+
+# -- plain PyTorch version (the CPU path) -----------------------------------
+
+
+def _PlainBlockDecode(q, k_pool, v_pool, block_tables, seq_lens,
+                      page_size: int):
+  """q: [B, N, H]; pools [NP, P, N, H]; tables [B, T] int32; seq_lens [B]
+  int32 -> [B, N, H].
+
+  Trip count ceil(max(seq_lens) / P), at most T; rows whose length falls
+  short of the batch max see their extra pages fully masked (a no-op
+  through _PageAttend, as in the reference twin)."""
+  b, n, h = q.shape
+  np_total, page = k_pool.shape[0], k_pool.shape[1]
+  if page != page_size:
+    raise ValueError(f"pool pages of {page}, page_size {page_size}")
+  t_pages = block_tables.shape[1]
+  dev = q.device
+  lens = seq_lens.to(torch.int64)
+  max_len = int(lens.max()) if b else 0
+  trip = min(max((max_len + page_size - 1) // page_size, 0), t_pages)
+  tables = torch.clamp(block_tables.to(torch.int64), 0, np_total - 1)
+  m = torch.full((b, n, 1), NEG_INF, dtype=torch.float32, device=dev)
+  l = torch.zeros((b, n, 1), dtype=torch.float32, device=dev)
+  acc = torch.zeros((b, n, h), dtype=torch.float32, device=dev)
+  offsets = torch.arange(page_size, dtype=torch.int64, device=dev)
+  for j in range(trip):
+    pid = tables[:, j]
+    slot = j * page_size + offsets                              # [P]
+    keep = (slot[None, :] < lens[:, None]).float()[:, None, :]  # [B, 1, P]
+    m, l, acc = _PageAttend(q.float(), k_pool[pid].float(),
+                            v_pool[pid].float(), keep, m, l, acc)
+  return _Finish(l, acc, q.dtype)
+
+
+# -- the CUDA kernel ---------------------------------------------------------
+
+
+_lib = None   # the loaded kernel library, with its C signatures declared
+
+
+def _Lib():
+  global _lib
+  if _lib is None:
+    lib = cuda_build.Load("block_decode")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.BlockDecodeF32.argtypes = [vp] * 6 + [ci] * 6 + [vp]
+    lib.BlockDecodeF32.restype = ci
+    lib.BlockDecodeErrorString.argtypes = [ci]
+    lib.BlockDecodeErrorString.restype = ctypes.c_char_p
+    _lib = lib
+  return _lib
+
+
+def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size):
+  b, n, h = q.shape
+  np_total, p = k_pool.shape[0], k_pool.shape[1]
+  t_pages = block_tables.shape[1]
+  if q.dtype != torch.float32 or k_pool.dtype != torch.float32 or (
+      v_pool.dtype != torch.float32):
+    raise TypeError(
+        f"BlockDecode kernel takes float32 q and pools, got {q.dtype}, "
+        f"{k_pool.dtype}, {v_pool.dtype}")
+  if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
+    raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
+                     f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
+  if p != page_size or not 1 <= p <= MAX_PAGE_SIZE:
+    raise ValueError(f"page_size {page_size} (pool pages of {p}) outside the "
+                     f"kernel's [1, {MAX_PAGE_SIZE}]")
+  if h not in HEAD_DIMS:
+    raise ValueError(f"head dim {h} not one of the kernel's {HEAD_DIMS}")
+  if block_tables.shape[0] != b or t_pages < 1:
+    raise ValueError(f"block_tables {tuple(block_tables.shape)} for {b} rows")
+  for name, x in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+    if x.dtype != torch.int32:
+      raise TypeError(f"{name} must be int32, got {x.dtype}")
+  if tuple(seq_lens.shape) != (b,):
+    raise ValueError(f"seq_lens shape {tuple(seq_lens.shape)} != ({b},)")
+  for x in (q, k_pool, v_pool, block_tables, seq_lens):
+    if x.device != q.device:
+      raise ValueError(f"tensor on {x.device}, q on {q.device}")
+    if not x.is_contiguous():
+      raise ValueError("BlockDecode kernel takes contiguous tensors")
+  out = torch.empty_like(q)
+  if b == 0:
+    return out
+  lib = _Lib()
+  stream = torch.cuda.current_stream(q.device).cuda_stream
+  rc = lib.BlockDecodeF32(
+      q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+      block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, n, h,
+      np_total, p, t_pages, stream)
+  if rc != 0:
+    raise RuntimeError("BlockDecode kernel launch failed: "
+                       + lib.BlockDecodeErrorString(rc).decode())
+  BlockDecode.launches += 1
+  return out
+
+
+# -- public entries ----------------------------------------------------------
+
+
+def BlockDecode(q, k_pool, v_pool, block_tables, seq_lens, *, page_size: int,
+                k_scale=None, v_scale=None):
+  """Single-query block-table paged decode attention.
+
+  q: [B, 1, N, H], the newest query per row, ALREADY scaled (its K/V was
+  written to the pool first, at slot seq_len - 1).
+  k_pool/v_pool: [num_pages, page_size, N, H] float32 page pool.
+  block_tables: [B, pages_per_seq] int32 physical page ids.
+  seq_lens: [B] int32 live-slot counts; 0 marks an inactive row (output 0).
+  k_scale/v_scale: int8 pools are not ported yet; passing them raises.
+  Returns [B, 1, N, H].
+
+  CPU tensors run the plain version; CUDA tensors launch the kernel (and
+  count one launch in `BlockDecode.launches`) or raise."""
+  _NoScales(k_scale, v_scale, k_pool)
+  if q.ndim != 4 or q.shape[1] != 1:
+    raise ValueError(f"q must be [B, 1, N, H], got {tuple(q.shape)}")
+  q3 = q[:, 0]
+  if q.device.type == "cpu":
+    out = _PlainBlockDecode(q3, k_pool, v_pool, block_tables, seq_lens,
+                            page_size)
+  elif q.device.type == "cuda":
+    out = _CudaBlockDecode(q3.contiguous(), k_pool, v_pool, block_tables,
+                           seq_lens, page_size)
+  else:
+    raise ValueError(f"BlockDecode runs on cpu or cuda, not {q.device}")
+  return out[:, None]
+
+
+BlockDecode.launches = 0   # kernel launches (the plain version counts none)
+
+
+def BlockPrefill(q, k_pool, v_pool, block_tables, q_pos, in_len, *,
+                 page_size: int, k_scale=None, v_scale=None):
+  """Multi-query paged attention for chunked-prefill steps.
+
+  q: [B, C, N, H] pre-scaled chunk queries; query c of row b sits at slot
+  q_pos[b] + c and attends its row's slots <= q_pos[b] + c (the chunk's
+  K/V were written to the pool first). in_len: [B] int32 valid-query
+  counts; queries c >= in_len[b] return 0. One loop over the batch's live
+  pages with an online softmax, as the reference. A slot at or past
+  q_pos + in_len is masked for every query of its row and its V row is
+  not read. -> [B, C, N, H]."""
+  _NoScales(k_scale, v_scale, k_pool)
+  b, c, n, h = q.shape
+  np_total, page = k_pool.shape[0], k_pool.shape[1]
+  if page != page_size:
+    raise ValueError(f"pool pages of {page}, page_size {page_size}")
+  t_pages = block_tables.shape[1]
+  dev = q.device
+  q_pos = q_pos.to(torch.int64)
+  in_len = in_len.to(torch.int64)
+  tables = torch.clamp(block_tables.to(torch.int64), 0, np_total - 1)
+  cols = torch.arange(c, dtype=torch.int64, device=dev)
+  pos = q_pos[:, None] + cols[None]                             # [B, C]
+  valid = cols[None] < in_len[:, None]                          # [B, C]
+  end = q_pos + in_len                                          # [B]
+  max_end = int(end.max()) if b else 0
+  trip = min(max((max_end + page_size - 1) // page_size, 0), t_pages)
+  qf = q.float()
+  m = torch.full((b, c, n, 1), NEG_INF, dtype=torch.float32, device=dev)
+  l = torch.zeros((b, c, n, 1), dtype=torch.float32, device=dev)
+  acc = torch.zeros((b, c, n, h), dtype=torch.float32, device=dev)
+  offsets = torch.arange(page_size, dtype=torch.int64, device=dev)
+  for j in range(trip):
+    pid = tables[:, j]
+    k_page = k_pool[pid].float()                                # [B, P, N, H]
+    slot = j * page_size + offsets                              # [P]
+    keep = ((slot[None, None, :] <= pos[:, :, None])
+            & valid[:, :, None])                                # [B, C, P]
+    s = torch.einsum("bcnh,bpnh->bcnp", qf, k_page)
+    s = torch.where(keep[:, :, None, :], s, NEG_INF)
+    m_cur = torch.amax(s, dim=-1, keepdim=True)                 # [B, C, N, 1]
+    m_new = torch.maximum(m, m_cur)
+    m_safe = torch.where(m_new <= NEG_INF * 0.5, 0.0, m_new)
+    p = torch.exp(s - m_safe)
+    alpha = torch.exp(m - m_new)
+    l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
+    live = (slot[None, :] < end[:, None])[:, :, None, None]     # [B, P, 1, 1]
+    v_page = torch.where(live, v_pool[pid].float(), 0.0)
+    acc = alpha * acc + torch.einsum("bcnp,bpnh->bcnh", p, v_page)
+    m = m_new
+  return _Finish(l, acc, q.dtype)

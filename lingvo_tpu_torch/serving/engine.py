@@ -8,12 +8,20 @@ Glues the layers below into a running service:
     serving/scheduler.py         admission / step building / retirement
     serving/spec_decode.py       the mixer census
 
-Every iteration packs its work onto one [T] token axis (core/ragged.py):
-a decode row contributes 1 token, a prefilling row a token-budgeted
-prompt chunk, with T = max_batch + prefill_chunk fixed at
-construction, as in the reference's one compiled step. The device pools
-are updated in place; admission and retirement only rewrite the int32
-block tables between steps.
+Two step modes, as in the reference:
+- 'ragged' (the default): every iteration packs its work onto one [T]
+  token axis (core/ragged.py): a decode row contributes 1 token, a
+  prefilling row a token-budgeted prompt chunk, with T = max_batch +
+  prefill_chunk fixed at construction, as in the reference's one
+  compiled step; the attention read is the ragged kernel.
+- 'legacy': every iteration is a [B, C] step through `PagedStep`
+  (scheduler.BuildStep): C = 1 when every live row decodes, and the
+  attention read is the block-decode kernel (ops/block_decode.py); C =
+  prefill_chunk when a row is still prefilling, and the read is the plain
+  `BlockPrefill`. Greedy draws are taken per column.
+
+The device pools are updated in place; admission and retirement only
+rewrite the int32 block tables between steps.
 
 O(1)-state mixers (core/ssm.py) plug in unchanged: each SSM layer keeps a
 [max_batch, N, H, S] state per slot, reset on the device on a sequence's
@@ -22,10 +30,10 @@ a hybrid stack prices both resources (KV pages for its attention layers,
 a `StateSlotPool` for its SSM layers), and a pure-SSM stack admits
 pageless, bounded by slots only (`paged_path == "ssm"`).
 
-Ported: step_mode='ragged', fifo scheduling, greedy sampling, float32 KV
+Ported: both step modes, fifo scheduling, greedy sampling, float32 KV
 pools. Speculative decoding, the prefix cache, int8 KV pools, int8
-weights, priority scheduling, the legacy step mode and temperature > 0
-raise NotImplementedError naming the slice that brings them.
+weights, priority scheduling and temperature > 0 raise
+NotImplementedError naming the slice that brings them.
 
 Two front doors, as in the reference:
 - async: `Start()` + `Submit(prompt, max_new) -> StreamHandle`, tokens
@@ -111,19 +119,17 @@ class ServingLoop:
                serve_int8_weights: bool = False, spec=None,
                prefix_cache=None, step_mode: str = "ragged",
                scheduler_mode: str = "fifo", device=None):
-    """task: a TransformerLm (exposing InitPagedDecodeState / RaggedStep)
-    that holds its weights on `device`. num_pages: allocator-owned pages
-    (the device pool gets one extra trash page). max_seq_len: static
-    per-sequence capacity (block-table width = ceil(max_seq_len /
-    page_size)). prefill_chunk: prompt tokens a step packs beyond one
-    token per slot (the reference's default prefill_token_budget). device:
+    """task: a TransformerLm (exposing InitPagedDecodeState, RaggedStep
+    and PagedStep) that holds its weights on `device`. num_pages:
+    allocator-owned pages (the device pool gets one extra trash page).
+    max_seq_len: static per-sequence capacity (block-table width =
+    ceil(max_seq_len / page_size)). prefill_chunk: prompt tokens a ragged
+    step packs beyond one token per slot (the reference's default
+    prefill_token_budget), and the width C of a legacy mixed step.
+    step_mode: 'ragged' or 'legacy' (see the module docstring). device:
     where the engine runs; None means CUDA and raises when there is none.
     The other arguments name reference features that raise until ported."""
-    if step_mode == "legacy":
-      raise NotImplementedError(
-          "step_mode='legacy' (block_decode programs) comes with a later "
-          "serving slice; the port serves step_mode='ragged'")
-    if step_mode != "ragged":
+    if step_mode not in ("ragged", "legacy"):
       raise ValueError(f"step_mode must be 'ragged' or 'legacy', got "
                        f"{step_mode!r}")
     if spec is not None:
@@ -158,6 +164,8 @@ class ServingLoop:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     self._task = task
+    self.step_mode = step_mode
+    self.prefill_chunk = prefill_chunk
     self.page_size = page_size
     self.num_pages = num_pages
     self.max_batch = max_batch
@@ -270,8 +278,10 @@ class ServingLoop:
   # -- core step (shared by sync and async modes) ----------------------------
 
   def StepOnce(self) -> int:
-    """One admit -> device step -> commit iteration through the ragged
-    step; returns the number of committed-token events."""
+    """One admit -> device step -> commit iteration through the step
+    mode's program; returns the number of committed-token events."""
+    if self.step_mode == "legacy":
+      return self._StepOnceLegacy()
     with self._lock:
       self.sched.Admit()
       batch = self.sched.BuildRaggedStep(self._ragged_t, self._ragged_wmax)
@@ -289,11 +299,38 @@ class ServingLoop:
     sampled = sampled.cpu().numpy()
     with self._lock:
       events = self.sched.CommitRaggedStep(batch, sampled)
-      self._counters["steps"] += 1
-      self._counters["mixed_steps" if batch.mixed else "decode_steps"] += 1
-      self._counters["prompt_tokens"] += batch.prompt_tokens
-      self._PushEvents(events)
+      self._Count(batch, events)
     return len(events)
+
+  def _StepOnceLegacy(self) -> int:
+    """One admit -> [B, C] PagedStep -> commit iteration (the reference
+    `_StepOnceLegacy`, without speculation): greedy draws per column."""
+    with self._lock:
+      self.sched.Admit()
+      batch = self.sched.BuildStep(self.prefill_chunk)
+      if batch is None:
+        return 0
+      tables = np.array(self.sched.block_tables)  # freeze under the lock
+    on_dev = lambda a: torch.as_tensor(a).to(self.device)
+    with torch.no_grad():
+      logits, self._states = self._task.PagedStep(
+          on_dev(batch.ids), self._states, on_dev(tables),
+          on_dev(batch.q_pos), on_dev(batch.in_len))
+      sampled = sampling.SampleFromLogits(logits,
+                                          temperature=self.temperature)
+    sampled = sampled.cpu().numpy()
+    with self._lock:
+      events = self.sched.CommitStep(batch, sampled)
+      self._Count(batch, events)
+    return len(events)
+
+  def _Count(self, batch, events):
+    """Counts a committed step and streams its events (caller holds the
+    lock)."""
+    self._counters["steps"] += 1
+    self._counters["mixed_steps" if batch.mixed else "decode_steps"] += 1
+    self._counters["prompt_tokens"] += batch.prompt_tokens
+    self._PushEvents(events)
 
   def _PushEvents(self, events):
     """Streams committed tokens to their handles (caller holds the lock)."""

@@ -14,11 +14,14 @@ admit -> build -> (device step) -> commit:
   state and retirement releases it.
 - `BuildRaggedStep` packs every live slot into ONE [T]-token step: decode
   rows first (1 token each), then prefill rows take the leftover budget in
-  slot order.
-- `CommitRaggedStep` folds the sampled tokens back in: advances prompt
-  cursors, turns finished prefills into decoders (their first generated
-  token is the draw at the last prompt token), appends decode tokens,
-  retires sequences on max_new/EOS and frees their slot and pages.
+  slot order. `BuildStep` (the legacy step mode) lays the slots out as
+  [B, C] rows instead: C = 1 when every live row decodes, else C =
+  prefill_chunk and each prefilling row takes its next chunk.
+- `CommitRaggedStep` / `CommitStep` fold the sampled tokens back in:
+  advance prompt cursors, turn finished prefills into decoders (their
+  first generated token is the draw at the last prompt token), append
+  decode tokens, retire sequences on max_new/EOS and free their slot and
+  pages.
 
 Priority scheduling, prefix sharing, speculative rows and cancellation
 come with later serving slices. The scheduler is device-free (Python +
@@ -77,6 +80,19 @@ class Sequence:
   @property
   def prompt_remaining(self) -> int:
     return len(self.req.prompt) - self.pos
+
+
+class StepBatch:
+  """One [B, C] legacy device step (numpy; the engine moves it on device)."""
+
+  def __init__(self, ids, q_pos, in_len, rows, mixed: bool,
+               prompt_tokens: int):
+    self.ids = ids          # [B, C] int32
+    self.q_pos = q_pos      # [B] int32
+    self.in_len = in_len    # [B] int32 (0 = inactive row)
+    self.rows = rows        # slot -> Sequence or None, frozen at build time
+    self.mixed = mixed      # True if any prefill row rode this step
+    self.prompt_tokens = prompt_tokens
 
 
 class RaggedBatch:
@@ -171,6 +187,76 @@ class Scheduler:
   def HasWork(self) -> bool:
     return any(s is not None for s in self.slots) or bool(self.waiting)
 
+  # -- legacy [B, C] step ------------------------------------------------------
+
+  def BuildStep(self, prefill_chunk: int) -> Optional[StepBatch]:
+    """Lays the live slots out as one [B, C] step (None if idle): C = 1
+    when every live row decodes, else C = prefill_chunk; a prefilling row
+    takes its next min(C, prompt_remaining) prompt tokens, a decode row
+    feeds its last draw in column 0."""
+    rows = list(self.slots)
+    if not any(s is not None for s in rows):
+      return None
+    mixed = any(s is not None and s.state is SeqState.PREFILL for s in rows)
+    c = prefill_chunk if mixed else 1
+    b = self.max_slots
+    ids = np.zeros((b, c), np.int32)
+    q_pos = np.zeros((b,), np.int32)
+    in_len = np.zeros((b,), np.int32)
+    prompt_tokens = 0
+    for i, seq in enumerate(rows):
+      if seq is None:
+        continue
+      q_pos[i] = seq.pos
+      if seq.state is SeqState.PREFILL:
+        n = min(c, seq.prompt_remaining)
+        ids[i, :n] = seq.req.prompt[seq.pos:seq.pos + n]
+        in_len[i] = n
+        prompt_tokens += n
+      else:   # DECODE: feed the last draw (writes it to the cache)
+        ids[i, 0] = seq.out[-1]
+        in_len[i] = 1
+    return StepBatch(ids, q_pos, in_len, rows, mixed, prompt_tokens)
+
+  def CommitStep(self, batch: StepBatch, sampled: np.ndarray) -> list:
+    """Folds one legacy step's draws [B, C] back in: a finishing prefill
+    row reads the draw at its last prompt column, a decode row column 0.
+    Returns [(request_id, token, finished)] events in slot order."""
+    events = []
+    for i, seq in enumerate(batch.rows):
+      if seq is None:
+        continue
+      if seq.state is SeqState.PREFILL:
+        n = int(batch.in_len[i])
+        seq.pos += n
+        if seq.prompt_remaining > 0:
+          continue                       # more prompt chunks to go
+        tok = int(sampled[i, n - 1])
+        seq.state = SeqState.DECODE
+      elif seq.state is SeqState.DECODE:
+        seq.pos += 1                     # the fed-back token is now cached
+        tok = int(sampled[i, 0])
+      else:
+        continue
+      events.append(self._Emit(i, seq, tok))
+    return events
+
+  def _Emit(self, i: int, seq: Sequence, tok: int) -> tuple:
+    """Appends tok to slot i's sequence and retires it on max_new/EOS;
+    returns its (request_id, token, finished) event."""
+    seq.out.append(tok)
+    done_eos = seq.req.eos_id is not None and tok == seq.req.eos_id
+    if not done_eos and len(seq.out) < seq.req.max_new:
+      return (seq.id, tok, False)
+    self.slots[i] = None
+    self.alloc.Free(seq.id)
+    if self.state_pool is not None:
+      self.state_pool.Release(seq.id)
+    self.finished += 1
+    seq.state = SeqState.FINISHED
+    seq.finish_reason = "eos" if done_eos else "length"
+    return (seq.id, tok, True)
+
   # -- unified ragged step ----------------------------------------------------
 
   def BuildRaggedStep(self, t: int, wmax: int) -> Optional[RaggedBatch]:
@@ -243,19 +329,7 @@ class Scheduler:
         tok = int(sampled_tok[desc.row_cols[i, 0]])
       else:
         continue
-      seq.out.append(tok)
-      done_eos = (seq.req.eos_id is not None and tok == seq.req.eos_id)
-      if done_eos or len(seq.out) >= seq.req.max_new:
-        self.slots[i] = None
-        self.alloc.Free(seq.id)
-        if self.state_pool is not None:
-          self.state_pool.Release(seq.id)
-        self.finished += 1
-        seq.state = SeqState.FINISHED
-        seq.finish_reason = "eos" if done_eos else "length"
-        events.append((seq.id, tok, True))
-      else:
-        events.append((seq.id, tok, False))
+      events.append(self._Emit(i, seq, tok))
     return events
 
   # -- introspection ---------------------------------------------------------

@@ -267,7 +267,7 @@ def test_entry_points_raise_without_cuda():
     (dict(kv_cache_dtype="int8"), "quantized"),
     (dict(serve_int8_weights=True), "int8 weight"),
     (dict(scheduler_mode="priority"), "priority"),
-    (dict(step_mode="legacy"), "legacy"),
+    (dict(step_mode="legacy", spec=object()), "speculative"),
     (dict(temperature=0.7), "temperature"),
 ])
 def test_unported_engine_features_raise(kw, match):
@@ -323,4 +323,4 @@ def test_port_imports_neither_jax_nor_lingvo_tpu():
   res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
   assert res.returncode == 0, res.stderr
-  assert int(res.stdout.strip().splitlines()[-1]) >= 39
+  assert int(res.stdout.strip().splitlines()[-1]) >= 43
