@@ -40,8 +40,10 @@
 7. Holds the flash-attention forward, dK/dV and dQ kernels against the
    plain version at the training step's shapes ([8, 1024, 16, 128], causal,
    two segments of 512, one row ending in 100 padding tokens): out, lse,
-   dq, dk, dv finite and within the printed tolerances. Times each kernel,
-   the plain version, the bound and SDPA with the same boolean mask.
+   dq, dk, dv finite and within the printed tolerances, and two forward
+   calls bitwise equal; prints the forward's grid, threads, shared memory
+   per block and resident blocks per SM. Times each kernel, the plain
+   version, the bound and SDPA with the same boolean mask.
 8. Holds the fused-xent statistics kernel against `_PlainStats` at
    [8192, 2048] x [32000, 2048] (block 1280, cap 30), and at block 1536
    with label smoothing 0.1 (a ragged vocab tail): lse, label logit and
@@ -68,8 +70,10 @@
 11. Holds the flash-decode kernel against its plain version at the
    GShardDecode step's shapes ([8, 1152, 16, 128], page 128, the left-pad
    cache paddings of the 8 prompts below in a 1024 bucket) at t = 1151 and
-   t = 700. Tolerance 1e-5. Times the kernel, the plain version, the bound
-   and SDPA over the whole cache with the same boolean mask.
+   t = 700. Tolerance 1e-5, and two calls bitwise equal; prints the split
+   count at each t and the split kernel's grid, threads, shared memory per
+   block and resident blocks per SM. Times the kernel, the plain version,
+   the bound and SDPA over the whole cache with the same boolean mask.
 12. Legacy serving main path: DenseLmTiny with step_mode='legacy' on the
    card must reproduce its CPU streams; then DenseLm1B (the weights of
    phase 5) through `ServingLoop(step_mode='legacy')` with phase 5's
@@ -84,7 +88,9 @@
    and read seconds printed) and `DecodeOnce` continues the 8 prompts
    (bucket 1024) by 128 tokens with prefill chunks of 256. Checks exactly
    24 x 128 = 3072 flash-decode launches and no other kernel; prints
-   prefill_s, decode_s, tokens/s and peak memory.
+   prefill_s, decode_s, tokens/s and peak memory; then prefills again (a
+   1008 bucket, so the cache keeps 1024 slots) and profiles 16 decode
+   steps (device busy per step, flash-decode share).
 14. Prints the per-kernel JSON line, then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
@@ -171,6 +177,29 @@ def _TimeMs(torch, fn, iters, flush_bytes=64 << 20, waits_as=None):
     total += start.elapsed_time(end)
     done += 1
   return total / iters
+
+
+def _EnqueueUs(torch, fn, calls=20, reps=20):
+  """Host microseconds per call of fn, with the card kept busy by a spin
+  of ~10 ms so that every call only enqueues: what a host-bound step pays
+  for each call. The spin covering every batch is checked."""
+  fn()
+  torch.cuda.synchronize()
+  total = 0.0
+  for _ in range(reps):
+    spin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    spin.record()
+    torch.cuda._sleep(20_000_000)   # about 10 ms at ~2 GHz
+    end.record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+      fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _Check(host_s * 1e3 < spin.elapsed_time(end), "_EnqueueUs: the spin "
+           "ended before the calls were enqueued")
+    total += host_s
+  return total / (calls * reps) * 1e6
 
 
 def _AttendPack(torch, ragged, page, h, rng):
@@ -380,6 +409,7 @@ def _CheckFlash(torch, fa, rng):
   q, k, v, do, seg = x["q"], x["k"], x["v"], x["do"], x["seg"]
   b, t, n, h = q.shape
   out, lse = fa.FlashForward(q, k, v, seg, True)
+  out2, lse2 = fa.FlashForward(q, k, v, seg, True)
   out_p, lse_p = fa._PlainForward(q, k, v, seg, True)
   delta = fa.RowDelta(do, out)
   dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True)
@@ -401,6 +431,12 @@ def _CheckFlash(torch, fa, rng):
     print(f"flash {name}: max abs err {err:.3g} (tol {tol:.3g})")
     _Check(err <= tol, f"flash {name}: max abs err {err} > {tol}")
     errs[name] = err
+  _Check(torch.equal(out, out2) and torch.equal(lse, lse2),
+         "flash forward: two calls differ bitwise")
+  threads, smem, per_sm = fa.ForwardGeometry(t, h)
+  print(f"flash forward: two calls bitwise equal; grid ({-(-t // 64)}, "
+        f"{b * n}), {threads} threads, {smem} B shared per block, {per_sm} "
+        "blocks resident per SM")
   it = 10
   t_fwd = _TimeMs(torch, lambda: fa.FlashForward(q, k, v, seg, True), it)
   t_dkdv = _TimeMs(torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta,
@@ -877,10 +913,20 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens):
     vt[:, t + 1:] = np.nan
     kc, vc = torch.as_tensor(kt).cuda(), torch.as_tensor(vt).cuda()
     out = fd.FlashDecode(qc, kc, vc, t, page_size=page, cache_paddings=padc)
+    again = fd.FlashDecode(qc, kc, vc, t, page_size=page,
+                           cache_paddings=padc)
     plain = fd._PlainDecode(qc[:, 0], kc, vc, t, page, padc)[:, None]
     torch.cuda.synchronize()
     _Check(bool(torch.isfinite(out).all()), f"flash decode t={t}: "
            "non-finite")
+    _Check(torch.equal(out, again), f"flash decode t={t}: two calls differ "
+           "bitwise")
+    threads, smem, per_sm, sms = fd.Geometry("cuda")
+    splits = fd.NumSplits(b * n, t, s, h, sms, per_sm)
+    print(f"flash decode t={t}: two calls bitwise equal; {splits} splits, "
+          f"split grid ({b * n}, {splits}), {threads} threads, {smem} B "
+          f"shared per block, {per_sm} blocks resident per SM of {sms}; "
+          f"combine grid ({b * n},)")
     err = float((out - plain).abs().max())
     _Check(err <= TOL, f"flash decode t={t}: kernel vs plain max abs err "
            f"{err} > {TOL}")
@@ -896,6 +942,10 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens):
     qs, ks, vs = (a.transpose(1, 2) for a in (qc, kc, vc))
     lib_ms = _TimeMs(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask,
                                          scale=1.0), 20, waits_as="SDPA")
+    enqueue_us = _EnqueueUs(torch, lambda: fd.FlashDecode(
+        qc, kc, vc, t, page_size=page, cache_paddings=padc))
+    print(f"flash decode t={t}: host enqueue {enqueue_us:.1f} us per call "
+          "(card busy; what the host-bound decode step pays per call)")
     bound = _Bound(moved, 4 * live * n * h)
     print(f"flash decode [8, 1152, 16, 128] P={page} t={t}: {live} live "
           f"slots, max abs err {err:.3g}, kernel {ms:.4f} ms, plain "
@@ -932,6 +982,48 @@ def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp):
          f"differ:\n{outs['cpu']}\n{outs['cuda']}")
   print(f"DenseLmTiny GShardDecode reference: {len(lens)} continuations of "
         "12 tokens identical to the CPU path (paged read, page 4)")
+
+
+def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
+  """Prefills the 8 prompts again through the decoder's own phase
+  functions, in a bucket of 1024 - steps so that the cache keeps 1024
+  slots (a multiple of the page, so every step takes the flash-decode
+  read), then profiles the `steps` greedy decode steps: device busy per
+  step, its share of the wall under the profiler, the flash-decode
+  kernels' and the GEMMs' shares of busy, the top kernels."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  p_len = 1024 - steps
+  init_fn, prefill_fn, sample_fn = decoder._GetDecodeFn(p_len, steps)
+  aligned = decoder._RightAlign(arr, lens, width=p_len)
+  with torch.no_grad():
+    lens_dev = torch.as_tensor(np.asarray(lens)).cuda()
+    last, states = prefill_fn(torch.as_tensor(aligned).cuda(), lens_dev,
+                              init_fn(arr.shape[0]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      sample_fn(last, lens_dev, states)
+      torch.cuda.synchronize()
+      wall_ms = (time.perf_counter() - t0) * 1e3
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and _DevUs(e) > 0]
+  busy_ms = sum(_DevUs(e) for e in kernels) / 1e3
+  if busy_ms == 0:
+    print("profiled decode steps: the profiler recorded no device time")
+    return
+  kernels.sort(key=_DevUs, reverse=True)
+  fdec = sum(_DevUs(e) for e in kernels if "FlashDecode" in e.key) / 1e3
+  gemm = sum(_DevUs(e) for e in kernels if "gemm" in e.key.lower()
+             or "cutlass" in e.key.lower()) / 1e3
+  print(f"profiled {steps} GShardDecode steps (t {p_len}..1023): "
+        f"device busy {busy_ms / steps:.2f} ms/step, {busy_ms / wall_ms:.1%}"
+        f" of the wall under the profiler ({wall_ms / steps:.2f} ms/step); "
+        f"flash decode {fdec / steps:.3f} ms/step ({fdec / busy_ms:.1%} of "
+        f"busy), GEMMs {gemm / busy_ms:.1%}")
+  for e in kernels[:5]:
+    print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
 
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
@@ -998,6 +1090,7 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
         f"launches { {k: v for k, v in launches.items() if v} } (24 x 128)")
   print(f"(information, not a check: {same} of 8 continuations begin with "
         "the ragged engine's 32-token stream of phase 5)")
+  _ProfileDecodeSteps(torch, decoder, arr, lens)
   return launches, tel
 
 

@@ -17,30 +17,37 @@
 //
 // Design. The TPU kernels walk a sequential grid and carry m / l / acc in
 // VMEM scratch from one key block to the next; CUDA blocks run in no order,
-// so the key (or query) loop moved inside the block. One block of 256
-// threads per (64-row tile, batch x head): the forward and dQ blocks own 64
-// queries and loop over 64-key tiles, the dK/dV block owns 64 keys and loops
-// over 64-query tiles. q/k/v/do are read in their [b, t, n, h] layout by
-// index (no transposed copies); lse and delta are [b, n, t]. Tiles are
-// staged in dynamic shared memory (116 KB forward, 166 KB dK/dV, 150 KB dQ
-// at h = 128) with a row stride of h + 1 so that the column reads of K are
-// free of bank conflicts. Thread (ty, tx) of a 16 x 16 layout owns score
-// rows ty*4 .. ty*4+3 and columns tx + 16 j; the 16 threads of a row sit in
-// one half-warp and reduce with shuffles; m and l stay in registers, and
-// each thread owns 4 rows x h/16 columns of the output accumulator. Tiles
-// entirely in the causal future are never visited, and a tile whose
-// segment-id range is disjoint from the block's is skipped (exactly a no-op
-// in the online softmax: every pair of it is masked).
+// so the key (or query) loop moved inside the block. q/k/v/do are read in
+// their [b, t, n, h] layout by index (no transposed copies); lse and delta
+// are [b, n, t]. Tiles entirely in the causal future are never visited, and
+// a tile whose segment-id range is disjoint from the block's is skipped
+// (exactly a no-op in the online softmax: every pair of it is masked).
 //
 // Bound: every product is float32 on the CUDA cores (TF32 stays off for the
 // parity bar), so at the main path's shapes these kernels are bound by
 // operations: 4h (forward), 8h (dK/dV) and 6h (dQ) flops per attended pair
-// over 67 TFLOP/s on an H100 SXM. What this simple design leaves on the
-// table: no tensor cores (wgmma on bf16 or tf32 tiles would raise the
-// ceiling ~15x), one block of 8 warps per SM (latency is hidden poorly), the
-// scalar shared-memory loads of the inner products, no TMA or cp.async
-// double buffering of the next tile, and rows of a segment boundary that
-// fall inside a tile still pay for the masked half of that tile.
+// over 67 TFLOP/s on an H100 SXM.
+//
+// The forward (FlashFwdKernel, redesigned for this card; its own section
+// below says how): 128 threads per (64 queries, batch x head) over 32-key
+// tiles, 4 x 4 score and 4 x h/8 output patches per thread fed by 16-byte
+// shared loads (at least 4 FFMA per 4 bytes loaded), the next K/V tile
+// copied with cp.async under this tile's math, 110 KB of shared memory at
+// h = 128 so two blocks fit on an SM. What it leaves: no tensor cores
+// (3xTF32 or bf16 wgmma, ROADMAP item 1.4), and rows of a segment boundary
+// inside a tile still pay for the masked part of that tile.
+//
+// The backward (FlashDkDvKernel, FlashDqKernel: the first simple design,
+// to be redesigned next). One block of 256 threads per (64-row tile,
+// batch x head): the dQ block owns 64 queries and loops over 64-key tiles,
+// the dK/dV block owns 64 keys and loops over 64-query tiles. Tiles are
+// staged in dynamic shared memory (166 KB dK/dV, 150 KB dQ at h = 128) with
+// a row stride of h + 1 so that the column reads of K are free of bank
+// conflicts. Thread (ty, tx) of a 16 x 16 layout owns score rows
+// ty*4 .. ty*4+3 and columns tx + 16 j; each thread owns 4 rows x h/16
+// columns of its accumulators. What it leaves: one block of 8 warps per
+// SM, scalar shared-memory loads in the inner products (`ScoreTile`), and
+// no overlap of the next tile's copy with this tile's math.
 //
 // Limits (the Python wrapper raises outside them): float32, contiguous
 // [b, t, n, h] tensors, h a multiple of 16 and at most 128; any t.
@@ -51,8 +58,8 @@
 
 namespace {
 
-constexpr int kTile = 64;        // queries of a q tile, keys of a k tile
-constexpr int kThreads = 256;    // 16 x 16 threads: ty row group, tx lane
+constexpr int kTile = 64;        // backward: rows of a q or k tile
+constexpr int kThreads = 256;    // backward: 16 x 16 threads
 constexpr int kMaxHeadDim = 128;
 constexpr int kMaxDCols = kMaxHeadDim / 16;  // head-dim columns per thread
 constexpr int kPs = kTile + 1;   // row stride of the [64, 64] p / ds tiles
@@ -71,19 +78,6 @@ struct Problem {
     return (static_cast<size_t>(bi) * n + ni) * t + ti;
   }
 };
-
-__device__ __forceinline__ float GroupMax(float x) {
-  // over the 16 lanes of a half-warp (one score row); every lane gets it
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float GroupSum(float x) {
-  // butterfly: each lane adds the same pairs, so all 16 get the same bits
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Rows [start, start + 64) of head ni, batch bi of a [b, t, n, h] tensor
 // into dst (row stride ld); rows past t read as 0.
@@ -199,57 +193,257 @@ __device__ __forceinline__ void RecomputePandDs(
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) FlashFwdKernel(
+// ---- the forward: register-blocked tiles with cp.async double buffering --
+//
+// One block of 128 threads per (64-query tile, batch x head), looping over
+// 32-key tiles. Thread (ty, tx) of a 16 x 8 layout (tid = 8 ty + tx; the 8
+// threads of one ty are 8 adjacent lanes of one warp) owns score rows
+// ty + 16 i and keys tx + 8 j (i, j < 4), and output rows ty + 16 i times
+// the float4 columns 4 (tx + 8 c) (c < h / 32). Q, K and V sit in shared
+// memory in their [rows, h] layout (row stride h + 4 for Q and K, so the
+// float4 reads of 4 or 8 adjacent rows hit distinct banks): the score
+// product reads float4s along h, 8 loads of 16 bytes per 64 FFMA; P . V
+// reads a float4 of p per row and of V per key, 20 loads per 256 FFMA. The
+// next K/V tile's 16-byte cp.async copies run under this tile's math (two
+// stages); rows past t are zero-filled by the copy and masked. A row's
+// max and sum are reduced by shuffles over its 8 lanes, and its p row is
+// written and read by that warp alone (__syncwarp). Per-tile segment-id
+// ranges are reduced once per block into a bitmask of live key tiles, so a
+// tile whose ids are disjoint from the query tile's is never copied.
+
+constexpr int kFq = 64;          // queries of a forward block
+constexpr int kFk = 32;          // keys of a forward key tile
+constexpr int kFThreads = 128;
+constexpr int kFChunks = kMaxHeadDim / 32;  // float4 output columns / thread
+constexpr int kFPs = kFk + 8;    // row stride of the [64, 32] p tile
+
+struct FwdSmem {
+  int ldq, ldv;                  // row strides of Q/K and of V (floats)
+  size_t q, k, v, p, live;       // offsets in floats
+  size_t bytes;
+};
+
+__host__ __device__ inline FwdSmem FwdLayout(int t, int h) {
+  FwdSmem s;
+  s.ldq = h + 4;
+  s.ldv = h;
+  s.q = 0;
+  s.k = s.q + static_cast<size_t>(kFq) * s.ldq;
+  s.v = s.k + 2 * static_cast<size_t>(kFk) * s.ldq;
+  s.p = s.v + 2 * static_cast<size_t>(kFk) * s.ldv;
+  s.live = s.p + static_cast<size_t>(kFq) * kFPs;
+  const int words = ((t + kFk - 1) / kFk + 31) / 32;
+  s.bytes = (s.live + words) * sizeof(float);
+  return s;
+}
+
+__device__ __forceinline__ void CpAsync16(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;  // 0: write zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void CpAsyncCommit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void CpAsyncWait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Rows [start, start + rows) of head ni, batch bi into dst (row stride ld)
+// with 16-byte async copies; rows past t are zero-filled.
+__device__ __forceinline__ void CopyRowsAsync(
+    float* dst, int ld, const float* __restrict__ src, const Problem& pb,
+    int bi, int ni, int start, int rows) {
+  const int h4 = pb.h / 4;
+  for (int c = threadIdx.x; c < rows * h4; c += kFThreads) {
+    const int r = c / h4, d4 = c - r * h4;
+    const int row = start + r;
+    const bool valid = row < pb.t;
+    CpAsync16(dst + r * ld + 4 * d4,
+              src + pb.Off(bi, valid ? row : 0, ni) + 4 * d4, valid);
+  }
+}
+
+// max / sum over the 8 adjacent lanes of one score row; all get the bits
+__device__ __forceinline__ float RowMax8(float x) {
+  for (int o = 4; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float RowSum8(float x) {
+  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// [lo, hi] of the segment ids of rows [start, start + n) below t, reduced
+// over one warp (every lane gets it); start + n - 1 < start + 64.
+__device__ __forceinline__ void WarpSegRange(const int* __restrict__ seg_row,
+                                             int start, int n, int t, int* lo,
+                                             int* hi) {
+  const int lane = threadIdx.x & 31;
+  int a = 0x7fffffff, z = -0x7fffffff - 1;
+  for (int r = lane; r < n; r += 32) {
+    if (start + r < t) {
+      const int id = seg_row[start + r];
+      a = min(a, id);
+      z = max(z, id);
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    a = min(a, __shfl_xor_sync(0xffffffffu, a, o));
+    z = max(z, __shfl_xor_sync(0xffffffffu, z, o));
+  }
+  *lo = a;
+  *hi = z;
+}
+
+__global__ void __launch_bounds__(kFThreads, 2) FlashFwdKernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ seg,
     float* __restrict__ out, float* __restrict__ lse, Problem pb) {
-  extern __shared__ float smem[];
-  const int h = pb.h, ld = h + 1, ndc = h / 16;
-  float* qs = smem;                 // [64][h + 1]
-  float* ks = qs + kTile * ld;      // [64][h + 1]
-  float* vs = ks + kTile * ld;      // [64][h]
-  float* ps = vs + kTile * h;       // [64][65]
-  int* segq = reinterpret_cast<int*>(ps + kTile * kPs);
-  int* segk = segq + kTile;
-  const int q0 = blockIdx.x * kTile;
+  extern __shared__ __align__(16) float smem[];
+  const int h = pb.h, h4 = h / 4;
+  const FwdSmem lay = FwdLayout(pb.t, h);
+  float* qs = smem + lay.q;
+  float* ks = smem + lay.k;       // [2][32][h + 4]
+  float* vs = smem + lay.v;       // [2][32][h]
+  float* ps = smem + lay.p;       // [64][40]
+  unsigned* live = reinterpret_cast<unsigned*>(smem + lay.live);
+  const int q0 = blockIdx.x * kFq;
   const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3, tx = tid & 7;
+  const int warp = tid >> 5, lane = tid & 31;
   const bool has_seg = seg != nullptr;
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
 
-  LoadTile(qs, ld, q, pb, bi, ni, q0);
-  LoadSeg(segq, seg, pb, bi, q0);
-  __syncthreads();
-  int qlo, qhi;
-  SegRange(segq, q0, pb.t, &qlo, &qhi);
+  CopyRowsAsync(qs, lay.ldq, q, pb, bi, ni, q0, kFq);
+  CpAsyncCommit();
 
-  float m[4], l[4], acc[4][kMaxDCols];
+  // key tiles entirely in the causal future are never visited; with
+  // segments, neither is a tile whose id range is disjoint from the
+  // query tile's (every pair masked: exactly a no-op)
+  const int k_end = pb.causal ? min(pb.t, q0 + kFq) : pb.t;
+  const int nkt = (k_end + kFk - 1) / kFk;
+  int segq[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ty + 16 * i;
+    segq[i] = has_seg && row < pb.t ? seg_row[row] : 0;
+  }
+  if (has_seg) {
+    for (int w = tid; w < (nkt + 31) / 32; w += kFThreads) live[w] = 0u;
+    int qlo, qhi;
+    WarpSegRange(seg_row, q0, kFq, pb.t, &qlo, &qhi);
+    __syncthreads();
+    for (int kt = warp; kt < nkt; kt += kFThreads / 32) {
+      int klo, khi;
+      WarpSegRange(seg_row, kt * kFk, kFk, pb.t, &klo, &khi);
+      if (lane == 0 && !(khi < qlo || klo > qhi))
+        atomicOr(&live[kt >> 5], 1u << (kt & 31));
+    }
+    __syncthreads();
+  }
+  auto next_live = [&](int kt) {
+    if (!has_seg) return kt;
+    while (kt < nkt) {
+      const unsigned word = live[kt >> 5] >> (kt & 31);
+      if (word) return kt + __ffs(word) - 1;
+      kt = (kt | 31) + 1;
+    }
+    return nkt;
+  };
+  auto prefetch = [&](int kt, int stage) {
+    if (kt < nkt) {
+      CopyRowsAsync(ks + stage * kFk * lay.ldq, lay.ldq, k, pb, bi, ni,
+                    kt * kFk, kFk);
+      CopyRowsAsync(vs + stage * kFk * lay.ldv, lay.ldv, v, pb, bi, ni,
+                    kt * kFk, kFk);
+    }
+    CpAsyncCommit();
+  };
+
+  float m[4], l[4], acc[4][kFChunks][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxDCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kFChunks; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   }
-  // key tiles entirely in the causal future are never visited
-  const int k_end = pb.causal ? min(pb.t, q0 + kTile) : pb.t;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile is consumed
-    LoadSeg(segk, seg, pb, bi, k0);
-    __syncthreads();
-    if (has_seg) {
-      int klo, khi;
-      SegRange(segk, k0, pb.t, &klo, &khi);
-      if (khi < qlo || klo > qhi) continue;  // every pair masked: a no-op
-    }
-    LoadTile(ks, ld, k, pb, bi, ni, k0);
-    LoadTile(vs, h, v, pb, bi, ni, k0);
-    __syncthreads();
+
+  int kt = next_live(0);
+  prefetch(kt, 0);
+  for (int stage = 0; kt < nkt; stage ^= 1) {
+    const int k0 = kt * kFk;
+    const int nxt = next_live(kt + 1);
+    prefetch(nxt, stage ^ 1);
+    // this tile's key segment ids, one per lane, in flight under the wait
+    const int segk_lane = has_seg && k0 + lane < pb.t ? seg_row[k0 + lane]
+                                                      : 0;
+    CpAsyncWait<1>();
+    __syncthreads();  // Q and this tile landed
+    const float* kst = ks + stage * kFk * lay.ldq;
+    const float* vst = vs + stage * kFk * lay.ldv;
+
+    // s[i][j] = (q . k) * sm_scale for query q0 + ty + 16 i and key
+    // k0 + tx + 8 j where the pair is kept, else kNegInf
     float s[4][4];
-    ScoreTile(s, qs, ks, ld, segq, segk, has_seg, pb, q0, k0, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+    for (int d = 0; d < h; d += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(
+            qs + (ty + 16 * i) * lay.ldq + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = *reinterpret_cast<const float4*>(
+            kst + (tx + 8 * j) * lay.ldq + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+          s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+          s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+          s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+        }
+    }
+    int segk[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      segk[j] = __shfl_sync(0xffffffffu, segk_lane, tx + 8 * j);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx + 8 * j;
+        const bool keep = qi < pb.t && kj < pb.t &&
+                          (!pb.causal || qi >= kj) &&
+                          (!has_seg || segq[i] == segk[j]);
+        s[i][j] = keep ? s[i][j] * pb.sm_scale : kNegInf;
+      }
+    }
+    // the online softmax of each row over its 8 lanes
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float m_cur = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-      m_cur = GroupMax(m_cur);
+      m_cur = RowMax8(m_cur);
       const float m_new = fmaxf(m[i], m_cur);
       // rows with no unmasked key yet: masked entries must give p = 0
       const float m_safe = m_new <= kNegInf * 0.5f ? 0.f : m_new;
@@ -257,43 +451,70 @@ __global__ void __launch_bounds__(kThreads, 1) FlashFwdKernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - m_safe);
-        ps[(ty * 4 + i) * kPs + tx + 16 * j] = p;
+        ps[(ty + 16 * i) * kFPs + tx + 8 * j] = p;
         psum += p;
       }
-      psum = GroupSum(psum);
+      psum = RowSum8(psum);
       const float alpha = expf(m[i] - m_new);
       l[i] = alpha * l[i] + psum;
       m[i] = m_new;
 #pragma unroll
-      for (int c = 0; c < kMaxDCols; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < kFChunks; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
     }
-    __syncthreads();
-    for (int kk = 0; kk < kTile; ++kk) {
-      float pv[4];
+    __syncwarp();  // a row's p is written and read by its own warp
+#pragma unroll 2
+    for (int kk = 0; kk < kFk; kk += 4) {
+      float4 pr[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(ty * 4 + i) * kPs + kk];
+      for (int i = 0; i < 4; ++i)
+        pr[i] = *reinterpret_cast<const float4*>(
+            ps + (ty + 16 * i) * kFPs + kk);
 #pragma unroll
-      for (int c = 0; c < kMaxDCols; ++c) {
-        if (c < ndc) {
-          const float vv = vs[kk * h + tx + 16 * c];
+      for (int c = 0; c < kFChunks; ++c) {
+        const int cc = tx + 8 * c;
+        if (cc < h4) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+          for (int u = 0; u < 4; ++u) {
+            const float4 vv = *reinterpret_cast<const float4*>(
+                vst + (kk + u) * lay.ldv + 4 * cc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float p = u == 0 ? pr[i].x : u == 1 ? pr[i].y
+                            : u == 2 ? pr[i].z : pr[i].w;
+              acc[i][c][0] = fmaf(p, vv.x, acc[i][c][0]);
+              acc[i][c][1] = fmaf(p, vv.y, acc[i][c][1]);
+              acc[i][c][2] = fmaf(p, vv.z, acc[i][c][2]);
+              acc[i][c][3] = fmaf(p, vv.w, acc[i][c][3]);
+            }
+          }
         }
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
+    kt = nxt;
   }
+  CpAsyncWait<0>();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+    const int row = q0 + ty + 16 * i;
     if (row >= pb.t) continue;
     const float denom = fmaxf(l[i], 1e-20f);
     float* o = out + pb.Off(bi, row, ni);
 #pragma unroll
-    for (int c = 0; c < kMaxDCols; ++c)
-      if (c < ndc) o[tx + 16 * c] = acc[i][c] / denom;
+    for (int c = 0; c < kFChunks; ++c) {
+      const int cc = tx + 8 * c;
+      if (cc < h4)
+        *reinterpret_cast<float4*>(o + 4 * cc) =
+            make_float4(acc[i][c][0] / denom, acc[i][c][1] / denom,
+                        acc[i][c][2] / denom, acc[i][c][3] / denom);
+    }
     if (tx == 0) lse[pb.RowOff(bi, ni, row)] = m[i] + logf(denom);
   }
 }
+
+// ---- the backward -------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads, 1) FlashDkDvKernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -516,14 +737,28 @@ int FlashFwdF32(const float* q, const float* k, const float* v,
                 int h, int causal, void* stream) {
   if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
   Problem pb = MakeProblem(t, n, h, causal);
-  const size_t smem = FloatsBytes(2 * kTile * (h + 1) + kTile * h +
-                                  kTile * kPs) + 2 * kTile * sizeof(int);
+  const size_t smem = FwdLayout(t, h).bytes;
   cudaError_t err = AllowSmem(FlashFwdKernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FlashFwdKernel<<<dim3((t + kTile - 1) / kTile, b * n), kThreads, smem,
+  FlashFwdKernel<<<dim3((t + kFq - 1) / kFq, b * n), kFThreads, smem,
                    static_cast<cudaStream_t>(stream)>>>(q, k, v, seg, out,
                                                         lse, pb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward kernel's launch geometry at (t, h): threads and dynamic
+// shared memory per block, and the blocks resident on one SM. Returns the
+// cudaError_t.
+int FlashFwdGeometry(int t, int h, int* threads, int* smem_bytes,
+                     int* blocks_per_sm) {
+  if (BadShape(1, t, 1, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = FwdLayout(t, h).bytes;
+  cudaError_t err = AllowSmem(FlashFwdKernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kFThreads;
+  *smem_bytes = static_cast<int>(smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, FlashFwdKernel, kFThreads, smem));
 }
 
 int FlashBwdDkDvF32(const float* q, const float* k, const float* v,

@@ -1,38 +1,52 @@
 // Length-aware paged flash decode over a dense KV cache, Hopper (sm_90a),
-// float32.
+// float32: split-K over each row's live slots with asynchronous copies.
 //
 // Replaces the Pallas TPU kernel `_DecodeKernel` of
 // lingvo_tpu/ops/flash_decode.py (pallas_call in `_PallasDecode`; public
 // entry `FlashDecode`). It computes the same function, not the same
 // blocks: row b's one pre-scaled query attends its cache slots
-// [0, time_step] that are not padded (cache_paddings < 0.5), page by page
-// with a float32 online softmax (the reference `_PageAttend`: running
-// m / l / acc, the m_safe guard, acc / max(l, 1e-20)). A row with nothing
-// live writes exact zeros.
-//
-// Design: one thread block per (row, head), 128 threads. The block walks
-// only the row's live pages, min(time_step / P + 1, S / P) of them; pages
-// past time_step are never read. Per page, groups of H / 4 lanes take one
-// slot each: every lane loads one float4 of k, and shuffles inside the
-// group reduce q . k over the head dim. A masked slot (past time_step or
-// padded) is not read and scores NEG_INF. The page's scores go through
-// shared memory; every thread then takes the page max, the guarded
-// exponentials go back to shared memory, and thread h owns acc[h], reading
-// V coalesced along the head dim and skipping slots whose probability is 0
-// (masked), so a stale slot never reaches the output.
+// [0, time_step] that are not padded (cache_paddings < 0.5) with a float32
+// online softmax (the reference `_PageAttend`: running m / l / acc, the
+// m_safe guard, acc / max(l, 1e-20)). A row with nothing live writes exact
+// zeros. Pages only bound the read: slots past time_step (and so every
+// page past time_step // P) are never read, as in the reference.
 //
 // Bound: a gather far below the card's ridge point (4 flops per K/V
-// element read), so bytes bound it: the live K/V pages of every row, the
-// paddings of those pages, q and out, over 3.35 TB/s on an H100 SXM. What
-// this simple design leaves: B * N blocks (128 at 8 rows x 16 heads) fill
-// one wave of 132 SMs with one block each, and each block walks its pages
-// one after another with a barrier per page; a later kernel should split
-// the pages of a row over several blocks (split-K, then a combine of the
-// partial m / l / acc) and load pages with TMA.
+// element read), so bytes bound it: the live K/V slots of every row, the
+// paddings up to time_step, q and out, over 3.35 TB/s on an H100 SXM. A
+// row's slots for one head are 512-byte rows strided by N * H, and one
+// block per (row, head) cannot keep enough of them in flight.
+//
+// Design (flash-decoding). Grid (B * N, splits); `splits` comes from the
+// host (ops/flash_decode.py `NumSplits`: enough blocks for two waves of
+// the resident blocks, never more than the tiles up to time_step).
+//  1. Every block of a row scans the row's paddings up to time_step once
+//     (L2-resident, all loads in flight) for the first live slot `lo`, so
+//     wholly padded leading pages cost nothing and no host sync is needed.
+//  2. The tiles of kTs = min(128, 2048 / H) slots from lo's tile to
+//     time_step's are cut into `splits` equal shares in tile order; a
+//     share may be empty when the live range is shorter than `splits`.
+//  3. The block streams its tiles through a 3-stage ring of K and V tiles
+//     in shared memory with cp.async (16-byte copies, 16 KB per stage,
+//     two stages in flight while the third is consumed; 4 blocks of 128
+//     threads fit on an SM, 128 KB in flight per SM). A masked slot's copy
+//     has source size 0: the hardware writes zeros and its K/V bytes are
+//     never read, so NaN in pads or past time_step cannot reach the
+//     output.
+//  4. Scores: groups of H / 4 lanes take a slot each, one float4 of K from
+//     shared memory per lane and shuffles inside the group. Each warp
+//     reduces the tile's max and probability sum by shuffles (every warp
+//     the same bits); P . V: thread (part, d) owns acc[d] over the slots
+//     part, part + 128 / H, ...
+//  5. Each split writes its (acc[H], m, l) to a scratch tensor the wrapper
+//     allocates; `FlashDecodeCombineKernel` merges a row's splits in split
+//     order. No atomics: the output is bitwise the same from call to call.
+// What it still leaves: two launches per call (the combine is ~1 us), and
+// the scan of a row's paddings is repeated by each of its N * splits blocks
+// (a few KB each, from L2).
 //
 // Limits (the Python wrapper raises outside them): head dim 4..128 with
-// H / 4 a power of two, page_size 1..128, S a multiple of page_size, all
-// tensors contiguous float32.
+// H / 4 a power of two, all tensors contiguous float32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -40,112 +54,311 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxPageSize = 128;
+constexpr int kTileFloats = 2048;  // K (and V) floats of one tile
+constexpr int kMaxTs = 128;        // slots of one tile, at most
+constexpr int kStages = 3;
 constexpr float kNegInf = -1.0e30f;  // the reference NEG_INF
 
-__global__ void __launch_bounds__(kThreads) FlashDecodeKernel(
+__device__ __forceinline__ int TileSlots(int head_dim) {
+  return min(kMaxTs, kTileFloats / head_dim);
+}
+
+__device__ __forceinline__ void CpAsync16(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;  // 0: write zeros, read nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void CpAsyncCommit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void CpAsyncWait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ float WarpMax(float x) {
+  for (int o = 16; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float WarpSum(float x) {
+  // butterfly: every lane adds the same pairs, so all get the same bits
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// keep = (slot <= t) * (1 - pad) > 0.5, as the reference computes it
+__device__ __forceinline__ bool Keep(const float* pad_row, int slot,
+                                     int t_eff) {
+  return slot <= t_eff && (pad_row == nullptr || 1.f - pad_row[slot] > 0.5f);
+}
+
+// The first live slot of a row in [0, t_eff], or t_eff + 1 if none.
+__device__ int FirstLiveSlot(const float* pad_row, int t_eff, int* red) {
+  if (pad_row == nullptr) return 0;
+  int lo = t_eff + 1;
+  for (int base = 0; base <= t_eff; base += 4 * kThreads) {
+    bool live[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)  // four independent loads in flight
+      live[u] = Keep(pad_row, base + u * kThreads + threadIdx.x, t_eff);
+#pragma unroll
+    for (int u = 3; u >= 0; --u)
+      if (live[u]) lo = min(lo, base + u * kThreads + threadIdx.x);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = lo;
+  __syncthreads();
+  for (int w = 0; w < kWarps; ++w) lo = min(lo, red[w]);
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads) FlashDecodeSplitKernel(
     const float* __restrict__ q, const float* __restrict__ k_cache,
     const float* __restrict__ v_cache, const float* __restrict__ pad,
-    float* __restrict__ out, int seq_len, int num_heads, int head_dim,
-    int page_size, int time_step) {
-  __shared__ __align__(16) float q_sh[kMaxHeadDim];
-  __shared__ float s_sh[kMaxPageSize];  // a page's scores, then its probs
+    float* __restrict__ partial, int seq_len, int num_heads, int head_dim,
+    int time_step) {
+  extern __shared__ __align__(16) float smem[];
+  const int h = head_dim;
+  const int ts = TileSlots(h);
+  float* kv = smem;                             // [kStages][2][kTileFloats]
+  float* s_sh = kv + kStages * 2 * kTileFloats;  // [kMaxTs] scores
+  float* p_sh = s_sh + kMaxTs;                  // [kMaxTs] probabilities
+  float* keep_sh = p_sh + kMaxTs;               // [kStages][kMaxTs]
+  float* red = keep_sh + kStages * kMaxTs;      // [kThreads]
 
-  const int row = blockIdx.x / num_heads;
-  const int head = blockIdx.x % num_heads;
+  const int bn = blockIdx.x;
+  const int row = bn / num_heads;
+  const int head = bn % num_heads;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
   const int tid = threadIdx.x;
-  const size_t slot_stride = static_cast<size_t>(num_heads) * head_dim;
-  const size_t q_off = static_cast<size_t>(row) * slot_stride +
-                       static_cast<size_t>(head) * head_dim;
+  const int lane = tid & 31;
+  const size_t slot_stride = static_cast<size_t>(num_heads) * h;
   // cache offset of (row, slot 0, head)
   const size_t row_off = static_cast<size_t>(row) * seq_len * slot_stride +
-                         static_cast<size_t>(head) * head_dim;
+                         static_cast<size_t>(head) * h;
   const float* pad_row = pad ? pad + static_cast<size_t>(row) * seq_len
                              : nullptr;
-  if (tid < head_dim) q_sh[tid] = q[q_off + tid];
-  __syncthreads();
+  const int t_eff = min(time_step, seq_len - 1);
 
-  // slot groups: `group` lanes of one warp hold one slot's H / 4 float4s
-  const int group = head_dim / 4;
-  const int groups = kThreads / group;
-  const int gid = tid / group;
-  const int glane = tid % group;
-  const float4 qv = reinterpret_cast<const float4*>(q_sh)[glane];
+  // this split's tiles of the live range [lo, t_eff]
+  int tile_begin = 0, tile_end = 0;
+  if (t_eff >= 0) {
+    const int lo = FirstLiveSlot(pad_row, t_eff,
+                                 reinterpret_cast<int*>(red));
+    if (lo <= t_eff) {
+      const int first = lo / ts;
+      const int nt = t_eff / ts - first + 1;
+      tile_begin = first + static_cast<int>(
+          static_cast<long long>(split) * nt / splits);
+      tile_end = first + static_cast<int>(
+          static_cast<long long>(split + 1) * nt / splits);
+    }
+  }
+
+  const int g = h / 4;              // lanes of one slot's dot product
+  const int glane = tid % g;
+  const float4 qv = reinterpret_cast<const float4*>(
+      q + static_cast<size_t>(bn) * h)[glane];
+  const int chunks = ts * g;        // float4s of a K (or V) tile
+  const int parts = kThreads / h;   // P . V: thread (part, d)
+  const int d = tid % h, part = tid / h;
+
+  // Starts the copies of tile `tile` into ring stage `stage` (if the
+  // tile is this split's) and always commits a group.
+  auto prefetch = [&](int tile, int stage) {
+    if (tile < tile_end) {
+      float* ks = kv + stage * 2 * kTileFloats;
+      float* vs = ks + kTileFloats;
+      const int slot0 = tile * ts;
+      for (int c = tid; c < chunks; c += kThreads) {
+        const int p = c / g;
+        const int slot = slot0 + p;
+        const bool keep = Keep(pad_row, slot, t_eff);
+        const size_t off = row_off + static_cast<size_t>(keep ? slot : 0) *
+                                         slot_stride + 4 * (c % g);
+        CpAsync16(ks + 4 * c, k_cache + off, keep);
+        CpAsync16(vs + 4 * c, v_cache + off, keep);
+        if (c % g == 0) keep_sh[stage * kMaxTs + p] = keep ? 1.f : 0.f;
+      }
+    }
+    CpAsyncCommit();
+  };
 
   float m = kNegInf, l = 0.f, acc = 0.f;
-  const int num_live = time_step < 0 ? 0
-      : min(time_step / page_size + 1, seq_len / page_size);
-  for (int j = 0; j < num_live; ++j) {
-    const int start = j * page_size;
-    for (int p0 = 0; p0 < page_size; p0 += groups) {
-      const int p = p0 + gid;
-      const int slot = start + p;
-      // keep = (slot <= t) * (1 - pad) > 0.5, as the reference computes it
-      const bool keep = p < page_size && slot <= time_step &&
-                        (pad_row == nullptr || 1.f - pad_row[slot] > 0.5f);
-      float part = 0.f;
-      if (keep) {
-        const float4 kv = reinterpret_cast<const float4*>(
-            k_cache + row_off + static_cast<size_t>(slot) * slot_stride)[glane];
-        part = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+  for (int i = 0; i < kStages - 1; ++i) prefetch(tile_begin + i, i);
+  for (int tile = tile_begin, j = 0; tile < tile_end; ++tile, ++j) {
+    const int stage = j % kStages;
+    CpAsyncWait<kStages - 2>();
+    __syncthreads();  // tile landed; the previous tile is consumed
+    prefetch(tile + kStages - 1, (j + kStages - 1) % kStages);
+    const float* ks = kv + stage * 2 * kTileFloats;
+    const float* vs = ks + kTileFloats;
+    const float* keep = keep_sh + stage * kMaxTs;
+    for (int c = tid; c < chunks; c += kThreads) {
+      const float4 kq = reinterpret_cast<const float4*>(ks)[c];
+      float part_dot = qv.x * kq.x + qv.y * kq.y + qv.z * kq.z + qv.w * kq.w;
+      // groups never straddle a warp (g divides 32)
+      for (int o = g / 2; o > 0; o >>= 1)
+        part_dot += __shfl_xor_sync(0xffffffffu, part_dot, o);
+      if (glane == 0) {
+        const int p = c / g;
+        s_sh[p] = keep[p] > 0.5f ? part_dot : kNegInf;
       }
-      // groups never straddle a warp (group divides 32), so the xor
-      // partners of a lane are in its own group
-      for (int o = group / 2; o > 0; o >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (p < page_size && glane == 0) s_sh[p] = keep ? part : kNegInf;
     }
     __syncthreads();
+    // every warp reduces the tile's max and sum: the same bits in each
+    float sv[kMaxTs / 32];
     float m_cur = kNegInf;
-    for (int p = 0; p < page_size; ++p) m_cur = fmaxf(m_cur, s_sh[p]);
+#pragma unroll
+    for (int i = 0; i < kMaxTs / 32; ++i) {
+      const int p = lane + 32 * i;
+      sv[i] = p < ts ? s_sh[p] : kNegInf;
+      m_cur = fmaxf(m_cur, sv[i]);
+    }
+    m_cur = WarpMax(m_cur);
     const float m_new = fmaxf(m, m_cur);
     // all-masked-so-far: exp(s - m_new) would turn masked slots into 1
     const float m_safe = m_new <= kNegInf * 0.5f ? 0.f : m_new;
     const float alpha = expf(m - m_new);
-    __syncthreads();  // every thread has read the raw scores
-    if (tid < page_size) s_sh[tid] = expf(s_sh[tid] - m_safe);
-    __syncthreads();
-    float psum = 0.f, pv = 0.f;
-    const float* v = v_cache + row_off +
-                     static_cast<size_t>(start) * slot_stride;
-    for (int p = 0; p < page_size; ++p) {
-      const float pp = s_sh[p];
-      psum += pp;
-      if (pp == 0.f) continue;  // masked (or underflowed): adds exactly 0
-      if (tid < head_dim) pv += pp * v[p * slot_stride + tid];
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxTs / 32; ++i) {
+      const int p = lane + 32 * i;
+      const float pr = p < ts ? expf(sv[i] - m_safe) : 0.f;
+      if (tid < 32 && p < ts) p_sh[p] = pr;
+      psum += pr;
     }
+    psum = WarpSum(psum);
     l = alpha * l + psum;
-    acc = acc * alpha + pv;
     m = m_new;
-    __syncthreads();  // the next page overwrites s_sh
+    acc *= alpha;
+    __syncthreads();  // p_sh is written
+    for (int p = part; p < ts; p += parts)
+      acc = fmaf(p_sh[p], vs[p * h + d], acc);  // masked: 0 x 0
   }
-  if (tid < head_dim) out[q_off + tid] = acc / fmaxf(l, 1e-20f);
+  CpAsyncWait<0>();  // the prologue's groups of an empty split
+
+  // the parts' accumulators, summed in part order
+  __syncthreads();
+  red[tid] = acc;
+  __syncthreads();
+  if (tid < h) {
+    float total = 0.f;
+    for (int pp = 0; pp < parts; ++pp) total += red[pp * h + tid];
+    float* out = partial + (static_cast<size_t>(bn) * splits + split) *
+                               (h + 2);
+    out[tid] = total;
+    if (tid == 0) {
+      out[h] = m;
+      out[h + 1] = l;
+    }
+  }
+}
+
+// Merges a (row, head)'s splits in split order: out = sum_s acc_s e_s /
+// max(sum_s l_s e_s, 1e-20) with e_s = exp(m_s - max_s m_s). A row with
+// nothing live has every m_s = NEG_INF and l_s = 0: exact zeros.
+__global__ void __launch_bounds__(kThreads) FlashDecodeCombineKernel(
+    const float* __restrict__ partial, float* __restrict__ out, int head_dim,
+    int splits) {
+  const int bn = blockIdx.x;
+  const int h = head_dim;
+  const int tid = threadIdx.x;
+  if (tid >= h) return;
+  const float* part = partial + static_cast<size_t>(bn) * splits * (h + 2);
+  float m_g = kNegInf;
+  for (int s = 0; s < splits; ++s) m_g = fmaxf(m_g, part[s * (h + 2) + h]);
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float* ps = part + s * (h + 2);
+    const float e = expf(ps[h] - m_g);
+    l = fmaf(ps[h + 1], e, l);
+    acc = fmaf(ps[tid], e, acc);
+  }
+  out[static_cast<size_t>(bn) * h + tid] = acc / fmaxf(l, 1e-20f);
+}
+
+size_t SplitSmemBytes() {
+  return sizeof(float) *
+         (kStages * 2 * kTileFloats + 2 * kMaxTs + kStages * kMaxTs +
+          kThreads);
+}
+
+// Opts the split kernel into its dynamic shared memory (above the 48 KB
+// default) once per device, not on every launch: the attribute call costs
+// host time, and the decode step that calls this op is bound by the host's
+// enqueue. Two threads racing here both set the same value, which is
+// harmless.
+cudaError_t AllowSmemOnce() {
+  constexpr int kMaxDevices = 64;
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(FlashDecodeSplitKernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(SplitSmemBytes()));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
+
+bool BadHeadDim(int head_dim) {
+  const int g = head_dim / 4;
+  return head_dim < 4 || head_dim > kMaxHeadDim || head_dim % 4 != 0 ||
+         (g & (g - 1)) != 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// q/out [B, N, H]; k_cache/v_cache [B, S, N, H]; pad [B, S] or null; all
-// contiguous float32 on one device.
+// Launches on `stream`; returns the cudaError_t of the launches (0 = ok).
+// q/out [B, N, H]; k_cache/v_cache [B, S, N, H]; pad [B, S] or null;
+// partial: scratch of B * N * splits * (H + 2) floats; all contiguous
+// float32 on one device.
 int FlashDecodeF32(const float* q, const float* k_cache, const float* v_cache,
-                   const float* pad, float* out, int batch, int seq_len,
-                   int num_heads, int head_dim, int page_size, int time_step,
-                   void* stream) {
+                   const float* pad, float* out, float* partial, int batch,
+                   int seq_len, int num_heads, int head_dim, int time_step,
+                   int splits, void* stream) {
   if (batch <= 0) return 0;
-  const int group = head_dim / 4;
-  if (head_dim < 4 || head_dim > kMaxHeadDim || head_dim % 4 != 0 ||
-      (group & (group - 1)) != 0 || page_size < 1 ||
-      page_size > kMaxPageSize || seq_len % page_size != 0)
+  if (BadHeadDim(head_dim) || seq_len <= 0 || splits < 1 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>(batch) * num_heads;
-  FlashDecodeKernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      q, k_cache, v_cache, pad, out, seq_len, num_heads, head_dim, page_size,
+  const size_t smem = SplitSmemBytes();
+  cudaError_t err = AllowSmemOnce();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned rows = static_cast<unsigned>(batch) * num_heads;
+  FlashDecodeSplitKernel<<<dim3(rows, splits), kThreads, smem, s>>>(
+      q, k_cache, v_cache, pad, partial, seq_len, num_heads, head_dim,
       time_step);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FlashDecodeCombineKernel<<<rows, kThreads, 0, s>>>(partial, out, head_dim,
+                                                     splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The split kernel's launch geometry: threads and dynamic shared memory
+// per block, and the blocks resident on one SM. Returns the cudaError_t.
+int FlashDecodeGeometry(int* threads, int* smem_bytes, int* blocks_per_sm) {
+  const size_t smem = SplitSmemBytes();
+  cudaError_t err = AllowSmemOnce();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kThreads;
+  *smem_bytes = static_cast<int>(smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, FlashDecodeSplitKernel, kThreads, smem));
 }
 
 const char* FlashDecodeErrorString(int code) {

@@ -10,7 +10,8 @@ the card.
 Two implementations of one function:
 
 - the CUDA kernels of `ops/csrc/flash_attention.cu`, for CUDA tensors:
-  `FlashForward` (out and the row logsumexp `lse`), and the two backward
+  `FlashForward` (out and the row logsumexp `lse`; register-blocked tiles
+  with cp.async double buffering), and the two backward
   kernels `FlashDkDv` and `FlashDq`, which recompute the probabilities
   from `lse` (`delta = rowsum(do * out)` stays a plain torch op, as it is
   XLA in the reference). `_FlashFunction` ties them into autograd.
@@ -132,7 +133,9 @@ def _Lib():
     lib.FlashFwdF32.argtypes = [vp] * 6 + [ci] * 5 + [vp]
     lib.FlashBwdDkDvF32.argtypes = [vp] * 9 + [ci] * 5 + [vp]
     lib.FlashBwdDqF32.argtypes = [vp] * 8 + [ci] * 5 + [vp]
-    for fn in (lib.FlashFwdF32, lib.FlashBwdDkDvF32, lib.FlashBwdDqF32):
+    lib.FlashFwdGeometry.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 3
+    for fn in (lib.FlashFwdF32, lib.FlashBwdDkDvF32, lib.FlashBwdDqF32,
+               lib.FlashFwdGeometry):
       fn.restype = ci
     lib.FlashErrorString.argtypes = [ci]
     lib.FlashErrorString.restype = ctypes.c_char_p
@@ -148,6 +151,19 @@ def _Launch(fn_name, pointers, q, causal):
   if rc != 0:
     raise RuntimeError(f"{fn_name} kernel launch failed: "
                        + lib.FlashErrorString(rc).decode())
+
+
+def ForwardGeometry(t: int, h: int):
+  """(threads, shared bytes per block, resident blocks per SM) of the
+  forward kernel at sequence length t and head dim h, on the current
+  device."""
+  lib = _Lib()
+  vals = [ctypes.c_int() for _ in range(3)]
+  rc = lib.FlashFwdGeometry(t, h, *(ctypes.byref(v) for v in vals))
+  if rc != 0:
+    raise RuntimeError("FlashFwdGeometry failed: "
+                       + lib.FlashErrorString(rc).decode())
+  return tuple(v.value for v in vals)
 
 
 def _Ptr(x):

@@ -10,9 +10,11 @@ live slot padded) returns exactly 0.
 
 Two implementations of one function:
 
-- the CUDA kernel `ops/csrc/flash_decode.cu` (one thread block per
-  (row, head), walking only the `time_step // page_size + 1` live pages),
-  launched for CUDA tensors;
+- the CUDA kernels of `ops/csrc/flash_decode.cu`, launched for CUDA
+  tensors: a split kernel (grid (row x head, `NumSplits`); each block
+  finds the row's first live slot and streams its share of the tiles from
+  there to `time_step` through shared memory with cp.async) and a combine
+  kernel that merges the splits' (m, l, acc) in split order;
 - `_PlainDecode`, the reference twin `_XlaDecode`'s loop over live pages
   through the shared page step (`ragged_block_attend._PageAttend`, the
   reference `_PageAttend` batched over rows, with `_Finish`'s
@@ -34,8 +36,10 @@ from lingvo_tpu_torch.ops import cuda_build
 from lingvo_tpu_torch.ops.ragged_block_attend import (NEG_INF, _Finish,
                                                      _PageAttend)
 
-MAX_PAGE_SIZE = 128   # kernel limits
-HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+MAX_PAGE_SIZE = 128   # page sizes the op takes (the kernel reads slots)
+HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # kernel limit: H / 4 a power of two
+TILE_FLOATS = 2048    # K (and V) floats of one kernel tile
+MAX_TILE_SLOTS = 128
 
 
 # -- plain PyTorch version (the CPU path) -----------------------------------
@@ -71,6 +75,7 @@ def _PlainDecode(q, k_cache, v_cache, time_step: int, page_size: int,
 
 
 _lib = None   # the loaded kernel library, with its C signatures declared
+_geometry = {}  # device index -> (threads, smem bytes, blocks per SM, SMs)
 
 
 def _Lib():
@@ -78,12 +83,51 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("flash_decode")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.FlashDecodeF32.argtypes = [vp] * 5 + [ci] * 6 + [vp]
+    lib.FlashDecodeF32.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.FlashDecodeF32.restype = ci
+    lib.FlashDecodeGeometry.argtypes = [ctypes.POINTER(ci)] * 3
+    lib.FlashDecodeGeometry.restype = ci
     lib.FlashDecodeErrorString.argtypes = [ci]
     lib.FlashDecodeErrorString.restype = ctypes.c_char_p
     _lib = lib
   return _lib
+
+
+def TileSlots(head_dim: int) -> int:
+  """Slots of one kernel tile: 2048 floats of K, at most 128 slots."""
+  return min(MAX_TILE_SLOTS, TILE_FLOATS // head_dim)
+
+
+def NumSplits(rows: int, time_step: int, seq_len: int, head_dim: int,
+              sm_count: int, blocks_per_sm: int) -> int:
+  """Blocks per (row, head): enough for two waves of the card's resident
+  blocks over `rows` = B x N, and never more than the tiles of [0,
+  time_step], so a row whose every slot up to time_step is live gets no
+  empty split."""
+  t_eff = min(time_step, seq_len - 1)
+  if t_eff < 0:
+    return 1
+  tiles = t_eff // TileSlots(head_dim) + 1
+  want = -(-2 * sm_count * blocks_per_sm // max(rows, 1))
+  return max(1, min(want, tiles))
+
+
+def Geometry(device) -> tuple:
+  """(threads, shared bytes per block, resident blocks per SM, SMs) of the
+  split kernel on `device`, queried once per device."""
+  idx = torch.device(device).index
+  idx = torch.cuda.current_device() if idx is None else idx
+  if idx not in _geometry:
+    lib = _Lib()
+    vals = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(idx):
+      rc = lib.FlashDecodeGeometry(*(ctypes.byref(v) for v in vals))
+    if rc != 0:
+      raise RuntimeError("FlashDecodeGeometry failed: "
+                         + lib.FlashDecodeErrorString(rc).decode())
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    _geometry[idx] = tuple(v.value for v in vals) + (sms,)
+  return _geometry[idx]
 
 
 def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
@@ -116,12 +160,17 @@ def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   out = torch.empty_like(q)
   if b == 0:
     return out
+  _, _, per_sm, sms = Geometry(q.device)
+  splits = NumSplits(b * n, time_step, s, h, sms, per_sm)
+  partial = torch.empty(b * n * splits * (h + 2), dtype=torch.float32,
+                        device=q.device)
   lib = _Lib()
   stream = torch.cuda.current_stream(q.device).cuda_stream
   rc = lib.FlashDecodeF32(
       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
       None if cache_paddings is None else cache_paddings.data_ptr(),
-      out.data_ptr(), b, s, n, h, page_size, int(time_step), stream)
+      out.data_ptr(), partial.data_ptr(), b, s, n, h, int(time_step), splits,
+      stream)
   if rc != 0:
     raise RuntimeError("FlashDecode kernel launch failed: "
                        + lib.FlashDecodeErrorString(rc).decode())

@@ -13,6 +13,10 @@ frameworks sum the page dot products in other orders). Rows with nothing
 live must come out exactly 0, and NaN in slots or pages the read must
 skip must not reach the output.
 
+The flash-decode kernel splits each row's live tiles over several blocks;
+the host's split count (`NumSplits`) is checked here on the CPU: at least
+one split, never more than the tiles up to time_step.
+
 The CUDA kernels run only on a card: their cases (marked `cuda`, atol
 2e-5 against the plain version) skip here and say so. The module imports
 JAX only inside the reference helpers, so on a machine with a card and no
@@ -102,6 +106,21 @@ class TestFlashDecodeMatchesJax:
     assert flash_decode.SupportedShape(16, 4)
     assert not flash_decode.SupportedShape(15, 4)
     assert not flash_decode.SupportedShape(16, 0)
+
+
+class TestFlashDecodeSplitPlan:
+
+  @pytest.mark.parametrize("rows, t, s, h", [
+      (128, 1151, 1152, 128), (128, 700, 1152, 128), (128, 0, 1152, 128),
+      (6, 29, 32, 4), (1, 5000, 4096, 16), (128, -1, 1152, 128)])
+  def test_split_count(self, rows, t, s, h):
+    splits = flash_decode.NumSplits(rows, t, s, h, sm_count=132,
+                                    blocks_per_sm=4)
+    t_eff = min(t, s - 1)
+    tiles = max(t_eff, 0) // flash_decode.TileSlots(h) + 1
+    assert 1 <= splits <= tiles
+    if (rows, t) == (128, 1151):
+      assert splits == 9    # two waves of 4 x 132 resident blocks
 
 
 def _Pool(seed=0, b=B, t_pages=4, n=N, h=H):
@@ -208,6 +227,23 @@ class TestPrefillAndGather:
     np.testing.assert_array_equal(out, ref)
 
 
+def _PortFlash_(q, k, v, t, pad, page):
+  t_ = torch.as_tensor
+  return flash_decode.FlashDecode(t_(q), t_(k), t_(v), t, page_size=page,
+                                  cache_paddings=t_(pad)).numpy()
+
+
+def _CardFlash(q, k, v, t, pad, page):
+  """The kernel on the card: exactly one launch counted."""
+  t_ = lambda a: torch.as_tensor(a).cuda()
+  launches = flash_decode.FlashDecode.launches
+  got = flash_decode.FlashDecode(t_(q), t_(k), t_(v), t, page_size=page,
+                                 cache_paddings=t_(pad))
+  torch.cuda.synchronize()
+  assert flash_decode.FlashDecode.launches == launches + 1
+  return got.cpu().numpy()
+
+
 def _NeedCard():
   if not torch.cuda.is_available():
     pytest.skip("no CUDA device here: the CUDA kernel is unverified on this "
@@ -235,6 +271,52 @@ class TestCudaKernels:
       assert flash_decode.FlashDecode.launches == launches + 1
       np.testing.assert_allclose(got.cpu().numpy(), want, atol=ATOL)
       assert (got[2] == 0).all()
+
+  @pytest.mark.parametrize("h", flash_decode.HEAD_DIMS)
+  @pytest.mark.parametrize("at", ["0", "P-1", "P", "S-1"])
+  def test_flash_decode_time_steps_and_head_dims(self, h, at):
+    """t = 0, P - 1, P and S - 1 at every head dim, page 16, S = 80: a
+    row with nothing padded, a left-padded row, a wholly padded row (exact
+    0) and a row whose only live slot is t // 2; padded and past-t slots
+    hold NaN."""
+    _NeedCard()
+    page, s = 16, 80
+    t = {"0": 0, "P-1": page - 1, "P": page, "S-1": s - 1}[at]
+    q, k, v, _ = _Cache(s=s, seed=7, b=4, h=h)
+    pad = np.zeros((4, s), np.float32)
+    pad[1, :5] = 1.0
+    pad[2, :] = 1.0
+    pad[3, :] = 1.0
+    pad[3, t // 2] = 0.0
+    dead = (pad > 0.5) | (np.arange(s)[None] > t)
+    k[dead], v[dead] = np.nan, np.nan
+    want = _PortFlash_(q, k, v, t, pad, page)
+    got = _CardFlash(q, k, v, t, pad, page)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_array_equal(got[2], np.zeros_like(got[2]))
+
+  @pytest.mark.parametrize("splits", [3, 5])
+  def test_flash_decode_splits_that_do_not_divide_the_tiles(
+      self, splits, monkeypatch):
+    """7 tiles of 16 slots (h 128) over 3 splits (shares of 2, 2, 3) and
+    5 (a left-padded row with 2 live tiles leaves 3 splits empty)."""
+    _NeedCard()
+    page, s, t = 16, 112, 111
+    q, k, v, pad = _Cache(s=s, seed=8, h=128)
+    pad[1, :80] = 1.0
+    monkeypatch.setattr(flash_decode, "NumSplits", lambda *a: splits)
+    want = _PortFlash_(q, k, v, t, pad, page)
+    got = _CardFlash(q, k, v, t, pad, page)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    np.testing.assert_array_equal(got[2], np.zeros_like(got[2]))
+
+  def test_flash_decode_bitwise_repeat(self):
+    """Two calls give the same bits: the splits merge in split order."""
+    _NeedCard()
+    q, k, v, pad = _Cache(s=1152, seed=9, b=4, n=16, h=128)
+    first = _CardFlash(q, k, v, 1000, pad, 128)
+    np.testing.assert_array_equal(_CardFlash(q, k, v, 1000, pad, 128), first)
 
   @pytest.mark.parametrize("h", [16, 64, 128])
   def test_block_decode_kernel_matches_plain(self, h):

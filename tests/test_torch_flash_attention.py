@@ -228,3 +228,44 @@ def test_kernel_wrapper_raises_on_unsupported_head_dim(cuda):
   q = torch.zeros(1, 16, 2, 24, device="cuda")
   with pytest.raises(ValueError, match="multiple of 16"):
     fa.FlashForward(q, q, q, None, True)
+
+
+def _CardInputs(t, h, seed, b=2, n=2):
+  """q, k, v on the card and segment ids: row 0 switches segment at 37
+  (inside a tile of 32 keys and of 64 queries) and ends in padding (id 0)
+  for its last t // 5 tokens; row 1 is one segment."""
+  rng = np.random.RandomState(seed)
+  q, k, v = (torch.as_tensor(rng.randn(b, t, n, h).astype(np.float32)).cuda()
+             for _ in range(3))
+  seg = np.ones((b, t), np.int32)
+  seg[0, min(37, t):] = 2
+  seg[0, t - t // 5:] = 0
+  return q, k, v, torch.as_tensor(seg).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h", [16, 64, 128])
+@pytest.mark.parametrize("t", [77, 1000])
+def test_forward_kernel_edges_on_card(cuda, t, h, causal):
+  """The forward kernel at t that is not a multiple of its tiles, with a
+  segment boundary inside a tile and a padding tail: out and lse within
+  2e-5 of the plain version, and within it again without segments."""
+  q, k, v, seg = _CardInputs(t, h, seed=t + h)
+  for s in (seg, None):
+    out, lse = fa.FlashForward(q, k, v, s, causal)
+    out_p, lse_p = fa._PlainForward(q, k, v, s, causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    assert float((out - out_p).abs().max()) <= 2e-5
+    assert float((lse - lse_p).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_forward_kernel_bitwise_repeat(cuda):
+  """Two calls of the forward kernel give the same bits."""
+  q, k, v, seg = _CardInputs(1000, 128, seed=6)
+  first = fa.FlashForward(q, k, v, seg, True)
+  again = fa.FlashForward(q, k, v, seg, True)
+  torch.cuda.synchronize()
+  assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
