@@ -91,7 +91,51 @@
    prefill_s, decode_s, tokens/s and peak memory; then prefills again (a
    1008 bucket, so the cache keeps 1024 slots) and profiles 16 decode
    steps (device busy per step, flash-decode share).
-14. Prints the per-kernel JSON line, then the result line.
+14. Holds the int8 and bfloat16 instantiations of the ragged kernel
+   (phase 3's shapes: page 16 and 128 at H = 128, page 16 at H = 64) and
+   of the block-decode kernel (phase 10's: page 16 and 128) against their
+   plain versions. The pools are phase 3's and 10's, quantized per (slot,
+   head) into int8 pools with [NP, N, P] scale sidecars, or rounded to
+   bfloat16; every slot the read must skip (freed pages, table entries
+   past a row's horizon, stale slots of its last page) holds a NaN scale
+   and int8 values of 127 / -128, or a bfloat16 NaN. q and K are dyadic
+   (`_Dyadic`: q.k exact in any summation order, so kernel and plain
+   version round the same probabilities to bfloat16). Checks: within 1e-5
+   of the plain version, two calls bitwise equal, the int8 kernel bitwise
+   equal to the float32 kernel on the dequantized pool, and the float32
+   kernel on the widened bfloat16 pools (a kernel that rounds no p) more
+   than 1e-5 off the plain bfloat16 version. Times
+   each instantiation, the float32 kernel on the same pack, the plain
+   version at the main shape, and the bound (1 byte per int8 element plus
+   4 per live (slot, head) of each sidecar; 2 per bfloat16 element).
+15. The flash-decode kernel on a bfloat16 cache against its plain version
+   at phase 11's shapes, paddings and NaN poison (t = 1151 and 700), on
+   dyadic q and K: within 1e-5 (the kernel rounds each p against the
+   running max through its page's end, as the reference does), two calls
+   bitwise equal, and the float32 kernel on the widened cache more than
+   1e-5 off; times it beside phase 11's
+   float32 time, the plain version, SDPA on the bfloat16 cache and the
+   bound.
+16. Quantized serving main path: DenseLmTiny on the card must reproduce
+   its CPU streams with int8 pools (ragged and legacy) and bfloat16 pools
+   (ragged); then DenseLm1B with phase 5's weights, geometry and requests
+   through `ServingLoop(kv_cache_dtype=...)`: int8 ragged (exactly 24
+   int8 ragged launches per step, no float32 one), int8 legacy (exactly 24
+   int8 block-decode launches per decode-only step), bfloat16 ragged and
+   bfloat16 legacy, every other count 0 and quantized_steps equal to the
+   steps for int8; each step mode first serves float32 pools again, the
+   same process's baseline at that point. Prints ms/step, tok/s, peak
+   memory, kv_bytes_per_token and pool bytes, the int8 runs' profiles, and
+   (information only) how many of the 8 streams equal phase 5's.
+17. GShardDecode on quantized caches: DenseLmTiny with a bfloat16 and an
+   int8 cache, card against CPU continuations; then DenseLm1B with a
+   bfloat16 cache restored from phase 13's checkpoint through `DecodeOnce`
+   (128 steps): exactly 3072 bfloat16 flash-decode launches and no other
+   kernel, the telemetry's kv_cache_dtype, and the 16-step profile. (An
+   int8 dense cache takes the dequantize-then-attend einsum read, as the
+   reference's does: no kernel.)
+18. Prints the per-kernel JSON line (every kernel and every int8 /
+   bfloat16 instantiation), then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -119,6 +163,28 @@ TOL = 1e-5
 
 def _Phase(name):
   print(f"\n== {name}", flush=True)
+
+
+class _Counts:
+  """The kernels' launch counts by name: name -> (wrapper, pool dtype).
+  A wrapper with per-dtype instantiations counts each in its
+  `launches_by_dtype`; the others count in `launches`."""
+
+  def __init__(self, **entries):
+    self.entries = entries
+
+  def __iter__(self):
+    return iter(self.entries)
+
+  def Zero(self):
+    for fn, dtype in self.entries.values():
+      fn.launches = 0
+      if dtype is not None:
+        fn.launches_by_dtype[dtype] = 0
+
+  def Read(self) -> dict:
+    return {name: fn.launches if dtype is None else fn.launches_by_dtype[dtype]
+            for name, (fn, dtype) in self.entries.items()}
 
 
 def _Check(ok, msg):
@@ -202,9 +268,9 @@ def _EnqueueUs(torch, fn, calls=20, reps=20):
   return total / (calls * reps) * 1e6
 
 
-def _AttendPack(torch, ragged, page, h, rng):
+def _AttendPack(torch, ragged, page, h, rng, dyadic=False):
   """The kernel-check pack at page size `page` and head dim `h` (see the
-  module docstring)."""
+  module docstring); dyadic: q and K made `_Dyadic`."""
   n, t, b, max_seq = 16, 264, 8, 1024
   t_pages = max_seq // page
   num_pages = 512 * 16 // page
@@ -226,24 +292,33 @@ def _AttendPack(torch, ragged, page, h, rng):
   shape = (num_pages + 1, page, n, h)
   k_pool = rng.randn(*shape).astype(np.float32)
   v_pool = rng.randn(*shape).astype(np.float32)
+  if dyadic:
+    k_pool = _Dyadic(k_pool, 1 / 8)
+  dead = np.zeros(shape[:2], bool)
+  dead[freed] = True                          # freed pages
+  for r in range(b):                          # stale slots past each row
+    dead[owned[r][-1], row_end[r] - (need[r] - 1) * page:] = True
+  clean = (k_pool.copy(), v_pool.copy())
   for pool in (k_pool, v_pool):
-    pool[freed] = np.nan                      # freed pages
-    for r in range(b):                        # stale slots past each row
-      pool[owned[r][-1], row_end[r] - (need[r] - 1) * page:] = np.nan
+    pool[dead] = np.nan
   q = (rng.randn(t, n, h) / np.sqrt(h)).astype(np.float32)
-  moved = (2 * sum(row_end) * n * h * 4        # each row's live K/V slots
-           + 2 * q.nbytes                      # q read, out written
-           + sum(need) * 4 + 5 * t * 4)        # live table entries, per-token ints
+  if dyadic:
+    q = _Dyadic(q, 1 / 64)
+  live = 2 * sum(row_end) * n                 # each row's live K/V (slot, head)s
+  moved = lambda elem: int(live * elem        # bytes per (slot, head)
+                           + 2 * q.nbytes     # q read, out written
+                           + sum(need) * 4 + 5 * t * 4)  # tables, token ints
   flops = int(4 * q_end.astype(np.int64).sum() * n * h)
   cuda = {k: torch.as_tensor(v).cuda() for k, v in dict(
       q=q, k_pool=k_pool, v_pool=v_pool, tables=tables,
       row_of=rows.row_of, q_end=q_end, q_start=q_start,
       anc_lo=rows.anc_lo, anc_hi=rows.anc_hi).items()}
-  return cuda, q_end == 0, moved, flops
+  return cuda, q_end == 0, moved, flops, dict(clean=clean, dead=dead)
 
 
 def _CheckKernel(torch, rba, ragged, page, rng, h=128):
-  x, pad, moved, flops = _AttendPack(torch, ragged, page, h, rng)
+  x, pad, moved, flops, _ = _AttendPack(torch, ragged, page, h, rng)
+  moved = moved(h * 4)
   args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["row_of"],
           x["q_end"])
   tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
@@ -270,10 +345,158 @@ def _CheckKernel(torch, rba, ragged, page, rng, h=128):
   return res
 
 
-def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged"):
+def _KvStorage(torch, clean, dead, dtype):
+  """CUDA K/V pools of the clean float32 pools [NP, P, N, H] stored as
+  `dtype`, with the dead slots [NP, P] poisoned: NaN in bfloat16; int8
+  values alternating 127 / -128 and NaN scales in the sidecars. Returns
+  (k, v, {} or the sidecars as k_scale / v_scale, the dequantized float32
+  pools (int8) or None)."""
+  from lingvo_tpu_torch.ops import ragged_block_attend as rba
+  from lingvo_tpu_torch.quant import kv as kv_quant
+  dead_t = torch.as_tensor(dead).cuda()
+  pools, scales, deq = [], {}, []
+  for name, pool in zip(("k", "v"), clean):
+    x = torch.as_tensor(pool).cuda()
+    if dtype == "bfloat16":
+      x = x.bfloat16()
+      x[dead_t] = float("nan")
+      pools.append(x)
+      continue
+    q8, scale = kv_quant.QuantizeKv(x)          # [NP, P, N, H], [NP, P, N]
+    q8[dead_t] = torch.where(
+        torch.arange(q8.shape[-1], device="cuda") % 2 == 0, 127,
+        -128).to(torch.int8)
+    scale[dead_t] = float("nan")
+    scale = scale.transpose(1, 2).contiguous()  # the sidecar [NP, N, P]
+    pools.append(q8)
+    scales[f"{name}_scale"] = scale
+    deq.append(rba._DequantPages(q8, scale))
+  return pools[0], pools[1], scales, (deq or None)
+
+
+def _Dyadic(x, step):
+  """x rounded to a multiple of the power of two `step`: few enough
+  significant bits that a dot product of such values is exact in float32
+  in any summation order. On dyadic q and K the kernels and their plain
+  versions compute the same scores, so a bfloat16 read rounds the same
+  probabilities on both sides and only the float32 sums differ."""
+  return (np.round(x / step) * step).astype(np.float32)
+
+
+def _Unrounded(torch, label, got_err, ctl_err):
+  """The bfloat16 check's control: the float32 kernel on the widened
+  bfloat16 storage rounds no probability, so it must miss the TOL bar
+  that the bfloat16 kernel meets."""
+  _Check(ctl_err > TOL, f"{label}: the float32 kernel on the widened "
+         f"storage (p unrounded) is within {TOL} of the plain bfloat16 "
+         f"version ({ctl_err}): the check cannot tell a kernel that skips "
+         "the rounding")
+  print(f"{label}: bfloat16 kernel max abs err {got_err:.3g}, unrounded "
+        f"control {ctl_err:.3g}, bar {TOL}")
+
+
+def _CheckQuant(torch, label, call, plain, deq_call, zero_rows, bound,
+                time_plain, unrounded=None):
+  """One quantized instantiation against its plain version on the card:
+  finite, padding / inactive rows exactly 0, within TOL of the plain
+  version, two calls bitwise equal, (int8) bitwise equal to the float32
+  kernel on the dequantized pool, and (bfloat16) the unrounded control
+  `unrounded` (the float32 kernel on the widened pools) more than TOL
+  off. Times the kernel (and, with time_plain, the plain version)."""
+  out, again, want = call(), call(), plain()
+  torch.cuda.synchronize()
+  _Check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
+  _Check(torch.equal(out, again), f"{label}: two calls differ bitwise")
+  if zero_rows is not None:
+    _Check(bool((out[zero_rows] == 0).all()), f"{label}: padding or "
+           "inactive rows not exactly zero")
+  err = float((out - want).abs().max())
+  _Check(err <= TOL, f"{label}: kernel vs plain max abs err {err} > {TOL}")
+  ctl_err = None
+  if unrounded is not None:
+    ctl_err = float((unrounded() - want).abs().max())
+    _Unrounded(torch, label, err, ctl_err)
+  same = "n/a"
+  if deq_call is not None:
+    flt = deq_call()
+    torch.cuda.synchronize()
+    _Check(torch.equal(out, flt), f"{label}: int8 kernel differs from the "
+           "float32 kernel on the dequantized pool")
+    same = "bitwise equal"
+  ms = _TimeMs(torch, call, 20)
+  plain_ms = (_TimeMs(torch, plain, 3, waits_as=f"plain {label}")
+              if time_plain else None)
+  print(f"{label}: max abs err {err:.3g} (tol {TOL}), two calls bitwise "
+        f"equal, vs float32 kernel on the dequantized pool: {same}; kernel "
+        f"{ms:.4f} ms, plain "
+        f"{'not timed' if plain_ms is None else f'{plain_ms:.4f} ms'}, "
+        f"bound {bound[0]:.4f} ms ({bound[1]})")
+  return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err,
+              unrounded_err=ctl_err, library_ms=None)
+
+
+def _CheckQuantRagged(torch, rba, ragged, page, h, rng, time_plain):
+  """The ragged kernel's int8 and bfloat16 instantiations at phase 3's
+  shapes (its pack with dyadic q and K, poisoned as `_KvStorage` says),
+  beside the float32 kernel on the same pack."""
+  x, pad, moved, flops, extra = _AttendPack(torch, ragged, page, h, rng,
+                                            dyadic=True)
+  ints = (x["tables"], x["row_of"], x["q_end"])
+  tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
+  call = lambda k, v, **sc: rba.RaggedAttend(x["q"], k, v, *ints,
+                                             page_size=page, **sc, **tree)
+  float_ms = _TimeMs(torch, lambda: call(x["k_pool"], x["v_pool"]), 20)
+  zero = torch.as_tensor(pad).cuda()
+  res = {}
+  for dtype, elem in (("int8", h + 4), ("bfloat16", 2 * h)):
+    k, v, sc, deq = _KvStorage(torch, extra["clean"], extra["dead"], dtype)
+    plain = lambda k=k, v=v, sc=sc: rba._PlainRaggedAttend(
+        x["q"], k, v, *ints, page, **tree, **sc)
+    unrounded = lambda k=k, v=v: call(k.float(), v.float())
+    res[dtype] = _CheckQuant(
+        torch, f"ragged {dtype} P={page} H={h}", lambda: call(k, v, **sc),
+        plain, (lambda: call(*deq)) if deq else None, zero,
+        _Bound(moved(elem), flops), time_plain,
+        unrounded if dtype == "bfloat16" else None)
+    res[dtype]["float_ms"] = float_ms
+    del k, v, sc, deq
+  print(f"ragged float32 P={page} H={h} on the same pack: {float_ms:.4f} ms, "
+        f"bound {_Bound(moved(4 * h), flops)[0]:.4f} ms")
+  return res
+
+
+def _CheckQuantBlockDecode(torch, bd, page, rng, time_plain):
+  """The block-decode kernel's int8 and bfloat16 instantiations at phase
+  10's shapes (its pool with dyadic q and K, poisoned as `_KvStorage`
+  says), beside the float32 kernel on the same pool."""
+  x, moved, flops, extra = _DecodePool(torch, page, rng, dyadic=True)
+  rest = (x["tables"], x["lens"])
+  call = lambda k, v, **sc: bd.BlockDecode(x["q"], k, v, *rest,
+                                           page_size=page, **sc)
+  float_ms = _TimeMs(torch, lambda: call(x["k_pool"], x["v_pool"]), 20)
+  res = {}
+  for dtype, elem in (("int8", 128 + 4), ("bfloat16", 2 * 128)):
+    k, v, sc, deq = _KvStorage(torch, extra["clean"], extra["dead"], dtype)
+    plain = lambda k=k, v=v, sc=sc: bd._PlainBlockDecode(
+        x["q"][:, 0], k, v, *rest, page, **sc)[:, None]
+    unrounded = lambda k=k, v=v: call(k.float(), v.float())
+    res[dtype] = _CheckQuant(
+        torch, f"block decode {dtype} P={page}", lambda: call(k, v, **sc),
+        plain, (lambda: call(*deq)) if deq else None, 0,
+        _Bound(moved(elem), flops), time_plain,
+        unrounded if dtype == "bfloat16" else None)
+    res[dtype]["float_ms"] = float_ms
+    del k, v, sc, deq
+  print(f"block decode float32 P={page} on the same pool: {float_ms:.4f} ms, "
+        f"bound {_Bound(moved(4 * 128), flops)[0]:.4f} ms")
+  return res
+
+
+def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged",
+                   kv_cache_dtype=None):
   """`cfg`, a tiny config, on the card against the same weights on the
   CPU: one packed step's logits, then greedy streams of the engine in
-  `step_mode`."""
+  `step_mode`, both over `kv_cache_dtype` pools."""
   p = cfg.Task()
   cpu_lm = p.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
@@ -284,7 +507,8 @@ def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged"):
   tables = np.arange(16, dtype=np.int32).reshape(4, 4)
   logits = {}
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
-    states = lm.InitPagedDecodeState(17, 8, num_slots=4)
+    states = lm.InitPagedDecodeState(17, 8, num_slots=4,
+                                     kv_cache_dtype=kv_cache_dtype)
     with torch.no_grad():
       out, _ = lm.RaggedStep(torch.as_tensor(ids).to(lm.device), states,
                              torch.as_tensor(tables).to(lm.device),
@@ -299,11 +523,13 @@ def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged"):
             prefill_chunk=8)
   streams = {}
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
-    eng = engine.ServingLoop(lm, device=lm.device, step_mode=step_mode, **kw)
+    eng = engine.ServingLoop(lm, device=lm.device, step_mode=step_mode,
+                             kv_cache_dtype=kv_cache_dtype, **kw)
     streams[name] = eng.RunBatch(prompts, lens, max_new_tokens=8)
   _Check(np.array_equal(streams["cpu"], streams["cuda"]),
          f"tiny greedy streams differ:\n{streams['cpu']}\n{streams['cuda']}")
-  print(f"{type(cfg).__name__} reference: logits max abs err {err:.3g} "
+  print(f"{type(cfg).__name__} reference ({eng.kv_cache_dtype} KV, "
+        f"paged_path {eng.paged_path}): logits max abs err {err:.3g} "
         f"(<= 1e-4), {len(lens)} greedy streams of the {step_mode} engine "
         "identical to the CPU path")
 
@@ -657,20 +883,19 @@ def _TrainMain(torch, spi, program, counters, pairs_per_layer):
         f"{out['loss']:.4f}")
   counted = prog(4)
   torch.cuda.synchronize()
-  for fn in counters.values():
-    fn.launches = 0
+  counters.Zero()
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   state, out = counted.Run(state)
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = {name: fn.launches for name, fn in counters.items()}
+  launches = counters.Read()
   _Check(np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]),
          f"non-finite loss or grad_norm: {out}")
   _Check(out["skipped_step"] == 0, f"a step was skipped: {out}")
-  want = dict(ragged_block_attend=0, ssd_scan=0, flash_attention_fwd=48 * 4,
-              flash_attention_dkdv=24 * 4, flash_attention_dq=24 * 4,
-              fused_xent_fwd=4, block_decode=0, flash_decode=0)
+  want = dict.fromkeys(counters, 0)
+  want.update(flash_attention_fwd=48 * 4, flash_attention_dkdv=24 * 4,
+              flash_attention_dq=24 * 4, fused_xent_fwd=4)
   _Check(launches == want, f"launches {launches} != {want} (4 steps)")
   flops, formula = _ModelFlops(lm, cfg, pairs_per_layer)
   ms = wall / 4 * 1e3
@@ -761,37 +986,50 @@ def _Requests(cfg):
   return lens, [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
 
 
+def _ServingLm(torch, cfg):
+  """cfg's Task at full width and depth on the card, random weights from
+  torch.Generator("cuda") seed 0 (the same weights on every call)."""
+  lm = cfg.Task().Instantiate(device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  return lm
+
+
 def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
-               step_mode="ragged"):
-  """cfg's Task at full width and depth (random weights from a seeded
-  torch.Generator) through ServingLoop in `step_mode`: 8 requests with
-  prompts of 64..768 tokens (numpy seed 1) and 32 new tokens each, through
+               step_mode="ragged", kv_cache_dtype=None, lm=None,
+               profile=True):
+  """cfg's Task (`lm`, or `_ServingLm(cfg)`) through ServingLoop in
+  `step_mode` with `kv_cache_dtype` pools: 8 requests with prompts of
+  64..768 tokens (numpy seed 1) and 32 new tokens each, through
   Start/Submit/Result/Stop, with every kernel count set to 0 just before.
   per_step: {kernel: launches per engine step}; per_decode_step: {kernel:
   launches per decode-only step}; every other counted kernel must launch
-  0 times. Then the profiled re-run. Returns (the counted run's launches,
-  its steps, the streams)."""
+  0 times. Then, with `profile`, the profiled re-run. Returns (the counted
+  run's launches, its steps, the streams, ms per step)."""
   name = type(cfg).__name__
   per_decode_step = per_decode_step or {}
   t0 = time.perf_counter()
-  lm = cfg.Task().Instantiate(device="cuda")
-  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  lm = lm or _ServingLm(torch, cfg)
   n_params = sum(p.numel() for p in lm.parameters())
   eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
                            max_batch=cfg.BATCH_SIZE,
                            max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256,
-                           step_mode=step_mode)
+                           step_mode=step_mode, kv_cache_dtype=kv_cache_dtype)
   torch.cuda.synchronize()
-  print(f"{name} ({step_mode}): {n_params / 1e9:.3f} B params, engine "
-        f"T={eng._ragged_t}, mixers {eng.mixers}, kv_bytes_per_token "
-        f"{eng.kv_bytes_per_token}, built in {time.perf_counter() - t0:.1f} s")
+  pool_bytes = sum(x.numel() * x.element_size()
+                   for x in eng._states.Flatten())
+  label = f"{name} ({step_mode}, {eng.kv_cache_dtype} KV)"
+  print(f"{label}: {n_params / 1e9:.3f} B params, engine T={eng._ragged_t}, "
+        f"mixers {eng.mixers}, kv_bytes_per_token {eng.kv_bytes_per_token}, "
+        f"paged_path {eng.paged_path}, pool {pool_bytes / 1e9:.3f} GB "
+        f"allocated ({eng.alloc.Stats().get('pool_bytes', 0) / 1e9:.3f} GB "
+        f"priced for the {eng.num_pages} allocator pages), built in "
+        f"{time.perf_counter() - t0:.1f} s")
   eng.RunBatch(np.arange(1, 33, dtype=np.int32)[None], [32],
                max_new_tokens=2)   # warm-up: cuBLAS handles, allocator
   lens, prompts = _Requests(cfg)
   stats0 = eng.Stats()
   torch.cuda.synchronize()
-  for fn in counters.values():
-    fn.launches = 0
+  counters.Zero()
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   eng.Start()
@@ -800,7 +1038,7 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   eng.Stop()
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
-  launches = {k: fn.launches for k, fn in counters.items()}
+  launches = counters.Read()
   stats = eng.Stats()
   steps = stats["steps"] - stats0["steps"]
   decode_steps = stats["decode_steps"] - stats0["decode_steps"]
@@ -809,32 +1047,38 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
            f"bad stream {st}")
   want = {k: per_step.get(k, 0) * steps
           + per_decode_step.get(k, 0) * decode_steps for k in counters}
-  _Check(launches == want, f"{name}: launches {launches} != {want} "
+  _Check(launches == want, f"{label}: launches {launches} != {want} "
          f"({per_step} per step x {steps} steps, {per_decode_step} per "
          f"decode-only step x {decode_steps})")
+  quantized = stats["quantized_steps"] - stats0["quantized_steps"]
+  _Check(quantized == (steps if eng.kv_cache_dtype == "int8" else 0),
+         f"{label}: quantized_steps {quantized} of {steps} steps")
   ttft = sorted(h.first_token_time - h.submit_time for h in handles)
   tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
-  print(f"{name} ({step_mode}) served 8 requests (prompts "
+  print(f"{label} served 8 requests (prompts "
         f"{sorted(lens.tolist())}): {steps} steps ({decode_steps} "
         f"decode-only), {wall / steps * 1e3:.2f} ms/step, "
         f"{8 * 32 / wall:.1f} generated tok/s, "
         f"{int(lens.sum()) / wall:.1f} prompt tok/s, launches "
         f"{ {k: v for k, v in launches.items() if v} } = {per_step} x "
-        f"{steps} + {per_decode_step} x {decode_steps}, peak memory "
+        f"{steps} + {per_decode_step} x {decode_steps}, quantized_steps "
+        f"{quantized}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
   print(f"time to first token: median {np.median(ttft) * 1e3:.1f} ms, max "
         f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
         f"{np.mean(tpot) * 1e3:.2f} ms")
-  _Profile(torch, eng, prompts, steps)
-  return launches, steps, streams
+  if profile:
+    _Profile(torch, eng, prompts, steps)
+  return launches, steps, streams, wall / steps * 1e3
 
 
-def _DecodePool(torch, page, rng):
+def _DecodePool(torch, page, rng, dyadic=False):
   """The block-decode check at page size `page` (see the module
   docstring): 8 rows of 16 heads of 128 with seq_lens 0..1024, their live
   pages drawn from a 512 x 16-slot pool, every other page and table entry
-  NaN, and the slots past each row's length in its last page NaN. Returns
-  the CUDA tensors and the bytes and operations the read needs."""
+  NaN, and the slots past each row's length in its last page NaN (dyadic:
+  q and K made `_Dyadic`). Returns the CUDA tensors and the bytes and
+  operations the read needs."""
   b, n, h, max_seq = 8, 16, 128, 1024
   t_pages = max_seq // page
   num_pages = 512 * 16 // page
@@ -849,23 +1093,32 @@ def _DecodePool(torch, page, rng):
   shape = (num_pages + 1, page, n, h)
   k_pool = rng.randn(*shape).astype(np.float32)
   v_pool = rng.randn(*shape).astype(np.float32)
+  if dyadic:
+    k_pool = _Dyadic(k_pool, 1 / 8)
+  dead = np.zeros(shape[:2], bool)
+  dead[freed] = True
+  for r in range(b):
+    if need[r]:
+      dead[owned[r][-1], lens[r] - (need[r] - 1) * page:] = True
+  clean = (k_pool.copy(), v_pool.copy())
   for pool in (k_pool, v_pool):
-    pool[freed] = np.nan
-    for r in range(b):
-      if need[r]:
-        pool[owned[r][-1], lens[r] - (need[r] - 1) * page:] = np.nan
+    pool[dead] = np.nan
   q = (rng.randn(b, 1, n, h) / np.sqrt(h)).astype(np.float32)
+  if dyadic:
+    q = _Dyadic(q, 1 / 64)
   live = int(lens.sum())
-  moved = 2 * live * n * h * 4 + 2 * q.nbytes   # live K/V, q read, out written
+  # live K/V at `elem` bytes per (slot, head), q read, out written
+  moved = lambda elem: int(2 * live * n * elem + 2 * q.nbytes)
   flops = 4 * live * n * h
   cuda = {k: torch.as_tensor(v).cuda() for k, v in dict(
       q=q, k_pool=k_pool, v_pool=v_pool, tables=tables, lens=lens).items()}
-  return cuda, moved, flops
+  return cuda, moved, flops, dict(clean=clean, dead=dead)
 
 
 def _CheckBlockDecode(torch, bd, page, rng):
   """The block-decode kernel against `_PlainBlockDecode` on the card."""
-  x, moved, flops = _DecodePool(torch, page, rng)
+  x, moved, flops, _ = _DecodePool(torch, page, rng)
+  moved = moved(128 * 4)
   args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lens"])
   out = bd.BlockDecode(*args, page_size=page)
   plain = bd._PlainBlockDecode(x["q"][:, 0], *args[1:], page)[:, None]
@@ -887,21 +1140,28 @@ def _CheckBlockDecode(torch, bd, page, rng):
   return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err, library_ms=None)
 
 
-def _CheckFlashDecode(torch, fd, rng, prompt_lens):
+def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
   """The flash-decode kernel against `_PlainDecode` on the card at
-  [8, 1152, 16, 128], page 128, with the left-pad cache paddings of
-  `prompt_lens` right-aligned in a 1024 bucket (as GShardDecode builds
-  them); padded slots hold NaN, and for t = 700 so do the slots past t.
-  Times the kernel, the plain version, SDPA over the whole cache with the
-  same boolean mask, and the bound: the live unpadded K/V slots, the
-  paddings of the live pages, q and out."""
+  [8, 1152, 16, 128], page 128, on a `dtype` cache, with the left-pad
+  cache paddings of `prompt_lens` right-aligned in a 1024 bucket (as
+  GShardDecode builds them); padded slots hold NaN, and for t = 700 so do
+  the slots past t. Times the kernel, the plain version, SDPA over the
+  whole cache with the same boolean mask (for a bfloat16 cache, with q
+  cast to bfloat16, as SDPA takes one dtype), and the bound: the live
+  unpadded K/V slots, the paddings of the live pages, q and out. A
+  bfloat16 cache holds dyadic K and takes a dyadic q (`_Dyadic`), and the
+  float32 kernel on the widened cache is its unrounded control."""
   b, s, n, h, page, p_len = 8, 1152, 16, 128, 128, 1024
+  cache_dtype = getattr(torch, dtype)
+  elem = cache_dtype.itemsize
   slot = np.arange(s)
   pad = (slot[None] < (p_len - np.asarray(prompt_lens))[:, None]).astype(
       np.float32)
   q = (rng.randn(b, 1, n, h) / np.sqrt(h)).astype(np.float32)
   k = rng.randn(b, s, n, h).astype(np.float32)
   v = rng.randn(b, s, n, h).astype(np.float32)
+  if dtype == "bfloat16":
+    q, k = _Dyadic(q, 1 / 64), _Dyadic(k, 1 / 8)
   k[pad > 0.5] = np.nan
   v[pad > 0.5] = np.nan
   qc, padc = torch.as_tensor(q).cuda(), torch.as_tensor(pad).cuda()
@@ -911,61 +1171,70 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens):
     kt, vt = k.copy(), v.copy()
     kt[:, t + 1:] = np.nan
     vt[:, t + 1:] = np.nan
-    kc, vc = torch.as_tensor(kt).cuda(), torch.as_tensor(vt).cuda()
+    kc = torch.as_tensor(kt).cuda().to(cache_dtype)
+    vc = torch.as_tensor(vt).cuda().to(cache_dtype)
     out = fd.FlashDecode(qc, kc, vc, t, page_size=page, cache_paddings=padc)
     again = fd.FlashDecode(qc, kc, vc, t, page_size=page,
                            cache_paddings=padc)
     plain = fd._PlainDecode(qc[:, 0], kc, vc, t, page, padc)[:, None]
     torch.cuda.synchronize()
-    _Check(bool(torch.isfinite(out).all()), f"flash decode t={t}: "
-           "non-finite")
-    _Check(torch.equal(out, again), f"flash decode t={t}: two calls differ "
-           "bitwise")
-    threads, smem, per_sm, sms = fd.Geometry("cuda")
-    splits = fd.NumSplits(b * n, t, s, h, sms, per_sm)
-    print(f"flash decode t={t}: two calls bitwise equal; {splits} splits, "
-          f"split grid ({b * n}, {splits}), {threads} threads, {smem} B "
-          f"shared per block, {per_sm} blocks resident per SM of {sms}; "
-          f"combine grid ({b * n},)")
+    label = f"flash decode {dtype} t={t}"
+    _Check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
+    _Check(torch.equal(out, again), f"{label}: two calls differ bitwise")
+    threads, smem, per_sm, sms = fd.Geometry("cuda", cache_dtype)
+    splits = fd.NumSplits(b * n, t, s, h, sms, per_sm, elem)
+    print(f"{label}: two calls bitwise equal; {splits} splits of "
+          f"{fd.TileSlots(h, elem)}-slot tiles, split grid ({b * n}, "
+          f"{splits}), {threads} threads, {smem} B shared per block, "
+          f"{per_sm} blocks resident per SM of {sms}; combine grid "
+          f"({b * n},)")
     err = float((out - plain).abs().max())
-    _Check(err <= TOL, f"flash decode t={t}: kernel vs plain max abs err "
-           f"{err} > {TOL}")
+    _Check(err <= TOL, f"{label}: kernel vs plain max abs err {err} > {TOL}")
+    ctl_err = None
+    if dtype == "bfloat16":
+      ctl_err = float((fd.FlashDecode(
+          qc, kc.float(), vc.float(), t, page_size=page,
+          cache_paddings=padc) - plain).abs().max())
+      _Unrounded(torch, label, err, ctl_err)
     keep = (slot[None] <= t) & (pad < 0.5)
     live = int(keep.sum())
-    moved = (2 * live * n * h * 4 + b * (t // page + 1) * page * 4
+    moved = (2 * live * n * h * elem + b * (t // page + 1) * page * 4
              + 2 * q.nbytes)
     ms = _TimeMs(torch, lambda: fd.FlashDecode(
         qc, kc, vc, t, page_size=page, cache_paddings=padc), 20)
     plain_ms = _TimeMs(torch, lambda: fd._PlainDecode(
-        qc[:, 0], kc, vc, t, page, padc), 3, waits_as="plain flash decode")
+        qc[:, 0], kc, vc, t, page, padc), 3, waits_as=f"plain {label}")
     mask = torch.as_tensor(keep).cuda()[:, None, None, :]
-    qs, ks, vs = (a.transpose(1, 2) for a in (qc, kc, vc))
+    qs, ks, vs = (a.transpose(1, 2) for a in (qc.to(cache_dtype), kc, vc))
     lib_ms = _TimeMs(torch, lambda: sdpa(qs, ks, vs, attn_mask=mask,
                                          scale=1.0), 20, waits_as="SDPA")
     enqueue_us = _EnqueueUs(torch, lambda: fd.FlashDecode(
         qc, kc, vc, t, page_size=page, cache_paddings=padc))
-    print(f"flash decode t={t}: host enqueue {enqueue_us:.1f} us per call "
-          "(card busy; what the host-bound decode step pays per call)")
+    print(f"{label}: host enqueue {enqueue_us:.1f} us per call (card busy; "
+          "what the host-bound decode step pays per call)")
     bound = _Bound(moved, 4 * live * n * h)
-    print(f"flash decode [8, 1152, 16, 128] P={page} t={t}: {live} live "
-          f"slots, max abs err {err:.3g}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound[0]:.4f} ms "
-          f"({bound[1]}; {moved / 1e6:.1f} MB)")
+    print(f"{label} [8, 1152, 16, 128] P={page}: {live} live slots, max abs "
+          f"err {err:.3g} (tol {TOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+          f"{moved / 1e6:.1f} MB)")
     res[t] = dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err,
-                  library_ms=lib_ms)
+                  unrounded_err=ctl_err, library_ms=lib_ms)
     del kc, vc
   return res
 
 
-def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp):
-  """DenseLmTiny (decode_page_size 4) through GShardDecode on the card and
-  on the CPU from one port checkpoint: the continuations must agree."""
-  p = spi.DenseLmTiny().Task()
+def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
+                kv_cache_dtype=None):
+  """DenseLmTiny (decode_page_size 4, `kv_cache_dtype` caches) through
+  GShardDecode on the card and on the CPU from one port checkpoint: the
+  continuations must agree."""
+  p = spi.DenseLmTiny().Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
       decode_page_size=4)
   cpu_lm = p.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
-  ckdir = os.path.join(tmp, "tiny")
+  ckdir = os.path.join(tmp, f"tiny_{kv_cache_dtype}")
   checkpointer.Checkpointer(ckdir).Save(1, cpu_lm, force=True)
   gpu_lm = p.Instantiate(device="cuda")   # DecodeOnce restores its weights
   rng = np.random.RandomState(4)
@@ -974,14 +1243,15 @@ def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp):
   outs = {}
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
     decoder = gshard.GShardDecode(
-        lm, ckdir, os.path.join(tmp, f"tiny_{name}.jsonl"),
+        lm, ckdir, os.path.join(tmp, f"tiny_{name}_{kv_cache_dtype}.jsonl"),
         max_decode_steps=12, prefill_chunk_size=8)
     outs[name] = [r["output_ids"] for r in decoder.DecodeOnce(1, prompts,
                                                              lens)]
   _Check(outs["cpu"] == outs["cuda"], "tiny GShardDecode continuations "
          f"differ:\n{outs['cpu']}\n{outs['cuda']}")
-  print(f"DenseLmTiny GShardDecode reference: {len(lens)} continuations of "
-        "12 tokens identical to the CPU path (paged read, page 4)")
+  print(f"DenseLmTiny GShardDecode reference ({kv_cache_dtype or 'float32'} "
+        f"cache): {len(lens)} continuations of 12 tokens identical to the "
+        "CPU path (page 4: the flash-decode read, the dense read for int8)")
 
 
 def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
@@ -1027,31 +1297,35 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
 
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
-                ragged_streams):
-  """DenseLm1B (decode_page_size 128, random weights from a seeded
-  torch.Generator) through GShardDecode: a port checkpoint written and
-  read back, then DecodeOnce over the serving phases' 8 prompts (bucket
-  1024) for 128 tokens with prefill chunks of 256, every kernel count set
-  to 0 just before. Returns (launches, telemetry)."""
+                ref_streams, kv_cache_dtype=None):
+  """DenseLm1B (decode_page_size 128) through GShardDecode: DecodeOnce
+  over the serving phases' 8 prompts (bucket 1024) for 128 tokens with
+  prefill chunks of 256, every kernel count set to 0 just before. With
+  kv_cache_dtype None the random weights (a seeded torch.Generator) are
+  first written as a port checkpoint and read back; with a cache dtype
+  the model restores that checkpoint. ref_streams: streams the
+  continuations are compared with, for information. Returns (launches,
+  telemetry, the continuations)."""
   cfg = spi.DenseLm1B()
-  p = cfg.Task()
+  p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
       decode_page_size=128)
   lm = p.Instantiate(device="cuda")
   lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
   ckdir = os.path.join(tmp, "dense_lm_1b")
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  checkpointer.Checkpointer(ckdir).Save(1, lm, force=True)
-  write_s = time.perf_counter() - t0
-  size = sum(os.path.getsize(os.path.join(dp, f))
-             for dp, _, fs in os.walk(ckdir) for f in fs)
-  t0 = time.perf_counter()
-  checkpointer.Checkpointer(ckdir).Restore(lm, step=1)
-  torch.cuda.synchronize()
-  read_s = time.perf_counter() - t0
-  print(f"DenseLm1B port checkpoint: {size / 1e9:.3f} GB written in "
-        f"{write_s:.2f} s, read into the model in {read_s:.2f} s")
+  if kv_cache_dtype is None:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpointer.Checkpointer(ckdir).Save(1, lm, force=True)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(ckdir) for f in fs)
+    t0 = time.perf_counter()
+    checkpointer.Checkpointer(ckdir).Restore(lm, step=1)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    print(f"DenseLm1B port checkpoint: {size / 1e9:.3f} GB written in "
+          f"{write_s:.2f} s, read into the model in {read_s:.2f} s")
   lens, prompts = _Requests(cfg)
   arr = np.zeros((8, int(lens.max())), np.int32)
   for i, pr in enumerate(prompts):
@@ -1063,35 +1337,41 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
     lm.ExtendStep(torch.ones((1, 1), dtype=torch.int32, device="cuda"),
                   states)
     del states
-  decoder = gshard.GShardDecode(lm, ckdir, os.path.join(tmp, "decode.jsonl"),
-                               max_decode_steps=128, prefill_chunk_size=256)
+  decoder = gshard.GShardDecode(
+      lm, ckdir, os.path.join(tmp, f"decode_{kv_cache_dtype}.jsonl"),
+      max_decode_steps=128, prefill_chunk_size=256)
+  counted = "flash_decode" + {None: "", "bfloat16": "_bf16"}[kv_cache_dtype]
   torch.cuda.synchronize()
-  for fn in counters.values():
-    fn.launches = 0
+  counters.Zero()
   torch.cuda.reset_peak_memory_stats()
   recs = decoder.DecodeOnce(1, arr, lens)
-  launches = {k: fn.launches for k, fn in counters.items()}
-  want = {k: 0 for k in counters}
-  want["flash_decode"] = 24 * 128
+  launches = counters.Read()
+  want = dict.fromkeys(counters, 0)
+  want[counted] = 24 * 128
   _Check(launches == want, f"GShardDecode launches {launches} != {want}")
   for r in recs:
     _Check(len(r["output_ids"]) == 128 and all(
         0 <= x < cfg.VOCAB_SIZE for x in r["output_ids"]),
            f"bad continuation {r['output_ids']}")
   tel = recs[0]["telemetry"]
-  same = sum(r["output_ids"][:32] == list(st)
-             for r, st in zip(recs, ragged_streams))
-  print(f"DenseLm1B GShardDecode: 8 prompts (bucket 1024) x 128 tokens, "
-        f"prefill chunks of 256: prefill_s {tel['prefill_s']:.3f}, decode_s "
-        f"{tel['decode_s']:.3f} ({tel['decode_s'] / 128 * 1e3:.2f} ms per "
-        f"step), {tel['tokens_per_sec']:.1f} tokens/s, decode state "
+  _Check(tel["kv_cache_dtype"] == (kv_cache_dtype or "float32"),
+         f"telemetry kv_cache_dtype {tel['kv_cache_dtype']}")
+  n = len(ref_streams[0])
+  same = sum(list(r["output_ids"][:n]) == list(st)
+             for r, st in zip(recs, ref_streams))
+  print(f"DenseLm1B GShardDecode ({tel['kv_cache_dtype']} cache, "
+        f"kv_bytes_per_token {tel['kv_bytes_per_token']}): 8 prompts (bucket "
+        f"1024) x 128 tokens, prefill chunks of 256: prefill_s "
+        f"{tel['prefill_s']:.3f}, decode_s {tel['decode_s']:.3f} "
+        f"({tel['decode_s'] / 128 * 1e3:.2f} ms per step), "
+        f"{tel['tokens_per_sec']:.1f} tokens/s, decode state "
         f"{tel['decode_state_bytes_per_seq'] / 2**20:.1f} MiB per sequence, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"launches { {k: v for k, v in launches.items() if v} } (24 x 128)")
   print(f"(information, not a check: {same} of 8 continuations begin with "
-        "the ragged engine's 32-token stream of phase 5)")
+        f"the {n}-token reference streams)")
   _ProfileDecodeSteps(torch, decoder, arr, lens)
-  return launches, tel
+  return launches, tel, [r["output_ids"] for r in recs]
 
 
 def main():
@@ -1175,25 +1455,33 @@ def main():
   gc.collect()
   torch.cuda.empty_cache()
 
-  counters = dict(ragged_block_attend=rba.RaggedAttend,
-                  ssd_scan=ssd.SsdScan,
-                  flash_attention_fwd=fa.FlashForward,
-                  flash_attention_dkdv=fa.FlashDkDv,
-                  flash_attention_dq=fa.FlashDq,
-                  fused_xent_fwd=fx.FusedXentStats,
-                  block_decode=bd.BlockDecode,
-                  flash_decode=fd.FlashDecode)
+  # float32 launches of the kernels with per-dtype instantiations count
+  # under the plain name
+  counters = _Counts(
+      ragged_block_attend=(rba.RaggedAttend, "float32"),
+      ragged_block_attend_int8=(rba.RaggedAttend, "int8"),
+      ragged_block_attend_bf16=(rba.RaggedAttend, "bfloat16"),
+      ssd_scan=(ssd.SsdScan, None),
+      flash_attention_fwd=(fa.FlashForward, None),
+      flash_attention_dkdv=(fa.FlashDkDv, None),
+      flash_attention_dq=(fa.FlashDq, None),
+      fused_xent_fwd=(fx.FusedXentStats, None),
+      block_decode=(bd.BlockDecode, "float32"),
+      block_decode_int8=(bd.BlockDecode, "int8"),
+      block_decode_bf16=(bd.BlockDecode, "bfloat16"),
+      flash_decode=(fd.FlashDecode, "float32"),
+      flash_decode_bf16=(fd.FlashDecode, "bfloat16"))
 
   _Phase("5. serving main path: DenseLm1B through ServingLoop")
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged)
-  serve_launches, _, ragged_streams = _ServeMain(
+  serve_launches, _, ragged_streams, serve_ms = _ServeMain(
       torch, spi.DenseLm1B(), engine, counters, dict(ragged_block_attend=24))
   gc.collect()
   torch.cuda.empty_cache()
 
   _Phase("6. hybrid serving main path: DenseLmSsmHybrid through ServingLoop")
   _TinyReference(torch, spi.DenseLmSsmHybridTiny(), engine, ragged)
-  hybrid_launches, _, _ = _ServeMain(
+  hybrid_launches, _, _, _ = _ServeMain(
       torch, spi.DenseLmSsmHybrid(), engine, counters,
       dict(ssd_scan=10, ragged_block_attend=2))
   gc.collect()
@@ -1243,7 +1531,7 @@ def main():
   _Phase("12. legacy serving main path: DenseLm1B through "
          "ServingLoop(step_mode='legacy')")
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged, step_mode="legacy")
-  legacy_launches, _, legacy_streams = _ServeMain(
+  legacy_launches, _, legacy_streams, _ = _ServeMain(
       torch, spi.DenseLm1B(), engine, counters, {},
       per_decode_step=dict(block_decode=24), step_mode="legacy")
   differ = [i for i, (a, b) in enumerate(zip(legacy_streams, ragged_streams))
@@ -1254,13 +1542,88 @@ def main():
   gc.collect()
   torch.cuda.empty_cache()
 
-  _Phase("13. GShardDecode main path: DenseLm1B, decode_page_size 128")
   with tempfile.TemporaryDirectory() as tmp:
+    _Phase("13. GShardDecode main path: DenseLm1B, decode_page_size 128")
     _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp)
-    gshard_launches, _ = _GShardMain(torch, spi, attention, checkpointer,
-                                     gshard, counters, tmp, ragged_streams)
+    gshard_launches, _, gshard_out = _GShardMain(
+        torch, spi, attention, checkpointer, gshard, counters, tmp,
+        [list(st) for st in ragged_streams])
+    gc.collect()
+    torch.cuda.empty_cache()
 
-  _Phase("14. result")
+    _Phase("14. quantized ragged and block-decode kernels (int8 with scale "
+           "sidecars, bfloat16) vs plain versions")
+    print("int8 / bfloat16 library_ms: null (no single PyTorch call computes "
+          "attention over block tables, nor dequantizes int8 pages in it)")
+    qrng = np.random.RandomState(14)
+    qragged = [_CheckQuantRagged(torch, rba, ragged, page, h, qrng,
+                                 time_plain=(page, h) == (16, 128))
+               for page, h in ((16, 128), (128, 128), (16, 64))]
+    qblock = [_CheckQuantBlockDecode(torch, bd, page, qrng,
+                                     time_plain=page == 16)
+              for page in (16, 128)]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _Phase("15. bfloat16 flash-decode kernel vs plain version at "
+           "[8, 1152, 16, 128]")
+    fdec16 = _CheckFlashDecode(torch, fd, np.random.RandomState(11),
+                               prompt_lens, dtype="bfloat16")
+    for t in (1151, 700):
+      print(f"flash decode t={t}: bfloat16 {fdec16[t]['ms']:.4f} ms vs "
+            f"float32 {fdec[t]['ms']:.4f} ms (phase 11)")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _Phase("16. quantized serving main path: DenseLm1B through ServingLoop "
+           "with int8 and bfloat16 KV pools")
+    for mode, dtype in (("ragged", "int8"), ("legacy", "int8"),
+                        ("ragged", "bfloat16")):
+      _TinyReference(torch, spi.DenseLmTiny(), engine, ragged,
+                     step_mode=mode, kv_cache_dtype=dtype)
+    lm = _ServingLm(torch, spi.DenseLm1B())
+    quant_serve, phase_ms = {}, {}
+    # each step mode serves float32 pools first, unprofiled: the baseline
+    # of the same process at the same point (walls drift over a process)
+    for mode, kernel in (("ragged", "ragged_block_attend"),
+                         ("legacy", "block_decode")):
+      for dtype, suffix in ((None, ""), ("int8", "_int8"),
+                            ("bfloat16", "_bf16")):
+        key = kernel + suffix
+        per_step = {key: 24} if mode == "ragged" else {}
+        per_decode = {key: 24} if mode == "legacy" else None
+        launches, _, streams, ms = _ServeMain(
+            torch, spi.DenseLm1B(), engine, counters, per_step, per_decode,
+            step_mode=mode, kv_cache_dtype=dtype, lm=lm,
+            profile=dtype == "int8")
+        quant_serve[key] = launches[key]
+        phase_ms[mode, dtype] = ms
+        same = sum(list(a) == list(b)
+                   for a, b in zip(streams, ragged_streams))
+        print(f"(information, not a check: {same} of 8 {dtype or 'float32'} "
+              f"{mode} streams equal phase 5's float32 streams; {ms:.2f} "
+              f"ms/step vs {phase_ms[mode, None]:.2f} for float32 pools in "
+              f"this phase, {serve_ms:.2f} in phase 5)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _Phase("17. GShardDecode quantized: bfloat16 and int8 caches")
+    for dtype in ("bfloat16", "int8"):
+      _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
+                  kv_cache_dtype=dtype)
+    print("DenseLm1B int8 dense cache: ExtendStep reads it through the "
+          "dequantize-then-attend einsum path, as the reference does (its "
+          "int8 cache runs XLA einsums, no kernel)")
+    bf16_launches, _, _ = _GShardMain(
+        torch, spi, attention, checkpointer, gshard, counters, tmp,
+        gshard_out, kv_cache_dtype="bfloat16")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+  _Phase("18. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -1318,6 +1681,39 @@ def main():
       "ms": main_fdec["ms"], "plain_ms": main_fdec["plain_ms"],
       "bound_ms": main_fdec["bound"][0], "bound_by": main_fdec["bound"][1],
       "library_ms": main_fdec["library_ms"]})
+  # the int8 and bfloat16 instantiations: times at the main shapes (the
+  # first of each list), errors over every shape
+  for name, results, source, line, launches in (
+      ("ragged_block_attend", qragged, "ragged_block_attend", 252,
+       quant_serve),
+      ("block_decode", qblock, "block_decode", 247, quant_serve)):
+    for dtype, suffix in (("int8", "_int8"), ("bfloat16", "_bf16")):
+      main_res = results[0][dtype]
+      kernels.append({
+          "name": name + suffix, "route": "cuda",
+          "source": f"lingvo_tpu_torch/ops/csrc/{source}.cu",
+          "replaces": f"lingvo_tpu/ops/{source}.py:{line}",
+          "launches": launches[name + suffix],
+          "max_abs_err": max(r[dtype]["err"] for r in results),
+          "ms": main_res["ms"], "plain_ms": main_res["plain_ms"],
+          "bound_ms": main_res["bound"][0], "bound_by": main_res["bound"][1],
+          "library_ms": None})
+      if dtype == "bfloat16":   # the float32 kernel on the widened pools
+        kernels[-1]["unrounded_control_err"] = min(
+            r[dtype]["unrounded_err"] for r in results)
+  main_fdec16 = fdec16[1151]
+  kernels.append({
+      "name": "flash_decode_bf16", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/flash_decode.cu",
+      "replaces": "lingvo_tpu/ops/flash_decode.py:208",
+      "launches": bf16_launches["flash_decode_bf16"],
+      "max_abs_err": max(r["err"] for r in fdec16.values()),
+      "ms": main_fdec16["ms"], "plain_ms": main_fdec16["plain_ms"],
+      "bound_ms": main_fdec16["bound"][0],
+      "bound_by": main_fdec16["bound"][1],
+      "library_ms": main_fdec16["library_ms"],
+      "unrounded_control_err": min(r["unrounded_err"]
+                                   for r in fdec16.values())})
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

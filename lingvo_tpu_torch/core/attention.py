@@ -16,6 +16,16 @@ the reference's layouts: w_query/w_key/w_value/w_post [D, N, H], biases
 [N, H] and [D]. Activations are [B, T, N, H]. Only the Params fields the
 DenseLm models set are ported, plus those whose other values must raise.
 
+KV storage (`kv_cache_dtype`, quant/kv.py): float32 (the default),
+bfloat16, or int8 with float32 per-(token, head) scales. An int8 cache is
+quantized once, when a token is written, and carries `key_scale` /
+`value_scale` ([B, L, N] beside the dense cache, [num_pages, N,
+page_size] beside the page pool); every read dequantizes. The dense
+cache's int8 read is the dequantize-then-attend einsum path, never the
+flash-decode kernel, as in the reference; a bfloat16 cache takes the
+kernel. The mode is read from the states themselves (`"key_scale" in
+cached_states`), as in the reference.
+
 The page pool and the dense cache are updated IN PLACE (`index_put_`,
 slice assignment) where the reference donated them to the jitted step and
 got new arrays back: one KV pool per layer lives for the life of the
@@ -41,6 +51,7 @@ from lingvo_tpu_torch.ops import block_decode
 from lingvo_tpu_torch.ops import flash_attention
 from lingvo_tpu_torch.ops import flash_decode
 from lingvo_tpu_torch.ops import ragged_block_attend
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 _NEG_INF = -2.3819763e38  # the reference's additive mask value
 # Prefill reads the cache in tiles of this many slots with an online
@@ -113,8 +124,10 @@ class MultiHeadedAttention(base_layer.BaseLayer):
         "read. Requires max_len % decode_page_size == 0 and no logit cap "
         "or dropout; ineligible configs take the dense read.")
     p.Define("kv_cache_dtype", None,
-             "KV page pool storage dtype: None/'float32' (ported) or "
-             "'int8' (the quantized-serving slice).")
+             "KV cache and page pool storage dtype: None (the fprop dtype, "
+             "float32), 'float32', 'bfloat16', or 'int8' (quantize on "
+             "write with per-token-per-head float32 scale sidecars; see "
+             "quant/kv.py).")
     p.Define("rel_pos_emb_dim", 0,
              "If >0, learned relative position bias (not servable: the "
              "paged step computes positions from slots).")
@@ -240,22 +253,39 @@ class MultiHeadedAttention(base_layer.BaseLayer):
 
   # -- incremental decode (GShardDecode) --------------------------------------
 
-  def _CheckKvDtype(self, kv_cache_dtype=None):
-    dtype = kv_cache_dtype or self.p.kv_cache_dtype
-    if dtype not in (None, "float32"):
-      raise NotImplementedError(
-          f"kv_cache_dtype={dtype!r}: only float32 KV pools are ported; "
-          "int8 and bfloat16 pools come with the quantized-serving slice")
+  def _KvDtype(self, kv_cache_dtype=None):
+    """(cache storage dtype, quantized?): an explicit override beats the
+    layer param; None on both keeps the float32 cache. A name outside
+    quant/kv.KV_CACHE_DTYPES raises ValueError."""
+    return kv_quant.ResolveKvCacheDtype(
+        kv_cache_dtype or self.p.kv_cache_dtype)
+
+  def KvCacheDtype(self, kv_cache_dtype=None) -> str:
+    """The effective cache storage dtype's name (telemetry)."""
+    return kv_quant.DtypeName(self._KvDtype(kv_cache_dtype)[0])
+
+  def KvBytesPerToken(self, kv_cache_dtype=None) -> int:
+    """K + V bytes per cached token in this layer, scale sidecars
+    included (the reference `quant/kv.KvBytesPerToken`)."""
+    return kv_quant.KvBytesPerToken(self.p.num_heads, self._dim_per_head,
+                                    kv_cache_dtype or self.p.kv_cache_dtype)
 
   def InitStates(self, batch_size: int, max_len: int) -> NestedMap:
-    """Dense float32 KV cache [B, max_len, N, H] and time_step, the host
-    int of the next slot to write."""
-    self._CheckKvDtype()
+    """Dense KV cache [B, max_len, N, H] in the layer's kv_cache_dtype and
+    time_step, the host int of the next slot to write; an int8 cache adds
+    float32 key_scale / value_scale [B, max_len, N] (unwritten slots stay
+    (0, scale 0): exact zeros, and masked anyway)."""
+    dtype, quantized = self._KvDtype()
     shape = (batch_size, max_len, self.p.num_heads, self._dim_per_head)
-    return NestedMap(
-        key=torch.zeros(shape, dtype=torch.float32, device=self.device),
-        value=torch.zeros(shape, dtype=torch.float32, device=self.device),
+    states = NestedMap(
+        key=torch.zeros(shape, dtype=dtype, device=self.device),
+        value=torch.zeros(shape, dtype=dtype, device=self.device),
         time_step=0)
+    if quantized:
+      for name in ("key_scale", "value_scale"):
+        states[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                   device=self.device)
+    return states
 
   def PagedDecodeEligible(self, max_len: int) -> bool:
     """The paged flash-decode read serves plain masked-softmax attention
@@ -281,19 +311,19 @@ class MultiHeadedAttention(base_layer.BaseLayer):
   def ExtendStep(self, query_vec, cached_states: NestedMap, paddings=None):
     """query_vec [B, 1, D] at slot time_step; returns ([B, 1, D], states).
 
-    Writes the new K/V into the cache in place. paddings: optional [B, S]
-    float32 cache paddings, 1.0 = never attend (left-pad slots). With
-    `decode_page_size` set and an eligible shape the read is the paged
+    Writes the new K/V into the cache in place (quantized first for an
+    int8 cache). paddings: optional [B, S] float32 cache paddings, 1.0 =
+    never attend (left-pad slots). With `decode_page_size` set, an
+    eligible shape and a float32 or bfloat16 cache the read is the paged
     flash-decode op (only pages up to time_step); else the dense masked
-    softmax over the whole cache."""
+    softmax over the whole (dequantized) cache."""
     t = cached_states.time_step
-    key_cache, value_cache = cached_states.key, cached_states.value
     q, k_new, v_new = self._ProjectStep(
         query_vec, torch.full((1, 1), float(t), device=query_vec.device))
-    key_cache[:, t] = k_new[:, 0]
-    value_cache[:, t] = v_new[:, 0]
+    new_states = self._WriteCache(cached_states, k_new, v_new, t)
+    key_cache, value_cache = new_states.key, new_states.value
     max_len = key_cache.shape[1]
-    if self.PagedDecodeEligible(max_len):
+    if self.PagedDecodeEligible(max_len) and "key_scale" not in new_states:
       # q carries the learned scale already; the op applies none
       ctx = flash_decode.FlashDecode(
           q, key_cache, value_cache, t, page_size=self.p.decode_page_size,
@@ -303,9 +333,28 @@ class MultiHeadedAttention(base_layer.BaseLayer):
       mask = torch.where(slot <= t, 0.0, _NEG_INF)[None, None, None, :]
       if paddings is not None:
         mask = mask + PaddingsToMask(paddings)
-      ctx, _ = self._Atten(q, key_cache, value_cache, mask)
-    return self._PostProj(ctx), NestedMap(key=key_cache, value=value_cache,
-                                          time_step=t + 1)
+      ctx, _ = self._Atten(q, *_ReadCache(new_states, slice(None)), mask)
+    new_states.time_step = t + 1
+    return self._PostProj(ctx), new_states
+
+  @staticmethod
+  def _WriteCache(cached_states, k_new, v_new, t):
+    """Writes k_new / v_new [B, C, N, H] at dense-cache slots [t, t + C)
+    in place, quantized first (scales beside them) for an int8 cache and
+    rounded to the cache's dtype otherwise. Returns the states without
+    time_step, which the caller advances."""
+    new_states = NestedMap(key=cached_states.key, value=cached_states.value)
+    c = k_new.shape[1]
+    if "key_scale" in cached_states:
+      k_new, k_s = kv_quant.QuantizeKv(k_new)
+      v_new, v_s = kv_quant.QuantizeKv(v_new)
+      cached_states.key_scale[:, t:t + c] = k_s
+      cached_states.value_scale[:, t:t + c] = v_s
+      new_states.key_scale = cached_states.key_scale
+      new_states.value_scale = cached_states.value_scale
+    new_states.key[:, t:t + c] = k_new
+    new_states.value[:, t:t + c] = v_new
+    return new_states
 
   @torch.no_grad()
   def Prefill(self, query_vec, cached_states: NestedMap, paddings=None,
@@ -321,16 +370,15 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     query are exact no-ops, so a trimmed read equals the full read
     bitwise (the reference's dense read over [0, live_len) sums the
     softmax in another order for each live_len and only matches to float
-    tolerance)."""
+    tolerance). An int8 cache is quantized on write and its tiles are
+    dequantized on read."""
     t = cached_states.time_step
     c = query_vec.shape[1]
     dev = query_vec.device
-    key_cache, value_cache = cached_states.key, cached_states.value
     qpos = t + torch.arange(c, device=dev)                        # [C]
     q, k_new, v_new = self._ProjectStep(query_vec, qpos.float()[None])
-    key_cache[:, t:t + c] = k_new
-    value_cache[:, t:t + c] = v_new
-    s_len = key_cache.shape[1]
+    new_states = self._WriteCache(cached_states, k_new, v_new, t)
+    s_len = new_states.key.shape[1]
     live = s_len if live_len is None else live_len
     b, _, n, h = q.shape
     m = torch.full((b, c, n, 1), ragged_block_attend.NEG_INF, device=dev)
@@ -342,11 +390,11 @@ class MultiHeadedAttention(base_layer.BaseLayer):
       keep = (slot[None, :] <= qpos[:, None])[None, :, None, :]  # [1,C,1,P]
       if paddings is not None:
         keep = keep & (paddings[:, None, None, sl] < 0.5)
-      m, l, acc = _TileAttend(q, key_cache[:, sl], value_cache[:, sl], keep,
-                              m, l, acc, self.p.atten_logit_cap)
+      m, l, acc = _TileAttend(q, *_ReadCache(new_states, sl), keep, m, l,
+                              acc, self.p.atten_logit_cap)
     ctx = ragged_block_attend._Finish(l, acc, q.dtype)
-    return self._PostProj(ctx), NestedMap(key=key_cache, value=value_cache,
-                                          time_step=t + c)
+    new_states.time_step = t + c
+    return self._PostProj(ctx), new_states
 
   # -- block-table paged serving ---------------------------------------------
 
@@ -356,18 +404,21 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     """Global KV page pool [num_pages, page_size, N, H] shared by all
     sequences (the engine passes allocator pages + 1: the last page is the
     trash page padding tokens write to). num_slots is for O(1)-state
-    mixers and ignored here."""
+    mixers and ignored here. kv_cache_dtype overrides the layer's
+    p.kv_cache_dtype; 'int8' adds the float32 key_scale / value_scale
+    sidecars [num_pages, N, page_size]."""
     del num_slots
-    self._CheckKvDtype(kv_cache_dtype)
-    shape = (num_pages, page_size, self.p.num_heads, self._dim_per_head)
-    return NestedMap(
-        key=torch.zeros(shape, dtype=torch.float32, device=self.device),
-        value=torch.zeros(shape, dtype=torch.float32, device=self.device))
-
-  def KvBytesPerToken(self) -> int:
-    """K + V bytes one cached token costs in this layer's float32 pool
-    (the reference `quant/kv.KvBytesPerToken` for float32 pools)."""
-    return 2 * self.p.num_heads * self._dim_per_head * 4
+    dtype, quantized = self._KvDtype(kv_cache_dtype)
+    n, h = self.p.num_heads, self._dim_per_head
+    shape = (num_pages, page_size, n, h)
+    states = NestedMap(
+        key=torch.zeros(shape, dtype=dtype, device=self.device),
+        value=torch.zeros(shape, dtype=dtype, device=self.device))
+    if quantized:
+      for name in ("key_scale", "value_scale"):
+        states[name] = torch.zeros((num_pages, n, page_size),
+                                   dtype=torch.float32, device=self.device)
+    return states
 
   def BlockDecodeEligible(self, page_size: int) -> bool:
     """Plain masked-softmax attention only: what the ragged kernel serves.
@@ -376,6 +427,33 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     p = self.p
     return (page_size > 0 and p.rel_pos_emb_dim == 0
             and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0)
+
+  def QuantizedDecodeEligible(self, page_size: int) -> bool:
+    """The reference's name for the int8 kernels' gate, which in the port
+    is BlockDecodeEligible itself (the reference adds its TPU tiling
+    check); the steps call BlockDecodeEligible for every pool dtype."""
+    return self.BlockDecodeEligible(page_size)
+
+  @staticmethod
+  def _WritePool(cached_states, phys, off, k_new, v_new):
+    """Scatters k_new / v_new [..., N, H] to pool slots (phys, off) in
+    place: quantized first for an int8 pool, with each scale row [..., N]
+    scattered to the sidecar at [phys, :, off] (the reference's advanced
+    index), and rounded to the pool's dtype otherwise. Returns the
+    sidecars (None, None for a float pool)."""
+    k_pool, v_pool = cached_states.key, cached_states.value
+    if "key_scale" not in cached_states:
+      k_pool.index_put_((phys, off), k_new.to(k_pool.dtype))
+      v_pool.index_put_((phys, off), v_new.to(v_pool.dtype))
+      return None, None
+    k_new, k_s = kv_quant.QuantizeKv(k_new)
+    v_new, v_s = kv_quant.QuantizeKv(v_new)
+    k_scale, v_scale = cached_states.key_scale, cached_states.value_scale
+    k_scale[phys, :, off] = k_s
+    v_scale[phys, :, off] = v_s
+    k_pool.index_put_((phys, off), k_new)
+    v_pool.index_put_((phys, off), v_new)
+    return k_scale, v_scale
 
   @torch.no_grad()
   def PagedStep(self, query_vec, cached_states: NestedMap, block_tables,
@@ -388,7 +466,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     decode step (the block-decode op), C > 1 a mixed prefill step
     (`BlockPrefill`). block_tables: [B, t_pages] int32; q_pos / in_len:
     [B] int32, all on the layer's device. Writes the new K/V into
-    cached_states in place; returns ([B, C, D], cached_states)."""
+    cached_states in place (quantized first into an int8 pool, whose
+    scales go to the sidecars); returns ([B, C, D], cached_states)."""
     k_pool, v_pool = cached_states.key, cached_states.value
     np_total, page_size = k_pool.shape[0], k_pool.shape[1]
     if not self.BlockDecodeEligible(page_size):
@@ -409,16 +488,15 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     phys = torch.where(valid, torch.gather(tables, 1, logical), np_total - 1)
     off = torch.where(valid, pos_i % page_size,
                       (cols % page_size)[None].expand(b, c))
-    k_pool.index_put_((phys, off), k_new)
-    v_pool.index_put_((phys, off), v_new)
+    k_scale, v_scale = self._WritePool(cached_states, phys, off, k_new, v_new)
     if c == 1:
       ctx = block_decode.BlockDecode(
           q, k_pool, v_pool, block_tables, (q_pos + in_len).to(torch.int32),
-          page_size=page_size)
+          page_size=page_size, k_scale=k_scale, v_scale=v_scale)
     else:
       ctx = block_decode.BlockPrefill(
           q, k_pool, v_pool, block_tables, q_pos, in_len,
-          page_size=page_size)
+          page_size=page_size, k_scale=k_scale, v_scale=v_scale)
     return self._PostProj(ctx), cached_states
 
   @torch.no_grad()
@@ -431,7 +509,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     through that row's block table. Padding tokens (rows.valid False)
     scatter to the trash page and produce zeros the engine discards.
     block_tables: [B, t_pages] int32 on the layer's device. Writes the new
-    K/V into cached_states in place and returns ([1, T, D], cached_states).
+    K/V into cached_states in place (quantized first into an int8 pool)
+    and returns ([1, T, D], cached_states).
     """
     k_pool, v_pool = cached_states.key, cached_states.value
     np_total, page_size = k_pool.shape[0], k_pool.shape[1]
@@ -458,16 +537,27 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     off = torch.where(valid, pos % page_size,
                       torch.arange(t, dtype=torch.int64, device=dev)
                       % page_size)
-    k_pool.index_put_((phys, off), k_new[0])
-    v_pool.index_put_((phys, off), v_new[0])
+    k_scale, v_scale = self._WritePool(cached_states, phys, off, k_new[0],
+                                       v_new[0])
     # token t attends over its row's slots [0, pos[t]]; q_end = 0 marks
     # padding (the ragged op emits exact zeros there)
     q_end = torch.where(valid, pos + 1, 0).to(torch.int32)
     ctx = ragged_block_attend.RaggedAttend(
         q[0].contiguous(), k_pool, v_pool, block_tables,
-        row.to(torch.int32), q_end, page_size=page_size,
-        q_start=q_start, anc_lo=rows.anc_lo, anc_hi=rows.anc_hi)[None]
+        row.to(torch.int32), q_end, page_size=page_size, k_scale=k_scale,
+        v_scale=v_scale, q_start=q_start, anc_lo=rows.anc_lo,
+        anc_hi=rows.anc_hi)[None]
     return self._PostProj(ctx), cached_states
+
+
+def _ReadCache(states, sl):
+  """Slots `sl` of a dense cache's K and V as float32: dequantized for an
+  int8 cache (quant/kv.DequantKv), widened for a bfloat16 one."""
+  k, v = states.key[:, sl], states.value[:, sl]
+  if "key_scale" in states:
+    return (kv_quant.DequantKv(k, states.key_scale[:, sl]),
+            kv_quant.DequantKv(v, states.value_scale[:, sl]))
+  return k.float(), v.float()
 
 
 def _TileAttend(q, k_tile, v_tile, keep, m, l, acc, logit_cap=0.0):

@@ -87,10 +87,13 @@ class TransformerLm(base_model.BaseTask):
         "mixer (pure-SSM stack, pageless serving); 1 = plain attention. "
         "Under use_repeat_layer, num_layers must divide by n (the block is "
         "the repeat body).")
-    # fields whose non-default values raise until their slice is ported
     p.Define("kv_cache_dtype", None,
-             "KV page pool dtype for every attention layer: None (float32); "
-             "'int8' comes with the quantized-serving slice.")
+             "KV cache / page pool dtype of every attention layer: None "
+             "(float32), 'float32', 'bfloat16' or 'int8' (quantize on write "
+             "with per-token-per-head scales; quant/kv.py). SSM state slots "
+             "stay float32. Overridable per engine through "
+             "InitPagedDecodeState(..., kv_cache_dtype=...).")
+    # fields whose non-default values raise until their slice is ported
     p.Define("atten_dropout_prob", 0.0,
              "Attention dropout (a later training slice; the serving step "
              "needs the gather-dense fallback).")
@@ -260,7 +263,8 @@ class TransformerLm(base_model.BaseTask):
                            kv_cache_dtype: str | None = None):
     """Global KV page pools for the continuous-batching engine (the engine
     passes allocator pages + 1; the last page is the trash page), and one
-    state per slot for each O(1)-state mixer (num_slots = engine slots)."""
+    state per slot for each O(1)-state mixer (num_slots = engine slots).
+    kv_cache_dtype overrides p.kv_cache_dtype for these pools."""
     return self.stack.InitPagedStates(num_pages, page_size,
                                       num_slots=num_slots,
                                       kv_cache_dtype=kv_cache_dtype)

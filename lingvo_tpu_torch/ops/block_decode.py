@@ -18,10 +18,15 @@ never influence the output. q arrives PRE-SCALED.
 - `BlockPrefill`: C chunk queries per row, causal within the chunk, for
   the legacy engine's mixed steps. Plain PyTorch on every device: the
   reference computes it outside any Pallas kernel too.
-- `GatherPages`: the dense [B, T * P, N, H] view of a row's pages.
+- `GatherPages` / `GatherScales`: the dense [B, T * P, N, H] view of a
+  row's pages and the [B, T * P, N] view of its scale sidecars.
 
-Float pools only: the int8 pools' scale sidecars (`k_scale`/`v_scale`)
-raise until ROADMAP item 2 ports the quantized pools.
+Pools are float32, bfloat16, or int8 with float32 scale sidecars
+`k_scale`/`v_scale` [num_pages, N, page_size] (quant/kv.py). Every read
+of an int8 page goes through `_DequantPages` before the float page step,
+so the int8 op equals the float op on the pre-dequantized pool bit for
+bit; a bfloat16 page's probabilities are rounded to bfloat16 before P.V,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -31,18 +36,12 @@ import ctypes
 import torch
 
 from lingvo_tpu_torch.ops import cuda_build
-from lingvo_tpu_torch.ops.ragged_block_attend import (NEG_INF, _Finish,
-                                                     _PageAttend)
+from lingvo_tpu_torch.ops.ragged_block_attend import (
+    KV_DTYPES, NEG_INF, CheckAligned, CheckKvOperands, NewLaunchCounts,
+    _DequantPages, _Finish, _PageAttend)
 
 MAX_PAGE_SIZE = 128   # kernel limits
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
-
-
-def _NoScales(k_scale, v_scale, k_pool):
-  if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
-    raise NotImplementedError(
-        "int8 KV pools (k_scale/v_scale) come with the quantized-serving "
-        "slice of the port (ROADMAP item 2)")
 
 
 def GatherPages(pool, block_tables):
@@ -55,13 +54,22 @@ def GatherPages(pool, block_tables):
   return pages.reshape(b, t_pages * page, n, h)
 
 
+def GatherScales(scales, block_tables):
+  """sidecar [NP, N, P] + tables [B, T] -> dense [B, T*P, N]: the scales
+  in logical-slot order, aligned with `GatherPages`."""
+  b, t_pages = block_tables.shape
+  np_total, n, page = scales.shape
+  s = scales[torch.clamp(block_tables.long(), 0, np_total - 1)]  # [B,T,N,P]
+  return torch.swapaxes(s, 2, 3).reshape(b, t_pages * page, n)
+
+
 # -- plain PyTorch version (the CPU path) -----------------------------------
 
 
 def _PlainBlockDecode(q, k_pool, v_pool, block_tables, seq_lens,
-                      page_size: int):
+                      page_size: int, k_scale=None, v_scale=None):
   """q: [B, N, H]; pools [NP, P, N, H]; tables [B, T] int32; seq_lens [B]
-  int32 -> [B, N, H].
+  int32 -> [B, N, H]. k_scale / v_scale [NP, N, P]: int8 pools.
 
   Trip count ceil(max(seq_lens) / P), at most T; rows whose length falls
   short of the batch max see their extra pages fully masked (a no-op
@@ -84,8 +92,11 @@ def _PlainBlockDecode(q, k_pool, v_pool, block_tables, seq_lens,
     pid = tables[:, j]
     slot = j * page_size + offsets                              # [P]
     keep = (slot[None, :] < lens[:, None]).float()[:, None, :]  # [B, 1, P]
-    m, l, acc = _PageAttend(q.float(), k_pool[pid].float(),
-                            v_pool[pid].float(), keep, m, l, acc)
+    k_page, v_page = k_pool[pid], v_pool[pid]
+    if k_scale is not None:
+      k_page = _DequantPages(k_page, k_scale[pid])
+      v_page = _DequantPages(v_page, v_scale[pid])
+    m, l, acc = _PageAttend(q.float(), k_page, v_page, keep, m, l, acc)
   return _Finish(l, acc, q.dtype)
 
 
@@ -100,23 +111,21 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("block_decode")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.BlockDecodeF32.argtypes = [vp] * 6 + [ci] * 6 + [vp]
-    lib.BlockDecodeF32.restype = ci
+    lib.BlockDecode.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+    lib.BlockDecode.restype = ci
     lib.BlockDecodeErrorString.argtypes = [ci]
     lib.BlockDecodeErrorString.restype = ctypes.c_char_p
     _lib = lib
   return _lib
 
 
-def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size):
+def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size,
+                     k_scale, v_scale, kv_dtype):
   b, n, h = q.shape
   np_total, p = k_pool.shape[0], k_pool.shape[1]
   t_pages = block_tables.shape[1]
-  if q.dtype != torch.float32 or k_pool.dtype != torch.float32 or (
-      v_pool.dtype != torch.float32):
-    raise TypeError(
-        f"BlockDecode kernel takes float32 q and pools, got {q.dtype}, "
-        f"{k_pool.dtype}, {v_pool.dtype}")
+  if q.dtype != torch.float32:
+    raise TypeError(f"BlockDecode kernel takes a float32 q, got {q.dtype}")
   if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
     raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
                      f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
@@ -132,24 +141,28 @@ def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size):
       raise TypeError(f"{name} must be int32, got {x.dtype}")
   if tuple(seq_lens.shape) != (b,):
     raise ValueError(f"seq_lens shape {tuple(seq_lens.shape)} != ({b},)")
-  for x in (q, k_pool, v_pool, block_tables, seq_lens):
+  tensors = [q, k_pool, v_pool, block_tables, seq_lens]
+  tensors += [] if k_scale is None else [k_scale, v_scale]
+  for x in tensors:
     if x.device != q.device:
       raise ValueError(f"tensor on {x.device}, q on {q.device}")
-    if not x.is_contiguous():
-      raise ValueError("BlockDecode kernel takes contiguous tensors")
+  CheckAligned("BlockDecode", tensors)
   out = torch.empty_like(q)
   if b == 0:
     return out
   lib = _Lib()
   stream = torch.cuda.current_stream(q.device).cuda_stream
-  rc = lib.BlockDecodeF32(
+  rc = lib.BlockDecode(
       q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+      None if k_scale is None else k_scale.data_ptr(),
+      None if v_scale is None else v_scale.data_ptr(),
       block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, n, h,
-      np_total, p, t_pages, stream)
+      np_total, p, t_pages, KV_DTYPES[k_pool.dtype], stream)
   if rc != 0:
     raise RuntimeError("BlockDecode kernel launch failed: "
                        + lib.BlockDecodeErrorString(rc).decode())
   BlockDecode.launches += 1
+  BlockDecode.launches_by_dtype[kv_dtype] += 1
   return out
 
 
@@ -160,32 +173,37 @@ def BlockDecode(q, k_pool, v_pool, block_tables, seq_lens, *, page_size: int,
                 k_scale=None, v_scale=None):
   """Single-query block-table paged decode attention.
 
-  q: [B, 1, N, H], the newest query per row, ALREADY scaled (its K/V was
-  written to the pool first, at slot seq_len - 1).
-  k_pool/v_pool: [num_pages, page_size, N, H] float32 page pool.
+  q: [B, 1, N, H], the newest query per row, ALREADY scaled, float32
+  (its K/V was written to the pool first, at slot seq_len - 1).
+  k_pool/v_pool: [num_pages, page_size, N, H] page pools, float32,
+  bfloat16 or int8.
   block_tables: [B, pages_per_seq] int32 physical page ids.
   seq_lens: [B] int32 live-slot counts; 0 marks an inactive row (output 0).
-  k_scale/v_scale: int8 pools are not ported yet; passing them raises.
+  k_scale/v_scale: [num_pages, N, page_size] float32 sidecars of int8
+  pools (both, and only for int8 pools).
   Returns [B, 1, N, H].
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel (and
-  count one launch in `BlockDecode.launches`) or raise."""
-  _NoScales(k_scale, v_scale, k_pool)
+  CPU tensors run the plain version; CUDA tensors launch the kernel for
+  the pools' dtype (counting one launch in `BlockDecode.launches` and in
+  `BlockDecode.launches_by_dtype`) or raise."""
+  kv_dtype = CheckKvOperands(k_pool, v_pool, k_scale, v_scale)
   if q.ndim != 4 or q.shape[1] != 1:
     raise ValueError(f"q must be [B, 1, N, H], got {tuple(q.shape)}")
   q3 = q[:, 0]
   if q.device.type == "cpu":
     out = _PlainBlockDecode(q3, k_pool, v_pool, block_tables, seq_lens,
-                            page_size)
+                            page_size, k_scale=k_scale, v_scale=v_scale)
   elif q.device.type == "cuda":
     out = _CudaBlockDecode(q3.contiguous(), k_pool, v_pool, block_tables,
-                           seq_lens, page_size)
+                           seq_lens, page_size, k_scale, v_scale, kv_dtype)
   else:
     raise ValueError(f"BlockDecode runs on cpu or cuda, not {q.device}")
   return out[:, None]
 
 
-BlockDecode.launches = 0   # kernel launches (the plain version counts none)
+# kernel launches, in all and by pool dtype (the plain version counts none)
+BlockDecode.launches = 0
+BlockDecode.launches_by_dtype = NewLaunchCounts()
 
 
 def BlockPrefill(q, k_pool, v_pool, block_tables, q_pos, in_len, *,
@@ -198,8 +216,10 @@ def BlockPrefill(q, k_pool, v_pool, block_tables, q_pos, in_len, *,
   counts; queries c >= in_len[b] return 0. One loop over the batch's live
   pages with an online softmax, as the reference. A slot at or past
   q_pos + in_len is masked for every query of its row and its V row is
-  not read. -> [B, C, N, H]."""
-  _NoScales(k_scale, v_scale, k_pool)
+  not read. k_scale/v_scale: [NP, N, P] float32 sidecars of int8 pools,
+  dequantized on read; bfloat16 pools round p to bfloat16 before P.V.
+  -> [B, C, N, H]."""
+  CheckKvOperands(k_pool, v_pool, k_scale, v_scale)
   b, c, n, h = q.shape
   np_total, page = k_pool.shape[0], k_pool.shape[1]
   if page != page_size:
@@ -222,11 +242,14 @@ def BlockPrefill(q, k_pool, v_pool, block_tables, q_pos, in_len, *,
   offsets = torch.arange(page_size, dtype=torch.int64, device=dev)
   for j in range(trip):
     pid = tables[:, j]
-    k_page = k_pool[pid].float()                                # [B, P, N, H]
+    k_page, v_page = k_pool[pid], v_pool[pid]                   # [B, P, N, H]
+    if k_scale is not None:
+      k_page = _DequantPages(k_page, k_scale[pid])
+      v_page = _DequantPages(v_page, v_scale[pid])
     slot = j * page_size + offsets                              # [P]
     keep = ((slot[None, None, :] <= pos[:, :, None])
             & valid[:, :, None])                                # [B, C, P]
-    s = torch.einsum("bcnh,bpnh->bcnp", qf, k_page)
+    s = torch.einsum("bcnh,bpnh->bcnp", qf, k_page.float())
     s = torch.where(keep[:, :, None, :], s, NEG_INF)
     m_cur = torch.amax(s, dim=-1, keepdim=True)                 # [B, C, N, 1]
     m_new = torch.maximum(m, m_cur)
@@ -235,7 +258,8 @@ def BlockPrefill(q, k_pool, v_pool, block_tables, q_pos, in_len, *,
     alpha = torch.exp(m - m_new)
     l = alpha * l + torch.sum(p, dim=-1, keepdim=True)
     live = (slot[None, :] < end[:, None])[:, :, None, None]     # [B, P, 1, 1]
-    v_page = torch.where(live, v_pool[pid].float(), 0.0)
-    acc = alpha * acc + torch.einsum("bcnp,bpnh->bcnh", p, v_page)
+    v_live = torch.where(live, v_page.float(), 0.0)
+    acc = alpha * acc + torch.einsum(
+        "bcnp,bpnh->bcnh", p.to(v_page.dtype).float(), v_live)
     m = m_new
   return _Finish(l, acc, q.dtype)

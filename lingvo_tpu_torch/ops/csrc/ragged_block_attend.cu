@@ -1,4 +1,5 @@
-// Packed-token ragged paged attention for Hopper (sm_90a), float32.
+// Packed-token ragged paged attention for Hopper (sm_90a): float32,
+// bfloat16 and int8 page pools, float32 arithmetic.
 //
 // Replaces the Pallas TPU kernel `_RaggedAttendKernel` of
 // lingvo_tpu/ops/ragged_block_attend.py (pallas_call in
@@ -32,11 +33,23 @@
 // several query tokens of one row per block and run QK^T and PV on the
 // tensor cores (wgmma over a multi-query tile), with TMA page loads.
 //
+// Pool storage: the kernel is a template on it and reads K and V only
+// through `Kv` (kv_storage.cuh: float32, bfloat16 with p rounded to
+// bfloat16 before P.V, int8 dequantized on load with __fmul_rn, so the
+// int8 kernel equals the float32 one on the pre-dequantized pool bit for
+// bit). A masked slot's scale is never loaded (dead scales may hold NaN),
+// just as its K/V is never loaded. Bound: bytes as above, at 2 bytes per
+// bfloat16 element, or 1 byte per int8 element plus 4 per live (slot,
+// head) of each sidecar.
+//
 // Limits (the Python wrapper raises outside them): page_size 8..128,
-// head dim <= 256, all tensors contiguous, float32 q and pools.
+// head dim <= 256, all tensors contiguous, float32 q.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "kv_storage.cuh"
 
 namespace {
 
@@ -56,9 +69,11 @@ __device__ __forceinline__ bool AncestorOk(int slot, int q_start, int lo,
   return ((word >> sh) & 1u) == 1u;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
-    const float* __restrict__ q, const float* __restrict__ k_pool,
-    const float* __restrict__ v_pool, const int* __restrict__ tables,
+    const float* __restrict__ q, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+    const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ row_of, const int* __restrict__ q_end,
     const int* __restrict__ q_start, const int* __restrict__ anc_lo,
     const int* __restrict__ anc_hi, float* __restrict__ out, int num_heads,
@@ -97,14 +112,19 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
     const int pid = min(max(tables[row * t_pages + j], 0), num_pool_pages - 1);
     const size_t page_off = static_cast<size_t>(pid) * page_size * slot_stride +
                             static_cast<size_t>(head) * head_dim;
+    // scale[pid, head, p] of the sidecars (int8 pools only)
+    const size_t scale_off =
+        (static_cast<size_t>(pid) * num_heads + head) * page_size;
     // scores: s = q . k for kept slots, NEG_INF for masked ones
     for (int p = warp; p < page_size; p += kWarps) {
       const int slot = j * page_size + p;
       float s = kNegInf;
       if (slot < end && AncestorOk(slot, start, lo, hi)) {  // warp-uniform
-        const float* k = k_pool + page_off + p * slot_stride;
+        const T* k = k_pool + page_off + p * slot_stride;
+        const float sc = Kv<T>::Scale(k_scale, scale_off + p);
         float part = 0.f;
-        for (int h = lane; h < head_dim; h += 32) part += q_sh[h] * k[h];
+        for (int h = lane; h < head_dim; h += 32)
+          part += q_sh[h] * Kv<T>::Load(k, h, sc);
         for (int o = 16; o > 0; o >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, o);
         s = part;
@@ -122,14 +142,16 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
     if (tid < page_size) s_sh[tid] = expf(s_sh[tid] - m_safe);
     __syncthreads();
     float psum = 0.f, pv0 = 0.f, pv1 = 0.f;
-    const float* v = v_pool + page_off;
+    const T* v = v_pool + page_off;
     for (int p = 0; p < page_size; ++p) {
       const float pp = s_sh[p];
       psum += pp;
       if (pp == 0.f) continue;  // masked (or underflowed): adds exactly 0
-      const float* vs = v + p * slot_stride;
-      if (h0 < head_dim) pv0 += pp * vs[h0];
-      if (h1 < head_dim) pv1 += pp * vs[h1];
+      const T* vs = v + p * slot_stride;
+      const float sc = Kv<T>::Scale(v_scale, scale_off + p);
+      const float pr = Kv<T>::RoundP(pp);
+      if (h0 < head_dim) pv0 += pr * Kv<T>::Load(vs, h0, sc);
+      if (h1 < head_dim) pv1 += pr * Kv<T>::Load(vs, h1, sc);
     }
     l = alpha * l + psum;
     acc0 = acc0 * alpha + pv0;
@@ -142,27 +164,63 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
   if (h1 < head_dim) out[tok_off + h1] = acc1 / denom;
 }
 
+template <typename T>
+void Launch(const float* q, const void* k_pool, const void* v_pool,
+            const float* k_scale, const float* v_scale, const int* tables,
+            const int* row_of, const int* q_end, const int* q_start,
+            const int* anc_lo, const int* anc_hi, float* out, int num_tokens,
+            int num_heads, int head_dim, int num_pool_pages, int page_size,
+            int num_rows, int t_pages, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(num_tokens) * num_heads;
+  RaggedAttendKernel<T><<<blocks, kThreads, 0, stream>>>(
+      q, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      k_scale, v_scale, tables, row_of, q_end, q_start, anc_lo, anc_hi, out,
+      num_heads, head_dim, num_pool_pages, page_size, num_rows, t_pages);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// q/out [T, N, H]; k_pool/v_pool [NP, P, N, H]; tables [B, t_pages];
-// row_of/q_end/q_start/anc_lo/anc_hi [T]; all contiguous, on one device.
-int RaggedAttendF32(const float* q, const float* k_pool, const float* v_pool,
-                    const int* tables, const int* row_of, const int* q_end,
-                    const int* q_start, const int* anc_lo, const int* anc_hi,
-                    float* out, int num_tokens, int num_heads, int head_dim,
-                    int num_pool_pages, int page_size, int num_rows,
-                    int t_pages, void* stream) {
+// q/out [T, N, H] float32; k_pool/v_pool [NP, P, N, H] of `kv_dtype`
+// (KvDtype); k_scale/v_scale [NP, N, P] float32 for int8 pools, else
+// null; tables [B, t_pages]; row_of/q_end/q_start/anc_lo/anc_hi [T]; all
+// contiguous, on one device.
+int RaggedAttend(const float* q, const void* k_pool, const void* v_pool,
+                 const float* k_scale, const float* v_scale,
+                 const int* tables, const int* row_of, const int* q_end,
+                 const int* q_start, const int* anc_lo, const int* anc_hi,
+                 float* out, int num_tokens, int num_heads, int head_dim,
+                 int num_pool_pages, int page_size, int num_rows,
+                 int t_pages, int kv_dtype, void* stream) {
   if (num_tokens <= 0) return 0;
-  if (head_dim > kMaxHeadDim || page_size > kMaxPageSize || page_size < 1)
+  if (head_dim > kMaxHeadDim || page_size > kMaxPageSize || page_size < 1 ||
+      (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>(num_tokens) * num_heads;
-  RaggedAttendKernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q, k_pool, v_pool, tables, row_of, q_end, q_start, anc_lo, anc_hi, out,
-      num_heads, head_dim, num_pool_pages, page_size, num_rows, t_pages);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kv_dtype) {
+    case kF32:
+      Launch<float>(q, k_pool, v_pool, k_scale, v_scale, tables, row_of,
+                    q_end, q_start, anc_lo, anc_hi, out, num_tokens,
+                    num_heads, head_dim, num_pool_pages, page_size, num_rows,
+                    t_pages, s);
+      break;
+    case kBF16:
+      Launch<__nv_bfloat16>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                            row_of, q_end, q_start, anc_lo, anc_hi, out,
+                            num_tokens, num_heads, head_dim, num_pool_pages,
+                            page_size, num_rows, t_pages, s);
+      break;
+    case kI8:
+      Launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables, row_of,
+                     q_end, q_start, anc_lo, anc_hi, out, num_tokens,
+                     num_heads, head_dim, num_pool_pages, page_size,
+                     num_rows, t_pages, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,9 +7,9 @@ on its own into a shared library for `sm_90a` (Hopper):
          -Xcompiler -fPIC -Xptxas=-v -o <lib>.so <source>.cu
 
 The build happens at first use, into `build/lingvo_tpu_torch/` under the
-repository root, keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads the library already
-there. The ptxas report (registers, shared memory, spills) is kept beside
+repository root, keyed by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header rebuilds and
+an unchanged one loads the library already there. The ptxas report (registers, shared memory, spills) is kept beside
 each library as `<lib>.log`. Loads of different sources may run in
 parallel threads (one nvcc each); loads of one source are serialized.
 """
@@ -44,8 +44,11 @@ def _Nvcc() -> str:
 
 
 def LibraryPath(name: str) -> Path:
-  """Where `name`'s library lives: keyed by the source and flag hash."""
+  """Where `name`'s library lives: keyed by the hash of the source, the
+  headers and the flags."""
   digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC_DIR.glob("*.cuh")):   # the sources' includes
+    digest.update(header.read_bytes())
   digest.update(" ".join(NVCC_FLAGS).encode())
   return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

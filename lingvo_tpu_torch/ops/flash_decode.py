@@ -13,8 +13,9 @@ Two implementations of one function:
 - the CUDA kernels of `ops/csrc/flash_decode.cu`, launched for CUDA
   tensors: a split kernel (grid (row x head, `NumSplits`); each block
   finds the row's first live slot and streams its share of the tiles from
-  there to `time_step` through shared memory with cp.async) and a combine
-  kernel that merges the splits' (m, l, acc) in split order;
+  there to `time_step` through shared memory with cp.async; two passes of
+  it for a bfloat16 cache) and a combine kernel that merges the splits'
+  (m, l, acc) in split order;
 - `_PlainDecode`, the reference twin `_XlaDecode`'s loop over live pages
   through the shared page step (`ragged_block_attend._PageAttend`, the
   reference `_PageAttend` batched over rows, with `_Finish`'s
@@ -22,6 +23,14 @@ Two implementations of one function:
 
 `FlashDecode` picks between them by the device of the tensors it is
 given, and only by that: a CUDA tensor launches the kernel or raises.
+
+The cache is float32 or bfloat16 (`kv_cache_dtype='bfloat16'`). A
+bfloat16 cache is read as float32 and its probabilities are rounded to
+bfloat16 before P.V, as the reference's `_PageAttend` does
+(`p.astype(v_page.dtype)`), each against the running max through the end
+of its page, where the reference rounds it: the kernel takes that max in
+a second pass over the scores its first pass wrote (see the .cu file). An
+int8 cache never comes here: `ExtendStep` reads it densely.
 `time_step` is a host integer: the decode loop that calls this op counts
 its steps on the host, so no device value is read back per step.
 """
@@ -33,12 +42,16 @@ import ctypes
 import torch
 
 from lingvo_tpu_torch.ops import cuda_build
-from lingvo_tpu_torch.ops.ragged_block_attend import (NEG_INF, _Finish,
-                                                     _PageAttend)
+from lingvo_tpu_torch.ops.ragged_block_attend import (
+    KV_DTYPES, NEG_INF, CheckAligned, NewLaunchCounts, _Finish, _PageAttend)
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 MAX_PAGE_SIZE = 128   # page sizes the op takes (the kernel reads slots)
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # kernel limit: H / 4 a power of two
-TILE_FLOATS = 2048    # K (and V) floats of one kernel tile
+# the cache dtypes the kernel takes and their head dims (a 16-byte copy
+# must not span two slots)
+DTYPE_HEAD_DIMS = {torch.float32: HEAD_DIMS, torch.bfloat16: HEAD_DIMS[1:]}
+TILE_BYTES = 8192     # K (and V) bytes of one kernel tile
 MAX_TILE_SLOTS = 128
 
 
@@ -47,7 +60,8 @@ MAX_TILE_SLOTS = 128
 
 def _PlainDecode(q, k_cache, v_cache, time_step: int, page_size: int,
                  cache_paddings=None):
-  """q: [B, N, H]; caches [B, S, N, H]; time_step int -> [B, N, H].
+  """q: [B, N, H]; caches [B, S, N, H] float32 or bfloat16; time_step
+  int -> [B, N, H].
 
   Trip count min(time_step // P + 1, S // P): pages past time_step are
   never read."""
@@ -66,8 +80,8 @@ def _PlainDecode(q, k_cache, v_cache, time_step: int, page_size: int,
     slot = start + offsets                                   # [P]
     keep = ((slot[None, :] <= time_step).float()
             * (1.0 - pad[:, sl]))[:, None, :]                # [B, 1, P]
-    m, l, acc = _PageAttend(q.float(), k_cache[:, sl].float(),
-                            v_cache[:, sl].float(), keep, m, l, acc)
+    m, l, acc = _PageAttend(q.float(), k_cache[:, sl], v_cache[:, sl], keep,
+                            m, l, acc)
   return _Finish(l, acc, q.dtype)
 
 
@@ -75,7 +89,8 @@ def _PlainDecode(q, k_cache, v_cache, time_step: int, page_size: int,
 
 
 _lib = None   # the loaded kernel library, with its C signatures declared
-_geometry = {}  # device index -> (threads, smem bytes, blocks per SM, SMs)
+# (device index, cache dtype) -> (threads, smem bytes, blocks per SM, SMs)
+_geometry = {}
 
 
 def _Lib():
@@ -83,9 +98,11 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("flash_decode")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.FlashDecodeF32.argtypes = [vp] * 6 + [ci] * 6 + [vp]
-    lib.FlashDecodeF32.restype = ci
-    lib.FlashDecodeGeometry.argtypes = [ctypes.POINTER(ci)] * 3
+    lib.FlashDecode.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+    lib.FlashDecode.restype = ci
+    lib.FlashDecodeScratchFloats.argtypes = [ci] * 6
+    lib.FlashDecodeScratchFloats.restype = ctypes.c_longlong
+    lib.FlashDecodeGeometry.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
     lib.FlashDecodeGeometry.restype = ci
     lib.FlashDecodeErrorString.argtypes = [ci]
     lib.FlashDecodeErrorString.restype = ctypes.c_char_p
@@ -93,58 +110,63 @@ def _Lib():
   return _lib
 
 
-def TileSlots(head_dim: int) -> int:
-  """Slots of one kernel tile: 2048 floats of K, at most 128 slots."""
-  return min(MAX_TILE_SLOTS, TILE_FLOATS // head_dim)
+def TileSlots(head_dim: int, itemsize: int = 4) -> int:
+  """Slots of one kernel tile: 8 KB of K, at most 128 slots."""
+  return min(MAX_TILE_SLOTS, TILE_BYTES // (head_dim * itemsize))
 
 
 def NumSplits(rows: int, time_step: int, seq_len: int, head_dim: int,
-              sm_count: int, blocks_per_sm: int) -> int:
+              sm_count: int, blocks_per_sm: int, itemsize: int = 4) -> int:
   """Blocks per (row, head): enough for two waves of the card's resident
   blocks over `rows` = B x N, and never more than the tiles of [0,
   time_step], so a row whose every slot up to time_step is live gets no
-  empty split."""
+  empty split. itemsize: bytes of one cache element."""
   t_eff = min(time_step, seq_len - 1)
   if t_eff < 0:
     return 1
-  tiles = t_eff // TileSlots(head_dim) + 1
+  tiles = t_eff // TileSlots(head_dim, itemsize) + 1
   want = -(-2 * sm_count * blocks_per_sm // max(rows, 1))
   return max(1, min(want, tiles))
 
 
-def Geometry(device) -> tuple:
+def Geometry(device, dtype=torch.float32) -> tuple:
   """(threads, shared bytes per block, resident blocks per SM, SMs) of the
-  split kernel on `device`, queried once per device."""
+  split kernel for a `dtype` cache on `device`, queried once per device
+  and dtype."""
   idx = torch.device(device).index
   idx = torch.cuda.current_device() if idx is None else idx
-  if idx not in _geometry:
+  if (idx, dtype) not in _geometry:
     lib = _Lib()
     vals = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(idx):
-      rc = lib.FlashDecodeGeometry(*(ctypes.byref(v) for v in vals))
+      rc = lib.FlashDecodeGeometry(KV_DTYPES[dtype],
+                                   *(ctypes.byref(v) for v in vals))
     if rc != 0:
       raise RuntimeError("FlashDecodeGeometry failed: "
                          + lib.FlashDecodeErrorString(rc).decode())
     sms = torch.cuda.get_device_properties(idx).multi_processor_count
-    _geometry[idx] = tuple(v.value for v in vals) + (sms,)
-  return _geometry[idx]
+    _geometry[idx, dtype] = tuple(v.value for v in vals) + (sms,)
+  return _geometry[idx, dtype]
 
 
 def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   b, n, h = q.shape
   s = k_cache.shape[1]
-  for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-    if x.dtype != torch.float32:
-      raise TypeError(f"FlashDecode kernel takes float32 {name}, got "
-                      f"{x.dtype}")
+  dtype = k_cache.dtype
+  if q.dtype != torch.float32:
+    raise TypeError(f"FlashDecode kernel takes a float32 q, got {q.dtype}")
+  if v_cache.dtype != dtype or dtype not in DTYPE_HEAD_DIMS:
+    raise TypeError(f"FlashDecode kernel takes float32 or bfloat16 caches "
+                    f"of one dtype, got {dtype}, {v_cache.dtype}")
   if k_cache.shape != v_cache.shape or tuple(k_cache.shape) != (b, s, n, h):
     raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
                      f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
   if not 1 <= page_size <= MAX_PAGE_SIZE:
     raise ValueError(f"page_size {page_size} outside the kernel's "
                      f"[1, {MAX_PAGE_SIZE}]")
-  if h not in HEAD_DIMS:
-    raise ValueError(f"head dim {h} not one of the kernel's {HEAD_DIMS}")
+  if h not in DTYPE_HEAD_DIMS[dtype]:
+    raise ValueError(f"head dim {h} not one of the kernel's "
+                     f"{DTYPE_HEAD_DIMS[dtype]} for a {dtype} cache")
   tensors = [q, k_cache, v_cache]
   if cache_paddings is not None:
     if cache_paddings.dtype != torch.float32 or tuple(
@@ -155,26 +177,27 @@ def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   for x in tensors:
     if x.device != q.device:
       raise ValueError(f"tensor on {x.device}, q on {q.device}")
-    if not x.is_contiguous():
-      raise ValueError("FlashDecode kernel takes contiguous tensors")
+  CheckAligned("FlashDecode", tensors)
   out = torch.empty_like(q)
   if b == 0:
     return out
-  _, _, per_sm, sms = Geometry(q.device)
-  splits = NumSplits(b * n, time_step, s, h, sms, per_sm)
-  partial = torch.empty(b * n * splits * (h + 2), dtype=torch.float32,
-                        device=q.device)
+  _, _, per_sm, sms = Geometry(q.device, dtype)
+  splits = NumSplits(b * n, time_step, s, h, sms, per_sm, dtype.itemsize)
   lib = _Lib()
+  code = KV_DTYPES[dtype]
+  scratch = torch.empty(lib.FlashDecodeScratchFloats(b, s, n, h, splits, code),
+                        dtype=torch.float32, device=q.device)
   stream = torch.cuda.current_stream(q.device).cuda_stream
-  rc = lib.FlashDecodeF32(
+  rc = lib.FlashDecode(
       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
       None if cache_paddings is None else cache_paddings.data_ptr(),
-      out.data_ptr(), partial.data_ptr(), b, s, n, h, int(time_step), splits,
-      stream)
+      out.data_ptr(), scratch.data_ptr(), b, s, n, h, int(time_step), splits,
+      page_size, code, stream)
   if rc != 0:
     raise RuntimeError("FlashDecode kernel launch failed: "
                        + lib.FlashDecodeErrorString(rc).decode())
   FlashDecode.launches += 1
+  FlashDecode.launches_by_dtype[kv_quant.DtypeName(dtype)] += 1
   return out
 
 
@@ -186,13 +209,15 @@ def FlashDecode(q, k_cache, v_cache, time_step: int, *, page_size: int,
   """Paged single-token decode attention.
 
   q: [B, 1, N, H], the newest query, ALREADY scaled (nothing is applied
-  inside). k_cache/v_cache: [B, S, N, H] with slots [0, time_step] live
-  (the caller writes slot time_step first); S a multiple of page_size.
+  inside), float32. k_cache/v_cache: [B, S, N, H] float32 or bfloat16
+  with slots [0, time_step] live (the caller writes slot time_step
+  first); S a multiple of page_size.
   time_step: host int. cache_paddings: optional [B, S] float32, 1.0 =
   never attend this slot. Returns [B, 1, N, H].
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel (and
-  count one launch in `FlashDecode.launches`) or raise."""
+  CPU tensors run the plain version; CUDA tensors launch the kernel for
+  the cache's dtype (counting one launch in `FlashDecode.launches` and in
+  `FlashDecode.launches_by_dtype`) or raise."""
   if q.ndim != 4 or q.shape[1] != 1:
     raise ValueError(f"q must be [B, 1, N, H], got {tuple(q.shape)}")
   if not SupportedShape(k_cache.shape[1], page_size):
@@ -211,7 +236,9 @@ def FlashDecode(q, k_cache, v_cache, time_step: int, *, page_size: int,
   return out[:, None]
 
 
-FlashDecode.launches = 0   # kernel launches (the plain version counts none)
+# kernel launches, in all and by cache dtype (the plain version counts none)
+FlashDecode.launches = 0
+FlashDecode.launches_by_dtype = NewLaunchCounts()
 
 
 def SupportedShape(max_len: int, page_size: int) -> bool:

@@ -25,6 +25,14 @@ Two implementations of one function:
 
 `RaggedAttend` picks between them by the device of the tensors it is
 given, and only by that: a CUDA tensor launches the kernel or raises.
+
+Pool storage: float32, bfloat16, or int8 with float32 scale sidecars
+`k_scale`/`v_scale` [num_pages, N, page_size] (quant/kv.py). An int8
+page is dequantized on read (`_DequantPages`: int8 x scale in
+float32) and then goes through the float path's page step, so the
+int8 op equals the float op on the pre-dequantized pool bit for bit. A
+bfloat16 page is read as float32, and its probabilities are rounded to
+bfloat16 before P.V, as the reference's `p.astype(v_page.dtype)` does.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import ctypes
 import torch
 
 from lingvo_tpu_torch.ops import cuda_build
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 NEG_INF = -1.0e30   # the reference's flash_attention.NEG_INF
 MIN_PAGE_SIZE, MAX_PAGE_SIZE, MAX_HEAD_DIM = 8, 128, 256  # kernel limits
@@ -45,12 +54,14 @@ MIN_PAGE_SIZE, MAX_PAGE_SIZE, MAX_HEAD_DIM = 8, 128, 256  # kernel limits
 def _PageAttend(q, k_page, v_page, keep, m, l, acc):
   """One page of online-softmax attention for every token at once.
 
-  q: [T, N, H] (pre-scaled), k_page/v_page: [T, P, N, H], keep: f32
-  [T, 1, P] (1.0 = attend), m/l: f32 [T, N, 1], acc: f32 [T, N, H].
-  The reference `_PageAttend`, batched over tokens. A masked slot gets
-  probability exactly 0 and its V row is not read (replaced by 0), so
-  stale bytes in dead slots, even non-finite ones, never reach acc."""
-  s = torch.einsum("tnh,tpnh->tnp", q, k_page)
+  q: [T, N, H] (pre-scaled float32), k_page/v_page: [T, P, N, H] float32
+  or bfloat16, keep: f32 [T, 1, P] (1.0 = attend), m/l: f32 [T, N, 1],
+  acc: f32 [T, N, H]. The reference `_PageAttend`, batched over tokens:
+  the pages are read as float32, and p is rounded to v_page's dtype
+  before P.V (a no-op for float32). A masked slot gets probability
+  exactly 0 and its V row is not read (replaced by 0), so stale bytes in
+  dead slots, even non-finite ones, never reach acc."""
+  s = torch.einsum("tnh,tpnh->tnp", q, k_page.float())
   s = torch.where(keep > 0.5, s, NEG_INF)                 # [T, N, P]
   m_cur = torch.amax(s, dim=-1, keepdim=True)             # [T, N, 1]
   m_new = torch.maximum(m, m_cur)
@@ -60,8 +71,9 @@ def _PageAttend(q, k_page, v_page, keep, m, l, acc):
   p = torch.exp(s - m_safe)
   alpha = torch.exp(m - m_new)
   l_new = alpha * l + torch.sum(p, dim=-1, keepdim=True)
-  v_live = torch.where(keep.transpose(1, 2)[..., None] > 0.5, v_page, 0.0)
-  pv = torch.einsum("tnp,tpnh->tnh", p, v_live)
+  v_live = torch.where(keep.transpose(1, 2)[..., None] > 0.5,
+                       v_page.float(), 0.0)
+  pv = torch.einsum("tnp,tpnh->tnh", p.to(v_page.dtype).float(), v_live)
   return m_new, l_new, acc * alpha + pv
 
 
@@ -81,10 +93,20 @@ def _AncestorOk(slot, c, lo, hi):
   return ((word >> sh) & 1) == 1
 
 
+def _DequantPages(pages, scales):
+  """pages [..., P, N, H] int8 + scales [..., N, P] f32 -> f32 pages: the
+  reference `block_decode._DequantPages`, the one dequantize-on-read every
+  int8 read goes through."""
+  s = torch.swapaxes(scales.float(), -1, -2)[..., None]
+  return pages.float() * s
+
+
 def _PlainRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
-                       page_size: int, q_start, anc_lo, anc_hi):
+                       page_size: int, q_start, anc_lo, anc_hi,
+                       k_scale=None, v_scale=None):
   """q: [T, N, H]; pools [NP, P, N, H]; tables [B, t_pages] int32;
-  row_of/q_end/q_start/anc_lo/anc_hi [T] int32 -> [T, N, H].
+  row_of/q_end/q_start/anc_lo/anc_hi [T] int32 -> [T, N, H]. k_scale /
+  v_scale [NP, N, P]: int8 pools, dequantized page by page.
 
   Trip count ceil(max(q_end) / P) over per-token gathered pages; tokens
   whose horizon ends earlier see their extra pages fully masked (a no-op
@@ -111,9 +133,55 @@ def _PlainRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
     ok = _AncestorOk(slot[None, :], slot[None, :] - starts[:, None],
                      lo[:, None], hi[:, None])
     keep = (causal & ok).to(torch.float32)[:, None, :]      # [T, 1, P]
-    m, l, acc = _PageAttend(q.float(), k_pool[pid].float(),
-                            v_pool[pid].float(), keep, m, l, acc)
+    k_page, v_page = k_pool[pid], v_pool[pid]
+    if k_scale is not None:
+      k_page = _DequantPages(k_page, k_scale[pid])
+      v_page = _DequantPages(v_page, v_scale[pid])
+    m, l, acc = _PageAttend(q.float(), k_page, v_page, keep, m, l, acc)
   return _Finish(l, acc, q.dtype)
+
+
+# -- pool operands ----------------------------------------------------------
+
+
+# the storage dtypes of the pools and caches, by the code the CUDA kernels
+# take (csrc/kv_storage.cuh `KvDtype`)
+KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def CheckKvOperands(k_pool, v_pool, k_scale, v_scale) -> str:
+  """Raises unless the pools share one storage dtype that the ops take,
+  int8 pools come with float32 [num_pages, N, page_size] sidecars and
+  other pools with none. Returns the dtype's name."""
+  if (k_scale is None) != (v_scale is None):
+    raise ValueError("pass k_scale and v_scale together or neither")
+  if k_pool.dtype != v_pool.dtype or k_pool.dtype not in KV_DTYPES:
+    raise TypeError(f"pools must share one of {list(KV_DTYPES)}, got "
+                    f"{k_pool.dtype}, {v_pool.dtype}")
+  if (k_pool.dtype == torch.int8) != (k_scale is not None):
+    raise ValueError("int8 pools take k_scale and v_scale; float32 and "
+                     "bfloat16 pools take none")
+  if k_scale is not None:
+    want = (k_pool.shape[0], k_pool.shape[2], k_pool.shape[1])
+    for x in (k_scale, v_scale):
+      if x.dtype != torch.float32 or tuple(x.shape) != want:
+        raise ValueError(f"scale sidecars must be float32 {list(want)}, got "
+                         f"{x.dtype} {list(x.shape)}")
+  return kv_quant.DtypeName(k_pool.dtype)
+
+
+def CheckAligned(name, tensors):
+  """The kernels read 16 bytes at a time: raise unless every tensor is
+  contiguous and starts on a 16-byte boundary."""
+  for x in tensors:
+    if not x.is_contiguous() or x.data_ptr() % 16:
+      raise ValueError(f"{name} kernel takes contiguous tensors that start "
+                       "on a 16-byte boundary")
+
+
+def NewLaunchCounts() -> dict:
+  """A wrapper's launches by the pools' storage dtype."""
+  return {kv_quant.DtypeName(d): 0 for d in KV_DTYPES}
 
 
 # -- the CUDA kernel ---------------------------------------------------------
@@ -127,8 +195,8 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("ragged_block_attend")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.RaggedAttendF32.argtypes = [vp] * 10 + [ci] * 7 + [vp]
-    lib.RaggedAttendF32.restype = ci
+    lib.RaggedAttend.argtypes = [vp] * 12 + [ci] * 8 + [vp]
+    lib.RaggedAttend.restype = ci
     lib.RaggedAttendErrorString.argtypes = [ci]
     lib.RaggedAttendErrorString.restype = ctypes.c_char_p
     _lib = lib
@@ -136,15 +204,13 @@ def _Lib():
 
 
 def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
-                      page_size, q_start, anc_lo, anc_hi):
+                      page_size, q_start, anc_lo, anc_hi, k_scale, v_scale,
+                      kv_dtype):
   t, n, h = q.shape
   np_total, p = k_pool.shape[0], k_pool.shape[1]
   b, t_pages = block_tables.shape
-  if q.dtype != torch.float32 or k_pool.dtype != torch.float32 or (
-      v_pool.dtype != torch.float32):
-    raise TypeError(
-        f"RaggedAttend kernel takes float32 q and pools, got {q.dtype}, "
-        f"{k_pool.dtype}, {v_pool.dtype}")
+  if q.dtype != torch.float32:
+    raise TypeError(f"RaggedAttend kernel takes a float32 q, got {q.dtype}")
   if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
     raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
                      f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
@@ -160,25 +226,29 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
       raise TypeError(f"{name} must be int32, got {x.dtype}")
     if name != "block_tables" and tuple(x.shape) != (t,):
       raise ValueError(f"{name} shape {tuple(x.shape)} != ({t},)")
-  for x in [q, k_pool, v_pool] + ints:
+  scales = [] if k_scale is None else [k_scale, v_scale]
+  for x in [q, k_pool, v_pool] + ints + scales:
     if x.device != q.device:
       raise ValueError(f"tensor on {x.device}, q on {q.device}")
-    if not x.is_contiguous():
-      raise ValueError("RaggedAttend kernel takes contiguous tensors")
+  CheckAligned("RaggedAttend", [q, k_pool, v_pool] + ints + scales)
   out = torch.empty_like(q)
   if t == 0:
     return out
   lib = _Lib()
   stream = torch.cuda.current_stream(q.device).cuda_stream
-  rc = lib.RaggedAttendF32(
+  rc = lib.RaggedAttend(
       q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+      None if k_scale is None else k_scale.data_ptr(),
+      None if v_scale is None else v_scale.data_ptr(),
       block_tables.data_ptr(), row_of.data_ptr(), q_end.data_ptr(),
       q_start.data_ptr(), anc_lo.data_ptr(), anc_hi.data_ptr(),
-      out.data_ptr(), t, n, h, np_total, p, b, t_pages, stream)
+      out.data_ptr(), t, n, h, np_total, p, b, t_pages,
+      KV_DTYPES[k_pool.dtype], stream)
   if rc != 0:
     raise RuntimeError("RaggedAttend kernel launch failed: "
                        + lib.RaggedAttendErrorString(rc).decode())
   RaggedAttend.launches += 1
+  RaggedAttend.launches_by_dtype[kv_dtype] += 1
   return out
 
 
@@ -191,21 +261,22 @@ def RaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end, *,
   """Packed-token ragged paged attention — decode, prefill and tree rows
   in one call.
 
-  q: [T, N, H] packed query tokens, already scaled; every token's K/V was
-  written to the pool before the call.
-  k_pool/v_pool: [num_pages, page_size, N, H] float32 page pool.
+  q: [T, N, H] packed query tokens, already scaled, float32; every
+  token's K/V was written to the pool before the call.
+  k_pool/v_pool: [num_pages, page_size, N, H] page pools, float32,
+  bfloat16 or int8.
   block_tables: [B, pages_per_seq] int32 physical page ids.
   row_of / q_end: [T] int32 row of each token and one past its highest
   attendable slot (0 = padding token, output 0).
+  k_scale/v_scale: [num_pages, N, page_size] float32 sidecars of int8
+  pools (both, and only for int8 pools).
   q_start/anc_lo/anc_hi: [T] int32 tree operands, all three or none
   (none = chain semantics).
-  k_scale/v_scale: int8 pools are not ported yet; passing them raises.
 
-  CPU tensors run the plain version; CUDA tensors launch the kernel (and
-  count one launch in `RaggedAttend.launches`) or raise."""
-  if k_scale is not None or v_scale is not None or k_pool.dtype == torch.int8:
-    raise NotImplementedError(
-        "int8 KV pools come with the quantized-serving slice of the port")
+  CPU tensors run the plain version; CUDA tensors launch the kernel for
+  the pools' dtype (counting one launch in `RaggedAttend.launches` and in
+  `RaggedAttend.launches_by_dtype`) or raise."""
+  kv_dtype = CheckKvOperands(k_pool, v_pool, k_scale, v_scale)
   tree_args = (q_start is not None, anc_lo is not None, anc_hi is not None)
   if any(tree_args) and not all(tree_args):
     raise ValueError("pass q_start, anc_lo and anc_hi together or none")
@@ -217,11 +288,15 @@ def RaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end, *,
     anc_lo = anc_hi = torch.full((t,), -1, dtype=torch.int32, device=q.device)
   if q.device.type == "cpu":
     return _PlainRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
-                              page_size, q_start, anc_lo, anc_hi)
+                              page_size, q_start, anc_lo, anc_hi,
+                              k_scale=k_scale, v_scale=v_scale)
   if q.device.type != "cuda":
     raise ValueError(f"RaggedAttend runs on cpu or cuda, not {q.device}")
   return _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
-                           page_size, q_start, anc_lo, anc_hi)
+                           page_size, q_start, anc_lo, anc_hi, k_scale,
+                           v_scale, kv_dtype)
 
 
-RaggedAttend.launches = 0   # kernel launches (the plain version counts none)
+# kernel launches, in all and by pool dtype (the plain version counts none)
+RaggedAttend.launches = 0
+RaggedAttend.launches_by_dtype = NewLaunchCounts()

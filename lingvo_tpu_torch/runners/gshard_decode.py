@@ -42,7 +42,7 @@ import torch
 from lingvo_tpu_torch.core import checkpointer as checkpointer_lib
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import sampling
-from lingvo_tpu_torch.serving import spec_decode
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 # Decode shape buckets (slots, ascending). Wider prompts run at their
 # exact width.
@@ -223,7 +223,9 @@ class GShardDecode:
     out = out.cpu().numpy()
     self._last_step = restored
     decode_s = t2 - t1
-    census = spec_decode.MixerCensus(self._task)
+    # the KV census: a bfloat16 or int8 cache is never silent (None / 0
+    # for a task without an LM stack)
+    census = kv_quant.StackKvCensus(self._task) or {}
     telemetry = dict(
         prefill_s=t1 - t0,
         decode_s=decode_s,
@@ -233,8 +235,8 @@ class GShardDecode:
         tokens_per_sec=(b * self._max_steps / decode_s
                         if decode_s > 0 else 0.0),
         decode_state_bytes_per_seq=state_bytes // b,
-        kv_cache_dtype="float32" if census["num_attention"] else None,
-        kv_bytes_per_token=census["kv_bytes_per_token"],
+        kv_cache_dtype=census.get("kv_cache_dtype"),
+        kv_bytes_per_token=census.get("kv_bytes_per_token", 0),
         serve_int8_weights=False,
         # batch-synchronous decode drafts nothing, caches no prefix and
         # never preempts: the shared serving keys are zero here

@@ -7,6 +7,7 @@ Glues the layers below into a running service:
     serving/kv_cache.py          host-side page and state-slot ownership
     serving/scheduler.py         admission / step building / retirement
     serving/spec_decode.py       the mixer census
+    quant/kv.py                  the KV census: pool dtype and page price
 
 Two step modes, as in the reference:
 - 'ragged' (the default): every iteration packs its work onto one [T]
@@ -30,8 +31,14 @@ a hybrid stack prices both resources (KV pages for its attention layers,
 a `StateSlotPool` for its SSM layers), and a pure-SSM stack admits
 pageless, bounded by slots only (`paged_path == "ssm"`).
 
-Ported: both step modes, fifo scheduling, greedy sampling, float32 KV
-pools. Speculative decoding, the prefix cache, int8 KV pools, int8
+KV pools are float32, bfloat16 or int8 (`kv_cache_dtype`, overriding
+the task's; quant/kv.py): an int8 pool quantizes each token on write and
+keeps float32 scale sidecars, which its page price counts, and the
+kernels dequantize it on read. `Stats()` reports the pool's dtype, its
+bytes per token, and `quantized_steps`.
+
+Ported: both step modes, fifo scheduling, greedy sampling, float32,
+bfloat16 and int8 KV pools. Speculative decoding, the prefix cache, int8
 weights, priority scheduling and temperature > 0 raise
 NotImplementedError naming the slice that brings them.
 
@@ -55,6 +62,7 @@ import torch
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import ragged as ragged_lib
 from lingvo_tpu_torch.core import sampling
+from lingvo_tpu_torch.quant import kv as kv_quant
 from lingvo_tpu_torch.serving import kv_cache
 from lingvo_tpu_torch.serving import scheduler as scheduler_lib
 from lingvo_tpu_torch.serving import spec_decode
@@ -105,7 +113,7 @@ class StreamHandle:
 
 
 _COUNTER_KEYS = ("steps", "decode_steps", "mixed_steps", "tokens_emitted",
-                 "prompt_tokens")
+                 "prompt_tokens", "quantized_steps")
 
 
 class ServingLoop:
@@ -126,9 +134,12 @@ class ServingLoop:
     ceil(max_seq_len / page_size)). prefill_chunk: prompt tokens a ragged
     step packs beyond one token per slot (the reference's default
     prefill_token_budget), and the width C of a legacy mixed step.
-    step_mode: 'ragged' or 'legacy' (see the module docstring). device:
-    where the engine runs; None means CUDA and raises when there is none.
-    The other arguments name reference features that raise until ported."""
+    step_mode: 'ragged' or 'legacy' (see the module docstring).
+    kv_cache_dtype: overrides the task's layer-level kv_cache_dtype for
+    this engine's page pool (None keeps it): 'float32', 'bfloat16', or
+    'int8' (quantize-on-write pages with scale sidecars). device: where
+    the engine runs; None means CUDA and raises when there is none. The
+    other arguments name reference features that raise until ported."""
     if step_mode not in ("ragged", "legacy"):
       raise ValueError(f"step_mode must be 'ragged' or 'legacy', got "
                        f"{step_mode!r}")
@@ -138,13 +149,10 @@ class ServingLoop:
     if prefix_cache is not None and prefix_cache is not False:
       raise NotImplementedError(
           "the prefix cache comes with the prefix-cache serving slice")
-    if kv_cache_dtype not in (None, "float32"):
-      raise NotImplementedError(
-          f"kv_cache_dtype={kv_cache_dtype!r} comes with the quantized-"
-          "serving slice; the port serves float32 KV pools")
     if serve_int8_weights:
       raise NotImplementedError(
-          "int8 weight serving comes with the quantized-serving slice")
+          "int8 weight serving (quant/weights.py) comes with ROADMAP item 2 "
+          "of the port")
     if scheduler_mode != "fifo":
       raise NotImplementedError(
           f"scheduler_mode={scheduler_mode!r} comes with the priority-"
@@ -172,11 +180,15 @@ class ServingLoop:
     self.default_max_new = default_max_new
     self.eos_id = eos_id
     self.temperature = float(temperature)
-    # mixer census: which resource(s) the stack's serving state occupies;
-    # a page is priced by the attention layers' float32 K/V only (the
-    # reference quant/kv.StackKvCensus), never by the SSM slot states
+    # KV census before allocating: the effective pool dtype prices a page
+    # by the attention layers' K/V and scale sidecars only, never by the
+    # SSM slot states
+    kv_census = kv_quant.StackKvCensus(task, kv_cache_dtype) or {}
+    self.kv_cache_dtype = kv_census.get("kv_cache_dtype")
+    self.kv_bytes_per_token = kv_census.get("kv_bytes_per_token", 0)
+    self._kv_quantized = self.kv_cache_dtype == "int8"
+    # mixer census: which resource(s) the stack's serving state occupies
     self.mixers = spec_decode.MixerCensus(task)
-    self.kv_bytes_per_token = self.mixers.pop("kv_bytes_per_token")
     self.state_pool = None
     if self.mixers["num_ssm"] > 0:
       self.state_pool = kv_cache.StateSlotPool(
@@ -185,7 +197,7 @@ class ServingLoop:
     # num_slots sizes the SSM layers' per-slot states
     with torch.no_grad():
       self._states = task.InitPagedDecodeState(num_pages + 1, page_size,
-                                               max_batch)
+                                               max_batch, kv_cache_dtype)
     self.alloc = kv_cache.PageAllocator(
         num_pages, page_size,
         page_bytes=page_size * self.kv_bytes_per_token)
@@ -198,11 +210,13 @@ class ServingLoop:
     self._ragged_t = max_batch + prefill_chunk
     self._ragged_wmax = prefill_chunk
     # what the step's paged attention lowers to: the CUDA kernel or the
-    # plain version; 'ssm' = no attention layer, the page pool is unused
+    # plain version, '-int8' on an int8 pool (the reference's
+    # _ClassifyPath); 'ssm' = no attention layer, the page pool is unused
     if self.mixers["num_attention"] == 0:
       self.paged_path = "ssm"
     else:
-      self.paged_path = "cuda" if self.device.type == "cuda" else "plain"
+      self.paged_path = ("cuda" if self.device.type == "cuda" else "plain") + (
+          "-int8" if self._kv_quantized else "")
     self._counters = {k: 0 for k in _COUNTER_KEYS}
     self._handles: dict = {}
     self._lock = threading.RLock()
@@ -330,6 +344,8 @@ class ServingLoop:
     self._counters["steps"] += 1
     self._counters["mixed_steps" if batch.mixed else "decode_steps"] += 1
     self._counters["prompt_tokens"] += batch.prompt_tokens
+    if self._kv_quantized:
+      self._counters["quantized_steps"] += 1
     self._PushEvents(events)
 
   def _PushEvents(self, events):
@@ -376,6 +392,7 @@ class ServingLoop:
     with self._lock:
       stats = dict(self._counters)
       stats["paged_path"] = self.paged_path
+      stats["kv_cache_dtype"] = self.kv_cache_dtype
       stats["kv_bytes_per_token"] = self.kv_bytes_per_token
       stats["scheduler"] = self.sched.Stats()
       stats["kv_pages"] = self.alloc.Stats()

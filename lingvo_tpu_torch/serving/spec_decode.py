@@ -26,25 +26,20 @@ def MixerLayers(task):
 
 
 def MixerCensus(task) -> dict:
-  """Counts attention vs O(1)-state mixers; prices the per-slot state and
-  the per-token KV.
+  """Counts attention vs O(1)-state mixers; prices the per-slot state.
 
   A mixer is O(1)-state iff it exposes StateBytesPerSlot (the core/ssm.py
-  contract); every other mixer is a paged-KV attention layer. Beyond the
-  reference's keys, `kv_bytes_per_token` is the float32 K/V bytes one
-  cached token costs over the attention layers (the reference's
-  quant/kv.StackKvCensus price), which the engine's page budget uses."""
-  num_attention = num_ssm = state_bytes = kv_bytes = 0
+  contract); every other mixer is a paged-KV attention layer. The price
+  of a KV page is quant/kv.StackKvCensus's, as in the reference."""
+  num_attention = num_ssm = state_bytes = 0
   for mixer, reps in MixerLayers(task):
     if hasattr(mixer, "StateBytesPerSlot"):
       num_ssm += reps
       state_bytes += reps * mixer.StateBytesPerSlot()
     else:
       num_attention += reps
-      kv_bytes += reps * mixer.KvBytesPerToken()
   return {
       "num_attention": num_attention,
       "num_ssm": num_ssm,
       "decode_state_bytes_per_slot": state_bytes,
-      "kv_bytes_per_token": kv_bytes,
   }

@@ -13,12 +13,23 @@ frameworks sum the page dot products in other orders). Rows with nothing
 live must come out exactly 0, and NaN in slots or pages the read must
 skip must not reach the output.
 
+Quantized storage, against the same reference functions: `FlashDecode`
+on a bfloat16 cache, `BlockDecode` and `BlockPrefill` on int8 pools with
+their [NP, N, P] scale sidecars and on bfloat16 pools (atol 2e-5; p is
+rounded to bfloat16 before P.V on both sides). The int8 ops equal the
+float ops on the pre-dequantized pool bit for bit, and NaN in dead
+slots' scales never reaches the output.
+
 The flash-decode kernel splits each row's live tiles over several blocks;
 the host's split count (`NumSplits`) is checked here on the CPU: at least
 one split, never more than the tiles up to time_step.
 
 The CUDA kernels run only on a card: their cases (marked `cuda`, atol
-2e-5 against the plain version) skip here and say so. The module imports
+2e-5 against the plain version; on bfloat16 storage 1e-5 on dyadic q and
+K, `_Dyadic`, where q.k is exact in any summation order, so kernel and
+plain version round the same probabilities to bfloat16, while the
+float32 kernel on the widened storage, which rounds none, must miss that
+bar) skip here and say so. The module imports
 JAX only inside the reference helpers, so on a machine with a card and no
 JAX the kernel cases run alone:
 
@@ -31,9 +42,18 @@ import torch
 
 from lingvo_tpu_torch.ops import block_decode
 from lingvo_tpu_torch.ops import flash_decode
+from lingvo_tpu_torch.ops import ragged_block_attend as rba
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 ATOL = 2e-5
 B, P, N, H = 3, 4, 2, 16
+
+
+def _Dyadic(x, step):
+  """x rounded to a multiple of the power of two `step`: few enough
+  significant bits that a dot product of such values is exact in float32
+  in any summation order."""
+  return (np.round(x / step) * step).astype(np.float32)
 
 
 def _Jnp():
@@ -52,20 +72,49 @@ def _Cache(s=16, seed=0, b=B, n=N, h=H):
   return q, k, v, pad
 
 
-def _JaxFlash(q, k, v, t, pad):
+def _JaxFlash(q, k, v, t, pad, bf16=False):
+  """The reference's interpreted Pallas kernel; bf16 rounds the cache to
+  bfloat16 first."""
   from lingvo_tpu.ops import flash_decode as jax_fd
   jnp = _Jnp()
+  k, v = jnp.asarray(k), jnp.asarray(v)
+  if bf16:
+    k, v = k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
   return np.asarray(jax_fd.FlashDecode(
-      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(t, jnp.int32),
+      jnp.asarray(q), k, v, jnp.asarray(t, jnp.int32),
       page_size=P, cache_paddings=None if pad is None else jnp.asarray(pad),
       lowering="pallas", interpret=True))
 
 
-def _PortFlash(q, k, v, t, pad):
+def _PortFlash(q, k, v, t, pad, bf16=False):
   t_ = torch.as_tensor
+  k, v = t_(k), t_(v)
+  if bf16:
+    k, v = k.bfloat16(), v.bfloat16()
   return flash_decode.FlashDecode(
-      t_(q), t_(k), t_(v), t, page_size=P,
+      t_(q), k, v, t, page_size=P,
       cache_paddings=None if pad is None else t_(pad)).numpy()
+
+
+def _Quantize(pool):
+  """An int8 pool [NP, P, N, H] and its sidecar [NP, N, P], quantized per
+  (slot, head) as the serving step writes them."""
+  q8, scale = kv_quant.QuantizeKv(torch.as_tensor(pool))
+  return q8.numpy(), np.ascontiguousarray(scale.numpy().transpose(0, 2, 1))
+
+
+def _Dequantize(q8, scale):
+  return rba._DequantPages(torch.as_tensor(q8),
+                           torch.as_tensor(scale)).numpy()
+
+
+def _Storage(k_pool, v_pool, dtype):
+  """(k_pool, v_pool, scales) of float32 pools stored as `dtype`; scales
+  is (k_scale, v_scale) for int8, else ()."""
+  if dtype == "int8":
+    (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+    return k8, v8, (ks, vs)
+  return k_pool, v_pool, ()
 
 
 class TestFlashDecodeMatchesJax:
@@ -79,6 +128,24 @@ class TestFlashDecodeMatchesJax:
     assert flash_decode.FlashDecode.launches == launches  # CPU: no kernel
     np.testing.assert_allclose(out, ref, atol=ATOL)
     np.testing.assert_array_equal(out[2], np.zeros_like(out[2]))
+
+  @pytest.mark.parametrize("t", [0, 6, 15])
+  def test_bf16_cache_matches_interpreted_pallas_kernel(self, t):
+    q, k, v, pad = _Cache(seed=2)
+    ref = _JaxFlash(q, k, v, t, pad, bf16=True)
+    out = _PortFlash(q, k, v, t, pad, bf16=True)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+    np.testing.assert_array_equal(out[2], np.zeros_like(out[2]))
+
+  def test_bf16_slots_past_time_step_never_read(self):
+    q, k, v, pad = _Cache(seed=3)
+    clean = _PortFlash(q, k, v, 5, pad, bf16=True)
+    kp, vp = k.copy(), v.copy()
+    kp[:, 6:] = np.nan
+    vp[:, 6:] = np.nan
+    kp[1, :3] = np.nan     # the left pad
+    np.testing.assert_array_equal(_PortFlash(q, kp, vp, 5, pad, bf16=True),
+                                  clean)
 
   def test_no_paddings(self):
     q, k, v, _ = _Cache(seed=1)
@@ -139,19 +206,30 @@ def _Pool(seed=0, b=B, t_pages=4, n=N, h=H):
   return q, k_pool, v_pool, hostile, lens
 
 
-def _JaxBlock(q, k_pool, v_pool, tables, lens):
+def _JaxBlock(q, k_pool, v_pool, tables, lens, scales=(), bf16=False):
+  """The reference's interpreted Pallas kernel; scales = (k_scale,
+  v_scale) of int8 pools, bf16 rounds float32 pools to bfloat16 first."""
   from lingvo_tpu.ops import block_decode as jax_bd
   jnp = _Jnp()
+  k, v = jnp.asarray(k_pool), jnp.asarray(v_pool)
+  if bf16:
+    k, v = k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
+  kw = {}
+  if scales:
+    kw = dict(k_scale=jnp.asarray(scales[0]), v_scale=jnp.asarray(scales[1]))
   return np.asarray(jax_bd.BlockDecode(
-      jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
-      jnp.asarray(tables), jnp.asarray(lens), page_size=P,
-      lowering="pallas", interpret=True))
+      jnp.asarray(q), k, v, jnp.asarray(tables), jnp.asarray(lens),
+      page_size=P, lowering="pallas", interpret=True, **kw))
 
 
-def _PortBlock(q, k_pool, v_pool, tables, lens):
+def _PortBlock(q, k_pool, v_pool, tables, lens, scales=(), bf16=False):
   t_ = torch.as_tensor
-  return block_decode.BlockDecode(t_(q), t_(k_pool), t_(v_pool), t_(tables),
-                                  t_(lens), page_size=P).numpy()
+  k, v = t_(k_pool), t_(v_pool)
+  if bf16:
+    k, v = k.bfloat16(), v.bfloat16()
+  kw = dict(k_scale=t_(scales[0]), v_scale=t_(scales[1])) if scales else {}
+  return block_decode.BlockDecode(t_(q), k, v, t_(tables), t_(lens),
+                                  page_size=P, **kw).numpy()
 
 
 class TestBlockDecodeMatchesJax:
@@ -181,16 +259,55 @@ class TestBlockDecodeMatchesJax:
       pool[tables[2, 3], 1:] = np.nan   # row 2: slots 13..15
     np.testing.assert_array_equal(_PortBlock(q, kp, vp, tables, lens), clean)
 
-  def test_int8_pools_raise(self):
+  @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+  def test_quantized_pools_match_interpreted_pallas_kernel(self, dtype):
+    q, k_pool, v_pool, tables, lens = _Pool(seed=5)
+    k, v, scales = _Storage(k_pool, v_pool, dtype)
+    bf16 = dtype == "bfloat16"
+    ref = _JaxBlock(q, k, v, tables, lens, scales, bf16)
+    out = _PortBlock(q, k, v, tables, lens, scales, bf16)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+    np.testing.assert_array_equal(out[1], np.zeros_like(out[1]))
+
+  def test_int8_equals_float_on_the_dequantized_pool(self):
+    q, k_pool, v_pool, tables, lens = _Pool(seed=6)
+    k8, v8, (ks, vs) = _Storage(k_pool, v_pool, "int8")
+    np.testing.assert_array_equal(
+        _PortBlock(q, k8, v8, tables, lens, (ks, vs)),
+        _PortBlock(q, _Dequantize(k8, ks), _Dequantize(v8, vs), tables,
+                   lens))
+
+  def test_int8_dead_scales_never_read(self):
+    """NaN scales (and int8 extremes) in every page no row reads live and
+    in each row's stale tail slots leave the output unchanged, bitwise."""
+    q, k_pool, v_pool, tables, lens = _Pool()
+    k8, v8, (ks, vs) = _Storage(k_pool, v_pool, "int8")
+    clean = _PortBlock(q, k8, v8, tables, lens, (ks, vs))
+    live = {int(tables[0, 0]), int(tables[0, 1])} | {
+        int(x) for x in tables[2]}
+    dead = [i for i in range(k8.shape[0]) if i not in live]
+    for pool, scale in ((k8, ks), (v8, vs)):
+      pool[dead] = 127
+      scale[dead] = np.nan
+      scale[tables[0, 1], :, 2:] = np.nan   # row 0: slots 6, 7
+      scale[tables[2, 3], :, 1:] = np.nan   # row 2: slots 13..15
+    np.testing.assert_array_equal(
+        _PortBlock(q, k8, v8, tables, lens, (ks, vs)), clean)
+
+  def test_int8_pools_need_their_scales(self):
+    """BlockDecode and BlockPrefill take int8 pools only with both
+    sidecars, and sidecars only with int8 pools."""
     q, k_pool, v_pool, tables, lens = (torch.as_tensor(a) for a in _Pool())
     scale = torch.ones((k_pool.shape[0], N, P))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+    k8, v8 = k_pool.to(torch.int8), v_pool.to(torch.int8)
+    with pytest.raises(ValueError, match="int8 pools take"):
       block_decode.BlockDecode(q, k_pool, v_pool, tables, lens, page_size=P,
                                k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-      block_decode.BlockPrefill(q, k_pool.to(torch.int8),
-                                v_pool.to(torch.int8), tables, lens, lens,
-                                page_size=P)
+    with pytest.raises(ValueError, match="int8 pools take"):
+      block_decode.BlockPrefill(q, k8, v8, tables, lens, lens, page_size=P)
+    with pytest.raises(ValueError, match="together"):
+      block_decode.BlockPrefill(q, k8, v8, tables, lens, lens, page_size=P,
+                                v_scale=scale)
 
 
 class TestPrefillAndGather:
@@ -214,6 +331,59 @@ class TestPrefillAndGather:
     valid = np.arange(c)[None] < in_len[:, None]
     np.testing.assert_allclose(out[valid], ref[valid], atol=ATOL)
     np.testing.assert_array_equal(out[~valid], np.zeros_like(out[~valid]))
+
+  @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+  def test_quantized_block_prefill_matches_reference(self, dtype):
+    """int8 pools dequantize on read, bfloat16 pools round p before P.V:
+    the reference's XLA BlockPrefill within 2e-5; int8 equals the float
+    prefill on the dequantized pool bitwise."""
+    from lingvo_tpu.ops import block_decode as jax_bd
+    jnp = _Jnp()
+    _, k_pool, v_pool, tables, _ = _Pool(seed=7)
+    k, v, scales = _Storage(k_pool, v_pool, dtype)
+    rng = np.random.RandomState(8)
+    c = 5
+    q = (rng.randn(B, c, N, H) / 4).astype(np.float32)
+    q_pos = np.array([3, 0, 9], np.int32)
+    in_len = np.array([5, 2, 1], np.int32)
+    jk, jv = jnp.asarray(k), jnp.asarray(v)
+    tk, tv = torch.as_tensor(k), torch.as_tensor(v)
+    if dtype == "bfloat16":
+      jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+      tk, tv = tk.bfloat16(), tv.bfloat16()
+    j_kw, t_kw = {}, {}
+    if scales:
+      j_kw = dict(k_scale=jnp.asarray(scales[0]),
+                  v_scale=jnp.asarray(scales[1]))
+      t_kw = dict(k_scale=torch.as_tensor(scales[0]),
+                  v_scale=torch.as_tensor(scales[1]))
+    ref = np.asarray(jax_bd.BlockPrefill(
+        jnp.asarray(q), jk, jv, *(jnp.asarray(a) for a in (tables, q_pos,
+                                                           in_len)),
+        page_size=P, **j_kw))
+    t_ = torch.as_tensor
+    out = block_decode.BlockPrefill(t_(q), tk, tv, t_(tables), t_(q_pos),
+                                    t_(in_len), page_size=P, **t_kw).numpy()
+    valid = np.arange(c)[None] < in_len[:, None]
+    np.testing.assert_allclose(out[valid], ref[valid], atol=ATOL)
+    np.testing.assert_array_equal(out[~valid], np.zeros_like(out[~valid]))
+    if scales:
+      flt = block_decode.BlockPrefill(
+          t_(q), t_(_Dequantize(k, scales[0])), t_(_Dequantize(v, scales[1])),
+          t_(tables), t_(q_pos), t_(in_len), page_size=P).numpy()
+      np.testing.assert_array_equal(out, flt)
+
+  def test_gather_scales_matches_reference(self):
+    from lingvo_tpu.ops import block_decode as jax_bd
+    _, k_pool, _, tables, _ = _Pool(seed=9)
+    _, scale = _Quantize(k_pool)
+    tables = tables.copy()
+    tables[1, 2] = 99                       # out of range: clamps
+    ref = np.asarray(jax_bd.GatherScales(_Jnp().asarray(scale),
+                                         _Jnp().asarray(tables)))
+    out = block_decode.GatherScales(torch.as_tensor(scale),
+                                    torch.as_tensor(tables)).numpy()
+    np.testing.assert_array_equal(out, ref)
 
   def test_gather_pages_matches_reference(self):
     from lingvo_tpu.ops import block_decode as jax_bd
@@ -296,20 +466,35 @@ class TestCudaKernels:
     np.testing.assert_allclose(got, want, atol=ATOL)
     np.testing.assert_array_equal(got[2], np.zeros_like(got[2]))
 
+  @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
   @pytest.mark.parametrize("splits", [3, 5])
   def test_flash_decode_splits_that_do_not_divide_the_tiles(
-      self, splits, monkeypatch):
+      self, splits, dtype, monkeypatch):
     """7 tiles of 16 slots (h 128) over 3 splits (shares of 2, 2, 3) and
-    5 (a left-padded row with 2 live tiles leaves 3 splits empty)."""
+    5 (a left-padded row with 2 live tiles leaves 3 splits empty). A
+    bfloat16 cache (4 tiles of 32 slots, dyadic q and K) must stay within
+    1e-5: each split takes the running max of the scores before its first
+    tile, so it rounds p where one pass over the row would."""
     _NeedCard()
     page, s, t = 16, 112, 111
     q, k, v, pad = _Cache(s=s, seed=8, h=128)
     pad[1, :80] = 1.0
     monkeypatch.setattr(flash_decode, "NumSplits", lambda *a: splits)
-    want = _PortFlash_(q, k, v, t, pad, page)
-    got = _CardFlash(q, k, v, t, pad, page)
-    np.testing.assert_allclose(got, want, atol=ATOL)
-    np.testing.assert_array_equal(got[2], np.zeros_like(got[2]))
+    if dtype == "float32":
+      want = _PortFlash_(q, k, v, t, pad, page)
+      got = _CardFlash(q, k, v, t, pad, page)
+      np.testing.assert_allclose(got, want, atol=ATOL)
+      np.testing.assert_array_equal(got[2], np.zeros_like(got[2]))
+      return
+    q, k = _Dyadic(q, 1 / 64), _Dyadic(k, 1 / 8)
+    t_ = lambda a: torch.as_tensor(a).cuda()
+    kc, vc = t_(k).bfloat16(), t_(v).bfloat16()
+    want = flash_decode._PlainDecode(t_(q)[:, 0], kc, vc, t, page, t_(pad))
+    got = flash_decode.FlashDecode(t_(q), kc, vc, t, page_size=page,
+                                   cache_paddings=t_(pad))
+    torch.cuda.synchronize()
+    assert float((got[:, 0] - want).abs().max()) <= 1e-5
+    assert (got[2] == 0).all()
 
   def test_flash_decode_bitwise_repeat(self):
     """Two calls give the same bits: the splits merge in split order."""
@@ -330,3 +515,83 @@ class TestCudaKernels:
     assert block_decode.BlockDecode.launches == launches + 1
     np.testing.assert_allclose(got.cpu().numpy(), want, atol=ATOL)
     assert (got[1] == 0).all()
+
+  @pytest.mark.parametrize("h, page", [(16, 16), (64, 16), (128, 16),
+                                       (128, 48)])
+  def test_bf16_flash_decode_kernel_matches_plain(self, h, page):
+    """A bfloat16 cache with NaN in padded and past-t slots, dyadic q and
+    K, t = 0, P + 1, S - 1: within 1e-5 of the plain version, which
+    rounds each p against the running max through its page's end (page
+    16 and 48 cut the kernel's 32-slot tiles at H 128 both ways); two
+    calls bitwise equal; the float32 kernel on the widened cache misses
+    the bar."""
+    _NeedCard()
+    s = 4 * page
+    q, k, v, pad = _Cache(s=s, seed=10, h=h)
+    q, k = _Dyadic(q, 1 / 64), _Dyadic(k, 1 / 8)
+    t_ = lambda a: torch.as_tensor(a).cuda()
+    for t in (0, page + 1, s - 1):
+      dead = (pad > 0.5) | (np.arange(s)[None] > t)
+      kp, vp = k.copy(), v.copy()
+      kp[dead], vp[dead] = np.nan, np.nan
+      kc, vc = t_(kp).bfloat16(), t_(vp).bfloat16()
+      want = flash_decode._PlainDecode(t_(q)[:, 0], kc, vc, t, page,
+                                       t_(pad))
+      launches = flash_decode.FlashDecode.launches_by_dtype["bfloat16"]
+      got = flash_decode.FlashDecode(t_(q), kc, vc, t, page_size=page,
+                                     cache_paddings=t_(pad))
+      again = flash_decode.FlashDecode(t_(q), kc, vc, t, page_size=page,
+                                       cache_paddings=t_(pad))
+      unrounded = flash_decode.FlashDecode(t_(q), kc.float(), vc.float(), t,
+                                           page_size=page,
+                                           cache_paddings=t_(pad))
+      torch.cuda.synchronize()
+      assert (flash_decode.FlashDecode.launches_by_dtype["bfloat16"]
+              == launches + 2)
+      assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+      assert float((got[:, 0] - want).abs().max()) <= 1e-5
+      if t > 0:   # t = 0 has one live slot: p = 1 needs no rounding
+        assert float((unrounded[:, 0] - want).abs().max()) > 1e-5
+      assert (got[2] == 0).all()
+
+  @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+  def test_quantized_block_decode_kernel_matches_plain(self, dtype):
+    """int8 (NaN dead scales) and bfloat16 pools against the plain
+    version, 1e-5; int8 equals the float kernel on the dequantized pool,
+    bitwise. bfloat16 runs on dyadic q and K, and the float32 kernel on
+    the widened pools (p unrounded) must miss the bar."""
+    _NeedCard()
+    q, k_pool, v_pool, tables, lens = _Pool(seed=11, h=128)
+    if dtype == "bfloat16":
+      q, k_pool = _Dyadic(q, 1 / 64), _Dyadic(k_pool, 1 / 8)
+    k, v, scales = _Storage(k_pool, v_pool, dtype)
+    c = lambda a: torch.as_tensor(a).cuda()
+    kw = {}
+    if scales:
+      live = {int(tables[0, 0]), int(tables[0, 1])} | {
+          int(x) for x in tables[2]}
+      kf, vf = _Dequantize(k, scales[0]), _Dequantize(v, scales[1])
+      for scale in scales:
+        scale[[i for i in range(k.shape[0]) if i not in live]] = np.nan
+      kw = dict(k_scale=c(scales[0]), v_scale=c(scales[1]))
+      kc, vc = c(k), c(v)
+    else:
+      kc, vc = c(k).bfloat16(), c(v).bfloat16()
+    launches = block_decode.BlockDecode.launches_by_dtype[dtype]
+    got = block_decode.BlockDecode(c(q), kc, vc, c(tables), c(lens),
+                                   page_size=P, **kw)
+    want = block_decode._PlainBlockDecode(c(q)[:, 0], kc, vc, c(tables),
+                                          c(lens), P, **kw)
+    torch.cuda.synchronize()
+    assert block_decode.BlockDecode.launches_by_dtype[dtype] == launches + 1
+    assert bool(torch.isfinite(got).all())
+    assert float((got[:, 0] - want).abs().max()) <= 1e-5
+    if not scales:
+      unrounded = block_decode.BlockDecode(c(q), kc.float(), vc.float(),
+                                           c(tables), c(lens), page_size=P)
+      assert float((unrounded[:, 0] - want).abs().max()) > 1e-5
+    if scales:
+      flt = block_decode.BlockDecode(c(q), c(kf), c(vf), c(tables), c(lens),
+                                     page_size=P)
+      torch.cuda.synchronize()
+      assert torch.equal(got, flt)

@@ -6,10 +6,24 @@ computes on the same packs: mixed decode / prefill / padding tokens, tree
 rows with real ancestor masks, stale table entries past a row's horizon,
 page sizes 8 and 16. Tolerance: float32, atol 2e-5 / rtol 1e-5 (the two
 frameworks sum the page dot products in different orders). Padding
-tokens must come out exactly zero. The CUDA kernel itself only runs on a
-card: its cases (marked `cuda`) skip here and say so. The module imports
-JAX only inside the reference helper, so on a machine with a card and no
-JAX the kernel cases run alone:
+tokens must come out exactly zero.
+
+Quantized pools: int8 pools with their [NP, N, P] scale sidecars and
+bfloat16 pools go through the same plain op and are held to the
+reference's XLA twin and its interpreted Pallas kernel (atol 2e-5). The
+int8 op equals the float op on the pre-dequantized pool bit for bit (the
+reference's contract), and NaN in dead slots' scales never reaches the
+output.
+
+The CUDA kernel itself only runs on a card (int8 within 1e-5 of the
+plain version and bitwise equal to the float kernel on the dequantized
+pool; bfloat16 within 1e-5 on dyadic q and K, `_Dyadic`, where q.k is
+exact in any summation order, so kernel and plain version round the same
+probabilities to bfloat16, while the float32 kernel on the widened pools,
+which rounds none, must miss that bar): its cases (marked `cuda`)
+skip here and say so. The module imports JAX only inside the reference
+helper, so on a machine with a card and no JAX the kernel cases run
+alone:
 
     python -m pytest tests/test_torch_ragged_attend.py -m cuda
 """
@@ -20,8 +34,16 @@ import torch
 
 from lingvo_tpu_torch.core import ragged
 from lingvo_tpu_torch.ops import ragged_block_attend as rba
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 ATOL, RTOL = 2e-5, 1e-5
+
+
+def _Dyadic(x, step):
+  """x rounded to a multiple of the power of two `step`: few enough
+  significant bits that a dot product of such values is exact in float32
+  in any summation order."""
+  return (np.round(x / step) * step).astype(np.float32)
 
 
 def _Pool(page, b=3, t_pages=4, n=2, h=16, seed=0):
@@ -55,23 +77,52 @@ def _Pack(case, page, rng, n=2, h=16):
   return q, row_of, q_end, q_start, lo, hi
 
 
-def _JaxRef(q, k_pool, v_pool, tables, pack, page):
+def _JaxRef(q, k_pool, v_pool, tables, pack, page, scales=(),
+            bf16=False, lowering="xla"):
+  """The reference op; scales = (k_scale, v_scale) of int8 pools, bf16
+  rounds float32 pools to bfloat16 first."""
   import jax.numpy as jnp
   from lingvo_tpu.ops import ragged_block_attend as jax_rba
   _, row_of, q_end, q_start, lo, hi = pack
+  k, v = jnp.asarray(k_pool), jnp.asarray(v_pool)
+  if bf16:
+    k, v = k.astype(jnp.bfloat16), v.astype(jnp.bfloat16)
+  kw = {}
+  if scales:
+    kw = dict(k_scale=jnp.asarray(scales[0]), v_scale=jnp.asarray(scales[1]))
+  if lowering == "pallas":
+    kw["interpret"] = True
   return np.asarray(jax_rba.RaggedAttend(
-      jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
-      jnp.asarray(tables), jnp.asarray(row_of), jnp.asarray(q_end),
-      page_size=page, q_start=jnp.asarray(q_start), anc_lo=jnp.asarray(lo),
-      anc_hi=jnp.asarray(hi), lowering="xla"))
+      jnp.asarray(q), k, v, jnp.asarray(tables), jnp.asarray(row_of),
+      jnp.asarray(q_end), page_size=page, q_start=jnp.asarray(q_start),
+      anc_lo=jnp.asarray(lo), anc_hi=jnp.asarray(hi), lowering=lowering,
+      **kw))
 
 
-def _Port(q, k_pool, v_pool, tables, pack, page):
+def _Port(q, k_pool, v_pool, tables, pack, page, scales=(), bf16=False):
   _, row_of, q_end, q_start, lo, hi = pack
   t = torch.as_tensor
+  k, v = t(k_pool), t(v_pool)
+  if bf16:
+    k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+  kw = dict(k_scale=t(scales[0]), v_scale=t(scales[1])) if scales else {}
   return rba.RaggedAttend(
-      t(q), t(k_pool), t(v_pool), t(tables), t(row_of), t(q_end),
-      page_size=page, q_start=t(q_start), anc_lo=t(lo), anc_hi=t(hi)).numpy()
+      t(q), k, v, t(tables), t(row_of), t(q_end), page_size=page,
+      q_start=t(q_start), anc_lo=t(lo), anc_hi=t(hi), **kw).numpy()
+
+
+def _Quantize(pool):
+  """An int8 pool [NP, P, N, H] and its sidecar [NP, N, P], quantized per
+  (slot, head) as the serving step writes them."""
+  q8, scale = kv_quant.QuantizeKv(torch.as_tensor(pool))
+  return q8.numpy(), np.ascontiguousarray(scale.numpy().transpose(0, 2, 1))
+
+
+def _Dequantize(q8, scale):
+  """The float pool the int8 pool stands for (the reference
+  `_DequantPages`)."""
+  return rba._DequantPages(torch.as_tensor(q8),
+                           torch.as_tensor(scale)).numpy()
 
 
 class TestPlainRaggedAttendMatchesJax:
@@ -131,15 +182,97 @@ class TestPlainRaggedAttendMatchesJax:
     np.testing.assert_array_equal(poisoned, clean)
 
 
+class TestQuantizedPoolsMatchJax:
+
+  @pytest.mark.parametrize("lowering", ["xla", "pallas"])
+  @pytest.mark.parametrize("case", ["mixed", "tree"])
+  def test_int8_matches_reference(self, case, lowering):
+    k_pool, v_pool, tables, rng = _Pool(8)
+    pack = _Pack(case, 8, rng)
+    (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+    ref = _JaxRef(pack[0], k8, v8, tables, pack, 8, (ks, vs),
+                  lowering=lowering)
+    out = _Port(pack[0], k8, v8, tables, pack, 8, (ks, vs))
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+    pad = pack[2] == 0
+    np.testing.assert_array_equal(out[pad], np.zeros_like(out[pad]))
+
+  @pytest.mark.parametrize("lowering", ["xla", "pallas"])
+  @pytest.mark.parametrize("case", ["mixed", "tree"])
+  def test_bf16_matches_reference(self, case, lowering):
+    """bfloat16 pools: p is rounded to bfloat16 before P.V on both sides,
+    so the port meets the reference at the float32 tolerance."""
+    k_pool, v_pool, tables, rng = _Pool(8)
+    pack = _Pack(case, 8, rng)
+    ref = _JaxRef(pack[0], k_pool, v_pool, tables, pack, 8, bf16=True,
+                  lowering=lowering)
+    out = _Port(pack[0], k_pool, v_pool, tables, pack, 8, bf16=True)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=RTOL)
+
+  def test_int8_equals_float_on_the_dequantized_pool(self):
+    """The reference's contract: dequantize-on-read, then the float page
+    step, bit for bit."""
+    k_pool, v_pool, tables, rng = _Pool(16, seed=2)
+    pack = _Pack("mixed", 16, rng)
+    (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+    int8 = _Port(pack[0], k8, v8, tables, pack, 16, (ks, vs))
+    flt = _Port(pack[0], _Dequantize(k8, ks), _Dequantize(v8, vs), tables,
+                pack, 16)
+    np.testing.assert_array_equal(int8, flt)
+
+  def test_nonfinite_dead_scales_and_pages_never_leak(self):
+    """NaN scales and NaN-scaled int8 extremes in every slot no token may
+    read (pages past a row's horizon, stale slots of its last page), and
+    NaN bfloat16 pages there, leave the outputs unchanged, bitwise."""
+    k_pool, v_pool, tables, rng = _Pool(8)
+    pack = _Pack("mixed", 8, rng)
+    q = pack[0]
+    (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+    clean8 = _Port(q, k8, v8, tables, pack, 8, (ks, vs))
+    clean16 = _Port(q, k_pool, v_pool, tables, pack, 8, bf16=True)
+    dead = np.concatenate([tables[0, 3:], tables[1, 1:], tables[2, 2:]])
+    k8, v8, ks, vs = (a.copy() for a in (k8, v8, ks, vs))
+    kp, vp = k_pool.copy(), v_pool.copy()
+    for pool8, scale, pool in ((k8, ks, kp), (v8, vs, vp)):
+      pool8[dead] = -128
+      scale[dead] = np.nan
+      pool[dead] = np.nan
+      # row 1's horizon is slot 7 of its first page; row 2's is 14
+      pool8[tables[2, 1], 7:] = 127
+      scale[tables[2, 1], :, 7:] = np.nan
+      pool[tables[2, 1], 7:] = np.nan
+    np.testing.assert_array_equal(
+        _Port(q, k8, v8, tables, pack, 8, (ks, vs)), clean8)
+    np.testing.assert_array_equal(
+        _Port(q, kp, vp, tables, pack, 8, bf16=True), clean16)
+
+
 class TestWrapperContract:
 
-  def test_int8_pool_raises(self):
+  def test_pools_and_scales_must_agree(self):
+    """int8 pools need both sidecars, other pools take none, and the
+    sidecars are float32 [NP, N, P]."""
     q = torch.zeros((2, 1, 8))
-    pool = torch.zeros((3, 8, 1, 8), dtype=torch.int8)
+    pool8 = torch.zeros((3, 8, 1, 8), dtype=torch.int8)
+    pool = torch.zeros((3, 8, 1, 8))
+    scale = torch.ones((3, 1, 8))
     tables = torch.zeros((1, 2), dtype=torch.int32)
     idx = torch.zeros((2,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-      rba.RaggedAttend(q, pool, pool, tables, idx, idx, page_size=8)
+    attend = lambda k, v, **kw: rba.RaggedAttend(q, k, v, tables, idx, idx,
+                                                 page_size=8, **kw)
+    with pytest.raises(ValueError, match="int8 pools take"):
+      attend(pool8, pool8)
+    with pytest.raises(ValueError, match="int8 pools take"):
+      attend(pool, pool, k_scale=scale, v_scale=scale)
+    with pytest.raises(ValueError, match="together"):
+      attend(pool8, pool8, k_scale=scale)
+    with pytest.raises(ValueError, match="sidecars"):
+      attend(pool8, pool8, k_scale=scale[:, :, :4], v_scale=scale[:, :, :4])
+    with pytest.raises(TypeError, match="share"):
+      attend(pool8, pool)
+    np.testing.assert_array_equal(
+        attend(pool8, pool8, k_scale=scale, v_scale=scale).numpy(),
+        np.zeros((2, 1, 8), np.float32))
 
   def test_partial_tree_operands_raise(self):
     q = torch.zeros((2, 1, 8))
@@ -170,3 +303,60 @@ class TestCudaKernel:
     torch.cuda.synchronize()
     assert rba.RaggedAttend.launches == launches + 1
     np.testing.assert_allclose(out.cpu().numpy(), ref, atol=1e-5, rtol=1e-5)
+
+  @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+  @pytest.mark.parametrize("case", ["mixed", "tree"])
+  def test_quantized_kernel_matches_plain_on_card(self, case, dtype):
+    """The int8 and bfloat16 instantiations against the plain version,
+    with NaN in dead scales and dead bfloat16 pages, within 1e-5; the int8
+    kernel equals the float kernel on the dequantized pool, bitwise. The
+    bfloat16 case runs on dyadic q and K, so both sides round the same p,
+    and the float32 kernel on the widened pools (p unrounded) must miss
+    the 1e-5 bar."""
+    if not torch.cuda.is_available():
+      pytest.skip("no CUDA device here: the CUDA kernel is unverified on "
+                  "this machine (chip_smoke.py checks it on the H100)")
+    k_pool, v_pool, tables, rng = _Pool(16)
+    pack = _Pack(case, 16, rng)
+    row_of, q_end = pack[1], pack[2]
+    live = set()
+    for r in range(tables.shape[0]):   # each row's pages up to its horizon
+      need = -(-int(q_end[row_of == r].max()) // 16)
+      live |= {int(x) for x in tables[r, :need]}
+    dead = [i for i in range(k_pool.shape[0]) if i not in live]
+    c = lambda a: torch.as_tensor(a).cuda()
+    ints = [c(x) for x in pack[1:]]
+    tree = dict(q_start=ints[2], anc_lo=ints[3], anc_hi=ints[4])
+    q = pack[0]
+    if dtype == "int8":
+      (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+      kf, vf = _Dequantize(k8, ks), _Dequantize(v8, vs)
+      for scale in (ks, vs):
+        scale[dead] = np.nan
+      pools = dict(k_pool=c(k8), v_pool=c(v8), k_scale=c(ks), v_scale=c(vs))
+    else:
+      q, kp, vp = _Dyadic(q / 4, 1 / 32), _Dyadic(k_pool, 1 / 8), v_pool.copy()
+      kp[dead] = np.nan
+      vp[dead] = np.nan
+      pools = dict(k_pool=c(kp).bfloat16(), v_pool=c(vp).bfloat16())
+    args = lambda k, v: (c(q), k, v, c(tables), ints[0], ints[1])
+    launches = dict(rba.RaggedAttend.launches_by_dtype)
+    out = rba.RaggedAttend(*args(pools["k_pool"], pools["v_pool"]),
+                           page_size=16, k_scale=pools.get("k_scale"),
+                           v_scale=pools.get("v_scale"), **tree)
+    want = rba._PlainRaggedAttend(
+        *args(pools["k_pool"], pools["v_pool"]), 16, **tree,
+        k_scale=pools.get("k_scale"), v_scale=pools.get("v_scale"))
+    torch.cuda.synchronize()
+    assert rba.RaggedAttend.launches_by_dtype[dtype] == launches[dtype] + 1
+    assert bool(torch.isfinite(out).all())
+    assert float((out - want).abs().max()) <= 1e-5
+    if dtype == "bfloat16":
+      unrounded = rba.RaggedAttend(
+          *args(pools["k_pool"].float(), pools["v_pool"].float()),
+          page_size=16, **tree)
+      assert float((unrounded - want).abs().max()) > 1e-5
+    if dtype == "int8":
+      flt = rba.RaggedAttend(*args(c(kf), c(vf)), page_size=16, **tree)
+      torch.cuda.synchronize()
+      assert torch.equal(out, flt)
