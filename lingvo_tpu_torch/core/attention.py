@@ -96,7 +96,14 @@ class PerDimScaleLayer(base_layer.BaseLayer):
   def FProp(self, inputs):
     r_softplus_0 = 1.442695041
     scale = r_softplus_0 / math.sqrt(self.p.dim)
-    return inputs * (torch.nn.functional.softplus(self.per_dim_scale) * scale)
+    w = self.CastTheta().per_dim_scale
+    if w.dtype == torch.float32:
+      sp = torch.nn.functional.softplus(w)
+    else:
+      # the reference's softplus is logaddexp(x, 0), op by op in the fprop
+      # dtype: max(x, 0) + log1p(exp(-|x|))
+      sp = torch.clamp(w, min=0) + torch.log1p(torch.exp(-torch.abs(w)))
+    return inputs * (sp * py_utils.WeakScalar(scale, sp)).to(inputs.dtype)
 
 
 class MultiHeadedAttention(base_layer.BaseLayer):
@@ -162,13 +169,16 @@ class MultiHeadedAttention(base_layer.BaseLayer):
   # -- projections -----------------------------------------------------------
 
   def _HeadsProj(self, name, x):
-    """[B, T, D] x [D, N, H] -> [B, T, N, H] (+ bias [N, H])."""
-    return (torch.einsum("btd,dnh->btnh", x, getattr(self, f"w_{name}"))
-            + getattr(self, f"b_{name}"))
+    """[B, T, D] x [D, N, H] -> [B, T, N, H] (+ bias [N, H]), in the fprop
+    dtype."""
+    th = self.CastTheta()
+    return (torch.einsum("btd,dnh->btnh", self.ToFPropDtype(x),
+                         th[f"w_{name}"]) + th[f"b_{name}"])
 
   def _PostProj(self, ctx):
     """[B, T, N, H] contracted with [D, N, H] over (N, H) -> [B, T, D]."""
-    return torch.einsum("btnh,dnh->btd", ctx, self.w_post) + self.b_post
+    th = self.CastTheta()
+    return torch.einsum("btnh,dnh->btd", ctx, th.w_post) + th.b_post
 
   # -- training forward --------------------------------------------------------
 
@@ -176,9 +186,11 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     """q [B, T, N, H], k/v [B, S, N, H], additive mask broadcastable to
     [B, N, T, S] -> [B, T, N, H] context and the [B, N, T, S] probs."""
     p = self.p
+    # in the fprop dtype, then float32 from the mask on (reference order)
     logits = torch.einsum("btnh,bsnh->bnts", q, k)
     if p.atten_logit_cap > 0:
-      logits = p.atten_logit_cap * torch.tanh(logits / p.atten_logit_cap)
+      cap = py_utils.WeakScalar(p.atten_logit_cap, logits)
+      logits = cap * py_utils.Tanh(logits / cap)
     logits = logits.float()
     if atten_mask is not None:
       logits = logits + atten_mask.float()
@@ -231,8 +243,9 @@ class MultiHeadedAttention(base_layer.BaseLayer):
       # the kernel scales by 1/sqrt(h) inside; q already carries the
       # learned query scale, so cancel the kernel's factor
       ctx = flash_attention.FlashAttention(
-          (q * math.sqrt(self._dim_per_head)).contiguous(), k.contiguous(),
-          v.contiguous(), causal=causal, segment_ids=seg)
+          (q * py_utils.WeakScalar(math.sqrt(self._dim_per_head), q))
+          .contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+          segment_ids=seg)
       if paddings is not None:
         # pad queries attend only pad keys here and real keys on the
         # einsum path: both garbage, zeroed for path parity

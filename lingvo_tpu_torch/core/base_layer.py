@@ -73,6 +73,9 @@ class BaseLayer(nn.Module):
     p = hyperparams.InstantiableParams(cls)
     p.Define("name", "", "Layer name; forms variable paths.")
     p.Define("dtype", torch.float32, "Weight dtype.")
+    p.Define("fprop_dtype", None,
+             "Activation dtype (torch.bfloat16 for mixed precision). None "
+             "= use dtype.")
     p.Define("params_init", WeightInit.Xavier(),
              "Default weight initializer for this layer.")
     return p
@@ -98,6 +101,11 @@ class BaseLayer(nn.Module):
     return self._params
 
   @property
+  def fprop_dtype(self):
+    p = self.p
+    return p.fprop_dtype if p.fprop_dtype is not None else p.dtype
+
+  @property
   def path(self) -> str:
     """Full slash path from the root layer (set by FinalizePaths)."""
     return self._path if self._path is not None else self.p.name
@@ -119,9 +127,14 @@ class BaseLayer(nn.Module):
 
   def CopyBaseParams(self, child_p: hyperparams.InstantiableParams
                      ) -> hyperparams.InstantiableParams:
-    """Propagates a non-default init down to a child (reference rule;
-    dtype needs no propagation while only float32 is ported)."""
+    """Propagates dtype, fprop_dtype and a non-default init down to a
+    child (the reference rule)."""
     p = self.p
+    if ("dtype" in child_p and child_p.dtype == torch.float32 and
+        p.dtype != torch.float32):
+      child_p.dtype = p.dtype
+    if "fprop_dtype" in child_p and child_p.fprop_dtype is None:
+      child_p.fprop_dtype = p.fprop_dtype
     if ("params_init" in child_p and
         child_p.params_init == WeightInit.Xavier() and
         p.params_init != WeightInit.Xavier()):
@@ -185,6 +198,36 @@ class BaseLayer(nn.Module):
       if any(True for _ in child.parameters()):
         tree[cname] = sub
     return tree
+
+  # ---- fprop dtype -----------------------------------------------------------
+
+  def ToFPropDtype(self, x):
+    return py_utils.MaybeBfloat16(x, self.fprop_dtype)
+
+  def CastTheta(self, theta: NestedMap | None = None) -> NestedMap:
+    """Floating theta leaves cast to the fprop dtype (the bf16 activations
+    policy), `StackedLeaf`s layer by layer. The casts are differentiable:
+    the float32 parameters get float32 gradients. theta=None: this
+    layer's own parameters. With fprop_dtype unset (or equal to dtype)
+    the leaves come back as they are."""
+    if theta is None:
+      # the parameter objects live as long as the layer (loads and moves
+      # fill them in place), so the map of them is built once
+      theta = self.__dict__.get("_own_theta")
+      if theta is None:
+        theta = NestedMap(dict(self.named_parameters(recurse=False)))
+        self.__dict__["_own_theta"] = theta
+    dtype = self.fprop_dtype
+    if dtype == self.p.dtype:
+      return theta
+
+    def _Cast(leaf):
+      if isinstance(leaf, StackedLeaf):
+        return StackedLeaf(tuple(py_utils.MaybeBfloat16(x, dtype)
+                                 for x in leaf.layers))
+      return py_utils.MaybeBfloat16(leaf, dtype)
+
+    return theta.Transform(_Cast)
 
   # ---- variable materialization --------------------------------------------
 

@@ -5,8 +5,10 @@ tied `SharedEmbeddingSoftmaxLayer` (lookup with the sqrt(d) scale, logits
 with the tanh cap, and the training loss: the dense `XentLossFromLogits`
 or, with `xent_block_size > 0`, the fused blockwise xent of
 `ops/fused_xent.py`), with the reference's Params field names, weight
-names and float32 op order. Only the fields the DenseLm models set are
-ported.
+names and op order. Under `fprop_dtype` (bfloat16) each layer casts its
+theta and inputs as the reference does (`CastTheta`, `ToFPropDtype`):
+the norm's moments, the rotation and the losses stay float32. Only the
+fields the DenseLm models set are ported.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from lingvo_tpu_torch.core import activations
 from lingvo_tpu_torch.core import base_layer
+from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
 from lingvo_tpu_torch.ops import fused_xent
@@ -43,7 +46,8 @@ class ProjectionLayer(base_layer.BaseLayer):
         "b", WeightParams((p.output_dim,), WeightInit.Constant(0.0), p.dtype))
 
   def FProp(self, inputs):
-    out = torch.matmul(inputs, self.w) + self.b
+    th = self.CastTheta()
+    out = torch.matmul(self.ToFPropDtype(inputs), th.w) + th.b
     return activations.GetFn(self.p.activation)(out)
 
 
@@ -67,12 +71,16 @@ class LayerNorm(base_layer.BaseLayer):
         "bias", WeightParams((p.input_dim,), WeightInit.Constant(0.0), p.dtype))
 
   def FProp(self, inputs):
+    """The moments in float32 (also under bf16 activations); the output in
+    the fprop dtype."""
     p = self.p
-    x32 = inputs.float()
+    th = self.CastTheta()
+    x = self.ToFPropDtype(inputs)
+    x32 = x.float()
     mean = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.mean(torch.square(x32 - mean), dim=-1, keepdim=True)
-    normed = ((x32 - mean) * torch.rsqrt(var + p.epsilon)).to(inputs.dtype)
-    return normed * (1.0 + self.scale) + self.bias
+    normed = ((x32 - mean) * torch.rsqrt(var + p.epsilon)).to(x.dtype)
+    return normed * (1.0 + th.scale) + th.bias
 
 
 class RotaryPositionalEmbeddingLayer(base_layer.BaseLayer):
@@ -93,7 +101,8 @@ class RotaryPositionalEmbeddingLayer(base_layer.BaseLayer):
     (partial rotary).
 
     The timescale is built in float32 exactly as the reference builds it:
-    min * (max / min) ** (arange(half) / half)."""
+    min * (max / min) ** (arange(half) / half); the rotation runs in
+    float32 and its result takes the inputs' dtype."""
     p = self.p
     dim = p.embedding_dim or inputs.shape[-1]
     assert dim % 2 == 0 and dim <= inputs.shape[-1], (dim, inputs.shape)
@@ -149,14 +158,18 @@ class SharedEmbeddingSoftmaxLayer(base_layer.BaseLayer):
             dtype=p.dtype))
 
   def EmbLookup(self, ids):
-    """Rows of the table, scaled by sqrt(embedding_dim)."""
-    return self.emb[ids.long()] * math.sqrt(self.p.embedding_dim)
+    """Rows of the table (in the fprop dtype), scaled by
+    sqrt(embedding_dim)."""
+    rows = self.CastTheta().emb[ids.long()]
+    return rows * py_utils.WeakScalar(math.sqrt(self.p.embedding_dim), rows)
 
   def Logits(self, inputs):
-    logits = torch.matmul(inputs, self.emb.t())
-    cap = self.p.logits_soft_max
-    if cap > 0:
-      logits = cap * torch.tanh(logits / cap)
+    """[..., V] logits in the fprop dtype, tanh-capped."""
+    th = self.CastTheta()
+    logits = torch.matmul(self.ToFPropDtype(inputs), th.emb.t())
+    if self.p.logits_soft_max > 0:
+      cap = py_utils.WeakScalar(self.p.logits_soft_max, logits)
+      logits = cap * py_utils.Tanh(logits / cap)
     return logits
 
   def FProp(self, inputs, class_ids=None, class_probabilities=None,
@@ -165,8 +178,10 @@ class SharedEmbeddingSoftmaxLayer(base_layer.BaseLayer):
     on the fused path logits and log_probs are None and label_log_probs
     and argmax (int32) come out of the streaming pass instead."""
     if FusedXentEligible(self.p, class_ids, class_probabilities):
+      # the fused kernel takes the inputs and the table in the fprop dtype
       out = fused_xent.FusedXent(
-          inputs, self.emb, class_ids, block_size=self.p.xent_block_size,
+          self.ToFPropDtype(inputs), self.CastTheta().emb, class_ids,
+          block_size=self.p.xent_block_size,
           logits_soft_max=self.p.logits_soft_max,
           label_smoothing=label_smoothing, weight_layout="vd")
       return NestedMap(per_example_xent=out.per_example_xent,

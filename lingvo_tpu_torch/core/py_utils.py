@@ -8,8 +8,9 @@ random numbers are torch's and differ from JAX's, so tests carry weights
 across with `convert.LoadJaxTheta` rather than re-drawing them.
 
 And what the train step needs: `ApplyPadding`, `SequenceMask` and
-`GlobalNorm`, in the reference's float32 op order; and the shape
-bucketing of batch decode, `RoundUpToBucket`.
+`GlobalNorm`, in the reference's float32 op order; the bf16 activations
+policy, `MaybeBfloat16` and `WeakScalar`; and the shape bucketing of
+batch decode, `RoundUpToBucket`.
 """
 
 from __future__ import annotations
@@ -155,6 +156,48 @@ def InitWeight(out: torch.Tensor, wp: WeightParams,
   if method == "truncated_gaussian_sqrt_fanin":
     return _Truncated(scale / math.sqrt(_fans()[0]))
   raise ValueError(f"Unknown init method {method!r}")
+
+
+def MaybeBfloat16(x: torch.Tensor, fprop_dtype) -> torch.Tensor:
+  """Casts a floating tensor to the fprop dtype (the bf16 activations
+  policy); others pass through. Differentiable: a float32 leaf cast to
+  bf16 gets its gradient back in float32."""
+  if fprop_dtype is not None and torch.is_floating_point(x):
+    return x.to(fprop_dtype)
+  return x
+
+
+def WeakScalar(value: float, like: torch.Tensor):
+  """A Python scalar as the reference's weakly typed one meets `like`:
+  JAX rounds it to a bfloat16 tensor's dtype first, torch would multiply
+  by the float32 value. float32 tensors take the float as it is."""
+  if like.dtype == torch.float32:
+    return value
+  return torch.tensor(value, dtype=like.dtype)
+
+
+class _TanhFn(torch.autograd.Function):
+  """tanh whose backward is the transpose of the reference's JVP
+  (g + g y)(1 - y): u = g (1 - y), then u + u y, op by op in the tensor's
+  dtype (torch's own rounds g (1 - y^2) once)."""
+
+  @staticmethod
+  def forward(ctx, x):
+    y = torch.tanh(x)
+    ctx.save_for_backward(y)
+    return y
+
+  @staticmethod
+  def backward(ctx, g):
+    y, = ctx.saved_tensors
+    u = g * (1 - y)
+    return u + u * y
+
+
+def Tanh(x: torch.Tensor) -> torch.Tensor:
+  """tanh with the reference's gradient rounding in bfloat16 (float32
+  takes torch.tanh: there the two agree to ulps)."""
+  return torch.tanh(x) if x.dtype == torch.float32 else _TanhFn.apply(x)
 
 
 def ApplyPadding(padding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -71,6 +71,10 @@ class GatedSSMLayer(base_layer.BaseLayer):
     super().__init__(params, device)
     p = self.p
     assert p.input_dim > 0 and p.num_heads > 0
+    if self.fprop_dtype != torch.float32:
+      raise NotImplementedError(
+          "bfloat16 activations in the SSM mixer come with its training "
+          "slice (ROADMAP item 9.1); the mixer runs float32")
     hidden = p.hidden_dim or p.input_dim
     self._dim_per_head = p.dim_per_head or hidden // p.num_heads
     n, h, s, d = p.num_heads, self._dim_per_head, p.state_dim, p.input_dim

@@ -1,5 +1,5 @@
 // Flash attention with a causal and a segment mask for Hopper (sm_90a),
-// float32: the forward pass and the two backward passes.
+// float32 and bfloat16: the forward pass and the two backward passes.
 //
 // Replaces the three Pallas TPU kernels of lingvo_tpu/ops/flash_attention.py:
 //   FlashFwdKernel   <- `_FwdKernel`   (pallas_call in `_FlashForward`)
@@ -49,9 +49,15 @@
 // SM, scalar shared-memory loads in the inner products (`ScoreTile`), and
 // no overlap of the next tile's copy with this tile's math.
 //
-// Limits (the Python wrapper raises outside them): float32, contiguous
-// [b, t, n, h] tensors, h a multiple of 16 and at most 128; any t.
+// The bfloat16 halves (FlashFwdBf16Kernel, FlashDkDvBf16Kernel,
+// FlashDqBf16Kernel) have their own section below: tensor cores, and p
+// rounded to bf16 where the reference rounds it.
+//
+// Limits (the Python wrapper raises outside them): float32 or bfloat16,
+// contiguous [b, t, n, h] tensors, h a multiple of 16 and at most 128; any
+// t; the bf16 forward's reference block a multiple of 64 keys or all of t.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -698,6 +704,729 @@ __global__ void __launch_bounds__(kThreads, 1) FlashDqKernel(
   }
 }
 
+// ---- bfloat16: tensor-core kernels at the reference's rounding points ----
+//
+// The bf16 halves of the three kernels (the reference's `_DotF32` keeps
+// native bf16 operands and accumulates in float32). Products run on the
+// tensor cores as mma.sync m16n8k16 bf16 -> f32 (a bf16 x bf16 product is
+// exact in float32, so the sums differ from the reference's only in
+// order); the transposed operands (V and dO, Q and K of the second
+// products) come in with ldmatrix .trans. Tiles sit in shared memory in
+// their [rows, h] layout at a row stride of h + 8 elements, so the 32-bit
+// fragment loads of 8 rows x 4 column pairs hit 32 distinct banks, and
+// 16-byte cp.async copies fill the next tile under this tile's math. Each
+// of the 4 warps of a block owns 16 rows; a row's statistics live in the
+// 4 lanes of a quad. Outputs are stored in bf16; lse stays float32.
+//
+// The rounding points are the reference's (flash_attention.py `_FwdKernel`,
+// `_DkDvKernel`, `_DqKernel`):
+// - forward: p = exp(s - m_safe) is rounded to bf16 before P.V, with m the
+//   running max through the END of the reference's key block (`block_k`,
+//   the largest power of two <= 1024 dividing t); l sums the unrounded p;
+//   out = bf16(acc / max(l, 1e-20)). A kernel that rounded against its own
+//   64-key tile max would round elsewhere (about as far off as not rounding
+//   at all), so each reference block takes two sweeps over its key tiles:
+//   the first computes s and only the row maxima, then m, l and acc are
+//   rescaled once (the reference's alpha), and the second recomputes s and
+//   accumulates l and bf16(p) . V. The cost: q . k is computed twice, 6h
+//   instead of 4h flops per attended pair. block_k must be a multiple of
+//   the 64-key tile or cover all of t.
+// - backward: p = exp(s - lse) is normalised (no running max); dp =
+//   f32(do . v), ds = p (dp - delta) sm_scale; dv += bf16(p)^T do, dk +=
+//   bf16(ds)^T q, dq += bf16(ds) k, each summed in float32 and rounded to
+//   bf16 once at the end.
+// The dK/dV block owns 64 keys and streams 32-query tiles; the dQ block
+// owns 64 queries and streams 32-key tiles (32 rows keep the score, dp and
+// two h-wide accumulators of a warp in registers). Tiles whose segment ids
+// cannot meet the block's are skipped (every pair masked: exactly a no-op).
+//
+// Bound: at [8, 1024, 16, 128] the bf16 forward moves 134 MB (q, k, v,
+// out) and does 4h flops per attended pair of model work: bytes-bound
+// near 0.04 ms at 3.35 TB/s; the backward pair is likewise near the
+// bytes line against 989 TFLOP/s. What this design leaves: wgmma and TMA
+// (mma.sync reaches a fraction of the dense bf16 rate), the forward's
+// second q . k, and rows of a segment boundary inside a tile.
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kHq = 64;       // bf16: queries of a forward / dQ block
+constexpr int kHk = 64;       // bf16 forward: keys of a key tile; dK/dV block
+constexpr int kHt = 32;       // bf16 backward: rows of a streamed tile
+constexpr int kHThreads = 128;
+constexpr int kHNt = kMaxHeadDim / 8;    // head-dim n-tiles of 8
+constexpr int kHKs = kMaxHeadDim / 16;   // head-dim k-steps of 16
+
+__device__ __forceinline__ void MmaBf16(float c[4], const uint32_t a[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t Ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two floats rounded to nearest-even bf16; lo (the smaller column of a
+// fragment) in the low half
+__device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ldmatrix .x4 .trans: lane l addresses row (l & 7) of 8 x 8 matrix l >> 3
+// and receives, of each matrix i, M_i[2 (l & 3)][l >> 2] and
+// M_i[2 (l & 3) + 1][l >> 2]: the B fragment of a row-major [k][n] tile.
+__device__ __forceinline__ void LdMatrixX4T(uint32_t r[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The A fragment (16 rows x 16 columns) at p of a row-major tile with row
+// stride ld.
+__device__ __forceinline__ void LoadA(uint32_t a[4], const bf16* p, int ld) {
+  const int lane = threadIdx.x & 31;
+  const bf16* s = p + (lane >> 2) * ld + 2 * (lane & 3);
+  a[0] = Ld32(s);
+  a[1] = Ld32(s + 8 * ld);
+  a[2] = Ld32(s + 8);
+  a[3] = Ld32(s + 8 * ld + 8);
+}
+
+// B fragments of the products of 16 rows of a tile (16 k rows at p, row
+// stride ld, [k][n] row-major) with n columns 16c .. 16c + 15: b[0..1] for
+// columns 16c.., b[2..3] for 16c + 8..
+__device__ __forceinline__ void LoadBT(uint32_t b[4], const bf16* p, int ld,
+                                       int c) {
+  const int lane = threadIdx.x & 31;
+  LdMatrixX4T(b, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 16 * c +
+                     8 * (lane >> 4));
+}
+
+__device__ __forceinline__ float QuadMax(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float QuadSum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ void CpAsyncBytes16(void* dst, const void* src,
+                                               bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+// Rows [start, start + rows) of head ni, batch bi of a bf16 [b, t, n, h]
+// tensor into dst (row stride ld) with 16-byte async copies; rows past t
+// are zero-filled.
+__device__ __forceinline__ void CopyRowsAsyncBf16(
+    bf16* dst, int ld, const bf16* __restrict__ src, const Problem& pb,
+    int bi, int ni, int start, int rows) {
+  const int h8 = pb.h / 8;
+  for (int c = threadIdx.x; c < rows * h8; c += kHThreads) {
+    const int r = c / h8, d8 = c - r * h8;
+    const int row = start + r;
+    const bool valid = row < pb.t;
+    CpAsyncBytes16(dst + r * ld + 8 * d8,
+                   src + pb.Off(bi, valid ? row : 0, ni) + 8 * d8, valid);
+  }
+}
+
+// Bit i of `live` (over ntiles tiles of `tile` rows) is set when tile i's
+// segment-id range meets [lo, hi]; every bit without segments. Every
+// thread calls it; it ends with a barrier.
+__device__ void LiveTiles(unsigned* live, const int* seg_row, int lo, int hi,
+                          int tile, int ntiles, int t) {
+  const int words = (ntiles + 31) / 32;
+  for (int w = threadIdx.x; w < words; w += blockDim.x)
+    live[w] = seg_row != nullptr ? 0u : 0xffffffffu;
+  __syncthreads();
+  if (seg_row != nullptr) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int i = warp; i < ntiles; i += blockDim.x >> 5) {
+      int a, z;
+      WarpSegRange(seg_row, i * tile, tile, t, &a, &z);
+      if (lane == 0 && !(z < lo || a > hi))
+        atomicOr(&live[i >> 5], 1u << (i & 31));
+    }
+  }
+  __syncthreads();
+}
+
+// The first live tile in [kt, end), or end.
+__device__ __forceinline__ int NextLive(const unsigned* live, int kt,
+                                        int end) {
+  while (kt < end) {
+    const unsigned word = live[kt >> 5] >> (kt & 31);
+    if (word) return min(end, kt + __ffs(word) - 1);
+    kt = (kt | 31) + 1;
+  }
+  return end;
+}
+
+// the reference's masks on one score: pair (row, col) kept?
+__device__ __forceinline__ bool Keep(const Problem& pb, int qi, int kj,
+                                     bool has_seg, int sq, int sk) {
+  return qi < pb.t && kj < pb.t && (!pb.causal || qi >= kj) &&
+         (!has_seg || sq == sk);
+}
+
+struct HFwdSmem {
+  int ld;                               // row stride (elements)
+  size_t k, v, segk, live, bytes;       // byte offsets; Q at 0
+};
+
+__host__ __device__ inline HFwdSmem HFwdLayout(int t, int h) {
+  HFwdSmem s;
+  s.ld = h + 8;
+  const size_t tile = static_cast<size_t>(kHk) * s.ld * sizeof(bf16);
+  s.k = static_cast<size_t>(kHq) * s.ld * sizeof(bf16);
+  s.v = s.k + 2 * tile;
+  s.segk = s.v + 2 * tile;
+  s.live = s.segk + 2 * kHk * sizeof(int);
+  s.bytes = s.live + ((t + kHk - 1) / kHk + 31) / 32 * sizeof(unsigned);
+  return s;
+}
+
+__global__ void __launch_bounds__(kHThreads) FlashFwdBf16Kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ seg,
+    bf16* __restrict__ out, float* __restrict__ lse, Problem pb,
+    int block_k) {
+  extern __shared__ __align__(16) unsigned char hsmem[];
+  const int h = pb.h, nks = h / 16, nnt = h / 8;
+  const HFwdSmem lay = HFwdLayout(pb.t, h);
+  const int ld = lay.ld;
+  bf16* qs = reinterpret_cast<bf16*>(hsmem);
+  bf16* ks = reinterpret_cast<bf16*>(hsmem + lay.k);    // [2][64][ld]
+  bf16* vs = reinterpret_cast<bf16*>(hsmem + lay.v);    // [2][64][ld]
+  int* segk_s = reinterpret_cast<int*>(hsmem + lay.segk);  // [2][64]
+  unsigned* live = reinterpret_cast<unsigned*>(hsmem + lay.live);
+  const int q0 = blockIdx.x * kHq;
+  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const bool has_seg = seg != nullptr;
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const int segq_a = has_seg && row_a < pb.t ? seg_row[row_a] : 0;
+  const int segq_b = has_seg && row_b < pb.t ? seg_row[row_b] : 0;
+
+  CopyRowsAsyncBf16(qs, ld, q, pb, bi, ni, q0, kHq);
+  CpAsyncCommit();
+
+  const int k_end = pb.causal ? min(pb.t, q0 + kHq) : pb.t;
+  const int nkt = (k_end + kHk - 1) / kHk;
+  // key tiles per reference block (block_k: a multiple of 64, or >= t)
+  const int tpr = block_k >= pb.t ? nkt : block_k / kHk;
+  const int nrb = (nkt + tpr - 1) / tpr;
+  int qlo = 0, qhi = 0;
+  if (has_seg) WarpSegRange(seg_row, q0, kHq, pb.t, &qlo, &qhi);
+  LiveTiles(live, seg_row, qlo, qhi, kHk, nkt, pb.t);
+
+  // a step: (reference block rb, pass 0 = row maxima / 1 = P.V, tile kt);
+  // kt = -1 past the last step
+  auto tile_lo = [&](int rb) { return rb * tpr; };
+  auto tile_hi = [&](int rb) { return min(nkt, (rb + 1) * tpr); };
+  auto first_from = [&](int rb0, int& rb, int& kt) {
+    for (rb = rb0; rb < nrb; ++rb) {
+      kt = NextLive(live, tile_lo(rb), tile_hi(rb));
+      if (kt < tile_hi(rb)) return;
+    }
+    kt = -1;
+  };
+  auto advance = [&](int& rb, int& pass, int& kt) {
+    const int hi = tile_hi(rb);
+    const int nk = NextLive(live, kt + 1, hi);
+    if (nk < hi) {
+      kt = nk;
+    } else if (pass == 0) {
+      pass = 1;
+      kt = NextLive(live, tile_lo(rb), hi);
+    } else {
+      pass = 0;
+      first_from(rb + 1, rb, kt);
+    }
+  };
+  auto prefetch = [&](int pass, int kt, int stage) {
+    if (kt >= 0) {
+      CopyRowsAsyncBf16(ks + stage * kHk * ld, ld, k, pb, bi, ni, kt * kHk,
+                        kHk);
+      if (pass == 1)
+        CopyRowsAsyncBf16(vs + stage * kHk * ld, ld, v, pb, bi, ni,
+                          kt * kHk, kHk);
+      if (tid < kHk) {
+        const int key = kt * kHk + tid;
+        segk_s[stage * kHk + tid] = has_seg && key < pb.t ? seg_row[key] : 0;
+      }
+    }
+    CpAsyncCommit();
+  };
+
+  int rb = 0, pass = 0, kt = -1;
+  first_from(0, rb, kt);
+  prefetch(pass, kt, 0);
+  CpAsyncWait<1>();   // Q landed
+  __syncthreads();
+  uint32_t qf[kHKs][4];
+#pragma unroll
+  for (int kk = 0; kk < kHKs; ++kk)
+    if (kk < nks) LoadA(qf[kk], qs + warp * 16 * ld + kk * 16, ld);
+
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;  // l: partial
+  float mb_a = kNegInf, mb_b = kNegInf;   // this block's row maxima
+  float ms_a = 0.f, ms_b = 0.f;           // m_safe of the P.V pass
+  float acc[kHNt][4];
+#pragma unroll
+  for (int c = 0; c < kHNt; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+
+  for (int stage = 0; kt >= 0; stage ^= 1) {
+    int n_rb = rb, n_pass = pass, n_kt = kt;
+    advance(n_rb, n_pass, n_kt);
+    prefetch(n_pass, n_kt, stage ^ 1);
+    CpAsyncWait<1>();
+    __syncthreads();   // this step's tiles landed
+    const bf16* kst = ks + stage * kHk * ld;
+    const bf16* vst = vs + stage * kHk * ld;
+    const int* segk = segk_s + stage * kHk;
+    const int k0 = kt * kHk;
+
+    // s = (q . k) * sm_scale where kept, else NEG_INF: 16 rows x 64 keys
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kHKs; ++kk) {
+      if (kk < nks) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          const bf16* bp = kst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
+          MmaBf16(s[nt], qf[kk], Ld32(bp), Ld32(bp + 8));
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        const bool keep = Keep(pb, e < 2 ? row_a : row_b, k0 + col, has_seg,
+                               e < 2 ? segq_a : segq_b, segk[col]);
+        s[nt][e] = keep ? s[nt][e] * pb.sm_scale : kNegInf;
+      }
+
+    if (pass == 0) {
+      float ma = kNegInf, mb = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        ma = fmaxf(ma, fmaxf(s[nt][0], s[nt][1]));
+        mb = fmaxf(mb, fmaxf(s[nt][2], s[nt][3]));
+      }
+      mb_a = fmaxf(mb_a, QuadMax(ma));
+      mb_b = fmaxf(mb_b, QuadMax(mb));
+      if (n_pass != 0 || n_rb != rb) {
+        // the block's maxima are known: the reference's m_new and alpha
+        const float mn_a = fmaxf(m_a, mb_a), mn_b = fmaxf(m_b, mb_b);
+        const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+        l_a *= al_a;
+        l_b *= al_b;
+#pragma unroll
+        for (int c = 0; c < kHNt; ++c) {
+          acc[c][0] *= al_a;
+          acc[c][1] *= al_a;
+          acc[c][2] *= al_b;
+          acc[c][3] *= al_b;
+        }
+        m_a = mn_a;
+        m_b = mn_b;
+        // rows with no unmasked key yet: masked entries must give p = 0
+        ms_a = m_a <= kNegInf * 0.5f ? 0.f : m_a;
+        ms_b = m_b <= kNegInf * 0.5f ? 0.f : m_b;
+        mb_a = mb_b = kNegInf;
+      }
+    } else {
+      // p = exp(s - m_safe): l sums it unrounded, P.V takes bf16(p)
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float p0 = expf(s[nt][0] - ms_a), p1 = expf(s[nt][1] - ms_a);
+        const float p2 = expf(s[nt][2] - ms_b), p3 = expf(s[nt][3] - ms_b);
+        l_a += p0 + p1;
+        l_b += p2 + p3;
+        pa[nt >> 1][2 * (nt & 1)] = PackBf16(p0, p1);
+        pa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(p2, p3);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < kHKs; ++c) {
+          if (c < nks) {
+            uint32_t b[4];
+            LoadBT(b, vst + 16 * j * ld, ld, c);
+            MmaBf16(acc[2 * c], pa[j], b[0], b[1]);
+            MmaBf16(acc[2 * c + 1], pa[j], b[2], b[3]);
+          }
+        }
+    }
+    __syncthreads();   // this stage is consumed before it is refilled
+    rb = n_rb;
+    pass = n_pass;
+    kt = n_kt;
+  }
+  CpAsyncWait<0>();
+  const float den_a = fmaxf(QuadSum(l_a), 1e-20f);
+  const float den_b = fmaxf(QuadSum(l_b), 1e-20f);
+#pragma unroll
+  for (int c = 0; c < kHNt; ++c) {
+    if (c < nnt) {
+      if (row_a < pb.t)
+        *reinterpret_cast<uint32_t*>(out + pb.Off(bi, row_a, ni) + c * 8 +
+                                     2 * tig) =
+            PackBf16(acc[c][0] / den_a, acc[c][1] / den_a);
+      if (row_b < pb.t)
+        *reinterpret_cast<uint32_t*>(out + pb.Off(bi, row_b, ni) + c * 8 +
+                                     2 * tig) =
+            PackBf16(acc[c][2] / den_b, acc[c][3] / den_b);
+    }
+  }
+  if (tig == 0) {
+    if (row_a < pb.t) lse[pb.RowOff(bi, ni, row_a)] = m_a + logf(den_a);
+    if (row_b < pb.t) lse[pb.RowOff(bi, ni, row_b)] = m_b + logf(den_b);
+  }
+}
+
+struct HBwdSmem {
+  int ld;                                       // row stride (elements)
+  size_t own2, tile, tile2, lse, delta, ids, live, bytes;  // byte offsets
+};
+
+// The backward blocks' layout: two 64-row tiles the block owns (K and V
+// for dK/dV, Q and dO for dQ) at 0, then two double-buffered 32-row
+// streamed tiles (Q and dO, or K and V), then the streamed rows' lse,
+// delta (dK/dV only) and segment ids, then the live-tile bits.
+__host__ __device__ inline HBwdSmem HBwdLayout(int t, int h) {
+  HBwdSmem s;
+  s.ld = h + 8;
+  const size_t own = static_cast<size_t>(kHq) * s.ld * sizeof(bf16);
+  const size_t tile = static_cast<size_t>(kHt) * s.ld * sizeof(bf16);
+  s.own2 = own;
+  s.tile = 2 * own;
+  s.tile2 = s.tile + 2 * tile;
+  s.lse = s.tile2 + 2 * tile;
+  s.delta = s.lse + 2 * kHt * sizeof(float);
+  s.ids = s.delta + 2 * kHt * sizeof(float);
+  s.live = s.ids + 2 * kHt * sizeof(int);
+  s.bytes = s.live + ((t + kHt - 1) / kHt + 31) / 32 * sizeof(unsigned);
+  return s;
+}
+
+__global__ void __launch_bounds__(kHThreads) FlashDkDvBf16Kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ seg,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, Problem pb) {
+  extern __shared__ __align__(16) unsigned char hsmem[];
+  const int h = pb.h, nks = h / 16, nnt = h / 8;
+  const HBwdSmem lay = HBwdLayout(pb.t, h);
+  const int ld = lay.ld;
+  bf16* ks = reinterpret_cast<bf16*>(hsmem);              // [64][ld]
+  bf16* vs = reinterpret_cast<bf16*>(hsmem + lay.own2);   // [64][ld]
+  bf16* qs = reinterpret_cast<bf16*>(hsmem + lay.tile);   // [2][32][ld]
+  bf16* dos = reinterpret_cast<bf16*>(hsmem + lay.tile2); // [2][32][ld]
+  float* lse_s = reinterpret_cast<float*>(hsmem + lay.lse);      // [2][32]
+  float* delta_s = reinterpret_cast<float*>(hsmem + lay.delta);  // [2][32]
+  int* segq_s = reinterpret_cast<int*>(hsmem + lay.ids);         // [2][32]
+  unsigned* live = reinterpret_cast<unsigned*>(hsmem + lay.live);
+  const int k0 = blockIdx.x * kHk;
+  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const bool has_seg = seg != nullptr;
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
+  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const int segk_a = has_seg && key_a < pb.t ? seg_row[key_a] : 0;
+  const int segk_b = has_seg && key_b < pb.t ? seg_row[key_b] : 0;
+
+  CopyRowsAsyncBf16(ks, ld, k, pb, bi, ni, k0, kHk);
+  CopyRowsAsyncBf16(vs, ld, v, pb, bi, ni, k0, kHk);
+  CpAsyncCommit();
+
+  // the first causally live query tile is the one holding query k0
+  const int nqt = (pb.t + kHt - 1) / kHt;
+  const int qt0 = pb.causal ? k0 / kHt : 0;
+  int klo = 0, khi = 0;
+  if (has_seg) WarpSegRange(seg_row, k0, kHk, pb.t, &klo, &khi);
+  LiveTiles(live, seg_row, klo, khi, kHt, nqt, pb.t);
+  auto prefetch = [&](int qt, int stage) {
+    if (qt < nqt) {
+      CopyRowsAsyncBf16(qs + stage * kHt * ld, ld, q, pb, bi, ni, qt * kHt,
+                        kHt);
+      CopyRowsAsyncBf16(dos + stage * kHt * ld, ld, dout, pb, bi, ni,
+                        qt * kHt, kHt);
+      if (tid < kHt) {
+        const int row = qt * kHt + tid;
+        const bool in = row < pb.t;
+        lse_s[stage * kHt + tid] = in ? lse[pb.RowOff(bi, ni, row)] : 0.f;
+        delta_s[stage * kHt + tid] = in ? delta[pb.RowOff(bi, ni, row)] : 0.f;
+        segq_s[stage * kHt + tid] = has_seg && in ? seg_row[row] : 0;
+      }
+    }
+    CpAsyncCommit();
+  };
+
+  float dka[kHNt][4], dva[kHNt][4];
+#pragma unroll
+  for (int c = 0; c < kHNt; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
+
+  int qt = NextLive(live, qt0, nqt);
+  prefetch(qt, 0);
+  for (int stage = 0; qt < nqt; stage ^= 1) {
+    const int nxt = NextLive(live, qt + 1, nqt);
+    prefetch(nxt, stage ^ 1);
+    CpAsyncWait<1>();
+    __syncthreads();   // K, V and this query tile landed
+    const bf16* qst = qs + stage * kHt * ld;
+    const bf16* dst = dos + stage * kHt * ld;
+    const float* lse_t = lse_s + stage * kHt;
+    const float* delta_t = delta_s + stage * kHt;
+    const int* segq = segq_s + stage * kHt;
+    const int qbase = qt * kHt;
+    // s^T = k . q and dp^T = v . do: 16 keys x 32 queries per warp
+    float st[4][4], dpt[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kHKs; ++kk) {
+      if (kk < nks) {
+        uint32_t ka[4], va[4];
+        LoadA(ka, ks + warp * 16 * ld + kk * 16, ld);
+        LoadA(va, vs + warp * 16 * ld + kk * 16, ld);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bf16* qp = qst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
+          MmaBf16(st[nt], ka, Ld32(qp), Ld32(qp + 8));
+          const bf16* op = dst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
+          MmaBf16(dpt[nt], va, Ld32(op), Ld32(op + 8));
+        }
+      }
+    }
+    // p = exp(s - lse), ds = p (dp - delta) sm_scale, as A fragments over
+    // the tile's queries (rounded to bf16 here, where the reference rounds)
+    uint32_t pa[2][4], dsa[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        const bool keep = Keep(pb, qbase + col, e < 2 ? key_a : key_b,
+                               has_seg, segq[col], e < 2 ? segk_a : segk_b);
+        const float s = keep ? st[nt][e] * pb.sm_scale : kNegInf;
+        p[e] = expf(s - lse_t[col]);
+        ds[e] = p[e] * (dpt[nt][e] - delta_t[col]) * pb.sm_scale;
+      }
+      pa[nt >> 1][2 * (nt & 1)] = PackBf16(p[0], p[1]);
+      pa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(p[2], p[3]);
+      dsa[nt >> 1][2 * (nt & 1)] = PackBf16(ds[0], ds[1]);
+      dsa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(ds[2], ds[3]);
+    }
+    // dv += bf16(p)^T do, dk += bf16(ds)^T q over the tile's 32 queries
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < kHKs; ++c) {
+        if (c < nks) {
+          uint32_t b[4];
+          LoadBT(b, dst + 16 * j * ld, ld, c);
+          MmaBf16(dva[2 * c], pa[j], b[0], b[1]);
+          MmaBf16(dva[2 * c + 1], pa[j], b[2], b[3]);
+          LoadBT(b, qst + 16 * j * ld, ld, c);
+          MmaBf16(dka[2 * c], dsa[j], b[0], b[1]);
+          MmaBf16(dka[2 * c + 1], dsa[j], b[2], b[3]);
+        }
+      }
+    __syncthreads();   // this stage is consumed before it is refilled
+    qt = nxt;
+  }
+  CpAsyncWait<0>();
+#pragma unroll
+  for (int c = 0; c < kHNt; ++c) {
+    if (c < nnt) {
+      const int col = c * 8 + 2 * tig;
+      if (key_a < pb.t) {
+        const size_t off = pb.Off(bi, key_a, ni) + col;
+        *reinterpret_cast<uint32_t*>(dk + off) = PackBf16(dka[c][0], dka[c][1]);
+        *reinterpret_cast<uint32_t*>(dv + off) = PackBf16(dva[c][0], dva[c][1]);
+      }
+      if (key_b < pb.t) {
+        const size_t off = pb.Off(bi, key_b, ni) + col;
+        *reinterpret_cast<uint32_t*>(dk + off) = PackBf16(dka[c][2], dka[c][3]);
+        *reinterpret_cast<uint32_t*>(dv + off) = PackBf16(dva[c][2], dva[c][3]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kHThreads) FlashDqBf16Kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ seg,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dq, Problem pb) {
+  extern __shared__ __align__(16) unsigned char hsmem[];
+  const int h = pb.h, nks = h / 16, nnt = h / 8;
+  const HBwdSmem lay = HBwdLayout(pb.t, h);
+  const int ld = lay.ld;
+  bf16* qs = reinterpret_cast<bf16*>(hsmem);              // [64][ld]
+  bf16* dos = reinterpret_cast<bf16*>(hsmem + lay.own2);  // [64][ld]
+  bf16* ks = reinterpret_cast<bf16*>(hsmem + lay.tile);   // [2][32][ld]
+  bf16* vs = reinterpret_cast<bf16*>(hsmem + lay.tile2);  // [2][32][ld]
+  int* segk_s = reinterpret_cast<int*>(hsmem + lay.ids);  // [2][32]
+  unsigned* live = reinterpret_cast<unsigned*>(hsmem + lay.live);
+  const int q0 = blockIdx.x * kHq;
+  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const bool has_seg = seg != nullptr;
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
+  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const bool in_a = row_a < pb.t, in_b = row_b < pb.t;
+  const int segq_a = has_seg && in_a ? seg_row[row_a] : 0;
+  const int segq_b = has_seg && in_b ? seg_row[row_b] : 0;
+  const float lse_a = in_a ? lse[pb.RowOff(bi, ni, row_a)] : 0.f;
+  const float lse_b = in_b ? lse[pb.RowOff(bi, ni, row_b)] : 0.f;
+  const float delta_a = in_a ? delta[pb.RowOff(bi, ni, row_a)] : 0.f;
+  const float delta_b = in_b ? delta[pb.RowOff(bi, ni, row_b)] : 0.f;
+
+  CopyRowsAsyncBf16(qs, ld, q, pb, bi, ni, q0, kHq);
+  CopyRowsAsyncBf16(dos, ld, dout, pb, bi, ni, q0, kHq);
+  CpAsyncCommit();
+
+  const int k_end = pb.causal ? min(pb.t, q0 + kHq) : pb.t;
+  const int nkt = (k_end + kHt - 1) / kHt;
+  int qlo = 0, qhi = 0;
+  if (has_seg) WarpSegRange(seg_row, q0, kHq, pb.t, &qlo, &qhi);
+  LiveTiles(live, seg_row, qlo, qhi, kHt, nkt, pb.t);
+  auto prefetch = [&](int kt, int stage) {
+    if (kt < nkt) {
+      CopyRowsAsyncBf16(ks + stage * kHt * ld, ld, k, pb, bi, ni, kt * kHt,
+                        kHt);
+      CopyRowsAsyncBf16(vs + stage * kHt * ld, ld, v, pb, bi, ni, kt * kHt,
+                        kHt);
+      if (tid < kHt) {
+        const int key = kt * kHt + tid;
+        segk_s[stage * kHt + tid] = has_seg && key < pb.t ? seg_row[key] : 0;
+      }
+    }
+    CpAsyncCommit();
+  };
+
+  float dqa[kHNt][4];
+#pragma unroll
+  for (int c = 0; c < kHNt; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[c][e] = 0.f;
+
+  int kt = NextLive(live, 0, nkt);
+  prefetch(kt, 0);
+  for (int stage = 0; kt < nkt; stage ^= 1) {
+    const int nxt = NextLive(live, kt + 1, nkt);
+    prefetch(nxt, stage ^ 1);
+    CpAsyncWait<1>();
+    __syncthreads();   // Q, dO and this key tile landed
+    const bf16* kst = ks + stage * kHt * ld;
+    const bf16* vst = vs + stage * kHt * ld;
+    const int* segk = segk_s + stage * kHt;
+    const int kbase = kt * kHt;
+    // s = q . k and dp = do . v: 16 queries x 32 keys per warp
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kHKs; ++kk) {
+      if (kk < nks) {
+        uint32_t qa[4], oa[4];
+        LoadA(qa, qs + warp * 16 * ld + kk * 16, ld);
+        LoadA(oa, dos + warp * 16 * ld + kk * 16, ld);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bf16* kp = kst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
+          MmaBf16(s[nt], qa, Ld32(kp), Ld32(kp + 8));
+          const bf16* vp = vst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
+          MmaBf16(dp[nt], oa, Ld32(vp), Ld32(vp + 8));
+        }
+      }
+    }
+    uint32_t dsa[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = nt * 8 + 2 * tig + (e & 1);
+        const bool keep = Keep(pb, e < 2 ? row_a : row_b, kbase + col,
+                               has_seg, e < 2 ? segq_a : segq_b, segk[col]);
+        const float sv = keep ? s[nt][e] * pb.sm_scale : kNegInf;
+        const float p = expf(sv - (e < 2 ? lse_a : lse_b));
+        ds[e] = p * (dp[nt][e] - (e < 2 ? delta_a : delta_b)) * pb.sm_scale;
+      }
+      dsa[nt >> 1][2 * (nt & 1)] = PackBf16(ds[0], ds[1]);
+      dsa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(ds[2], ds[3]);
+    }
+    // dq += bf16(ds) k over the tile's 32 keys
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < kHKs; ++c) {
+        if (c < nks) {
+          uint32_t b[4];
+          LoadBT(b, kst + 16 * j * ld, ld, c);
+          MmaBf16(dqa[2 * c], dsa[j], b[0], b[1]);
+          MmaBf16(dqa[2 * c + 1], dsa[j], b[2], b[3]);
+        }
+      }
+    __syncthreads();   // this stage is consumed before it is refilled
+    kt = nxt;
+  }
+  CpAsyncWait<0>();
+#pragma unroll
+  for (int c = 0; c < kHNt; ++c) {
+    if (c < nnt) {
+      const int col = c * 8 + 2 * tig;
+      if (in_a)
+        *reinterpret_cast<uint32_t*>(dq + pb.Off(bi, row_a, ni) + col) =
+            PackBf16(dqa[c][0], dqa[c][1]);
+      if (in_b)
+        *reinterpret_cast<uint32_t*>(dq + pb.Off(bi, row_b, ni) + col) =
+            PackBf16(dqa[c][2], dqa[c][3]);
+    }
+  }
+}
+
 size_t FloatsBytes(size_t floats) { return floats * sizeof(float); }
 
 bool BadShape(int b, int t, int n, int h) {
@@ -790,6 +1519,62 @@ int FlashBwdDqF32(const float* q, const float* k, const float* v,
   FlashDqKernel<<<dim3((t + kTile - 1) / kTile, b * n), kThreads, smem,
                   static_cast<cudaStream_t>(stream)>>>(
       q, k, v, seg, dout, lse, delta, dq, pb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 kernels (same conventions; q/k/v/out/do/dq/dk/dv bf16, lse
+// and delta float32). block_k: the reference's key block, a multiple of 64
+// or >= t.
+
+int FlashFwdBF16(const void* q, const void* k, const void* v, const int* seg,
+                 void* out, float* lse, int b, int t, int n, int h,
+                 int causal, int block_k, void* stream) {
+  if (BadShape(b, t, n, h) || block_k <= 0 ||
+      (block_k < t && block_k % kHk != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Problem pb = MakeProblem(t, n, h, causal);
+  const size_t smem = HFwdLayout(t, h).bytes;
+  cudaError_t err = AllowSmem(FlashFwdBf16Kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FlashFwdBf16Kernel<<<dim3((t + kHq - 1) / kHq, b * n), kHThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg, static_cast<bf16*>(out), lse, pb,
+      block_k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int FlashBwdDkDvBF16(const void* q, const void* k, const void* v,
+                     const int* seg, const void* dout, const float* lse,
+                     const float* delta, void* dk, void* dv, int b, int t,
+                     int n, int h, int causal, void* stream) {
+  if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
+  Problem pb = MakeProblem(t, n, h, causal);
+  const size_t smem = HBwdLayout(t, h).bytes;
+  cudaError_t err = AllowSmem(FlashDkDvBf16Kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FlashDkDvBf16Kernel<<<dim3((t + kHk - 1) / kHk, b * n), kHThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg, static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), pb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int FlashBwdDqBF16(const void* q, const void* k, const void* v,
+                   const int* seg, const void* dout, const float* lse,
+                   const float* delta, void* dq, int b, int t, int n, int h,
+                   int causal, void* stream) {
+  if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
+  Problem pb = MakeProblem(t, n, h, causal);
+  const size_t smem = HBwdLayout(t, h).bytes;
+  cudaError_t err = AllowSmem(FlashDqBf16Kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FlashDqBf16Kernel<<<dim3((t + kHq - 1) / kHq, b * n), kHThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), seg, static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), pb);
   return static_cast<int>(cudaGetLastError());
 }
 

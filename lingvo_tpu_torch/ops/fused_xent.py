@@ -19,10 +19,20 @@ The forward statistics have two implementations of one function:
   yardstick on the card.
 
 `FusedXentStats` picks by the device of the tensors it is given, and only
-by that: a CUDA tensor launches the kernel or raises. The backward is
-`_PlainCoreBwd`, the reference's `_CoreBwd` block loop, on both devices:
-the reference runs it in XLA outside any Pallas kernel, so its products
-here are `torch.matmul`.
+by that: a CUDA tensor launches the kernel of its dtype or raises. The
+backward is `_PlainCoreBwd`, the reference's `_CoreBwd` block loop, on
+both devices: the reference runs it in XLA outside any Pallas kernel, so
+its products here are library GEMMs.
+
+bfloat16 inputs (the table cast to the fprop dtype) keep bf16 operands
+with float32 sums, as the reference's `_DotF32`: every statistic is
+float32 and nothing in the forward rounds. The backward rounds dz to
+bf16 before its two products (the reference's `dzc`), sums dx in
+float32 and casts it to x's dtype at the end, and casts each block's
+dw to the weight's dtype. Its bf16 x bf16 -> float32 products go to
+`MatmulF32`: on the card a cuBLAS bf16 GEMM with float32 output
+(`torch.mm(..., out_dtype=torch.float32)`), on the CPU the operands
+widened to float32, where every product is exact.
 """
 
 from __future__ import annotations
@@ -64,10 +74,22 @@ def _WeightBlock(w, start: int, end: int, cfg: _Cfg):
   return w[start:end] if cfg.vd else w[:, start:end]
 
 
+def MatmulF32(a, b):
+  """a [M, K] @ b [K, N] with float32 sums and a float32 result: for bf16
+  operands a cuBLAS bf16 GEMM with float32 output on the card, the
+  operands widened to float32 (exact products) on the CPU; float32
+  operands multiply as they are."""
+  if a.dtype == torch.float32 and b.dtype == torch.float32:
+    return torch.matmul(a, b)
+  if a.device.type == "cuda":
+    return torch.mm(a, b, out_dtype=torch.float32)
+  return torch.matmul(a.float(), b.float())
+
+
 def _BlockLogits(x, w_blk, b_blk, cfg: _Cfg):
   """One block of capped logits in f32: x [R, D] -> [R, bs]."""
-  s = torch.matmul(x, w_blk.t() if cfg.vd else w_blk)
-  s = s + b_blk
+  s = MatmulF32(x, w_blk.t() if cfg.vd else w_blk)
+  s = s + b_blk.float()
   if cfg.soft_cap > 0.0:
     s = cfg.soft_cap * torch.tanh(s / cfg.soft_cap)
   return s
@@ -137,6 +159,9 @@ def _Lib():
     lib.FusedXentStatsF32.argtypes = (
         [vp] * 8 + [ci] * 5 + [ctypes.c_float, ci, vp])
     lib.FusedXentStatsF32.restype = ci
+    lib.FusedXentStatsBF16.argtypes = (
+        [vp] * 8 + [ci] * 3 + [ctypes.c_float, ci, vp])
+    lib.FusedXentStatsBF16.restype = ci
     lib.FusedXentErrorString.argtypes = [ci]
     lib.FusedXentErrorString.restype = ctypes.c_char_p
     _lib = lib
@@ -144,11 +169,11 @@ def _Lib():
 
 
 def _CheckStatsArgs(x, w, b, labels, cfg: _Cfg):
-  for name, t in (("x", x), ("weight", w), ("bias", b)):
-    if t.dtype != torch.float32:
-      raise TypeError(
-          f"FusedXent takes float32 {name}, got {t.dtype}; bfloat16 heads "
-          "come with the bf16-kernel slice of the port")
+  if x.dtype not in (torch.float32, torch.bfloat16):
+    raise TypeError(f"FusedXent takes float32 or bfloat16 x, got {x.dtype}")
+  for name, t in (("weight", w), ("bias", b)):
+    if t.dtype != x.dtype:
+      raise TypeError(f"FusedXent: {name} is {t.dtype}, x is {x.dtype}")
   d = x.shape[1]
   w_shape = (cfg.vocab, d) if cfg.vd else (d, cfg.vocab)
   if x.ndim != 2 or tuple(w.shape) != w_shape or tuple(b.shape) != (
@@ -167,8 +192,9 @@ def _CheckStatsArgs(x, w, b, labels, cfg: _Cfg):
 def FusedXentStats(x, w, b, labels, cfg: _Cfg):
   """(lse, label_logit, sum_logits or None, argmax int32), each [M].
 
-  CPU tensors run `_PlainStats`; CUDA tensors launch the kernel (one
-  launch counted in `FusedXentStats.launches`) or raise."""
+  CPU tensors run `_PlainStats`; CUDA tensors launch the kernel of their
+  dtype (one launch counted in `FusedXentStats.launches` and
+  `.launches_by_dtype`) or raise."""
   _CheckStatsArgs(x, w, b, labels, cfg)
   if x.device.type == "cpu":
     return _PlainStats(x, w, b, labels, cfg)
@@ -176,6 +202,12 @@ def FusedXentStats(x, w, b, labels, cfg: _Cfg):
     raise ValueError(f"FusedXent runs on cpu or cuda, not {x.device}")
   if not all(t.is_contiguous() for t in (x, w, b, labels)):
     raise ValueError("FusedXent kernel takes contiguous tensors")
+  bf16 = x.dtype == torch.bfloat16
+  if bf16 and (not cfg.vd or x.shape[1] % 8 or any(
+      t.data_ptr() % 16 for t in (x, w))):
+    raise ValueError(
+        "the bf16 FusedXent kernel takes the [V, D] weight layout, D a "
+        "multiple of 8 and 16-byte aligned x and weight")
   rows, d = x.shape
   lse, llog, sumlog = (torch.empty((rows,), dtype=torch.float32,
                                    device=x.device) for _ in range(3))
@@ -183,19 +215,30 @@ def FusedXentStats(x, w, b, labels, cfg: _Cfg):
   need_sum = cfg.label_smoothing > 0.0
   if rows:
     lib = _Lib()
-    rc = lib.FusedXentStatsF32(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-        lse.data_ptr(), llog.data_ptr(), sumlog.data_ptr(), amax.data_ptr(),
-        rows, d, cfg.vocab, cfg.block_size, int(cfg.vd), cfg.soft_cap,
-        int(need_sum), torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), llog.data_ptr(), sumlog.data_ptr(),
+            amax.data_ptr())
+    if bf16:
+      # the statistics do not depend on the vocab blocks (no rounding
+      # inside), so the bf16 kernel walks the vocabulary in its own tiles
+      rc = lib.FusedXentStatsBF16(*ptrs, rows, d, cfg.vocab, cfg.soft_cap,
+                                  int(need_sum), stream)
+    else:
+      rc = lib.FusedXentStatsF32(*ptrs, rows, d, cfg.vocab, cfg.block_size,
+                                 int(cfg.vd), cfg.soft_cap, int(need_sum),
+                                 stream)
     if rc != 0:
       raise RuntimeError("FusedXent kernel launch failed: "
                          + lib.FusedXentErrorString(rc).decode())
     FusedXentStats.launches += 1
+    FusedXentStats.launches_by_dtype["bfloat16" if bf16 else "float32"] += 1
   return lse, llog, sumlog if need_sum else None, amax
 
 
-FusedXentStats.launches = 0   # kernel launches (the plain version counts none)
+# kernel launches, in all and by dtype (the plain version counts none)
+FusedXentStats.launches = 0
+FusedXentStats.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 # -- backward and autograd -----------------------------------------------------
@@ -237,16 +280,15 @@ def _PlainCoreBwd(x, w, b, labels, lse, g_xent, g_llp, g_lse, cfg: _Cfg):
       dz = dz + coef_ones
     if cfg.soft_cap > 0.0:
       dz = dz * (1.0 - (s / cfg.soft_cap) ** 2)
-    if cfg.vd:
-      dx = dx + torch.matmul(dz, w_blk)
-    else:
-      dx = dx + torch.matmul(dz, w_blk.t())
-    dw_blk = torch.matmul(dz.t(), x)                       # [bs, D]
+    # the products take dz in x's dtype with float32 sums (reference dzc)
+    dzc = dz.to(x.dtype)
+    dx = dx + MatmulF32(dzc, w_blk if cfg.vd else w_blk.t())
+    dw_blk = MatmulF32(dzc.t(), x)                         # [bs, D]
     if cfg.vd:
       dw[start:end] = dw_blk
     else:
       dw[:, start:end] = dw_blk.t()
-    db[start:end] = torch.sum(dz, dim=0)
+    db[start:end] = torch.sum(dz, dim=0)   # cast to b's dtype
   return dx.to(x.dtype), dw, db
 
 
@@ -278,7 +320,8 @@ def FusedXent(inputs, weight, class_ids, *, block_size: int, bias=None,
               weight_layout: str = "vd") -> FusedXentOutput:
   """Blockwise fused LM-head + softmax cross-entropy.
 
-  inputs: [..., D] float32 activations. weight: [V, D] (weight_layout
+  inputs: [..., D] float32 or bfloat16 activations, weight (and bias) in
+  the same dtype: [V, D] (weight_layout
   'vd', the tied-embedding layout) or [D, V] ('dv'). class_ids: int
   [...] in [0, V). bias: optional [V]. logits_soft_max: tanh cap (0 =
   off). Gradients flow to inputs, weight and bias through

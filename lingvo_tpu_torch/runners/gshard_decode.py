@@ -97,6 +97,10 @@ class GShardDecode:
       raise NotImplementedError(
           "the status server (serve_port) comes with the observability "
           "slice of the port (ROADMAP item 11)")
+    if task.fprop_dtype != torch.float32:
+      raise NotImplementedError(
+          f"decoding at fprop_dtype={task.fprop_dtype} comes with ROADMAP "
+          "item 15 of the port; GShardDecode decodes float32 activations")
     self._task = task
     self._train_dir = train_dir
     self._output_path = output_path

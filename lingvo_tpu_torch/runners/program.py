@@ -8,7 +8,9 @@ learner's stats over the loop, as the reference's synchronous loop
 returns them, plus steps and examples per second.
 
 The program is where training starts, so it turns TF32 off for float32
-matrix products and convolutions: the port trains in float32 throughout.
+matrix products and convolutions, and reduced-precision reductions off
+for bf16 ones: weights, gradients and optimizer slots are float32, and
+under `fprop_dtype=bfloat16` the activations' products sum in float32.
 
 The reference's asynchronous infeed, on-device loop, telemetry,
 checkpointer, eval and decode programs and the trainer CLI come with a
@@ -40,6 +42,9 @@ class TrainProgram:
     builds the task's p.input."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs (fprop_dtype bfloat16) sum in float32, as the reference's
+    # dots do; cuBLAS may otherwise reduce partial sums in bf16
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     self.p = params.Copy()
     self._task = task
     if input_generator is None:

@@ -161,6 +161,10 @@ class ServingLoop:
       raise NotImplementedError(
           "temperature > 0 sampling comes with a later serving slice; the "
           "port samples greedily")
+    if task.fprop_dtype != torch.float32:
+      raise NotImplementedError(
+          f"serving at fprop_dtype={task.fprop_dtype} comes with ROADMAP "
+          "item 15 of the port; the engine serves float32 activations")
     assert page_size >= 1 and num_pages >= 1 and max_batch >= 1
     assert max_seq_len >= page_size
     self.device = base_layer.ResolveDevice(device)

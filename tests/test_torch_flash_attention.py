@@ -10,7 +10,7 @@
   through the wrappers' CPU paths, gives the same gradients.
 - `MultiHeadedAttention.FProp` with `use_flash_attention` on and off
   against the reference's, with paddings and segments.
-- The wrappers raise on bfloat16 and bad shapes; the kernels themselves
+- The wrappers raise on float16 and bad shapes; the kernels themselves
   are checked on the card by the `cuda`-marked cases, which skip here. The
   module imports JAX only inside `_Jax`, so on a machine with a card and
   no JAX the kernel cases run alone:
@@ -174,9 +174,15 @@ def test_mha_flash_eligibility():
 
 
 def test_wrappers_raise_on_bf16_and_bad_shapes():
+  """bfloat16 is taken since the bf16 slice; float16 and mixed dtypes
+  still raise, as do bad shapes."""
   q = torch.zeros(1, 16, 2, 16)
-  with pytest.raises(TypeError, match="bf16-kernel slice"):
-    fa.FlashAttention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+  with pytest.raises(TypeError, match="float32 or bfloat16"):
+    fa.FlashAttention(q.half(), q.half(), q.half())
+  with pytest.raises(TypeError, match="share one dtype"):
+    fa.FlashAttention(q.bfloat16(), q, q)
+  assert fa.FlashAttention(q.bfloat16(), q.bfloat16(),
+                           q.bfloat16()).dtype == torch.bfloat16
   with pytest.raises(ValueError, match="one \\[b, t, n, h\\] shape"):
     fa.FlashForward(q, q[:, :8], q[:, :8], None, True)
   with pytest.raises(ValueError, match="segment ids must be int32"):
@@ -269,3 +275,74 @@ def test_forward_kernel_bitwise_repeat(cuda):
   again = fa.FlashForward(q, k, v, seg, True)
   torch.cuda.synchronize()
   assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+def _Dyadic(x, step):
+  """x on a grid of `step`: q.k is then exact in any order of its sum, so
+  scores, maxima and p agree bit for bit wherever p is rounded alike."""
+  return np.round(x / step) * step
+
+
+def _Bf16CardInputs(t, h, seed, b=2, n=2):
+  """Dyadic bf16 q and k, bf16 v and do on the card, and the segment ids
+  of `_CardInputs` (a switch at 37, a padding tail)."""
+  rng = np.random.RandomState(seed)
+  q, k = (_Dyadic(rng.randn(b, t, n, h), 1 / 8) for _ in range(2))
+  v, do = (rng.randn(b, t, n, h) for _ in range(2))
+  seg = np.ones((b, t), np.int32)
+  seg[0, 37:] = 2
+  seg[0, t - t // 5:] = 0
+  bf = lambda x: torch.as_tensor(x.astype(np.float32)).bfloat16().cuda()
+  return bf(q), bf(k), bf(v), bf(do), torch.as_tensor(seg).cuda()
+
+
+def _Share(got, want):
+  """The share of elements that differ by more than 1e-5 x max|want|. The
+  floor only spares the noise of exact cancellations (a query's only key
+  has ds = p (dp - delta) = 0 up to rounding, summed in another order):
+  a bf16 rounding of a value above it is 2^-8 of the value and counts."""
+  got, want = got.float(), want.float()
+  floor = 1e-5 * float(want.abs().max())
+  return float(((got - want).abs() > floor).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t, h, block_k", [(512, 128, 128), (320, 64, 64),
+                                           (256, 128, 256)])
+def test_bf16_kernels_match_pallas_twin_on_card(cuda, t, h, block_k, causal):
+  """The bf16 forward, dK/dV and dQ kernels against `_PallasForward` /
+  `_PallasBackward` on dyadic q and k, with several reference key blocks
+  (t / block_k of 4, 5 and 1). Tolerance: out, dq, dk and dv differ in at
+  most 1e-3 of their elements (`_Share`: float32 sums of exact products in
+  other orders, then one bf16 rounding); lse within 2e-5. The control, p
+  rounded against 64-key tile maxima (block 64), must differ in at least
+  10 times as many out elements where the reference block is wider."""
+  q, k, v, do, seg = _Bf16CardInputs(t, h, seed=t + h)
+  before = dict(fa.FlashForward.launches_by_dtype)
+  out, lse = fa.FlashForward(q, k, v, seg, causal, block_k)
+  out_p, lse_p = fa._PallasForward(q, k, v, seg, causal, block_k)
+  delta = fa.RowDelta(do, out)
+  dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, causal)
+  dq = fa.FlashDq(q, k, v, seg, do, lse, delta, causal)
+  dq_p, dk_p, dv_p = fa._PallasBackward(q, k, v, seg, do, lse, delta, causal)
+  torch.cuda.synchronize()
+  assert fa.FlashForward.launches_by_dtype["bfloat16"] == (
+      before["bfloat16"] + 1)
+  assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+  assert bool(torch.isfinite(out.float()).all())
+  assert float((lse - lse_p).abs().max()) <= 2e-5
+  share = _Share(out, out_p)
+  assert share <= 1e-3
+  for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    assert _Share(got, want) <= 1e-3
+  if block_k > 64:
+    control = fa._PallasForward(q, k, v, seg, causal, 64)[0]
+    assert _Share(control, out_p) >= 10 * max(share, 1e-3)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_refuses_blocks_of_partial_tiles(cuda):
+  q = torch.zeros(1, 96, 2, 16, device="cuda", dtype=torch.bfloat16)
+  with pytest.raises(ValueError, match="multiple of 64"):
+    fa.FlashForward(q, q, q, None, True, 32)

@@ -10,7 +10,7 @@
   (the frameworks sum in different orders).
 - The first-occurrence argmax on exact ties, within a block and across
   blocks.
-- The wrapper raises on bfloat16 and bad shapes; the kernel is checked on
+- The wrapper raises on float16 and bad shapes; the kernel is checked on
   the card by the `cuda`-marked cases, which skip here. The module imports
   JAX only inside `_Jax`, so on a machine with a card and no JAX the
   kernel cases run alone:
@@ -118,10 +118,16 @@ def test_argmax_takes_the_first_occurrence():
 
 
 def test_wrapper_raises_on_bf16_and_bad_shapes():
+  """bfloat16 is taken since the bf16 slice; float16 and mixed dtypes
+  still raise, as do bad shapes."""
   x, w, b = torch.zeros(4, D), torch.zeros(V, D), torch.zeros(V)
   labels = torch.zeros(4, dtype=torch.int32)
-  with pytest.raises(TypeError, match="bf16-kernel slice"):
-    fx.FusedXent(x.bfloat16(), w.bfloat16(), labels, block_size=16)
+  with pytest.raises(TypeError, match="float32 or bfloat16 x"):
+    fx.FusedXent(x.half(), w.half(), labels, block_size=16)
+  with pytest.raises(TypeError, match="weight is torch.float32"):
+    fx.FusedXent(x.bfloat16(), w, labels, block_size=16)
+  assert fx.FusedXent(x.bfloat16(), w.bfloat16(), labels,
+                      block_size=16).lse.dtype == torch.float32
   with pytest.raises(ValueError, match="do not match class_ids"):
     fx.FusedXent(x, w, labels[:3], block_size=16)
   with pytest.raises(ValueError, match="weight_layout"):
@@ -196,3 +202,43 @@ def test_kernel_matches_plain_on_card(cuda, layout):
   for a, e in zip(got[:3], want[:3]):
     assert float((a - e).abs().max()) <= 1e-4
   assert torch.equal(got[3], want[3])
+
+
+def _Bf16Inputs(rng, m, d, vocab):
+  """bf16 x, table and bias on the card (bias bf16: the reference makes
+  its zero bias in the weight's dtype), int32 labels."""
+  x = torch.as_tensor(rng.randn(m, d).astype(np.float32))
+  w = torch.as_tensor((rng.randn(vocab, d) / np.sqrt(d)).astype(np.float32))
+  b = torch.as_tensor(rng.randn(vocab).astype(np.float32) * 0.1)
+  labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32))
+  return [t.cuda() if t.dtype == torch.int32 else t.bfloat16().cuda()
+          for t in (x, w, b)] + [labels.cuda()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap, ls", [(0.0, 0.0), (5.0, 0.1)])
+def test_bf16_kernel_matches_plain_on_card(cuda, cap, ls):
+  """The bf16 instantiation: 200 rows (a ragged row tile), V 1000 (a
+  ragged sub-tile), D 96 (a ragged stage). Every statistic is float32 and
+  nothing rounds, so lse, the label logit and the logit sum agree within
+  1e-4 (2e-3 for the sum over V): float32 sums of exact products in other
+  orders; the argmax agrees except on logits within 1e-5 of each other."""
+  m, d, vocab = 200, 96, 1000
+  x, w, b, labels = _Bf16Inputs(np.random.RandomState(8), m, d, vocab)
+  cfg = fx._Cfg(block_size=384, vocab=vocab, vd=True, soft_cap=cap,
+                label_smoothing=ls)
+  before = dict(fx.FusedXentStats.launches_by_dtype)
+  got = fx.FusedXentStats(x, w, b, labels, cfg)
+  want = fx._PlainStats(x, w, b, labels, cfg)
+  torch.cuda.synchronize()
+  assert fx.FusedXentStats.launches_by_dtype["bfloat16"] == (
+      before["bfloat16"] + 1)
+  for a, e, tol in zip(got[:3], want[:3], (1e-4, 1e-4, 2e-3)):
+    if e is not None:
+      assert float((a - e).abs().max()) <= tol
+  differ = torch.nonzero(got[3] != want[3]).flatten()
+  if len(differ):
+    s = fx._BlockLogits(x[differ], w, b, cfg)
+    rows = torch.arange(len(differ), device="cuda")
+    gap = (s[rows, got[3][differ].long()] - s[rows, want[3][differ].long()])
+    assert float(gap.abs().max()) <= 1e-5
