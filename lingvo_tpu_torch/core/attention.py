@@ -96,13 +96,7 @@ class PerDimScaleLayer(base_layer.BaseLayer):
   def FProp(self, inputs):
     r_softplus_0 = 1.442695041
     scale = r_softplus_0 / math.sqrt(self.p.dim)
-    w = self.CastTheta().per_dim_scale
-    if w.dtype == torch.float32:
-      sp = torch.nn.functional.softplus(w)
-    else:
-      # the reference's softplus is logaddexp(x, 0), op by op in the fprop
-      # dtype: max(x, 0) + log1p(exp(-|x|))
-      sp = torch.clamp(w, min=0) + torch.log1p(torch.exp(-torch.abs(w)))
+    sp = py_utils.Softplus(self.CastTheta().per_dim_scale)
     return inputs * (sp * py_utils.WeakScalar(scale, sp)).to(inputs.dtype)
 
 

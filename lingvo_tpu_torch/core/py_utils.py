@@ -200,6 +200,32 @@ def Tanh(x: torch.Tensor) -> torch.Tensor:
   return torch.tanh(x) if x.dtype == torch.float32 else _TanhFn.apply(x)
 
 
+class _SoftplusFn(torch.autograd.Function):
+  """softplus as the reference's logaddexp(x, 0), op by op in the tensor's
+  dtype: max(x, 0) + log1p(exp(-|x|)); its backward is the transpose of
+  the reference's JVP, g exp(x - y), op by op (torch's own chain through
+  the forward's ops rounds elsewhere)."""
+
+  @staticmethod
+  def forward(ctx, x):
+    y = torch.clamp(x, min=0) + torch.log1p(torch.exp(-torch.abs(x)))
+    ctx.save_for_backward(x, y)
+    return y
+
+  @staticmethod
+  def backward(ctx, g):
+    x, y = ctx.saved_tensors
+    return g * torch.exp(x - y)
+
+
+def Softplus(x: torch.Tensor) -> torch.Tensor:
+  """softplus with the reference's roundings in bfloat16 (float32 takes
+  torch's softplus: there the two agree to ulps)."""
+  if x.dtype == torch.float32:
+    return torch.nn.functional.softplus(x)
+  return _SoftplusFn.apply(x)
+
+
 def ApplyPadding(padding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
   """Zeroes padded positions; padding broadcast against x."""
   while padding.ndim < x.ndim:

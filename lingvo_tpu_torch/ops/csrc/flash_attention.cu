@@ -62,6 +62,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kTile = 64;        // backward: rows of a q or k tile
@@ -756,38 +758,6 @@ constexpr int kHThreads = 128;
 constexpr int kHNt = kMaxHeadDim / 8;    // head-dim n-tiles of 8
 constexpr int kHKs = kMaxHeadDim / 16;   // head-dim k-steps of 16
 
-__device__ __forceinline__ void MmaBf16(float c[4], const uint32_t a[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t Ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two floats rounded to nearest-even bf16; lo (the smaller column of a
-// fragment) in the low half
-__device__ __forceinline__ uint32_t PackBf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ldmatrix .x4 .trans: lane l addresses row (l & 7) of 8 x 8 matrix l >> 3
-// and receives, of each matrix i, M_i[2 (l & 3)][l >> 2] and
-// M_i[2 (l & 3) + 1][l >> 2]: the B fragment of a row-major [k][n] tile.
-__device__ __forceinline__ void LdMatrixX4T(uint32_t r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
 // The A fragment (16 rows x 16 columns) at p of a row-major tile with row
 // stride ld.
 __device__ __forceinline__ void LoadA(uint32_t a[4], const bf16* p, int ld) {
@@ -807,24 +777,6 @@ __device__ __forceinline__ void LoadBT(uint32_t b[4], const bf16* p, int ld,
   const int lane = threadIdx.x & 31;
   LdMatrixX4T(b, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 16 * c +
                      8 * (lane >> 4));
-}
-
-__device__ __forceinline__ float QuadMax(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float QuadSum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ void CpAsyncBytes16(void* dst, const void* src,
-                                               bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
 }
 
 // Rows [start, start + rows) of head ni, batch bi of a bf16 [b, t, n, h]

@@ -46,6 +46,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
 constexpr int kRows = 64;       // rows of x per block
@@ -240,37 +242,6 @@ constexpr size_t kHStageElems = static_cast<size_t>(kHRows + kHCols) * kHLd;
 constexpr size_t kHSmemBytes =
     2 * kHStageElems * sizeof(bf16) + kHRows * 5 * sizeof(float);
 
-__device__ __forceinline__ void MmaBf16(float c[4], const uint32_t a[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t Ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void CpAsync16(void* dst, const void* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;   // 0: write zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ float QuadMax(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float QuadSum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 __device__ __forceinline__ int QuadMin(int x) {
   x = min(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return min(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -371,13 +342,13 @@ __global__ void __launch_bounds__(kHThreads) FusedXentStatsBf16Kernel(
         if (r < kHRows) {
           const int row = r0 + r;
           const bool valid = row < m_rows && dc < d;
-          CpAsync16(xd + r * kHLd + 8 * (c & 7),
+          CpAsyncBytes16(xd + r * kHLd + 8 * (c & 7),
                     x + (valid ? static_cast<size_t>(row) * d + dc : 0),
                     valid);
         } else {
           const int col = sub * kHCols + r - kHRows;
           const bool valid = col < vocab && dc < d;
-          CpAsync16(wd + (r - kHRows) * kHLd + 8 * (c & 7),
+          CpAsyncBytes16(wd + (r - kHRows) * kHLd + 8 * (c & 7),
                     w + (valid ? static_cast<size_t>(col) * d + dc : 0),
                     valid);
         }

@@ -11,14 +11,19 @@ is the same port model at float32.
 - The gradient of every weight matrix within a relative error norm of
   1e-4 (bitwise here); the control must miss by 10x.
 - The gradient of every vector leaf (biases, norm scales, the per-dim
-  scale) within 3e-2, with no control that could miss it by 10x: these
-  are sums over the batch's tokens of bf16 gradients, which the
-  reference takes in bfloat16 in XLA's own order and the port in float32
-  (rounded once), so the reference's own rounding noise sets the bar.
+  scale) within 3e-2 of the reference's own: these are sums over the
+  batch's tokens of bf16 gradients, which the reference takes in
+  bfloat16 in XLA's own order and the port in float32 (rounded once).
+- So the vector leaves are also held to the reference's per-token bf16
+  cotangents summed in float32, the port's order (`RankOneReference`):
+  every element within one bf16 ulp, and the relative error norm over
+  all vector leaves within 1e-3; the control must miss that by 10x and
+  break the one-ulp bar in every leaf.
 - `LoadJaxTheta` maps theta leaf for leaf with fprop_dtype set (weights
   stay float32); the serving entries refuse a bf16 task.
 """
 
+import math
 import re
 
 import numpy as np
@@ -28,6 +33,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from lingvo_tpu.core import attention as jax_attention
+from lingvo_tpu.core.nested_map import NestedMap as JaxNestedMap
 from lingvo_tpu_torch import convert
 from lingvo_tpu_torch.runners import gshard_decode
 from lingvo_tpu_torch.serving import engine
@@ -89,6 +96,109 @@ def test_bf16_fprop_loss_metrics_and_grads_match_reference(switches):
     else:
       assert _RelNorm(tgrads[k], want) <= 1e-4, k
       assert _RelNorm(cgrads[k], want) >= 1e-3, k
+
+
+R_SOFTPLUS_0 = 1.442695041   # the reference PerDimScaleLayer's constant
+
+
+def _ProbedPerDimScale(self, theta, inputs):
+  """The reference `PerDimScaleLayer.FProp` with a zero `probe` leaf added
+  to the scale once it is broadcast to every token: the probe's gradient
+  is each token's bf16 cotangent of the scale, dy * q, before any sum."""
+  th = self.CastTheta(theta)
+  scale = (jax.nn.softplus(th.per_dim_scale)
+           * (R_SOFTPLUS_0 / math.sqrt(self.p.dim))).astype(inputs.dtype)
+  return inputs * (scale + th.probe.astype(inputs.dtype))
+
+
+def _PerToken(theta, b, t):
+  """theta with each vector leaf broadcast to one copy per token (the
+  same values; the sum over tokens leaves the reference's program) and a
+  zero per-token probe beside each per-dim scale."""
+  out = JaxNestedMap()
+  for k, v in theta.FlattenItems():
+    v = np.asarray(v)
+    lead = v.shape[:1] if ".body." in k else ()   # stacked layers
+    if k.endswith("per_dim_scale.per_dim_scale"):
+      heads = theta.GetItem(k.rsplit(".", 2)[0] + ".w_query").shape[-2]
+      out.Set(k, v)
+      out.Set(k.rsplit(".", 1)[0] + ".probe", np.zeros(
+          lead + (b, t, heads, v.shape[-1]), np.float32))
+    elif re.search(VECTOR_LEAF, k):
+      rest = v.shape[len(lead):]
+      out.Set(k, np.broadcast_to(v.reshape(lead + (1, 1) + rest),
+                                 lead + (b, t) + rest).copy())
+    else:
+      out.Set(k, v)
+  return out
+
+
+def _Bf16(x):
+  return np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16)
+                    .astype(jnp.float32))
+
+
+def RankOneReference(task, theta, batch):
+  """(loss, {leaf: gradient}) of the JAX task, with every vector leaf's
+  gradient the float32 sum over tokens of the reference's own per-token
+  bf16 cotangents, rounded once to bf16 (the per-dim scale then goes
+  through the reference's softplus and cast, op by op). The matrices'
+  gradients are the reference's. Runs op by op."""
+  b, t = batch.ids.shape
+  orig = jax_attention.PerDimScaleLayer.FProp
+  jax_attention.PerDimScaleLayer.FProp = _ProbedPerDimScale
+  try:
+    def Loss(th):
+      metrics, _ = task.FProp(th, tt._ToJax(batch))
+      return metrics.loss[0], metrics
+
+    with jax.disable_jit():
+      (loss, _), grads = jax.value_and_grad(Loss, has_aux=True)(
+          jax.tree_util.tree_map(jnp.asarray, _PerToken(theta, b, t)))
+  finally:
+    jax_attention.PerDimScaleLayer.FProp = orig
+  grads = {k: np.asarray(v) for k, v in grads.FlattenItems()}
+  out = {}
+  for k, v in theta.FlattenItems():
+    tokens = (1, 2) if ".body." in k else (0, 1)
+    if k.endswith("per_dim_scale.per_dim_scale"):
+      cot = grads[k.rsplit(".", 1)[0] + ".probe"]   # [.., b, t, heads, h]
+      heads = tokens[-1] + 1
+      g = _Bf16(cot.sum(axis=tokens + (heads,), dtype=np.float32))
+      dim = v.shape[-1]
+
+      def Scale(w, dim=dim):
+        return (jax.nn.softplus(w.astype(jnp.bfloat16))
+                * (R_SOFTPLUS_0 / math.sqrt(dim))).astype(jnp.bfloat16)
+
+      with jax.disable_jit():
+        _, vjp = jax.vjp(Scale, jnp.asarray(v))
+        out[k] = np.asarray(vjp(jnp.asarray(g, jnp.bfloat16))[0])
+    elif re.search(VECTOR_LEAF, k):
+      out[k] = _Bf16(grads[k].sum(axis=tokens, dtype=np.float32))
+    else:
+      out[k] = grads[k]
+  return float(loss), out
+
+
+@pytest.mark.parametrize("switches", [False, True])
+def test_bf16_vector_leaf_grads_match_reference_cotangents(switches):
+  task, theta, port = BF16Lms(switches, port_fprop=torch.bfloat16)
+  _, _, ctl = BF16Lms(switches)
+  batch = tt._Batch()
+  loss, want = RankOneReference(task, theta, batch)
+  tm, got = _PortRun(port, batch)
+  _, ctl_got = _PortRun(ctl, batch)
+  assert abs(float(tm.loss[0].detach()) - loss) <= 1e-5
+  keys = [k for k in sorted(want) if re.search(VECTOR_LEAF, k)]
+  assert len(keys) == 13
+  for k in keys:
+    bar = 2.0 ** -7 * np.abs(want[k]) + 1e-6 * np.abs(want[k]).max()
+    assert np.all(np.abs(got[k] - want[k]) <= bar), k
+    assert np.any(np.abs(ctl_got[k] - want[k]) > bar), k
+  cat = lambda g: np.concatenate([g[k].ravel() for k in keys])
+  assert _RelNorm(cat(got), cat(want)) <= 1e-3
+  assert _RelNorm(cat(ctl_got), cat(want)) >= 1e-2
 
 
 def test_load_jax_theta_with_fprop_dtype_keeps_float32_leaves():

@@ -284,11 +284,11 @@ def _Dyadic(x, step):
 
 
 def _Bf16CardInputs(t, h, seed, b=2, n=2):
-  """Dyadic bf16 q and k, bf16 v and do on the card, and the segment ids
+  """Dyadic bf16 q, k, v and do on the card (q.k and dp = do.v exact in
+  any order, so both sides round the same p and ds), and the segment ids
   of `_CardInputs` (a switch at 37, a padding tail)."""
   rng = np.random.RandomState(seed)
-  q, k = (_Dyadic(rng.randn(b, t, n, h), 1 / 8) for _ in range(2))
-  v, do = (rng.randn(b, t, n, h) for _ in range(2))
+  q, k, v, do = (_Dyadic(rng.randn(b, t, n, h), 1 / 8) for _ in range(4))
   seg = np.ones((b, t), np.int32)
   seg[0, 37:] = 2
   seg[0, t - t // 5:] = 0
@@ -306,16 +306,27 @@ def _Share(got, want):
   return float(((got - want).abs() > floor).float().mean())
 
 
+def _OffByMoreThanAnUlp(got, want):
+  """The elements with |got - want| > 2^-7 |want| + 1e-5 max|want|: one
+  bf16 ulp, the most that float32 sums of the same terms in two orders
+  can move a single rounding (the floor as in `_Share`). `_Share` bounds
+  how many elements differ, this how far any of them is off."""
+  got, want = got.float(), want.float()
+  bar = 2.0 ** -7 * want.abs() + 1e-5 * float(want.abs().max())
+  return int(((got - want).abs() > bar).sum())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t, h, block_k", [(512, 128, 128), (320, 64, 64),
                                            (256, 128, 256)])
 def test_bf16_kernels_match_pallas_twin_on_card(cuda, t, h, block_k, causal):
   """The bf16 forward, dK/dV and dQ kernels against `_PallasForward` /
-  `_PallasBackward` on dyadic q and k, with several reference key blocks
+  `_PallasBackward` on dyadic inputs, with several reference key blocks
   (t / block_k of 4, 5 and 1). Tolerance: out, dq, dk and dv differ in at
   most 1e-3 of their elements (`_Share`: float32 sums of exact products in
-  other orders, then one bf16 rounding); lse within 2e-5. The control, p
+  other orders, then one bf16 rounding), and no element by more than one
+  bf16 ulp (`_OffByMoreThanAnUlp`); lse within 2e-5. The control, p
   rounded against 64-key tile maxima (block 64), must differ in at least
   10 times as many out elements where the reference block is wider."""
   q, k, v, do, seg = _Bf16CardInputs(t, h, seed=t + h)
@@ -336,6 +347,8 @@ def test_bf16_kernels_match_pallas_twin_on_card(cuda, t, h, block_k, causal):
   assert share <= 1e-3
   for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
     assert _Share(got, want) <= 1e-3
+  for got, want in ((out, out_p), (dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    assert _OffByMoreThanAnUlp(got, want) == 0
   if block_k > 64:
     control = fa._PallasForward(q, k, v, seg, causal, 64)[0]
     assert _Share(control, out_p) >= 10 * max(share, 1e-3)
