@@ -112,10 +112,13 @@
    at phase 11's shapes, paddings and NaN poison (t = 1151 and 700), on
    dyadic q and K: within 1e-5 (the kernel rounds each p against the
    running max through its page's end, as the reference does), two calls
-   bitwise equal, and the float32 kernel on the widened cache more than
-   1e-5 off; times it beside phase 11's
-   float32 time, the plain version, SDPA on the bfloat16 cache and the
-   bound.
+   bitwise equal, the float32 kernel on the widened cache more than
+   1e-5 off, and one call exactly one kernel launch (one kernel node when
+   a call is captured in a CUDA graph: the cluster kernel merges its
+   splits itself; phase 11's float32 call shows its split and combine
+   kernels); prints the split count and the cluster geometry; times it
+   beside phase 11's float32 time, the plain version, SDPA on the
+   bfloat16 cache and the bound.
 16. Quantized serving main path: DenseLmTiny on the card must reproduce
    its CPU streams with int8 pools (ragged and legacy) and bfloat16 pools
    (ragged); then DenseLm1B with phase 5's weights, geometry and requests
@@ -143,10 +146,11 @@
    max|want| (float32 sums of exact products in other orders, then one
    bfloat16 rounding), and no element by more than one bfloat16 ulp,
    2^-7 |want| + 1e-5 max|want|; lse within 2e-5; two forward calls
-   bitwise equal.
-   The control, p rounded against 64-key tile maxima instead of the
-   running max through the 1024-key reference block, must differ in at
-   least ten times as many out elements. Times each kernel, the plain
+   bitwise equal; prints the forward's grid, threads, shared memory per
+   block and resident blocks per SM. The control, p rounded against
+   64-key tile maxima instead of the running max through the 1024-key
+   reference block, must differ in at least ten times as many out
+   elements. Times each kernel, the plain
    versions, the bound (bf16 bytes, 989 TFLOP/s) and SDPA on bfloat16.
 19. The bfloat16 fused-xent kernel against `_PlainStats` at phase 8's
    shapes (x and the table in bfloat16, statistics float32): tolerances
@@ -819,6 +823,11 @@ def _CheckFlashBf16(torch, fa, rng):
          f"the tile-max control differs in only {ctl} of out elements")
   _Check(torch.equal(out, out2) and torch.equal(lse, lse2),
          "flash bf16 forward: two calls differ bitwise")
+  threads, smem, per_sm = fa.ForwardGeometry(t, h, torch.bfloat16)
+  print(f"flash bf16 forward: two calls bitwise equal; grid ({b * n}, "
+        f"{-(-t // 128)}) (heaviest query tiles first), {threads} threads "
+        f"(two consumer warpgroups, one TMA producer warp), {smem} B shared "
+        f"per block, {per_sm} blocks resident per SM")
   del control, out2, lse2
   it = 10
   t_fwd = _TimeMs(torch, lambda: fa.FlashForward(q, k, v, seg, True), it)
@@ -1202,6 +1211,44 @@ def _DevUs(e):
           or getattr(e, "self_cuda_time_total", 0))
 
 
+def _KernelNodes(torch, fn):
+  """(kernel nodes, all nodes) of the CUDA graph that one call of fn
+  records when captured (never replayed): the kernels the call launches.
+  torch.profiler is not used for this: over a short window late in this
+  script it dropped some kernels' records. fn runs once first, so that
+  its first-use work (build, attributes) is not captured."""
+  import ctypes
+  fn()
+  torch.cuda.synchronize()
+  graph = torch.cuda.CUDAGraph(keep_graph=True)
+  with torch.cuda.graph(graph):
+    fn()
+  rt = None
+  for lib in ("libcudart.so.12", "libcudart.so.13", "libcudart.so"):
+    try:
+      rt = ctypes.CDLL(lib)   # the runtime torch has loaded already
+      break
+    except OSError:
+      continue
+  _Check(rt is not None, "no CUDA runtime library to read a graph with")
+  raw = ctypes.c_void_p(graph.raw_cuda_graph())
+  count = ctypes.c_size_t(0)
+  _Check(rt.cudaGraphGetNodes(raw, None, ctypes.byref(count)) == 0,
+         "cudaGraphGetNodes failed")
+  nodes = (ctypes.c_void_p * count.value)()
+  _Check(rt.cudaGraphGetNodes(raw, nodes, ctypes.byref(count)) == 0,
+         "cudaGraphGetNodes failed")
+  kernels = 0
+  for node in nodes:
+    kind = ctypes.c_int(-1)
+    _Check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                   ctypes.byref(kind)) == 0,
+           "cudaGraphNodeGetType failed")
+    kernels += kind.value == 0    # cudaGraphNodeTypeKernel
+  del graph
+  return kernels, count.value
+
+
 def _Profile(torch, eng, prompts, steps, window=4):
   """Serves the same requests again, stepping inline, and profiles only
   two windows of `window` steps: the first (prefill chunks beside decode
@@ -1464,12 +1511,26 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
     _Check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
     _Check(torch.equal(out, again), f"{label}: two calls differ bitwise")
     threads, smem, per_sm, sms = fd.Geometry("cuda", cache_dtype)
-    splits = fd.NumSplits(b * n, t, s, h, sms, per_sm, elem)
-    print(f"{label}: two calls bitwise equal; {splits} splits of "
-          f"{fd.TileSlots(h, elem)}-slot tiles, split grid ({b * n}, "
-          f"{splits}), {threads} threads, {smem} B shared per block, "
-          f"{per_sm} blocks resident per SM of {sms}; combine grid "
-          f"({b * n},)")
+    kernels, nodes = _KernelNodes(torch, lambda: fd.FlashDecode(
+        qc, kc, vc, t, page_size=page, cache_paddings=padc))
+    launched = f"{kernels} kernel(s), {nodes} graph node(s)"
+    if dtype == "bfloat16":
+      splits = fd.NumSplitsBf16(b * n, t, s, h, sms, per_sm)
+      _Check(kernels == nodes == 1, f"{label}: one call launched "
+             f"{launched}, not one kernel")
+      print(f"{label}: two calls bitwise equal; {splits} splits of "
+            f"{fd.TileSlots(h, elem)}-slot tiles as one cluster, grid "
+            f"({splits}, {b * n}), cluster ({splits}, 1, 1), {threads} "
+            f"threads, {smem} B shared per block at 128 score slots, "
+            f"{per_sm} blocks resident per SM of {sms}; one call, captured "
+            f"in a CUDA graph: {launched}")
+    else:
+      splits = fd.NumSplits(b * n, t, s, h, sms, per_sm, elem)
+      print(f"{label}: two calls bitwise equal; {splits} splits of "
+            f"{fd.TileSlots(h, elem)}-slot tiles, split grid ({b * n}, "
+            f"{splits}), {threads} threads, {smem} B shared per block, "
+            f"{per_sm} blocks resident per SM of {sms}; combine grid "
+            f"({b * n},); one call, captured in a CUDA graph: {launched}")
     err = float((out - plain).abs().max())
     _Check(err <= TOL, f"{label}: kernel vs plain max abs err {err} > {TOL}")
     ctl_err = None

@@ -50,18 +50,21 @@
 // no overlap of the next tile's copy with this tile's math.
 //
 // The bfloat16 halves (FlashFwdBf16Kernel, FlashDkDvBf16Kernel,
-// FlashDqBf16Kernel) have their own section below: tensor cores, and p
-// rounded to bf16 where the reference rounds it.
+// FlashDqBf16Kernel) have their own section below: tensor cores (the
+// forward by wgmma fed by TMA, the backward by mma.sync), and p rounded to
+// bf16 where the reference rounds it.
 //
 // Limits (the Python wrapper raises outside them): float32 or bfloat16,
 // contiguous [b, t, n, h] tensors, h a multiple of 16 and at most 128; any
 // t; the bf16 forward's reference block a multiple of 64 keys or all of t.
 
+#include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -710,15 +713,17 @@ __global__ void __launch_bounds__(kThreads, 1) FlashDqKernel(
 //
 // The bf16 halves of the three kernels (the reference's `_DotF32` keeps
 // native bf16 operands and accumulates in float32). Products run on the
-// tensor cores as mma.sync m16n8k16 bf16 -> f32 (a bf16 x bf16 product is
-// exact in float32, so the sums differ from the reference's only in
-// order); the transposed operands (V and dO, Q and K of the second
-// products) come in with ldmatrix .trans. Tiles sit in shared memory in
-// their [rows, h] layout at a row stride of h + 8 elements, so the 32-bit
-// fragment loads of 8 rows x 4 column pairs hit 32 distinct banks, and
-// 16-byte cp.async copies fill the next tile under this tile's math. Each
-// of the 4 warps of a block owns 16 rows; a row's statistics live in the
-// 4 lanes of a quad. Outputs are stored in bf16; lse stays float32.
+// tensor cores (a bf16 x bf16 product is exact in float32, so the sums
+// differ from the reference's only in order). The forward is a wgmma
+// kernel fed by TMA, with its own section below. The backward kernels
+// use mma.sync m16n8k16 bf16 -> f32; the transposed operands (V and dO,
+// Q and K of the second products) come in with ldmatrix .trans. Their
+// tiles sit in shared memory in their [rows, h] layout at a row stride of
+// h + 8 elements, so the 32-bit fragment loads of 8 rows x 4 column pairs
+// hit 32 distinct banks, and 16-byte cp.async copies fill the next tile
+// under this tile's math. Each of the 4 warps of a block owns 16 rows; a
+// row's statistics live in the 4 lanes of a quad. Outputs are stored in
+// bf16; lse stays float32.
 //
 // The rounding points are the reference's (flash_attention.py `_FwdKernel`,
 // `_DkDvKernel`, `_DqKernel`):
@@ -732,7 +737,7 @@ __global__ void __launch_bounds__(kThreads, 1) FlashDqKernel(
 //   rescaled once (the reference's alpha), and the second recomputes s and
 //   accumulates l and bf16(p) . V. The cost: q . k is computed twice, 6h
 //   instead of 4h flops per attended pair. block_k must be a multiple of
-//   the 64-key tile or cover all of t.
+//   the 64-key tile or cover all of t. (FlashFwdBf16Kernel's section.)
 // - backward: p = exp(s - lse) is normalised (no running max); dp =
 //   f32(do . v), ds = p (dp - delta) sm_scale; dv += bf16(p)^T do, dk +=
 //   bf16(ds)^T q, dq += bf16(ds) k, each summed in float32 and rounded to
@@ -742,17 +747,15 @@ __global__ void __launch_bounds__(kThreads, 1) FlashDqKernel(
 // two h-wide accumulators of a warp in registers). Tiles whose segment ids
 // cannot meet the block's are skipped (every pair masked: exactly a no-op).
 //
-// Bound: at [8, 1024, 16, 128] the bf16 forward moves 134 MB (q, k, v,
-// out) and does 4h flops per attended pair of model work: bytes-bound
-// near 0.04 ms at 3.35 TB/s; the backward pair is likewise near the
-// bytes line against 989 TFLOP/s. What this design leaves: wgmma and TMA
-// (mma.sync reaches a fraction of the dense bf16 rate), the forward's
-// second q . k, and rows of a segment boundary inside a tile.
+// Bound: at [8, 1024, 16, 128] the backward pair is near the bytes line
+// against 989 TFLOP/s. What the backward design leaves: wgmma and TMA
+// (mma.sync reaches a fraction of the dense bf16 rate), and rows of a
+// segment boundary inside a tile.
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kHq = 64;       // bf16: queries of a forward / dQ block
-constexpr int kHk = 64;       // bf16 forward: keys of a key tile; dK/dV block
+constexpr int kHq = 64;       // bf16: queries of a dQ block
+constexpr int kHk = 64;       // bf16: keys of a dK/dV block
 constexpr int kHt = 32;       // bf16 backward: rows of a streamed tile
 constexpr int kHThreads = 128;
 constexpr int kHNt = kMaxHeadDim / 8;    // head-dim n-tiles of 8
@@ -834,230 +837,335 @@ __device__ __forceinline__ bool Keep(const Problem& pb, int qi, int kj,
          (!has_seg || sq == sk);
 }
 
-struct HFwdSmem {
-  int ld;                               // row stride (elements)
-  size_t k, v, segk, live, bytes;       // byte offsets; Q at 0
+// -- the bf16 forward: warpgroup MMA fed by TMA (FlashFwdBf16Kernel) --
+//
+// Replaces `_FwdKernel` (lingvo_tpu/ops/flash_attention.py, pallas_call in
+// `_FlashForward`) for bf16 q/k/v. Bound at [8, 1024, 16, 128] with two
+// causal segments of 512: 134 MB of q, k, v and out (0.040 ms at 3.35
+// TB/s) against 4h flops per attended pair of model work (0.017 ms at 989
+// TFLOP/s): bytes, by a little; the tensor cores bound the executed work.
+//
+// The first bf16 forward (mma.sync m16n8k16, 64 queries per 4-warp
+// block, each lane's K fragments from two scalar 32-bit shared loads per
+// product, cp.async issued by the compute threads with a block barrier
+// per tile, light causal tiles scheduled first) lost to SDPA by 1.5x.
+// This design:
+//  - One block per (128 queries, batch x head), the heaviest causal query
+//    tiles first (grid (b * n, query tiles), tile index reversed). Two
+//    consumer warpgroups own 64 query rows each; one producer warp keeps
+//    the K and V tiles of 64 keys in flight with TMA into a 4-stage ring,
+//    with a full and an empty mbarrier per stage (the consumers never
+//    issue a copy or take a block barrier).
+//  - S = Q K^T by wgmma m64n64k16, Q and K straight from the swizzled TMA
+//    tiles in shared memory, float32 accumulators in registers.
+//  - P V by wgmma m64n{64,128}k16 with P from registers: the S
+//    accumulator's layout is the A fragment's, so p is rounded to bf16 in
+//    the conversion; V is the MN-major B operand, read transposed.
+//  - TMA boxes of 64 key rows x 64 head-dim columns (the 128-byte swizzle
+//    takes 128-byte rows): h <= 64 is one box (columns past h read as 0),
+//    64 < h <= 128 two (kBoxes, the template argument).
+// The rounding point stays the reference's: p = exp(s - m_safe) with m the
+// running max through the END of the reference key block (`block_k`, all
+// of t = 1024 on DenseLm1B), which the kernel has not seen when it first
+// meets a score. So each block still takes two sweeps over its key tiles:
+// sweep A is pure wgmma q . k and a row max (no exp, no V: the producer
+// loads only K), then m, l and acc are rescaled once (the reference's
+// alpha), and sweep B recomputes s, sums l over the unrounded p and adds
+// bf16(p) . V. Holding a block's float32 scores on chip instead would take
+// 128 x 1024 x 4 bytes = 512 KB. Tiles whose segment ids cannot meet the
+// block's are skipped (LiveTiles), and a warpgroup skips the math of a
+// tile wholly in its causal future (both are exact no-ops).
+// What it still leaves: sweep A (6h instead of 4h flops per pair), no
+// overlap of one warpgroup's mask and exp with its own wgmma (the two
+// warpgroups interleave only through the scheduler: issuing a tile's P V
+// under the next tile's q . k, and ping-pong barriers between the
+// warpgroups, were both slower), full-precision expf (the reference's
+// exp, so p rounds to the same bf16), stores of out from registers
+// (16-byte runs), and no persistent grid.
+
+constexpr int kWq = 128;         // queries of a forward block
+constexpr int kWk = 64;          // keys of a tile
+constexpr int kWStages = 4;      // ring stages, each K and V of one tile
+constexpr int kWConsumers = 256; // two warpgroups of 64 query rows
+constexpr int kWThreads = kWConsumers + 32;  // and the producer warp
+constexpr int kRowBytes = 128;   // one row of a TMA box: 64 bf16 columns
+
+template <int kBoxes>
+struct WLayout {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kQBox = kWq * kRowBytes;      // Q: kBoxes of these
+  static constexpr int kKBox = kWk * kRowBytes;      // K or V: one box
+  static constexpr int kRing = kBoxes * kQBox;
+  static constexpr int kStage = 2 * kBoxes * kKBox;  // K boxes, V boxes
+  static constexpr int kBars = kRing + kWStages * kStage;
+  static constexpr int kLive = kBars + (2 * kWStages + 1) * 8;
+  // dynamic shared memory at sequence length t, with 1 KB of slack to
+  // align the base
+  static size_t Bytes(int t) {
+    return 1024 + kLive +
+           ((t + kWk - 1) / kWk + 31) / 32 * sizeof(unsigned);
+  }
 };
 
-__host__ __device__ inline HFwdSmem HFwdLayout(int t, int h) {
-  HFwdSmem s;
-  s.ld = h + 8;
-  const size_t tile = static_cast<size_t>(kHk) * s.ld * sizeof(bf16);
-  s.k = static_cast<size_t>(kHq) * s.ld * sizeof(bf16);
-  s.v = s.k + 2 * tile;
-  s.segk = s.v + 2 * tile;
-  s.live = s.segk + 2 * kHk * sizeof(int);
-  s.bytes = s.live + ((t + kHk - 1) / kHk + 31) / 32 * sizeof(unsigned);
-  return s;
-}
+// The steps of a forward block: for each reference key block with a live
+// tile, sweep A (pass 0) over its live tiles, then sweep B (pass 1) over
+// them again. The producer and the consumers walk the same steps.
+struct FwdSchedule {
+  const unsigned* live;
+  int nkt, tpr, nrb;
+  int rb, pass, kt;  // the current step; kt < 0 past the last
 
-__global__ void __launch_bounds__(kHThreads) FlashFwdBf16Kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ seg,
-    bf16* __restrict__ out, float* __restrict__ lse, Problem pb,
-    int block_k) {
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  const int h = pb.h, nks = h / 16, nnt = h / 8;
-  const HFwdSmem lay = HFwdLayout(pb.t, h);
-  const int ld = lay.ld;
-  bf16* qs = reinterpret_cast<bf16*>(hsmem);
-  bf16* ks = reinterpret_cast<bf16*>(hsmem + lay.k);    // [2][64][ld]
-  bf16* vs = reinterpret_cast<bf16*>(hsmem + lay.v);    // [2][64][ld]
-  int* segk_s = reinterpret_cast<int*>(hsmem + lay.segk);  // [2][64]
-  unsigned* live = reinterpret_cast<unsigned*>(hsmem + lay.live);
-  const int q0 = blockIdx.x * kHq;
-  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const bool has_seg = seg != nullptr;
-  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
-                               : nullptr;
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
-  const int segq_a = has_seg && row_a < pb.t ? seg_row[row_a] : 0;
-  const int segq_b = has_seg && row_b < pb.t ? seg_row[row_b] : 0;
-
-  CopyRowsAsyncBf16(qs, ld, q, pb, bi, ni, q0, kHq);
-  CpAsyncCommit();
-
-  const int k_end = pb.causal ? min(pb.t, q0 + kHq) : pb.t;
-  const int nkt = (k_end + kHk - 1) / kHk;
-  // key tiles per reference block (block_k: a multiple of 64, or >= t)
-  const int tpr = block_k >= pb.t ? nkt : block_k / kHk;
-  const int nrb = (nkt + tpr - 1) / tpr;
-  int qlo = 0, qhi = 0;
-  if (has_seg) WarpSegRange(seg_row, q0, kHq, pb.t, &qlo, &qhi);
-  LiveTiles(live, seg_row, qlo, qhi, kHk, nkt, pb.t);
-
-  // a step: (reference block rb, pass 0 = row maxima / 1 = P.V, tile kt);
-  // kt = -1 past the last step
-  auto tile_lo = [&](int rb) { return rb * tpr; };
-  auto tile_hi = [&](int rb) { return min(nkt, (rb + 1) * tpr); };
-  auto first_from = [&](int rb0, int& rb, int& kt) {
-    for (rb = rb0; rb < nrb; ++rb) {
-      kt = NextLive(live, tile_lo(rb), tile_hi(rb));
-      if (kt < tile_hi(rb)) return;
+  __device__ int Hi(int r) const { return min(nkt, (r + 1) * tpr); }
+  __device__ void From(int r0) {
+    pass = 0;
+    for (rb = r0; rb < nrb; ++rb) {
+      kt = NextLive(live, rb * tpr, Hi(rb));
+      if (kt < Hi(rb)) return;
     }
     kt = -1;
-  };
-  auto advance = [&](int& rb, int& pass, int& kt) {
-    const int hi = tile_hi(rb);
+  }
+  // the step is the last of its block's sweep A
+  __device__ bool EndsSweepA() const {
+    return pass == 0 && NextLive(live, kt + 1, Hi(rb)) == Hi(rb);
+  }
+  __device__ void Advance() {
+    const int hi = Hi(rb);
     const int nk = NextLive(live, kt + 1, hi);
     if (nk < hi) {
       kt = nk;
     } else if (pass == 0) {
       pass = 1;
-      kt = NextLive(live, tile_lo(rb), hi);
+      kt = NextLive(live, rb * tpr, hi);
     } else {
-      pass = 0;
-      first_from(rb + 1, rb, kt);
+      From(rb + 1);
     }
-  };
-  auto prefetch = [&](int pass, int kt, int stage) {
-    if (kt >= 0) {
-      CopyRowsAsyncBf16(ks + stage * kHk * ld, ld, k, pb, bi, ni, kt * kHk,
-                        kHk);
-      if (pass == 1)
-        CopyRowsAsyncBf16(vs + stage * kHk * ld, ld, v, pb, bi, ni,
-                          kt * kHk, kHk);
-      if (tid < kHk) {
-        const int key = kt * kHk + tid;
-        segk_s[stage * kHk + tid] = has_seg && key < pb.t ? seg_row[key] : 0;
+  }
+};
+
+template <int kBoxes>
+__global__ void __launch_bounds__(kWThreads, 1) FlashFwdBf16Kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ seg,
+    bf16* __restrict__ out, float* __restrict__ lse, Problem pb,
+    int block_k) {
+  typedef WLayout<kBoxes> L;
+  constexpr int kN = 64 * kBoxes;  // head-dim columns of the P.V product
+  extern __shared__ __align__(16) unsigned char wsmem[];
+  unsigned char* sm = wsmem + ((1024 - (SmemAddr(wsmem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kWStages;
+  uint64_t* qbar = empty + kWStages;
+  unsigned* live = reinterpret_cast<unsigned*>(sm + L::kLive);
+
+  const int ntq = gridDim.y;
+  const int q0 = (pb.causal ? ntq - 1 - blockIdx.y : blockIdx.y) * kWq;
+  const int bi = blockIdx.x / pb.n, ni = blockIdx.x % pb.n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool has_seg = seg != nullptr;
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
+  const int k_end = pb.causal ? min(pb.t, q0 + kWq) : pb.t;
+  FwdSchedule sch;
+  sch.live = live;
+  sch.nkt = (k_end + kWk - 1) / kWk;
+  // key tiles per reference block (block_k: a multiple of 64, or >= t)
+  sch.tpr = block_k >= pb.t ? sch.nkt : block_k / kWk;
+  sch.nrb = (sch.nkt + sch.tpr - 1) / sch.tpr;
+
+  if (tid == 0) {
+    for (int st = 0; st < kWStages; ++st) {
+      MbarInit(&full[st], 1);
+      MbarInit(&empty[st], kWConsumers / 32);  // one arrival per warp
+    }
+    MbarInit(qbar, 1);
+    MbarInitFence();
+  }
+  int qlo = 0, qhi = 0;
+  if (has_seg) WarpSegRange(seg_row, q0, kWq, pb.t, &qlo, &qhi);
+  LiveTiles(live, seg_row, qlo, qhi, kWk, sch.nkt, pb.t);  // + a barrier
+
+  if (warp == kWConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      MbarArriveExpectTx(qbar, kBoxes * L::kQBox);
+      for (int bx = 0; bx < kBoxes; ++bx)
+        TmaLoad4(sm + bx * L::kQBox, &tm_q, qbar, bx * 64, ni, q0, bi);
+      int stage = 0, phase = 0;
+      for (sch.From(0); sch.kt >= 0; sch.Advance()) {
+        MbarWait(&empty[stage], phase ^ 1);
+        unsigned char* st = sm + L::kRing + stage * L::kStage;
+        const bool with_v = sch.pass == 1;  // sweep A reads no V
+        MbarArriveExpectTx(&full[stage],
+                           (with_v ? 2 : 1) * kBoxes * L::kKBox);
+        for (int bx = 0; bx < kBoxes; ++bx) {
+          TmaLoad4(st + bx * L::kKBox, &tm_k, &full[stage], bx * 64, ni,
+                   sch.kt * kWk, bi);
+          if (with_v)
+            TmaLoad4(st + (kBoxes + bx) * L::kKBox, &tm_v, &full[stage],
+                     bx * 64, ni, sch.kt * kWk, bi);
+        }
+        if (++stage == kWStages) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    CpAsyncCommit();
-  };
+    return;
+  }
 
-  int rb = 0, pass = 0, kt = -1;
-  first_from(0, rb, kt);
-  prefetch(pass, kt, 0);
-  CpAsyncWait<1>();   // Q landed
-  __syncthreads();
-  uint32_t qf[kHKs][4];
+  // a consumer warpgroup: query rows wg_q0 .. wg_q0 + 63; this thread's
+  // rows row_a and row_b = row_a + 8 (the accumulators' layout)
+  const int wg = warp >> 2;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wg_q0 = q0 + 64 * wg;
+  const int row_a = wg_q0 + 16 * (warp & 3) + g, row_b = row_a + 8;
+  const int segq_a = has_seg && row_a < pb.t ? seg_row[row_a] : 0;
+  const int segq_b = has_seg && row_b < pb.t ? seg_row[row_b] : 0;
+  const unsigned char* qs = sm + wg * 64 * kRowBytes;  // in each Q box
+
+  float o[kN / 2];
 #pragma unroll
-  for (int kk = 0; kk < kHKs; ++kk)
-    if (kk < nks) LoadA(qf[kk], qs + warp * 16 * ld + kk * 16, ld);
-
+  for (int i = 0; i < kN / 2; ++i) o[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;  // l: partial
-  float mb_a = kNegInf, mb_b = kNegInf;   // this block's row maxima
-  float ms_a = 0.f, ms_b = 0.f;           // m_safe of the P.V pass
-  float acc[kHNt][4];
-#pragma unroll
-  for (int c = 0; c < kHNt; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  float mb_a = kNegInf, mb_b = kNegInf;  // sweep A's row maxima (partial)
+  float ms_a = 0.f, ms_b = 0.f;          // m_safe of sweep B
 
-  for (int stage = 0; kt >= 0; stage ^= 1) {
-    int n_rb = rb, n_pass = pass, n_kt = kt;
-    advance(n_rb, n_pass, n_kt);
-    prefetch(n_pass, n_kt, stage ^ 1);
-    CpAsyncWait<1>();
-    __syncthreads();   // this step's tiles landed
-    const bf16* kst = ks + stage * kHk * ld;
-    const bf16* vst = vs + stage * kHk * ld;
-    const int* segk = segk_s + stage * kHk;
-    const int k0 = kt * kHk;
-
-    // s = (q . k) * sm_scale where kept, else NEG_INF: 16 rows x 64 keys
-    float s[8][4];
+  MbarWait(qbar, 0);
+  int stage = 0, phase = 0;
+  for (sch.From(0); sch.kt >= 0;) {
+    const bool ends_a = sch.EndsSweepA();
+    const int k0 = sch.kt * kWk;
+    MbarWait(&full[stage], phase);
+    const unsigned char* st = sm + L::kRing + stage * L::kStage;
+    if (!(pb.causal && k0 > wg_q0 + 63)) {  // else: all in the future
+      // s = (q . k) * sm_scale where kept, else NEG_INF: 64 rows x 64 keys
+      float s[32];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;  // overwritten (scale_d 0)
+      // every k-step of the boxes: their columns past h were read as
+      // zeros, so they add exact zeros (and no branch splits the chain)
+      WgmmaFence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      for (int kk = 0; kk < 4 * kBoxes; ++kk) {
+        const int box_off = kk >> 2, col_off = (kk & 3) * 32;
+        WgmmaSS64(s,
+                  SwizzledDesc(qs + box_off * L::kQBox + col_off, 16, 1024),
+                  SwizzledDesc(st + box_off * L::kKBox + col_off, 16, 1024),
+                  kk > 0);
+      }
+      WgmmaCommit();
+      int segk[16];  // the ids of this thread's 16 key columns
 #pragma unroll
-    for (int kk = 0; kk < kHKs; ++kk) {
-      if (kk < nks) {
+      for (int c = 0; c < 16; ++c) {
+        const int key = k0 + 8 * (c >> 1) + 2 * tq + (c & 1);
+        segk[c] = has_seg && key < pb.t ? seg_row[key] : 0;
+      }
+      // every pair of this thread's kept: the tile is inside t, wholly in
+      // both rows' causal past, and of their one segment
+      bool all_kept = row_b < pb.t && k0 + kWk <= pb.t &&
+                      (!pb.causal || k0 + kWk - 1 <= row_a) &&
+                      segq_a == segq_b;
 #pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const bf16* bp = kst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
-          MmaBf16(s[nt], qf[kk], Ld32(bp), Ld32(bp + 8));
+      for (int c = 0; c < 16; ++c) all_kept = all_kept && segk[c] == segq_a;
+      WgmmaWait<0>();
+      FenceRegs(s);
+      if (all_kept) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= pb.sm_scale;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * tq + (e & 1);
+            const bool keep =
+                Keep(pb, e < 2 ? row_a : row_b, k0 + col, has_seg,
+                     e < 2 ? segq_a : segq_b, segk[2 * j + (e & 1)]);
+            s[4 * j + e] = keep ? s[4 * j + e] * pb.sm_scale : kNegInf;
+          }
+      }
+      if (sch.pass == 0) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mb_a = fmaxf(mb_a, fmaxf(s[4 * j], s[4 * j + 1]));
+          mb_b = fmaxf(mb_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
         }
-      }
-    }
+      } else {
+        // p = exp(s - m_safe): l sums it unrounded, P.V takes bf16(p); the
+        // A fragment of keys 16 kk .. 16 kk + 15 is S's columns j = 2 kk,
+        // 2 kk + 1
+        uint32_t pa[4][4];
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const bool keep = Keep(pb, e < 2 ? row_a : row_b, k0 + col, has_seg,
-                               e < 2 ? segq_a : segq_b, segk[col]);
-        s[nt][e] = keep ? s[nt][e] * pb.sm_scale : kNegInf;
-      }
-
-    if (pass == 0) {
-      float ma = kNegInf, mb = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        ma = fmaxf(ma, fmaxf(s[nt][0], s[nt][1]));
-        mb = fmaxf(mb, fmaxf(s[nt][2], s[nt][3]));
-      }
-      mb_a = fmaxf(mb_a, QuadMax(ma));
-      mb_b = fmaxf(mb_b, QuadMax(mb));
-      if (n_pass != 0 || n_rb != rb) {
-        // the block's maxima are known: the reference's m_new and alpha
-        const float mn_a = fmaxf(m_a, mb_a), mn_b = fmaxf(m_b, mb_b);
-        const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
-        l_a *= al_a;
-        l_b *= al_b;
-#pragma unroll
-        for (int c = 0; c < kHNt; ++c) {
-          acc[c][0] *= al_a;
-          acc[c][1] *= al_a;
-          acc[c][2] *= al_b;
-          acc[c][3] *= al_b;
+        for (int j = 0; j < 8; ++j) {
+          const float p0 = expf(s[4 * j] - ms_a);
+          const float p1 = expf(s[4 * j + 1] - ms_a);
+          const float p2 = expf(s[4 * j + 2] - ms_b);
+          const float p3 = expf(s[4 * j + 3] - ms_b);
+          l_a += p0 + p1;
+          l_b += p2 + p3;
+          pa[j >> 1][2 * (j & 1)] = PackBf16(p0, p1);
+          pa[j >> 1][2 * (j & 1) + 1] = PackBf16(p2, p3);
         }
-        m_a = mn_a;
-        m_b = mn_b;
-        // rows with no unmasked key yet: masked entries must give p = 0
-        ms_a = m_a <= kNegInf * 0.5f ? 0.f : m_a;
-        ms_b = m_b <= kNegInf * 0.5f ? 0.f : m_b;
-        mb_a = mb_b = kNegInf;
-      }
-    } else {
-      // p = exp(s - m_safe): l sums it unrounded, P.V takes bf16(p)
-      uint32_t pa[4][4];
+        WgmmaFence();
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const float p0 = expf(s[nt][0] - ms_a), p1 = expf(s[nt][1] - ms_a);
-        const float p2 = expf(s[nt][2] - ms_b), p3 = expf(s[nt][3] - ms_b);
-        l_a += p0 + p1;
-        l_b += p2 + p3;
-        pa[nt >> 1][2 * (nt & 1)] = PackBf16(p0, p1);
-        pa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(p2, p3);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < kHKs; ++c) {
-          if (c < nks) {
-            uint32_t b[4];
-            LoadBT(b, vst + 16 * j * ld, ld, c);
-            MmaBf16(acc[2 * c], pa[j], b[0], b[1]);
-            MmaBf16(acc[2 * c + 1], pa[j], b[2], b[3]);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t vd = SwizzledDesc(
+              st + kBoxes * L::kKBox + kk * 16 * kRowBytes, L::kKBox, 1024);
+          if constexpr (kBoxes == 2) {
+            WgmmaRS128(o, pa[kk], vd);
+          } else {
+            WgmmaRS64(o, pa[kk], vd);
           }
         }
+        WgmmaCommit();
+        WgmmaWait<0>();
+        FenceRegs(o);
+      }
     }
-    __syncthreads();   // this stage is consumed before it is refilled
-    rb = n_rb;
-    pass = n_pass;
-    kt = n_kt;
+    __syncwarp();
+    if (lane == 0) MbarArrive(&empty[stage]);  // this warp is done with it
+    if (ends_a) {
+      // the block's maxima are known: the reference's m_new and alpha
+      mb_a = QuadMax(mb_a);
+      mb_b = QuadMax(mb_b);
+      const float mn_a = fmaxf(m_a, mb_a), mn_b = fmaxf(m_b, mb_b);
+      const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+      l_a *= al_a;
+      l_b *= al_b;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        o[4 * j] *= al_a;
+        o[4 * j + 1] *= al_a;
+        o[4 * j + 2] *= al_b;
+        o[4 * j + 3] *= al_b;
+      }
+      m_a = mn_a;
+      m_b = mn_b;
+      // rows with no unmasked key yet: masked entries must give p = 0
+      ms_a = m_a <= kNegInf * 0.5f ? 0.f : m_a;
+      ms_b = m_b <= kNegInf * 0.5f ? 0.f : m_b;
+      mb_a = mb_b = kNegInf;
+    }
+    if (++stage == kWStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    sch.Advance();
   }
-  CpAsyncWait<0>();
   const float den_a = fmaxf(QuadSum(l_a), 1e-20f);
   const float den_b = fmaxf(QuadSum(l_b), 1e-20f);
 #pragma unroll
-  for (int c = 0; c < kHNt; ++c) {
-    if (c < nnt) {
+  for (int j = 0; j < kN / 8; ++j) {
+    const int col = 8 * j + 2 * tq;
+    if (col < pb.h) {
       if (row_a < pb.t)
-        *reinterpret_cast<uint32_t*>(out + pb.Off(bi, row_a, ni) + c * 8 +
-                                     2 * tig) =
-            PackBf16(acc[c][0] / den_a, acc[c][1] / den_a);
+        *reinterpret_cast<uint32_t*>(out + pb.Off(bi, row_a, ni) + col) =
+            PackBf16(o[4 * j] / den_a, o[4 * j + 1] / den_a);
       if (row_b < pb.t)
-        *reinterpret_cast<uint32_t*>(out + pb.Off(bi, row_b, ni) + c * 8 +
-                                     2 * tig) =
-            PackBf16(acc[c][2] / den_b, acc[c][3] / den_b);
+        *reinterpret_cast<uint32_t*>(out + pb.Off(bi, row_b, ni) + col) =
+            PackBf16(o[4 * j + 2] / den_b, o[4 * j + 3] / den_b);
     }
   }
-  if (tig == 0) {
+  if (tq == 0) {
     if (row_a < pb.t) lse[pb.RowOff(bi, ni, row_a)] = m_a + logf(den_a);
     if (row_b < pb.t) lse[pb.RowOff(bi, ni, row_b)] = m_b + logf(den_b);
   }
@@ -1405,6 +1513,52 @@ cudaError_t AllowSmem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// cuTensorMapEncodeTiled, fetched from the driver at run time (so the
+// library needs no -lcuda); null if the driver has none.
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiledFn TensorMapEncoder() {
+  static EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of a bf16 [b, t, n, h] tensor in boxes of `rows` rows of one
+// (batch, head) x 64 head-dim columns, 128-byte swizzled; rows past t and
+// columns past h read as zeros.
+bool BoxMap(EncodeTiledFn encode, CUtensorMap* map, const void* base, int b,
+            int t, int n, int h, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t row = static_cast<cuuint64_t>(h) * sizeof(bf16);
+  const cuuint64_t strides[3] = {row, row * n, row * n * t};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1482,18 +1636,50 @@ int FlashFwdBF16(const void* q, const void* k, const void* v, const int* seg,
                  void* out, float* lse, int b, int t, int n, int h,
                  int causal, int block_k, void* stream) {
   if (BadShape(b, t, n, h) || block_k <= 0 ||
-      (block_k < t && block_k % kHk != 0))
+      (block_k < t && block_k % kWk != 0) || (t + kWq - 1) / kWq > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiledFn encode = TensorMapEncoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv;
+  if (!BoxMap(encode, &mq, q, b, t, n, h, kWq) ||
+      !BoxMap(encode, &mk, k, b, t, n, h, kWk) ||
+      !BoxMap(encode, &mv, v, b, t, n, h, kWk))
     return static_cast<int>(cudaErrorInvalidValue);
   Problem pb = MakeProblem(t, n, h, causal);
-  const size_t smem = HFwdLayout(t, h).bytes;
-  cudaError_t err = AllowSmem(FlashFwdBf16Kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  FlashFwdBf16Kernel<<<dim3((t + kHq - 1) / kHq, b * n), kHThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, static_cast<bf16*>(out), lse, pb,
-      block_k);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(b * n, (t + kWq - 1) / kWq);
+  cudaError_t err;
+  if (h <= 64) {
+    const size_t smem = WLayout<1>::Bytes(t);
+    err = AllowSmem(FlashFwdBf16Kernel<1>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    FlashFwdBf16Kernel<1><<<grid, kWThreads, smem, s>>>(
+        mq, mk, mv, seg, static_cast<bf16*>(out), lse, pb, block_k);
+  } else {
+    const size_t smem = WLayout<2>::Bytes(t);
+    err = AllowSmem(FlashFwdBf16Kernel<2>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    FlashFwdBf16Kernel<2><<<grid, kWThreads, smem, s>>>(
+        mq, mk, mv, seg, static_cast<bf16*>(out), lse, pb, block_k);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 forward kernel's launch geometry at (t, h), as FlashFwdGeometry.
+int FlashFwdBf16Geometry(int t, int h, int* threads, int* smem_bytes,
+                         int* blocks_per_sm) {
+  if (BadShape(1, t, 1, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = h <= 64 ? WLayout<1>::Bytes(t) : WLayout<2>::Bytes(t);
+  cudaError_t err = h <= 64 ? AllowSmem(FlashFwdBf16Kernel<1>, smem)
+                            : AllowSmem(FlashFwdBf16Kernel<2>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *threads = kWThreads;
+  *smem_bytes = static_cast<int>(smem);
+  return static_cast<int>(
+      h <= 64 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    blocks_per_sm, FlashFwdBf16Kernel<1>, kWThreads, smem)
+              : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    blocks_per_sm, FlashFwdBf16Kernel<2>, kWThreads, smem));
 }
 
 int FlashBwdDkDvBF16(const void* q, const void* k, const void* v,

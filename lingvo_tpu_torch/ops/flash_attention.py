@@ -10,8 +10,9 @@ the card.
 Two implementations of one function:
 
 - the CUDA kernels of `ops/csrc/flash_attention.cu`, for CUDA tensors:
-  `FlashForward` (out and the row logsumexp `lse`; register-blocked tiles
-  with cp.async double buffering), and the two backward
+  `FlashForward` (out and the row logsumexp `lse`; float32: register-
+  blocked tiles with cp.async double buffering; bf16: warpgroup MMA fed
+  by TMA, 128 queries per block), and the two backward
   kernels `FlashDkDv` and `FlashDq`, which recompute the probabilities
   from `lse` (`delta = rowsum(do * out)` stays a plain torch op, as it is
   XLA in the reference). `_FlashFunction` ties them into autograd.
@@ -240,10 +241,11 @@ def _Lib():
     lib.FlashFwdBF16.argtypes = [vp] * 6 + [ci] * 6 + [vp]
     lib.FlashBwdDkDvBF16.argtypes = [vp] * 9 + [ci] * 5 + [vp]
     lib.FlashBwdDqBF16.argtypes = [vp] * 8 + [ci] * 5 + [vp]
-    lib.FlashFwdGeometry.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 3
+    for fn in (lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry):
+      fn.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 3
     for fn in (lib.FlashFwdF32, lib.FlashBwdDkDvF32, lib.FlashBwdDqF32,
                lib.FlashFwdBF16, lib.FlashBwdDkDvBF16, lib.FlashBwdDqBF16,
-               lib.FlashFwdGeometry):
+               lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry):
       fn.restype = ci
     lib.FlashErrorString.argtypes = [ci]
     lib.FlashErrorString.restype = ctypes.c_char_p
@@ -271,13 +273,15 @@ def _Launch(wrapper, kernel, pointers, q, causal, *extra):
 _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 
-def ForwardGeometry(t: int, h: int):
+def ForwardGeometry(t: int, h: int, dtype=torch.float32):
   """(threads, shared bytes per block, resident blocks per SM) of the
-  forward kernel at sequence length t and head dim h, on the current
-  device."""
+  forward kernel of `dtype` at sequence length t and head dim h, on the
+  current device."""
   lib = _Lib()
   vals = [ctypes.c_int() for _ in range(3)]
-  rc = lib.FlashFwdGeometry(t, h, *(ctypes.byref(v) for v in vals))
+  fn = (lib.FlashFwdGeometry if dtype == torch.float32
+        else lib.FlashFwdBf16Geometry)
+  rc = fn(t, h, *(ctypes.byref(v) for v in vals))
   if rc != 0:
     raise RuntimeError("FlashFwdGeometry failed: "
                        + lib.FlashErrorString(rc).decode())

@@ -11,11 +11,14 @@ live slot padded) returns exactly 0.
 Two implementations of one function:
 
 - the CUDA kernels of `ops/csrc/flash_decode.cu`, launched for CUDA
-  tensors: a split kernel (grid (row x head, `NumSplits`); each block
-  finds the row's first live slot and streams its share of the tiles from
-  there to `time_step` through shared memory with cp.async; two passes of
-  it for a bfloat16 cache) and a combine kernel that merges the splits'
-  (m, l, acc) in split order;
+  tensors. A float32 cache takes a split kernel (grid (row x head,
+  `NumSplits`); each block finds the row's first live slot and streams
+  its share of the tiles from there to `time_step` through shared memory
+  with cp.async) and a combine kernel that merges the splits' (m, l, acc)
+  in split order. A bfloat16 cache takes one launch: the splits of a
+  (row, head) form a thread-block cluster (`NumSplitsBf16`, at most 8),
+  keep their scores in shared memory, exchange their maxima through
+  distributed shared memory and merge in the same launch;
 - `_PlainDecode`, the reference twin `_XlaDecode`'s loop over live pages
   through the shared page step (`ragged_block_attend._PageAttend`, the
   reference `_PageAttend` batched over rows, with `_Finish`'s
@@ -28,9 +31,9 @@ The cache is float32 or bfloat16 (`kv_cache_dtype='bfloat16'`). A
 bfloat16 cache is read as float32 and its probabilities are rounded to
 bfloat16 before P.V, as the reference's `_PageAttend` does
 (`p.astype(v_page.dtype)`), each against the running max through the end
-of its page, where the reference rounds it: the kernel takes that max in
-a second pass over the scores its first pass wrote (see the .cu file). An
-int8 cache never comes here: `ExtendStep` reads it densely.
+of its page, where the reference rounds it: the blocks of a cluster take
+that max from each other's page maxima (see the .cu file). An int8 cache
+never comes here: `ExtendStep` reads it densely.
 `time_step` is a host integer: the decode loop that calls this op counts
 its steps on the host, so no device value is read back per step.
 """
@@ -53,6 +56,8 @@ HEAD_DIMS = (4, 8, 16, 32, 64, 128)   # kernel limit: H / 4 a power of two
 DTYPE_HEAD_DIMS = {torch.float32: HEAD_DIMS, torch.bfloat16: HEAD_DIMS[1:]}
 TILE_BYTES = 8192     # K (and V) bytes of one kernel tile
 MAX_TILE_SLOTS = 128
+MAX_CLUSTER = 8       # bfloat16: splits of a (row, head), one cluster
+MAX_CTA_SLOTS = 8192  # bfloat16: slots whose scores one block holds
 
 
 # -- plain PyTorch version (the CPU path) -----------------------------------
@@ -129,6 +134,27 @@ def NumSplits(rows: int, time_step: int, seq_len: int, head_dim: int,
   return max(1, min(want, tiles))
 
 
+def NumSplitsBf16(rows: int, time_step: int, seq_len: int, head_dim: int,
+                  sm_count: int, blocks_per_sm: int) -> int:
+  """Blocks per (row, head) of a bfloat16 cache: the float32 rule
+  (`NumSplits`) capped at MAX_CLUSTER, since the splits of one (row, head)
+  form one thread-block cluster and 8 is the portable cluster size."""
+  return min(MAX_CLUSTER, NumSplits(rows, time_step, seq_len, head_dim,
+                                    sm_count, blocks_per_sm, 2))
+
+
+def CtaSlots(seq_len: int, head_dim: int, time_step: int,
+             splits: int) -> int:
+  """Slots whose float32 scores one block of a bfloat16 cache holds in
+  shared memory: ceil(tiles / splits) tiles, the tiles counted from slot
+  0 to time_step (the first live slot is found on the card)."""
+  t_eff = min(time_step, seq_len - 1)
+  if t_eff < 0:
+    return 0
+  ts = TileSlots(head_dim, 2)
+  return -(-(t_eff // ts + 1) // splits) * ts
+
+
 def Geometry(device, dtype=torch.float32) -> tuple:
   """(threads, shared bytes per block, resident blocks per SM, SMs) of the
   split kernel for a `dtype` cache on `device`, queried once per device
@@ -182,17 +208,31 @@ def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   if b == 0:
     return out
   _, _, per_sm, sms = Geometry(q.device, dtype)
-  splits = NumSplits(b * n, time_step, s, h, sms, per_sm, dtype.itemsize)
   lib = _Lib()
   code = KV_DTYPES[dtype]
-  scratch = torch.empty(lib.FlashDecodeScratchFloats(b, s, n, h, splits, code),
-                        dtype=torch.float32, device=q.device)
+  scratch = None
+  if dtype == torch.bfloat16:
+    splits = NumSplitsBf16(b * n, time_step, s, h, sms, per_sm)
+    if b * n > 65535:
+      raise ValueError(f"B x N = {b * n} rows exceed the bfloat16 kernel's "
+                       "grid (65535)")
+    slots = CtaSlots(s, h, time_step, splits)
+    if slots > MAX_CTA_SLOTS:
+      raise ValueError(
+          f"time_step {time_step} over {splits} splits gives each block "
+          f"{slots} slots of scores, above the bfloat16 kernel's "
+          f"{MAX_CTA_SLOTS}")
+  else:
+    splits = NumSplits(b * n, time_step, s, h, sms, per_sm, dtype.itemsize)
+    scratch = torch.empty(
+        lib.FlashDecodeScratchFloats(b, s, n, h, splits, code),
+        dtype=torch.float32, device=q.device)
   stream = torch.cuda.current_stream(q.device).cuda_stream
   rc = lib.FlashDecode(
       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
       None if cache_paddings is None else cache_paddings.data_ptr(),
-      out.data_ptr(), scratch.data_ptr(), b, s, n, h, int(time_step), splits,
-      page_size, code, stream)
+      out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, s,
+      n, h, int(time_step), splits, page_size, code, stream)
   if rc != 0:
     raise RuntimeError("FlashDecode kernel launch failed: "
                        + lib.FlashDecodeErrorString(rc).decode())
@@ -216,7 +256,7 @@ def FlashDecode(q, k_cache, v_cache, time_step: int, *, page_size: int,
   never attend this slot. Returns [B, 1, N, H].
 
   CPU tensors run the plain version; CUDA tensors launch the kernel for
-  the cache's dtype (counting one launch in `FlashDecode.launches` and in
+  the cache's dtype (counting one call in `FlashDecode.launches` and in
   `FlashDecode.launches_by_dtype`) or raise."""
   if q.ndim != 4 or q.shape[1] != 1:
     raise ValueError(f"q must be [B, 1, N, H], got {tuple(q.shape)}")

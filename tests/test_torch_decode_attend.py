@@ -190,6 +190,192 @@ class TestFlashDecodeSplitPlan:
       assert splits == 9    # two waves of 4 x 132 resident blocks
 
 
+  @pytest.mark.parametrize("rows, t, s, h", [
+      (128, 1151, 1152, 128), (128, 700, 1152, 128), (128, 0, 1152, 128),
+      (6, 29, 32, 8), (1, 5000, 4096, 16), (128, -1, 1152, 128),
+      (2, 1151, 1152, 128)])
+  def test_bf16_split_cap(self, rows, t, s, h):
+    """A bfloat16 cache's splits form one cluster: at least 1, at most 8
+    (the portable cluster size), never more than the tiles up to t."""
+    splits = flash_decode.NumSplitsBf16(rows, t, s, h, sm_count=132,
+                                        blocks_per_sm=8)
+    tiles = max(min(t, s - 1), 0) // flash_decode.TileSlots(h, 2) + 1
+    assert 1 <= splits <= min(flash_decode.MAX_CLUSTER, tiles)
+    if (rows, t) == (128, 1151):
+      assert splits == 8    # the float32 rule's 17, capped
+
+  def test_bf16_scores_fit_the_blocks(self):
+    """GShardDecode's shapes (S = 1152, H = 128, 8 splits) keep 160 slots
+    of scores per block; the wrapper's limit is MAX_CTA_SLOTS."""
+    assert flash_decode.CtaSlots(1152, 128, 1151, 8) == 160
+    assert flash_decode.CtaSlots(1152, 128, -1, 8) == 0
+    assert flash_decode.CtaSlots(1152, 128, 0, 1) == 32
+    assert flash_decode.CtaSlots(
+        8 * flash_decode.MAX_CTA_SLOTS, 128,
+        8 * flash_decode.MAX_CTA_SLOTS - 1, 8) == flash_decode.MAX_CTA_SLOTS
+
+
+def _ClusterPageMax(scores, lo, t_eff, page, ts, splits):
+  """A plain model of the bfloat16 kernel's cluster rule (flash_decode.cu,
+  FlashDecodeBf16Kernel): the rounding max M of every slot a block holds,
+  from the blocks' published (total, first-page max, first page) triples
+  alone. scores: [S] float32, NEG_INF where masked. Returns M [S] (NaN
+  for the slots no block holds) and the triples."""
+  neg = np.float32(rba.NEG_INF)
+  m = np.full(scores.shape, np.nan, np.float32)
+  if lo > t_eff:
+    return m, []
+  first, nt = lo // ts, t_eff // ts - lo // ts + 1
+  held = []   # (first slot, scores held) per block, in split order
+  for split in range(splits):
+    b0 = first + split * nt // splits
+    b1 = first + (split + 1) * nt // splits
+    x = np.full((b1 - b0) * ts, neg, np.float32)
+    live = scores[b0 * ts:min(b1 * ts, t_eff + 1)]
+    x[:live.size] = live
+    held.append((b0 * ts, x))
+  triples = []
+  for start, x in held:
+    if x.size == 0:
+      triples.append((neg, neg, -1))
+      continue
+    first_end = min(x.size, (start // page + 1) * page - start)
+    triples.append((x.max(), x[:first_end].max(), start // page))
+  for c, (start, x) in enumerate(held):
+    if x.size == 0:
+      continue
+    before = max([t[0] for t in triples[:c]], default=neg)
+    last_page = (start + x.size - 1) // page
+    tail = max([t[1] for t in triples[c + 1:] if t[2] == last_page],
+               default=neg)
+    run = np.maximum.accumulate(x)
+    for i in range(x.size):
+      pg = (start + i) // page
+      mj = max(before, run[min(x.size, (pg + 1) * page - start) - 1])
+      if pg == last_page:
+        mj = max(mj, tail)
+      m[start + i] = mj
+  return m, triples
+
+
+def _ReferencePageMax(scores, t_eff, page):
+  """The running max through the end of each slot's page, in the
+  reference's page loop (`m_new = max(m, max(s_page))`)."""
+  m = np.full(scores.shape, np.nan, np.float32)
+  run = np.float32(rba.NEG_INF)
+  for start in range(0, t_eff + 1, page):
+    run = max(run, scores[start:min(start + page, t_eff + 1)].max())
+    m[start:start + page] = run
+  return m
+
+
+def _ClusterDecode(q, k, v, t, pad, page, splits):
+  """[B, N, H]: the kernel's arithmetic on the CPU from the model's M:
+  acc = sum bf16(exp(s - M_safe)) exp(M - m) v, l the same unrounded,
+  out = acc / max(l, 1e-20), with the row's max m."""
+  b, s_len, n, h = k.shape
+  t_eff = min(t, s_len - 1)
+  ts = flash_decode.TileSlots(h, 2)
+  neg = np.float32(rba.NEG_INF)
+  kf = torch.as_tensor(k).bfloat16().float().numpy()
+  vf = torch.as_tensor(v).bfloat16().float().numpy()
+  out = np.zeros((b, n, h), np.float32)
+  for bi in range(b):
+    keep = (np.arange(s_len) <= t_eff) & (pad[bi] < 0.5)
+    live = np.nonzero(keep)[0]
+    lo = int(live[0]) if live.size else t_eff + 1
+    for ni in range(n):
+      sc = np.where(keep, np.einsum("sh,h->s", kf[bi, :, ni], q[bi, 0, ni]),
+                    neg).astype(np.float32)
+      mm, triples = _ClusterPageMax(sc, lo, t_eff, page, ts, splits)
+      if not triples:
+        continue
+      row_max = max(tr[0] for tr in triples)
+      held = ~np.isnan(mm)
+      msafe = np.where(mm <= neg * 0.5, 0.0, mm).astype(np.float32)
+      p = torch.exp(torch.as_tensor(np.where(held, sc - msafe, neg)))
+      e = torch.exp(torch.as_tensor(np.where(held, mm - row_max, 0.0)))
+      w = p.bfloat16().float() * e
+      acc = (w[:, None] * torch.as_tensor(vf[bi, :, ni])).sum(0)
+      out[bi, ni] = (acc / torch.clamp((p * e).sum(), min=1e-20)).numpy()
+  return out
+
+
+class TestBf16ClusterPageMaxima:
+  """The bfloat16 kernel's cluster rule on the CPU: each block knows only
+  its own scores and its neighbours' (total, first-page max, first page),
+  and must still round every p against the reference's running max
+  through the end of its page. S 768 in 32-slot tiles (H 128), splits
+  1..8, pages 4 (many pages per block), 16, 48 (pages cut tiles) and 128
+  (a page across several blocks); a right-aligned prompt that leaves
+  blocks empty, a row with nothing live and a row whose one live slot is
+  t // 2."""
+
+  S, T = 768, 700
+
+  def _Inputs(self):
+    rng = np.random.RandomState(21)
+    b, n, h = 4, 2, 128
+    q = _Dyadic(rng.randn(b, 1, n, h) / np.sqrt(h), 1 / 64)
+    k = _Dyadic(rng.randn(b, self.S, n, h), 1 / 8)
+    v = rng.randn(b, self.S, n, h).astype(np.float32)
+    pad = np.zeros((b, self.S), np.float32)
+    pad[1, :650] = 1.0      # 51 live slots: blocks left empty
+    pad[2, :] = 1.0         # nothing live: exact 0
+    pad[3, :] = 1.0
+    pad[3, self.T // 2] = 0.0
+    return q, k, v, pad
+
+  @pytest.mark.parametrize("page", [4, 16, 48, 128])
+  @pytest.mark.parametrize("splits", range(1, 9))
+  def test_model_rounds_at_the_reference_max(self, splits, page):
+    q, k, v, pad = self._Inputs()
+    b, s_len, n, h = k.shape
+    ts = flash_decode.TileSlots(h, 2)
+    kf = torch.as_tensor(k).bfloat16().float().numpy()
+    neg = np.float32(rba.NEG_INF)
+    for bi in range(b):
+      keep = (np.arange(s_len) <= self.T) & (pad[bi] < 0.5)
+      live = np.nonzero(keep)[0]
+      lo = int(live[0]) if live.size else self.T + 1
+      for ni in range(n):
+        sc = np.where(keep, np.einsum("sh,h->s", kf[bi, :, ni],
+                                      q[bi, 0, ni]), neg).astype(np.float32)
+        got, _ = _ClusterPageMax(sc, lo, self.T, page, ts, splits)
+        want = _ReferencePageMax(sc, self.T, page)
+        held = ~np.isnan(got)
+        # every live slot is held, and its M is the reference's, bitwise
+        assert held[live].all()
+        np.testing.assert_array_equal(got[held], want[held])
+    out = _ClusterDecode(q, k, v, self.T, pad, page, splits)
+    t_ = torch.as_tensor
+    plain = flash_decode._PlainDecode(
+        t_(q)[:, 0], t_(k).bfloat16(), t_(v).bfloat16(), self.T, page,
+        t_(pad)).numpy()
+    np.testing.assert_allclose(out, plain, atol=1e-5)
+    np.testing.assert_allclose(out, _JaxPage(page), atol=1e-5)
+    np.testing.assert_array_equal(out[2], np.zeros_like(out[2]))
+
+
+_JAX_PAGE = {}
+
+
+def _JaxPage(page):
+  """The interpreted Pallas kernel on TestBf16ClusterPageMaxima's inputs
+  (a bfloat16 cache) at `page`, once per page."""
+  if page not in _JAX_PAGE:
+    from lingvo_tpu.ops import flash_decode as jax_fd
+    jnp = _Jnp()
+    q, k, v, pad = TestBf16ClusterPageMaxima()._Inputs()
+    _JAX_PAGE[page] = np.asarray(jax_fd.FlashDecode(
+        jnp.asarray(q), jnp.asarray(k).astype(jnp.bfloat16),
+        jnp.asarray(v).astype(jnp.bfloat16),
+        jnp.asarray(TestBf16ClusterPageMaxima.T, jnp.int32), page_size=page,
+        cache_paddings=jnp.asarray(pad), lowering="pallas",
+        interpret=True))[:, 0]
+  return _JAX_PAGE[page]
+
+
 def _Pool(seed=0, b=B, t_pages=4, n=N, h=H):
   """A pool of b * t_pages + 1 pages, disjoint tables, seq_lens with an
   inactive row; entries past each row's live pages alias other rows'."""
@@ -517,7 +703,7 @@ class TestCudaKernels:
     assert (got[1] == 0).all()
 
   @pytest.mark.parametrize("h, page", [(16, 16), (64, 16), (128, 16),
-                                       (128, 48)])
+                                       (128, 48), (8, 16), (32, 16)])
   def test_bf16_flash_decode_kernel_matches_plain(self, h, page):
     """A bfloat16 cache with NaN in padded and past-t slots, dyadic q and
     K, t = 0, P + 1, S - 1: within 1e-5 of the plain version, which
@@ -553,6 +739,59 @@ class TestCudaKernels:
       if t > 0:   # t = 0 has one live slot: p = 1 needs no rounding
         assert float((unrounded[:, 0] - want).abs().max()) > 1e-5
       assert (got[2] == 0).all()
+
+  @pytest.mark.parametrize("page", [4, 128])
+  @pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+  def test_bf16_cluster_at_forced_splits(self, splits, page, monkeypatch):
+    """The one-launch bfloat16 kernel with its splits forced (one cluster
+    of `splits` blocks): S 256 in 32-slot tiles (H 128), so at page 128 a
+    page spans up to four blocks and at page 4 a block holds many pages; a
+    left-padded row with 2 live tiles leaves blocks empty, a wholly padded
+    row must be exact 0, a row has one live slot; t = 0, 100 and 255, NaN
+    in every slot the read skips. Within 1e-5 of `_PlainDecode` on dyadic
+    q and K, two calls bitwise equal, one counted launch per call."""
+    _NeedCard()
+    s = 256
+    q, k, v, pad = _Cache(s=s, seed=12, b=4, h=128)
+    q, k = _Dyadic(q, 1 / 64), _Dyadic(k, 1 / 8)
+    pad[1, :200] = 1.0
+    pad[3, :] = 1.0
+    pad[3, 50] = 0.0
+    monkeypatch.setattr(flash_decode, "NumSplits", lambda *a: splits)
+    t_ = lambda a: torch.as_tensor(a).cuda()
+    for t in (0, 100, s - 1):
+      dead = (pad > 0.5) | (np.arange(s)[None] > t)
+      kp, vp = k.copy(), v.copy()
+      kp[dead], vp[dead] = np.nan, np.nan
+      kc, vc = t_(kp).bfloat16(), t_(vp).bfloat16()
+      want = flash_decode._PlainDecode(t_(q)[:, 0], kc, vc, t, page,
+                                       t_(pad))
+      launches = flash_decode.FlashDecode.launches_by_dtype["bfloat16"]
+      got = flash_decode.FlashDecode(t_(q), kc, vc, t, page_size=page,
+                                     cache_paddings=t_(pad))
+      again = flash_decode.FlashDecode(t_(q), kc, vc, t, page_size=page,
+                                       cache_paddings=t_(pad))
+      torch.cuda.synchronize()
+      assert (flash_decode.FlashDecode.launches_by_dtype["bfloat16"]
+              == launches + 2)
+      assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+      assert float((got[:, 0] - want).abs().max()) <= 1e-5
+      assert (got[2] == 0).all()
+
+  def test_bf16_flash_decode_refuses_scores_past_its_limit(
+      self, monkeypatch):
+    """One split of a 8224-slot bfloat16 cache would hold 8224 slots of
+    scores in shared memory, past MAX_CTA_SLOTS: the wrapper raises
+    before launching."""
+    _NeedCard()
+    monkeypatch.setattr(flash_decode, "NumSplits", lambda *a: 1)
+    s = 8224
+    q = torch.zeros(1, 1, 1, 128, device="cuda")
+    kc = torch.zeros(1, s, 1, 128, device="cuda", dtype=torch.bfloat16)
+    launches = flash_decode.FlashDecode.launches
+    with pytest.raises(ValueError, match="slots of scores"):
+      flash_decode.FlashDecode(q, kc, kc, s - 1, page_size=32)
+    assert flash_decode.FlashDecode.launches == launches
 
   @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
   def test_quantized_block_decode_kernel_matches_plain(self, dtype):

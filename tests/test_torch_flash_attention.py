@@ -354,6 +354,56 @@ def test_bf16_kernels_match_pallas_twin_on_card(cuda, t, h, block_k, causal):
     assert _Share(control, out_p) >= 10 * max(share, 1e-3)
 
 
+def _CheckBf16Forward(q, k, v, seg, causal, block_k):
+  """The bf16 forward kernel against `_PallasForward` at the bars of
+  `test_bf16_kernels_match_pallas_twin_on_card`, plus two calls bitwise
+  equal and, where the reference block is wider than a tile, the 64-key
+  tile-max control 10x further off."""
+  out, lse = fa.FlashForward(q, k, v, seg, causal, block_k)
+  again = fa.FlashForward(q, k, v, seg, causal, block_k)
+  out_p, lse_p = fa._PallasForward(q, k, v, seg, causal, block_k)
+  torch.cuda.synchronize()
+  assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+  assert bool(torch.isfinite(out.float()).all())
+  assert float((lse - lse_p).abs().max()) <= 2e-5
+  share = _Share(out, out_p)
+  assert share <= 1e-3
+  assert _OffByMoreThanAnUlp(out, out_p) == 0
+  if block_k > 64:
+    control = fa._PallasForward(q, k, v, seg, causal, 64)[0]
+    assert _Share(control, out_p) >= 10 * max(share, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t, h, block_k, b, n", [
+    (192, 128, 64, 2, 2), (1024, 128, 1024, 1, 2), (256, 16, 256, 2, 2),
+    (320, 16, 64, 2, 2), (100, 64, 100, 2, 2), (256, 96, 256, 1, 2)])
+def test_bf16_forward_shapes_on_card(cuda, t, h, block_k, b, n, causal):
+  """The bf16 forward's 128-query blocks at t = 192 (a half-empty last
+  query tile), at one reference block of 1024 keys (b 1, n 2), at h = 16
+  (one TMA box, its columns past h read as zeros), at t = 100 (a partial
+  key tile: rows past t read as zeros and masked) and at h = 96 (a second
+  box half past h), with the segments of `_Bf16CardInputs`."""
+  q, k, v, _, seg = _Bf16CardInputs(t, h, seed=t + h + b, b=b, n=n)
+  _CheckBf16Forward(q, k, v, seg, causal, block_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_forward_heavy_first_with_skipped_tiles(cuda, causal):
+  """t = 1024, h = 64, reference blocks of 256: row 0 has segments of
+  200, 500 and 324 keys, row 1 one of 900 and a padding tail of 124, so
+  the query tiles that run first (the heaviest causal ones) skip most key
+  tiles by their segment ids, some reference blocks wholly."""
+  t, h = 1024, 64
+  q, k, v, _, _ = _Bf16CardInputs(t, h, seed=31)
+  seg = np.zeros((2, t), np.int32)
+  seg[0, :200], seg[0, 200:700], seg[0, 700:] = 1, 2, 3
+  seg[1, :900] = 1
+  _CheckBf16Forward(q, k, v, torch.as_tensor(seg).cuda(), causal, 256)
+
+
 @pytest.mark.cuda
 def test_bf16_forward_refuses_blocks_of_partial_tiles(cuda):
   q = torch.zeros(1, 96, 2, 16, device="cuda", dtype=torch.bfloat16)
