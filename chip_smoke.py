@@ -40,9 +40,9 @@
 7. Holds the flash-attention forward, dK/dV and dQ kernels against the
    plain version at the training step's shapes ([8, 1024, 16, 128], causal,
    two segments of 512, one row ending in 100 padding tokens): out, lse,
-   dq, dk, dv finite and within the printed tolerances, and two forward
-   calls bitwise equal; prints the forward's grid, threads, shared memory
-   per block and resident blocks per SM. Times each kernel, the plain
+   dq, dk, dv finite and within the printed tolerances, and two calls of
+   each kernel bitwise equal; prints each kernel's grid, threads, shared
+   memory per block and resident blocks per SM. Times each kernel, the plain
    version, the bound and SDPA with the same boolean mask.
 8. Holds the fused-xent statistics kernel against `_PlainStats` at
    [8192, 2048] x [32000, 2048] (block 1280, cap 30), and at block 1536
@@ -680,6 +680,8 @@ def _CheckFlash(torch, fa, rng):
   delta = fa.RowDelta(do, out)
   dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True)
   dq = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
+  dk2, dv2 = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True)
+  dq2 = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
   dq_p, dk_p, dv_p = fa._PlainBackward(q, k, v, seg, do, True)
   torch.cuda.synchronize()
   errs = {}
@@ -703,6 +705,14 @@ def _CheckFlash(torch, fa, rng):
   print(f"flash forward: two calls bitwise equal; grid ({-(-t // 64)}, "
         f"{b * n}), {threads} threads, {smem} B shared per block, {per_sm} "
         "blocks resident per SM")
+  _Check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+         "flash dK/dV: two calls differ bitwise")
+  _Check(torch.equal(dq, dq2), "flash dQ: two calls differ bitwise")
+  for name, (threads, smem, per_sm) in fa.BackwardGeometry(t, h).items():
+    print(f"flash {name}: two calls bitwise equal; grid ({b * n}, "
+          f"{-(-t // 64)}), {threads} threads, {smem} B shared per block, "
+          f"{per_sm} blocks resident per SM")
+  del dk2, dv2, dq2
   it = 10
   t_fwd = _TimeMs(torch, lambda: fa.FlashForward(q, k, v, seg, True), it)
   t_dkdv = _TimeMs(torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta,

@@ -9,11 +9,11 @@
 // over [b, t, n, h] tensors with s = (q . k) / sqrt(h), a causal mask and a
 // segment mask (pairs with different ids never attend; padding carries 0),
 // the float32 online softmax with the reference's m_safe guard, out =
-// acc / max(l, 1e-20) and lse = m + log(max(l, 1e-20)); the backward
-// recomputes p = exp(s - lse) and ds = p * (dp - delta) * sm_scale in ONE
-// device function (`RecomputePandDs`, the reference `_RecomputePandDs`)
-// shared by both backward kernels, with delta = rowsum(do * out) computed
-// by the caller.
+// acc / max(l, 1e-20) and lse = m + log(max(l, 1e-20)); the float32
+// backward recomputes p = exp(s - lse) and ds = p * (dp - delta) *
+// sm_scale in ONE device function (`RecomputePandDs`, the reference
+// `_RecomputePandDs`) shared by both of its kernels, with delta =
+// rowsum(do * out) computed by the caller.
 //
 // Design. The TPU kernels walk a sequential grid and carry m / l / acc in
 // VMEM scratch from one key block to the next; CUDA blocks run in no order,
@@ -37,17 +37,22 @@
 // (3xTF32 or bf16 wgmma, ROADMAP item 1.4), and rows of a segment boundary
 // inside a tile still pay for the masked part of that tile.
 //
-// The backward (FlashDkDvKernel, FlashDqKernel: the first simple design,
-// to be redesigned next). One block of 256 threads per (64-row tile,
-// batch x head): the dQ block owns 64 queries and loops over 64-key tiles,
-// the dK/dV block owns 64 keys and loops over 64-query tiles. Tiles are
-// staged in dynamic shared memory (166 KB dK/dV, 150 KB dQ at h = 128) with
-// a row stride of h + 1 so that the column reads of K are free of bank
-// conflicts. Thread (ty, tx) of a 16 x 16 layout owns score rows
-// ty*4 .. ty*4+3 and columns tx + 16 j; each thread owns 4 rows x h/16
-// columns of its accumulators. What it leaves: one block of 8 warps per
-// SM, scalar shared-memory loads in the inner products (`ScoreTile`), and
-// no overlap of the next tile's copy with this tile's math.
+// The backward (FlashDkDvKernel, FlashDqKernel, redesigned for this card;
+// their own section below says how): one block of 256 threads per (64
+// owned rows, batch x head), the heaviest causal blocks first. The dK/dV
+// block owns 64 keys and streams 32-query tiles (Q, dO, lse, delta); the
+// dQ block owns 64 queries and streams 64-key tiles (K, V). Every product
+// reads float4s from shared memory into 8 x 8 register patches (the score
+// patches split h over 4 or 2 lanes and sum the slices with shuffles): 4
+// FFMA per float loaded, what the shared-memory port needs to keep the
+// CUDA cores busy. The next tile's 16-byte cp.async copies run under this
+// tile's math, and a live-tile bitmask built once per block skips the
+// tiles of other segments without copying them. What it leaves: the CUDA
+// cores' float32 rate (3xTF32 is ROADMAP item 13.7), one block of 8 warps
+// per SM (two stages of the streamed tiles take 151 / 217 KiB at h =
+// 128) and so little to hide latency with, the issue slots of the
+// reductions, the recompute and the copies, and the masked half of each
+// diagonal tile.
 //
 // The bfloat16 halves (FlashFwdBf16Kernel, FlashDkDvBf16Kernel,
 // FlashDqBf16Kernel) have their own section below: tensor cores (the
@@ -56,7 +61,8 @@
 //
 // Limits (the Python wrapper raises outside them): float32 or bfloat16,
 // contiguous [b, t, n, h] tensors, h a multiple of 16 and at most 128; any
-// t; the bf16 forward's reference block a multiple of 64 keys or all of t.
+// t (below 64 x 65535 in the float32 backward); the bf16 forward's
+// reference block a multiple of 64 keys or all of t.
 
 #include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
@@ -69,11 +75,7 @@
 
 namespace {
 
-constexpr int kTile = 64;        // backward: rows of a q or k tile
-constexpr int kThreads = 256;    // backward: 16 x 16 threads
 constexpr int kMaxHeadDim = 128;
-constexpr int kMaxDCols = kMaxHeadDim / 16;  // head-dim columns per thread
-constexpr int kPs = kTile + 1;   // row stride of the [64, 64] p / ds tiles
 constexpr float kNegInf = -1.0e30f;  // the reference NEG_INF
 
 struct Problem {
@@ -89,120 +91,6 @@ struct Problem {
     return (static_cast<size_t>(bi) * n + ni) * t + ti;
   }
 };
-
-// Rows [start, start + 64) of head ni, batch bi of a [b, t, n, h] tensor
-// into dst (row stride ld); rows past t read as 0.
-__device__ void LoadTile(float* dst, int ld, const float* __restrict__ src,
-                         const Problem& pb, int bi, int ni, int start) {
-  const int h = pb.h;
-  for (int idx = threadIdx.x; idx < kTile * h; idx += kThreads) {
-    const int r = idx / h;
-    const int d = idx - r * h;
-    const int row = start + r;
-    dst[r * ld + d] = row < pb.t ? src[pb.Off(bi, row, ni) + d] : 0.f;
-  }
-}
-
-// Row statistics (lse or delta) of rows [start, start + 64); 0 past t.
-__device__ void LoadRows(float* dst, const float* __restrict__ src,
-                         const Problem& pb, int bi, int ni, int start) {
-  const int row = start + threadIdx.x;
-  if (threadIdx.x < kTile) dst[threadIdx.x] =
-      row < pb.t ? src[pb.RowOff(bi, ni, row)] : 0.f;
-}
-
-// Segment ids of rows [start, start + 64) (0 without segments or past t).
-__device__ void LoadSeg(int* dst, const int* __restrict__ seg,
-                        const Problem& pb, int bi, int start) {
-  const int row = start + threadIdx.x;
-  if (threadIdx.x < kTile) dst[threadIdx.x] =
-      (seg != nullptr && row < pb.t) ? seg[static_cast<size_t>(bi) * pb.t + row]
-                                     : 0;
-}
-
-// [lo, hi] of a loaded id tile over its rows below t (every thread).
-__device__ void SegRange(const int* ids, int start, int t, int* lo, int* hi) {
-  int a = 0x7fffffff, z = -0x7fffffff - 1;
-  const int rows = min(kTile, t - start);
-  for (int r = 0; r < rows; ++r) {
-    a = min(a, ids[r]);
-    z = max(z, ids[r]);
-  }
-  *lo = a;
-  *hi = z;
-}
-
-// s[i][j] = (q . k) * sm_scale for query q0 + ty*4 + i and key
-// k0 + tx + 16 j where the pair is kept, else kNegInf (the reference's
-// `_DotF32(q, k) * sm_scale`, then the causal and segment masks).
-__device__ __forceinline__ void ScoreTile(
-    float s[4][4], const float* qs, const float* ks, int ld, const int* segq,
-    const int* segk, bool has_seg, const Problem& pb, int q0, int k0, int ty,
-    int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < pb.h; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kj = k0 + tx + 16 * j;
-      const bool keep = qi < pb.t && kj < pb.t && (!pb.causal || qi >= kj) &&
-                        (!has_seg || segq[ty * 4 + i] == segk[tx + 16 * j]);
-      s[i][j] = keep ? s[i][j] * pb.sm_scale : kNegInf;
-    }
-  }
-}
-
-// The backward recompute both backward kernels share: p = exp(s - lse) and
-// ds = p * (dp - delta) * sm_scale with dp = do . v, for the thread's
-// 4 x 4 patch (rows = queries, columns = keys).
-__device__ __forceinline__ void RecomputePandDs(
-    float p[4][4], float ds[4][4], const float* qs, const float* ks,
-    const float* vs, const float* dos, int ld, const float* lse_s,
-    const float* delta_s, const int* segq, const int* segk, bool has_seg,
-    const Problem& pb, int q0, int k0, int ty, int tx) {
-  ScoreTile(p, qs, ks, ld, segq, segk, has_seg, pb, q0, k0, ty, tx);
-  float dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dp[i][j] = 0.f;
-  for (int d = 0; d < pb.h; ++d) {
-    float a[4], c[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = dos[(ty * 4 + i) * ld + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) c[j] = vs[(tx + 16 * j) * ld + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(a[i], c[j], dp[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lse = lse_s[ty * 4 + i];
-    const float delta = delta_s[ty * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      p[i][j] = expf(p[i][j] - lse);
-      ds[i][j] = p[i][j] * (dp[i][j] - delta) * pb.sm_scale;
-    }
-  }
-}
 
 // ---- the forward: register-blocked tiles with cp.async double buffering --
 //
@@ -266,12 +154,14 @@ __device__ __forceinline__ void CpAsyncWait() {
 }
 
 // Rows [start, start + rows) of head ni, batch bi into dst (row stride ld)
-// with 16-byte async copies; rows past t are zero-filled.
+// with 16-byte async copies by a block of kN threads; rows past t are
+// zero-filled.
+template <int kN>
 __device__ __forceinline__ void CopyRowsAsync(
     float* dst, int ld, const float* __restrict__ src, const Problem& pb,
     int bi, int ni, int start, int rows) {
   const int h4 = pb.h / 4;
-  for (int c = threadIdx.x; c < rows * h4; c += kFThreads) {
+  for (int c = threadIdx.x; c < rows * h4; c += kN) {
     const int r = c / h4, d4 = c - r * h4;
     const int row = start + r;
     const bool valid = row < pb.t;
@@ -314,6 +204,45 @@ __device__ __forceinline__ void WarpSegRange(const int* __restrict__ seg_row,
   *hi = z;
 }
 
+// Bit i of `live` (over ntiles tiles of `tile` rows) is set when tile i's
+// segment-id range meets [lo, hi]; every bit without segments. Every
+// thread calls it; it ends with a barrier.
+__device__ void LiveTiles(unsigned* live, const int* seg_row, int lo, int hi,
+                          int tile, int ntiles, int t) {
+  const int words = (ntiles + 31) / 32;
+  for (int w = threadIdx.x; w < words; w += blockDim.x)
+    live[w] = seg_row != nullptr ? 0u : 0xffffffffu;
+  __syncthreads();
+  if (seg_row != nullptr) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int i = warp; i < ntiles; i += blockDim.x >> 5) {
+      int a, z;
+      WarpSegRange(seg_row, i * tile, tile, t, &a, &z);
+      if (lane == 0 && !(z < lo || a > hi))
+        atomicOr(&live[i >> 5], 1u << (i & 31));
+    }
+  }
+  __syncthreads();
+}
+
+// The first live tile in [kt, end), or end.
+__device__ __forceinline__ int NextLive(const unsigned* live, int kt,
+                                        int end) {
+  while (kt < end) {
+    const unsigned word = live[kt >> 5] >> (kt & 31);
+    if (word) return min(end, kt + __ffs(word) - 1);
+    kt = (kt | 31) + 1;
+  }
+  return end;
+}
+
+// the reference's masks on one score: pair (row, col) kept?
+__device__ __forceinline__ bool Keep(const Problem& pb, int qi, int kj,
+                                     bool has_seg, int sq, int sk) {
+  return qi < pb.t && kj < pb.t && (!pb.causal || qi >= kj) &&
+         (!has_seg || sq == sk);
+}
+
 __global__ void __launch_bounds__(kFThreads, 2) FlashFwdKernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ seg,
@@ -335,7 +264,7 @@ __global__ void __launch_bounds__(kFThreads, 2) FlashFwdKernel(
   const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
                                : nullptr;
 
-  CopyRowsAsync(qs, lay.ldq, q, pb, bi, ni, q0, kFq);
+  CopyRowsAsync<kFThreads>(qs, lay.ldq, q, pb, bi, ni, q0, kFq);
   CpAsyncCommit();
 
   // key tiles entirely in the causal future are never visited; with
@@ -373,10 +302,10 @@ __global__ void __launch_bounds__(kFThreads, 2) FlashFwdKernel(
   };
   auto prefetch = [&](int kt, int stage) {
     if (kt < nkt) {
-      CopyRowsAsync(ks + stage * kFk * lay.ldq, lay.ldq, k, pb, bi, ni,
-                    kt * kFk, kFk);
-      CopyRowsAsync(vs + stage * kFk * lay.ldv, lay.ldv, v, pb, bi, ni,
-                    kt * kFk, kFk);
+      CopyRowsAsync<kFThreads>(ks + stage * kFk * lay.ldq, lay.ldq, k, pb,
+                               bi, ni, kt * kFk, kFk);
+      CopyRowsAsync<kFThreads>(vs + stage * kFk * lay.ldv, lay.ldv, v, pb,
+                               bi, ni, kt * kFk, kFk);
     }
     CpAsyncCommit();
   };
@@ -525,187 +454,559 @@ __global__ void __launch_bounds__(kFThreads, 2) FlashFwdKernel(
   }
 }
 
-// ---- the backward -------------------------------------------------------
+// ---- the float32 backward: register-blocked tiles, cp.async double
+// buffering --------------------------------------------------------------
+//
+// Replaces `_DkDvKernel` and `_DqKernel` (lingvo_tpu/ops/flash_attention.py,
+// the two pallas_calls in `_FlashBackward`). Bound at [8, 1024, 16, 128]
+// with two causal segments of 512: 8h (dK/dV) and 6h (dQ) flops per
+// attended pair over 67 TFLOP/s float32 (0.504 and 0.378 ms), well above
+// the bytes line; so the design is about keeping the CUDA cores fed.
+//
+// Two things keep the CUDA cores below that rate. Shared memory: an SM
+// serves one 128-byte wavefront per clock, a warp's 16-byte load takes 4
+// when each quarter-warp reads 8 distinct float4s and 2 when the lanes
+// share a few (copies across quarter-warps do not merge;
+// tools/smem_probe.cu), so a thread needs about 4 FFMA per float it loads
+// (the 4 warp-FFMAs an SM issues per clock), as an 8 x 8 outer product
+// does. And issue slots: with 8 warps an SM, every non-FFMA instruction in
+// a loop costs FFMA time, and a branch inside an FFMA loop compiles to
+// convergence barriers (BSSY / BSYNC). A first version with 4 x 2 and
+// 4 x 4 score patches and 4 x 8 accumulator patches (1.3 to 2.7 FFMA per
+// float) ran at about half the rate of this one.
+//
+// One block of 256 threads (8 warps) owns 64 rows of one (batch, head) and
+// streams tiles of the other side through a two-stage ring:
+//  - FlashDkDvKernel owns 64 keys (K, V) and streams 32-query tiles (Q,
+//    dO, lse, delta, segment ids).
+//  - FlashDqKernel owns 64 queries (Q, dO, and each row's lse, delta and
+//    segment id in registers) and streams 64-key tiles (K, V, ids).
+// Per tile, scores: each warp takes 8 owned rows; lanes 0-15 sum s = q . k
+// and lanes 16-31 dp = do . v, each lane an 8 x 8 patch (8 owned rows x 8
+// streamed rows) over a slice of h (a quarter in dK/dV, where 4 lanes
+// share a patch; a half in dQ), reading float4s along h: 16 loads for 256
+// FFMA. Shuffles sum the slices, each step halving what a lane keeps, and
+// trade halves between the s and dp lanes of a patch (each lane reads its
+// patch's rows and columns in a rotated order, so that it always keeps
+// its first half and sends the second: no selects); each lane then
+// applies `RecomputePandDs` to its 8 (dK/dV) or 16 (dQ) pairs and writes
+// p and ds (dK/dV) or ds^T (dQ) to shared memory. After one barrier the
+// accumulations: dK/dV's warps 0-3 sum dv += p^T do and warps 4-7 dk +=
+// ds^T q, dQ's warps dq += ds k over half of the tile's keys each (the two
+// halves are added once, at the end); each thread an 8-row x 8-column
+// patch (64 registers), 2 float4s of p or ds and 2 of the other operand
+// per 64 FFMA, the next row's operands loaded under this row's FFMAs, no
+// branch in the loop (a column past h reads a clamped one; kC, a template
+// argument, is the number of float4 columns a thread owns). Q, K, V and
+// dO sit in their [rows, h] layout at a row stride of h + 4, and the
+// slices and rotations of the lanes of a quarter-warp are chosen so that
+// their reads hit distinct banks.
+//
+// The next tile's 16-byte cp.async copies (4-byte ones for lse, delta and
+// ids; rows past t zero-filled, so their p and ds are exactly 0) are
+// issued right after the barrier that frees their stage and run under
+// this tile's math: two barriers per tile. The segment-id ranges of all
+// streamed tiles are reduced once per block into a bitmask of live tiles
+// (`LiveTiles`), so a tile of other segments is never copied; tiles
+// wholly in the causal future are never visited. The grid is (batch x
+// head, row blocks) with the heaviest causal row blocks first (dK/dV: the
+// first keys; dQ: the last queries). No atomics on floats: every sum is
+// taken by fixed lanes in a fixed order, so two calls give the same bits.
+//
+// Shared memory at h = 128: dK/dV 151 KiB (K, V; two stages of Q, dO; p,
+// ds), dQ 217 KiB (Q, dO; two stages of K, V; ds^T): one block per SM, as
+// FA2's backward; the accumulators take 64 registers a thread, a score
+// patch 64 more.
 
-__global__ void __launch_bounds__(kThreads, 1) FlashDkDvKernel(
+constexpr int kBThreads = 256;   // float32 backward: 8 warps
+constexpr int kBOwn = 64;        // rows a block owns
+constexpr int kBDkDvTile = 32;   // dK/dV: queries of a streamed tile
+constexpr int kBDqTile = 64;     // dQ: keys of a streamed tile
+
+struct BwdSmem {
+  int ld, lds;   // row strides (floats) of the [rows, h] and p / ds tiles
+  size_t own2, tile, tile2, p, ds, lse, delta, ids, live;  // float offsets
+  size_t bytes;
+};
+
+// A float32 backward block's layout: the two [64, h] tiles it owns at 0,
+// two stages of the two streamed [rows, h] tiles, the [rows, 64] p (dK/dV
+// only) and ds tiles (one row per streamed row), two stages of the
+// streamed rows' lse and delta (dK/dV only) and segment ids, then the
+// live-tile bits.
+__host__ __device__ inline BwdSmem BwdLayout(int t, int h, int rows,
+                                             bool dkdv) {
+  BwdSmem s;
+  s.ld = h + 4;
+  s.lds = kBOwn + 8;
+  s.own2 = static_cast<size_t>(kBOwn) * s.ld;
+  s.tile = 2 * s.own2;
+  s.tile2 = s.tile + 2 * static_cast<size_t>(rows) * s.ld;
+  s.p = s.tile2 + 2 * static_cast<size_t>(rows) * s.ld;
+  s.ds = s.p + (dkdv ? static_cast<size_t>(rows) * s.lds : 0);
+  s.lse = s.ds + static_cast<size_t>(rows) * s.lds;
+  s.delta = s.lse + (dkdv ? 2 * rows : 0);
+  s.ids = s.delta + (dkdv ? 2 * rows : 0);
+  s.live = s.ids + 2 * rows;
+  s.bytes = (s.live + ((t + rows - 1) / rows + 31) / 32) * sizeof(float);
+  return s;
+}
+
+// A thread's share of a backward block's [rows, h] tile copies: float4
+// column c of rows r0, r0 + step, ..., fixed once per thread so that no
+// copy divides; a head dim whose float4 columns do not divide the block
+// (step 0) takes CopyRowsAsync.
+struct RowCopier {
+  int r0, c, step;
+
+  __device__ explicit RowCopier(int h4)
+      : r0(threadIdx.x / h4), c(threadIdx.x % h4),
+        step(kBThreads % h4 == 0 ? kBThreads / h4 : 0) {}
+
+  // rows [start, start + rows) of head ni, batch bi into dst (row stride
+  // ld) with 16-byte async copies; rows past t are zero-filled
+  __device__ __forceinline__ void operator()(
+      float* dst, int ld, const float* __restrict__ src, const Problem& pb,
+      int bi, int ni, int start, int rows) const {
+    if (step == 0) {
+      CopyRowsAsync<kBThreads>(dst, ld, src, pb, bi, ni, start, rows);
+      return;
+    }
+    const float* base = src + pb.Off(bi, 0, ni) + 4 * c;
+    const size_t stride = static_cast<size_t>(pb.n) * pb.h;
+    for (int r = r0; r < rows; r += step) {
+      const int row = start + r;
+      const bool valid = row < pb.t;
+      CpAsync16(dst + r * ld + 4 * c, base + (valid ? row : 0) * stride,
+                valid);
+    }
+  }
+};
+
+// One 4-byte async copy; !valid writes 0 and reads nothing.
+__device__ __forceinline__ void CpAsync4(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ float4 Ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc + a . b over one float4, summed in the order of d
+__device__ __forceinline__ float Dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// acc += x * b
+__device__ __forceinline__ void Axpy4(float x, float4 b, float4& acc) {
+  acc.x = fmaf(x, b.x, acc.x);
+  acc.y = fmaf(x, b.y, acc.y);
+  acc.z = fmaf(x, b.z, acc.z);
+  acc.w = fmaf(x, b.w, acc.w);
+}
+
+// acc[i][c] += w[r][i] * x[r][4 (cg + 16 c)] over rows r < kRows in
+// order (w: 8 floats at row stride ldw; x: [kRows, h] at row stride ldx),
+// the next row's operands loaded under this row's FFMAs. A column past h
+// reads column h - 4 instead (no branch in the loop); its sums are never
+// stored.
+template <int kRows, int kC>
+__device__ __forceinline__ void AccumulateTile(float4 (&acc)[8][kC],
+                                               const float* w, int ldw,
+                                               const float* x, int ldx,
+                                               int cg, int h4) {
+  int xo[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) xo[c] = 4 * min(cg + 16 * c, h4 - 1);
+  float4 w0 = Ld4(w), w1 = Ld4(w + 4), xv[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) xv[c] = Ld4(x + xo[c]);
+#pragma unroll 4
+  for (int r = 0; r < kRows; ++r) {
+    const int nr = min(r + 1, kRows - 1);
+    const float4 nw0 = Ld4(w + nr * ldw), nw1 = Ld4(w + nr * ldw + 4);
+    float4 nx[kC];
+#pragma unroll
+    for (int c = 0; c < kC; ++c) nx[c] = Ld4(x + nr * ldx + xo[c]);
+    const float wr[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) Axpy4(wr[i], xv[c], acc[i][c]);
+    w0 = nw0;
+    w1 = nw1;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) xv[c] = nx[c];
+  }
+}
+
+// The recompute both float32 backward kernels share (the reference's
+// `_RecomputePandDs`), for one (query, key) pair with s = q . k and dp =
+// do . v: p = exp(s * sm_scale - lse) where the masks keep the pair, else
+// exp(NEG_INF - lse) = 0, and ds = p (dp - delta) sm_scale.
+__device__ __forceinline__ void RecomputePandDs(float s, float dp, bool keep,
+                                                float lse, float delta,
+                                                float sm_scale, float* p,
+                                                float* ds) {
+  const float sv = keep ? s * sm_scale : kNegInf;
+  *p = expf(sv - lse);
+  *ds = *p * (dp - delta) * sm_scale;
+}
+
+// kC: the float4 columns of h a thread accumulates (1 up to h = 64, else 2)
+template <int kC>
+__global__ void __launch_bounds__(kBThreads, 1) FlashDkDvKernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ seg,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, Problem pb) {
-  extern __shared__ float smem[];
-  const int h = pb.h, ld = h + 1, ndc = h / 16;
-  float* ks = smem;                 // [64][h + 1], this block's keys
-  float* vs = ks + kTile * ld;      // [64][h + 1]
-  float* qs = vs + kTile * ld;      // [64][h + 1], the current query tile
-  float* dos = qs + kTile * ld;     // [64][h + 1]
-  float* ps = dos + kTile * ld;     // [64 queries][65]
-  float* dss = ps + kTile * kPs;    // [64 queries][65]
-  float* lse_s = dss + kTile * kPs;
-  float* delta_s = lse_s + kTile;
-  int* segq = reinterpret_cast<int*>(delta_s + kTile);
-  int* segk = segq + kTile;
-  const int k0 = blockIdx.x * kTile;
-  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  constexpr int kT = kBDkDvTile;
+  extern __shared__ __align__(16) float smem[];
+  const int h = pb.h, h4 = h / 4;
+  const BwdSmem lay = BwdLayout(pb.t, h, kT, true);
+  const int ld = lay.ld, lds = lay.lds;
+  float* ks = smem;                  // [64][ld], this block's keys
+  float* vs = smem + lay.own2;       // [64][ld]
+  float* qs = smem + lay.tile;       // [2][32][ld], streamed queries
+  float* dos = smem + lay.tile2;     // [2][32][ld]
+  float* ps = smem + lay.p;          // [32 queries][lds]: p of this tile
+  float* dss = smem + lay.ds;        // [32 queries][lds]: ds
+  float* lse_s = smem + lay.lse;     // [2][32]
+  float* delta_s = smem + lay.delta; // [2][32]
+  int* segq_s = reinterpret_cast<int*>(smem + lay.ids);  // [2][32]
+  unsigned* live = reinterpret_cast<unsigned*>(smem + lay.live);
+  const int k0 = blockIdx.y * kBOwn;  // the first keys: the most queries
+  const int bi = blockIdx.x / pb.n, ni = blockIdx.x % pb.n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool has_seg = seg != nullptr;
-
-  LoadTile(ks, ld, k, pb, bi, ni, k0);
-  LoadTile(vs, ld, v, pb, bi, ni, k0);
-  LoadSeg(segk, seg, pb, bi, k0);
-  __syncthreads();
-  int klo, khi;
-  SegRange(segk, k0, pb.t, &klo, &khi);
-
-  // this thread's key rows ty*4 + i, head-dim columns tx + 16 c
-  float dka[4][kMaxDCols], dva[4][kMaxDCols];
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
+  // scores: lanes 0-15 sum s = k . q, lanes 16-31 dp = v . do, each over
+  // an h slice hs for keys 8 warp + (i ^ rot) and queries qg + 4 (j ^ cot)
+  // (i, j < 8): the rotations put the sums a lane keeps through each
+  // exchange below at j < 4, then i < 4, then i < 2 (rot is the same for
+  // the lanes of a quarter-warp, and cot moves a row by 16: their reads
+  // keep distinct banks)
+  const bool is_dp = lane >= 16;
+  const int hs = (lane >> 2) & 3, qg = lane & 3;
+  const int rot = 4 * (hs >> 1) + 2 * is_dp, cot = 4 * (hs & 1);
+  const float* sa = (is_dp ? vs : ks) + 8 * warp * ld;
+  const float* sb = is_dp ? dos : qs;
+  // after the reductions a lane owns keys ekey + ii (ii < 2) x queries
+  // eq + 4 jj (jj < 4) of the tile
+  const int ekey = 8 * warp + rot;
+  const int eq = qg + 4 * cot;
+  int segk[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kMaxDCols; ++c) dka[i][c] = dva[i][c] = 0.f;
-  // the first causally live query tile is the one holding query k0
-  for (int q0 = pb.causal ? k0 : 0; q0 < pb.t; q0 += kTile) {
-    __syncthreads();
-    LoadSeg(segq, seg, pb, bi, q0);
-    __syncthreads();
-    if (has_seg) {
-      int qlo, qhi;
-      SegRange(segq, q0, pb.t, &qlo, &qhi);
-      if (khi < qlo || klo > qhi) continue;
-    }
-    LoadTile(qs, ld, q, pb, bi, ni, q0);
-    LoadTile(dos, ld, dout, pb, bi, ni, q0);
-    LoadRows(lse_s, lse, pb, bi, ni, q0);
-    LoadRows(delta_s, delta, pb, bi, ni, q0);
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    RecomputePandDs(p, ds, qs, ks, vs, dos, ld, lse_s, delta_s, segq, segk,
-                    has_seg, pb, q0, k0, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ps[(ty * 4 + i) * kPs + tx + 16 * j] = p[i][j];
-        dss[(ty * 4 + i) * kPs + tx + 16 * j] = ds[i][j];
-      }
-    __syncthreads();
-    // dv += p^T do, dk += ds^T q over the tile's 64 queries
-    for (int qq = 0; qq < kTile; ++qq) {
-      float pk[4], dsk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = ps[qq * kPs + ty * 4 + i];
-        dsk[i] = dss[qq * kPs + ty * 4 + i];
-      }
-#pragma unroll
-      for (int c = 0; c < kMaxDCols; ++c) {
-        if (c < ndc) {
-          const float doc = dos[qq * ld + tx + 16 * c];
-          const float qc = qs[qq * ld + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dva[i][c] = fmaf(pk[i], doc, dva[i][c]);
-            dka[i][c] = fmaf(dsk[i], qc, dka[i][c]);
-          }
-        }
-      }
-    }
+  for (int ii = 0; ii < 2; ++ii) {
+    const int key = k0 + ekey + ii;
+    segk[ii] = has_seg && key < pb.t ? seg_row[key] : 0;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty * 4 + i;
-    if (row >= pb.t) continue;
-    const size_t off = pb.Off(bi, row, ni);
-#pragma unroll
-    for (int c = 0; c < kMaxDCols; ++c) {
-      if (c < ndc) {
-        dk[off + tx + 16 * c] = dka[i][c];
-        dv[off + tx + 16 * c] = dva[i][c];
+  // accumulators: warps 0-3 sum dv = p^T do, warps 4-7 dk = ds^T q, each
+  // thread for keys 8 ag + i (i < 8) x float4 columns cg + 16 c
+  const bool acc_dk = warp >= 4;
+  const int ag = 2 * (warp & 3) + (lane >> 4), cg = lane & 15;
+  const float* pa = (acc_dk ? dss : ps) + 8 * ag;
+  const float* ob = acc_dk ? qs : dos;
+  const RowCopier copy(h4);
+
+  copy(ks, ld, k, pb, bi, ni, k0, kBOwn);
+  copy(vs, ld, v, pb, bi, ni, k0, kBOwn);
+  CpAsyncCommit();
+
+  // the first causally live query tile is the one holding query k0
+  const int nqt = (pb.t + kT - 1) / kT;
+  const int qt0 = pb.causal ? k0 / kT : 0;
+  int klo = 0, khi = 0;
+  if (has_seg) WarpSegRange(seg_row, k0, kBOwn, pb.t, &klo, &khi);
+  LiveTiles(live, seg_row, klo, khi, kT, nqt, pb.t);  // + a barrier
+  auto prefetch = [&](int qt, int stage) {
+    if (qt < nqt) {
+      copy(qs + stage * kT * ld, ld, q, pb, bi, ni, qt * kT, kT);
+      copy(dos + stage * kT * ld, ld, dout, pb, bi, ni, qt * kT, kT);
+      if (tid < 3 * kT) {   // lse, delta and segment ids, one warp each
+        const int r = tid % kT, row = qt * kT + r;
+        const bool in = row < pb.t;
+        const size_t off = pb.RowOff(bi, ni, in ? row : 0);
+        if (tid < kT)
+          CpAsync4(lse_s + stage * kT + r, lse + off, in);
+        else if (tid < 2 * kT)
+          CpAsync4(delta_s + stage * kT + r, delta + off, in);
+        else if (has_seg)
+          CpAsync4(segq_s + stage * kT + r, seg_row + (in ? row : 0), in);
       }
+    }
+    CpAsyncCommit();
+  };
+
+  float4 acc[8][kC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int qt = NextLive(live, qt0, nqt);
+  prefetch(qt, 0);
+  for (int stage = 0; qt < nqt; stage ^= 1) {
+    CpAsyncWait<0>();
+    __syncthreads();   // this tile landed; the other stage and p, ds free
+    const int nxt = NextLive(live, qt + 1, nqt);
+    prefetch(nxt, stage ^ 1);   // runs under this tile's math
+    const int qbase = qt * kT;
+
+    // this lane's partial s (or dp) over its h slice: the slices of the
+    // lanes of a quarter-warp take float4 columns 4 apart, so their reads
+    // of 4 adjacent rows hit distinct banks
+    float sp[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sp[i][j] = 0.f;
+    const float* sbt = sb + stage * kT * ld + qg * ld;
+#pragma unroll 1
+    for (int e = 0; e < h4 / 4; ++e) {
+      const int f = 4 * ((h4 & 7) ? 4 * e + hs
+                         : 8 * (e >> 1) + 4 * (hs & 1) + 2 * (hs >> 1) +
+                               (e & 1));
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = Ld4(sa + (i ^ rot) * ld + f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b = Ld4(sbt + 4 * (j ^ cot) * ld + f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sp[i][j] = Dot4(a[i], b, sp[i][j]);
+      }
+    }
+    // sum the four slices, each exchange halving what a lane keeps (the
+    // partner keeps the other half), then trade halves between the s and
+    // dp lanes of one patch
+    float r1[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        r1[i][jj] = sp[i][jj] +
+                    __shfl_xor_sync(0xffffffffu, sp[i][jj + 4], 4);
+    float r2[4][4];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        r2[ii][jj] = r1[ii][jj] +
+                     __shfl_xor_sync(0xffffffffu, r1[ii + 4][jj], 8);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = eq + 4 * jj;
+      const float lse_q = lse_s[stage * kT + col];
+      const float delta_q = delta_s[stage * kT + col];
+      const int segq = has_seg ? segq_s[stage * kT + col] : 0;
+      float p[2], ds[2];
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const float own = r2[ii][jj];
+        const float got = __shfl_xor_sync(0xffffffffu, r2[ii + 2][jj], 16);
+        const bool keep = Keep(pb, qbase + col, k0 + ekey + ii, has_seg,
+                               segq, segk[ii]);
+        RecomputePandDs(is_dp ? got : own, is_dp ? own : got, keep, lse_q,
+                        delta_q, pb.sm_scale, &p[ii], &ds[ii]);
+      }
+      *reinterpret_cast<float2*>(ps + col * lds + ekey) =
+          make_float2(p[0], p[1]);
+      *reinterpret_cast<float2*>(dss + col * lds + ekey) =
+          make_float2(ds[0], ds[1]);
+    }
+    __syncthreads();   // p and ds of the tile are written
+
+    // dv += p^T do (or dk += ds^T q) over the tile's queries, in order
+    AccumulateTile<kT, kC>(acc, pa, lds, ob + stage * kT * ld, ld, cg, h4);
+    qt = nxt;
+  }
+  CpAsyncWait<0>();
+  float* out = acc_dk ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + 8 * ag + i;
+    if (key >= pb.t) continue;
+    float* o = out + pb.Off(bi, key, ni);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int cc = cg + 16 * c;
+      if (cc < h4) *reinterpret_cast<float4*>(o + 4 * cc) = acc[i][c];
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) FlashDqKernel(
+template <int kC>
+__global__ void __launch_bounds__(kBThreads, 1) FlashDqKernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ seg,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, Problem pb) {
-  extern __shared__ float smem[];
-  const int h = pb.h, ld = h + 1, ndc = h / 16;
-  float* qs = smem;                 // [64][h + 1], this block's queries
-  float* dos = qs + kTile * ld;     // [64][h + 1]
-  float* ks = dos + kTile * ld;     // [64][h + 1], the current key tile
-  float* vs = ks + kTile * ld;      // [64][h + 1]
-  float* dss = vs + kTile * ld;     // [64 queries][65]
-  float* lse_s = dss + kTile * kPs;
-  float* delta_s = lse_s + kTile;
-  int* segq = reinterpret_cast<int*>(delta_s + kTile);
-  int* segk = segq + kTile;
-  const int q0 = blockIdx.x * kTile;
-  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  constexpr int kT = kBDqTile;
+  extern __shared__ __align__(16) float smem[];
+  const int h = pb.h, h4 = h / 4;
+  const BwdSmem lay = BwdLayout(pb.t, h, kT, false);
+  const int ld = lay.ld, lds = lay.lds;
+  float* qs = smem;                  // [64][ld], this block's queries
+  float* dos = smem + lay.own2;      // [64][ld]
+  float* ks = smem + lay.tile;       // [2][64][ld], streamed keys
+  float* vs = smem + lay.tile2;      // [2][64][ld]
+  float* dst = smem + lay.ds;        // [64 keys][lds]: ds^T of this tile
+  int* segk_s = reinterpret_cast<int*>(smem + lay.ids);  // [2][64]
+  unsigned* live = reinterpret_cast<unsigned*>(smem + lay.live);
+  // the last queries first: they attend the most keys
+  const int q0 = (pb.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) *
+                 kBOwn;
+  const int bi = blockIdx.x / pb.n, ni = blockIdx.x % pb.n;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bool has_seg = seg != nullptr;
+  const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
+                               : nullptr;
+  // scores: lanes 0-15 sum s = q . k, lanes 16-31 dp = do . v, each over
+  // a half hs of h for queries 8 warp + (i ^ rot) and keys kg + 8 (j ^ cot)
+  // (i, j < 8): the rotations put the sums a lane keeps through each
+  // exchange below at i < 4 and j < 4
+  const bool is_dp = lane >= 16;
+  const int hs = (lane >> 3) & 1, kg = lane & 7;
+  const int rot = 4 * hs, cot = 4 * is_dp;
+  const float* sa = (is_dp ? dos : qs) + 8 * warp * ld;
+  const float* sb = is_dp ? vs : ks;
+  // after the reductions a lane owns queries eq + ii (ii < 4) x keys
+  // kg + 8 (jj + 4 is_dp) (jj < 4) of the tile
+  const int eq = 8 * warp + 4 * hs;
+  float lse_q[4], delta_q[4];
+  int segq[4];
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii) {
+    const int row = q0 + eq + ii;
+    const bool in = row < pb.t;
+    lse_q[ii] = in ? lse[pb.RowOff(bi, ni, row)] : 0.f;
+    delta_q[ii] = in ? delta[pb.RowOff(bi, ni, row)] : 0.f;
+    segq[ii] = has_seg && in ? seg_row[row] : 0;
+  }
+  // accumulators: queries 8 ag + i (i < 8) x float4 columns cg + 16 c,
+  // summed over the keys 32 kh .. 32 kh + 31 of each tile (the lanes of
+  // kh 0 and 1 add their halves at the end)
+  const int ag = warp, kh = lane >> 4, cg = lane & 15;
+  const float* da = dst + 32 * kh * lds + 8 * ag;
+  const RowCopier copy(h4);
 
-  LoadTile(qs, ld, q, pb, bi, ni, q0);
-  LoadTile(dos, ld, dout, pb, bi, ni, q0);
-  LoadRows(lse_s, lse, pb, bi, ni, q0);
-  LoadRows(delta_s, delta, pb, bi, ni, q0);
-  LoadSeg(segq, seg, pb, bi, q0);
-  __syncthreads();
-  int qlo, qhi;
-  SegRange(segq, q0, pb.t, &qlo, &qhi);
+  copy(qs, ld, q, pb, bi, ni, q0, kBOwn);
+  copy(dos, ld, dout, pb, bi, ni, q0, kBOwn);
+  CpAsyncCommit();
 
-  float dqa[4][kMaxDCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kMaxDCols; ++c) dqa[i][c] = 0.f;
-  const int k_end = pb.causal ? min(pb.t, q0 + kTile) : pb.t;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    LoadSeg(segk, seg, pb, bi, k0);
-    __syncthreads();
-    if (has_seg) {
-      int klo, khi;
-      SegRange(segk, k0, pb.t, &klo, &khi);
-      if (khi < qlo || klo > qhi) continue;
-    }
-    LoadTile(ks, ld, k, pb, bi, ni, k0);
-    LoadTile(vs, ld, v, pb, bi, ni, k0);
-    __syncthreads();
-    float p[4][4], ds[4][4];
-    RecomputePandDs(p, ds, qs, ks, vs, dos, ld, lse_s, delta_s, segq, segk,
-                    has_seg, pb, q0, k0, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dss[(ty * 4 + i) * kPs + tx + 16 * j] =
-          ds[i][j];
-    __syncthreads();
-    // dq += ds k over the tile's 64 keys
-    for (int kk = 0; kk < kTile; ++kk) {
-      float dsq[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsq[i] = dss[(ty * 4 + i) * kPs + kk];
-#pragma unroll
-      for (int c = 0; c < kMaxDCols; ++c) {
-        if (c < ndc) {
-          const float kc = ks[kk * ld + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dqa[i][c] = fmaf(dsq[i], kc, dqa[i][c]);
-        }
+  const int k_end = pb.causal ? min(pb.t, q0 + kBOwn) : pb.t;
+  const int nkt = (k_end + kT - 1) / kT;
+  int qlo = 0, qhi = 0;
+  if (has_seg) WarpSegRange(seg_row, q0, kBOwn, pb.t, &qlo, &qhi);
+  LiveTiles(live, seg_row, qlo, qhi, kT, nkt, pb.t);  // + a barrier
+  auto prefetch = [&](int kt, int stage) {
+    if (kt < nkt) {
+      copy(ks + stage * kT * ld, ld, k, pb, bi, ni, kt * kT, kT);
+      copy(vs + stage * kT * ld, ld, v, pb, bi, ni, kt * kT, kT);
+      if (has_seg && tid < kT) {
+        const int key = kt * kT + tid;
+        const bool in = key < pb.t;
+        CpAsync4(segk_s + stage * kT + tid, seg_row + (in ? key : 0), in);
       }
     }
+    CpAsyncCommit();
+  };
+
+  float4 acc[8][kC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  int kt = NextLive(live, 0, nkt);
+  prefetch(kt, 0);
+  for (int stage = 0; kt < nkt; stage ^= 1) {
+    CpAsyncWait<0>();
+    __syncthreads();   // this tile landed; the other stage and ds are free
+    const int nxt = NextLive(live, kt + 1, nkt);
+    prefetch(nxt, stage ^ 1);   // runs under this tile's math
+    const int kbase = kt * kT;
+
+    // this lane's partial s (or dp) over its half of h
+    float sp[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sp[i][j] = 0.f;
+    const float* sbt = sb + stage * kT * ld + kg * ld;
+#pragma unroll 1
+    for (int e = 0; e < h4 / 2; ++e) {
+      const int f = 4 * (2 * e + hs);
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = Ld4(sa + (i ^ rot) * ld + f);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 b = Ld4(sbt + 8 * (j ^ cot) * ld + f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sp[i][j] = Dot4(a[i], b, sp[i][j]);
+      }
+    }
+    // sum the two halves (the partner keeps the other 32 sums), then
+    // trade halves between the s and dp lanes of one patch
+    float r1[4][8];
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        r1[ii][j] = sp[ii][j] +
+                    __shfl_xor_sync(0xffffffffu, sp[ii + 4][j], 8);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = kg + 8 * (jj + 4 * is_dp);
+      const int segk = has_seg ? segk_s[stage * kT + col] : 0;
+      float ds[4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const float own = r1[ii][jj];
+        const float got = __shfl_xor_sync(0xffffffffu, r1[ii][jj + 4], 16);
+        const bool keep = Keep(pb, q0 + eq + ii, kbase + col, has_seg,
+                               segq[ii], segk);
+        float p;
+        RecomputePandDs(is_dp ? got : own, is_dp ? own : got, keep,
+                        lse_q[ii], delta_q[ii], pb.sm_scale, &p, &ds[ii]);
+      }
+      *reinterpret_cast<float4*>(dst + col * lds + eq) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();   // ds^T of the tile is written
+
+    // dq += ds k over this lane's half of the tile's keys, in order
+    AccumulateTile<kT / 2, kC>(acc, da, lds, ks + (stage * kT + 32 * kh) * ld,
+                               ld, cg, h4);
+    kt = nxt;
   }
+  CpAsyncWait<0>();
+  // add the two key halves: the kh 0 lane writes rows 0-3, kh 1 rows 4-7
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= pb.t) continue;
-    float* o = dq + pb.Off(bi, row, ni);
+  for (int ii = 0; ii < 4; ++ii) {
+    const int row = q0 + 8 * ag + (kh ? ii + 4 : ii);
+    float* o = dq + pb.Off(bi, row < pb.t ? row : 0, ni);
 #pragma unroll
-    for (int c = 0; c < kMaxDCols; ++c)
-      if (c < ndc) o[tx + 16 * c] = dqa[i][c];
+    for (int c = 0; c < kC; ++c) {
+      float4 sum = kh ? acc[ii + 4][c] : acc[ii][c];
+      const float4 give = kh ? acc[ii][c] : acc[ii + 4][c];
+      sum.x += __shfl_xor_sync(0xffffffffu, give.x, 16);
+      sum.y += __shfl_xor_sync(0xffffffffu, give.y, 16);
+      sum.z += __shfl_xor_sync(0xffffffffu, give.z, 16);
+      sum.w += __shfl_xor_sync(0xffffffffu, give.w, 16);
+      const int cc = cg + 16 * c;
+      if (row < pb.t && cc < h4) *reinterpret_cast<float4*>(o + 4 * cc) = sum;
+    }
   }
 }
 
@@ -796,45 +1097,6 @@ __device__ __forceinline__ void CopyRowsAsyncBf16(
     CpAsyncBytes16(dst + r * ld + 8 * d8,
                    src + pb.Off(bi, valid ? row : 0, ni) + 8 * d8, valid);
   }
-}
-
-// Bit i of `live` (over ntiles tiles of `tile` rows) is set when tile i's
-// segment-id range meets [lo, hi]; every bit without segments. Every
-// thread calls it; it ends with a barrier.
-__device__ void LiveTiles(unsigned* live, const int* seg_row, int lo, int hi,
-                          int tile, int ntiles, int t) {
-  const int words = (ntiles + 31) / 32;
-  for (int w = threadIdx.x; w < words; w += blockDim.x)
-    live[w] = seg_row != nullptr ? 0u : 0xffffffffu;
-  __syncthreads();
-  if (seg_row != nullptr) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int i = warp; i < ntiles; i += blockDim.x >> 5) {
-      int a, z;
-      WarpSegRange(seg_row, i * tile, tile, t, &a, &z);
-      if (lane == 0 && !(z < lo || a > hi))
-        atomicOr(&live[i >> 5], 1u << (i & 31));
-    }
-  }
-  __syncthreads();
-}
-
-// The first live tile in [kt, end), or end.
-__device__ __forceinline__ int NextLive(const unsigned* live, int kt,
-                                        int end) {
-  while (kt < end) {
-    const unsigned word = live[kt >> 5] >> (kt & 31);
-    if (word) return min(end, kt + __ffs(word) - 1);
-    kt = (kt | 31) + 1;
-  }
-  return end;
-}
-
-// the reference's masks on one score: pair (row, col) kept?
-__device__ __forceinline__ bool Keep(const Problem& pb, int qi, int kj,
-                                     bool has_seg, int sq, int sk) {
-  return qi < pb.t && kj < pb.t && (!pb.causal || qi >= kj) &&
-         (!has_seg || sq == sk);
 }
 
 // -- the bf16 forward: warpgroup MMA fed by TMA (FlashFwdBf16Kernel) --
@@ -1487,8 +1749,6 @@ __global__ void __launch_bounds__(kHThreads) FlashDqBf16Kernel(
   }
 }
 
-size_t FloatsBytes(size_t floats) { return floats * sizeof(float); }
-
 bool BadShape(int b, int t, int n, int h) {
   return b <= 0 || t <= 0 || n <= 0 || h <= 0 || h % 16 != 0 ||
          h > kMaxHeadDim;
@@ -1511,6 +1771,15 @@ cudaError_t AllowSmem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
+}
+
+// The float32 backward kernels' instantiation for head dim h.
+decltype(&FlashDkDvKernel<1>) DkDvKernelFor(int h) {
+  return h > 64 ? FlashDkDvKernel<2> : FlashDkDvKernel<1>;
+}
+
+decltype(&FlashDqKernel<1>) DqKernelFor(int h) {
+  return h > 64 ? FlashDqKernel<2> : FlashDqKernel<1>;
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver at run time (so the
@@ -1600,15 +1869,16 @@ int FlashBwdDkDvF32(const float* q, const float* k, const float* v,
                     const int* seg, const float* dout, const float* lse,
                     const float* delta, float* dk, float* dv, int b, int t,
                     int n, int h, int causal, void* stream) {
-  if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (BadShape(b, t, n, h) || (t + kBOwn - 1) / kBOwn > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Problem pb = MakeProblem(t, n, h, causal);
-  const size_t smem = FloatsBytes(4 * kTile * (h + 1) + 2 * kTile * kPs +
-                                  2 * kTile) + 2 * kTile * sizeof(int);
-  cudaError_t err = AllowSmem(FlashDkDvKernel, smem);
+  const size_t smem = BwdLayout(t, h, kBDkDvTile, true).bytes;
+  const auto kernel = DkDvKernelFor(h);
+  cudaError_t err = AllowSmem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FlashDkDvKernel<<<dim3((t + kTile - 1) / kTile, b * n), kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, seg, dout, lse, delta, dk, dv, pb);
+  kernel<<<dim3(b * n, (t + kBOwn - 1) / kBOwn), kBThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(q, k, v, seg, dout, lse,
+                                                delta, dk, dv, pb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1616,16 +1886,38 @@ int FlashBwdDqF32(const float* q, const float* k, const float* v,
                   const int* seg, const float* dout, const float* lse,
                   const float* delta, float* dq, int b, int t, int n, int h,
                   int causal, void* stream) {
-  if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (BadShape(b, t, n, h) || (t + kBOwn - 1) / kBOwn > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   Problem pb = MakeProblem(t, n, h, causal);
-  const size_t smem = FloatsBytes(4 * kTile * (h + 1) + kTile * kPs +
-                                  2 * kTile) + 2 * kTile * sizeof(int);
-  cudaError_t err = AllowSmem(FlashDqKernel, smem);
+  const size_t smem = BwdLayout(t, h, kBDqTile, false).bytes;
+  const auto kernel = DqKernelFor(h);
+  cudaError_t err = AllowSmem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FlashDqKernel<<<dim3((t + kTile - 1) / kTile, b * n), kThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, seg, dout, lse, delta, dq, pb);
+  kernel<<<dim3(b * n, (t + kBOwn - 1) / kBOwn), kBThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(q, k, v, seg, dout, lse,
+                                                delta, dq, pb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The two float32 backward kernels' launch geometry at (t, h), as
+// FlashFwdGeometry: geo[0..2] for dK/dV, geo[3..5] for dQ (threads, dynamic
+// shared memory per block, blocks resident on one SM).
+int FlashBwdF32Geometry(int t, int h, int* geo) {
+  if (BadShape(1, t, 1, h)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t dkdv = BwdLayout(t, h, kBDkDvTile, true).bytes;
+  const size_t dq = BwdLayout(t, h, kBDqTile, false).bytes;
+  cudaError_t err = AllowSmem(DkDvKernelFor(h), dkdv);
+  if (err == cudaSuccess) err = AllowSmem(DqKernelFor(h), dq);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &geo[2], DkDvKernelFor(h), kBThreads, dkdv);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &geo[5], DqKernelFor(h), kBThreads, dq);
+  geo[0] = geo[3] = kBThreads;
+  geo[1] = static_cast<int>(dkdv);
+  geo[4] = static_cast<int>(dq);
+  return static_cast<int>(err);
 }
 
 // The bfloat16 kernels (same conventions; q/k/v/out/do/dq/dk/dv bf16, lse

@@ -14,8 +14,10 @@ Two implementations of one function:
   blocked tiles with cp.async double buffering; bf16: warpgroup MMA fed
   by TMA, 128 queries per block), and the two backward
   kernels `FlashDkDv` and `FlashDq`, which recompute the probabilities
-  from `lse` (`delta = rowsum(do * out)` stays a plain torch op, as it is
-  XLA in the reference). `_FlashFunction` ties them into autograd.
+  from `lse` (float32: register-blocked tiles streamed through two
+  cp.async stages, 64 owned rows per block; bf16: mma.sync;
+  `delta = rowsum(do * out)` stays a plain torch op, as it is XLA in the
+  reference). `_FlashFunction` ties them into autograd.
 - `_PlainAttention`, the reference's `_XlaAttention` twin in the same op
   order, natively differentiable: the CPU path, and on the card the
   float32 kernels' yardstick (`_PlainForward` adds lse, `_PlainBackward`
@@ -243,9 +245,11 @@ def _Lib():
     lib.FlashBwdDqBF16.argtypes = [vp] * 8 + [ci] * 5 + [vp]
     for fn in (lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry):
       fn.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 3
+    lib.FlashBwdF32Geometry.argtypes = [ci] * 2 + [ctypes.POINTER(ci)]
     for fn in (lib.FlashFwdF32, lib.FlashBwdDkDvF32, lib.FlashBwdDqF32,
                lib.FlashFwdBF16, lib.FlashBwdDkDvBF16, lib.FlashBwdDqBF16,
-               lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry):
+               lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry,
+               lib.FlashBwdF32Geometry):
       fn.restype = ci
     lib.FlashErrorString.argtypes = [ci]
     lib.FlashErrorString.restype = ctypes.c_char_p
@@ -286,6 +290,19 @@ def ForwardGeometry(t: int, h: int, dtype=torch.float32):
     raise RuntimeError("FlashFwdGeometry failed: "
                        + lib.FlashErrorString(rc).decode())
   return tuple(v.value for v in vals)
+
+
+def BackwardGeometry(t: int, h: int):
+  """{'dkdv': (threads, shared bytes per block, resident blocks per SM),
+  'dq': (...)} of the two float32 backward kernels at sequence length t
+  and head dim h, on the current device."""
+  lib = _Lib()
+  geo = (ctypes.c_int * 6)()
+  rc = lib.FlashBwdF32Geometry(t, h, geo)
+  if rc != 0:
+    raise RuntimeError("FlashBwdF32Geometry failed: "
+                       + lib.FlashErrorString(rc).decode())
+  return dict(dkdv=tuple(geo[:3]), dq=tuple(geo[3:]))
 
 
 def _Ptr(x):

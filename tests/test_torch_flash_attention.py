@@ -277,6 +277,58 @@ def test_forward_kernel_bitwise_repeat(cuda):
   assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
+def _CardBackwardInputs(t, h, seed):
+  """`_CardInputs` plus the output gradient do."""
+  q, k, v, seg = _CardInputs(t, h, seed)
+  rng = np.random.RandomState(seed + 1)
+  do = torch.as_tensor(rng.randn(*q.shape).astype(np.float32)).cuda()
+  return q, k, v, seg, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h", [16, 48, 64, 96, 128])
+@pytest.mark.parametrize("t", [20, 77, 200, 1000])
+def test_backward_kernel_edges_on_card(cuda, t, h, causal):
+  """The float32 dK/dV and dQ kernels at t shorter than one streamed tile
+  (20: below the 32 queries of a dK/dV tile and the 64 keys of a dQ tile)
+  and at t that is not a multiple of the tiles, with a segment boundary
+  inside a tile and a padding tail: dq, dk and dv within 1e-4 x max|grad|
+  of the plain backward (float32 sums over up to t rows in other orders),
+  and within it again without segments. h = 48 and 96 take the row copy
+  whose 256 threads do not divide into whole rows (256 % (h / 4) != 0),
+  and h = 96 the two-column accumulation with its columns past h
+  clamped."""
+  q, k, v, seg, do = _CardBackwardInputs(t, h, seed=t + h)
+  for s in (seg, None):
+    out, lse = fa.FlashForward(q, k, v, s, causal)
+    delta = fa.RowDelta(do, out)
+    dk, dv = fa.FlashDkDv(q, k, v, s, do, lse, delta, causal)
+    dq = fa.FlashDq(q, k, v, s, do, lse, delta, causal)
+    dq_p, dk_p, dv_p = fa._PlainBackward(q, k, v, s, do, causal)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+      assert bool(torch.isfinite(got).all())
+      assert float((got - want).abs().max()) <= 1e-4 * float(
+          want.abs().max())
+
+
+@pytest.mark.cuda
+def test_backward_kernels_bitwise_repeat(cuda):
+  """Two calls of each float32 backward kernel give the same bits (no
+  floating-point atomics: each element is summed by one thread, in
+  order)."""
+  q, k, v, seg, do = _CardBackwardInputs(1000, 128, seed=6)
+  out, lse = fa.FlashForward(q, k, v, seg, True)
+  delta = fa.RowDelta(do, out)
+  first = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True) + (
+      fa.FlashDq(q, k, v, seg, do, lse, delta, True),)
+  again = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True) + (
+      fa.FlashDq(q, k, v, seg, do, lse, delta, True),)
+  torch.cuda.synchronize()
+  assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def _Dyadic(x, step):
   """x on a grid of `step`: q.k is then exact in any order of its sum, so
   scores, maxima and p agree bit for bit wherever p is rounded alike."""
