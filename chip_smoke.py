@@ -13,8 +13,15 @@
    hybrid's heads, at page_size 16), on a pack of decode rows, two prefill
    chunks, a tree row with real ancestor masks and padding tokens, with
    freed pages, stale slots and table entries past each row's pages
-   poisoned with NaN. Tolerance: float32, max abs difference <= 1e-5.
-   Times the kernel, the plain version and the bound.
+   poisoned with NaN; then at page 16, H=128 on a decode-only pack (8
+   live tokens, 256 padding) and on a pack of tile edges (a prefill chunk
+   across a 16-token tile edge; a tree row and a short prefill inside one
+   tile, which would otherwise cross three rows). Tolerance: float32, max
+   abs difference <= 1e-5; two calls bitwise equal; the card's tile
+   schedule equal to `TileSchedule`. Prints the schedule's tiles and work
+   items and the kernel's grid, threads, shared memory per block and
+   resident blocks per SM. Times the kernel, the plain version and the
+   bound.
 4. Holds the chunked SSD-scan kernel against `_ChunkedPlain` on the card
    at the hybrid's serving shape ([8, 256, 16] with S = H = 64, chunk 64:
    rows of mixed live lengths padded as identity steps, a reset, a nonzero
@@ -28,7 +35,8 @@
    ran exactly 24 times per step and no other kernel ran. Before that, a
    DenseLmTiny engine on the card must reproduce the same model's CPU
    streams. After the counted run, the same requests are served again with
-   torch.profiler on over the first 4 and the last 4 steps.
+   torch.profiler on over the first 4 and the last 4 steps, which also
+   counts the cudaStreamSynchronize calls per step.
 6. Hybrid serving main path: DenseLmSsmHybridTiny on the card must
    reproduce its CPU streams; then DenseLmSsmHybrid at full width and
    depth (d 1024, 12 layers, attention every 6th, SSM state 64, chunk 64;
@@ -45,9 +53,14 @@
    memory per block and resident blocks per SM. Times each kernel, the plain
    version, the bound and SDPA with the same boolean mask.
 8. Holds the fused-xent statistics kernel against `_PlainStats` at
-   [8192, 2048] x [32000, 2048] (block 1280, cap 30), and at block 1536
-   with label smoothing 0.1 (a ragged vocab tail): lse, label logit and
-   logit sum within tolerance, argmax equal except on near-ties.
+   [8192, 2048] x [32000, 2048] (block 1280, cap 30), at block 1536
+   with label smoothing 0.1 (a ragged vocab tail), at 8192 + 37 rows (a
+   partial row tile) and in the [D, V] layout at V 31923 (a partial last
+   vocab tile): lse, label logit and logit sum within tolerance, argmax
+   equal except on near-ties, two calls bitwise equal. The vocab splits
+   (7 tiles of 128 columns at the main shape) do not fall on the
+   reference's block edges. Prints the grid (row tiles x vocab splits),
+   threads, shared memory per block and resident blocks per SM.
 9. Training main path: DenseLmTiny (flash on, xent block 1280, warmup 2)
    trains 3 steps on the card and on the CPU from the same weights (losses
    and theta within 1e-4); then DenseLm1B (flash on, xent block 1280,
@@ -92,7 +105,9 @@
    1008 bucket, so the cache keeps 1024 slots) and profiles 16 decode
    steps (device busy per step, flash-decode share).
 14. Holds the int8 and bfloat16 instantiations of the ragged kernel
-   (phase 3's shapes: page 16 and 128 at H = 128, page 16 at H = 64) and
+   (phase 3's shapes and packs: page 16 and 128 at H = 128, page 16 at
+   H = 64, the decode-only and tile-edge packs at page 16; the schedule
+   and geometry of each instantiation printed as in phase 3) and
    of the block-decode kernel (phase 10's: page 16 and 128) against their
    plain versions. The pools are phase 3's and 10's, quantized per (slot,
    head) into int8 pools with [NP, N, P] scale sidecars, or rounded to
@@ -308,17 +323,32 @@ def _EnqueueUs(torch, fn, calls=20, reps=20):
   return total / (calls * reps) * 1e6
 
 
-def _AttendPack(torch, ragged, page, h, rng, dyadic=False):
-  """The kernel-check pack at page size `page` and head dim `h` (see the
-  module docstring); dyadic: q and K made `_Dyadic`."""
+# The ragged kernel's packs at the serving step's width (T = 264, 8 rows):
+# (prompt lens, q_pos, the tree row or None). "main": decode rows, two
+# prefill chunks that straddle the kernel's 16-token tile edges, a tree
+# row, padding; "decode_only": 8 decode tokens and 256 padding tokens, a
+# decode-only step; "edges": a 20-token prefill across a tile edge, then
+# a tree row and a 5-token prefill inside one 16-token tile (a tile that
+# would cross three rows), across the next edge.
+_PACKS = {
+    "main": ([1, 1, 1, 1, 1, 128, 120, 7],
+             [999, 516, 63, 32, 299, 256, 0, 700], 7),
+    "decode_only": ([1] * 8, [700, 999, 512, 800, 333, 901, 640, 777], None),
+    "edges": ([1, 20, 7, 5, 1, 1, 1, 1], [611, 300, 800, 64, 5, 900, 17, 420],
+              2),
+}
+
+
+def _AttendPack(torch, ragged, page, h, rng, dyadic=False, pack="main"):
+  """The kernel-check pack `pack` (`_PACKS`) at page size `page` and head
+  dim `h` (see the module docstring); dyadic: q and K made `_Dyadic`."""
   n, t, b, max_seq = 16, 264, 8, 1024
   t_pages = max_seq // page
   num_pages = 512 * 16 // page
   parents = np.array([-1, 0, 1, -1, 3, 4], np.int32)   # 2 branches of 3
-  #          decode rows ........ | prefill | prefill | tree
-  q_pos = [999, 516, 63, 32, 299, 256, 0, 700]
-  lens = [1, 1, 1, 1, 1, 128, 120, 7]
-  rows = ragged.BuildRaggedRows(lens, q_pos, t, 256, {7: parents})
+  lens, q_pos, tree_row = _PACKS[pack]
+  rows = ragged.BuildRaggedRows(
+      lens, q_pos, t, 256, None if tree_row is None else {tree_row: parents})
   q_end = np.where(rows.valid, rows.pos + 1, 0).astype(np.int32)
   q_start = rows.row_q_pos[rows.row_of].astype(np.int32)
   row_end = [int(q_end[rows.row_of == r].max()) for r in range(b)]
@@ -356,29 +386,54 @@ def _AttendPack(torch, ragged, page, h, rng, dyadic=False):
   return cuda, q_end == 0, moved, flops, dict(clean=clean, dead=dead)
 
 
-def _CheckKernel(torch, rba, ragged, page, rng, h=128):
-  x, pad, moved, flops, _ = _AttendPack(torch, ragged, page, h, rng)
+def _RaggedLayout(torch, rba, x, page, h, dtype="float32"):
+  """The ragged kernel's schedule on the card for pack x, checked against
+  `TileSchedule`, and its launch geometry, printed."""
+  t_pages, b = x["tables"].shape[1], x["tables"].shape[0]
+  split = dtype != "bfloat16"
+  items = rba.DeviceSchedule(x["row_of"], x["q_end"], page, t_pages, b, 16,
+                             split=split)
+  want = rba.TileSchedule(x["row_of"].cpu().numpy(), x["q_end"].cpu().numpy(),
+                          page, t_pages, b, split=split)
+  _Check(np.array_equal(items, want), f"ragged P={page} H={h} {dtype}: the "
+         "card's tile schedule differs from TileSchedule")
+  threads, smem, per_sm, blocks = rba.KernelGeometry(h, page, t_pages, dtype)
+  tiles = len(set(items[:, -1].tolist()))
+  return (f"schedule: {tiles} tiles, {len(items)} (tile, split) items x 16 "
+          f"heads = {16 * len(items)} units (equal to TileSchedule); grid "
+          f"({blocks},) persistent blocks, {threads} threads, {smem} B "
+          f"shared per block, {per_sm} blocks resident per SM")
+
+
+def _CheckKernel(torch, rba, ragged, page, rng, h=128, pack="main"):
+  x, pad, moved, flops, _ = _AttendPack(torch, ragged, page, h, rng,
+                                        pack=pack)
   moved = moved(h * 4)
   args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["row_of"],
           x["q_end"])
   tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
+  label = f"P={page} H={h} pack {pack}"
   out = rba.RaggedAttend(*args, page_size=page, **tree)
+  again = rba.RaggedAttend(*args, page_size=page, **tree)
   plain = rba._PlainRaggedAttend(*args, page, **tree)
   torch.cuda.synchronize()
-  _Check(bool(torch.isfinite(out).all()), f"P={page} H={h}: non-finite")
+  _Check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
   _Check(bool((out[torch.as_tensor(pad).cuda()] == 0).all()),
-         f"P={page} H={h}: padding outputs not exactly zero")
+         f"{label}: padding outputs not exactly zero")
+  _Check(torch.equal(out, again), f"{label}: two calls differ bitwise")
   err = float((out - plain).abs().max())
-  _Check(err <= TOL, f"P={page} H={h}: kernel vs plain max abs err {err} > "
-         f"{TOL}")
+  _Check(err <= TOL, f"{label}: kernel vs plain max abs err {err} > {TOL}")
+  print(f"ragged {label}: two calls bitwise equal; "
+        + _RaggedLayout(torch, rba, x, page, h))
   kernel_ms = _TimeMs(torch, lambda: rba.RaggedAttend(
       *args, page_size=page, **tree), iters=20)
   plain_ms = _TimeMs(torch, lambda: rba._PlainRaggedAttend(
       *args, page, **tree), iters=3, waits_as="plain ragged")
   bytes_ms = moved / HBM_BYTES_PER_S * 1e3
   ops_ms = flops / FP32_FLOPS_PER_S * 1e3
-  res = dict(page_size=page, head_dim=h, max_abs_err=err, kernel_ms=kernel_ms,
-             plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+  res = dict(page_size=page, head_dim=h, pack=pack, max_abs_err=err,
+             kernel_ms=kernel_ms, plain_ms=plain_ms,
+             bound_ms=max(bytes_ms, ops_ms),
              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
              bytes=moved, flops=flops, library_ms=None)
   print(json.dumps(res))
@@ -475,12 +530,13 @@ def _CheckQuant(torch, label, call, plain, deq_call, zero_rows, bound,
               unrounded_err=ctl_err, library_ms=None)
 
 
-def _CheckQuantRagged(torch, rba, ragged, page, h, rng, time_plain):
+def _CheckQuantRagged(torch, rba, ragged, page, h, rng, time_plain,
+                      pack="main"):
   """The ragged kernel's int8 and bfloat16 instantiations at phase 3's
-  shapes (its pack with dyadic q and K, poisoned as `_KvStorage` says),
-  beside the float32 kernel on the same pack."""
+  shapes (its pack `pack` with dyadic q and K, poisoned as `_KvStorage`
+  says), beside the float32 kernel on the same pack."""
   x, pad, moved, flops, extra = _AttendPack(torch, ragged, page, h, rng,
-                                            dyadic=True)
+                                            dyadic=True, pack=pack)
   ints = (x["tables"], x["row_of"], x["q_end"])
   tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
   call = lambda k, v, **sc: rba.RaggedAttend(x["q"], k, v, *ints,
@@ -493,14 +549,18 @@ def _CheckQuantRagged(torch, rba, ragged, page, h, rng, time_plain):
     plain = lambda k=k, v=v, sc=sc: rba._PlainRaggedAttend(
         x["q"], k, v, *ints, page, **tree, **sc)
     unrounded = lambda k=k, v=v: call(k.float(), v.float())
+    print(f"ragged {dtype} P={page} H={h} pack {pack}: "
+          + _RaggedLayout(torch, rba, x, page, h, dtype))
     res[dtype] = _CheckQuant(
-        torch, f"ragged {dtype} P={page} H={h}", lambda: call(k, v, **sc),
+        torch, f"ragged {dtype} P={page} H={h} pack {pack}",
+        lambda: call(k, v, **sc),
         plain, (lambda: call(*deq)) if deq else None, zero,
         _Bound(moved(elem), flops), time_plain,
         unrounded if dtype == "bfloat16" else None)
     res[dtype]["float_ms"] = float_ms
     del k, v, sc, deq
-  print(f"ragged float32 P={page} H={h} on the same pack: {float_ms:.4f} ms, "
+  print(f"ragged float32 P={page} H={h} on the same pack ({pack}): "
+        f"{float_ms:.4f} ms, "
         f"bound {_Bound(moved(4 * h), flops)[0]:.4f} ms")
   return res
 
@@ -891,21 +951,43 @@ def _CheckFlashBf16(torch, fa, rng):
   return res
 
 
-def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32"):
+def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
+               vocab=32000, vd=True):
   """The fused-xent statistics kernel against `_PlainStats` on the card:
-  x [8192, 2048], the tied table [32000, 2048], cap 30, in `dtype`."""
-  m, d, vocab = 8192, 2048, 32000
+  x [m, 2048], the table [vocab, 2048] (vd; else [2048, vocab]), cap 30,
+  in `dtype`; two calls bitwise equal."""
+  d = 2048
   dt = getattr(torch, dtype)
   x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda().to(dt)
   w = torch.as_tensor((rng.randn(vocab, d) / np.sqrt(d)).astype(
       np.float32)).cuda().to(dt)
+  w_arg = w if vd else w.t().contiguous()
   bias = torch.zeros(vocab, device="cuda", dtype=dt)
   labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
-  cfg = fx._Cfg(block_size=block, vocab=vocab, vd=True, soft_cap=30.0,
+  cfg = fx._Cfg(block_size=block, vocab=vocab, vd=vd, soft_cap=30.0,
                 label_smoothing=ls)
-  got = fx.FusedXentStats(x, w, bias, labels, cfg)
-  want = fx._PlainStats(x, w, bias, labels, cfg)
+  got = fx.FusedXentStats(x, w_arg, bias, labels, cfg)
+  again = fx.FusedXentStats(x, w_arg, bias, labels, cfg)
+  want = fx._PlainStats(x, w_arg, bias, labels, cfg)
   torch.cuda.synchronize()
+  _Check(all(torch.equal(a, b_) for a, b_ in zip(got, again)
+             if a is not None), f"xent {dtype}: two calls differ bitwise")
+  label = (f"xent {dtype} [{m}, {d}] x {'[V, D]' if vd else '[D, V]'} V "
+           f"{vocab} block {block} ls {ls}")
+  if dtype == "float32":
+    geo = fx.StatsGeometry(m, vocab, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    threads, smem, per_sm = fx.KernelGeometry()
+    split_cols = geo["tiles_per_split"] * geo["tile"]
+    print(f"{label}: two calls bitwise equal; grid {geo['grid']} (row "
+          f"tiles x vocab splits of {split_cols} columns; reference blocks "
+          f"of {block}: a split edge on a block edge every "
+          f"{np.lcm(split_cols, block)} columns), {threads} threads, {smem} "
+          f"B shared per block, {per_sm} blocks resident per SM, "
+          f"{geo['stages']} cp.async stages of {geo['depth']}; combine "
+          f"kernel merges the {geo['splits']} splits in order")
+  else:
+    print(f"{label}: two calls bitwise equal")
   errs = []
   print("tolerances: lse, label logit 1e-4 (capped logits of O(1), each a "
         "2048-term float32 dot in two orders); logit sum 5e-3 (adds 32000 "
@@ -917,8 +999,7 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32"):
       continue
     _Check(bool(torch.isfinite(a).all()), f"xent {name}: non-finite")
     err = float((a - b_).abs().max())
-    print(f"xent block {block} ls {ls}: {name} max abs err {err:.3g} "
-          f"(tol {tol})")
+    print(f"{label}: {name} max abs err {err:.3g} (tol {tol})")
     _Check(err <= tol, f"xent {name}: {err} > {tol}")
     errs.append(err)
   differ = torch.nonzero(got[3] != want[3]).flatten()
@@ -930,12 +1011,14 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32"):
     gap = float((s_k - s_p).abs().max())
     _Check(gap <= 1e-5, f"xent argmax differs on {len(differ)} rows whose "
            f"top logits differ by {gap} > 1e-5")
-  print(f"xent block {block}: argmax equal on {m - len(differ)} of {m} rows "
-        f"(the rest are ties within 1e-5)")
+  print(f"{label}: argmax equal on {m - len(differ)} of {m} rows (the rest "
+        f"are ties within 1e-5)")
   if not time_it:
-    return None
-  ms = _TimeMs(torch, lambda: fx.FusedXentStats(x, w, bias, labels, cfg), 5)
-  plain_ms = _TimeMs(torch, lambda: fx._PlainStats(x, w, bias, labels, cfg),
+    return dict(err=max(errs))
+  ms = _TimeMs(torch, lambda: fx.FusedXentStats(x, w_arg, bias, labels, cfg),
+               5)
+  plain_ms = _TimeMs(torch, lambda: fx._PlainStats(x, w_arg, bias, labels,
+                                                  cfg),
                      3, waits_as="plain xent stats")
   elem = x.element_size()
   bound = _Bound((m * d + vocab * d + vocab) * elem + m * 4 + 4 * m * 4,
@@ -1265,13 +1348,15 @@ def _Profile(torch, eng, prompts, steps, window=4):
   rows) and the last (decode only) of the `steps` the schedule takes.
   Prints, per window, device busy ms per step and its share of the wall,
   the shares of the GEMMs, the scan kernel, the attention kernel (ragged
-  or block-decode) and the rest, the top kernels and the top host ops by
-  their own host time."""
+  or block-decode) and the rest, the top kernels, the top host ops by
+  their own host time and the cudaStreamSynchronize calls per step.
+  Returns those calls per step, by window ('first', 'last')."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   for pr in prompts:
     eng.Submit(pr, 32, eos_id=None)
   done = 0
+  syncs = {}
   for label, start in (("first", 0), ("last", steps - window)):
     while done < start:
       eng.StepOnce()
@@ -1309,6 +1394,9 @@ def _Profile(torch, eng, prompts, steps, window=4):
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
+    syncs[label] = sum(e.count for e in host
+                       if e.key == "cudaStreamSynchronize") / window
+    print(f"  cudaStreamSynchronize calls per step: {syncs[label]:g}")
     print(f"  host ops by self time (of {wall_ms / window:.2f} ms/step, "
           "profiler overhead included):")
     for e in host[:5]:
@@ -1316,6 +1404,7 @@ def _Profile(torch, eng, prompts, steps, window=4):
             f"{e.count // window:6d} x/step  {e.key[:70]}")
   _Check(not eng.sched.HasWork() and done == steps,
          f"profiled re-run took more than the counted run's {steps} steps")
+  return syncs
 
 
 def _Requests(cfg):
@@ -1335,15 +1424,16 @@ def _ServingLm(torch, cfg):
 
 def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
                step_mode="ragged", kv_cache_dtype=None, lm=None,
-               profile=True):
+               profile=True, syncs=None):
   """cfg's Task (`lm`, or `_ServingLm(cfg)`) through ServingLoop in
   `step_mode` with `kv_cache_dtype` pools: 8 requests with prompts of
   64..768 tokens (numpy seed 1) and 32 new tokens each, through
   Start/Submit/Result/Stop, with every kernel count set to 0 just before.
   per_step: {kernel: launches per engine step}; per_decode_step: {kernel:
   launches per decode-only step}; every other counted kernel must launch
-  0 times. Then, with `profile`, the profiled re-run. Returns (the counted
-  run's launches, its steps, the streams, ms per step)."""
+  0 times. Then, with `profile`, the profiled re-run (its
+  cudaStreamSynchronize calls per step, by window, into `syncs`). Returns
+  (the counted run's launches, its steps, the streams, ms per step)."""
   name = type(cfg).__name__
   per_decode_step = per_decode_step or {}
   t0 = time.perf_counter()
@@ -1407,7 +1497,9 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
         f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
         f"{np.mean(tpot) * 1e3:.2f} ms")
   if profile:
-    _Profile(torch, eng, prompts, steps)
+    found = _Profile(torch, eng, prompts, steps)
+    if syncs is not None:
+      syncs.update(found)
   return launches, steps, streams, wall / steps * 1e3
 
 
@@ -1789,6 +1881,8 @@ def main():
   rng = np.random.RandomState(0)
   checks = [_CheckKernel(torch, rba, ragged, page, rng) for page in (16, 128)]
   checks.append(_CheckKernel(torch, rba, ragged, 16, rng, h=64))
+  for pack in ("decode_only", "edges"):
+    checks.append(_CheckKernel(torch, rba, ragged, 16, rng, pack=pack))
 
   _Phase("4. SSD-scan kernel vs plain version at the hybrid's shapes")
   print("scan library_ms: null (no single PyTorch call computes a gated "
@@ -1854,7 +1948,16 @@ def main():
   print("fused xent library_ms: null (no single PyTorch call computes "
         "capped logits with an online lse, the label logit and the argmax)")
   xent = _CheckXent(torch, fx, np.random.RandomState(6), 1280, 0.0, True)
-  _CheckXent(torch, fx, np.random.RandomState(7), 1536, 0.1, False)
+  xent_edges = [
+      _CheckXent(torch, fx, np.random.RandomState(7), 1536, 0.1, False),
+      # a partial row tile
+      _CheckXent(torch, fx, np.random.RandomState(17), 1280, 0.1, False,
+                 m=8192 + 37),
+      # the [D, V] layout, a vocab of 249 whole tiles and 51 columns (not
+      # whole float4s: 4-byte copies)
+      _CheckXent(torch, fx, np.random.RandomState(27), 1280, 0.1, False,
+                 vocab=31923, vd=False)]
+  xent["err"] = max([xent["err"]] + [r["err"] for r in xent_edges])
   gc.collect()
   torch.cuda.empty_cache()
 
@@ -1916,6 +2019,9 @@ def main():
     qragged = [_CheckQuantRagged(torch, rba, ragged, page, h, qrng,
                                  time_plain=(page, h) == (16, 128))
                for page, h in ((16, 128), (128, 128), (16, 64))]
+    qragged += [_CheckQuantRagged(torch, rba, ragged, 16, 128, qrng, False,
+                                  pack=pack)
+                for pack in ("decode_only", "edges")]
     qblock = [_CheckQuantBlockDecode(torch, bd, page, qrng,
                                      time_plain=page == 16)
               for page in (16, 128)]

@@ -5,38 +5,54 @@
 // (pallas_call in `_PallasStats`; public entry `FusedXent`). It computes
 // the same function, not the same blocks: for every row of x [M, D], the
 // logits x . w[c] + b[c] over the whole vocabulary, tanh-capped when
-// soft_cap > 0, streamed in vocab blocks of `block_size` (the reference's
-// `_BlockLogits`) with the online statistics of `_BlockStats`: running max
-// m and denominator l (with the m_safe guard), the label logit, the sum of
-// logits (only with label smoothing) and the first-occurrence argmax. The
-// overhang of the last block past V is masked, as the reference masks its
-// zero-padded tail. Emits lse = m + log(max(l, 1e-37)), the label logit, the
-// logit sum and the argmax per row; the [M, V] logits never exist.
-//
-// Design. The TPU kernel walks a (row tile, vocab block) grid in order and
-// carries the statistics in VMEM scratch; here one block of 256 threads
-// owns 64 rows and loops over every vocab block itself, in order. Inside a
-// vocab block it computes 64 x 128 logit sub-tiles with a shared-memory
-// tiled FFMA product over D (stages of 32: x as [32][65], w as [32][129],
-// padded so that neither the transposing stores nor the reads conflict;
-// both weight layouts, [V, D] and [D, V], load coalesced). Thread (ty, tx)
-// owns rows ty*4 .. ty*4+3 and columns tx + 16 j, j < 8; the 16 threads of
-// a row sit in one half-warp, and each sub-tile's statistics are folded in
-// with shuffle reductions. Folding per 128-column sub-tile instead of per
-// vocab block changes only the rounding of the rescaling: the smallest
-// index within a sub-tile and a strict > across sub-tiles still give the
-// first occurrence over the whole vocabulary. A sub-tile that lies wholly
-// past V is skipped, which is exactly a no-op for every statistic.
+// soft_cap > 0 (the reference's `_BlockLogits`), with the online
+// statistics of `_BlockStats`: running max m and denominator l, the label
+// logit, the sum of logits (only with label smoothing) and the
+// first-occurrence argmax. Columns past V are masked, as the reference
+// masks its zero-padded tail. Emits lse = m + log(max(l, 1e-37)), the
+// label logit, the logit sum and the argmax per row; the [M, V] logits
+// never exist.
 //
 // Bound: 2 M V D flops on the CUDA cores (float32, TF32 off): at the main
-// path's shapes (M 8192, V 32000, D 2048) 1.07 TFLOP, 16 ms at 67 TFLOP/s
-// on an H100 SXM; the bytes (x and w read once, 0.33 GB) take 0.1 ms, so
-// the kernel is bound by operations. What this design leaves on the table:
-// the tensor cores (wgmma), an x tile kept resident instead of re-read for
-// every sub-tile, double buffering of the stages, and one block per SM of 8
-// warps for 128 row tiles on 132 SMs. Every row tile streams the whole
-// weight table, 128 x 262 MB of L2-to-SM traffic, which stays in L2 only as
-// long as the blocks march through the vocabulary together.
+// path's shapes (M 8192, V 32000, D 2048) 1.07 TFLOP, 16.0 ms at 67
+// TFLOP/s on an H100 SXM; the bytes (x and w read once, 0.33 GB) take 0.1
+// ms, so the kernel is bound by operations, and the design is about
+// keeping the float32 CUDA cores fed.
+//
+// Design (float32). The TPU kernel walks a (row tile, vocab block) grid in
+// order and carries the statistics in VMEM scratch. Here the vocabulary is
+// split across blocks: grid (M / 128 row tiles, S vocab splits), where
+// split s owns the 128-column vocab tiles [s tps, (s + 1) tps) (S and tps
+// from the Python `StatsGeometry`, which sizes the grid to fill the SMs
+// for at least two waves). A block of 256 threads computes each of its
+// 128 x 128 logit tiles over D in stages of kDepth = 32, staged by 16-byte
+// cp.async copies into kStages = 2 buffers (the next stage's copy runs
+// under this stage's math; 4-byte copies when a row is not 16-byte
+// aligned; on the H100, 32 of D a stage beat 16, and a third stage did
+// not help: the float32 cores, not the copies, set the pace).
+// Thread (ty, tx) owns the 8 x 8 register patch of rows ty + 16 i and
+// columns tx + 16 j ([V, D] layout; [D, V]: 4 tx + j and 64 + 4 tx + j):
+// per 4 of D it reads 8 float4s of x (rows, along D: one address per
+// quarter-warp) and 8 float4s of w, 64 FFMA per 16 floats, as the 4 FFMA
+// per float loaded from shared memory that this card's float32 cores need.
+// Both stages sit at a row stride of kDepth + 4 floats ([D, V]: the w stage
+// as [kDepth][128 + 4]), so a quarter-warp's 8 float4 reads hit distinct
+// banks. A tile's epilogue runs on the patch: bias, cap, then per row the
+// tile's max, sum of exp(s - max), label logit, logit sum and smallest
+// argmax index, reduced by shuffles over the 16 lanes (one half-warp) that
+// share the row; lane tx = i folds row i's numbers into its running
+// statistics (each lane keeps one row's: no shared memory, no barrier).
+// Each block writes its rows' partial statistics (m, l, label logit, sum,
+// argmax) to a float32 [5, S, M] scratch; `FusedXentCombineKernel` merges
+// the splits of a row in split order. Across tiles and splits a strict >
+// keeps the earlier argmax on ties and within a tile the smallest index
+// wins, so the argmax is the first occurrence over the whole vocabulary.
+// Tiles are folded with l rescaled from the tile's own max, which changes
+// only the rounding of the rescaling against the reference's per-block
+// update. No atomics: two calls give the same bits.
+// What it leaves: the tensor cores (3xTF32 would re-open the parity bar),
+// and every row tile streams its splits' weight tiles through L2 (x and w
+// tiles of 1 MB per 67 MFLOP of logits).
 //
 // Limits (the Python wrapper raises outside them): float32 or bfloat16,
 // contiguous tensors, labels in [0, V).
@@ -50,15 +66,23 @@
 
 namespace {
 
-constexpr int kRows = 64;       // rows of x per block
-constexpr int kCols = 128;      // vocab columns per logit sub-tile
-constexpr int kDepth = 32;      // D per shared-memory stage
-constexpr int kThreads = 256;   // 16 x 16: ty row group, tx column lane
-constexpr int kXs = kRows + 1;  // row stride of the [kDepth][kRows] x stage
-constexpr int kWs = kCols + 1;  // row stride of the [kDepth][kCols] w stage
 constexpr float kNegInf = -1.0e30f;  // the reference NEG_INF
 constexpr int kBigIdx = 1 << 30;     // the reference _BIG_IDX
 
+constexpr int kTile = 128;      // rows and vocab columns of a logit tile
+constexpr int kDepth = 32;      // D per cp.async stage
+constexpr int kStages = 2;      // the ring of stages
+constexpr int kThreads = 256;   // 16 x 16: ty row lane, tx column lane
+constexpr int kLd = kDepth + 4;      // row stride of a [128][kDepth] stage
+constexpr int kLdT = kTile + 4;      // row stride of a [kDepth][128] stage
+constexpr int kStageFloats = 2 * kTile * kLd;   // x, then w
+constexpr int kSmemBytes = kStages * kStageFloats * sizeof(float);
+constexpr int kParts = 5;       // m, l, label logit, sum, argmax
+constexpr int kCopies = kTile * kDepth / 4 / kThreads;  // float4s a thread
+
+static_assert(kDepth * kLdT <= kTile * kLd, "the [D, V] stage must fit");
+
+// reductions over the 16 lanes (a half-warp) that share a row
 __device__ __forceinline__ float GroupMax(float x) {
   for (int o = 8; o > 0; o >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -75,139 +99,246 @@ __device__ __forceinline__ int GroupMin(int x) {
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads, 1) FusedXentStatsKernel(
+// `bytes` (0..16) of global src to shared dst, asynchronously; the rest of
+// the 16 bytes is zero-filled (0 bytes: nothing is read)
+__device__ __forceinline__ void CpAsync16(float* dst, const float* src,
+                                          int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void CpAsync4(float* dst, const float* src,
+                                         bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+// 4 floats of a row, src[0 .. 3] of which the first `n` (<= 4, may be <=
+// 0) exist; vec: src is 16-byte aligned (and n is 0 or 4)
+__device__ __forceinline__ void CopyFour(float* dst, const float* src, int n,
+                                         bool vec) {
+  if (vec) {
+    CpAsync16(dst, src, n > 0 ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) CpAsync4(dst + e, src + (e < n ? e : 0), e < n);
+  }
+}
+
+__device__ __forceinline__ float4 Ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc + a . b over one float4, summed in the order of d
+__device__ __forceinline__ float Dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// column j of a thread's patch within its tile
+template <bool kVd>
+__device__ __forceinline__ int PatchCol(int tx, int j) {
+  return kVd ? tx + 16 * j : (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
+}
+
+// grid (row tiles, splits). part: float32 [kParts, splits, M] (the argmax
+// as int bits). kVd: w is [V, D]; else [D, V]. vec: 16-byte copies.
+template <bool kVd>
+__global__ void __launch_bounds__(kThreads, 2) FusedXentStatsKernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, const int* __restrict__ labels,
-    float* __restrict__ lse_out, float* __restrict__ llog_out,
-    float* __restrict__ sum_out, int* __restrict__ amax_out, int m_rows,
-    int d, int vocab, int block_size, int vd, float soft_cap, int need_sum) {
-  __shared__ float xs[kDepth * kXs];
-  __shared__ float ws[kDepth * kWs];
+    float* __restrict__ part, int m_rows, int d, int vocab,
+    int tiles_per_split, int vec, float soft_cap, int need_sum) {
+  extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int r0 = blockIdx.x * kRows;
+  const int r0 = blockIdx.x * kTile;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int col_tiles = (vocab + kTile - 1) / kTile;
+  const int t0 = split * tiles_per_split;
+  const int ntiles = min(tiles_per_split, col_tiles - t0);
+  const int nks = (d + kDepth - 1) / kDepth;
+  const int nsteps = ntiles * nks;
+  const bool v16 = vec != 0;
 
-  int label[4], amax[4];
-  float m[4], l[4], sumlog[4], llog[4];
+  // the label of the row whose statistics this lane keeps (tx < 8)
+  const int own_row = r0 + ty + 16 * tx;
+  const int own_label = tx < 8 && own_row < m_rows ? labels[own_row] : -1;
+  float st_m = kNegInf, st_l = 0.f, st_llog = 0.f, st_sum = 0.f;
+  int st_amax = 0;
+
+  // a thread's copies: kCopies of the stage's float4s of x and of w
+  auto issue = [&](int step) {
+    if (step < nsteps) {
+      const int tile = t0 + step / nks, d0 = (step % nks) * kDepth;
+      const int c0 = tile * kTile;
+      float* xs = smem + (step % kStages) * kStageFloats;
+      float* ws = xs + kTile * kLd;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
-    label[i] = row < m_rows ? labels[row] : -1;
-    m[i] = kNegInf;
-    l[i] = sumlog[i] = llog[i] = 0.f;
-    amax[i] = 0;
-  }
-  const int num_blocks = (vocab + block_size - 1) / block_size;
-  for (int blk = 0; blk < num_blocks; ++blk) {
-    const int start = blk * block_size;
-    const int end = min(start + block_size, vocab);  // valid columns
-    for (int c0 = start; c0 < end; c0 += kCols) {
-      float s[4][8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-      for (int d0 = 0; d0 < d; d0 += kDepth) {
-        __syncthreads();  // the previous stage is consumed
-        for (int idx = tid; idx < kRows * kDepth; idx += kThreads) {
-          const int r = idx / kDepth, dd = idx % kDepth;
-          const int row = r0 + r, dc = d0 + dd;
-          xs[dd * kXs + r] = (row < m_rows && dc < d)
-                                 ? x[static_cast<size_t>(row) * d + dc]
-                                 : 0.f;
-        }
-        if (vd) {  // w [V, D]: threads along D
-          for (int idx = tid; idx < kCols * kDepth; idx += kThreads) {
-            const int c = idx / kDepth, dd = idx % kDepth;
-            const int col = c0 + c, dc = d0 + dd;
-            ws[dd * kWs + c] = (col < vocab && dc < d)
-                                   ? w[static_cast<size_t>(col) * d + dc]
-                                   : 0.f;
-          }
-        } else {   // w [D, V]: threads along V
-          for (int idx = tid; idx < kCols * kDepth; idx += kThreads) {
-            const int dd = idx / kCols, c = idx % kCols;
-            const int col = c0 + c, dc = d0 + dd;
-            ws[dd * kWs + c] = (col < vocab && dc < d)
-                                   ? w[static_cast<size_t>(dc) * vocab + col]
-                                   : 0.f;
-          }
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int dd = 0; dd < kDepth; ++dd) {
-          float a[4], b[8];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = xs[dd * kXs + ty * 4 + i];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) b[j] = ws[dd * kWs + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+      for (int it = 0; it < kCopies; ++it) {
+        const int idx = tid + it * kThreads;
+        const int r = idx / (kDepth / 4), q = idx % (kDepth / 4);
+        const int row = r0 + r, dc = d0 + 4 * q;
+        const int n = row < m_rows ? d - dc : 0;
+        CopyFour(xs + r * kLd + 4 * q,
+                 x + static_cast<size_t>(row < m_rows ? row : 0) * d +
+                     (n > 0 ? dc : 0), n, v16);
+        if (kVd) {
+          const int col = c0 + r;
+          const int nw = col < vocab ? d - dc : 0;
+          CopyFour(ws + r * kLd + 4 * q,
+                   w + static_cast<size_t>(col < vocab ? col : 0) * d +
+                       (nw > 0 ? dc : 0), nw, v16);
+        } else {
+          const int dd = idx / (kTile / 4), cq = idx % (kTile / 4);
+          const int col = c0 + 4 * cq, dr = d0 + dd;
+          const int nw = dr < d ? vocab - col : 0;
+          CopyFour(ws + dd * kLdT + 4 * cq,
+                   w + static_cast<size_t>(dr < d ? dr : 0) * vocab +
+                       (nw > 0 ? col : 0), nw, v16);
         }
       }
-      // bias and cap (`_BlockLogits`), then the statistics (`_BlockStats`)
-      bool valid[8];
-      int col[8];
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) issue(s);
+  for (int step = 0; step < nsteps; ++step) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();   // this stage landed; the one refilled below is free
+    issue(step + kStages - 1);
+    const float* xs = smem + (step % kStages) * kStageFloats + ty * kLd;
+    const float* ws = smem + (step % kStages) * kStageFloats + kTile * kLd;
+#pragma unroll
+    for (int k4 = 0; k4 < kDepth; k4 += 4) {
+      float4 a[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = Ld4(xs + 16 * i * kLd + k4);
+      if (kVd) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 b = Ld4(ws + (tx + 16 * j) * kLd + k4);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i][j] = Dot4(a[i], b, acc[i][j]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 b0 = Ld4(ws + (k4 + e) * kLdT + 4 * tx);
+          const float4 b1 = Ld4(ws + (k4 + e) * kLdT + 64 + 4 * tx);
+          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float ae = e == 0 ? a[i].x : e == 1 ? a[i].y
+                           : e == 2 ? a[i].z : a[i].w;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ae, b[j], acc[i][j]);
+          }
+        }
+      }
+    }
+    if (step % nks != nks - 1) continue;
+    // the tile's epilogue: bias and cap (`_BlockLogits`), then the row
+    // statistics of `_BlockStats` over the tile's columns
+    const int c0 = (t0 + step / nks) * kTile;
+    int col[8];
+    float bj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      col[j] = c0 + PatchCol<kVd>(tx, j);
+      bj[j] = col[j] < vocab ? bias[col[j]] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float v[8];
+      float m_cur = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        col[j] = c0 + tx + 16 * j;
-        valid[j] = col[j] < end;
-        const float bj = col[j] < vocab ? bias[col[j]] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float v = s[i][j] + bj;
-          if (soft_cap > 0.f) v = soft_cap * tanhf(v / soft_cap);
-          s[i][j] = v;
-        }
+        float s = acc[i][j] + bj[j];
+        if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
+        v[j] = col[j] < vocab ? s : kNegInf;
+        m_cur = fmaxf(m_cur, v[j]);
+        acc[i][j] = 0.f;
       }
+      m_cur = GroupMax(m_cur);
+      const int label = __shfl_sync(0xffffffffu, own_label,
+                                    (tid & 16) + i);
+      float psum = 0.f, lab = 0.f, tot = 0.f;
+      int idx = kBigIdx;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float sm[8];
-        float m_cur = kNegInf;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          sm[j] = valid[j] ? s[i][j] : kNegInf;
-          m_cur = fmaxf(m_cur, sm[j]);
-        }
-        m_cur = GroupMax(m_cur);
-        const float m_new = fmaxf(m[i], m_cur);
-        // all-masked-so-far rows: masked entries must give p = 0
-        const float m_safe = m_new <= kNegInf * 0.5f ? 0.f : m_new;
-        float psum = 0.f, lab = 0.f, tot = 0.f;
-        int idx = kBigIdx;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          psum += expf(sm[j] - m_safe);
-          if (valid[j] && col[j] == label[i]) lab += s[i][j];
-          if (valid[j]) tot += s[i][j];
-          if (sm[j] >= m_cur) idx = min(idx, col[j]);
-        }
-        psum = GroupSum(psum);
-        lab = GroupSum(lab);
-        if (need_sum) sumlog[i] += GroupSum(tot);
-        idx = GroupMin(idx);
-        const float alpha = expf(m[i] - m_new);
-        l[i] = alpha * l[i] + psum;
-        llog[i] += lab;
-        // first occurrence: strict > keeps the earlier sub-tile on ties
-        if (m_cur > m[i]) amax[i] = idx;
-        m[i] = m_new;
+      for (int j = 0; j < 8; ++j) {
+        const bool ok = col[j] < vocab;
+        psum += ok ? expf(v[j] - m_cur) : 0.f;
+        if (ok && col[j] == label) lab += v[j];
+        if (ok) tot += v[j];
+        if (ok && v[j] >= m_cur) idx = min(idx, col[j]);
+      }
+      psum = GroupSum(psum);
+      lab = GroupSum(lab);
+      if (need_sum) tot = GroupSum(tot);
+      idx = GroupMin(idx);
+      if (tx == i) {
+        const float m_new = fmaxf(st_m, m_cur);
+        st_l = st_l * expf(st_m - m_new) + psum * expf(m_cur - m_new);
+        st_llog += lab;
+        st_sum += tot;
+        // first occurrence: strict > keeps the earlier tile on ties
+        if (m_cur > st_m) st_amax = idx;
+        st_m = m_new;
       }
     }
   }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + ty * 4 + i;
-      if (row >= m_rows) continue;
-      lse_out[row] = m[i] + logf(fmaxf(l[i], 1e-37f));
-      llog_out[row] = llog[i];
-      sum_out[row] = sumlog[i];
-      amax_out[row] = amax[i];
-    }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  if (tx < 8 && own_row < m_rows) {
+    const size_t plane = static_cast<size_t>(splits) * m_rows;
+    float* p = part + static_cast<size_t>(split) * m_rows + own_row;
+    p[0] = st_m;
+    p[plane] = st_l;
+    p[2 * plane] = st_llog;
+    p[3 * plane] = need_sum ? st_sum : 0.f;
+    p[4 * plane] = __int_as_float(st_amax);
   }
+}
+
+// Merges the splits of each row in split order: the running max and the
+// rescaled denominator, the sums, and the argmax of the first split whose
+// max is strictly greater than every earlier split's.
+__global__ void FusedXentCombineKernel(const float* __restrict__ part,
+                                       int splits, int m_rows,
+                                       float* __restrict__ lse_out,
+                                       float* __restrict__ llog_out,
+                                       float* __restrict__ sum_out,
+                                       int* __restrict__ amax_out) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= m_rows) return;
+  const size_t plane = static_cast<size_t>(splits) * m_rows;
+  float m = kNegInf, l = 0.f, llog = 0.f, sum = 0.f;
+  int amax = 0;
+  for (int s = 0; s < splits; ++s) {
+    const float* p = part + static_cast<size_t>(s) * m_rows + row;
+    const float ms = p[0];
+    const float m_new = fmaxf(m, ms);
+    l = l * expf(m - m_new) + p[plane] * expf(ms - m_new);
+    llog += p[2 * plane];
+    sum += p[3 * plane];
+    if (ms > m) amax = __float_as_int(p[4 * plane]);
+    m = m_new;
+  }
+  lse_out[row] = m + logf(fmaxf(l, 1e-37f));
+  llog_out[row] = llog;
+  sum_out[row] = sum;
+  amax_out[row] = amax;
 }
 
 // ---- bfloat16: the tensor-core kernel -------------------------------------
@@ -431,21 +562,54 @@ extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
 // x [M, D]; w [V, D] (vd = 1) or [D, V] (vd = 0); bias [V]; labels [M]
-// int32 in [0, V); outputs lse/llog/sum float32 [M], amax int32 [M]. All
-// contiguous, on one device. sum is 0 unless need_sum.
+// int32 in [0, V); outputs lse/llog/sum float32 [M], amax int32 [M]; part
+// float32 [5, splits, M] scratch. All contiguous, on one device. sum is 0
+// unless need_sum. splits, tiles_per_split, tile and stages come from the
+// Python `StatsGeometry` (tile and stages must be this file's); vec: x and
+// w start on 16-byte boundaries and their rows are whole float4s. Two
+// kernels: the split statistics, then the combine.
 int FusedXentStatsF32(const float* x, const float* w, const float* bias,
                       const int* labels, float* lse, float* llog,
-                      float* sumlog, int* amax, int m_rows, int d, int vocab,
-                      int block_size, int vd, float soft_cap, int need_sum,
-                      void* stream) {
-  if (m_rows <= 0 || d <= 0 || vocab <= 0 || block_size <= 0)
+                      float* sumlog, int* amax, float* part, int m_rows,
+                      int d, int vocab, int vd, float soft_cap, int need_sum,
+                      int splits, int tiles_per_split, int tile, int stages,
+                      int vec, void* stream) {
+  const int col_tiles = (vocab + kTile - 1) / kTile;
+  if (m_rows <= 0 || d <= 0 || vocab <= 0 || tile != kTile ||
+      stages != kStages || splits <= 0 || tiles_per_split <= 0 ||
+      (splits - 1) * tiles_per_split >= col_tiles ||
+      splits * tiles_per_split < col_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>((m_rows + kRows - 1) / kRows);
-  FusedXentStatsKernel<<<blocks, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, labels, lse, llog, sumlog, amax, m_rows, d, vocab,
-      block_size, vd, soft_cap, need_sum);
+  auto kernel = vd ? FusedXentStatsKernel<true> : FusedXentStatsKernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m_rows + kTile - 1) / kTile, splits);
+  kernel<<<grid, kThreads, kSmemBytes, s>>>(x, w, bias, labels, part, m_rows,
+                                           d, vocab, tiles_per_split, vec,
+                                           soft_cap, need_sum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FusedXentCombineKernel<<<(m_rows + 255) / 256, 256, 0, s>>>(
+      part, splits, m_rows, lse, llog, sumlog, amax);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 kernel's launch geometry on the current device: geo[0]
+// threads, geo[1] shared bytes per block, geo[2] resident blocks per SM.
+int FusedXentF32Geometry(int* geo) {
+  cudaError_t err = cudaFuncSetAttribute(
+      FusedXentStatsKernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, FusedXentStatsKernel<true>, kThreads, kSmemBytes);
+  geo[0] = kThreads;
+  geo[1] = kSmemBytes;
+  geo[2] = per_sm;
+  return static_cast<int>(err);
 }
 
 // The bfloat16 kernel: x [M, D], w [V, D] and bias [V] bf16 (the [V, D]

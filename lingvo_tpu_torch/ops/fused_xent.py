@@ -13,7 +13,9 @@ the backward as (1 - (logit/cap)^2).
 
 The forward statistics have two implementations of one function:
 
-- the CUDA kernel `ops/csrc/fused_xent.cu`, for CUDA tensors;
+- the CUDA kernels `ops/csrc/fused_xent.cu`, for CUDA tensors (float32:
+  vocab splits of 128-column tiles, grid from `StatsGeometry`, merged in
+  order by a second kernel; bfloat16: tensor cores);
 - `_PlainStats`, the reference's `_XlaStats` loop over vocab blocks, in its
   op order (`_BlockLogits`, `_BlockStats`): the CPU path and the kernel's
   yardstick on the card.
@@ -39,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -150,6 +153,42 @@ def _PlainStats(x, w, b, labels, cfg: _Cfg):
 
 _lib = None   # the loaded kernel library, with its C signature declared
 
+# the float32 kernel's tile (rows and vocab columns a block computes at
+# once), D per cp.async stage and stages in its ring: csrc/fused_xent.cu's
+# kTile, kDepth and kStages (the launch refuses other values)
+STATS_TILE, STATS_DEPTH, STATS_STAGES = 128, 32, 2
+_MIN_TILES_PER_SPLIT = 4   # vocab tiles a split takes at least (if it can)
+
+
+@functools.lru_cache(maxsize=None)
+def StatsGeometry(rows: int, vocab: int, sms: int = 132, per_sm: int = 2):
+  """The float32 statistics kernel's grid: (row tiles, vocab splits), and
+  the vocab tiles of STATS_TILE columns each split owns, in order.
+
+  Split s owns tiles [s * tiles_per_split, (s + 1) * tiles_per_split) of
+  the ceil(vocab / STATS_TILE); every split owns at least one. Of the
+  split sizes of at least _MIN_TILES_PER_SPLIT tiles, the one whose grid
+  finishes in the fewest tile times on `sms` SMs holding `per_sm` blocks
+  each, when the grid fills them at least twice over (the smallest such
+  size on a tie: more, shorter blocks even out the last wave); a grid
+  that cannot fill them twice takes the smallest size."""
+  row_tiles = -(-rows // STATS_TILE)
+  col_tiles = -(-vocab // STATS_TILE)
+  slots = sms * per_sm
+  best = None
+  for tps in range(min(_MIN_TILES_PER_SPLIT, col_tiles), col_tiles + 1):
+    splits = -(-col_tiles // tps)
+    if (splits - 1) * tps >= col_tiles:
+      continue   # the last split would be empty
+    blocks = row_tiles * splits
+    key = (blocks < 2 * slots, -(-blocks // slots) * tps, tps)
+    if best is None or key < best[0]:
+      best = (key, tps, splits)
+  _, tps, splits = best
+  return dict(tile=STATS_TILE, depth=STATS_DEPTH, stages=STATS_STAGES,
+              row_tiles=row_tiles, col_tiles=col_tiles, splits=splits,
+              tiles_per_split=tps, grid=(row_tiles, splits))
+
 
 def _Lib():
   global _lib
@@ -157,8 +196,10 @@ def _Lib():
     lib = cuda_build.Load("fused_xent")
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.FusedXentStatsF32.argtypes = (
-        [vp] * 8 + [ci] * 5 + [ctypes.c_float, ci, vp])
+        [vp] * 9 + [ci] * 4 + [ctypes.c_float] + [ci] * 6 + [vp])
     lib.FusedXentStatsF32.restype = ci
+    lib.FusedXentF32Geometry.argtypes = [vp]
+    lib.FusedXentF32Geometry.restype = ci
     lib.FusedXentStatsBF16.argtypes = (
         [vp] * 8 + [ci] * 3 + [ctypes.c_float, ci, vp])
     lib.FusedXentStatsBF16.restype = ci
@@ -166,6 +207,18 @@ def _Lib():
     lib.FusedXentErrorString.restype = ctypes.c_char_p
     _lib = lib
   return _lib
+
+
+def KernelGeometry():
+  """(threads, shared bytes per block, resident blocks per SM) of the
+  float32 statistics kernel on the current device."""
+  lib = _Lib()
+  geo = (ctypes.c_int * 3)()
+  rc = lib.FusedXentF32Geometry(geo)
+  if rc != 0:
+    raise RuntimeError("FusedXentF32Geometry failed: "
+                       + lib.FusedXentErrorString(rc).decode())
+  return tuple(geo)
 
 
 def _CheckStatsArgs(x, w, b, labels, cfg: _Cfg):
@@ -219,15 +272,23 @@ def FusedXentStats(x, w, b, labels, cfg: _Cfg):
     ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             lse.data_ptr(), llog.data_ptr(), sumlog.data_ptr(),
             amax.data_ptr())
+    # the statistics do not depend on the vocab blocks (no rounding
+    # inside), so both kernels walk the vocabulary in their own tiles
     if bf16:
-      # the statistics do not depend on the vocab blocks (no rounding
-      # inside), so the bf16 kernel walks the vocabulary in its own tiles
       rc = lib.FusedXentStatsBF16(*ptrs, rows, d, cfg.vocab, cfg.soft_cap,
                                   int(need_sum), stream)
     else:
-      rc = lib.FusedXentStatsF32(*ptrs, rows, d, cfg.vocab, cfg.block_size,
+      # vocab splits merged in order by a second kernel: one counted launch
+      props = torch.cuda.get_device_properties(x.device)
+      geo = StatsGeometry(rows, cfg.vocab, props.multi_processor_count)
+      part = torch.empty((5, geo["splits"], rows), dtype=torch.float32,
+                         device=x.device)
+      vec = (d % 4 == 0 and (cfg.vd or cfg.vocab % 4 == 0)
+             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+      rc = lib.FusedXentStatsF32(*ptrs, part.data_ptr(), rows, d, cfg.vocab,
                                  int(cfg.vd), cfg.soft_cap, int(need_sum),
-                                 stream)
+                                 geo["splits"], geo["tiles_per_split"],
+                                 geo["tile"], geo["stages"], int(vec), stream)
     if rc != 0:
       raise RuntimeError("FusedXent kernel launch failed: "
                          + lib.FusedXentErrorString(rc).decode())

@@ -16,9 +16,10 @@ live pages are unspecified and must never influence the output.
 
 Two implementations of one function:
 
-- the CUDA kernel `ops/csrc/ragged_block_attend.cu` (one thread block per
-  (token, head), walking only the token's live pages), launched for CUDA
-  tensors;
+- the CUDA kernel `ops/csrc/ragged_block_attend.cu` (tiles of up to 16
+  tokens of one row, each tile's live pages read once per head and split
+  across blocks for long rows; `TileSchedule` states its schedule),
+  launched for CUDA tensors;
 - `_PlainRaggedAttend`, a loop over pages with the reference twin's
   per-page op order (`_XlaRaggedAttend` and `flash_decode._PageAttend`),
   used for CPU tensors and as the kernel's yardstick on the card.
@@ -38,7 +39,9 @@ bfloat16 before P.V, as the reference's `p.astype(v_page.dtype)` does.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from lingvo_tpu_torch.ops import cuda_build
@@ -46,6 +49,7 @@ from lingvo_tpu_torch.quant import kv as kv_quant
 
 NEG_INF = -1.0e30   # the reference's flash_attention.NEG_INF
 MIN_PAGE_SIZE, MAX_PAGE_SIZE, MAX_HEAD_DIM = 8, 128, 256  # kernel limits
+MAX_TOKENS = 1 << 16
 
 
 # -- plain PyTorch version (the CPU path) -----------------------------------
@@ -187,6 +191,52 @@ def NewLaunchCounts() -> dict:
 # -- the CUDA kernel ---------------------------------------------------------
 
 
+# The kernel's tile schedule (csrc/ragged_block_attend.cu): tiles of at
+# most TILE_TOKENS consecutive live tokens of one row, each tile's live
+# pages cut into ceil(live slots / SPLIT_SLOTS) page ranges, at most
+# MAX_SPLITS and at most one per page; bfloat16 pools are never split.
+TILE_TOKENS, SPLIT_SLOTS, MAX_SPLITS = 16, 64, 8
+ITEM_FIELDS = ("tok0", "len", "row", "page_begin", "page_end", "split",
+               "nsplit", "tile")
+
+
+def TileSchedule(row_of, q_end, page_size: int, t_pages: int, num_rows: int,
+                 split: bool = True):
+  """The kernel's work items, int32 [items, 8] with the columns of
+  ITEM_FIELDS, as its schedule kernel builds them on the card from row_of
+  and q_end ([T] ints, numpy or CPU tensors).
+
+  A tile starts at every live token (q_end > 0) whose index is a multiple
+  of TILE_TOKENS, whose predecessor is padding, or whose row_of differs
+  from its predecessor's, and holds the live tokens of its row up to the
+  next such start: it never crosses a row_of change, and padding tokens
+  belong to none. Its pages are ceil(max q_end / page_size) (at most
+  t_pages); split s of nsplit owns pages [s pages // nsplit, (s + 1) pages
+  // nsplit). Items are in token order, splits in order."""
+  row_of = np.asarray(row_of, np.int64)
+  q_end = np.asarray(q_end, np.int64)
+  t = len(q_end)
+  items = []
+  tile = 0
+  for i in range(t):
+    if q_end[i] <= 0 or not (i % TILE_TOKENS == 0 or q_end[i - 1] <= 0
+                             or row_of[i] != row_of[i - 1]):
+      continue
+    n = 1
+    while (i + n < t and (i + n) % TILE_TOKENS and q_end[i + n] > 0
+           and row_of[i + n] == row_of[i]):
+      n += 1
+    pages = min(-(-int(q_end[i:i + n].max()) // page_size), t_pages)
+    want = -(-pages * page_size // SPLIT_SLOTS)
+    nsplit = max(1, min(want, MAX_SPLITS, pages)) if split else 1
+    row = min(max(int(row_of[i]), 0), num_rows - 1)
+    for s_ in range(nsplit):
+      items.append((i, n, row, s_ * pages // nsplit,
+                    (s_ + 1) * pages // nsplit, s_, nsplit, tile))
+    tile += 1
+  return np.asarray(items, np.int32).reshape(-1, len(ITEM_FIELDS))
+
+
 _lib = None   # the loaded kernel library, with its C signatures declared
 
 
@@ -195,12 +245,78 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("ragged_block_attend")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.RaggedAttend.argtypes = [vp] * 12 + [ci] * 8 + [vp]
+    lib.RaggedAttend.argtypes = [vp] * 15 + [ci] * 12 + [vp]
     lib.RaggedAttend.restype = ci
+    lib.RaggedSchedule.argtypes = [vp] * 2 + [ci] * 9 + [vp] * 2 + [ci, vp]
+    lib.RaggedSchedule.restype = ci
+    lib.RaggedAttendGeometry.argtypes = [ci] * 4 + [vp]
+    lib.RaggedAttendGeometry.restype = ci
     lib.RaggedAttendErrorString.argtypes = [ci]
     lib.RaggedAttendErrorString.restype = ctypes.c_char_p
     _lib = lib
   return _lib
+
+
+def _Raise(lib, what, rc):
+  if rc != 0:
+    raise RuntimeError(f"{what} failed: "
+                       + lib.RaggedAttendErrorString(rc).decode())
+
+
+def KernelGeometry(head_dim: int, page_size: int, t_pages: int,
+                   kv_dtype: str = "float32"):
+  """(threads, shared bytes per block, resident blocks per SM, blocks of
+  a launch) of the attention kernel at these shapes on the current
+  device."""
+  lib = _Lib()
+  geo = (ctypes.c_int * 4)()
+  code = KV_DTYPES[getattr(torch, kv_dtype)]
+  _Raise(lib, "RaggedAttendGeometry", lib.RaggedAttendGeometry(
+      head_dim, page_size, t_pages, code, geo))
+  return tuple(geo)
+
+
+@functools.lru_cache(maxsize=None)
+def _GridBlocks(device_index: int, head_dim: int, page_size: int,
+                t_pages: int, kv_dtype: str) -> int:
+  """The persistent grid of a launch at these shapes on that card (asked
+  once: the occupancy query costs host time on every serving step)."""
+  with torch.cuda.device(device_index):
+    return KernelGeometry(head_dim, page_size, t_pages, kv_dtype)[3]
+
+
+def _Scratch(t, n, h, bf16, device):
+  """The kernel's scratch in one allocation: (the buffer, and the
+  addresses of the schedule's workspace, int32 [2 + 8 t MAX_SPLITS], the
+  split counters, int32 [t n], and, unless bf16 (no splits), the splits'
+  partial (acc, m, l), float32 [t MAX_SPLITS n (h + 4)]), each on a
+  16-byte boundary."""
+  ws_n = -(-(2 + len(ITEM_FIELDS) * t * MAX_SPLITS) // 4) * 4
+  counters_n = -(-(t * n) // 4) * 4
+  part_n = 0 if bf16 else t * MAX_SPLITS * n * (h + 4)
+  buf = torch.empty((ws_n + counters_n + part_n,), dtype=torch.int32,
+                    device=device)
+  base = buf.data_ptr()
+  return (buf, base, base + 4 * ws_n,
+          None if bf16 else base + 4 * (ws_n + counters_n))
+
+
+def DeviceSchedule(row_of, q_end, page_size: int, t_pages: int,
+                   num_rows: int, num_heads: int, split: bool = True):
+  """The work items of the card's schedule kernel for CUDA row_of and
+  q_end, as numpy [items, 8] (the columns of ITEM_FIELDS): what
+  `TileSchedule` computes on the host. Runs the schedule kernel alone,
+  outside the launch count."""
+  t = row_of.shape[0]
+  buf, ws, counters, _ = _Scratch(t, num_heads, 4, True, row_of.device)
+  lib = _Lib()
+  stream = torch.cuda.current_stream(row_of.device).cuda_stream
+  _Raise(lib, "RaggedSchedule", lib.RaggedSchedule(
+      row_of.data_ptr(), q_end.data_ptr(), t, num_rows, t_pages, page_size,
+      TILE_TOKENS, SPLIT_SLOTS, MAX_SPLITS, int(split), num_heads, ws,
+      counters, t * MAX_SPLITS, stream))
+  ws = buf.cpu().numpy()
+  return ws[2:2 + len(ITEM_FIELDS) * ws[0]].reshape(-1, len(ITEM_FIELDS))
 
 
 def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
@@ -217,8 +333,11 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
   if p != page_size or not MIN_PAGE_SIZE <= p <= MAX_PAGE_SIZE:
     raise ValueError(f"page_size {page_size} (pool pages of {p}) outside the "
                      f"kernel's [{MIN_PAGE_SIZE}, {MAX_PAGE_SIZE}]")
-  if h > MAX_HEAD_DIM:
-    raise ValueError(f"head dim {h} above the kernel's {MAX_HEAD_DIM}")
+  if h > MAX_HEAD_DIM or h % 4:
+    raise ValueError(f"head dim {h}: the kernel takes a multiple of 4 up to "
+                     f"{MAX_HEAD_DIM}")
+  if t > MAX_TOKENS:
+    raise ValueError(f"{t} packed tokens above the kernel's {MAX_TOKENS}")
   ints = [block_tables, row_of, q_end, q_start, anc_lo, anc_hi]
   for name, x in zip(("block_tables", "row_of", "q_end", "q_start",
                       "anc_lo", "anc_hi"), ints):
@@ -235,6 +354,8 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
   if t == 0:
     return out
   lib = _Lib()
+  _, ws, counters, part = _Scratch(t, n, h, kv_dtype == "bfloat16", q.device)
+  blocks = _GridBlocks(q.device.index, h, p, t_pages, kv_dtype)
   stream = torch.cuda.current_stream(q.device).cuda_stream
   rc = lib.RaggedAttend(
       q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -242,11 +363,10 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
       None if v_scale is None else v_scale.data_ptr(),
       block_tables.data_ptr(), row_of.data_ptr(), q_end.data_ptr(),
       q_start.data_ptr(), anc_lo.data_ptr(), anc_hi.data_ptr(),
-      out.data_ptr(), t, n, h, np_total, p, b, t_pages,
-      KV_DTYPES[k_pool.dtype], stream)
-  if rc != 0:
-    raise RuntimeError("RaggedAttend kernel launch failed: "
-                       + lib.RaggedAttendErrorString(rc).decode())
+      out.data_ptr(), ws, counters, part, t, n, h, np_total, p, b,
+      t_pages, TILE_TOKENS, SPLIT_SLOTS, MAX_SPLITS,
+      KV_DTYPES[k_pool.dtype], blocks, stream)
+  _Raise(lib, "RaggedAttend kernel launch", rc)
   RaggedAttend.launches += 1
   RaggedAttend.launches_by_dtype[kv_dtype] += 1
   return out

@@ -242,3 +242,67 @@ def test_bf16_kernel_matches_plain_on_card(cuda, cap, ls):
     rows = torch.arange(len(differ), device="cuda")
     gap = (s[rows, got[3][differ].long()] - s[rows, want[3][differ].long()])
     assert float(gap.abs().max()) <= 1e-5
+
+
+# -- the float32 kernel's grid (runs here) -------------------------------------
+
+
+@pytest.mark.parametrize("rows, vocab", [
+    (8192, 32000), (8192 + 37, 32000), (200, 1000), (300, 1003), (16, 50),
+    (1, 1), (5000, 129), (8192, 128 * 250 + 1)])
+def test_stats_geometry_covers_every_row_and_column_once(rows, vocab):
+  """The grid of `StatsGeometry`: row tiles cover every row once; the
+  splits, in order, own consecutive runs of 128-column vocab tiles that
+  cover every column once, none empty; the main path's shapes give at
+  least two waves of 2 blocks on each of 132 SMs."""
+  geo = fx.StatsGeometry(rows, vocab)
+  tile, splits, tps = geo["tile"], geo["splits"], geo["tiles_per_split"]
+  assert geo["grid"] == (geo["row_tiles"], splits)
+  row_hits = np.zeros(rows, int)
+  for rt in range(geo["row_tiles"]):
+    row_hits[rt * tile:(rt + 1) * tile] += 1
+  assert (row_hits == 1).all()
+  col_hits = np.zeros(vocab, int)
+  last_end = 0
+  for s in range(splits):   # the kernel's split s: tiles [s tps, ...)
+    t0 = s * tps
+    t1 = min(t0 + tps, geo["col_tiles"])
+    assert t1 > t0, f"split {s} owns no tile"
+    assert t0 * tile == last_end, "splits out of order or with a gap"
+    last_end = min(t1 * tile, vocab)
+    col_hits[t0 * tile:t1 * tile] += 1
+  assert last_end == vocab
+  assert (col_hits == 1).all()
+  if rows >= 8192:
+    assert geo["row_tiles"] * splits >= 2 * 132 * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["vd", "dv"])
+@pytest.mark.parametrize("d, vocab", [(96, 1000), (98, 1003), (100, 130)])
+def test_kernel_edges_on_card(cuda, layout, d, vocab):
+  """The float32 kernel at edges the main path does not reach: a partial
+  row tile (300 rows), D not a whole stage (96, 100) or not whole float4s
+  (98: 4-byte copies), V not whole float4s (1003: the [D, V] layout's
+  4-byte copies) and a last vocab tile of 2 columns (130); cap and label
+  smoothing on. lse, label logit within 1e-4 and the logit sum within
+  1e-3 of `_PlainStats`, the argmax equal, two calls bitwise equal."""
+  rng = np.random.RandomState(9)
+  m = 300
+  x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda()
+  w = (rng.randn(vocab, d) / np.sqrt(d)).astype(np.float32)
+  w = torch.as_tensor(w if layout == "vd" else np.ascontiguousarray(w.T))
+  w = w.cuda()
+  b = torch.as_tensor(rng.randn(vocab).astype(np.float32)).cuda()
+  labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
+  cfg = fx._Cfg(block_size=384, vocab=vocab, vd=layout == "vd",
+                soft_cap=5.0, label_smoothing=0.1)
+  got = fx.FusedXentStats(x, w, b, labels, cfg)
+  again = fx.FusedXentStats(x, w, b, labels, cfg)
+  want = fx._PlainStats(x, w, b, labels, cfg)
+  torch.cuda.synchronize()
+  for a, e, tol in zip(got[:3], want[:3], (1e-4, 1e-4, 1e-3)):
+    assert float((a - e).abs().max()) <= tol
+  assert torch.equal(got[3], want[3])
+  for a, e in zip(got, again):
+    assert torch.equal(a, e)

@@ -360,3 +360,165 @@ class TestCudaKernel:
       flt = rba.RaggedAttend(*args(c(kf), c(vf)), page_size=16, **tree)
       torch.cuda.synchronize()
       assert torch.equal(out, flt)
+
+
+# -- the kernel's tile schedule (runs here) ------------------------------------
+
+
+def _SchedulePack(case, page=16):
+  """(row_of, q_end, t_pages, num_rows) of a schedule case."""
+  if case in ("main", "tree_in_tile"):
+    # phase 3's pack of chip_smoke.py: decode rows, two prefill chunks
+    # that straddle tile edges, a tree row, padding
+    lens, q_pos = [1, 1, 1, 1, 1, 128, 120, 7], [999, 516, 63, 32, 299, 256,
+                                                0, 700]
+    if case == "tree_in_tile":   # the tree row lands inside one tile
+      lens, q_pos = [3, 7, 20], [40, 600, 90]
+    parents = np.array([-1, 0, 1, -1, 3, 4], np.int32)
+    tree_row = 7 if case == "main" else 1
+    rows = ragged.BuildRaggedRows(lens, q_pos, 264, 256,
+                                  {tree_row: parents})
+    q_end = np.where(rows.valid, rows.pos + 1, 0).astype(np.int32)
+    return rows.row_of, q_end, 1024 // page, len(lens)
+  if case == "decode_only":    # 8 live tokens, 256 padding
+    rows = ragged.BuildRaggedRows([1] * 8, [700, 999, 512, 800, 333, 901,
+                                            640, 777], 264, 256)
+    q_end = np.where(rows.valid, rows.pos + 1, 0).astype(np.int32)
+    return rows.row_of, q_end, 1024 // page, 8
+  if case == "scattered":      # a row's tokens not contiguous: A B A
+    row_of = np.array([0, 0, 1, 0, 0, 2, 2, 0], np.int32)
+    q_end = np.array([5, 6, 40, 7, 8, 300, 301, 0], np.int32)
+    return row_of, q_end, 32, 3
+  if case == "long_prefill":   # 70 tokens of one row over 4 tile edges
+    row_of = np.full(80, 1, np.int32)
+    q_end = np.concatenate([np.arange(200, 270), np.zeros(10)]).astype(
+        np.int32)
+    return row_of, q_end, 64, 2
+  raise ValueError(case)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("case", ["main", "tree_in_tile", "decode_only",
+                                  "scattered", "long_prefill"])
+def test_tile_schedule_covers_each_live_token_once(case, split):
+  """`TileSchedule` (the kernel's schedule rule): every live token in
+  exactly one tile, padding tokens in none; a tile holds at most 16
+  consecutive tokens of one row_of and never crosses a row_of change or a
+  tile-size boundary; a tile's splits run in order and cover its live
+  pages, ceil(max q_end / P), exactly once; bfloat16 schedules
+  (split=False) never split."""
+  row_of, q_end, t_pages, num_rows = _SchedulePack(case)
+  items = rba.TileSchedule(row_of, q_end, 16, t_pages, num_rows,
+                           split=split)
+  f = {name: i for i, name in enumerate(rba.ITEM_FIELDS)}
+  hits = np.zeros(len(q_end), int)
+  tiles = {}
+  for it in items:
+    tiles.setdefault(int(it[f["tile"]]), []).append(it)
+  assert sorted(tiles) == list(range(len(tiles)))
+  for tile, its in tiles.items():
+    tok0, n = int(its[0][f["tok0"]]), int(its[0][f["len"]])
+    assert 1 <= n <= rba.TILE_TOKENS
+    assert tok0 // rba.TILE_TOKENS == (tok0 + n - 1) // rba.TILE_TOKENS
+    toks = np.arange(tok0, tok0 + n)
+    assert (row_of[toks] == row_of[tok0]).all()
+    assert (q_end[toks] > 0).all()
+    hits[toks] += 1
+    pages = min(-(-int(q_end[toks].max()) // 16), t_pages)
+    nsplit = int(its[0][f["nsplit"]])
+    assert len(its) == nsplit <= rba.MAX_SPLITS
+    assert split or nsplit == 1
+    edge = 0
+    for s, it in enumerate(its):
+      assert (int(it[f["tok0"]]), int(it[f["len"]])) == (tok0, n)
+      assert int(it[f["split"]]) == s
+      assert int(it[f["row"]]) == row_of[tok0]
+      assert int(it[f["page_begin"]]) == edge
+      edge = int(it[f["page_end"]])
+      assert edge > int(it[f["page_begin"]])
+    assert edge == pages
+  assert (hits == (q_end > 0)).all()
+  # a tile ends where row_of changes: the next live token starts a tile
+  starts = {int(its[0][f["tok0"]]) for its in tiles.values()}
+  for i in range(1, len(q_end)):
+    if q_end[i] > 0 and (row_of[i] != row_of[i - 1] or q_end[i - 1] <= 0):
+      assert i in starts
+
+
+def _EdgePack(case, rng, n=2, h=16, page=16):
+  """(q, row_of, q_end, q_start, anc_lo, anc_hi, tables, k_pool, v_pool)
+  of a kernel edge case: `_SchedulePack`'s packs over random pools."""
+  row_of, q_end, t_pages, num_rows = _SchedulePack(case, page)
+  t = len(row_of)
+  if case in ("main", "tree_in_tile", "decode_only"):
+    lens = {"main": [1, 1, 1, 1, 1, 128, 120, 7],
+            "tree_in_tile": [3, 7, 20], "decode_only": [1] * 8}[case]
+    tree = {"main": 7, "tree_in_tile": 1}.get(case)
+    parents = np.array([-1, 0, 1, -1, 3, 4], np.int32)
+    q_pos = {"main": [999, 516, 63, 32, 299, 256, 0, 700],
+             "tree_in_tile": [40, 600, 90],
+             "decode_only": [700, 999, 512, 800, 333, 901, 640, 777]}[case]
+    rows = ragged.BuildRaggedRows(lens, q_pos, t, 256,
+                                  {tree: parents} if tree is not None else
+                                  None)
+    q_start = rows.row_q_pos[rows.row_of].astype(np.int32)
+    lo, hi = rows.anc_lo, rows.anc_hi
+  else:
+    q_start = np.zeros(t, np.int32)
+    lo = hi = np.full(t, -1, np.int32)
+  num_pages = num_rows * t_pages + 1
+  tables = rng.permutation(num_pages - 1)[:num_rows * t_pages].reshape(
+      num_rows, t_pages).astype(np.int32)
+  k_pool = rng.randn(num_pages, page, n, h).astype(np.float32)
+  v_pool = rng.randn(num_pages, page, n, h).astype(np.float32)
+  q = (rng.randn(t, n, h) / 4).astype(np.float32)
+  return q, row_of, q_end, q_start, lo, hi, tables, k_pool, v_pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("case", ["main", "tree_in_tile", "decode_only",
+                                  "scattered", "long_prefill"])
+def test_kernel_edges_on_card(case, dtype):
+  """The kernel on the schedule cases (a decode-only pack of 8 live
+  tokens and 256 padding, prefill chunks that straddle tile edges, a tree
+  row inside a tile, a row whose tokens are not contiguous): the card's
+  schedule equals `TileSchedule`; within 1e-5 of the plain version
+  (bfloat16 on dyadic q and K); padding exactly zero; int8 bitwise the
+  float32 kernel on the dequantized pool; two calls bitwise equal."""
+  if not torch.cuda.is_available():
+    pytest.skip("no CUDA device here: the CUDA kernel is unverified on "
+                "this machine (chip_smoke.py checks it on the H100)")
+  q, row_of, q_end, q_start, lo, hi, tables, k_pool, v_pool = _EdgePack(
+      case, np.random.RandomState(3))
+  c = lambda a: torch.as_tensor(a).cuda()
+  split = dtype != "bfloat16"
+  got_items = rba.DeviceSchedule(c(row_of), c(q_end), 16, tables.shape[1],
+                                 tables.shape[0], 2, split=split)
+  np.testing.assert_array_equal(
+      got_items, rba.TileSchedule(row_of, q_end, 16, tables.shape[1],
+                                  tables.shape[0], split=split))
+  sc = {}
+  if dtype == "bfloat16":
+    q, k_pool = _Dyadic(q, 1 / 32), _Dyadic(k_pool, 1 / 8)
+    k, v = c(k_pool).bfloat16(), c(v_pool).bfloat16()
+  elif dtype == "int8":
+    (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+    k, v = c(k8), c(v8)
+    sc = dict(k_scale=c(ks), v_scale=c(vs))
+  else:
+    k, v = c(k_pool), c(v_pool)
+  args = (c(q), k, v, c(tables), c(row_of), c(q_end))
+  tree = dict(q_start=c(q_start), anc_lo=c(lo), anc_hi=c(hi))
+  out = rba.RaggedAttend(*args, page_size=16, **sc, **tree)
+  again = rba.RaggedAttend(*args, page_size=16, **sc, **tree)
+  want = rba._PlainRaggedAttend(*args, 16, **tree, **sc)
+  torch.cuda.synchronize()
+  assert torch.equal(out, again)
+  assert bool((out[c(q_end <= 0)] == 0).all())
+  assert float((out - want).abs().max()) <= 1e-5
+  if dtype == "int8":
+    deq = [c(_Dequantize(k8, ks)), c(_Dequantize(v8, vs))]
+    flt = rba.RaggedAttend(args[0], *deq, *args[3:], page_size=16, **tree)
+    torch.cuda.synchronize()
+    assert torch.equal(out, flt)

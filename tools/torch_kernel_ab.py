@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the flash kernels of two checkouts of the port on one card.
+"""Times the redesigned kernels of two checkouts of the port on one card.
 
 Parent and change are interleaved, and the kernels not being compared
 must give the same bits in both.
@@ -10,23 +10,28 @@ Each tree's `lingvo_tpu_torch` is imported in a child process of its own
 (both packages have one name), in the order A, B, B, A, so that a drift
 of the card over the run shows as a difference between the two runs of
 one tree. The inputs and the timer are this checkout's `chip_smoke.py`
-(`_FlashInputs`, `_CheckFlashDecode`'s cache, paddings and NaN poison,
-`_TimeMs`). Every child times:
+(`_AttendPack`, `_KvStorage`, `_DecodePool`, `_ScanInputs`,
+`_FlashInputs`, `_TimeMs`, `_ServeMain`). Every child times:
 
-- the float32 dK/dV and dQ kernels at phase 7's shapes
-  ([8, 1024, 16, 128], causal, two segments of 512), and SDPA's float32
-  backward (dq, dk and dv at once) on the same inputs in every child;
-- the bf16 forward at phase 18's shapes (dyadic q, k, v) and the
-  bf16 flash decode at phase 15's ([8, 1152, 16, 128], page 128, t = 1151
-  and 700; at t = 1151 also without paddings and at 4 to 7 splits), with
-  SDPA on the same bf16 inputs.
+- the float32 fused-xent statistics kernel at phase 8's shapes ([8192,
+  2048] x [32000, 2048], block 1280, cap 30) and its plain version, the
+  cuBLAS block loop `_PlainStats`, on the same inputs;
+- the ragged paged-attention kernel on float32, int8 and bfloat16 pools
+  at phase 3's pack (page 16, H = 128, dyadic q and K) and at the
+  decode-only pack (8 live tokens, 256 padding), and the host's enqueue
+  of one float32 call (`_EnqueueUs`);
+- DenseLm1B serving through `ServingLoop` (phase 5): ms per step, and
+  the cudaStreamSynchronize calls per step in the profiled windows.
 
-Every child also digests (sha256 of the bytes) the outputs of every
-flash kernel at those shapes: the float32 forward (out, lse), the bf16
-forward, dK/dV and dQ, and the float32 and bf16 flash decode at t = 1151
-and 700, which must be equal in all four runs; the float32 dK/dV and dQ,
-which a change may redesign, are reported apart. Prints one JSON line
-per child and a summary; needs one CUDA card and imports no JAX.
+Every child also digests (sha256 of the bytes) the outputs of the
+kernels that were not redesigned, which must be equal in all four runs:
+the flash-attention forward, dK/dV and dQ (float32 and bf16, phase 7 /
+18's shapes), flash decode (float32 and bf16 at t = 1151 and 700), block
+decode (float32, int8 and bf16 at phase 10's pool), the scan (phase 4's
+serving shape) and the bf16 fused xent; the redesigned kernels' outputs
+(float32 xent, the ragged kernel) and the served streams are reported
+apart. Prints one JSON line per child and a summary; needs one CUDA card
+and imports no JAX.
 """
 
 import argparse
@@ -40,7 +45,8 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REDESIGNED = ("f32_dk", "f32_dv", "f32_dq")   # digests reported apart
+# digests reported apart: the redesigned kernels, and the served streams
+REDESIGNED = ("xent_f32", "ragged", "streams")
 
 
 def _ChipSmoke():
@@ -51,52 +57,25 @@ def _ChipSmoke():
   return mod
 
 
-def _Flash(torch, fa, cs, res, outs):
+def _Flash(torch, fa, cs, outs):
   """The flash kernels at phase 7 / 18's shapes: float32 forward and
   backward, then bf16 forward and backward on dyadic inputs."""
-  sdpa = torch.nn.functional.scaled_dot_product_attention
-  x, keep, _ = cs._FlashInputs(torch, np.random.RandomState(5))
+  x, _, _ = cs._FlashInputs(torch, np.random.RandomState(5))
   q, k, v, do, seg = x["q"], x["k"], x["v"], x["do"], x["seg"]
-  out, lse = fa.FlashForward(q, k, v, seg, True)
-  delta = fa.RowDelta(do, out)
-  outs["f32_fwd_out"], outs["f32_fwd_lse"] = out, lse
-  outs["f32_dk"], outs["f32_dv"] = fa.FlashDkDv(q, k, v, seg, do, lse,
-                                                delta, True)
-  outs["f32_dq"] = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
-  qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-  res["dkdv_f32_ms"] = cs._TimeMs(
-      torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta, True), 20)
-  res["dq_f32_ms"] = cs._TimeMs(
-      torch, lambda: fa.FlashDq(q, k, v, seg, do, lse, delta, True), 20)
-  leaves = [a.detach().requires_grad_(True) for a in (qt, kt, vt)]
-  with torch.enable_grad():
-    ref = sdpa(*leaves, attn_mask=keep[:, None])
-  dot = do.transpose(1, 2)
-  res["bwd_sdpa_f32_ms"] = cs._TimeMs(
-      torch, lambda: torch.autograd.grad(ref, leaves, dot,
-                                         retain_graph=True), 20,
-      waits_as="SDPA float32 backward")
-  del leaves, ref, dot
-  q, k, v, do = (cs._Dyadic(a.cpu().numpy(), 1 / 8) for a in (q, k, v, do))
-  q, k, v, do = (torch.as_tensor(a).cuda().bfloat16() for a in (q, k, v, do))
-  del x, out, lse, delta, qt, kt, vt
-  out, lse = fa.FlashForward(q, k, v, seg, True)
-  delta = fa.RowDelta(do, out)
-  outs["bf16_fwd_out"], outs["bf16_fwd_lse"] = out, lse
-  outs["bf16_dk"], outs["bf16_dv"] = fa.FlashDkDv(q, k, v, seg, do, lse,
-                                                  delta, True)
-  outs["bf16_dq"] = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
-  res["fwd_bf16_ms"] = cs._TimeMs(
-      torch, lambda: fa.FlashForward(q, k, v, seg, True), 20)
-  qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-  res["fwd_sdpa_ms"] = cs._TimeMs(
-      torch, lambda: sdpa(qt, kt, vt, attn_mask=keep[:, None]), 20,
-      waits_as="SDPA bf16 forward")
+  for dtype in ("f32", "bf16"):
+    if dtype == "bf16":
+      q, k, v, do = (torch.as_tensor(cs._Dyadic(a.cpu().numpy(), 1 / 8))
+                     .cuda().bfloat16() for a in (q, k, v, do))
+    out, lse = fa.FlashForward(q, k, v, seg, True)
+    delta = fa.RowDelta(do, out)
+    outs[f"{dtype}_fwd_out"], outs[f"{dtype}_fwd_lse"] = out, lse
+    outs[f"{dtype}_dk"], outs[f"{dtype}_dv"] = fa.FlashDkDv(
+        q, k, v, seg, do, lse, delta, True)
+    outs[f"{dtype}_dq"] = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
 
 
-def _Decode(torch, fd, cs, spi, res, outs):
+def _Decode(torch, fd, cs, spi, outs):
   """Flash decode at phase 11 / 15's shapes, on float32 and bf16 caches."""
-  sdpa = torch.nn.functional.scaled_dot_product_attention
   b, s, n, h, page, p_len = 8, 1152, 16, 128, 128, 1024
   prompt_lens, _ = cs._Requests(spi.DenseLm1B())
   rng = np.random.RandomState(11)
@@ -116,26 +95,93 @@ def _Decode(torch, fd, cs, spi, res, outs):
         torch.as_tensor(qd).cuda(), kt32, vt32, t, page_size=page,
         cache_paddings=padc)
     kc = torch.as_tensor(np.where(dead, np.nan, k16)).cuda().bfloat16()
-    vc = vt32.bfloat16()
-    qc = torch.as_tensor(q16).cuda()
-    call = lambda: fd.FlashDecode(qc, kc, vc, t, page_size=page,
-                                  cache_paddings=padc)
-    outs[f"bf16_decode_{t}"] = call()
-    res[f"decode_bf16_{t}_ms"] = cs._TimeMs(torch, call, 50)
-    if t == 1151:   # the same call without paddings, and at 4 to 7 splits
-      res["decode_bf16_1151_nopad_ms"] = cs._TimeMs(
-          torch, lambda: fd.FlashDecode(qc, kc, vc, t, page_size=page), 50)
-      rule = fd.NumSplits
-      for forced in (4, 5, 6, 7):
-        fd.NumSplits = lambda *a: forced
-        res[f"decode_bf16_1151_splits{forced}_ms"] = cs._TimeMs(
-            torch, call, 50)
-      fd.NumSplits = rule
-    live = torch.as_tensor((slot[None] <= t) & (pad < 0.5)).cuda()
-    qs, ks, vs = (a.transpose(1, 2) for a in (qc.bfloat16(), kc, vc))
-    res[f"decode_sdpa_{t}_ms"] = cs._TimeMs(
-        torch, lambda: sdpa(qs, ks, vs, attn_mask=live[:, None, None, :],
-                            scale=1.0), 50, waits_as="SDPA decode")
+    outs[f"bf16_decode_{t}"] = fd.FlashDecode(
+        torch.as_tensor(q16).cuda(), kc, vt32.bfloat16(), t, page_size=page,
+        cache_paddings=padc)
+
+
+def _BlockDecodeAndScan(torch, bd, ssd, cs, outs):
+  """Block decode at phase 10's page-16 pool in its three dtypes, and the
+  scan at phase 4's serving shape."""
+  x, _, _, extra = cs._DecodePool(torch, 16, np.random.RandomState(10),
+                                  dyadic=True)
+  rest = (x["tables"], x["lens"])
+  outs["block_decode_f32"] = bd.BlockDecode(x["q"], x["k_pool"], x["v_pool"],
+                                            *rest, page_size=16)
+  for dtype in ("int8", "bfloat16"):
+    k, v, sc, _ = cs._KvStorage(torch, extra["clean"], extra["dead"], dtype)
+    outs[f"block_decode_{dtype}"] = bd.BlockDecode(x["q"], k, v, *rest,
+                                                   page_size=16, **sc)
+  xs, _ = cs._ScanInputs(torch, ssd, np.random.RandomState(8), 256,
+                         [1, 256, 1, 200, 1, 37, 1, 0], [(5, 20)], True)
+  outs["scan_y"], outs["scan_state"] = ssd.SsdScan(*xs[:4], s0=xs[4],
+                                                   chunk_size=64)
+
+
+def _Xent(torch, fx, cs, res, outs):
+  """Fused xent at phase 8's shapes: the float32 kernel timed beside its
+  plain version; the bf16 kernel digested."""
+  rng = np.random.RandomState(6)
+  m, d, vocab = 8192, 2048, 32000
+  x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda()
+  w = torch.as_tensor((rng.randn(vocab, d) / np.sqrt(d)).astype(
+      np.float32)).cuda()
+  bias = torch.zeros(vocab, device="cuda")
+  labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
+  cfg = fx._Cfg(block_size=1280, vocab=vocab, vd=True, soft_cap=30.0,
+                label_smoothing=0.0)
+  outs["xent_f32"] = torch.cat([
+      a.float() for a in fx.FusedXentStats(x, w, bias, labels, cfg)
+      if a is not None])
+  res["xent_f32_ms"] = cs._TimeMs(
+      torch, lambda: fx.FusedXentStats(x, w, bias, labels, cfg), 5)
+  res["xent_plain_ms"] = cs._TimeMs(
+      torch, lambda: fx._PlainStats(x, w, bias, labels, cfg), 3,
+      waits_as="plain xent stats")
+  x16, w16, b16 = x.bfloat16(), w.bfloat16(), bias.bfloat16()
+  outs["xent_bf16"] = torch.cat([
+      a.float() for a in fx.FusedXentStats(x16, w16, b16, labels, cfg)
+      if a is not None])
+
+
+def _Ragged(torch, rba, ragged, cs, res, outs):
+  """The ragged kernel's three instantiations at phase 3's pack and the
+  decode-only pack (page 16, H = 128, dyadic q and K)."""
+  got = []
+  for pack in ("main", "decode_only"):
+    x, _, _, _, extra = cs._AttendPack(torch, ragged, 16, 128,
+                                       np.random.RandomState(14),
+                                       dyadic=True, pack=pack)
+    ints = (x["tables"], x["row_of"], x["q_end"])
+    tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
+    for dtype in ("float32", "int8", "bfloat16"):
+      if dtype == "float32":
+        k, v, sc = x["k_pool"], x["v_pool"], {}
+      else:
+        k, v, sc, _ = cs._KvStorage(torch, extra["clean"], extra["dead"],
+                                    dtype)
+      call = lambda k=k, v=v, sc=sc: rba.RaggedAttend(
+          x["q"], k, v, *ints, page_size=16, **sc, **tree)
+      got.append(call())
+      res[f"ragged_{dtype}_{pack}_ms"] = cs._TimeMs(torch, call, 20)
+      if dtype == "float32":   # what a host-bound serving step pays a call
+        res[f"ragged_{pack}_enqueue_us"] = cs._EnqueueUs(torch, call)
+  outs["ragged"] = torch.cat([a.flatten() for a in got])
+
+
+def _Serve(torch, spi, engine, rba, cs, res, outs):
+  """DenseLm1B through ServingLoop as phase 5: ms per step, syncs per
+  step, the streams' digest."""
+  counters = cs._Counts(ragged_block_attend=(rba.RaggedAttend, "float32"))
+  syncs = {}
+  _, _, streams, ms = cs._ServeMain(torch, spi.DenseLm1B(), engine, counters,
+                                    dict(ragged_block_attend=24),
+                                    syncs=syncs)
+  res["serve_ms_per_step"] = ms
+  res["syncs_per_step_first"] = syncs.get("first", -1)
+  res["syncs_per_step_last"] = syncs.get("last", -1)
+  outs["streams"] = torch.as_tensor(np.concatenate(
+      [np.asarray(st, np.int64) for st in streams]))
 
 
 def _Child(tree, save):
@@ -143,18 +189,33 @@ def _Child(tree, save):
   outputs (to `save`, for the bitwise comparison)."""
   import torch
   sys.path.insert(0, os.path.abspath(tree))
+  from lingvo_tpu_torch.core import ragged
   from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
+  from lingvo_tpu_torch.ops import block_decode as bd
   from lingvo_tpu_torch.ops import flash_attention as fa
   from lingvo_tpu_torch.ops import flash_decode as fd
+  from lingvo_tpu_torch.ops import fused_xent as fx
+  from lingvo_tpu_torch.ops import ragged_block_attend as rba
+  from lingvo_tpu_torch.ops import ssd_scan as ssd
+  from lingvo_tpu_torch.serving import engine
   cs = _ChipSmoke()
   torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
   res, outs = {"tree": tree}, {}
-  _Flash(torch, fa, cs, res, outs)
-  _Decode(torch, fd, cs, spi, res, outs)
+  _Flash(torch, fa, cs, outs)
+  _Decode(torch, fd, cs, spi, outs)
+  _BlockDecodeAndScan(torch, bd, ssd, cs, outs)
+  _Xent(torch, fx, cs, res, outs)
+  _Ragged(torch, rba, ragged, cs, res, outs)
   torch.cuda.synchronize()
+  digests = {key: hashlib.sha256(x.float().cpu().numpy().tobytes())
+             .hexdigest() for key, x in outs.items()}
+  outs.clear()
+  _Serve(torch, spi, engine, rba, cs, res, outs)
+  digests["streams"] = hashlib.sha256(
+      outs["streams"].numpy().tobytes()).hexdigest()
   with open(save, "w") as f:
-    json.dump({key: hashlib.sha256(x.float().cpu().numpy().tobytes())
-               .hexdigest() for key, x in outs.items()}, f)
+    json.dump(digests, f)
   print(json.dumps(res), flush=True)
 
 
@@ -183,8 +244,9 @@ def main():
     save = os.path.join(args.out, f"digests_{i}.json")
     proc = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--child", tree,
-         "--save", save], capture_output=True,
-        text=True)
+         "--save", save], capture_output=True, text=True)
+    with open(os.path.join(args.out, f"child_{i}.log"), "w") as f:
+      f.write(proc.stdout + proc.stderr)
     sys.stderr.write(proc.stderr[-4000:])
     if proc.returncode != 0:
       print(f"child {i} ({tree}) failed: rc {proc.returncode}")
@@ -208,11 +270,15 @@ def main():
             f"{b} {runs[1][0][key]:.4f} / {runs[2][0][key]:.4f}")
   for i, tree in enumerate((a, b, b, a)):
     r = runs[i][0]
-    pair = r["dkdv_f32_ms"] + r["dq_f32_ms"]
-    print(f"run {i} ({tree}): float32 dK/dV + dQ {pair:.4f} ms, SDPA "
-          f"float32 backward {r['bwd_sdpa_f32_ms']:.4f} ms "
-          f"({r['bwd_sdpa_f32_ms'] / pair:.2f}x)")
-  return 0 if same else 1
+    print(f"run {i} ({tree}): float32 xent {r['xent_f32_ms']:.3f} ms, plain "
+          f"cuBLAS loop {r['xent_plain_ms']:.3f} ms "
+          f"({r['xent_plain_ms'] / r['xent_f32_ms']:.2f}x)")
+  syncs_ok = all(runs[i][0][k] <= runs[j][0][k]
+                 for i, j in ((1, 0), (2, 3))
+                 for k in ("syncs_per_step_first", "syncs_per_step_last"))
+  print(f"cudaStreamSynchronize per serving step: {b} "
+        f"{'at most' if syncs_ok else 'MORE THAN'} {a}'s")
+  return 0 if same and syncs_ok else 1
 
 
 if __name__ == "__main__":
