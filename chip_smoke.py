@@ -76,10 +76,15 @@
    at the legacy serving step's shapes (q [8, 1, 16, 128], pools
    [513, 16, 16, 128], tables [8, 64]; seq_lens from 1 to 1024 and one
    inactive row), then at page 128 (pools [65, 128, 16, 128], tables
-   [8, 8]), with the pages and table entries past each row's last live
-   page and the stale slots of that page poisoned with NaN. Tolerance
-   1e-5. Times the kernel, the plain version and the bound (library_ms
-   null: no single PyTorch call reads block tables).
+   [8, 8]), then on a decode-only pack shaped like phase 12's steps (8
+   rows of phase 5's prompts, 64..768 tokens, plus 1..32 generated; page
+   16, tables [8, 64]), with the pages and table entries past each row's
+   last live page and the stale slots of that page poisoned with NaN.
+   Tolerance 1e-5, two calls bitwise equal, one kernel node per call (a
+   CUDA graph capture: the cluster merges its splits in the launch);
+   prints the cluster size (`NumSplits`) and the launch geometry. Times
+   the kernel, the plain version and the bound (library_ms null: no single
+   PyTorch call reads block tables).
 11. Holds the flash-decode kernel against its plain version at the
    GShardDecode step's shapes ([8, 1152, 16, 128], page 128, the left-pad
    cache paddings of the 8 prompts below in a 1024 bucket) at t = 1151 and
@@ -103,7 +108,11 @@
    24 x 128 = 3072 flash-decode launches and no other kernel; prints
    prefill_s, decode_s, tokens/s and peak memory; then prefills again (a
    1008 bucket, so the cache keeps 1024 slots) and profiles 16 decode
-   steps (device busy per step, flash-decode share).
+   steps (device busy per step, flash-decode share). First, the prefill's
+   cache read (`attention._TileAttend`) at DenseLm1B's shapes: the last
+   rows of a 256-query chunk must get bitwise the state of the same
+   queries read as chunks of 130 and 2 (what makes a trimmed prefill
+   equal the full read).
 14. Holds the int8 and bfloat16 instantiations of the ragged kernel
    (phase 3's shapes and packs: page 16 and 128 at H = 128, page 16 at
    H = 64, the decode-only and tile-edge packs at page 16; the schedule
@@ -119,7 +128,8 @@
    of the plain version, two calls bitwise equal, the int8 kernel bitwise
    equal to the float32 kernel on the dequantized pool, and the float32
    kernel on the widened bfloat16 pools (a kernel that rounds no p) more
-   than 1e-5 off the plain bfloat16 version. Times
+   than 1e-5 off the plain bfloat16 version; a block-decode call is one
+   kernel node, and its cluster geometry is printed. Times
    each instantiation, the float32 kernel on the same pack, the plain
    version at the main shape, and the bound (1 byte per int8 element plus
    4 per live (slot, head) of each sidecar; 2 per bfloat16 element).
@@ -169,7 +179,10 @@
    versions, the bound (bf16 bytes, 989 TFLOP/s) and SDPA on bfloat16.
 19. The bfloat16 fused-xent kernel against `_PlainStats` at phase 8's
    shapes (x and the table in bfloat16, statistics float32): tolerances
-   of phase 8; times it, the plain version and the bound.
+   of phase 8, two calls bitwise equal; prints its grid (row tiles x
+   vocab splits from `StatsGeometry` at its occupancy), threads, shared
+   memory and resident blocks per SM; times it, the plain version and the
+   bound.
 20. bfloat16 training main path: DenseLmTiny at fprop_dtype=bfloat16
    trains 3 steps (every leaf) on the card and on the CPU from the same
    weights, the CPU's flash calls on the kernels' lowering (the Pallas
@@ -580,8 +593,12 @@ def _CheckQuantBlockDecode(torch, bd, page, rng, time_plain):
     plain = lambda k=k, v=v, sc=sc: bd._PlainBlockDecode(
         x["q"][:, 0], k, v, *rest, page, **sc)[:, None]
     unrounded = lambda k=k, v=v: call(k.float(), v.float())
+    label = f"block decode {dtype} P={page}"
+    _OneNode(torch, label, lambda k=k, v=v, sc=sc: call(k, v, **sc))
+    print(f"{label}: {_BlockDecodeLayout(torch, bd, x, page, dtype)}; one "
+          "kernel node per call")
     res[dtype] = _CheckQuant(
-        torch, f"block decode {dtype} P={page}", lambda: call(k, v, **sc),
+        torch, label, lambda: call(k, v, **sc),
         plain, (lambda: call(*deq)) if deq else None, 0,
         _Bound(moved(elem), flops), time_plain,
         unrounded if dtype == "bfloat16" else None)
@@ -987,7 +1004,17 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
           f"{geo['stages']} cp.async stages of {geo['depth']}; combine "
           f"kernel merges the {geo['splits']} splits in order")
   else:
-    print(f"{label}: two calls bitwise equal")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, smem, per_sm = fx.KernelGeometry(torch.bfloat16)
+    geo = fx.StatsGeometry(m, vocab, sms, per_sm)
+    print(f"{label}: two calls bitwise equal; grid {geo['grid']} (row "
+          f"tiles of 128 x vocab splits of {geo['tiles_per_split']} tiles "
+          f"of 128 columns), {threads} threads (two consumer warpgroups "
+          f"and a producer warp), {smem} B shared per block, {per_sm} "
+          f"block(s) resident per SM, {fx.BF16_STATS_STAGES} TMA stages "
+          f"of {fx.BF16_STATS_DEPTH} of D; combine kernel merges the "
+          f"{geo['splits']} "
+          "splits in order")
   errs = []
   print("tolerances: lse, label logit 1e-4 (capped logits of O(1), each a "
         "2048-term float32 dot in two orders); logit sum 5e-3 (adds 32000 "
@@ -1503,17 +1530,19 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   return launches, steps, streams, wall / steps * 1e3
 
 
-def _DecodePool(torch, page, rng, dyadic=False):
+def _DecodePool(torch, page, rng, dyadic=False, lens=None):
   """The block-decode check at page size `page` (see the module
-  docstring): 8 rows of 16 heads of 128 with seq_lens 0..1024, their live
-  pages drawn from a 512 x 16-slot pool, every other page and table entry
-  NaN, and the slots past each row's length in its last page NaN (dyadic:
-  q and K made `_Dyadic`). Returns the CUDA tensors and the bytes and
-  operations the read needs."""
+  docstring): 8 rows of 16 heads of 128 with seq_lens 0..1024 (or `lens`),
+  their live pages drawn from a 512 x 16-slot pool, every other page and
+  table entry NaN, and the slots past each row's length in its last page
+  NaN (dyadic: q and K made `_Dyadic`). Returns the CUDA tensors and the
+  bytes and operations the read needs."""
   b, n, h, max_seq = 8, 16, 128, 1024
   t_pages = max_seq // page
   num_pages = 512 * 16 // page
-  lens = np.array([0, 1, 130, 333, 512, 640, 901, 1024], np.int32)
+  if lens is None:
+    lens = np.array([0, 1, 130, 333, 512, 640, 901, 1024], np.int32)
+  lens = np.asarray(lens, np.int32)
   need = [-(-int(x) // page) for x in lens]
   perm = rng.permutation(num_pages)
   owned = np.split(perm[:sum(need)], np.cumsum(need)[:-1])
@@ -1546,29 +1575,63 @@ def _DecodePool(torch, page, rng, dyadic=False):
   return cuda, moved, flops, dict(clean=clean, dead=dead)
 
 
-def _CheckBlockDecode(torch, bd, page, rng):
-  """The block-decode kernel against `_PlainBlockDecode` on the card."""
-  x, moved, flops, _ = _DecodePool(torch, page, rng)
+def _BlockDecodeLayout(torch, bd, x, page, dtype="float32"):
+  """The block-decode kernel's split and launch geometry at this pool."""
+  t_pages = x["tables"].shape[1]
+  geo = bd.KernelGeometry(128, page, t_pages, getattr(torch, dtype))
+  return (f"cluster of {geo['splits']} blocks per (row, head) (NumSplits "
+          f"of a {t_pages}-page table at P={page}; grid ({geo['splits']}, "
+          f"{x['q'].shape[0] * x['q'].shape[2]})), {geo['threads']} threads, "
+          f"{geo['smem_bytes']} B shared per block, warp tiles of "
+          f"{geo['tile_slots']} slots, {geo['blocks_per_sm']} blocks "
+          f"resident per SM")
+
+
+def _OneNode(torch, label, fn):
+  """One call of fn is one kernel node of a CUDA graph capture."""
+  kernels, nodes = _KernelNodes(torch, fn)
+  _Check(kernels == 1, f"{label}: one call is {kernels} kernel nodes "
+         f"({nodes} nodes), not 1")
+
+
+def _CheckBlockDecode(torch, bd, page, rng, lens=None, label=None):
+  """The block-decode kernel against `_PlainBlockDecode` on the card: two
+  calls bitwise equal, one kernel node per call."""
+  label = label or f"block decode P={page}"
+  x, moved, flops, _ = _DecodePool(torch, page, rng, lens=lens)
   moved = moved(128 * 4)
   args = (x["q"], x["k_pool"], x["v_pool"], x["tables"], x["lens"])
-  out = bd.BlockDecode(*args, page_size=page)
+  call = lambda: bd.BlockDecode(*args, page_size=page)
+  out, again = call(), call()
   plain = bd._PlainBlockDecode(x["q"][:, 0], *args[1:], page)[:, None]
   torch.cuda.synchronize()
-  _Check(bool(torch.isfinite(out).all()), f"block decode P={page}: "
-         "non-finite")
-  _Check(bool((out[0] == 0).all()), f"block decode P={page}: the inactive "
-         "row is not exactly zero")
+  _Check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
+  _Check(torch.equal(out, again), f"{label}: two calls differ bitwise")
+  inactive = (x["lens"] <= 0).nonzero().flatten()
+  _Check(bool((out[inactive] == 0).all()), f"{label}: the inactive row is "
+         "not exactly zero")
   err = float((out - plain).abs().max())
-  _Check(err <= TOL, f"block decode P={page}: kernel vs plain max abs err "
-         f"{err} > {TOL}")
-  ms = _TimeMs(torch, lambda: bd.BlockDecode(*args, page_size=page), 20)
+  _Check(err <= TOL, f"{label}: kernel vs plain max abs err {err} > {TOL}")
+  _OneNode(torch, label, call)
+  print(f"{label}: {_BlockDecodeLayout(torch, bd, x, page)}; two calls "
+        "bitwise equal, one kernel node per call")
+  ms = _TimeMs(torch, call, 20)
   plain_ms = _TimeMs(torch, lambda: bd._PlainBlockDecode(
       x["q"][:, 0], *args[1:], page), 3, waits_as="plain block decode")
   bound = _Bound(moved, flops)
-  print(f"block decode P={page} tables {tuple(x['tables'].shape)}: max abs "
-        f"err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound[0]:.4f} ms ({bound[1]}; {moved / 1e6:.1f} MB)")
+  print(f"{label} tables {tuple(x['tables'].shape)} lens "
+        f"{x['lens'].tolist()}: max abs err {err:.3g}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{moved / 1e6:.1f} MB)")
   return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err, library_ms=None)
+
+
+def _DecodeOnlyLens():
+  """A legacy decode-only step's rows as phase 12 serves them: phase 5's
+  8 prompts (64..768 tokens) with 1 to 32 generated tokens each."""
+  prompt_lens = np.random.RandomState(1).permutation(
+      np.linspace(64, 768, 8).astype(np.int32))   # `_Requests`' lengths
+  return prompt_lens + np.array([1, 5, 9, 13, 17, 21, 25, 32], np.int32)
 
 
 def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
@@ -1739,6 +1802,45 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
         f"busy), GEMMs {gemm / busy_ms:.1%}")
   for e in kernels[:5]:
     print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+
+
+def _CheckTileBits(torch, attention):
+  """The prefill's tile read on the card at DenseLm1B's shapes (8 rows, 16
+  heads of 128, two tiles of 128 slots, float32): the last 2 (and 130)
+  rows of a 256-query chunk bitwise equal to the same queries read as a
+  chunk of their own, and its time per tile at C = 256."""
+  rng = np.random.RandomState(13)
+  b, n, h, tile, c = 8, 16, 128, 128, 256
+  k = torch.as_tensor(rng.randn(b, 2 * tile, n, h).astype(np.float32)).cuda()
+  v = torch.as_tensor(rng.randn(b, 2 * tile, n, h).astype(np.float32)).cuda()
+  q = torch.as_tensor(rng.randn(b, c, n, h).astype(np.float32) / 11).cuda()
+  pos = torch.arange(c, device="cuda") + 2 * tile - c
+
+  def Read(qs, ps):
+    cc = qs.shape[1]
+    m = torch.full((b, cc, n, 1), -1.0e30, device="cuda")
+    l = torch.zeros((b, cc, n, 1), device="cuda")
+    acc = torch.zeros((b, cc, n, h), device="cuda")
+    for start in (0, tile):
+      slot = torch.arange(start, start + tile, device="cuda")
+      keep = (slot[None, :] <= ps[:, None])[None, :, None, :]
+      sl = slice(start, start + tile)
+      m, l, acc = attention._TileAttend(qs, k[:, sl], v[:, sl], keep, m, l,
+                                        acc)
+    return m, l, acc
+
+  with torch.no_grad():
+    full = Read(q, pos)
+    for cc in (2, 130):
+      part = Read(q[:, c - cc:].contiguous(), pos[c - cc:])
+      torch.cuda.synchronize()
+      _Check(all(torch.equal(a[:, c - cc:], e) for a, e in zip(full, part)),
+             f"prefill tile read: the last {cc} rows of a {c}-query chunk "
+             "differ bitwise from the same queries read alone")
+    ms = _TimeMs(torch, lambda: Read(q, pos), 5) / 2
+  print(f"prefill tile read ([{b}, {c}, {n}, {h}] queries x {tile}-slot "
+        f"tiles): the last 2 and 130 rows of the chunk bitwise equal to the "
+        f"same queries read alone; {ms:.3f} ms per tile")
 
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
@@ -1979,6 +2081,9 @@ def main():
   brng = np.random.RandomState(10)
   block = {page: _CheckBlockDecode(torch, bd, page, brng)
            for page in (16, 128)}
+  block_decode_only = _CheckBlockDecode(
+      torch, bd, 16, brng, lens=_DecodeOnlyLens(),
+      label="block decode P=16 decode-only pack (phase 12's rows)")
   gc.collect()
   torch.cuda.empty_cache()
 
@@ -2004,6 +2109,7 @@ def main():
 
   with tempfile.TemporaryDirectory() as tmp:
     _Phase("13. GShardDecode main path: DenseLm1B, decode_page_size 128")
+    _CheckTileBits(torch, attention)
     _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp)
     gshard_launches, _, gshard_out = _GShardMain(
         torch, spi, attention, checkpointer, gshard, counters, tmp,
@@ -2161,10 +2267,12 @@ def main():
       "source": "lingvo_tpu_torch/ops/csrc/block_decode.cu",
       "replaces": "lingvo_tpu/ops/block_decode.py:247",
       "launches": legacy_launches["block_decode"],
-      "max_abs_err": max(r["err"] for r in block.values()),
+      "max_abs_err": max(r["err"] for r in list(block.values())
+                         + [block_decode_only]),
       "ms": main_block["ms"], "plain_ms": main_block["plain_ms"],
       "bound_ms": main_block["bound"][0], "bound_by": main_block["bound"][1],
-      "library_ms": None})
+      "library_ms": None, "decode_only_ms": block_decode_only["ms"],
+      "decode_only_bound_ms": block_decode_only["bound"][0]})
   main_fdec = fdec[1151]
   kernels.append({
       "name": "flash_decode", "route": "cuda",

@@ -58,6 +58,11 @@ _NEG_INF = -2.3819763e38  # the reference's additive mask value
 # softmax; a tile past every query is an exact no-op, so a trimmed read
 # (live_len) gives bitwise the full read's result.
 _PREFILL_TILE = 128
+# what the paged serving steps raise for a layer their kernels cannot serve
+_GATHER_DENSE = (
+    "attention with a logit cap, dropout or relative bias, or a shape "
+    "outside the paged kernels' limits, needs the gather-dense fallback "
+    "(ROADMAP item 14)")
 
 
 def CausalMask(t: int, device=None) -> torch.Tensor:
@@ -194,15 +199,24 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnts,bsnh->btnh", probs, v), probs
 
+  def _OnCard(self) -> bool:
+    """The layer runs the CUDA kernels: the gates then also hold its shapes
+    to their limits, as the reference holds them to its TPU tiling
+    (`jax.default_backend() == "tpu"`); the plain CPU versions take any."""
+    return self.device.type == "cuda"
+
   def _FlashEligible(self, key_vec, atten_mask, t) -> bool:
     """Self-attention with only causal/padding/segment masking runs the
     fused kernel (paddings and segment ids fold into its segment mask).
-    The reference also gates on its TPU tiling here; the CUDA kernels take
-    any t, and their own limits are checked by their wrappers."""
+    On the card the head dim must be one the kernels take
+    (`flash_attention.KernelLimitError`); the CUDA kernels take any t."""
     p = self.p
-    return (p.use_flash_attention and key_vec is None and atten_mask is None
+    if not (p.use_flash_attention and key_vec is None and atten_mask is None
             and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0
-            and t % 16 == 0)
+            and t % 16 == 0):
+      return False
+    return not self._OnCard() or flash_attention.KernelLimitError(
+        self._dim_per_head) is None
 
   def FProp(self, query_vec, key_vec=None, value_vec=None, paddings=None,
             atten_mask=None, segment_ids=None, causal=False):
@@ -296,12 +310,17 @@ class MultiHeadedAttention(base_layer.BaseLayer):
 
   def PagedDecodeEligible(self, max_len: int) -> bool:
     """The paged flash-decode read serves plain masked-softmax attention
-    on a cache that is a whole number of pages. (The reference also checks
-    its TPU tiling here; the CUDA kernel's own limits are checked by its
-    wrapper.)"""
+    on a cache that is a whole number of pages. On the card the head dim,
+    page size and cache dtype must be ones the kernel takes
+    (`flash_decode.KernelLimitError`); else ExtendStep takes the dense
+    read, as the reference does off its TPU tiling."""
     p = self.p
-    return (flash_decode.SupportedShape(max_len, p.decode_page_size)
-            and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0)
+    if not (flash_decode.SupportedShape(max_len, p.decode_page_size)
+            and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0):
+      return False
+    return not self._OnCard() or flash_decode.KernelLimitError(
+        self._dim_per_head, p.decode_page_size,
+        self._KvDtype()[0]) is None
 
   def _ProjectStep(self, query_vec, position):
     """q (scaled), k, v [B, C, N, H] of query_vec [B, C, D]; rotary at
@@ -427,13 +446,27 @@ class MultiHeadedAttention(base_layer.BaseLayer):
                                    dtype=torch.float32, device=self.device)
     return states
 
-  def BlockDecodeEligible(self, page_size: int) -> bool:
-    """Plain masked-softmax attention only: what the ragged kernel serves.
-    (The reference also checks its TPU tiling here; the CUDA kernel's own
-    limits are checked by its wrapper.)"""
+  def BlockDecodeEligible(self, page_size: int, kv_dtype=None,
+                          t_pages: int | None = None,
+                          ragged: bool = False) -> bool:
+    """Plain masked-softmax attention only: what the paged kernels serve.
+    On the card the shape must also be one the step's kernel takes: the
+    block-decode kernel's (`block_decode.KernelLimitError`, for the pool
+    dtype kv_dtype, default the layer's, and a table of t_pages), or with
+    ragged=True the ragged kernel's (`ragged_block_attend
+    .KernelLimitError`), as the reference checks its TPU tiling."""
     p = self.p
-    return (page_size > 0 and p.rel_pos_emb_dim == 0
-            and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0)
+    if not (page_size > 0 and p.rel_pos_emb_dim == 0
+            and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0):
+      return False
+    if not self._OnCard():
+      return True
+    h = self._dim_per_head
+    if ragged:
+      return ragged_block_attend.KernelLimitError(h, page_size) is None
+    dtype = kv_dtype if kv_dtype is not None else self._KvDtype()[0]
+    return block_decode.KernelLimitError(h, page_size, dtype,
+                                         t_pages) is None
 
   def QuantizedDecodeEligible(self, page_size: int) -> bool:
     """The reference's name for the int8 kernels' gate, which in the port
@@ -477,11 +510,9 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     scales go to the sidecars); returns ([B, C, D], cached_states)."""
     k_pool, v_pool = cached_states.key, cached_states.value
     np_total, page_size = k_pool.shape[0], k_pool.shape[1]
-    if not self.BlockDecodeEligible(page_size):
-      raise NotImplementedError(
-          "attention with a logit cap, dropout or relative bias needs the "
-          "gather-dense fallback, which comes with a later serving slice")
     t_pages = block_tables.shape[1]
+    if not self.BlockDecodeEligible(page_size, k_pool.dtype, t_pages):
+      raise NotImplementedError(_GATHER_DENSE)
     b, c, _ = query_vec.shape
     dev = query_vec.device
     cols = torch.arange(c, device=dev)
@@ -521,10 +552,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     """
     k_pool, v_pool = cached_states.key, cached_states.value
     np_total, page_size = k_pool.shape[0], k_pool.shape[1]
-    if not self.BlockDecodeEligible(page_size):
-      raise NotImplementedError(
-          "attention with a logit cap, dropout or relative bias needs the "
-          "gather-dense fallback, which comes with a later serving slice")
+    if not self.BlockDecodeEligible(page_size, k_pool.dtype, ragged=True):
+      raise NotImplementedError(_GATHER_DENSE)
     b, t_pages = block_tables.shape
     t = query_vec.shape[1]
     dev = query_vec.device
@@ -567,13 +596,39 @@ def _ReadCache(states, sl):
   return k.float(), v.float()
 
 
+# queries of one GEMM in the prefill's tile read: every chunk is read in
+# blocks of this many (the last padded with zeros), one GEMM call of one
+# shape per block, whatever the chunk's length
+_READ_ROWS = 128
+
+
+def _RowBlockMatmul(a, b):
+  """a [B, C, N, X] times b [B, N, X, Y] -> [B, C, N, Y], one GEMM call of
+  exactly _READ_ROWS rows of a per block (C padded with zero rows to whole
+  blocks). A GEMM over all C rows picks its kernel and blocking by C, so
+  a row's bits changed with C on the CPU (and a batched matrix-vector
+  product's did on the card); calls of one shape run one kernel, whose
+  every row sums its dot products in the same order, so a row's bits
+  depend neither on C nor on its place in the block."""
+  c = a.shape[1]
+  blocks = -(-c // _READ_ROWS)
+  a = torch.nn.functional.pad(a, (0, 0, 0, 0, 0, blocks * _READ_ROWS - c))
+  a = a.transpose(1, 2)                                       # [B, N, C, X]
+  out = torch.cat([
+      torch.matmul(a[:, :, i * _READ_ROWS:(i + 1) * _READ_ROWS], b)
+      for i in range(blocks)], dim=2)                         # [B, N, C, Y]
+  return out.transpose(1, 2)[:, :c]
+
+
 def _TileAttend(q, k_tile, v_tile, keep, m, l, acc, logit_cap=0.0):
   """One cache tile of online-softmax attention for a chunk of queries
   (the reference `_PageAttend` op order). q: [B, C, N, H], k_tile/v_tile
   [B, P, N, H], keep bool broadcastable to [B, C, N, P], m/l [B, C, N, 1],
-  acc [B, C, N, H]; logit_cap > 0 tanh-caps the logits as `_Atten` does."""
+  acc [B, C, N, H]; logit_cap > 0 tanh-caps the logits as `_Atten` does.
+  q.k and P.V go through `_RowBlockMatmul`, so each query's result has the
+  same bits at any chunk length C (a trimmed read equals the full read)."""
   neg_inf = ragged_block_attend.NEG_INF
-  s = torch.einsum("bcnh,bpnh->bcnp", q, k_tile)
+  s = _RowBlockMatmul(q, k_tile.permute(0, 2, 3, 1))          # [B,C,N,P]
   if logit_cap > 0:
     s = logit_cap * torch.tanh(s / logit_cap)
   s = torch.where(keep, s, neg_inf)
@@ -582,5 +637,5 @@ def _TileAttend(q, k_tile, v_tile, keep, m, l, acc, logit_cap=0.0):
   p = torch.exp(s - m_safe)
   alpha = torch.exp(m - m_new)
   l_new = alpha * l + torch.sum(p, dim=-1, keepdim=True)
-  return m_new, l_new, acc * alpha + torch.einsum("bcnp,bpnh->bcnh", p,
-                                                  v_tile)
+  pv = _RowBlockMatmul(p, v_tile.permute(0, 2, 1, 3))          # [B,C,N,H]
+  return m_new, l_new, acc * alpha + pv

@@ -9,12 +9,17 @@ never influence the output. q arrives PRE-SCALED.
 
 - `BlockDecode`: one query per row over slots [0, seq_lens[b]); a row with
   seq_len 0 is inactive and returns exactly 0. Two implementations of one
-  function: the CUDA kernel `ops/csrc/block_decode.cu` (one thread block
-  per (row, head), walking only the row's ceil(seq_len / P) live pages),
-  launched for CUDA tensors, and `_PlainBlockDecode`, the reference twin
-  `_XlaBlockDecode`'s loop over the batch's live pages through the shared
-  page step (`ragged_block_attend._PageAttend`), used for CPU tensors and
-  as the kernel's yardstick. A CUDA tensor launches the kernel or raises.
+  function: the CUDA kernel `ops/csrc/block_decode.cu` (a thread-block
+  cluster of `NumSplits` blocks per (row, head), each block taking a run
+  of the row's live pages, merged in the same launch), launched for CUDA
+  tensors, and `_PlainBlockDecode`, the reference twin `_XlaBlockDecode`'s
+  loop over the batch's live pages through the shared page step
+  (`ragged_block_attend._PageAttend`), used for CPU tensors and as the
+  kernel's yardstick. A CUDA tensor launches the kernel or raises.
+  `SplitPages` and `SplitMaxima` are the kernel's split geometry on the
+  CPU: which pages each block of a row takes, and the maxima a bfloat16
+  pool's probabilities are rounded against; `KernelLimitError` says
+  which shapes the kernel takes (the attention gate reads it too).
 - `BlockPrefill`: C chunk queries per row, causal within the chunk, for
   the legacy engine's mixed steps. Plain PyTorch on every device: the
   reference computes it outside any Pallas kernel too.
@@ -41,7 +46,80 @@ from lingvo_tpu_torch.ops.ragged_block_attend import (
     _DequantPages, _Finish, _PageAttend)
 
 MAX_PAGE_SIZE = 128   # kernel limits
+# head dims: powers of two whose slot row is at least one 16-byte copy
 HEAD_DIMS = (4, 8, 16, 32, 64, 128)
+MIN_ROW_BYTES = 16
+MAX_SPLITS = 8        # blocks of a (row, head): the portable cluster size
+SPLIT_SLOTS = 64      # table slots a split is sized for
+MAX_CTA_SLOTS = 8192  # slots whose scores one block holds
+
+
+def KernelLimitError(head_dim: int, page_size: int, dtype=torch.float32,
+                     t_pages: int | None = None) -> str | None:
+  """Why the CUDA kernel cannot take this shape, or None if it can: head
+  dim in HEAD_DIMS with a slot row of at least 16 bytes (8 for bfloat16,
+  16 for int8), page_size 1..MAX_PAGE_SIZE, a float32, bfloat16 or int8
+  pool, and (given the table width) at most MAX_CTA_SLOTS slots of scores
+  per block. The wrapper raises it; the attention gate reads it."""
+  if dtype not in KV_DTYPES:
+    return ("BlockDecode kernel takes float32, bfloat16 or int8 pools, "
+            f"not {dtype}")
+  if head_dim not in HEAD_DIMS or head_dim * dtype.itemsize < MIN_ROW_BYTES:
+    return (f"head dim {head_dim}: the {dtype} BlockDecode kernel takes one "
+            f"of {HEAD_DIMS} with a slot row of at least {MIN_ROW_BYTES} "
+            "bytes")
+  if not 1 <= page_size <= MAX_PAGE_SIZE:
+    return (f"page_size {page_size} outside the BlockDecode kernel's "
+            f"[1, {MAX_PAGE_SIZE}]")
+  if t_pages is not None:
+    slots = CtaSlots(t_pages, page_size, NumSplits(t_pages, page_size))
+    if slots > MAX_CTA_SLOTS:
+      return (f"a table of {t_pages} pages of {page_size} gives a block "
+              f"{slots} slots of scores, above the kernel's {MAX_CTA_SLOTS}")
+  return None
+
+
+def NumSplits(t_pages: int, page_size: int) -> int:
+  """The kernel's blocks per (row, head), one cluster: from the table's
+  width and the page size alone (never seq_lens, so no host sync), about
+  SPLIT_SLOTS table slots a block, at most MAX_SPLITS and t_pages."""
+  want = -(-t_pages * page_size // SPLIT_SLOTS)
+  return max(1, min(MAX_SPLITS, t_pages, want))
+
+
+def CtaSlots(t_pages: int, page_size: int, splits: int) -> int:
+  """The most slots one block of `splits` takes: ceil(t_pages / splits)
+  whole pages."""
+  return -(-t_pages // splits) * page_size
+
+
+def SplitPages(seq_len: int, page_size: int, t_pages: int, splits: int):
+  """The kernel's split of one row: [(first page, end page)] of each of
+  the `splits` blocks, in rank order. The row's live pages,
+  min(ceil(seq_len / P), t_pages) (none for seq_len <= 0), are cut into
+  contiguous runs [s live / S, (s + 1) live / S); a run may be empty."""
+  live = min(-(-seq_len // page_size), t_pages) if seq_len > 0 else 0
+  return [(s * live // splits, (s + 1) * live // splits)
+          for s in range(splits)]
+
+
+def SplitMaxima(page_max, runs):
+  """The maxima a bfloat16 pool's probabilities are rounded against, as
+  the kernel computes them: page_max [live] float32, the max score of
+  each live page of a row; runs, `SplitPages`. Block s knows its own
+  pages' maxima and, after the cluster's exchange, every block's max:
+  page j of block s rounds against max(the maxima of the blocks before s,
+  the running max of s's pages through j). Returns (M [live], the row's
+  max)."""
+  neg = torch.tensor(NEG_INF, dtype=torch.float32)
+  totals = [torch.max(page_max[a:b]) if b > a else neg for a, b in runs]
+  m = torch.empty_like(page_max)
+  before = neg
+  for (a, b), total in zip(runs, totals):
+    if b > a:
+      m[a:b] = torch.maximum(before, torch.cummax(page_max[a:b], 0).values)
+    before = torch.maximum(before, total)
+  return m, before
 
 
 def GatherPages(pool, block_tables):
@@ -111,8 +189,10 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("block_decode")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.BlockDecode.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+    lib.BlockDecode.argtypes = [vp] * 8 + [ci] * 8 + [vp]
     lib.BlockDecode.restype = ci
+    lib.BlockDecodeGeometry.argtypes = [ci] * 5 + [vp]
+    lib.BlockDecodeGeometry.restype = ci
     lib.BlockDecodeErrorString.argtypes = [ci]
     lib.BlockDecodeErrorString.restype = ctypes.c_char_p
     _lib = lib
@@ -129,13 +209,15 @@ def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size,
   if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
     raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
                      f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-  if p != page_size or not 1 <= p <= MAX_PAGE_SIZE:
-    raise ValueError(f"page_size {page_size} (pool pages of {p}) outside the "
-                     f"kernel's [1, {MAX_PAGE_SIZE}]")
-  if h not in HEAD_DIMS:
-    raise ValueError(f"head dim {h} not one of the kernel's {HEAD_DIMS}")
+  if p != page_size:
+    raise ValueError(f"page_size {page_size}, pool pages of {p}")
   if block_tables.shape[0] != b or t_pages < 1:
     raise ValueError(f"block_tables {tuple(block_tables.shape)} for {b} rows")
+  reason = KernelLimitError(h, p, k_pool.dtype, t_pages)
+  if reason is not None:
+    raise ValueError(reason)
+  if b * n > 65535:
+    raise ValueError(f"B x N = {b * n} rows exceed the kernel's grid (65535)")
   for name, x in (("block_tables", block_tables), ("seq_lens", seq_lens)):
     if x.dtype != torch.int32:
       raise TypeError(f"{name} must be int32, got {x.dtype}")
@@ -157,13 +239,31 @@ def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size,
       None if k_scale is None else k_scale.data_ptr(),
       None if v_scale is None else v_scale.data_ptr(),
       block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, n, h,
-      np_total, p, t_pages, KV_DTYPES[k_pool.dtype], stream)
+      np_total, p, t_pages, KV_DTYPES[k_pool.dtype], NumSplits(t_pages, p),
+      stream)
   if rc != 0:
     raise RuntimeError("BlockDecode kernel launch failed: "
                        + lib.BlockDecodeErrorString(rc).decode())
   BlockDecode.launches += 1
   BlockDecode.launches_by_dtype[kv_dtype] += 1
   return out
+
+
+def KernelGeometry(head_dim: int, page_size: int, t_pages: int,
+                   dtype=torch.float32) -> dict:
+  """The kernel's launch geometry on the current device: splits (the
+  cluster size), threads and dynamic shared bytes per block, slots of a
+  warp's tile, resident blocks per SM."""
+  splits = NumSplits(t_pages, page_size)
+  geo = (ctypes.c_int * 4)()
+  lib = _Lib()
+  rc = lib.BlockDecodeGeometry(head_dim, page_size, t_pages, splits,
+                               KV_DTYPES[dtype], geo)
+  if rc != 0:
+    raise RuntimeError("BlockDecodeGeometry failed: "
+                       + lib.BlockDecodeErrorString(rc).decode())
+  return dict(splits=splits, threads=geo[0], smem_bytes=geo[1],
+              tile_slots=geo[2], blocks_per_sm=geo[3])
 
 
 # -- public entries ----------------------------------------------------------

@@ -1782,32 +1782,6 @@ decltype(&FlashDqKernel<1>) DqKernelFor(int h) {
   return h > 64 ? FlashDqKernel<2> : FlashDqKernel<1>;
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver at run time (so the
-// library needs no -lcuda); null if the driver has none.
-typedef CUresult (*EncodeTiledFn)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn TensorMapEncoder() {
-  static EncodeTiledFn fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(ptr)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The TMA map of a bf16 [b, t, n, h] tensor in boxes of `rows` rows of one
 // (batch, head) x 64 head-dim columns, 128-byte swizzled; rows past t and
 // columns past h read as zeros.

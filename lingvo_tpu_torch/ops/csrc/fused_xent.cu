@@ -57,11 +57,13 @@
 // Limits (the Python wrapper raises outside them): float32 or bfloat16,
 // contiguous tensors, labels in [0, V).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -341,219 +343,279 @@ __global__ void FusedXentCombineKernel(const float* __restrict__ part,
   amax_out[row] = amax;
 }
 
-// ---- bfloat16: the tensor-core kernel -------------------------------------
+// ---- bfloat16: warpgroup MMA fed by TMA ------------------------------------
 //
 // The bf16 half (x and w bf16, every statistic float32, as the reference's
 // `_BlockLogits` / `_BlockStats`: s = f32(x . w) + f32(b), the tanh cap in
 // float32). A bf16 x bf16 product is exact in float32, so the logits differ
 // from the reference's only in the order of their sums; nothing inside is
-// rounded to bf16. One block of 8 warps owns 64 rows and walks the whole
-// vocabulary in 128-column sub-tiles; warp w computes rows 16 (w % 4) ..
-// + 15 against columns 64 (w / 4) .. + 63 of each sub-tile with mma.sync
-// m16n8k16 (bf16 -> f32), D in stages of 64 staged by 16-byte cp.async
-// into a double buffer (row stride 72 elements: conflict-free 32-bit
-// fragment loads). Each warp folds its sub-tile columns into running
-// statistics of its rows (a row lives in the 4 lanes of a quad); at the
-// end the two column warps of a row merge through shared memory (the
-// smaller index wins a tie of maxima: the first occurrence).
+// rounded to bf16. Takes the [V, D] (tied-table) layout and D a multiple of
+// 8 (a TMA row stride is a multiple of 16 bytes).
 //
 // Bound: 2 M V D flops on the bf16 tensor cores, 1.07 TFLOP at the main
 // path's shapes: 1.09 ms at 989 TFLOP/s; x and w (0.17 GB) take 0.05 ms.
-// What it leaves: wgmma / TMA, and the x tile is re-read from L2 for every
-// sub-tile. Takes the [V, D] (tied-table) layout and D a multiple of 8.
+//
+// The first bf16 kernel (mma.sync m16n8k16, a block of 64 rows walking
+// the whole vocabulary, fragments through 32-bit shared loads from a
+// 2-stage cp.async buffer, 128 blocks for 132 SMs) reached 10% of the
+// tensor cores' rate. This design:
+//  - Vocab splits, as the float32 kernel's: grid (M / 128 row tiles, S
+//    splits), split s owning the 128-column vocab tiles [s tps, (s + 1)
+//    tps) (S and tps from the Python `StatsGeometry` at this kernel's one
+//    block an SM); its partial statistics go to the [5, S, M] scratch and
+//    `FusedXentCombineKernel` merges the splits in order.
+//  - One producer warp keeps a ring of kXStages stages in flight with TMA
+//    (each stage x [128 rows x 64 of D] and w [128 columns x 64 of D], 128-
+//    byte swizzled, 32 KB), with a full and an empty mbarrier per stage:
+//    the consumers issue no copy and take no block barrier.
+//  - Two consumer warpgroups own 64 rows each and run wgmma m64n128k16
+//    with both operands straight from the swizzled tiles (K-major), float32
+//    accumulators in registers (64 a thread); a stage is released once the
+//    next k-step's wgmmas are issued and its own have completed.
+//  - After a tile's last k-step each warpgroup folds its 64 x 128 logits
+//    in registers: bias, cap, then per row the tile's max, sum of exp(s -
+//    m_safe), label logit, logit sum and smallest argmax index, reduced
+//    over the 4 lanes of a row, into running statistics (the reference's
+//    online update; a strict > across tiles keeps the first occurrence).
+//    The two warpgroups drift apart by up to the ring's depth, so one
+//    folds while the other's wgmmas run.
+// What it leaves: the fold does not overlap the same warpgroup's next
+// products, the x tile is streamed again (from L2) for every vocab tile,
+// and the grid is not persistent.
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kHRows = 64;        // rows of x per block
-constexpr int kHCols = 128;       // vocab columns per sub-tile
-constexpr int kHDepth = 64;       // D per stage
-constexpr int kHThreads = 256;    // 8 warps: 4 row groups x 2 column groups
-constexpr int kHLd = kHDepth + 8; // row stride (elements) of a staged tile
-constexpr size_t kHStageElems = static_cast<size_t>(kHRows + kHCols) * kHLd;
-constexpr size_t kHSmemBytes =
-    2 * kHStageElems * sizeof(bf16) + kHRows * 5 * sizeof(float);
+constexpr int kXRows = 128;       // rows of x per block
+constexpr int kXCols = 128;       // vocab columns per tile
+constexpr int kXDepth = 64;       // D per stage: one 128-byte swizzle row
+constexpr int kXStages = 4;       // the ring
+constexpr int kXConsumers = 256;  // two warpgroups of 64 rows
+constexpr int kXThreads = kXConsumers + 32;   // and the producer warp
+constexpr int kXBox = kXRows * kXDepth * 2;   // bytes of an x (or w) box
+constexpr int kXStage = 2 * kXBox;            // x box, then w box
+constexpr int kXBars = kXStages * kXStage;    // offset of the barriers
+constexpr size_t kXSmemBytes = 1024 + kXBars + 2 * kXStages * 8;
+
+static_assert(kXRows == kXCols, "x and w boxes share one shape");
 
 __device__ __forceinline__ int QuadMin(int x) {
   x = min(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return min(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// One row's running statistics over the columns its warp sees.
+// One row's running statistics (every lane of the row's quad holds them).
 struct RowStats {
   float m, l, sum, llog;
   int amax;
 };
 
-// Folds one sub-tile's 16 logits of a row (s[nt][e0], s[nt][e0 + 1],
-// columns cbase + nt * 8 + 2 tig + {0, 1}) into st: bias, cap, then the
-// reference's `_BlockStats` with every column past V masked.
-__device__ __forceinline__ void FoldRow(RowStats& st, float s[8][4], int e0,
-                                        int cbase, int vocab, int label,
-                                        const bf16* __restrict__ bias,
-                                        float soft_cap, int need_sum) {
-  const int tig = threadIdx.x & 3;
-  float m_cur = kNegInf;
+// Folds a tile's logits of this thread's two rows (acc[4 j + e], e < 2:
+// row a, e >= 2: row b; columns c0 + 8 j + 2 tq + (e & 1)) into their
+// statistics: bias, cap, then the reference's `_BlockStats` with every
+// column past V masked.
+__device__ __forceinline__ void FoldTile(float (&acc)[64], RowStats& sa,
+                                         RowStats& sb, int c0, int vocab,
+                                         int label_a, int label_b,
+                                         const bf16* __restrict__ bias,
+                                         float soft_cap, int need_sum) {
+  const int tq = threadIdx.x & 3;
+  float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = cbase + nt * 8 + 2 * tig + e;
-      float val = s[nt][e0 + e];
-      if (col < vocab) {
-        val += __bfloat162float(bias[col]);
-        if (soft_cap > 0.f) val = soft_cap * tanhf(val / soft_cap);
-      } else {
-        val = kNegInf;
-      }
-      s[nt][e0 + e] = val;
-      m_cur = fmaxf(m_cur, val);
-    }
-  m_cur = QuadMax(m_cur);
-  const float m_new = fmaxf(st.m, m_cur);
-  // all-masked-so-far rows: masked entries must give p = 0
-  const float m_safe = m_new <= kNegInf * 0.5f ? 0.f : m_new;
-  float psum = 0.f, lab = 0.f, tot = 0.f;
-  int idx = kBigIdx;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+  for (int j = 0; j < kXCols / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int col = cbase + nt * 8 + 2 * tig + e;
-      const float val = s[nt][e0 + e];
-      psum += expf(val - m_safe);
+      const int col = c0 + 8 * j + 2 * tq + e;
+      float va = kNegInf, vb = kNegInf;
       if (col < vocab) {
-        if (col == label) lab += val;
-        tot += val;
-        if (val >= m_cur) idx = min(idx, col);
-      }
-    }
-  psum = QuadSum(psum);
-  lab = QuadSum(lab);
-  if (need_sum) st.sum += QuadSum(tot);
-  idx = QuadMin(idx);
-  const float alpha = expf(st.m - m_new);
-  st.l = alpha * st.l + psum;
-  st.llog += lab;
-  // first occurrence: strict > keeps the earlier sub-tile on ties
-  if (m_cur > st.m) st.amax = idx;
-  st.m = m_new;
-}
-
-__global__ void __launch_bounds__(kHThreads) FusedXentStatsBf16Kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ w,
-    const bf16* __restrict__ bias, const int* __restrict__ labels,
-    float* __restrict__ lse_out, float* __restrict__ llog_out,
-    float* __restrict__ sum_out, int* __restrict__ amax_out, int m_rows,
-    int d, int vocab, float soft_cap, int need_sum) {
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  bf16* stages = reinterpret_cast<bf16*>(hsmem);   // [2][(64 + 128) x 72]
-  float* merge = reinterpret_cast<float*>(hsmem + 2 * kHStageElems *
-                                          sizeof(bf16));   // [64][5]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int rg = warp & 3, cg = warp >> 2;
-  const int r0 = blockIdx.x * kHRows;
-  const int lr_a = rg * 16 + g, lr_b = lr_a + 8;   // rows within the block
-  const int label_a = r0 + lr_a < m_rows ? labels[r0 + lr_a] : -1;
-  const int label_b = r0 + lr_b < m_rows ? labels[r0 + lr_b] : -1;
-  RowStats st_a = {kNegInf, 0.f, 0.f, 0.f, 0};
-  RowStats st_b = st_a;
-  const int nds = (d + kHDepth - 1) / kHDepth;
-  const int nsub = (vocab + kHCols - 1) / kHCols;
-  const int nsteps = nsub * nds;
-
-  auto prefetch = [&](int step, int stage) {
-    if (step < nsteps) {
-      const int sub = step / nds, d0 = (step - sub * nds) * kHDepth;
-      bf16* xd = stages + stage * kHStageElems;
-      bf16* wd = xd + kHRows * kHLd;
-      for (int c = tid; c < (kHRows + kHCols) * (kHDepth / 8);
-           c += kHThreads) {
-        const int r = c >> 3, dc = d0 + 8 * (c & 7);
-        if (r < kHRows) {
-          const int row = r0 + r;
-          const bool valid = row < m_rows && dc < d;
-          CpAsyncBytes16(xd + r * kHLd + 8 * (c & 7),
-                    x + (valid ? static_cast<size_t>(row) * d + dc : 0),
-                    valid);
-        } else {
-          const int col = sub * kHCols + r - kHRows;
-          const bool valid = col < vocab && dc < d;
-          CpAsyncBytes16(wd + (r - kHRows) * kHLd + 8 * (c & 7),
-                    w + (valid ? static_cast<size_t>(col) * d + dc : 0),
-                    valid);
+        const float b = __bfloat162float(bias[col]);
+        va = acc[4 * j + e] + b;
+        vb = acc[4 * j + 2 + e] + b;
+        if (soft_cap > 0.f) {
+          va = soft_cap * tanhf(va / soft_cap);
+          vb = soft_cap * tanhf(vb / soft_cap);
         }
       }
+      acc[4 * j + e] = va;
+      acc[4 * j + 2 + e] = vb;
+      mx_a = fmaxf(mx_a, va);
+      mx_b = fmaxf(mx_b, vb);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  float s[8][4];
-  prefetch(0, 0);
-  for (int step = 0, stage = 0; step < nsteps; ++step, stage ^= 1) {
-    prefetch(step + 1, stage ^ 1);
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    __syncthreads();
-    const int sub = step / nds, dstep = step - sub * nds;
-    if (dstep == 0) {
+  mx_a = QuadMax(mx_a);
+  mx_b = QuadMax(mx_b);
+  const float mn_a = fmaxf(sa.m, mx_a), mn_b = fmaxf(sb.m, mx_b);
+  // all-masked-so-far rows: masked entries must give p = 0
+  const float ms_a = mn_a <= kNegInf * 0.5f ? 0.f : mn_a;
+  const float ms_b = mn_b <= kNegInf * 0.5f ? 0.f : mn_b;
+  float ps_a = 0.f, ps_b = 0.f, lab_a = 0.f, lab_b = 0.f, tot_a = 0.f,
+        tot_b = 0.f;
+  int ix_a = kBigIdx, ix_b = kBigIdx;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+  for (int j = 0; j < kXCols / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    }
-    const bf16* xt = stages + stage * kHStageElems;
-    const bf16* wt = xt + kHRows * kHLd;
-#pragma unroll
-    for (int kk = 0; kk < kHDepth / 16; ++kk) {
-      const bf16* ap = xt + lr_a * kHLd + kk * 16 + 2 * tig;
-      const uint32_t a[4] = {Ld32(ap), Ld32(ap + 8 * kHLd), Ld32(ap + 8),
-                             Ld32(ap + 8 * kHLd + 8)};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const bf16* bp = wt + (cg * 64 + nt * 8 + g) * kHLd + kk * 16 +
-                         2 * tig;
-        MmaBf16(s[nt], a, Ld32(bp), Ld32(bp + 8));
+    for (int e = 0; e < 2; ++e) {
+      const int col = c0 + 8 * j + 2 * tq + e;
+      const float va = acc[4 * j + e], vb = acc[4 * j + 2 + e];
+      ps_a += expf(va - ms_a);
+      ps_b += expf(vb - ms_b);
+      if (col < vocab) {
+        if (col == label_a) lab_a += va;
+        if (col == label_b) lab_b += vb;
+        tot_a += va;
+        tot_b += vb;
+        if (va >= mx_a) ix_a = min(ix_a, col);
+        if (vb >= mx_b) ix_b = min(ix_b, col);
       }
     }
-    __syncthreads();   // this stage is consumed before it is refilled
-    if (dstep == nds - 1) {
-      const int cbase = sub * kHCols + cg * 64;
-      FoldRow(st_a, s, 0, cbase, vocab, label_a, bias, soft_cap, need_sum);
-      FoldRow(st_b, s, 2, cbase, vocab, label_b, bias, soft_cap, need_sum);
-    }
+  ps_a = QuadSum(ps_a);
+  ps_b = QuadSum(ps_b);
+  sa.llog += QuadSum(lab_a);
+  sb.llog += QuadSum(lab_b);
+  if (need_sum) {
+    sa.sum += QuadSum(tot_a);
+    sb.sum += QuadSum(tot_b);
   }
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  // merge the two column warps of each row (column group 1 hands over)
-  if (cg == 1 && tig == 0) {
-    const RowStats* sts[2] = {&st_a, &st_b};
-    const int lrs[2] = {lr_a, lr_b};
-    for (int i = 0; i < 2; ++i) {
-      float* mrow = merge + lrs[i] * 5;
-      mrow[0] = sts[i]->m;
-      mrow[1] = sts[i]->l;
-      mrow[2] = sts[i]->sum;
-      mrow[3] = sts[i]->llog;
-      mrow[4] = __int_as_float(sts[i]->amax);
+  ix_a = QuadMin(ix_a);
+  ix_b = QuadMin(ix_b);
+  sa.l = expf(sa.m - mn_a) * sa.l + ps_a;
+  sb.l = expf(sb.m - mn_b) * sb.l + ps_b;
+  // first occurrence: strict > keeps the earlier tile on ties
+  if (mx_a > sa.m) sa.amax = ix_a;
+  if (mx_b > sb.m) sb.amax = ix_b;
+  sa.m = mn_a;
+  sb.m = mn_b;
+}
+
+// grid (row tiles, splits); part: float32 [kParts, splits, M] (the argmax
+// as int bits), merged by FusedXentCombineKernel.
+__global__ void __launch_bounds__(kXThreads, 1) FusedXentStatsBf16Kernel(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_w, const bf16* __restrict__ bias,
+    const int* __restrict__ labels, float* __restrict__ part, int m_rows,
+    int d, int vocab, int tiles_per_split, float soft_cap, int need_sum) {
+  extern __shared__ __align__(16) unsigned char xsmem[];
+  unsigned char* sm = xsmem + ((1024 - (SmemAddr(xsmem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kXBars);
+  uint64_t* empty = full + kXStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * kXRows;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int col_tiles = (vocab + kXCols - 1) / kXCols;
+  const int t0 = split * tiles_per_split;
+  const int ntiles = min(tiles_per_split, col_tiles - t0);
+  const int nks = (d + kXDepth - 1) / kXDepth;
+
+  if (tid == 0) {
+    for (int st = 0; st < kXStages; ++st) {
+      MbarInit(&full[st], 1);
+      MbarInit(&empty[st], kXConsumers / 32);  // one arrival per warp
     }
+    MbarInitFence();
   }
   __syncthreads();
-  if (cg == 0 && tig == 0) {
-    const RowStats* sts[2] = {&st_a, &st_b};
-    const int lrs[2] = {lr_a, lr_b};
+
+  if (warp == kXConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      int stage = 0, phase = 0;
+      for (int t = 0; t < ntiles; ++t)
+        for (int ks = 0; ks < nks; ++ks) {
+          MbarWait(&empty[stage], phase ^ 1);
+          unsigned char* st = sm + stage * kXStage;
+          MbarArriveExpectTx(&full[stage], kXStage);
+          TmaLoad2(st, &tm_x, &full[stage], ks * kXDepth, r0);
+          TmaLoad2(st + kXBox, &tm_w, &full[stage], ks * kXDepth,
+                   (t0 + t) * kXCols);
+          if (++stage == kXStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: rows wg_r0 .. wg_r0 + 63; this thread's rows
+  // row_a and row_b = row_a + 8 (the accumulators' layout)
+  const int wg = warp >> 2;
+  const int row_a = r0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const int row_b = row_a + 8;
+  const int label_a = row_a < m_rows ? labels[row_a] : -1;
+  const int label_b = row_b < m_rows ? labels[row_b] : -1;
+  RowStats sa = {kNegInf, 0.f, 0.f, 0.f, 0};
+  RowStats sb = sa;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;  // overwritten (scale_d 0)
+
+  int stage = 0, phase = 0, prev = -1;
+  for (int t = 0; t < ntiles; ++t) {
+    for (int ks = 0; ks < nks; ++ks) {
+      MbarWait(&full[stage], phase);
+      const unsigned char* st = sm + stage * kXStage;
+      WgmmaFence();
+#pragma unroll
+      for (int kk = 0; kk < kXDepth / 16; ++kk)
+        WgmmaSS128(acc,
+                   SwizzledDesc(st + wg * 64 * 128 + 32 * kk, 16, 1024),
+                   SwizzledDesc(st + kXBox + 32 * kk, 16, 1024),
+                   ks > 0 || kk > 0);
+      WgmmaCommit();
+      WgmmaWait<1>();  // the previous k-step's wgmmas are done
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) MbarArrive(&empty[prev]);
+      }
+      prev = stage;
+      if (++stage == kXStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    WgmmaWait<0>();
+    FenceRegs(acc);
+    __syncwarp();
+    if (lane == 0) MbarArrive(&empty[prev]);
+    prev = -1;
+    FoldTile(acc, sa, sb, (t0 + t) * kXCols, vocab, label_a, label_b, bias,
+             soft_cap, need_sum);
+  }
+  if ((lane & 3) == 0) {
+    const size_t plane = static_cast<size_t>(splits) * m_rows;
+    const RowStats* sts[2] = {&sa, &sb};
+    const int rows[2] = {row_a, row_b};
     for (int i = 0; i < 2; ++i) {
-      const int row = r0 + lrs[i];
-      if (row >= m_rows) continue;
-      const float* mrow = merge + lrs[i] * 5;
-      const float m0 = sts[i]->m, m1 = mrow[0];
-      const int a0 = sts[i]->amax, a1 = __float_as_int(mrow[4]);
-      const float mm = fmaxf(m0, m1);
-      const float l = sts[i]->l * expf(m0 - mm) + mrow[1] * expf(m1 - mm);
-      lse_out[row] = mm + logf(fmaxf(l, 1e-37f));
-      llog_out[row] = sts[i]->llog + mrow[3];
-      sum_out[row] = sts[i]->sum + mrow[2];
-      amax_out[row] = m0 > m1 ? a0 : m1 > m0 ? a1 : min(a0, a1);
+      if (rows[i] >= m_rows) continue;
+      float* p = part + static_cast<size_t>(split) * m_rows + rows[i];
+      p[0] = sts[i]->m;
+      p[plane] = sts[i]->l;
+      p[2 * plane] = sts[i]->llog;
+      p[3 * plane] = need_sum ? sts[i]->sum : 0.f;
+      p[4 * plane] = __int_as_float(sts[i]->amax);
     }
   }
+}
+
+// The TMA map of a bf16 [outer, inner] row-major matrix in boxes of
+// kXRows rows x kXDepth columns, 128-byte swizzled; rows past `outer` and
+// columns past `inner` read as zeros.
+bool Bf16BoxMap(EncodeTiledFn encode, CUtensorMap* map, const void* base,
+                int inner, int outer) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) *
+                                 sizeof(bf16)};
+  const cuuint32_t box[2] = {kXDepth, kXRows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t AllowBf16Smem() {
+  return cudaFuncSetAttribute(FusedXentStatsBf16Kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kXSmemBytes));
 }
 
 }  // namespace
@@ -613,25 +675,52 @@ int FusedXentF32Geometry(int* geo) {
 }
 
 // The bfloat16 kernel: x [M, D], w [V, D] and bias [V] bf16 (the [V, D]
-// layout only, D a multiple of 8), the rest as above.
+// layout only, D a multiple of 8, x and w 16-byte aligned), the rest as
+// above; splits and tiles_per_split from `StatsGeometry` at this kernel's
+// occupancy. Two kernels: the split statistics, then the combine.
 int FusedXentStatsBF16(const void* x, const void* w, const void* bias,
                        const int* labels, float* lse, float* llog,
-                       float* sumlog, int* amax, int m_rows, int d, int vocab,
-                       float soft_cap, int need_sum, void* stream) {
-  if (m_rows <= 0 || d <= 0 || d % 8 != 0 || vocab <= 0)
+                       float* sumlog, int* amax, float* part, int m_rows,
+                       int d, int vocab, float soft_cap, int need_sum,
+                       int splits, int tiles_per_split, void* stream) {
+  const int col_tiles = (vocab + kXCols - 1) / kXCols;
+  if (m_rows <= 0 || d <= 0 || d % 8 != 0 || vocab <= 0 || splits <= 0 ||
+      tiles_per_split <= 0 || (splits - 1) * tiles_per_split >= col_tiles ||
+      splits * tiles_per_split < col_tiles ||
+      (m_rows + kXRows - 1) / kXRows > 2147483647 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      FusedXentStatsBf16Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kHSmemBytes));
+  const EncodeTiledFn encode = TensorMapEncoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mx, mw;
+  if (!Bf16BoxMap(encode, &mx, x, d, m_rows) ||
+      !Bf16BoxMap(encode, &mw, w, d, vocab))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = AllowBf16Smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks =
-      static_cast<unsigned>((m_rows + kHRows - 1) / kHRows);
-  FusedXentStatsBf16Kernel<<<blocks, kHThreads, kHSmemBytes,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), labels, lse, llog, sumlog, amax,
-      m_rows, d, vocab, soft_cap, need_sum);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((m_rows + kXRows - 1) / kXRows, splits);
+  FusedXentStatsBf16Kernel<<<grid, kXThreads, kXSmemBytes, s>>>(
+      mx, mw, static_cast<const bf16*>(bias), labels, part, m_rows, d, vocab,
+      tiles_per_split, soft_cap, need_sum);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FusedXentCombineKernel<<<(m_rows + 255) / 256, 256, 0, s>>>(
+      part, splits, m_rows, lse, llog, sumlog, amax);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bfloat16 kernel's launch geometry on the current device, as
+// FusedXentF32Geometry.
+int FusedXentBf16Geometry(int* geo) {
+  cudaError_t err = AllowBf16Smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, FusedXentStatsBf16Kernel, kXThreads, kXSmemBytes);
+  geo[0] = kXThreads;
+  geo[1] = static_cast<int>(kXSmemBytes);
+  geo[2] = per_sm;
+  return static_cast<int>(err);
 }
 
 const char* FusedXentErrorString(int code) {

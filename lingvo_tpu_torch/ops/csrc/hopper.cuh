@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bfloat16 flash-attention forward
-// (flash_attention.cu): mbarriers, TMA tensor loads and warpgroup matrix
-// multiplies (wgmma), as inline PTX.
+// (flash_attention.cu) and the bfloat16 fused-xent statistics
+// (fused_xent.cu): mbarriers, TMA tensor loads and warpgroup matrix
+// multiplies (wgmma), as inline PTX, and the host's tensor-map encoder.
 //
 // Conventions. Tiles are copied by TMA with the 128-byte swizzle: a box
 // of R rows x 64 bf16 columns (128 bytes) lands as R rows of 128 bytes,
@@ -16,9 +17,37 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time (so a
+// library needs no -lcuda); null if the driver has none.
+typedef CUresult (*EncodeTiledFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn TensorMapEncoder() {
+  static EncodeTiledFn fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t SmemAddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -87,6 +116,18 @@ __device__ __forceinline__ void TmaLoad4(void* dst, const void* map,
       : "memory");
 }
 
+// The box at coordinates (c0, c1) (innermost first) of the 2-D tensor map
+// `map` into dst; completion is counted on `bar` in bytes.
+__device__ __forceinline__ void TmaLoad2(void* dst, const void* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(SmemAddr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(SmemAddr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // -- wgmma --
 
 // The shared-memory matrix descriptor of a 128-byte-swizzled tile at p
@@ -141,6 +182,37 @@ __device__ __forceinline__ void WgmmaSS64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B^T over one m64n128k16 step: A [64 x 16] and B [128 x 16]
+// K-major in shared memory (descriptors da, db); scale_d = 0 overwrites d.
+__device__ __forceinline__ void WgmmaSS128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

@@ -1,6 +1,6 @@
 // The storage formats of the KV pools and caches that the attention
 // kernels read (ragged_block_attend.cu, block_decode.cu, flash_decode.cu),
-// in one place.
+// in one place. `kRoundsP` says whether a format rounds p (bfloat16 only).
 //
 // Every kernel is a template on the storage type T and reads K and V only
 // through `Kv<T>`, which returns float32; everything after the load is
@@ -32,6 +32,7 @@ struct Kv;
 
 template <>
 struct Kv<float> {
+  static constexpr bool kRoundsP = false;  // RoundP is the identity
   __device__ static float Scale(const float*, size_t) { return 0.f; }
   // values 4i .. 4i + 3 of a row
   __device__ static float4 Load4(const float* row, int i, float) {
@@ -45,6 +46,7 @@ struct Kv<float> {
 
 template <>
 struct Kv<__nv_bfloat16> {
+  static constexpr bool kRoundsP = true;
   __device__ static float Scale(const float*, size_t) { return 0.f; }
   __device__ static float4 Load4(const __nv_bfloat16* row, int i, float) {
     const uint2 raw = reinterpret_cast<const uint2*>(row)[i];
@@ -64,6 +66,7 @@ struct Kv<__nv_bfloat16> {
 
 template <>
 struct Kv<int8_t> {
+  static constexpr bool kRoundsP = false;
   __device__ static float Scale(const float* scales, size_t at) {
     return scales[at];
   }

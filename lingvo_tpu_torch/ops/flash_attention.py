@@ -92,14 +92,23 @@ def _CheckRows(q, rows, name):
                        f"got {x.dtype} {tuple(x.shape)}")
 
 
+def KernelLimitError(head_dim: int) -> str | None:
+  """Why the CUDA kernels cannot take this head dim, or None if they
+  can: a multiple of 16, at most MAX_HEAD_DIM. The wrappers raise it; the
+  attention gate reads it."""
+  if head_dim % 16 or not 0 < head_dim <= MAX_HEAD_DIM:
+    return (f"the kernels take a head dim that is a multiple of 16 and at "
+            f"most {MAX_HEAD_DIM}, got {head_dim}")
+  return None
+
+
 def _CheckCudaLayout(tensors, name):
   q = tensors[0]
+  reason = KernelLimitError(q.shape[-1])
+  if reason is not None:
+    raise ValueError(f"{name}: {reason}")
   if q.device.type != "cuda":
     raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
-  h = q.shape[-1]
-  if h % 16 != 0 or h > MAX_HEAD_DIM:
-    raise ValueError(f"{name} kernel takes a head dim that is a multiple of "
-                     f"16 and at most {MAX_HEAD_DIM}, got {h}")
   for x in tensors:
     if x is not None and (not x.is_contiguous() or x.data_ptr() % 16):
       raise ValueError(f"{name} kernel takes contiguous tensors at 16-byte "

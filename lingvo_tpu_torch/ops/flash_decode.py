@@ -175,6 +175,24 @@ def Geometry(device, dtype=torch.float32) -> tuple:
   return _geometry[idx, dtype]
 
 
+def KernelLimitError(head_dim: int, page_size: int,
+                     dtype=torch.float32) -> str | None:
+  """Why the CUDA kernel cannot take this shape, or None if it can: a
+  float32 or bfloat16 cache, head dim in DTYPE_HEAD_DIMS[dtype] (a
+  bfloat16 cache's 16-byte copies must not span two slots: 8 and up),
+  page_size 1..MAX_PAGE_SIZE. The wrapper raises it; the attention gate
+  reads it."""
+  if dtype not in DTYPE_HEAD_DIMS:
+    return f"FlashDecode kernel takes float32 or bfloat16 caches, not {dtype}"
+  if head_dim not in DTYPE_HEAD_DIMS[dtype]:
+    return (f"head dim {head_dim} not one of the FlashDecode kernel's "
+            f"{DTYPE_HEAD_DIMS[dtype]} for a {dtype} cache")
+  if not 1 <= page_size <= MAX_PAGE_SIZE:
+    return (f"page_size {page_size} outside the FlashDecode kernel's "
+            f"[1, {MAX_PAGE_SIZE}]")
+  return None
+
+
 def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   b, n, h = q.shape
   s = k_cache.shape[1]
@@ -187,12 +205,9 @@ def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   if k_cache.shape != v_cache.shape or tuple(k_cache.shape) != (b, s, n, h):
     raise ValueError(f"cache shapes {tuple(k_cache.shape)}, "
                      f"{tuple(v_cache.shape)} do not match q {tuple(q.shape)}")
-  if not 1 <= page_size <= MAX_PAGE_SIZE:
-    raise ValueError(f"page_size {page_size} outside the kernel's "
-                     f"[1, {MAX_PAGE_SIZE}]")
-  if h not in DTYPE_HEAD_DIMS[dtype]:
-    raise ValueError(f"head dim {h} not one of the kernel's "
-                     f"{DTYPE_HEAD_DIMS[dtype]} for a {dtype} cache")
+  reason = KernelLimitError(h, page_size, dtype)
+  if reason is not None:
+    raise ValueError(reason)
   tensors = [q, k_cache, v_cache]
   if cache_paddings is not None:
     if cache_paddings.dtype != torch.float32 or tuple(

@@ -13,9 +13,10 @@ the backward as (1 - (logit/cap)^2).
 
 The forward statistics have two implementations of one function:
 
-- the CUDA kernels `ops/csrc/fused_xent.cu`, for CUDA tensors (float32:
-  vocab splits of 128-column tiles, grid from `StatsGeometry`, merged in
-  order by a second kernel; bfloat16: tensor cores);
+- the CUDA kernels `ops/csrc/fused_xent.cu`, for CUDA tensors (both
+  dtypes split the vocabulary into runs of 128-column tiles, the grid from
+  `StatsGeometry` at each kernel's occupancy, merged in order by a second
+  kernel; float32 on the CUDA cores, bfloat16 by wgmma fed by TMA);
 - `_PlainStats`, the reference's `_XlaStats` loop over vocab blocks, in its
   op order (`_BlockLogits`, `_BlockStats`): the CPU path and the kernel's
   yardstick on the card.
@@ -153,17 +154,20 @@ def _PlainStats(x, w, b, labels, cfg: _Cfg):
 
 _lib = None   # the loaded kernel library, with its C signature declared
 
-# the float32 kernel's tile (rows and vocab columns a block computes at
-# once), D per cp.async stage and stages in its ring: csrc/fused_xent.cu's
-# kTile, kDepth and kStages (the launch refuses other values)
+# the kernels' tile (rows and vocab columns a block computes at once), D
+# per copy stage and stages in their rings: csrc/fused_xent.cu's kTile,
+# kDepth and kStages (float32; the launch refuses other values) and kXRows
+# = kXCols, kXDepth and kXStages (bfloat16)
 STATS_TILE, STATS_DEPTH, STATS_STAGES = 128, 32, 2
+BF16_STATS_DEPTH, BF16_STATS_STAGES = 64, 4
 _MIN_TILES_PER_SPLIT = 4   # vocab tiles a split takes at least (if it can)
 
 
 @functools.lru_cache(maxsize=None)
 def StatsGeometry(rows: int, vocab: int, sms: int = 132, per_sm: int = 2):
-  """The float32 statistics kernel's grid: (row tiles, vocab splits), and
-  the vocab tiles of STATS_TILE columns each split owns, in order.
+  """A statistics kernel's grid: (row tiles, vocab splits), and the vocab
+  tiles of STATS_TILE columns each split owns, in order; `per_sm` is the
+  kernel's resident blocks per SM (2 for float32, 1 for bfloat16).
 
   Split s owns tiles [s * tiles_per_split, (s + 1) * tiles_per_split) of
   the ceil(vocab / STATS_TILE); every split owns at least one. Of the
@@ -201,24 +205,35 @@ def _Lib():
     lib.FusedXentF32Geometry.argtypes = [vp]
     lib.FusedXentF32Geometry.restype = ci
     lib.FusedXentStatsBF16.argtypes = (
-        [vp] * 8 + [ci] * 3 + [ctypes.c_float, ci, vp])
+        [vp] * 9 + [ci] * 3 + [ctypes.c_float] + [ci] * 3 + [vp])
     lib.FusedXentStatsBF16.restype = ci
+    lib.FusedXentBf16Geometry.argtypes = [vp]
+    lib.FusedXentBf16Geometry.restype = ci
     lib.FusedXentErrorString.argtypes = [ci]
     lib.FusedXentErrorString.restype = ctypes.c_char_p
     _lib = lib
   return _lib
 
 
-def KernelGeometry():
+def KernelGeometry(dtype=torch.float32):
   """(threads, shared bytes per block, resident blocks per SM) of the
-  float32 statistics kernel on the current device."""
+  statistics kernel of `dtype` on the current device."""
   lib = _Lib()
   geo = (ctypes.c_int * 3)()
-  rc = lib.FusedXentF32Geometry(geo)
+  bf16 = dtype == torch.bfloat16
+  rc = (lib.FusedXentBf16Geometry if bf16 else lib.FusedXentF32Geometry)(geo)
   if rc != 0:
-    raise RuntimeError("FusedXentF32Geometry failed: "
+    raise RuntimeError("the fused-xent kernel geometry failed: "
                        + lib.FusedXentErrorString(rc).decode())
   return tuple(geo)
+
+
+@functools.lru_cache(maxsize=None)
+def _Bf16PerSm(device_index: int) -> int:
+  """The bfloat16 kernel's resident blocks per SM on a device (read once:
+  the occupancy query costs host time on every training step)."""
+  with torch.cuda.device(device_index):
+    return KernelGeometry(torch.bfloat16)[2]
 
 
 def _CheckStatsArgs(x, w, b, labels, cfg: _Cfg):
@@ -273,16 +288,21 @@ def FusedXentStats(x, w, b, labels, cfg: _Cfg):
             lse.data_ptr(), llog.data_ptr(), sumlog.data_ptr(),
             amax.data_ptr())
     # the statistics do not depend on the vocab blocks (no rounding
-    # inside), so both kernels walk the vocabulary in their own tiles
+    # inside), so both kernels walk the vocabulary in their own tiles, in
+    # splits merged in order by a second kernel: one counted launch
+    props = torch.cuda.get_device_properties(x.device)
     if bf16:
-      rc = lib.FusedXentStatsBF16(*ptrs, rows, d, cfg.vocab, cfg.soft_cap,
-                                  int(need_sum), stream)
+      geo = StatsGeometry(rows, cfg.vocab, props.multi_processor_count,
+                          _Bf16PerSm(x.device.index))
     else:
-      # vocab splits merged in order by a second kernel: one counted launch
-      props = torch.cuda.get_device_properties(x.device)
       geo = StatsGeometry(rows, cfg.vocab, props.multi_processor_count)
-      part = torch.empty((5, geo["splits"], rows), dtype=torch.float32,
-                         device=x.device)
+    part = torch.empty((5, geo["splits"], rows), dtype=torch.float32,
+                       device=x.device)
+    if bf16:
+      rc = lib.FusedXentStatsBF16(*ptrs, part.data_ptr(), rows, d, cfg.vocab,
+                                  cfg.soft_cap, int(need_sum), geo["splits"],
+                                  geo["tiles_per_split"], stream)
+    else:
       vec = (d % 4 == 0 and (cfg.vd or cfg.vocab % 4 == 0)
              and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
       rc = lib.FusedXentStatsF32(*ptrs, part.data_ptr(), rows, d, cfg.vocab,

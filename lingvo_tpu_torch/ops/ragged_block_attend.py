@@ -319,6 +319,20 @@ def DeviceSchedule(row_of, q_end, page_size: int, t_pages: int,
   return ws[2:2 + len(ITEM_FIELDS) * ws[0]].reshape(-1, len(ITEM_FIELDS))
 
 
+def KernelLimitError(head_dim: int, page_size: int) -> str | None:
+  """Why the CUDA kernel cannot take this shape, or None if it can: a
+  head dim that is a multiple of 4 up to MAX_HEAD_DIM, page_size in
+  [MIN_PAGE_SIZE, MAX_PAGE_SIZE]. The wrapper raises it; the attention
+  gate reads it."""
+  if head_dim % 4 or not 0 < head_dim <= MAX_HEAD_DIM:
+    return (f"head dim {head_dim}: the RaggedAttend kernel takes a multiple "
+            f"of 4 up to {MAX_HEAD_DIM}")
+  if not MIN_PAGE_SIZE <= page_size <= MAX_PAGE_SIZE:
+    return (f"page_size {page_size} outside the RaggedAttend kernel's "
+            f"[{MIN_PAGE_SIZE}, {MAX_PAGE_SIZE}]")
+  return None
+
+
 def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
                       page_size, q_start, anc_lo, anc_hi, k_scale, v_scale,
                       kv_dtype):
@@ -330,12 +344,11 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
   if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
     raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
                      f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
-  if p != page_size or not MIN_PAGE_SIZE <= p <= MAX_PAGE_SIZE:
-    raise ValueError(f"page_size {page_size} (pool pages of {p}) outside the "
-                     f"kernel's [{MIN_PAGE_SIZE}, {MAX_PAGE_SIZE}]")
-  if h > MAX_HEAD_DIM or h % 4:
-    raise ValueError(f"head dim {h}: the kernel takes a multiple of 4 up to "
-                     f"{MAX_HEAD_DIM}")
+  if p != page_size:
+    raise ValueError(f"page_size {page_size}, pool pages of {p}")
+  reason = KernelLimitError(h, p)
+  if reason is not None:
+    raise ValueError(reason)
   if t > MAX_TOKENS:
     raise ValueError(f"{t} packed tokens above the kernel's {MAX_TOKENS}")
   ints = [block_tables, row_of, q_end, q_start, anc_lo, anc_hi]

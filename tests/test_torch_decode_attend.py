@@ -834,3 +834,215 @@ class TestCudaKernels:
                                      page_size=P)
       torch.cuda.synchronize()
       assert torch.equal(got, flt)
+
+
+# -- row 2's split over a thread-block cluster (its CPU model) -----------------
+
+
+@pytest.mark.parametrize("page", [1, 4, 16, 128])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_split_pages_cover_every_live_page_once(splits, page):
+  """`SplitPages`, the block-decode kernel's split of a row: the blocks'
+  runs, in rank order, are contiguous and cover the row's live pages
+  exactly once (empty runs allowed), for rows of 0, 1, P, P + 1 slots, a
+  ragged length and the table's full width (and past it: the read stops
+  at the table)."""
+  t_pages = 12
+  for seq_len in (0, 1, page, page + 1, 5 * page - 3, t_pages * page,
+                  t_pages * page + 7):
+    runs = block_decode.SplitPages(seq_len, page, t_pages, splits)
+    live = min(-(-seq_len // page), t_pages) if seq_len > 0 else 0
+    assert len(runs) == splits
+    hits = np.zeros(t_pages, int)
+    end = 0
+    for a, b in runs:
+      assert a == end and b >= a
+      hits[a:b] += 1
+      end = b
+    assert end == live
+    assert (hits[:live] == 1).all() and (hits[live:] == 0).all()
+
+
+@pytest.mark.parametrize("t_pages, page, want", [
+    (64, 16, 8), (8, 128, 8), (4, 4, 1), (64, 4, 4), (3, 128, 3), (1, 1, 1),
+    (512, 16, 8)])
+def test_split_count_reads_the_table_width_only(t_pages, page, want):
+  """`NumSplits` from the table's width and P (never seq_lens): about
+  SPLIT_SLOTS table slots a block, at most 8 (the portable cluster) and
+  at most one page a block; every block's scores fit MAX_CTA_SLOTS."""
+  splits = block_decode.NumSplits(t_pages, page)
+  assert splits == want
+  assert block_decode.CtaSlots(t_pages, page, splits) <= (
+      block_decode.MAX_CTA_SLOTS)
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_split_maxima_are_the_reference_running_page_maxima(splits):
+  """What a bfloat16 pool's probabilities are rounded against: each
+  block's view (its own page maxima, then every block's max from the
+  cluster's exchange) gives, bitwise, the reference's running max through
+  the end of each page, and the row's max."""
+  rng = np.random.RandomState(splits)
+  for live in (1, 2, 7, 13, 40):
+    page_max = torch.as_tensor(rng.randn(live).astype(np.float32))
+    runs = block_decode.SplitPages(live * 16, 16, 64, splits)
+    got, row_max = block_decode.SplitMaxima(page_max, runs)
+    want = np.maximum.accumulate(page_max.numpy())
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert float(row_max) == float(want[-1])
+
+
+def _SplitModelDecode(q, k_pool, v_pool, tables, lens, page, splits):
+  """[B, N, H]: the block-decode kernel's arithmetic on a bfloat16 pool,
+  on the CPU, from the split model: the maxima M_j of `SplitMaxima`,
+  acc = sum bf16(exp(s - M_j)) exp(M_j - m) v, l the same unrounded, out =
+  acc / max(l, 1e-20) with the row's max m."""
+  b, _, n, h = q.shape
+  kf = torch.as_tensor(k_pool).bfloat16().float()
+  vf = torch.as_tensor(v_pool).bfloat16().float()
+  t_pages = tables.shape[1]
+  out = torch.zeros((b, n, h))
+  for bi in range(b):
+    runs = block_decode.SplitPages(int(lens[bi]), page, t_pages, splits)
+    live = runs[-1][1]
+    if live == 0:
+      continue
+    slots = np.arange(int(lens[bi]))[:live * page]
+    pids = tables[bi, slots // page]
+    for ni in range(n):
+      k_rows = kf[pids, slots % page, ni]                   # [S, H]
+      v_rows = vf[pids, slots % page, ni]
+      s = k_rows @ torch.as_tensor(q[bi, 0, ni])
+      page_of = torch.as_tensor(slots // page)
+      page_max = torch.stack([s[page_of == j].max() for j in range(live)])
+      m_j, m_row = block_decode.SplitMaxima(page_max, runs)
+      p = torch.exp(s - m_j[page_of])
+      e = torch.exp(m_j[page_of] - m_row)
+      acc = (p.bfloat16().float() * e)[:, None] * v_rows
+      out[bi, ni] = acc.sum(0) / torch.clamp((p * e).sum(), min=1e-20)
+  return out.numpy()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+def test_split_model_matches_interpreted_pallas_kernel(splits):
+  """The kernel's bfloat16 arithmetic from the split model, on dyadic q
+  and K (scores exact in any order, so both sides round the same p),
+  against the reference's interpreted Pallas kernel and the plain
+  version, atol 2e-5; the inactive row exactly 0."""
+  q, k_pool, v_pool, tables, lens = _Pool(seed=13)
+  lens = np.array([11, 0, 16], np.int32)   # a ragged last page; full width
+  q, k_pool = _Dyadic(q, 1 / 64), _Dyadic(k_pool, 1 / 8)
+  got = _SplitModelDecode(q, k_pool, v_pool, tables, lens, P, splits)
+  np.testing.assert_allclose(
+      got, _JaxBlock(q, k_pool, v_pool, tables, lens, bf16=True)[:, 0],
+      atol=ATOL)
+  np.testing.assert_allclose(
+      got, _PortBlock(q, k_pool, v_pool, tables, lens, bf16=True)[:, 0],
+      atol=ATOL)
+  np.testing.assert_array_equal(got[1], np.zeros_like(got[1]))
+
+
+def _SplitPool(h, dtype, seed=14):
+  """Row 2's kernel cases: 5 rows of 2 heads over a 16-page table of
+  page 4: lengths 0 (inactive), 1, 4 (one full page), 37 (a
+  ragged last page) and 64 (the table's full width); every page no row
+  reads live, the table entries past each row's live pages and the stale
+  slots of its last page poisoned (NaN; int8 127 and NaN scales)."""
+  rng = np.random.RandomState(seed)
+  b, t_pages, n = 5, 16, 2
+  lens = np.array([0, 1, 4, 37, 64], np.int32)
+  need = [-(-int(x) // P) for x in lens]
+  np_total = sum(need) + 9
+  perm = rng.permutation(np_total)
+  owned = np.split(perm[:sum(need)], np.cumsum(need)[:-1])
+  freed = perm[sum(need):]
+  tables = rng.choice(freed, size=(b, t_pages)).astype(np.int32)
+  for r in range(b):
+    tables[r, :need[r]] = owned[r]
+  k_pool = _Dyadic(rng.randn(np_total, P, n, h), 1 / 8)
+  v_pool = rng.randn(np_total, P, n, h).astype(np.float32)
+  q = _Dyadic(rng.randn(b, 1, n, h) / np.sqrt(h), 1 / 64)
+  dead = np.zeros((np_total, P), bool)
+  dead[freed] = True
+  for r in range(b):
+    if need[r]:
+      dead[owned[r][-1], lens[r] - (need[r] - 1) * P:] = True
+  k, v, scales = _Storage(k_pool, v_pool, dtype)
+  c = lambda a: torch.as_tensor(a).cuda()
+  kw = {}
+  if scales:
+    ks, vs = (s.copy() for s in scales)
+    deq = (c(_Dequantize(k, ks)), c(_Dequantize(v, vs)))
+    k, v = k.copy(), v.copy()
+    for pool, sc in ((k, ks), (v, vs)):
+      pool[dead] = 127
+      sc.transpose(0, 2, 1)[dead] = np.nan
+    kw = dict(k_scale=c(ks), v_scale=c(vs))
+    kc, vc = c(k), c(v)
+  else:
+    kc, vc = c(k), c(v)
+    if dtype == "bfloat16":
+      kc, vc = kc.bfloat16(), vc.bfloat16()
+    kc[c(dead)] = float("nan")
+    vc[c(dead)] = float("nan")
+    deq = None
+  return c(q), kc, vc, c(tables), c(lens), kw, deq
+
+
+@pytest.mark.cuda
+class TestBlockDecodeSplitKernel:
+  """Row 2's kernel against `_PlainBlockDecode` on the card with its
+  cluster forced to 1, 2 and 8 blocks (`NumSplits`), at every head dim it
+  takes: float32 within 2e-5; bfloat16 within 1e-5 on dyadic q and K, the
+  float32 kernel on the widened pool (no p rounded) more than 1e-5 off;
+  int8 bitwise equal to the float32 kernel on the dequantized pool; two
+  calls bitwise equal, one counted launch per call; the inactive row
+  exactly 0."""
+
+  @pytest.mark.parametrize("splits", [1, 2, 8])
+  @pytest.mark.parametrize("dtype, h", [
+      ("float32", 4), ("float32", 8), ("float32", 16), ("float32", 32),
+      ("float32", 64), ("float32", 128), ("bfloat16", 8),
+      ("bfloat16", 32), ("bfloat16", 128), ("int8", 16), ("int8", 64),
+      ("int8", 128)])
+  def test_kernel_matches_plain(self, dtype, h, splits, monkeypatch):
+    _NeedCard()
+    monkeypatch.setattr(block_decode, "NumSplits", lambda *a: splits)
+    q, k, v, tables, lens, kw, deq = _SplitPool(h, dtype)
+    call = lambda k=k, v=v, kw=kw: block_decode.BlockDecode(
+        q, k, v, tables, lens, page_size=P, **kw)
+    launches = block_decode.BlockDecode.launches_by_dtype[dtype]
+    got, again = call(), call()
+    want = block_decode._PlainBlockDecode(q[:, 0], k, v, tables, lens, P,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert block_decode.BlockDecode.launches_by_dtype[dtype] == launches + 2
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    assert (got[0] == 0).all()
+    tol = 1e-5 if dtype == "bfloat16" else ATOL
+    assert float((got[:, 0] - want).abs().max()) <= tol
+    if dtype == "bfloat16":
+      unrounded = call(k.float(), v.float(), {})
+      assert float((unrounded[:, 0] - want).abs().max()) > 1e-5
+    if deq is not None:
+      assert torch.equal(got, call(*deq, {}))
+
+  def test_kernel_refuses_shapes_outside_its_limits(self):
+    """The wrapper raises what `KernelLimitError` says, before launching:
+    a head dim that is not a power of two, an int8 row under 16 bytes."""
+    _NeedCard()
+    for dtype, h in ((torch.float32, 48), (torch.int8, 8)):
+      assert block_decode.KernelLimitError(h, P, dtype) is not None
+      pool = torch.zeros(3, P, 1, h, device="cuda").to(dtype)
+      kw = {}
+      if dtype == torch.int8:
+        kw = dict(k_scale=torch.ones(3, 1, P, device="cuda"),
+                  v_scale=torch.ones(3, 1, P, device="cuda"))
+      launches = block_decode.BlockDecode.launches
+      with pytest.raises(ValueError, match="head dim"):
+        block_decode.BlockDecode(
+            torch.zeros(1, 1, 1, h, device="cuda"), pool, pool,
+            torch.zeros(1, 2, dtype=torch.int32, device="cuda"),
+            torch.ones(1, dtype=torch.int32, device="cuda"), page_size=P,
+            **kw)
+      assert block_decode.BlockDecode.launches == launches

@@ -244,7 +244,54 @@ def test_bf16_kernel_matches_plain_on_card(cuda, cap, ls):
     assert float(gap.abs().max()) <= 1e-5
 
 
-# -- the float32 kernel's grid (runs here) -------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, d, vocab", [(300, 200, 1003), (1100, 2048, 4001)])
+def test_bf16_kernel_edges_on_card(cuda, m, d, vocab):
+  """The bf16 kernel (wgmma fed by TMA, vocab splits) at shapes with more
+  than one split and a vocabulary that is not a multiple of its 128-column
+  tile: a partial row tile, D not a whole 64-wide stage (200) or several
+  (2048); cap and label smoothing on. lse and label logit within 1e-4 and
+  the logit sum within 2e-3 of `_PlainStats`, the argmax equal except on
+  logits within 1e-5, two calls bitwise equal, one counted launch."""
+  x, w, b, labels = _Bf16Inputs(np.random.RandomState(10), m, d, vocab)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  per_sm = fx.KernelGeometry(torch.bfloat16)[2]
+  assert fx.StatsGeometry(m, vocab, sms, per_sm)["splits"] > 1
+  cfg = fx._Cfg(block_size=384, vocab=vocab, vd=True, soft_cap=5.0,
+                label_smoothing=0.1)
+  before = fx.FusedXentStats.launches_by_dtype["bfloat16"]
+  got = fx.FusedXentStats(x, w, b, labels, cfg)
+  again = fx.FusedXentStats(x, w, b, labels, cfg)
+  want = fx._PlainStats(x, w, b, labels, cfg)
+  torch.cuda.synchronize()
+  assert fx.FusedXentStats.launches_by_dtype["bfloat16"] == before + 2
+  for a, e, tol in zip(got[:3], want[:3], (1e-4, 1e-4, 2e-3)):
+    assert float((a - e).abs().max()) <= tol
+  for a, e in zip(got, again):
+    assert torch.equal(a, e)
+  differ = torch.nonzero(got[3] != want[3]).flatten()
+  if len(differ):
+    s = fx._BlockLogits(x[differ], w, b, cfg)
+    rows = torch.arange(len(differ), device="cuda")
+    gap = (s[rows, got[3][differ].long()] - s[rows, want[3][differ].long()])
+    assert float(gap.abs().max()) <= 1e-5
+
+
+# -- the kernels' grids (run here) ---------------------------------------------
+
+
+@pytest.mark.parametrize("rows, vocab", [
+    (8192, 32000), (8192 + 37, 32000), (300, 1003), (1100, 4001)])
+def test_bf16_stats_geometry_splits_the_vocabulary(rows, vocab):
+  """The bf16 kernel's grid at its one block an SM: consecutive runs of
+  128-column tiles that cover the vocabulary once, none empty; at the
+  main path's shape at least two waves."""
+  geo = fx.StatsGeometry(rows, vocab, 132, 1)
+  tps, splits = geo["tiles_per_split"], geo["splits"]
+  assert (splits - 1) * tps < geo["col_tiles"] <= splits * tps
+  assert geo["grid"] == (-(-rows // 128), splits)
+  if rows >= 8192:
+    assert geo["row_tiles"] * splits >= 2 * 132
 
 
 @pytest.mark.parametrize("rows, vocab", [

@@ -156,6 +156,45 @@ def test_trimmed_prefill_matches_full_cache_read(p_len, cut, total):
       assert fl == tl == p_len, k
 
 
+@pytest.mark.parametrize("storage", ["float32", "bfloat16", "int8"])
+def test_tile_read_bits_do_not_depend_on_the_chunk_length(storage):
+  """`_TileAttend`, the prefill's cache read: rows 4-5 of a 6-query chunk
+  get bitwise the state of the same two queries read as a chunk of 2, on
+  float32 tiles, bfloat16 tiles widened to float32 and int8 tiles
+  dequantized (what `_ReadCache` hands it), over two tiles of 128 slots
+  with their online softmax. This is what makes a trimmed prefill equal
+  the full read bit for bit."""
+  from lingvo_tpu_torch.quant import kv as kv_quant
+  rng = np.random.RandomState(3)
+  b, n, h, tile = 2, 4, 16, 128
+  k = torch.as_tensor(rng.randn(b, 2 * tile, n, h).astype(np.float32))
+  v = torch.as_tensor(rng.randn(b, 2 * tile, n, h).astype(np.float32))
+  if storage == "bfloat16":
+    k, v = k.bfloat16().float(), v.bfloat16().float()
+  elif storage == "int8":
+    k, v = (kv_quant.DequantKv(*kv_quant.QuantizeKv(x)) for x in (k, v))
+  q = torch.as_tensor(rng.randn(b, 6, n, h).astype(np.float32))
+  qpos = torch.arange(150, 156)
+
+  def Read(qs, pos):
+    c = qs.shape[1]
+    m = torch.full((b, c, n, 1), -1.0e30)
+    l = torch.zeros((b, c, n, 1))
+    acc = torch.zeros((b, c, n, h))
+    for start in (0, tile):
+      slot = torch.arange(start, start + tile)
+      keep = (slot[None, :] <= pos[:, None])[None, :, None, :]
+      sl = slice(start, start + tile)
+      m, l, acc = attention._TileAttend(qs, k[:, sl], v[:, sl], keep, m, l,
+                                        acc)
+    return m, l, acc
+
+  full = Read(q, qpos)
+  pair = Read(q[:, 4:6].contiguous(), qpos[4:6])
+  for a, e in zip(full, pair):
+    np.testing.assert_array_equal(a[:, 4:6].numpy(), e.numpy())
+
+
 def test_ineligible_cache_takes_the_dense_read():
   """A cache that is not a whole number of pages reads densely."""
   _, _, lm = _TinyLm(decode_page_size=4)

@@ -10,26 +10,29 @@ Each tree's `lingvo_tpu_torch` is imported in a child process of its own
 (both packages have one name), in the order A, B, B, A, so that a drift
 of the card over the run shows as a difference between the two runs of
 one tree. The inputs and the timer are this checkout's `chip_smoke.py`
-(`_AttendPack`, `_KvStorage`, `_DecodePool`, `_ScanInputs`,
-`_FlashInputs`, `_TimeMs`, `_ServeMain`). Every child times:
+(`_KvStorage`, `_DecodePool`, `_DecodeOnlyLens`, `_AttendPack`,
+`_ScanInputs`, `_FlashInputs`, `_Requests`, `_TimeMs`). Every child times:
 
-- the float32 fused-xent statistics kernel at phase 8's shapes ([8192,
-  2048] x [32000, 2048], block 1280, cap 30) and its plain version, the
-  cuBLAS block loop `_PlainStats`, on the same inputs;
-- the ragged paged-attention kernel on float32, int8 and bfloat16 pools
-  at phase 3's pack (page 16, H = 128, dyadic q and K) and at the
-  decode-only pack (8 live tokens, 256 padding), and the host's enqueue
+- the block-decode kernel on float32, int8 and bfloat16 pools at phase
+  10's pool (page 16, 8 rows of 0..1024 slots, dyadic q and K) and at the
+  decode-only pack shaped like phase 12's steps, and the host's enqueue
   of one float32 call (`_EnqueueUs`);
-- DenseLm1B serving through `ServingLoop` (phase 5): ms per step, and
-  the cudaStreamSynchronize calls per step in the profiled windows.
+- the bfloat16 fused-xent statistics kernel at phase 19's shapes
+  ([8192, 2048] x [32000, 2048], block 1280, cap 30) and its plain
+  version, the cuBLAS block loop `_PlainStats`, on the same inputs;
+- DenseLm1B's GShardDecode prefill as phase 13 runs it (8 prompts
+  right-aligned in a 1024 bucket, a [8, 1152] cache, chunks of 256 with
+  live_len, decode_page_size 128; random weights from a seeded
+  generator): prefill_s, three times.
 
 Every child also digests (sha256 of the bytes) the outputs of the
 kernels that were not redesigned, which must be equal in all four runs:
 the flash-attention forward, dK/dV and dQ (float32 and bf16, phase 7 /
-18's shapes), flash decode (float32 and bf16 at t = 1151 and 700), block
-decode (float32, int8 and bf16 at phase 10's pool), the scan (phase 4's
-serving shape) and the bf16 fused xent; the redesigned kernels' outputs
-(float32 xent, the ragged kernel) and the served streams are reported
+18's shapes), flash decode (float32 and bf16 at t = 1151 and 700), the
+scan (phase 4's serving shape), the float32 fused xent (phase 8's
+shapes) and the ragged kernel (float32, int8, bf16 at phase 3's pack and
+the decode-only pack); the redesigned kernels' outputs (block decode in
+its three dtypes, bf16 xent) and the prefill's logits are reported
 apart. Prints one JSON line per child and a summary; needs one CUDA card
 and imports no JAX.
 """
@@ -41,12 +44,15 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# digests reported apart: the redesigned kernels, and the served streams
-REDESIGNED = ("xent_f32", "ragged", "streams")
+# digests reported apart: the redesigned kernels, and the prefill's logits
+REDESIGNED = ("block_decode_float32", "block_decode_int8",
+              "block_decode_bfloat16", "xent_bf16", "prefill")
 
 
 def _ChipSmoke():
@@ -100,18 +106,31 @@ def _Decode(torch, fd, cs, spi, outs):
         cache_paddings=padc)
 
 
-def _BlockDecodeAndScan(torch, bd, ssd, cs, outs):
-  """Block decode at phase 10's page-16 pool in its three dtypes, and the
-  scan at phase 4's serving shape."""
-  x, _, _, extra = cs._DecodePool(torch, 16, np.random.RandomState(10),
-                                  dyadic=True)
-  rest = (x["tables"], x["lens"])
-  outs["block_decode_f32"] = bd.BlockDecode(x["q"], x["k_pool"], x["v_pool"],
-                                            *rest, page_size=16)
-  for dtype in ("int8", "bfloat16"):
-    k, v, sc, _ = cs._KvStorage(torch, extra["clean"], extra["dead"], dtype)
-    outs[f"block_decode_{dtype}"] = bd.BlockDecode(x["q"], k, v, *rest,
-                                                   page_size=16, **sc)
+def _BlockDecode(torch, bd, cs, res, outs):
+  """Block decode in its three dtypes at phase 10's page-16 pool and at
+  the decode-only pack (dyadic q and K)."""
+  for pack, lens in (("main", None), ("decode_only", cs._DecodeOnlyLens())):
+    x, _, _, extra = cs._DecodePool(torch, 16, np.random.RandomState(10),
+                                    dyadic=True, lens=lens)
+    rest = (x["tables"], x["lens"])
+    for dtype in ("float32", "int8", "bfloat16"):
+      if dtype == "float32":
+        k, v, sc = x["k_pool"], x["v_pool"], {}
+      else:
+        k, v, sc, _ = cs._KvStorage(torch, extra["clean"], extra["dead"],
+                                    dtype)
+      call = lambda k=k, v=v, sc=sc: bd.BlockDecode(x["q"], k, v, *rest,
+                                                    page_size=16, **sc)
+      key = f"block_decode_{dtype}"
+      outs[key] = (call() if pack == "main"
+                   else torch.cat([outs[key].flatten(), call().flatten()]))
+      res[f"block_decode_{dtype}_{pack}_ms"] = cs._TimeMs(torch, call, 20)
+      if dtype == "float32":   # what a host-bound decode step pays a call
+        res[f"block_decode_{pack}_enqueue_us"] = cs._EnqueueUs(torch, call)
+
+
+def _Scan(torch, ssd, cs, outs):
+  """The scan at phase 4's serving shape."""
   xs, _ = cs._ScanInputs(torch, ssd, np.random.RandomState(8), 256,
                          [1, 256, 1, 200, 1, 37, 1, 0], [(5, 20)], True)
   outs["scan_y"], outs["scan_state"] = ssd.SsdScan(*xs[:4], s0=xs[4],
@@ -119,8 +138,8 @@ def _BlockDecodeAndScan(torch, bd, ssd, cs, outs):
 
 
 def _Xent(torch, fx, cs, res, outs):
-  """Fused xent at phase 8's shapes: the float32 kernel timed beside its
-  plain version; the bf16 kernel digested."""
+  """Fused xent at phase 8 / 19's shapes: the float32 kernel digested; the
+  bf16 kernel timed beside its plain version."""
   rng = np.random.RandomState(6)
   m, d, vocab = 8192, 2048, 32000
   x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda()
@@ -133,20 +152,21 @@ def _Xent(torch, fx, cs, res, outs):
   outs["xent_f32"] = torch.cat([
       a.float() for a in fx.FusedXentStats(x, w, bias, labels, cfg)
       if a is not None])
-  res["xent_f32_ms"] = cs._TimeMs(
-      torch, lambda: fx.FusedXentStats(x, w, bias, labels, cfg), 5)
-  res["xent_plain_ms"] = cs._TimeMs(
-      torch, lambda: fx._PlainStats(x, w, bias, labels, cfg), 3,
-      waits_as="plain xent stats")
   x16, w16, b16 = x.bfloat16(), w.bfloat16(), bias.bfloat16()
+  del x, w
   outs["xent_bf16"] = torch.cat([
       a.float() for a in fx.FusedXentStats(x16, w16, b16, labels, cfg)
       if a is not None])
+  res["xent_bf16_ms"] = cs._TimeMs(
+      torch, lambda: fx.FusedXentStats(x16, w16, b16, labels, cfg), 5)
+  res["xent_bf16_plain_ms"] = cs._TimeMs(
+      torch, lambda: fx._PlainStats(x16, w16, b16, labels, cfg), 3,
+      waits_as="plain xent stats")
 
 
-def _Ragged(torch, rba, ragged, cs, res, outs):
+def _Ragged(torch, rba, ragged, cs, outs):
   """The ragged kernel's three instantiations at phase 3's pack and the
-  decode-only pack (page 16, H = 128, dyadic q and K)."""
+  decode-only pack (page 16, H = 128, dyadic q and K), digested."""
   got = []
   for pack in ("main", "decode_only"):
     x, _, _, _, extra = cs._AttendPack(torch, ragged, 16, 128,
@@ -160,28 +180,39 @@ def _Ragged(torch, rba, ragged, cs, res, outs):
       else:
         k, v, sc, _ = cs._KvStorage(torch, extra["clean"], extra["dead"],
                                     dtype)
-      call = lambda k=k, v=v, sc=sc: rba.RaggedAttend(
-          x["q"], k, v, *ints, page_size=16, **sc, **tree)
-      got.append(call())
-      res[f"ragged_{dtype}_{pack}_ms"] = cs._TimeMs(torch, call, 20)
-      if dtype == "float32":   # what a host-bound serving step pays a call
-        res[f"ragged_{pack}_enqueue_us"] = cs._EnqueueUs(torch, call)
+      got.append(rba.RaggedAttend(x["q"], k, v, *ints, page_size=16, **sc,
+                                  **tree))
   outs["ragged"] = torch.cat([a.flatten() for a in got])
 
 
-def _Serve(torch, spi, engine, rba, cs, res, outs):
-  """DenseLm1B through ServingLoop as phase 5: ms per step, syncs per
-  step, the streams' digest."""
-  counters = cs._Counts(ragged_block_attend=(rba.RaggedAttend, "float32"))
-  syncs = {}
-  _, _, streams, ms = cs._ServeMain(torch, spi.DenseLm1B(), engine, counters,
-                                    dict(ragged_block_attend=24),
-                                    syncs=syncs)
-  res["serve_ms_per_step"] = ms
-  res["syncs_per_step_first"] = syncs.get("first", -1)
-  res["syncs_per_step_last"] = syncs.get("last", -1)
-  outs["streams"] = torch.as_tensor(np.concatenate(
-      [np.asarray(st, np.int64) for st in streams]))
+def _Prefill(torch, spi, attention, gshard, cs, res, outs, tmp):
+  """DenseLm1B's GShardDecode prefill as phase 13 runs it, three times."""
+  cfg = spi.DenseLm1B()
+  p = cfg.Task()
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      decode_page_size=128)
+  lm = p.Instantiate(device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  lens, prompts = cs._Requests(cfg)
+  arr = np.zeros((8, int(lens.max())), np.int32)
+  for i, pr in enumerate(prompts):
+    arr[i, :len(pr)] = pr
+  decoder = gshard.GShardDecode(lm, tmp, os.path.join(tmp, "decode.jsonl"),
+                                max_decode_steps=128, prefill_chunk_size=256)
+  init_fn, prefill_fn, _ = decoder._GetDecodeFn(1024, 128)
+  aligned = torch.as_tensor(decoder._RightAlign(arr, lens, width=1024)).cuda()
+  lens_dev = torch.as_tensor(lens).cuda()
+  for i in range(4):   # the first is a warm-up
+    with torch.no_grad():
+      states = init_fn(8)
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      logits, states = prefill_fn(aligned, lens_dev, states)
+      torch.cuda.synchronize()
+      if i:
+        res[f"prefill_s_{i}"] = time.perf_counter() - t0
+    del states
+  outs["prefill"] = logits
 
 
 def _Child(tree, save):
@@ -189,6 +220,7 @@ def _Child(tree, save):
   outputs (to `save`, for the bitwise comparison)."""
   import torch
   sys.path.insert(0, os.path.abspath(tree))
+  from lingvo_tpu_torch.core import attention
   from lingvo_tpu_torch.core import ragged
   from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
   from lingvo_tpu_torch.ops import block_decode as bd
@@ -197,23 +229,26 @@ def _Child(tree, save):
   from lingvo_tpu_torch.ops import fused_xent as fx
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
   from lingvo_tpu_torch.ops import ssd_scan as ssd
-  from lingvo_tpu_torch.serving import engine
+  from lingvo_tpu_torch.runners import gshard_decode as gshard
   cs = _ChipSmoke()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   res, outs = {"tree": tree}, {}
   _Flash(torch, fa, cs, outs)
   _Decode(torch, fd, cs, spi, outs)
-  _BlockDecodeAndScan(torch, bd, ssd, cs, outs)
+  _BlockDecode(torch, bd, cs, res, outs)
+  _Scan(torch, ssd, cs, outs)
   _Xent(torch, fx, cs, res, outs)
-  _Ragged(torch, rba, ragged, cs, res, outs)
+  _Ragged(torch, rba, ragged, cs, outs)
   torch.cuda.synchronize()
   digests = {key: hashlib.sha256(x.float().cpu().numpy().tobytes())
              .hexdigest() for key, x in outs.items()}
   outs.clear()
-  _Serve(torch, spi, engine, rba, cs, res, outs)
-  digests["streams"] = hashlib.sha256(
-      outs["streams"].numpy().tobytes()).hexdigest()
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as tmp:
+    _Prefill(torch, spi, attention, gshard, cs, res, outs, tmp)
+  digests["prefill"] = hashlib.sha256(
+      outs["prefill"].float().cpu().numpy().tobytes()).hexdigest()
   with open(save, "w") as f:
     json.dump(digests, f)
   print(json.dumps(res), flush=True)
@@ -270,15 +305,10 @@ def main():
             f"{b} {runs[1][0][key]:.4f} / {runs[2][0][key]:.4f}")
   for i, tree in enumerate((a, b, b, a)):
     r = runs[i][0]
-    print(f"run {i} ({tree}): float32 xent {r['xent_f32_ms']:.3f} ms, plain "
-          f"cuBLAS loop {r['xent_plain_ms']:.3f} ms "
-          f"({r['xent_plain_ms'] / r['xent_f32_ms']:.2f}x)")
-  syncs_ok = all(runs[i][0][k] <= runs[j][0][k]
-                 for i, j in ((1, 0), (2, 3))
-                 for k in ("syncs_per_step_first", "syncs_per_step_last"))
-  print(f"cudaStreamSynchronize per serving step: {b} "
-        f"{'at most' if syncs_ok else 'MORE THAN'} {a}'s")
-  return 0 if same and syncs_ok else 1
+    print(f"run {i} ({tree}): bf16 xent {r['xent_bf16_ms']:.3f} ms, plain "
+          f"cuBLAS loop {r['xent_bf16_plain_ms']:.3f} ms "
+          f"({r['xent_bf16_plain_ms'] / r['xent_bf16_ms']:.2f}x)")
+  return 0 if same else 1
 
 
 if __name__ == "__main__":
