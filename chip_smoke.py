@@ -170,9 +170,12 @@
    dv may differ in at most 1e-3 of their elements by more than 1e-5 x
    max|want| (float32 sums of exact products in other orders, then one
    bfloat16 rounding), and no element by more than one bfloat16 ulp,
-   2^-7 |want| + 1e-5 max|want|; lse within 2e-5; two forward calls
-   bitwise equal; prints the forward's grid, threads, shared memory per
-   block and resident blocks per SM. The control, p rounded against
+   2^-7 |want| + 1e-5 max|want|; lse within 2e-5; two calls of each of
+   the three kernels bitwise equal; prints the forward's grid, threads,
+   shared memory per block and resident blocks per SM, and the same of
+   dK/dV and dQ with their registers and local (spill) bytes per thread
+   (`BackwardGeometry(t, h, bfloat16)`), which must be 0. The control,
+   p rounded against
    64-key tile maxima instead of the running max through the 1024-key
    reference block, must differ in at least ten times as many out
    elements. Times each kernel, the plain
@@ -199,7 +202,9 @@
    exactly 48 / 24 / 24 / 1 bfloat16 launches per step (no float32 one),
    finite loss and grad_norm, no skipped step; prints ms/step, tokens/s,
    TFLOP/s against the 989 TFLOP/s bf16 peak, peak memory and a profiled
-   step's busy share and split.
+   step's busy share and split, the 10 aten ops with the largest self
+   device time (with counts) and the device time of the remat replay's
+   dtype casts.
 21. Prints the per-kernel JSON line (every kernel and every int8 /
    bfloat16 instantiation), then the result line.
 
@@ -785,10 +790,10 @@ def _CheckFlash(torch, fa, rng):
   _Check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
          "flash dK/dV: two calls differ bitwise")
   _Check(torch.equal(dq, dq2), "flash dQ: two calls differ bitwise")
-  for name, (threads, smem, per_sm) in fa.BackwardGeometry(t, h).items():
+  for name, g in fa.BackwardGeometry(t, h).items():
     print(f"flash {name}: two calls bitwise equal; grid ({b * n}, "
-          f"{-(-t // 64)}), {threads} threads, {smem} B shared per block, "
-          f"{per_sm} blocks resident per SM")
+          f"{g['tiles']}), {g['threads']} threads, {g['smem']} B shared per "
+          f"block, {g['per_sm']} blocks resident per SM")
   del dk2, dv2, dq2
   it = 10
   t_fwd = _TimeMs(torch, lambda: fa.FlashForward(q, k, v, seg, True), it)
@@ -857,6 +862,21 @@ def _UlpExcess(torch, got, want):
   return int((ratio > 1).sum()), float(ratio.max())
 
 
+# what the kernels JSON line says of the bf16 backward kernels' design
+_BF16_BWD_DESIGN = {
+    "flash_dkdv_bf16": "wgmma m64n64k16 (S^T, dP^T; SS) and m64n128k16 "
+                       "(dV, dK; A from registers) fed by TMA: 128 owned "
+                       "keys, two consumer warpgroups, a producer "
+                       "warpgroup at setmaxnreg 24 / 240, a 3-stage ring "
+                       "of 64-query tiles, gradients stored by TMA",
+    "flash_dq_bf16": "wgmma m64n128k16 (S, dP; SS) and m64n128k16 (dQ; A "
+                     "from registers) fed by TMA: 128 owned queries, two "
+                     "consumer warpgroups, a producer warpgroup at "
+                     "setmaxnreg 24 / 240, a 2-stage ring of 128-key tiles, "
+                     "dq stored by TMA",
+}
+
+
 def _CheckFlashBf16(torch, fa, rng):
   """The bf16 flash kernels against the Pallas twins at [8, 1024, 16, 128]
   on dyadic q, k, v and do; the tile-max control; times, bounds, SDPA."""
@@ -875,6 +895,8 @@ def _CheckFlashBf16(torch, fa, rng):
   delta = fa.RowDelta(do, out)
   dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True)
   dq = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
+  dk2, dv2 = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True)
+  dq2 = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
   dq_p, dk_p, dv_p = fa._PallasBackward(q, k, v, seg, do, lse, delta, True)
   control = fa._PallasForward(q, k, v, seg, True, 64)[0]
   torch.cuda.synchronize()
@@ -915,7 +937,21 @@ def _CheckFlashBf16(torch, fa, rng):
         f"{-(-t // 128)}) (heaviest query tiles first), {threads} threads "
         f"(two consumer warpgroups, one TMA producer warp), {smem} B shared "
         f"per block, {per_sm} blocks resident per SM")
-  del control, out2, lse2
+  _Check(torch.equal(dk, dk2) and torch.equal(dv, dv2),
+         "flash bf16 dK/dV: two calls differ bitwise")
+  _Check(torch.equal(dq, dq2), "flash bf16 dQ: two calls differ bitwise")
+  geometry = fa.BackwardGeometry(t, h, torch.bfloat16)
+  for name, g in geometry.items():
+    print(f"flash bf16 {name}: two calls bitwise equal; grid ({b * n}, "
+          f"{g['tiles']}) (a (b, n)'s blocks start together, heaviest causal "
+          f"tiles first), {g['threads']} threads ("
+          + "two consumer warpgroups, a producer warpgroup at setmaxnreg "
+          f"24 / 240), {g['smem']} B shared per block, {g['per_sm']} blocks "
+          f"resident per SM, {g['regs']} registers per thread at launch, "
+          f"{g['local']} B of local (spill) memory per thread")
+    _Check(g["local"] == 0, f"flash bf16 {name}: {g['local']} B of local "
+           "(spill) memory per thread")
+  del control, out2, lse2, dk2, dv2, dq2
   it = 10
   t_fwd = _TimeMs(torch, lambda: fa.FlashForward(q, k, v, seg, True), it)
   t_dkdv = _TimeMs(torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta,
@@ -953,11 +989,13 @@ def _CheckFlashBf16(torch, fa, rng):
                    bound=_Bound(6 * row + 2 * stats + seg_b, 8 * h * pairs,
                                 BF16_FLOPS_PER_S),
                    err=max(errs["dk"], errs["dv"]),
-                   share=max(shares["dk"], shares["dv"])),
+                   share=max(shares["dk"], shares["dv"]),
+                   geometry=geometry["dkdv"]),
       "dq": dict(ms=t_dq, plain_ms=p_bwd, library_ms=l_bwd,
                  bound=_Bound(5 * row + 2 * stats + seg_b, 6 * h * pairs,
                               BF16_FLOPS_PER_S),
-                 err=errs["dq"], share=shares["dq"]),
+                 err=errs["dq"], share=shares["dq"],
+                 geometry=geometry["dq"]),
   }
   for name, r in res.items():
     print(f"flash bf16 {name}: kernel {r['ms']:.4f} ms, plain "
@@ -1229,7 +1267,9 @@ def _ModelFlops(lm, cfg, pairs_per_layer):
 
 def _ProfileTrainStep(torch, prog, state):
   """One training step under torch.profiler: device busy ms, the shares of
-  the GEMMs, the three flash kernels and the xent kernel, the top 5."""
+  the GEMMs, the three flash kernels and the xent kernel, the top 5
+  kernels, the top 10 aten ops by self device time, and the remat
+  replay's casts."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -1239,8 +1279,11 @@ def _ProfileTrainStep(torch, prog, state):
     prog.Run(state)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
+  # the remat replay's profiler range (transformer._RematContexts) is
+  # recorded on the device too; it is no kernel
   kernels = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and _DevUs(e) > 0]
+             if e.device_type == DeviceType.CUDA and _DevUs(e) > 0
+             and e.key != "remat_replay"]
   busy_ms = sum(_DevUs(e) for e in kernels) / 1e3
   if busy_ms == 0:
     print("profiled train step: the profiler recorded no device time")
@@ -1260,6 +1303,38 @@ def _ProfileTrainStep(torch, prog, state):
         f"the rest {1 - gemm - share('Flash', 'FusedXent'):.1%} of busy")
   for e in kernels[:5]:
     print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+  ops = sorted((e for e in prof.key_averages()
+                if e.device_type == DeviceType.CPU
+                and e.key.startswith("aten::") and _DevUs(e) > 0),
+               key=_DevUs, reverse=True)
+  print("the 10 aten ops with the largest self device time (the kernels "
+        "each launches itself) in the profiled step:")
+  for e in ops[:10]:
+    print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key}")
+  casts_ms, casts, replay_ms = _RematCasts(prof.events())
+  print(f"remat replay: {replay_ms:.2f} ms of device time inside its "
+        f"`remat_replay` ranges; its {casts} dtype casts (aten::_to_copy) "
+        f"{casts_ms:.2f} ms ({casts_ms / busy_ms:.1%} of busy)")
+
+
+def _RematCasts(events):
+  """(device ms, count) of the dtype casts (`aten::_to_copy`, with what
+  they call) inside the backward's `remat_replay` ranges
+  (`transformer._RematContexts`), and the device ms of the ops in those
+  ranges (the range's own record on the device is no kernel)."""
+  dev = lambda e: e.device_time_total
+  casts_us, casts, replay_us = 0.0, 0, 0.0
+  for root in (e for e in events if e.name == "remat_replay"):
+    replay_us += sum(dev(e) for e in root.cpu_children)
+    stack = list(root.cpu_children)
+    while stack:
+      e = stack.pop()
+      if e.name == "aten::_to_copy":
+        casts_us += dev(e)
+        casts += 1
+      else:
+        stack.extend(e.cpu_children)
+  return casts_us / 1e3, casts, replay_us / 1e3
 
 
 def _TrainMain(torch, spi, program, counters, pairs_per_layer,
@@ -2330,6 +2405,10 @@ def main():
         "library_ms": res["library_ms"], "differing_share": res["share"]})
     if "control_share" in res:   # p rounded at 64-key tile maxima
       kernels[-1]["tile_max_control_share"] = res["control_share"]
+    if "geometry" in res:
+      kernels[-1]["design"] = _BF16_BWD_DESIGN[name]
+      kernels[-1]["registers"] = res["geometry"]["regs"]
+      kernels[-1]["local_bytes"] = res["geometry"]["local"]
   kernels.append({
       "name": "fused_xent_bf16", "route": "cuda",
       "source": "lingvo_tpu_torch/ops/csrc/fused_xent.cu",

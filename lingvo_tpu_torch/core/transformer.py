@@ -34,6 +34,8 @@ gating or cross-attention fields).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils import checkpoint as checkpoint_lib
 
@@ -315,6 +317,15 @@ class StackedTransformerLayers(base_layer.BaseLayer):
     return self._FinalLn(x), new_states
 
 
+def _RematContexts():
+  """`torch.utils.checkpoint`'s context_fn: nothing around a layer's
+  forward, and a `remat_replay` profiler range around the backward's
+  recompute of it, so that a profile can tell the replay's kernels from
+  the forward's (a no-op when no profiler runs)."""
+  return (contextlib.nullcontext(),
+          torch.profiler.record_function("remat_replay"))
+
+
 class RepeatedTransformerLayer(base_layer.BaseLayer):
   """N identical-architecture bodies; `body` is their ModuleList."""
 
@@ -362,7 +373,8 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
     for layer in self.body:
       if remat:
         x = checkpoint_lib.checkpoint(layer.FProp, x, paddings, segment_ids,
-                                      use_reentrant=False)
+                                      use_reentrant=False,
+                                      context_fn=_RematContexts)
       else:
         x = layer.FProp(x, paddings, segment_ids)
     return x

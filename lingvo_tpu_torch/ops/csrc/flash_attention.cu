@@ -55,14 +55,17 @@
 // diagonal tile.
 //
 // The bfloat16 halves (FlashFwdBf16Kernel, FlashDkDvBf16Kernel,
-// FlashDqBf16Kernel) have their own section below: tensor cores (the
-// forward by wgmma fed by TMA, the backward by mma.sync), and p rounded to
-// bf16 where the reference rounds it.
+// FlashDqBf16Kernel) have their own section below: all three are
+// warpgroup MMA (wgmma) fed by TMA, with p and ds rounded to bf16 where
+// the reference rounds them. The backward pair replaced an mma.sync pair
+// that reached 9% of the dense bf16 rate; at [8, 1024, 16, 128] it is
+// bound by bytes (0.0604 ms for dK/dV, 0.0504 ms for dQ), and its
+// section says what the design does about that and what it leaves.
 //
 // Limits (the Python wrapper raises outside them): float32 or bfloat16,
 // contiguous [b, t, n, h] tensors, h a multiple of 16 and at most 128; any
-// t (below 64 x 65535 in the float32 backward); the bf16 forward's
-// reference block a multiple of 64 keys or all of t.
+// t (below 64 x 65535 in the float32 backward, 128 x 65535 in bf16); the
+// bf16 forward's reference block a multiple of 64 keys or all of t.
 
 #include <cuda.h>  // CUtensorMap (the encoder is fetched at run time)
 #include <cuda_bf16.h>
@@ -1013,18 +1016,12 @@ __global__ void __launch_bounds__(kBThreads, 1) FlashDqKernel(
 // ---- bfloat16: tensor-core kernels at the reference's rounding points ----
 //
 // The bf16 halves of the three kernels (the reference's `_DotF32` keeps
-// native bf16 operands and accumulates in float32). Products run on the
-// tensor cores (a bf16 x bf16 product is exact in float32, so the sums
-// differ from the reference's only in order). The forward is a wgmma
-// kernel fed by TMA, with its own section below. The backward kernels
-// use mma.sync m16n8k16 bf16 -> f32; the transposed operands (V and dO,
-// Q and K of the second products) come in with ldmatrix .trans. Their
-// tiles sit in shared memory in their [rows, h] layout at a row stride of
-// h + 8 elements, so the 32-bit fragment loads of 8 rows x 4 column pairs
-// hit 32 distinct banks, and 16-byte cp.async copies fill the next tile
-// under this tile's math. Each of the 4 warps of a block owns 16 rows; a
-// row's statistics live in the 4 lanes of a quad. Outputs are stored in
-// bf16; lse stays float32.
+// native bf16 operands and accumulates in float32). Every product is a
+// warpgroup MMA (wgmma) on the tensor cores, with its operands copied by
+// TMA (a bf16 x bf16 product is exact in float32, so the sums differ from
+// the reference's only in order). The forward and the backward pair each
+// have their own section below. Outputs are stored in bf16; lse stays
+// float32.
 //
 // The rounding points are the reference's (flash_attention.py `_FwdKernel`,
 // `_DkDvKernel`, `_DqKernel`):
@@ -1042,62 +1039,9 @@ __global__ void __launch_bounds__(kBThreads, 1) FlashDqKernel(
 // - backward: p = exp(s - lse) is normalised (no running max); dp =
 //   f32(do . v), ds = p (dp - delta) sm_scale; dv += bf16(p)^T do, dk +=
 //   bf16(ds)^T q, dq += bf16(ds) k, each summed in float32 and rounded to
-//   bf16 once at the end.
-// The dK/dV block owns 64 keys and streams 32-query tiles; the dQ block
-// owns 64 queries and streams 32-key tiles (32 rows keep the score, dp and
-// two h-wide accumulators of a warp in registers). Tiles whose segment ids
-// cannot meet the block's are skipped (every pair masked: exactly a no-op).
-//
-// Bound: at [8, 1024, 16, 128] the backward pair is near the bytes line
-// against 989 TFLOP/s. What the backward design leaves: wgmma and TMA
-// (mma.sync reaches a fraction of the dense bf16 rate), and rows of a
-// segment boundary inside a tile.
+//   bf16 once at the end. (The backward's section.)
 
 typedef __nv_bfloat16 bf16;
-
-constexpr int kHq = 64;       // bf16: queries of a dQ block
-constexpr int kHk = 64;       // bf16: keys of a dK/dV block
-constexpr int kHt = 32;       // bf16 backward: rows of a streamed tile
-constexpr int kHThreads = 128;
-constexpr int kHNt = kMaxHeadDim / 8;    // head-dim n-tiles of 8
-constexpr int kHKs = kMaxHeadDim / 16;   // head-dim k-steps of 16
-
-// The A fragment (16 rows x 16 columns) at p of a row-major tile with row
-// stride ld.
-__device__ __forceinline__ void LoadA(uint32_t a[4], const bf16* p, int ld) {
-  const int lane = threadIdx.x & 31;
-  const bf16* s = p + (lane >> 2) * ld + 2 * (lane & 3);
-  a[0] = Ld32(s);
-  a[1] = Ld32(s + 8 * ld);
-  a[2] = Ld32(s + 8);
-  a[3] = Ld32(s + 8 * ld + 8);
-}
-
-// B fragments of the products of 16 rows of a tile (16 k rows at p, row
-// stride ld, [k][n] row-major) with n columns 16c .. 16c + 15: b[0..1] for
-// columns 16c.., b[2..3] for 16c + 8..
-__device__ __forceinline__ void LoadBT(uint32_t b[4], const bf16* p, int ld,
-                                       int c) {
-  const int lane = threadIdx.x & 31;
-  LdMatrixX4T(b, p + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 16 * c +
-                     8 * (lane >> 4));
-}
-
-// Rows [start, start + rows) of head ni, batch bi of a bf16 [b, t, n, h]
-// tensor into dst (row stride ld) with 16-byte async copies; rows past t
-// are zero-filled.
-__device__ __forceinline__ void CopyRowsAsyncBf16(
-    bf16* dst, int ld, const bf16* __restrict__ src, const Problem& pb,
-    int bi, int ni, int start, int rows) {
-  const int h8 = pb.h / 8;
-  for (int c = threadIdx.x; c < rows * h8; c += kHThreads) {
-    const int r = c / h8, d8 = c - r * h8;
-    const int row = start + r;
-    const bool valid = row < pb.t;
-    CpAsyncBytes16(dst + r * ld + 8 * d8,
-                   src + pb.Off(bi, valid ? row : 0, ni) + 8 * d8, valid);
-  }
-}
 
 // -- the bf16 forward: warpgroup MMA fed by TMA (FlashFwdBf16Kernel) --
 //
@@ -1433,207 +1377,519 @@ __global__ void __launch_bounds__(kWThreads, 1) FlashFwdBf16Kernel(
   }
 }
 
-struct HBwdSmem {
-  int ld;                                       // row stride (elements)
-  size_t own2, tile, tile2, lse, delta, ids, live, bytes;  // byte offsets
+// -- the bf16 backward: warpgroup MMA fed by TMA (FlashDkDvBf16Kernel,
+//    FlashDqBf16Kernel) --
+//
+// Replace `_DkDvKernel` and `_DqKernel` (lingvo_tpu/ops/flash_attention.py,
+// the two pallas_calls in `_FlashBackward`; both recompute p and ds as
+// `_RecomputePandDs` does) for bf16 q, k, v and do. Bound at [8, 1024, 16,
+// 128] with two causal segments of 512: bytes, 0.0604 ms for dK/dV (q, k,
+// v and do read, dk and dv written, lse, delta and the ids) and 0.0504 ms
+// for dQ, at 3.35 TB/s, against 8h and 6h flops per attended pair of model
+// work (0.034 and 0.026 ms at 989 TFLOP/s).
+//
+// The first bf16 backward (mma.sync m16n8k16 in 4-warp blocks of 64 owned
+// rows, the streamed operand's fragments from scalar 32-bit shared loads,
+// cp.async copies issued by the compute threads with two block barriers
+// per 32-row tile, dQ's light causal tiles first) reached 9% of the dense
+// bf16 rate; it is gone. This design, in both kernels:
+//  - One block per (128 owned rows, batch x head); a block takes its (b,
+//    n) and tile from its linear index, so that the blocks of one (b, n)
+//    start together and share its streamed tiles in L2. Two consumer
+//    warpgroups own 64 rows each. Thread 0 loads the owned rows of two
+//    tensors (K and V for dK/dV, Q and dO for dQ) by TMA first of all; a
+//    producer warp streams tiles of the other two (64 queries for dK/dV,
+//    128 keys for dQ) into a ring with a full and an empty mbarrier per
+//    stage, lane 0 by TMA, and the lanes
+//    copy the tile's row data (segment ids and, for dK/dV, lse and delta;
+//    a [b n, t] TMA would need t a multiple of 4) by 4-byte cp.async that
+//    arrive on the stage's barrier when they land. The consumers never
+//    issue a copy or take a block barrier.
+//  - The score products are wgmma (m64n128k16 for dQ, m64n64k16 for
+//    dK/dV) with both operands K-major from the swizzled boxes: S = Q K^T
+//    and dP = dO V^T for dQ, and for dK/dV the transposes S^T = K Q^T and
+//    dP^T = V dO^T, so that a thread's accumulator rows are keys. They
+//    are two commit groups, and p is computed while dP runs; dK/dV issues
+//    dV before it computes ds.
+//  - p and ds are computed in the accumulators' registers and rounded to
+//    bf16 in the conversion to A fragments (the accumulator's layout is
+//    the A fragment's). dV += P^T dO, dK += dS^T Q and dQ += dS K take A
+//    from those registers and read the streamed tile as the MN-major B
+//    operand through the transposed descriptor: one swizzled tile serves
+//    both of its products. The masks have no branch per element (ids,
+//    lse and delta are read in pairs, the tests are bitwise, one branch a
+//    tile for tiles kept whole): a branch per element serialized the exps.
+//  - A thread holds 192 float32 accumulators at h = 128: S^T, dP^T, dK
+//    and dV of 64 queries in dK/dV, S, dP and dQ of 128 keys in dQ (twice
+//    the keys of a 64-key tile for the same waits, 8% to 15% faster
+//    without segments). So the producer warp leads a whole warpgroup
+//    that gives its registers to the consumers (setmaxnreg 24 / 240).
+//  - The gradients leave through shared memory: a warpgroup writes its
+//    rows, swizzled, over its own rows of the owned tiles (their last
+//    product has read them), and one thread stores them by TMA. Stores
+//    from the registers (4-byte words, 8 rows a warp instruction, each
+//    n h apart) took a fifth of dK/dV's time.
+//  - Heaviest causal tiles first: dK/dV's key tiles ascend, dQ's query
+//    tiles are reversed. LiveTiles skips the tiles of other segments
+//    without copying them, and a warpgroup skips the math of a tile wholly
+//    in its causal future (both are exact no-ops).
+//  - No atomics: each output element is summed by one thread in tile
+//    order, so two calls give the same bits.
+// What it still leaves, as measured on an H100 at the shapes above: about
+// 2 us a 64-row tile in a steady state against 1 us of tensor-core work.
+// Taking out the exps, the score products or the gradient products moved
+// it by at most 12% each, and neither the ring's depth (2 to 4 stages) nor
+// L2 reuse moved it; alternating the warpgroups' products by named
+// barriers was slower, and waiting for a tile's last gradient product
+// only in the next tile made ptxas serialize every wgmma (C7515). Also a
+// block's owned loads are not overlapped with another block's compute (no
+// persistent grid), expf is the full-precision one (the reference's exp,
+// so p rounds to the same bf16), the masked half of each diagonal tile is
+// computed, and dQ recomputes the scores (a dQ fused into dK/dV would sum
+// it with float atomics, and give other bits from call to call).
+
+constexpr int kBOwnBf16 = 128;   // rows a bf16 backward block owns
+constexpr int kBt = 64;          // dK/dV: query rows of a streamed tile
+constexpr int kDqT = 128;        // dQ: key rows of a streamed tile
+constexpr int kDkvStages = 3;    // dK/dV ring: Q and dO of one query tile
+constexpr int kDqStages = 2;     // dQ ring: K and V of one key tile
+constexpr int kBConsumers = 256; // two consumer warpgroups of 64 rows
+constexpr int kBwdThreads = kBConsumers + 128;  // and a producer warpgroup
+
+template <int kBoxes, int kStages, int kTile>
+struct BLayout {   // byte offsets from a 1024-byte aligned base
+  static constexpr int kNumBoxes = kBoxes, kNumStages = kStages;
+  static constexpr int kTileRows = kTile;
+  static constexpr int kOwnBox = kBOwnBf16 * kRowBytes;  // owned rows, a box
+  static constexpr int kTileBox = kTile * kRowBytes;     // streamed, a box
+  static constexpr int kOwn = 2 * kBoxes * kOwnBox;      // two owned tensors
+  static constexpr int kStage = 2 * kBoxes * kTileBox;   // two streamed ones
+  // each stage's row data: kTile ids, then kTile lse and kTile delta
+  // (dK/dV)
+  static constexpr int kRows = kOwn + kStages * kStage;
+  static constexpr int kRowStage = 3 * kTile * 4;
+  static constexpr int kBars = kRows + kStages * kRowStage;
+  static constexpr int kLive = kBars + (2 * kStages + 1) * 8;
+  // dynamic shared memory at sequence length t, with 1 KB of slack to
+  // align the base
+  static size_t Bytes(int t) {
+    return 1024 + kLive +
+           ((t + kTile - 1) / kTile + 31) / 32 * sizeof(unsigned);
+  }
 };
 
-// The backward blocks' layout: two 64-row tiles the block owns (K and V
-// for dK/dV, Q and dO for dQ) at 0, then two double-buffered 32-row
-// streamed tiles (Q and dO, or K and V), then the streamed rows' lse,
-// delta (dK/dV only) and segment ids, then the live-tile bits.
-__host__ __device__ inline HBwdSmem HBwdLayout(int t, int h) {
-  HBwdSmem s;
-  s.ld = h + 8;
-  const size_t own = static_cast<size_t>(kHq) * s.ld * sizeof(bf16);
-  const size_t tile = static_cast<size_t>(kHt) * s.ld * sizeof(bf16);
-  s.own2 = own;
-  s.tile = 2 * own;
-  s.tile2 = s.tile + 2 * tile;
-  s.lse = s.tile2 + 2 * tile;
-  s.delta = s.lse + 2 * kHt * sizeof(float);
-  s.ids = s.delta + 2 * kHt * sizeof(float);
-  s.live = s.ids + 2 * kHt * sizeof(int);
-  s.bytes = s.live + ((t + kHt - 1) / kHt + 31) / 32 * sizeof(unsigned);
-  return s;
+// Without segments every stage's ids are 0: written once, before the
+// block barrier of LiveTiles, and never copied.
+template <class L>
+__device__ __forceinline__ void ZeroIds(unsigned char* sm) {
+  for (int i = threadIdx.x; i < L::kNumStages * L::kTileRows;
+       i += blockDim.x) {
+    int* ids = reinterpret_cast<int*>(sm + L::kRows +
+                                      i / L::kTileRows * L::kRowStage);
+    ids[i % L::kTileRows] = 0;
+  }
 }
 
-__global__ void __launch_bounds__(kHThreads) FlashDkDvBf16Kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ seg,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, Problem pb) {
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  const int h = pb.h, nks = h / 16, nnt = h / 8;
-  const HBwdSmem lay = HBwdLayout(pb.t, h);
-  const int ld = lay.ld;
-  bf16* ks = reinterpret_cast<bf16*>(hsmem);              // [64][ld]
-  bf16* vs = reinterpret_cast<bf16*>(hsmem + lay.own2);   // [64][ld]
-  bf16* qs = reinterpret_cast<bf16*>(hsmem + lay.tile);   // [2][32][ld]
-  bf16* dos = reinterpret_cast<bf16*>(hsmem + lay.tile2); // [2][32][ld]
-  float* lse_s = reinterpret_cast<float*>(hsmem + lay.lse);      // [2][32]
-  float* delta_s = reinterpret_cast<float*>(hsmem + lay.delta);  // [2][32]
-  int* segq_s = reinterpret_cast<int*>(hsmem + lay.ids);         // [2][32]
-  unsigned* live = reinterpret_cast<unsigned*>(hsmem + lay.live);
-  const int k0 = blockIdx.x * kHk;
-  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
+// Thread 0 of a backward block, right after the barriers' initialisation:
+// the block's owned rows own0 .. own0 + 127 of two tensors (maps own_a,
+// own_b) by TMA, counted on own_bar. Issued before the live-tile scan,
+// which the copy does not depend on.
+template <class L>
+__device__ __forceinline__ void LoadOwned(unsigned char* sm,
+                                          const CUtensorMap* own_a,
+                                          const CUtensorMap* own_b,
+                                          uint64_t* own_bar, int own0, int bi,
+                                          int ni) {
+  MbarArriveExpectTx(own_bar, L::kOwn);
+  for (int bx = 0; bx < L::kNumBoxes; ++bx) {
+    TmaLoad4(sm + bx * L::kOwnBox, own_a, own_bar, bx * 64, ni, own0, bi);
+    TmaLoad4(sm + (L::kNumBoxes + bx) * L::kOwnBox, own_b, own_bar, bx * 64,
+             ni, own0, bi);
+  }
+}
+
+// The producer warp of a backward block; lane 0 issues the TMA copies.
+// For each live tile i in [lo, hi) it loads the rows kTile i .. kTile (i +
+// 1) - 1 (kTile = L::kTileRows) of two streamed tensors (tile_a, tile_b)
+// into the next free stage, with their row data by 4-byte cp.async
+// (tracked by the stage's barrier, so the warp never waits for a load):
+// segment ids (without segments they stay the zeros of ZeroIds) and,
+// where lse is given, lse and delta (rows past t: 0).
+template <class L>
+__device__ __forceinline__ void BwdProducer(
+    unsigned char* sm, const CUtensorMap* tile_a, const CUtensorMap* tile_b,
+    const unsigned* live, int lo, int hi, const int* seg_row,
+    const float* lse, const float* delta, const Problem& pb, int bi,
+    int ni) {
+  constexpr int kBoxes = L::kNumBoxes, kStages = L::kNumStages;
+  constexpr int kTile = L::kTileRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kStages;
+  const int lane = threadIdx.x & 31;
+  int stage = 0, phase = 0;
+  for (int i = NextLive(live, lo, hi); i < hi;
+       i = NextLive(live, i + 1, hi)) {
+    MbarWait(&empty[stage], phase ^ 1);
+    unsigned char* st = sm + L::kOwn + stage * L::kStage;
+    if (lane == 0) {
+      MbarArriveExpectTx(&full[stage], L::kStage);
+      for (int bx = 0; bx < kBoxes; ++bx) {
+        TmaLoad4(st + bx * L::kTileBox, tile_a, &full[stage], bx * 64, ni,
+                 i * kTile, bi);
+        TmaLoad4(st + (kBoxes + bx) * L::kTileBox, tile_b, &full[stage],
+                 bx * 64, ni, i * kTile, bi);
+      }
+    }
+    int* ids = reinterpret_cast<int*>(sm + L::kRows + stage * L::kRowStage);
+    for (int r = lane; r < kTile; r += 32) {
+      const int row = i * kTile + r;
+      const bool in = row < pb.t;
+      const size_t at = pb.RowOff(bi, ni, in ? row : 0);
+      if (seg_row != nullptr) CpAsync4(ids + r, seg_row + (in ? row : 0), in);
+      if (lse != nullptr) {
+        CpAsync4(ids + kTile + r, lse + at, in);
+        CpAsync4(ids + 2 * kTile + r, delta + at, in);
+      }
+    }
+    CpAsyncMbarArrive(&full[stage]);  // when this lane's copies land
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// d = A . B^T over every k-step of the boxes: A the 64 rows at a (boxes
+// a_box bytes apart), B the kN rows at b (b_box apart), both K-major and
+// swizzled. Columns past h were read as zeros, so they add exact zeros
+// (and no branch splits the chain).
+template <int kBoxes, int kN>
+__device__ __forceinline__ void ScoreWgmma(float (&d)[kN / 2],
+                                           const unsigned char* a, int a_box,
+                                           const unsigned char* b,
+                                           int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * kBoxes; ++kk) {
+    const int box = kk >> 2, col = (kk & 3) * 32;
+    const uint64_t da = SwizzledDesc(a + box * a_box + col, 16, 1024);
+    const uint64_t db = SwizzledDesc(b + box * b_box + col, 16, 1024);
+    if constexpr (kN == 128) {
+      WgmmaSS128(d, da, db, kk > 0);
+    } else {
+      WgmmaSS64(d, da, db, kk > 0);
+    }
+  }
+}
+
+// d += A . B over the kK rows of a streamed tile: A the bf16 fragments
+// of its kK / 16 k-steps of 16 rows, B the tile at b, MN-major (boxes kK
+// rows apart, read transposed) over the kBoxes x 64 head-dim columns.
+template <int kBoxes, int kK>
+__device__ __forceinline__ void GradWgmma(float (&d)[32 * kBoxes],
+                                          uint32_t (&a)[kK / 16][4],
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk) {
+    const uint64_t bd =
+        SwizzledDesc(b + kk * 16 * kRowBytes, kK * kRowBytes, 1024);
+    if constexpr (kBoxes == 2) {
+      WgmmaRS128(d, a[kk], bd);
+    } else {
+      WgmmaRS64(d, a[kk], bd);
+    }
+  }
+}
+
+// A warpgroup's 64 rows of a bf16 [b, t, n, h] gradient, rows row0 ..
+// row0 + 63 of head ni, batch bi, written by TMA (map: boxes of 64 rows):
+// each thread puts its accumulators (rows 16 (warp % 4) + g and + 8,
+// columns 8 j + 2 tq, + 1) into `box`, the warpgroup's 64 rows of its
+// owned tile (whose last product has read them), in the swizzled layout,
+// and one thread stores the kBoxes boxes. Rows and columns past t and h
+// are not written. Named barrier 1 + wg orders the warpgroup's writes
+// before the store.
+template <int kBoxes, int kOwnBox>
+__device__ __forceinline__ void StoreRows(const CUtensorMap* map,
+                                          unsigned char* box,
+                                          const float (&d)[32 * kBoxes],
+                                          int row0, int bi, int ni, int t,
+                                          int wg) {
+  const int lane = threadIdx.x & 31, tq = lane & 3;
+  const int r = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8 * kBoxes; ++j) {
+    unsigned char* at = box + (j >> 3) * kOwnBox + 4 * tq +
+                        (((j & 7) ^ (r & 7)) << 4);
+    *reinterpret_cast<uint32_t*>(at + r * kRowBytes) =
+        PackBf16(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(at + (r + 8) * kRowBytes) =
+        PackBf16(d[4 * j + 2], d[4 * j + 3]);
+  }
+  FenceProxyAsync();
+  NamedBarSync(1 + wg, 128);
+  if ((threadIdx.x & 127) == 0 && row0 < t) {
+    for (int bx = 0; bx < kBoxes; ++bx)
+      TmaStore4(map, box + bx * kOwnBox, bx * 64, ni, row0, bi);
+    TmaStoreWaitRead();
+  }
+}
+
+// dK/dV: a block owns 128 keys of one (batch, head) and streams the live
+// query tiles from the one holding its first key (causal) or from 0.
+template <int kBoxes>
+__global__ void __launch_bounds__(kBwdThreads, 1) FlashDkDvBf16Kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dk,
+    const __grid_constant__ CUtensorMap tm_dv, const int* __restrict__ seg,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    Problem pb) {
+  typedef BLayout<kBoxes, kDkvStages, kBt> L;
+  constexpr int kN = 64 * kBoxes;  // head-dim columns of dK and dV
+  extern __shared__ __align__(16) unsigned char bsmem[];
+  unsigned char* sm = bsmem + ((1024 - (SmemAddr(bsmem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* own_bar = empty + kDkvStages;
+  unsigned* live = reinterpret_cast<unsigned*>(sm + L::kLive);
+
+  // blocks start in launch order (x fastest): block lin takes key tile
+  // lin % ntk of (batch x head) lin / ntk, so the key tiles of one (b, n)
+  // run together and read its Q and dO tiles from L2 (b x n apart, every
+  // tile would come from device memory again); tile 0, the heaviest
+  // causal one, first
+  const int ntk = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * blockIdx.y;
+  const int k0 = (lin % ntk) * kBOwnBf16;
+  const int bi = lin / ntk / pb.n, ni = lin / ntk % pb.n;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
   const bool has_seg = seg != nullptr;
   const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
                                : nullptr;
-  const int key_a = k0 + warp * 16 + g, key_b = key_a + 8;
+  const int nqt = (pb.t + kBt - 1) / kBt;
+  const int qt0 = pb.causal ? k0 / kBt : 0;  // holds query k0
+
+  if (tid == 0) {
+    for (int st = 0; st < kDkvStages; ++st) {
+      MbarInit(&full[st], 1 + 32);  // lane 0's bytes, each lane's copies
+      MbarInit(&empty[st], kBConsumers / 32);  // one arrival per warp
+    }
+    MbarInit(own_bar, 1);
+    MbarInitFence();
+    LoadOwned<L>(sm, &tm_k, &tm_v, own_bar, k0, bi, ni);
+  }
+  int klo = 0, khi = 0;
+  if (has_seg)
+    WarpSegRange(seg_row, k0, kBOwnBf16, pb.t, &klo, &khi);
+  else
+    ZeroIds<L>(sm);
+  LiveTiles(live, seg_row, klo, khi, kBt, nqt, pb.t);  // + a barrier
+
+  if (warp >= kBConsumers / 32) {  // the producer warpgroup
+    MaxRegsDec<24>();
+    if (warp == kBConsumers / 32)
+      BwdProducer<L>(sm, &tm_q, &tm_do, live, qt0, nqt, seg_row, lse,
+                     delta, pb, bi, ni);
+    return;
+  }
+  MaxRegsInc<240>();
+
+  // a consumer warpgroup: keys wk0 .. wk0 + 63; this thread's keys key_a
+  // and key_b = key_a + 8 (the accumulators' rows)
+  const int wg = warp >> 2;
+  const int tq = lane & 3;
+  const int wk0 = k0 + 64 * wg;
+  const int key_a = wk0 + 16 * (warp & 3) + (lane >> 2), key_b = key_a + 8;
   const int segk_a = has_seg && key_a < pb.t ? seg_row[key_a] : 0;
   const int segk_b = has_seg && key_b < pb.t ? seg_row[key_b] : 0;
+  const unsigned char* ks = sm + wg * 64 * kRowBytes;  // in each K box
+  const unsigned char* vs = ks + kBoxes * L::kOwnBox;  // in each V box
 
-  CopyRowsAsyncBf16(ks, ld, k, pb, bi, ni, k0, kHk);
-  CopyRowsAsyncBf16(vs, ld, v, pb, bi, ni, k0, kHk);
-  CpAsyncCommit();
+  float dka[kN / 2], dva[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dka[i] = dva[i] = 0.f;
 
-  // the first causally live query tile is the one holding query k0
-  const int nqt = (pb.t + kHt - 1) / kHt;
-  const int qt0 = pb.causal ? k0 / kHt : 0;
-  int klo = 0, khi = 0;
-  if (has_seg) WarpSegRange(seg_row, k0, kHk, pb.t, &klo, &khi);
-  LiveTiles(live, seg_row, klo, khi, kHt, nqt, pb.t);
-  auto prefetch = [&](int qt, int stage) {
-    if (qt < nqt) {
-      CopyRowsAsyncBf16(qs + stage * kHt * ld, ld, q, pb, bi, ni, qt * kHt,
-                        kHt);
-      CopyRowsAsyncBf16(dos + stage * kHt * ld, ld, dout, pb, bi, ni,
-                        qt * kHt, kHt);
-      if (tid < kHt) {
-        const int row = qt * kHt + tid;
-        const bool in = row < pb.t;
-        lse_s[stage * kHt + tid] = in ? lse[pb.RowOff(bi, ni, row)] : 0.f;
-        delta_s[stage * kHt + tid] = in ? delta[pb.RowOff(bi, ni, row)] : 0.f;
-        segq_s[stage * kHt + tid] = has_seg && in ? seg_row[row] : 0;
+  MbarWait(own_bar, 0);
+  int stage = 0, phase = 0;
+  for (int qt = NextLive(live, qt0, nqt); qt < nqt;
+       qt = NextLive(live, qt + 1, nqt)) {
+    const int q0 = qt * kBt;
+    MbarWait(&full[stage], phase);
+    const unsigned char* qst = sm + L::kOwn + stage * L::kStage;
+    const unsigned char* dost = qst + kBoxes * L::kTileBox;
+    const int* ids =
+        reinterpret_cast<const int*>(sm + L::kRows + stage * L::kRowStage);
+    const float* lse_s = reinterpret_cast<const float*>(ids + kBt);
+    const float* delta_s = lse_s + kBt;
+    if (!(pb.causal && q0 + kBt - 1 < wk0)) {  // else: all in the past
+      // s^T = k . q and dp^T = v . do: 64 keys x 64 queries
+      float st[32], dpt[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;  // overwritten
+      WgmmaFence();
+      ScoreWgmma<kBoxes, kBt>(st, ks, L::kOwnBox, qst, L::kTileBox);
+      WgmmaCommit();
+      ScoreWgmma<kBoxes, kBt>(dpt, vs, L::kOwnBox, dost, L::kTileBox);
+      WgmmaCommit();
+      // every pair of this thread's kept: both keys inside t, the tile
+      // inside t and wholly in their causal future, one segment (no
+      // branch per element: the ids come in pairs, the tests are bitwise)
+      bool all_kept = key_b < pb.t && q0 + kBt <= pb.t &&
+                      (!pb.causal || q0 >= key_b) && segk_a == segk_b;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int2 sq = *reinterpret_cast<const int2*>(ids + 8 * j + 2 * tq);
+        all_kept &= (sq.x == segk_a) & (sq.y == segk_a);
       }
-    }
-    CpAsyncCommit();
-  };
-
-  float dka[kHNt][4], dva[kHNt][4];
+      WgmmaWait<1>();  // s^T has landed; dp^T may still run
+      FenceRegs(st);
+      if (all_kept) {
 #pragma unroll
-  for (int c = 0; c < kHNt; ++c)
+        for (int i = 0; i < 32; ++i) st[i] *= pb.sm_scale;
+      } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.f;
-
-  int qt = NextLive(live, qt0, nqt);
-  prefetch(qt, 0);
-  for (int stage = 0; qt < nqt; stage ^= 1) {
-    const int nxt = NextLive(live, qt + 1, nqt);
-    prefetch(nxt, stage ^ 1);
-    CpAsyncWait<1>();
-    __syncthreads();   // K, V and this query tile landed
-    const bf16* qst = qs + stage * kHt * ld;
-    const bf16* dst = dos + stage * kHt * ld;
-    const float* lse_t = lse_s + stage * kHt;
-    const float* delta_t = delta_s + stage * kHt;
-    const int* segq = segq_s + stage * kHt;
-    const int qbase = qt * kHt;
-    // s^T = k . q and dp^T = v . do: 16 keys x 32 queries per warp
-    float st[4][4], dpt[4][4];
+        for (int j = 0; j < 8; ++j) {
+          const int2 sq = *reinterpret_cast<const int2*>(ids + 8 * j + 2 * tq);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHKs; ++kk) {
-      if (kk < nks) {
-        uint32_t ka[4], va[4];
-        LoadA(ka, ks + warp * 16 * ld + kk * 16, ld);
-        LoadA(va, vs + warp * 16 * ld + kk * 16, ld);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const bf16* qp = qst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
-          MmaBf16(st[nt], ka, Ld32(qp), Ld32(qp + 8));
-          const bf16* op = dst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
-          MmaBf16(dpt[nt], va, Ld32(op), Ld32(op + 8));
+          for (int e = 0; e < 4; ++e) {
+            const int q = q0 + 8 * j + 2 * tq + (e & 1);
+            const int key = e < 2 ? key_a : key_b;
+            const bool keep = (q < pb.t) & (key < pb.t) &
+                              (!pb.causal | (q >= key)) &
+                              (!has_seg | ((e & 1 ? sq.y : sq.x) ==
+                                           (e < 2 ? segk_a : segk_b)));
+            st[4 * j + e] = keep ? st[4 * j + e] * pb.sm_scale : kNegInf;
+          }
         }
       }
+      // p = exp(s - lse) in place, rounded to bf16 in the A fragments of
+      // the tile's 4 k-steps of 16 queries (columns j = 2 kk, 2 kk + 1 of
+      // the accumulators)
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * tq);
+        st[4 * j] = expf(st[4 * j] - l.x);
+        st[4 * j + 1] = expf(st[4 * j + 1] - l.y);
+        st[4 * j + 2] = expf(st[4 * j + 2] - l.x);
+        st[4 * j + 3] = expf(st[4 * j + 3] - l.y);
+        pa[j >> 1][2 * (j & 1)] = PackBf16(st[4 * j], st[4 * j + 1]);
+        pa[j >> 1][2 * (j & 1) + 1] = PackBf16(st[4 * j + 2], st[4 * j + 3]);
+      }
+      // dv += bf16(p)^T do over the tile's 64 queries, under ds's math
+      WgmmaFence();
+      GradWgmma<kBoxes, kBt>(dva, pa, dost);
+      WgmmaCommit();
+      WgmmaWait<1>();  // dp^T has landed; dv may still run
+      FenceRegs(dpt);
+      // ds = p (dp - delta) sm_scale, rounded to bf16 likewise
+      uint32_t dsa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d =
+            *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * tq);
+        dsa[j >> 1][2 * (j & 1)] =
+            PackBf16(st[4 * j] * (dpt[4 * j] - d.x) * pb.sm_scale,
+                     st[4 * j + 1] * (dpt[4 * j + 1] - d.y) * pb.sm_scale);
+        dsa[j >> 1][2 * (j & 1) + 1] =
+            PackBf16(st[4 * j + 2] * (dpt[4 * j + 2] - d.x) * pb.sm_scale,
+                     st[4 * j + 3] * (dpt[4 * j + 3] - d.y) * pb.sm_scale);
+      }
+      // dk += bf16(ds)^T q over the tile's 64 queries
+      WgmmaFence();
+      GradWgmma<kBoxes, kBt>(dka, dsa, qst);
+      WgmmaCommit();
+      WgmmaWait<0>();
+      FenceRegs(dva);
+      FenceRegs(dka);
     }
-    // p = exp(s - lse), ds = p (dp - delta) sm_scale, as A fragments over
-    // the tile's queries (rounded to bf16 here, where the reference rounds)
-    uint32_t pa[2][4], dsa[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float p[4], ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const bool keep = Keep(pb, qbase + col, e < 2 ? key_a : key_b,
-                               has_seg, segq[col], e < 2 ? segk_a : segk_b);
-        const float s = keep ? st[nt][e] * pb.sm_scale : kNegInf;
-        p[e] = expf(s - lse_t[col]);
-        ds[e] = p[e] * (dpt[nt][e] - delta_t[col]) * pb.sm_scale;
-      }
-      pa[nt >> 1][2 * (nt & 1)] = PackBf16(p[0], p[1]);
-      pa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(p[2], p[3]);
-      dsa[nt >> 1][2 * (nt & 1)] = PackBf16(ds[0], ds[1]);
-      dsa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(ds[2], ds[3]);
-    }
-    // dv += bf16(p)^T do, dk += bf16(ds)^T q over the tile's 32 queries
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < kHKs; ++c) {
-        if (c < nks) {
-          uint32_t b[4];
-          LoadBT(b, dst + 16 * j * ld, ld, c);
-          MmaBf16(dva[2 * c], pa[j], b[0], b[1]);
-          MmaBf16(dva[2 * c + 1], pa[j], b[2], b[3]);
-          LoadBT(b, qst + 16 * j * ld, ld, c);
-          MmaBf16(dka[2 * c], dsa[j], b[0], b[1]);
-          MmaBf16(dka[2 * c + 1], dsa[j], b[2], b[3]);
-        }
-      }
-    __syncthreads();   // this stage is consumed before it is refilled
-    qt = nxt;
-  }
-  CpAsyncWait<0>();
-#pragma unroll
-  for (int c = 0; c < kHNt; ++c) {
-    if (c < nnt) {
-      const int col = c * 8 + 2 * tig;
-      if (key_a < pb.t) {
-        const size_t off = pb.Off(bi, key_a, ni) + col;
-        *reinterpret_cast<uint32_t*>(dk + off) = PackBf16(dka[c][0], dka[c][1]);
-        *reinterpret_cast<uint32_t*>(dv + off) = PackBf16(dva[c][0], dva[c][1]);
-      }
-      if (key_b < pb.t) {
-        const size_t off = pb.Off(bi, key_b, ni) + col;
-        *reinterpret_cast<uint32_t*>(dk + off) = PackBf16(dka[c][2], dka[c][3]);
-        *reinterpret_cast<uint32_t*>(dv + off) = PackBf16(dva[c][2], dva[c][3]);
-      }
+    __syncwarp();
+    if (lane == 0) MbarArrive(&empty[stage]);  // this warp is done with it
+    if (++stage == kDkvStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  // dk and dv through this warpgroup's K and V rows
+  StoreRows<kBoxes, L::kOwnBox>(&tm_dk, sm + wg * 64 * kRowBytes, dka, wk0,
+                                bi, ni, pb.t, wg);
+  StoreRows<kBoxes, L::kOwnBox>(&tm_dv, sm + (kBoxes * L::kOwnBox) +
+                                            wg * 64 * kRowBytes,
+                                dva, wk0, bi, ni, pb.t, wg);
 }
 
-__global__ void __launch_bounds__(kHThreads) FlashDqBf16Kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const int* __restrict__ seg,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, Problem pb) {
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  const int h = pb.h, nks = h / 16, nnt = h / 8;
-  const HBwdSmem lay = HBwdLayout(pb.t, h);
-  const int ld = lay.ld;
-  bf16* qs = reinterpret_cast<bf16*>(hsmem);              // [64][ld]
-  bf16* dos = reinterpret_cast<bf16*>(hsmem + lay.own2);  // [64][ld]
-  bf16* ks = reinterpret_cast<bf16*>(hsmem + lay.tile);   // [2][32][ld]
-  bf16* vs = reinterpret_cast<bf16*>(hsmem + lay.tile2);  // [2][32][ld]
-  int* segk_s = reinterpret_cast<int*>(hsmem + lay.ids);  // [2][32]
-  unsigned* live = reinterpret_cast<unsigned*>(hsmem + lay.live);
-  const int q0 = blockIdx.x * kHq;
-  const int bi = blockIdx.y / pb.n, ni = blockIdx.y % pb.n;
+// dQ: a block owns 128 queries of one (batch, head) and streams the live
+// 128-key tiles up to its last query (causal) or to t. A 128-key tile
+// (s, dp and dq: 192 accumulators a thread, as in dK/dV) halves the
+// waits per key of 64-key tiles and runs the score products as
+// m64n128k16, which read less shared memory per flop.
+template <int kBoxes>
+__global__ void __launch_bounds__(kBwdThreads, 1) FlashDqBf16Kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_dq, const int* __restrict__ seg,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    Problem pb) {
+  typedef BLayout<kBoxes, kDqStages, kDqT> L;
+  constexpr int kN = 64 * kBoxes;  // head-dim columns of dQ
+  extern __shared__ __align__(16) unsigned char bsmem[];
+  unsigned char* sm = bsmem + ((1024 - (SmemAddr(bsmem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* own_bar = empty + kDqStages;
+  unsigned* live = reinterpret_cast<unsigned*>(sm + L::kLive);
+
+  // block lin takes query tile lin % ntq of (batch x head) lin / ntq, so
+  // the query tiles of one (b, n) run together and share its K and V
+  // tiles in L2 (as in dK/dV); reversed when causal, the heaviest first
+  const int ntq = gridDim.y;
+  const int lin = blockIdx.x + gridDim.x * blockIdx.y;
+  const int qt = lin % ntq;
+  const int q0 = (pb.causal ? ntq - 1 - qt : qt) * kBOwnBf16;
+  const int bi = lin / ntq / pb.n, ni = lin / ntq % pb.n;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
   const bool has_seg = seg != nullptr;
   const int* seg_row = has_seg ? seg + static_cast<size_t>(bi) * pb.t
                                : nullptr;
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const int k_end = pb.causal ? min(pb.t, q0 + kBOwnBf16) : pb.t;
+  const int nkt = (k_end + kDqT - 1) / kDqT;
+
+  if (tid == 0) {
+    for (int st = 0; st < kDqStages; ++st) {
+      MbarInit(&full[st], 1 + 32);  // lane 0's bytes, each lane's copies
+      MbarInit(&empty[st], kBConsumers / 32);  // one arrival per warp
+    }
+    MbarInit(own_bar, 1);
+    MbarInitFence();
+    LoadOwned<L>(sm, &tm_q, &tm_do, own_bar, q0, bi, ni);
+  }
+  int qlo = 0, qhi = 0;
+  if (has_seg)
+    WarpSegRange(seg_row, q0, kBOwnBf16, pb.t, &qlo, &qhi);
+  else
+    ZeroIds<L>(sm);
+  LiveTiles(live, seg_row, qlo, qhi, kDqT, nkt, pb.t);  // + a barrier
+
+  if (warp >= kBConsumers / 32) {  // the producer warpgroup
+    MaxRegsDec<24>();
+    if (warp == kBConsumers / 32)
+      BwdProducer<L>(sm, &tm_k, &tm_v, live, 0, nkt, seg_row, nullptr,
+                     nullptr, pb, bi, ni);
+    return;
+  }
+  MaxRegsInc<240>();
+
+  // a consumer warpgroup: queries wq0 .. wq0 + 63; this thread's rows
+  // row_a and row_b = row_a + 8 (the accumulators' layout)
+  const int wg = warp >> 2;
+  const int tq = lane & 3;
+  const int wq0 = q0 + 64 * wg;
+  const int row_a = wq0 + 16 * (warp & 3) + (lane >> 2), row_b = row_a + 8;
   const bool in_a = row_a < pb.t, in_b = row_b < pb.t;
   const int segq_a = has_seg && in_a ? seg_row[row_a] : 0;
   const int segq_b = has_seg && in_b ? seg_row[row_b] : 0;
@@ -1641,112 +1897,100 @@ __global__ void __launch_bounds__(kHThreads) FlashDqBf16Kernel(
   const float lse_b = in_b ? lse[pb.RowOff(bi, ni, row_b)] : 0.f;
   const float delta_a = in_a ? delta[pb.RowOff(bi, ni, row_a)] : 0.f;
   const float delta_b = in_b ? delta[pb.RowOff(bi, ni, row_b)] : 0.f;
+  const unsigned char* qs = sm + wg * 64 * kRowBytes;    // in each Q box
+  const unsigned char* dos = qs + kBoxes * L::kOwnBox;   // in each dO box
 
-  CopyRowsAsyncBf16(qs, ld, q, pb, bi, ni, q0, kHq);
-  CopyRowsAsyncBf16(dos, ld, dout, pb, bi, ni, q0, kHq);
-  CpAsyncCommit();
+  float dqa[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) dqa[i] = 0.f;
 
-  const int k_end = pb.causal ? min(pb.t, q0 + kHq) : pb.t;
-  const int nkt = (k_end + kHt - 1) / kHt;
-  int qlo = 0, qhi = 0;
-  if (has_seg) WarpSegRange(seg_row, q0, kHq, pb.t, &qlo, &qhi);
-  LiveTiles(live, seg_row, qlo, qhi, kHt, nkt, pb.t);
-  auto prefetch = [&](int kt, int stage) {
-    if (kt < nkt) {
-      CopyRowsAsyncBf16(ks + stage * kHt * ld, ld, k, pb, bi, ni, kt * kHt,
-                        kHt);
-      CopyRowsAsyncBf16(vs + stage * kHt * ld, ld, v, pb, bi, ni, kt * kHt,
-                        kHt);
-      if (tid < kHt) {
-        const int key = kt * kHt + tid;
-        segk_s[stage * kHt + tid] = has_seg && key < pb.t ? seg_row[key] : 0;
+  MbarWait(own_bar, 0);
+  int stage = 0, phase = 0;
+  for (int kt = NextLive(live, 0, nkt); kt < nkt;
+       kt = NextLive(live, kt + 1, nkt)) {
+    const int k0 = kt * kDqT;
+    MbarWait(&full[stage], phase);
+    const unsigned char* kst = sm + L::kOwn + stage * L::kStage;
+    const unsigned char* vst = kst + kBoxes * L::kTileBox;
+    const int* ids =
+        reinterpret_cast<const int*>(sm + L::kRows + stage * L::kRowStage);
+    if (!(pb.causal && k0 > wq0 + 63)) {  // else: all in the future
+      // s = q . k and dp = do . v: 64 queries x 128 keys
+      float s[64], dp[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = dp[i] = 0.f;  // overwritten
+      WgmmaFence();
+      ScoreWgmma<kBoxes, kDqT>(s, qs, L::kOwnBox, kst, L::kTileBox);
+      WgmmaCommit();
+      ScoreWgmma<kBoxes, kDqT>(dp, dos, L::kOwnBox, vst, L::kTileBox);
+      WgmmaCommit();
+      // every pair of this thread's kept: the tile inside t, wholly in
+      // both rows' causal past, and of their one segment (no branch per
+      // element, as in dK/dV)
+      bool all_kept = in_b && k0 + kDqT <= pb.t &&
+                      (!pb.causal || k0 + kDqT - 1 <= row_a) &&
+                      segq_a == segq_b;
+#pragma unroll
+      for (int j = 0; j < kDqT / 8; ++j) {
+        const int2 sk = *reinterpret_cast<const int2*>(ids + 8 * j + 2 * tq);
+        all_kept &= (sk.x == segq_a) & (sk.y == segq_a);
       }
-    }
-    CpAsyncCommit();
-  };
-
-  float dqa[kHNt][4];
+      WgmmaWait<1>();  // s has landed; dp may still run
+      FenceRegs(s);
+      if (all_kept) {
 #pragma unroll
-  for (int c = 0; c < kHNt; ++c)
+        for (int i = 0; i < 64; ++i) s[i] *= pb.sm_scale;
+      } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[c][e] = 0.f;
-
-  int kt = NextLive(live, 0, nkt);
-  prefetch(kt, 0);
-  for (int stage = 0; kt < nkt; stage ^= 1) {
-    const int nxt = NextLive(live, kt + 1, nkt);
-    prefetch(nxt, stage ^ 1);
-    CpAsyncWait<1>();
-    __syncthreads();   // Q, dO and this key tile landed
-    const bf16* kst = ks + stage * kHt * ld;
-    const bf16* vst = vs + stage * kHt * ld;
-    const int* segk = segk_s + stage * kHt;
-    const int kbase = kt * kHt;
-    // s = q . k and dp = do . v: 16 queries x 32 keys per warp
-    float s[4][4], dp[4][4];
+        for (int j = 0; j < kDqT / 8; ++j) {
+          const int2 sk = *reinterpret_cast<const int2*>(ids + 8 * j + 2 * tq);
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHKs; ++kk) {
-      if (kk < nks) {
-        uint32_t qa[4], oa[4];
-        LoadA(qa, qs + warp * 16 * ld + kk * 16, ld);
-        LoadA(oa, dos + warp * 16 * ld + kk * 16, ld);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const bf16* kp = kst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
-          MmaBf16(s[nt], qa, Ld32(kp), Ld32(kp + 8));
-          const bf16* vp = vst + (nt * 8 + g) * ld + kk * 16 + 2 * tig;
-          MmaBf16(dp[nt], oa, Ld32(vp), Ld32(vp + 8));
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + 2 * tq + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            const bool keep = (row < pb.t) & (key < pb.t) &
+                              (!pb.causal | (row >= key)) &
+                              (!has_seg | ((e & 1 ? sk.y : sk.x) ==
+                                           (e < 2 ? segq_a : segq_b)));
+            s[4 * j + e] = keep ? s[4 * j + e] * pb.sm_scale : kNegInf;
+          }
         }
       }
-    }
-    uint32_t dsa[2][4];
+      // p = exp(s - lse) in place
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      float ds[4];
+      for (int i = 0; i < 64; ++i) s[i] = expf(s[i] - (i & 2 ? lse_b : lse_a));
+      WgmmaWait<0>();
+      FenceRegs(dp);
+      // ds = p (dp - delta) sm_scale, rounded to bf16 in the A fragments of
+      // the tile's 8 k-steps of 16 keys
+      uint32_t dsa[kDqT / 16][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * tig + (e & 1);
-        const bool keep = Keep(pb, e < 2 ? row_a : row_b, kbase + col,
-                               has_seg, e < 2 ? segq_a : segq_b, segk[col]);
-        const float sv = keep ? s[nt][e] * pb.sm_scale : kNegInf;
-        const float p = expf(sv - (e < 2 ? lse_a : lse_b));
-        ds[e] = p * (dp[nt][e] - (e < 2 ? delta_a : delta_b)) * pb.sm_scale;
+      for (int j = 0; j < kDqT / 8; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = s[4 * j + e] *
+                  (dp[4 * j + e] - (e < 2 ? delta_a : delta_b)) * pb.sm_scale;
+        dsa[j >> 1][2 * (j & 1)] = PackBf16(ds[0], ds[1]);
+        dsa[j >> 1][2 * (j & 1) + 1] = PackBf16(ds[2], ds[3]);
       }
-      dsa[nt >> 1][2 * (nt & 1)] = PackBf16(ds[0], ds[1]);
-      dsa[nt >> 1][2 * (nt & 1) + 1] = PackBf16(ds[2], ds[3]);
+      // dq += bf16(ds) k over the tile's 128 keys
+      WgmmaFence();
+      GradWgmma<kBoxes, kDqT>(dqa, dsa, kst);
+      WgmmaCommit();
+      WgmmaWait<0>();
+      FenceRegs(dqa);
     }
-    // dq += bf16(ds) k over the tile's 32 keys
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int c = 0; c < kHKs; ++c) {
-        if (c < nks) {
-          uint32_t b[4];
-          LoadBT(b, kst + 16 * j * ld, ld, c);
-          MmaBf16(dqa[2 * c], dsa[j], b[0], b[1]);
-          MmaBf16(dqa[2 * c + 1], dsa[j], b[2], b[3]);
-        }
-      }
-    __syncthreads();   // this stage is consumed before it is refilled
-    kt = nxt;
-  }
-  CpAsyncWait<0>();
-#pragma unroll
-  for (int c = 0; c < kHNt; ++c) {
-    if (c < nnt) {
-      const int col = c * 8 + 2 * tig;
-      if (in_a)
-        *reinterpret_cast<uint32_t*>(dq + pb.Off(bi, row_a, ni) + col) =
-            PackBf16(dqa[c][0], dqa[c][1]);
-      if (in_b)
-        *reinterpret_cast<uint32_t*>(dq + pb.Off(bi, row_b, ni) + col) =
-            PackBf16(dqa[c][2], dqa[c][3]);
+    __syncwarp();
+    if (lane == 0) MbarArrive(&empty[stage]);  // this warp is done with it
+    if (++stage == kDqStages) {
+      stage = 0;
+      phase ^= 1;
     }
   }
+  // dq through this warpgroup's Q rows
+  StoreRows<kBoxes, L::kOwnBox>(&tm_dq, sm + wg * 64 * kRowBytes, dqa, wq0,
+                                bi, ni, pb.t, wg);
 }
 
 bool BadShape(int b, int t, int n, int h) {
@@ -1800,6 +2044,46 @@ bool BoxMap(EncodeTiledFn encode, CUtensorMap* map, const void* base, int b,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 backward kernels' instantiation and shared memory for head
+// dim h (kBoxes = 1 up to h = 64).
+decltype(&FlashDkDvBf16Kernel<1>) DkDvBf16KernelFor(int h) {
+  return h > 64 ? FlashDkDvBf16Kernel<2> : FlashDkDvBf16Kernel<1>;
+}
+
+decltype(&FlashDqBf16Kernel<1>) DqBf16KernelFor(int h) {
+  return h > 64 ? FlashDqBf16Kernel<2> : FlashDqBf16Kernel<1>;
+}
+
+size_t DkDvBf16Smem(int t, int h) {
+  return h > 64 ? BLayout<2, kDkvStages, kBt>::Bytes(t)
+                : BLayout<1, kDkvStages, kBt>::Bytes(t);
+}
+
+size_t DqBf16Smem(int t, int h) {
+  return h > 64 ? BLayout<2, kDqStages, kDqT>::Bytes(t)
+                : BLayout<1, kDqStages, kDqT>::Bytes(t);
+}
+
+// geo[0..5] of one kernel for FlashBwdGeometry, after opting it into
+// `smem` bytes of dynamic shared memory.
+template <typename Kernel>
+cudaError_t KernelGeometry(Kernel kernel, int tiles, int threads,
+                           size_t smem, int* geo) {
+  cudaFuncAttributes attr;
+  cudaError_t err = AllowSmem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&geo[3], kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  geo[0] = tiles;
+  geo[1] = threads;
+  geo[2] = static_cast<int>(smem);
+  geo[4] = attr.numRegs;
+  geo[5] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1873,27 +2157,6 @@ int FlashBwdDqF32(const float* q, const float* k, const float* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The two float32 backward kernels' launch geometry at (t, h), as
-// FlashFwdGeometry: geo[0..2] for dK/dV, geo[3..5] for dQ (threads, dynamic
-// shared memory per block, blocks resident on one SM).
-int FlashBwdF32Geometry(int t, int h, int* geo) {
-  if (BadShape(1, t, 1, h)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t dkdv = BwdLayout(t, h, kBDkDvTile, true).bytes;
-  const size_t dq = BwdLayout(t, h, kBDqTile, false).bytes;
-  cudaError_t err = AllowSmem(DkDvKernelFor(h), dkdv);
-  if (err == cudaSuccess) err = AllowSmem(DqKernelFor(h), dq);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &geo[2], DkDvKernelFor(h), kBThreads, dkdv);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &geo[5], DqKernelFor(h), kBThreads, dq);
-  geo[0] = geo[3] = kBThreads;
-  geo[1] = static_cast<int>(dkdv);
-  geo[4] = static_cast<int>(dq);
-  return static_cast<int>(err);
-}
-
 // The bfloat16 kernels (same conventions; q/k/v/out/do/dq/dk/dv bf16, lse
 // and delta float32). block_k: the reference's key block, a multiple of 64
 // or >= t.
@@ -1952,16 +2215,26 @@ int FlashBwdDkDvBF16(const void* q, const void* k, const void* v,
                      const int* seg, const void* dout, const float* lse,
                      const float* delta, void* dk, void* dv, int b, int t,
                      int n, int h, int causal, void* stream) {
-  if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (BadShape(b, t, n, h) || (t + kBOwnBf16 - 1) / kBOwnBf16 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiledFn encode = TensorMapEncoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv, mdo, mdk, mdv;
+  if (!BoxMap(encode, &mq, q, b, t, n, h, kBt) ||
+      !BoxMap(encode, &mk, k, b, t, n, h, kBOwnBf16) ||
+      !BoxMap(encode, &mv, v, b, t, n, h, kBOwnBf16) ||
+      !BoxMap(encode, &mdo, dout, b, t, n, h, kBt) ||
+      !BoxMap(encode, &mdk, dk, b, t, n, h, 64) ||
+      !BoxMap(encode, &mdv, dv, b, t, n, h, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   Problem pb = MakeProblem(t, n, h, causal);
-  const size_t smem = HBwdLayout(t, h).bytes;
-  cudaError_t err = AllowSmem(FlashDkDvBf16Kernel, smem);
+  const size_t smem = DkDvBf16Smem(t, h);
+  const auto kernel = DkDvBf16KernelFor(h);
+  cudaError_t err = AllowSmem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FlashDkDvBf16Kernel<<<dim3((t + kHk - 1) / kHk, b * n), kHThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), pb);
+  kernel<<<dim3(b * n, (t + kBOwnBf16 - 1) / kBOwnBf16), kBwdThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, mdk, mdv, seg, lse, delta, pb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1969,17 +2242,52 @@ int FlashBwdDqBF16(const void* q, const void* k, const void* v,
                    const int* seg, const void* dout, const float* lse,
                    const float* delta, void* dq, int b, int t, int n, int h,
                    int causal, void* stream) {
-  if (BadShape(b, t, n, h)) return static_cast<int>(cudaErrorInvalidValue);
+  if (BadShape(b, t, n, h) || (t + kBOwnBf16 - 1) / kBOwnBf16 > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiledFn encode = TensorMapEncoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if (!BoxMap(encode, &mq, q, b, t, n, h, kBOwnBf16) ||
+      !BoxMap(encode, &mk, k, b, t, n, h, kDqT) ||
+      !BoxMap(encode, &mv, v, b, t, n, h, kDqT) ||
+      !BoxMap(encode, &mdo, dout, b, t, n, h, kBOwnBf16) ||
+      !BoxMap(encode, &mdq, dq, b, t, n, h, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
   Problem pb = MakeProblem(t, n, h, causal);
-  const size_t smem = HBwdLayout(t, h).bytes;
-  cudaError_t err = AllowSmem(FlashDqBf16Kernel, smem);
+  const size_t smem = DqBf16Smem(t, h);
+  const auto kernel = DqBf16KernelFor(h);
+  cudaError_t err = AllowSmem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  FlashDqBf16Kernel<<<dim3((t + kHq - 1) / kHq, b * n), kHThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seg, static_cast<const bf16*>(dout), lse,
-      delta, static_cast<bf16*>(dq), pb);
+  kernel<<<dim3(b * n, (t + kBOwnBf16 - 1) / kBOwnBf16), kBwdThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      mq, mk, mv, mdo, mdq, seg, lse, delta, pb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The two backward kernels of one dtype (bf16 != 0: bfloat16, else
+// float32) at (t, h): geo[0..5] for dK/dV, geo[6..11] for dQ, each the
+// grid's tile count (grid y; grid x is b x n), threads, dynamic shared
+// memory per block, blocks resident on one SM, registers per thread and
+// local (spill) bytes per thread. Returns the cudaError_t.
+int FlashBwdGeometry(int t, int h, int bf16, int* geo) {
+  if (BadShape(1, t, 1, h)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (bf16) {
+    const int tiles = (t + kBOwnBf16 - 1) / kBOwnBf16;
+    err = KernelGeometry(DkDvBf16KernelFor(h), tiles, kBwdThreads,
+                         DkDvBf16Smem(t, h), geo);
+    if (err == cudaSuccess)
+      err = KernelGeometry(DqBf16KernelFor(h), tiles, kBwdThreads,
+                           DqBf16Smem(t, h), geo + 6);
+  } else {
+    const int tiles = (t + kBOwn - 1) / kBOwn;
+    err = KernelGeometry(DkDvKernelFor(h), tiles, kBThreads,
+                         BwdLayout(t, h, kBDkDvTile, true).bytes, geo);
+    if (err == cudaSuccess)
+      err = KernelGeometry(DqKernelFor(h), tiles, kBThreads,
+                           BwdLayout(t, h, kBDqTile, false).bytes, geo + 6);
+  }
+  return static_cast<int>(err);
 }
 
 const char* FlashErrorString(int code) {

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) building blocks of the bfloat16 flash-attention forward
+// Hopper (sm_90a) building blocks of the bfloat16 flash-attention kernels
 // (flash_attention.cu) and the bfloat16 fused-xent statistics
-// (fused_xent.cu): mbarriers, TMA tensor loads and warpgroup matrix
-// multiplies (wgmma), as inline PTX, and the host's tensor-map encoder.
+// (fused_xent.cu), as inline PTX: mbarriers (and cp.async copies that
+// arrive on one), TMA tensor loads and stores, warpgroup matrix
+// multiplies (wgmma), named barriers and warpgroup register reallocation;
+// and the host's tensor-map encoder.
 //
 // Conventions. Tiles are copied by TMA with the 128-byte swizzle: a box
 // of R rows x 64 bf16 columns (128 bytes) lands as R rows of 128 bytes,
@@ -100,6 +102,15 @@ __device__ __forceinline__ void MbarWait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// An arrival on `bar` once every cp.async copy this thread has issued so
+// far has landed; it counts toward the barrier's expected arrivals.
+__device__ __forceinline__ void CpAsyncMbarArrive(uint64_t* bar) {
+  asm volatile(
+      "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+          SmemAddr(bar))
+      : "memory");
+}
+
 // -- TMA --
 
 // The box at coordinates (c0, c1, c2, c3) (innermost first) of the 4-D
@@ -126,6 +137,31 @@ __device__ __forceinline__ void TmaLoad2(void* dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(SmemAddr(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// The box at shared src into the 4-D tensor map `map` at coordinates
+// (c0, c1, c2, c3) (innermost first); rows and columns outside the tensor
+// are not written. Completion is tracked in the thread's bulk groups.
+__device__ __forceinline__ void TmaStore4(const void* map, const void* src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(SmemAddr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Commits the thread's TMA stores and waits until they have read their
+// shared memory (the writes to global memory may still be in flight).
+__device__ __forceinline__ void TmaStoreWaitRead() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the async proxy
+// (a TMA store that reads them).
+__device__ __forceinline__ void FenceProxyAsync() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // -- wgmma --
@@ -270,6 +306,30 @@ __device__ __forceinline__ void WgmmaRS128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// -- named barriers --
+
+// Waits at hardware barrier `id` (1..15; 0 is __syncthreads') until
+// `count` threads, a multiple of 32, have reached it.
+__device__ __forceinline__ void NamedBarSync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// -- warpgroup register reallocation --
+
+// Every thread of a warpgroup executes these together: the warpgroup's
+// per-thread register limit rises to (or falls to) kRegs, a multiple of 8
+// in [24, 256]. A rise waits until falls elsewhere in the block have freed
+// enough registers.
+template <int kRegs>
+__device__ __forceinline__ void MaxRegsInc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void MaxRegsDec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
 }  // namespace

@@ -15,9 +15,9 @@ Two implementations of one function:
   by TMA, 128 queries per block), and the two backward
   kernels `FlashDkDv` and `FlashDq`, which recompute the probabilities
   from `lse` (float32: register-blocked tiles streamed through two
-  cp.async stages, 64 owned rows per block; bf16: mma.sync;
-  `delta = rowsum(do * out)` stays a plain torch op, as it is XLA in the
-  reference). `_FlashFunction` ties them into autograd.
+  cp.async stages, 64 owned rows per block; bf16: warpgroup MMA fed by
+  TMA, 128 owned rows per block; `delta = rowsum(do * out)` stays a plain
+  torch op, as it is XLA in the reference). `_FlashFunction` ties them into autograd.
 - `_PlainAttention`, the reference's `_XlaAttention` twin in the same op
   order, natively differentiable: the CPU path, and on the card the
   float32 kernels' yardstick (`_PlainForward` adds lse, `_PlainBackward`
@@ -254,11 +254,11 @@ def _Lib():
     lib.FlashBwdDqBF16.argtypes = [vp] * 8 + [ci] * 5 + [vp]
     for fn in (lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry):
       fn.argtypes = [ci] * 2 + [ctypes.POINTER(ci)] * 3
-    lib.FlashBwdF32Geometry.argtypes = [ci] * 2 + [ctypes.POINTER(ci)]
+    lib.FlashBwdGeometry.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
     for fn in (lib.FlashFwdF32, lib.FlashBwdDkDvF32, lib.FlashBwdDqF32,
                lib.FlashFwdBF16, lib.FlashBwdDkDvBF16, lib.FlashBwdDqBF16,
                lib.FlashFwdGeometry, lib.FlashFwdBf16Geometry,
-               lib.FlashBwdF32Geometry):
+               lib.FlashBwdGeometry):
       fn.restype = ci
     lib.FlashErrorString.argtypes = [ci]
     lib.FlashErrorString.restype = ctypes.c_char_p
@@ -301,17 +301,21 @@ def ForwardGeometry(t: int, h: int, dtype=torch.float32):
   return tuple(v.value for v in vals)
 
 
-def BackwardGeometry(t: int, h: int):
-  """{'dkdv': (threads, shared bytes per block, resident blocks per SM),
-  'dq': (...)} of the two float32 backward kernels at sequence length t
-  and head dim h, on the current device."""
+def BackwardGeometry(t: int, h: int, dtype=torch.float32):
+  """{'dkdv': {...}, 'dq': {...}}: the launch geometry of the two backward
+  kernels of `dtype` at sequence length t and head dim h, on the current
+  device. Each holds `tiles` (grid y; grid x is b * n), `threads`,
+  `smem` (dynamic shared bytes per block), `per_sm` (resident blocks per
+  SM), `regs` (registers per thread) and `local` (local, i.e. spill,
+  bytes per thread)."""
   lib = _Lib()
-  geo = (ctypes.c_int * 6)()
-  rc = lib.FlashBwdF32Geometry(t, h, geo)
+  geo = (ctypes.c_int * 12)()
+  rc = lib.FlashBwdGeometry(t, h, int(dtype == torch.bfloat16), geo)
   if rc != 0:
-    raise RuntimeError("FlashBwdF32Geometry failed: "
+    raise RuntimeError("FlashBwdGeometry failed: "
                        + lib.FlashErrorString(rc).decode())
-  return dict(dkdv=tuple(geo[:3]), dq=tuple(geo[3:]))
+  keys = ("tiles", "threads", "smem", "per_sm", "regs", "local")
+  return dict(dkdv=dict(zip(keys, geo[:6])), dq=dict(zip(keys, geo[6:])))
 
 
 def _Ptr(x):

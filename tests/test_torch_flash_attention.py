@@ -461,3 +461,75 @@ def test_bf16_forward_refuses_blocks_of_partial_tiles(cuda):
   q = torch.zeros(1, 96, 2, 16, device="cuda", dtype=torch.bfloat16)
   with pytest.raises(ValueError, match="multiple of 64"):
     fa.FlashForward(q, q, q, None, True, 32)
+
+
+def _CheckBf16Backward(q, k, v, do, seg, causal):
+  """The bf16 dK/dV and dQ kernels against `_PallasBackward` on the lse
+  and delta of the bf16 forward kernel, at the bars of
+  `test_bf16_kernels_match_pallas_twin_on_card`: dq, dk and dv differ in
+  at most 1e-3 of their elements (`_Share`) and no element by more than
+  one bf16 ulp (`_OffByMoreThanAnUlp`)."""
+  out, lse = fa.FlashForward(q, k, v, seg, causal)
+  delta = fa.RowDelta(do, out)
+  dk, dv = fa.FlashDkDv(q, k, v, seg, do, lse, delta, causal)
+  dq = fa.FlashDq(q, k, v, seg, do, lse, delta, causal)
+  dq_p, dk_p, dv_p = fa._PallasBackward(q, k, v, seg, do, lse, delta, causal)
+  torch.cuda.synchronize()
+  for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    assert got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert _Share(got, want) <= 1e-3
+    assert _OffByMoreThanAnUlp(got, want) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h", [16, 48, 64, 96, 128])
+@pytest.mark.parametrize("t", [20, 77, 200, 1000])
+def test_bf16_backward_kernel_edges_on_card(cuda, t, h, causal):
+  """The bf16 dK/dV and dQ kernels at t shorter than one streamed tile
+  (20: below the 64 rows of a tile and the 128 a block owns) and at t
+  that is not a multiple of the tiles (rows past t read as zeros by TMA
+  and masked), with a segment switch at 37 inside a tile and a padding
+  tail (`_Bf16CardInputs`), and again without segments. h = 16 and 48 take
+  one TMA box with its columns past h read as zeros, h = 96 a second box
+  half past h."""
+  q, k, v, do, seg = _Bf16CardInputs(t, h, seed=t + h)
+  for s in (seg, None):
+    _CheckBf16Backward(q, k, v, do, s, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_backward_partial_last_tile_on_card(cuda, causal):
+  """b n = 9 blocks on grid x, and t = 200 leaves the last 128-row block
+  and the last 64-row tile partial."""
+  q, k, v, do, seg = _Bf16CardInputs(200, 128, seed=44, b=3, n=3)
+  _CheckBf16Backward(q, k, v, do, seg, causal)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernels_bitwise_repeat(cuda):
+  """Two calls of each bf16 backward kernel give the same bits (no
+  floating-point atomics: each element is summed by one thread, in tile
+  order)."""
+  q, k, v, do, seg = _Bf16CardInputs(1000, 128, seed=6)
+  out, lse = fa.FlashForward(q, k, v, seg, True)
+  delta = fa.RowDelta(do, out)
+  first = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True) + (
+      fa.FlashDq(q, k, v, seg, do, lse, delta, True),)
+  again = fa.FlashDkDv(q, k, v, seg, do, lse, delta, True) + (
+      fa.FlashDq(q, k, v, seg, do, lse, delta, True),)
+  torch.cuda.synchronize()
+  assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_bf16_backward_geometry_has_no_spills(cuda):
+  """Both bf16 backward kernels at h = 64 and 128: one block per SM, and
+  no local (spill) memory, though dK/dV holds 192 float32 accumulators a
+  thread at h = 128."""
+  for h in (64, 128):
+    for name, g in fa.BackwardGeometry(1024, h, torch.bfloat16).items():
+      assert g["per_sm"] == 1, (h, name, g)
+      assert g["local"] == 0, (h, name, g)

@@ -11,30 +11,24 @@ Each tree's `lingvo_tpu_torch` is imported in a child process of its own
 of the card over the run shows as a difference between the two runs of
 one tree. The inputs and the timer are this checkout's `chip_smoke.py`
 (`_KvStorage`, `_DecodePool`, `_DecodeOnlyLens`, `_AttendPack`,
-`_ScanInputs`, `_FlashInputs`, `_Requests`, `_TimeMs`). Every child times:
-
-- the block-decode kernel on float32, int8 and bfloat16 pools at phase
-  10's pool (page 16, 8 rows of 0..1024 slots, dyadic q and K) and at the
-  decode-only pack shaped like phase 12's steps, and the host's enqueue
-  of one float32 call (`_EnqueueUs`);
-- the bfloat16 fused-xent statistics kernel at phase 19's shapes
-  ([8192, 2048] x [32000, 2048], block 1280, cap 30) and its plain
-  version, the cuBLAS block loop `_PlainStats`, on the same inputs;
-- DenseLm1B's GShardDecode prefill as phase 13 runs it (8 prompts
-  right-aligned in a 1024 bucket, a [8, 1152] cache, chunks of 256 with
-  live_len, decode_page_size 128; random weights from a seeded
-  generator): prefill_s, three times.
+`_ScanInputs`, `_FlashInputs`, `_Requests`, `_TimeMs`). Every child times
+the bfloat16 flash-attention backward kernels, dK/dV and dQ, at phase
+18's shapes ([8, 1024, 16, 128], causal, two segments of 512 per row,
+dyadic q, k, v and do), and SDPA's bfloat16 backward on the same inputs
+with the boolean causal-and-segment mask (the yardstick; the port never
+calls it).
 
 Every child also digests (sha256 of the bytes) the outputs of the
 kernels that were not redesigned, which must be equal in all four runs:
-the flash-attention forward, dK/dV and dQ (float32 and bf16, phase 7 /
-18's shapes), flash decode (float32 and bf16 at t = 1151 and 700), the
-scan (phase 4's serving shape), the float32 fused xent (phase 8's
-shapes) and the ragged kernel (float32, int8, bf16 at phase 3's pack and
-the decode-only pack); the redesigned kernels' outputs (block decode in
-its three dtypes, bf16 xent) and the prefill's logits are reported
-apart. Prints one JSON line per child and a summary; needs one CUDA card
-and imports no JAX.
+the flash-attention forward in both dtypes and the float32 dK/dV and dQ
+(phase 7 / 18's shapes), flash decode (float32 and bf16 at t = 1151 and
+700), block decode in its three dtypes (phase 10's pool and the
+decode-only pack), the scan (phase 4's serving shape), the fused xent in
+both dtypes (phase 8 / 19's shapes) and the ragged kernel (float32, int8,
+bf16 at phase 3's pack and the decode-only pack); the redesigned
+kernels' outputs (bf16 dk, dv and dq) are reported apart. Prints one
+JSON line per child and a summary; needs one CUDA card and imports no
+JAX.
 """
 
 import argparse
@@ -44,15 +38,12 @@ import json
 import os
 import subprocess
 import sys
-import tempfile
-import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# digests reported apart: the redesigned kernels, and the prefill's logits
-REDESIGNED = ("block_decode_float32", "block_decode_int8",
-              "block_decode_bfloat16", "xent_bf16", "prefill")
+# digests reported apart: the redesigned kernels
+REDESIGNED = ("bf16_dk", "bf16_dv", "bf16_dq")
 
 
 def _ChipSmoke():
@@ -63,10 +54,11 @@ def _ChipSmoke():
   return mod
 
 
-def _Flash(torch, fa, cs, outs):
+def _Flash(torch, fa, cs, res, outs):
   """The flash kernels at phase 7 / 18's shapes: float32 forward and
-  backward, then bf16 forward and backward on dyadic inputs."""
-  x, _, _ = cs._FlashInputs(torch, np.random.RandomState(5))
+  backward, then bf16 forward and backward on dyadic inputs; the bf16
+  backward pair timed beside SDPA's bf16 backward."""
+  x, keep, _ = cs._FlashInputs(torch, np.random.RandomState(5))
   q, k, v, do, seg = x["q"], x["k"], x["v"], x["do"], x["seg"]
   for dtype in ("f32", "bf16"):
     if dtype == "bf16":
@@ -78,6 +70,20 @@ def _Flash(torch, fa, cs, outs):
     outs[f"{dtype}_dk"], outs[f"{dtype}_dv"] = fa.FlashDkDv(
         q, k, v, seg, do, lse, delta, True)
     outs[f"{dtype}_dq"] = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
+  res["bf16_dkdv_ms"] = cs._TimeMs(
+      torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta, True), 20)
+  res["bf16_dq_ms"] = cs._TimeMs(
+      torch, lambda: fa.FlashDq(q, k, v, seg, do, lse, delta, True), 20)
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  leaves = [a.transpose(1, 2).detach().requires_grad_(True)
+            for a in (q, k, v)]
+  with torch.enable_grad():
+    ref = sdpa(*leaves, attn_mask=keep[:, None])
+  dot = do.transpose(1, 2)
+  res["sdpa_bf16_backward_ms"] = cs._TimeMs(
+      torch, lambda: torch.autograd.grad(ref, leaves, dot,
+                                         retain_graph=True), 20,
+      waits_as="SDPA bf16 backward")
 
 
 def _Decode(torch, fd, cs, spi, outs):
@@ -106,7 +112,7 @@ def _Decode(torch, fd, cs, spi, outs):
         cache_paddings=padc)
 
 
-def _BlockDecode(torch, bd, cs, res, outs):
+def _BlockDecode(torch, bd, cs, outs):
   """Block decode in its three dtypes at phase 10's page-16 pool and at
   the decode-only pack (dyadic q and K)."""
   for pack, lens in (("main", None), ("decode_only", cs._DecodeOnlyLens())):
@@ -119,14 +125,10 @@ def _BlockDecode(torch, bd, cs, res, outs):
       else:
         k, v, sc, _ = cs._KvStorage(torch, extra["clean"], extra["dead"],
                                     dtype)
-      call = lambda k=k, v=v, sc=sc: bd.BlockDecode(x["q"], k, v, *rest,
-                                                    page_size=16, **sc)
+      got = bd.BlockDecode(x["q"], k, v, *rest, page_size=16, **sc)
       key = f"block_decode_{dtype}"
-      outs[key] = (call() if pack == "main"
-                   else torch.cat([outs[key].flatten(), call().flatten()]))
-      res[f"block_decode_{dtype}_{pack}_ms"] = cs._TimeMs(torch, call, 20)
-      if dtype == "float32":   # what a host-bound decode step pays a call
-        res[f"block_decode_{pack}_enqueue_us"] = cs._EnqueueUs(torch, call)
+      outs[key] = (got if pack == "main"
+                   else torch.cat([outs[key].flatten(), got.flatten()]))
 
 
 def _Scan(torch, ssd, cs, outs):
@@ -137,9 +139,8 @@ def _Scan(torch, ssd, cs, outs):
                                                    chunk_size=64)
 
 
-def _Xent(torch, fx, cs, res, outs):
-  """Fused xent at phase 8 / 19's shapes: the float32 kernel digested; the
-  bf16 kernel timed beside its plain version."""
+def _Xent(torch, fx, outs):
+  """Fused xent at phase 8 / 19's shapes, float32 and bf16."""
   rng = np.random.RandomState(6)
   m, d, vocab = 8192, 2048, 32000
   x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda()
@@ -149,19 +150,12 @@ def _Xent(torch, fx, cs, res, outs):
   labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
   cfg = fx._Cfg(block_size=1280, vocab=vocab, vd=True, soft_cap=30.0,
                 label_smoothing=0.0)
-  outs["xent_f32"] = torch.cat([
-      a.float() for a in fx.FusedXentStats(x, w, bias, labels, cfg)
-      if a is not None])
-  x16, w16, b16 = x.bfloat16(), w.bfloat16(), bias.bfloat16()
-  del x, w
-  outs["xent_bf16"] = torch.cat([
-      a.float() for a in fx.FusedXentStats(x16, w16, b16, labels, cfg)
-      if a is not None])
-  res["xent_bf16_ms"] = cs._TimeMs(
-      torch, lambda: fx.FusedXentStats(x16, w16, b16, labels, cfg), 5)
-  res["xent_bf16_plain_ms"] = cs._TimeMs(
-      torch, lambda: fx._PlainStats(x16, w16, b16, labels, cfg), 3,
-      waits_as="plain xent stats")
+  for name, args in (("xent_f32", (x, w, bias)),
+                     ("xent_bf16", (x.bfloat16(), w.bfloat16(),
+                                    bias.bfloat16()))):
+    outs[name] = torch.cat([
+        a.float() for a in fx.FusedXentStats(*args, labels, cfg)
+        if a is not None])
 
 
 def _Ragged(torch, rba, ragged, cs, outs):
@@ -185,42 +179,11 @@ def _Ragged(torch, rba, ragged, cs, outs):
   outs["ragged"] = torch.cat([a.flatten() for a in got])
 
 
-def _Prefill(torch, spi, attention, gshard, cs, res, outs, tmp):
-  """DenseLm1B's GShardDecode prefill as phase 13 runs it, three times."""
-  cfg = spi.DenseLm1B()
-  p = cfg.Task()
-  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
-      decode_page_size=128)
-  lm = p.Instantiate(device="cuda")
-  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
-  lens, prompts = cs._Requests(cfg)
-  arr = np.zeros((8, int(lens.max())), np.int32)
-  for i, pr in enumerate(prompts):
-    arr[i, :len(pr)] = pr
-  decoder = gshard.GShardDecode(lm, tmp, os.path.join(tmp, "decode.jsonl"),
-                                max_decode_steps=128, prefill_chunk_size=256)
-  init_fn, prefill_fn, _ = decoder._GetDecodeFn(1024, 128)
-  aligned = torch.as_tensor(decoder._RightAlign(arr, lens, width=1024)).cuda()
-  lens_dev = torch.as_tensor(lens).cuda()
-  for i in range(4):   # the first is a warm-up
-    with torch.no_grad():
-      states = init_fn(8)
-      torch.cuda.synchronize()
-      t0 = time.perf_counter()
-      logits, states = prefill_fn(aligned, lens_dev, states)
-      torch.cuda.synchronize()
-      if i:
-        res[f"prefill_s_{i}"] = time.perf_counter() - t0
-    del states
-  outs["prefill"] = logits
-
-
 def _Child(tree, save):
   """One tree's times (JSON on stdout) and the digests of its kernels'
   outputs (to `save`, for the bitwise comparison)."""
   import torch
   sys.path.insert(0, os.path.abspath(tree))
-  from lingvo_tpu_torch.core import attention
   from lingvo_tpu_torch.core import ragged
   from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
   from lingvo_tpu_torch.ops import block_decode as bd
@@ -229,26 +192,19 @@ def _Child(tree, save):
   from lingvo_tpu_torch.ops import fused_xent as fx
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
   from lingvo_tpu_torch.ops import ssd_scan as ssd
-  from lingvo_tpu_torch.runners import gshard_decode as gshard
   cs = _ChipSmoke()
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   res, outs = {"tree": tree}, {}
-  _Flash(torch, fa, cs, outs)
+  _Flash(torch, fa, cs, res, outs)
   _Decode(torch, fd, cs, spi, outs)
-  _BlockDecode(torch, bd, cs, res, outs)
+  _BlockDecode(torch, bd, cs, outs)
   _Scan(torch, ssd, cs, outs)
-  _Xent(torch, fx, cs, res, outs)
+  _Xent(torch, fx, outs)
   _Ragged(torch, rba, ragged, cs, outs)
   torch.cuda.synchronize()
   digests = {key: hashlib.sha256(x.float().cpu().numpy().tobytes())
              .hexdigest() for key, x in outs.items()}
-  outs.clear()
-  torch.cuda.empty_cache()
-  with tempfile.TemporaryDirectory() as tmp:
-    _Prefill(torch, spi, attention, gshard, cs, res, outs, tmp)
-  digests["prefill"] = hashlib.sha256(
-      outs["prefill"].float().cpu().numpy().tobytes()).hexdigest()
   with open(save, "w") as f:
     json.dump(digests, f)
   print(json.dumps(res), flush=True)
@@ -305,9 +261,10 @@ def main():
             f"{b} {runs[1][0][key]:.4f} / {runs[2][0][key]:.4f}")
   for i, tree in enumerate((a, b, b, a)):
     r = runs[i][0]
-    print(f"run {i} ({tree}): bf16 xent {r['xent_bf16_ms']:.3f} ms, plain "
-          f"cuBLAS loop {r['xent_bf16_plain_ms']:.3f} ms "
-          f"({r['xent_bf16_plain_ms'] / r['xent_bf16_ms']:.2f}x)")
+    pair = r["bf16_dkdv_ms"] + r["bf16_dq_ms"]
+    print(f"run {i} ({tree}): bf16 dK/dV + dQ {pair:.4f} ms, SDPA bf16 "
+          f"backward {r['sdpa_bf16_backward_ms']:.4f} ms "
+          f"({r['sdpa_bf16_backward_ms'] / pair:.2f}x)")
   return 0 if same else 1
 
 
