@@ -25,9 +25,18 @@
 4. Holds the chunked SSD-scan kernel against `_ChunkedPlain` on the card
    at the hybrid's serving shape ([8, 256, 16] with S = H = 64, chunk 64:
    rows of mixed live lengths padded as identity steps, a reset, a nonzero
-   initial state) and its training shape ([8, 1024, 16], two segments of
-   512): y and the final state finite and within 2e-5 x max(1, max|want|).
-   Times the kernel, the plain version and the bound.
+   initial state), its training shape ([8, 1024, 16], two segments of
+   512), a decode-only pack (every row 1 live step of 256, one row idle:
+   3 of a row's 4 chunks are identity chunks) and a long T (1100: 18
+   chunks, runs of 2 and 3 per cluster block): y and the final state
+   finite and within 2e-5 x max(1, max|want|), two calls bitwise equal.
+   Prints each launch's grid, cluster size, threads, shared memory per
+   block, registers and spills (`ssd_scan.KernelGeometry`); times the
+   kernel and the plain version beside two bounds: the full-work bound
+   (every chunk's four products) and the live-work bound, the work this
+   call's data needs (`_ScanLiveWork`: each chunk cut at its last nonzero
+   v, the inter product only where the state can be nonzero), which is
+   the `bound_ms` of the kernels line.
 5. Serving main path: DenseLm1B at full width and depth (random weights
    from a seeded torch.Generator) through `ServingLoop`: 8 requests with
    prompts of 64..768 tokens, 32 new tokens each, through
@@ -697,14 +706,76 @@ def _ScanFlops(t, q, s_dim, h):
   return total
 
 
+def _ScanLiveWork(torch, x, chunk):
+  """The live-work bound's operations and bytes: what this call's data
+  needs. Per (row, chunk) of qc steps whose last nonzero v is step kv
+  (counted from 1; 0 when v is all zero there): the inter product (c o
+  exp(cum)) S^T, 2 qc S H, where the incoming state can be nonzero (s0
+  given, or an earlier chunk of the row with kv > 0); U_j over the kv rows,
+  2 kv S H; G and the intra product over their causal entries (t' <= t)
+  with t' < kv, 2 e (S + H), e = kv (kv + 1) / 2 + (qc - kv) kv. Past kv,
+  v is 0 and those terms add only zeros. v is read everywhere; dl and c
+  where the state can be nonzero or kv > 0 (elsewhere y = 0 and the state
+  stays 0); b on the kv rows only; y and the states once."""
+  dl, b_in, c_in, v = x[:4]
+  b, t, n = dl.shape
+  s_dim, h = b_in.shape[-1], v.shape[-1]
+  q = min(chunk, t)
+  flops, b_rows, c_rows = 0, 0, 0
+  nzv = (v != 0).any(-1)                                  # [B, T, N]
+  warm = torch.full((b, n), len(x) > 4, device=dl.device)  # state may be != 0
+  for start in range(0, t, q):
+    qc = min(q, t - start)
+    step = torch.arange(1, qc + 1, device=dl.device)[None, :, None]
+    kv = (nzv[:, start:start + qc] * step).amax(1).long()   # [B, N]
+    e = kv * (kv + 1) // 2 + (qc - kv) * kv
+    flops += int(warm.sum()) * 2 * qc * s_dim * h
+    flops += int((2 * kv * s_dim * h + 2 * e * (s_dim + h)).sum())
+    b_rows += int(kv.sum())
+    c_rows += int((warm | (kv > 0)).sum()) * qc
+    warm |= kv > 0
+  moved = (c_rows * (1 + s_dim) + v.numel() + b_rows * s_dim
+           + b * t * n * h + b * n * h * s_dim * (2 if len(x) > 4 else 1)) * 4
+  return flops, moved
+
+
+def _BoundShare(ms, bound):
+  """bound / kernel time; a kernel under a bound (work it skipped) reads
+  as 'below', never as more than 100%."""
+  return f"{bound / ms:.1%}" if bound <= ms else "below it"
+
+
 def _CheckScan(torch, ssd, label, x, moved, chunk=64):
-  """The scan kernel against `_ChunkedPlain` on the card; times both."""
+  """The scan kernel against `_ChunkedPlain` on the card, two calls
+  bitwise equal; prints the launch geometry; times both."""
   dl, b_in, c_in, v = x[:4]
   s0 = x[4] if len(x) > 4 else None
   y, s_fin = ssd.SsdScan(dl, b_in, c_in, v, s0=s0, chunk_size=chunk)
+  y2, s_fin2 = ssd.SsdScan(dl, b_in, c_in, v, s0=s0, chunk_size=chunk)
   y_p, s_p = ssd.SsdScan(dl, b_in, c_in, v, s0=s0, chunk_size=chunk,
                          lowering="chunked")
   torch.cuda.synchronize()
+  _Check(torch.equal(y, y2) and torch.equal(s_fin, s_fin2),
+         f"scan {label}: two calls differ bitwise")
+  del y2, s_fin2
+  # both against `_ChunkedPlain` in float64 (information: how far each
+  # float32 version is from the same formulas in float64)
+  b, t, n = dl.shape
+  flat = [a.double().transpose(1, 2).reshape(b * n, t, -1)
+          for a in (b_in, c_in, v)]
+  s0d = (s0.double().reshape(b * n, v.shape[-1], -1) if s0 is not None
+         else torch.zeros((b * n, v.shape[-1], b_in.shape[-1]),
+                          dtype=torch.float64, device=dl.device))
+  y64, s64 = ssd._ChunkedPlain(dl.double().transpose(1, 2).reshape(b * n, t),
+                               *flat, s0d, chunk)
+  y64 = y64.reshape(b, n, t, -1).transpose(1, 2)
+  s64 = s64.reshape(s_fin.shape)
+  print(f"scan {label} against float64: kernel y "
+        f"{float((y - y64).abs().max()):.3g}, state "
+        f"{float((s_fin - s64).abs().max()):.3g}; plain y "
+        f"{float((y_p - y64).abs().max()):.3g}, state "
+        f"{float((s_p - s64).abs().max()):.3g}")
+  del y64, s64, flat
   err = 0.0
   for name, got, want in (("y", y, y_p), ("s_final", s_fin, s_p)):
     _Check(bool(torch.isfinite(got).all()), f"scan {label} {name}: non-finite")
@@ -713,19 +784,32 @@ def _CheckScan(torch, ssd, label, x, moved, chunk=64):
     print(f"scan {label} {name}: max abs err {e:.3g} (tol {tol:.3g})")
     _Check(e <= tol, f"scan {label} {name}: {e} > {tol}")
     err = max(err, e)
-  b, t, n = dl.shape
   s_dim, h = b_in.shape[-1], v.shape[-1]
+  geo = ssd.KernelGeometry(t, s_dim, h, chunk)
+  print(f"scan {label}: two calls bitwise equal; grid ({geo['cluster']} x "
+        f"{b * n}, {geo['h_groups']}), cluster {geo['cluster']} "
+        f"({geo['per_block']} of {geo['chunks']} chunks a block, "
+        f"{geo['stages']} ring stages), {geo['threads']} threads, "
+        f"{geo['smem']} B shared per block, {geo['regs']} registers, "
+        f"{geo['local']} B local, {geo['per_sm']} blocks resident per SM, "
+        f"{geo['clusters']} clusters resident")
   flops = _ScanFlops(t, min(chunk, t), s_dim, h) * b * n
+  live_flops, live_moved = _ScanLiveWork(torch, x, chunk)
   ms = _TimeMs(torch, lambda: ssd.SsdScan(dl, b_in, c_in, v, s0=s0,
                                           chunk_size=chunk), 20)
   plain_ms = _TimeMs(torch, lambda: ssd.SsdScan(
       dl, b_in, c_in, v, s0=s0, chunk_size=chunk, lowering="chunked"), 3,
       waits_as="plain scan")
   bound = _Bound(moved, flops)
+  live = _Bound(live_moved, live_flops)
   print(f"scan {label} [{b}, {t}, {n}] S={s_dim} H={h} chunk {chunk}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} "
-        f"ms ({bound[1]}; {flops / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB)")
-  return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err)
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; full-work bound "
+        f"{bound[0]:.4f} ms ({bound[1]}; {flops / 1e9:.3f} GFLOP, "
+        f"{moved / 1e6:.1f} MB; {_BoundShare(ms, bound[0])}), live-work "
+        f"bound {live[0]:.4f} ms ({live[1]}; {live_flops / 1e9:.3f} GFLOP, "
+        f"{live_moved / 1e6:.1f} MB; {_BoundShare(ms, live[0])})")
+  return dict(ms=ms, plain_ms=plain_ms, bound=bound, live_bound=live,
+              err=err, geometry=geo)
 
 
 def _FlashInputs(torch, rng):
@@ -2076,6 +2160,17 @@ def main():
                          [(r, 512) for r in range(8)], False)
   scan_train = _CheckScan(torch, ssd, "training", x, moved)
   del x
+  # decode-only: every row 1 live step of 256 (a decode step's row view),
+  # the last row idle
+  x, moved = _ScanInputs(torch, ssd, srng, 256, [1] * 7 + [0], [], True)
+  scan_decode = _CheckScan(torch, ssd, "decode-only", x, moved)
+  del x
+  # a long T: 18 chunks, runs of 2 and 3 chunks per cluster block
+  x, moved = _ScanInputs(torch, ssd, srng, 1100, [1100] * 8,
+                         [(r, 550) for r in range(8)], True)
+  scan_long = _CheckScan(torch, ssd, "long T", x, moved)
+  del x
+  scan_cases = (scan_serve, scan_train, scan_decode, scan_long)
   gc.collect()
   torch.cuda.empty_cache()
 
@@ -2313,10 +2408,23 @@ def main():
       "source": "lingvo_tpu_torch/ops/csrc/ssd_scan.cu",
       "replaces": "lingvo_tpu/ops/ssd_scan.py:221",
       "launches": hybrid_launches["ssd_scan"],
-      "max_abs_err": max(scan_serve["err"], scan_train["err"]),
+      "max_abs_err": max(r["err"] for r in scan_cases),
       "ms": scan_serve["ms"], "plain_ms": scan_serve["plain_ms"],
-      "bound_ms": scan_serve["bound"][0], "bound_by": scan_serve["bound"][1],
-      "library_ms": None}]
+      # the bound of the work this call's data needs; the full-work bound
+      # (every chunk's whole body) beside it
+      "bound_ms": scan_serve["live_bound"][0],
+      "bound_by": scan_serve["live_bound"][1],
+      "library_ms": None,
+      "full_bound_ms": scan_serve["bound"][0],
+      "full_bound_by": scan_serve["bound"][1],
+      "decode_only_ms": scan_decode["ms"],
+      "decode_only_bound_ms": scan_decode["live_bound"][0],
+      "decode_only_full_bound_ms": scan_decode["bound"][0],
+      "train_ms": scan_train["ms"],
+      "train_bound_ms": scan_train["live_bound"][0],
+      "train_full_bound_ms": scan_train["bound"][0],
+      "registers": scan_serve["geometry"]["regs"],
+      "local_bytes": scan_serve["geometry"]["local"]}]
   for name, res, line in (("flash_attention_fwd", flash["fwd"], 230),
                           ("flash_attention_dkdv", flash["dkdv"], 368),
                           ("flash_attention_dq", flash["dq"], 408)):

@@ -139,23 +139,6 @@ __host__ __device__ inline FwdSmem FwdLayout(int t, int h) {
   return s;
 }
 
-__device__ __forceinline__ void CpAsync16(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int bytes = valid ? 16 : 0;  // 0: write zeros, read nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void CpAsyncCommit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int kPending>
-__device__ __forceinline__ void CpAsyncWait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
-}
-
 // Rows [start, start + rows) of head ni, batch bi into dst (row stride ld)
 // with 16-byte async copies by a block of kN threads; rows past t are
 // zero-filled.
@@ -585,14 +568,6 @@ struct RowCopier {
     }
   }
 };
-
-// One 4-byte async copy; !valid writes 0 and reads nothing.
-__device__ __forceinline__ void CpAsync4(void* dst, const void* src,
-                                         bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
 
 __device__ __forceinline__ float4 Ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

@@ -101,28 +101,12 @@ __device__ __forceinline__ int GroupMin(int x) {
   return x;
 }
 
-// `bytes` (0..16) of global src to shared dst, asynchronously; the rest of
-// the 16 bytes is zero-filled (0 bytes: nothing is read)
-__device__ __forceinline__ void CpAsync16(float* dst, const float* src,
-                                          int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void CpAsync4(float* dst, const float* src,
-                                         bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // 4 floats of a row, src[0 .. 3] of which the first `n` (<= 4, may be <=
 // 0) exist; vec: src is 16-byte aligned (and n is 0 or 4)
 __device__ __forceinline__ void CopyFour(float* dst, const float* src, int n,
                                          bool vec) {
   if (vec) {
-    CpAsync16(dst, src, n > 0 ? 16 : 0);
+    CpAsync16(dst, src, n > 0);
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e) CpAsync4(dst + e, src + (e < n ? e : 0), e < n);

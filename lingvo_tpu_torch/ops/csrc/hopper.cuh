@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the bfloat16 flash-attention kernels
-// (flash_attention.cu) and the bfloat16 fused-xent statistics
-// (fused_xent.cu), as inline PTX: mbarriers (and cp.async copies that
-// arrive on one), TMA tensor loads and stores, warpgroup matrix
-// multiplies (wgmma), named barriers and warpgroup register reallocation;
-// and the host's tensor-map encoder.
+// (flash_attention.cu), the bfloat16 fused-xent statistics (fused_xent.cu)
+// and the SSD scan (ssd_scan.cu), as inline PTX: cp.async copies,
+// mbarriers (and cp.async copies that arrive on one), thread-block cluster
+// barriers and stores into another block's shared memory, TMA tensor loads
+// and stores, warpgroup matrix multiplies (wgmma), named barriers and
+// warpgroup register reallocation; and the host's tensor-map encoder.
 //
 // Conventions. Tiles are copied by TMA with the 128-byte swizzle: a box
 // of R rows x 64 bf16 columns (128 bytes) lands as R rows of 128 bytes,
@@ -53,6 +54,39 @@ inline EncodeTiledFn TensorMapEncoder() {
 
 __device__ __forceinline__ uint32_t SmemAddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- cp.async --
+
+// 16 bytes of global src into shared dst, asynchronously; !valid writes
+// zeros and reads nothing.
+__device__ __forceinline__ void CpAsync16(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   SmemAddr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// The same for 4 bytes.
+__device__ __forceinline__ void CpAsync4(void* dst, const void* src,
+                                         bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   SmemAddr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Closes this thread's group of copies issued since the last commit.
+__device__ __forceinline__ void CpAsyncCommit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's committed groups are in
+// flight (a barrier then makes every thread's copies visible).
+template <int kPending>
+__device__ __forceinline__ void CpAsyncWait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // -- mbarriers --
@@ -109,6 +143,61 @@ __device__ __forceinline__ void CpAsyncMbarArrive(uint64_t* bar) {
       "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
           SmemAddr(bar))
       : "memory");
+}
+
+// -- thread-block clusters --
+
+// Arrives on the cluster barrier with no memory ordering (e.g. "this block
+// has started"); a later ClusterWait completes the phase.
+__device__ __forceinline__ void ClusterArriveRelaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// Arrives, releasing this thread's prior writes (to any block's shared
+// memory) to the threads that pass the matching ClusterWait.
+__device__ __forceinline__ void ClusterArrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ClusterWait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// `p`'s address (the same offset) in the shared memory of the cluster's
+// block `rank`.
+__device__ __forceinline__ uint32_t MapShared(const void* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(SmemAddr(p)), "r"(rank));
+  return remote;
+}
+
+// 16 bytes into another block's shared memory at `remote` (from
+// MapShared), counted in bytes on that block's mbarrier at `remote_bar`.
+__device__ __forceinline__ void StAsync(uint32_t remote, float4 v,
+                                        uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(remote),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
+      : "memory");
+}
+
+// MbarWait that acquires at cluster scope: what other blocks' st.async
+// stores or arrivals on this block's barrier released becomes visible.
+__device__ __forceinline__ void MbarWaitCluster(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(SmemAddr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // -- TMA --

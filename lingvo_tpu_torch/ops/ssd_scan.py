@@ -19,10 +19,14 @@ Lowerings of the same recurrence:
   same op order: T cut into chunks of Q steps, the quadratic intra-chunk
   form of `_ChunkBody` plus the [H, S] state carried across chunks.
 - `pallas` / `auto`: the CUDA kernel `ops/csrc/ssd_scan.cu` for CUDA
-  tensors (one thread block per row walks the chunks in order with the
-  state in shared memory; it computes what `_ChunkBody` under the chunk
-  loop computes), `_ChunkedPlain` for CPU tensors. A CUDA tensor launches
-  the kernel or raises.
+  tensors (one thread-block cluster per row: its blocks take runs of
+  chunks in parallel and pass the [H, S] carry from run to run through
+  distributed shared memory; chunks with no live step are skipped; it
+  computes what `_ChunkBody` under the chunk loop computes, with float32
+  sums in other orders), `_ChunkedPlain` for CPU tensors. A CUDA tensor
+  launches the kernel or raises. `ChunkRuns` is the host's split of a
+  row's chunks over its cluster (CPU-tested); `KernelGeometry` reads the
+  built kernel's whole launch.
 - `associative` is a test-only reference in the JAX package; it raises
   here.
 
@@ -61,6 +65,7 @@ RESET_LOG = -60.0
 # Mask value for "never attend" inside a chunk (exp(_MASK_LOG) == 0.0 in f32).
 _MASK_LOG = -1.0e30
 MAX_DIM = 128   # kernel limit on the chunk Q, the state width S and head dim H
+MAX_CLUSTER = 8   # blocks per row: the portable cluster size
 
 _LOWERINGS = ("auto", "chunked", "pallas", "associative", "sequential")
 
@@ -154,6 +159,20 @@ def _ChunkedPlain(decay_log, b_in, c_in, v, s0, chunk_size):
 # -- the CUDA kernel ---------------------------------------------------------
 
 
+def ChunkRuns(t: int, chunk_size: int) -> dict:
+  """How the kernel splits a row of T = t steps (the host's `MakePlan` in
+  `csrc/ssd_scan.cu`): `chunks` of Q = min(chunk_size, t) steps over a
+  cluster of `cluster` = C = min(8, ceil(chunks / 2)) blocks, block k
+  owning the chunks `runs[k]` = [k chunks / C, (k + 1) chunks / C), at
+  most `per_block` of them."""
+  q = t if 0 < t < chunk_size else chunk_size
+  nc = -(-t // q) if t > 0 else 0
+  cluster = max(1, min(MAX_CLUSTER, -(-nc // 2)))   # >= 2 chunks a block
+  return dict(cluster=cluster, chunks=nc, per_block=-(-nc // cluster),
+              runs=[(k * nc // cluster, (k + 1) * nc // cluster)
+                    for k in range(cluster)])
+
+
 _lib = None   # the loaded kernel library, with its C signature declared
 
 
@@ -166,8 +185,28 @@ def _Lib():
     lib.SsdScanF32.restype = ci
     lib.SsdScanErrorString.argtypes = [ci]
     lib.SsdScanErrorString.restype = ctypes.c_char_p
+    lib.SsdScanGeometry.argtypes = [ci] * 4 + [ctypes.POINTER(ci)]
+    lib.SsdScanGeometry.restype = ci
     _lib = lib
   return _lib
+
+
+def KernelGeometry(t: int, s_dim: int, h: int, chunk_size: int) -> dict:
+  """The built kernel's launch at T = t, as the library computes it:
+  `ChunkRuns`'s cluster, chunks and per_block; threads; dynamic shared
+  bytes (`smem`); ring `stages`; `h_groups` (clusters per row, each over
+  at most 64 columns of H); the instantiation's registers and local
+  (spill) bytes per thread; resident blocks per SM and resident clusters
+  on the current card."""
+  lib = _Lib()
+  geo = (ctypes.c_int * 11)()
+  rc = lib.SsdScanGeometry(t, s_dim, h, chunk_size, geo)
+  if rc != 0:
+    raise RuntimeError("SsdScanGeometry failed: "
+                       + lib.SsdScanErrorString(rc).decode())
+  keys = ("cluster", "chunks", "per_block", "threads", "smem", "stages",
+          "h_groups", "regs", "local", "per_sm", "clusters")
+  return dict(zip(keys, geo))
 
 
 def _CudaScan(decay_log, b_in, c_in, v, s0, chunk_size):

@@ -12,8 +12,23 @@
   the plain sequential one.
 - The masking contract on the port itself: padded steps leave the state
   exactly unchanged, a reset isolates the tail.
+- The identity the kernel's chunk skip rests on: over a tail of whole
+  identity chunks (dl = 0, v = 0), the JAX `SsdScan` (chunked, and the
+  Pallas kernel interpreted) and the port's plain scan give y_t = c_t .
+  s_fin^T, and s_fin is the state after the last live step.
+- `_KernelModel`, a plain mirror of the kernel's three phases (runs of
+  chunks per cluster block from `ChunkRuns`, local states from zero, the
+  carry D S_in + L passed between live runs, identity chunks skipped, live
+  chunks cut at their last nonzero v), against the JAX chunked scan at
+  ATOL: the regrouped carry and the skips change only float32 rounding.
 - The CUDA kernel against `_ChunkedPlain` on the card, in the `cuda`-marked
-  cases, which skip here. The module imports JAX only inside `_Jax`, so on
+  cases, which skip here: the shapes above, a decode-only pack (every row
+  1 live step of 256, one row idle; the dead steps' y equal c_t . s_fin^T;
+  two calls bitwise equal), an identity chunk between live chunks, T =
+  1100 (18 chunks: runs of 2 and 3, the two-pass reload), T < Q, Q = 24,
+  odd S and H, two h groups, and the built kernel's launch (`ChunkRuns`'
+  split, threads, shared memory, ring stages, h groups). The module
+  imports JAX only inside `_Jax`, so on
   a machine with a card and no JAX the kernel cases run alone:
 
     python -m pytest tests/test_torch_ssd_scan.py -m cuda
@@ -135,6 +150,201 @@ def test_unported_and_bad_lowerings_raise():
     ssd_scan.SsdScan(*(x.to("meta") for x in args))
 
 
+def _IdentityTail(seed=6, b=B, n=N, h=H, s=S, chunk=4, live=6, t=16):
+  """Inputs whose steps from `live` on are identity steps (dl = 0, v = 0)
+  filling whole chunks from `live` (a multiple of `chunk`) to t."""
+  dl, b_in, c_in, v, s0 = _Inputs(seed=seed, b=b, t=t, n=n, h=h, s=s)
+  dl[:, live:] = 0.0
+  v[:, live:] = 0.0
+  return dl, b_in, c_in, v, s0
+
+
+@pytest.mark.parametrize("lowering", ["jax_chunked", "jax_pallas", "port"])
+def test_identity_chunk_tail(lowering):
+  """What the kernel's skip relies on: whole identity chunks read the
+  incoming state and leave it as it is, y_t = c_t . s_fin^T."""
+  live, chunk = 8, 4
+  dl, b_in, c_in, v, s0 = _IdentityTail(live=live, chunk=chunk)
+  if lowering == "port":
+    y, s_fin = ssd_scan.SsdScan(*_Torch([dl, b_in, c_in, v]),
+                                s0=torch.as_tensor(s0), chunk_size=chunk)
+    y, s_fin = y.numpy(), s_fin.numpy()
+    _, s_live = ssd_scan.SsdScan(*_Torch([x[:, :live] for x in
+                                          (dl, b_in, c_in, v)]),
+                                 s0=torch.as_tensor(s0), chunk_size=chunk)
+    s_live = s_live.numpy()
+  else:
+    jnp, jax_scan = _Jax()
+    kw = (dict(lowering="pallas", interpret=True)
+          if lowering == "jax_pallas" else dict(lowering="chunked"))
+    y, s_fin = map(np.asarray, jax_scan.SsdScan(
+        *map(jnp.asarray, (dl, b_in, c_in, v)), s0=jnp.asarray(s0),
+        chunk_size=chunk, **kw))
+    _, s_live = jax_scan.SsdScan(
+        *(jnp.asarray(x[:, :live]) for x in (dl, b_in, c_in, v)),
+        s0=jnp.asarray(s0), chunk_size=chunk, **kw)
+    s_live = np.asarray(s_live)
+  np.testing.assert_array_equal(s_fin, s_live)   # the tail adds exact zeros
+  want = np.einsum("btns,bnhs->btnh", c_in[:, live:], s_fin)
+  np.testing.assert_allclose(y[:, live:], want, atol=ATOL)
+
+
+def _KernelModel(dl, b_in, c_in, v, s0, chunk):
+  """The kernel's three phases in plain float32 PyTorch, on flat [R, T,
+  ...] tensors (the `_SequentialScan` contract). Per row, block k of the
+  cluster owns the chunks `ChunkRuns(...)["runs"][k]`. Phase 1: each live
+  chunk's U_j (cut at its last nonzero v) folded from zero into the run's
+  L and D. Phase 2: a live run's S_out = D S_in + L goes to every block up
+  to the next live run. Phase 3: y = (c o exp(cum)) S_{j-1}^T + (G o decay)
+  v per chunk, S advanced within the run; identity chunks y = c S^T."""
+  r, t = dl.shape
+  s_dim, h = b_in.shape[-1], v.shape[-1]
+  plan = ssd_scan.ChunkRuns(t, chunk)
+  q = t if 0 < t < chunk else chunk
+  dl, b_in, c_in, v, _ = ssd_scan._PadChunks(dl, b_in, c_in, v, q)
+  y = torch.zeros((r, dl.shape[1], h))
+  s_fin = torch.zeros((r, h, s_dim))
+  for row in range(r):
+    chunks = []
+    for j in range(plan["chunks"]):
+      sl = slice(j * q, (j + 1) * q)
+      d, bb, cc, vv = dl[row, sl], b_in[row, sl], c_in[row, sl], v[row, sl]
+      nz = torch.nonzero((vv != 0).any(-1))
+      kv = int(nz.max()) + 1 if len(nz) else 0
+      live = bool((d != 0).any()) or kv > 0
+      cum = torch.cumsum(d, 0)
+      tot = cum[-1]
+      w = torch.exp(tot - cum)
+      u = ((vv[:kv] * w[:kv, None]).T @ bb[:kv]) if live else None
+      chunks.append(dict(live=live, kv=kv, cum=cum, e=torch.exp(tot), u=u,
+                         b=bb, c=cc, v=vv))
+    runs = plan["runs"]
+    local = []
+    for j0, j1 in runs:   # phase 1
+      ell, dd, any_live = torch.zeros((h, s_dim)), torch.ones(()), False
+      for ch in chunks[j0:j1]:
+        if ch["live"]:
+          ell = ch["e"] * ell + ch["u"]
+          dd = dd * ch["e"]
+          any_live = True
+      local.append((dd, ell, any_live))
+    s_in, carry = [None] * len(runs), s0[row]
+    for k in range(len(runs)):   # phase 2
+      s_in[k] = carry
+      dd, ell, any_live = local[k]
+      if any_live:
+        carry = dd * carry + ell
+    s_fin[row] = carry
+    for k, (j0, j1) in enumerate(runs):   # phase 3
+      st = s_in[k]
+      for j in range(j0, j1):
+        ch = chunks[j]
+        out = ch["c"] @ st.T
+        if ch["live"]:
+          cum, kv = ch["cum"], ch["kv"]
+          out = (ch["c"] * torch.exp(cum)[:, None]) @ st.T
+          g = ch["c"] @ ch["b"][:kv].T
+          keep = torch.tril(torch.ones((q, q), dtype=torch.bool))[:, :kv]
+          dec = torch.exp(torch.where(keep, cum[:, None] - cum[None, :kv],
+                                      torch.tensor(-1e30)))
+          out = out + (g * dec) @ ch["v"][:kv]
+          if j + 1 < j1:
+            st = ch["e"] * st + ch["u"]
+        y[row, j * q:(j + 1) * q] = out
+  return y[:, :t], s_fin
+
+
+def _Pack(kind, seed, b, t, n, h, s):
+  """Inputs of a kernel case: 'random', 'masked' (`_Inputs`), 'decode'
+  (every row live at step 0 only, the last row idle), 'hole' (steps 64 to
+  127 identity in every row: a whole identity chunk at Q = 64, or runs of
+  them at smaller Q, between live chunks)."""
+  dl, b_in, c_in, v, s0 = _Inputs(seed=seed, b=b, t=t, n=n, h=h, s=s,
+                                  masked=kind == "masked")
+  if kind == "decode":
+    dl[:, 1:] = 0.0
+    v[:, 1:] = 0.0
+    dl[-1] = 0.0
+    v[-1] = 0.0
+  elif kind == "hole":
+    dl[:, 64:128] = 0.0
+    v[:, 64:128] = 0.0
+  return dl, b_in, c_in, v, s0
+
+
+def _Flat(arrays):
+  dl, b_in, c_in, v, s0 = (torch.as_tensor(x) for x in arrays)
+  b, t, n = dl.shape
+  s_dim, h = b_in.shape[-1], v.shape[-1]
+  return (dl.permute(0, 2, 1).reshape(b * n, t),
+          b_in.permute(0, 2, 1, 3).reshape(b * n, t, s_dim),
+          c_in.permute(0, 2, 1, 3).reshape(b * n, t, s_dim),
+          v.permute(0, 2, 1, 3).reshape(b * n, t, h),
+          s0.reshape(b * n, h, s_dim))
+
+
+@pytest.mark.parametrize("kind, shape, chunk", [
+    ("masked", (2, 13, 3, 8, 4), 4),       # runs of one chunk, a ragged tail
+    ("random", (1, 40, 2, 8, 4), 4),       # 10 chunks: runs of 1 and 2
+    ("masked", (1, 100, 2, 8, 4), 4),      # 25 chunks: runs of 3 and 4
+    ("decode", (3, 256, 1, 8, 4), 64),     # one live step a row, a row idle
+    ("hole", (2, 256, 1, 8, 4), 64),       # an identity chunk between live
+    ("hole", (1, 200, 1, 8, 4), 8),        # identity runs across blocks
+    ("random", (2, 20, 1, 8, 4), 64),      # T < Q
+    ("random", (1, 200, 1, 7, 5), 24),     # Q = 24: 9 chunks, odd S and H
+])
+def test_kernel_model_matches_jax(kind, shape, chunk):
+  jnp, jax_scan = _Jax()
+  b, t, n, h, s = shape
+  args = _Pack(kind, 9, b, t, n, h, s)
+  y_j, s_j = jax_scan.SsdScan(*map(jnp.asarray, args[:4]),
+                              s0=jnp.asarray(args[4]), chunk_size=chunk,
+                              lowering="chunked")
+  y, s_fin = _KernelModel(*_Flat(args), chunk)
+  y = y.reshape(b, n, t, h).permute(0, 2, 1, 3)
+  np.testing.assert_allclose(y.numpy(), np.asarray(y_j), atol=ATOL)
+  np.testing.assert_allclose(s_fin.reshape(b, n, h, s).numpy(),
+                             np.asarray(s_j), atol=ATOL)
+
+
+# The launches of the kernel cases: (T, S, H, Q), the split of a row's
+# chunks over its cluster (checked here) and the rest of the launch, which
+# only the built library computes (checked on the card).
+LAUNCHES = [
+    ((256, 64, 64, 64), dict(cluster=2, per_block=2),     # hybrid serving
+     dict(stages=2, threads=256, h_groups=1, smem=106176)),
+    ((1024, 64, 64, 64), dict(cluster=8, per_block=2),    # hybrid training
+     dict(stages=2, threads=256, h_groups=1, smem=106176)),
+    ((1100, 64, 64, 64), dict(cluster=8, per_block=3), dict(stages=2)),
+    ((20, 64, 64, 64), dict(cluster=1, per_block=1, chunks=1),
+     dict(stages=1)),
+    ((64, 64, 64, 64), dict(cluster=1, per_block=1),
+     dict(stages=1, smem=70560)),
+    ((0, 8, 8, 4), dict(cluster=1, per_block=0, chunks=0), dict()),
+    ((1200, 128, 128, 128), dict(cluster=5, per_block=2),
+     dict(stages=1, threads=512, h_groups=2)),
+    ((40, 40, 100, 32), dict(cluster=1, per_block=2),
+     dict(h_groups=2, threads=256)),
+    ((300, 64, 64, 64), dict(cluster=3, per_block=2, chunks=5), dict()),
+]
+
+
+@pytest.mark.parametrize("t, s_dim, h, chunk, want",
+                         [(*shape, runs) for shape, runs, _ in LAUNCHES])
+def test_launch_plan(t, s_dim, h, chunk, want):
+  del s_dim, h   # the split depends on T and Q alone
+  plan = ssd_scan.ChunkRuns(t, chunk)
+  for key, value in want.items():
+    assert plan[key] == value, (key, plan)
+  runs = plan["runs"]   # contiguous, in order, covering every chunk
+  assert len(runs) == plan["cluster"] and runs[0][0] == 0
+  assert runs[-1][1] == plan["chunks"]
+  assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+  assert max(j1 - j0 for j0, j1 in runs) == plan["per_block"]
+  if plan["chunks"]:
+    assert min(j1 - j0 for j0, j1 in runs) >= 1
+
+
 # -- on the card ---------------------------------------------------------------
 
 
@@ -171,6 +381,76 @@ def test_kernel_matches_plain_on_card(cuda, shape, chunk, masked):
     assert bool(torch.isfinite(got).all())
     tol = ATOL * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
+
+
+def _CardCase(kind, shape, chunk, seed=10):
+  b, t, n, h, s = shape
+  return _Torch(_Pack(kind, seed, b, t, n, h, s), "cuda")
+
+
+def _AgreeWithPlain(got, want):
+  for g, w in zip(got, want):
+    assert bool(torch.isfinite(g).all())
+    tol = ATOL * max(1.0, float(w.abs().max()))
+    assert float((g - w).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, shape, chunk", [
+    ("hole", (2, 256, 3, 64, 64), 64),        # an identity chunk mid-row
+    ("masked", (1, 1100, 2, 64, 64), 64),     # 18 chunks: runs of 2 and 3
+    ("random", (2, 20, 3, 64, 64), 64),       # T < Q
+    ("masked", (2, 200, 2, 40, 24), 24),      # Q = 24: 9 chunks
+    ("masked", (1, 77, 2, 7, 5), 16),         # odd S and H: 4-byte copies
+    ("masked", (1, 300, 1, 100, 36), 32),     # two h groups of 52 and 48
+    ("random", (1, 1200, 1, 128, 128), 128),  # 512 threads, one stage
+])
+def test_kernel_edges_on_card(cuda, kind, shape, chunk):
+  torch.backends.cuda.matmul.allow_tf32 = False
+  args = _CardCase(kind, shape, chunk)
+  before = ssd_scan.SsdScan.launches
+  got = ssd_scan.SsdScan(*args[:4], s0=args[4], chunk_size=chunk)
+  again = ssd_scan.SsdScan(*args[:4], s0=args[4], chunk_size=chunk)
+  want = ssd_scan.SsdScan(*args[:4], s0=args[4], chunk_size=chunk,
+                          lowering="chunked")
+  torch.cuda.synchronize()
+  assert ssd_scan.SsdScan.launches == before + 2
+  _AgreeWithPlain(got, want)
+  assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_kernel_decode_only_pack(cuda):
+  """Every row 1 live step of 256, the last row idle: 3 of every row's 4
+  chunks are identity chunks. The dead steps read the final state."""
+  torch.backends.cuda.matmul.allow_tf32 = False
+  args = _CardCase("decode", (4, 256, 4, 64, 64), 64)
+  y, s_fin = ssd_scan.SsdScan(*args[:4], s0=args[4], chunk_size=64)
+  y2, s_fin2 = ssd_scan.SsdScan(*args[:4], s0=args[4], chunk_size=64)
+  want = ssd_scan.SsdScan(*args[:4], s0=args[4], chunk_size=64,
+                          lowering="chunked")
+  torch.cuda.synchronize()
+  _AgreeWithPlain((y, s_fin), want)
+  assert torch.equal(y, y2) and torch.equal(s_fin, s_fin2)
+  dead = torch.einsum("btns,bnhs->btnh", args[2][:, 1:], s_fin)
+  tol = ATOL * max(1.0, float(dead.abs().max()))
+  assert float((y[:, 1:] - dead).abs().max()) <= tol
+  idle = torch.einsum("btns,bnhs->btnh", args[2][-1:], args[4][-1:])
+  assert float((y[-1:] - idle).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t, s_dim, h, chunk, want",
+                         [(*shape, rest) for shape, _, rest in LAUNCHES])
+def test_kernel_geometry_matches_plan(cuda, t, s_dim, h, chunk, want):
+  geo = ssd_scan.KernelGeometry(t, s_dim, h, chunk)
+  plan = ssd_scan.ChunkRuns(t, chunk)
+  for key in ("cluster", "chunks", "per_block"):
+    assert geo[key] == plan[key], key
+  for key, value in want.items():
+    assert geo[key] == value, (key, geo)
+  assert geo["smem"] <= 232448   # what a block may opt in to on sm_90
+  assert geo["per_sm"] >= 1 and geo["clusters"] >= 1   # it launches
 
 
 @pytest.mark.cuda

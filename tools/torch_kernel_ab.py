@@ -12,23 +12,22 @@ of the card over the run shows as a difference between the two runs of
 one tree. The inputs and the timer are this checkout's `chip_smoke.py`
 (`_KvStorage`, `_DecodePool`, `_DecodeOnlyLens`, `_AttendPack`,
 `_ScanInputs`, `_FlashInputs`, `_Requests`, `_TimeMs`). Every child times
-the bfloat16 flash-attention backward kernels, dK/dV and dQ, at phase
-18's shapes ([8, 1024, 16, 128], causal, two segments of 512 per row,
-dyadic q, k, v and do), and SDPA's bfloat16 backward on the same inputs
-with the boolean causal-and-segment mask (the yardstick; the port never
-calls it).
+the SSD-scan kernel (S = H = 64, chunk 64) at phase 4's mixed serving
+pack ([8, 256, 16]: rows live for 1..256 steps, a reset, an idle row, a
+nonzero incoming state), at a decode-only pack ([8, 256, 16], every row 1
+live step, the last row idle) and at the training shape ([8, 1024, 16],
+two segments of 512 a row).
 
 Every child also digests (sha256 of the bytes) the outputs of the
 kernels that were not redesigned, which must be equal in all four runs:
-the flash-attention forward in both dtypes and the float32 dK/dV and dQ
-(phase 7 / 18's shapes), flash decode (float32 and bf16 at t = 1151 and
-700), block decode in its three dtypes (phase 10's pool and the
-decode-only pack), the scan (phase 4's serving shape), the fused xent in
-both dtypes (phase 8 / 19's shapes) and the ragged kernel (float32, int8,
-bf16 at phase 3's pack and the decode-only pack); the redesigned
-kernels' outputs (bf16 dk, dv and dq) are reported apart. Prints one
-JSON line per child and a summary; needs one CUDA card and imports no
-JAX.
+the flash-attention forward, dK/dV and dQ in both dtypes (phase 7 / 18's
+shapes; bf16 on dyadic inputs), flash decode (float32 and bf16 at t =
+1151 and 700), block decode in its three dtypes (phase 10's pool and the
+decode-only pack), the fused xent in both dtypes (phase 8 / 19's shapes)
+and the ragged kernel (float32, int8, bf16 at phase 3's pack and the
+decode-only pack); the redesigned kernel's outputs (the scan's y and
+final state at the three packs) are reported apart. Prints one JSON line
+per child and a summary; needs one CUDA card and imports no JAX.
 """
 
 import argparse
@@ -42,8 +41,15 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# digests reported apart: the redesigned kernels
-REDESIGNED = ("bf16_dk", "bf16_dv", "bf16_dq")
+# the scan's timed packs: (label, T, live steps per row, resets, nonzero
+# s0, numpy seed)
+SCAN_CASES = (
+    ("mixed", 256, [1, 256, 1, 200, 1, 37, 1, 0], [(5, 20)], True, 8),
+    ("decode_only", 256, [1] * 7 + [0], [], True, 18),
+    ("training", 1024, [1024] * 8, [(r, 512) for r in range(8)], False, 28))
+# digests reported apart: the redesigned kernel's outputs
+REDESIGNED = tuple(f"scan_{case[0]}_{out}" for case in SCAN_CASES
+                   for out in ("y", "state"))
 
 
 def _ChipSmoke():
@@ -54,11 +60,10 @@ def _ChipSmoke():
   return mod
 
 
-def _Flash(torch, fa, cs, res, outs):
+def _Flash(torch, fa, cs, outs):
   """The flash kernels at phase 7 / 18's shapes: float32 forward and
-  backward, then bf16 forward and backward on dyadic inputs; the bf16
-  backward pair timed beside SDPA's bf16 backward."""
-  x, keep, _ = cs._FlashInputs(torch, np.random.RandomState(5))
+  backward, then bf16 forward and backward on dyadic inputs."""
+  x, _, _ = cs._FlashInputs(torch, np.random.RandomState(5))
   q, k, v, do, seg = x["q"], x["k"], x["v"], x["do"], x["seg"]
   for dtype in ("f32", "bf16"):
     if dtype == "bf16":
@@ -70,20 +75,6 @@ def _Flash(torch, fa, cs, res, outs):
     outs[f"{dtype}_dk"], outs[f"{dtype}_dv"] = fa.FlashDkDv(
         q, k, v, seg, do, lse, delta, True)
     outs[f"{dtype}_dq"] = fa.FlashDq(q, k, v, seg, do, lse, delta, True)
-  res["bf16_dkdv_ms"] = cs._TimeMs(
-      torch, lambda: fa.FlashDkDv(q, k, v, seg, do, lse, delta, True), 20)
-  res["bf16_dq_ms"] = cs._TimeMs(
-      torch, lambda: fa.FlashDq(q, k, v, seg, do, lse, delta, True), 20)
-  sdpa = torch.nn.functional.scaled_dot_product_attention
-  leaves = [a.transpose(1, 2).detach().requires_grad_(True)
-            for a in (q, k, v)]
-  with torch.enable_grad():
-    ref = sdpa(*leaves, attn_mask=keep[:, None])
-  dot = do.transpose(1, 2)
-  res["sdpa_bf16_backward_ms"] = cs._TimeMs(
-      torch, lambda: torch.autograd.grad(ref, leaves, dot,
-                                         retain_graph=True), 20,
-      waits_as="SDPA bf16 backward")
 
 
 def _Decode(torch, fd, cs, spi, outs):
@@ -131,12 +122,16 @@ def _BlockDecode(torch, bd, cs, outs):
                    else torch.cat([outs[key].flatten(), got.flatten()]))
 
 
-def _Scan(torch, ssd, cs, outs):
-  """The scan at phase 4's serving shape."""
-  xs, _ = cs._ScanInputs(torch, ssd, np.random.RandomState(8), 256,
-                         [1, 256, 1, 200, 1, 37, 1, 0], [(5, 20)], True)
-  outs["scan_y"], outs["scan_state"] = ssd.SsdScan(*xs[:4], s0=xs[4],
-                                                   chunk_size=64)
+def _Scan(torch, ssd, cs, res, outs):
+  """The scan at `SCAN_CASES`, timed and digested."""
+  for label, t, live, resets, with_s0, seed in SCAN_CASES:
+    xs, _ = cs._ScanInputs(torch, ssd, np.random.RandomState(seed), t, live,
+                           resets, with_s0)
+    s0 = xs[4] if with_s0 else None
+    outs[f"scan_{label}_y"], outs[f"scan_{label}_state"] = ssd.SsdScan(
+        *xs[:4], s0=s0, chunk_size=64)
+    res[f"scan_{label}_ms"] = cs._TimeMs(
+        torch, lambda: ssd.SsdScan(*xs[:4], s0=s0, chunk_size=64), 20)
 
 
 def _Xent(torch, fx, outs):
@@ -196,10 +191,10 @@ def _Child(tree, save):
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   res, outs = {"tree": tree}, {}
-  _Flash(torch, fa, cs, res, outs)
+  _Flash(torch, fa, cs, outs)
   _Decode(torch, fd, cs, spi, outs)
   _BlockDecode(torch, bd, cs, outs)
-  _Scan(torch, ssd, cs, outs)
+  _Scan(torch, ssd, cs, res, outs)
   _Xent(torch, fx, outs)
   _Ragged(torch, rba, ragged, cs, outs)
   torch.cuda.synchronize()
@@ -259,12 +254,12 @@ def main():
     if key != "tree":
       print(f"{key}: {a} {runs[0][0][key]:.4f} / {runs[3][0][key]:.4f}, "
             f"{b} {runs[1][0][key]:.4f} / {runs[2][0][key]:.4f}")
-  for i, tree in enumerate((a, b, b, a)):
-    r = runs[i][0]
-    pair = r["bf16_dkdv_ms"] + r["bf16_dq_ms"]
-    print(f"run {i} ({tree}): bf16 dK/dV + dQ {pair:.4f} ms, SDPA bf16 "
-          f"backward {r['sdpa_bf16_backward_ms']:.4f} ms "
-          f"({r['sdpa_bf16_backward_ms'] / pair:.2f}x)")
+  for key in runs[0][0]:
+    if key.endswith("_ms"):
+      parent = (runs[0][0][key] + runs[3][0][key]) / 2
+      change = (runs[1][0][key] + runs[2][0][key]) / 2
+      print(f"{key}: {b} {parent / change:.2f}x faster than {a} (means "
+            f"{change:.4f} / {parent:.4f} ms)")
   return 0 if same else 1
 
 
