@@ -214,8 +214,36 @@
    step's busy share and split, the 10 aten ops with the largest self
    device time (with counts) and the device time of the remat replay's
    dtype casts.
-21. Prints the per-kernel JSON line (every kernel and every int8 /
-   bfloat16 instantiation), then the result line.
+21. The int8 serving kernels of ops/int8_matmul.py (kernel (a), the
+   per-tensor activation quantization; kernel (b), the int8 tensor-core
+   GEMM with its two-scale epilogue) against their plain versions at the
+   145 products of a DenseLm1B step (q/k/v/post 2048 x 2048, the FFN's
+   2048 x 8192 and 8192 x 2048, the tied logits 2048 x 32000) with m = 264
+   rows (the ragged step) and m = 8 (a decode step): bitwise equal, two
+   calls bitwise equal, one launch of each a call. Times each kernel, the
+   plain versions, torch._int_mm (the int32 product alone, m >= 17) and
+   the float32 matmul on the dequantized weight, beside each bound (bytes
+   at 3.35 TB/s, operations at 1979 TOP/s), and their sums over a step;
+   and the host's enqueue per projection (`Int8Matmul`, both kernels from
+   one call, against the float32 matmul): what a host-bound step pays.
+22. int8-weight serving main path: DenseLmTiny with int8 weights on the
+   card must reproduce its CPU streams (ragged, legacy, ragged with int8
+   pools); then DenseLm1B with phase 5's weights, geometry and requests
+   through `ServingLoop(serve_int8_weights=True)` in ragged and legacy
+   step mode (each after a float32-weight run of the same mode, the
+   baseline at that point of the process) and ragged with int8 pools:
+   exactly 145 launches of each
+   int8 kernel per step beside the attention kernels' counts, no other
+   kernel; prints ms/step, tok/s, peak memory, the int8 theta's bytes,
+   the ragged run's profiled busy split (the int8 kernels' share) and, as
+   information,
+   how many streams equal phase 5's float32 ones. Then GShardDecode with
+   serve_int8_weights: DenseLmTiny card against CPU continuations, and
+   DenseLm1B from a port checkpoint (phase 13's setting): exactly 3072
+   flash-decode launches and 145 x (4 + 128) of each int8 kernel.
+23. Prints the per-kernel JSON line (every kernel and every int8 /
+   bfloat16 instantiation; the int8 serving kernels with "replaces":
+   null), then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -240,6 +268,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32, CUDA cores (data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense (data sheet)
+INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense (data sheet)
 TOL = 1e-5
 
 
@@ -624,10 +653,14 @@ def _CheckQuantBlockDecode(torch, bd, page, rng, time_plain):
 
 
 def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged",
-                   kv_cache_dtype=None):
+                   kv_cache_dtype=None, serve_int8_weights=False):
   """`cfg`, a tiny config, on the card against the same weights on the
   CPU: one packed step's logits, then greedy streams of the engine in
-  `step_mode`, both over `kv_cache_dtype` pools."""
+  `step_mode`, both over `kv_cache_dtype` pools, on an int8 serving theta
+  with `serve_int8_weights` (the step's projections through the int8
+  kernels on the card)."""
+  from lingvo_tpu_torch.core import base_layer
+  from lingvo_tpu_torch.quant import weights as quant_weights
   p = cfg.Task()
   cpu_lm = p.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
@@ -640,7 +673,11 @@ def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged",
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
     states = lm.InitPagedDecodeState(17, 8, num_slots=4,
                                      kv_cache_dtype=kv_cache_dtype)
-    with torch.no_grad():
+    theta = contextlib.nullcontext()
+    if serve_int8_weights:
+      theta = base_layer.ServedTheta(
+          lm, quant_weights.Int8ServingTheta(lm.ThetaTree())[0]).Active()
+    with torch.no_grad(), theta:
       out, _ = lm.RaggedStep(torch.as_tensor(ids).to(lm.device), states,
                              torch.as_tensor(tables).to(lm.device),
                              ragged.ToTorch(rows, lm.device))
@@ -655,11 +692,13 @@ def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged",
   streams = {}
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
     eng = engine.ServingLoop(lm, device=lm.device, step_mode=step_mode,
-                             kv_cache_dtype=kv_cache_dtype, **kw)
+                             kv_cache_dtype=kv_cache_dtype,
+                             serve_int8_weights=serve_int8_weights, **kw)
     streams[name] = eng.RunBatch(prompts, lens, max_new_tokens=8)
   _Check(np.array_equal(streams["cpu"], streams["cuda"]),
          f"tiny greedy streams differ:\n{streams['cpu']}\n{streams['cuda']}")
   print(f"{type(cfg).__name__} reference ({eng.kv_cache_dtype} KV, "
+        f"{'int8' if serve_int8_weights else 'float32'} weights, "
         f"paged_path {eng.paged_path}): logits max abs err {err:.3g} "
         f"(<= 1e-4), {len(lens)} greedy streams of the {step_mode} engine "
         "identical to the CPU path")
@@ -1566,15 +1605,17 @@ def _Profile(torch, eng, prompts, steps, window=4):
     attn = sum(_DevUs(e) for e in kernels if "RaggedAttend" in e.key
                or "BlockDecode" in e.key) / 1e3
     scan = sum(_DevUs(e) for e in kernels if "SsdScan" in e.key) / 1e3
-    gemm = sum(_DevUs(e) for e in kernels
-               if "gemm" in e.key.lower() or "cutlass" in e.key.lower()) / 1e3
-    rest = busy_ms - attn - scan - gemm
+    int8 = sum(_DevUs(e) for e in kernels if "Int8" in e.key) / 1e3
+    gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and (
+        "gemm" in e.key.lower() or "cutlass" in e.key.lower())) / 1e3
+    rest = busy_ms - attn - scan - gemm - int8
     print(f"profiled the {label} {window} of {steps} steps: device busy "
           f"{busy_ms / window:.2f} ms/step ({busy_ms / wall_ms:.1%} of the "
           f"wall under the profiler, {wall_ms / window:.2f} ms/step); of "
-          f"busy: GEMMs {gemm / busy_ms:.1%}, scan {scan / busy_ms:.1%}, "
-          f"attention kernel {attn / busy_ms:.1%}, rest "
-          f"{rest / busy_ms:.1%}")
+          f"busy: GEMMs {gemm / busy_ms:.1%}, int8 kernels "
+          f"{int8 / busy_ms:.1%} ({int8 / window:.2f} ms/step), scan "
+          f"{scan / busy_ms:.1%}, attention kernel {attn / busy_ms:.1%}, "
+          f"rest {rest / busy_ms:.1%}")
     for e in kernels[:5]:
       print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
     host = sorted((e for e in prof.key_averages()
@@ -1610,7 +1651,7 @@ def _ServingLm(torch, cfg):
 
 def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
                step_mode="ragged", kv_cache_dtype=None, lm=None,
-               profile=True, syncs=None):
+               profile=True, syncs=None, serve_int8_weights=False):
   """cfg's Task (`lm`, or `_ServingLm(cfg)`) through ServingLoop in
   `step_mode` with `kv_cache_dtype` pools: 8 requests with prompts of
   64..768 tokens (numpy seed 1) and 32 new tokens each, through
@@ -1618,8 +1659,10 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   per_step: {kernel: launches per engine step}; per_decode_step: {kernel:
   launches per decode-only step}; every other counted kernel must launch
   0 times. Then, with `profile`, the profiled re-run (its
-  cudaStreamSynchronize calls per step, by window, into `syncs`). Returns
-  (the counted run's launches, its steps, the streams, ms per step)."""
+  cudaStreamSynchronize calls per step, by window, into `syncs`).
+  serve_int8_weights: the engine serves its int8 rewrite of the weights
+  (whose bytes it prints). Returns (the counted run's launches, its steps,
+  the streams, ms per step)."""
   name = type(cfg).__name__
   per_decode_step = per_decode_step or {}
   t0 = time.perf_counter()
@@ -1628,11 +1671,16 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
                            max_batch=cfg.BATCH_SIZE,
                            max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256,
-                           step_mode=step_mode, kv_cache_dtype=kv_cache_dtype)
+                           step_mode=step_mode, kv_cache_dtype=kv_cache_dtype,
+                           serve_int8_weights=serve_int8_weights)
   torch.cuda.synchronize()
   pool_bytes = sum(x.numel() * x.element_size()
                    for x in eng._states.Flatten())
-  label = f"{name} ({step_mode}, {eng.kv_cache_dtype} KV)"
+  label = f"{name} ({step_mode}, {eng.kv_cache_dtype} KV" + (
+      ", int8 weights)" if serve_int8_weights else ")")
+  if serve_int8_weights:
+    print(f"{label}: int8 theta {_Int8ThetaBytes(eng._served.theta) / 1e9:.3f}"
+          " GB (int8 values and float32 scales)")
   print(f"{label}: {n_params / 1e9:.3f} B params, engine T={eng._ragged_t}, "
         f"mixers {eng.mixers}, kv_bytes_per_token {eng.kv_bytes_per_token}, "
         f"paged_path {eng.paged_path}, pool {pool_bytes / 1e9:.3f} GB "
@@ -1665,6 +1713,8 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   _Check(launches == want, f"{label}: launches {launches} != {want} "
          f"({per_step} per step x {steps} steps, {per_decode_step} per "
          f"decode-only step x {decode_steps})")
+  _Check(stats["serve_int8_weights"] == serve_int8_weights,
+         f"{label}: Stats serve_int8_weights {stats['serve_int8_weights']}")
   quantized = stats["quantized_steps"] - stats0["quantized_steps"]
   _Check(quantized == (steps if eng.kv_cache_dtype == "int8" else 0),
          f"{label}: quantized_steps {quantized} of {steps} steps")
@@ -1892,10 +1942,10 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
 
 
 def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
-                kv_cache_dtype=None):
-  """DenseLmTiny (decode_page_size 4, `kv_cache_dtype` caches) through
-  GShardDecode on the card and on the CPU from one port checkpoint: the
-  continuations must agree."""
+                kv_cache_dtype=None, serve_int8_weights=False):
+  """DenseLmTiny (decode_page_size 4, `kv_cache_dtype` caches, int8
+  weights with `serve_int8_weights`) through GShardDecode on the card and
+  on the CPU from one port checkpoint: the continuations must agree."""
   p = spi.DenseLmTiny().Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
       decode_page_size=4)
@@ -1911,13 +1961,15 @@ def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
     decoder = gshard.GShardDecode(
         lm, ckdir, os.path.join(tmp, f"tiny_{name}_{kv_cache_dtype}.jsonl"),
-        max_decode_steps=12, prefill_chunk_size=8)
+        max_decode_steps=12, prefill_chunk_size=8,
+        serve_int8_weights=serve_int8_weights)
     outs[name] = [r["output_ids"] for r in decoder.DecodeOnce(1, prompts,
                                                              lens)]
   _Check(outs["cpu"] == outs["cuda"], "tiny GShardDecode continuations "
          f"differ:\n{outs['cpu']}\n{outs['cuda']}")
   print(f"DenseLmTiny GShardDecode reference ({kv_cache_dtype or 'float32'} "
-        f"cache): {len(lens)} continuations of 12 tokens identical to the "
+        f"cache, {'int8' if serve_int8_weights else 'float32'} weights): "
+        f"{len(lens)} continuations of 12 tokens identical to the "
         "CPU path (page 4: the flash-decode read, the dense read for int8)")
 
 
@@ -1933,7 +1985,9 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
   p_len = 1024 - steps
   init_fn, prefill_fn, sample_fn = decoder._GetDecodeFn(p_len, steps)
   aligned = decoder._RightAlign(arr, lens, width=p_len)
-  with torch.no_grad():
+  theta = (decoder._int8_theta[1].Active() if decoder._int8_theta
+           else contextlib.nullcontext())
+  with torch.no_grad(), theta:
     lens_dev = torch.as_tensor(np.asarray(lens)).cuda()
     last, states = prefill_fn(torch.as_tensor(aligned).cuda(), lens_dev,
                               init_fn(arr.shape[0]))
@@ -1952,13 +2006,15 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
     return
   kernels.sort(key=_DevUs, reverse=True)
   fdec = sum(_DevUs(e) for e in kernels if "FlashDecode" in e.key) / 1e3
-  gemm = sum(_DevUs(e) for e in kernels if "gemm" in e.key.lower()
-             or "cutlass" in e.key.lower()) / 1e3
+  int8 = sum(_DevUs(e) for e in kernels if "Int8" in e.key) / 1e3
+  gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and (
+      "gemm" in e.key.lower() or "cutlass" in e.key.lower())) / 1e3
   print(f"profiled {steps} GShardDecode steps (t {p_len}..1023): "
         f"device busy {busy_ms / steps:.2f} ms/step, {busy_ms / wall_ms:.1%}"
         f" of the wall under the profiler ({wall_ms / steps:.2f} ms/step); "
         f"flash decode {fdec / steps:.3f} ms/step ({fdec / busy_ms:.1%} of "
-        f"busy), GEMMs {gemm / busy_ms:.1%}")
+        f"busy), GEMMs {gemm / busy_ms:.1%}, int8 kernels "
+        f"{int8 / busy_ms:.1%} ({int8 / steps:.3f} ms/step)")
   for e in kernels[:5]:
     print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
 
@@ -2003,15 +2059,17 @@ def _CheckTileBits(torch, attention):
 
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
-                ref_streams, kv_cache_dtype=None):
+                ref_streams, kv_cache_dtype=None, serve_int8_weights=False):
   """DenseLm1B (decode_page_size 128) through GShardDecode: DecodeOnce
   over the serving phases' 8 prompts (bucket 1024) for 128 tokens with
   prefill chunks of 256, every kernel count set to 0 just before. With
   kv_cache_dtype None the random weights (a seeded torch.Generator) are
   first written as a port checkpoint and read back; with a cache dtype
   the model restores that checkpoint. ref_streams: streams the
-  continuations are compared with, for information. Returns (launches,
-  telemetry, the continuations)."""
+  continuations are compared with, for information. serve_int8_weights:
+  the decoder's int8 rewrite of the restored weights, every projection of
+  the 4 prefill chunks and the 128 steps (145 each) through the int8
+  kernels. Returns (launches, telemetry, the continuations)."""
   cfg = spi.DenseLm1B()
   p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
@@ -2045,7 +2103,8 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
     del states
   decoder = gshard.GShardDecode(
       lm, ckdir, os.path.join(tmp, f"decode_{kv_cache_dtype}.jsonl"),
-      max_decode_steps=128, prefill_chunk_size=256)
+      max_decode_steps=128, prefill_chunk_size=256,
+      serve_int8_weights=serve_int8_weights)
   counted = "flash_decode" + {None: "", "bfloat16": "_bf16"}[kv_cache_dtype]
   torch.cuda.synchronize()
   counters.Zero()
@@ -2054,7 +2113,11 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   launches = counters.Read()
   want = dict.fromkeys(counters, 0)
   want[counted] = 24 * 128
+  if serve_int8_weights:   # 4 prefill chunks of 256 and 128 steps
+    want["int8_act_quant"] = want["int8_matmul"] = 145 * (4 + 128)
   _Check(launches == want, f"GShardDecode launches {launches} != {want}")
+  _Check(recs[0]["telemetry"]["serve_int8_weights"] == serve_int8_weights,
+         "telemetry serve_int8_weights")
   for r in recs:
     _Check(len(r["output_ids"]) == 128 and all(
         0 <= x < cfg.VOCAB_SIZE for x in r["output_ids"]),
@@ -2073,11 +2136,142 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
         f"{tel['tokens_per_sec']:.1f} tokens/s, decode state "
         f"{tel['decode_state_bytes_per_seq'] / 2**20:.1f} MiB per sequence, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches { {k: v for k, v in launches.items() if v} } (24 x 128)")
+        f"launches { {k: v for k, v in launches.items() if v} } (24 x 128"
+        f"{'; 145 x (4 + 128) of each int8 kernel' if serve_int8_weights else ''}"
+        f"){', int8 weights' if serve_int8_weights else ''}")
   print(f"(information, not a check: {same} of 8 continuations begin with "
         f"the {n}-token reference streams)")
   _ProfileDecodeSteps(torch, decoder, arr, lens)
   return launches, tel, [r["output_ids"] for r in recs]
+
+
+# The int8 serving step's 145 products per DenseLm1B step: (K, N, calls a
+# step) of q/k/v/post, the FFN's two and the tied logits
+INT8_STEP_SHAPES = ((2048, 2048, 4 * 24), (2048, 8192, 24), (8192, 2048, 24),
+                    (2048, 32000, 1))
+
+
+def _Int8ThetaBytes(theta):
+  """Device bytes of a served theta's Int8Weights: int8 values + scales."""
+  from lingvo_tpu_torch.core import base_layer
+  from lingvo_tpu_torch.core import quant_utils
+  total = 0
+  for leaf in theta.Flatten():
+    members = (leaf.layers if isinstance(leaf, base_layer.StackedLeaf)
+               else [leaf])
+    for w in members:
+      if isinstance(w, quant_utils.Int8Weight):
+        total += w.w_nk.numel() + w.scale.numel() * w.scale.element_size()
+  return total
+
+
+def _CheckInt8Gemm(torch, im, rng, m):
+  """Kernels (a) and (b) of ops/int8_matmul.py at the int8 serving step's
+  shapes with m rows (264: the ragged step's packed tokens; 8: a decode
+  step's rows): x float32 from a seeded numpy generator, random int8
+  weights and scales. Each kernel bitwise equal to its plain version, two
+  calls bitwise equal, one launch of each a call. Times (a), (b), the
+  plain versions, torch._int_mm (the int32 product alone, where it takes
+  the shape: m >= 17, K and N multiples of 8) and the float32 matmul on
+  the dequantized weight (what the float path pays), beside each bound;
+  returns the per-shape results and their sums over the 145 calls of a
+  step."""
+  rows, step = [], dict(a_ms=0.0, b_ms=0.0, a_plain_ms=0.0, b_plain_ms=0.0,
+                        a_bound=0.0, b_bound=0.0, int_mm_ms=0.0, f32_ms=0.0,
+                        err=0.0, a_by=set(), b_by=set())
+  for k, n, calls in INT8_STEP_SHAPES:
+    x = torch.as_tensor(rng.randn(m, k).astype(np.float32) * 2.0).cuda()
+    w = torch.as_tensor(rng.randint(-128, 128, size=(n, k)).astype(
+        np.int8)).cuda()
+    ws = torch.as_tensor((rng.rand(n) * 1e-3 + 1e-5).astype(
+        np.float32)).cuda()
+    q0, g0 = im.QuantizeActivations.launches, im.Int8Gemm.launches
+    x8, xs = im.QuantizeActivations(x)
+    y = im.Int8Gemm(x8, xs, w, ws)
+    torch.cuda.synchronize()
+    _Check((im.QuantizeActivations.launches - q0,
+            im.Int8Gemm.launches - g0) == (1, 1),
+           "int8 matmul: not one launch of each kernel a call")
+    px8, pxs = im._PlainQuantize(x)
+    want = im._PlainGemm(x8, xs, w, ws)
+    _Check(torch.equal(x8, px8) and torch.equal(xs, pxs),
+           f"int8 quantize kernel != plain at [{m}, {k}]")
+    err = float((y - want).abs().max())
+    _Check(torch.equal(y, want),
+           f"int8 GEMM kernel != plain at [{m}, {k}] x [{n}, {k}]: {err}")
+    y2 = im.Int8Matmul(x, w, ws)
+    _Check(torch.equal(y, y2), f"two int8 matmul calls differ at {m, k, n}")
+    kp = x8.shape[1]
+    a_ms = _TimeMs(torch, lambda: im.QuantizeActivations(x), 20)
+    b_ms = _TimeMs(torch, lambda: im.Int8Gemm(x8, xs, w, ws), 20)
+    a_plain_ms = _TimeMs(torch, lambda: im._PlainQuantize(x), 5)
+    b_plain_ms = _TimeMs(torch, lambda: im._PlainGemm(x8, xs, w, ws), 5)
+    a_bound = _Bound(m * k * 4 + m * kp + 4, 0)
+    b_bound = _Bound(n * k + m * kp + n * 4 + 4 + m * n * 4, 2 * m * k * n,
+                     INT8_OPS_PER_S)
+    int_mm_ms = None
+    if m >= 17 and k % 8 == 0 and n % 8 == 0:
+      a8 = x8[:, :k]
+      try:   # a yardstick only: the port never calls it
+        int_mm_ms = _TimeMs(torch, lambda: torch._int_mm(a8, w.t()), 20)
+      except RuntimeError as e:
+        print(f"torch._int_mm refused [{m}, {k}] x [{k}, {n}]: {e}")
+    w_f32 = (w.float() * ws[:, None]).contiguous()
+    f32_ms = _TimeMs(torch, lambda: torch.matmul(x, w_f32.t()), 20)
+    if (k, n) == INT8_STEP_SHAPES[0][:2]:
+      # what a host-bound step pays per projection on the host
+      int8_us = _EnqueueUs(torch, lambda: im.Int8Matmul(x, w, ws))
+      f32_us = _EnqueueUs(torch, lambda: torch.matmul(x, w_f32.t()))
+      print(f"host enqueue per call at [{m}, {k}] x [{n}, {k}]: Int8Matmul "
+            f"(both kernels) {int8_us:.1f} us, float32 matmul {f32_us:.1f} "
+            "us")
+      step["enqueue_us"] = int8_us
+    del w_f32
+    geo = im.GemmGeometry(m, k, n, torch.cuda.get_device_properties(0)
+                          .multi_processor_count)
+    int_mm = ("n/a (m < 17)" if int_mm_ms is None
+              else f"{int_mm_ms:.4f} ms")
+    print(f"int8 [{m}, {k}] x [{n}, {k}] ({calls} a step): kernel (a) "
+          f"{a_ms:.4f} ms (bound {a_bound[0]:.4f}, {a_bound[1]}), kernel (b) "
+          f"{b_ms:.4f} ms (bound {b_bound[0]:.4f}, {b_bound[1]}; "
+          f"{_BoundShare(b_ms, b_bound[0])}), plain (a) {a_plain_ms:.4f} ms, "
+          f"plain (b) {b_plain_ms:.4f} ms, "
+          f"_int_mm {int_mm}, float32 matmul {f32_ms:.4f} ms; bitwise "
+          "equal, one launch of "
+          f"each; grid {geo['m_tiles']} x {geo['n_tiles']} x "
+          f"{geo['splits']} (rows {geo['bm']}, {geo['chunks_per_split']} "
+          "64-byte chunks a split)")
+    rows.append(dict(m=m, k=k, n=n, calls=calls, a_ms=a_ms, b_ms=b_ms,
+                     a_plain_ms=a_plain_ms, b_plain_ms=b_plain_ms,
+                     a_bound=a_bound, b_bound=b_bound, int_mm_ms=int_mm_ms,
+                     f32_ms=f32_ms))
+    step["a_ms"] += calls * a_ms
+    step["b_ms"] += calls * b_ms
+    step["a_plain_ms"] += calls * a_plain_ms
+    step["b_plain_ms"] += calls * b_plain_ms
+    step["a_by"].add(a_bound[1])
+    step["b_by"].add(b_bound[1])
+    step["a_bound"] += calls * a_bound[0]
+    step["b_bound"] += calls * b_bound[0]
+    step["f32_ms"] += calls * f32_ms
+    if int_mm_ms is None:
+      step["int_mm_ms"] = None
+    elif step["int_mm_ms"] is not None:
+      step["int_mm_ms"] += calls * int_mm_ms
+    step["err"] = max(step["err"], err)
+    del x, w, ws, x8, y, y2, want
+  step["rows"] = rows
+  for key in ("a_by", "b_by"):   # what bounds the step's sum
+    step[key] = "/".join(sorted(step[key]))
+  int_mm = ("n/a" if step["int_mm_ms"] is None
+            else f"{step['int_mm_ms']:.3f} ms")
+  print(f"int8 step sums at m={m} over the 145 calls: kernel (a) "
+        f"{step['a_ms']:.3f} ms (bound {step['a_bound']:.3f}), kernel (b) "
+        f"{step['b_ms']:.3f} ms (bound {step['b_bound']:.3f}), plain (a) "
+        f"{step['a_plain_ms']:.3f} ms, plain (b) {step['b_plain_ms']:.3f} "
+        f"ms, _int_mm {int_mm}, float32 matmul "
+        f"{step['f32_ms']:.3f} ms")
+  return step
 
 
 def main():
@@ -2099,6 +2293,7 @@ def main():
   from lingvo_tpu_torch.ops import flash_attention as fa
   from lingvo_tpu_torch.ops import flash_decode as fd
   from lingvo_tpu_torch.ops import fused_xent as fx
+  from lingvo_tpu_torch.ops import int8_matmul as im
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
   from lingvo_tpu_torch.ops import ssd_scan as ssd
   from lingvo_tpu_torch.runners import gshard_decode as gshard
@@ -2121,7 +2316,7 @@ def main():
 
   _Phase("2. build kernels (one nvcc per source, in parallel)")
   sources = ("ragged_block_attend", "ssd_scan", "flash_attention",
-             "fused_xent", "block_decode", "flash_decode")
+             "fused_xent", "block_decode", "flash_decode", "int8_matmul")
 
   def _Build(name):
     t0 = time.perf_counter()
@@ -2193,7 +2388,9 @@ def main():
       block_decode_int8=(bd.BlockDecode, "int8"),
       block_decode_bf16=(bd.BlockDecode, "bfloat16"),
       flash_decode=(fd.FlashDecode, "float32"),
-      flash_decode_bf16=(fd.FlashDecode, "bfloat16"))
+      flash_decode_bf16=(fd.FlashDecode, "bfloat16"),
+      int8_act_quant=(im.QuantizeActivations, None),
+      int8_matmul=(im.Int8Gemm, None))
 
   _Phase("5. serving main path: DenseLm1B through ServingLoop")
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged)
@@ -2393,7 +2590,68 @@ def main():
   gc.collect()
   torch.cuda.empty_cache()
 
-  _Phase("21. result")
+  _Phase("21. int8 serving kernels vs plain versions at the 145 products "
+         "of a DenseLm1B step")
+  print("kernel (a) library_ms: null (no single PyTorch call computes a "
+        "per-tensor amax scale and quantizes by it); kernel (b) library_ms: "
+        "torch._int_mm, the int32 product alone (no scales), where it takes "
+        "the shape (m >= 17)")
+  irng = np.random.RandomState(21)
+  int8_steps = {m: _CheckInt8Gemm(torch, im, irng, m) for m in (264, 8)}
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("22. int8-weight serving main path: DenseLm1B through ServingLoop "
+         "and GShardDecode with serve_int8_weights")
+  for mode, dtype in (("ragged", None), ("legacy", None), ("ragged", "int8")):
+    _TinyReference(torch, spi.DenseLmTiny(), engine, ragged, step_mode=mode,
+                   kv_cache_dtype=dtype, serve_int8_weights=True)
+  lm = _ServingLm(torch, spi.DenseLm1B())
+  int8_serve = {}
+  # float32 weights first in each step mode, unprofiled: the baseline of the
+  # same process at the same point (walls drift over a process, phase 16)
+  float_ms = {}
+  for mode, per_step, per_decode in (
+      ("ragged", dict(ragged_block_attend=24), None),
+      ("legacy", {}, dict(block_decode=24))):
+    float_ms[mode] = _ServeMain(torch, spi.DenseLm1B(), engine, counters,
+                                per_step, per_decode, step_mode=mode, lm=lm,
+                                profile=False)[3]
+    gc.collect()
+    torch.cuda.empty_cache()
+  # 145 products a step through kernels (a) and (b), whatever the step
+  per_int8 = dict(int8_act_quant=145, int8_matmul=145)
+  for mode, dtype, per_step, per_decode in (
+      ("ragged", None, dict(per_int8, ragged_block_attend=24), None),
+      ("legacy", None, per_int8, dict(block_decode=24)),
+      ("ragged", "int8", dict(per_int8, ragged_block_attend_int8=24), None)):
+    # profiled: the ragged run (the decode-only steps' int8 busy at m = 8
+    # is in GShardDecode's profile below)
+    launches, steps, streams, ms = _ServeMain(
+        torch, spi.DenseLm1B(), engine, counters, per_step, per_decode,
+        step_mode=mode, kv_cache_dtype=dtype, lm=lm,
+        profile=(mode, dtype) == ("ragged", None), serve_int8_weights=True)
+    int8_serve[mode, dtype] = dict(launches=launches, steps=steps, ms=ms)
+    same = sum(list(a) == list(b) for a, b in zip(streams, ragged_streams))
+    print(f"(information, not a check: {same} of 8 int8-weight {mode} "
+          f"streams ({dtype or 'float32'} KV) equal phase 5's float32 "
+          f"streams; {ms:.2f} ms/step vs {float_ms[mode]:.2f} for float32 "
+          f"weights in this phase, {serve_ms:.2f} in phase 5)")
+    gc.collect()
+    torch.cuda.empty_cache()
+  del lm
+  gc.collect()
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as tmp:
+    _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
+                serve_int8_weights=True)
+    int8_gshard, _, _ = _GShardMain(
+        torch, spi, attention, checkpointer, gshard, counters, tmp,
+        gshard_out, serve_int8_weights=True)
+  gc.collect()
+  torch.cuda.empty_cache()
+
+  _Phase("23. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -2525,6 +2783,31 @@ def main():
       "max_abs_err": xent16["err"], "ms": xent16["ms"],
       "plain_ms": xent16["plain_ms"], "bound_ms": xent16["bound"][0],
       "bound_by": xent16["bound"][1], "library_ms": None})
+  # the int8 serving kernels replace no pallas_call: the reference's int8
+  # product is an XLA dot_general; times are the sums over the 145 products
+  # of a ragged step (m = 264), the decode step's (m = 8) beside them
+  note = ("replaces no pallas_call: the XLA dot_general of "
+          "lingvo_tpu/core/quant_utils.py:265 Int8Einsum")
+  serve_step, decode_step = int8_steps[264], int8_steps[8]
+  for name, key in (("int8_act_quant", "a"), ("int8_matmul", "b")):
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "lingvo_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": None, "note": note,
+        "launches": int8_serve["ragged", None]["launches"][name],
+        "max_abs_err": max(serve_step["err"], decode_step["err"]),
+        "ms": serve_step[f"{key}_ms"],
+        "plain_ms": serve_step[f"{key}_plain_ms"],
+        "bound_ms": serve_step[f"{key}_bound"],
+        "bound_by": serve_step[f"{key}_by"],
+        "library_ms": serve_step["int_mm_ms"] if key == "b" else None,
+        "float32_matmul_ms": serve_step["f32_ms"] if key == "b" else None,
+        "host_enqueue_us": serve_step["enqueue_us"] if key == "b" else None,
+        "decode_step_ms": decode_step[f"{key}_ms"],
+        "decode_step_bound_ms": decode_step[f"{key}_bound"],
+        "legacy_launches": int8_serve["legacy", None]["launches"][name],
+        "gshard_launches": int8_gshard[name],
+        "shape": "sum over the 145 products of a step, m = 264"})
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

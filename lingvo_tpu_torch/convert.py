@@ -14,6 +14,12 @@ missing, extra or mis-shaped leaf raises.
 `ThetaToNumpy(module)` is the inverse: the module's parameters as the
 reference's theta, a NestedMap of numpy arrays with the repeat stack's
 per-layer parameters restacked on the leading [num_layers] axis.
+
+`Int8ArtifactToTorch(theta, int8_tree)` carries the reference's exported
+int8 tree ({path: {"w_int8", "scale"}} as numpy) onto the device of the
+port's theta, a repeat stack's pairs split per layer as `LoadJaxTheta`
+splits its leaves; `quant/weights.Int8ServingThetaFromArtifact` builds the
+serving theta from it.
 """
 
 from __future__ import annotations
@@ -90,3 +96,29 @@ def _ToNumpy(leaf) -> np.ndarray:
 def ThetaToNumpy(module: base_layer.BaseLayer):
   """The module's theta in the reference's structure, as numpy copies."""
   return module.ThetaTree().Transform(_ToNumpy)
+
+
+def Int8ArtifactToTorch(theta, int8_tree) -> dict:
+  """{path: {"w_int8", "scale"}} numpy -> {path: (w_int8, scale)} torch
+  tensors (int8, float32) on the device of theta's leaf at path; where
+  that leaf is a repeat stack's `StackedLeaf`, a list of per-layer pairs,
+  the arrays split on their leading [num_layers] axis. A path with no leaf
+  in theta, or a shape that does not match it, raises."""
+  out = {}
+  for path, pair in int8_tree.items():
+    leaf = theta.Get(path)
+    if leaf is None:
+      raise ValueError(f"{path}: int8 artifact path has no theta leaf")
+    stacked = isinstance(leaf, base_layer.StackedLeaf)
+    device = (leaf.layers[0] if stacked else leaf).device
+    if tuple(np.shape(pair["w_int8"])) != tuple(leaf.shape):
+      raise ValueError(f"{path}: int8 artifact {np.shape(pair['w_int8'])} "
+                       f"vs theta leaf {tuple(leaf.shape)}")
+
+    def _Pair(p, device=device):
+      return (torch.tensor(np.asarray(p["w_int8"], np.int8), device=device),
+              torch.tensor(np.asarray(p["scale"], np.float32), device=device))
+
+    out[path] = ([_Pair(_Unstack(pair, i)) for i in range(len(leaf.layers))]
+                 if stacked else _Pair(pair))
+  return out

@@ -26,6 +26,10 @@ flash-decode kernel, as in the reference; a bfloat16 cache takes the
 kernel. The mode is read from the states themselves (`"key_scale" in
 cached_states`), as in the reference.
 
+Under an int8 serving theta (quant/weights.py) the projection weights are
+`quant_utils.Int8Weight`s and `_HeadsProj` / `_PostProj` run the int8
+matmul, as in the reference.
+
 The page pool and the dense cache are updated IN PLACE (`index_put_`,
 slice assignment) where the reference donated them to the jitted step and
 got new arrays back: one KV pool per layer lives for the life of the
@@ -45,6 +49,7 @@ import torch
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import layers as layers_lib
 from lingvo_tpu_torch.core import py_utils
+from lingvo_tpu_torch.core import quant_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
 from lingvo_tpu_torch.ops import block_decode
@@ -169,15 +174,25 @@ class MultiHeadedAttention(base_layer.BaseLayer):
 
   def _HeadsProj(self, name, x):
     """[B, T, D] x [D, N, H] -> [B, T, N, H] (+ bias [N, H]), in the fprop
-    dtype."""
+    dtype; an int8 serving leaf through the int8 matmul ('dv', per-(N, H)
+    scales)."""
     th = self.CastTheta()
-    return (torch.einsum("btd,dnh->btnh", self.ToFPropDtype(x),
-                         th[f"w_{name}"]) + th[f"b_{name}"])
+    w = th[f"w_{name}"]
+    if isinstance(w, quant_utils.Int8Weight):
+      out = w.Einsum(self.ToFPropDtype(x))
+    else:
+      out = torch.einsum("btd,dnh->btnh", self.ToFPropDtype(x), w)
+    return out + th[f"b_{name}"]
 
   def _PostProj(self, ctx):
-    """[B, T, N, H] contracted with [D, N, H] over (N, H) -> [B, T, D]."""
+    """[B, T, N, H] contracted with [D, N, H] over (N, H) -> [B, T, D]; an
+    int8 serving leaf through the int8 matmul ('vd', per-D scales)."""
     th = self.CastTheta()
-    return torch.einsum("btnh,dnh->btd", ctx, th.w_post) + th.b_post
+    if isinstance(th.w_post, quant_utils.Int8Weight):
+      out = th.w_post.Einsum(ctx)
+    else:
+      out = torch.einsum("btnh,dnh->btd", ctx, th.w_post)
+    return out + th.b_post
 
   # -- training forward --------------------------------------------------------
 
@@ -419,6 +434,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
       m, l, acc = _TileAttend(q, *_ReadCache(new_states, sl), keep, m, l,
                               acc, self.p.atten_logit_cap)
     ctx = ragged_block_attend._Finish(l, acc, q.dtype)
+    if paddings is not None:
+      ctx = _PadQueryContext(ctx, l, new_states, live)
     new_states.time_step = t + c
     return self._PostProj(ctx), new_states
 
@@ -584,6 +601,21 @@ class MultiHeadedAttention(base_layer.BaseLayer):
         v_scale=v_scale, q_start=q_start, anc_lo=rows.anc_lo,
         anc_hi=rows.anc_hi)[None]
     return self._PostProj(ctx), cached_states
+
+
+def _PadQueryContext(ctx, l, states, live: int):
+  """A query that no cache slot may attend (a left-pad slot of a
+  right-aligned prompt, every key up to it padded) gets what the
+  reference's dense read gives it: its logits all sit at the mask value,
+  so its softmax is uniform over the read's [0, live) slots and its
+  context is the mean of V there. The online read leaves such a query at
+  0. A pad query's output feeds no real token, but an int8 serving theta
+  quantizes each projection's input with one scale over the whole call,
+  pad rows included, so the pad rows must carry the reference's values."""
+  _, v = _ReadCache(states, slice(0, live))
+  p = torch.full((), 1.0, device=v.device) / live
+  mean_v = torch.sum(v * p, dim=1)[:, None].to(ctx.dtype)    # [B,1,N,H]
+  return torch.where(l == 0, mean_v, ctx)
 
 
 def _ReadCache(states, sl):

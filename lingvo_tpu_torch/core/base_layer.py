@@ -23,11 +23,21 @@ takes their gradients with `loss.backward()` and its optimizer updates
 them in place. The serving step runs under `torch.no_grad()`.
 `ThetaTree()` gives the reference's theta structure over the parameters,
 which the learner walks and `convert.ThetaToNumpy` exports.
+
+A served theta (`ServedTheta`, the int8 serving theta of
+quant/weights.py) takes the reference's explicit theta argument where a
+step needs leaves other than the parameters: bound to a module tree, and
+active on the calling thread inside `ServedTheta.Active()`, it makes each
+layer's `CastTheta()` return its served leaves (`Int8Weight`s) in place
+of its parameters. Outside it, or on another thread, the layers compute
+with their parameters as before.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Sequence
 
 import torch
@@ -35,6 +45,7 @@ from torch import nn
 
 from lingvo_tpu_torch.core import hyperparams
 from lingvo_tpu_torch.core import py_utils
+from lingvo_tpu_torch.core import quant_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
 
@@ -63,6 +74,55 @@ class StackedLeaf:
   @property
   def shape(self) -> tuple:
     return (len(self.layers),) + tuple(self.layers[0].shape)
+
+
+# The served theta active on this thread: {layer: the layer's theta, its
+# parameters with the served leaves in their place}.
+_SERVED = threading.local()
+
+
+class ServedTheta:
+  """A theta served in place of a module tree's own parameters.
+
+  `theta` has the structure of `module.ThetaTree()`; each of its leaves
+  that is not the module's own parameter (an `Int8Weight`, or a StackedLeaf
+  whose per-layer members replace a repeat stack's parameters) is bound to
+  the layer that owns that parameter. Inside `Active()` the calling
+  thread's layers see those leaves through `CastTheta()`; nothing changes
+  for other threads or outside the context."""
+
+  def __init__(self, module: nn.Module, theta: NestedMap):
+    self.theta = theta
+    self._leaves: dict = {}
+    self._Bind(module, theta)
+
+  def _Bind(self, module, tree):
+    params = dict(module.named_parameters(recurse=False))
+    if any(tree[name] is not prm for name, prm in params.items()):
+      self._leaves[module] = NestedMap({name: tree[name] for name in params})
+    for cname, child in module.named_children():
+      if cname not in tree:
+        continue   # a child without weights
+      sub = tree[cname]
+      if isinstance(child, nn.ModuleList):
+        if not isinstance(sub, list):
+          # a repeat stack: every leaf a StackedLeaf, member i for layer i
+          sub = [sub.Transform(lambda leaf, i=i: leaf.layers[i])
+                 for i in range(len(child))]
+        for c, s in zip(child, sub):
+          self._Bind(c, s)
+      else:
+        self._Bind(child, sub)
+
+  @contextlib.contextmanager
+  def Active(self):
+    """Makes this theta the one the calling thread's layers see."""
+    prev = getattr(_SERVED, "leaves", None)
+    _SERVED.leaves = self._leaves
+    try:
+      yield self
+    finally:
+      _SERVED.leaves = prev
 
 
 class BaseLayer(nn.Module):
@@ -206,10 +266,12 @@ class BaseLayer(nn.Module):
 
   def CastTheta(self, theta: NestedMap | None = None) -> NestedMap:
     """Floating theta leaves cast to the fprop dtype (the bf16 activations
-    policy), `StackedLeaf`s layer by layer. The casts are differentiable:
-    the float32 parameters get float32 gradients. theta=None: this
-    layer's own parameters. With fprop_dtype unset (or equal to dtype)
-    the leaves come back as they are."""
+    policy), `StackedLeaf`s layer by layer; an `Int8Weight` keeps its
+    integer values and casts its scale. The casts are differentiable: the
+    float32 parameters get float32 gradients. theta=None: this layer's own
+    parameters, with the leaves of the `ServedTheta` active on this thread
+    in their place. With fprop_dtype unset (or equal to dtype) the leaves
+    come back as they are."""
     if theta is None:
       # the parameter objects live as long as the layer (loads and moves
       # fill them in place), so the map of them is built once
@@ -217,14 +279,18 @@ class BaseLayer(nn.Module):
       if theta is None:
         theta = NestedMap(dict(self.named_parameters(recurse=False)))
         self.__dict__["_own_theta"] = theta
+      served = getattr(_SERVED, "leaves", None)
+      if served:
+        theta = served.get(self, theta)
     dtype = self.fprop_dtype
     if dtype == self.p.dtype:
       return theta
 
     def _Cast(leaf):
       if isinstance(leaf, StackedLeaf):
-        return StackedLeaf(tuple(py_utils.MaybeBfloat16(x, dtype)
-                                 for x in leaf.layers))
+        return StackedLeaf(tuple(_Cast(x) for x in leaf.layers))
+      if isinstance(leaf, quant_utils.Int8Weight):
+        return leaf.WithScale(py_utils.MaybeBfloat16(leaf.scale, dtype))
       return py_utils.MaybeBfloat16(leaf, dtype)
 
     return theta.Transform(_Cast)

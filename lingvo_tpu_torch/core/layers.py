@@ -9,6 +9,12 @@ names and op order. Under `fprop_dtype` (bfloat16) each layer casts its
 theta and inputs as the reference does (`CastTheta`, `ToFPropDtype`):
 the norm's moments, the rotation and the losses stay float32. Only the
 fields the DenseLm models set are ported.
+
+Under an int8 serving theta (quant/weights.py, bound by
+`base_layer.ServedTheta`) `w` and `emb` are `quant_utils.Int8Weight`s, as
+in the reference: the projection and the tied logits run the int8 matmul,
+the lookup gathers int8 rows and dequantizes them by their row scale, and
+the fused-xent gate sends an int8 table to the dense path.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from lingvo_tpu_torch.core import activations
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import py_utils
+from lingvo_tpu_torch.core import quant_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
 from lingvo_tpu_torch.ops import fused_xent
@@ -47,8 +54,12 @@ class ProjectionLayer(base_layer.BaseLayer):
 
   def FProp(self, inputs):
     th = self.CastTheta()
-    out = torch.matmul(self.ToFPropDtype(inputs), th.w) + th.b
-    return activations.GetFn(self.p.activation)(out)
+    x = self.ToFPropDtype(inputs)
+    if isinstance(th.w, quant_utils.Int8Weight):
+      out = th.w.Einsum(x)   # the int8 serving theta: an integer matmul
+    else:
+      out = torch.matmul(x, th.w)
+    return activations.GetFn(self.p.activation)(out + th.b)
 
 
 class LayerNorm(base_layer.BaseLayer):
@@ -159,14 +170,25 @@ class SharedEmbeddingSoftmaxLayer(base_layer.BaseLayer):
 
   def EmbLookup(self, ids):
     """Rows of the table (in the fprop dtype), scaled by
-    sqrt(embedding_dim)."""
-    rows = self.CastTheta().emb[ids.long()]
+    sqrt(embedding_dim). An int8 table: the int8 rows times their row
+    scale, in float32, then cast (a lookup has no matmul to run in int8;
+    exact against the frozen grid)."""
+    emb, ids = self.CastTheta().emb, ids.long()
+    if isinstance(emb, quant_utils.Int8Weight):
+      rows = (emb.w_int8[ids].float() * emb.scale.float()[ids]).to(
+          self.fprop_dtype)
+    else:
+      rows = emb[ids]
     return rows * py_utils.WeakScalar(math.sqrt(self.p.embedding_dim), rows)
 
   def Logits(self, inputs):
-    """[..., V] logits in the fprop dtype, tanh-capped."""
+    """[..., V] logits in the fprop dtype, tanh-capped; an int8 table's
+    through the int8 matmul ('vd': [..., D] x [V, D])."""
     th = self.CastTheta()
-    logits = torch.matmul(self.ToFPropDtype(inputs), th.emb.t())
+    if isinstance(th.emb, quant_utils.Int8Weight):
+      logits = th.emb.Einsum(self.ToFPropDtype(inputs))
+    else:
+      logits = torch.matmul(self.ToFPropDtype(inputs), th.emb.t())
     if self.p.logits_soft_max > 0:
       cap = py_utils.WeakScalar(self.p.logits_soft_max, logits)
       logits = cap * py_utils.Tanh(logits / cap)
@@ -176,11 +198,14 @@ class SharedEmbeddingSoftmaxLayer(base_layer.BaseLayer):
             label_smoothing=0.0):
     """NestedMap(per_example_xent, log_probs, logits) on the dense path;
     on the fused path logits and log_probs are None and label_log_probs
-    and argmax (int32) come out of the streaming pass instead."""
-    if FusedXentEligible(self.p, class_ids, class_probabilities):
+    and argmax (int32) come out of the streaming pass instead. An int8
+    table takes the dense path (the fused kernel slices a float table)."""
+    emb = self.CastTheta().emb
+    if (FusedXentEligible(self.p, class_ids, class_probabilities) and
+        not isinstance(emb, quant_utils.Int8Weight)):
       # the fused kernel takes the inputs and the table in the fprop dtype
       out = fused_xent.FusedXent(
-          self.ToFPropDtype(inputs), self.CastTheta().emb, class_ids,
+          self.ToFPropDtype(inputs), emb, class_ids,
           block_size=self.p.xent_block_size,
           logits_soft_max=self.p.logits_soft_max,
           label_smoothing=label_smoothing, weight_layout="vd")

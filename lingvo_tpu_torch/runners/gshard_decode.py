@@ -26,12 +26,20 @@ the last call is a plain dict with the reference schema's keys
 (`GSHARD_TELEMETRY_KEYS`, copied); prefill_s and decode_s are wall times
 taken after the card has finished each phase.
 
-Greedy only: temperature > 0, int8 serving weights and the status server
-(serve_port) raise NotImplementedError naming the slice that brings them.
+`serve_int8_weights=True` decodes on an int8 rewrite of each restored
+theta (quant/weights.py): every projection, the tied logits included,
+runs the int8 matmul (ops/int8_matmul.py). The rewrite is built once per
+restored checkpoint step and bound to the task for the decode only
+(`base_layer.ServedTheta`); the task's float parameters stay as
+restored.
+
+Greedy only: temperature > 0 and the status server (serve_port) raise
+NotImplementedError naming the slice that brings them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -39,10 +47,12 @@ import time
 import numpy as np
 import torch
 
+from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import checkpointer as checkpointer_lib
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import sampling
 from lingvo_tpu_torch.quant import kv as kv_quant
+from lingvo_tpu_torch.quant import weights as quant_weights
 
 # Decode shape buckets (slots, ascending). Wider prompts run at their
 # exact width.
@@ -84,15 +94,14 @@ class GShardDecode:
     port's format (core/checkpointer.py) into it. prefill_chunk_size:
     prompt tokens per prefill pass (0 = the whole prompt).
     use_legacy_prime: prime the cache with one ExtendStep per prompt token
-    instead. len_buckets: prompt-width buckets."""
+    instead. serve_int8_weights: decode on an int8 rewrite of each
+    restored theta. len_buckets: prompt-width buckets."""
     if temperature > 0.0:
       raise NotImplementedError(
           "temperature > 0 sampling comes with the sampling slice of the "
           "port (ROADMAP item 3); GShardDecode decodes greedily")
     if serve_int8_weights:
-      raise NotImplementedError(
-          "int8 weight serving comes with the quantized-serving slice of "
-          "the port (ROADMAP item 2)")
+      quant_weights.CheckInt8Servable(task)
     if serve_port is not None:
       raise NotImplementedError(
           "the status server (serve_port) comes with the observability "
@@ -112,6 +121,10 @@ class GShardDecode:
     self._prefill_chunk = prefill_chunk_size
     self._use_legacy_prime = use_legacy_prime
     self._len_buckets = tuple(len_buckets)
+    self._serve_int8_weights = bool(serve_int8_weights)
+    # (checkpoint step, its ServedTheta): the int8 rewrite runs once per
+    # restored step
+    self._int8_theta = None
     # (init_fn, prefill_fn, sample_fn) per bucketed (p_len, t_max)
     self._decode_fns = {}
     self._last_telemetry = None
@@ -204,6 +217,14 @@ class GShardDecode:
       raise ValueError("prompts must have width >= 1 (got [B, 0]); the "
                        "prefill loop needs at least one chunk")
     _, restored = self._checkpointer.Restore(self._task, step=step)
+    theta_ctx = contextlib.nullcontext()
+    if self._serve_int8_weights:
+      if self._int8_theta is None or self._int8_theta[0] != restored:
+        self._int8_theta = None   # one int8 copy on the card at a time
+        theta, _ = quant_weights.Int8ServingTheta(self._task.ThetaTree())
+        self._int8_theta = (restored,
+                            base_layer.ServedTheta(self._task, theta))
+      theta_ctx = self._int8_theta[1].Active()
     p_len = py_utils.RoundUpToBucket(prompts.shape[1], self._len_buckets)
     init_fn, prefill_fn, sample_fn = self._GetDecodeFn(p_len, self._max_steps)
     aligned = self._RightAlign(prompts, prompt_lens, width=p_len)
@@ -216,14 +237,15 @@ class GShardDecode:
                       if isinstance(x, torch.Tensor))
     lens_dev = torch.as_tensor(np.asarray(prompt_lens)).to(dev)
     self._Sync()
-    t0 = time.perf_counter()
-    last_logits, states = prefill_fn(torch.as_tensor(aligned).to(dev),
-                                     lens_dev, states)
-    self._Sync()
-    t1 = time.perf_counter()
-    out = sample_fn(last_logits, lens_dev, states)
-    self._Sync()
-    t2 = time.perf_counter()
+    with theta_ctx:
+      t0 = time.perf_counter()
+      last_logits, states = prefill_fn(torch.as_tensor(aligned).to(dev),
+                                       lens_dev, states)
+      self._Sync()
+      t1 = time.perf_counter()
+      out = sample_fn(last_logits, lens_dev, states)
+      self._Sync()
+      t2 = time.perf_counter()
     out = out.cpu().numpy()
     self._last_step = restored
     decode_s = t2 - t1
@@ -241,7 +263,7 @@ class GShardDecode:
         decode_state_bytes_per_seq=state_bytes // b,
         kv_cache_dtype=census.get("kv_cache_dtype"),
         kv_bytes_per_token=census.get("kv_bytes_per_token", 0),
-        serve_int8_weights=False,
+        serve_int8_weights=self._serve_int8_weights,
         # batch-synchronous decode drafts nothing, caches no prefix and
         # never preempts: the shared serving keys are zero here
         draft_tokens=0, accepted_tokens=0, accepted_len_hist=[],

@@ -37,10 +37,20 @@ keeps float32 scale sidecars, which its page price counts, and the
 kernels dequantize it on read. `Stats()` reports the pool's dtype, its
 bytes per token, and `quantized_steps`.
 
+int8 weights (`serve_int8_weights=True`, quant/weights.py): the engine
+rewrites the task's theta once, at construction, into `Int8Weight`
+leaves (per-channel scales, one set per repeat layer) and binds it to the
+task for its own steps (`base_layer.ServedTheta`): every projection of a
+step, the tied logits included, runs the int8 matmul
+(ops/int8_matmul.py). The task's float parameters stay as they are, so a
+float engine or a trainer on the same task computes what it did. `Stats()`
+reports `serve_int8_weights`.
+
 Ported: both step modes, fifo scheduling, greedy sampling, float32,
-bfloat16 and int8 KV pools. Speculative decoding, the prefix cache, int8
-weights, priority scheduling and temperature > 0 raise
-NotImplementedError naming the slice that brings them.
+bfloat16 and int8 KV pools, int8 weights. Speculative decoding, the prefix
+cache, priority scheduling and temperature > 0 raise NotImplementedError
+naming the slice that brings them; so does int8 serving of a stack with
+SSM mixers, which the reference cannot run either.
 
 Two front doors, as in the reference:
 - async: `Start()` + `Submit(prompt, max_new) -> StreamHandle`, tokens
@@ -51,6 +61,7 @@ Two front doors, as in the reference:
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -63,6 +74,7 @@ from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import ragged as ragged_lib
 from lingvo_tpu_torch.core import sampling
 from lingvo_tpu_torch.quant import kv as kv_quant
+from lingvo_tpu_torch.quant import weights as quant_weights
 from lingvo_tpu_torch.serving import kv_cache
 from lingvo_tpu_torch.serving import scheduler as scheduler_lib
 from lingvo_tpu_torch.serving import spec_decode
@@ -137,7 +149,9 @@ class ServingLoop:
     step_mode: 'ragged' or 'legacy' (see the module docstring).
     kv_cache_dtype: overrides the task's layer-level kv_cache_dtype for
     this engine's page pool (None keeps it): 'float32', 'bfloat16', or
-    'int8' (quantize-on-write pages with scale sidecars). device: where
+    'int8' (quantize-on-write pages with scale sidecars).
+    serve_int8_weights: serve an int8 rewrite of the task's theta (every
+    projection an int8 matmul; see the module docstring). device: where
     the engine runs; None means CUDA and raises when there is none. The
     other arguments name reference features that raise until ported."""
     if step_mode not in ("ragged", "legacy"):
@@ -149,10 +163,6 @@ class ServingLoop:
     if prefix_cache is not None and prefix_cache is not False:
       raise NotImplementedError(
           "the prefix cache comes with the prefix-cache serving slice")
-    if serve_int8_weights:
-      raise NotImplementedError(
-          "int8 weight serving (quant/weights.py) comes with ROADMAP item 2 "
-          "of the port")
     if scheduler_mode != "fifo":
       raise NotImplementedError(
           f"scheduler_mode={scheduler_mode!r} comes with the priority-"
@@ -176,6 +186,12 @@ class ServingLoop:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     self._task = task
+    self.serve_int8_weights = bool(serve_int8_weights)
+    self._served = None
+    if serve_int8_weights:
+      quant_weights.CheckInt8Servable(task)
+      theta, _ = quant_weights.Int8ServingTheta(task.ThetaTree())
+      self._served = base_layer.ServedTheta(task, theta)
     self.step_mode = step_mode
     self.prefill_chunk = prefill_chunk
     self.page_size = page_size
@@ -308,7 +324,7 @@ class ServingLoop:
       tables = np.array(self.sched.block_tables)  # freeze under the lock
     dev = self.device
     rows = ragged_lib.ToTorch(batch.rows_desc, dev)
-    with torch.no_grad():
+    with torch.no_grad(), self._Theta():
       logits, self._states = self._task.RaggedStep(
           torch.as_tensor(batch.tok_ids).to(dev)[None], self._states,
           torch.as_tensor(tables).to(dev), rows)
@@ -330,7 +346,7 @@ class ServingLoop:
         return 0
       tables = np.array(self.sched.block_tables)  # freeze under the lock
     on_dev = lambda a: torch.as_tensor(a).to(self.device)
-    with torch.no_grad():
+    with torch.no_grad(), self._Theta():
       logits, self._states = self._task.PagedStep(
           on_dev(batch.ids), self._states, on_dev(tables),
           on_dev(batch.q_pos), on_dev(batch.in_len))
@@ -341,6 +357,12 @@ class ServingLoop:
       events = self.sched.CommitStep(batch, sampled)
       self._Count(batch, events)
     return len(events)
+
+  def _Theta(self):
+    """The context a step runs in: the int8 serving theta active, or the
+    task's own parameters."""
+    return (self._served.Active() if self._served is not None
+            else contextlib.nullcontext())
 
   def _Count(self, batch, events):
     """Counts a committed step and streams its events (caller holds the
@@ -398,6 +420,7 @@ class ServingLoop:
       stats["paged_path"] = self.paged_path
       stats["kv_cache_dtype"] = self.kv_cache_dtype
       stats["kv_bytes_per_token"] = self.kv_bytes_per_token
+      stats["serve_int8_weights"] = self.serve_int8_weights
       stats["scheduler"] = self.sched.Stats()
       stats["kv_pages"] = self.alloc.Stats()
       stats["mixers"] = dict(self.mixers)
