@@ -241,9 +241,35 @@
    serve_int8_weights: DenseLmTiny card against CPU continuations, and
    DenseLm1B from a port checkpoint (phase 13's setting): exactly 3072
    flash-decode launches and 145 x (4 + 128) of each int8 kernel.
-23. Prints the per-kernel JSON line (every kernel and every int8 /
-   bfloat16 instantiation; the int8 serving kernels with "replaces":
-   null), then the result line.
+23. Seeded sampling (temperature / top-k). The sampling kernel of
+   ops/sample_tokens.py against its plain version at the engine's ragged
+   step ([264, 32000], each token folded with its request's (seed,
+   position)) and GShardDecode's step ([8, 32000], rows folded into the
+   step key), T = 0.7, top_k 0 and 40: equal tokens, the winning
+   perturbed value within 1 ulp (the logarithms are libdevice's and
+   PyTorch's), two calls bitwise equal, one launch a call; times the
+   kernel, the plain version and the top-k threshold (torch.topk) beside
+   the bound (the largest of the bytes, threefry's ALU-only operations
+   and every instruction at the issue rate). Then DenseLmTiny's
+   sampled streams on the card equal the CPU's (ragged and legacy), and
+   its sampled GShardDecode continuations. DenseLm1B with phase 5's
+   weights and requests (seeds 100..107) at T = 0.8, top_k 40,
+   sample_seed 3 through `ServingLoop`: exactly 24 ragged and 1 sampling
+   launch a step, profiled; a second run equal stream for stream. The
+   random weights' logits are peaked enough that T = 0.8 draws the argmax,
+   so the same requests at T = 30 (top_k 0) twice: equal streams, and
+   some that differ from the greedy ones; for information, those requests
+   in reverse order and one request alone; a cancel of 2 of the 8 after
+   their first tokens, after which `Stop` leaves every page free.
+   GShardDecode at T = 0.8, top_k 40 from phase 13's weights: 3072
+   flash-decode and 128 sampling launches, two calls equal. Kernel (a)'s
+   scale on a value where the float32 reciprocal product and the true
+   division differ: the product, as the reference's jitted step. Prints
+   the sampling kernel's element loop in SASS (instructions by class and
+   by pipe).
+24. Prints the per-kernel JSON line (every kernel and every int8 /
+   bfloat16 instantiation; the int8 serving kernels and the sampling
+   kernel with "replaces": null), then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -269,6 +295,13 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (data sheet)
 FP32_FLOPS_PER_S = 67e12       # H100 SXM float32, CUDA cores (data sheet)
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense (data sheet)
 INT8_OPS_PER_S = 1979e12       # H100 SXM int8 tensor cores, dense (data sheet)
+# int32 shifts, logic ops and compares run on an SM's ALU pipe, 64 lanes a
+# clock against 128 float32 lanes, and the float32 rate counts an FMA as 2
+# operations (int32 adds may also issue as IMAD on the FMA pipe)
+INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
+# an SM issues one warp instruction a clock from each of its 4 schedulers:
+# 128 lanes a clock, whatever the pipe
+INSTRUCTIONS_PER_S = FP32_FLOPS_PER_S / 2
 TOL = 1e-5
 
 
@@ -653,10 +686,12 @@ def _CheckQuantBlockDecode(torch, bd, page, rng, time_plain):
 
 
 def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged",
-                   kv_cache_dtype=None, serve_int8_weights=False):
+                   kv_cache_dtype=None, serve_int8_weights=False,
+                   sample=None):
   """`cfg`, a tiny config, on the card against the same weights on the
   CPU: one packed step's logits, then greedy streams of the engine in
-  `step_mode`, both over `kv_cache_dtype` pools, on an int8 serving theta
+  `step_mode` (sampled ones with `sample`, the engine's sampling
+  arguments), both over `kv_cache_dtype` pools, on an int8 serving theta
   with `serve_int8_weights` (the step's projections through the int8
   kernels on the card)."""
   from lingvo_tpu_torch.core import base_layer
@@ -693,14 +728,17 @@ def _TinyReference(torch, cfg, engine, ragged, step_mode="ragged",
   for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
     eng = engine.ServingLoop(lm, device=lm.device, step_mode=step_mode,
                              kv_cache_dtype=kv_cache_dtype,
-                             serve_int8_weights=serve_int8_weights, **kw)
+                             serve_int8_weights=serve_int8_weights,
+                             **kw, **(sample or {}))
     streams[name] = eng.RunBatch(prompts, lens, max_new_tokens=8)
+  kind = f"sampled ({sample})" if sample else "greedy"
   _Check(np.array_equal(streams["cpu"], streams["cuda"]),
-         f"tiny greedy streams differ:\n{streams['cpu']}\n{streams['cuda']}")
+         f"tiny {kind} streams differ:\n{streams['cpu']}\n"
+         f"{streams['cuda']}")
   print(f"{type(cfg).__name__} reference ({eng.kv_cache_dtype} KV, "
         f"{'int8' if serve_int8_weights else 'float32'} weights, "
         f"paged_path {eng.paged_path}): logits max abs err {err:.3g} "
-        f"(<= 1e-4), {len(lens)} greedy streams of the {step_mode} engine "
+        f"(<= 1e-4), {len(lens)} {kind} streams of the {step_mode} engine "
         "identical to the CPU path")
 
 SCAN_TOL = 2e-5   # x max(1, max|want|): float32, the two versions sum the
@@ -1606,16 +1644,18 @@ def _Profile(torch, eng, prompts, steps, window=4):
                or "BlockDecode" in e.key) / 1e3
     scan = sum(_DevUs(e) for e in kernels if "SsdScan" in e.key) / 1e3
     int8 = sum(_DevUs(e) for e in kernels if "Int8" in e.key) / 1e3
+    sample = sum(_DevUs(e) for e in kernels if "SampleTokens" in e.key) / 1e3
     gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and (
         "gemm" in e.key.lower() or "cutlass" in e.key.lower())) / 1e3
-    rest = busy_ms - attn - scan - gemm - int8
+    rest = busy_ms - attn - scan - gemm - int8 - sample
     print(f"profiled the {label} {window} of {steps} steps: device busy "
           f"{busy_ms / window:.2f} ms/step ({busy_ms / wall_ms:.1%} of the "
           f"wall under the profiler, {wall_ms / window:.2f} ms/step); of "
           f"busy: GEMMs {gemm / busy_ms:.1%}, int8 kernels "
           f"{int8 / busy_ms:.1%} ({int8 / window:.2f} ms/step), scan "
           f"{scan / busy_ms:.1%}, attention kernel {attn / busy_ms:.1%}, "
-          f"rest {rest / busy_ms:.1%}")
+          f"sampling kernel {sample / busy_ms:.2%} "
+          f"({sample / window * 1e3:.1f} us/step), rest {rest / busy_ms:.1%}")
     for e in kernels[:5]:
       print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
     host = sorted((e for e in prof.key_averages()
@@ -1651,18 +1691,22 @@ def _ServingLm(torch, cfg):
 
 def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
                step_mode="ragged", kv_cache_dtype=None, lm=None,
-               profile=True, syncs=None, serve_int8_weights=False):
+               profile=True, syncs=None, serve_int8_weights=False,
+               sample=None, seeds=None, order=None):
   """cfg's Task (`lm`, or `_ServingLm(cfg)`) through ServingLoop in
   `step_mode` with `kv_cache_dtype` pools: 8 requests with prompts of
   64..768 tokens (numpy seed 1) and 32 new tokens each, through
   Start/Submit/Result/Stop, with every kernel count set to 0 just before.
+  sample: the engine's sampling arguments (greedy without); seeds: each
+  request's seed (default: the request ids); order: the indices of the
+  requests to submit, in that order (default: all 8 in order).
   per_step: {kernel: launches per engine step}; per_decode_step: {kernel:
   launches per decode-only step}; every other counted kernel must launch
   0 times. Then, with `profile`, the profiled re-run (its
   cudaStreamSynchronize calls per step, by window, into `syncs`).
   serve_int8_weights: the engine serves its int8 rewrite of the weights
   (whose bytes it prints). Returns (the counted run's launches, its steps,
-  the streams, ms per step)."""
+  the streams in `order`, ms per step)."""
   name = type(cfg).__name__
   per_decode_step = per_decode_step or {}
   t0 = time.perf_counter()
@@ -1672,12 +1716,14 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
                            max_batch=cfg.BATCH_SIZE,
                            max_seq_len=cfg.SEQUENCE_LENGTH, prefill_chunk=256,
                            step_mode=step_mode, kv_cache_dtype=kv_cache_dtype,
-                           serve_int8_weights=serve_int8_weights)
+                           serve_int8_weights=serve_int8_weights,
+                           **(sample or {}))
   torch.cuda.synchronize()
   pool_bytes = sum(x.numel() * x.element_size()
                    for x in eng._states.Flatten())
   label = f"{name} ({step_mode}, {eng.kv_cache_dtype} KV" + (
-      ", int8 weights)" if serve_int8_weights else ")")
+      ", int8 weights" if serve_int8_weights else "") + (
+          f", sampled {sample}" if sample else "") + ")"
   if serve_int8_weights:
     print(f"{label}: int8 theta {_Int8ThetaBytes(eng._served.theta) / 1e9:.3f}"
           " GB (int8 values and float32 scales)")
@@ -1690,13 +1736,16 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   eng.RunBatch(np.arange(1, 33, dtype=np.int32)[None], [32],
                max_new_tokens=2)   # warm-up: cuBLAS handles, allocator
   lens, prompts = _Requests(cfg)
+  order = list(range(len(prompts))) if order is None else list(order)
   stats0 = eng.Stats()
   torch.cuda.synchronize()
   counters.Zero()
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   eng.Start()
-  handles = [eng.Submit(pr, 32, eos_id=None) for pr in prompts]
+  handles = [eng.Submit(prompts[i], 32, eos_id=None,
+                        seed=None if seeds is None else seeds[i])
+             for i in order]
   streams = [h.Result(timeout=900) for h in handles]
   eng.Stop()
   torch.cuda.synchronize()
@@ -1720,11 +1769,11 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
          f"{label}: quantized_steps {quantized} of {steps} steps")
   ttft = sorted(h.first_token_time - h.submit_time for h in handles)
   tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
-  print(f"{label} served 8 requests (prompts "
-        f"{sorted(lens.tolist())}): {steps} steps ({decode_steps} "
+  print(f"{label} served {len(order)} requests (prompts "
+        f"{sorted(lens[order].tolist())}): {steps} steps ({decode_steps} "
         f"decode-only), {wall / steps * 1e3:.2f} ms/step, "
-        f"{8 * 32 / wall:.1f} generated tok/s, "
-        f"{int(lens.sum()) / wall:.1f} prompt tok/s, launches "
+        f"{len(order) * 32 / wall:.1f} generated tok/s, "
+        f"{int(lens[order].sum()) / wall:.1f} prompt tok/s, launches "
         f"{ {k: v for k, v in launches.items() if v} } = {per_step} x "
         f"{steps} + {per_decode_step} x {decode_steps}, quantized_steps "
         f"{quantized}, peak memory "
@@ -1942,10 +1991,11 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
 
 
 def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
-                kv_cache_dtype=None, serve_int8_weights=False):
+                kv_cache_dtype=None, serve_int8_weights=False, sample=None):
   """DenseLmTiny (decode_page_size 4, `kv_cache_dtype` caches, int8
-  weights with `serve_int8_weights`) through GShardDecode on the card and
-  on the CPU from one port checkpoint: the continuations must agree."""
+  weights with `serve_int8_weights`, sampled with `sample`, the decoder's
+  temperature and top_k) through GShardDecode on the card and on the CPU
+  from one port checkpoint: the continuations must agree."""
   p = spi.DenseLmTiny().Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
       decode_page_size=4)
@@ -1962,13 +2012,14 @@ def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
     decoder = gshard.GShardDecode(
         lm, ckdir, os.path.join(tmp, f"tiny_{name}_{kv_cache_dtype}.jsonl"),
         max_decode_steps=12, prefill_chunk_size=8,
-        serve_int8_weights=serve_int8_weights)
+        serve_int8_weights=serve_int8_weights, **(sample or {}))
     outs[name] = [r["output_ids"] for r in decoder.DecodeOnce(1, prompts,
                                                              lens)]
   _Check(outs["cpu"] == outs["cuda"], "tiny GShardDecode continuations "
          f"differ:\n{outs['cpu']}\n{outs['cuda']}")
   print(f"DenseLmTiny GShardDecode reference ({kv_cache_dtype or 'float32'} "
-        f"cache, {'int8' if serve_int8_weights else 'float32'} weights): "
+        f"cache, {'int8' if serve_int8_weights else 'float32'} weights"
+        f"{f', sampled {sample}' if sample else ''}): "
         f"{len(lens)} continuations of 12 tokens identical to the "
         "CPU path (page 4: the flash-decode read, the dense read for int8)")
 
@@ -1982,6 +2033,7 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
   kernels' and the GEMMs' shares of busy, the top kernels."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
+  from lingvo_tpu_torch.core import threefry
   p_len = 1024 - steps
   init_fn, prefill_fn, sample_fn = decoder._GetDecodeFn(p_len, steps)
   aligned = decoder._RightAlign(arr, lens, width=p_len)
@@ -1995,7 +2047,7 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
       t0 = time.perf_counter()
-      sample_fn(last, lens_dev, states)
+      sample_fn(last, lens_dev, threefry.PRNGKey(1), states)
       torch.cuda.synchronize()
       wall_ms = (time.perf_counter() - t0) * 1e3
   kernels = [e for e in prof.key_averages()
@@ -2059,7 +2111,8 @@ def _CheckTileBits(torch, attention):
 
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
-                ref_streams, kv_cache_dtype=None, serve_int8_weights=False):
+                ref_streams, kv_cache_dtype=None, serve_int8_weights=False,
+                sample=None, profile=True):
   """DenseLm1B (decode_page_size 128) through GShardDecode: DecodeOnce
   over the serving phases' 8 prompts (bucket 1024) for 128 tokens with
   prefill chunks of 256, every kernel count set to 0 just before. With
@@ -2069,7 +2122,10 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   continuations are compared with, for information. serve_int8_weights:
   the decoder's int8 rewrite of the restored weights, every projection of
   the 4 prefill chunks and the 128 steps (145 each) through the int8
-  kernels. Returns (launches, telemetry, the continuations)."""
+  kernels. sample: the decoder's temperature and top_k (one sampling
+  launch a step), and a second call must give the same continuations.
+  profile: profile 16 decode steps after. Returns (launches, telemetry,
+  the continuations)."""
   cfg = spi.DenseLm1B()
   p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
@@ -2104,7 +2160,7 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   decoder = gshard.GShardDecode(
       lm, ckdir, os.path.join(tmp, f"decode_{kv_cache_dtype}.jsonl"),
       max_decode_steps=128, prefill_chunk_size=256,
-      serve_int8_weights=serve_int8_weights)
+      serve_int8_weights=serve_int8_weights, **(sample or {}))
   counted = "flash_decode" + {None: "", "bfloat16": "_bf16"}[kv_cache_dtype]
   torch.cuda.synchronize()
   counters.Zero()
@@ -2115,6 +2171,8 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   want[counted] = 24 * 128
   if serve_int8_weights:   # 4 prefill chunks of 256 and 128 steps
     want["int8_act_quant"] = want["int8_matmul"] = 145 * (4 + 128)
+  if sample:
+    want["sample_tokens"] = 128
   _Check(launches == want, f"GShardDecode launches {launches} != {want}")
   _Check(recs[0]["telemetry"]["serve_int8_weights"] == serve_int8_weights,
          "telemetry serve_int8_weights")
@@ -2141,7 +2199,14 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
         f"){', int8 weights' if serve_int8_weights else ''}")
   print(f"(information, not a check: {same} of 8 continuations begin with "
         f"the {n}-token reference streams)")
-  _ProfileDecodeSteps(torch, decoder, arr, lens)
+  if sample:
+    again = decoder.DecodeOnce(1, arr, lens)
+    _Check([r["output_ids"] for r in again] == [r["output_ids"] for r in recs],
+           "two sampled DecodeOnce calls gave other continuations")
+    print(f"sampled GShardDecode {sample}: a second DecodeOnce gave the same "
+          f"8 continuations (decode_s {again[0]['telemetry']['decode_s']:.3f})")
+  if profile:
+    _ProfileDecodeSteps(torch, decoder, arr, lens)
   return launches, tel, [r["output_ids"] for r in recs]
 
 
@@ -2274,6 +2339,214 @@ def _CheckInt8Gemm(torch, im, rng, m):
   return step
 
 
+def _Ulps(torch, got, want):
+  """|got - want| in units of want's float32 ulp (elementwise)."""
+  mag = torch.abs(want)
+  ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+  return torch.abs(got - want) / ulp
+
+
+_INT_OPS = ("IMAD", "IADD3", "VIADD", "LOP3", "SHF", "LEA", "ISETP", "IADD",
+            "IMUL", "SEL", "PRMT", "IMNMX", "IABS", "SHL", "SHR")
+_FLOAT_OPS = ("FFMA", "FMUL", "FADD", "FSETP", "FSEL", "FMNMX", "MUFU",
+              "FCHK")
+
+
+def _SassLoopMix(cuda_build, name, kernel):
+  """The instruction mix of `kernel`'s element loop in the built library
+  `name` (cuobjdump -sass): the largest backward branch's body that holds
+  one global load, i.e. the body a thread runs per element. Returns
+  {"int": n, "float": n, "other": n, "total": n, "ops": {opcode: n}}, or
+  None where cuobjdump is missing or no such loop is found."""
+  import re
+  tool = "/usr/local/cuda/bin/cuobjdump"
+  if not os.path.exists(tool):
+    return None
+  sass = subprocess.run([tool, "-sass", str(cuda_build.LibraryPath(name))],
+                        capture_output=True, text=True, timeout=120).stdout
+  start = sass.find(kernel)
+  if start < 0:
+    return None
+  body = sass[start:].split("Function :")[0]
+  code = [(int(m.group(1), 16), m.group(2).split(".")[0], m.group(3))
+          for m in re.finditer(
+              r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+              r"([^;]*);", body)]
+  best = None
+  for addr, op, args in code:
+    if op != "BRA":
+      continue
+    target = re.search(r"0x([0-9a-f]+)", args)
+    if not target or int(target.group(1), 16) >= addr:
+      continue
+    loop = [c for c in code if int(target.group(1), 16) <= c[0] <= addr]
+    if (sum(c[1] == "LDG" for c in loop) == 1
+        and (best is None or len(loop) > len(best))):
+      best = loop
+  if best is None:
+    return None
+  ops = {}
+  for _, op, _ in best:
+    ops[op] = ops.get(op, 0) + 1
+  n_int = sum(v for k, v in ops.items() if k in _INT_OPS)
+  n_float = sum(v for k, v in ops.items() if k in _FLOAT_OPS)
+  return dict(int=n_int, float=n_float, other=len(best) - n_int - n_float,
+              total=len(best), ops=ops)
+
+
+def _SampleBound(st, r, v, moved, mix):
+  """The sampling kernel's bound at [r, v]: (ms, "bytes" or "operations",
+  {limit: ms}), the largest of three limits: the bytes at the memory rate;
+  the operations only the ALU pipe runs (the algorithm's rotates, xors and
+  shifts, `ALU_OPS_PER_ELEMENT`) at 64 lanes an SM a clock; and every
+  instruction at the issue rate, 128 lanes an SM a clock, counting the
+  algorithm's integer operations and the compiled element loop's float
+  instructions (the accurate logf's among them; none where the SASS
+  could not be read)."""
+  n = r * v
+  parts = dict(
+      bytes=moved / HBM_BYTES_PER_S * 1e3,
+      alu=n * st.ALU_OPS_PER_ELEMENT / INT32_OPS_PER_S * 1e3,
+      issue=n * (st.INT_OPS_PER_ELEMENT + (mix["float"] if mix else 0))
+      / INSTRUCTIONS_PER_S * 1e3)
+  by = max(parts, key=parts.get)
+  return parts[by], "bytes" if by == "bytes" else "operations", parts
+
+
+def _CheckSample(torch, st, threefry, r, f, top_k, seed, mix=None,
+                 time_it=False, temperature=0.7):
+  """The sampling kernel against its plain version on [r, 32000] logits
+  (the serving step's vocabulary): f = 2 folds each row with an engine
+  (seed, position) pair, f = 1 with its row index against a GShardDecode
+  step key (`Split(PRNGKey(1), 128)[5]`). Tokens equal, the winning value
+  within 1 ulp, two calls bitwise equal, one launch a call; with
+  `time_it`, the kernel, the plain version and the threshold timed beside
+  the bound (`_SampleBound`, with the element loop's SASS mix `mix`)."""
+  from lingvo_tpu_torch.core import jit_arith, sampling
+  v = 32000
+  gen = torch.Generator("cuda").manual_seed(seed)
+  x = torch.randn(r, v, generator=gen, device="cuda") * 4
+  if f == 2:   # tokens of 8 requests: each request's seed, positions
+    rows = np.random.RandomState(seed).randint(0, 8, size=r)
+    seeds = np.random.RandomState(seed + 1).randint(0, 2**31 - 1, size=8)
+    fold = np.stack([seeds[rows], np.arange(r) % 33], 1)
+    key = threefry.PRNGKey(3)
+  else:
+    fold = np.arange(r)[:, None]
+    key = threefry.Split(threefry.PRNGKey(1), 128)[5]
+  fold = torch.as_tensor(fold.astype(np.int32)).cuda()
+  inv_t = jit_arith.Reciprocal(temperature)
+  thr = sampling.TopKThreshold(x, temperature, top_k)
+  before = st.SampleTokens.launches
+  tokens, z = st.SampleTokens(x, key, fold, inv_t, thr, return_z=True)
+  tokens2, z2 = st.SampleTokens(x, key, fold, inv_t, thr, return_z=True)
+  torch.cuda.synchronize()
+  _Check(st.SampleTokens.launches == before + 2,
+         "sample_tokens: one launch a call")
+  want, want_z = st._PlainSample(x, key, fold, inv_t, thr)
+  label = f"sample_tokens [{r}, {v}] F={f} top_k={top_k}"
+  _Check(torch.equal(tokens, tokens2) and torch.equal(z, z2),
+         f"{label}: two calls differ")
+  differ = int((tokens != want).sum())
+  _Check(differ == 0, f"{label}: {differ} tokens differ from the plain "
+         "version")
+  ulps = float(_Ulps(torch, z, want_z).max())
+  err = float((z - want_z).abs().max())
+  _Check(ulps <= 1.0, f"{label}: winning value {ulps} ulp off")
+  live = r * v if thr is None else int((x * inv_t >= thr[:, None]).sum())
+  res = dict(err=err, ulps=ulps)
+  msg = (f"{label}: tokens equal, winning value within {ulps:g} ulp "
+         f"({err:.3g} abs), {live} live logits")
+  if time_it:
+    moved = 4 * r * v + 4 * r * f + (4 * r if thr is not None else 0) + 8 * r
+    *res["bound"], parts = _SampleBound(st, r, v, moved, mix)
+    res["ms"] = _TimeMs(torch, lambda: st.SampleTokens(x, key, fold, inv_t,
+                                                       thr), 20)
+    res["plain_ms"] = _TimeMs(
+        torch, lambda: st._PlainSample(x, key, fold, inv_t, thr), 3,
+        waits_as="plain sampling (the key's copy to the card)")
+    res["threshold_ms"] = (None if thr is None else _TimeMs(
+        torch, lambda: sampling.TopKThreshold(x, temperature, top_k), 20))
+    msg += (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, "
+            f"top-k threshold (torch.topk) {res['threshold_ms']} ms, bound "
+            f"{res['bound'][0]:.4f} ms ({res['bound'][1]}; the limits: "
+            f"{moved / 1e6:.1f} MB at 3.35 TB/s {parts['bytes']:.4f} ms, "
+            f"{st.ALU_OPS_PER_ELEMENT} ALU-pipe operations an element at "
+            f"{INT32_OPS_PER_S / 1e12:.2f} T/s {parts['alu']:.4f} ms, "
+            f"{st.INT_OPS_PER_ELEMENT} integer + "
+            f"{mix['float'] if mix else 0} float instructions an element "
+            f"issued at {INSTRUCTIONS_PER_S / 1e12:.2f} T/s "
+            f"{parts['issue']:.4f} ms)")
+  print(msg)
+  return res
+
+
+def _CheckActScale(torch, im):
+  """Kernel (a) on a row whose amax makes the float32 product by the
+  reciprocal of 127 differ from the true division: its scale must be the
+  product (the reference's jitted step), bitwise as the plain version."""
+  from lingvo_tpu_torch.core import jit_arith
+  rng = np.random.RandomState(23)
+  cand = (rng.rand(4096) * 8).astype(np.float32)
+  prod = cand * np.float32(jit_arith.INV_127)
+  quot = cand / np.float32(127)
+  amax = float(cand[np.nonzero(prod != quot)[0][0]])
+  x = torch.as_tensor(rng.randn(8, 2048).astype(np.float32))
+  x = x / x.abs().max() * amax * 0.5
+  x[3, 77] = -amax
+  x8, scale = im.QuantizeActivations(x.cuda())
+  px8, pscale = im._PlainQuantize(x.cuda())
+  torch.cuda.synchronize()
+  got = scale.cpu().numpy()[0]
+  _Check(got == np.float32(amax) * np.float32(jit_arith.INV_127)
+         and got != np.float32(amax) / np.float32(127),
+         f"kernel (a) scale {got!r} is not amax * float32(1 / 127)")
+  _Check(torch.equal(scale, pscale) and torch.equal(x8, px8),
+         "kernel (a) differs from its plain version")
+  print(f"kernel (a) at amax {amax!r}: scale {got!r} = amax * float32(1 / "
+        f"127), not the true division {np.float32(amax) / np.float32(127)!r}"
+        "; bitwise its plain version")
+
+
+def _CancelCheck(torch, cfg, engine, lm, sample, seeds):
+  """Serves phase 5's 8 requests sampled and cancels 2 of them (requests
+  2 and 5) once each has given its first token: both finish
+  "cancelled", the others finish, and after Stop the allocator holds
+  every page again."""
+  eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
+                           max_batch=cfg.BATCH_SIZE,
+                           max_seq_len=cfg.SEQUENCE_LENGTH,
+                           prefill_chunk=256, **sample)
+  _, prompts = _Requests(cfg)
+  eng.Start()
+  try:
+    handles = [eng.Submit(pr, 32, eos_id=None, seed=seeds[i])
+               for i, pr in enumerate(prompts)]
+    next(handles[2].Tokens(timeout=300))
+    next(handles[5].Tokens(timeout=300))
+    _Check(handles[2].Cancel() and handles[5].Cancel(),
+           "cancel of a mid-flight request refused")
+    streams = [h.Result(timeout=300) for h in handles]
+  finally:
+    eng.Stop()
+  torch.cuda.synchronize()
+  reasons = [h.finish_reason for h in handles]
+  stats = eng.Stats()
+  _Check(reasons.count("cancelled") == 2 and reasons[2] == reasons[5]
+         == "cancelled", f"finish reasons {reasons}")
+  _Check(stats["kv_pages"]["in_use"] == 0
+         and eng.alloc.num_free == eng.alloc.num_pages,
+         f"pages still held after Stop: {stats['kv_pages']}")
+  _Check(stats["scheduler"]["cancelled"] == 2
+         and stats["scheduler"]["slots_live"] == 0,
+         f"scheduler after the cancels: {stats['scheduler']}")
+  print(f"cancel of 2 of 8 sampled requests: they stopped at "
+        f"{len(streams[2])} and {len(streams[5])} tokens, the other 6 gave "
+        f"32; after Stop {eng.alloc.num_free} of {eng.alloc.num_pages} "
+        "pages free, no slot live")
+  return streams
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2287,6 +2560,7 @@ def main():
   from lingvo_tpu_torch.core import attention
   from lingvo_tpu_torch.core import checkpointer
   from lingvo_tpu_torch.core import ragged
+  from lingvo_tpu_torch.core import threefry
   from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
   from lingvo_tpu_torch.ops import block_decode as bd
   from lingvo_tpu_torch.ops import cuda_build
@@ -2295,6 +2569,7 @@ def main():
   from lingvo_tpu_torch.ops import fused_xent as fx
   from lingvo_tpu_torch.ops import int8_matmul as im
   from lingvo_tpu_torch.ops import ragged_block_attend as rba
+  from lingvo_tpu_torch.ops import sample_tokens as st
   from lingvo_tpu_torch.ops import ssd_scan as ssd
   from lingvo_tpu_torch.runners import gshard_decode as gshard
   from lingvo_tpu_torch.runners import program
@@ -2316,7 +2591,8 @@ def main():
 
   _Phase("2. build kernels (one nvcc per source, in parallel)")
   sources = ("ragged_block_attend", "ssd_scan", "flash_attention",
-             "fused_xent", "block_decode", "flash_decode", "int8_matmul")
+             "fused_xent", "block_decode", "flash_decode", "int8_matmul",
+             "sample_tokens")
 
   def _Build(name):
     t0 = time.perf_counter()
@@ -2390,7 +2666,8 @@ def main():
       flash_decode=(fd.FlashDecode, "float32"),
       flash_decode_bf16=(fd.FlashDecode, "bfloat16"),
       int8_act_quant=(im.QuantizeActivations, None),
-      int8_matmul=(im.Int8Gemm, None))
+      int8_matmul=(im.Int8Gemm, None),
+      sample_tokens=(st.SampleTokens, None))
 
   _Phase("5. serving main path: DenseLm1B through ServingLoop")
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged)
@@ -2651,7 +2928,103 @@ def main():
   gc.collect()
   torch.cuda.empty_cache()
 
-  _Phase("23. result")
+  _Phase("23. seeded sampling: the sampling kernel, then DenseLm1B through "
+         "ServingLoop and GShardDecode at temperature > 0")
+  print("sample_tokens library_ms: null (no PyTorch call draws JAX's "
+        "threefry Gumbel noise); its top-k threshold is torch.topk, timed "
+        "beside it")
+  mix = _SassLoopMix(cuda_build, "sample_tokens", "SampleTokensKernel")
+  if mix is not None:
+    n = 264 * 32000
+    ops = mix["ops"]
+    alu = sum(ops.get(k, 0) for k in ("SHF", "LOP3", "ISETP"))
+    imad = ops.get("IMAD", 0)
+    print(f"sample_tokens element loop (SASS): {mix['total']} instructions, "
+          f"{mix['int']} integer, {mix['float']} float, {mix['other']} "
+          f"other; by pipe: {alu} shift / logic / compare (ALU pipe only), "
+          f"{imad} IMAD (FMA pipe), {mix['int'] - alu - imad} other integer"
+          f"; the algorithm counts {st.INT_OPS_PER_ELEMENT} int32 operations"
+          f", {st.ALU_OPS_PER_ELEMENT} of them ALU-only; at [264, 32000] the "
+          f"compiled loop's ALU-only instructions take "
+          f"{n * alu / INT32_OPS_PER_S * 1e3:.4f} ms at 64 lanes an SM a "
+          f"clock, its {mix['total']} instructions "
+          f"{n * mix['total'] / INSTRUCTIONS_PER_S * 1e3:.4f} ms at 128; by "
+          f"opcode {ops}")
+  samp = {(r, f, k): _CheckSample(torch, st, threefry, r, f, k,
+                                  seed=23 + k + r, mix=mix,
+                                  time_it=(r, k) in ((264, 40), (8, 40)))
+          for r, f in ((264, 2), (8, 1)) for k in (0, 40)}
+  tiny_sample = dict(temperature=0.8, top_k=5, sample_seed=3)
+  for mode in ("ragged", "legacy"):
+    _TinyReference(torch, spi.DenseLmTiny(), engine, ragged, step_mode=mode,
+                   sample=tiny_sample)
+  sample = dict(temperature=0.8, top_k=40, sample_seed=3)
+  seeds = list(range(100, 108))
+  cfg = spi.DenseLm1B()
+  lm = _ServingLm(torch, cfg)
+  sample_launches, sample_steps, sampled, sample_ms = _ServeMain(
+      torch, cfg, engine, counters,
+      dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=sample,
+      seeds=seeds)
+  _, _, again, again_ms = _ServeMain(
+      torch, cfg, engine, counters,
+      dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=sample,
+      seeds=seeds, profile=False)
+  _Check(again == sampled, "two sampled runs with the same seeds gave other "
+         "streams")
+  print(f"sampled DenseLm1B: a second run gave the same 8 streams "
+        f"({again_ms:.2f} ms/step against {sample_ms:.2f}, and "
+        f"{serve_ms:.2f} greedy in phase 5); "
+        f"{sum(list(a) == list(b) for a, b in zip(sampled, ragged_streams))}"
+        " of 8 equal phase 5's greedy streams")
+  # the random weights' logits are so peaked (the tied table echoes the
+  # input token) that T = 0.8 draws the argmax: at T = 30 (the tanh cap
+  # bounds a gap at 60, 2 after the scale) the draws show
+  hot = dict(temperature=30.0, top_k=0, sample_seed=3)
+  hot_streams = [_ServeMain(
+      torch, cfg, engine, counters,
+      dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=hot,
+      seeds=seeds, profile=False)[2] for _ in range(2)]
+  _Check(hot_streams[0] == hot_streams[1], "two runs at T = 30 with the "
+         "same seeds gave other streams")
+  differ = sum(list(a) != list(b)
+               for a, b in zip(hot_streams[0], ragged_streams))
+  _Check(differ > 0, "at T = 30 every stream equals the greedy one")
+  print(f"at T = 30, top_k 0: two runs gave the same 8 streams, {differ} of "
+        "8 differ from phase 5's greedy streams")
+  order = list(range(7, -1, -1))
+  _, _, rev, _ = _ServeMain(
+      torch, cfg, engine, counters,
+      dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=hot,
+      seeds=seeds, order=order, profile=False)
+  same = sum(list(rev[j]) == list(hot_streams[0][i])
+             for j, i in enumerate(order))
+  _, _, alone, _ = _ServeMain(
+      torch, cfg, engine, counters,
+      dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=hot,
+      seeds=seeds, order=[3], profile=False)
+  alone_same = list(alone[0]) == list(hot_streams[0][3])
+  print(f"(information, not a check: at T = 30, in reverse order {same} of "
+        f"8 streams equal the forward run's; request 3 served alone "
+        f"{'equals' if alone_same else 'differs from'} its stream in the "
+        "batch)")
+  _CancelCheck(torch, cfg, engine, lm, hot, seeds)
+  del lm
+  gc.collect()
+  torch.cuda.empty_cache()
+  with tempfile.TemporaryDirectory() as tmp:
+    _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
+                sample=dict(temperature=0.8, top_k=5))
+    sample_gshard, _, _ = _GShardMain(
+        torch, spi, attention, checkpointer, gshard, counters, tmp,
+        gshard_out, sample=dict(temperature=0.8, top_k=40), profile=False)
+  gc.collect()
+  torch.cuda.empty_cache()
+  _CheckActScale(torch, im)
+  print("kernel (a) against its plain version at the 145 products: bitwise "
+        "(phase 21); the int8 pools' quantize-on-write: phases 14-17")
+
+  _Phase("24. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -2808,6 +3181,27 @@ def main():
         "legacy_launches": int8_serve["legacy", None]["launches"][name],
         "gshard_launches": int8_gshard[name],
         "shape": "sum over the 145 products of a step, m = 264"})
+  main_samp, gshard_samp = samp[264, 2, 40], samp[8, 1, 40]
+  kernels.append({
+      "name": "sample_tokens", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/sample_tokens.cu",
+      "replaces": None,
+      "note": ("replaces no pallas_call: the jax.random.categorical of "
+               "lingvo_tpu/core/sampling.py:34 SampleFromLogits"),
+      "launches": sample_launches["sample_tokens"],
+      "max_abs_err": max(r["err"] for r in samp.values()),
+      "max_ulps": max(r["ulps"] for r in samp.values()),
+      "ms": main_samp["ms"], "plain_ms": main_samp["plain_ms"],
+      "bound_ms": main_samp["bound"][0], "bound_by": main_samp["bound"][1],
+      "library_ms": None,
+      "threshold_ms": main_samp["threshold_ms"],
+      "gshard_ms": gshard_samp["ms"],
+      "gshard_bound_ms": gshard_samp["bound"][0],
+      "gshard_launches": sample_gshard["sample_tokens"],
+      "steps": sample_steps,
+      "sass_int_per_element": None if mix is None else mix["int"],
+      "sass_float_per_element": None if mix is None else mix["float"],
+      "shape": "[264, 32000] float32, top_k 40, (seed, position) folds"})
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@ arithmetic in the reference's order:
 - a weight's scale is max(amax(|w|) / 127, 1e-8) over its contraction
   axes (per output channel) or over the whole weight (per tensor), and
   w8 = clip(round(w / scale), -128, 127), a true division and round half
-  to even;
+  to even (the reference quantizes weights eagerly: true divisions);
 - `Int8Einsum` quantizes the activations per call with ONE scale over the
-  whole x, x_scale = max(amax(|x|) / 127, 1e-8), takes the int32 product,
+  whole x, x_scale = max(amax(|x|) * float32(1 / 127), 1e-8) (the
+  reference's `/ 127.0` inside its jitted step programs, which XLA makes
+  a reciprocal product), takes the int32 product,
   then float32(acc) * x_scale, then * w_scale[n] as a second multiply, and
   casts to x's dtype.
 
@@ -31,6 +33,7 @@ import math
 
 import torch
 
+from lingvo_tpu_torch.core import jit_arith
 from lingvo_tpu_torch.ops import int8_matmul
 
 
@@ -68,7 +71,7 @@ def Int8QuantizeWeight(w, per_channel: bool = True, layout: str = "dv",
     amax = torch.amax(torch.abs(w32), dim=reduce_axes, keepdim=True)
   else:
     amax = torch.amax(torch.abs(w32))
-  scale = int8_matmul.ScaleFromAmax(amax)
+  scale = jit_arith.WeightScale(amax)
   w_int8 = torch.clamp(torch.round(w32 / scale), -128, 127).to(torch.int8)
   return w_int8, scale
 

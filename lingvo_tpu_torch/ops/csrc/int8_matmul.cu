@@ -9,8 +9,10 @@
 // and neither applies the two-scale epilogue. So two hand kernels:
 //
 // (a) Int8QuantizeKernel, the activation pre-pass. x [M, K] float32 ->
-//     x_scale = max(amax(|x|) / 127, 1e-8) over the WHOLE x of the call,
-//     and x8 [M, Kp] int8 = clip(rint(x / x_scale), -128, 127) with a true
+//     x_scale = max(amax(|x|) * float32(1 / 127), 1e-8) over the WHOLE x of
+//     the call (the reference's amax / 127.0 as XLA compiles it inside the
+//     jitted step: a product with the constant's float32 reciprocal), and
+//     x8 [M, Kp] int8 = clip(rint(x / x_scale), -128, 127) with a true
 //     (IEEE) division and round half to even, rows padded with zeros to Kp
 //     = K rounded up to 16 bytes. A cooperative launch of at most one wave
 //     of blocks: each block folds the max of its share (units of 256 quads
@@ -107,7 +109,9 @@ __global__ void __launch_bounds__(kThreads) Int8QuantizeKernel(
     g = fmaxf(g, __ldcg(block_max + i));
   __syncthreads();   // red is reused
   g = BlockMax<kThreads>(g, red);
-  const float scale = fmaxf(__fdiv_rn(g, 127.f), 1e-8f);
+  // the reference's amax / 127.0 as XLA compiles it in the jitted step: a
+  // product with the float32 reciprocal of 127
+  const float scale = fmaxf(__fmul_rn(g, 0x1.020408p-7f), 1e-8f);
   if (blockIdx.x == 0 && threadIdx.x == 0) *x_scale = scale;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int row = u / segs;

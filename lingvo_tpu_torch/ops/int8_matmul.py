@@ -9,10 +9,11 @@ and applies no scale), so the card runs two hand kernels,
 `ops/csrc/int8_matmul.cu`:
 
 - `QuantizeActivations` (kernel (a)): x [M, K] float32 -> (x8 [M, Kp]
-  int8, x_scale [1] float32). x_scale = max(amax(|x|) / 127, 1e-8) over
-  the whole x of the call; x8 = clip(round(x / x_scale), -128, 127) with
-  a true division and round half to even; rows zero-padded to Kp, K
-  rounded up to 16 bytes.
+  int8, x_scale [1] float32). x_scale = max(amax(|x|) * float32(1 / 127),
+  1e-8) over the whole x of the call (the reference's `amax / 127.0` as
+  its jitted programs compute it, `core/jit_arith.ScaleFromAmax`); x8 =
+  clip(round(x / x_scale), -128, 127) with a true division and round
+  half to even; rows zero-padded to Kp, K rounded up to 16 bytes.
 - `Int8Gemm` (kernel (b)): (x8, x_scale, w [N, K] int8, w_scale [N]
   float32) -> y [M, N] float32 = (float(x8 . w^T) * x_scale) * w_scale,
   two separate multiplies in the reference's order. The product is
@@ -43,6 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from lingvo_tpu_torch.core import jit_arith
 from lingvo_tpu_torch.ops import cuda_build
 from lingvo_tpu_torch.ops.ragged_block_attend import CheckAligned
 
@@ -81,23 +83,16 @@ def KernelLimitError(m: int, k: int, n: int) -> str | None:
   return None
 
 
-def ScaleFromAmax(amax):
-  """max(amax / 127, 1e-8), the reference's symmetric int8 scale, with a
-  true division on every device. (On CUDA, PyTorch divides a tensor by a
-  Python scalar as a product with the scalar's reciprocal, which can be
-  one float32 ulp off; a tensor divisor takes the true division.)"""
-  return torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-8)
-
-
 # -- plain versions ------------------------------------------------------------
 
 
 def _PlainQuantize(x):
   """x [M, K] -> (x8 [M, Kp] int8, x_scale [1] float32), the reference's
-  ops: a max over the whole tensor, a true division, round half to even,
-  clip, cast."""
+  ops as its jitted step runs them: a max over the whole tensor, the
+  product by float32(1 / 127) (`core/jit_arith.ScaleFromAmax`), a true
+  division by the scale, round half to even, clip, cast."""
   x32 = x.float()
-  x_scale = ScaleFromAmax(torch.amax(torch.abs(x32)))
+  x_scale = jit_arith.ScaleFromAmax(torch.amax(torch.abs(x32)))
   x8 = torch.clamp(torch.round(x32 / x_scale), -128, 127).to(torch.int8)
   kp = PaddedK(x.shape[1])
   if kp != x.shape[1]:

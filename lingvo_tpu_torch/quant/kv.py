@@ -5,8 +5,8 @@ The numerics contract, as in the reference:
 - Quantization happens once, when a token's K/V is written into its page
   (`PagedStep`, `RaggedStep`) or cache row (`ExtendStep`, `Prefill`).
   Each written row [N, H] gets one symmetric max-abs scale per head,
-  `scale = max(amax / 127, 1e-8)`, and `round(x / scale)` clipped to
-  [-128, 127]. No write ever revisits a token already written.
+  `scale = max(amax * float32(1 / 127), 1e-8)`, and `round(x / scale)`
+  clipped to [-128, 127]. No write ever revisits a token already written.
 - Dequantization happens when the pages are read: inside the attention
   kernels (`ops/block_decode._DequantPages`, and its CUDA twins) or just
   before the dense read.
@@ -14,14 +14,20 @@ The numerics contract, as in the reference:
   page_size] float32, so the scales of one (page, head) are contiguous.
   The dense decode cache keeps [B, L, N].
 
-The int8 values and scales are bitwise those of the reference: the same
-float32 ops in the same order (a true division by the scale, round half
-to even, clip, then cast).
+The int8 values and scales are bitwise those of the reference's jitted
+serving programs, where every write happens: the same float32 ops in the
+same order. The reference writes `amax / 127.0`, which XLA compiles to a
+product with the float32 reciprocal of 127; the port multiplies by it on
+every device (`core/jit_arith.ScaleFromAmax`; eager JAX divides, and
+differs in the last bit of some scales). Then a true division by the
+scale, round half to even, clip, cast.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lingvo_tpu_torch.core import jit_arith
 
 # Storage dtypes the KV pools understand. None / '' keeps the fprop dtype
 # (float32 in the port). Only int8 carries scale sidecars.
@@ -56,7 +62,7 @@ def QuantizeKv(x):
   all-zero row quantize and dequantize to zeros."""
   x32 = x.float()
   amax = torch.amax(torch.abs(x32), dim=-1)
-  scale = torch.clamp(amax / 127.0, min=1e-8)
+  scale = jit_arith.ScaleFromAmax(amax)
   q = torch.clamp(torch.round(x32 / scale[..., None]), -128, 127)
   return q.to(torch.int8), scale
 

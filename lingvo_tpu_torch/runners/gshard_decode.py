@@ -16,9 +16,13 @@ results to a JSONL file. Per `DecodeOnce`:
   `prefill_chunk_size` tokens per pass (0 = the whole prompt), each pass
   reading only the written prefix (live_len); `use_legacy_prime=True`
   primes it one `ExtendStep` per token instead (the A/B reference);
-- sample: max_decode_steps greedy draws, each fed back through
-  `ExtendStep`, whose read is the paged flash-decode kernel when the
-  attention template sets `decode_page_size`.
+- sample: max_decode_steps draws, each fed back through `ExtendStep`,
+  whose read is the paged flash-decode kernel when the attention template
+  sets `decode_page_size`. Greedy at temperature 0; at temperature > 0
+  (and an optional top_k) the step keys are Split(PRNGKey(restored
+  step), max_decode_steps) and row i draws from FoldIn(keys[t], i), the
+  first draw from the prefill's last logits with keys[0], so a row's
+  continuation does not depend on its batch neighbours.
 
 The three phases of one (P, max_decode_steps) pair are built once and
 reused by every call that buckets to it (`_decode_fns`). The telemetry of
@@ -33,8 +37,8 @@ restored checkpoint step and bound to the task for the decode only
 (`base_layer.ServedTheta`); the task's float parameters stay as
 restored.
 
-Greedy only: temperature > 0 and the status server (serve_port) raise
-NotImplementedError naming the slice that brings them.
+The status server (serve_port) raises NotImplementedError naming the
+slice that brings it.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import checkpointer as checkpointer_lib
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import sampling
+from lingvo_tpu_torch.core import threefry
 from lingvo_tpu_torch.quant import kv as kv_quant
 from lingvo_tpu_torch.quant import weights as quant_weights
 
@@ -82,7 +87,7 @@ class GShardDecode:
 
   def __init__(self, task, train_dir: str, output_path: str,
                max_decode_steps: int = 32, temperature: float = 0.0,
-               poll_interval_secs: float = 10.0,
+               top_k: int = 0, poll_interval_secs: float = 10.0,
                timeout_secs: float = 3600.0,
                prefill_chunk_size: int = 0,
                use_legacy_prime: bool = False,
@@ -91,15 +96,13 @@ class GShardDecode:
                serve_port=None):
     """task: a TransformerLm (InitDecodeState / Prefill / ExtendStep) on
     the device to decode on; each DecodeOnce restores a checkpoint of the
-    port's format (core/checkpointer.py) into it. prefill_chunk_size:
+    port's format (core/checkpointer.py) into it. temperature / top_k:
+    sampling controls (core/sampling.py); temperature <= 0 is the argmax.
+    prefill_chunk_size:
     prompt tokens per prefill pass (0 = the whole prompt).
     use_legacy_prime: prime the cache with one ExtendStep per prompt token
     instead. serve_int8_weights: decode on an int8 rewrite of each
     restored theta. len_buckets: prompt-width buckets."""
-    if temperature > 0.0:
-      raise NotImplementedError(
-          "temperature > 0 sampling comes with the sampling slice of the "
-          "port (ROADMAP item 3); GShardDecode decodes greedily")
     if serve_int8_weights:
       quant_weights.CheckInt8Servable(task)
     if serve_port is not None:
@@ -114,6 +117,8 @@ class GShardDecode:
     self._train_dir = train_dir
     self._output_path = output_path
     self._max_steps = max_decode_steps
+    self._temperature = float(temperature)
+    self._top_k = int(top_k)
     self._checkpointer = checkpointer_lib.Checkpointer(train_dir)
     self._poll_interval = poll_interval_secs
     self._timeout = timeout_secs
@@ -138,6 +143,7 @@ class GShardDecode:
     total = p_len + t_max
     chunk = self._prefill_chunk if self._prefill_chunk > 0 else p_len
     legacy_prime = self._use_legacy_prime
+    temp, top_k = self._temperature, self._top_k
 
     def _Init(batch_size):
       return task.InitDecodeState(batch_size, total)
@@ -162,12 +168,20 @@ class GShardDecode:
             live_len=start + ids_c.shape[1])
       return chunk_logits[:, -1, :], states
 
-    def _SampleLoop(last_logits, prompt_lens, states):
-      """Greedy draws fed back t_max times -> continuations [B, t_max]."""
+    def _SampleLoop(last_logits, prompt_lens, key, states):
+      """Draws fed back t_max times -> continuations [B, t_max]; row i of
+      step t draws from FoldIn(Split(key, t_max)[t], i)."""
       cache_paddings = _CachePaddings(prompt_lens)
+      keys = rows = None
+      if temp > 0.0:   # greedy draws nothing at random
+        keys = threefry.Split(key, t_max)
+        rows = torch.arange(last_logits.shape[0], dtype=torch.int32,
+                            device=last_logits.device)
       logits, out = last_logits, []
-      for _ in range(t_max):
-        nxt = sampling.SampleFromLogits(logits)
+      for t in range(t_max):
+        nxt = sampling.SampleFromLogits(
+            logits, None if keys is None else keys[t], temp, top_k,
+            row_seeds=rows)
         out.append(nxt)
         logits, states = task.ExtendStep(nxt[:, None], states,
                                          cache_paddings=cache_paddings)
@@ -243,7 +257,8 @@ class GShardDecode:
                                        lens_dev, states)
       self._Sync()
       t1 = time.perf_counter()
-      out = sample_fn(last_logits, lens_dev, states)
+      out = sample_fn(last_logits, lens_dev, threefry.PRNGKey(restored),
+                      states)
       self._Sync()
       t2 = time.perf_counter()
     out = out.cpu().numpy()

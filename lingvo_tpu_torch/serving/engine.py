@@ -13,13 +13,22 @@ Two step modes, as in the reference:
 - 'ragged' (the default): every iteration packs its work onto one [T]
   token axis (core/ragged.py): a decode row contributes 1 token, a
   prefilling row a token-budgeted prompt chunk, with T = max_batch +
-  prefill_chunk fixed at construction, as in the reference's one
-  compiled step; the attention read is the ragged kernel.
+  prefill_token_budget fixed at construction, as in the reference's one
+  compiled step; the attention read is the ragged kernel. Every token is
+  sampled with its row's stream; the commit reads the token it needs.
 - 'legacy': every iteration is a [B, C] step through `PagedStep`
   (scheduler.BuildStep): C = 1 when every live row decodes, and the
   attention read is the block-decode kernel (ops/block_decode.py); C =
   prefill_chunk when a row is still prefilling, and the read is the plain
-  `BlockPrefill`. Greedy draws are taken per column.
+  `BlockPrefill`. Every column is sampled with its row's stream.
+
+Sampling (core/sampling.py): temperature 0 (the default) is the argmax.
+With temperature > 0 (and an optional top_k) each request samples from
+its own stream: the draw at output position t of a request with seed s
+is a pure function of (engine sample_seed, s, t), so a continuation is
+replayable whichever slot or batch neighbours the scheduler gave it. On
+the card the draw is one launch of the sampling kernel a step
+(ops/sample_tokens.py).
 
 The device pools are updated in place; admission and retirement only
 rewrite the int32 block tables between steps.
@@ -46,15 +55,23 @@ step, the tied logits included, runs the int8 matmul
 float engine or a trainer on the same task computes what it did. `Stats()`
 reports `serve_int8_weights`.
 
-Ported: both step modes, fifo scheduling, greedy sampling, float32,
-bfloat16 and int8 KV pools, int8 weights. Speculative decoding, the prefix
-cache, priority scheduling and temperature > 0 raise NotImplementedError
-naming the slice that brings them; so does int8 serving of a stack with
-SSM mixers, which the reference cannot run either.
+`UpdateTheta(theta)` swaps the served weights between steps: the new
+values are copied into the task's parameters in place (and the int8
+rewrite is redone under `serve_int8_weights`); in-flight sequences go on
+under the new weights, as in the reference.
+
+Ported: both step modes, fifo scheduling, greedy and seeded temperature /
+top-k sampling, float32, bfloat16 and int8 KV pools, int8 weights,
+cancellation, the hot weight swap and the prefill token budget.
+Speculative decoding, the prefix cache and priority scheduling raise
+NotImplementedError naming the slice that brings them; so does int8
+serving of a stack with SSM mixers, which the reference cannot run
+either.
 
 Two front doors, as in the reference:
 - async: `Start()` + `Submit(prompt, max_new) -> StreamHandle`, tokens
-  stream out per request as they are committed; `Stop()` drains.
+  stream out per request as they are committed; `Cancel()` mid-flight;
+  `Stop()` drains, `Stop(drain=False)` cancels what is left.
 - sync: `RunBatch(prompts, prompt_lens)` drives the loop inline and
   returns `[B, max_new]` outputs in submission order.
 """
@@ -73,6 +90,8 @@ import torch
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import ragged as ragged_lib
 from lingvo_tpu_torch.core import sampling
+from lingvo_tpu_torch.core import threefry
+from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.quant import kv as kv_quant
 from lingvo_tpu_torch.quant import weights as quant_weights
 from lingvo_tpu_torch.serving import kv_cache
@@ -85,8 +104,9 @@ _END = object()   # stream sentinel
 class StreamHandle:
   """Per-request streaming output + lifecycle handle."""
 
-  def __init__(self, req_id, submit_time: float):
+  def __init__(self, req_id, engine, submit_time: float):
     self.id = req_id
+    self._engine = engine
     self._q = queue.Queue()
     self._tokens = []
     self._done = threading.Event()
@@ -123,6 +143,13 @@ class StreamHandle:
       raise TimeoutError(f"request {self.id!r} still running")
     return list(self._tokens)
 
+  def Cancel(self) -> bool:
+    return self._engine.Cancel(self.id)
+
+  @property
+  def done(self) -> bool:
+    return self._done.is_set()
+
 
 _COUNTER_KEYS = ("steps", "decode_steps", "mixed_steps", "tokens_emitted",
                  "prompt_tokens", "quantized_steps")
@@ -134,19 +161,25 @@ class ServingLoop:
   def __init__(self, task, *, page_size: int, num_pages: int,
                max_batch: int, max_seq_len: int, prefill_chunk: int = 8,
                default_max_new: int = 32, eos_id: Optional[int] = None,
-               temperature: float = 0.0,
+               temperature: float = 0.0, top_k: int = 0,
+               sample_seed: int = 0,
                kv_cache_dtype: Optional[str] = None,
                serve_int8_weights: bool = False, spec=None,
                prefix_cache=None, step_mode: str = "ragged",
+               prefill_token_budget: Optional[int] = None,
                scheduler_mode: str = "fifo", device=None):
     """task: a TransformerLm (exposing InitPagedDecodeState, RaggedStep
     and PagedStep) that holds its weights on `device`. num_pages:
     allocator-owned pages (the device pool gets one extra trash page).
     max_seq_len: static per-sequence capacity (block-table width =
-    ceil(max_seq_len / page_size)). prefill_chunk: prompt tokens a ragged
-    step packs beyond one token per slot (the reference's default
-    prefill_token_budget), and the width C of a legacy mixed step.
+    ceil(max_seq_len / page_size)). prefill_chunk: the width C of a
+    legacy mixed step, and the default prefill_token_budget.
+    temperature / top_k / sample_seed: sampling controls (the module
+    docstring); temperature <= 0 is the argmax and draws nothing.
     step_mode: 'ragged' or 'legacy' (see the module docstring).
+    prefill_token_budget: ragged mode only, the prompt tokens the packed
+    step reserves beyond one token per slot (None: prefill_chunk); decode
+    capacity left idle by empty slots flows to prefill on top of it.
     kv_cache_dtype: overrides the task's layer-level kv_cache_dtype for
     this engine's page pool (None keeps it): 'float32', 'bfloat16', or
     'int8' (quantize-on-write pages with scale sidecars).
@@ -167,10 +200,6 @@ class ServingLoop:
       raise NotImplementedError(
           f"scheduler_mode={scheduler_mode!r} comes with the priority-"
           "scheduling slice; the port schedules fifo")
-    if temperature > 0.0:
-      raise NotImplementedError(
-          "temperature > 0 sampling comes with a later serving slice; the "
-          "port samples greedily")
     if task.fprop_dtype != torch.float32:
       raise NotImplementedError(
           f"serving at fprop_dtype={task.fprop_dtype} comes with ROADMAP "
@@ -200,6 +229,9 @@ class ServingLoop:
     self.default_max_new = default_max_new
     self.eos_id = eos_id
     self.temperature = float(temperature)
+    self.top_k = int(top_k)
+    self.sample_seed = int(sample_seed)
+    self._key = threefry.PRNGKey(self.sample_seed)   # on the host
     # KV census before allocating: the effective pool dtype prices a page
     # by the attention layers' K/V and scale sidecars only, never by the
     # SSM slot states
@@ -226,9 +258,10 @@ class ServingLoop:
         needs_kv_pages=self.mixers["num_attention"] > 0,
         state_pool=self.state_pool)
     # unified ragged step geometry: one token per slot (every decode row)
-    # plus the prefill token budget (prefill_chunk); wmax is the widest row
-    self._ragged_t = max_batch + prefill_chunk
-    self._ragged_wmax = prefill_chunk
+    # plus the prefill token budget; wmax is the widest row
+    self.prefill_token_budget = int(prefill_token_budget or prefill_chunk)
+    self._ragged_t = max_batch + self.prefill_token_budget
+    self._ragged_wmax = max(1, self.prefill_token_budget)
     # what the step's paged attention lowers to: the CUDA kernel or the
     # plain version, '-int8' on an int8 pool (the reference's
     # _ClassifyPath); 'ssm' = no attention layer, the page pool is unused
@@ -240,6 +273,9 @@ class ServingLoop:
     self._counters = {k: 0 for k in _COUNTER_KEYS}
     self._handles: dict = {}
     self._lock = threading.RLock()
+    # held by a step's device work and by UpdateTheta's copy (taken before
+    # _lock there; a step never holds both), so a swap lands between steps
+    self._theta_lock = threading.Lock()
     self._work = threading.Condition(self._lock)
     self._thread: Optional[threading.Thread] = None
     self._running = False
@@ -257,11 +293,16 @@ class ServingLoop:
       self._thread.start()
     return self
 
-  def Stop(self, timeout: float = 60.0):
-    """Finishes in-flight and queued work, then stops the loop thread."""
+  def Stop(self, drain: bool = True, timeout: float = 60.0):
+    """drain=True finishes in-flight and queued work first; drain=False
+    cancels it. Then stops the loop thread."""
     with self._lock:
       if not self._running:
         return
+      if not drain:
+        for h in list(self._handles.values()):
+          if not h.done:
+            self.Cancel(h.id)   # RLock: reentrant under self._lock
       self._work.notify_all()
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
@@ -279,14 +320,17 @@ class ServingLoop:
       self._thread = None
 
   def Submit(self, prompt, max_new_tokens: Optional[int] = None,
-             eos_id=_END) -> StreamHandle:
-    """Queues a request; returns its streaming handle immediately."""
+             eos_id=_END, seed: Optional[int] = None) -> StreamHandle:
+    """Queues a request; returns its streaming handle immediately.
+
+    seed: the request's sampling seed (default: its request id), seen only
+    at temperature > 0: the same seed gives the same continuation."""
     max_new = max_new_tokens or self.default_max_new
     eos = self.eos_id if eos_id is _END else eos_id
     with self._lock:
       self._seq_counter += 1
       req_id = self._seq_counter
-      req = scheduler_lib.Request(req_id, prompt, max_new, eos)
+      req = scheduler_lib.Request(req_id, prompt, max_new, eos, seed=seed)
       total = len(req.prompt) + req.max_new
       if self.sched.needs_kv_pages and (
           self.alloc.PagesFor(total) > self.alloc.num_pages):
@@ -294,10 +338,67 @@ class ServingLoop:
             f"request needs {self.alloc.PagesFor(total)} pages; the pool "
             f"only has {self.alloc.num_pages} — it could never be admitted")
       self.sched.Submit(req)
-      handle = StreamHandle(req_id, time.perf_counter())
+      handle = StreamHandle(req_id, self, time.perf_counter())
       self._handles[req_id] = handle
       self._work.notify_all()
     return handle
+
+  def Cancel(self, req_id) -> bool:
+    """Cancels a request: a queued one at once, an admitted one at the
+    next step boundary (its slot and pages come back then, and a token of
+    the step in flight is dropped). Its handle finishes with reason
+    "cancelled". False when it is unknown or already done."""
+    with self._lock:
+      ok = self.sched.Cancel(req_id)
+      if ok:
+        h = self._handles.get(req_id)
+        if h is not None and not h.done:
+          h._Finish("cancelled")
+      return ok
+
+  def UpdateTheta(self, theta, persist_prefix: Optional[bool] = None):
+    """Hot-swaps the served weights. theta: a tree with the structure of
+    the task's `ThetaTree()` (tensors of the parameters' shapes; a repeat
+    stack's leaf a `StackedLeaf` or one tensor stacked on a leading layer
+    axis); its values are copied into the task's parameters in place,
+    between steps.
+    Under serve_int8_weights the int8 rewrite is redone from them; if
+    that raises, every step raises until an UpdateTheta succeeds.
+    In-flight sequences continue under the new weights. persist_prefix
+    belongs to the prefix cache, which the port does not have yet."""
+    if persist_prefix:
+      raise NotImplementedError(
+          "persist_prefix keeps a prefix cache across the swap; the prefix "
+          "cache comes with ROADMAP item 5 of the port")
+    new = dict(NestedMap(theta).FlattenItems())
+    own = dict(self._task.ThetaTree().FlattenItems())
+    if sorted(new) != sorted(own):
+      raise ValueError(
+          f"UpdateTheta takes the task's ThetaTree structure: missing "
+          f"{sorted(set(own) - set(new))}, unknown "
+          f"{sorted(set(new) - set(own))}")
+    for key, prm in own.items():
+      if tuple(new[key].shape) != tuple(prm.shape):
+        raise ValueError(f"UpdateTheta: {key} has shape "
+                         f"{tuple(new[key].shape)}, the task's "
+                         f"{tuple(prm.shape)}")
+    with self._theta_lock, self._lock, torch.no_grad():
+      for key, prm in own.items():
+        if isinstance(prm, base_layer.StackedLeaf):
+          src = new[key]
+          src = src.layers if isinstance(src, base_layer.StackedLeaf) else src
+          for i, layer in enumerate(prm.layers):
+            layer.copy_(torch.as_tensor(src[i]))
+        else:
+          prm.copy_(torch.as_tensor(new[key]))
+      if self.serve_int8_weights:
+        # one int8 copy on the card at a time: the old one goes first, and
+        # until the new one is built every step raises (_CheckServed)
+        # rather than serve the float parameters
+        self._served = None
+        self._served = base_layer.ServedTheta(
+            self._task,
+            quant_weights.Int8ServingTheta(self._task.ThetaTree())[0])
 
   def _Loop(self):
     while True:
@@ -314,22 +415,28 @@ class ServingLoop:
   def StepOnce(self) -> int:
     """One admit -> device step -> commit iteration through the step
     mode's program; returns the number of committed-token events."""
+    self._CheckServed()   # before the step takes anything from the queue
     if self.step_mode == "legacy":
       return self._StepOnceLegacy()
     with self._lock:
+      self.sched.EvictCancelled()
       self.sched.Admit()
       batch = self.sched.BuildRaggedStep(self._ragged_t, self._ragged_wmax)
       if batch is None:
         return 0
       tables = np.array(self.sched.block_tables)  # freeze under the lock
     dev = self.device
-    rows = ragged_lib.ToTorch(batch.rows_desc, dev)
-    with torch.no_grad(), self._Theta():
+    desc = batch.rows_desc
+    rows = ragged_lib.ToTorch(desc, dev)
+    folds = self._Folds(batch)
+    with self._theta_lock, torch.no_grad(), self._Theta():
       logits, self._states = self._task.RaggedStep(
           torch.as_tensor(batch.tok_ids).to(dev)[None], self._states,
           torch.as_tensor(tables).to(dev), rows)
-      sampled = sampling.SampleFromLogits(logits[0],
-                                          temperature=self.temperature)
+      # every token samples with its row's (seed, output position) stream
+      if folds is not None:
+        folds = folds[torch.clamp(rows.row_of.long(), 0, self.max_batch - 1)]
+      sampled = self._Sample(logits[0], folds)
     sampled = sampled.cpu().numpy()
     with self._lock:
       events = self.sched.CommitRaggedStep(batch, sampled)
@@ -338,31 +445,65 @@ class ServingLoop:
 
   def _StepOnceLegacy(self) -> int:
     """One admit -> [B, C] PagedStep -> commit iteration (the reference
-    `_StepOnceLegacy`, without speculation): greedy draws per column."""
+    `_StepOnceLegacy`, without speculation): a draw per column."""
     with self._lock:
+      self.sched.EvictCancelled()
       self.sched.Admit()
       batch = self.sched.BuildStep(self.prefill_chunk)
       if batch is None:
         return 0
       tables = np.array(self.sched.block_tables)  # freeze under the lock
     on_dev = lambda a: torch.as_tensor(a).to(self.device)
-    with torch.no_grad(), self._Theta():
+    folds = self._Folds(batch)
+    with self._theta_lock, torch.no_grad(), self._Theta():
       logits, self._states = self._task.PagedStep(
           on_dev(batch.ids), self._states, on_dev(tables),
           on_dev(batch.q_pos), on_dev(batch.in_len))
-      sampled = sampling.SampleFromLogits(logits,
-                                          temperature=self.temperature)
+      # every column samples with its row's stream; the commit reads one
+      if folds is not None:
+        folds = folds[:, None].expand(-1, logits.shape[1], -1)
+      sampled = self._Sample(logits, folds)
     sampled = sampled.cpu().numpy()
     with self._lock:
       events = self.sched.CommitStep(batch, sampled)
       self._Count(batch, events)
     return len(events)
 
+  def _Folds(self, batch):
+    """The step's sampling streams on the device, [B, 2] int32 (each
+    row's seed and output position), or None at temperature 0. One copy,
+    made with the step's other inputs before the forward is enqueued, so
+    that it does not wait on the forward."""
+    if self.temperature <= 0.0:
+      return None
+    folds = np.stack([batch.row_seeds, batch.row_pos], axis=1)
+    return torch.as_tensor(folds.astype(np.int32)).to(self.device)
+
+  def _Sample(self, logits, folds):
+    """Draws every row of logits [..., V]: the argmax at temperature 0,
+    else one seeded draw per row with its stream, folds [..., 2] (seed,
+    position) on the device."""
+    if folds is None:
+      return sampling.SampleFromLogits(logits)
+    return sampling.SampleFromLogits(
+        logits, self._key, self.temperature, self.top_k,
+        row_seeds=folds[..., 0], positions=folds[..., 1])
+
   def _Theta(self):
     """The context a step runs in: the int8 serving theta active, or the
     task's own parameters."""
-    return (self._served.Active() if self._served is not None
-            else contextlib.nullcontext())
+    if not self.serve_int8_weights:
+      return contextlib.nullcontext()
+    self._CheckServed()
+    return self._served.Active()
+
+  def _CheckServed(self):
+    """Raises while an int8-serving engine has no int8 theta (its last
+    UpdateTheta failed to rebuild it)."""
+    if self.serve_int8_weights and self._served is None:
+      raise RuntimeError(
+          "the engine serves int8 weights and the int8 rewrite of the last "
+          "UpdateTheta failed; call UpdateTheta again")
 
   def _Count(self, batch, events):
     """Counts a committed step and streams its events (caller holds the

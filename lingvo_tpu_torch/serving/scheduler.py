@@ -22,10 +22,17 @@ admit -> build -> (device step) -> commit:
   first generated token is the draw at the last prompt token), append
   decode tokens, retire sequences on max_new/EOS and free their slot and
   pages.
+- Every step carries each row's sampling stream: `row_seeds` (the
+  request's seed) and `row_pos` (its tokens generated so far), so a
+  request's draw at output position t is a function of (engine seed,
+  request seed, t) alone, whichever slot or step decodes it.
+- `Cancel` retires a queued request at once and marks an admitted one
+  cancelled; `EvictCancelled`, called before `Admit`, frees the slots and
+  pages of those, and a commit drops their tokens.
 
-Priority scheduling, prefix sharing, speculative rows and cancellation
-come with later serving slices. The scheduler is device-free (Python +
-numpy), as in the reference.
+Priority scheduling, prefix sharing and speculative rows come with later
+serving slices. The scheduler is device-free (Python + numpy), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -45,13 +52,18 @@ class SeqState(enum.Enum):
   PREFILL = "prefill"
   DECODE = "decode"
   FINISHED = "finished"
+  CANCELLED = "cancelled"
 
 
 class Request:
-  """One user request: prompt ids + generation budget."""
+  """One user request: prompt ids + generation budget.
+
+  seed: the request's sampling seed (its row stream). Defaults to the
+  request id, so a resubmitted request with the same id and seed draws
+  the same continuation; kept modulo 2**31."""
 
   def __init__(self, req_id, prompt, max_new_tokens: int,
-               eos_id: Optional[int] = None):
+               eos_id: Optional[int] = None, seed: Optional[int] = None):
     prompt = [int(t) for t in prompt]
     if not prompt:
       raise ValueError("empty prompt")
@@ -61,6 +73,9 @@ class Request:
     self.prompt = prompt
     self.max_new = int(max_new_tokens)
     self.eos_id = eos_id
+    if seed is None:
+      seed = req_id if isinstance(req_id, int) else abs(hash(req_id))
+    self.seed = int(seed) % (2**31)
 
 
 class Sequence:
@@ -86,25 +101,31 @@ class StepBatch:
   """One [B, C] legacy device step (numpy; the engine moves it on device)."""
 
   def __init__(self, ids, q_pos, in_len, rows, mixed: bool,
-               prompt_tokens: int):
+               prompt_tokens: int, row_seeds, row_pos):
     self.ids = ids          # [B, C] int32
     self.q_pos = q_pos      # [B] int32
     self.in_len = in_len    # [B] int32 (0 = inactive row)
     self.rows = rows        # slot -> Sequence or None, frozen at build time
     self.mixed = mixed      # True if any prefill row rode this step
     self.prompt_tokens = prompt_tokens
+    # sampling inputs: the request's seed and its output index (tokens
+    # generated so far)
+    self.row_seeds = row_seeds  # [B] int32
+    self.row_pos = row_pos      # [B] int32
 
 
 class RaggedBatch:
   """One packed ragged device step (numpy; the engine moves it on device)."""
 
   def __init__(self, tok_ids, rows_desc: ragged.RaggedRows, rows,
-               mixed: bool, prompt_tokens: int):
+               mixed: bool, prompt_tokens: int, row_seeds, row_pos):
     self.tok_ids = tok_ids        # [T] int32 packed token stream
     self.rows_desc = rows_desc    # core/ragged.RaggedRows (numpy members)
     self.rows = rows              # slot -> Sequence or None, frozen at build
     self.mixed = mixed            # True if any prompt token rode this step
     self.prompt_tokens = prompt_tokens
+    self.row_seeds = row_seeds    # [B] int32, as StepBatch
+    self.row_pos = row_pos        # [B] int32
 
 
 class Scheduler:
@@ -133,6 +154,7 @@ class Scheduler:
     self.block_tables = np.zeros((max_slots, table_pages), np.int32)
     self.admitted = 0
     self.finished = 0
+    self.cancelled = 0
     self.rejected_overlong = 0
     self.slots_live_peak = 0
 
@@ -151,7 +173,35 @@ class Scheduler:
     self.waiting.append(seq)
     return seq
 
+  def Cancel(self, req_id) -> bool:
+    """Marks a request cancelled; resources return at the next boundary.
+    False when it is unknown, finished or already cancelled."""
+    seq = self._by_id.get(req_id)
+    if seq is None or seq.state in (SeqState.FINISHED, SeqState.CANCELLED):
+      return False
+    if seq.state is SeqState.QUEUED:
+      self.waiting.remove(seq)
+      self._Retire(seq, SeqState.CANCELLED, "cancelled")
+      self.cancelled += 1
+      return True
+    seq.state = SeqState.CANCELLED   # slot/pages reclaimed by EvictCancelled
+    seq.finish_reason = "cancelled"
+    return True
+
   # -- boundary phases -------------------------------------------------------
+
+  def EvictCancelled(self) -> list:
+    """Frees slots/pages of mid-flight cancellations. Call before Admit."""
+    evicted = []
+    for i, seq in enumerate(self.slots):
+      if seq is not None and seq.state is SeqState.CANCELLED:
+        self.slots[i] = None
+        self.alloc.Free(seq.id)
+        if self.state_pool is not None:
+          self.state_pool.Release(seq.id)
+        self.cancelled += 1
+        evicted.append(seq)
+    return evicted
 
   def Admit(self) -> list:
     """Admits waiting requests (fifo, the only mode ported)."""
@@ -203,11 +253,15 @@ class Scheduler:
     ids = np.zeros((b, c), np.int32)
     q_pos = np.zeros((b,), np.int32)
     in_len = np.zeros((b,), np.int32)
+    row_seeds = np.zeros((b,), np.int32)
+    row_pos = np.zeros((b,), np.int32)
     prompt_tokens = 0
     for i, seq in enumerate(rows):
       if seq is None:
         continue
       q_pos[i] = seq.pos
+      row_seeds[i] = seq.req.seed
+      row_pos[i] = len(seq.out)
       if seq.state is SeqState.PREFILL:
         n = min(c, seq.prompt_remaining)
         ids[i, :n] = seq.req.prompt[seq.pos:seq.pos + n]
@@ -216,7 +270,8 @@ class Scheduler:
       else:   # DECODE: feed the last draw (writes it to the cache)
         ids[i, 0] = seq.out[-1]
         in_len[i] = 1
-    return StepBatch(ids, q_pos, in_len, rows, mixed, prompt_tokens)
+    return StepBatch(ids, q_pos, in_len, rows, mixed, prompt_tokens,
+                     row_seeds, row_pos)
 
   def CommitStep(self, batch: StepBatch, sampled: np.ndarray) -> list:
     """Folds one legacy step's draws [B, C] back in: a finishing prefill
@@ -224,8 +279,8 @@ class Scheduler:
     Returns [(request_id, token, finished)] events in slot order."""
     events = []
     for i, seq in enumerate(batch.rows):
-      if seq is None:
-        continue
+      if seq is None or seq.state is SeqState.CANCELLED:
+        continue   # cancelled mid-step: drop the token, evict at boundary
       if seq.state is SeqState.PREFILL:
         n = int(batch.in_len[i])
         seq.pos += n
@@ -249,13 +304,16 @@ class Scheduler:
     if not done_eos and len(seq.out) < seq.req.max_new:
       return (seq.id, tok, False)
     self.slots[i] = None
-    self.alloc.Free(seq.id)
-    if self.state_pool is not None:
-      self.state_pool.Release(seq.id)
     self.finished += 1
-    seq.state = SeqState.FINISHED
-    seq.finish_reason = "eos" if done_eos else "length"
+    self._Retire(seq, SeqState.FINISHED, "eos" if done_eos else "length")
     return (seq.id, tok, True)
+
+  def _Retire(self, seq: Sequence, state: SeqState, reason: str):
+    seq.state = state
+    seq.finish_reason = reason
+    self.alloc.Free(seq.id)   # idempotent
+    if self.state_pool is not None:
+      self.state_pool.Release(seq.id)   # idempotent
 
   # -- unified ragged step ----------------------------------------------------
 
@@ -273,11 +331,15 @@ class Scheduler:
     b = self.max_slots
     row_len = np.zeros((b,), np.int32)
     row_q_pos = np.ones((b,), np.int32)  # empty slot: 1 (reference layout)
+    row_seeds = np.zeros((b,), np.int32)
+    row_pos = np.zeros((b,), np.int32)
     budget = t
     for i, seq in enumerate(rows):
       if seq is None:
         continue
       row_q_pos[i] = seq.pos
+      row_seeds[i] = seq.req.seed
+      row_pos[i] = len(seq.out)
       if seq.state is SeqState.DECODE:
         row_len[i] = 1
         budget -= 1
@@ -301,7 +363,8 @@ class Scheduler:
         tok_ids[cols] = seq.req.prompt[seq.pos:seq.pos + n]
       else:
         tok_ids[cols[0]] = seq.out[-1]   # feeds (and caches) the last draw
-    return RaggedBatch(tok_ids, desc, rows, prompt_tokens > 0, prompt_tokens)
+    return RaggedBatch(tok_ids, desc, rows, prompt_tokens > 0, prompt_tokens,
+                       row_seeds, row_pos)
 
   def CommitRaggedStep(self, batch: RaggedBatch,
                        sampled_tok: np.ndarray) -> list:
@@ -313,8 +376,8 @@ class Scheduler:
     events = []
     desc = batch.rows_desc
     for i, seq in enumerate(batch.rows):
-      if seq is None:
-        continue
+      if seq is None or seq.state is SeqState.CANCELLED:
+        continue   # cancelled mid-step: drop the tokens, evict at boundary
       n = int(desc.row_len[i])
       if seq.state is SeqState.PREFILL:
         if n == 0:
@@ -343,6 +406,7 @@ class Scheduler:
         "queue_depth": len(self.waiting),
         "admitted": self.admitted,
         "finished": self.finished,
+        "cancelled": self.cancelled,
         "rejected_overlong": self.rejected_overlong,
         "slots_live_peak": self.slots_live_peak,
         "needs_kv_pages": self.needs_kv_pages,

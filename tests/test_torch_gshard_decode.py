@@ -326,7 +326,6 @@ def test_run_decodes_new_checkpoints_until_finished(checkpoints, tmp_path):
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(temperature=0.7), "ROADMAP item 3"),
     (dict(serve_port=0), "ROADMAP item 11")])
 def test_unported_options_raise(kw, match, tmp_path):
   with pytest.raises(NotImplementedError, match=match):

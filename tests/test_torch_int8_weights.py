@@ -2,8 +2,12 @@
 
 - `Int8QuantizeWeight` bitwise against the reference over 'dv' / 'vd',
   contract_ndim None / 1 / 2, per-tensor, and a weight with an all-zero
-  channel; `Int8Einsum` bitwise over batch dims, a two-axis contraction,
-  a scalar scale and a row whose x / x_scale lands on .5.
+  channel; `Int8Einsum` bitwise against the jitted reference (XLA makes
+  its `amax / 127.0` a product with float32(1 / 127); eager JAX divides,
+  and a control shows the two apart) over batch dims, a two-axis
+  contraction, a scalar scale and a row whose x / x_scale lands on .5.
+  Weight scales are quantized eagerly in the reference, and compared
+  against it eagerly.
 - `Int8ServingTheta` on DenseLmTiny in both modes, leaf for leaf bitwise
   (the repeat stack's per-layer scales stacked against the reference's
   per-repeat ones), and `Int8ServingThetaFromArtifact` on a tree the
@@ -112,7 +116,8 @@ def test_int8_einsum_matches_reference(case):
   x, w, per_channel, layout, k = _EinsumCase(case)
   w8, s = jax_quant.Int8QuantizeWeight(jnp.asarray(w), per_channel, layout,
                                        k)
-  want = jax_quant.Int8Einsum(jnp.asarray(x), w8, s, layout, k)
+  want = jax.jit(jax_quant.Int8Einsum, static_argnums=(3, 4))(
+      jnp.asarray(x), w8, s, layout, k)
   got = quant_utils.Int8Einsum(torch.tensor(x), torch.tensor(np.asarray(w8)),
                                torch.tensor(np.asarray(s)), layout, k)
   np.testing.assert_array_equal(_Np(got), np.asarray(want))
@@ -129,6 +134,26 @@ def test_int8_einsum_matches_reference(case):
         torch.tensor(x).reshape(-1, 16))
     assert x_scale.item() == 1.0
     assert x8[1, :6].tolist() == [2, 4, -2, 0, 0, 126]
+
+
+def test_activation_scales_follow_the_jitted_reference():
+  """200 calls of Int8Einsum on random activations: the port's outputs
+  equal the jitted reference's bit for bit (its activation scale is
+  amax * float32(1 / 127), the product XLA makes of `amax / 127.0`); the
+  control: eager JAX's true division changes the output of some calls."""
+  w = _Rand(16, 12, seed=11)
+  w8, s = jax_quant.Int8QuantizeWeight(jnp.asarray(w), True, "dv", 1)
+  leaf = quant_utils.Int8Weight(torch.tensor(np.asarray(w8)),
+                                torch.tensor(np.asarray(s)), "dv", 1)
+  jitted = jax.jit(jax_quant.Int8Einsum, static_argnums=(3, 4))
+  eager_differs = 0
+  for seed in range(200):
+    x = _Rand(4, 16, seed=100 + seed, scale=3.0)
+    want = np.asarray(jitted(jnp.asarray(x), w8, s, "dv", 1))
+    np.testing.assert_array_equal(_Np(leaf.Einsum(torch.tensor(x))), want)
+    eager = np.asarray(jax_quant.Int8Einsum(jnp.asarray(x), w8, s, "dv", 1))
+    eager_differs += not np.array_equal(eager, want)
+  assert eager_differs > 0
 
 
 def test_int8_weight_keeps_one_k_major_copy():

@@ -1,15 +1,21 @@
 """Quantized KV storage of lingvo_tpu_torch (quant/kv.py and the attention steps) against JAX.
 
-- `QuantizeKv` gives the reference's int8 values and float32 scales bit
-  for bit: random rows, all-zero rows (the 1e-8 scale floor), exact
-  half-steps (round half to even) and +-127 extremes; `DequantKv` too.
+- `QuantizeKv` gives the int8 values and float32 scales of the reference
+  as its jitted serving programs compute them, bit for bit: random rows,
+  all-zero rows (the 1e-8 scale floor), exact half-steps (round half to
+  even) and +-127 extremes; `DequantKv` too. Under jit XLA makes the
+  reference's `amax / 127.0` a product with float32(1 / 127); eager JAX
+  divides. Every bitwise comparison of scales here is against the jitted
+  reference, with a control: the eager reference (true division) differs
+  from it in at least one scale of the same data.
 - `KvBytesPerToken` and the stack census (`StackKvCensus`,
   `MixerCensus`) equal the reference's on a repeat stack, a stack of
   distinct layers and an attention/SSM hybrid, for every pool dtype;
   an unknown dtype name raises ValueError, as in the reference.
 - `MultiHeadedAttention`'s `PagedStep`, `RaggedStep`, `ExtendStep` and
   `Prefill` on int8 and bfloat16 storage: the pools, caches and scale
-  sidecars equal the reference's bit for bit after the steps (the pools'
+  sidecars equal the jitted reference's bit for bit after the steps (the
+  pools'
   last page, the trash page that padding tokens write in an unspecified
   order, excepted), and the outputs are within 2e-5. The layer runs
   without rotary, on weights and inputs that are small multiples of
@@ -34,6 +40,7 @@ from lingvo_tpu.quant import kv as jax_kv
 from lingvo_tpu.serving import spec_decode as jax_spec_decode
 from lingvo_tpu_torch import convert
 from lingvo_tpu_torch.core import attention
+from lingvo_tpu_torch.core import jit_arith
 from lingvo_tpu_torch.core import ragged
 from lingvo_tpu_torch.ops import block_decode
 from lingvo_tpu_torch.ops import ragged_block_attend
@@ -83,7 +90,7 @@ class TestQuantizeKv:
                                     "extremes"])
   def test_bitwise_equal_to_reference(self, case):
     x = _Rows(case)
-    j_q, j_s = jax_kv.QuantizeKv(jnp.asarray(x))
+    j_q, j_s = jax.jit(jax_kv.QuantizeKv)(jnp.asarray(x))
     t_q, t_s = kv_quant.QuantizeKv(torch.as_tensor(x))
     assert t_q.dtype == torch.int8 and t_s.dtype == torch.float32
     np.testing.assert_array_equal(t_q.numpy(), np.asarray(j_q))
@@ -96,6 +103,22 @@ class TestQuantizeKv:
     if case == "half_steps":   # ties to even: -2.5 -> -2, 3.5 -> 4
       np.testing.assert_array_equal(t_q[0, 0, 1:].numpy(),
                                     [-2, -2, 0, 0, 2, 2, 4])
+
+  def test_scales_follow_the_jitted_reference(self):
+    """On [256, 16, 128] rows the port's scales equal the jitted
+    reference's; the control: eager JAX's true division differs from
+    them in some scales, so the comparison tells the two apart."""
+    x = (np.random.RandomState(5).randn(256, 16, 128) * 3).astype(np.float32)
+    j_q, j_s = jax.jit(jax_kv.QuantizeKv)(jnp.asarray(x))
+    t_q, t_s = kv_quant.QuantizeKv(torch.as_tensor(x))
+    np.testing.assert_array_equal(_Bits(t_s), _Bits(j_s))
+    np.testing.assert_array_equal(t_q.numpy(), np.asarray(j_q))
+    _, e_s = jax_kv.QuantizeKv(jnp.asarray(x))
+    assert (_Bits(e_s) != _Bits(j_s)).sum() > 0
+    np.testing.assert_array_equal(
+        _Bits(j_s), _Bits(np.maximum(
+            np.abs(x).max(-1) * np.float32(jit_arith.INV_127),
+            np.float32(1e-8))))
 
   @pytest.mark.parametrize("dtype", [None, "float32", "bfloat16", "int8"])
   @pytest.mark.parametrize("n, h", [(2, 16), (16, 128)])
@@ -184,6 +207,19 @@ def _AssertPoolsBitwise(j_states, t_states, trash_page=True):
     np.testing.assert_array_equal(t_bits, j_bits, err_msg=key)
 
 
+def _AssertScalesTellJitFromEager(dtype, j_states, e_states):
+  """The control of an int8 comparison: the eager reference's scale
+  sidecars (true divisions) differ from the jitted reference's in at
+  least one element, so matching the jitted ones is a real test."""
+  if dtype != "int8":
+    return
+  j_items = dict(j_states.FlattenItems())
+  e_items = dict(e_states.FlattenItems())
+  differ = sum(int((_Bits(j_items[k]) != _Bits(e_items[k])).sum())
+               for k in j_items if k.endswith("_scale"))
+  assert differ > 0
+
+
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
 def test_paged_step_pools_bitwise(dtype):
   """A mixed [3, 5] step (prefill from 0, a row mid-prompt, an idle
@@ -196,19 +232,23 @@ def test_paged_step_pools_bitwise(dtype):
   j_states = layer.InitPagedStates(theta, n_pages + 1, page,
                                    kv_cache_dtype=dtype)
   t_states = port.InitPagedStates(n_pages + 1, page, kv_cache_dtype=dtype)
+  e_states = j_states
   assert ("key_scale" in t_states) == (dtype == "int8")
+  step = jax.jit(layer.PagedStep)
   for c, q_pos, in_len in ((5, [0, 4, 0], [5, 3, 0]),
                            (1, [5, 7, 0], [1, 1, 0])):
     x = _Dyadic((b, c, 32), rng, 8, 8)
     args = [np.asarray(a, np.int32) for a in (tables, q_pos, in_len)]
-    j_out, j_states = layer.PagedStep(theta, jnp.asarray(x), j_states,
-                                      *(jnp.asarray(a) for a in args))
+    j_args = [jnp.asarray(a) for a in args]
+    j_out, j_states = step(theta, jnp.asarray(x), j_states, *j_args)
+    _, e_states = layer.PagedStep(theta, jnp.asarray(x), e_states, *j_args)
     t_out, t_states = port.PagedStep(torch.as_tensor(x), t_states,
                                      *(torch.as_tensor(a) for a in args))
     valid = np.arange(c)[None] < np.asarray(in_len)[:, None]
     np.testing.assert_allclose(t_out.numpy()[valid],
                                np.asarray(j_out)[valid], atol=ATOL)
     _AssertPoolsBitwise(j_states, t_states)
+  _AssertScalesTellJitFromEager(dtype, j_states, e_states)
 
 
 @pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
@@ -222,12 +262,15 @@ def test_ragged_step_pools_bitwise(dtype):
   j_states = layer.InitPagedStates(theta, n_pages + 1, page,
                                    kv_cache_dtype=dtype)
   t_states = port.InitPagedStates(n_pages + 1, page, kv_cache_dtype=dtype)
+  e_states = j_states
+  step = jax.jit(layer.RaggedStep)
   for row_lens, q_pos in (([6, 9, 0], [0, 0, 1]), ([1, 4, 2], [6, 9, 0])):
     rows = jax_ragged.BuildRaggedRows(row_lens, q_pos, 16, 9)
     x = _Dyadic((1, 16, 32), rng, 8, 8)
-    j_out, j_states = layer.RaggedStep(
-        theta, jnp.asarray(x), j_states, jnp.asarray(tables),
-        jax_ragged.RaggedRows(*(jnp.asarray(m) for m in rows)))
+    j_args = (jnp.asarray(tables),
+              jax_ragged.RaggedRows(*(jnp.asarray(m) for m in rows)))
+    j_out, j_states = step(theta, jnp.asarray(x), j_states, *j_args)
+    _, e_states = layer.RaggedStep(theta, jnp.asarray(x), e_states, *j_args)
     t_out, t_states = port.RaggedStep(torch.as_tensor(x), t_states,
                                       torch.as_tensor(tables),
                                       ragged.ToTorch(rows, "cpu"))
@@ -235,6 +278,7 @@ def test_ragged_step_pools_bitwise(dtype):
     np.testing.assert_allclose(t_out.numpy()[0, valid],
                                np.asarray(j_out)[0, valid], atol=ATOL)
     _AssertPoolsBitwise(j_states, t_states)
+  _AssertScalesTellJitFromEager(dtype, j_states, e_states)
 
 
 @pytest.mark.parametrize("page", [4, 0])
@@ -254,11 +298,15 @@ def test_prefill_and_extend_step_caches_bitwise(dtype, page):
   pad[2, :5] = 1.0
   j_states = layer.InitStates(theta, b, max_len)
   t_states = port.InitStates(b, max_len)
+  e_states = j_states
   assert ("key_scale" in t_states) == (dtype == "int8")
+  prefill, extend = jax.jit(layer.Prefill), jax.jit(layer.ExtendStep)
   for start, c in ((0, 3), (3, 4)):
     x = _Dyadic((b, c, 32), rng, 8, 8)
-    j_out, j_states = layer.Prefill(theta, jnp.asarray(x), j_states,
-                                    paddings=jnp.asarray(pad))
+    j_out, j_states = prefill(theta, jnp.asarray(x), j_states,
+                              paddings=jnp.asarray(pad))
+    _, e_states = layer.Prefill(theta, jnp.asarray(x), e_states,
+                                paddings=jnp.asarray(pad))
     t_out, t_states = port.Prefill(torch.as_tensor(x), t_states,
                                    paddings=torch.as_tensor(pad))
     live = pad[:, start:start + c] < 0.5
@@ -266,13 +314,16 @@ def test_prefill_and_extend_step_caches_bitwise(dtype, page):
                                atol=ATOL)
   for _ in range(3):
     x = _Dyadic((b, 1, 32), rng, 8, 8)
-    j_out, j_states = layer.ExtendStep(theta, jnp.asarray(x), j_states,
-                                       paddings=jnp.asarray(pad))
+    j_out, j_states = extend(theta, jnp.asarray(x), j_states,
+                             paddings=jnp.asarray(pad))
+    _, e_states = layer.ExtendStep(theta, jnp.asarray(x), e_states,
+                                   paddings=jnp.asarray(pad))
     t_out, t_states = port.ExtendStep(torch.as_tensor(x), t_states,
                                       paddings=torch.as_tensor(pad))
     np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), atol=ATOL)
   assert t_states.time_step == int(j_states.time_step) == 10
   _AssertPoolsBitwise(j_states, t_states, trash_page=False)
+  _AssertScalesTellJitFromEager(dtype, j_states, e_states)
 
 
 def test_int8_pages_bitwise_after_reuse():

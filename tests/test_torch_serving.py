@@ -266,7 +266,6 @@ def test_entry_points_raise_without_cuda():
     (dict(prefix_cache=True), "prefix cache"),
     (dict(scheduler_mode="priority"), "priority"),
     (dict(step_mode="legacy", spec=object()), "speculative"),
-    (dict(temperature=0.7), "temperature"),
 ])
 def test_unported_engine_features_raise(kw, match):
   lm = synthetic_packed_input.DenseLmTiny().Task().Instantiate(device="cpu")
@@ -320,4 +319,4 @@ def test_port_imports_neither_jax_nor_lingvo_tpu():
   res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
   assert res.returncode == 0, res.stderr
-  assert int(res.stdout.strip().splitlines()[-1]) >= 48
+  assert int(res.stdout.strip().splitlines()[-1]) >= 50
