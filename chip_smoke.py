@@ -107,7 +107,7 @@
    geometry and requests. Checks exactly 24 block-decode launches per
    decode-only step and none on mixed steps, no other kernel, and streams
    equal to phase 5's ragged streams; prints ms/step, tok/s and the
-   profiled busy split.
+   profiled busy split of 4 decode-only steps.
 13. GShardDecode main path: DenseLmTiny (decode_page_size 4) on the card
    must reproduce its CPU continuations from one port checkpoint; then
    DenseLm1B with decode_page_size 128: its random weights are written as
@@ -162,7 +162,8 @@
    bfloat16 legacy, every other count 0 and quantized_steps equal to the
    steps for int8; each step mode first serves float32 pools again, the
    same process's baseline at that point. Prints ms/step, tok/s, peak
-   memory, kv_bytes_per_token and pool bytes, the int8 runs' profiles, and
+   memory, kv_bytes_per_token and pool bytes, the int8 runs' profiles (of
+   decode-only steps in legacy mode), and
    (information only) how many of the 8 streams equal phase 5's.
 17. GShardDecode on quantized caches: DenseLmTiny with a bfloat16 and an
    int8 cache, card against CPU continuations; then DenseLm1B with a
@@ -267,9 +268,41 @@
    division differ: the product, as the reference's jitted step. Prints
    the sampling kernel's element loop in SASS (instructions by class and
    by pipe).
-24. Prints the per-kernel JSON line (every kernel and every int8 /
-   bfloat16 instantiation; the int8 serving kernels and the sampling
-   kernel with "replaces": null), then the result line.
+24. Serving and batch decode at fprop_dtype=bfloat16. The bfloat16-q
+   instantiations of the attention kernels on dyadic q and K: the ragged
+   kernel over float32, bfloat16 and int8 pools (phase 3's main pack, page
+   16, H 128, dead slots poisoned as in phase 14), block decode over the
+   three (phase 10's pool), flash decode over bfloat16 and float32 caches
+   (phase 11's shapes, t 1151 and 700): each output bfloat16, bitwise
+   equal to the float32-q kernel on the widened q rounded to bfloat16
+   (the widening is exact), within one bfloat16 ulp of the plain version
+   (float32 sums in another order, then one rounding; the elements that
+   differ are printed), two calls bitwise equal, padding exactly 0; timed
+   beside the bound (q and out at 2 bytes) and, for flash decode, SDPA on
+   the same bfloat16 tensors. The int8 kernels with bfloat16 x and y at
+   the 145 products (m = 264 and 8): bitwise their float32 runs on the
+   widened x (rounded) and the plain versions, timed. Then DenseLmTiny at
+   bfloat16 on the card against the CPU: two packed steps' logits within
+   TWIN_REL (the card at float32 activations must miss it), and how many
+   greedy streams equal the CPU's (information). Then DenseLm1B at
+   fprop_dtype=bfloat16 with phase 5's weights: the first packed step's
+   logits within a relative L2 gap of 0.1 of the float32 model's; phase
+   5's requests at float32 activations (the baseline of this process),
+   then at bfloat16 through ServingLoop ragged (exactly 24 bfloat16-q
+   ragged launches a step, bfloat16 pools) and legacy (24 bfloat16-q
+   block-decode launches a decode-only step), both profiled (busy,
+   syncs); the shortest request for 8 tokens sampled (T 0.8, top_k 40)
+   over float32 pools, with int8 weights over int8 pools (145 launches of
+   each bfloat16 int8 kernel a step), and legacy over float32 and int8
+   pools: every request completes and every step's logits are finite.
+   GShardDecode from a port checkpoint of the same weights with a
+   bfloat16 cache (3072 bfloat16-q flash-decode launches, 16 steps
+   profiled) and with a float32 cache (3072 of the split and combine
+   kernels' bfloat16-q instantiation). Prints the phase's seconds.
+25. Prints the per-kernel JSON line (every kernel and every int8 /
+   bfloat16 instantiation, and the bfloat16-q ones; the int8 serving
+   kernels and the sampling kernel with "replaces": null), then the
+   result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -303,6 +336,9 @@ INT32_OPS_PER_S = FP32_FLOPS_PER_S / 4
 # 128 lanes a clock, whatever the pipe
 INSTRUCTIONS_PER_S = FP32_FLOPS_PER_S / 2
 TOL = 1e-5
+# the legacy engine's profiled window: its decode-only steps (the mixed
+# steps' plain BlockPrefill makes a profiled window of them cost 60-130 s)
+LEGACY_WINDOWS = ("last",)
 
 
 def _Phase(name):
@@ -310,9 +346,11 @@ def _Phase(name):
 
 
 class _Counts:
-  """The kernels' launch counts by name: name -> (wrapper, pool dtype).
-  A wrapper with per-dtype instantiations counts each in its
-  `launches_by_dtype`; the others count in `launches`."""
+  """The kernels' launch counts by name: name -> (wrapper, dtype). A
+  wrapper with per-dtype instantiations counts each in its
+  `launches_by_dtype` (dtype a name), the attention kernels also by
+  (q dtype, pool dtype) in `launches_by_q_dtype` (dtype a pair); the
+  others count in `launches`."""
 
   def __init__(self, **entries):
     self.entries = entries
@@ -320,15 +358,71 @@ class _Counts:
   def __iter__(self):
     return iter(self.entries)
 
+  @staticmethod
+  def _Table(fn, dtype):
+    """(the dict that holds the count, its key)."""
+    if isinstance(dtype, tuple):
+      return fn.launches_by_q_dtype[dtype[0]], dtype[1]
+    return fn.launches_by_dtype, dtype
+
   def Zero(self):
     for fn, dtype in self.entries.values():
       fn.launches = 0
       if dtype is not None:
-        fn.launches_by_dtype[dtype] = 0
+        table, key = self._Table(fn, dtype)
+        table[key] = 0
 
   def Read(self) -> dict:
-    return {name: fn.launches if dtype is None else fn.launches_by_dtype[dtype]
-            for name, (fn, dtype) in self.entries.items()}
+    out = {}
+    for name, (fn, dtype) in self.entries.items():
+      if dtype is None:
+        out[name] = fn.launches
+      else:
+        table, key = self._Table(fn, dtype)
+        out[name] = table[key]
+    return out
+
+
+def _MakeCounts(rba, ssd, fa, fx, bd, fd, im, st):
+  """Every counted kernel of the port, by name (`_Counts`)."""
+  # float32 launches of the kernels with per-dtype instantiations count
+  # under the plain name; the attention kernels' names without "q_bf16"
+  # are their float32-q instantiations, by pool dtype, those with it the
+  # bfloat16-q ones (fprop_dtype=bfloat16)
+  f32q = lambda kv: ("float32", kv)
+  bf16q = lambda kv: ("bfloat16", kv)
+  return _Counts(
+      ragged_block_attend=(rba.RaggedAttend, f32q("float32")),
+      ragged_block_attend_int8=(rba.RaggedAttend, f32q("int8")),
+      ragged_block_attend_bf16=(rba.RaggedAttend, f32q("bfloat16")),
+      ragged_block_attend_q_bf16=(rba.RaggedAttend, bf16q("bfloat16")),
+      ragged_block_attend_q_bf16_f32pool=(rba.RaggedAttend,
+                                          bf16q("float32")),
+      ragged_block_attend_q_bf16_int8pool=(rba.RaggedAttend, bf16q("int8")),
+      ssd_scan=(ssd.SsdScan, None),
+      flash_attention_fwd=(fa.FlashForward, "float32"),
+      flash_attention_fwd_bf16=(fa.FlashForward, "bfloat16"),
+      flash_attention_dkdv=(fa.FlashDkDv, "float32"),
+      flash_attention_dkdv_bf16=(fa.FlashDkDv, "bfloat16"),
+      flash_attention_dq=(fa.FlashDq, "float32"),
+      flash_attention_dq_bf16=(fa.FlashDq, "bfloat16"),
+      fused_xent_fwd=(fx.FusedXentStats, "float32"),
+      fused_xent_fwd_bf16=(fx.FusedXentStats, "bfloat16"),
+      block_decode=(bd.BlockDecode, f32q("float32")),
+      block_decode_int8=(bd.BlockDecode, f32q("int8")),
+      block_decode_bf16=(bd.BlockDecode, f32q("bfloat16")),
+      block_decode_q_bf16=(bd.BlockDecode, bf16q("bfloat16")),
+      block_decode_q_bf16_f32pool=(bd.BlockDecode, bf16q("float32")),
+      block_decode_q_bf16_int8pool=(bd.BlockDecode, bf16q("int8")),
+      flash_decode=(fd.FlashDecode, f32q("float32")),
+      flash_decode_bf16=(fd.FlashDecode, f32q("bfloat16")),
+      flash_decode_q_bf16=(fd.FlashDecode, bf16q("bfloat16")),
+      flash_decode_q_bf16_f32cache=(fd.FlashDecode, bf16q("float32")),
+      int8_act_quant=(im.QuantizeActivations, "float32"),
+      int8_matmul=(im.Int8Gemm, "float32"),
+      int8_act_quant_bf16=(im.QuantizeActivations, "bfloat16"),
+      int8_matmul_bf16=(im.Int8Gemm, "bfloat16"),
+      sample_tokens=(st.SampleTokens, None))
 
 
 def _Check(ok, msg):
@@ -1605,10 +1699,12 @@ def _KernelNodes(torch, fn):
   return kernels, count.value
 
 
-def _Profile(torch, eng, prompts, steps, window=4):
+def _Profile(torch, eng, prompts, steps, window=4,
+             windows=("first", "last")):
   """Serves the same requests again, stepping inline, and profiles only
   two windows of `window` steps: the first (prefill chunks beside decode
-  rows) and the last (decode only) of the `steps` the schedule takes.
+  rows) and the last (decode only) of the `steps` the schedule takes, or
+  those of them named in `windows`.
   Prints, per window, device busy ms per step and its share of the wall,
   the shares of the GEMMs, the scan kernel, the attention kernel (ragged
   or block-decode) and the rest, the top kernels, the top host ops by
@@ -1621,6 +1717,8 @@ def _Profile(torch, eng, prompts, steps, window=4):
   done = 0
   syncs = {}
   for label, start in (("first", 0), ("last", steps - window)):
+    if label not in windows:
+      continue
     while done < start:
       eng.StepOnce()
       done += 1
@@ -1645,8 +1743,8 @@ def _Profile(torch, eng, prompts, steps, window=4):
     scan = sum(_DevUs(e) for e in kernels if "SsdScan" in e.key) / 1e3
     int8 = sum(_DevUs(e) for e in kernels if "Int8" in e.key) / 1e3
     sample = sum(_DevUs(e) for e in kernels if "SampleTokens" in e.key) / 1e3
-    gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and (
-        "gemm" in e.key.lower() or "cutlass" in e.key.lower())) / 1e3
+    gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and any(
+        n in e.key.lower() for n in ("gemm", "cutlass", "nvjet"))) / 1e3
     rest = busy_ms - attn - scan - gemm - int8 - sample
     print(f"profiled the {label} {window} of {steps} steps: device busy "
           f"{busy_ms / window:.2f} ms/step ({busy_ms / wall_ms:.1%} of the "
@@ -1681,10 +1779,11 @@ def _Requests(cfg):
   return lens, [prng.randint(0, cfg.VOCAB_SIZE, size=n) for n in lens]
 
 
-def _ServingLm(torch, cfg):
-  """cfg's Task at full width and depth on the card, random weights from
-  torch.Generator("cuda") seed 0 (the same weights on every call)."""
-  lm = cfg.Task().Instantiate(device="cuda")
+def _ServingLm(torch, cfg, fprop_dtype=None):
+  """cfg's Task at full width and depth on the card (at `fprop_dtype`),
+  random weights from torch.Generator("cuda") seed 0 (the same weights on
+  every call)."""
+  lm = cfg.Task().Set(fprop_dtype=fprop_dtype).Instantiate(device="cuda")
   lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
   return lm
 
@@ -1692,10 +1791,11 @@ def _ServingLm(torch, cfg):
 def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
                step_mode="ragged", kv_cache_dtype=None, lm=None,
                profile=True, syncs=None, serve_int8_weights=False,
-               sample=None, seeds=None, order=None):
+               sample=None, seeds=None, order=None, max_new=32,
+               windows=("first", "last")):
   """cfg's Task (`lm`, or `_ServingLm(cfg)`) through ServingLoop in
   `step_mode` with `kv_cache_dtype` pools: 8 requests with prompts of
-  64..768 tokens (numpy seed 1) and 32 new tokens each, through
+  64..768 tokens (numpy seed 1) and `max_new` new tokens each, through
   Start/Submit/Result/Stop, with every kernel count set to 0 just before.
   sample: the engine's sampling arguments (greedy without); seeds: each
   request's seed (default: the request ids); order: the indices of the
@@ -1703,13 +1803,14 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   per_step: {kernel: launches per engine step}; per_decode_step: {kernel:
   launches per decode-only step}; every other counted kernel must launch
   0 times. Then, with `profile`, the profiled re-run (its
-  cudaStreamSynchronize calls per step, by window, into `syncs`).
+  cudaStreamSynchronize calls per step, by window, into `syncs`; the
+  `_Profile` windows named in `windows`).
   serve_int8_weights: the engine serves its int8 rewrite of the weights
   (whose bytes it prints). Returns (the counted run's launches, its steps,
   the streams in `order`, ms per step)."""
   name = type(cfg).__name__
   per_decode_step = per_decode_step or {}
-  t0 = time.perf_counter()
+  t0 = t_call = time.perf_counter()
   lm = lm or _ServingLm(torch, cfg)
   n_params = sum(p.numel() for p in lm.parameters())
   eng = engine.ServingLoop(lm, page_size=16, num_pages=512,
@@ -1722,6 +1823,7 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   pool_bytes = sum(x.numel() * x.element_size()
                    for x in eng._states.Flatten())
   label = f"{name} ({step_mode}, {eng.kv_cache_dtype} KV" + (
+      ", bf16 activations" if lm.fprop_dtype == torch.bfloat16 else "") + (
       ", int8 weights" if serve_int8_weights else "") + (
           f", sampled {sample}" if sample else "") + ")"
   if serve_int8_weights:
@@ -1743,7 +1845,7 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   torch.cuda.reset_peak_memory_stats()
   t0 = time.perf_counter()
   eng.Start()
-  handles = [eng.Submit(prompts[i], 32, eos_id=None,
+  handles = [eng.Submit(prompts[i], max_new, eos_id=None,
                         seed=None if seeds is None else seeds[i])
              for i in order]
   streams = [h.Result(timeout=900) for h in handles]
@@ -1755,7 +1857,7 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   steps = stats["steps"] - stats0["steps"]
   decode_steps = stats["decode_steps"] - stats0["decode_steps"]
   for st in streams:
-    _Check(len(st) == 32 and all(0 <= x < cfg.VOCAB_SIZE for x in st),
+    _Check(len(st) == max_new and all(0 <= x < cfg.VOCAB_SIZE for x in st),
            f"bad stream {st}")
   want = {k: per_step.get(k, 0) * steps
           + per_decode_step.get(k, 0) * decode_steps for k in counters}
@@ -1768,11 +1870,12 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   _Check(quantized == (steps if eng.kv_cache_dtype == "int8" else 0),
          f"{label}: quantized_steps {quantized} of {steps} steps")
   ttft = sorted(h.first_token_time - h.submit_time for h in handles)
-  tpot = [(h.finish_time - h.first_token_time) / 31 for h in handles]
+  tpot = [(h.finish_time - h.first_token_time) / (max_new - 1)
+          for h in handles]
   print(f"{label} served {len(order)} requests (prompts "
         f"{sorted(lens[order].tolist())}): {steps} steps ({decode_steps} "
         f"decode-only), {wall / steps * 1e3:.2f} ms/step, "
-        f"{len(order) * 32 / wall:.1f} generated tok/s, "
+        f"{len(order) * max_new / wall:.1f} generated tok/s, "
         f"{int(lens[order].sum()) / wall:.1f} prompt tok/s, launches "
         f"{ {k: v for k, v in launches.items() if v} } = {per_step} x "
         f"{steps} + {per_decode_step} x {decode_steps}, quantized_steps "
@@ -1782,9 +1885,10 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
         f"{ttft[-1] * 1e3:.1f} ms; time per output token: mean "
         f"{np.mean(tpot) * 1e3:.2f} ms")
   if profile:
-    found = _Profile(torch, eng, prompts, steps)
+    found = _Profile(torch, eng, prompts, steps, windows=windows)
     if syncs is not None:
       syncs.update(found)
+  print(f"{label}: {time.perf_counter() - t_call:.1f} s in all")
   return launches, steps, streams, wall / steps * 1e3
 
 
@@ -2037,8 +2141,8 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
   p_len = 1024 - steps
   init_fn, prefill_fn, sample_fn = decoder._GetDecodeFn(p_len, steps)
   aligned = decoder._RightAlign(arr, lens, width=p_len)
-  theta = (decoder._int8_theta[1].Active() if decoder._int8_theta
-           else contextlib.nullcontext())
+  served = decoder._served[1] if decoder._served else None
+  theta = served.Active() if served else contextlib.nullcontext()
   with torch.no_grad(), theta:
     lens_dev = torch.as_tensor(np.asarray(lens)).cuda()
     last, states = prefill_fn(torch.as_tensor(aligned).cuda(), lens_dev,
@@ -2059,8 +2163,8 @@ def _ProfileDecodeSteps(torch, decoder, arr, lens, steps=16):
   kernels.sort(key=_DevUs, reverse=True)
   fdec = sum(_DevUs(e) for e in kernels if "FlashDecode" in e.key) / 1e3
   int8 = sum(_DevUs(e) for e in kernels if "Int8" in e.key) / 1e3
-  gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and (
-      "gemm" in e.key.lower() or "cutlass" in e.key.lower())) / 1e3
+  gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and any(
+      n in e.key.lower() for n in ("gemm", "cutlass", "nvjet"))) / 1e3
   print(f"profiled {steps} GShardDecode steps (t {p_len}..1023): "
         f"device busy {busy_ms / steps:.2f} ms/step, {busy_ms / wall_ms:.1%}"
         f" of the wall under the profiler ({wall_ms / steps:.2f} ms/step); "
@@ -2112,7 +2216,7 @@ def _CheckTileBits(torch, attention):
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
                 ref_streams, kv_cache_dtype=None, serve_int8_weights=False,
-                sample=None, profile=True):
+                sample=None, profile=True, fprop_dtype=None, steps=128):
   """DenseLm1B (decode_page_size 128) through GShardDecode: DecodeOnce
   over the serving phases' 8 prompts (bucket 1024) for 128 tokens with
   prefill chunks of 256, every kernel count set to 0 just before. With
@@ -2124,10 +2228,16 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   the 4 prefill chunks and the 128 steps (145 each) through the int8
   kernels. sample: the decoder's temperature and top_k (one sampling
   launch a step), and a second call must give the same continuations.
-  profile: profile 16 decode steps after. Returns (launches, telemetry,
-  the continuations)."""
+  profile: profile 16 decode steps after. fprop_dtype=bfloat16: the
+  model decodes bfloat16 activations (bfloat16 caches unless
+  kv_cache_dtype says otherwise), through the attention kernels'
+  bfloat16-q instantiations; a first call (kv_cache_dtype None) writes
+  the checkpoint too. steps: tokens decoded. Returns (launches,
+  telemetry, the continuations)."""
+  t_call = time.perf_counter()
   cfg = spi.DenseLm1B()
-  p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype)
+  bf16 = fprop_dtype == torch.bfloat16
+  p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype, fprop_dtype=fprop_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
       decode_page_size=128)
   lm = p.Instantiate(device="cuda")
@@ -2159,42 +2269,50 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
     del states
   decoder = gshard.GShardDecode(
       lm, ckdir, os.path.join(tmp, f"decode_{kv_cache_dtype}.jsonl"),
-      max_decode_steps=128, prefill_chunk_size=256,
+      max_decode_steps=steps, prefill_chunk_size=256,
       serve_int8_weights=serve_int8_weights, **(sample or {}))
-  counted = "flash_decode" + {None: "", "bfloat16": "_bf16"}[kv_cache_dtype]
+  if bf16:
+    counted = "flash_decode_q_bf16" + {
+        None: "", "bfloat16": "", "float32": "_f32cache"}[kv_cache_dtype]
+  else:
+    counted = "flash_decode" + {None: "", "bfloat16": "_bf16"}[kv_cache_dtype]
   torch.cuda.synchronize()
   counters.Zero()
   torch.cuda.reset_peak_memory_stats()
   recs = decoder.DecodeOnce(1, arr, lens)
   launches = counters.Read()
   want = dict.fromkeys(counters, 0)
-  want[counted] = 24 * 128
-  if serve_int8_weights:   # 4 prefill chunks of 256 and 128 steps
-    want["int8_act_quant"] = want["int8_matmul"] = 145 * (4 + 128)
+  want[counted] = 24 * steps
+  if serve_int8_weights:   # 4 prefill chunks of 256 and the steps
+    int8 = "_bf16" if bf16 else ""
+    want["int8_act_quant" + int8] = want["int8_matmul" + int8] = 145 * (
+        4 + steps)
   if sample:
-    want["sample_tokens"] = 128
+    want["sample_tokens"] = steps
   _Check(launches == want, f"GShardDecode launches {launches} != {want}")
   _Check(recs[0]["telemetry"]["serve_int8_weights"] == serve_int8_weights,
          "telemetry serve_int8_weights")
   for r in recs:
-    _Check(len(r["output_ids"]) == 128 and all(
+    _Check(len(r["output_ids"]) == steps and all(
         0 <= x < cfg.VOCAB_SIZE for x in r["output_ids"]),
            f"bad continuation {r['output_ids']}")
   tel = recs[0]["telemetry"]
-  _Check(tel["kv_cache_dtype"] == (kv_cache_dtype or "float32"),
+  _Check(tel["kv_cache_dtype"] == (kv_cache_dtype or (
+      "bfloat16" if bf16 else "float32")),
          f"telemetry kv_cache_dtype {tel['kv_cache_dtype']}")
   n = len(ref_streams[0])
   same = sum(list(r["output_ids"][:n]) == list(st)
              for r, st in zip(recs, ref_streams))
-  print(f"DenseLm1B GShardDecode ({tel['kv_cache_dtype']} cache, "
-        f"kv_bytes_per_token {tel['kv_bytes_per_token']}): 8 prompts (bucket "
-        f"1024) x 128 tokens, prefill chunks of 256: prefill_s "
+  print(f"DenseLm1B GShardDecode ({tel['kv_cache_dtype']} cache"
+        f"{', bf16 activations' if bf16 else ''}, kv_bytes_per_token "
+        f"{tel['kv_bytes_per_token']}): 8 prompts (bucket 1024) x {steps} "
+        f"tokens, prefill chunks of 256: prefill_s "
         f"{tel['prefill_s']:.3f}, decode_s {tel['decode_s']:.3f} "
-        f"({tel['decode_s'] / 128 * 1e3:.2f} ms per step), "
+        f"({tel['decode_s'] / steps * 1e3:.2f} ms per step), "
         f"{tel['tokens_per_sec']:.1f} tokens/s, decode state "
         f"{tel['decode_state_bytes_per_seq'] / 2**20:.1f} MiB per sequence, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches { {k: v for k, v in launches.items() if v} } (24 x 128"
+        f"launches { {k: v for k, v in launches.items() if v} } (24 x {steps}"
         f"{'; 145 x (4 + 128) of each int8 kernel' if serve_int8_weights else ''}"
         f"){', int8 weights' if serve_int8_weights else ''}")
   print(f"(information, not a check: {same} of 8 continuations begin with "
@@ -2207,6 +2325,8 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
           f"8 continuations (decode_s {again[0]['telemetry']['decode_s']:.3f})")
   if profile:
     _ProfileDecodeSteps(torch, decoder, arr, lens)
+  print(f"DenseLm1B GShardDecode: {time.perf_counter() - t_call:.1f} s in "
+        "all")
   return launches, tel, [r["output_ids"] for r in recs]
 
 
@@ -2547,6 +2667,429 @@ def _CancelCheck(torch, cfg, engine, lm, sample, seeds):
   return streams
 
 
+# -- phase 24: serving and batch decode at fprop_dtype=bfloat16 --------------
+
+
+def _OneBf16Ulp(torch, got, want):
+  """(within one bfloat16 ulp of want everywhere, elements that differ):
+  2^-7 of each magnitude plus 1e-6 of the largest. Kernel and plain
+  version sum in float32 in other orders, then round once to bfloat16: a
+  sum that lands on the other side of a rounding boundary moves one
+  ulp."""
+  g, w = got.float(), want.float()
+  bar = 2.0 ** -7 * w.abs() + 1e-6 * float(w.abs().max())
+  return bool(((g - w).abs() <= bar).all()), int((g != w).sum())
+
+
+def _CheckBf16Q(torch, label, call, wide, plain, zero_rows, bound,
+                library=None):
+  """One bfloat16-q instantiation on dyadic q and K: a finite bfloat16
+  output, padding / inactive rows exactly 0, two calls bitwise equal,
+  bitwise equal to the float32-q kernel on the widened q rounded to
+  bfloat16 (`wide`: the widening is exact and the rest is the float32
+  code), within one bfloat16 ulp of the plain version (`plain`; the
+  elements that differ are printed). Times the kernel, the plain version
+  and `library` (a PyTorch call computing the same function) beside the
+  bound."""
+  out, again, ctl, want = call(), call(), wide(), plain()
+  torch.cuda.synchronize()
+  _Check(out.dtype == want.dtype == torch.bfloat16,
+         f"{label}: output {out.dtype}, plain {want.dtype}")
+  _Check(bool(torch.isfinite(out).all()), f"{label}: non-finite")
+  _Check(torch.equal(out, again), f"{label}: two calls differ bitwise")
+  if zero_rows is not None:
+    _Check(bool((out[zero_rows] == 0).all()), f"{label}: padding or "
+           "inactive rows not exactly zero")
+  _Check(torch.equal(out, ctl.bfloat16()), f"{label}: differs from the "
+         "float32-q kernel on the widened q rounded to bfloat16")
+  ok, differ = _OneBf16Ulp(torch, out, want)
+  err = float((out.float() - want.float()).abs().max())
+  _Check(ok, f"{label}: more than one bfloat16 ulp from the plain version "
+         f"(max abs err {err})")
+  ms = _TimeMs(torch, call, 20)
+  plain_ms = _TimeMs(torch, plain, 3, waits_as=f"plain {label}")
+  lib_ms = None if library is None else _TimeMs(torch, library, 20,
+                                                 waits_as="library")
+  print(f"{label}: bitwise the float32-q kernel on the widened q, rounded; "
+        f"vs plain: {differ} of {out.numel()} elements differ, each within "
+        f"one bfloat16 ulp (max abs err {err:.3g}); two calls bitwise "
+        f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        + ("" if lib_ms is None else f", SDPA {lib_ms:.4f} ms")
+        + f", bound {bound[0]:.4f} ms ({bound[1]})")
+  return dict(ms=ms, plain_ms=plain_ms, bound=bound, err=err,
+              differ=differ, elements=out.numel(), library_ms=lib_ms)
+
+
+def _CheckBf16QKernels(torch, rba, bd, fd, ragged, prompt_lens):
+  """The bfloat16-q instantiations of rows 1-3 at the main path's shapes:
+  the ragged kernel over float32, bfloat16 and int8 pools (phase 3's main
+  pack, page 16, H 128; dead slots poisoned as phase 14's), block decode
+  over the three (phase 10's pool, page 16), flash decode over bfloat16
+  and float32 caches (phase 11's [8, 1152, 16, 128], page 128, t 1151
+  and 700). q and K dyadic: the widened q is the float32 q. Bounds: the
+  float32-q check's bytes with q read and out written at 2 bytes each."""
+  res = {}
+  x, pad, moved, flops, extra = _AttendPack(
+      torch, ragged, 16, 128, np.random.RandomState(24), dyadic=True)
+  ints = (x["tables"], x["row_of"], x["q_end"])
+  tree = dict(q_start=x["q_start"], anc_lo=x["anc_lo"], anc_hi=x["anc_hi"])
+  qb = x["q"].bfloat16()
+  q_saved = x["q"].numel() * 4   # q and out at 2 bytes instead of 4
+  for dtype, elem in (("bfloat16", 2 * 128), ("float32", 4 * 128),
+                      ("int8", 128 + 4)):
+    if dtype == "float32":
+      k, v, sc = x["k_pool"], x["v_pool"], {}
+    else:
+      k, v, sc, _ = _KvStorage(torch, extra["clean"], extra["dead"], dtype)
+    call = lambda q, k=k, v=v, sc=sc: rba.RaggedAttend(
+        q, k, v, *ints, page_size=16, **sc, **tree)
+    res["ragged", dtype] = _CheckBf16Q(
+        torch, f"ragged bf16 q, {dtype} pools, P=16 H=128 pack main",
+        lambda: call(qb), lambda: call(qb.float()),
+        lambda k=k, v=v, sc=sc: rba._PlainRaggedAttend(
+            qb, k, v, *ints, 16, **tree, **sc),
+        torch.as_tensor(pad).cuda(),
+        _Bound(moved(elem) - q_saved, flops))
+    del k, v, sc
+  x, moved, flops, extra = _DecodePool(torch, 16, np.random.RandomState(25),
+                                       dyadic=True)
+  rest = (x["tables"], x["lens"])
+  qb = x["q"].bfloat16()
+  q_saved = x["q"].numel() * 4
+  for dtype, elem in (("bfloat16", 2 * 128), ("float32", 4 * 128),
+                      ("int8", 128 + 4)):
+    if dtype == "float32":
+      k, v, sc = x["k_pool"], x["v_pool"], {}
+    else:
+      k, v, sc, _ = _KvStorage(torch, extra["clean"], extra["dead"], dtype)
+    call = lambda q, k=k, v=v, sc=sc: bd.BlockDecode(q, k, v, *rest,
+                                                     page_size=16, **sc)
+    res["block", dtype] = _CheckBf16Q(
+        torch, f"block decode bf16 q, {dtype} pools, P=16",
+        lambda: call(qb), lambda: call(qb.float()),
+        lambda k=k, v=v, sc=sc: bd._PlainBlockDecode(
+            qb[:, 0], k, v, *rest, 16, **sc)[:, None], 0,
+        _Bound(moved(elem) - q_saved, flops))
+    del k, v, sc
+  b, s, n, h, page, p_len = 8, 1152, 16, 128, 128, 1024
+  rng = np.random.RandomState(26)
+  slot = np.arange(s)
+  pad = (slot[None] < (p_len - np.asarray(prompt_lens))[:, None]).astype(
+      np.float32)
+  q = _Dyadic(rng.randn(b, 1, n, h) / np.sqrt(h), 1 / 64)
+  k = _Dyadic(rng.randn(b, s, n, h), 1 / 8)
+  v = rng.randn(b, s, n, h).astype(np.float32)
+  k[pad > 0.5] = np.nan
+  v[pad > 0.5] = np.nan
+  qb = torch.as_tensor(q).cuda().bfloat16()
+  padc = torch.as_tensor(pad).cuda()
+  sdpa = torch.nn.functional.scaled_dot_product_attention
+  for dtype in ("bfloat16", "float32"):
+    cache_dtype = getattr(torch, dtype)
+    for t in (1151, 700):
+      kt, vt = k.copy(), v.copy()
+      kt[:, t + 1:] = np.nan
+      vt[:, t + 1:] = np.nan
+      kc = torch.as_tensor(kt).cuda().to(cache_dtype)
+      vc = torch.as_tensor(vt).cuda().to(cache_dtype)
+      call = lambda q, kc=kc, vc=vc, t=t: fd.FlashDecode(
+          q, kc, vc, t, page_size=page, cache_paddings=padc)
+      keep = (slot[None] <= t) & (pad < 0.5)
+      live = int(keep.sum())
+      moved = (2 * live * n * h * cache_dtype.itemsize
+               + b * (t // page + 1) * page * 4 + 2 * qb.numel() * 2)
+      mask = torch.as_tensor(keep).cuda()[:, None, None, :]
+      qs, ks, vs = (a.transpose(1, 2) for a in (qb.to(cache_dtype), kc, vc))
+      res["flash", dtype, t] = _CheckBf16Q(
+          torch, f"flash decode bf16 q, {dtype} cache, t={t}",
+          lambda: call(qb), lambda: call(qb.float()),
+          lambda kc=kc, vc=vc, t=t: fd._PlainDecode(
+              qb[:, 0], kc, vc, t, page, padc)[:, None], None,
+          _Bound(moved, 4 * live * n * h),
+          library=lambda qs=qs, ks=ks, vs=vs, mask=mask: sdpa(
+              qs, ks, vs, attn_mask=mask, scale=1.0))
+      del kc, vc, qs, ks, vs
+  return res
+
+
+def _CheckInt8Bf16(torch, im, rng):
+  """Kernels (a) and (b) with bfloat16 x and y at the 145 products of a
+  DenseLm1B step, m = 264 and 8: kernel (a) bitwise its float32 run on
+  the widened x, kernel (b) bitwise its float32 run rounded to bfloat16,
+  and both bitwise the plain versions; times each beside its bound (x and
+  y at 2 bytes) and torch._int_mm (the int32 product alone, m >= 17);
+  returns the sums over the step's 145 calls at each m."""
+  sums = {}
+  for m in (264, 8):
+    step = dict(a_ms=0.0, b_ms=0.0, a_plain_ms=0.0, b_plain_ms=0.0,
+                a_bound=0.0, b_bound=0.0, int_mm_ms=0.0 if m >= 17 else None,
+                a_by=set(), b_by=set())
+    for k, n, calls in INT8_STEP_SHAPES:
+      x = torch.as_tensor(rng.randn(m, k).astype(np.float32) * 2.0).cuda()
+      x = x.bfloat16()
+      w = torch.as_tensor(rng.randint(-128, 128, size=(n, k)).astype(
+          np.int8)).cuda()
+      ws = torch.as_tensor((rng.rand(n) * 1e-3 + 1e-5).astype(
+          np.float32)).cuda().bfloat16().float()   # a bf16 scale, widened
+      x8, xs = im.QuantizeActivations(x)
+      y = im.Int8Gemm(x8, xs, w, ws, out_dtype=torch.bfloat16)
+      f8, fs = im.QuantizeActivations(x.float())
+      yf = im.Int8Gemm(f8, fs, w, ws)
+      px8, pxs = im._PlainQuantize(x)
+      py = im._PlainGemm(px8, pxs, w, ws).bfloat16()
+      both = im.Int8Matmul(x, w, ws)
+      torch.cuda.synchronize()
+      label = f"int8 bf16 [{m}, {k}] x [{n}, {k}]"
+      _Check(torch.equal(x8, f8) and torch.equal(xs, fs), f"{label}: kernel "
+             "(a) differs from its float32 run on the widened x")
+      _Check(torch.equal(x8, px8) and torch.equal(xs, pxs),
+             f"{label}: kernel (a) != plain")
+      _Check(y.dtype == torch.bfloat16 and torch.equal(y, yf.bfloat16()),
+             f"{label}: kernel (b) differs from its float32 run rounded")
+      _Check(torch.equal(y, py) and torch.equal(both, y),
+             f"{label}: kernel (b) != plain, or Int8Matmul != the two")
+      kp = x8.shape[1]
+      a_ms = _TimeMs(torch, lambda: im.QuantizeActivations(x), 20)
+      b_ms = _TimeMs(torch, lambda: im.Int8Gemm(
+          x8, xs, w, ws, out_dtype=torch.bfloat16), 20)
+      a_plain = _TimeMs(torch, lambda: im._PlainQuantize(x), 3)
+      b_plain = _TimeMs(torch, lambda: im._PlainGemm(
+          x8, xs, w, ws).bfloat16(), 3)
+      a_bound = _Bound(m * k * 2 + m * kp + 4, 0)
+      b_bound = _Bound(n * k + m * kp + n * 4 + 4 + m * n * 2,
+                       2 * m * k * n, INT8_OPS_PER_S)
+      if step["int_mm_ms"] is not None:
+        a8 = x8[:, :k]
+        step["int_mm_ms"] += calls * _TimeMs(
+            torch, lambda: torch._int_mm(a8, w.t()), 20)
+      print(f"{label} ({calls} a step): bitwise the float32 kernels on the "
+            f"widened x (rounded) and the plain versions; kernel (a) "
+            f"{a_ms:.4f} ms (bound {a_bound[0]:.4f}), kernel (b) {b_ms:.4f} "
+            f"ms (bound {b_bound[0]:.4f}, {b_bound[1]})")
+      for key, val in (("a_ms", a_ms), ("b_ms", b_ms), ("a_plain_ms", a_plain),
+                       ("b_plain_ms", b_plain), ("a_bound", a_bound[0]),
+                       ("b_bound", b_bound[0])):
+        step[key] += calls * val
+      step["a_by"].add(a_bound[1])
+      step["b_by"].add(b_bound[1])
+      del x, w, ws, x8, y, yf, f8, both
+    for key in ("a_by", "b_by"):
+      step[key] = "/".join(sorted(step[key]))
+    print(f"int8 bf16 step sums at m={m} over the 145 calls: kernel (a) "
+          f"{step['a_ms']:.3f} ms (bound {step['a_bound']:.3f}), kernel (b) "
+          f"{step['b_ms']:.3f} ms (bound {step['b_bound']:.3f}), plain (a) "
+          f"{step['a_plain_ms']:.3f} ms, plain (b) {step['b_plain_ms']:.3f} "
+          "ms, _int_mm "
+          + ("n/a" if step["int_mm_ms"] is None
+             else f"{step['int_mm_ms']:.3f} ms"))
+    sums[m] = step
+  return sums
+
+
+# the tiny twin's teacher-forced logits, card against CPU, relative error
+# norm: bfloat16 GEMMs sum in another order on the card, and one rounding
+# that moves an activation by an ulp moves the logits by about 2^-8 of
+# their norm, where the CPU tests hold the port to the reference bit for
+# bit (tests/test_torch_bf16_serving_engine.py); the float32 control
+# (the card at fprop float32 against the CPU at bfloat16) must miss it
+TWIN_REL = 1e-3
+
+
+def _ServedFor(lm):
+  """The theta a serving entry point binds to `lm` (its bfloat16 cast at
+  fprop_dtype=bfloat16), or None: what the engine serves."""
+  from lingvo_tpu_torch.quant import weights as quant_weights
+  return quant_weights.ServingTheta(lm)
+
+
+def _TinyBf16(torch, spi, engine, ragged):
+  """DenseLmTiny at fprop_dtype=bfloat16 on the card against the same
+  weights on the CPU: two packed RaggedSteps' logits (teacher-forced: the
+  second reads what the first wrote) within TWIN_REL, the card at float32
+  activations missing it; then greedy streams of the ragged and legacy
+  engines (bfloat16 pools), how many equal the CPU's printed."""
+  p16 = spi.DenseLmTiny().Task().Set(fprop_dtype=torch.bfloat16)
+  cpu_lm = p16.Instantiate(device="cpu")
+  cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
+  lms = {"cpu": cpu_lm}
+  for name, p in (("cuda", p16), ("cuda f32", spi.DenseLmTiny().Task())):
+    lms[name] = p.Instantiate(device="cuda")
+    lms[name].load_state_dict(cpu_lm.state_dict())
+  tables = np.arange(16, dtype=np.int32).reshape(4, 4)
+  rng = np.random.RandomState(3)
+  packs = [(ragged.BuildRaggedRows([1, 9, 0, 4], [0, 0, 1, 0], 16, 9),
+            rng.randint(0, 128, size=(1, 16)).astype(np.int32)),
+           (ragged.BuildRaggedRows([1, 3, 1, 4], [1, 9, 0, 4], 16, 9),
+            rng.randint(0, 128, size=(1, 16)).astype(np.int32))]
+  logits = {}
+  for name, lm in lms.items():
+    served = _ServedFor(lm)
+    states = lm.InitPagedDecodeState(17, 8, num_slots=4)
+    outs = []
+    with torch.no_grad(), (served.Active() if served
+                           else contextlib.nullcontext()):
+      for rows, ids in packs:
+        out, states = lm.RaggedStep(torch.as_tensor(ids).to(lm.device),
+                                    states,
+                                    torch.as_tensor(tables).to(lm.device),
+                                    ragged.ToTorch(rows, lm.device))
+        outs.append(out[0, torch.as_tensor(rows.valid)].float().cpu())
+    logits[name] = torch.cat(outs)
+  rel = lambda a: float((a - logits["cpu"]).norm() / logits["cpu"].norm())
+  gap, ctl = rel(logits["cuda"]), rel(logits["cuda f32"])
+  print(f"DenseLmTiny bf16 twin: two packed steps' logits, card against "
+        f"CPU: relative error norm {gap:.4g} (bar {TWIN_REL}); the card at "
+        f"float32 activations against the CPU at bfloat16: {ctl:.4g}")
+  _Check(gap <= TWIN_REL, f"tiny bf16 logits cuda vs cpu: relative "
+         f"{gap} > {TWIN_REL}")
+  _Check(ctl > TWIN_REL, f"tiny bf16 control: the card at float32 is "
+         f"within {TWIN_REL} of the CPU at bfloat16 ({ctl})")
+  lens = np.array([5, 13, 21, 8, 2, 30], np.int32)
+  prompts = np.random.RandomState(4).randint(1, 128, size=(6, 30)).astype(
+      np.int32)
+  kw = dict(page_size=8, num_pages=32, max_batch=4, max_seq_len=64,
+            prefill_chunk=8)
+  same = {}
+  for mode in ("ragged", "legacy"):
+    streams = [engine.ServingLoop(lms[name], device=lms[name].device,
+                                  step_mode=mode, **kw).RunBatch(
+                                      prompts, lens, max_new_tokens=8)
+               for name in ("cpu", "cuda")]
+    same[mode] = int(sum(np.array_equal(a, b)
+                         for a, b in zip(*streams)))
+  print(f"DenseLmTiny bf16 twin: greedy streams equal to the CPU's "
+        f"(information, not a check): ragged {same['ragged']} of 6, legacy "
+        f"{same['legacy']} of 6")
+  return gap
+
+
+def _FirstStepGap(torch, cfg, ragged, lm32, lm16):
+  """The relative L2 gap between DenseLm1B's logits at bfloat16 and at
+  float32 on the same weights, over the first packed step of the serving
+  phases' requests (8 rows of the first 32 prompt tokens): a path that
+  rounds the wrong tensor gives a gap of O(1)."""
+  lens, prompts = _Requests(cfg)
+  rows = ragged.BuildRaggedRows([32] * 8, [0] * 8, 264, 256)
+  ids = np.zeros((1, 264), np.int32)
+  ids[0, :256] = np.concatenate([p[:32] for p in prompts])
+  tables = np.arange(8 * 64, dtype=np.int32).reshape(8, 64)
+  logits = {}
+  for name, lm in (("f32", lm32), ("bf16", lm16)):
+    served = _ServedFor(lm)
+    states = lm.InitPagedDecodeState(513, 16, num_slots=8)
+    with torch.no_grad(), (served.Active() if served
+                           else contextlib.nullcontext()):
+      out, _ = lm.RaggedStep(torch.as_tensor(ids).cuda(), states,
+                             torch.as_tensor(tables).cuda(),
+                             ragged.ToTorch(rows, "cuda"))
+    logits[name] = out[0, torch.as_tensor(rows.valid).cuda()].float()
+    del states, served
+  _Check(bool(torch.isfinite(logits["bf16"]).all()), "bf16 logits not "
+         "finite")
+  gap = float((logits["bf16"] - logits["f32"]).norm()
+              / logits["f32"].norm())
+  _Check(gap <= 0.1, f"DenseLm1B first-step bf16 logits: relative L2 gap "
+         f"{gap} to float32 > 0.1")
+  print(f"DenseLm1B first packed step (8 rows x 32 prompt tokens): bf16 "
+        f"logits relative L2 gap to float32 on the same weights {gap:.4g} "
+        "(bar 0.1)")
+  return gap
+
+
+def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
+               checkpointer, gshard, counters, prompt_lens, ref_streams):
+  """Phase 24 (see the module docstring). Returns (the bfloat16-q kernel
+  checks, the int8 bfloat16 kernels' step sums, the serving runs, the
+  two GShardDecode runs' launches)."""
+  t_phase = time.perf_counter()
+  print("bf16-q ragged / block decode library_ms: null (as phases 3 and "
+        "10); flash decode: SDPA on the same bf16 tensors; int8 (b): "
+        "torch._int_mm (the int32 product alone)")
+  bf16q = _CheckBf16QKernels(torch, rba, bd, fd, ragged, prompt_lens)
+  int8_bf16 = _CheckInt8Bf16(torch, im, np.random.RandomState(27))
+  gc.collect()
+  torch.cuda.empty_cache()
+  _TinyBf16(torch, spi, engine, ragged)
+  cfg = spi.DenseLm1B()
+  lm = _ServingLm(torch, cfg)
+  lm16 = _ServingLm(torch, cfg, fprop_dtype=torch.bfloat16)
+  _FirstStepGap(torch, cfg, ragged, lm, lm16)
+  # the same requests at float32 activations first, unprofiled: the
+  # baseline of this process at this point (walls drift over a process)
+  f32_ms = _ServeMain(torch, cfg, engine, counters,
+                      dict(ragged_block_attend=24), lm=lm, profile=False)[3]
+  del lm
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 24: kernels, twin and the float32 baseline took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+  # every step's logits checked finite on the card (a device flag a step),
+  # read once at the end
+  finite, head = [], lm16._Head
+
+  def _FiniteHead(x):
+    logits = head(x)
+    finite.append(torch.isfinite(logits).all())
+    return logits
+
+  lm16._Head = _FiniteHead
+  lens, _ = _Requests(cfg)
+  # the instantiations off the default (bfloat16) pools: the shortest
+  # request, 8 new tokens
+  short = dict(order=[int(np.argmin(lens))], max_new=8, profile=False)
+  bf16_serve = {}
+  for key, mode, dtype, per_step, per_decode, kw in (
+      ("ragged", "ragged", None, dict(ragged_block_attend_q_bf16=24), None,
+       {}),
+      ("legacy", "legacy", None, {}, dict(block_decode_q_bf16=24),
+       dict(windows=LEGACY_WINDOWS)),
+      ("sampled, float32 pools", "ragged", "float32",
+       dict(ragged_block_attend_q_bf16_f32pool=24, sample_tokens=1), None,
+       dict(short, sample=dict(temperature=0.8, top_k=40, sample_seed=3),
+            seeds=list(range(100, 108)))),
+      ("int8 weights, int8 pools", "ragged", "int8",
+       dict(ragged_block_attend_q_bf16_int8pool=24, int8_act_quant_bf16=145,
+            int8_matmul_bf16=145), None,
+       dict(short, serve_int8_weights=True)),
+      ("legacy, float32 pools", "legacy", "float32", {},
+       dict(block_decode_q_bf16_f32pool=24), short),
+      ("legacy, int8 pools", "legacy", "int8", {},
+       dict(block_decode_q_bf16_int8pool=24), short)):
+    syncs = {}
+    launches, steps, _, ms = _ServeMain(
+        torch, cfg, engine, counters, per_step, per_decode, step_mode=mode,
+        kv_cache_dtype=dtype, lm=lm16, syncs=syncs, **kw)
+    bf16_serve[key] = dict(launches=launches, steps=steps, ms=ms, syncs=syncs)
+    gc.collect()
+    torch.cuda.empty_cache()
+  _Check(bool(torch.stack(finite).all()), "a bf16 serving step gave "
+         "non-finite logits")
+  print(f"bf16 serving: every request completed, the logits of all "
+        f"{len(finite)} steps finite; ragged {bf16_serve['ragged']['ms']:.2f} "
+        f"ms/step against {f32_ms:.2f} at float32 activations in this "
+        "process")
+  del lm16, finite, head
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 24: serving took {time.perf_counter() - t_phase:.1f} s")
+  with tempfile.TemporaryDirectory() as tmp:
+    bf16_gshard, _, _ = _GShardMain(
+        torch, spi, attention, checkpointer, gshard, counters, tmp,
+        ref_streams, fprop_dtype=torch.bfloat16)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a cache of 1024 + 128 slots: a whole number of 128-slot pages, so
+    # every step takes the flash-decode read
+    bf16_gshard_f32, _, _ = _GShardMain(
+        torch, spi, attention, checkpointer, gshard, counters, tmp,
+        ref_streams, kv_cache_dtype="float32", fprop_dtype=torch.bfloat16,
+        profile=False)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
+  return bf16q, int8_bf16, bf16_serve, bf16_gshard, bf16_gshard_f32
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2645,29 +3188,7 @@ def main():
   gc.collect()
   torch.cuda.empty_cache()
 
-  # float32 launches of the kernels with per-dtype instantiations count
-  # under the plain name
-  counters = _Counts(
-      ragged_block_attend=(rba.RaggedAttend, "float32"),
-      ragged_block_attend_int8=(rba.RaggedAttend, "int8"),
-      ragged_block_attend_bf16=(rba.RaggedAttend, "bfloat16"),
-      ssd_scan=(ssd.SsdScan, None),
-      flash_attention_fwd=(fa.FlashForward, "float32"),
-      flash_attention_fwd_bf16=(fa.FlashForward, "bfloat16"),
-      flash_attention_dkdv=(fa.FlashDkDv, "float32"),
-      flash_attention_dkdv_bf16=(fa.FlashDkDv, "bfloat16"),
-      flash_attention_dq=(fa.FlashDq, "float32"),
-      flash_attention_dq_bf16=(fa.FlashDq, "bfloat16"),
-      fused_xent_fwd=(fx.FusedXentStats, "float32"),
-      fused_xent_fwd_bf16=(fx.FusedXentStats, "bfloat16"),
-      block_decode=(bd.BlockDecode, "float32"),
-      block_decode_int8=(bd.BlockDecode, "int8"),
-      block_decode_bf16=(bd.BlockDecode, "bfloat16"),
-      flash_decode=(fd.FlashDecode, "float32"),
-      flash_decode_bf16=(fd.FlashDecode, "bfloat16"),
-      int8_act_quant=(im.QuantizeActivations, None),
-      int8_matmul=(im.Int8Gemm, None),
-      sample_tokens=(st.SampleTokens, None))
+  counters = _MakeCounts(rba, ssd, fa, fx, bd, fd, im, st)
 
   _Phase("5. serving main path: DenseLm1B through ServingLoop")
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged)
@@ -2742,7 +3263,8 @@ def main():
   _TinyReference(torch, spi.DenseLmTiny(), engine, ragged, step_mode="legacy")
   legacy_launches, _, legacy_streams, _ = _ServeMain(
       torch, spi.DenseLm1B(), engine, counters, {},
-      per_decode_step=dict(block_decode=24), step_mode="legacy")
+      per_decode_step=dict(block_decode=24), step_mode="legacy",
+      windows=LEGACY_WINDOWS)
   differ = [i for i, (a, b) in enumerate(zip(legacy_streams, ragged_streams))
             if list(a) != list(b)]
   _Check(not differ, f"legacy streams differ from the ragged engine's in "
@@ -2808,7 +3330,9 @@ def main():
         launches, _, streams, ms = _ServeMain(
             torch, spi.DenseLm1B(), engine, counters, per_step, per_decode,
             step_mode=mode, kv_cache_dtype=dtype, lm=lm,
-            profile=dtype == "int8")
+            profile=dtype == "int8",
+            windows=LEGACY_WINDOWS if mode == "legacy" else ("first",
+                                                             "last"))
         quant_serve[key] = launches[key]
         phase_ms[mode, dtype] = ms
         same = sum(list(a) == list(b)
@@ -3024,7 +3548,14 @@ def main():
   print("kernel (a) against its plain version at the 145 products: bitwise "
         "(phase 21); the int8 pools' quantize-on-write: phases 14-17")
 
-  _Phase("24. result")
+  _Phase("24. bfloat16 serving and batch decode: the bfloat16-q kernels, "
+         "then DenseLm1B at fprop_dtype=bfloat16 through ServingLoop and "
+         "GShardDecode")
+  bf16q, int8_bf16, bf16_serve, bf16_gshard, bf16_gshard_f32 = _Bf16Phase(
+      torch, rba, bd, fd, im, ragged, spi, engine, attention, checkpointer,
+      gshard, counters, prompt_lens, gshard_out)
+
+  _Phase("25. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -3202,6 +3733,50 @@ def main():
       "sass_int_per_element": None if mix is None else mix["int"],
       "sass_float_per_element": None if mix is None else mix["float"],
       "shape": "[264, 32000] float32, top_k 40, (seed, position) folds"})
+  # the bfloat16-q instantiations (fprop_dtype=bfloat16): launches from
+  # phase 24's counted runs, times from its checks
+  for name, res, source, line, launches in (
+      ("ragged_block_attend_q_bf16", bf16q["ragged", "bfloat16"],
+       "ragged_block_attend", 252, bf16_serve["ragged"]),
+      ("ragged_block_attend_q_bf16_f32pool", bf16q["ragged", "float32"],
+       "ragged_block_attend", 252, bf16_serve["sampled, float32 pools"]),
+      ("ragged_block_attend_q_bf16_int8pool", bf16q["ragged", "int8"],
+       "ragged_block_attend", 252, bf16_serve["int8 weights, int8 pools"]),
+      ("block_decode_q_bf16", bf16q["block", "bfloat16"], "block_decode",
+       247, bf16_serve["legacy"]),
+      ("block_decode_q_bf16_f32pool", bf16q["block", "float32"],
+       "block_decode", 247, bf16_serve["legacy, float32 pools"]),
+      ("block_decode_q_bf16_int8pool", bf16q["block", "int8"],
+       "block_decode", 247, bf16_serve["legacy, int8 pools"]),
+      ("flash_decode_q_bf16", bf16q["flash", "bfloat16", 1151],
+       "flash_decode", 208, dict(launches=bf16_gshard)),
+      ("flash_decode_q_bf16_f32cache", bf16q["flash", "float32", 1151],
+       "flash_decode", 208, dict(launches=bf16_gshard_f32))):
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": f"lingvo_tpu_torch/ops/csrc/{source}.cu",
+        "replaces": f"lingvo_tpu/ops/{source}.py:{line}",
+        "launches": launches["launches"][name], "max_abs_err": res["err"],
+        "ms": res["ms"], "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+        "library_ms": res["library_ms"],
+        "bf16_elements_differing_from_plain": res["differ"],
+        "elements": res["elements"]})
+  serve16 = bf16_serve["int8 weights, int8 pools"]["launches"]
+  for name, key in (("int8_act_quant_bf16", "a"), ("int8_matmul_bf16", "b")):
+    step16 = int8_bf16[264]
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "lingvo_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": None, "note": note, "launches": serve16[name],
+        "max_abs_err": 0.0, "ms": step16[f"{key}_ms"],
+        "plain_ms": step16[f"{key}_plain_ms"],
+        "bound_ms": step16[f"{key}_bound"], "bound_by": step16[f"{key}_by"],
+        "library_ms": step16["int_mm_ms"] if key == "b" else None,
+        "decode_step_ms": int8_bf16[8][f"{key}_ms"],
+        "decode_step_bound_ms": int8_bf16[8][f"{key}_bound"],
+        "shape": "bfloat16 x and y, sum over the 145 products of a step, "
+                 "m = 264"})
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

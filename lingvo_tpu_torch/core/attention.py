@@ -186,22 +186,30 @@ class MultiHeadedAttention(base_layer.BaseLayer):
 
   def _PostProj(self, ctx):
     """[B, T, N, H] contracted with [D, N, H] over (N, H) -> [B, T, D]; an
-    int8 serving leaf through the int8 matmul ('vd', per-D scales)."""
+    int8 serving leaf through the int8 matmul ('vd', per-D scales). A
+    float32 context under bfloat16 weights (a float32 or int8 cache read
+    by bfloat16 queries) promotes the product to float32, as the
+    reference's einsum does."""
     th = self.CastTheta()
     if isinstance(th.w_post, quant_utils.Int8Weight):
       out = th.w_post.Einsum(ctx)
     else:
-      out = torch.einsum("btnh,dnh->btd", ctx, th.w_post)
+      out = _Einsum("btnh,dnh->btd", ctx, th.w_post)
     return out + th.b_post
 
   # -- training forward --------------------------------------------------------
 
   def _Atten(self, q, k, v, atten_mask):
     """q [B, T, N, H], k/v [B, S, N, H], additive mask broadcastable to
-    [B, N, T, S] -> [B, T, N, H] context and the [B, N, T, S] probs."""
+    [B, N, T, S] -> [B, T, N, H] context and the [B, N, T, S] probs.
+
+    The two products promote mixed dtypes as the reference's einsums do:
+    bfloat16 queries against a float32 (or dequantized int8) cache give
+    float32 logits and a float32 context; against a bfloat16 cache,
+    bfloat16 ones. The probabilities are rounded to q's dtype."""
     p = self.p
-    # in the fprop dtype, then float32 from the mask on (reference order)
-    logits = torch.einsum("btnh,bsnh->bnts", q, k)
+    # in the inputs' dtype, then float32 from the mask on (reference order)
+    logits = _Einsum("btnh,bsnh->bnts", q, k)
     if p.atten_logit_cap > 0:
       cap = py_utils.WeakScalar(p.atten_logit_cap, logits)
       logits = cap * py_utils.Tanh(logits / cap)
@@ -212,7 +220,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     # fully masked queries); the clamp keeps rows finite
     logits = torch.clamp(logits, min=_NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bnts,bsnh->btnh", probs, v), probs
+    return _Einsum("bnts,bsnh->btnh", probs, v), probs
 
   def _OnCard(self) -> bool:
     """The layer runs the CUDA kernels: the gates then also hold its shapes
@@ -291,10 +299,11 @@ class MultiHeadedAttention(base_layer.BaseLayer):
 
   def _KvDtype(self, kv_cache_dtype=None):
     """(cache storage dtype, quantized?): an explicit override beats the
-    layer param; None on both keeps the float32 cache. A name outside
-    quant/kv.KV_CACHE_DTYPES raises ValueError."""
+    layer param; None on both keeps the cache in the fprop dtype (float32,
+    or bfloat16 under fprop_dtype=bfloat16), as the reference does. A name
+    outside quant/kv.KV_CACHE_DTYPES raises ValueError."""
     return kv_quant.ResolveKvCacheDtype(
-        kv_cache_dtype or self.p.kv_cache_dtype)
+        kv_cache_dtype or self.p.kv_cache_dtype, self.fprop_dtype)
 
   def KvCacheDtype(self, kv_cache_dtype=None) -> str:
     """The effective cache storage dtype's name (telemetry)."""
@@ -304,7 +313,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     """K + V bytes per cached token in this layer, scale sidecars
     included (the reference `quant/kv.KvBytesPerToken`)."""
     return kv_quant.KvBytesPerToken(self.p.num_heads, self._dim_per_head,
-                                    kv_cache_dtype or self.p.kv_cache_dtype)
+                                    kv_cache_dtype or self.p.kv_cache_dtype,
+                                    self.fprop_dtype)
 
   def InitStates(self, batch_size: int, max_len: int) -> NestedMap:
     """Dense KV cache [B, max_len, N, H] in the layer's kv_cache_dtype and
@@ -412,7 +422,9 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     bitwise (the reference's dense read over [0, live_len) sums the
     softmax in another order for each live_len and only matches to float
     tolerance). An int8 cache is quantized on write and its tiles are
-    dequantized on read."""
+    dequantized on read. bfloat16 queries (fprop_dtype=bfloat16) take a
+    two-pass tile read that rounds where the reference's dense read does
+    (`_RoundedTileRead`)."""
     t = cached_states.time_step
     c = query_vec.shape[1]
     dev = query_vec.device
@@ -421,17 +433,20 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     new_states = self._WriteCache(cached_states, k_new, v_new, t)
     s_len = new_states.key.shape[1]
     live = s_len if live_len is None else live_len
+    if q.dtype != torch.float32:
+      ctx = _RoundedTileRead(q, new_states, qpos, paddings, live,
+                             self.p.atten_logit_cap)
+      new_states.time_step = t + c
+      return self._PostProj(ctx), new_states
     b, _, n, h = q.shape
     m = torch.full((b, c, n, 1), ragged_block_attend.NEG_INF, device=dev)
     l = torch.zeros((b, c, n, 1), device=dev)
     acc = torch.zeros((b, c, n, h), device=dev)
     for start in range(0, live, _PREFILL_TILE):
       sl = slice(start, min(start + _PREFILL_TILE, s_len))
-      slot = torch.arange(sl.start, sl.stop, device=dev)
-      keep = (slot[None, :] <= qpos[:, None])[None, :, None, :]  # [1,C,1,P]
-      if paddings is not None:
-        keep = keep & (paddings[:, None, None, sl] < 0.5)
-      m, l, acc = _TileAttend(q, *_ReadCache(new_states, sl), keep, m, l,
+      keep = _TileKeep(sl, qpos, paddings)
+      k_tile, v_tile = _ReadCache(new_states, sl)
+      m, l, acc = _TileAttend(q, k_tile.float(), v_tile.float(), keep, m, l,
                               acc, self.p.atten_logit_cap)
     ctx = ragged_block_attend._Finish(l, acc, q.dtype)
     if paddings is not None:
@@ -612,20 +627,39 @@ def _PadQueryContext(ctx, l, states, live: int):
   0. A pad query's output feeds no real token, but an int8 serving theta
   quantizes each projection's input with one scale over the whole call,
   pad rows included, so the pad rows must carry the reference's values."""
-  _, v = _ReadCache(states, slice(0, live))
+  v = _ReadCache(states, slice(0, live))[1].float()
   p = torch.full((), 1.0, device=v.device) / live
   mean_v = torch.sum(v * p, dim=1)[:, None].to(ctx.dtype)    # [B,1,N,H]
   return torch.where(l == 0, mean_v, ctx)
 
 
 def _ReadCache(states, sl):
-  """Slots `sl` of a dense cache's K and V as float32: dequantized for an
-  int8 cache (quant/kv.DequantKv), widened for a bfloat16 one."""
+  """Slots `sl` of a dense cache's K and V as the reference reads them:
+  dequantized to float32 for an int8 cache (quant/kv.DequantKv), in the
+  cache's own dtype for a float32 or bfloat16 one."""
   k, v = states.key[:, sl], states.value[:, sl]
   if "key_scale" in states:
     return (kv_quant.DequantKv(k, states.key_scale[:, sl]),
             kv_quant.DequantKv(v, states.value_scale[:, sl]))
-  return k.float(), v.float()
+  return k, v
+
+
+def _Einsum(equation, a, b):
+  """torch.einsum with the reference's promotion of mixed float dtypes
+  (JAX's, and PyTorch's for elementwise ops): both operands in their
+  promoted dtype, bfloat16 with float32 giving float32."""
+  dtype = torch.promote_types(a.dtype, b.dtype)
+  return torch.einsum(equation, a.to(dtype), b.to(dtype))
+
+
+def _TileKeep(sl, qpos, paddings):
+  """bool [B or 1, C, 1, P]: which slots of the tile `sl` each query of
+  the chunk at slots qpos [C] attends (causal, and not a padded slot)."""
+  slot = torch.arange(sl.start, sl.stop, device=qpos.device)
+  keep = (slot[None, :] <= qpos[:, None])[None, :, None, :]
+  if paddings is not None:
+    keep = keep & (paddings[:, None, None, sl] < 0.5)
+  return keep
 
 
 # queries of one GEMM in the prefill's tile read: every chunk is read in
@@ -650,6 +684,50 @@ def _RowBlockMatmul(a, b):
       torch.matmul(a[:, :, i * _READ_ROWS:(i + 1) * _READ_ROWS], b)
       for i in range(blocks)], dim=2)                         # [B, N, C, Y]
   return out.transpose(1, 2)[:, :c]
+
+
+def _RoundedTileRead(q, states, qpos, paddings, live: int, logit_cap=0.0):
+  """The prefill's read for bfloat16 queries q [B, C, N, H]: the
+  reference's dense `_Atten` over slots [0, live) at its rounding points,
+  in `_PREFILL_TILE`-slot tiles (each tile's products in `_RowBlockMatmul`
+  GEMMs), so that a trimmed read equals the full read bit for bit.
+
+  The reference rounds the logits to the promoted dtype of q and the
+  cache (bfloat16 for a bfloat16 cache; float32 for a float32 cache or a
+  dequantized int8 one, whose products are exact), masks them in float32
+  (a masked slot holds exactly the mask value, _NEG_INF), normalises the
+  softmax over the whole row, rounds the probabilities to q's dtype and
+  returns the context in the promoted dtype. Pass 1 keeps each tile's
+  masked float32 logits and takes the row's max over the tiles, then its
+  sum; pass 2 rounds p = exp(s - M) / L to bfloat16 and sums P.V in
+  float32, rounded once at the end. A slot past `live` is not in the
+  reference's row: -inf here, so it adds 0 to the sum even in a row with
+  every slot masked, whose softmax is then uniform over [0, live) as the
+  reference's is. Only float32 sums are taken in another order."""
+  s_len = states.key.shape[1]
+  dev = q.device
+  tiles = []
+  m = None
+  for start in range(0, live, _PREFILL_TILE):
+    sl = slice(start, min(start + _PREFILL_TILE, s_len))
+    k_tile, v_tile = _ReadCache(states, sl)
+    s = _RowBlockMatmul(q.float(), k_tile.float().permute(0, 2, 3, 1))
+    s = s.to(torch.promote_types(q.dtype, k_tile.dtype))   # [B,C,N,P]
+    if logit_cap > 0:
+      cap = py_utils.WeakScalar(logit_cap, s)
+      s = cap * py_utils.Tanh(s / cap)
+    s = torch.where(_TileKeep(sl, qpos, paddings), s.float(), _NEG_INF)
+    slot = torch.arange(sl.start, sl.stop, device=dev)
+    s = torch.where(slot < live, s, float("-inf"))
+    tiles.append((s, v_tile))
+    tile_max = torch.amax(s, dim=-1, keepdim=True)
+    m = tile_max if m is None else torch.maximum(m, tile_max)
+  l = sum(torch.sum(torch.exp(s - m), dim=-1, keepdim=True) for s, _ in tiles)
+  acc = 0.0
+  for s, v_tile in tiles:
+    p = (torch.exp(s - m) / l).to(q.dtype)
+    acc = acc + _RowBlockMatmul(p.float(), v_tile.float().permute(0, 2, 1, 3))
+  return acc.to(torch.promote_types(q.dtype, tiles[0][1].dtype))
 
 
 def _TileAttend(q, k_tile, v_tile, keep, m, l, acc, logit_cap=0.0):

@@ -81,25 +81,39 @@ class StackedLeaf:
 _SERVED = threading.local()
 
 
+class _CastLeaves(NestedMap):
+  """A layer's leaves bound by a `ServedTheta` already in its fprop dtype:
+  `CastTheta()` returns them as they are."""
+
+
 class ServedTheta:
   """A theta served in place of a module tree's own parameters.
 
   `theta` has the structure of `module.ThetaTree()`; each of its leaves
   that is not the module's own parameter (an `Int8Weight`, or a StackedLeaf
   whose per-layer members replace a repeat stack's parameters) is bound to
-  the layer that owns that parameter. Inside `Active()` the calling
+  the layer that owns that parameter. A layer whose fprop dtype is not its
+  weights' dtype (fprop_dtype=bfloat16) has its leaves bound already cast
+  to it, once, here (its own parameters too): `CastTheta()` then finds
+  them in that dtype and copies nothing per step, and their values are
+  the bits of the per-forward cast. Inside `Active()` the calling
   thread's layers see those leaves through `CastTheta()`; nothing changes
   for other threads or outside the context."""
 
   def __init__(self, module: nn.Module, theta: NestedMap):
     self.theta = theta
     self._leaves: dict = {}
-    self._Bind(module, theta)
+    with torch.no_grad():
+      self._Bind(module, theta)
 
   def _Bind(self, module, tree):
     params = dict(module.named_parameters(recurse=False))
-    if any(tree[name] is not prm for name, prm in params.items()):
-      self._leaves[module] = NestedMap({name: tree[name] for name in params})
+    leaves = NestedMap({name: tree[name] for name in params})
+    if params and isinstance(module, BaseLayer) and (
+        module.fprop_dtype != module.p.dtype):
+      self._leaves[module] = _CastLeaves(module.CastTheta(leaves))
+    elif any(tree[name] is not prm for name, prm in params.items()):
+      self._leaves[module] = leaves
     for cname, child in module.named_children():
       if cname not in tree:
         continue   # a child without weights
@@ -282,6 +296,8 @@ class BaseLayer(nn.Module):
       served = getattr(_SERVED, "leaves", None)
       if served:
         theta = served.get(self, theta)
+        if isinstance(theta, _CastLeaves):
+          return theta
     dtype = self.fprop_dtype
     if dtype == self.p.dtype:
       return theta

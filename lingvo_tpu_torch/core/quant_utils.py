@@ -106,11 +106,15 @@ def _ScaleVector(scale, n: int):
 
 def _Product(x, w_nk, scale_vec, in_dims, out_dims):
   """x [..., in...] through the int8 matmul against w_nk [N, K] ->
-  [..., out...] in x's dtype."""
+  [..., out...] in x's dtype. A float32 or bfloat16 x goes to the matmul
+  as it is (its bfloat16 kernels widen x on load and round y, the
+  reference's x.astype(float32) ... .astype(x.dtype)); another float
+  dtype is widened first."""
   k = len(in_dims)
   assert tuple(x.shape[x.ndim - k:]) == tuple(in_dims), (x.shape, in_dims)
   batch_shape = tuple(x.shape[:x.ndim - k])
-  x2 = x.float().reshape(-1, math.prod(in_dims)).contiguous()
+  xk = x if x.dtype in int8_matmul.ACT_DTYPES else x.float()
+  x2 = xk.reshape(-1, math.prod(in_dims)).contiguous()
   y = int8_matmul.Int8Matmul(x2, w_nk, scale_vec)
   return y.reshape(batch_shape + tuple(out_dims)).to(x.dtype)
 

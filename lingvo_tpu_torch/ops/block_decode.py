@@ -32,6 +32,11 @@ of an int8 page goes through `_DequantPages` before the float page step,
 so the int8 op equals the float op on the pre-dequantized pool bit for
 bit; a bfloat16 page's probabilities are rounded to bfloat16 before P.V,
 as in the reference.
+
+q is float32 or bfloat16 (fprop_dtype=bfloat16): both ops multiply the
+widened q, sum in float32 and return q's dtype, as the reference's
+`_DotF32` and `_Finish(l, acc, q.dtype)`; the kernel has a bfloat16-q
+instantiation for each pool dtype.
 """
 
 from __future__ import annotations
@@ -42,8 +47,9 @@ import torch
 
 from lingvo_tpu_torch.ops import cuda_build
 from lingvo_tpu_torch.ops.ragged_block_attend import (
-    KV_DTYPES, NEG_INF, CheckAligned, CheckKvOperands, NewLaunchCounts,
-    _DequantPages, _Finish, _PageAttend)
+    KV_DTYPES, NEG_INF, CheckAligned, CheckKvOperands, CheckQDtype,
+    NewLaunchCounts, NewQLaunchCounts, _DequantPages, _Finish, _PageAttend)
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 MAX_PAGE_SIZE = 128   # kernel limits
 # head dims: powers of two whose slot row is at least one 16-byte copy
@@ -189,7 +195,7 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("block_decode")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.BlockDecode.argtypes = [vp] * 8 + [ci] * 8 + [vp]
+    lib.BlockDecode.argtypes = [vp] * 8 + [ci] * 9 + [vp]
     lib.BlockDecode.restype = ci
     lib.BlockDecodeGeometry.argtypes = [ci] * 5 + [vp]
     lib.BlockDecodeGeometry.restype = ci
@@ -204,8 +210,7 @@ def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size,
   b, n, h = q.shape
   np_total, p = k_pool.shape[0], k_pool.shape[1]
   t_pages = block_tables.shape[1]
-  if q.dtype != torch.float32:
-    raise TypeError(f"BlockDecode kernel takes a float32 q, got {q.dtype}")
+  q_code = CheckQDtype("BlockDecode", q)
   if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
     raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
                      f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
@@ -239,13 +244,14 @@ def _CudaBlockDecode(q, k_pool, v_pool, block_tables, seq_lens, page_size,
       None if k_scale is None else k_scale.data_ptr(),
       None if v_scale is None else v_scale.data_ptr(),
       block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), b, n, h,
-      np_total, p, t_pages, KV_DTYPES[k_pool.dtype], NumSplits(t_pages, p),
-      stream)
+      np_total, p, t_pages, KV_DTYPES[k_pool.dtype], q_code,
+      NumSplits(t_pages, p), stream)
   if rc != 0:
     raise RuntimeError("BlockDecode kernel launch failed: "
                        + lib.BlockDecodeErrorString(rc).decode())
   BlockDecode.launches += 1
   BlockDecode.launches_by_dtype[kv_dtype] += 1
+  BlockDecode.launches_by_q_dtype[kv_quant.DtypeName(q.dtype)][kv_dtype] += 1
   return out
 
 
@@ -273,8 +279,9 @@ def BlockDecode(q, k_pool, v_pool, block_tables, seq_lens, *, page_size: int,
                 k_scale=None, v_scale=None):
   """Single-query block-table paged decode attention.
 
-  q: [B, 1, N, H], the newest query per row, ALREADY scaled, float32
-  (its K/V was written to the pool first, at slot seq_len - 1).
+  q: [B, 1, N, H], the newest query per row, ALREADY scaled, float32 or
+  bfloat16 (the output takes q's dtype; its K/V was written to the pool
+  first, at slot seq_len - 1).
   k_pool/v_pool: [num_pages, page_size, N, H] page pools, float32,
   bfloat16 or int8.
   block_tables: [B, pages_per_seq] int32 physical page ids.
@@ -284,8 +291,9 @@ def BlockDecode(q, k_pool, v_pool, block_tables, seq_lens, *, page_size: int,
   Returns [B, 1, N, H].
 
   CPU tensors run the plain version; CUDA tensors launch the kernel for
-  the pools' dtype (counting one launch in `BlockDecode.launches` and in
-  `BlockDecode.launches_by_dtype`) or raise."""
+  q's and the pools' dtypes (counting one launch in `BlockDecode.launches`,
+  in `BlockDecode.launches_by_dtype` by the pools' dtype and in
+  `BlockDecode.launches_by_q_dtype` by both) or raise."""
   kv_dtype = CheckKvOperands(k_pool, v_pool, k_scale, v_scale)
   if q.ndim != 4 or q.shape[1] != 1:
     raise ValueError(f"q must be [B, 1, N, H], got {tuple(q.shape)}")
@@ -301,9 +309,11 @@ def BlockDecode(q, k_pool, v_pool, block_tables, seq_lens, *, page_size: int,
   return out[:, None]
 
 
-# kernel launches, in all and by pool dtype (the plain version counts none)
+# kernel launches, in all, by pool dtype and by (q dtype, pool dtype) (the
+# plain version counts none)
 BlockDecode.launches = 0
 BlockDecode.launches_by_dtype = NewLaunchCounts()
+BlockDecode.launches_by_q_dtype = NewQLaunchCounts()
 
 
 def BlockPrefill(q, k_pool, v_pool, block_tables, q_pos, in_len, *,

@@ -59,12 +59,15 @@
 // the int8 kernel equals the float32 kernel on the pre-dequantized pool
 // bit for bit (int8 is dequantized on load with an uncontracted
 // __fmul_rn).
+// q and out: float32, or bfloat16 under fprop_dtype=bfloat16 (`Act`,
+// kv_storage.cuh: q widened on load, out rounded once at the division), a
+// second template parameter; nothing else changes with it.
 //
 // Limits (the Python wrapper's `KernelLimitError` raises outside them):
 // H a power of two in 4..128 with a slot row of at least 16 bytes (H >= 8
 // bfloat16, H >= 16 int8), page_size 1..128, at most kMaxCtaSlots slots
 // of scores per block, all tensors contiguous and 16-byte aligned,
-// float32 q, int32 tables and lengths.
+// float32 or bfloat16 q, int32 tables and lengths.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -192,13 +195,14 @@ __device__ __forceinline__ float Dot4(float4 a, float4 b, float acc) {
 
 // One (split, row x head) block of a cluster of `splits` blocks (see the
 // head of this file). cta_pages: the most pages a block takes,
-// ceil(t_pages / splits); cta_slots = cta_pages * page_size.
-template <typename T>
+// ceil(t_pages / splits); cta_slots = cta_pages * page_size. Q: the type
+// of q and out (`Act`, kv_storage.cuh).
+template <typename T, typename Q>
 __global__ void __launch_bounds__(kThreads) BlockDecodeKernel(
-    const float* __restrict__ q, const T* __restrict__ k_pool,
+    const Q* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ tables,
-    const int* __restrict__ seq_lens, float* __restrict__ out, int num_heads,
+    const int* __restrict__ seq_lens, Q* __restrict__ out, int num_heads,
     int head_dim, int num_pool_pages, int page_size, int t_pages,
     int cta_slots, int cta_pages) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) BlockDecodeKernel(
 
   const int len = seq_lens[row];
   if (len <= 0) {  // the whole cluster returns: exact zeros, no page read
-    if (split == 0 && tid < h) out[q_off + tid] = 0.f;
+    if (split == 0 && tid < h) Act<Q>::Store(out + q_off, tid, 0.f);
     return;
   }
   // the block's run of live pages and its slots [s0, s0 + ns)
@@ -301,8 +305,7 @@ __global__ void __launch_bounds__(kThreads) BlockDecodeKernel(
   float4 qr[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    qr[j] = j < qpl ? reinterpret_cast<const float4*>(q + q_off)[my_part +
-                                                                 lps * j]
+    qr[j] = j < qpl ? Act<Q>::Load4(q + q_off, my_part + lps * j)
                     : make_float4(0.f, 0.f, 0.f, 0.f);
 
   for (int i = 0; i < kStages - 1; ++i) prefetch(i);
@@ -424,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) BlockDecodeKernel(
       a += cluster.map_shared_rank(acc_sh, r)[tid];
       den += cluster.map_shared_rank(xch, r)->l;
     }
-    out[q_off + tid] = a / fmaxf(den, 1e-20f);
+    Act<Q>::Store(out + q_off, tid, a / fmaxf(den, 1e-20f));
   }
   cluster.sync();  // 3: every block's shared memory outlives rank 0's reads
 }
@@ -449,7 +452,7 @@ size_t SmemBytes(int head_dim, int page_size, int t_pages, int splits) {
 // Opts the kernel into the most dynamic shared memory it may take (above
 // the 48 KB default), once per device: the attribute call costs host
 // time, and the legacy decode step is bound by the host's enqueue.
-template <typename T>
+template <typename T, typename Q>
 cudaError_t AllowSmem() {
   static bool allowed[64] = {};
   int dev = 0;
@@ -459,17 +462,17 @@ cudaError_t AllowSmem() {
   // the largest layout: one slot a page, kMaxCtaSlots of them
   const size_t most = MakeLayout(kMaxHeadDim, sizeof(T), sizeof(T) == 1,
                                  kMaxCtaSlots, kMaxCtaSlots).bytes;
-  err = cudaFuncSetAttribute(BlockDecodeKernel<T>,
+  err = cudaFuncSetAttribute(BlockDecodeKernel<T, Q>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(most));
   if (err == cudaSuccess && dev < 64) allowed[dev] = true;
   return err;
 }
 
-template <typename T>
-cudaError_t Launch(const float* q, const void* k_pool, const void* v_pool,
+template <typename T, typename Q>
+cudaError_t Launch(const void* q, const void* k_pool, const void* v_pool,
                    const float* k_scale, const float* v_scale,
-                   const int* tables, const int* seq_lens, float* out,
+                   const int* tables, const int* seq_lens, void* out,
                    int batch, int num_heads, int head_dim,
                    int num_pool_pages, int page_size, int t_pages,
                    int splits, cudaStream_t stream) {
@@ -478,7 +481,7 @@ cudaError_t Launch(const float* q, const void* k_pool, const void* v_pool,
   if (splits < 1 || splits > kMaxSplits ||
       cta_pages * page_size > kMaxCtaSlots || rows > 65535)
     return cudaErrorInvalidValue;
-  cudaError_t err = AllowSmem<T>();
+  cudaError_t err = AllowSmem<T, Q>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, static_cast<unsigned>(rows));
@@ -492,10 +495,12 @@ cudaError_t Launch(const float* q, const void* k_pool, const void* v_pool,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, BlockDecodeKernel<T>, q,
+  err = cudaLaunchKernelEx(&cfg, BlockDecodeKernel<T, Q>,
+                           static_cast<const Q*>(q),
                            static_cast<const T*>(k_pool),
                            static_cast<const T*>(v_pool), k_scale, v_scale,
-                           tables, seq_lens, out, num_heads, head_dim,
+                           tables, seq_lens, static_cast<Q*>(out), num_heads,
+                           head_dim,
                            num_pool_pages, page_size, t_pages,
                            cta_pages * page_size, cta_pages);
   if (err != cudaSuccess) return err;
@@ -506,13 +511,13 @@ template <typename T>
 cudaError_t Geometry(int head_dim, int page_size, int t_pages, int splits,
                      int* geo) {
   const size_t bytes = SmemBytes<T>(head_dim, page_size, t_pages, splits);
-  cudaError_t err = AllowSmem<T>();
+  cudaError_t err = AllowSmem<T, float>();
   if (err != cudaSuccess) return err;
   geo[0] = kThreads;
   geo[1] = static_cast<int>(bytes);
   geo[2] = TileSlots(head_dim);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &geo[3], BlockDecodeKernel<T>, kThreads, bytes);
+      &geo[3], BlockDecodeKernel<T, float>, kThreads, bytes);
   return err;
 }
 
@@ -521,41 +526,45 @@ cudaError_t Geometry(int head_dim, int page_size, int t_pages, int splits,
 extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// q/out [B, N, H] float32; k_pool/v_pool [NP, P, N, H] of `kv_dtype`
-// (KvDtype); k_scale/v_scale [NP, N, P] float32 for int8 pools, else
-// null; tables [B, t_pages]; seq_lens [B]; all contiguous, on one device.
-// splits: the blocks of one (row, head)'s cluster, 1..8 (the Python
-// `NumSplits`). One kernel.
-int BlockDecode(const float* q, const void* k_pool, const void* v_pool,
+// q/out [B, N, H] of `q_dtype` (ActDtype: float32 or bfloat16);
+// k_pool/v_pool [NP, P, N, H] of `kv_dtype` (KvDtype); k_scale/v_scale
+// [NP, N, P] float32 for int8 pools, else null; tables [B, t_pages];
+// seq_lens [B]; all contiguous, on one device. splits: the blocks of one
+// (row, head)'s cluster, 1..8 (the Python `NumSplits`). One kernel.
+int BlockDecode(const void* q, const void* k_pool, const void* v_pool,
                 const float* k_scale, const float* v_scale, const int* tables,
-                const int* seq_lens, float* out, int batch, int num_heads,
+                const int* seq_lens, void* out, int batch, int num_heads,
                 int head_dim, int num_pool_pages, int page_size, int t_pages,
-                int kv_dtype, int splits, void* stream) {
+                int kv_dtype, int q_dtype, int splits, void* stream) {
   if (batch <= 0) return 0;
   if (kv_dtype < kF32 || kv_dtype > kI8 ||
+      (q_dtype != kActF32 && q_dtype != kActBF16) ||
       BadShape(head_dim, Itemsize(kv_dtype), page_size) ||
       num_pool_pages < 1 || t_pages < 1 ||
       (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+#define BLOCK_DECODE_LAUNCH(T)                                              \
+  (q_dtype == kActBF16                                                     \
+       ? Launch<T, bf16>(q, k_pool, v_pool, k_scale, v_scale, tables,      \
+                         seq_lens, out, batch, num_heads, head_dim,        \
+                         num_pool_pages, page_size, t_pages, splits, s)    \
+       : Launch<T, float>(q, k_pool, v_pool, k_scale, v_scale, tables,     \
+                          seq_lens, out, batch, num_heads, head_dim,       \
+                          num_pool_pages, page_size, t_pages, splits, s))
   switch (kv_dtype) {
     case kF32:
-      err = Launch<float>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                          seq_lens, out, batch, num_heads, head_dim,
-                          num_pool_pages, page_size, t_pages, splits, s);
+      err = BLOCK_DECODE_LAUNCH(float);
       break;
     case kBF16:
-      err = Launch<bf16>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                         seq_lens, out, batch, num_heads, head_dim,
-                         num_pool_pages, page_size, t_pages, splits, s);
+      err = BLOCK_DECODE_LAUNCH(bf16);
       break;
     default:
-      err = Launch<int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                           seq_lens, out, batch, num_heads, head_dim,
-                           num_pool_pages, page_size, t_pages, splits, s);
+      err = BLOCK_DECODE_LAUNCH(int8_t);
       break;
   }
+#undef BLOCK_DECODE_LAUNCH
   return static_cast<int>(err);
 }
 

@@ -105,9 +105,14 @@
 // ceil(tiles / splits) x kTs x 8 bytes of shared memory, at most
 // kMaxCtaSlots slots per block (the wrapper raises above it).
 //
+// q and out: float32, or bfloat16 under fprop_dtype=bfloat16 (`Act`,
+// kv_storage.cuh: q widened on load, out rounded once at the division),
+// a template parameter of the three kernels; nothing else changes with it.
+//
 // Limits (the Python wrapper raises outside them): head dim 4..128 with
 // H / 4 a power of two (8..128 for bfloat16, so that a 16-byte copy never
-// spans two slots), all tensors contiguous, float32 q and paddings.
+// spans two slots), all tensors contiguous, float32 or bfloat16 q,
+// float32 paddings.
 
 #include <algorithm>
 
@@ -224,8 +229,10 @@ __device__ void SplitTiles(const float* pad_row, int t_eff, int ts,
 
 // One (row x head, split) block of the float32 cache: scores, tile
 // softmax and P.V in one pass; writes its (acc[H], m, l) to `partial`.
+// Q: the type of q (`Act`, kv_storage.cuh).
+template <typename Q>
 __global__ void __launch_bounds__(kThreads) FlashDecodeSplitKernel(
-    const float* __restrict__ q, const float* __restrict__ k_cache,
+    const Q* __restrict__ q, const float* __restrict__ k_cache,
     const float* __restrict__ v_cache, const float* __restrict__ pad,
     float* __restrict__ partial, int seq_len, int num_heads, int head_dim,
     int time_step) {
@@ -262,8 +269,7 @@ __global__ void __launch_bounds__(kThreads) FlashDecodeSplitKernel(
 
   const int g = h / 4;              // lanes of one slot's dot product
   const int glane = tid % g;
-  const float4 qv = reinterpret_cast<const float4*>(
-      q + static_cast<size_t>(bn) * h)[glane];
+  const float4 qv = Act<Q>::Load4(q + static_cast<size_t>(bn) * h, glane);
   const int quads = ts * g;         // 4-value groups of a K (or V) tile
   const int gc = h / kVec;          // 16-byte copies of one slot's row
   const int copies = ts * gc;       // 16-byte copies of a K (or V) tile
@@ -367,9 +373,11 @@ __global__ void __launch_bounds__(kThreads) FlashDecodeSplitKernel(
 
 // Merges a (row, head)'s splits in split order: out = sum_s acc_s e_s /
 // max(sum_s l_s e_s, 1e-20) with e_s = exp(m_s - max_s m_s). A row with
-// nothing live has every m_s = NEG_INF and l_s = 0: exact zeros.
+// nothing live has every m_s = NEG_INF and l_s = 0: exact zeros. Q: the
+// type of out.
+template <typename Q>
 __global__ void __launch_bounds__(kThreads) FlashDecodeCombineKernel(
-    const float* __restrict__ partial, float* __restrict__ out, int head_dim,
+    const float* __restrict__ partial, Q* __restrict__ out, int head_dim,
     int splits) {
   const int bn = blockIdx.x;
   const int h = head_dim;
@@ -385,7 +393,8 @@ __global__ void __launch_bounds__(kThreads) FlashDecodeCombineKernel(
     l = fmaf(ps[h + 1], e, l);
     acc = fmaf(ps[tid], e, acc);
   }
-  out[static_cast<size_t>(bn) * h + tid] = acc / fmaxf(l, 1e-20f);
+  Act<Q>::Store(out + static_cast<size_t>(bn) * h, tid,
+                acc / fmaxf(l, 1e-20f));
 }
 
 // -- the bfloat16 cache: one launch, one cluster per (row, head) ----------
@@ -440,11 +449,12 @@ __device__ void RunningMax(const float* x, int n, float* out, float* red) {
 
 // One (split, row x head) block of a cluster of `splits` blocks (see the
 // header). cta_slots: the capacity of its score arrays, at least its
-// tiles x kTs.
+// tiles x kTs. Q: the type of q and out.
+template <typename Q>
 __global__ void __launch_bounds__(kThreads) FlashDecodeBf16Kernel(
-    const float* __restrict__ q, const bf16* __restrict__ k_cache,
+    const Q* __restrict__ q, const bf16* __restrict__ k_cache,
     const bf16* __restrict__ v_cache, const float* __restrict__ pad,
-    float* __restrict__ out, int seq_len, int num_heads, int head_dim,
+    Q* __restrict__ out, int seq_len, int num_heads, int head_dim,
     int time_step, int page_size, int cta_slots) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kVec = 8;           // bf16 values of one 16-byte copy
@@ -499,9 +509,10 @@ __global__ void __launch_bounds__(kThreads) FlashDecodeBf16Kernel(
                  // costs two more loads per chunk)
 #pragma unroll
   for (int j = 0; j < 32; ++j)
-    qr[j] = j < cpl * kVec ? q[static_cast<size_t>(bn) * h +
-                               my_part * cpl * kVec + j]
-                           : 0.f;
+    qr[j] = j < cpl * kVec
+                ? Act<Q>::Load(q + static_cast<size_t>(bn) * h,
+                               my_part * cpl * kVec + j)
+                : 0.f;
   // P . V: thread (part, cq) owns columns 4 cq .. 4 cq + 3 over the
   // slots part, part + parts, ...
   const int quads = h / 4;
@@ -658,7 +669,8 @@ __global__ void __launch_bounds__(kThreads) FlashDecodeBf16Kernel(
       a += cluster.map_shared_rank(acc_sh, r)[tid];
       den += cluster.map_shared_rank(xch, r)->l;
     }
-    out[static_cast<size_t>(bn) * h + tid] = a / fmaxf(den, 1e-20f);
+    Act<Q>::Store(out + static_cast<size_t>(bn) * h, tid,
+                  a / fmaxf(den, 1e-20f));
   }
   cluster.sync();  // every block's shared memory outlives block 0's reads
 }
@@ -706,14 +718,16 @@ cudaError_t AllowSmemOnce(Kernel kernel, size_t bytes, bool* allowed) {
   return err;
 }
 
+template <typename Q>
 cudaError_t AllowSplitSmem() {
   static bool allowed[64] = {};
-  return AllowSmemOnce(FlashDecodeSplitKernel, SplitSmemBytes(), allowed);
+  return AllowSmemOnce(FlashDecodeSplitKernel<Q>, SplitSmemBytes(), allowed);
 }
 
+template <typename Q>
 cudaError_t AllowBf16Smem() {
   static bool allowed[64] = {};
-  return AllowSmemOnce(FlashDecodeBf16Kernel, Bf16SmemBytes(kMaxCtaSlots),
+  return AllowSmemOnce(FlashDecodeBf16Kernel<Q>, Bf16SmemBytes(kMaxCtaSlots),
                        allowed);
 }
 
@@ -723,26 +737,29 @@ bool BadHeadDim(int head_dim, int kv_dtype) {
          head_dim % 4 != 0 || (g & (g - 1)) != 0;
 }
 
-cudaError_t LaunchF32(const float* q, const float* k_cache,
-                      const float* v_cache, const float* pad, float* out,
+template <typename Q>
+cudaError_t LaunchF32(const Q* q, const float* k_cache,
+                      const float* v_cache, const float* pad, Q* out,
                       float* partial, unsigned rows, int seq_len,
                       int num_heads, int head_dim, int time_step, int splits,
                       cudaStream_t s) {
   if (splits > 65535) return cudaErrorInvalidValue;
-  cudaError_t err = AllowSplitSmem();
+  cudaError_t err = AllowSplitSmem<Q>();
   if (err != cudaSuccess) return err;
-  FlashDecodeSplitKernel<<<dim3(rows, splits), kThreads, SplitSmemBytes(),
-                           s>>>(q, k_cache, v_cache, pad, partial, seq_len,
-                                num_heads, head_dim, time_step);
+  FlashDecodeSplitKernel<Q><<<dim3(rows, splits), kThreads,
+                              SplitSmemBytes(), s>>>(
+      q, k_cache, v_cache, pad, partial, seq_len, num_heads, head_dim,
+      time_step);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  FlashDecodeCombineKernel<<<rows, kThreads, 0, s>>>(partial, out, head_dim,
-                                                     splits);
+  FlashDecodeCombineKernel<Q><<<rows, kThreads, 0, s>>>(partial, out,
+                                                        head_dim, splits);
   return cudaGetLastError();
 }
 
-cudaError_t LaunchBf16(const float* q, const bf16* k_cache,
-                       const bf16* v_cache, const float* pad, float* out,
+template <typename Q>
+cudaError_t LaunchBf16(const Q* q, const bf16* k_cache,
+                       const bf16* v_cache, const float* pad, Q* out,
                        unsigned rows, int seq_len, int num_heads,
                        int head_dim, int time_step, int splits,
                        int page_size, cudaStream_t s) {
@@ -750,7 +767,7 @@ cudaError_t LaunchBf16(const float* q, const bf16* k_cache,
   const int cta_slots = Bf16CtaSlots(seq_len, head_dim, time_step, splits);
   if (splits > kMaxCluster || rows > 65535 || cta_slots > kMaxCtaSlots)
     return cudaErrorInvalidValue;
-  cudaError_t err = AllowBf16Smem();
+  cudaError_t err = AllowBf16Smem<Q>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, rows);
@@ -764,11 +781,36 @@ cudaError_t LaunchBf16(const float* q, const bf16* k_cache,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, FlashDecodeBf16Kernel, q, k_cache, v_cache,
-                           pad, out, seq_len, num_heads, head_dim, time_step,
-                           page_size, cta_slots);
+  err = cudaLaunchKernelEx(&cfg, FlashDecodeBf16Kernel<Q>, q, k_cache,
+                           v_cache, pad, out, seq_len, num_heads, head_dim,
+                           time_step, page_size, cta_slots);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The launches for a cache of `kv_dtype` and a q of type Q.
+template <typename Q>
+cudaError_t LaunchFor(int kv_dtype, const void* q, const void* k_cache,
+                      const void* v_cache, const float* pad, void* out,
+                      float* scratch, unsigned rows, int seq_len,
+                      int num_heads, int head_dim, int time_step, int splits,
+                      int page_size, cudaStream_t s) {
+  switch (kv_dtype) {
+    case kF32:
+      return LaunchF32<Q>(static_cast<const Q*>(q),
+                          static_cast<const float*>(k_cache),
+                          static_cast<const float*>(v_cache), pad,
+                          static_cast<Q*>(out), scratch, rows, seq_len,
+                          num_heads, head_dim, time_step, splits, s);
+    case kBF16:
+      return LaunchBf16<Q>(static_cast<const Q*>(q),
+                           static_cast<const bf16*>(k_cache),
+                           static_cast<const bf16*>(v_cache), pad,
+                           static_cast<Q*>(out), rows, seq_len, num_heads,
+                           head_dim, time_step, splits, page_size, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -776,39 +818,33 @@ cudaError_t LaunchBf16(const float* q, const bf16* k_cache,
 extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launches (0 = ok).
-// q/out [B, N, H] float32; k_cache/v_cache [B, S, N, H] of `kv_dtype`
-// (KvDtype: float32 or bfloat16); pad [B, S] float32 or null; scratch:
-// float32, FlashDecodeScratchFloats(...) of them (none for bfloat16); all
+// q/out [B, N, H] of `q_dtype` (ActDtype: float32 or bfloat16);
+// k_cache/v_cache [B, S, N, H] of `kv_dtype` (KvDtype: float32 or
+// bfloat16); pad [B, S] float32 or null; scratch: float32,
+// FlashDecodeScratchFloats(...) of them (none for bfloat16); all
 // contiguous on one device. A float32 cache takes the split kernel and
 // the combine (two launches), a bfloat16 cache one cluster launch with
 // splits <= 8.
-int FlashDecode(const float* q, const void* k_cache, const void* v_cache,
-                const float* pad, float* out, float* scratch, int batch,
+int FlashDecode(const void* q, const void* k_cache, const void* v_cache,
+                const float* pad, void* out, float* scratch, int batch,
                 int seq_len, int num_heads, int head_dim, int time_step,
-                int splits, int page_size, int kv_dtype, void* stream) {
+                int splits, int page_size, int kv_dtype, int q_dtype,
+                void* stream) {
   if (batch <= 0) return 0;
   if (BadHeadDim(head_dim, kv_dtype) || seq_len <= 0 || splits < 1 ||
-      page_size < 1 || page_size > kMaxTs)
+      page_size < 1 || page_size > kMaxTs ||
+      (q_dtype != kActF32 && q_dtype != kActBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned rows = static_cast<unsigned>(batch) * num_heads;
-  cudaError_t err;
-  switch (kv_dtype) {
-    case kF32:
-      err = LaunchF32(q, static_cast<const float*>(k_cache),
-                      static_cast<const float*>(v_cache), pad, out, scratch,
-                      rows, seq_len, num_heads, head_dim, time_step, splits,
-                      s);
-      break;
-    case kBF16:
-      err = LaunchBf16(q, static_cast<const bf16*>(k_cache),
-                       static_cast<const bf16*>(v_cache), pad, out, rows,
-                       seq_len, num_heads, head_dim, time_step, splits,
-                       page_size, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err =
+      q_dtype == kActBF16
+          ? LaunchFor<bf16>(kv_dtype, q, k_cache, v_cache, pad, out, scratch,
+                            rows, seq_len, num_heads, head_dim, time_step,
+                            splits, page_size, s)
+          : LaunchFor<float>(kv_dtype, q, k_cache, v_cache, pad, out,
+                             scratch, rows, seq_len, num_heads, head_dim,
+                             time_step, splits, page_size, s);
   return static_cast<int>(err);
 }
 
@@ -822,7 +858,10 @@ long long FlashDecodeScratchFloats(int batch, int seq_len, int num_heads,
 
 // The launch geometry for `kv_dtype`: threads and dynamic shared memory
 // per block, and the blocks resident on one SM (bfloat16: with the score
-// arrays of a 1024-slot cache over 8 splits). Returns the cudaError_t.
+// arrays of a 1024-slot cache over 8 splits), of the float32-q kernels. A
+// bfloat16 q takes the same split count (`NumSplits` reads this), so its
+// kernel splits the row where the float32-q kernel does. Returns the
+// cudaError_t.
 int FlashDecodeGeometry(int kv_dtype, int* threads, int* smem_bytes,
                         int* blocks_per_sm) {
   *threads = kThreads;
@@ -830,20 +869,20 @@ int FlashDecodeGeometry(int kv_dtype, int* threads, int* smem_bytes,
   switch (kv_dtype) {
     case kF32:
       *smem_bytes = static_cast<int>(SplitSmemBytes());
-      err = AllowSplitSmem();
+      err = AllowSplitSmem<float>();
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, FlashDecodeSplitKernel, kThreads,
+            blocks_per_sm, FlashDecodeSplitKernel<float>, kThreads,
             SplitSmemBytes());
       break;
     case kBF16: {
       const size_t bytes =
           Bf16SmemBytes(Bf16CtaSlots(1024, 128, 1023, kMaxCluster));
       *smem_bytes = static_cast<int>(bytes);
-      err = AllowBf16Smem();
+      err = AllowBf16Smem<float>();
       if (err == cudaSuccess)
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks_per_sm, FlashDecodeBf16Kernel, kThreads, bytes);
+            blocks_per_sm, FlashDecodeBf16Kernel<float>, kThreads, bytes);
       break;
     }
     default:

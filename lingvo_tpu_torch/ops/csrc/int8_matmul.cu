@@ -36,9 +36,19 @@
 // 2 M K N operations at M <= a few hundred sit far under the int8 tensor
 // cores' 1979 TOP/s.
 //
+// Under fprop_dtype=bfloat16 x and y are bfloat16 (the reference
+// quantizes x.astype(float32) and returns y.astype(x.dtype)): (a) has an
+// instantiation that widens bfloat16 x on load (exact) and (b) one whose
+// epilogue rounds y to bfloat16, to nearest even, after the two float32
+// multiplies; the weight scales stay float32 tensors, the bfloat16-rounded
+// scales widened exactly once by the wrapper. Nothing else changes with
+// them, so the bits are those of the float32 kernels on the widened x,
+// rounded.
+//
 // Plain C interface, loaded with ctypes by ops/int8_matmul.py.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,11 +84,36 @@ __device__ __forceinline__ int8_t Quantize(float v, float scale) {
   return static_cast<int8_t>(min(127, max(-128, q)));
 }
 
+// x of type X, float32 or bfloat16: 4 values of a row widened to float32
+// (16-byte / 8-byte loads; rows of a multiple of 4 values are aligned to
+// them), and one value.
+__device__ __forceinline__ float4 Load4X(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 Load4X(const __nv_bfloat16* p) {
+  const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float LoadX(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float LoadX(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+// y of type Y: float32, or bfloat16 rounded to nearest even
+__device__ __forceinline__ void StoreY(float* p, float v) { *p = v; }
+__device__ __forceinline__ void StoreY(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // A unit is 256 quads (4 columns each) of one row of x8: unit u is row u /
 // segs, quads (u % segs) * 256 + threadIdx.x. Block b takes units b, b +
 // gridDim.x, ...; the grid is one cooperative wave.
+template <typename X>
 __global__ void __launch_bounds__(kThreads) Int8QuantizeKernel(
-    const float* __restrict__ x, int8_t* __restrict__ x8,
+    const X* __restrict__ x, int8_t* __restrict__ x8,
     float* __restrict__ x_scale, float* __restrict__ block_max, int m, int k,
     int kp) {
   __shared__ float red[kThreads / 32];
@@ -91,14 +126,14 @@ __global__ void __launch_bounds__(kThreads) Int8QuantizeKernel(
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     const int row = u / segs;
     const int col = ((u - row * segs) * kThreads + threadIdx.x) * 4;
-    const float* src = x + static_cast<long long>(row) * k + col;
+    const X* src = x + static_cast<long long>(row) * k + col;
     if (vec && col < k) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+      const float4 v = Load4X(src);
       amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
                                fmaxf(fabsf(v.z), fabsf(v.w))));
     } else {
       for (int j = 0; j < 4 && col + j < k; ++j)
-        amax = fmaxf(amax, fabsf(__ldg(src + j)));
+        amax = fmaxf(amax, fabsf(LoadX(src + j)));
     }
   }
   amax = BlockMax<kThreads>(amax, red);
@@ -118,17 +153,17 @@ __global__ void __launch_bounds__(kThreads) Int8QuantizeKernel(
     const int quad = (u - row * segs) * kThreads + threadIdx.x;
     if (quad >= quads) continue;
     const int col = quad * 4;
-    const float* src = x + static_cast<long long>(row) * k + col;
+    const X* src = x + static_cast<long long>(row) * k + col;
     char4 out;
     if (vec && col < k) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(src));
+      const float4 v = Load4X(src);
       out = make_char4(Quantize(v.x, scale), Quantize(v.y, scale),
                        Quantize(v.z, scale), Quantize(v.w, scale));
     } else {
-      out.x = col + 0 < k ? Quantize(src[0], scale) : 0;
-      out.y = col + 1 < k ? Quantize(src[1], scale) : 0;
-      out.z = col + 2 < k ? Quantize(src[2], scale) : 0;
-      out.w = col + 3 < k ? Quantize(src[3], scale) : 0;
+      out.x = col + 0 < k ? Quantize(LoadX(src + 0), scale) : 0;
+      out.y = col + 1 < k ? Quantize(LoadX(src + 1), scale) : 0;
+      out.z = col + 2 < k ? Quantize(LoadX(src + 2), scale) : 0;
+      out.w = col + 3 < k ? Quantize(LoadX(src + 3), scale) : 0;
     }
     *reinterpret_cast<char4*>(x8 + static_cast<long long>(row) * kp + col) =
         out;
@@ -197,12 +232,13 @@ __device__ __forceinline__ void LoadStage(
 }
 
 // grid (m tiles, n tiles, splits): the m tiles that share a weight tile run
-// side by side, so the weight is streamed from device memory once.
-template <int kBM>
+// side by side, so the weight is streamed from device memory once. Y: the
+// type of y (float32, or bfloat16 rounded at the store).
+template <int kBM, typename Y>
 __global__ void __launch_bounds__(kThreads) Int8GemmKernel(
     const int8_t* __restrict__ x8, const int8_t* __restrict__ w,
     const float* __restrict__ x_scale, const float* __restrict__ w_scale,
-    float* __restrict__ y, int* ws, unsigned* tile_counters, int m, int k,
+    Y* __restrict__ y, int* ws, unsigned* tile_counters, int m, int k,
     int kp, int n, int chunks_per_split) {
   constexpr int kWM = kBM >= 64 ? 2 : 1;       // warps along M
   constexpr int kWN = 8 / kWM;                 // warps along N
@@ -286,8 +322,9 @@ __global__ void __launch_bounds__(kThreads) Int8GemmKernel(
           const int row = m0 + wm + mt * 16 + g + (r >> 1) * 8;
           const int col = n0 + wn + nt * 8 + t * 2 + (r & 1);
           if (row < m && col < n)
-            y[static_cast<long long>(row) * n + col] = __fmul_rn(
-                __fmul_rn(__int2float_rn(acc[mt][nt][r]), xs), w_scale[col]);
+            StoreY(y + static_cast<long long>(row) * n + col,
+                   __fmul_rn(__fmul_rn(__int2float_rn(acc[mt][nt][r]), xs),
+                             w_scale[col]));
         }
     return;
   }
@@ -340,8 +377,8 @@ __global__ void __launch_bounds__(kThreads) Int8GemmKernel(
           sum[j] += __ldcg(ws + s * plane + at + j);
     }
     for (int j = 0; j < 4 && col + j < n; ++j)
-      y[at + j] = __fmul_rn(__fmul_rn(__int2float_rn(sum[j]), xs),
-                            w_scale[col + j]);
+      StoreY(y + at + j, __fmul_rn(__fmul_rn(__int2float_rn(sum[j]), xs),
+                                   w_scale[col + j]));
   }
 }
 
@@ -361,20 +398,27 @@ cudaError_t Setup(int* quant_cap) {
     *quant_cap = caps[dev];
     return cudaSuccess;
   }
-  err = cudaFuncSetAttribute(Int8GemmKernel<16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             GemmSmem<16>());
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(Int8GemmKernel<64>,
+  const void* gemms[4] = {
+      reinterpret_cast<const void*>(Int8GemmKernel<16, float>),
+      reinterpret_cast<const void*>(Int8GemmKernel<64, float>),
+      reinterpret_cast<const void*>(Int8GemmKernel<16, __nv_bfloat16>),
+      reinterpret_cast<const void*>(Int8GemmKernel<64, __nv_bfloat16>)};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = cudaFuncSetAttribute(gemms[i],
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               GemmSmem<64>());
-  int sms = 0, per_sm = 0;
+                               i % 2 ? GemmSmem<64>() : GemmSmem<16>());
+  // the one wave of (a) is the least of its two instantiations' waves
+  int sms = 0, per_sm = 0, per_sm_bf16 = 0;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, Int8QuantizeKernel, kThreads, 0);
+        &per_sm, Int8QuantizeKernel<float>, kThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm_bf16, Int8QuantizeKernel<__nv_bfloat16>, kThreads, 0);
   if (err != cudaSuccess) return err;
+  per_sm = per_sm < per_sm_bf16 ? per_sm : per_sm_bf16;
   *quant_cap = sms * per_sm;
   if (dev < kMaxDevices) caps[dev] = *quant_cap;
   return cudaSuccess;
@@ -397,30 +441,35 @@ int Int8QuantizeGrid(int m, int kp, int* grid) {
   return 0;
 }
 
-// (a) on `stream`: x [m, k] float32 -> x8 [m, kp] int8 and x_scale [1]
-// float32; block_max: `grid` floats of scratch (from Int8QuantizeGrid).
-// One cooperative launch. Returns the cudaError_t of the launch (0 = ok).
-int Int8Quantize(const float* x, int8_t* x8, float* x_scale,
-                 float* block_max, int m, int k, int kp, int grid,
+// (a) on `stream`: x [m, k] float32, or bfloat16 when bf16 != 0 -> x8 [m,
+// kp] int8 and x_scale [1] float32; block_max: `grid` floats of scratch
+// (from Int8QuantizeGrid). One cooperative launch. Returns the cudaError_t
+// of the launch (0 = ok).
+int Int8Quantize(const void* x, int8_t* x8, float* x_scale,
+                 float* block_max, int m, int k, int kp, int grid, int bf16,
                  void* stream) {
   if (m <= 0 || k <= 0 || kp < k || kp % 16 != 0 || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   void* args[] = {&x, &x8, &x_scale, &block_max, &m, &k, &kp};
+  const void* kernel =
+      bf16 ? reinterpret_cast<const void*>(Int8QuantizeKernel<__nv_bfloat16>)
+           : reinterpret_cast<const void*>(Int8QuantizeKernel<float>);
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(Int8QuantizeKernel), dim3(grid),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
+      kernel, dim3(grid), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// (b) on `stream`: y [m, n] float32 = (float(x8[:, :k] . w^T) * x_scale) *
-// w_scale. x8 [m, kp] int8 (from Int8Quantize); w [n, k] int8, K-major;
+// (b) on `stream`: y [m, n] float32 (bfloat16 when bf16 != 0, rounded
+// once) = (float(x8[:, :k] . w^T) * x_scale) * w_scale. x8 [m, kp] int8
+// (from Int8Quantize); w [n, k] int8, K-major;
 // w_scale [n] float32. bm: 16 or 64 rows a block; splits: blocks along K,
 // each `chunks_per_split` 64-byte chunks; ws: [splits, m, n] int32 and
 // counters: one unsigned per (m tile, n tile), both scratch used only when
 // splits > 1 (counters zeroed here). Returns the cudaError_t (0 = ok).
 int Int8Gemm(const int8_t* x8, const int8_t* w, const float* x_scale,
-             const float* w_scale, float* y, int* ws, unsigned* counters,
+             const float* w_scale, void* y, int* ws, unsigned* counters,
              int m, int k, int kp, int n, int bm, int splits,
-             int chunks_per_split, void* stream) {
+             int chunks_per_split, int bf16, void* stream) {
   if (m <= 0 || k <= 0 || n <= 0 || kp < k || kp % 16 != 0 ||
       (bm != 16 && bm != 64) || splits < 1 || splits > 65535 ||
       chunks_per_split < 1 || (splits > 1 && (ws == nullptr ||
@@ -439,14 +488,22 @@ int Int8Gemm(const int8_t* x8, const int8_t* w, const float* x_scale,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   dim3 grid(m_tiles, n_tiles, splits);
-  if (bm == 16)
-    Int8GemmKernel<16><<<grid, kThreads, GemmSmem<16>(), s>>>(
-        x8, w, x_scale, w_scale, y, ws, counters, m, k, kp, n,
-        chunks_per_split);
-  else
-    Int8GemmKernel<64><<<grid, kThreads, GemmSmem<64>(), s>>>(
-        x8, w, x_scale, w_scale, y, ws, counters, m, k, kp, n,
-        chunks_per_split);
+#define INT8_GEMM_LAUNCH(BM, Y)                                             \
+  Int8GemmKernel<BM, Y><<<grid, kThreads, GemmSmem<BM>(), s>>>(             \
+      x8, w, x_scale, w_scale, static_cast<Y*>(y), ws, counters, m, k, kp, \
+      n, chunks_per_split)
+  if (bf16) {
+    if (bm == 16)
+      INT8_GEMM_LAUNCH(16, __nv_bfloat16);
+    else
+      INT8_GEMM_LAUNCH(64, __nv_bfloat16);
+  } else {
+    if (bm == 16)
+      INT8_GEMM_LAUNCH(16, float);
+    else
+      INT8_GEMM_LAUNCH(64, float);
+  }
+#undef INT8_GEMM_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,11 +524,12 @@ long long Int8MatmulScratch(int m, int kp, int n, int grid, int bm,
 }
 
 // (a) then (b) on `stream` over one scratch of Int8MatmulScratch's bytes:
-// y [m, n] float32 = the int8 product of x [m, k] float32 and w [n, k] int8
-// with its two scales. Returns the first nonzero cudaError_t (0 = ok).
-int Int8Matmul(const float* x, const int8_t* w, const float* w_scale,
-               float* y, int8_t* scratch, int m, int k, int kp, int n,
-               int grid, int bm, int splits, int chunks_per_split,
+// y [m, n] = the int8 product of x [m, k] and w [n, k] int8 with its two
+// scales; x and y float32, or both bfloat16 when bf16 != 0. Returns the
+// first nonzero cudaError_t (0 = ok).
+int Int8Matmul(const void* x, const int8_t* w, const float* w_scale,
+               void* y, int8_t* scratch, int m, int k, int kp, int n,
+               int grid, int bm, int splits, int chunks_per_split, int bf16,
                void* stream) {
   long long at[5];
   Int8MatmulScratch(m, kp, n, grid, bm, splits, at);
@@ -479,14 +537,14 @@ int Int8Matmul(const float* x, const int8_t* w, const float* w_scale,
   float* x_scale = reinterpret_cast<float*>(scratch + at[1]);
   const int rc = Int8Quantize(x, x8, x_scale,
                               reinterpret_cast<float*>(scratch + at[2]), m,
-                              k, kp, grid, stream);
+                              k, kp, grid, bf16, stream);
   if (rc != 0) return rc;
   return Int8Gemm(x8, w, x_scale, w_scale, y,
                   splits > 1 ? reinterpret_cast<int*>(scratch + at[4])
                              : nullptr,
                   splits > 1 ? reinterpret_cast<unsigned*>(scratch + at[3])
                              : nullptr,
-                  m, k, kp, n, bm, splits, chunks_per_split, stream);
+                  m, k, kp, n, bm, splits, chunks_per_split, bf16, stream);
 }
 
 const char* Int8MatmulErrorString(int code) {

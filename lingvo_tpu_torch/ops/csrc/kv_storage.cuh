@@ -18,7 +18,8 @@
 //    pre-dequantized pool bit for bit. `Scale` reads a slot's scale; a
 //    kernel calls it only for a slot it reads (dead scales may hold NaN).
 // The codes of `KvDtype` are the Python wrappers'
-// (ragged_block_attend.KV_DTYPES).
+// (ragged_block_attend.KV_DTYPES). The query and output type is a second
+// template parameter of each kernel (`Act<Q>`, below).
 
 #pragma once
 
@@ -81,4 +82,59 @@ struct Kv<int8_t> {
     return __fmul_rn(static_cast<float>(row[h]), sc);
   }
   __device__ static float RoundP(float p) { return p; }
+};
+
+// The type of q and of the output (`Act<Q>`; the codes of `ActDtype` are
+// the Python wrappers' `ragged_block_attend.Q_DTYPES`): float32, or
+// bfloat16 under fprop_dtype=bfloat16. A bfloat16 q is widened on load,
+// which is exact, so the scores are those of the float32 kernel on the
+// widened q (the reference's `_DotF32` multiplies the same float32
+// values). The output is rounded to bfloat16 once, to nearest even, after
+// the float32 division acc / max(l, 1e-20): the reference's
+// `_Finish(l, acc, q.dtype)`. Everything in between is the float32 code,
+// so a bfloat16-q kernel equals the float32-q kernel on the widened q with
+// its output rounded to bfloat16, bit for bit. Rows of q and out are
+// 4-element aligned (H a multiple of 4): 16 bytes for float32, 8 for
+// bfloat16.
+enum ActDtype { kActF32 = 0, kActBF16 = 1 };
+
+template <typename Q>
+struct Act;
+
+template <>
+struct Act<float> {
+  __device__ static float4 Load4(const float* row, int i) {
+    return reinterpret_cast<const float4*>(row)[i];
+  }
+  __device__ static float Load(const float* row, int i) { return row[i]; }
+  __device__ static void Store4(float* row, int i, float4 v) {
+    reinterpret_cast<float4*>(row)[i] = v;
+  }
+  __device__ static void Store(float* row, int i, float v) { row[i] = v; }
+};
+
+template <>
+struct Act<__nv_bfloat16> {
+  __device__ static float4 Load4(const __nv_bfloat16* row, int i) {
+    const uint2 raw = reinterpret_cast<const uint2*>(row)[i];
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ static float Load(const __nv_bfloat16* row, int i) {
+    return __bfloat162float(row[i]);
+  }
+  __device__ static void Store4(__nv_bfloat16* row, int i, float4 v) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&a);
+    raw.y = *reinterpret_cast<const uint32_t*>(&b);
+    reinterpret_cast<uint2*>(row)[i] = raw;
+  }
+  __device__ static void Store(__nv_bfloat16* row, int i, float v) {
+    row[i] = __float2bfloat16_rn(v);
+  }
 };

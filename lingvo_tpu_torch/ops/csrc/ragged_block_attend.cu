@@ -80,9 +80,13 @@
 // never loaded. Bound: bytes as above, at 2 bytes per bfloat16 element,
 // or 1 byte per int8 element plus 4 per live (slot, head) of each sidecar.
 //
+// q and out: float32, or bfloat16 under fprop_dtype=bfloat16 (`Act`,
+// kv_storage.cuh: q widened on load, out rounded once at the division), a
+// second template parameter; nothing else changes with it.
+//
 // Limits (the Python wrapper raises outside them): page_size 8..128,
 // head dim a multiple of 4 up to 256, all tensors contiguous and 16-byte
-// aligned, float32 q, at most kMaxTokens packed tokens.
+// aligned, float32 or bfloat16 q, at most kMaxTokens packed tokens.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -282,15 +286,16 @@ struct Problem {
       t_pages;
 };
 
-// kC: float4 columns of acc a lane owns (1 up to H = 128, else 2)
-template <typename T, int kC>
+// kC: float4 columns of acc a lane owns (1 up to H = 128, else 2); Q: the
+// type of q and out (`Act`, kv_storage.cuh)
+template <typename T, typename Q, int kC>
 __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
-    const float* __restrict__ q, const T* __restrict__ k_pool,
+    const Q* __restrict__ q, const T* __restrict__ k_pool,
     const T* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int* __restrict__ tables,
     const int* __restrict__ q_end, const int* __restrict__ q_start,
     const int* __restrict__ anc_lo, const int* __restrict__ anc_hi,
-    float* __restrict__ out, int* __restrict__ ws,
+    Q* __restrict__ out, int* __restrict__ ws,
     int* __restrict__ counters, float* __restrict__ part, int max_splits,
     Problem pb) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -320,9 +325,9 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
   // padding tokens: exact zeros, no page read
   for (int t = blockIdx.x; t < pb.num_tokens; t += gridDim.x) {
     if (q_end[t] > 0) continue;
-    float4* o = reinterpret_cast<float4*>(out + t * slot_stride);
+    Q* o = out + t * slot_stride;
     for (int i = tid; i < static_cast<int>(slot_stride / 4); i += kThreads)
-      o[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      Act<Q>::Store4(o, i, make_float4(0.f, 0.f, 0.f, 0.f));
   }
 
   const int n_units = ws[0] * N;
@@ -371,8 +376,8 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
       const int t = i / h4, c = i % h4;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t < len)
-        v = reinterpret_cast<const float4*>(
-            q + (tok0 + t) * slot_stride + static_cast<size_t>(head) * H)[c];
+        v = Act<Q>::Load4(
+            q + (tok0 + t) * slot_stride + static_cast<size_t>(head) * H, c);
       *reinterpret_cast<float4*>(q_sh + t * ldq + 4 * c) = v;
     }
     // this unit's live table entries, clamped (the entries past them are
@@ -584,14 +589,14 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
         const int t = 4 * tg + i;
         if (t >= len) continue;
         const float denom = fmaxf(l_sh[t], 1e-20f);
-        float* o = out + (tok0 + t) * slot_stride +
-                   static_cast<size_t>(head) * H;
+        Q* o = out + (tok0 + t) * slot_stride + static_cast<size_t>(head) * H;
 #pragma unroll
         for (int c = 0; c < kC; ++c) {
           if (lane + 32 * c >= h4) continue;
           const float4 a = acc[i][c];
-          reinterpret_cast<float4*>(o)[lane + 32 * c] =
-              make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+          Act<Q>::Store4(o, lane + 32 * c,
+                         make_float4(a.x / denom, a.y / denom, a.z / denom,
+                                     a.w / denom));
         }
       }
       continue;
@@ -641,47 +646,57 @@ __global__ void __launch_bounds__(kThreads) RaggedAttendKernel(
         m = m_new;
       }
       const float denom = fmaxf(l, 1e-20f);
-      reinterpret_cast<float4*>(out + (tok0 + t) * slot_stride +
-                                static_cast<size_t>(head) * H)[c] =
-          make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+      Act<Q>::Store4(out + (tok0 + t) * slot_stride +
+                         static_cast<size_t>(head) * H,
+                     c, make_float4(a.x / denom, a.y / denom, a.z / denom,
+                                    a.w / denom));
     }
   }
 }
 
-template <typename T, int kC>
-int Launch(const float* q, const void* k_pool, const void* v_pool,
+template <typename T, typename Q, int kC>
+int Launch(const void* q, const void* k_pool, const void* v_pool,
            const float* k_scale, const float* v_scale, const int* tables,
            const int* q_end, const int* q_start, const int* anc_lo,
-           const int* anc_hi, float* out, int* ws, int* counters,
+           const int* anc_hi, void* out, int* ws, int* counters,
            float* part, int max_splits, const Problem& pb, int blocks,
            cudaStream_t stream) {
-  auto kernel = RaggedAttendKernel<T, kC>;
+  auto kernel = RaggedAttendKernel<T, Q, kC>;
   const Smem lay = Layout<T>(pb.head_dim, pb.page_size, pb.t_pages);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<blocks, kThreads, lay.bytes, stream>>>(
-      q, static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      k_scale, v_scale, tables, q_end, q_start, anc_lo, anc_hi, out, ws,
-      counters, part, max_splits, pb);
+      static_cast<const Q*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), k_scale, v_scale, tables, q_end,
+      q_start, anc_lo, anc_hi, static_cast<Q*>(out), ws, counters, part,
+      max_splits, pb);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation for kv_dtype (KvDtype), q_dtype (ActDtype) and kc.
 template <typename T>
-int LaunchFor(int kc, const float* q, const void* k_pool, const void* v_pool,
-              const float* k_scale, const float* v_scale, const int* tables,
-              const int* q_end, const int* q_start, const int* anc_lo,
-              const int* anc_hi, float* out, int* ws, int* counters,
-              float* part, int max_splits, const Problem& pb, int blocks,
-              cudaStream_t stream) {
-  return kc == 1 ? Launch<T, 1>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                                q_end, q_start, anc_lo, anc_hi, out, ws,
-                                counters, part, max_splits, pb, blocks,
-                                stream)
-                 : Launch<T, 2>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                                q_end, q_start, anc_lo, anc_hi, out, ws,
-                                counters, part, max_splits, pb, blocks,
-                                stream);
+int LaunchFor(int q_dtype, int kc, const void* q, const void* k_pool,
+              const void* v_pool, const float* k_scale, const float* v_scale,
+              const int* tables, const int* q_end, const int* q_start,
+              const int* anc_lo, const int* anc_hi, void* out, int* ws,
+              int* counters, float* part, int max_splits, const Problem& pb,
+              int blocks, cudaStream_t stream) {
+#define RAGGED_LAUNCH(Q, KC)                                                \
+  Launch<T, Q, KC>(q, k_pool, v_pool, k_scale, v_scale, tables, q_end,     \
+                   q_start, anc_lo, anc_hi, out, ws, counters, part,       \
+                   max_splits, pb, blocks, stream)
+  if (q_dtype == kActBF16)
+    return kc == 1 ? RAGGED_LAUNCH(__nv_bfloat16, 1)
+                   : RAGGED_LAUNCH(__nv_bfloat16, 2);
+  return kc == 1 ? RAGGED_LAUNCH(float, 1) : RAGGED_LAUNCH(float, 2);
+#undef RAGGED_LAUNCH
+}
+
+template <typename T>
+const void* FloatQKernel(bool two) {
+  return two ? reinterpret_cast<const void*>(RaggedAttendKernel<T, float, 2>)
+             : reinterpret_cast<const void*>(RaggedAttendKernel<T, float, 1>);
 }
 
 }  // namespace
@@ -709,27 +724,30 @@ int RaggedSchedule(const int* row_of, const int* q_end, int num_tokens,
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// q/out [T, N, H] float32; k_pool/v_pool [NP, P, N, H] of `kv_dtype`
-// (KvDtype); k_scale/v_scale [NP, N, P] float32 for int8 pools, else
-// null; tables [B, t_pages]; row_of/q_end/q_start/anc_lo/anc_hi [T]; all
-// contiguous, on one device. Scratch from the wrapper: ws int32 [2 + 8 T
-// max_splits], counters int32 [T N], part float32 [T max_splits N (H + 4)]
-// (null for bfloat16 pools, whose tiles are never split). tile_tokens,
-// split_slots and max_splits come from the Python `TileSchedule`'s rule
-// (tile_tokens must be this file's kQ); blocks is the persistent grid,
-// RaggedAttendGeometry's geo[3] (a launch takes no more than T N
-// max_splits, the most work units there can be).
-int RaggedAttend(const float* q, const void* k_pool, const void* v_pool,
+// q/out [T, N, H] of `q_dtype` (ActDtype: float32 or bfloat16);
+// k_pool/v_pool [NP, P, N, H] of `kv_dtype` (KvDtype); k_scale/v_scale
+// [NP, N, P] float32 for int8 pools, else null; tables [B, t_pages];
+// row_of/q_end/q_start/anc_lo/anc_hi [T]; all contiguous, on one device.
+// Scratch from the wrapper: ws int32 [2 + 8 T max_splits], counters int32
+// [T N], part float32 [T max_splits N (H + 4)] (null for bfloat16 pools,
+// whose tiles are never split). tile_tokens, split_slots and max_splits
+// come from the Python `TileSchedule`'s rule (tile_tokens must be this
+// file's kQ); blocks is the persistent grid, RaggedAttendGeometry's
+// geo[3] (a launch takes no more than T N max_splits, the most work units
+// there can be).
+int RaggedAttend(const void* q, const void* k_pool, const void* v_pool,
                  const float* k_scale, const float* v_scale,
                  const int* tables, const int* row_of, const int* q_end,
                  const int* q_start, const int* anc_lo, const int* anc_hi,
-                 float* out, int* ws, int* counters, float* part,
+                 void* out, int* ws, int* counters, float* part,
                  int num_tokens, int num_heads, int head_dim,
                  int num_pool_pages, int page_size, int num_rows,
                  int t_pages, int tile_tokens, int split_slots,
-                 int max_splits, int kv_dtype, int blocks, void* stream) {
+                 int max_splits, int kv_dtype, int q_dtype, int blocks,
+                 void* stream) {
   if (num_tokens <= 0) return 0;
   if (head_dim > kMaxHeadDim || head_dim % 4 != 0 || blocks <= 0 ||
+      (q_dtype != kActF32 && q_dtype != kActBF16) ||
       page_size > kMaxPageSize || page_size < kMinPageSize ||
       (kv_dtype == kI8) != (k_scale != nullptr && v_scale != nullptr) ||
       (kv_dtype != kBF16 && part == nullptr))
@@ -747,20 +765,21 @@ int RaggedAttend(const float* q, const void* k_pool, const void* v_pool,
   blocks = min(blocks, max(max_items * num_heads, num_tokens));
   switch (kv_dtype) {
     case kF32:
-      return LaunchFor<float>(kc, q, k_pool, v_pool, k_scale, v_scale,
-                              tables, q_end, q_start, anc_lo, anc_hi, out,
-                              ws, counters, part, max_splits, pb, blocks,
-                              s);
+      return LaunchFor<float>(q_dtype, kc, q, k_pool, v_pool, k_scale,
+                              v_scale, tables, q_end, q_start, anc_lo,
+                              anc_hi, out, ws, counters, part, max_splits,
+                              pb, blocks, s);
     case kBF16:
-      return LaunchFor<__nv_bfloat16>(kc, q, k_pool, v_pool, k_scale,
-                                      v_scale, tables, q_end, q_start,
-                                      anc_lo, anc_hi, out, ws, counters,
-                                      part, max_splits, pb, blocks, s);
+      return LaunchFor<__nv_bfloat16>(q_dtype, kc, q, k_pool, v_pool,
+                                      k_scale, v_scale, tables, q_end,
+                                      q_start, anc_lo, anc_hi, out, ws,
+                                      counters, part, max_splits, pb,
+                                      blocks, s);
     case kI8:
-      return LaunchFor<int8_t>(kc, q, k_pool, v_pool, k_scale, v_scale,
-                               tables, q_end, q_start, anc_lo, anc_hi, out,
-                               ws, counters, part, max_splits, pb, blocks,
-                               s);
+      return LaunchFor<int8_t>(q_dtype, kc, q, k_pool, v_pool, k_scale,
+                               v_scale, tables, q_end, q_start, anc_lo,
+                               anc_hi, out, ws, counters, part, max_splits,
+                               pb, blocks, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -774,23 +793,20 @@ int RaggedAttendGeometry(int head_dim, int page_size, int t_pages,
   int bytes = 0;
   const void* fn = nullptr;
   const bool two = head_dim > 128;
+  // the float32-q kernel's: a bfloat16-q launch takes the same persistent
+  // grid (its units come from the atomic counter, resident or not)
   switch (kv_dtype) {
     case kF32:
       bytes = Layout<float>(head_dim, page_size, t_pages).bytes;
-      fn = two ? reinterpret_cast<const void*>(RaggedAttendKernel<float, 2>)
-               : reinterpret_cast<const void*>(RaggedAttendKernel<float, 1>);
+      fn = FloatQKernel<float>(two);
       break;
     case kBF16:
       bytes = Layout<__nv_bfloat16>(head_dim, page_size, t_pages).bytes;
-      fn = two ? reinterpret_cast<const void*>(
-                     RaggedAttendKernel<__nv_bfloat16, 2>)
-               : reinterpret_cast<const void*>(
-                     RaggedAttendKernel<__nv_bfloat16, 1>);
+      fn = FloatQKernel<__nv_bfloat16>(two);
       break;
     case kI8:
       bytes = Layout<int8_t>(head_dim, page_size, t_pages).bytes;
-      fn = two ? reinterpret_cast<const void*>(RaggedAttendKernel<int8_t, 2>)
-               : reinterpret_cast<const void*>(RaggedAttendKernel<int8_t, 1>);
+      fn = FloatQKernel<int8_t>(two);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -34,6 +34,10 @@ bfloat16 before P.V, as the reference's `_PageAttend` does
 of its page, where the reference rounds it: the blocks of a cluster take
 that max from each other's page maxima (see the .cu file). An int8 cache
 never comes here: `ExtendStep` reads it densely.
+q is float32, or bfloat16 under fprop_dtype=bfloat16: the reference
+multiplies the widened q, sums in float32 and rounds the output to q's
+dtype (`_Finish`); each kernel has a bfloat16-q instantiation that does
+the same, with the split count of the float32-q kernel.
 `time_step` is a host integer: the decode loop that calls this op counts
 its steps on the host, so no device value is read back per step.
 """
@@ -46,7 +50,8 @@ import torch
 
 from lingvo_tpu_torch.ops import cuda_build
 from lingvo_tpu_torch.ops.ragged_block_attend import (
-    KV_DTYPES, NEG_INF, CheckAligned, NewLaunchCounts, _Finish, _PageAttend)
+    KV_DTYPES, NEG_INF, CheckAligned, CheckQDtype, NewLaunchCounts,
+    NewQLaunchCounts, _Finish, _PageAttend)
 from lingvo_tpu_torch.quant import kv as kv_quant
 
 MAX_PAGE_SIZE = 128   # page sizes the op takes (the kernel reads slots)
@@ -103,7 +108,7 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("flash_decode")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.FlashDecode.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+    lib.FlashDecode.argtypes = [vp] * 6 + [ci] * 9 + [vp]
     lib.FlashDecode.restype = ci
     lib.FlashDecodeScratchFloats.argtypes = [ci] * 6
     lib.FlashDecodeScratchFloats.restype = ctypes.c_longlong
@@ -197,8 +202,7 @@ def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
   b, n, h = q.shape
   s = k_cache.shape[1]
   dtype = k_cache.dtype
-  if q.dtype != torch.float32:
-    raise TypeError(f"FlashDecode kernel takes a float32 q, got {q.dtype}")
+  q_code = CheckQDtype("FlashDecode", q)
   if v_cache.dtype != dtype or dtype not in DTYPE_HEAD_DIMS:
     raise TypeError(f"FlashDecode kernel takes float32 or bfloat16 caches "
                     f"of one dtype, got {dtype}, {v_cache.dtype}")
@@ -247,12 +251,14 @@ def _CudaDecode(q, k_cache, v_cache, time_step, page_size, cache_paddings):
       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
       None if cache_paddings is None else cache_paddings.data_ptr(),
       out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, s,
-      n, h, int(time_step), splits, page_size, code, stream)
+      n, h, int(time_step), splits, page_size, code, q_code, stream)
   if rc != 0:
     raise RuntimeError("FlashDecode kernel launch failed: "
                        + lib.FlashDecodeErrorString(rc).decode())
+  kv_name = kv_quant.DtypeName(dtype)
   FlashDecode.launches += 1
-  FlashDecode.launches_by_dtype[kv_quant.DtypeName(dtype)] += 1
+  FlashDecode.launches_by_dtype[kv_name] += 1
+  FlashDecode.launches_by_q_dtype[kv_quant.DtypeName(q.dtype)][kv_name] += 1
   return out
 
 
@@ -264,15 +270,17 @@ def FlashDecode(q, k_cache, v_cache, time_step: int, *, page_size: int,
   """Paged single-token decode attention.
 
   q: [B, 1, N, H], the newest query, ALREADY scaled (nothing is applied
-  inside), float32. k_cache/v_cache: [B, S, N, H] float32 or bfloat16
-  with slots [0, time_step] live (the caller writes slot time_step
-  first); S a multiple of page_size.
+  inside), float32 or bfloat16 (the output takes q's dtype).
+  k_cache/v_cache: [B, S, N, H] float32 or bfloat16 with slots [0,
+  time_step] live (the caller writes slot time_step first); S a multiple
+  of page_size.
   time_step: host int. cache_paddings: optional [B, S] float32, 1.0 =
   never attend this slot. Returns [B, 1, N, H].
 
   CPU tensors run the plain version; CUDA tensors launch the kernel for
-  the cache's dtype (counting one call in `FlashDecode.launches` and in
-  `FlashDecode.launches_by_dtype`) or raise."""
+  q's and the cache's dtypes (counting one call in `FlashDecode.launches`,
+  in `FlashDecode.launches_by_dtype` by the cache's dtype and in
+  `FlashDecode.launches_by_q_dtype` by both) or raise."""
   if q.ndim != 4 or q.shape[1] != 1:
     raise ValueError(f"q must be [B, 1, N, H], got {tuple(q.shape)}")
   if not SupportedShape(k_cache.shape[1], page_size):
@@ -291,9 +299,11 @@ def FlashDecode(q, k_cache, v_cache, time_step: int, *, page_size: int,
   return out[:, None]
 
 
-# kernel launches, in all and by cache dtype (the plain version counts none)
+# kernel launches, in all, by cache dtype and by (q dtype, cache dtype) (the
+# plain version counts none)
 FlashDecode.launches = 0
 FlashDecode.launches_by_dtype = NewLaunchCounts()
+FlashDecode.launches_by_q_dtype = NewQLaunchCounts()
 
 
 def SupportedShape(max_len: int, page_size: int) -> bool:

@@ -31,6 +31,13 @@ every partial sum is an integer below 2^31 < 2^53. A wrapper takes the
 plain version only for CPU tensors; a CUDA tensor launches its kernel or
 raises. Each wrapper counts its launches.
 
+Under fprop_dtype=bfloat16 x and y are bfloat16: the reference quantizes
+`x.astype(float32)` and returns `y.astype(x.dtype)`. Both kernels have a
+bfloat16 instantiation (kernel (a) widens x on load, kernel (b) rounds y
+to bfloat16 after its two float32 multiplies), so their bits are those of
+the float32 kernels on the widened x, rounded; the weight scales stay
+float32 tensors (the bfloat16-rounded scales widened exactly, once).
+
 What bounds the kernels at the serving shapes (M = 8 decode rows, M =
 264 packed tokens): the weight's bytes, 1 per element; the operations,
 2 M K N, sit far under the int8 tensor cores' rate.
@@ -47,11 +54,19 @@ import torch.nn.functional as F
 from lingvo_tpu_torch.core import jit_arith
 from lingvo_tpu_torch.ops import cuda_build
 from lingvo_tpu_torch.ops.ragged_block_attend import CheckAligned
+from lingvo_tpu_torch.quant import kv as kv_quant
 
 K_ALIGN = 16      # x8 rows are padded to a multiple of 16 bytes
 TILE_K = 64       # K bytes of one kernel stage
 TILE_N = 128      # output columns of a block
 MAX_N_TILES = 65535   # the GEMM grid's y extent
+# the dtypes of x and y the kernels take
+ACT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _Bf16(dtype) -> int:
+  """The kernels' flag for x's (or y's) dtype: 1 for bfloat16."""
+  return int(dtype == torch.bfloat16)
 
 
 def PaddedK(k: int) -> int:
@@ -126,13 +141,13 @@ def _Lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.Int8QuantizeGrid.argtypes = [ci, ci, vp]
     lib.Int8QuantizeGrid.restype = ci
-    lib.Int8Quantize.argtypes = [vp] * 4 + [ci] * 4 + [vp]
+    lib.Int8Quantize.argtypes = [vp] * 4 + [ci] * 5 + [vp]
     lib.Int8Quantize.restype = ci
-    lib.Int8Gemm.argtypes = [vp] * 7 + [ci] * 7 + [vp]
+    lib.Int8Gemm.argtypes = [vp] * 7 + [ci] * 8 + [vp]
     lib.Int8Gemm.restype = ci
     lib.Int8MatmulScratch.argtypes = [ci] * 6 + [vp]
     lib.Int8MatmulScratch.restype = ctypes.c_longlong
-    lib.Int8Matmul.argtypes = [vp] * 5 + [ci] * 8 + [vp]
+    lib.Int8Matmul.argtypes = [vp] * 5 + [ci] * 9 + [vp]
     lib.Int8Matmul.restype = ci
     lib.Int8MatmulErrorString.argtypes = [ci]
     lib.Int8MatmulErrorString.restype = ctypes.c_char_p
@@ -189,16 +204,16 @@ def _CudaMatmul(x, w, w_scale):
   n = w.shape[0]
   kp, grid, bm, splits, per_split, nbytes = _MatmulPlan(m, k, n,
                                                         x.device.index)
-  y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+  y = torch.empty((m, n), dtype=x.dtype, device=x.device)
   scratch = torch.empty((nbytes,), dtype=torch.int8, device=x.device)
   rc = _Lib().Int8Matmul(
       x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
       scratch.data_ptr(), m, k, kp, n, grid, bm, splits, per_split,
-      torch.cuda.current_stream(x.device).cuda_stream)
+      _Bf16(x.dtype), torch.cuda.current_stream(x.device).cuda_stream)
   if rc != 0:
     _Raise("Int8Matmul kernel launches", rc)
-  QuantizeActivations.launches += 1
-  Int8Gemm.launches += 1
+  _Count(QuantizeActivations, x.dtype)
+  _Count(Int8Gemm, x.dtype)
   return y
 
 
@@ -219,14 +234,15 @@ def _CudaQuantize(x):
   x_scale = buf[at:at + 4].view(torch.float32)
   stream = torch.cuda.current_stream(x.device).cuda_stream
   rc = _Lib().Int8Quantize(x.data_ptr(), x8.data_ptr(), x_scale.data_ptr(),
-                           x_scale.data_ptr() + 16, m, k, kp, grid, stream)
+                           x_scale.data_ptr() + 16, m, k, kp, grid,
+                           _Bf16(x.dtype), stream)
   if rc != 0:
     _Raise("Int8Quantize kernel launch", rc)
-  QuantizeActivations.launches += 1
+  _Count(QuantizeActivations, x.dtype)
   return x8, x_scale
 
 
-def _CudaGemm(x8, x_scale, w, w_scale):
+def _CudaGemm(x8, x_scale, w, w_scale, out_dtype):
   m, kp = x8.shape
   n, k = w.shape
   reason = KernelLimitError(m, k, n)
@@ -236,7 +252,7 @@ def _CudaGemm(x8, x_scale, w, w_scale):
   if x_scale.data_ptr() % 4:
     raise ValueError("Int8Gemm takes a 4-byte aligned x_scale")
   geo = _Plan(m, k, n, x8.device.index)
-  y = torch.empty((m, n), dtype=torch.float32, device=x8.device)
+  y = torch.empty((m, n), dtype=out_dtype, device=x8.device)
   ws = counters = None
   if geo["splits"] > 1:
     # one allocation: the tiles' counters (padded to 16 bytes), then the
@@ -251,14 +267,20 @@ def _CudaGemm(x8, x_scale, w, w_scale):
       x8.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
       y.data_ptr(), None if ws is None else ws.data_ptr(),
       None if counters is None else counters.data_ptr(), m, k, kp, n,
-      geo["bm"], geo["splits"], geo["chunks_per_split"], stream)
+      geo["bm"], geo["splits"], geo["chunks_per_split"], _Bf16(out_dtype),
+      stream)
   if rc != 0:
     _Raise("Int8Gemm kernel launch", rc)
-  Int8Gemm.launches += 1
+  _Count(Int8Gemm, out_dtype)
   return y
 
 
 # -- public entries ------------------------------------------------------------
+
+
+def _Count(wrapper, dtype):
+  wrapper.launches += 1
+  wrapper.launches_by_dtype[kv_quant.DtypeName(dtype)] += 1
 
 
 def _CheckDevice(name, tensors):
@@ -272,23 +294,28 @@ def _CheckDevice(name, tensors):
 
 
 def QuantizeActivations(x):
-  """x [M, K] float32 -> (x8 [M, Kp] int8, x_scale [1] float32), the
-  per-tensor symmetric quantization of the whole x (see the module
-  docstring). CPU tensors run the plain version; CUDA tensors launch
-  kernel (a) (one count in `QuantizeActivations.launches`) or raise."""
-  if x.ndim != 2 or x.dtype != torch.float32:
-    raise TypeError(f"QuantizeActivations takes float32 [M, K], got "
-                    f"{x.dtype} {tuple(x.shape)}")
+  """x [M, K] float32 or bfloat16 -> (x8 [M, Kp] int8, x_scale [1]
+  float32), the per-tensor symmetric quantization of the whole x, widened
+  (see the module docstring). CPU tensors run the plain version; CUDA
+  tensors launch kernel (a) (one count in `QuantizeActivations.launches`
+  and in `.launches_by_dtype` by x's dtype) or raise."""
+  if x.ndim != 2 or x.dtype not in ACT_DTYPES:
+    raise TypeError(f"QuantizeActivations takes float32 or bfloat16 [M, K], "
+                    f"got {x.dtype} {tuple(x.shape)}")
   if _CheckDevice("QuantizeActivations", [x]).type == "cpu":
     return _PlainQuantize(x)
   return _CudaQuantize(x)
 
 
-def Int8Gemm(x8, x_scale, w, w_scale):
+def Int8Gemm(x8, x_scale, w, w_scale, out_dtype=torch.float32):
   """(x8 [M, Kp] int8, x_scale [1] float32, w [N, K] int8 K-major, w_scale
-  [N] float32) -> y [M, N] float32 = (float(x8[:, :K] . w^T) * x_scale) *
-  w_scale. CPU tensors run the plain version; CUDA tensors launch kernel
-  (b) (one count in `Int8Gemm.launches`) or raise."""
+  [N] float32) -> y [M, N] = (float(x8[:, :K] . w^T) * x_scale) * w_scale
+  in float32, then in out_dtype (float32 or bfloat16, rounded once). CPU
+  tensors run the plain version; CUDA tensors launch kernel (b) (one
+  count in `Int8Gemm.launches` and in `.launches_by_dtype` by out_dtype)
+  or raise."""
+  if out_dtype not in ACT_DTYPES:
+    raise TypeError(f"Int8Gemm writes float32 or bfloat16, not {out_dtype}")
   if x8.dtype != torch.int8 or w.dtype != torch.int8:
     raise TypeError(f"Int8Gemm takes int8 operands, got {x8.dtype}, "
                     f"{w.dtype}")
@@ -303,33 +330,37 @@ def Int8Gemm(x8, x_scale, w, w_scale):
         f"{tuple(w_scale.shape)}")
   dev = _CheckDevice("Int8Gemm", [x8, x_scale, w, w_scale])
   if x8.shape[0] == 0:
-    return torch.zeros((0, w.shape[0]), dtype=torch.float32, device=dev)
+    return torch.zeros((0, w.shape[0]), dtype=out_dtype, device=dev)
   if dev.type == "cpu":
-    return _PlainGemm(x8, x_scale, w, w_scale)
-  return _CudaGemm(x8, x_scale, w, w_scale)
+    return _PlainGemm(x8, x_scale, w, w_scale).to(out_dtype)
+  return _CudaGemm(x8, x_scale, w, w_scale, out_dtype)
 
 
 def Int8Matmul(x, w, w_scale):
-  """x [M, K] float32, w [N, K] int8 (K-major), w_scale [N] float32 ->
-  [M, N] float32: `QuantizeActivations` then `Int8Gemm`. CUDA tensors
-  launch kernels (a) and (b) from one call (one count in each wrapper's
-  `launches`) or raise."""
-  if (x.ndim != 2 or w.ndim != 2 or x.dtype != torch.float32
+  """x [M, K] float32 or bfloat16, w [N, K] int8 (K-major), w_scale [N]
+  float32 -> [M, N] in x's dtype: `QuantizeActivations` then `Int8Gemm`.
+  CUDA tensors launch kernels (a) and (b) from one call (one count in
+  each wrapper's `launches` and `launches_by_dtype`) or raise."""
+  if (x.ndim != 2 or w.ndim != 2 or x.dtype not in ACT_DTYPES
       or w.dtype != torch.int8 or w_scale.dtype != torch.float32
       or x.shape[1] != w.shape[1] or tuple(w_scale.shape) != (w.shape[0],)):
     raise ValueError(
-        f"Int8Matmul takes x [M, K] float32, w [N, K] int8, w_scale [N] "
-        f"float32; got {x.dtype} {tuple(x.shape)}, {w.dtype} "
+        f"Int8Matmul takes x [M, K] float32 or bfloat16, w [N, K] int8, "
+        f"w_scale [N] float32; got {x.dtype} {tuple(x.shape)}, {w.dtype} "
         f"{tuple(w.shape)}, {w_scale.dtype} {tuple(w_scale.shape)}")
   dev = _CheckDevice("Int8Matmul", [x, w, w_scale])
   if x.shape[0] == 0:
-    return torch.zeros((0, w.shape[0]), dtype=torch.float32, device=dev)
+    return torch.zeros((0, w.shape[0]), dtype=x.dtype, device=dev)
   if dev.type == "cpu":
-    return _PlainGemm(*_PlainQuantize(x), w, w_scale)
+    return _PlainGemm(*_PlainQuantize(x), w, w_scale).to(x.dtype)
   CheckAligned("Int8Matmul", [x, w, w_scale])
   return _CudaMatmul(x, w, w_scale)
 
 
-# kernel launches (the plain versions count none)
+# kernel launches, in all and by x's (y's) dtype (the plain versions count
+# none)
 QuantizeActivations.launches = 0
+QuantizeActivations.launches_by_dtype = {
+    kv_quant.DtypeName(d): 0 for d in ACT_DTYPES}
 Int8Gemm.launches = 0
+Int8Gemm.launches_by_dtype = {kv_quant.DtypeName(d): 0 for d in ACT_DTYPES}

@@ -34,6 +34,12 @@ float32) and then goes through the float path's page step, so the
 int8 op equals the float op on the pre-dequantized pool bit for bit. A
 bfloat16 page is read as float32, and its probabilities are rounded to
 bfloat16 before P.V, as the reference's `p.astype(v_page.dtype)` does.
+
+q is float32, or bfloat16 under fprop_dtype=bfloat16: the reference
+multiplies the widened q (`_DotF32`), sums in float32 and rounds the
+output to q's dtype (`_Finish`). Each pool dtype's kernel has a
+bfloat16-q instantiation that does the same, so it equals the float32-q
+kernel on the widened q with its output rounded, bit for bit.
 """
 
 from __future__ import annotations
@@ -188,6 +194,27 @@ def NewLaunchCounts() -> dict:
   return {kv_quant.DtypeName(d): 0 for d in KV_DTYPES}
 
 
+# the dtypes of q and of the output, by the code the CUDA kernels take
+# (csrc/kv_storage.cuh `ActDtype`): float32, or bfloat16 under
+# fprop_dtype=bfloat16 (q widened on load, the output rounded once)
+Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def CheckQDtype(name: str, q) -> int:
+  """Raises TypeError unless the kernels take q's dtype; returns its
+  code."""
+  if q.dtype not in Q_DTYPES:
+    raise TypeError(f"{name} kernel takes a float32 or bfloat16 q, got "
+                    f"{q.dtype}")
+  return Q_DTYPES[q.dtype]
+
+
+def NewQLaunchCounts() -> dict:
+  """A wrapper's launches by q's dtype, then by the pools' storage dtype:
+  one count per instantiation of the kernel."""
+  return {kv_quant.DtypeName(d): NewLaunchCounts() for d in Q_DTYPES}
+
+
 # -- the CUDA kernel ---------------------------------------------------------
 
 
@@ -245,7 +272,7 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("ragged_block_attend")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.RaggedAttend.argtypes = [vp] * 15 + [ci] * 12 + [vp]
+    lib.RaggedAttend.argtypes = [vp] * 15 + [ci] * 13 + [vp]
     lib.RaggedAttend.restype = ci
     lib.RaggedSchedule.argtypes = [vp] * 2 + [ci] * 9 + [vp] * 2 + [ci, vp]
     lib.RaggedSchedule.restype = ci
@@ -339,8 +366,7 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
   t, n, h = q.shape
   np_total, p = k_pool.shape[0], k_pool.shape[1]
   b, t_pages = block_tables.shape
-  if q.dtype != torch.float32:
-    raise TypeError(f"RaggedAttend kernel takes a float32 q, got {q.dtype}")
+  q_code = CheckQDtype("RaggedAttend", q)
   if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (n, h):
     raise ValueError(f"pool shapes {tuple(k_pool.shape)}, "
                      f"{tuple(v_pool.shape)} do not match q {tuple(q.shape)}")
@@ -378,10 +404,11 @@ def _CudaRaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end,
       q_start.data_ptr(), anc_lo.data_ptr(), anc_hi.data_ptr(),
       out.data_ptr(), ws, counters, part, t, n, h, np_total, p, b,
       t_pages, TILE_TOKENS, SPLIT_SLOTS, MAX_SPLITS,
-      KV_DTYPES[k_pool.dtype], blocks, stream)
+      KV_DTYPES[k_pool.dtype], q_code, blocks, stream)
   _Raise(lib, "RaggedAttend kernel launch", rc)
   RaggedAttend.launches += 1
   RaggedAttend.launches_by_dtype[kv_dtype] += 1
+  RaggedAttend.launches_by_q_dtype[kv_quant.DtypeName(q.dtype)][kv_dtype] += 1
   return out
 
 
@@ -394,8 +421,9 @@ def RaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end, *,
   """Packed-token ragged paged attention — decode, prefill and tree rows
   in one call.
 
-  q: [T, N, H] packed query tokens, already scaled, float32; every
-  token's K/V was written to the pool before the call.
+  q: [T, N, H] packed query tokens, already scaled, float32 or bfloat16
+  (the output takes q's dtype); every token's K/V was written to the pool
+  before the call.
   k_pool/v_pool: [num_pages, page_size, N, H] page pools, float32,
   bfloat16 or int8.
   block_tables: [B, pages_per_seq] int32 physical page ids.
@@ -407,8 +435,10 @@ def RaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end, *,
   (none = chain semantics).
 
   CPU tensors run the plain version; CUDA tensors launch the kernel for
-  the pools' dtype (counting one launch in `RaggedAttend.launches` and in
-  `RaggedAttend.launches_by_dtype`) or raise."""
+  q's and the pools' dtypes (counting one launch in
+  `RaggedAttend.launches`, in `RaggedAttend.launches_by_dtype` by the
+  pools' dtype and in `RaggedAttend.launches_by_q_dtype` by both) or
+  raise."""
   kv_dtype = CheckKvOperands(k_pool, v_pool, k_scale, v_scale)
   tree_args = (q_start is not None, anc_lo is not None, anc_hi is not None)
   if any(tree_args) and not all(tree_args):
@@ -430,6 +460,8 @@ def RaggedAttend(q, k_pool, v_pool, block_tables, row_of, q_end, *,
                            v_scale, kv_dtype)
 
 
-# kernel launches, in all and by pool dtype (the plain version counts none)
+# kernel launches, in all, by pool dtype and by (q dtype, pool dtype) (the
+# plain version counts none)
 RaggedAttend.launches = 0
 RaggedAttend.launches_by_dtype = NewLaunchCounts()
+RaggedAttend.launches_by_q_dtype = NewQLaunchCounts()

@@ -30,7 +30,8 @@ import torch
 from lingvo_tpu_torch.core import jit_arith
 
 # Storage dtypes the KV pools understand. None / '' keeps the fprop dtype
-# (float32 in the port). Only int8 carries scale sidecars.
+# (float32, or bfloat16 under fprop_dtype=bfloat16). Only int8 carries
+# scale sidecars.
 KV_CACHE_DTYPES = ("float32", "bfloat16", "int8")
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,

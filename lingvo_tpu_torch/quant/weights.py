@@ -171,3 +171,20 @@ def CheckInt8Servable(task) -> None:
         f"{mixers[0]}{' and others' if len(mixers) > 1 else ''}): its "
         "w_post einsum takes no Int8Weight, in the reference too (which "
         "fails at its first step); the SSM stacks serve float weights")
+
+
+def ServingTheta(task, serve_int8_weights: bool = False):
+  """The theta a serving entry point (the engine, `GShardDecode`) binds
+  to `task` for its steps: a `base_layer.ServedTheta` of the int8 rewrite
+  of its parameters (`Int8ServingTheta`) with serve_int8_weights, else of
+  its parameters, cast once to the fprop dtype where a layer's differs
+  from its weights' (fprop_dtype=bfloat16; the ServedTheta does the
+  cast). None when the task's own parameters serve as they are."""
+  bf16 = any(m.fprop_dtype != m.p.dtype for m in task.modules()
+             if isinstance(m, base_layer.BaseLayer))
+  if not serve_int8_weights and not bf16:
+    return None
+  theta = task.ThetaTree()
+  if serve_int8_weights:
+    theta, _ = Int8ServingTheta(theta)
+  return base_layer.ServedTheta(task, theta)

@@ -35,7 +35,10 @@ theta (quant/weights.py): every projection, the tied logits included,
 runs the int8 matmul (ops/int8_matmul.py). The rewrite is built once per
 restored checkpoint step and bound to the task for the decode only
 (`base_layer.ServedTheta`); the task's float parameters stay as
-restored.
+restored. A task at fprop_dtype=bfloat16 decodes bfloat16 activations:
+its weights (or the int8 rewrite's scales) are cast to bfloat16 once per
+restored step and bound the same way, and its caches are bfloat16 unless
+`kv_cache_dtype` says otherwise.
 
 The status server (serve_port) raises NotImplementedError naming the
 slice that brings it.
@@ -51,7 +54,6 @@ import time
 import numpy as np
 import torch
 
-from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import checkpointer as checkpointer_lib
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import sampling
@@ -109,10 +111,6 @@ class GShardDecode:
       raise NotImplementedError(
           "the status server (serve_port) comes with the observability "
           "slice of the port (ROADMAP item 11)")
-    if task.fprop_dtype != torch.float32:
-      raise NotImplementedError(
-          f"decoding at fprop_dtype={task.fprop_dtype} comes with ROADMAP "
-          "item 15 of the port; GShardDecode decodes float32 activations")
     self._task = task
     self._train_dir = train_dir
     self._output_path = output_path
@@ -127,9 +125,9 @@ class GShardDecode:
     self._use_legacy_prime = use_legacy_prime
     self._len_buckets = tuple(len_buckets)
     self._serve_int8_weights = bool(serve_int8_weights)
-    # (checkpoint step, its ServedTheta): the int8 rewrite runs once per
-    # restored step
-    self._int8_theta = None
+    # (checkpoint step, its ServedTheta): the int8 rewrite, or the bfloat16
+    # cast of a task at fprop_dtype=bfloat16, runs once per restored step
+    self._served = None
     # (init_fn, prefill_fn, sample_fn) per bucketed (p_len, t_max)
     self._decode_fns = {}
     self._last_telemetry = None
@@ -231,14 +229,13 @@ class GShardDecode:
       raise ValueError("prompts must have width >= 1 (got [B, 0]); the "
                        "prefill loop needs at least one chunk")
     _, restored = self._checkpointer.Restore(self._task, step=step)
-    theta_ctx = contextlib.nullcontext()
-    if self._serve_int8_weights:
-      if self._int8_theta is None or self._int8_theta[0] != restored:
-        self._int8_theta = None   # one int8 copy on the card at a time
-        theta, _ = quant_weights.Int8ServingTheta(self._task.ThetaTree())
-        self._int8_theta = (restored,
-                            base_layer.ServedTheta(self._task, theta))
-      theta_ctx = self._int8_theta[1].Active()
+    if self._served is None or self._served[0] != restored:
+      self._served = None   # one served copy on the card at a time
+      self._served = (restored, quant_weights.ServingTheta(
+          self._task, self._serve_int8_weights))
+    served = self._served[1]
+    theta_ctx = (contextlib.nullcontext() if served is None
+                 else served.Active())
     p_len = py_utils.RoundUpToBucket(prompts.shape[1], self._len_buckets)
     init_fn, prefill_fn, sample_fn = self._GetDecodeFn(p_len, self._max_steps)
     aligned = self._RightAlign(prompts, prompt_lens, width=p_len)

@@ -55,14 +55,22 @@ step, the tied logits included, runs the int8 matmul
 float engine or a trainer on the same task computes what it did. `Stats()`
 reports `serve_int8_weights`.
 
+bfloat16 activations (a task at fprop_dtype=bfloat16, the reference's
+training recipe): the engine casts the task's weights (or their int8
+rewrite's scales) to bfloat16 once, at construction, and binds them the
+same way, so a step copies no weight; with `kv_cache_dtype` unset the
+pools are bfloat16, as the reference allocates them in the fprop dtype.
+The attention kernels take the bfloat16 q and write a bfloat16 output.
+
 `UpdateTheta(theta)` swaps the served weights between steps: the new
 values are copied into the task's parameters in place (and the int8
-rewrite is redone under `serve_int8_weights`); in-flight sequences go on
-under the new weights, as in the reference.
+rewrite or the bfloat16 cast is redone); in-flight sequences go on under
+the new weights, as in the reference.
 
 Ported: both step modes, fifo scheduling, greedy and seeded temperature /
-top-k sampling, float32, bfloat16 and int8 KV pools, int8 weights,
-cancellation, the hot weight swap and the prefill token budget.
+top-k sampling, float32 and bfloat16 activations, float32, bfloat16 and
+int8 KV pools, int8 weights, cancellation, the hot weight swap and the
+prefill token budget.
 Speculative decoding, the prefix cache and priority scheduling raise
 NotImplementedError naming the slice that brings them; so does int8
 serving of a stack with SSM mixers, which the reference cannot run
@@ -200,10 +208,6 @@ class ServingLoop:
       raise NotImplementedError(
           f"scheduler_mode={scheduler_mode!r} comes with the priority-"
           "scheduling slice; the port schedules fifo")
-    if task.fprop_dtype != torch.float32:
-      raise NotImplementedError(
-          f"serving at fprop_dtype={task.fprop_dtype} comes with ROADMAP "
-          "item 15 of the port; the engine serves float32 activations")
     assert page_size >= 1 and num_pages >= 1 and max_batch >= 1
     assert max_seq_len >= page_size
     self.device = base_layer.ResolveDevice(device)
@@ -216,11 +220,13 @@ class ServingLoop:
     torch.backends.cudnn.allow_tf32 = False
     self._task = task
     self.serve_int8_weights = bool(serve_int8_weights)
-    self._served = None
     if serve_int8_weights:
       quant_weights.CheckInt8Servable(task)
-      theta, _ = quant_weights.Int8ServingTheta(task.ThetaTree())
-      self._served = base_layer.ServedTheta(task, theta)
+    # the int8 rewrite, or the bfloat16 cast of the weights of a task at
+    # fprop_dtype=bfloat16, made once here and bound for the steps (None:
+    # the task's parameters serve as they are)
+    self._served = quant_weights.ServingTheta(task, self.serve_int8_weights)
+    self._serves_theta = self._served is not None
     self.step_mode = step_mode
     self.prefill_chunk = prefill_chunk
     self.page_size = page_size
@@ -364,12 +370,12 @@ class ServingLoop:
     between steps.
     Under serve_int8_weights the int8 rewrite is redone from them; if
     that raises, every step raises until an UpdateTheta succeeds.
-    In-flight sequences continue under the new weights. persist_prefix
-    belongs to the prefix cache, which the port does not have yet."""
-    if persist_prefix:
-      raise NotImplementedError(
-          "persist_prefix keeps a prefix cache across the swap; the prefix "
-          "cache comes with ROADMAP item 5 of the port")
+    At fprop_dtype=bfloat16 the weights' bfloat16 cast is redone from
+    them. In-flight sequences continue under the new weights.
+    persist_prefix says whether a prefix cache keeps its pages across the
+    swap; the engine has no prefix cache, so the flag has no effect, as
+    in the reference's engine without one."""
+    del persist_prefix   # read only by a prefix cache
     new = dict(NestedMap(theta).FlattenItems())
     own = dict(self._task.ThetaTree().FlattenItems())
     if sorted(new) != sorted(own):
@@ -391,14 +397,13 @@ class ServingLoop:
             layer.copy_(torch.as_tensor(src[i]))
         else:
           prm.copy_(torch.as_tensor(new[key]))
-      if self.serve_int8_weights:
-        # one int8 copy on the card at a time: the old one goes first, and
-        # until the new one is built every step raises (_CheckServed)
-        # rather than serve the float parameters
+      if self._serves_theta:
+        # one served copy on the card at a time: the old one goes first,
+        # and until the new one is built every step raises (_CheckServed)
+        # rather than serve the task's own parameters
         self._served = None
-        self._served = base_layer.ServedTheta(
-            self._task,
-            quant_weights.Int8ServingTheta(self._task.ThetaTree())[0])
+        self._served = quant_weights.ServingTheta(self._task,
+                                                  self.serve_int8_weights)
 
   def _Loop(self):
     while True:
@@ -490,19 +495,20 @@ class ServingLoop:
         row_seeds=folds[..., 0], positions=folds[..., 1])
 
   def _Theta(self):
-    """The context a step runs in: the int8 serving theta active, or the
-    task's own parameters."""
-    if not self.serve_int8_weights:
+    """The context a step runs in: the served theta (int8, or cast to
+    bfloat16) active, or the task's own parameters."""
+    if not self._serves_theta:
       return contextlib.nullcontext()
     self._CheckServed()
     return self._served.Active()
 
   def _CheckServed(self):
-    """Raises while an int8-serving engine has no int8 theta (its last
-    UpdateTheta failed to rebuild it)."""
-    if self.serve_int8_weights and self._served is None:
+    """Raises while an engine that serves a theta of its own has none
+    (the rewrite or cast of its last UpdateTheta failed)."""
+    if self._serves_theta and self._served is None:
+      what = "int8 rewrite" if self.serve_int8_weights else "bfloat16 cast"
       raise RuntimeError(
-          "the engine serves int8 weights and the int8 rewrite of the last "
+          f"the engine serves its own theta and the {what} of the last "
           "UpdateTheta failed; call UpdateTheta again")
 
   def _Count(self, batch, events):

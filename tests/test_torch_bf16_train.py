@@ -20,7 +20,9 @@ is the same port model at float32.
   all vector leaves within 1e-3; the control must miss that by 10x and
   break the one-ulp bar in every leaf.
 - `LoadJaxTheta` maps theta leaf for leaf with fprop_dtype set (weights
-  stay float32); the serving entries refuse a bf16 task.
+  stay float32); the serving entries take a bf16 task and only a hybrid
+  stack refuses one (tests/test_torch_bf16_serving*.py hold bf16 serving
+  against the reference).
 """
 
 import math
@@ -41,6 +43,7 @@ from lingvo_tpu_torch.serving import engine
 
 import tests.conftest as conftest
 from tests import test_torch_train as tt
+from tests.test_torch_legacy_serving import _PortParams
 
 VECTOR_LEAF = r"\.(b|b_\w+|bias|scale|per_dim_scale)$"   # rank-1 theta leaves
 
@@ -213,9 +216,20 @@ def test_load_jax_theta_with_fprop_dtype_keeps_float32_leaves():
 
 
 def test_serving_entries_refuse_bf16_activations(tmp_path):
+  """Both serving entries take the trained bf16 task (with bfloat16 pools
+  and caches by default); only a stack with SSM mixers refuses bf16
+  activations, in its mixer (ROADMAP item 9.1)."""
   _, _, port = BF16Lms(False, port_fprop=torch.bfloat16)
-  with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-    engine.ServingLoop(port, page_size=4, num_pages=8, max_batch=2,
-                       max_seq_len=16, device="cpu")
-  with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-    gshard_decode.GShardDecode(port, str(tmp_path), str(tmp_path / "out"))
+  eng = engine.ServingLoop(port, page_size=4, num_pages=8, max_batch=2,
+                           max_seq_len=16, device="cpu")
+  assert eng.Stats()["kv_cache_dtype"] == "bfloat16"
+  out = eng.RunBatch(np.array([[3, 4, 5]], np.int32),
+                     np.array([3], np.int32), max_new_tokens=2)
+  assert out.shape == (1, 2)
+  decoder = gshard_decode.GShardDecode(port, str(tmp_path),
+                                       str(tmp_path / "out"))
+  assert decoder._task is port
+  hybrid = conftest.TinyLmParams(every_n=2)
+  with pytest.raises(NotImplementedError, match="item 9.1"):
+    _PortParams(hybrid).Set(fprop_dtype=torch.bfloat16).Instantiate(
+        device="cpu")

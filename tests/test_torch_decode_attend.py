@@ -34,6 +34,10 @@ JAX only inside the reference helpers, so on a machine with a card and no
 JAX the kernel cases run alone:
 
     python -m pytest tests/test_torch_decode_attend.py -m cuda
+
+The bfloat16-q instantiations (fprop_dtype=bfloat16) must equal the
+float32-q kernels on the widened q, rounded, bit for bit, and lie within
+one bfloat16 ulp of the plain versions.
 """
 
 import numpy as np
@@ -1046,3 +1050,77 @@ class TestBlockDecodeSplitKernel:
             torch.ones(1, dtype=torch.int32, device="cuda"), page_size=P,
             **kw)
       assert block_decode.BlockDecode.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+def test_bf16_q_block_decode_on_card(dtype):
+  """The block-decode kernel's bfloat16-q instantiation for each pool
+  dtype on dyadic q and K (pages 16, a table of 64): bitwise the float32-q
+  kernel on the widened q rounded to bfloat16, within one bfloat16 ulp of
+  the plain version, an inactive row exactly zero, one launch counted
+  under ('bfloat16', dtype)."""
+  from tests.test_torch_ragged_attend import OneBf16Ulp
+  _NeedCard()
+  rng = np.random.RandomState(12)
+  page, t_pages = 16, 64
+  k_pool = _Dyadic(rng.randn(3 * t_pages + 1, page, 4, 128), 1 / 8)
+  v_pool = rng.randn(3 * t_pages + 1, page, 4, 128).astype(np.float32)
+  tables = rng.permutation(3 * t_pages).reshape(3, t_pages).astype(np.int32)
+  q = _Dyadic(rng.randn(3, 1, 4, 128) / 8, 1 / 64)
+  lens = np.array([700, 0, 1000], np.int32)
+  c = lambda a: torch.as_tensor(a).cuda()
+  k, v, scales = _Storage(k_pool, v_pool, dtype)
+  sc = dict(k_scale=c(scales[0]), v_scale=c(scales[1])) if scales else {}
+  kt, vt = c(k), c(v)
+  if dtype == "bfloat16":
+    kt, vt = kt.bfloat16(), vt.bfloat16()
+  qb = c(q).bfloat16()
+  before = block_decode.BlockDecode.launches_by_q_dtype["bfloat16"][dtype]
+  out = block_decode.BlockDecode(qb, kt, vt, c(tables), c(lens),
+                                 page_size=page, **sc)
+  torch.cuda.synchronize()
+  assert block_decode.BlockDecode.launches_by_q_dtype["bfloat16"][dtype] == (
+      before + 1)
+  wide = block_decode.BlockDecode(qb.float(), kt, vt, c(tables), c(lens),
+                                  page_size=page, **sc)
+  want = block_decode._PlainBlockDecode(qb[:, 0], kt, vt, c(tables),
+                                        c(lens), page, **sc)
+  torch.cuda.synchronize()
+  assert out.dtype == want.dtype == torch.bfloat16
+  assert torch.equal(out, wide.bfloat16())
+  assert bool((out[1] == 0).all())
+  assert OneBf16Ulp(out[:, 0], want)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_q_flash_decode_on_card(dtype):
+  """Flash decode's bfloat16-q instantiations (the float32 cache's split
+  and combine kernels, the bfloat16 cache's cluster kernel) on dyadic q
+  and K at h 128, page 16, S 1152, t 1151 and 700: bitwise the float32-q
+  kernel on the widened q rounded to bfloat16, within one bfloat16 ulp of
+  the plain version, a wholly padded row exactly zero."""
+  from tests.test_torch_ragged_attend import OneBf16Ulp
+  _NeedCard()
+  q, k, v, pad = _Cache(s=1152, seed=13, b=4, n=4, h=128)
+  q, k = _Dyadic(q, 1 / 64), _Dyadic(k, 1 / 8)
+  pad[1, :300] = 1.0
+  c = lambda a: torch.as_tensor(a).cuda()
+  kt, vt = c(k).to(getattr(torch, dtype)), c(v).to(getattr(torch, dtype))
+  qb = c(q).bfloat16()
+  for t in (1151, 700):
+    before = flash_decode.FlashDecode.launches_by_q_dtype["bfloat16"][dtype]
+    out = flash_decode.FlashDecode(qb, kt, vt, t, page_size=16,
+                                   cache_paddings=c(pad))
+    torch.cuda.synchronize()
+    assert flash_decode.FlashDecode.launches_by_q_dtype["bfloat16"][
+        dtype] == before + 1
+    wide = flash_decode.FlashDecode(qb.float(), kt, vt, t, page_size=16,
+                                    cache_paddings=c(pad))
+    want = flash_decode._PlainDecode(qb[:, 0], kt, vt, t, 16, c(pad))
+    torch.cuda.synchronize()
+    assert out.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(out, wide.bfloat16())
+    assert bool((out[2] == 0).all())
+    assert OneBf16Ulp(out[:, 0], want)[0]

@@ -13,7 +13,9 @@ The `cuda` cases (they skip without a card) hold kernel (a) and kernel
 (b) against the plain versions on the card bit for bit, at M in {1, 8,
 17, 264}, at DenseLm1B's shapes and at K and N that are not multiples of
 the tiles, and `Int8Weight.Einsum` on the card against the CPU in both
-layouts. This file imports no JAX, so on the card run
+layouts; the bfloat16 instantiations (fprop_dtype=bfloat16) bit for bit
+their float32 runs on the widened x, rounded. This file imports no JAX,
+so on the card run
 
     python -m pytest tests/test_torch_int8_matmul.py -m cuda
 """
@@ -108,6 +110,29 @@ def test_wrapper_checks():
   assert int8_matmul.KernelLimitError(8, 2048, 32000) is None
 
 
+def test_bf16_activations_are_widened_and_the_output_rounded():
+  """Under fprop_dtype=bfloat16: x quantized from its widened values, y
+  the float32 product rounded to bfloat16 once (the reference's
+  x.astype(float32) ... .astype(x.dtype)); an Int8Weight serves a
+  bfloat16 x in bfloat16."""
+  x = _X(5, 64).bfloat16()
+  w, s = _W(24, 64)
+  x8, x_scale = int8_matmul.QuantizeActivations(x)
+  w8, ws = int8_matmul.QuantizeActivations(x.float())
+  assert torch.equal(x8, w8) and torch.equal(x_scale, ws)
+  y = int8_matmul.Int8Gemm(x8, x_scale, w, s, out_dtype=torch.bfloat16)
+  assert y.dtype == torch.bfloat16
+  assert torch.equal(y, int8_matmul.Int8Gemm(x8, x_scale, w, s).bfloat16())
+  assert torch.equal(int8_matmul.Int8Matmul(x, w, s), y)
+  weight = quant_utils.Int8Weight.Quantize(torch.tensor(
+      np.random.RandomState(2).randn(64, 24).astype(np.float32)))
+  out = weight.Einsum(x)
+  assert out.dtype == torch.bfloat16
+  assert torch.equal(out, weight.Einsum(x.float()).bfloat16())
+  with pytest.raises(TypeError, match="float32 or bfloat16"):
+    int8_matmul.Int8Gemm(x8, x_scale, w, s, out_dtype=torch.float16)
+
+
 # -- on the card -----------------------------------------------------------------
 
 
@@ -199,3 +224,33 @@ def test_int8_weight_einsum_on_card_matches_cpu(cuda, layout, contract_ndim,
     w8c = quant_utils.Int8Weight(w8.w_int8.cuda(), w8.scale.cuda(), layout,
                                  contract_ndim)
     assert torch.equal(w8c.Einsum(x.cuda()).cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n", [(8, 2048, 2048), (264, 2048, 8192),
+                                     (17, 100, 136), (1, 64, 8)])
+def test_bf16_kernels_on_card(cuda, m, k, n):
+  """The bfloat16 instantiations (x widened on load; y rounded to
+  bfloat16 after the epilogue): kernel (a) bitwise its float32 run on the
+  widened x, kernel (b) bitwise its float32 run rounded, both bitwise the
+  plain versions and counted by dtype; K = 100 takes the scalar loads."""
+  x = _X(m, k, seed=m + k).bfloat16()
+  w, s = _W(n, k, seed=n)
+  xc, wc, sc = x.cuda(), w.cuda(), s.cuda()
+  by_q = dict(int8_matmul.QuantizeActivations.launches_by_dtype)
+  by_g = dict(int8_matmul.Int8Gemm.launches_by_dtype)
+  x8, x_scale = int8_matmul.QuantizeActivations(xc)
+  y = int8_matmul.Int8Gemm(x8, x_scale, wc, sc, out_dtype=torch.bfloat16)
+  f8, f_scale = int8_matmul.QuantizeActivations(xc.float())
+  yf = int8_matmul.Int8Gemm(f8, f_scale, wc, sc)
+  both = int8_matmul.Int8Matmul(xc, wc, sc)
+  torch.cuda.synchronize()
+  assert int8_matmul.QuantizeActivations.launches_by_dtype["bfloat16"] == (
+      by_q["bfloat16"] + 2)
+  assert int8_matmul.Int8Gemm.launches_by_dtype["bfloat16"] == (
+      by_g["bfloat16"] + 2)
+  assert torch.equal(x8, f8) and torch.equal(x_scale, f_scale)
+  assert y.dtype == both.dtype == torch.bfloat16
+  assert torch.equal(y, yf.bfloat16())
+  assert torch.equal(both, y)
+  assert torch.equal(y.cpu(), int8_matmul.Int8Matmul(x, w, s))

@@ -454,15 +454,15 @@ def test_gshard_decode_int8_matches_reference(checkpoints, tmp_path):
   assert tel["serve_int8_weights"] is True
   assert tel["serve_int8_weights"] == want[0]["telemetry"]["serve_int8_weights"]
   # the int8 theta is built once per restored step
-  cached = decoder._int8_theta
+  cached = decoder._served
   assert cached[0] == 1
   decoder.DecodeOnce(1, _PROMPTS, _LENS)
-  assert decoder._int8_theta is cached
+  assert decoder._served is cached
   ckpt = checkpointer.Checkpointer(port_dir)
   lm2 = _PortTiny(4, seed=11)
   ckpt.Save(2, lm2, force=True)
   again = decoder.DecodeOnce(2, _PROMPTS, _LENS)
-  assert decoder._int8_theta is not cached and decoder._int8_theta[0] == 2
+  assert decoder._served is not cached and decoder._served[0] == 2
   fresh = gshard_decode.GShardDecode(
       _PortTiny(4), port_dir, str(tmp_path / "fresh.jsonl"),
       max_decode_steps=_STEPS, prefill_chunk_size=3,

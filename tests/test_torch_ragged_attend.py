@@ -26,6 +26,10 @@ helper, so on a machine with a card and no JAX the kernel cases run
 alone:
 
     python -m pytest tests/test_torch_ragged_attend.py -m cuda
+
+Its bfloat16-q instantiations (fprop_dtype=bfloat16) must equal the
+float32-q kernel on the widened q, rounded, bit for bit, and lie within
+one bfloat16 ulp of the plain version.
 """
 
 import numpy as np
@@ -522,3 +526,55 @@ def test_kernel_edges_on_card(case, dtype):
     flt = rba.RaggedAttend(args[0], *deq, *args[3:], page_size=16, **tree)
     torch.cuda.synchronize()
     assert torch.equal(out, flt)
+
+
+def OneBf16Ulp(got, want):
+  """Whether bfloat16 got is within one bfloat16 ulp of want everywhere
+  (2^-7 of the magnitude, plus 1e-6 of the largest for values near 0):
+  float32 sums in another order, then one rounding, can land on either
+  side of a rounding boundary. Returns (ok, elements that differ)."""
+  g, w = got.float(), want.float()
+  bar = 2.0 ** -7 * w.abs() + 1e-6 * float(w.abs().max())
+  return bool(((g - w).abs() <= bar).all()), int((g != w).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
+@pytest.mark.parametrize("case", ["main", "tree_in_tile", "decode_only"])
+def test_bf16_q_kernel_on_card(case, dtype):
+  """The bfloat16-q instantiation (fprop_dtype=bfloat16) for each pool
+  dtype on dyadic q and K: a bfloat16 output bitwise equal to the
+  float32-q kernel on the widened q rounded to bfloat16 (the widening is
+  exact and the rest is the float32 code), within one bfloat16 ulp of the
+  plain version (float32 sums in another order, then one rounding),
+  padding exactly zero, one launch counted under ('bfloat16', dtype)."""
+  if not torch.cuda.is_available():
+    pytest.skip("no CUDA device here: the CUDA kernel is unverified on "
+                "this machine (chip_smoke.py checks it on the H100)")
+  q, row_of, q_end, q_start, lo, hi, tables, k_pool, v_pool = _EdgePack(
+      case, np.random.RandomState(5))
+  q, k_pool = _Dyadic(q, 1 / 32), _Dyadic(k_pool, 1 / 8)
+  c = lambda a: torch.as_tensor(a).cuda()
+  sc = {}
+  if dtype == "int8":
+    (k8, ks), (v8, vs) = _Quantize(k_pool), _Quantize(v_pool)
+    k, v = c(k8), c(v8)
+    sc = dict(k_scale=c(ks), v_scale=c(vs))
+  else:
+    k, v = c(k_pool).to(getattr(torch, dtype)), c(v_pool).to(
+        getattr(torch, dtype))
+  qb = c(q).bfloat16()
+  rest = (k, v, c(tables), c(row_of), c(q_end))
+  tree = dict(q_start=c(q_start), anc_lo=c(lo), anc_hi=c(hi))
+  before = rba.RaggedAttend.launches_by_q_dtype["bfloat16"][dtype]
+  out = rba.RaggedAttend(qb, *rest, page_size=16, **sc, **tree)
+  torch.cuda.synchronize()
+  assert rba.RaggedAttend.launches_by_q_dtype["bfloat16"][dtype] == (
+      before + 1)
+  wide = rba.RaggedAttend(qb.float(), *rest, page_size=16, **sc, **tree)
+  want = rba._PlainRaggedAttend(qb, *rest, 16, **tree, **sc)
+  torch.cuda.synchronize()
+  assert out.dtype == want.dtype == torch.bfloat16
+  assert torch.equal(out, wide.bfloat16())
+  assert bool((out[c(q_end <= 0)] == 0).all())
+  assert OneBf16Ulp(out, want)[0]

@@ -11,7 +11,9 @@ On DenseLmTiny (noised theta, CPU):
   "cancelled", slots and pages come back, and the `Stats()` counters
   agree; `Stop(drain=False)` cancels what is left.
 - `UpdateTheta` between steps, with float and int8 weights: the streams
-  equal the reference engine's after the same swap at the same step.
+  equal the reference engine's after the same swap at the same step; with
+  `persist_prefix=True` and no prefix cache the swap happens as the
+  reference's does.
 - `prefill_token_budget` 4 and 12: streams and `Stats()` counters.
 """
 
@@ -214,12 +216,36 @@ def test_update_theta_matches_reference(dense, int8):
   unswapped = _Streams(_Drive(engine.ServingLoop(_PortLm(theta), device="cpu",
                                                  **kw), prompts))
   assert unswapped != got
-  with pytest.raises(NotImplementedError, match="item 5"):
-    eng.UpdateTheta(new_tree, persist_prefix=True)
   bad = _PortLm(new_theta).ThetaTree()
   del bad["final_ln"]
   with pytest.raises(ValueError, match="final_ln"):
     eng.UpdateTheta(bad)
+
+
+@pytest.mark.parametrize("step_mode", ["ragged", "legacy"])
+def test_update_theta_with_persist_prefix_matches_reference(dense,
+                                                            step_mode):
+  """persist_prefix=True belongs to a prefix cache; with none (the
+  reference's default, and the port's only engine) the swap happens and
+  the flag has no effect: the streams equal the reference engine's after
+  the same swap, and the port's swap without the flag."""
+  task, theta, _ = dense
+  new_theta = _Noised(theta, seed=6)
+  prompts = _Prompts(task.p.vocab_size)
+  kw = dict(_ENGINE_KW, step_mode=step_mode, **_SAMPLE)
+  j_eng = jax_engine.ServingLoop(task, theta, trace=False, **kw)
+  assert j_eng.prefix_cache is None
+  want = _Streams(_Drive(j_eng, prompts, at_step={
+      3: lambda _: j_eng.UpdateTheta(new_theta, persist_prefix=True)}))
+  new_tree = _PortLm(new_theta).ThetaTree()
+  got = {}
+  for persist in (True, None):
+    eng = engine.ServingLoop(_PortLm(theta), device="cpu", **kw)
+    got[persist] = _Streams(_Drive(eng, prompts, at_step={
+        3: lambda _, e=eng, f=persist: e.UpdateTheta(new_tree,
+                                                     persist_prefix=f)}))
+    _AssertCounts(eng, j_eng)
+  assert got[True] == want == got[None]
 
 
 def test_update_theta_whose_int8_rewrite_fails_stops_the_steps(dense,
