@@ -216,17 +216,23 @@
    device time (with counts) and the device time of the remat replay's
    dtype casts.
 21. The int8 serving kernels of ops/int8_matmul.py (kernel (a), the
-   per-tensor activation quantization; kernel (b), the int8 tensor-core
-   GEMM with its two-scale epilogue) against their plain versions at the
-   145 products of a DenseLm1B step (q/k/v/post 2048 x 2048, the FFN's
-   2048 x 8192 and 8192 x 2048, the tied logits 2048 x 32000) with m = 264
-   rows (the ragged step) and m = 8 (a decode step): bitwise equal, two
-   calls bitwise equal, one launch of each a call. Times each kernel, the
-   plain versions, torch._int_mm (the int32 product alone, m >= 17) and
-   the float32 matmul on the dequantized weight, beside each bound (bytes
-   at 3.35 TB/s, operations at 1979 TOP/s), and their sums over a step;
-   and the host's enqueue per projection (`Int8Matmul`, both kernels from
-   one call, against the float32 matmul): what a host-bound step pays.
+   per-tensor activation quantization, one block or cluster; kernel (b),
+   the int8 wgmma GEMM fed by TMA with its two-scale epilogue) against
+   their plain versions at the 145 products of a DenseLm1B step
+   (q/k/v/post 2048 x 2048, the FFN's 2048 x 8192 and 8192 x 2048, the
+   tied logits 2048 x 32000) with m = 264 rows (the ragged step) and m = 8
+   (a decode step):
+   bitwise equal, two calls bitwise equal, one launch of each a call;
+   prints each shape's launch plan (a's cluster, b's orientation, cluster
+   of K splits, stages; the built kernel's blocks per SM must be the
+   plan's). Times each kernel, both from one `Int8Matmul` call (b
+   overlapping a), the plain versions, torch._int_mm (the int32 product
+   alone; at m = 8 on x8 padded with zero rows to 24, the fewest it
+   takes) and the float32 matmul on the dequantized weight, beside each
+   bound (bytes at 3.35 TB/s, operations at 1979 TOP/s), and their sums
+   over a step; and the host's enqueue per projection (`Int8Matmul`, both
+   kernels from one call, against the float32 matmul): what a host-bound
+   step pays.
 22. int8-weight serving main path: DenseLmTiny with int8 weights on the
    card must reproduce its CPU streams (ragged, legacy, ragged with int8
    pools); then DenseLm1B with phase 5's weights, geometry and requests
@@ -2350,19 +2356,52 @@ def _Int8ThetaBytes(theta):
   return total
 
 
+def _Int8PlanText(torch, im, m, k, n, itemsize=4):
+  """The launch kernels (a) and (b) take at a shape (`QuantizePlan`,
+  `GemmPlan`), and whether the built GEMM's blocks per SM are the ones
+  the plan assumed; '' for a tree whose module has no plans."""
+  if not hasattr(im, "GemmPlan"):
+    return ""
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  plan = im.GemmPlan(m, k, n, sms)
+  q = im.QuantizePlan(m, k, itemsize, im.QuantizeMaxBlocks(0))
+  per_sm = im.GemmOccupancy(plan["swap"], plan["nb"])
+  _Check(per_sm == plan["per_sm"], f"int8 GEMM at {m, k, n}: the built "
+         f"kernel holds {per_sm} blocks an SM, the plan assumed "
+         f"{plan['per_sm']}")
+  side = (f"swapped (weight rows as A, x8 as n = {plan['nb']})"
+          if plan["swap"] else "normal (x8 rows as A, n = 128)")
+  return (f"(a) a cluster of {q['blocks']} x {q['rows']} rows, "
+          f"{q['held']} held; (b) {side}, {plan['m_tiles']} x "
+          f"{plan['n_tiles']} tiles, cluster {plan['cluster']} (K split in "
+          f"runs of {plan['kb_per_split']} x 128 bytes), {plan['stages']} "
+          f"stages, {plan['blocks']} blocks, {per_sm} an SM")
+
+
+def _IntMmPadMs(torch, x8, w, k):
+  """torch._int_mm on x8[:, :k] padded with zero rows to 24, the fewest
+  rows it takes (it refuses m <= 16): a yardstick for small m."""
+  a8 = torch.zeros((24, k), dtype=torch.int8, device=x8.device)
+  a8[:x8.shape[0]] = x8[:, :k]
+  return _TimeMs(torch, lambda: torch._int_mm(a8, w.t()), 20)
+
+
 def _CheckInt8Gemm(torch, im, rng, m):
   """Kernels (a) and (b) of ops/int8_matmul.py at the int8 serving step's
   shapes with m rows (264: the ragged step's packed tokens; 8: a decode
   step's rows): x float32 from a seeded numpy generator, random int8
   weights and scales. Each kernel bitwise equal to its plain version, two
-  calls bitwise equal, one launch of each a call. Times (a), (b), the
-  plain versions, torch._int_mm (the int32 product alone, where it takes
-  the shape: m >= 17, K and N multiples of 8) and the float32 matmul on
-  the dequantized weight (what the float path pays), beside each bound;
-  returns the per-shape results and their sums over the 145 calls of a
-  step."""
-  rows, step = [], dict(a_ms=0.0, b_ms=0.0, a_plain_ms=0.0, b_plain_ms=0.0,
-                        a_bound=0.0, b_bound=0.0, int_mm_ms=0.0, f32_ms=0.0,
+  calls bitwise equal, one launch of each a call. Times (a), (b), both
+  from one `Int8Matmul` call ((b) a programmatic dependent of (a)), the
+  plain versions, torch._int_mm (the int32 product alone: where it takes
+  the shape, m >= 17, K and N multiples of 8; at m < 17 on x8 padded with
+  zero rows to 24, labelled so) and the float32 matmul on the dequantized
+  weight (what the float path pays), beside each bound; prints each
+  shape's launch plan; returns the per-shape results and their sums over
+  the 145 calls of a step."""
+  rows, step = [], dict(a_ms=0.0, b_ms=0.0, ab_ms=0.0, a_plain_ms=0.0,
+                        b_plain_ms=0.0, a_bound=0.0, b_bound=0.0,
+                        int_mm_ms=0.0, int_mm_pad_ms=0.0, f32_ms=0.0,
                         err=0.0, a_by=set(), b_by=set())
   for k, n, calls in INT8_STEP_SHAPES:
     x = torch.as_tensor(rng.randn(m, k).astype(np.float32) * 2.0).cuda()
@@ -2389,16 +2428,20 @@ def _CheckInt8Gemm(torch, im, rng, m):
     kp = x8.shape[1]
     a_ms = _TimeMs(torch, lambda: im.QuantizeActivations(x), 20)
     b_ms = _TimeMs(torch, lambda: im.Int8Gemm(x8, xs, w, ws), 20)
+    ab_ms = _TimeMs(torch, lambda: im.Int8Matmul(x, w, ws), 20)
     a_plain_ms = _TimeMs(torch, lambda: im._PlainQuantize(x), 5)
     b_plain_ms = _TimeMs(torch, lambda: im._PlainGemm(x8, xs, w, ws), 5)
     a_bound = _Bound(m * k * 4 + m * kp + 4, 0)
     b_bound = _Bound(n * k + m * kp + n * 4 + 4 + m * n * 4, 2 * m * k * n,
                      INT8_OPS_PER_S)
-    int_mm_ms = None
-    if m >= 17 and k % 8 == 0 and n % 8 == 0:
-      a8 = x8[:, :k]
+    int_mm_ms = int_mm_pad_ms = None
+    if k % 8 == 0 and n % 8 == 0:
       try:   # a yardstick only: the port never calls it
-        int_mm_ms = _TimeMs(torch, lambda: torch._int_mm(a8, w.t()), 20)
+        if m >= 17:
+          a8 = x8[:, :k]
+          int_mm_ms = _TimeMs(torch, lambda: torch._int_mm(a8, w.t()), 20)
+        else:
+          int_mm_pad_ms = _IntMmPadMs(torch, x8, w, k)
       except RuntimeError as e:
         print(f"torch._int_mm refused [{m}, {k}] x [{k}, {n}]: {e}")
     w_f32 = (w.float() * ws[:, None]).contiguous()
@@ -2412,47 +2455,50 @@ def _CheckInt8Gemm(torch, im, rng, m):
             "us")
       step["enqueue_us"] = int8_us
     del w_f32
-    geo = im.GemmGeometry(m, k, n, torch.cuda.get_device_properties(0)
-                          .multi_processor_count)
-    int_mm = ("n/a (m < 17)" if int_mm_ms is None
-              else f"{int_mm_ms:.4f} ms")
+    int_mm = ("n/a" if int_mm_ms is None else f"{int_mm_ms:.4f} ms") + (
+        "" if int_mm_pad_ms is None
+        else f" (on x8 padded to 24 rows: {int_mm_pad_ms:.4f} ms)")
     print(f"int8 [{m}, {k}] x [{n}, {k}] ({calls} a step): kernel (a) "
           f"{a_ms:.4f} ms (bound {a_bound[0]:.4f}, {a_bound[1]}), kernel (b) "
           f"{b_ms:.4f} ms (bound {b_bound[0]:.4f}, {b_bound[1]}; "
-          f"{_BoundShare(b_ms, b_bound[0])}), plain (a) {a_plain_ms:.4f} ms, "
+          f"{_BoundShare(b_ms, b_bound[0])}), both from one Int8Matmul "
+          f"{ab_ms:.4f} ms, plain (a) {a_plain_ms:.4f} ms, "
           f"plain (b) {b_plain_ms:.4f} ms, "
           f"_int_mm {int_mm}, float32 matmul {f32_ms:.4f} ms; bitwise "
-          "equal, one launch of "
-          f"each; grid {geo['m_tiles']} x {geo['n_tiles']} x "
-          f"{geo['splits']} (rows {geo['bm']}, {geo['chunks_per_split']} "
-          "64-byte chunks a split)")
+          "equal, one launch of each")
+    plan = _Int8PlanText(torch, im, m, k, n)
+    if plan:
+      print(f"  plan at [{m}, {k}] x [{n}, {k}]: {plan}")
     rows.append(dict(m=m, k=k, n=n, calls=calls, a_ms=a_ms, b_ms=b_ms,
-                     a_plain_ms=a_plain_ms, b_plain_ms=b_plain_ms,
-                     a_bound=a_bound, b_bound=b_bound, int_mm_ms=int_mm_ms,
+                     ab_ms=ab_ms, a_plain_ms=a_plain_ms,
+                     b_plain_ms=b_plain_ms, a_bound=a_bound, b_bound=b_bound,
+                     int_mm_ms=int_mm_ms, int_mm_pad_ms=int_mm_pad_ms,
                      f32_ms=f32_ms))
-    step["a_ms"] += calls * a_ms
-    step["b_ms"] += calls * b_ms
-    step["a_plain_ms"] += calls * a_plain_ms
-    step["b_plain_ms"] += calls * b_plain_ms
+    for key, val in (("a_ms", a_ms), ("b_ms", b_ms), ("ab_ms", ab_ms),
+                     ("a_plain_ms", a_plain_ms), ("b_plain_ms", b_plain_ms),
+                     ("a_bound", a_bound[0]), ("b_bound", b_bound[0]),
+                     ("f32_ms", f32_ms)):
+      step[key] += calls * val
     step["a_by"].add(a_bound[1])
     step["b_by"].add(b_bound[1])
-    step["a_bound"] += calls * a_bound[0]
-    step["b_bound"] += calls * b_bound[0]
-    step["f32_ms"] += calls * f32_ms
-    if int_mm_ms is None:
-      step["int_mm_ms"] = None
-    elif step["int_mm_ms"] is not None:
-      step["int_mm_ms"] += calls * int_mm_ms
+    for key, val in (("int_mm_ms", int_mm_ms),
+                     ("int_mm_pad_ms", int_mm_pad_ms)):
+      step[key] = (None if val is None or step[key] is None
+                   else step[key] + calls * val)
     step["err"] = max(step["err"], err)
     del x, w, ws, x8, y, y2, want
   step["rows"] = rows
   for key in ("a_by", "b_by"):   # what bounds the step's sum
     step[key] = "/".join(sorted(step[key]))
   int_mm = ("n/a" if step["int_mm_ms"] is None
-            else f"{step['int_mm_ms']:.3f} ms")
+            else f"{step['int_mm_ms']:.3f} ms") + (
+                "" if step["int_mm_pad_ms"] is None
+                else f" (on x8 padded to 24 rows: "
+                f"{step['int_mm_pad_ms']:.3f} ms)")
   print(f"int8 step sums at m={m} over the 145 calls: kernel (a) "
         f"{step['a_ms']:.3f} ms (bound {step['a_bound']:.3f}), kernel (b) "
-        f"{step['b_ms']:.3f} ms (bound {step['b_bound']:.3f}), plain (a) "
+        f"{step['b_ms']:.3f} ms (bound {step['b_bound']:.3f}), both from "
+        f"one Int8Matmul {step['ab_ms']:.3f} ms, plain (a) "
         f"{step['a_plain_ms']:.3f} ms, plain (b) {step['b_plain_ms']:.3f} "
         f"ms, _int_mm {int_mm}, float32 matmul "
         f"{step['f32_ms']:.3f} ms")
@@ -3396,7 +3442,7 @@ def main():
   print("kernel (a) library_ms: null (no single PyTorch call computes a "
         "per-tensor amax scale and quantizes by it); kernel (b) library_ms: "
         "torch._int_mm, the int32 product alone (no scales), where it takes "
-        "the shape (m >= 17)")
+        "the shape (m >= 17); at m = 8 on x8 padded to 24 rows, labelled")
   irng = np.random.RandomState(21)
   int8_steps = {m: _CheckInt8Gemm(torch, im, irng, m) for m in (264, 8)}
   gc.collect()
@@ -3709,6 +3755,10 @@ def main():
         "host_enqueue_us": serve_step["enqueue_us"] if key == "b" else None,
         "decode_step_ms": decode_step[f"{key}_ms"],
         "decode_step_bound_ms": decode_step[f"{key}_bound"],
+        "decode_step_library_ms": (decode_step["int_mm_pad_ms"]
+                                   if key == "b" else None),
+        "both_from_one_call_ms": serve_step["ab_ms"],
+        "decode_step_both_ms": decode_step["ab_ms"],
         "legacy_launches": int8_serve["legacy", None]["launches"][name],
         "gshard_launches": int8_gshard[name],
         "shape": "sum over the 145 products of a step, m = 264"})

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the bfloat16 flash-attention kernels
-// (flash_attention.cu), the bfloat16 fused-xent statistics (fused_xent.cu)
-// and the SSD scan (ssd_scan.cu), as inline PTX: cp.async copies,
-// mbarriers (and cp.async copies that arrive on one), thread-block cluster
-// barriers and stores into another block's shared memory, TMA tensor loads
-// and stores, warpgroup matrix multiplies (wgmma), named barriers and
-// warpgroup register reallocation; and the host's tensor-map encoder.
+// (flash_attention.cu), the bfloat16 fused-xent statistics (fused_xent.cu),
+// the SSD scan (ssd_scan.cu) and the int8 serving matmul (int8_matmul.cu),
+// as inline PTX: cp.async copies, mbarriers (and cp.async copies that
+// arrive on one), thread-block cluster barriers, loads from and stores into
+// another block's shared memory, TMA tensor loads and stores (and the
+// tensor maps' prefetch), warpgroup matrix multiplies (wgmma, bf16 and
+// int8), named barriers, warpgroup register reallocation and programmatic
+// dependent launch; and the host's tensor-map encoder.
 //
 // Conventions. Tiles are copied by TMA with the 128-byte swizzle: a box
 // of R rows x 64 bf16 columns (128 bytes) lands as R rows of 128 bytes,
@@ -17,6 +19,10 @@
 //  - MN-major (the operand's N along the 128-byte row, k along rows, the
 //    B operand with its transpose flag set): SBO 1024 bytes between
 //    groups of 8 k-rows, LBO the bytes between 64-column boxes.
+// int8 tiles are the same bytes: a box of R rows x 128 int8 values of K
+// (128 bytes), and the int8 wgmma's k-step of 32 values is 32 bytes, so
+// its K-major descriptors are the bf16 ones (SBO 1024, the k-step kk 32 kk
+// bytes into the row). The int8 wgmma takes K-major operands only.
 
 #pragma once
 
@@ -184,6 +190,17 @@ __device__ __forceinline__ void StAsync(uint32_t remote, float4 v,
       : "memory");
 }
 
+// One float into another block's shared memory at `remote`, counted (4
+// bytes) on that block's mbarrier at `remote_bar`.
+__device__ __forceinline__ void StAsyncF(uint32_t remote, float v,
+                                         uint32_t remote_bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(remote),
+      "f"(v), "r"(remote_bar)
+      : "memory");
+}
+
 // MbarWait that acquires at cluster scope: what other blocks' st.async
 // stores or arrivals on this block's barrier released becomes visible.
 __device__ __forceinline__ void MbarWaitCluster(uint64_t* bar, int parity) {
@@ -200,7 +217,42 @@ __device__ __forceinline__ void MbarWaitCluster(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// 16 bytes of the shared memory at `remote` (from MapShared: this or
+// another block of the cluster) as 4 int32.
+__device__ __forceinline__ int4 LdSharedCluster4(uint32_t remote) {
+  int4 v;
+  asm volatile("ld.shared::cluster.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// -- programmatic dependent launch --
+
+// Waits until the grids this one depends on (the stream's previous kernel,
+// when this grid was launched with programmatic stream serialization) have
+// completed and their writes are visible; returns at once otherwise.
+__device__ __forceinline__ void GridDepWait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Lets the stream's next grid, if it was launched with programmatic stream
+// serialization, start before this one ends (it waits in GridDepWait for
+// this grid's writes).
+__device__ __forceinline__ void GridDepLaunch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // -- TMA --
+
+// Fetches the tensor map `map` (a __grid_constant__ kernel parameter)
+// into the TMA unit's cache ahead of its first load.
+__device__ __forceinline__ void PrefetchTensorMap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
 
 // The box at coordinates (c0, c1, c2, c3) (innermost first) of the 4-D
 // tensor map `map` (a __grid_constant__ kernel parameter) into dst;
@@ -396,6 +448,123 @@ __device__ __forceinline__ void WgmmaRS128(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// FenceRegs for int32 accumulators.
+template <int kN>
+__device__ __forceinline__ void FenceRegs(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// -- int8 wgmma (s8 x s8 -> s32) --
+//
+// Both operands K-major from shared memory: rows of 128 int8 values of K in
+// the 128-byte swizzle, as the bf16 tiles (see the head of this file). The
+// overload is picked by the accumulator's size: an m64nNk32 product keeps
+// N / 2 int32 a thread, in the float32 accumulators' layout (thread t of
+// the warpgroup: rows 16 (t / 32) + (t % 32) / 4 and 8 more; d[4 j + e] and
+// d[4 j + 2 + e] at column 8 j + 2 (t % 4) + e). int32 sums are exact.
+
+// d (+)= A . B^T over one m64n8k32 step of int8: A [64 x 32] and B [8 x 32]
+// K-major in shared memory (descriptors da, db), int32 sums; scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void WgmmaS8(int (&d)[4], uint64_t da, uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B^T over one m64n16k32 step of int8: A [64 x 32] and B [16 x 32]
+// K-major in shared memory (descriptors da, db), int32 sums; scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void WgmmaS8(int (&d)[8], uint64_t da, uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B^T over one m64n32k32 step of int8: A [64 x 32] and B [32 x 32]
+// K-major in shared memory (descriptors da, db), int32 sums; scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void WgmmaS8(int (&d)[16], uint64_t da, uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B^T over one m64n64k32 step of int8: A [64 x 32] and B [64 x 32]
+// K-major in shared memory (descriptors da, db), int32 sums; scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void WgmmaS8(int (&d)[32], uint64_t da, uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A . B^T over one m64n128k32 step of int8: A [64 x 32] and B [128 x 32]
+// K-major in shared memory (descriptors da, db), int32 sums; scale_d = 0
+// overwrites d.
+__device__ __forceinline__ void WgmmaS8(int (&d)[64], uint64_t da, uint64_t db,
+                                        int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 
 // -- named barriers --
 

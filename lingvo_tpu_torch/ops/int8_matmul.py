@@ -13,23 +13,26 @@ and applies no scale), so the card runs two hand kernels,
   1e-8) over the whole x of the call (the reference's `amax / 127.0` as
   its jitted programs compute it, `core/jit_arith.ScaleFromAmax`); x8 =
   clip(round(x / x_scale), -128, 127) with a true division and round
-  half to even; rows zero-padded to Kp, K rounded up to 16 bytes.
+  half to even; rows zero-padded to Kp, K rounded up to 16 bytes. One
+  block or one thread-block cluster, sized to x (`QuantizePlan`).
 - `Int8Gemm` (kernel (b)): (x8, x_scale, w [N, K] int8, w_scale [N]
   float32) -> y [M, N] float32 = (float(x8 . w^T) * x_scale) * w_scale,
-  two separate multiplies in the reference's order. The product is
-  int32 and exact; K is split over blocks at small M (`GemmGeometry`),
-  which changes no bit.
+  two separate multiplies in the reference's order. wgmma int8 on
+  TMA-fed tiles; the operands swap for M <= 64, and K is split over the
+  blocks of a cluster where the tiles alone leave the card idle
+  (`GemmPlan`). The product is int32 and exact, so no plan changes a bit.
 
 `Int8Matmul` is the two in a row, launched from one C call over one
-scratch allocation: the serving path, where the host time per
-projection is what a host-bound step waits on. Each has a plain PyTorch
-version in
-this module (`_PlainQuantize`, `_PlainGemm`) with the reference's op
-order: the CPU path, and the kernels' yardstick on the card, where the
-plain product is a float64 matmul cast back to int32, exact because
-every partial sum is an integer below 2^31 < 2^53. A wrapper takes the
-plain version only for CPU tensors; a CUDA tensor launches its kernel or
-raises. Each wrapper counts its launches.
+scratch allocation (x8 and the scale), (b) as a programmatic dependent
+of (a) so that its weight stream overlaps (a): the serving path, where
+the host time per projection is what a host-bound step waits on. Each
+has a plain PyTorch version in this module (`_PlainQuantize`,
+`_PlainGemm`) with the reference's op order: the CPU path, and the
+kernels' yardstick on the card, where the plain product is a float64
+matmul cast back to int32, exact because every partial sum is an integer
+below 2^31 < 2^53. A wrapper takes the plain version only for CPU
+tensors; a CUDA tensor launches its kernel or raises. Each wrapper counts
+its launches.
 
 Under fprop_dtype=bfloat16 x and y are bfloat16: the reference quantizes
 `x.astype(float32)` and returns `y.astype(x.dtype)`. Both kernels have a
@@ -39,8 +42,9 @@ the float32 kernels on the widened x, rounded; the weight scales stay
 float32 tensors (the bfloat16-rounded scales widened exactly, once).
 
 What bounds the kernels at the serving shapes (M = 8 decode rows, M =
-264 packed tokens): the weight's bytes, 1 per element; the operations,
-2 M K N, sit far under the int8 tensor cores' rate.
+264 packed tokens): the weight's bytes, 1 per element, for (b), whose 2 M
+K N operations sit far under the int8 tensor cores' rate; latency for
+(a), which moves kilobytes to megabytes.
 """
 
 from __future__ import annotations
@@ -57,9 +61,19 @@ from lingvo_tpu_torch.ops.ragged_block_attend import CheckAligned
 from lingvo_tpu_torch.quant import kv as kv_quant
 
 K_ALIGN = 16      # x8 rows are padded to a multiple of 16 bytes
-TILE_K = 64       # K bytes of one kernel stage
-TILE_N = 128      # output columns of a block
-MAX_N_TILES = 65535   # the GEMM grid's y extent
+K_BLOCK = 128     # K bytes of a GEMM stage (one 128-byte swizzled row)
+SWAP_MAX_M = 64   # rows up to which the GEMM swaps its operands
+SWAP_N = (8, 16, 32, 64)   # the swapped B operand's widths (x8 rows)
+MAX_CLUSTER = 8   # blocks of a cluster (the portable limit)
+# a block's fixed cost (first loads, cluster reduce, epilogue) in units of
+# one K block's stream, and the blocks an SM streams for at full rate: the
+# K split's cost model, fitted to the split sweeps of
+# `tools/torch_int8_probe.py --sweep` (PERF.md)
+GEMM_OVERHEAD_KBLOCKS = 8
+GEMM_STREAMS_PER_SM = 2
+SMEM_PER_SM = 233472   # bytes of shared memory an H100 SM gives its blocks
+QUANT_MIN_BYTES = 8 << 10   # the least x a block of (a)'s cluster takes
+QUANT_HOLD_BYTES = 224 << 10   # x a block of (a) holds in shared memory
 # the dtypes of x and y the kernels take
 ACT_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -74,27 +88,76 @@ def PaddedK(k: int) -> int:
   return -(-k // K_ALIGN) * K_ALIGN
 
 
-def GemmGeometry(m: int, k: int, n: int, sms: int) -> dict:
-  """The GEMM kernel's launch for an [m, k] x [n, k]^T product on a card
-  of `sms` SMs: rows a block (16 for m <= 16, else 64), the tile grid,
-  and the K split. K is split only while the tiles alone would leave
-  blocks for fewer than 2 x sms, in whole 64-byte chunks, no split empty."""
-  bm = 16 if m <= 16 else 64
-  m_tiles, n_tiles = -(-m // bm), -(-n // TILE_N)
-  chunks = -(-k // TILE_K)
-  splits = max(1, min(chunks, -(-2 * sms // (m_tiles * n_tiles))))
-  per_split = -(-chunks // splits)
-  splits = -(-chunks // per_split)
-  return dict(bm=bm, m_tiles=m_tiles, n_tiles=n_tiles, splits=splits,
-              chunks_per_split=per_split)
+def QuantizePlan(m: int, k: int, itemsize: int,
+                 max_blocks: int = MAX_CLUSTER) -> dict:
+  """Kernel (a)'s launch for x [m, k] of `itemsize` bytes a value: one
+  cluster of `blocks` blocks (at most max_blocks, what the card places:
+  MAX_CLUSTER or 16, `QuantizeMaxBlocks`; at least QUANT_MIN_BYTES of x each
+  where x has that much), `rows` whole rows a block (the last one fewer,
+  none empty), `held` of them held in the block's shared memory: all
+  where they fit, else none (every row read twice: measured faster than
+  holding a part, PERF.md)."""
+  row = k * itemsize
+  blocks = max(1, min(max_blocks, m, -(-m * row // QUANT_MIN_BYTES)))
+  rows = -(-m // blocks)
+  blocks = -(-m // rows)
+  return dict(blocks=blocks, rows=rows,
+              held=rows if rows * row <= QUANT_HOLD_BYTES else 0)
+
+
+def _GemmConfig(swap: bool, nb: int) -> dict:
+  """Kernel (b)'s block for an orientation and B width, as
+  `int8_matmul.cu` `GemmCfg` builds it: warpgroups, stages, threads,
+  dynamic shared memory, and how many blocks an SM holds."""
+  wg = 1 if swap else 2
+  stages = 6 if swap else 3
+  threads = 128 * wg + 32
+  smem = 1024 + stages * (64 * wg + nb) * K_BLOCK + 16 * stages
+  # the SM keeps 1 KB of its shared memory for each resident block
+  per_sm = min(SMEM_PER_SM // (smem + 1024), 2048 // threads)
+  return dict(wg=wg, stages=stages, threads=threads, smem=smem,
+              per_sm=per_sm)
+
+
+def GemmPlan(m: int, k: int, n: int, sms: int) -> dict:
+  """Kernel (b)'s launch for an [m, k] x [n, k]^T product on a card of
+  `sms` SMs. m <= SWAP_MAX_M swaps the operands: the weight's rows are the
+  64-row A operand, x8's m rows (rounded up to a width of SWAP_N, `nb`)
+  the B operand, a tile 64 columns of y wide; else 128 rows of x8 times
+  128 of the weight. `cluster` blocks (a power of two: clusters of 3, 5,
+  6 or 7 placed worse on the card) split a tile's K into runs of
+  `kb_per_split` 128-byte blocks, none empty: the split that minimises
+  waves x (K blocks a split + GEMM_OVERHEAD_KBLOCKS), a wave being
+  min(per_sm, GEMM_STREAMS_PER_SM) blocks an SM, the fewest splits on a
+  tie."""
+  swap = m <= SWAP_MAX_M
+  nb = next(w for w in SWAP_N if w >= m) if swap else 128
+  tile_m, tile_n = (nb, 64) if swap else (128, 128)
+  cfg = _GemmConfig(swap, nb)
+  m_tiles, n_tiles = -(-m // tile_m), -(-n // tile_n)
+  kblocks = -(-k // K_BLOCK)
+  tiles = m_tiles * n_tiles
+  slots = min(cfg["per_sm"], GEMM_STREAMS_PER_SM) * sms
+  best = None
+  for cluster in (1, 2, 4, 8):
+    per = -(-kblocks // cluster)
+    if -(-kblocks // per) != cluster:
+      continue   # a split would be empty
+    cost = -(-tiles * cluster // slots) * (per + GEMM_OVERHEAD_KBLOCKS)
+    if best is None or cost < best[0]:
+      best = (cost, cluster, per)
+  return dict(swap=swap, nb=nb, tile_m=tile_m, tile_n=tile_n,
+              m_tiles=m_tiles, n_tiles=n_tiles, kblocks=kblocks,
+              cluster=best[1], kb_per_split=best[2],
+              blocks=tiles * best[1], **cfg)
 
 
 def KernelLimitError(m: int, k: int, n: int) -> str | None:
   """Why the kernels cannot take an [m, k] x [n, k]^T product, or None."""
   if m < 1 or k < 1 or n < 1:
     return f"Int8Matmul kernels take m, k, n >= 1, got {m}, {k}, {n}"
-  if -(-n // TILE_N) > MAX_N_TILES:
-    return f"n = {n} exceeds the GEMM kernel's {MAX_N_TILES} column tiles"
+  if -(-m // 64) * -(-n // 64) * MAX_CLUSTER > 2**31 - 1:
+    return f"[{m}, {n}] exceeds the GEMM kernel's grid"
   return None
 
 
@@ -139,16 +202,16 @@ def _Lib():
   if _lib is None:
     lib = cuda_build.Load("int8_matmul")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.Int8QuantizeGrid.argtypes = [ci, ci, vp]
-    lib.Int8QuantizeGrid.restype = ci
-    lib.Int8Quantize.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+    lib.Int8Quantize.argtypes = [vp] * 3 + [ci] * 7 + [vp]
     lib.Int8Quantize.restype = ci
-    lib.Int8Gemm.argtypes = [vp] * 7 + [ci] * 8 + [vp]
+    lib.Int8Gemm.argtypes = [vp] * 5 + [ci] * 10 + [vp]
     lib.Int8Gemm.restype = ci
-    lib.Int8MatmulScratch.argtypes = [ci] * 6 + [vp]
-    lib.Int8MatmulScratch.restype = ctypes.c_longlong
-    lib.Int8Matmul.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+    lib.Int8Matmul.argtypes = [vp] * 5 + [ci] * 12 + [vp]
     lib.Int8Matmul.restype = ci
+    lib.Int8QuantizeMaxBlocks.argtypes = [vp]
+    lib.Int8QuantizeMaxBlocks.restype = ci
+    lib.Int8GemmOccupancy.argtypes = [ci, ci, vp]
+    lib.Int8GemmOccupancy.restype = ci
     lib.Int8MatmulErrorString.argtypes = [ci]
     lib.Int8MatmulErrorString.restype = ctypes.c_char_p
     _lib = lib
@@ -160,41 +223,58 @@ def _Raise(what, rc):
                      + _Lib().Int8MatmulErrorString(rc).decode())
 
 
+def GemmOccupancy(swap: bool, nb: int) -> int:
+  """Blocks of kernel (b)'s configuration (swap, nb) an SM of the current
+  device holds, as the built kernel reports it (`GemmPlan` assumes
+  `_GemmConfig`'s count)."""
+  per_sm = ctypes.c_int(0)
+  rc = _Lib().Int8GemmOccupancy(int(swap), nb, ctypes.addressof(per_sm))
+  if rc != 0:
+    _Raise("Int8GemmOccupancy", rc)
+  return per_sm.value
+
+
 @functools.lru_cache(maxsize=None)
 def _Plan(m: int, k: int, n: int, index: int) -> dict:
-  """`GemmGeometry` on device `index`, once per shape: the serving step
-  repeats a few shapes, and its host time is what a step waits on."""
-  return GemmGeometry(
-      m, k, n, torch.cuda.get_device_properties(index).multi_processor_count)
-
-
-@functools.lru_cache(maxsize=None)
-def _QuantizeGrid(m: int, kp: int, index: int) -> int:
-  """Kernel (a)'s cooperative grid on device `index` (the current one when
-  first asked), once per shape."""
-  grid = ctypes.c_int(0)
-  rc = _Lib().Int8QuantizeGrid(m, kp, ctypes.addressof(grid))
-  if rc != 0:
-    _Raise("Int8QuantizeGrid", rc)
-  return grid.value
-
-
-@functools.lru_cache(maxsize=None)
-def _MatmulPlan(m: int, k: int, n: int, index: int) -> tuple:
-  """(kp, (a)'s grid, (b)'s rows a block, splits, chunks a split, scratch
-  bytes) of an [m, k] x [n, k]^T product on device `index`, once per
-  shape. Raises for a shape the kernels refuse."""
+  """`GemmPlan` on device `index`, once per shape: the serving step
+  repeats a few shapes, and its host time is what a step waits on.
+  Raises for a shape the kernels refuse."""
   reason = KernelLimitError(m, k, n)
   if reason is not None:
     raise ValueError(reason)
-  kp = PaddedK(k)
-  grid = _QuantizeGrid(m, kp, index)
-  geo = _Plan(m, k, n, index)
-  at = (ctypes.c_longlong * 5)()
-  nbytes = _Lib().Int8MatmulScratch(m, kp, n, grid, geo["bm"],
-                                    geo["splits"], at)
-  return (kp, grid, geo["bm"], geo["splits"], geo["chunks_per_split"],
-          nbytes)
+  return GemmPlan(
+      m, k, n, torch.cuda.get_device_properties(index).multi_processor_count)
+
+
+def _GemmArgs(plan: dict) -> tuple:
+  return (int(plan["swap"]), plan["nb"], plan["cluster"],
+          plan["kb_per_split"])
+
+
+@functools.lru_cache(maxsize=None)
+def QuantizeMaxBlocks(index: int) -> int:
+  """The most blocks kernel (a)'s cluster takes on device `index` (the
+  current one when first asked): 16 where the card places such a
+  cluster (a non-portable size), else MAX_CLUSTER."""
+  blocks = ctypes.c_int(0)
+  rc = _Lib().Int8QuantizeMaxBlocks(ctypes.addressof(blocks))
+  if rc != 0:
+    _Raise("Int8QuantizeMaxBlocks", rc)
+  return blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _QuantizeArgs(m: int, k: int, itemsize: int, index: int) -> tuple:
+  q = QuantizePlan(m, k, itemsize, QuantizeMaxBlocks(index))
+  return q["blocks"], q["rows"], q["held"]
+
+
+@functools.lru_cache(maxsize=None)
+def _MatmulArgs(m: int, k: int, n: int, itemsize: int, index: int) -> tuple:
+  """(kp, (a)'s three and (b)'s four plan arguments) of an [m, k] x [n,
+  k]^T product on device `index`, once per shape."""
+  return (PaddedK(k), *_QuantizeArgs(m, k, itemsize, index),
+          *_GemmArgs(_Plan(m, k, n, index)))
 
 
 def _CudaMatmul(x, w, w_scale):
@@ -202,14 +282,15 @@ def _CudaMatmul(x, w, w_scale):
   serving step's path, whose host time per projection a step waits on."""
   m, k = x.shape
   n = w.shape[0]
-  kp, grid, bm, splits, per_split, nbytes = _MatmulPlan(m, k, n,
-                                                        x.device.index)
+  args = _MatmulArgs(m, k, n, x.element_size(), x.device.index)
+  kp = args[0]
   y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-  scratch = torch.empty((nbytes,), dtype=torch.int8, device=x.device)
+  # x8 [m, kp] (a multiple of 16 bytes), then the scale
+  scratch = torch.empty((m * kp + 16,), dtype=torch.int8, device=x.device)
   rc = _Lib().Int8Matmul(
       x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), y.data_ptr(),
-      scratch.data_ptr(), m, k, kp, n, grid, bm, splits, per_split,
-      _Bf16(x.dtype), torch.cuda.current_stream(x.device).cuda_stream)
+      scratch.data_ptr(), m, k, kp, n, *args[1:], _Bf16(x.dtype),
+      torch.cuda.current_stream(x.device).cuda_stream)
   if rc != 0:
     _Raise("Int8Matmul kernel launches", rc)
   _Count(QuantizeActivations, x.dtype)
@@ -224,18 +305,14 @@ def _CudaQuantize(x):
     raise ValueError(reason)
   CheckAligned("Int8Quantize", [x])
   kp = PaddedK(k)
-  grid = _QuantizeGrid(m, kp, x.device.index)
-  # one allocation: x8's m * kp bytes (a multiple of 16), the scale, then
-  # the blocks' maxima (scratch)
-  at = m * kp
-  buf = torch.empty((at + 16 + 4 * grid,), dtype=torch.int8,
-                    device=x.device)
-  x8 = buf[:at].view(m, kp)
-  x_scale = buf[at:at + 4].view(torch.float32)
-  stream = torch.cuda.current_stream(x.device).cuda_stream
-  rc = _Lib().Int8Quantize(x.data_ptr(), x8.data_ptr(), x_scale.data_ptr(),
-                           x_scale.data_ptr() + 16, m, k, kp, grid,
-                           _Bf16(x.dtype), stream)
+  buf = torch.empty((m * kp + 16,), dtype=torch.int8, device=x.device)
+  x8 = buf[:m * kp].view(m, kp)
+  x_scale = buf[m * kp:m * kp + 4].view(torch.float32)
+  rc = _Lib().Int8Quantize(
+      x.data_ptr(), x8.data_ptr(), x_scale.data_ptr(), m, k, kp,
+      *_QuantizeArgs(m, k, x.element_size(), x.device.index),
+      _Bf16(x.dtype),
+      torch.cuda.current_stream(x.device).cuda_stream)
   if rc != 0:
     _Raise("Int8Quantize kernel launch", rc)
   _Count(QuantizeActivations, x.dtype)
@@ -245,30 +322,17 @@ def _CudaQuantize(x):
 def _CudaGemm(x8, x_scale, w, w_scale, out_dtype):
   m, kp = x8.shape
   n, k = w.shape
-  reason = KernelLimitError(m, k, n)
-  if reason is not None:
-    raise ValueError(reason)
   CheckAligned("Int8Gemm", [x8, w, w_scale])
   if x_scale.data_ptr() % 4:
     raise ValueError("Int8Gemm takes a 4-byte aligned x_scale")
-  geo = _Plan(m, k, n, x8.device.index)
+  plan = _Plan(m, k, n, x8.device.index)
   y = torch.empty((m, n), dtype=out_dtype, device=x8.device)
-  ws = counters = None
-  if geo["splits"] > 1:
-    # one allocation: the tiles' counters (padded to 16 bytes), then the
-    # splits' [splits, m, n] int32 partials
-    tiles = -(-geo["m_tiles"] * geo["n_tiles"] // 4) * 4
-    scratch = torch.empty((tiles + geo["splits"] * m * n,),
-                          dtype=torch.int32, device=x8.device)
-    counters, ws = scratch[:tiles], scratch[tiles:]
-  lib = _Lib()
-  stream = torch.cuda.current_stream(x8.device).cuda_stream
-  rc = lib.Int8Gemm(
+  # no programmatic dependence here: the stream's previous kernel may have
+  # written w (Int8Matmul's (b) depends on its own (a))
+  rc = _Lib().Int8Gemm(
       x8.data_ptr(), w.data_ptr(), x_scale.data_ptr(), w_scale.data_ptr(),
-      y.data_ptr(), None if ws is None else ws.data_ptr(),
-      None if counters is None else counters.data_ptr(), m, k, kp, n,
-      geo["bm"], geo["splits"], geo["chunks_per_split"], _Bf16(out_dtype),
-      stream)
+      y.data_ptr(), m, k, kp, n, *_GemmArgs(plan), _Bf16(out_dtype), 0,
+      torch.cuda.current_stream(x8.device).cuda_stream)
   if rc != 0:
     _Raise("Int8Gemm kernel launch", rc)
   _Count(Int8Gemm, out_dtype)

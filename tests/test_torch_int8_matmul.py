@@ -6,19 +6,25 @@ The plain versions on the CPU:
   integer), clip at [-128, 127], rows zero-padded to a multiple of 16;
 - `Int8Gemm`: the int32 product against numpy's int64 one, then float32
   times x_scale, then times the per-channel scale;
-- `GemmGeometry`: the K split never empties a split and leaves at least
-  2 x SMs blocks where K allows it.
+- `GemmPlan`: the K splits are non-empty and cover Kp exactly, a cluster
+  holds at most 8 blocks, the operands swap for M <= 64; `QuantizePlan`:
+  one cluster of at most 8 blocks covers every row and holds no more
+  than a block's shared memory.
 
 The `cuda` cases (they skip without a card) hold kernel (a) and kernel
 (b) against the plain versions on the card bit for bit, at M in {1, 8,
-17, 264}, at DenseLm1B's shapes and at K and N that are not multiples of
-the tiles, and `Int8Weight.Einsum` on the card against the CPU in both
+17, 64, 65, 264, 2048}, in both orientations, with K split over a
+cluster and not, at DenseLm1B's shapes and at K and N that are not
+multiples of the tiles (K = 72, 100, 200: the weight loaded without
+TMA), and `Int8Weight.Einsum` on the card against the CPU in both
 layouts; the bfloat16 instantiations (fprop_dtype=bfloat16) bit for bit
 their float32 runs on the widened x, rounded. This file imports no JAX,
 so on the card run
 
     python -m pytest tests/test_torch_int8_matmul.py -m cuda
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -70,24 +76,69 @@ def test_plain_gemm_matches_numpy():
   assert int8_matmul.Int8Gemm.launches == 0
 
 
+# every m the ported paths give (decode rows, both sides of the swap, the
+# ragged step's 264, a legacy mixed step's B x C) at the step's shapes and
+# at K and N off the tiles
+_PLAN_SHAPES = ((2048, 2048), (2048, 8192), (8192, 2048), (2048, 32000),
+                (72, 100), (200, 136), (64, 8))
+
+
+def _KSplits(plan, kp):
+  """The byte ranges [k0, k1) of x8's padded K that a tile's splits under
+  `plan` multiply, in rank order (the kernel's kb0 = split * kb_per_split
+  128-byte blocks, the last run cut at Kp)."""
+  run = plan["kb_per_split"] * int8_matmul.K_BLOCK
+  return [(s * run, min(kp, (s + 1) * run)) for s in range(plan["cluster"])]
+
+
 @pytest.mark.parametrize("m, k, n", [
-    (8, 2048, 2048), (8, 2048, 8192), (8, 8192, 2048), (8, 2048, 32000),
-    (264, 2048, 2048), (264, 8192, 2048), (264, 2048, 32000),
-    (2048, 2048, 32000), (1, 72, 100), (17, 64, 8)])
+    (m, k, n) for m, (k, n) in itertools.product(
+        (1, 8, 17, 64, 65, 264, 2048), _PLAN_SHAPES)])
 def test_gemm_geometry(m, k, n):
-  geo = int8_matmul.GemmGeometry(m, k, n, 132)
-  chunks = -(-k // int8_matmul.TILE_K)
-  assert geo["bm"] == (16 if m <= 16 else 64)
-  assert geo["m_tiles"] * geo["bm"] >= m > (geo["m_tiles"] - 1) * geo["bm"]
-  assert geo["n_tiles"] == -(-n // 128)
-  # every split has a chunk, the splits cover K
-  assert (geo["splits"] - 1) * geo["chunks_per_split"] < chunks
-  assert geo["splits"] * geo["chunks_per_split"] >= chunks
-  tiles = geo["m_tiles"] * geo["n_tiles"]
-  if tiles >= 264:
-    assert geo["splits"] == 1
+  plan = int8_matmul.GemmPlan(m, k, n, 132)
+  kp = int8_matmul.PaddedK(k)
+  # the swap follows m; the swapped B operand holds every row
+  assert plan["swap"] == (m <= int8_matmul.SWAP_MAX_M)
+  if plan["swap"]:
+    assert plan["nb"] in int8_matmul.SWAP_N and plan["nb"] >= m
+    assert plan["nb"] == 8 or plan["nb"] // 2 < m
+    assert (plan["tile_m"], plan["tile_n"], plan["m_tiles"]) == (
+        plan["nb"], 64, 1)
   else:
-    assert tiles * geo["splits"] >= min(264, tiles * chunks) // 2
+    assert (plan["tile_m"], plan["tile_n"]) == (128, 128)
+  assert plan["m_tiles"] * plan["tile_m"] >= m > (
+      plan["m_tiles"] - 1) * plan["tile_m"]
+  assert plan["n_tiles"] * plan["tile_n"] >= n > (
+      plan["n_tiles"] - 1) * plan["tile_n"]
+  # a cluster holds at most 8 blocks (a power of two); every K split is
+  # non-empty and the splits cover Kp exactly, in order
+  assert plan["cluster"] in (1, 2, 4, 8)
+  splits = _KSplits(plan, kp)
+  assert len(splits) == plan["cluster"]
+  assert splits[0][0] == 0 and splits[-1][1] == kp
+  assert all(k0 < k1 for k0, k1 in splits)
+  assert all(a[1] == b[0] for a, b in zip(splits, splits[1:]))
+  assert plan["blocks"] == plan["m_tiles"] * plan["n_tiles"] * plan["cluster"]
+  # K is not split where the tiles alone fill two waves of the card
+  wave = min(plan["per_sm"], int8_matmul.GEMM_STREAMS_PER_SM) * 132
+  if plan["m_tiles"] * plan["n_tiles"] >= 2 * wave:
+    assert plan["cluster"] == 1
+  assert plan["smem"] + 1024 <= int8_matmul.SMEM_PER_SM // plan["per_sm"]
+
+
+@pytest.mark.parametrize("max_blocks", [8, 16])
+@pytest.mark.parametrize("m, k, itemsize", [
+    (1, 72, 4), (8, 2048, 4), (8, 2048, 2), (17, 100, 2), (264, 2048, 4),
+    (264, 8192, 4), (264, 2048, 2), (2048, 8192, 4), (3, 100000, 4)])
+def test_quantize_plan(m, k, itemsize, max_blocks):
+  plan = int8_matmul.QuantizePlan(m, k, itemsize, max_blocks)
+  assert 1 <= plan["blocks"] <= max_blocks
+  # the blocks' rows cover x, none empty
+  assert (plan["blocks"] - 1) * plan["rows"] < m <= plan["blocks"] * plan[
+      "rows"]
+  # a block holds all its rows (x read once) where they fit, else none
+  fits = k * itemsize * plan["rows"] <= int8_matmul.QUANT_HOLD_BYTES
+  assert plan["held"] == (plan["rows"] if fits else 0)
 
 
 def test_wrapper_checks():
@@ -169,13 +220,54 @@ def _CheckOnCard(x, w, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 8, 17, 264])
+@pytest.mark.parametrize("m", [1, 8, 17, 64, 65, 264, 2048])
 @pytest.mark.parametrize("k, n", [(2048, 2048), (8192, 2048), (2048, 8192),
                                   (72, 100), (64, 8), (200, 136)])
 def test_kernels_match_plain_on_card(cuda, m, k, n):
   x = _X(m, k, seed=m + k)
   w, s = _W(n, k, seed=n)
   _CheckOnCard(x, w, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, n, swap, split", [
+    (8, 2048, 2048, True, True), (1, 8192, 2048, True, True),
+    (64, 2048, 32000, True, False), (17, 200, 136, True, True),
+    (264, 2048, 2048, False, True), (264, 8192, 2048, False, True),
+    (2048, 2048, 8192, False, False), (65, 8192, 2048, False, True),
+    (264, 1000, 2048, False, True)])
+def test_gemm_orientations_and_clusters_on_card(cuda, m, k, n, swap, split):
+  """Both orientations, K split over a cluster or not, the weight by TMA
+  and (K = 200, 1000: rows not a multiple of 16 bytes) by the producer
+  warp's loads: bitwise the plain versions, and in bfloat16 bitwise the
+  float32 kernel rounded."""
+  plan = int8_matmul.GemmPlan(
+      m, k, n, torch.cuda.get_device_properties(0).multi_processor_count)
+  assert plan["swap"] == swap and (plan["cluster"] > 1) == split
+  x = _X(m, k, seed=7 * m + k)
+  w, s = _W(n, k, seed=n + 1)
+  y = _CheckOnCard(x, w, s)
+  yb = int8_matmul.Int8Matmul(x.cuda().bfloat16(), w.cuda(), s.cuda())
+  x8, x_scale = int8_matmul.QuantizeActivations(x.cuda().bfloat16())
+  assert torch.equal(yb, int8_matmul._PlainGemm(
+      x8, x_scale, w.cuda(), s.cuda()).bfloat16())
+  assert y.shape == (m, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, k, dtype", [
+    (2048, 8192, torch.float32), (264, 8192, torch.bfloat16),
+    (300, 37, torch.float32), (9, 100, torch.bfloat16),
+    (3, 60000, torch.float32)])
+def test_quantize_plans_on_card(cuda, m, k, dtype):
+  """Kernel (a) where a block holds only some of its rows (read twice),
+  where a row is not a multiple of 16 bytes (no bulk copies), and where
+  one row outgrows a block's shared memory: bitwise the plain version."""
+  x = _X(m, k, seed=m, scale=5.0).to(dtype).cuda()
+  x8, x_scale = int8_matmul.QuantizeActivations(x)
+  px8, px_scale = int8_matmul._PlainQuantize(x)
+  torch.cuda.synchronize()
+  assert torch.equal(x_scale, px_scale) and torch.equal(x8, px8)
 
 
 @pytest.mark.cuda
@@ -196,6 +288,27 @@ def test_kernels_round_half_to_even_on_card(cuda):
   assert x_scale.item() == 1.0
   assert x8[0, :8].tolist() == [127, 2, 4, -2, 0, 0, 2, 0]
   _CheckOnCard(torch.zeros(3, 48), *_W(5, 48))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amax", [127.0, 3.0, 1e-7])
+def test_quantize_next_to_half_integers_on_card(cuda, amax):
+  """Values whose quotient by the scale lies within a few ulps of a
+  half-integer, where kernel (a)'s reciprocal product hands the rounding
+  to the true division: bitwise the plain version."""
+  scale = np.float32(max(np.float32(amax) * np.float32(1 / 127), 1e-8))
+  half = (np.arange(-127, 127, dtype=np.float32) + np.float32(0.5))
+  quot = [np.nextafter(half, np.float32(d * np.inf)) if d else half
+          for d in (-1, 0, 1)]
+  quot += [half + np.float32(e) for e in (-3e-5, 3e-5, -7e-5, 7e-5)]
+  x = np.concatenate([np.float32(amax) * np.ones(16, np.float32)] +
+                     [(q * scale).astype(np.float32) for q in quot])
+  x = x[:x.size // 16 * 16].reshape(-1, 16)
+  xc = torch.tensor(x).cuda()
+  x8, x_scale = int8_matmul.QuantizeActivations(xc)
+  px8, px_scale = int8_matmul._PlainQuantize(xc)
+  torch.cuda.synchronize()
+  assert torch.equal(x_scale, px_scale) and torch.equal(x8, px8)
 
 
 @pytest.mark.cuda
