@@ -249,20 +249,26 @@
    DenseLm1B from a port checkpoint (phase 13's setting): exactly 3072
    flash-decode launches and 145 x (4 + 128) of each int8 kernel.
 23. Seeded sampling (temperature / top-k). The sampling kernel of
-   ops/sample_tokens.py against its plain version at the engine's ragged
-   step ([264, 32000], each token folded with its request's (seed,
+   ops/sample_tokens.py (the top-k threshold selected inside it, threefry
+   only for live columns, a row split over a cluster) against its plain
+   version at [264, 32000] (each token folded with its request's (seed,
    position)) and GShardDecode's step ([8, 32000], rows folded into the
-   step key), T = 0.7, top_k 0 and 40: equal tokens, the winning
-   perturbed value within 1 ulp (the logarithms are libdevice's and
-   PyTorch's), two calls bitwise equal, one launch a call; times the
-   kernel, the plain version and the top-k threshold (torch.topk) beside
-   the bound (the largest of the bytes, threefry's ALU-only operations
-   and every instruction at the issue rate). Then DenseLmTiny's
+   step key), T = 0.7, top_k 0 and 40, and at R' = 8 rows of [264,
+   32000] drawn in place through `rows` (the ragged step's draw; equal to
+   the full draw's at those rows): equal tokens, the winning perturbed
+   value within 1 ulp (the logarithms are libdevice's and PyTorch's), two
+   calls bitwise equal, one launch a call; times the kernel and the plain
+   version at each beside the live-work bound (the largest of the bytes,
+   threefry's ALU-only operations and every instruction at the issue
+   rate, for the live columns only) and the parent's top-k threshold
+   (torch.topk of the drawn rows). Then DenseLmTiny's
    sampled streams on the card equal the CPU's (ragged and legacy), and
    its sampled GShardDecode continuations. DenseLm1B with phase 5's
    weights and requests (seeds 100..107) at T = 0.8, top_k 40,
    sample_seed 3 through `ServingLoop`: exactly 24 ragged and 1 sampling
-   launch a step, profiled; a second run equal stream for stream. The
+   launch a step, each of at most 8 rows (`SampleTokens.widest`), no
+   torch.topk call or kernel in the profiled windows; a second run equal
+   stream for stream. The
    random weights' logits are peaked enough that T = 0.8 draws the argmax,
    so the same requests at T = 30 (top_k 0) twice: equal streams, and
    some that differ from the greedy ones; for information, those requests
@@ -272,8 +278,8 @@
    flash-decode and 128 sampling launches, two calls equal. Kernel (a)'s
    scale on a value where the float32 reciprocal product and the true
    division differ: the product, as the reference's jitted step. Prints
-   the sampling kernel's element loop in SASS (instructions by class and
-   by pipe).
+   the full-row sampling kernel's element loop in SASS (instructions by
+   class and by pipe, per element).
 24. Serving and batch decode at fprop_dtype=bfloat16. The bfloat16-q
    instantiations of the attention kernels on dyadic q and K: the ragged
    kernel over float32, bfloat16 and int8 pools (phase 3's main pack, page
@@ -374,9 +380,18 @@ class _Counts:
   def Zero(self):
     for fn, dtype in self.entries.values():
       fn.launches = 0
+      if hasattr(fn, "rows_drawn"):   # a wrapper that counts drawn rows
+        fn.rows_drawn = fn.widest = 0
       if dtype is not None:
         table, key = self._Table(fn, dtype)
         table[key] = 0
+
+  def Rows(self) -> dict:
+    """{name: (rows drawn, the widest call)} of the wrappers that count
+    the rows they draw (the sampling kernel's R')."""
+    return {name: (fn.rows_drawn, fn.widest)
+            for name, (fn, _) in self.entries.items()
+            if hasattr(fn, "rows_drawn")}
 
   def Read(self) -> dict:
     out = {}
@@ -1715,7 +1730,8 @@ def _Profile(torch, eng, prompts, steps, window=4,
   the shares of the GEMMs, the scan kernel, the attention kernel (ragged
   or block-decode) and the rest, the top kernels, the top host ops by
   their own host time and the cudaStreamSynchronize calls per step.
-  Returns those calls per step, by window ('first', 'last')."""
+  Returns those calls per step, by window ('first', 'last'), and the
+  window's torch.topk calls and kernels ('topk_first', 'topk_last')."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
   for pr in prompts:
@@ -1739,16 +1755,27 @@ def _Profile(torch, eng, prompts, steps, window=4,
     done += window
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _DevUs(e) > 0]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    # torch.topk's calls (host ops) and kernels (by name) in the window
+    syncs[f"topk_{label}"] = sum(
+        e.count for e in host if e.key == "aten::topk") + sum(
+            e.count for e in kernels if "topk" in e.key.lower()
+            and "SampleTopKKernel" not in e.key)
     busy_ms = sum(_DevUs(e) for e in kernels) / 1e3
     if busy_ms == 0:
-      print(f"{label} {window} steps: profiler recorded no device time")
+      print(f"{label} {window} steps: profiler recorded no device time; "
+            f"torch.topk calls {syncs[f'topk_{label}']}")
       continue
     kernels.sort(key=_DevUs, reverse=True)
     attn = sum(_DevUs(e) for e in kernels if "RaggedAttend" in e.key
                or "BlockDecode" in e.key) / 1e3
     scan = sum(_DevUs(e) for e in kernels if "SsdScan" in e.key) / 1e3
     int8 = sum(_DevUs(e) for e in kernels if "Int8" in e.key) / 1e3
-    sample = sum(_DevUs(e) for e in kernels if "SampleTokens" in e.key) / 1e3
+    sample = sum(_DevUs(e) for e in kernels
+                 if "SampleAllKernel" in e.key
+                 or "SampleTopKKernel" in e.key) / 1e3
     gemm = sum(_DevUs(e) for e in kernels if "Int8" not in e.key and any(
         n in e.key.lower() for n in ("gemm", "cutlass", "nvjet"))) / 1e3
     rest = busy_ms - attn - scan - gemm - int8 - sample
@@ -1762,12 +1789,11 @@ def _Profile(torch, eng, prompts, steps, window=4,
           f"({sample / window * 1e3:.1f} us/step), rest {rest / busy_ms:.1%}")
     for e in kernels[:5]:
       print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
-    host = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU),
-                  key=lambda e: e.self_cpu_time_total, reverse=True)
     syncs[label] = sum(e.count for e in host
                        if e.key == "cudaStreamSynchronize") / window
-    print(f"  cudaStreamSynchronize calls per step: {syncs[label]:g}")
+    print(f"  cudaStreamSynchronize calls per step: {syncs[label]:g}; "
+          f"torch.topk calls and kernels in the window: "
+          f"{syncs[f'topk_{label}']}")
     print(f"  host ops by self time (of {wall_ms / window:.2f} ms/step, "
           "profiler overhead included):")
     for e in host[:5]:
@@ -1859,6 +1885,7 @@ def _ServeMain(torch, cfg, engine, counters, per_step, per_decode_step=None,
   torch.cuda.synchronize()
   wall = time.perf_counter() - t0
   launches = counters.Read()
+  counters.served_rows = counters.Rows()
   stats = eng.Stats()
   steps = stats["steps"] - stats0["steps"]
   decode_steps = stats["decode_steps"] - stats0["decode_steps"]
@@ -2521,9 +2548,10 @@ _FLOAT_OPS = ("FFMA", "FMUL", "FADD", "FSETP", "FSEL", "FMNMX", "MUFU",
 def _SassLoopMix(cuda_build, name, kernel):
   """The instruction mix of `kernel`'s element loop in the built library
   `name` (cuobjdump -sass): the largest backward branch's body that holds
-  one global load, i.e. the body a thread runs per element. Returns
-  {"int": n, "float": n, "other": n, "total": n, "ops": {opcode: n}}, or
-  None where cuobjdump is missing or no such loop is found."""
+  a global load, i.e. the body a thread runs per element loaded. Returns
+  its counts per global load, {"int": n, "float": n, "other": n, "total":
+  n, "loads": n, "ops": {opcode: n}}, or None where cuobjdump is missing
+  or no such loop is found."""
   import re
   tool = "/usr/local/cuda/bin/cuobjdump"
   if not os.path.exists(tool):
@@ -2546,71 +2574,86 @@ def _SassLoopMix(cuda_build, name, kernel):
     if not target or int(target.group(1), 16) >= addr:
       continue
     loop = [c for c in code if int(target.group(1), 16) <= c[0] <= addr]
-    if (sum(c[1] == "LDG" for c in loop) == 1
+    if (any(c[1] == "LDG" for c in loop)
         and (best is None or len(loop) > len(best))):
       best = loop
   if best is None:
     return None
+  per = sum(c[1] == "LDG" for c in best)
   ops = {}
   for _, op, _ in best:
-    ops[op] = ops.get(op, 0) + 1
+    ops[op] = ops.get(op, 0) + 1 / per
   n_int = sum(v for k, v in ops.items() if k in _INT_OPS)
   n_float = sum(v for k, v in ops.items() if k in _FLOAT_OPS)
-  return dict(int=n_int, float=n_float, other=len(best) - n_int - n_float,
-              total=len(best), ops=ops)
+  return dict(int=n_int, float=n_float,
+              other=len(best) / per - n_int - n_float,
+              total=len(best) / per, loads=per, ops=ops)
 
 
-def _SampleBound(st, r, v, moved, mix):
-  """The sampling kernel's bound at [r, v]: (ms, "bytes" or "operations",
-  {limit: ms}), the largest of three limits: the bytes at the memory rate;
-  the operations only the ALU pipe runs (the algorithm's rotates, xors and
-  shifts, `ALU_OPS_PER_ELEMENT`) at 64 lanes an SM a clock; and every
-  instruction at the issue rate, 128 lanes an SM a clock, counting the
+def _SampleBound(st, live, moved, mix):
+  """The sampling kernel's live-work bound: (ms, "bytes" or "operations",
+  {limit: ms}), the largest of three limits: the bytes the call must move
+  (`moved`: the drawn rows' logits read once, the folds and rows, the
+  outputs) at the memory rate; the operations only the ALU pipe runs (the
+  algorithm's rotates, xors and shifts, `ALU_OPS_PER_ELEMENT`) for the
+  `live` columns at 64 lanes an SM a clock; and every instruction of those
+  columns at the issue rate, 128 lanes an SM a clock, counting the
   algorithm's integer operations and the compiled element loop's float
-  instructions (the accurate logf's among them; none where the SASS
-  could not be read)."""
-  n = r * v
+  instructions (the accurate logf's among them; none where the SASS could
+  not be read). Masked columns need no threefry and no logarithm; the
+  top-k select's passes over the held slices are on-chip work that no
+  limit here counts (its pace shows as the gap to the bytes)."""
   parts = dict(
       bytes=moved / HBM_BYTES_PER_S * 1e3,
-      alu=n * st.ALU_OPS_PER_ELEMENT / INT32_OPS_PER_S * 1e3,
-      issue=n * (st.INT_OPS_PER_ELEMENT + (mix["float"] if mix else 0))
+      alu=live * st.ALU_OPS_PER_ELEMENT / INT32_OPS_PER_S * 1e3,
+      issue=live * (st.INT_OPS_PER_ELEMENT + (mix["float"] if mix else 0))
       / INSTRUCTIONS_PER_S * 1e3)
   by = max(parts, key=parts.get)
   return parts[by], "bytes" if by == "bytes" else "operations", parts
 
 
 def _CheckSample(torch, st, threefry, r, f, top_k, seed, mix=None,
-                 time_it=False, temperature=0.7):
+                 time_it=False, temperature=0.7, rows=None):
   """The sampling kernel against its plain version on [r, 32000] logits
   (the serving step's vocabulary): f = 2 folds each row with an engine
   (seed, position) pair, f = 1 with its row index against a GShardDecode
-  step key (`Split(PRNGKey(1), 128)[5]`). Tokens equal, the winning value
-  within 1 ulp, two calls bitwise equal, one launch a call; with
-  `time_it`, the kernel, the plain version and the threshold timed beside
-  the bound (`_SampleBound`, with the element loop's SASS mix `mix`)."""
-  from lingvo_tpu_torch.core import jit_arith, sampling
+  step key (`Split(PRNGKey(1), 128)[5]`); rows: the drawn rows (None:
+  all), read in place. Tokens equal, the winning value within 1 ulp, two
+  calls bitwise equal, one launch a call; with `time_it`, the kernel and
+  the plain version timed beside the live-work bound (`_SampleBound`,
+  with the element loop's SASS mix `mix`) and the parent's library call,
+  torch.topk of the drawn rows (its threshold, before the draw)."""
+  from lingvo_tpu_torch.core import jit_arith
   v = 32000
   gen = torch.Generator("cuda").manual_seed(seed)
   x = torch.randn(r, v, generator=gen, device="cuda") * 4
+  n = r if rows is None else len(rows)
   if f == 2:   # tokens of 8 requests: each request's seed, positions
-    rows = np.random.RandomState(seed).randint(0, 8, size=r)
+    req = np.random.RandomState(seed).randint(0, 8, size=n)
     seeds = np.random.RandomState(seed + 1).randint(0, 2**31 - 1, size=8)
-    fold = np.stack([seeds[rows], np.arange(r) % 33], 1)
+    fold = np.stack([seeds[req], np.arange(n) % 33], 1)
     key = threefry.PRNGKey(3)
   else:
-    fold = np.arange(r)[:, None]
+    fold = np.arange(n)[:, None]
     key = threefry.Split(threefry.PRNGKey(1), 128)[5]
   fold = torch.as_tensor(fold.astype(np.int32)).cuda()
+  drawn = None if rows is None else torch.as_tensor(
+      np.asarray(rows, np.int32)).cuda()
   inv_t = jit_arith.Reciprocal(temperature)
-  thr = sampling.TopKThreshold(x, temperature, top_k)
+  call = lambda: st.SampleTokens(x, key, fold, inv_t, top_k, rows=drawn,
+                                 return_z=True)
   before = st.SampleTokens.launches
-  tokens, z = st.SampleTokens(x, key, fold, inv_t, thr, return_z=True)
-  tokens2, z2 = st.SampleTokens(x, key, fold, inv_t, thr, return_z=True)
+  tokens, z = call()
+  tokens2, z2 = call()
   torch.cuda.synchronize()
   _Check(st.SampleTokens.launches == before + 2,
          "sample_tokens: one launch a call")
-  want, want_z = st._PlainSample(x, key, fold, inv_t, thr)
-  label = f"sample_tokens [{r}, {v}] F={f} top_k={top_k}"
+  want, want_z = st._PlainSample(x, key, fold, inv_t, top_k, drawn)
+  s, chunk = st.LaunchPlan(n, v, top_k, x.device)
+  label = (f"sample_tokens [{r}, {v}]" + ("" if rows is None else
+                                          f" rows R'={n}")
+           + f" F={f} top_k={top_k} (cluster of {s}, {chunk} columns a "
+           "block)")
   _Check(torch.equal(tokens, tokens2) and torch.equal(z, z2),
          f"{label}: two calls differ")
   differ = int((tokens != want).sum())
@@ -2619,29 +2662,42 @@ def _CheckSample(torch, st, threefry, r, f, top_k, seed, mix=None,
   ulps = float(_Ulps(torch, z, want_z).max())
   err = float((z - want_z).abs().max())
   _Check(ulps <= 1.0, f"{label}: winning value {ulps} ulp off")
-  live = r * v if thr is None else int((x * inv_t >= thr[:, None]).sum())
-  res = dict(err=err, ulps=ulps)
+  if rows is not None:   # the full draw's tokens at those rows
+    full_fold = torch.zeros(r, f, dtype=torch.int32, device="cuda")
+    full_fold[drawn.long()] = fold
+    full, full_z = st.SampleTokens(x, key, full_fold, inv_t, top_k,
+                                   return_z=True)
+    _Check(torch.equal(full[drawn.long()], tokens)
+           and torch.equal(full_z[drawn.long()], z),
+           f"{label}: the rows' draws differ from the full draw's")
+  scaled = x if rows is None else x[drawn.long()]
+  scaled = scaled * inv_t
+  masked = st.Masked(top_k, v)
+  live = (int((scaled >= torch.topk(scaled, top_k, dim=-1).values[:, -1:])
+              .sum()) if masked else n * v)
+  res = dict(err=err, ulps=ulps, live=live, cluster=s)
   msg = (f"{label}: tokens equal, winning value within {ulps:g} ulp "
          f"({err:.3g} abs), {live} live logits")
   if time_it:
-    moved = 4 * r * v + 4 * r * f + (4 * r if thr is not None else 0) + 8 * r
-    *res["bound"], parts = _SampleBound(st, r, v, moved, mix)
-    res["ms"] = _TimeMs(torch, lambda: st.SampleTokens(x, key, fold, inv_t,
-                                                       thr), 20)
+    moved = (4 * n * v + 4 * n * f + 8 * n
+             + (0 if rows is None else 4 * n))
+    *res["bound"], parts = _SampleBound(st, live, moved, mix)
+    res["ms"] = _TimeMs(torch, call, 20)
     res["plain_ms"] = _TimeMs(
-        torch, lambda: st._PlainSample(x, key, fold, inv_t, thr), 3,
-        waits_as="plain sampling (the key's copy to the card)")
-    res["threshold_ms"] = (None if thr is None else _TimeMs(
-        torch, lambda: sampling.TopKThreshold(x, temperature, top_k), 20))
+        torch, lambda: st._PlainSample(x, key, fold, inv_t, top_k, drawn),
+        3, waits_as="plain sampling (the key's copy to the card)")
+    held = x if rows is None else x[drawn.long()].contiguous()
+    res["topk_ms"] = (_TimeMs(torch, lambda: torch.topk(held, top_k, dim=-1),
+                              20) if masked else None)
     msg += (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, "
-            f"top-k threshold (torch.topk) {res['threshold_ms']} ms, bound "
-            f"{res['bound'][0]:.4f} ms ({res['bound'][1]}; the limits: "
-            f"{moved / 1e6:.1f} MB at 3.35 TB/s {parts['bytes']:.4f} ms, "
-            f"{st.ALU_OPS_PER_ELEMENT} ALU-pipe operations an element at "
-            f"{INT32_OPS_PER_S / 1e12:.2f} T/s {parts['alu']:.4f} ms, "
-            f"{st.INT_OPS_PER_ELEMENT} integer + "
-            f"{mix['float'] if mix else 0} float instructions an element "
-            f"issued at {INSTRUCTIONS_PER_S / 1e12:.2f} T/s "
+            f"the parent's top-k threshold (torch.topk) {res['topk_ms']} ms"
+            f", live-work bound {res['bound'][0]:.4f} ms ({res['bound'][1]}"
+            f"; the limits: {moved / 1e6:.2f} MB at 3.35 TB/s "
+            f"{parts['bytes']:.4f} ms, {st.ALU_OPS_PER_ELEMENT} ALU-pipe "
+            f"operations a live column at {INT32_OPS_PER_S / 1e12:.2f} T/s "
+            f"{parts['alu']:.4f} ms, {st.INT_OPS_PER_ELEMENT} integer + "
+            f"{mix['float'] if mix else 0:g} float instructions a live "
+            f"column issued at {INSTRUCTIONS_PER_S / 1e12:.2f} T/s "
             f"{parts['issue']:.4f} ms)")
   print(msg)
   return res
@@ -3501,29 +3557,38 @@ def main():
   _Phase("23. seeded sampling: the sampling kernel, then DenseLm1B through "
          "ServingLoop and GShardDecode at temperature > 0")
   print("sample_tokens library_ms: null (no PyTorch call draws JAX's "
-        "threefry Gumbel noise); its top-k threshold is torch.topk, timed "
-        "beside it")
-  mix = _SassLoopMix(cuda_build, "sample_tokens", "SampleTokensKernel")
+        "threefry Gumbel noise); the parent's top-k threshold, torch.topk, "
+        "is timed beside it")
+  mix = _SassLoopMix(cuda_build, "sample_tokens", "SampleAllKernel")
   if mix is not None:
     n = 264 * 32000
     ops = mix["ops"]
     alu = sum(ops.get(k, 0) for k in ("SHF", "LOP3", "ISETP"))
     imad = ops.get("IMAD", 0)
-    print(f"sample_tokens element loop (SASS): {mix['total']} instructions, "
-          f"{mix['int']} integer, {mix['float']} float, {mix['other']} "
-          f"other; by pipe: {alu} shift / logic / compare (ALU pipe only), "
-          f"{imad} IMAD (FMA pipe), {mix['int'] - alu - imad} other integer"
-          f"; the algorithm counts {st.INT_OPS_PER_ELEMENT} int32 operations"
-          f", {st.ALU_OPS_PER_ELEMENT} of them ALU-only; at [264, 32000] the "
+    print(f"sample_tokens full-row element loop (SASS, per element of the "
+          f"{mix['loads']} it loads): {mix['total']:g} instructions, "
+          f"{mix['int']:g} integer, {mix['float']:g} float, "
+          f"{mix['other']:g} other; by pipe: {alu:g} shift / logic / "
+          f"compare (ALU pipe only), {imad:g} IMAD (FMA pipe), "
+          f"{mix['int'] - alu - imad:g} other integer; the algorithm counts "
+          f"{st.INT_OPS_PER_ELEMENT} int32 operations, "
+          f"{st.ALU_OPS_PER_ELEMENT} of them ALU-only; at [264, 32000] the "
           f"compiled loop's ALU-only instructions take "
           f"{n * alu / INT32_OPS_PER_S * 1e3:.4f} ms at 64 lanes an SM a "
-          f"clock, its {mix['total']} instructions "
+          f"clock, its instructions "
           f"{n * mix['total'] / INSTRUCTIONS_PER_S * 1e3:.4f} ms at 128; by "
-          f"opcode {ops}")
+          f"opcode { {k: round(c, 2) for k, c in ops.items()} }")
+  # the four shapes of the sampled steps (the ragged step's T = 264 packed
+  # tokens and GShardDecode's 8 rows, top_k 0 and 40), and the ragged
+  # step's draw since it draws only the rows it commits: R' = 8 of 264
   samp = {(r, f, k): _CheckSample(torch, st, threefry, r, f, k,
-                                  seed=23 + k + r, mix=mix,
-                                  time_it=(r, k) in ((264, 40), (8, 40)))
+                                  seed=23 + k + r, mix=mix, time_it=True)
           for r, f in ((264, 2), (8, 1)) for k in (0, 40)}
+  rows8 = [3, 40, 77, 111, 150, 199, 230, 263]
+  for k in (0, 40):
+    samp[264, 2, k, "rows"] = _CheckSample(
+        torch, st, threefry, 264, 2, k, seed=31 + k, mix=mix, rows=rows8,
+        time_it=True)
   tiny_sample = dict(temperature=0.8, top_k=5, sample_seed=3)
   for mode in ("ragged", "legacy"):
     _TinyReference(torch, spi.DenseLmTiny(), engine, ragged, step_mode=mode,
@@ -3532,10 +3597,22 @@ def main():
   seeds = list(range(100, 108))
   cfg = spi.DenseLm1B()
   lm = _ServingLm(torch, cfg)
+  sample_syncs = {}
   sample_launches, sample_steps, sampled, sample_ms = _ServeMain(
       torch, cfg, engine, counters,
       dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=sample,
-      seeds=seeds)
+      seeds=seeds, syncs=sample_syncs)
+  drawn, widest = counters.served_rows["sample_tokens"]
+  _Check(0 < widest <= cfg.BATCH_SIZE and drawn <= cfg.BATCH_SIZE
+         * sample_steps, f"sampled DenseLm1B: the steps drew {drawn} rows, "
+         f"{widest} in the widest, of {sample_steps} steps")
+  topk = {k: v for k, v in sample_syncs.items() if k.startswith("topk_")}
+  _Check(topk and not any(topk.values()), f"sampled DenseLm1B: torch.topk "
+         f"in the profiled steps: {topk}")
+  print(f"sampled DenseLm1B: {sample_steps} steps drew {drawn} rows in all "
+        f"({drawn / sample_steps:.2f} a step, at most {widest}, of the T = "
+        f"264 packed tokens a step; one launch a step); profiled windows: "
+        f"no torch.topk call or kernel ({topk})")
   _, _, again, again_ms = _ServeMain(
       torch, cfg, engine, counters,
       dict(ragged_block_attend=24, sample_tokens=1), lm=lm, sample=sample,
@@ -3762,27 +3839,39 @@ def main():
         "legacy_launches": int8_serve["legacy", None]["launches"][name],
         "gshard_launches": int8_gshard[name],
         "shape": "sum over the 145 products of a step, m = 264"})
-  main_samp, gshard_samp = samp[264, 2, 40], samp[8, 1, 40]
+  # the main path's draw: the ragged step's committed rows, R' = 8 of
+  # its T = 264 packed tokens, top_k 40
+  main_samp, gshard_samp = samp[264, 2, 40, "rows"], samp[8, 1, 40]
   kernels.append({
       "name": "sample_tokens", "route": "cuda",
       "source": "lingvo_tpu_torch/ops/csrc/sample_tokens.cu",
       "replaces": None,
-      "note": ("replaces no pallas_call: the jax.random.categorical of "
-               "lingvo_tpu/core/sampling.py:34 SampleFromLogits"),
+      "note": ("replaces no pallas_call: the top-k threshold and the "
+               "jax.random.categorical of lingvo_tpu/core/sampling.py:34 "
+               "SampleFromLogits"),
       "launches": sample_launches["sample_tokens"],
       "max_abs_err": max(r["err"] for r in samp.values()),
       "max_ulps": max(r["ulps"] for r in samp.values()),
       "ms": main_samp["ms"], "plain_ms": main_samp["plain_ms"],
       "bound_ms": main_samp["bound"][0], "bound_by": main_samp["bound"][1],
       "library_ms": None,
-      "threshold_ms": main_samp["threshold_ms"],
+      "parent_topk_ms": main_samp["topk_ms"],
+      "times_ms": {f"[{r}, 32000]{' rows 8' if len(key) > 3 else ''} "
+                   f"top_k {k}": dict(ms=res["ms"], bound_ms=res["bound"][0],
+                                      plain_ms=res["plain_ms"],
+                                      topk_ms=res["topk_ms"],
+                                      cluster=res["cluster"])
+                   for key, res in samp.items()
+                   for r, k in [(key[0], key[2])]},
       "gshard_ms": gshard_samp["ms"],
       "gshard_bound_ms": gshard_samp["bound"][0],
       "gshard_launches": sample_gshard["sample_tokens"],
       "steps": sample_steps,
+      "rows_drawn": drawn, "widest_draw": widest,
       "sass_int_per_element": None if mix is None else mix["int"],
       "sass_float_per_element": None if mix is None else mix["float"],
-      "shape": "[264, 32000] float32, top_k 40, (seed, position) folds"})
+      "shape": ("8 rows of [264, 32000] float32 drawn in place (rows), "
+                "top_k 40, (seed, position) folds")})
   # the bfloat16-q instantiations (fprop_dtype=bfloat16): launches from
   # phase 24's counted runs, times from its checks
   for name, res, source, line, launches in (

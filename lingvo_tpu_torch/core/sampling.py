@@ -9,7 +9,11 @@ and `serving/engine.py`), with the reference's meaning:
   top-k per row when 0 < top_k < V (ties at the k-th value stay live),
   and draws from the categorical with threefry Gumbel noise: the
   reference's `jax.random.categorical`, bit for bit in its random bits
-  (`core/threefry`).
+  (`core/threefry`). On the card the threshold, the mask and the draw are
+  one kernel launch: no `torch.topk`.
+- `rows` draws only some rows of the logits (the serving steps draw the
+  rows they commit): a row's tokens depend only on its logits and its
+  stream, so they equal the full draw's at those rows bit for bit.
 - `row_seeds` gives each row its own stream: row i draws from
   fold_in(key, row_seeds[i]), then fold_in(., positions[i]) when
   positions are given, over the counters 0..V-1 of its row. Every
@@ -38,26 +42,13 @@ from lingvo_tpu_torch.ops import sample_tokens
 
 def _TransformLogits(logits, temperature: float, top_k: int):
   """Temperature + top-k mask, exactly as SampleFromLogits applies them."""
-  logits = logits.float() * jit_arith.Reciprocal(temperature)
-  if 0 < top_k < logits.shape[-1]:
-    kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-    logits = torch.where(logits < kth, float("-inf"), logits)
-  return logits
-
-
-def TopKThreshold(logits, temperature: float, top_k: int):
-  """[..., V] -> the k-th largest scaled logit of each row [...] float32,
-  or None when top_k keeps every value. Taken on the raw logits and then
-  scaled: a product by a positive float is monotone under rounding, so
-  this equals the k-th largest of the scaled row bit for bit."""
-  if not 0 < top_k < logits.shape[-1]:
-    return None
-  kth = torch.topk(logits.float(), top_k, dim=-1).values[..., -1]
-  return kth * jit_arith.Reciprocal(temperature)
+  return sample_tokens.MaskTopK(
+      logits.float() * jit_arith.Reciprocal(temperature), top_k)
 
 
 def SampleFromLogits(logits, key=None, temperature: float = 0.0,
-                     top_k: int = 0, row_seeds=None, positions=None):
+                     top_k: int = 0, row_seeds=None, positions=None,
+                     rows=None):
   """Draws one token id per row of logits [..., V].
 
   key: a CPU int64 tensor [2] (`core/threefry.PRNGKey`), the step's key;
@@ -65,16 +56,22 @@ def SampleFromLogits(logits, key=None, temperature: float = 0.0,
   top_k: > 0 restricts sampling to the k largest logits per row.
   row_seeds: [...] integer per-row seeds on the logits' device (needed
   at temperature > 0); positions: optional [...] per-row output index,
-  folded in after row_seeds. Returns [...] int32 token ids."""
+  folded in after row_seeds. rows: optional int32 [R'] on the logits'
+  device (temperature > 0 only): draw only rows rows[i] of the logits
+  flattened to [N, V], each with row_seeds[i] (and positions[i]), both
+  then [R']; the tokens are [R']. Returns [...] int32 token ids."""
   if temperature <= 0.0:
+    if rows is not None:
+      raise ValueError("rows selects the draws of temperature > 0 only")
     return torch.argmax(logits, dim=-1).to(torch.int32)
   if key is None or row_seeds is None:
     raise ValueError("temperature > 0 sampling needs a key and row_seeds")
-  lead, v = tuple(logits.shape[:-1]), logits.shape[-1]
+  v = logits.shape[-1]
+  lead = tuple(logits.shape[:-1]) if rows is None else tuple(rows.shape)
   flat = logits.float().reshape(-1, v)
   folds = [row_seeds] if positions is None else [row_seeds, positions]
   fold = torch.stack([f.reshape(-1).to(torch.int32) for f in folds], dim=1)
-  thr = TopKThreshold(flat, temperature, top_k)
-  tokens = sample_tokens.SampleTokens(flat, key, fold,
-                                      jit_arith.Reciprocal(temperature), thr)
+  tokens = sample_tokens.SampleTokens(
+      flat, key, fold, jit_arith.Reciprocal(temperature), int(top_k),
+      rows=rows)
   return tokens.reshape(lead)

@@ -14,21 +14,22 @@ Two step modes, as in the reference:
   token axis (core/ragged.py): a decode row contributes 1 token, a
   prefilling row a token-budgeted prompt chunk, with T = max_batch +
   prefill_token_budget fixed at construction, as in the reference's one
-  compiled step; the attention read is the ragged kernel. Every token is
-  sampled with its row's stream; the commit reads the token it needs.
+  compiled step; the attention read is the ragged kernel. Each slot with
+  tokens in the step draws one token, at its last token's column, with
+  its stream: the one the commit reads.
 - 'legacy': every iteration is a [B, C] step through `PagedStep`
   (scheduler.BuildStep): C = 1 when every live row decodes, and the
   attention read is the block-decode kernel (ops/block_decode.py); C =
   prefill_chunk when a row is still prefilling, and the read is the plain
-  `BlockPrefill`. Every column is sampled with its row's stream.
+  `BlockPrefill`. Each row with input draws at its last input column.
 
 Sampling (core/sampling.py): temperature 0 (the default) is the argmax.
 With temperature > 0 (and an optional top_k) each request samples from
 its own stream: the draw at output position t of a request with seed s
 is a pure function of (engine sample_seed, s, t), so a continuation is
 replayable whichever slot or batch neighbours the scheduler gave it. On
-the card the draw is one launch of the sampling kernel a step
-(ops/sample_tokens.py).
+the card the draw is one launch of the sampling kernel a step, of at most
+max_batch rows (ops/sample_tokens.py).
 
 The device pools are updated in place; admission and retirement only
 rewrite the int32 block tables between steps.
@@ -433,16 +434,17 @@ class ServingLoop:
     dev = self.device
     desc = batch.rows_desc
     rows = ragged_lib.ToTorch(desc, dev)
-    folds = self._Folds(batch)
+    # each slot with tokens this step draws at its last token's column,
+    # the one CommitRaggedStep reads
+    live = np.nonzero(desc.row_len > 0)[0]
+    cols = desc.row_cols[live, desc.row_len[live] - 1]
+    folds = self._Folds(batch, live, cols)
     with self._theta_lock, torch.no_grad(), self._Theta():
       logits, self._states = self._task.RaggedStep(
           torch.as_tensor(batch.tok_ids).to(dev)[None], self._states,
           torch.as_tensor(tables).to(dev), rows)
-      # every token samples with its row's (seed, output position) stream
-      if folds is not None:
-        folds = folds[torch.clamp(rows.row_of.long(), 0, self.max_batch - 1)]
       sampled = self._Sample(logits[0], folds)
-    sampled = sampled.cpu().numpy()
+    sampled = self._Scatter(sampled, folds, cols, (len(batch.tok_ids),))
     with self._lock:
       events = self.sched.CommitRaggedStep(batch, sampled)
       self._Count(batch, events)
@@ -459,40 +461,61 @@ class ServingLoop:
         return 0
       tables = np.array(self.sched.block_tables)  # freeze under the lock
     on_dev = lambda a: torch.as_tensor(a).to(self.device)
-    folds = self._Folds(batch)
+    # each row with input draws at its last input column, the one
+    # CommitStep reads, as a row of the [B x C, V] logits
+    b, c = batch.ids.shape
+    live = np.nonzero(batch.in_len > 0)[0]
+    cols = live * c + batch.in_len[live] - 1
+    folds = self._Folds(batch, live, cols)
     with self._theta_lock, torch.no_grad(), self._Theta():
       logits, self._states = self._task.PagedStep(
           on_dev(batch.ids), self._states, on_dev(tables),
           on_dev(batch.q_pos), on_dev(batch.in_len))
-      # every column samples with its row's stream; the commit reads one
-      if folds is not None:
-        folds = folds[:, None].expand(-1, logits.shape[1], -1)
-      sampled = self._Sample(logits, folds)
-    sampled = sampled.cpu().numpy()
+      sampled = self._Sample(
+          logits if folds is None else logits.reshape(b * c, -1), folds)
+    sampled = self._Scatter(sampled, folds, cols, (b, c))
     with self._lock:
       events = self.sched.CommitStep(batch, sampled)
       self._Count(batch, events)
     return len(events)
 
-  def _Folds(self, batch):
-    """The step's sampling streams on the device, [B, 2] int32 (each
-    row's seed and output position), or None at temperature 0. One copy,
-    made with the step's other inputs before the forward is enqueued, so
-    that it does not wait on the forward."""
-    if self.temperature <= 0.0:
+  def _Folds(self, batch, live, cols):
+    """The step's draws on the device, [B', 3] int32: for each slot in
+    `live` its seed, its output position and `cols`, the row of the
+    step's flattened logits it draws; None at temperature 0 (or with
+    nothing to draw). One copy, made with the step's other inputs before
+    the forward is enqueued, so that it does not wait on the forward."""
+    if self.temperature <= 0.0 or not len(live):
       return None
-    folds = np.stack([batch.row_seeds, batch.row_pos], axis=1)
+    folds = np.stack([batch.row_seeds[live], batch.row_pos[live], cols],
+                     axis=1)
     return torch.as_tensor(folds.astype(np.int32)).to(self.device)
 
   def _Sample(self, logits, folds):
-    """Draws every row of logits [..., V]: the argmax at temperature 0,
-    else one seeded draw per row with its stream, folds [..., 2] (seed,
-    position) on the device."""
+    """The argmax of every row of logits [..., V] at temperature 0 (or
+    with no folds), else one seeded draw of each row folds[:, 2] of
+    logits [N, V] with its stream (folds[:, 0] the seed, folds[:, 1] the
+    position)."""
     if folds is None:
       return sampling.SampleFromLogits(logits)
     return sampling.SampleFromLogits(
         logits, self._key, self.temperature, self.top_k,
-        row_seeds=folds[..., 0], positions=folds[..., 1])
+        row_seeds=folds[:, 0], positions=folds[:, 1], rows=folds[:, 2])
+
+  def _Scatter(self, sampled, folds, cols, shape):
+    """The step's tokens as the host array of `shape` its commit reads:
+    the argmax's as they are, or the draws at the flat positions `cols`
+    (the rest 0, never read). A draw of -1 (the kernel's mark of a row
+    index outside the logits) raises."""
+    sampled = sampled.cpu().numpy()
+    if folds is None:
+      return sampled
+    if (sampled < 0).any():
+      raise RuntimeError(f"the step drew token -1 (rows {cols.tolist()} of "
+                         f"{int(np.prod(shape))})")
+    out = np.zeros(shape, np.int32)
+    out.reshape(-1)[cols] = sampled
+    return out
 
   def _Theta(self):
     """The context a step runs in: the served theta (int8, or cast to

@@ -15,16 +15,21 @@ On DenseLmTiny (noised theta, CPU):
   `persist_prefix=True` and no prefix cache the swap happens as the
   reference's does.
 - `prefill_token_budget` 4 and 12: streams and `Stats()` counters.
+- A sampled step draws only the rows it commits: at most `max_batch`
+  rows a ragged step (of its T packed tokens) and at most B a legacy
+  step (of its B x C columns), counted by `SampleTokens.rows_drawn`.
 """
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from lingvo_tpu.models.lm.params import synthetic_packed_input as jax_spi
 from lingvo_tpu.serving import engine as jax_engine
 from lingvo_tpu_torch import convert
 from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
+from lingvo_tpu_torch.ops import sample_tokens
 from lingvo_tpu_torch.serving import engine
 
 from tests.conftest import InstantiateLm
@@ -113,6 +118,42 @@ def test_sampled_streams_match_reference(dense, step_mode, explicit_seeds):
   assert got != greedy
   if explicit_seeds:   # requests 0 and 4 share a seed, not a prompt
     assert got[0] != got[4]
+
+
+@pytest.mark.parametrize("step_mode", ["ragged", "legacy"])
+def test_sampled_steps_draw_only_the_rows_they_commit(dense, step_mode):
+  """Each sampled step draws one row per slot with input (at most
+  max_batch, never the ragged step's T tokens nor the legacy step's B x C
+  columns), in one call; every committed token is one of them."""
+  task, _, lm = dense
+  prompts = _Prompts(task.p.vocab_size)
+  kw = dict(_ENGINE_KW, step_mode=step_mode, **_SAMPLE)
+  eng = engine.ServingLoop(lm, device="cpu", **kw)
+  st = sample_tokens.SampleTokens
+  uploads = []   # the step's one sampling upload: seed, position, row
+
+  def Folds(*args, fn=eng._Folds):
+    uploads.append(fn(*args))
+    return uploads[-1]
+
+  eng._Folds = Folds
+  handles = [eng.Submit(p, 8, eos_id=None) for p in prompts]
+  drawn, emitted = [], []
+  while eng.sched.HasWork():
+    st.widest = 0
+    before = st.rows_drawn
+    emitted.append(eng.StepOnce())
+    drawn.append(st.rows_drawn - before)
+    assert st.widest == drawn[-1]   # one draw a step
+    assert uploads[-1].dtype == torch.int32
+    assert tuple(uploads[-1].shape) == (drawn[-1], 3)
+  b = _ENGINE_KW["max_batch"]
+  assert all(e <= d <= b for d, e in zip(drawn, emitted))
+  assert max(drawn) == b            # a full batch draws every slot
+  if step_mode == "ragged":
+    assert eng._ragged_t > b        # and not the packed tokens
+  assert sum(emitted) == 8 * len(prompts) == sum(
+      len(h.Result(timeout=0)) for h in handles)
 
 
 def test_a_stream_depends_on_its_seed_alone(dense):
