@@ -311,10 +311,46 @@
    bfloat16 cache (3072 bfloat16-q flash-decode launches, 16 steps
    profiled) and with a float32 cache (3072 of the split and combine
    kernels' bfloat16-q instantiation). Prints the phase's seconds.
-25. Prints the per-kernel JSON line (every kernel and every int8 /
+25. Hybrid and pure-SSM batch decode, and the gather-dense fallback.
+   DenseLmSsmHybridTiny's GShardDecode continuations on the card equal
+   the CPU's. Then DenseLmSsmHybrid at full width and depth (12 layers,
+   d 1024, 16 heads of 64, S 64, chunk 64; seeded random weights written
+   as a port checkpoint), decode_page_size 128, through
+   `GShardDecode.DecodeOnce`: 8 prompts of 40..480 tokens right-aligned
+   in a 480 bucket (480 + 32 = 512 cache slots: whole 128-slot pages, so
+   every step takes the flash-decode read), prefill chunks of 160, 32
+   greedy steps, after one warm-up call; exactly 10 x 3 scan and 2 x 32
+   flash-decode launches, nothing else; the telemetry's decode state
+   (10 SSM states + 2 layers of KV) printed beside DenseLm1B's KV at the
+   same length. The scan kernel against `_ChunkedPlain` (phase 4's
+   checks and tolerance) on the first SSM layer's real inputs of prefill
+   chunks 1 and 2 ([8, 160, 16], left-pad identity steps, the zero and
+   then the carried s0), and flash decode against its plain version at
+   [8, 512, 16, 64] with the prompts' paddings (t 511 and 490). The same
+   weights with the plain versions (scan_lowering 'chunked',
+   decode_page_size 0; no kernel launched): the logits of the first
+   token and of one step after within DECODE_LOGITS_REL x max(1,
+   max|logit|), first tokens equal unless a near-tie, the greedy
+   streams compared (the first divergence printed). A pure-SSM stack
+   (mixer_atten_every_n 0, 4 layers, the hybrid's widths) decodes 16 and
+   64 steps: 4 x 3 scan launches each, KV census None / 0, the same
+   decode state per sequence at both lengths. Then DenseLm1B with
+   atten_logit_cap 50 (Gemma 2's soft-cap) through ServingLoop, ragged
+   and legacy, 4 prompts of 64 tokens, 16 new tokens: paged_path
+   'dense', dense_fallback_steps equal to the steps, no kernel launched,
+   the two modes' streams equal, each beside the same weights uncapped
+   (24 ragged launches a step, 24 block-decode launches a decode-only
+   step; ms/step of both in this process); the capped ragged step's
+   first logits and streams against GShardDecode of the capped task
+   (its dense read) as above. Last, a DenseLmTiny of head dim 96 (not a
+   block-decode head dim) in the legacy step: 'dense' on the card, no
+   launch, streams equal to the CPU engine's block-decode read. Prints
+   the phase's seconds.
+26. Prints the per-kernel JSON line (every kernel and every int8 /
    bfloat16 instantiation, and the bfloat16-q ones; the int8 serving
-   kernels and the sampling kernel with "replaces": null), then the
-   result line.
+   kernels and the sampling kernel with "replaces": null; the scan's and
+   flash decode's times at the hybrid decode's shapes beside their main
+   ones), then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -2029,18 +2065,19 @@ def _DecodeOnlyLens():
   return prompt_lens + np.array([1, 5, 9, 13, 17, 21, 25, 32], np.int32)
 
 
-def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
+def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32", s=1152,
+                      h=128, p_len=1024, ts=(1151, 700)):
   """The flash-decode kernel against `_PlainDecode` on the card at
-  [8, 1152, 16, 128], page 128, on a `dtype` cache, with the left-pad
-  cache paddings of `prompt_lens` right-aligned in a 1024 bucket (as
-  GShardDecode builds them); padded slots hold NaN, and for t = 700 so do
-  the slots past t. Times the kernel, the plain version, SDPA over the
+  [8, s, 16, h] (default [8, 1152, 16, 128]), page 128, on a `dtype`
+  cache, with the left-pad cache paddings of `prompt_lens` right-aligned
+  in a p_len bucket (as GShardDecode builds them), at each t of `ts`;
+  padded slots hold NaN, and for t < s - 1 so do the slots past t. Times the kernel, the plain version, SDPA over the
   whole cache with the same boolean mask (for a bfloat16 cache, with q
   cast to bfloat16, as SDPA takes one dtype), and the bound: the live
   unpadded K/V slots, the paddings of the live pages, q and out. A
   bfloat16 cache holds dyadic K and takes a dyadic q (`_Dyadic`), and the
   float32 kernel on the widened cache is its unrounded control."""
-  b, s, n, h, page, p_len = 8, 1152, 16, 128, 128, 1024
+  b, n, page = 8, 16, 128
   cache_dtype = getattr(torch, dtype)
   elem = cache_dtype.itemsize
   slot = np.arange(s)
@@ -2056,7 +2093,7 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
   qc, padc = torch.as_tensor(q).cuda(), torch.as_tensor(pad).cuda()
   sdpa = torch.nn.functional.scaled_dot_product_attention
   res = {}
-  for t in (1151, 700):
+  for t in ts:
     kt, vt = k.copy(), v.copy()
     kt[:, t + 1:] = np.nan
     vt[:, t + 1:] = np.nan
@@ -2116,7 +2153,7 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
     print(f"{label}: host enqueue {enqueue_us:.1f} us per call (card busy; "
           "what the host-bound decode step pays per call)")
     bound = _Bound(moved, 4 * live * n * h)
-    print(f"{label} [8, 1152, 16, 128] P={page}: {live} live slots, max abs "
+    print(f"{label} [8, {s}, 16, {h}] P={page}: {live} live slots, max abs "
           f"err {err:.3g} (tol {TOL}), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
           f"ms, SDPA "
           f"{lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
@@ -2128,33 +2165,37 @@ def _CheckFlashDecode(torch, fd, rng, prompt_lens, dtype="float32"):
 
 
 def _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
-                kv_cache_dtype=None, serve_int8_weights=False, sample=None):
-  """DenseLmTiny (decode_page_size 4, `kv_cache_dtype` caches, int8
-  weights with `serve_int8_weights`, sampled with `sample`, the decoder's
-  temperature and top_k) through GShardDecode on the card and on the CPU
-  from one port checkpoint: the continuations must agree."""
-  p = spi.DenseLmTiny().Task().Set(kv_cache_dtype=kv_cache_dtype)
+                kv_cache_dtype=None, serve_int8_weights=False, sample=None,
+                cfg=None):
+  """`cfg` (default DenseLmTiny; decode_page_size 4, `kv_cache_dtype`
+  caches, int8 weights with `serve_int8_weights`, sampled with `sample`,
+  the decoder's temperature and top_k) through GShardDecode on the card
+  and on the CPU from one port checkpoint: the continuations must
+  agree."""
+  cfg = cfg or spi.DenseLmTiny()
+  name = type(cfg).__name__
+  p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
       decode_page_size=4)
   cpu_lm = p.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
-  ckdir = os.path.join(tmp, f"tiny_{kv_cache_dtype}")
+  ckdir = os.path.join(tmp, f"{name}_{kv_cache_dtype}")
   checkpointer.Checkpointer(ckdir).Save(1, cpu_lm, force=True)
   gpu_lm = p.Instantiate(device="cuda")   # DecodeOnce restores its weights
   rng = np.random.RandomState(4)
   lens = np.array([5, 13, 21, 8, 2, 30], np.int32)
   prompts = rng.randint(1, 128, size=(len(lens), 30)).astype(np.int32)
   outs = {}
-  for name, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
+  for device, lm in (("cpu", cpu_lm), ("cuda", gpu_lm)):
     decoder = gshard.GShardDecode(
-        lm, ckdir, os.path.join(tmp, f"tiny_{name}_{kv_cache_dtype}.jsonl"),
+        lm, ckdir, f"{ckdir}_{device}.jsonl",
         max_decode_steps=12, prefill_chunk_size=8,
         serve_int8_weights=serve_int8_weights, **(sample or {}))
-    outs[name] = [r["output_ids"] for r in decoder.DecodeOnce(1, prompts,
-                                                             lens)]
-  _Check(outs["cpu"] == outs["cuda"], "tiny GShardDecode continuations "
+    outs[device] = [r["output_ids"] for r in decoder.DecodeOnce(1, prompts,
+                                                               lens)]
+  _Check(outs["cpu"] == outs["cuda"], f"{name} GShardDecode continuations "
          f"differ:\n{outs['cpu']}\n{outs['cuda']}")
-  print(f"DenseLmTiny GShardDecode reference ({kv_cache_dtype or 'float32'} "
+  print(f"{name} GShardDecode reference ({kv_cache_dtype or 'float32'} "
         f"cache, {'int8' if serve_int8_weights else 'float32'} weights"
         f"{f', sampled {sample}' if sample else ''}): "
         f"{len(lens)} continuations of 12 tokens identical to the "
@@ -3192,6 +3233,394 @@ def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
   return bf16q, int8_bf16, bf16_serve, bf16_gshard, bf16_gshard_f32
 
 
+# the hybrid's batch decode (phase 25): prompts of up to HYBRID_BUCKET
+# tokens in one bucket, so that the cache of HYBRID_BUCKET +
+# HYBRID_STEPS slots is a whole number of 128-slot pages and every step
+# takes the flash-decode read
+HYBRID_BUCKET, HYBRID_STEPS, HYBRID_CHUNK = 480, 32, 160
+DECODE_LOGITS_REL = 1e-3   # x max(1, max|want|): float32 kernels against
+                           # the plain versions through 12 or 24 layers
+LOGIT_CAP = 50.0           # Gemma 2's attention soft-cap
+
+
+
+def _HybridRequests(vocab):
+  """8 prompts of 40..480 tokens (numpy seed 1), [8, 480] left-aligned,
+  and their lengths."""
+  prng = np.random.RandomState(1)
+  lens = prng.permutation(np.linspace(40, HYBRID_BUCKET, 8).astype(np.int32))
+  arr = np.zeros((8, HYBRID_BUCKET), np.int32)
+  for i, n in enumerate(lens):
+    arr[i, :n] = prng.randint(0, vocab, size=n)
+  return arr, lens
+
+
+def _PrefillScanInputs(torch, lm, arr, lens, j, s0):
+  """The scan's inputs in the first SSM mixer of `lm` for prefill chunk j
+  of the right-aligned prompts, as `GatedSSMLayer.Prefill` builds them
+  (left-pad slots identity steps), with incoming state s0; and the bytes
+  the scan must move."""
+  block = lm.stack.body[0]
+  sa = (block.x_layers[0] if hasattr(block, "x_layers") else block).self_atten
+  cols = slice(j * HYBRID_CHUNK, (j + 1) * HYBRID_CHUNK)
+  pad = np.arange(HYBRID_BUCKET)[None] < (HYBRID_BUCKET - lens)[:, None]
+  aligned = np.zeros_like(arr)
+  for i, n in enumerate(lens):
+    aligned[i, HYBRID_BUCKET - n:] = arr[i, :n]
+  with torch.no_grad():
+    x = sa.ln.FProp(lm.emb.EmbLookup(torch.as_tensor(aligned[:, cols]).cuda()))
+    dl, b_in, c_in, v, _ = sa.atten._Project(x)
+    dl, v = sa.atten._MaskScanInputs(
+        dl, v, torch.as_tensor(pad[:, cols].astype(np.float32)).cuda())
+  x = [dl, b_in, c_in, v, s0]
+  b, t, n, h = v.shape
+  moved = sum(a.numel() for a in x) * 4 + (b * t * n * h + s0.numel()) * 4
+  return x, moved
+
+
+def _FirstLogits(torch, decoder, arr, lens, steps, tok=None):
+  """The decoder's own prefill over the right-aligned prompts, then one
+  ExtendStep on `tok` (default the argmax): ([B, V] logits the first
+  token is drawn from, [B, V] logits of the step after, the token fed)."""
+  p_len = arr.shape[1]
+  init_fn, prefill_fn, _ = decoder._GetDecodeFn(p_len, steps)
+  aligned = decoder._RightAlign(arr, lens, width=p_len)
+  lens_dev = torch.as_tensor(np.asarray(lens)).cuda()
+  slot = torch.arange(p_len + steps, device="cuda")[None]
+  pads = (slot < (p_len - lens_dev)[:, None]).float()
+  with torch.no_grad():
+    last, states = prefill_fn(torch.as_tensor(aligned).cuda(), lens_dev,
+                              init_fn(arr.shape[0]))
+    tok = torch.argmax(last, dim=-1) if tok is None else tok
+    nxt, _ = decoder._task.ExtendStep(tok[:, None], states,
+                                      cache_paddings=pads)
+  return last, nxt, tok
+
+
+def _CompareDecode(torch, label, got, want, got_streams, want_streams):
+  """One decode path against another: each step's logits (got / want,
+  lists of [B, V]) within DECODE_LOGITS_REL x max(1, max|want|), the
+  first tokens equal where want's first logits' top two are further
+  apart than twice the error; the greedy streams compared, the first
+  divergence printed. Returns the largest error."""
+  errs = []
+  for step, (g, w) in enumerate(zip(got, want)):
+    err = float((g - w).abs().max())
+    tol = DECODE_LOGITS_REL * max(1.0, float(w.abs().max()))
+    print(f"{label} step {step} logits: max abs err {err:.3g} (tol "
+          f"{tol:.3g}, max |logit| {float(w.abs().max()):.3g})")
+    _Check(bool(torch.isfinite(g).all()), f"{label}: non-finite logits")
+    _Check(err <= tol, f"{label} step {step} logits: {err} > {tol}")
+    errs.append(err)
+  top2 = torch.topk(want[0], 2, dim=-1).values
+  clear = (top2[:, 0] - top2[:, 1] > 2 * errs[0]).cpu().numpy()
+  firsts = [list(a)[:1] == list(b)[:1] for a, b in zip(got_streams,
+                                                       want_streams)]
+  _Check(all(f or not c for f, c in zip(firsts, clear)),
+         f"{label}: first tokens differ where the logits are no near-tie")
+  same = sum(list(a) == list(b) for a, b in zip(got_streams, want_streams))
+  first = next(((i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+                for i, (a, b) in enumerate(zip(got_streams, want_streams))
+                if list(a) != list(b)), None)
+  print(f"{label}: {same} of {len(want_streams)} greedy streams equal"
+        + ("" if first is None else
+           f"; first divergence: row {first[0]} at token {first[1]}"))
+  return max(errs)
+
+
+def _HybridDecode(torch, ssd, fd, spi, attention, checkpointer, gshard,
+                  counters, tmp):
+  """Phase 25, part 1: DenseLmSsmHybrid through GShardDecode. Returns the
+  results the kernels line reads."""
+  t0 = time.perf_counter()
+  _GShardTiny(torch, spi, attention, checkpointer, gshard, tmp,
+              cfg=spi.DenseLmSsmHybridTiny())
+  cfg = spi.DenseLmSsmHybrid()
+  p = cfg.Task()
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      decode_page_size=128)
+  lm = p.Instantiate(device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  ckdir = os.path.join(tmp, "hybrid")
+  checkpointer.Checkpointer(ckdir).Save(1, lm, force=True)
+  arr, lens = _HybridRequests(cfg.VOCAB_SIZE)
+  kw = dict(max_decode_steps=HYBRID_STEPS, prefill_chunk_size=HYBRID_CHUNK,
+            len_buckets=(HYBRID_BUCKET,))
+  decoder = gshard.GShardDecode(lm, ckdir, os.path.join(tmp, "hybrid.jsonl"),
+                                **kw)
+  decoder.DecodeOnce(1, arr, lens)   # warm-up: the path's first launches
+  torch.cuda.synchronize()
+  counters.Zero()
+  recs = decoder.DecodeOnce(1, arr, lens)
+  launches = counters.Read()
+  chunks = HYBRID_BUCKET // HYBRID_CHUNK
+  want = dict.fromkeys(counters, 0)
+  want["ssd_scan"] = 10 * chunks
+  want["flash_decode"] = 2 * HYBRID_STEPS
+  _Check(launches == want, f"hybrid GShardDecode launches {launches} != "
+         f"{want}")
+  tel = recs[0]["telemetry"]
+  total = HYBRID_BUCKET + HYBRID_STEPS
+  ssm_bytes = 10 * cfg.MODEL_DIM * cfg.SSM_STATE_DIM * 4
+  kv_bytes = 2 * 2 * cfg.MODEL_DIM * 4 * total
+  _Check(tel["decode_state_bytes_per_seq"] == ssm_bytes + kv_bytes,
+         f"hybrid decode_state_bytes_per_seq {tel['decode_state_bytes_per_seq']}"
+         f" != {ssm_bytes} + {kv_bytes}")
+  _Check((tel["kv_cache_dtype"], tel["kv_bytes_per_token"]) == (
+      "float32", 2 * 2 * cfg.MODEL_DIM * 4), f"hybrid KV census {tel}")
+  dense = spi.DenseLm1B()
+  dense_bytes = 2 * dense.NUM_LAYERS * dense.MODEL_DIM * 4 * total
+  print(f"DenseLmSsmHybrid GShardDecode (decode_page_size 128): 8 prompts "
+        f"of {sorted(lens.tolist())} tokens (bucket {HYBRID_BUCKET}) x "
+        f"{HYBRID_STEPS} tokens, prefill chunks of {HYBRID_CHUNK}: prefill_s "
+        f"{tel['prefill_s']:.3f}, decode_s {tel['decode_s']:.3f} "
+        f"({tel['decode_s'] / HYBRID_STEPS * 1e3:.2f} ms per step), "
+        f"{tel['tokens_per_sec']:.1f} tokens/s; launches "
+        f"{ {k: v for k, v in launches.items() if v} } = 10 x {chunks} "
+        f"chunks + 2 x {HYBRID_STEPS} steps; decode_state_bytes_per_seq "
+        f"{tel['decode_state_bytes_per_seq']} ({ssm_bytes} of SSM states, "
+        f"{kv_bytes} of KV at {total} slots) against DenseLm1B's "
+        f"{dense_bytes} at the same length "
+        f"({dense_bytes / tel['decode_state_bytes_per_seq']:.1f}x)")
+  # the scan at the path's shapes: layer 0's first and second chunk, the
+  # second from the first's carried state
+  s0 = torch.zeros((8, cfg.NUM_HEADS, cfg.MODEL_DIM // cfg.NUM_HEADS,
+                    cfg.SSM_STATE_DIM), device="cuda")
+  scans = []
+  for j in (0, 1):
+    x, moved = _PrefillScanInputs(torch, lm, arr, lens, j, s0)
+    scans.append(_CheckScan(torch, ssd, f"decode prefill chunk {j + 1}", x,
+                            moved, chunk=cfg.SSM_CHUNK_SIZE))
+    with torch.no_grad():
+      s0 = ssd.SsdScan(*x, chunk_size=cfg.SSM_CHUNK_SIZE)[1]
+    del x
+  fdec = _CheckFlashDecode(torch, fd, np.random.RandomState(25), lens,
+                           s=total, h=cfg.MODEL_DIM // cfg.NUM_HEADS,
+                           p_len=HYBRID_BUCKET, ts=(total - 1, total - 22))
+  # the plain versions: the chunked plain scan and the dense cache read
+  pp = cfg.Task()
+  pp.mixer_tpl.scan_lowering = "chunked"
+  plain = pp.Instantiate(device="cuda")
+  plain.load_state_dict(lm.state_dict())
+  plain_decoder = gshard.GShardDecode(
+      plain, ckdir, os.path.join(tmp, "hybrid_plain.jsonl"), **kw)
+  counters.Zero()
+  plain_recs = plain_decoder.DecodeOnce(1, arr, lens)
+  _Check(not any(counters.Read().values()), f"plain hybrid decode launched "
+         f"{counters.Read()}")
+  got = _FirstLogits(torch, decoder, arr, lens, HYBRID_STEPS)
+  ref = _FirstLogits(torch, plain_decoder, arr, lens, HYBRID_STEPS,
+                     tok=got[2])
+  err = _CompareDecode(torch, "hybrid decode, kernels against plain",
+                       got[:2], ref[:2],
+                       [r["output_ids"] for r in recs],
+                       [r["output_ids"] for r in plain_recs])
+  del lm, plain, decoder, plain_decoder
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 25 hybrid decode: {time.perf_counter() - t0:.1f} s")
+  return dict(launches=launches, scans=scans, fdec=fdec, logits_err=err,
+              tel=tel)
+
+
+def _PureSsmDecode(torch, spi, checkpointer, gshard, counters, tmp):
+  """Phase 25, part 2: a pure-SSM stack at the hybrid's widths, 4 layers,
+  through GShardDecode at two decode lengths: one scan launch per layer
+  and prefill chunk, nothing else, and the same decode state per
+  sequence at both lengths. Returns {steps: (launches, telemetry)}."""
+  cfg = spi.DenseLmSsmHybrid()
+  lm = cfg.Task().Set(mixer_atten_every_n=0, num_layers=4).Instantiate(
+      device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  ckdir = os.path.join(tmp, "pure_ssm")
+  checkpointer.Checkpointer(ckdir).Save(1, lm, force=True)
+  arr, lens = _HybridRequests(cfg.VOCAB_SIZE)
+  chunks = HYBRID_BUCKET // HYBRID_CHUNK
+  want = dict.fromkeys(counters, 0)
+  want["ssd_scan"] = 4 * chunks
+  out = {}
+  for steps in (16, 64):
+    decoder = gshard.GShardDecode(
+        lm, ckdir, os.path.join(tmp, "pure_ssm.jsonl"),
+        max_decode_steps=steps, prefill_chunk_size=HYBRID_CHUNK,
+        len_buckets=(HYBRID_BUCKET,))
+    torch.cuda.synchronize()
+    counters.Zero()
+    recs = decoder.DecodeOnce(1, arr, lens)
+    launches = counters.Read()
+    _Check(launches == want, f"pure-SSM GShardDecode launches {launches} "
+           f"!= {want}")
+    tel = recs[0]["telemetry"]
+    _Check((tel["kv_cache_dtype"], tel["kv_bytes_per_token"]) == (None, 0),
+           f"pure-SSM KV census {tel['kv_cache_dtype']}, "
+           f"{tel['kv_bytes_per_token']}")
+    for r in recs:
+      _Check(len(r["output_ids"]) == steps and all(
+          0 <= x < cfg.VOCAB_SIZE for x in r["output_ids"]),
+             f"bad continuation {r['output_ids']}")
+    out[steps] = (launches, tel)
+    print(f"pure-SSM stack (4 layers, d {cfg.MODEL_DIM}) GShardDecode, "
+          f"{steps} steps: prefill_s {tel['prefill_s']:.3f}, decode_s "
+          f"{tel['decode_s']:.3f} ({tel['decode_s'] / steps * 1e3:.2f} ms "
+          f"per step), launches { {k: v for k, v in launches.items() if v} }"
+          f", decode_state_bytes_per_seq {tel['decode_state_bytes_per_seq']}")
+  per_seq = {s: t["decode_state_bytes_per_seq"] for s, (_, t) in out.items()}
+  state = 4 * cfg.MODEL_DIM * cfg.SSM_STATE_DIM * 4
+  _Check(set(per_seq.values()) == {state}, f"pure-SSM decode state per "
+         f"sequence {per_seq}: not {state} at every length")
+  del lm
+  gc.collect()
+  torch.cuda.empty_cache()
+  return out
+
+
+def _ServeSmall(torch, eng, counters, prompts, max_new):
+  """Greedy RunBatch of `prompts` (equal lengths) after a warm-up, every
+  kernel count set to 0 just before. Returns (streams, launches, steps,
+  decode-only steps, fallback steps, ms per step)."""
+  eng.RunBatch(prompts[:1, :8], [8], max_new_tokens=2)   # warm-up
+  stats0 = eng.Stats()
+  torch.cuda.synchronize()
+  counters.Zero()
+  t0 = time.perf_counter()
+  out = eng.RunBatch(prompts, [prompts.shape[1]] * len(prompts),
+                     max_new_tokens=max_new)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  stats = eng.Stats()
+  steps, decode, dense = (stats[k] - stats0[k] for k in (
+      "steps", "decode_steps", "dense_fallback_steps"))
+  return out, counters.Read(), steps, decode, dense, wall / steps * 1e3
+
+
+def _DenseFallback(torch, spi, engine, attention, gshard, counters, tmp):
+  """Phase 25, part 3: DenseLm1B with a logit cap through ServingLoop in
+  both step modes (the gather-dense fallback), beside the same weights
+  uncapped (the kernels) in one process, and against GShardDecode of the
+  capped task; then head dim 96 in the legacy step on the card. Returns
+  {(mode, capped): (launches, steps, ms per step)}."""
+  from lingvo_tpu_torch.core import ragged
+  from lingvo_tpu_torch.core import threefry
+  cfg = spi.DenseLm1B()
+  lm = _ServingLm(torch, cfg)
+  pc = cfg.Task()
+  pc.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      atten_logit_cap=LOGIT_CAP)
+  capped = pc.Instantiate(device="cuda")
+  capped.load_state_dict(lm.state_dict())
+  prompts = np.random.RandomState(2).randint(
+      0, cfg.VOCAB_SIZE, size=(4, 64)).astype(np.int32)
+  max_new = 16
+  kw = dict(page_size=16, num_pages=64, max_batch=4, max_seq_len=128,
+            prefill_chunk=64)
+  res, streams = {}, {}
+  for mode in ("ragged", "legacy"):
+    for is_capped, model in ((False, lm), (True, capped)):
+      eng = engine.ServingLoop(model, step_mode=mode, **kw)
+      out, launches, steps, decode, dense, ms = _ServeSmall(
+          torch, eng, counters, prompts, max_new)
+      want = dict.fromkeys(counters, 0)
+      if is_capped:
+        _Check(eng.paged_path == "dense" and dense == steps, f"capped "
+               f"{mode} engine: paged_path {eng.paged_path}, "
+               f"dense_fallback_steps {dense} of {steps} steps")
+      elif mode == "ragged":
+        want["ragged_block_attend"] = 24 * steps
+      else:
+        want["block_decode"] = 24 * decode
+      _Check(launches == want, f"{mode} engine (capped {is_capped}): "
+             f"launches {launches} != {want}")
+      res[mode, is_capped] = (launches, steps, ms)
+      if is_capped:
+        streams[mode] = out
+      print(f"DenseLm1B {'capped ' if is_capped else ''}{mode} engine "
+            f"(paged_path {eng.paged_path}): 4 x 64-token prompts, "
+            f"{max_new} new tokens: {steps} steps ({decode} decode-only), "
+            f"{ms:.2f} ms/step, dense_fallback_steps {dense}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+      del eng
+  _Check(np.array_equal(streams["ragged"], streams["legacy"]),
+         "capped DenseLm1B: the ragged and legacy engines' streams differ")
+  for mode in ("ragged", "legacy"):
+    print(f"DenseLm1B {mode} step in this process: the gather-dense "
+          f"fallback {res[mode, True][2]:.2f} ms/step against the kernels' "
+          f"{res[mode, False][2]:.2f} ms/step")
+  # GShardDecode of the capped task (its ExtendStep takes the dense read)
+  # through its own phase functions, and the ragged step's first logits
+  decoder = gshard.GShardDecode(capped, tmp, os.path.join(tmp, "cap.jsonl"),
+                                max_decode_steps=max_new)
+  init_fn, prefill_fn, sample_fn = decoder._GetDecodeFn(64, max_new)
+  lens_dev = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+  with torch.no_grad():
+    last, states = prefill_fn(torch.as_tensor(prompts).cuda(), lens_dev,
+                              init_fn(4))
+    ref = sample_fn(last, lens_dev, threefry.PRNGKey(0), states).cpu().numpy()
+    del states
+    rows = ragged.BuildRaggedRows([64] * 4, [0] * 4, 256, 64)
+    pstates = capped.InitPagedDecodeState(33, 16, 4)
+    tables = torch.arange(32, dtype=torch.int32, device="cuda").reshape(4, 8)
+    ids = torch.as_tensor(prompts.reshape(1, -1)).cuda()
+    logits, _ = capped.RaggedStep(ids, pstates, tables,
+                                  ragged.ToTorch(rows, "cuda"))
+    got = logits[0, 63::64]
+    del pstates
+  _CompareDecode(torch, "capped DenseLm1B, ragged fallback against "
+                 "GShardDecode", [got], [last], streams["ragged"], ref)
+  del lm, capped, decoder, last, logits
+  gc.collect()
+  torch.cuda.empty_cache()
+  # head dim 96 (outside block_decode.HEAD_DIMS): the legacy step takes
+  # the fallback on the card, the block-decode read on the CPU
+  p96 = spi.DenseLmTiny().Task().Set(model_dim=192, num_heads=2,
+                                     hidden_dim=384)
+  cpu_lm = p96.Instantiate(device="cpu")
+  cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
+  gpu_lm = p96.Instantiate(device="cuda")
+  gpu_lm.load_state_dict(cpu_lm.state_dict())
+  rng = np.random.RandomState(4)
+  tiny = rng.randint(1, 128, size=(6, 12)).astype(np.int32)
+  kw96 = dict(page_size=8, num_pages=32, max_batch=4, max_seq_len=64,
+              prefill_chunk=8, step_mode="legacy")
+  cpu_eng = engine.ServingLoop(cpu_lm, device="cpu", **kw96)
+  want96 = cpu_eng.RunBatch(tiny, [12] * 6, max_new_tokens=8)
+  eng = engine.ServingLoop(gpu_lm, **kw96)
+  got96, launches, steps, _, dense, _ = _ServeSmall(torch, eng, counters,
+                                                    tiny, 8)
+  _Check(eng.paged_path == "dense" and cpu_eng.paged_path == "plain",
+         f"head dim 96: paged_path {eng.paged_path} on the card, "
+         f"{cpu_eng.paged_path} on the CPU")
+  _Check(dense == steps and not any(launches.values()),
+         f"head dim 96: dense_fallback_steps {dense} of {steps}, launches "
+         f"{launches}")
+  _Check(np.array_equal(got96, want96), f"head dim 96: the card's "
+         f"fallback streams differ from the CPU's:\n{got96}\n{want96}")
+  ragged96 = engine.ServingLoop(gpu_lm, **dict(kw96, step_mode="ragged"))
+  print(f"head dim 96, legacy step: paged_path {eng.paged_path} on the card "
+        f"({steps} steps, all counted in dense_fallback_steps, no kernel "
+        f"launched), 6 greedy streams of 8 tokens identical to the CPU "
+        f"engine's block-decode read; the ragged engine at head dim 96 "
+        f"takes {ragged96.paged_path}")
+  return res
+
+
+def _SsmDecodePhase(torch, ssd, fd, spi, engine, attention, checkpointer,
+                    gshard, counters):
+  """Phase 25 (see the module docstring). Returns (the hybrid decode's
+  results, the pure-SSM runs, the fallback's serving runs)."""
+  t_phase = time.perf_counter()
+  with tempfile.TemporaryDirectory() as tmp:
+    hybrid = _HybridDecode(torch, ssd, fd, spi, attention, checkpointer,
+                           gshard, counters, tmp)
+    pure = _PureSsmDecode(torch, spi, checkpointer, gshard, counters, tmp)
+    print(f"phase 25: SSM decode took {time.perf_counter() - t_phase:.1f} s")
+    fallback = _DenseFallback(torch, spi, engine, attention, gshard,
+                              counters, tmp)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+  return hybrid, pure, fallback
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3678,7 +4107,12 @@ def main():
       torch, rba, bd, fd, im, ragged, spi, engine, attention, checkpointer,
       gshard, counters, prompt_lens, gshard_out)
 
-  _Phase("25. result")
+  _Phase("25. hybrid and pure-SSM batch decode through GShardDecode, and "
+         "the paged steps' gather-dense fallback")
+  ssm_decode, pure_ssm, fallback = _SsmDecodePhase(
+      torch, ssd, fd, spi, engine, attention, checkpointer, gshard, counters)
+
+  _Phase("26. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -3693,7 +4127,8 @@ def main():
       "source": "lingvo_tpu_torch/ops/csrc/ssd_scan.cu",
       "replaces": "lingvo_tpu/ops/ssd_scan.py:221",
       "launches": hybrid_launches["ssd_scan"],
-      "max_abs_err": max(r["err"] for r in scan_cases),
+      "max_abs_err": max(r["err"] for r in scan_cases + tuple(
+          ssm_decode["scans"])),
       "ms": scan_serve["ms"], "plain_ms": scan_serve["plain_ms"],
       # the bound of the work this call's data needs; the full-work bound
       # (every chunk's whole body) beside it
@@ -3709,7 +4144,17 @@ def main():
       "train_bound_ms": scan_train["live_bound"][0],
       "train_full_bound_ms": scan_train["bound"][0],
       "registers": scan_serve["geometry"]["regs"],
-      "local_bytes": scan_serve["geometry"]["local"]}]
+      "local_bytes": scan_serve["geometry"]["local"],
+      # the hybrid's GShardDecode prefill: layer 0's chunks 1 (zero s0)
+      # and 2 (the carried s0), [8, 160, 16] with S = H = 64
+      "decode_prefill_ms": [r["ms"] for r in ssm_decode["scans"]],
+      "decode_prefill_plain_ms": [r["plain_ms"] for r in ssm_decode["scans"]],
+      "decode_prefill_bound_ms": [r["live_bound"][0]
+                                  for r in ssm_decode["scans"]],
+      "decode_prefill_bound_by": [r["live_bound"][1]
+                                  for r in ssm_decode["scans"]],
+      "gshard_hybrid_launches": ssm_decode["launches"]["ssd_scan"],
+      "gshard_pure_ssm_launches": pure_ssm[16][0]["ssd_scan"]}]
   for name, res, line in (("flash_attention_fwd", flash["fwd"], 230),
                           ("flash_attention_dkdv", flash["dkdv"], 368),
                           ("flash_attention_dq", flash["dq"], 408)):
@@ -3742,15 +4187,23 @@ def main():
       "library_ms": None, "decode_only_ms": block_decode_only["ms"],
       "decode_only_bound_ms": block_decode_only["bound"][0]})
   main_fdec = fdec[1151]
+  hybrid_fdec = ssm_decode["fdec"][HYBRID_BUCKET + HYBRID_STEPS - 1]
   kernels.append({
       "name": "flash_decode", "route": "cuda",
       "source": "lingvo_tpu_torch/ops/csrc/flash_decode.cu",
       "replaces": "lingvo_tpu/ops/flash_decode.py:208",
       "launches": gshard_launches["flash_decode"],
-      "max_abs_err": max(r["err"] for r in fdec.values()),
+      "max_abs_err": max(r["err"] for r in list(fdec.values())
+                         + list(ssm_decode["fdec"].values())),
       "ms": main_fdec["ms"], "plain_ms": main_fdec["plain_ms"],
       "bound_ms": main_fdec["bound"][0], "bound_by": main_fdec["bound"][1],
-      "library_ms": main_fdec["library_ms"]})
+      "library_ms": main_fdec["library_ms"],
+      # the hybrid's GShardDecode step: [8, 512, 16, 64] at t 511
+      "hybrid_ms": hybrid_fdec["ms"], "hybrid_plain_ms": hybrid_fdec["plain_ms"],
+      "hybrid_bound_ms": hybrid_fdec["bound"][0],
+      "hybrid_bound_by": hybrid_fdec["bound"][1],
+      "hybrid_library_ms": hybrid_fdec["library_ms"],
+      "gshard_hybrid_launches": ssm_decode["launches"]["flash_decode"]})
   # the int8 and bfloat16 instantiations: times at the main shapes (the
   # first of each list), errors over every shape
   for name, results, source, line, launches in (

@@ -11,7 +11,11 @@ whose read goes through the paged flash-decode kernel of
 `Prefill`), the global KV page pool (`InitPagedStates`), the legacy
 serving step `PagedStep` (the block-decode kernel of
 `ops/block_decode.py` on decode steps) and the packed-token
-`RaggedStep`. Weights keep
+`RaggedStep`. A layer the paged kernels do not serve (a logit cap, or on
+the card a shape outside their limits; `BlockDecodeEligible`) takes the
+reference's gather-dense fallback in both paged steps: each row's pages
+gathered into its logical cache and read by the einsum path `_Atten`.
+Weights keep
 the reference's layouts: w_query/w_key/w_value/w_post [D, N, H], biases
 [N, H] and [D]. Activations are [B, T, N, H]. Only the Params fields the
 DenseLm models set are ported, plus those whose other values must raise.
@@ -63,11 +67,7 @@ _NEG_INF = -2.3819763e38  # the reference's additive mask value
 # softmax; a tile past every query is an exact no-op, so a trimmed read
 # (live_len) gives bitwise the full read's result.
 _PREFILL_TILE = 128
-# what the paged serving steps raise for a layer their kernels cannot serve
-_GATHER_DENSE = (
-    "attention with a logit cap, dropout or relative bias, or a shape "
-    "outside the paged kernels' limits, needs the gather-dense fallback "
-    "(ROADMAP item 14)")
+_DROPOUT = "attention dropout comes with a later training slice of the port"
 
 
 def CausalMask(t: int, device=None) -> torch.Tensor:
@@ -251,8 +251,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     causal=True masks the future as a flag, so the flash kernel can run.
     Rotary positions are arange(T)."""
     if self.p.atten_dropout_prob > 0:
-      raise NotImplementedError(
-          "attention dropout comes with a later training slice of the port")
+      raise NotImplementedError(_DROPOUT)
     use_flash = self._FlashEligible(key_vec, atten_mask, query_vec.shape[1])
     key_vec = query_vec if key_vec is None else key_vec
     value_vec = key_vec if value_vec is None else value_vec
@@ -481,12 +480,14 @@ class MultiHeadedAttention(base_layer.BaseLayer):
   def BlockDecodeEligible(self, page_size: int, kv_dtype=None,
                           t_pages: int | None = None,
                           ragged: bool = False) -> bool:
-    """Plain masked-softmax attention only: what the paged kernels serve.
-    On the card the shape must also be one the step's kernel takes: the
-    block-decode kernel's (`block_decode.KernelLimitError`, for the pool
-    dtype kv_dtype, default the layer's, and a table of t_pages), or with
-    ragged=True the ragged kernel's (`ragged_block_attend
-    .KernelLimitError`), as the reference checks its TPU tiling."""
+    """Plain masked-softmax attention only: what the paged kernels serve;
+    the paged steps take the gather-dense fallback for the rest, decided
+    here before any launch. On the card the shape must also be one the
+    step's kernel takes: the block-decode kernel's
+    (`block_decode.KernelLimitError`, for the pool dtype kv_dtype, default
+    the layer's, and a table of t_pages), or with ragged=True the ragged
+    kernel's (`ragged_block_attend.KernelLimitError`), as the reference
+    checks its TPU tiling."""
     p = self.p
     if not (page_size > 0 and p.rel_pos_emb_dim == 0
             and p.atten_logit_cap == 0 and p.atten_dropout_prob == 0.0):
@@ -536,15 +537,16 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     q_pos[b] + in_len[b]); queries past in_len[b] are padding, write to
     the trash page and give outputs the engine discards. C == 1 is a
     decode step (the block-decode op), C > 1 a mixed prefill step
-    (`BlockPrefill`). block_tables: [B, t_pages] int32; q_pos / in_len:
-    [B] int32, all on the layer's device. Writes the new K/V into
-    cached_states in place (quantized first into an int8 pool, whose
-    scales go to the sidecars); returns ([B, C, D], cached_states)."""
+    (`BlockPrefill`); a layer `BlockDecodeEligible` refuses reads its
+    rows' gathered caches densely instead (`_GatherDense`). block_tables:
+    [B, t_pages] int32; q_pos / in_len: [B] int32, all on the layer's
+    device. Writes the new K/V into cached_states in place (quantized
+    first into an int8 pool, whose scales go to the sidecars); returns
+    ([B, C, D], cached_states)."""
     k_pool, v_pool = cached_states.key, cached_states.value
     np_total, page_size = k_pool.shape[0], k_pool.shape[1]
     t_pages = block_tables.shape[1]
-    if not self.BlockDecodeEligible(page_size, k_pool.dtype, t_pages):
-      raise NotImplementedError(_GATHER_DENSE)
+    eligible = self.BlockDecodeEligible(page_size, k_pool.dtype, t_pages)
     b, c, _ = query_vec.shape
     dev = query_vec.device
     cols = torch.arange(c, device=dev)
@@ -559,7 +561,16 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     off = torch.where(valid, pos_i % page_size,
                       (cols % page_size)[None].expand(b, c))
     k_scale, v_scale = self._WritePool(cached_states, phys, off, k_new, v_new)
-    if c == 1:
+    if not eligible:
+      # the gather-dense fallback: every query over its row's logical
+      # cache, slots up to its own position (slots past a row's pages are
+      # stale or foreign and masked)
+      k_dense, v_dense = self._GatherDense(cached_states, block_tables)
+      slot = torch.arange(t_pages * page_size, device=dev)
+      mask = torch.where(slot[None, None, None, :] <= pos_i[:, None, :, None],
+                         0.0, _NEG_INF)
+      ctx, _ = self._Atten(q, k_dense, v_dense, mask)
+    elif c == 1:
       ctx = block_decode.BlockDecode(
           q, k_pool, v_pool, block_tables, (q_pos + in_len).to(torch.int32),
           page_size=page_size, k_scale=k_scale, v_scale=v_scale)
@@ -577,15 +588,15 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     query_vec: [1, T, D], all rows' tokens on one token axis; token t
     belongs to slot rows.row_of[t] and lands at global kv slot rows.pos[t]
     through that row's block table. Padding tokens (rows.valid False)
-    scatter to the trash page and produce zeros the engine discards.
+    scatter to the trash page and produce zeros the engine discards (on
+    the gather-dense fallback, `_RaggedDense`, a read of slot 0).
     block_tables: [B, t_pages] int32 on the layer's device. Writes the new
     K/V into cached_states in place (quantized first into an int8 pool)
     and returns ([1, T, D], cached_states).
     """
     k_pool, v_pool = cached_states.key, cached_states.value
     np_total, page_size = k_pool.shape[0], k_pool.shape[1]
-    if not self.BlockDecodeEligible(page_size, k_pool.dtype, ragged=True):
-      raise NotImplementedError(_GATHER_DENSE)
+    eligible = self.BlockDecodeEligible(page_size, k_pool.dtype, ragged=True)
     b, t_pages = block_tables.shape
     t = query_vec.shape[1]
     dev = query_vec.device
@@ -607,6 +618,10 @@ class MultiHeadedAttention(base_layer.BaseLayer):
                       % page_size)
     k_scale, v_scale = self._WritePool(cached_states, phys, off, k_new[0],
                                        v_new[0])
+    if not eligible:
+      return self._PostProj(self._RaggedDense(
+          q[0], cached_states, block_tables, row, pos, valid, q_start,
+          rows)), cached_states
     # token t attends over its row's slots [0, pos[t]]; q_end = 0 marks
     # padding (the ragged op emits exact zeros there)
     q_end = torch.where(valid, pos + 1, 0).to(torch.int32)
@@ -616,6 +631,45 @@ class MultiHeadedAttention(base_layer.BaseLayer):
         v_scale=v_scale, q_start=q_start, anc_lo=rows.anc_lo,
         anc_hi=rows.anc_hi)[None]
     return self._PostProj(ctx), cached_states
+
+  # -- the gather-dense fallback -----------------------------------------------
+
+  def _GatherDense(self, cached_states, block_tables):
+    """Each row's logical cache, K and V [B, t_pages * P, N, H], gathered
+    from the pool through its block table (dequantized to float32 for an
+    int8 pool): the paged steps' read for a layer the paged kernels do
+    not serve (`BlockDecodeEligible` false: a logit cap, or on the card a
+    shape outside the kernels' limits), the reference's fallback. Dropout
+    is not ported and raises here as in FProp."""
+    if self.p.atten_dropout_prob > 0:
+      raise NotImplementedError(_DROPOUT)
+    k = block_decode.GatherPages(cached_states.key, block_tables)
+    v = block_decode.GatherPages(cached_states.value, block_tables)
+    if "key_scale" in cached_states:
+      k = kv_quant.DequantKv(
+          k, block_decode.GatherScales(cached_states.key_scale, block_tables))
+      v = kv_quant.DequantKv(
+          v, block_decode.GatherScales(cached_states.value_scale,
+                                       block_tables))
+    return k, v
+
+  def _RaggedDense(self, q, cached_states, block_tables, row, pos, valid,
+                   q_start, rows):
+    """The ragged step's gather-dense read: each token q [T, N, H] is one
+    query over its row's gathered cache, slots [0, pos] that are its
+    ancestors (`ragged_block_attend._AncestorOk`); a padding token sees
+    slot 0 alone (an output the engine discards, never an all-masked
+    row). Returns [1, T, N, H]."""
+    k_dense, v_dense = self._GatherDense(cached_states, block_tables)
+    slot = torch.arange(k_dense.shape[1], device=q.device)[None, None, None]
+    col = lambda x: x.to(torch.int64)[:, None, None, None]
+    horizon = torch.where(valid, pos, 0)
+    ok = ragged_block_attend._AncestorOk(slot, slot - col(q_start),
+                                         col(rows.anc_lo), col(rows.anc_hi))
+    ok = ok | ~valid[:, None, None, None]
+    mask = torch.where((slot <= col(horizon)) & ok, 0.0, _NEG_INF)
+    ctx, _ = self._Atten(q[:, None], k_dense[row], v_dense[row], mask)
+    return ctx[:, 0][None]
 
 
 def _PadQueryContext(ctx, l, states, live: int):

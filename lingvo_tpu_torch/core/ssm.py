@@ -2,9 +2,10 @@
 
 `GatedSSMLayer` plugs in where `attention.MultiHeadedAttention` sits
 inside `transformer.TransformerAttentionLayer`: the same FProp signature
-and the same continuous-batching contract (`InitPagedStates`,
+the same incremental-decode contract (`InitStates`, `ExtendStep`,
+`Prefill`) and the same continuous-batching contract (`InitPagedStates`,
 `PagedStep`, `RaggedStep`). The difference is the cache: instead of KV
-pages that grow with the sequence, each engine slot holds a fixed
+caches and pages that grow with the sequence, each sequence holds a fixed
 [N, H, S] state matrix.
 
 Per head n, the mixer is a gated linear recurrence in SSD form:
@@ -28,8 +29,11 @@ where the reference returns a new array. Under a repeat that leaf is a
 view into the stacked leaf, which is how the port's stacks keep their
 states.
 
-Not ported yet (raise, naming the slice): the GShardDecode contract
-(`InitStates`, `ExtendStep`, `Prefill`) and the speculative-decoding
+The GShardDecode contract (`InitStates`, `ExtendStep`, `Prefill`) keeps
+one [B, N, H, S] state per sequence and a host-int time_step; both steps
+also write the state in place, for the same reason.
+
+Not ported yet (raise, naming the slice): the speculative-decoding
 column states (`collect_col_states`, `col_parent`). Not supported, as in
 the reference: cross-attention inputs, additive attention masks and
 non-causal FProp.
@@ -181,14 +185,62 @@ class GatedSSMLayer(base_layer.BaseLayer):
       out = py_utils.ApplyPadding(paddings, out)
     return out, None
 
-  # -- GShardDecode contract (not ported yet) ----------------------------------
+  # -- incremental decode (GShardDecode) ---------------------------------------
 
-  def InitStates(self, *args, **kwargs):
-    raise NotImplementedError(
-        "GatedSSMLayer.InitStates/ExtendStep/Prefill (its GShardDecode "
-        "contract) come with ROADMAP item 9.2 of the port")
+  def InitStates(self, batch_size: int, max_len: int) -> NestedMap:
+    """O(1) decode state: [B, N, H, S] float32 zeros, whatever max_len,
+    and time_step, the host int of the next slot (as the attention
+    caches keep it)."""
+    del max_len
+    n, h, s = self.p.num_heads, self._dim_per_head, self.p.state_dim
+    return NestedMap(state=torch.zeros((batch_size, n, h, s),
+                                       dtype=torch.float32,
+                                       device=self.device),
+                     time_step=0)
 
-  ExtendStep = Prefill = InitStates
+  @torch.no_grad()
+  def ExtendStep(self, query_vec, cached_states: NestedMap, paddings=None):
+    """query_vec [B, 1, D] at slot time_step; returns ([B, 1, D], states).
+
+    The recurrence goes through ssd_scan.SequentialStep, the float ops of
+    the 'sequential' lowering, as in the reference. paddings: optional
+    [B, S] cache paddings; a padded slot is an identity step. The new
+    state is written into cached_states.state in place (a repeat keeps
+    the tensor leaves it was given)."""
+    t = cached_states.time_step
+    decay_log, b, c, v, gate = self._Project(query_vec)
+    if paddings is not None:
+      decay_log, v = self._MaskScanInputs(decay_log, v, paddings[:, t:t + 1])
+    s_new, y = ssd_scan.SequentialStep(
+        cached_states.state, decay_log[:, 0], b[:, 0], c[:, 0], v[:, 0])
+    cached_states.state.copy_(s_new)
+    out = self._Finish(y[:, None], v, gate)
+    return out, NestedMap(state=cached_states.state, time_step=t + 1)
+
+  @torch.no_grad()
+  def Prefill(self, query_vec, cached_states: NestedMap, paddings=None,
+              live_len: int | None = None):
+    """Whole-chunk state priming: query_vec [B, C, D] for slots [t, t + C),
+    t = time_step; returns ([B, C, D], states).
+
+    One `ssd_scan.SsdScan` from the carried state (the kernel on the card)
+    at the layer's chunk_size; a prefill from t = 0 over the whole
+    sequence computes what FProp does. live_len is accepted for the
+    attention layers' sake: the state is O(1) whatever the length. The
+    new state is written into cached_states.state in place."""
+    del live_len
+    t = cached_states.time_step
+    c_len = query_vec.shape[1]
+    decay_log, b, c, v, gate = self._Project(query_vec)
+    if paddings is not None:
+      decay_log, v = self._MaskScanInputs(decay_log, v,
+                                          paddings[:, t:t + c_len])
+    y, s_new = ssd_scan.SsdScan(
+        decay_log, b, c, v, s0=cached_states.state,
+        chunk_size=self.p.chunk_size, lowering=self.p.scan_lowering)
+    cached_states.state.copy_(s_new)
+    out = self._Finish(y, v, gate)
+    return out, NestedMap(state=cached_states.state, time_step=t + c_len)
 
   # -- continuous-batching serving ---------------------------------------------
 

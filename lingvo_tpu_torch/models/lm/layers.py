@@ -228,8 +228,8 @@ class TransformerLm(base_model.BaseTask):
   # -- incremental decode ----------------------------------------------------
 
   def InitDecodeState(self, batch_size: int, max_len: int) -> NestedMap:
-    """Dense [B, max_len] KV caches of every attention layer (host-int
-    time_step 0)."""
+    """Dense [B, max_len] KV caches of every attention layer and one
+    [B, N, H, S] state of every SSM mixer (host-int time_step 0)."""
     return self.stack.InitStates(batch_size, max_len)
 
   def _Head(self, x):

@@ -47,6 +47,13 @@ keeps float32 scale sidecars, which its page price counts, and the
 kernels dequantize it on read. `Stats()` reports the pool's dtype, its
 bytes per token, and `quantized_steps`.
 
+A stack with an attention layer the paged kernels do not serve (a logit
+cap, or on the card a shape outside the step mode's kernel limits) runs
+the layers' gather-dense fallback, exactly, but without the paged read:
+`paged_path` is then 'dense' and every step counts in
+`dense_fallback_steps`, as in the reference, so the fallback is never
+silent.
+
 int8 weights (`serve_int8_weights=True`, quant/weights.py): the engine
 rewrites the task's theta once, at construction, into `Int8Weight`
 leaves (per-channel scales, one set per repeat layer) and binds it to the
@@ -70,8 +77,8 @@ the new weights, as in the reference.
 
 Ported: both step modes, fifo scheduling, greedy and seeded temperature /
 top-k sampling, float32 and bfloat16 activations, float32, bfloat16 and
-int8 KV pools, int8 weights, cancellation, the hot weight swap and the
-prefill token budget.
+int8 KV pools, int8 weights, cancellation, the hot weight swap, the
+prefill token budget and the gather-dense fallback.
 Speculative decoding, the prefix cache and priority scheduling raise
 NotImplementedError naming the slice that brings them; so does int8
 serving of a stack with SSM mixers, which the reference cannot run
@@ -161,7 +168,7 @@ class StreamHandle:
 
 
 _COUNTER_KEYS = ("steps", "decode_steps", "mixed_steps", "tokens_emitted",
-                 "prompt_tokens", "quantized_steps")
+                 "prompt_tokens", "quantized_steps", "dense_fallback_steps")
 
 
 class ServingLoop:
@@ -269,14 +276,7 @@ class ServingLoop:
     self.prefill_token_budget = int(prefill_token_budget or prefill_chunk)
     self._ragged_t = max_batch + self.prefill_token_budget
     self._ragged_wmax = max(1, self.prefill_token_budget)
-    # what the step's paged attention lowers to: the CUDA kernel or the
-    # plain version, '-int8' on an int8 pool (the reference's
-    # _ClassifyPath); 'ssm' = no attention layer, the page pool is unused
-    if self.mixers["num_attention"] == 0:
-      self.paged_path = "ssm"
-    else:
-      self.paged_path = ("cuda" if self.device.type == "cuda" else "plain") + (
-          "-int8" if self._kv_quantized else "")
+    self.paged_path = self._ClassifyPath(kv_cache_dtype, max_seq_len)
     self._counters = {k: 0 for k in _COUNTER_KEYS}
     self._handles: dict = {}
     self._lock = threading.RLock()
@@ -287,6 +287,27 @@ class ServingLoop:
     self._thread: Optional[threading.Thread] = None
     self._running = False
     self._seq_counter = 0
+
+  def _ClassifyPath(self, kv_cache_dtype, max_seq_len: int) -> str:
+    """What the step's paged attention lowers to (the reference's
+    `_ClassifyPath`): 'cuda' (the kernels) or 'plain' (their plain
+    versions, on the CPU), with '-int8' on an int8 pool; 'dense' when any
+    attention layer takes the gather-dense fallback, as its own gate
+    decides for this engine's step mode, page size, pool dtype and table
+    width (`MultiHeadedAttention.BlockDecodeEligible`); 'ssm' with no
+    attention layer, when the page pool is never read."""
+    attens = [m for m, _ in spec_decode.MixerLayers(self._task)
+              if not hasattr(m, "StateBytesPerSlot")]
+    if not attens:
+      return "ssm"
+    t_pages = self.alloc.PagesFor(max_seq_len)
+    for a in attens:
+      dtype = getattr(torch, a.KvCacheDtype(kv_cache_dtype))
+      if not a.BlockDecodeEligible(self.page_size, dtype, t_pages,
+                                   ragged=self.step_mode == "ragged"):
+        return "dense"
+    return ("cuda" if self.device.type == "cuda" else "plain") + (
+        "-int8" if self._kv_quantized else "")
 
   # -- async API -------------------------------------------------------------
 
@@ -540,6 +561,8 @@ class ServingLoop:
     self._counters["steps"] += 1
     self._counters["mixed_steps" if batch.mixed else "decode_steps"] += 1
     self._counters["prompt_tokens"] += batch.prompt_tokens
+    if self.paged_path == "dense":
+      self._counters["dense_fallback_steps"] += 1
     if self._kv_quantized:
       self._counters["quantized_steps"] += 1
     self._PushEvents(events)

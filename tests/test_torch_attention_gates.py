@@ -17,7 +17,8 @@ CUDA device; the plain CPU versions take any head dim.
 - `cuda` cases (skipped here): on the card a layer outside the limits
   takes the dense path and matches the CPU's dense path (`FProp` at head
   dim 24, `ExtendStep` at head dim 24 and a bf16 cache at 4), and the paged
-  steps raise `NotImplementedError` naming the gather-dense fallback:
+  steps at head dim 260 take the gather-dense fallback, launch no paged
+  kernel and match the CPU's fallback:
 
     python -m pytest tests/test_torch_attention_gates.py -m cuda
 """
@@ -228,20 +229,39 @@ def test_extend_step_outside_the_limits_takes_the_dense_read(cuda, h, kv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("ragged", [False, True])
 def test_paged_steps_outside_the_limits_name_the_fallback(cuda, ragged):
-  """Head dim 260 (past both paged kernels): PagedStep and RaggedStep
-  raise NotImplementedError naming ROADMAP item 14 on the card, never a
-  wrapper's ValueError."""
+  """Head dim 260 (past both paged kernels): on the card PagedStep and
+  RaggedStep take the gather-dense fallback, decided by the gate before
+  any launch (no paged kernel runs, no wrapper raises), and match the
+  CPU's paged read (its plain versions take any head dim) on the same
+  weights, pools and inputs within 1e-5: a prefill of 5 tokens, then one
+  decode token. The ragged step's padding tokens are not compared: the
+  plain ragged read gives them zeros, the fallback a read of slot 0."""
   from lingvo_tpu_torch.core import ragged as ragged_lib
-  layer = _Layer(260, device="cuda")
-  states = layer.InitPagedStates(5, 16)
-  tables = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
-  with pytest.raises(NotImplementedError, match="item 14"):
+  cpu, card = _Twins(260)
+  assert not card.BlockDecodeEligible(16, torch.float32, 2)
+  assert not card.BlockDecodeEligible(16, ragged=True)
+  rng = np.random.RandomState(3)
+  s_cpu, s_card = cpu.InitPagedStates(5, 16), card.InitPagedStates(5, 16)
+  tables = torch.tensor([[3, 1]], dtype=torch.int32)
+  launches = (block_decode.BlockDecode.launches, rba.RaggedAttend.launches)
+  for q_pos, n in ((0, 5), (5, 1)):
     if ragged:
-      rows = ragged_lib.ToTorch(ragged_lib.BuildRaggedRows([2], [0], 4, 2),
-                                "cuda")
-      layer.RaggedStep(torch.zeros(1, 4, 520, device="cuda"), states,
-                       tables, rows)
+      rows = ragged_lib.BuildRaggedRows([n], [q_pos], 8, 8)
+      x = _Rand(rng, 1, 8, 520)
+      args = lambda dev: (tables.to(dev), ragged_lib.ToTorch(rows, dev))
+      step = "RaggedStep"
     else:
-      pos = torch.zeros(1, dtype=torch.int32, device="cuda")
-      layer.PagedStep(torch.zeros(1, 1, 520, device="cuda"), states, tables,
-                      pos, pos + 1)
+      x = _Rand(rng, 1, n, 520)
+      pos = torch.tensor([q_pos], dtype=torch.int32)
+      args = lambda dev: (tables.to(dev), pos.to(dev),
+                          torch.tensor([n], dtype=torch.int32, device=dev))
+      step = "PagedStep"
+    want, s_cpu = getattr(cpu, step)(x, s_cpu, *args("cpu"))
+    got, s_card = getattr(card, step)(x.cuda(), s_card, *args("cuda"))
+    torch.cuda.synchronize()
+    live = torch.as_tensor(rows.valid)[None] if ragged else slice(None)
+    assert float((got.cpu() - want)[live].abs().max()) <= 1e-5
+  assert (block_decode.BlockDecode.launches,
+          rba.RaggedAttend.launches) == launches
+  for name in ("key", "value"):
+    assert float((s_card[name].cpu() - s_cpu[name])[:-1].abs().max()) <= 1e-5

@@ -122,11 +122,14 @@ def test_mha_ragged_step():
 
 
 def test_mha_ineligible_config_raises():
+  """A layer the paged kernels do not serve takes the gather-dense
+  fallback (tests/test_torch_dense_fallback.py), except for what the
+  port has not ported: attention dropout raises there, as in FProp."""
   tl = attention.MultiHeadedAttention.Params().Set(
       name="a", input_dim=8, num_heads=2,
-      atten_logit_cap=5.0).Instantiate(device="cpu")
+      atten_dropout_prob=0.1).Instantiate(device="cpu")
   states = tl.InitPagedStates(3, 8)
   rows = ragged.ToTorch(ragged.BuildRaggedRows([1], [0], 2, 1), "cpu")
-  with pytest.raises(NotImplementedError, match="gather-dense"):
+  with pytest.raises(NotImplementedError, match="attention dropout"):
     tl.RaggedStep(torch.zeros(1, 2, 8), states,
                   torch.zeros((1, 2), dtype=torch.int32), rows)

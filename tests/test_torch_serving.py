@@ -283,10 +283,11 @@ def test_unported_model_features_raise(field, value):
 
 
 @pytest.mark.parametrize("field, value, match", [
-    ("atten_dropout_prob", 0.1, "gather-dense")])
+    ("atten_dropout_prob", 0.1, "attention dropout")])
 def test_unservable_attention_configs_raise(field, value, match):
-  """Configs the reference serves only through its gather-dense fallback
-  raise when served, never run another path."""
+  """Configs the reference serves through its gather-dense fallback with
+  a feature the port has not ported raise when served, never run another
+  path: the fallback does not pretend to apply dropout."""
   p = synthetic_packed_input.DenseLmTiny().Task().Set(**{field: value})
   lm = p.Instantiate(device="cpu")
   with pytest.raises(NotImplementedError, match=match):

@@ -161,9 +161,6 @@ def test_unported_paths_raise(layers):
   pos = torch.zeros((2,), dtype=torch.int32)
   with pytest.raises(NotImplementedError, match="speculative-decoding"):
     t_layer.PagedStep(x, states, None, pos, pos, collect_col_states=True)
-  for method in (t_layer.InitStates, t_layer.ExtendStep, t_layer.Prefill):
-    with pytest.raises(NotImplementedError, match="GShardDecode"):
-      method(None, 2, 8)
   with pytest.raises(ValueError, match="causal"):
     t_layer.FProp(x)
   assert t_layer.StateBytesPerSlot() == N * (D // N) * S * 4
