@@ -346,11 +346,33 @@
    block-decode head dim) in the legacy step: 'dense' on the card, no
    launch, streams equal to the CPU engine's block-decode read. Prints
    the phase's seconds.
-26. Prints the per-kernel JSON line (every kernel and every int8 /
+26. The trainer CLI. First the fused-xent statistics kernel against
+   `_PlainStats` at DenseLmWord793k's shape (x [2048, 1024], the table
+   [793,600, 1024], float32, cap 30, block 1024; phase 8's bar, two calls
+   bitwise equal), with its geometry (row tiles x splits), time, bound
+   and the plain version's time. Then `trainer.main` on DenseLmWord793k
+   as registered (8 layers, d 1024, seq 256, batch 8, tied vocabulary of
+   793,600, random weights from a CPU generator seeded 1234), with
+   --max_steps=20, in a temporary logdir: one schedule cycle of 20 train
+   steps and the eval_test program's 125 batches, the step-0 background
+   save and the final save. Checks FINISHED holds 20, metrics.jsonl's
+   train and eval_test losses are finite, and the xent kernel launched
+   exactly 20 + 125 times and no other kernel; prints ms/step, the eval's
+   seconds, peak memory and each checkpoint's bytes, snapshot and write
+   seconds; profiles one more train step of the same task (device
+   activity only: its busy share), then times 3 more steps through the
+   default (async) `TrainProgram` with no save in flight; deletes the
+   logdir. Last, DenseLmTiny's shapes and recipe
+   at 4 steps a loop and 32 eval samples through the CLI on the card and
+   then the CPU: train to 8, resume to 16, `--mode=eval`; every loop's
+   and eval's loss within 1e-4 of the CPU's, no kernel launched. Prints
+   the phase's seconds.
+27. Prints the per-kernel JSON line (every kernel and every int8 /
    bfloat16 instantiation, and the bfloat16-q ones; the int8 serving
    kernels and the sampling kernel with "replaces": null; the scan's and
    flash decode's times at the hybrid decode's shapes beside their main
-   ones), then the result line.
+   ones; the xent kernel at DenseLmWord793k's shape with the CLI run's
+   launches), then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -1319,15 +1341,20 @@ def _CheckFlashBf16(torch, fa, rng):
 
 
 def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
-               vocab=32000, vd=True):
+               vocab=32000, vd=True, d=2048, table_seed=None):
   """The fused-xent statistics kernel against `_PlainStats` on the card:
-  x [m, 2048], the table [vocab, 2048] (vd; else [2048, vocab]), cap 30,
-  in `dtype`; two calls bitwise equal."""
-  d = 2048
+  x [m, d], the table [vocab, d] (vd; else [d, vocab]), cap 30, in
+  `dtype`; two calls bitwise equal. table_seed: the table is drawn on the
+  card from a generator with that seed (a large table from numpy takes
+  tens of seconds on the host)."""
   dt = getattr(torch, dtype)
   x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda().to(dt)
-  w = torch.as_tensor((rng.randn(vocab, d) / np.sqrt(d)).astype(
-      np.float32)).cuda().to(dt)
+  if table_seed is None:
+    w = torch.as_tensor((rng.randn(vocab, d) / np.sqrt(d)).astype(
+        np.float32)).cuda().to(dt)
+  else:
+    w = (torch.randn((vocab, d), device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(table_seed)) / np.sqrt(d)).to(dt)
   w_arg = w if vd else w.t().contiguous()
   bias = torch.zeros(vocab, device="cuda", dtype=dt)
   labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
@@ -1366,9 +1393,9 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
           f"{geo['splits']} "
           "splits in order")
   errs = []
-  print("tolerances: lse, label logit 1e-4 (capped logits of O(1), each a "
-        "2048-term float32 dot in two orders); logit sum 5e-3 (adds 32000 "
-        "of them)")
+  print(f"tolerances: lse, label logit 1e-4 (capped logits of O(1), each a "
+        f"{d}-term float32 dot in two orders); logit sum 5e-3 (adds {vocab} "
+        f"of them)")
   for name, a, b_, tol in (("lse", got[0], want[0], 1e-4),
                            ("label_logit", got[1], want[1], 1e-4),
                            ("logit_sum", got[2], want[2], 5e-3)):
@@ -1432,8 +1459,9 @@ def _TinyTrain(torch, spi, program, p, device, init):
   lm.load_state_dict(init)
   state = lm.CreateTrainState()
   prog = program.TrainProgram(
-      program.TrainProgram.Params().Set(steps_per_loop=1), task=lm,
-      input_generator=cfg.Train().Instantiate())
+      program.TrainProgram.Params().Set(steps_per_loop=1,
+                                        async_infeed=False),
+      task=lm, input_generator=cfg.Train().Instantiate())
   losses, norms, thetas = [], [], []
   for _ in range(3):
     out = prog.Run(state)[1]
@@ -1667,8 +1695,9 @@ def _TrainMain(torch, spi, program, counters, pairs_per_layer,
   state = lm.CreateTrainState(torch.Generator("cuda").manual_seed(0))
   gen = cfg.Train().Set(seed=0).Instantiate()
   prog = lambda n: program.TrainProgram(
-      program.TrainProgram.Params().Set(steps_per_loop=n), task=lm,
-      input_generator=gen)
+      program.TrainProgram.Params().Set(steps_per_loop=n,
+                                        async_infeed=False),
+      task=lm, input_generator=gen)
   torch.cuda.synchronize()
   print(f"DenseLm1B train task: {sum(x.numel() for x in lm.parameters()):,}"
         f" params, fprop_dtype {lm.fprop_dtype}, weights "
@@ -3621,6 +3650,223 @@ def _SsmDecodePhase(torch, ssd, fd, spi, engine, attention, checkpointer,
   return hybrid, pure, fallback
 
 
+
+# -- phase 26: the trainer CLI -----------------------------------------------------
+
+
+W793K = "lm.synthetic_packed_input.DenseLmWord793k"
+
+
+def _StepBusy(torch, step):
+  """One call of step() under torch.profiler, device activity only (a
+  step of thousands of small ops makes the host-side records costly):
+  device busy ms against the wall, the xent kernel's and the GEMMs'
+  shares of busy, the top 5 kernels."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+  kernels = sorted((e for e in prof.key_averages() if _DevUs(e) > 0),
+                   key=_DevUs, reverse=True)
+  busy_ms = sum(_DevUs(e) for e in kernels) / 1e3
+  if busy_ms == 0:
+    print("profiled step: the profiler recorded no device time")
+    return
+  share = lambda *keys: sum(_DevUs(e) for e in kernels if any(
+      k in e.key.lower() for k in keys)) / 1e3 / busy_ms
+  print(f"profiled one train step: device busy {busy_ms:.1f} ms of "
+        f"{wall_ms:.1f} ms wall ({busy_ms / wall_ms:.1%}); GEMMs "
+        f"{share('gemm', 'cutlass', 'nvjet'):.1%}, fused xent "
+        f"{share('fusedxent'):.1%} of busy; "
+        f"{sum(e.count for e in kernels)} kernels")
+  for e in kernels[:5]:
+    print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+
+
+def _CliWord793k(torch, spi, trainer, executor, program, counters, tmp):
+  """trainer.main on DenseLmWord793k as registered (20 steps a loop, 125
+  eval batches of 8), --max_steps=20, on the card, with the kernel counts
+  set to 0 just before: FINISHED holds 20, metrics.jsonl has finite train
+  and eval_test losses, and the xent kernel launched exactly 20 + 125
+  times, nothing else. Then one more train step of the same task under
+  torch.profiler (its device busy share). Returns the launches."""
+  import shutil
+  logdir = os.path.join(tmp, "w793k")
+  free = shutil.disk_usage(tmp).free
+  print(f"logdir {logdir}: {free / 2**30:.1f} GiB free")
+  captured, eval_s = [], []
+  start, run = executor.ExecutorTpu.Start, program.EvalProgram.Run
+
+  def _Start(ex):
+    captured.append(ex)
+    captured.append(start(ex))
+    return captured[-1]
+
+  def _EvalRun(prog, state):
+    t0 = time.perf_counter()
+    out = run(prog, state)
+    torch.cuda.synchronize()
+    eval_s.append(time.perf_counter() - t0)
+    return out
+
+  executor.ExecutorTpu.Start, program.EvalProgram.Run = _Start, _EvalRun
+  try:
+    torch.cuda.synchronize()
+    counters.Zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = trainer.main([f"--model={W793K}", f"--logdir={logdir}",
+                       "--mode=train", "--max_steps=20"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.Read()
+  finally:
+    executor.ExecutorTpu.Start, program.EvalProgram.Run = start, run
+  peak = torch.cuda.max_memory_allocated()
+  with open(os.path.join(logdir, "train", "FINISHED")) as f:
+    finished = f.read()
+  with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+  _Check(rc == 0 and finished == "20", f"rc {rc}, FINISHED {finished!r}")
+  _Check([r["step"] for r in rows] == [20] and all(
+      np.isfinite(rows[0][k]["loss"]) for k in ("train", "eval_test")),
+         f"metrics.jsonl rows {rows}")
+  want = dict.fromkeys(counters, 0)
+  want["fused_xent_fwd"] = 20 + 125
+  _Check(launches == want, f"launches {launches} != {want}")
+  ex, state = captured
+  train = rows[0]["train"]
+  task = ex.task
+  print(f"DenseLmWord793k through trainer.main: "
+        f"{sum(x.numel() for x in task.parameters()):,} params, {wall:.1f} s "
+        f"in all; the loop of 20 steps {1e3 / train['steps_per_second']:.1f}"
+        f" ms/step from its dispatch to its end ({train['host_overhead_s']:.2f}"
+        f" s of host dispatch), loss {train['loss']:.4f}, grad_norm "
+        f"{train['grad_norm']:.4f}; eval_test (125 batches) {eval_s[0]:.2f} "
+        f"s, loss {rows[0]['eval_test']['loss']:.4f}; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+  for w in ex.checkpointer.writes:
+    print(f"checkpoint step {w['step']}: {w['bytes'] / 2**30:.2f} GiB, "
+          f"snapshot {w['snapshot_s']:.2f} s on the caller, write "
+          f"{w['write_s']:.2f} s ({w['bytes'] / w['write_s'] / 2**30:.2f} "
+          f"GiB/s)")
+  print(f"launches in the CLI run: {launches} (a stats forward each train "
+        "step and eval batch)")
+  prog = program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=1,
+                                        async_infeed=False),
+      task=task, input_generator=spi.DenseLmWord793k().Train().Instantiate())
+  t0 = time.perf_counter()
+  _StepBusy(torch, lambda: prog.Run(state))
+  print(f"the profiled step took {time.perf_counter() - t0:.1f} s with the "
+        "profiler's own work")
+  # the runtime's own loop again, with no save in flight: its first Run
+  # blocks for its own result
+  steady = program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=3), task=task,
+      input_generator=spi.DenseLmWord793k().Train().Instantiate())
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, out = steady.Run(state)
+  torch.cuda.synchronize()
+  steady_ms = (time.perf_counter() - t0) / 3 * 1e3
+  steady.Shutdown()
+  print(f"3 more steps through the default (async) TrainProgram, no save "
+        f"in flight: {steady_ms:.1f} ms/step ({out['host_overhead_s']:.2f} s"
+        f" of host dispatch for the 3)")
+  del captured, ex, task, prog, steady, state
+  shutil.rmtree(logdir)
+  gc.collect()
+  torch.cuda.empty_cache()
+  return launches, dict(ms_step=1e3 / train["steps_per_second"],
+                        steady_ms_step=steady_ms, eval_s=eval_s[0],
+                        peak=peak, wall=wall)
+
+
+def _TinyCliRuns(trainer, key, logdir, device):
+  """Train to 8 steps, resume to 16, then --mode=eval, all through the
+  CLI: (train losses by step, eval losses by step, the last eval)."""
+  common = [f"--model={key}", f"--logdir={logdir}", f"--device={device}"]
+  for steps in (8, 16):
+    _Check(trainer.main(common + [f"--max_steps={steps}"]) == 0,
+           f"{device}: train to {steps}")
+  _Check(trainer.main(common + ["--mode=eval"]) == 0, f"{device}: eval")
+  with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+  with open(os.path.join(logdir, "eval_test", "summaries.jsonl")) as f:
+    evals = [json.loads(line) for line in f]
+  train = {r["step"]: r["train"]["loss"] for r in rows}
+  return train, [e["loss"] for e in evals]
+
+
+def _CliTiny(torch, spi, trainer, model_registry, counters, tmp):
+  """DenseLmTiny's shapes and recipe through the CLI on the card and on
+  the CPU (4 steps a loop and 32 eval samples, so that 8 and 16 end
+  loops): train to 8, resume to 16, eval the last checkpoint; each
+  loop's loss and each eval loss within 1e-4 of the CPU's. Launches no
+  hand kernel: flash is off and the head is dense."""
+
+  class DenseLmTinyLoop4(spi.DenseLmTiny):
+    def Task(self):
+      p = super().Task()
+      p.train.tpu_steps_per_loop = 4
+      p.eval.samples_per_summary = 32
+      return p
+
+  key = model_registry.RegisterSingleTaskModel(
+      DenseLmTinyLoop4)._registry_key
+  counters.Zero()
+  got = _TinyCliRuns(trainer, key, os.path.join(tmp, "tiny_cuda"), "cuda")
+  launches = counters.Read()
+  want = _TinyCliRuns(trainer, key, os.path.join(tmp, "tiny_cpu"), "cpu")
+  _Check(not any(launches.values()), f"tiny: launches {launches}")
+  _Check(sorted(got[0]) == sorted(want[0]) == [4, 8, 12, 16],
+         f"tiny: train rows {got[0]} vs {want[0]}")
+  err = max([abs(got[0][s] - want[0][s]) for s in want[0]] +
+            [abs(a - b) for a, b in zip(got[1], want[1])])
+  _Check(len(got[1]) == len(want[1]) == 5 and err <= 1e-4,
+         f"tiny: card {got} vs CPU {want}, max err {err}")
+  print(f"DenseLmTiny (4 steps a loop) through the CLI, card vs CPU: train "
+        f"to 8, resume to 16, eval: train losses {got[0]}, eval losses "
+        f"{got[1]}; max |card - CPU| {err:.3g} (tol 1e-4); no kernel "
+        f"launched")
+  return err
+
+
+def _CliPhase(torch, fx, spi, counters):
+  """Phase 26 (see the module docstring). Returns (the xent check at
+  DenseLmWord793k's shape, the CLI run's launches and times)."""
+  from lingvo_tpu_torch import model_registry
+  from lingvo_tpu_torch import trainer
+  from lingvo_tpu_torch.runners import executor
+  from lingvo_tpu_torch.runners import program
+  t_phase = time.perf_counter()
+  geo = fx.StatsGeometry(2048, 793_600, torch.cuda.get_device_properties(
+      0).multi_processor_count)
+  print(f"row tiles x splits {geo['row_tiles']} x {geo['splits']} "
+        f"({geo['tiles_per_split']} tiles of {geo['tile']} a split), "
+        f"partials {5 * geo['splits'] * 2048 * 4 / 2**20:.1f} MiB; "
+        "library: none")
+  xent = _CheckXent(torch, fx, np.random.RandomState(26), 1024, 0.0, True,
+                    m=2048, vocab=793_600, d=1024, table_seed=26)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 26: the kernel check took {time.perf_counter() - t_phase:.1f}"
+        " s")
+  with tempfile.TemporaryDirectory() as tmp:
+    launches, cli = _CliWord793k(torch, spi, trainer, executor, program,
+                                 counters, tmp)
+    print(f"phase 26: DenseLmWord793k took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    cli["tiny_err"] = _CliTiny(torch, spi, trainer, model_registry, counters,
+                               tmp)
+  print(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+  return xent, dict(cli, launches=launches)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4112,7 +4358,11 @@ def main():
   ssm_decode, pure_ssm, fallback = _SsmDecodePhase(
       torch, ssd, fd, spi, engine, attention, checkpointer, gshard, counters)
 
-  _Phase("26. result")
+  _Phase("26. the trainer CLI: the xent kernel at DenseLmWord793k's shape, "
+         "then DenseLmWord793k and DenseLmTiny through trainer.main")
+  xent793, cli = _CliPhase(torch, fx, spi, counters)
+
+  _Phase("27. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -4263,6 +4513,19 @@ def main():
       "max_abs_err": xent16["err"], "ms": xent16["ms"],
       "plain_ms": xent16["plain_ms"], "bound_ms": xent16["bound"][0],
       "bound_by": xent16["bound"][1], "library_ms": None})
+  kernels.append({
+      "name": "fused_xent_fwd_word793k", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/fused_xent.cu",
+      "replaces": "lingvo_tpu/ops/fused_xent.py:277",
+      "launches": cli["launches"]["fused_xent_fwd"],
+      "max_abs_err": xent793["err"], "ms": xent793["ms"],
+      "plain_ms": xent793["plain_ms"], "bound_ms": xent793["bound"][0],
+      "bound_by": xent793["bound"][1], "library_ms": None,
+      "shape": "x [2048, 1024] x table [793600, 1024] float32, cap 30: "
+               "DenseLmWord793k through trainer.main",
+      "cli_ms_per_step": cli["ms_step"],
+      "cli_steady_ms_per_step": cli["steady_ms_step"],
+      "cli_eval_s": cli["eval_s"]})
   # the int8 serving kernels replace no pallas_call: the reference's int8
   # product is an XLA dot_general; times are the sums over the 145 products
   # of a ragged step (m = 264), the decode step's (m = 8) beside them

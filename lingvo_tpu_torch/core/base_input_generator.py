@@ -34,9 +34,24 @@ class BaseInputGenerator:
     """Total batch (one host in the port)."""
     return self.p.batch_size
 
+  def InfeedBatchSize(self) -> int:
+    """This host's batch."""
+    return self.p.batch_size
+
   def _InputBatch(self) -> NestedMap:
     """Subclass point: produce one batch."""
     raise NotImplementedError
 
   def GetPreprocessedInputBatch(self) -> NestedMap:
     return self._InputBatch()
+
+  def __iter__(self):
+    while True:
+      yield self.GetPreprocessedInputBatch()
+
+  def Seek(self, batch_index: int) -> None:
+    """Makes batch `batch_index` of the stream the next one. A stream
+    whose batches are not addressable raises NotImplementedError; the
+    train program then resumes it where it stands, as the reference
+    resumes every stream."""
+    raise NotImplementedError(f"{type(self).__name__} cannot seek")

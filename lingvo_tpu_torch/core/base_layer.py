@@ -316,10 +316,19 @@ class BaseLayer(nn.Module):
   @torch.no_grad()
   def InstantiateVariables(self, generator: torch.Generator) -> "BaseLayer":
     """Initializes every weight of the tree from `generator`, in module
-    registration order (deterministic for a given seed and device)."""
+    registration order (deterministic for a given seed and generator
+    device). A generator on another device than a weight fills a buffer
+    on its own device that is then copied in: a CPU generator gives the
+    same weights on the card as on the CPU."""
     if self._path is None:
       self.FinalizePaths()
     for module in self.modules():
       for name, wp in getattr(module, "_variable_specs", {}).items():
-        py_utils.InitWeight(getattr(module, name), wp, generator)
+        prm = getattr(module, name)
+        if prm.device == generator.device:
+          py_utils.InitWeight(prm, wp, generator)
+        else:
+          buf = torch.empty(prm.shape, dtype=prm.dtype,
+                            device=generator.device)
+          prm.copy_(py_utils.InitWeight(buf, wp, generator))
     return self

@@ -1,4 +1,4 @@
-"""BaseTask: the trainable unit (port of part of lingvo_tpu/core/base_model.py).
+"""BaseTask and BaseModel: the trainable unit and its container (port of lingvo_tpu/core/base_model.py).
 
 A task splits into `ComputePredictions` / `ComputeLoss`, returning a
 metrics NestedMap of (value, weight) pairs, as in the reference. The
@@ -7,6 +7,11 @@ are the module's own and `TrainStep` updates them and the optimizer slots
 IN PLACE: the gradient comes from `loss.backward()`, the learner applies
 it under `torch.no_grad()`, and `state` carries the step counter and the
 optimizer state.
+
+`EvalStep` is the eval-mode FProp under `torch.no_grad()`, and
+`VariableSpecs()` lists the weights' shapes under the reference's theta
+paths (a repeat stack's leaves with their leading [num_layers] axis), as
+`model_analysis.txt` and `--mode=inspect_model` print them.
 
 One learner per task; the EMA of theta and multiple learners (GANs) raise
 NotImplementedError until a later slice ports them.
@@ -35,7 +40,36 @@ class BaseTask(base_layer.BaseLayer):
               "The Learner (a list of several is not ported).")
     tp.Define("ema_decay", 0.0, "If >0, keep an EMA copy of theta (not "
               "ported: raises).")
+    tp.Define("max_steps", 4_000_000, "Training halts after this step.")
+    tp.Define("tpu_steps_per_loop", 100, "Device steps per host loop.")
+    tp.Define("save_interval_steps", 1000, "Checkpoint every N steps.")
+    tp.Define("save_max_to_keep", 10, "Checkpoints kept by GC.")
+    tp.Define("early_stop_window", 0,
+              "Stop after this many steps without eval-loss improvement "
+              "(0 = disabled; core/early_stop.py).")
+    tp.Define("early_stop_tolerance", 0.0, "Improvement margin.")
+    tp.Define("early_stop_metric", "loss", "Eval metric to watch.")
+    tp.Define("early_stop_program", "eval_test",
+              "Which eval program's results feed the plateau detector.")
+    tp.Define("init_from_checkpoint_rules", {},
+              "Warm start: {ckpt_train_dir: [(target_var_regex, "
+              "source_var_template), ...]}, applied only when the run's own "
+              "train dir has no checkpoint "
+              "(checkpointer.ApplyInitFromCheckpointRules).")
+    tp.Define("init_from_npz", "",
+              "Warm start from an npz of reference-layout arrays keyed by "
+              "the reference's theta paths; applied on a fresh run like "
+              "init_from_checkpoint_rules (checkpointer.ImportNpzCheckpoint).")
+    tp.Define("init_from_npz_rules", None,
+              "Optional [(target_regex, source_template)] name mapping for "
+              "init_from_npz (None = npz keys are the theta paths).")
+    tp.Define("pruning", None,
+              "Magnitude pruning schedule (not ported: the executor raises "
+              "when it is set).")
     p.Define("train", tp, "Training hyperparams.")
+    ep = hyperparams.Params()
+    ep.Define("samples_per_summary", 1000, "Max eval examples per run.")
+    p.Define("eval", ep, "Eval hyperparams.")
     return p
 
   def __init__(self, params, device=None):
@@ -73,6 +107,18 @@ class BaseTask(base_layer.BaseLayer):
   def FProp(self, input_batch: NestedMap) -> tuple[NestedMap, NestedMap]:
     predictions = self.ComputePredictions(input_batch)
     return self.ComputeLoss(predictions, input_batch)
+
+  def EvalStep(self, input_batch: NestedMap) -> tuple[NestedMap, NestedMap]:
+    """One eval step: the eval-mode FProp, without gradients. Returns
+    (metrics, per_example), every value detached."""
+    with torch.no_grad():
+      return self.FProp(input_batch)
+
+  def VariableSpecs(self) -> NestedMap:
+    """The weights' shapes under the reference's theta paths: a NestedMap
+    of objects with `.shape`, a repeat stack's leaves [num_layers, ...]."""
+    return self.ThetaTree().Transform(
+        lambda leaf: _Spec(tuple(leaf.shape)))
 
   # ---- train state -------------------------------------------------------------
 
@@ -117,3 +163,47 @@ class BaseTask(base_layer.BaseLayer):
     detach = lambda x: x.detach() if isinstance(x, torch.Tensor) else x
     return NestedMap(metrics=metrics.Transform(detach), stats=stats,
                      per_example=per_example.Transform(detach))
+
+
+class _Spec:
+  """A weight's shape, as the reference's WeightParams carries it."""
+
+  def __init__(self, shape: tuple):
+    self.shape = shape
+
+
+class BaseModel(base_layer.BaseLayer):
+  """Container of one or more tasks (ref base_model.py:276)."""
+
+  def GetTask(self, task_name: str | None = None) -> BaseTask:
+    raise NotImplementedError
+
+  @property
+  def tasks(self) -> list[BaseTask]:
+    raise NotImplementedError
+
+
+class SingleTaskModel(BaseModel):
+  """Model with exactly one task (ref base_model.py:296)."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("task", None, "The task params.")
+    p.Define("input", None, "Input params (attached by the registry).")
+    return p
+
+  def __init__(self, params, device=None):
+    if params.task is not None and params.input is not None:
+      if params.task.input is None:
+        params = params.Copy()
+        params.task.input = params.input
+    super().__init__(params, device)
+    self.CreateChild("task", self.p.task)
+
+  def GetTask(self, task_name: str | None = None) -> BaseTask:
+    return self.task
+
+  @property
+  def tasks(self):
+    return [self.task]

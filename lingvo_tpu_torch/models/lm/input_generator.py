@@ -37,6 +37,10 @@ class SyntheticLmInput(base_input_generator.BaseInputGenerator):
     super().__init__(params)
     self._step = 0
 
+  def Seek(self, batch_index: int) -> None:
+    """Batch i is drawn from a RandomState seeded by (seed, i) alone."""
+    self._step = int(batch_index)
+
   def _Sequence(self, rng, length):
     pat = rng.randint(1, self.p.vocab_size, self.p.pattern_len)
     reps = -(-length // self.p.pattern_len)
