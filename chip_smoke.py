@@ -367,12 +367,35 @@
    then the CPU: train to 8, resume to 16, `--mode=eval`; every loop's
    and eval's loss within 1e-4 of the CPU's, no kernel launched. Prints
    the phase's seconds.
-27. Prints the per-kernel JSON line (every kernel and every int8 /
+27. The hybrid's training. First the scan's backward kernel
+   (`ops/csrc/ssd_scan_bwd.cu`) against `_PlainScanBwd` at the training
+   shape ([8, 1024, 16], S = H = 64, chunk 64) with a packed batch's
+   resets and a padded tail built by `_MaskScanInputs`, then with a
+   nonzero s0 and a cotangent of s_final: every gradient finite, its max
+   |error| over its max |plain| within 1e-4 (printed), two calls bitwise
+   equal; its launch geometry, time, bound and the plain version's time.
+   Then `trainer.main` on DenseLmSsmHybrid as registered (d 1024, 12
+   layers, remat 'full', 8 x 1024 tokens, vocabulary 32,000 tied, random
+   weights from a CPU generator seeded 1234), --max_steps=20: FINISHED
+   holds 20, finite train and eval_test losses, and exactly 10 x (2 x 20
+   + 125) forward scans (remat's recompute runs each mixer again) and 10
+   x 20 backward ones, nothing else; ms/step, tokens/s and peak memory;
+   one more train step profiled (busy against the wall, the scan
+   forward's and backward's shares of busy). DenseLmSsmHybridTiny through
+   the CLI on the card and the CPU as phase 26's DenseLmTiny (within
+   1e-4), the card's run launching both scan kernels. Last the bfloat16
+   half: one DenseLmSsmHybrid train step at fprop_dtype=bfloat16 (finite,
+   not skipped, 20 + 10 scan launches), the tiny twin's bf16 logits card
+   against CPU (phase 24's bar), and the full-width bf16 hybrid through
+   ServingLoop (ragged, 8 requests of 8 tokens: 10 scans and 2 bf16-q
+   ragged launches a step) and GShardDecode (phase 25's requests: 10 x 3
+   scans and 2 x 32 bf16-q flash decodes). Prints the phase's seconds.
+28. Prints the per-kernel JSON line (every kernel and every int8 /
    bfloat16 instantiation, and the bfloat16-q ones; the int8 serving
-   kernels and the sampling kernel with "replaces": null; the scan's and
-   flash decode's times at the hybrid decode's shapes beside their main
-   ones; the xent kernel at DenseLmWord793k's shape with the CLI run's
-   launches), then the result line.
+   kernels, the sampling kernel and the scan's backward with "replaces":
+   null; the scan's and flash decode's times at the hybrid decode's
+   shapes beside their main ones; the xent kernel at DenseLmWord793k's
+   shape with the CLI run's launches), then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -462,6 +485,20 @@ class _Counts:
     return out
 
 
+class _SecondCount:
+  """A wrapper's second launch count (`attr`) seen as its `launches`, as
+  `_Counts` reads and zeroes them."""
+
+  def __init__(self, fn, attr):
+    self.__dict__.update(fn=fn, attr=attr)
+
+  def __getattr__(self, name):
+    return getattr(self.fn, self.attr if name == "launches" else name)
+
+  def __setattr__(self, name, value):
+    setattr(self.fn, self.attr if name == "launches" else name, value)
+
+
 def _MakeCounts(rba, ssd, fa, fx, bd, fd, im, st):
   """Every counted kernel of the port, by name (`_Counts`)."""
   # float32 launches of the kernels with per-dtype instantiations count
@@ -479,6 +516,7 @@ def _MakeCounts(rba, ssd, fa, fx, bd, fd, im, st):
                                           bf16q("float32")),
       ragged_block_attend_q_bf16_int8pool=(rba.RaggedAttend, bf16q("int8")),
       ssd_scan=(ssd.SsdScan, None),
+      ssd_scan_bwd=(_SecondCount(ssd.SsdScan, "bwd_launches"), None),
       flash_attention_fwd=(fa.FlashForward, "float32"),
       flash_attention_fwd_bf16=(fa.FlashForward, "bfloat16"),
       flash_attention_dkdv=(fa.FlashDkDv, "float32"),
@@ -565,23 +603,30 @@ def _TimeMs(torch, fn, iters, flush_bytes=64 << 20, waits_as=None):
 def _EnqueueUs(torch, fn, calls=20, reps=20):
   """Host microseconds per call of fn, with the card kept busy by a spin
   of ~10 ms so that every call only enqueues: what a host-bound step pays
-  for each call. The spin covering every batch is checked."""
+  for each call. The spin covering every batch is checked: a batch whose
+  enqueue outlasted its spin (a host that stalled) is run again with the
+  spin doubled, up to three times, and then the run fails."""
   fn()
   torch.cuda.synchronize()
-  total = 0.0
-  for _ in range(reps):
+  total, done, cycles, misses = 0.0, 0, 20_000_000, 0   # ~10 ms at ~2 GHz
+  while done < reps:
     spin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     spin.record()
-    torch.cuda._sleep(20_000_000)   # about 10 ms at ~2 GHz
+    torch.cuda._sleep(cycles)
     end.record()
     t0 = time.perf_counter()
     for _ in range(calls):
       fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    _Check(host_s * 1e3 < spin.elapsed_time(end), "_EnqueueUs: the spin "
-           "ended before the calls were enqueued")
+    if host_s * 1e3 >= spin.elapsed_time(end):
+      misses += 1
+      _Check(misses <= 3, "_EnqueueUs: the spin ended before the calls "
+             f"were enqueued, {misses} times, the last at {cycles} cycles")
+      cycles *= 2
+      continue
     total += host_s
+    done += 1
   return total / (calls * reps) * 1e6
 
 
@@ -3074,19 +3119,22 @@ def _ServedFor(lm):
   return quant_weights.ServingTheta(lm)
 
 
-def _TinyBf16(torch, spi, engine, ragged):
-  """DenseLmTiny at fprop_dtype=bfloat16 on the card against the same
-  weights on the CPU: two packed RaggedSteps' logits (teacher-forced: the
-  second reads what the first wrote) within TWIN_REL, the card at float32
-  activations missing it; then greedy streams of the ragged and legacy
-  engines (bfloat16 pools), how many equal the CPU's printed."""
-  p16 = spi.DenseLmTiny().Task().Set(fprop_dtype=torch.bfloat16)
+def _TinyBf16(torch, spi, engine, ragged, cfg=None):
+  """`cfg` (default DenseLmTiny) at fprop_dtype=bfloat16 on the card
+  against the same weights on the CPU: two packed RaggedSteps' logits
+  (teacher-forced: the second reads what the first wrote) within
+  TWIN_REL, the card at float32 activations missing it; then greedy
+  streams of the ragged and legacy engines (bfloat16 pools), how many
+  equal the CPU's printed."""
+  cfg = cfg or spi.DenseLmTiny()
+  name = type(cfg).__name__
+  p16 = cfg.Task().Set(fprop_dtype=torch.bfloat16)
   cpu_lm = p16.Instantiate(device="cpu")
   cpu_lm.InstantiateVariables(torch.Generator("cpu").manual_seed(1))
   lms = {"cpu": cpu_lm}
-  for name, p in (("cuda", p16), ("cuda f32", spi.DenseLmTiny().Task())):
-    lms[name] = p.Instantiate(device="cuda")
-    lms[name].load_state_dict(cpu_lm.state_dict())
+  for name_, p in (("cuda", p16), ("cuda f32", cfg.Task())):
+    lms[name_] = p.Instantiate(device="cuda")
+    lms[name_].load_state_dict(cpu_lm.state_dict())
   tables = np.arange(16, dtype=np.int32).reshape(4, 4)
   rng = np.random.RandomState(3)
   packs = [(ragged.BuildRaggedRows([1, 9, 0, 4], [0, 0, 1, 0], 16, 9),
@@ -3094,7 +3142,7 @@ def _TinyBf16(torch, spi, engine, ragged):
            (ragged.BuildRaggedRows([1, 3, 1, 4], [1, 9, 0, 4], 16, 9),
             rng.randint(0, 128, size=(1, 16)).astype(np.int32))]
   logits = {}
-  for name, lm in lms.items():
+  for name_, lm in lms.items():
     served = _ServedFor(lm)
     states = lm.InitPagedDecodeState(17, 8, num_slots=4)
     outs = []
@@ -3106,15 +3154,15 @@ def _TinyBf16(torch, spi, engine, ragged):
                                     torch.as_tensor(tables).to(lm.device),
                                     ragged.ToTorch(rows, lm.device))
         outs.append(out[0, torch.as_tensor(rows.valid)].float().cpu())
-    logits[name] = torch.cat(outs)
+    logits[name_] = torch.cat(outs)
   rel = lambda a: float((a - logits["cpu"]).norm() / logits["cpu"].norm())
   gap, ctl = rel(logits["cuda"]), rel(logits["cuda f32"])
-  print(f"DenseLmTiny bf16 twin: two packed steps' logits, card against "
+  print(f"{name} bf16 twin: two packed steps' logits, card against "
         f"CPU: relative error norm {gap:.4g} (bar {TWIN_REL}); the card at "
         f"float32 activations against the CPU at bfloat16: {ctl:.4g}")
-  _Check(gap <= TWIN_REL, f"tiny bf16 logits cuda vs cpu: relative "
+  _Check(gap <= TWIN_REL, f"{name} bf16 logits cuda vs cpu: relative "
          f"{gap} > {TWIN_REL}")
-  _Check(ctl > TWIN_REL, f"tiny bf16 control: the card at float32 is "
+  _Check(ctl > TWIN_REL, f"{name} bf16 control: the card at float32 is "
          f"within {TWIN_REL} of the CPU at bfloat16 ({ctl})")
   lens = np.array([5, 13, 21, 8, 2, 30], np.int32)
   prompts = np.random.RandomState(4).randint(1, 128, size=(6, 30)).astype(
@@ -3129,7 +3177,7 @@ def _TinyBf16(torch, spi, engine, ragged):
                for name in ("cpu", "cuda")]
     same[mode] = int(sum(np.array_equal(a, b)
                          for a, b in zip(*streams)))
-  print(f"DenseLmTiny bf16 twin: greedy streams equal to the CPU's "
+  print(f"{name} bf16 twin: greedy streams equal to the CPU's "
         f"(information, not a check): ragged {same['ragged']} of 6, legacy "
         f"{same['legacy']} of 6")
   return gap
@@ -3657,11 +3705,13 @@ def _SsmDecodePhase(torch, ssd, fd, spi, engine, attention, checkpointer,
 W793K = "lm.synthetic_packed_input.DenseLmWord793k"
 
 
-def _StepBusy(torch, step):
+def _StepBusy(torch, step, shares=(("fused xent", ("fusedxent",)),)):
   """One call of step() under torch.profiler, device activity only (a
   step of thousands of small ops makes the host-side records costly):
-  device busy ms against the wall, the xent kernel's and the GEMMs'
-  shares of busy, the top 5 kernels."""
+  device busy ms against the wall, the GEMMs' share of busy and each of
+  `shares` ((label, kernel name keys)), the top 5 kernels. Returns (busy
+  ms, wall ms, {label: share}), or None when the profiler recorded no
+  device time."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3674,16 +3724,18 @@ def _StepBusy(torch, step):
   busy_ms = sum(_DevUs(e) for e in kernels) / 1e3
   if busy_ms == 0:
     print("profiled step: the profiler recorded no device time")
-    return
+    return None
   share = lambda *keys: sum(_DevUs(e) for e in kernels if any(
       k in e.key.lower() for k in keys)) / 1e3 / busy_ms
+  got = {label: share(*keys) for label, keys in shares}
   print(f"profiled one train step: device busy {busy_ms:.1f} ms of "
         f"{wall_ms:.1f} ms wall ({busy_ms / wall_ms:.1%}); GEMMs "
-        f"{share('gemm', 'cutlass', 'nvjet'):.1%}, fused xent "
-        f"{share('fusedxent'):.1%} of busy; "
-        f"{sum(e.count for e in kernels)} kernels")
+        f"{share('gemm', 'cutlass', 'nvjet'):.1%}, "
+        + ", ".join(f"{label} {v:.1%}" for label, v in got.items())
+        + f" of busy; {sum(e.count for e in kernels)} kernels")
   for e in kernels[:5]:
     print(f"  {_DevUs(e) / 1e3:9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+  return busy_ms, wall_ms, got
 
 
 def _CliWord793k(torch, spi, trainer, executor, program, counters, tmp):
@@ -3802,37 +3854,41 @@ def _TinyCliRuns(trainer, key, logdir, device):
   return train, [e["loss"] for e in evals]
 
 
-def _CliTiny(torch, spi, trainer, model_registry, counters, tmp):
-  """DenseLmTiny's shapes and recipe through the CLI on the card and on
-  the CPU (4 steps a loop and 32 eval samples, so that 8 and 16 end
-  loops): train to 8, resume to 16, eval the last checkpoint; each
-  loop's loss and each eval loss within 1e-4 of the CPU's. Launches no
-  hand kernel: flash is off and the head is dense."""
+def _CliTiny(torch, spi, trainer, model_registry, counters, tmp, base=None,
+             launched=()):
+  """`base`'s (default DenseLmTiny's) shapes and recipe through the CLI on
+  the card and on the CPU (4 steps a loop and 32 eval samples, so that 8
+  and 16 end loops): train to 8, resume to 16, eval the last checkpoint;
+  each loop's loss and each eval loss within 1e-4 of the CPU's. The
+  card's run launches each kernel of `launched` and no other (DenseLmTiny
+  none: flash is off and the head is dense)."""
+  base = base or spi.DenseLmTiny
 
-  class DenseLmTinyLoop4(spi.DenseLmTiny):
-    def Task(self):
-      p = super().Task()
-      p.train.tpu_steps_per_loop = 4
-      p.eval.samples_per_summary = 32
-      return p
+  def _Task(self):
+    p = base.Task(self)
+    p.train.tpu_steps_per_loop = 4
+    p.eval.samples_per_summary = 32
+    return p
 
+  name = f"{base.__name__}Loop4"
   key = model_registry.RegisterSingleTaskModel(
-      DenseLmTinyLoop4)._registry_key
+      type(name, (base,), {"Task": _Task}))._registry_key
   counters.Zero()
-  got = _TinyCliRuns(trainer, key, os.path.join(tmp, "tiny_cuda"), "cuda")
+  got = _TinyCliRuns(trainer, key, os.path.join(tmp, f"{name}_cuda"), "cuda")
   launches = counters.Read()
-  want = _TinyCliRuns(trainer, key, os.path.join(tmp, "tiny_cpu"), "cpu")
-  _Check(not any(launches.values()), f"tiny: launches {launches}")
+  want = _TinyCliRuns(trainer, key, os.path.join(tmp, f"{name}_cpu"), "cpu")
+  _Check(all((v > 0) == (k in launched) for k, v in launches.items()),
+         f"{name}: launches {launches}, want only {launched}")
   _Check(sorted(got[0]) == sorted(want[0]) == [4, 8, 12, 16],
-         f"tiny: train rows {got[0]} vs {want[0]}")
+         f"{name}: train rows {got[0]} vs {want[0]}")
   err = max([abs(got[0][s] - want[0][s]) for s in want[0]] +
             [abs(a - b) for a, b in zip(got[1], want[1])])
   _Check(len(got[1]) == len(want[1]) == 5 and err <= 1e-4,
-         f"tiny: card {got} vs CPU {want}, max err {err}")
-  print(f"DenseLmTiny (4 steps a loop) through the CLI, card vs CPU: train "
+         f"{name}: card {got} vs CPU {want}, max err {err}")
+  print(f"{name} (4 steps a loop) through the CLI, card vs CPU: train "
         f"to 8, resume to 16, eval: train losses {got[0]}, eval losses "
-        f"{got[1]}; max |card - CPU| {err:.3g} (tol 1e-4); no kernel "
-        f"launched")
+        f"{got[1]}; max |card - CPU| {err:.3g} (tol 1e-4); launches "
+        f"{ {k: v for k, v in launches.items() if v} or 'none'}")
   return err
 
 
@@ -3865,6 +3921,319 @@ def _CliPhase(torch, fx, spi, counters):
                                tmp)
   print(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
   return xent, dict(cli, launches=launches)
+
+
+# -- phase 27: the hybrid's training ------------------------------------------
+
+
+HYBRID_KEY = "lm.synthetic_packed_input.DenseLmSsmHybrid"
+# the scan's backward kernel against `_PlainScanBwd`: each gradient's max
+# |error| over its max |plain|. float32: the two sum the chunk products,
+# the reverse state and d decay_log's row and column sums in other orders
+SCAN_BWD_TOL = 1e-4
+SCAN_SHARES = (("scan forward", ("ssdscankernel",)),
+               ("scan backward", ("ssdscanbwd",)))
+
+
+def _ScanBwdFlops(t, q, s_dim, h):
+  """Operations one row's scan backward needs over t steps in chunks of
+  q: per chunk of qc steps, the two state sweeps (each chunk's S_in
+  recomputed, dS carried back), dy S_in, b dS_out^T and v dS_out, 2 qc S
+  H each, and the causal lower triangle (diagonal included) of the five
+  qc x qc products (c b^T, dy v^T, (G o L) b, (scores o L)^T dy and (G o
+  L)^T c), qc (qc + 1) / 2 (3 S + 2 H) FMAs. Nothing is skipped: an
+  identity chunk still passes dS and gives dc."""
+  total = 0
+  for start in range(0, t, q):
+    qc = min(q, t - start)
+    total += 2 * (5 * qc * s_dim * h
+                  + qc * (qc + 1) // 2 * (3 * s_dim + 2 * h))
+  return total
+
+
+def _PackedScan(torch, ssm, rng, with_s0):
+  """The scan's inputs at the hybrid's training shape ([8, 1024, 16], S =
+  H = 64) as `GatedSSMLayer._MaskScanInputs` builds them from a packed
+  batch: in row r segments start at 0, 300 + 17 r and 700 + 9 r (resets),
+  and its last 64 + 8 r steps are padding. A random cotangent of y;
+  with_s0: a nonzero s0 and a cotangent of s_final. Returns ([dl, b, c,
+  v, s0, dy, ds_fin] on the card, the bytes the backward must move: each
+  input read once, each gradient written once)."""
+  b, t, n, s, h = 8, 1024, 16, 64, 64
+  cuda = lambda a: torch.as_tensor(np.asarray(a, np.float32)).cuda()
+  dl = cuda(-np.logaddexp(rng.randn(b, t, n), 0.0))
+  b_in, c_in = (cuda(0.5 * rng.randn(b, t, n, s)) for _ in range(2))
+  v = cuda(0.5 * rng.randn(b, t, n, h))
+  dy = cuda(rng.randn(b, t, n, h))
+  seg = np.ones((b, t), np.int32)
+  pad = np.zeros((b, t), np.float32)
+  for r in range(b):
+    seg[r, 300 + 17 * r:] = 2
+    seg[r, 700 + 9 * r:] = 3
+    pad[r, t - 64 - 8 * r:] = 1.0
+    seg[r, t - 64 - 8 * r:] = 0
+  dl, v = ssm.GatedSSMLayer._MaskScanInputs(
+      dl, v, cuda(pad), torch.as_tensor(seg).cuda())
+  s0 = cuda(0.2 * rng.randn(b, n, h, s)) if with_s0 else None
+  ds_fin = cuda(0.5 * rng.randn(b, n, h, s)) if with_s0 else None
+  x = [dl, b_in, c_in, v, s0, dy, ds_fin]
+  read = sum(a.numel() for a in x if a is not None)
+  written = sum(a.numel() for a in (dl, b_in, c_in, v, s0) if a is not None)
+  return x, (read + written) * 4
+
+
+def _CheckScanBwd(torch, ssd, ssm, label, rng, with_s0, time_it):
+  """The backward kernel against `_PlainScanBwd` on the card at the
+  training shape (`_PackedScan`): every gradient finite and within
+  SCAN_BWD_TOL, two calls bitwise equal; with time_it, the kernel's and
+  the plain version's times beside the bound."""
+  x, moved = _PackedScan(torch, ssm, rng, with_s0)
+  args = (*x, 64)
+  got = ssd._CudaScanBwd(*args)
+  again = ssd._CudaScanBwd(*args)
+  want = ssd._PlainScanBwd(*args)
+  torch.cuda.synchronize()
+  _Check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
+         f"scan backward {label}: two calls differ bitwise")
+  errs, rels = [], []
+  for name, g, w in zip(("d decay_log", "d b_in", "d c_in", "d v", "d s0"),
+                        got, want):
+    if w is None:
+      _Check(g is None, f"scan backward {label}: {name} without s0")
+      continue
+    _Check(bool(torch.isfinite(g).all()),
+           f"scan backward {label} {name}: non-finite")
+    err, top = float((g - w).abs().max()), float(w.abs().max())
+    rel = err / top if top > 0 else err
+    print(f"scan backward {label} {name}: max |err| {err:.3g} / max |plain| "
+          f"{top:.3g} = {rel:.3g} (tol {SCAN_BWD_TOL})")
+    _Check(rel <= SCAN_BWD_TOL, f"scan backward {label} {name}: {rel} > "
+           f"{SCAN_BWD_TOL}")
+    errs.append(err)
+    rels.append(rel)
+  del got, again, want
+  geo = ssd.BwdGeometry(1024, 64, 64, 64)
+  print(f"scan backward {label}: two calls bitwise equal; {geo['chunks']} "
+        f"chunks of {geo['q']} a row; sweep kernel {2 * 128 * 2} blocks "
+        "(each way, 128 rows, 2 slices of 32 state rows) of 128 threads, "
+        f"{geo['sweep_smem']} B shared, {geo['sweep_regs']} registers, "
+        f"{geo['sweep_local']} B local; chunk kernel {128 * geo['chunks']} "
+        f"blocks of 256 threads, {geo['chunk_smem']} B shared (tiles "
+        f"{'staged' if geo['full'] else 'read from device memory'}), "
+        f"{geo['chunk_regs']} registers, {geo['chunk_local']} B local, "
+        f"{geo['per_sm']} blocks resident per SM")
+  res = dict(err=max(errs), rel=max(rels), geometry=geo)
+  if time_it:
+    ms = _TimeMs(torch, lambda: ssd._CudaScanBwd(*args), 20)
+    plain_ms = _TimeMs(torch, lambda: ssd._PlainScanBwd(*args), 3,
+                       waits_as="plain scan backward")
+    flops = _ScanBwdFlops(1024, 64, 64, 64) * 8 * 16
+    bound = _Bound(moved, flops)
+    print(f"scan backward {label} [8, 1024, 16] S=64 H=64 chunk 64: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]}; {flops / 1e9:.3f} GFLOP, {moved / 1e6:.1f} MB; "
+          f"{_BoundShare(ms, bound[0])})")
+    res.update(ms=ms, plain_ms=plain_ms, bound=bound)
+  return res
+
+
+def _CliHybrid(torch, spi, trainer, executor, program, counters, tmp):
+  """trainer.main on DenseLmSsmHybrid as registered (remat 'full', 20
+  steps a loop, 125 eval batches of 8), --max_steps=20, on the card, with
+  the kernel counts set to 0 just before: FINISHED holds 20,
+  metrics.jsonl has finite train and eval_test losses, and the scan
+  kernels launched exactly 10 x (2 x 20 + 125) forward (remat 'full'
+  runs each mixer's forward again in the backward) and 10 x 20 backward,
+  nothing else. Then one more train step of the same task under
+  torch.profiler. Returns (the launches, the run's numbers)."""
+  import shutil
+  cfg = spi.DenseLmSsmHybrid()
+  logdir = os.path.join(tmp, "hybrid")
+  captured, start = [], executor.ExecutorTpu.Start
+
+  def _Start(ex):
+    captured.append(ex)
+    captured.append(start(ex))
+    return captured[-1]
+
+  executor.ExecutorTpu.Start = _Start
+  try:
+    torch.cuda.synchronize()
+    counters.Zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = trainer.main([f"--model={HYBRID_KEY}", f"--logdir={logdir}",
+                       "--mode=train", "--max_steps=20"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.Read()
+  finally:
+    executor.ExecutorTpu.Start = start
+  peak = torch.cuda.max_memory_allocated()
+  with open(os.path.join(logdir, "train", "FINISHED")) as f:
+    finished = f.read()
+  with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+  _Check(rc == 0 and finished == "20", f"rc {rc}, FINISHED {finished!r}")
+  _Check([r["step"] for r in rows] == [20] and all(
+      np.isfinite(rows[0][k]["loss"]) for k in ("train", "eval_test")),
+         f"metrics.jsonl rows {rows}")
+  want = dict.fromkeys(counters, 0)
+  want["ssd_scan"] = 10 * (2 * 20 + 125)
+  want["ssd_scan_bwd"] = 10 * 20
+  _Check(launches == want, f"launches {launches} != {want}")
+  ex, state = captured
+  task, train = ex.task, rows[0]["train"]
+  ms = 1e3 / train["steps_per_second"]
+  tokens = cfg.BATCH_SIZE * cfg.SEQUENCE_LENGTH
+  print(f"DenseLmSsmHybrid through trainer.main: "
+        f"{sum(x.numel() for x in task.parameters()):,} params, remat "
+        f"{task.p.remat_policy!r}, {wall:.1f} s in all; the loop of 20 "
+        f"steps {ms:.1f} ms/step from its dispatch to its end "
+        f"({tokens / ms * 1e3:.0f} tokens/s, {train['host_overhead_s']:.2f}"
+        f" s of host dispatch), loss {train['loss']:.4f}, grad_norm "
+        f"{train['grad_norm']:.4f}, skipped {train['skipped_step']}; "
+        f"eval_test (125 batches) loss {rows[0]['eval_test']['loss']:.4f}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+  print(f"launches in the CLI run: {launches} (a train step: 10 scans "
+        "forward, 10 again in remat's recompute, 10 backward; an eval "
+        "batch: 10 forward)")
+  prog = program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=1,
+                                        async_infeed=False),
+      task=task, input_generator=cfg.Train().Instantiate())
+  t0 = time.perf_counter()
+  busy = _StepBusy(torch, lambda: prog.Run(state), shares=SCAN_SHARES)
+  print(f"the profiled step took {time.perf_counter() - t0:.1f} s with the "
+        "profiler's own work")
+  del captured, ex, task, prog, state
+  shutil.rmtree(logdir)
+  gc.collect()
+  torch.cuda.empty_cache()
+  return launches, dict(ms_step=ms, tokens_s=tokens / ms * 1e3, peak=peak,
+                        wall=wall, busy=busy, loss=train["loss"])
+
+
+def _HybridBf16(torch, spi, program, engine, ragged, attention, checkpointer,
+                gshard, counters, tmp):
+  """The bfloat16 half: one DenseLmSsmHybrid train step at fprop_dtype=
+  bfloat16 (finite loss and grad_norm, no skipped step, 20 + 10 scan
+  launches); the tiny twin on the card against the CPU (`_TinyBf16`);
+  the full-width bf16 hybrid through ServingLoop (ragged, 8 requests, 8
+  new tokens each) and GShardDecode (phase 25's requests and geometry),
+  with exact launch counts. Returns what the phase prints."""
+  cfg = spi.DenseLmSsmHybrid()
+  bf16 = torch.bfloat16
+  lm = cfg.Task().Set(fprop_dtype=bf16).Instantiate(device="cuda")
+  state = lm.CreateTrainState(torch.Generator("cuda").manual_seed(0))
+  prog = program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=1,
+                                        async_infeed=False),
+      task=lm, input_generator=cfg.Train().Instantiate())
+  torch.cuda.synchronize()
+  counters.Zero()
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  _, out = prog.Run(state)
+  torch.cuda.synchronize()
+  step_s = time.perf_counter() - t0
+  launches = counters.Read()
+  _Check(np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"])
+         and out["skipped_step"] == 0, f"bf16 hybrid step: {out}")
+  want = dict.fromkeys(counters, 0)
+  want.update(ssd_scan=20, ssd_scan_bwd=10)
+  _Check(launches == want, f"bf16 hybrid step: launches {launches} != "
+         f"{want}")
+  print(f"DenseLmSsmHybrid at fprop_dtype=bfloat16, one train step (the "
+        f"task's first, warm-up included): {step_s:.2f} s, loss "
+        f"{out['loss']:.4f}, grad_norm {out['grad_norm']:.4f}, skipped "
+        f"{out['skipped_step']}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+  del lm, state, prog
+  gc.collect()
+  torch.cuda.empty_cache()
+  twin = _TinyBf16(torch, spi, engine, ragged, cfg=spi.DenseLmSsmHybridTiny())
+  lm16 = _ServingLm(torch, cfg, fprop_dtype=bf16)
+  serve = _ServeMain(torch, cfg, engine, counters,
+                     dict(ssd_scan=10, ragged_block_attend_q_bf16=2),
+                     lm=lm16, max_new=8, profile=False)
+  del lm16
+  gc.collect()
+  torch.cuda.empty_cache()
+  p = cfg.Task().Set(fprop_dtype=bf16)
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      decode_page_size=128)
+  lm = p.Instantiate(device="cuda")
+  lm.InstantiateVariables(torch.Generator("cuda").manual_seed(0))
+  ckdir = os.path.join(tmp, "hybrid_bf16")
+  checkpointer.Checkpointer(ckdir).Save(1, lm, force=True)
+  arr, lens = _HybridRequests(cfg.VOCAB_SIZE)
+  decoder = gshard.GShardDecode(
+      lm, ckdir, os.path.join(tmp, "hybrid_bf16.jsonl"),
+      max_decode_steps=HYBRID_STEPS, prefill_chunk_size=HYBRID_CHUNK,
+      len_buckets=(HYBRID_BUCKET,))
+  torch.cuda.synchronize()
+  counters.Zero()
+  recs = decoder.DecodeOnce(1, arr, lens)
+  decode_launches = counters.Read()
+  want = dict.fromkeys(counters, 0)
+  want.update(ssd_scan=10 * (HYBRID_BUCKET // HYBRID_CHUNK),
+              flash_decode_q_bf16=2 * HYBRID_STEPS)
+  _Check(decode_launches == want, f"bf16 hybrid GShardDecode launches "
+         f"{decode_launches} != {want}")
+  out_ids = np.array([r["output_ids"] for r in recs])
+  _Check(out_ids.shape == (8, HYBRID_STEPS) and ((out_ids >= 0) & (
+      out_ids < cfg.VOCAB_SIZE)).all(), f"bf16 hybrid decode: {out_ids}")
+  tel = recs[0]["telemetry"]
+  print(f"DenseLmSsmHybrid GShardDecode at bfloat16 ({tel['kv_cache_dtype']}"
+        f" cache, the task's first call): prefill_s {tel['prefill_s']:.3f}, "
+        f"decode_s {tel['decode_s']:.3f}, launches "
+        f"{ {k: v for k, v in decode_launches.items() if v} }, "
+        f"decode_state_bytes_per_seq {tel['decode_state_bytes_per_seq']}")
+  del lm, decoder
+  gc.collect()
+  torch.cuda.empty_cache()
+  return dict(step_launches=launches, step_s=step_s, loss=out["loss"],
+              twin_gap=twin, serve_launches=serve[0], serve_ms=serve[3],
+              decode_launches=decode_launches)
+
+
+def _HybridTrainPhase(torch, ssd, spi, engine, ragged, attention,
+                      checkpointer, gshard, counters):
+  """Phase 27 (see the module docstring). Returns (the backward kernel's
+  two checks, the CLI run's launches and numbers, the bf16 half)."""
+  from lingvo_tpu_torch import model_registry
+  from lingvo_tpu_torch import trainer
+  from lingvo_tpu_torch.core import ssm
+  from lingvo_tpu_torch.runners import executor
+  from lingvo_tpu_torch.runners import program
+  t_phase = time.perf_counter()
+  print("scan backward library_ms: null (no single PyTorch call computes "
+        "the gradient of a gated chunked linear recurrence); it replaces "
+        "no pallas_call (the reference's backward is an XLA recompute)")
+  rng = np.random.RandomState(27)
+  bwd = _CheckScanBwd(torch, ssd, ssm, "training", rng, False, True)
+  bwd_s0 = _CheckScanBwd(torch, ssd, ssm, "training, s0 and a cotangent "
+                         "of s_final", rng, True, False)
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 27: the kernel checks took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+  with tempfile.TemporaryDirectory() as tmp:
+    launches, cli = _CliHybrid(torch, spi, trainer, executor, program,
+                               counters, tmp)
+    print(f"phase 27: DenseLmSsmHybrid through the CLI took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    cli["tiny_err"] = _CliTiny(
+        torch, spi, trainer, model_registry, counters, tmp,
+        base=spi.DenseLmSsmHybridTiny, launched=("ssd_scan", "ssd_scan_bwd"))
+    print(f"phase 27: the tiny twin took {time.perf_counter() - t_phase:.1f}"
+          " s")
+    bf16 = _HybridBf16(torch, spi, program, engine, ragged, attention,
+                       checkpointer, gshard, counters, tmp)
+  print(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
+  return bwd, bwd_s0, dict(cli, launches=launches), bf16
 
 
 def main():
@@ -3910,9 +4279,9 @@ def main():
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
   _Phase("2. build kernels (one nvcc per source, in parallel)")
-  sources = ("ragged_block_attend", "ssd_scan", "flash_attention",
-             "fused_xent", "block_decode", "flash_decode", "int8_matmul",
-             "sample_tokens")
+  sources = ("ragged_block_attend", "ssd_scan", "ssd_scan_bwd",
+             "flash_attention", "fused_xent", "block_decode", "flash_decode",
+             "int8_matmul", "sample_tokens")
 
   def _Build(name):
     t0 = time.perf_counter()
@@ -4362,7 +4731,14 @@ def main():
          "then DenseLmWord793k and DenseLmTiny through trainer.main")
   xent793, cli = _CliPhase(torch, fx, spi, counters)
 
-  _Phase("27. result")
+  _Phase("27. the hybrid's training: the scan's backward kernel, then "
+         "DenseLmSsmHybrid through trainer.main, its tiny twin card vs "
+         "CPU, and the bfloat16 half")
+  bwd, bwd_s0, hyb, hyb16 = _HybridTrainPhase(
+      torch, ssd, spi, engine, ragged, attention, checkpointer, gshard,
+      counters)
+
+  _Phase("28. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -4404,7 +4780,29 @@ def main():
       "decode_prefill_bound_by": [r["live_bound"][1]
                                   for r in ssm_decode["scans"]],
       "gshard_hybrid_launches": ssm_decode["launches"]["ssd_scan"],
-      "gshard_pure_ssm_launches": pure_ssm[16][0]["ssd_scan"]}]
+      "gshard_pure_ssm_launches": pure_ssm[16][0]["ssd_scan"],
+      # the hybrid's training through trainer.main (phase 27)
+      "train_cli_launches": hyb["launches"]["ssd_scan"]}, {
+      "name": "ssd_scan_bwd", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/ssd_scan_bwd.cu",
+      "replaces": None,
+      "note": ("replaces no pallas_call: the reference's backward "
+               "_PallasScanBwd (lingvo_tpu/ops/ssd_scan.py:260) is the VJP "
+               "of its XLA chunked path, recomputed"),
+      "launches": hyb["launches"]["ssd_scan_bwd"],
+      "max_abs_err": max(bwd["err"], bwd_s0["err"]),
+      "max_err_over_max_plain": max(bwd["rel"], bwd_s0["rel"]),
+      "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+      "bound_ms": bwd["bound"][0], "bound_by": bwd["bound"][1],
+      "library_ms": None,
+      "registers": [bwd["geometry"]["sweep_regs"],
+                    bwd["geometry"]["chunk_regs"]],
+      "local_bytes": [bwd["geometry"]["sweep_local"],
+                      bwd["geometry"]["chunk_local"]],
+      "bf16_step_launches": hyb16["step_launches"]["ssd_scan_bwd"],
+      "shape": ("[8, 1024, 16], S = H = 64, chunk 64: DenseLmSsmHybrid's "
+                "training shape, packed resets and a padded tail; launches "
+                "from its 20 train steps through trainer.main")}]
   for name, res, line in (("flash_attention_fwd", flash["fwd"], 230),
                           ("flash_attention_dkdv", flash["dkdv"], 368),
                           ("flash_attention_dq", flash["dq"], 408)):

@@ -194,7 +194,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     if isinstance(th.w_post, quant_utils.Int8Weight):
       out = th.w_post.Einsum(ctx)
     else:
-      out = _Einsum("btnh,dnh->btd", ctx, th.w_post)
+      out = py_utils.Einsum("btnh,dnh->btd", ctx, th.w_post)
     return out + th.b_post
 
   # -- training forward --------------------------------------------------------
@@ -209,7 +209,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     bfloat16 ones. The probabilities are rounded to q's dtype."""
     p = self.p
     # in the inputs' dtype, then float32 from the mask on (reference order)
-    logits = _Einsum("btnh,bsnh->bnts", q, k)
+    logits = py_utils.Einsum("btnh,bsnh->bnts", q, k)
     if p.atten_logit_cap > 0:
       cap = py_utils.WeakScalar(p.atten_logit_cap, logits)
       logits = cap * py_utils.Tanh(logits / cap)
@@ -220,7 +220,7 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     # fully masked queries); the clamp keeps rows finite
     logits = torch.clamp(logits, min=_NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return _Einsum("bnts,bsnh->btnh", probs, v), probs
+    return py_utils.Einsum("bnts,bsnh->btnh", probs, v), probs
 
   def _OnCard(self) -> bool:
     """The layer runs the CUDA kernels: the gates then also hold its shapes
@@ -696,14 +696,6 @@ def _ReadCache(states, sl):
     return (kv_quant.DequantKv(k, states.key_scale[:, sl]),
             kv_quant.DequantKv(v, states.value_scale[:, sl]))
   return k, v
-
-
-def _Einsum(equation, a, b):
-  """torch.einsum with the reference's promotion of mixed float dtypes
-  (JAX's, and PyTorch's for elementwise ops): both operands in their
-  promoted dtype, bfloat16 with float32 giving float32."""
-  dtype = torch.promote_types(a.dtype, b.dtype)
-  return torch.einsum(equation, a.to(dtype), b.to(dtype))
 
 
 def _TileKeep(sl, qpos, paddings):

@@ -167,6 +167,14 @@ def MaybeBfloat16(x: torch.Tensor, fprop_dtype) -> torch.Tensor:
   return x
 
 
+def Einsum(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """torch.einsum with the reference's promotion of mixed float dtypes
+  (JAX's, and PyTorch's for elementwise ops): both operands in their
+  promoted dtype, bfloat16 with float32 giving float32."""
+  dtype = torch.promote_types(a.dtype, b.dtype)
+  return torch.einsum(equation, a.to(dtype), b.to(dtype))
+
+
 def WeakScalar(value: float, like: torch.Tensor):
   """A Python scalar as the reference's weakly typed one meets `like`:
   JAX rounds it to a bfloat16 tensor's dtype first, torch would multiply

@@ -33,6 +33,11 @@ The GShardDecode contract (`InitStates`, `ExtendStep`, `Prefill`) keeps
 one [B, N, H, S] state per sequence and a host-int time_step; both steps
 also write the state in place, for the same reason.
 
+Activations at fprop_dtype=bfloat16 follow the reference's casts: the
+projections and the output projection run in bfloat16, the scan, its
+inputs, the gate, the norm and every state in float32 (so a state's
+bytes do not depend on the fprop dtype).
+
 Not ported yet (raise, naming the slice): the speculative-decoding
 column states (`collect_col_states`, `col_parent`). Not supported, as in
 the reference: cross-attention inputs, additive attention masks and
@@ -75,10 +80,6 @@ class GatedSSMLayer(base_layer.BaseLayer):
     super().__init__(params, device)
     p = self.p
     assert p.input_dim > 0 and p.num_heads > 0
-    if self.fprop_dtype != torch.float32:
-      raise NotImplementedError(
-          "bfloat16 activations in the SSM mixer come with its training "
-          "slice (ROADMAP item 9.1); the mixer runs float32")
     hidden = p.hidden_dim or p.input_dim
     self._dim_per_head = p.dim_per_head or hidden // p.num_heads
     n, h, s, d = p.num_heads, self._dim_per_head, p.state_dim, p.input_dim
@@ -113,32 +114,38 @@ class GatedSSMLayer(base_layer.BaseLayer):
 
   def _Project(self, x):
     """x: [B, T, D] -> (decay_log [B, T, N], b, c [B, T, N, S], v, gate
-    [B, T, N, H]), all float32."""
-    v = torch.einsum("btd,dnh->btnh", x, self.w_v)
-    gate = torch.einsum("btd,dnh->btnh", x, self.w_gate)
+    [B, T, N, H]), all float32. The projections run in the fprop dtype
+    (v and gate with their biases), then widen, as in the reference."""
+    th = self.CastTheta()
+    v = py_utils.Einsum("btd,dnh->btnh", x, th.w_v)
+    gate = py_utils.Einsum("btd,dnh->btnh", x, th.w_gate)
     if self.p.use_bias:
-      v = v + self.b_v
-      gate = gate + self.b_gate
-    b = torch.einsum("btd,dns->btns", x, self.w_b)
-    c = torch.einsum("btd,dns->btns", x, self.w_c)
-    dt_raw = torch.einsum("btd,dn->btn", x, self.w_dt) + self.b_dt
-    rate = torch.exp(self.a_log)
+      v = v + th.b_v
+      gate = gate + th.b_gate
+    b = py_utils.Einsum("btd,dns->btns", x, th.w_b).float()
+    c = py_utils.Einsum("btd,dns->btns", x, th.w_c).float()
+    dt_raw = (py_utils.Einsum("btd,dn->btn", x, th.w_dt).float()
+              + th.b_dt.float())
+    rate = torch.exp(th.a_log.float())
     # jax.nn.softplus is logaddexp(x, 0)
     decay_log = -torch.logaddexp(dt_raw, torch.zeros_like(dt_raw)) * rate
-    return decay_log, b, c, v, gate
+    return decay_log, b, c, v.float(), gate.float()
 
   def _Finish(self, y, v, gate):
     """Skip + gate + per-head RMS norm + output projection.
 
-    y/v/gate: [B, T, N, H] -> [B, T, D]."""
-    y = y + self.d_skip[:, None] * v
+    y/v/gate: [B, T, N, H] float32 -> [B, T, D] in the fprop dtype: the
+    gate and the norm run in float32, the output projection and its bias
+    in the fprop dtype."""
+    th = self.CastTheta()
+    y = y + th.d_skip.float()[:, None] * v
     y = y * torch.nn.functional.silu(gate)
     var = torch.mean(torch.square(y), dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-6)
-    y = y * (1.0 + self.norm_scale)
-    out = torch.einsum("btnh,dnh->btd", y, self.w_post)
+    y = y * (1.0 + th.norm_scale.float())
+    out = py_utils.Einsum("btnh,dnh->btd", y.to(self.fprop_dtype), th.w_post)
     if self.p.use_bias:
-      out = out + self.b_post
+      out = out + th.b_post
     return out
 
   @staticmethod

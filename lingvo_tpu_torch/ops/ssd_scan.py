@@ -46,10 +46,23 @@ Masking contract (the caller, `core/ssm.py`, prepares the inputs):
   a chunk stay O(100), so within-segment decay differences are not absorbed
   as they would be by a -1e30 sentinel.
 
-The backward (the reference's `_PallasScanBwd`, the VJP of the chunked
-path) comes with the hybrid training slice of the port. On the CPU the
-plain versions are differentiable by autograd; a CUDA call with inputs
-that require grad, under grad mode, raises.
+The backward. The reference binds its Pallas forward to a
+`jax.custom_vjp` whose backward `_PallasScanBwd` is the VJP of the XLA
+chunked path, recomputed from the saved inputs. Here:
+- a CPU call is differentiable by autograd through the plain versions;
+  `_PlainScanBwd` is that VJP taken from saved inputs, the reference's
+  `_PallasScanBwd` op for op, and the backward kernel's yardstick on the
+  card;
+- a CUDA call under grad mode whose inputs require grad goes through
+  `_ScanFn`, a `torch.autograd.Function`: its forward is the forward
+  kernel, it saves (decay_log, b_in, c_in, v, s0), and its backward
+  launches the hand backward kernel `ops/csrc/ssd_scan_bwd.cu` (a state
+  sweep each way, then every (row, chunk) at once), counted in
+  `SsdScan.bwd_launches`. It takes the cotangents of y and s_final (a
+  missing one counts as zeros) and returns the gradients of decay_log,
+  b_in, c_in, v and, when given, s0. It launches or raises: it never
+  takes the plain path. Without grad a CUDA call launches the forward
+  kernel alone.
 """
 
 from __future__ import annotations
@@ -248,6 +261,144 @@ def _CudaScan(decay_log, b_in, c_in, v, s0, chunk_size):
   return y, s_fin
 
 
+# -- the gradient ------------------------------------------------------------
+
+
+def _PlainScanBwd(decay_log, b_in, c_in, v, s0, dy, ds_fin, chunk_size):
+  """The reference's `_PallasScanBwd` op for op: the VJP of the plain
+  chunked path, recomputed from the saved inputs by autograd. Tensors as
+  `SsdScan` takes them; dy [B, T, N, H] and ds_fin [B, N, H, S] the
+  cotangents of y and s_final (ds_fin None: zeros). Returns (d decay_log,
+  d b_in, d c_in, d v, d s0 or None when s0 is None)."""
+  with torch.enable_grad():
+    leaves = [x.detach().requires_grad_(True)
+              for x in (decay_log, b_in, c_in, v)
+              + ((s0,) if s0 is not None else ())]
+    y, s_fin = SsdScan(*leaves[:4], s0=leaves[4] if s0 is not None else None,
+                       chunk_size=chunk_size, lowering="chunked")
+    outs, cots = [y], [dy]
+    if ds_fin is not None:
+      outs.append(s_fin)
+      cots.append(ds_fin)
+    grads = torch.autograd.grad(outs, leaves, cots)
+  return tuple(grads) + ((None,) if s0 is None else ())
+
+
+_bwd_lib = None   # the backward kernel's library
+
+
+def _BwdLib():
+  global _bwd_lib
+  if _bwd_lib is None:
+    lib = cuda_build.Load("ssd_scan_bwd")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.SsdScanBwdF32.argtypes = [vp] * 14 + [ci] * 6 + [vp]
+    lib.SsdScanBwdF32.restype = ci
+    lib.SsdScanBwdErrorString.argtypes = [ci]
+    lib.SsdScanBwdErrorString.restype = ctypes.c_char_p
+    lib.SsdScanBwdGeometry.argtypes = [ci] * 4 + [ctypes.POINTER(ci)]
+    lib.SsdScanBwdGeometry.restype = ci
+    _bwd_lib = lib
+  return _bwd_lib
+
+
+def BwdChunks(t: int, chunk_size: int) -> tuple[int, int]:
+  """(Q, chunks) of the backward kernel at T = t: the forward's chunk
+  length (T itself when 0 < T < chunk_size) and the chunk count."""
+  q = t if 0 < t < chunk_size else chunk_size
+  return q, (-(-t // q) if t > 0 else 0)
+
+
+def BwdGeometry(t: int, s_dim: int, h: int, chunk_size: int) -> dict:
+  """The built backward kernel's launch at T = t: chunk length `q`,
+  `chunks`, the sweep's and the chunk kernel's dynamic shared bytes,
+  whether the chunk kernel stages every tile (`full`), each kernel's
+  registers and local (spill) bytes per thread, and the chunk kernel's
+  resident blocks per SM."""
+  lib = _BwdLib()
+  geo = (ctypes.c_int * 10)()
+  rc = lib.SsdScanBwdGeometry(t, s_dim, h, chunk_size, geo)
+  if rc != 0:
+    raise RuntimeError("SsdScanBwdGeometry failed: "
+                       + lib.SsdScanBwdErrorString(rc).decode())
+  keys = ("q", "chunks", "sweep_smem", "chunk_smem", "full", "sweep_regs",
+          "sweep_local", "chunk_regs", "chunk_local", "per_sm")
+  return dict(zip(keys, geo))
+
+
+def _CudaScanBwd(decay_log, b_in, c_in, v, s0, dy, ds_fin, chunk_size):
+  """The backward kernel on [B, T, N, ...] tensors as they are: the
+  gradients `_PlainScanBwd` returns. Two state scratches of [B N, chunks,
+  H, S] float32 live for the call."""
+  b, t, n = decay_log.shape
+  s_dim, h = b_in.shape[-1], v.shape[-1]
+  tensors = dict(decay_log=decay_log, b_in=b_in, c_in=c_in, v=v, dy=dy)
+  for name, x in (("s0", s0), ("ds_fin", ds_fin)):
+    if x is not None:
+      tensors[name] = x
+  for name, x in tensors.items():
+    if x.dtype != torch.float32:
+      raise TypeError(f"SsdScan backward kernel takes float32 tensors, "
+                      f"{name} is {x.dtype}")
+    if x.device != decay_log.device:
+      raise ValueError(f"SsdScan backward: {name} on {x.device}, decay_log "
+                       f"on {decay_log.device}")
+    if not x.is_contiguous():
+      raise ValueError(f"SsdScan backward kernel takes contiguous tensors "
+                       f"({name})")
+  for label, d in (("chunk_size", chunk_size), ("state dim", s_dim),
+                   ("head dim", h)):
+    if not 1 <= d <= MAX_DIM:
+      raise ValueError(f"SsdScan backward kernel takes a {label} in [1, "
+                       f"{MAX_DIM}], got {d}")
+  dev = decay_log.device
+  grads = [torch.empty_like(x) for x in (decay_log, b_in, c_in, v)]
+  ds0 = torch.empty_like(s0) if s0 is not None else None
+  if b * n == 0:
+    return (*grads, ds0)
+  _, nc = BwdChunks(t, chunk_size)
+  scratch = torch.empty((2, b * n, nc, h, s_dim), dtype=torch.float32,
+                        device=dev)
+  lib = _BwdLib()
+  ptr = lambda x: x.data_ptr() if x is not None else None
+  rc = lib.SsdScanBwdF32(
+      decay_log.data_ptr(), b_in.data_ptr(), c_in.data_ptr(), v.data_ptr(),
+      ptr(s0), dy.data_ptr(), ptr(ds_fin), *(g.data_ptr() for g in grads),
+      ptr(ds0), scratch[0].data_ptr(), scratch[1].data_ptr(), b, t, n, s_dim,
+      h, chunk_size, torch.cuda.current_stream(dev).cuda_stream)
+  if rc != 0:
+    raise RuntimeError("SsdScan backward kernel launch failed: "
+                       + lib.SsdScanBwdErrorString(rc).decode())
+  SsdScan.bwd_launches += 1
+  return (*grads, ds0)
+
+
+class _ScanFn(torch.autograd.Function):
+  """The kernel scan with its hand backward (the reference's
+  `_PallasScan` custom_vjp pair): forward `_CudaScan`, saving (decay_log,
+  b_in, c_in, v, s0) as `_PallasScanFwd` does; backward `_CudaScanBwd`."""
+
+  @staticmethod
+  def forward(ctx, decay_log, b_in, c_in, v, s0, chunk_size):
+    y, s_fin = _CudaScan(decay_log, b_in, c_in, v, s0, chunk_size)
+    ctx.save_for_backward(decay_log, b_in, c_in, v, s0)
+    ctx.chunk_size = chunk_size
+    ctx.set_materialize_grads(False)
+    return y, s_fin
+
+  @staticmethod
+  def backward(ctx, dy, ds_fin):
+    decay_log, b_in, c_in, v, s0 = ctx.saved_tensors
+    if dy is None:   # only s_final was used: y's cotangent is zeros
+      b, t, n = decay_log.shape
+      dy = torch.zeros((b, t, n, v.shape[-1]), dtype=torch.float32,
+                       device=decay_log.device)
+    grads = _CudaScanBwd(
+        decay_log, b_in, c_in, v, s0, dy.contiguous(),
+        None if ds_fin is None else ds_fin.contiguous(), ctx.chunk_size)
+    return (*grads, None)
+
+
 # -- public entry ------------------------------------------------------------
 
 
@@ -264,7 +415,8 @@ def SsdScan(decay_log, b_in, c_in, v, s0=None, *, chunk_size: int = 64,
     chunked version for CPU tensors), 'chunked' or 'sequential' (the plain
     versions on any device); 'associative' raises.
   Returns (y [B, T, N, H] float32, s_final [B, N, H, S] float32). Each
-  kernel launch counts one in `SsdScan.launches`."""
+  forward kernel launch counts one in `SsdScan.launches`, each backward
+  kernel call (through `_ScanFn`) one in `SsdScan.bwd_launches`."""
   if lowering not in _LOWERINGS:
     raise ValueError(f"lowering must be one of {_LOWERINGS}, got "
                      f"{lowering!r}")
@@ -278,9 +430,7 @@ def SsdScan(decay_log, b_in, c_in, v, s0=None, *, chunk_size: int = 64,
       raise ValueError(f"SsdScan runs on cpu or cuda, not {dev}")
     args = (decay_log, b_in, c_in, v) + ((s0,) if s0 is not None else ())
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-      raise NotImplementedError(
-          "the SsdScan kernel's backward comes with the hybrid training "
-          "slice of the port; run the scan under torch.no_grad()")
+      return _ScanFn.apply(decay_log, b_in, c_in, v, s0, chunk_size)
     return _CudaScan(decay_log, b_in, c_in, v, s0, chunk_size)
   b, t, n = decay_log.shape
   s_dim, h = b_in.shape[-1], v.shape[-1]
@@ -301,4 +451,5 @@ def SsdScan(decay_log, b_in, c_in, v, s0=None, *, chunk_size: int = 64,
   return y, s_fin.reshape(b, n, h, s_dim)
 
 
-SsdScan.launches = 0   # kernel launches (the plain versions count none)
+SsdScan.launches = 0   # forward kernel launches (the plain versions count none)
+SsdScan.bwd_launches = 0   # backward kernel calls (`_CudaScanBwd`)

@@ -18,7 +18,8 @@
   full read bit for bit.
 - The whole LM, the engine and GShardDecode at bfloat16:
   tests/test_torch_bf16_serving_engine.py and test_torch_bf16_decode.py.
-- A hybrid stack still refuses bfloat16 activations (ROADMAP item 9.1).
+- A hybrid stack at bfloat16 (DenseLmSsmHybridTiny): its greedy streams
+  in both step modes equal the JAX engine's; its SSM states stay float32.
 
 The layers' reference runs op by op, where a bfloat16 value is rounded
 wherever its program rounds it; the kernels' twins run as the reference
@@ -34,19 +35,23 @@ import jax.numpy as jnp
 
 from lingvo_tpu.core import attention as jax_attention
 from lingvo_tpu.core import ragged as jax_ragged
+from lingvo_tpu.models.lm.params import synthetic_packed_input as jax_spi
 from lingvo_tpu.ops import block_decode as jax_bd
 from lingvo_tpu.ops import flash_decode as jax_fd
 from lingvo_tpu.ops import ragged_block_attend as jax_rba
+from lingvo_tpu.serving import engine as jax_engine
 from lingvo_tpu_torch import convert
 from lingvo_tpu_torch.core import attention
 from lingvo_tpu_torch.core import ragged
+from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
 from lingvo_tpu_torch.ops import block_decode
 from lingvo_tpu_torch.ops import flash_decode
 from lingvo_tpu_torch.ops import ragged_block_attend as rba
 from lingvo_tpu_torch.quant import kv as kv_quant
+from lingvo_tpu_torch.serving import engine
 
-from tests.conftest import TinyLmParams
-from tests.test_torch_legacy_serving import _PortParams
+from tests.conftest import InstantiateLm
+from tests.test_torch_legacy_serving import _ENGINE_KW, _Noised, _Prompts
 
 BF16 = torch.bfloat16
 POOLS = ["float32", "bfloat16", "int8"]
@@ -328,6 +333,31 @@ def test_bf16_prefill_trimmed_read_equals_full_read(kv_dtype):
 
 
 def test_hybrid_still_refuses_bf16_activations():
-  p = _PortParams(TinyLmParams(every_n=2)).Set(fprop_dtype=BF16)
-  with pytest.raises(NotImplementedError, match="item 9.1"):
-    p.Instantiate(device="cpu")
+  """A hybrid stack takes bfloat16 activations since its mixer's were
+  ported: DenseLmSsmHybridTiny at fprop_dtype=bfloat16 (noised theta,
+  weights float32) serves greedy streams token for token the JAX
+  engine's, in both step modes, with its step counters; its SSM slot
+  states stay float32 (the KV pools bfloat16)."""
+  task, theta = InstantiateLm(jax_spi.DenseLmSsmHybridTiny().Task().Set(
+      fprop_dtype=jnp.bfloat16), seed=5)
+  theta = _Noised(theta, seed=2, scale=0.3)
+  lm = spi.DenseLmSsmHybridTiny().Task().Set(fprop_dtype=BF16).Instantiate(
+      device="cpu")
+  convert.LoadJaxTheta(lm, theta)
+  prompts, lens = _Prompts(task.p.vocab_size)
+  for mode in ("ragged", "legacy"):
+    j_eng = jax_engine.ServingLoop(task, theta, trace=False, step_mode=mode,
+                                   **_ENGINE_KW)
+    want = j_eng.RunBatch(prompts, lens, max_new_tokens=8)
+    eng = engine.ServingLoop(lm, device="cpu", step_mode=mode, **_ENGINE_KW)
+    got = eng.RunBatch(prompts, lens, max_new_tokens=8)
+    np.testing.assert_array_equal(got, want)
+    assert len({tuple(r) for r in want}) > 1
+    stats, j_stats = eng.Stats(), j_eng.Stats()
+    for key in ("steps", "decode_steps", "mixed_steps", "tokens_emitted",
+                "kv_cache_dtype", "kv_bytes_per_token"):
+      assert stats[key] == j_stats[key], key
+    dtypes = {k.rsplit(".", 1)[-1]: v.dtype
+              for k, v in eng._states.FlattenItems()}
+    assert dtypes["state"] == torch.float32
+    assert dtypes["key"] == dtypes["value"] == BF16

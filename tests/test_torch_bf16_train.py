@@ -20,9 +20,10 @@ is the same port model at float32.
   all vector leaves within 1e-3; the control must miss that by 10x and
   break the one-ulp bar in every leaf.
 - `LoadJaxTheta` maps theta leaf for leaf with fprop_dtype set (weights
-  stay float32); the serving entries take a bf16 task and only a hybrid
-  stack refuses one (tests/test_torch_bf16_serving*.py hold bf16 serving
-  against the reference).
+  stay float32); the serving entries take a bf16 task, and the bf16
+  hybrid's GShardDecode continuations equal the reference's
+  (tests/test_torch_bf16_serving*.py hold bf16 serving against the
+  reference).
 """
 
 import math
@@ -36,14 +37,19 @@ import jax
 import jax.numpy as jnp
 
 from lingvo_tpu.core import attention as jax_attention
+from lingvo_tpu.core import checkpointer as jax_checkpointer
 from lingvo_tpu.core.nested_map import NestedMap as JaxNestedMap
+from lingvo_tpu.models.lm.params import synthetic_packed_input as jax_spi
+from lingvo_tpu.runners import gshard_decode as jax_gshard
 from lingvo_tpu_torch import convert
+from lingvo_tpu_torch.core import checkpointer
+from lingvo_tpu_torch.models.lm.params import synthetic_packed_input as spi
 from lingvo_tpu_torch.runners import gshard_decode
 from lingvo_tpu_torch.serving import engine
 
 import tests.conftest as conftest
 from tests import test_torch_train as tt
-from tests.test_torch_legacy_serving import _PortParams
+from tests.test_torch_legacy_serving import _Noised
 
 VECTOR_LEAF = r"\.(b|b_\w+|bias|scale|per_dim_scale)$"   # rank-1 theta leaves
 
@@ -217,8 +223,10 @@ def test_load_jax_theta_with_fprop_dtype_keeps_float32_leaves():
 
 def test_serving_entries_refuse_bf16_activations(tmp_path):
   """Both serving entries take the trained bf16 task (with bfloat16 pools
-  and caches by default); only a stack with SSM mixers refuses bf16
-  activations, in its mixer (ROADMAP item 9.1)."""
+  and caches by default), and so does a stack with SSM mixers: the bf16
+  DenseLmSsmHybridTiny's `GShardDecode` continuations (prefill chunks of
+  3, 8 steps) from one noised theta, restored by each side's own
+  checkpointer, equal the reference decoder's token for token."""
   _, _, port = BF16Lms(False, port_fprop=torch.bfloat16)
   eng = engine.ServingLoop(port, page_size=4, num_pages=8, max_batch=2,
                            max_seq_len=16, device="cpu")
@@ -229,7 +237,31 @@ def test_serving_entries_refuse_bf16_activations(tmp_path):
   decoder = gshard_decode.GShardDecode(port, str(tmp_path),
                                        str(tmp_path / "out"))
   assert decoder._task is port
-  hybrid = conftest.TinyLmParams(every_n=2)
-  with pytest.raises(NotImplementedError, match="item 9.1"):
-    _PortParams(hybrid).Set(fprop_dtype=torch.bfloat16).Instantiate(
-        device="cpu")
+  task, theta = conftest.InstantiateLm(
+      jax_spi.DenseLmSsmHybridTiny().Task().Set(fprop_dtype=jnp.bfloat16),
+      seed=4)
+  theta = _Noised(theta, seed=5, scale=0.3)
+  state = task.CreateTrainState(jax.random.PRNGKey(3))
+  state.theta = jax.tree_util.tree_map(jnp.asarray, theta)
+  ckpt = jax_checkpointer.Checkpointer(str(tmp_path / "jax"))
+  ckpt.Save(1, state, force=True)
+  ckpt.Close()
+  lm = spi.DenseLmSsmHybridTiny().Task().Set(
+      fprop_dtype=torch.bfloat16).Instantiate(device="cpu")
+  convert.LoadJaxTheta(lm, theta)
+  assert checkpointer.Checkpointer(str(tmp_path / "port")).Save(
+      1, lm, lm.CreateTrainState(), force=True)
+  prompts = np.array([[5, 6, 7, 8, 9, 10, 11], [12, 13, 14, 15, 0, 0, 0],
+                      [16, 0, 0, 0, 0, 0, 0]], np.int32)
+  lens = np.array([7, 4, 1], np.int32)
+  kw = dict(max_decode_steps=8, prefill_chunk_size=3)
+  want = jax_gshard.GShardDecode(task, str(tmp_path / "jax"),
+                                 str(tmp_path / "jax.jsonl"), **kw
+                                 ).DecodeOnce(1, prompts, lens)
+  got = gshard_decode.GShardDecode(
+      spi.DenseLmSsmHybridTiny().Task().Set(
+          fprop_dtype=torch.bfloat16).Instantiate(device="cpu"),
+      str(tmp_path / "port"), str(tmp_path / "port.jsonl"), **kw
+  ).DecodeOnce(1, prompts, lens)
+  assert len({tuple(r["output_ids"]) for r in want}) > 1
+  assert [r["output_ids"] for r in got] == [r["output_ids"] for r in want]

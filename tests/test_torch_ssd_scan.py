@@ -27,7 +27,9 @@
   two calls bitwise equal), an identity chunk between live chunks, T =
   1100 (18 chunks: runs of 2 and 3, the two-pass reload), T < Q, Q = 24,
   odd S and H, two h groups, and the built kernel's launch (`ChunkRuns`'
-  split, threads, shared memory, ring stages, h groups). The module
+  split, threads, shared memory, ring stages, h groups); an input that
+  needs grad launches the backward kernel too (its checks:
+  tests/test_torch_ssd_scan_bwd.py). The module
   imports JAX only inside `_Jax`, so on
   a machine with a card and no JAX the kernel cases run alone:
 
@@ -458,11 +460,18 @@ def test_kernel_wrapper_raises(cuda):
   args = _Torch(_Inputs(), "cuda")
   with pytest.raises(ValueError, match="chunk_size in"):
     ssd_scan.SsdScan(*args[:4], chunk_size=256)
+  # an input that needs grad: the forward kernel, then in backward the
+  # backward kernel, one count each; without grad the forward alone
   leaf = args[3].clone().requires_grad_(True)
-  with pytest.raises(NotImplementedError, match="hybrid training slice"):
-    ssd_scan.SsdScan(*args[:3], leaf)
+  before = (ssd_scan.SsdScan.launches, ssd_scan.SsdScan.bwd_launches)
+  y, _ = ssd_scan.SsdScan(*args[:3], leaf)
+  y.sum().backward()
   with torch.no_grad():
     ssd_scan.SsdScan(*args[:3], leaf)
+  torch.cuda.synchronize()
+  assert (ssd_scan.SsdScan.launches, ssd_scan.SsdScan.bwd_launches) == (
+      before[0] + 2, before[1] + 1)
+  assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
   with pytest.raises(ValueError, match="contiguous"):
     ssd_scan.SsdScan(args[0], args[1].transpose(0, 1).contiguous()
                      .transpose(0, 1), args[2], args[3])
