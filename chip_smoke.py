@@ -155,16 +155,19 @@
    bfloat16 cache and the bound.
 16. Quantized serving main path: DenseLmTiny on the card must reproduce
    its CPU streams with int8 pools (ragged and legacy) and bfloat16 pools
-   (ragged); then DenseLm1B with phase 5's weights, geometry and requests
-   through `ServingLoop(kv_cache_dtype=...)`: int8 ragged (exactly 24
-   int8 ragged launches per step, no float32 one), int8 legacy (exactly 24
-   int8 block-decode launches per decode-only step), bfloat16 ragged and
+   (ragged); then DenseLm1B at its full width and 12 of its 24 layers
+   (`SERVE_DEPTH`, for the script's time limit; seeded random weights)
+   with phase 5's geometry and requests through
+   `ServingLoop(kv_cache_dtype=...)`: int8 ragged (exactly 12 int8 ragged
+   launches per step, no float32 one), int8 legacy (exactly 12 int8
+   block-decode launches per decode-only step), bfloat16 ragged and
    bfloat16 legacy, every other count 0 and quantized_steps equal to the
    steps for int8; each step mode first serves float32 pools again, the
    same process's baseline at that point. Prints ms/step, tok/s, peak
    memory, kv_bytes_per_token and pool bytes, the int8 runs' profiles (of
    decode-only steps in legacy mode), and
-   (information only) how many of the 8 streams equal phase 5's.
+   (information only) how many of the 8 streams equal the phase's float32
+   ones.
 17. GShardDecode on quantized caches: DenseLmTiny with a bfloat16 and an
    int8 cache, card against CPU continuations; then DenseLm1B with a
    bfloat16 cache restored from phase 13's checkpoint through `DecodeOnce`
@@ -296,21 +299,22 @@
    widened x (rounded) and the plain versions, timed. Then DenseLmTiny at
    bfloat16 on the card against the CPU: two packed steps' logits within
    TWIN_REL (the card at float32 activations must miss it), and how many
-   greedy streams equal the CPU's (information). Then DenseLm1B at
-   fprop_dtype=bfloat16 with phase 5's weights: the first packed step's
-   logits within a relative L2 gap of 0.1 of the float32 model's; phase
-   5's requests at float32 activations (the baseline of this process),
-   then at bfloat16 through ServingLoop ragged (exactly 24 bfloat16-q
-   ragged launches a step, bfloat16 pools) and legacy (24 bfloat16-q
-   block-decode launches a decode-only step), both profiled (busy,
-   syncs); the shortest request for 8 tokens sampled (T 0.8, top_k 40)
-   over float32 pools, with int8 weights over int8 pools (145 launches of
-   each bfloat16 int8 kernel a step), and legacy over float32 and int8
-   pools: every request completes and every step's logits are finite.
-   GShardDecode from a port checkpoint of the same weights with a
-   bfloat16 cache (3072 bfloat16-q flash-decode launches, 16 steps
-   profiled) and with a float32 cache (3072 of the split and combine
-   kernels' bfloat16-q instantiation). Prints the phase's seconds.
+   greedy streams equal the CPU's (information). Then DenseLm1B at its
+   full width and 12 of its 24 layers (`SERVE_DEPTH`, as phase 16) at
+   fprop_dtype=bfloat16: the first packed step's logits within a relative
+   L2 gap of 0.1 of the float32 model's; phase 5's requests at float32
+   activations (the baseline of this process), then at bfloat16 through
+   ServingLoop ragged (exactly 12 bfloat16-q ragged launches a step,
+   bfloat16 pools) and legacy (12 bfloat16-q block-decode launches a
+   decode-only step), both profiled (busy, syncs); the shortest request
+   for 8 tokens sampled (T 0.8, top_k 40) over float32 pools, with int8
+   weights over int8 pools (73 launches of each bfloat16 int8 kernel a
+   step), and legacy over float32 and int8 pools: every request completes
+   and every step's logits are finite. GShardDecode from a port
+   checkpoint of the same weights with a bfloat16 cache (12 x 128 = 1536
+   bfloat16-q flash-decode launches, 16 steps profiled) and with a
+   float32 cache (1536 of the split and combine kernels' bfloat16-q
+   instantiation). Prints the phase's seconds.
 25. Hybrid and pure-SSM batch decode, and the gather-dense fallback.
    DenseLmSsmHybridTiny's GShardDecode continuations on the card equal
    the CPU's. Then DenseLmSsmHybrid at full width and depth (12 layers,
@@ -390,12 +394,40 @@
    ServingLoop (ragged, 8 requests of 8 tokens: 10 scans and 2 bf16-q
    ragged launches a step) and GShardDecode (phase 25's requests: 10 x 3
    scans and 2 x 32 bf16-q flash decodes). Prints the phase's seconds.
-28. Prints the per-kernel JSON line (every kernel and every int8 /
+28. The 1B-words configs. First the fused-xent statistics kernel against
+   `_PlainStats` at WordLevelOneBwdsSampledSoftmax's eval shape (x
+   [16384, 1024], the untied table [793,470, 1024] and a normal bias,
+   float32, no cap, block 1024: a last vocab tile of 126 columns) and at
+   V 1003 with a bias (phase 8's bar, two calls bitwise equal), with its
+   geometry, time, bound and the plain version's time. Then
+   `trainer.main` on WordLevelOneBwdsSampledSoftmax at its registered
+   widths (20 layers, d 1024, 32 x 512 tokens, 4096 negatives, Adam,
+   residual dropout 0.1; random weights from a CPU generator seeded 1234),
+   cut in step and batch counts only (3 steps a loop and --max_steps=3,
+   64 eval samples: 2 batches, 1 checkpoint kept, the step-0 save of the
+   random weights skipped): FINISHED holds 3, finite train and eval
+   losses, the xent kernel launched exactly once an eval batch and never
+   in training; prints the free disk and host memory before the save,
+   ms/step, peak memory and the final save's bytes and seconds, profiles
+   one more train step (busy share; its TrainStep makes no host sync, as
+   `torch.cuda.set_sync_debug_mode` counts them) and times the dropout
+   masks' plain threefry (masks a step x one mask's time) and Adam's
+   update of every parameter; deletes the logdir. Then
+   OneBWdsTransformerLm as registered: two train steps through
+   TrainProgram, finite, no kernel launched. Last a tiny
+   twin of the sampled config (2 layers, V 1003, 64 negatives, residual
+   dropout 0.1) from one npz on the card and the CPU: two TrainSteps'
+   dropout masks bitwise equal by key, losses and an eval (the kernel on
+   the card) within 1e-5; and the negative ids at V 793,470 over 50 step
+   keys, card against CPU: the mismatches counted, each one id away, at
+   most 0.3% of them. Prints the phase's seconds.
+29. Prints the per-kernel JSON line (every kernel and every int8 /
    bfloat16 instantiation, and the bfloat16-q ones; the int8 serving
    kernels, the sampling kernel and the scan's backward with "replaces":
    null; the scan's and flash decode's times at the hybrid decode's
    shapes beside their main ones; the xent kernel at DenseLmWord793k's
-   shape with the CLI run's launches), then the result line.
+   shape and at the sampled eval's, each with its CLI run's launches),
+   then the result line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -434,8 +466,11 @@ TOL = 1e-5
 LEGACY_WINDOWS = ("last",)
 
 
+_T0 = time.perf_counter()
+
+
 def _Phase(name):
-  print(f"\n== {name}", flush=True)
+  print(f"\n== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 class _Counts:
@@ -598,6 +633,20 @@ def _TimeMs(torch, fn, iters, flush_bytes=64 << 20, waits_as=None):
     total += start.elapsed_time(end)
     done += 1
   return total / iters
+
+
+def _EventMs(torch, fn):
+  """Device ms of one fn() between two CUDA events, with no flush and no
+  spin: for a plain version that runs a second or more, whose host work
+  is a small part of it and for which `_TimeMs`'s growing spins would
+  cost more than the call itself."""
+  torch.cuda.synchronize()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  fn()
+  end.record()
+  torch.cuda.synchronize()
+  return start.elapsed_time(end)
 
 
 def _EnqueueUs(torch, fn, calls=20, reps=20):
@@ -1386,12 +1435,16 @@ def _CheckFlashBf16(torch, fa, rng):
 
 
 def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
-               vocab=32000, vd=True, d=2048, table_seed=None):
+               vocab=32000, vd=True, d=2048, table_seed=None, cap=30.0,
+               bias_seed=None, iters=(5, 3)):
   """The fused-xent statistics kernel against `_PlainStats` on the card:
-  x [m, d], the table [vocab, d] (vd; else [d, vocab]), cap 30, in
+  x [m, d], the table [vocab, d] (vd; else [d, vocab]), cap `cap`, in
   `dtype`; two calls bitwise equal. table_seed: the table is drawn on the
   card from a generator with that seed (a large table from numpy takes
-  tens of seconds on the host)."""
+  tens of seconds on the host). bias_seed: a normal bias drawn on the
+  card from that seed (else the tied head's zero bias). iters: the timed
+  calls of the kernel and of the plain version (0: one call between two
+  events, `_EventMs`)."""
   dt = getattr(torch, dtype)
   x = torch.as_tensor(rng.randn(m, d).astype(np.float32)).cuda().to(dt)
   if table_seed is None:
@@ -1401,9 +1454,13 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
     w = (torch.randn((vocab, d), device="cuda", generator=torch.Generator(
         "cuda").manual_seed(table_seed)) / np.sqrt(d)).to(dt)
   w_arg = w if vd else w.t().contiguous()
-  bias = torch.zeros(vocab, device="cuda", dtype=dt)
+  if bias_seed is None:
+    bias = torch.zeros(vocab, device="cuda", dtype=dt)
+  else:
+    bias = torch.randn((vocab,), device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(bias_seed)).to(dt)
   labels = torch.as_tensor(rng.randint(0, vocab, m).astype(np.int32)).cuda()
-  cfg = fx._Cfg(block_size=block, vocab=vocab, vd=vd, soft_cap=30.0,
+  cfg = fx._Cfg(block_size=block, vocab=vocab, vd=vd, soft_cap=cap,
                 label_smoothing=ls)
   got = fx.FusedXentStats(x, w_arg, bias, labels, cfg)
   again = fx.FusedXentStats(x, w_arg, bias, labels, cfg)
@@ -1412,7 +1469,8 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
   _Check(all(torch.equal(a, b_) for a, b_ in zip(got, again)
              if a is not None), f"xent {dtype}: two calls differ bitwise")
   label = (f"xent {dtype} [{m}, {d}] x {'[V, D]' if vd else '[D, V]'} V "
-           f"{vocab} block {block} ls {ls}")
+           f"{vocab} block {block} ls {ls} cap {cap}"
+           + ("" if bias_seed is None else " with a normal bias"))
   if dtype == "float32":
     geo = fx.StatsGeometry(m, vocab, torch.cuda.get_device_properties(
         0).multi_processor_count)
@@ -1438,7 +1496,7 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
           f"{geo['splits']} "
           "splits in order")
   errs = []
-  print(f"tolerances: lse, label logit 1e-4 (capped logits of O(1), each a "
+  print(f"tolerances: lse, label logit 1e-4 (logits of O(1), each a "
         f"{d}-term float32 dot in two orders); logit sum 5e-3 (adds {vocab} "
         f"of them)")
   for name, a, b_, tol in (("lse", got[0], want[0], 1e-4),
@@ -1454,9 +1512,13 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
   differ = torch.nonzero(got[3] != want[3]).flatten()
   if len(differ):
     rows = x[differ].float()
-    cap = lambda s: 30.0 * torch.tanh(s / 30.0)
-    s_k = cap((rows * w[got[3][differ].long()].float()).sum(-1))
-    s_p = cap((rows * w[want[3][differ].long()].float()).sum(-1))
+
+    def _Logit(idx):
+      s_ = (rows * w[idx].float()).sum(-1) + bias[idx].float()
+      return cap * torch.tanh(s_ / cap) if cap > 0 else s_
+
+    s_k = _Logit(got[3][differ].long())
+    s_p = _Logit(want[3][differ].long())
     gap = float((s_k - s_p).abs().max())
     _Check(gap <= 1e-5, f"xent argmax differs on {len(differ)} rows whose "
            f"top logits differ by {gap} > 1e-5")
@@ -1465,10 +1527,10 @@ def _CheckXent(torch, fx, rng, block, ls, time_it, dtype="float32", m=8192,
   if not time_it:
     return dict(err=max(errs))
   ms = _TimeMs(torch, lambda: fx.FusedXentStats(x, w_arg, bias, labels, cfg),
-               5)
-  plain_ms = _TimeMs(torch, lambda: fx._PlainStats(x, w_arg, bias, labels,
-                                                  cfg),
-                     3, waits_as="plain xent stats")
+               iters[0])
+  plain = lambda: fx._PlainStats(x, w_arg, bias, labels, cfg)
+  plain_ms = (_EventMs(torch, plain) if iters[1] == 0 else
+              _TimeMs(torch, plain, iters[1], waits_as="plain xent stats"))
   elem = x.element_size()
   bound = _Bound((m * d + vocab * d + vocab) * elem + m * 4 + 4 * m * 4,
                  2 * m * vocab * d,
@@ -2364,7 +2426,8 @@ def _CheckTileBits(torch, attention):
 
 def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
                 ref_streams, kv_cache_dtype=None, serve_int8_weights=False,
-                sample=None, profile=True, fprop_dtype=None, steps=128):
+                sample=None, profile=True, fprop_dtype=None, steps=128,
+                cfg=None):
   """DenseLm1B (decode_page_size 128) through GShardDecode: DecodeOnce
   over the serving phases' 8 prompts (bucket 1024) for 128 tokens with
   prefill chunks of 256, every kernel count set to 0 just before. With
@@ -2380,10 +2443,12 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   model decodes bfloat16 activations (bfloat16 caches unless
   kv_cache_dtype says otherwise), through the attention kernels'
   bfloat16-q instantiations; a first call (kv_cache_dtype None) writes
-  the checkpoint too. steps: tokens decoded. Returns (launches,
-  telemetry, the continuations)."""
+  the checkpoint too. steps: tokens decoded. cfg: DenseLm1B (default) or
+  a cut of its depth (`_DenseLm1BCut`); the counts follow its layers.
+  Returns (launches, telemetry, the continuations)."""
   t_call = time.perf_counter()
-  cfg = spi.DenseLm1B()
+  cfg = cfg or spi.DenseLm1B()
+  layers = cfg.NUM_LAYERS
   bf16 = fprop_dtype == torch.bfloat16
   p = cfg.Task().Set(kv_cache_dtype=kv_cache_dtype, fprop_dtype=fprop_dtype)
   p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
@@ -2430,11 +2495,11 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   recs = decoder.DecodeOnce(1, arr, lens)
   launches = counters.Read()
   want = dict.fromkeys(counters, 0)
-  want[counted] = 24 * steps
+  want[counted] = layers * steps
   if serve_int8_weights:   # 4 prefill chunks of 256 and the steps
     int8 = "_bf16" if bf16 else ""
-    want["int8_act_quant" + int8] = want["int8_matmul" + int8] = 145 * (
-        4 + steps)
+    want["int8_act_quant" + int8] = want["int8_matmul" + int8] = (
+        _Int8Products(layers) * (4 + steps))
   if sample:
     want["sample_tokens"] = steps
   _Check(launches == want, f"GShardDecode launches {launches} != {want}")
@@ -2451,7 +2516,7 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
   n = len(ref_streams[0])
   same = sum(list(r["output_ids"][:n]) == list(st)
              for r, st in zip(recs, ref_streams))
-  print(f"DenseLm1B GShardDecode ({tel['kv_cache_dtype']} cache"
+  print(f"{type(cfg).__name__} GShardDecode ({tel['kv_cache_dtype']} cache"
         f"{', bf16 activations' if bf16 else ''}, kv_bytes_per_token "
         f"{tel['kv_bytes_per_token']}): 8 prompts (bucket 1024) x {steps} "
         f"tokens, prefill chunks of 256: prefill_s "
@@ -2460,9 +2525,11 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
         f"{tel['tokens_per_sec']:.1f} tokens/s, decode state "
         f"{tel['decode_state_bytes_per_seq'] / 2**20:.1f} MiB per sequence, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-        f"launches { {k: v for k, v in launches.items() if v} } (24 x {steps}"
-        f"{'; 145 x (4 + 128) of each int8 kernel' if serve_int8_weights else ''}"
-        f"){', int8 weights' if serve_int8_weights else ''}")
+        f"launches { {k: v for k, v in launches.items() if v} } ({layers} x "
+        f"{steps}"
+        + (f"; {_Int8Products(layers)} x (4 + {steps}) of each int8 kernel"
+           if serve_int8_weights else "")
+        + f"){', int8 weights' if serve_int8_weights else ''}")
   print(f"(information, not a check: {same} of 8 continuations begin with "
         f"the {n}-token reference streams)")
   if sample:
@@ -2473,9 +2540,26 @@ def _GShardMain(torch, spi, attention, checkpointer, gshard, counters, tmp,
           f"8 continuations (decode_s {again[0]['telemetry']['decode_s']:.3f})")
   if profile:
     _ProfileDecodeSteps(torch, decoder, arr, lens)
-  print(f"DenseLm1B GShardDecode: {time.perf_counter() - t_call:.1f} s in "
-        "all")
+  print(f"{type(cfg).__name__} GShardDecode: "
+        f"{time.perf_counter() - t_call:.1f} s in all")
   return launches, tel, [r["output_ids"] for r in recs]
+
+
+def _Int8Products(layers):
+  """The int8 products of a DenseLm serving step: q, k, v, post and the
+  FFN's two in each layer, and the tied logits (145 at 24 layers)."""
+  return 6 * layers + 1
+
+
+# phases 16 and 24 serve DenseLm1B at its full width and SERVE_DEPTH of its
+# 24 layers, for the script's time limit; every other phase keeps 24
+SERVE_DEPTH = 12
+
+
+def _DenseLm1BCut(spi):
+  """DenseLm1B's config at SERVE_DEPTH layers (its widths unchanged)."""
+  return type(f"DenseLm1BDepth{SERVE_DEPTH}", (spi.DenseLm1B,),
+              {"NUM_LAYERS": SERVE_DEPTH})()
 
 
 # The int8 serving step's 145 products per DenseLm1B step: (K, N, calls a
@@ -3217,10 +3301,10 @@ def _FirstStepGap(torch, cfg, ragged, lm32, lm16):
 
 
 def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
-               checkpointer, gshard, counters, prompt_lens, ref_streams):
+               checkpointer, gshard, counters, prompt_lens):
   """Phase 24 (see the module docstring). Returns (the bfloat16-q kernel
   checks, the int8 bfloat16 kernels' step sums, the serving runs, the
-  two GShardDecode runs' launches)."""
+  two GShardDecode runs' launches). DenseLm1B at SERVE_DEPTH layers."""
   t_phase = time.perf_counter()
   print("bf16-q ragged / block decode library_ms: null (as phases 3 and "
         "10); flash decode: SDPA on the same bf16 tensors; int8 (b): "
@@ -3230,14 +3314,16 @@ def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
   gc.collect()
   torch.cuda.empty_cache()
   _TinyBf16(torch, spi, engine, ragged)
-  cfg = spi.DenseLm1B()
+  cfg = _DenseLm1BCut(spi)
+  layers, products = cfg.NUM_LAYERS, _Int8Products(cfg.NUM_LAYERS)
   lm = _ServingLm(torch, cfg)
   lm16 = _ServingLm(torch, cfg, fprop_dtype=torch.bfloat16)
   _FirstStepGap(torch, cfg, ragged, lm, lm16)
   # the same requests at float32 activations first, unprofiled: the
   # baseline of this process at this point (walls drift over a process)
   f32_ms = _ServeMain(torch, cfg, engine, counters,
-                      dict(ragged_block_attend=24), lm=lm, profile=False)[3]
+                      dict(ragged_block_attend=layers), lm=lm,
+                      profile=False)[3]
   del lm
   gc.collect()
   torch.cuda.empty_cache()
@@ -3259,27 +3345,29 @@ def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
   short = dict(order=[int(np.argmin(lens))], max_new=8, profile=False)
   bf16_serve = {}
   for key, mode, dtype, per_step, per_decode, kw in (
-      ("ragged", "ragged", None, dict(ragged_block_attend_q_bf16=24), None,
-       {}),
-      ("legacy", "legacy", None, {}, dict(block_decode_q_bf16=24),
+      ("ragged", "ragged", None, dict(ragged_block_attend_q_bf16=layers),
+       None, {}),
+      ("legacy", "legacy", None, {}, dict(block_decode_q_bf16=layers),
        dict(windows=LEGACY_WINDOWS)),
       ("sampled, float32 pools", "ragged", "float32",
-       dict(ragged_block_attend_q_bf16_f32pool=24, sample_tokens=1), None,
+       dict(ragged_block_attend_q_bf16_f32pool=layers, sample_tokens=1),
+       None,
        dict(short, sample=dict(temperature=0.8, top_k=40, sample_seed=3),
             seeds=list(range(100, 108)))),
       ("int8 weights, int8 pools", "ragged", "int8",
-       dict(ragged_block_attend_q_bf16_int8pool=24, int8_act_quant_bf16=145,
-            int8_matmul_bf16=145), None,
+       dict(ragged_block_attend_q_bf16_int8pool=layers,
+            int8_act_quant_bf16=products, int8_matmul_bf16=products), None,
        dict(short, serve_int8_weights=True)),
       ("legacy, float32 pools", "legacy", "float32", {},
-       dict(block_decode_q_bf16_f32pool=24), short),
+       dict(block_decode_q_bf16_f32pool=layers), short),
       ("legacy, int8 pools", "legacy", "int8", {},
-       dict(block_decode_q_bf16_int8pool=24), short)):
+       dict(block_decode_q_bf16_int8pool=layers), short)):
     syncs = {}
-    launches, steps, _, ms = _ServeMain(
+    launches, steps, streams, ms = _ServeMain(
         torch, cfg, engine, counters, per_step, per_decode, step_mode=mode,
         kv_cache_dtype=dtype, lm=lm16, syncs=syncs, **kw)
-    bf16_serve[key] = dict(launches=launches, steps=steps, ms=ms, syncs=syncs)
+    bf16_serve[key] = dict(launches=launches, steps=steps, ms=ms, syncs=syncs,
+                           streams=streams)
     gc.collect()
     torch.cuda.empty_cache()
   _Check(bool(torch.stack(finite).all()), "a bf16 serving step gave "
@@ -3292,10 +3380,12 @@ def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
   gc.collect()
   torch.cuda.empty_cache()
   print(f"phase 24: serving took {time.perf_counter() - t_phase:.1f} s")
+  # the continuations' first tokens against the ragged bf16 run's streams
+  ref_streams = bf16_serve["ragged"]["streams"]
   with tempfile.TemporaryDirectory() as tmp:
     bf16_gshard, _, _ = _GShardMain(
         torch, spi, attention, checkpointer, gshard, counters, tmp,
-        ref_streams, fprop_dtype=torch.bfloat16)
+        ref_streams, fprop_dtype=torch.bfloat16, cfg=cfg)
     gc.collect()
     torch.cuda.empty_cache()
     # a cache of 1024 + 128 slots: a whole number of 128-slot pages, so
@@ -3303,7 +3393,7 @@ def _Bf16Phase(torch, rba, bd, fd, im, ragged, spi, engine, attention,
     bf16_gshard_f32, _, _ = _GShardMain(
         torch, spi, attention, checkpointer, gshard, counters, tmp,
         ref_streams, kv_cache_dtype="float32", fprop_dtype=torch.bfloat16,
-        profile=False)
+        profile=False, cfg=cfg)
   gc.collect()
   torch.cuda.empty_cache()
   print(f"phase 24 took {time.perf_counter() - t_phase:.1f} s")
@@ -3746,11 +3836,16 @@ def _CliWord793k(torch, spi, trainer, executor, program, counters, tmp):
   times, nothing else. Then one more train step of the same task under
   torch.profiler (its device busy share). Returns the launches."""
   import shutil
+  from lingvo_tpu_torch.core import checkpointer
   logdir = os.path.join(tmp, "w793k")
   free = shutil.disk_usage(tmp).free
   print(f"logdir {logdir}: {free / 2**30:.1f} GiB free")
   captured, eval_s = [], []
   start, run = executor.ExecutorTpu.Start, program.EvalProgram.Run
+  save_async = checkpointer.Checkpointer.SaveAsync
+
+  def _SaveAsync(ckpt, step, *args, **kwargs):
+    return False if step == 0 else save_async(ckpt, step, *args, **kwargs)
 
   def _Start(ex):
     captured.append(ex)
@@ -3765,6 +3860,7 @@ def _CliWord793k(torch, spi, trainer, executor, program, counters, tmp):
     return out
 
   executor.ExecutorTpu.Start, program.EvalProgram.Run = _Start, _EvalRun
+  checkpointer.Checkpointer.SaveAsync = _SaveAsync
   try:
     torch.cuda.synchronize()
     counters.Zero()
@@ -3777,6 +3873,7 @@ def _CliWord793k(torch, spi, trainer, executor, program, counters, tmp):
     launches = counters.Read()
   finally:
     executor.ExecutorTpu.Start, program.EvalProgram.Run = start, run
+    checkpointer.Checkpointer.SaveAsync = save_async
   peak = torch.cuda.max_memory_allocated()
   with open(os.path.join(logdir, "train", "FINISHED")) as f:
     finished = f.read()
@@ -4236,6 +4333,436 @@ def _HybridTrainPhase(torch, ssd, spi, engine, ragged, attention,
   return bwd, bwd_s0, dict(cli, launches=launches), bf16
 
 
+# -- phase 28: the 1B-words configs ---------------------------------------------
+
+
+SAMPLED_KEY = "lm.one_billion_wds.WordLevelOneBwdsSampledSoftmax"
+TRANSFORMER_1BW_KEY = "lm.one_billion_wds.OneBWdsTransformerLm"
+# the CLI run of the sampled config cuts step and batch counts only: 3
+# train steps a loop (registered 100) and --max_steps=3, 64 eval samples
+# (registered 1000) in 2 batches of 32, one checkpoint kept (registered 10)
+SAMPLED_STEPS = 3
+SAMPLED_EVAL_SAMPLES = 64
+# card against CPU on the tiny twin: float32 GEMMs summed in other orders
+TWIN_LOSS_TOL = 1e-5
+# exp on the card against the CPU: CUDA's expf is within 2 ulps of exp
+# (the CUDA Math API's table), PyTorch's CPU exp within 1
+EXP_ULPS = 3
+# the share of negative ids that may differ card against CPU: at V 793,470
+# the mean ulp of exp over the draws is 0.0051 of an id, so a gap of g ulps
+# moves about g * 0.51% of the ids across an integer; 0.3% allows a mean
+# gap of 0.6 ulps and fails a change in how the ids are truncated
+IDS_OFF_SHARE = 0.003
+
+
+def _HostMemory():
+  """(MemAvailable, MemTotal) in bytes, from /proc/meminfo."""
+  out = {}
+  with open("/proc/meminfo") as f:
+    for line in f:
+      name, value = line.split(":", 1)
+      out[name] = int(value.split()[0]) * 1024
+  return out.get("MemAvailable", 0), out.get("MemTotal", 0)
+
+
+@contextlib.contextmanager
+def _SyncsCounted(torch):
+  """Counts the host syncs made inside, the calls that
+  `torch.cuda.set_sync_debug_mode("warn")` flags (a blocking copy, an
+  item(), a stream or device synchronize), by their Python call sites:
+  the yielded dict fills when the block ends."""
+  import warnings
+  sites = {}
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      yield sites
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+  for w in caught:
+    if "called a synchronizing CUDA operation" in str(w.message):
+      site = f"{os.path.basename(w.filename)}:{w.lineno}"
+      sites[site] = sites.get(site, 0) + 1
+
+
+@contextlib.contextmanager
+def _RecordBernoulli(threefry, masks=None):
+  """Counts `threefry.Bernoulli`'s calls (the dropout masks) in the
+  yielded list's length; with `masks` a dict, also records each mask on
+  the host by its key."""
+  calls, orig = [], threefry.Bernoulli
+
+  def _Recording(key, p, shape, device=None):
+    mask = orig(key, p, shape, device)
+    calls.append(tuple(shape))
+    if masks is not None:
+      masks[tuple(int(v) for v in key.cpu())] = mask.cpu()
+    return mask
+
+  threefry.Bernoulli = _Recording
+  try:
+    yield calls
+  finally:
+    threefry.Bernoulli = orig
+
+
+def _SampledCli(torch, trainer, executor, program, model_registry, threefry,
+                one_billion_wds, counters, tmp):
+  """trainer.main on WordLevelOneBwdsSampledSoftmax at its registered
+  widths (20 layers, d 1024, 32 x 512 tokens, 793,470 words, 4096
+  negatives, Adam, residual dropout 0.1; random weights from a CPU
+  generator seeded 1234), cut to SAMPLED_STEPS train steps and 2 eval
+  batches, one checkpoint kept, the step-0 save of the random weights
+  skipped (nothing reads it; the final save is written and timed), the
+  counts set to 0 just before: FINISHED holds the step, the train and
+  eval losses are finite, and the xent kernel launched once per eval
+  batch and never in training. Prints the free disk and host memory
+  before the save, ms/step, peak memory, the save's bytes and seconds;
+  then profiles one more train step (its busy share; its TrainStep makes
+  no host sync) and the dropout masks' plain threefry in it. Deletes the
+  logdir."""
+  import shutil
+  from lingvo_tpu_torch.core import checkpointer
+  base = one_billion_wds.WordLevelOneBwdsSampledSoftmax
+
+  def _Task(self):
+    p = base.Task(self)
+    p.train.tpu_steps_per_loop = SAMPLED_STEPS
+    p.eval.samples_per_summary = SAMPLED_EVAL_SAMPLES
+    p.train.save_max_to_keep = 1
+    return p
+
+  key = model_registry.RegisterSingleTaskModel(type(
+      "WordLevelOneBwdsSampledSoftmaxCut", (base,),
+      {"Task": _Task}))._registry_key
+  logdir = os.path.join(tmp, "w1bw")
+  avail, total = _HostMemory()
+  print(f"logdir {logdir}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB "
+        f"free on its disk; host memory {avail / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB available; cuts: {SAMPLED_STEPS} steps a "
+        f"loop (100 registered), --max_steps={SAMPLED_STEPS}, "
+        f"{SAMPLED_EVAL_SAMPLES} eval samples (1000), 1 checkpoint kept (10),"
+        " the step-0 save skipped")
+  captured, eval_s = [], []
+  start, run = executor.ExecutorTpu.Start, program.EvalProgram.Run
+  save_async = checkpointer.Checkpointer.SaveAsync
+
+  def _SaveAsync(ckpt, step, *args, **kwargs):
+    return False if step == 0 else save_async(ckpt, step, *args, **kwargs)
+
+  def _Start(ex):
+    captured.append(ex)
+    captured.append(start(ex))
+    return captured[-1]
+
+  def _EvalRun(prog, state):
+    t0 = time.perf_counter()
+    out = run(prog, state)
+    torch.cuda.synchronize()
+    eval_s.append(time.perf_counter() - t0)
+    return out
+
+  executor.ExecutorTpu.Start, program.EvalProgram.Run = _Start, _EvalRun
+  checkpointer.Checkpointer.SaveAsync = _SaveAsync
+  try:
+    torch.cuda.synchronize()
+    counters.Zero()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = trainer.main([f"--model={key}", f"--logdir={logdir}",
+                       "--mode=train", f"--max_steps={SAMPLED_STEPS}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.Read()
+  finally:
+    executor.ExecutorTpu.Start, program.EvalProgram.Run = start, run
+    checkpointer.Checkpointer.SaveAsync = save_async
+  peak = torch.cuda.max_memory_allocated()
+  with open(os.path.join(logdir, "train", "FINISHED")) as f:
+    finished = f.read()
+  with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+  _Check(rc == 0 and finished == str(SAMPLED_STEPS),
+         f"rc {rc}, FINISHED {finished!r}")
+  _Check([r["step"] for r in rows] == [SAMPLED_STEPS] and all(
+      np.isfinite(rows[0][k]["loss"]) for k in ("train", "eval_test")),
+         f"metrics.jsonl rows {rows}")
+  batches = -(-SAMPLED_EVAL_SAMPLES // 32)
+  want = dict.fromkeys(counters, 0)
+  want["fused_xent_fwd"] = batches
+  _Check(launches == want, f"launches {launches} != {want}")
+  ckpts = [d for d in os.listdir(os.path.join(logdir, "train"))
+           if d.startswith("ckpt_")]
+  ex, state = captured
+  _Check(len(ckpts) == 1 and [w["step"] for w in ex.checkpointer.writes]
+         == [SAMPLED_STEPS], f"checkpoints kept: {ckpts}, written: "
+         f"{[w['step'] for w in ex.checkpointer.writes]}")
+  task = ex.task
+  train, evals = rows[0]["train"], rows[0]["eval_test"]
+  n_params = sum(x.numel() for x in task.parameters())
+  print(f"WordLevelOneBwdsSampledSoftmax through trainer.main: {n_params:,} "
+        f"params, {wall:.1f} s in all; the loop of {SAMPLED_STEPS} steps "
+        f"{1e3 / train['steps_per_second']:.1f} ms/step from its dispatch "
+        f"to its end ({train['host_overhead_s']:.2f} s of host dispatch), "
+        f"sampled loss {train['loss']:.4f}, grad_norm "
+        f"{train['grad_norm']:.4f}, skipped {train['skipped_step']}; "
+        f"eval_test ({batches} batches through the xent kernel) "
+        f"{eval_s[0]:.2f} s, full-softmax loss {evals['loss']:.4f}, "
+        f"accuracy {evals['fraction_of_correct_next_step_preds']:.6f}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+  saves = []
+  for w in ex.checkpointer.writes:
+    saves.append(w)
+    print(f"checkpoint step {w['step']}: {w['bytes'] / 2**30:.2f} GiB "
+          f"(theta and Adam's m and v), snapshot {w['snapshot_s']:.2f} s on "
+          f"the caller, write {w['write_s']:.2f} s "
+          f"({w['bytes'] / w['write_s'] / 2**30:.2f} GiB/s)")
+  print(f"launches in the CLI run: {launches} (none in the {SAMPLED_STEPS} "
+        f"sampled train steps, one a full-softmax eval batch)")
+  prog = program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=1,
+                                        async_infeed=False),
+      task=task, input_generator=base().Train().Instantiate())
+  t0 = time.perf_counter()
+  train_step, syncs = task.TrainStep, {}
+
+  def _Counted(*args, **kwargs):
+    with _SyncsCounted(torch) as sites:
+      out = train_step(*args, **kwargs)
+    syncs.update(sites)
+    return out
+
+  task.TrainStep = _Counted
+  try:
+    with _RecordBernoulli(threefry) as masks:
+      busy = _StepBusy(torch, lambda: prog.Run(state))
+  finally:
+    del task.TrainStep
+  print(f"the profiled step took {time.perf_counter() - t0:.1f} s with the "
+        f"profiler's own work; {len(masks)} dropout masks drawn in it "
+        f"(2 a layer in the forward, again in remat's recompute); "
+        f"{sum(syncs.values())} host syncs in its TrainStep {syncs}")
+  _Check(not syncs, f"the train step synced the host: {syncs}")
+  # a CPU key drawn on the card, as the dropout layer draws it
+  mask_key = threefry.FoldIn(threefry.PRNGKey(1234), 7)
+  mask_ms = _TimeMs(torch, lambda: threefry.Bernoulli(
+      mask_key, 0.9, (32, 512, 1024), "cuda"), 3,
+                    waits_as="the plain threefry mask")
+  mask_share = (len(masks) * mask_ms / busy[0]) if busy else None
+  print(f"one [32, 512, 1024] mask by the plain threefry: {mask_ms:.3f} ms; "
+        f"{len(masks)} a step: {len(masks) * mask_ms:.1f} ms"
+        + (f", {mask_share:.1%} of the profiled step's busy {busy[0]:.1f} ms"
+           if busy else ""))
+  # Adam's update of every parameter and slot, as the learner runs it
+  # after the backward (zero gradients: the same work)
+  from lingvo_tpu_torch.core import base_layer
+  params = task.TrainableTheta()
+  grads = {k: base_layer.StackedLeaf(tuple(torch.zeros_like(x)
+                                           for x in v.layers))
+           if isinstance(v, base_layer.StackedLeaf) else torch.zeros_like(v)
+           for k, v in params.items()}
+  lr = torch.tensor(1e-3, dtype=torch.float32)
+  adam_ms = _TimeMs(torch, lambda: task.learner.opt.Update(
+      state.opt_states[0], grads, params, lr, SAMPLED_STEPS), 2,
+                    waits_as="Adam's update")
+  print(f"Adam's update of the {n_params:,} parameters and their m and v: "
+        f"{adam_ms:.1f} ms" + (f", {adam_ms / busy[0]:.1%} of the profiled "
+                               "step's busy" if busy else ""))
+  del captured, ex, task, prog, state, params, grads
+  shutil.rmtree(logdir)
+  gc.collect()
+  torch.cuda.empty_cache()
+  return dict(launches=launches, ms_step=1e3 / train["steps_per_second"],
+              eval_s=eval_s[0], peak=peak, wall=wall, saves=saves,
+              masks=len(masks), mask_ms=mask_ms, mask_share=mask_share,
+              busy=busy, adam_ms=adam_ms, syncs=sum(syncs.values()))
+
+
+def _TransformerLm1Bw(torch, program, one_billion_wds, counters):
+  """OneBWdsTransformerLm as registered (20 layers, d 1024, 32 x 512
+  tokens, 32,000-word tied head with the cap, Adam, residual dropout 0.1;
+  random weights from a CPU generator seeded 1234): two train steps of the
+  task on the card through TrainProgram, counts set to 0 just before:
+  finite losses, no skipped step, no kernel launched (flash off and the
+  dense head, as registered)."""
+  cfg = one_billion_wds.OneBWdsTransformerLm()
+  task = cfg.Task().Instantiate(device="cuda")
+  task.FinalizePaths()
+  state = task.CreateTrainState(torch.Generator("cpu").manual_seed(1234))
+  prog = program.TrainProgram(
+      program.TrainProgram.Params().Set(steps_per_loop=2,
+                                        async_infeed=False),
+      task=task, input_generator=cfg.Train().Instantiate())
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  counters.Zero()
+  t0 = time.perf_counter()
+  _, out = prog.Run(state)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  launches = counters.Read()
+  _Check(state.step == 2 and np.isfinite(out["loss"])
+         and np.isfinite(out["grad_norm"]) and out["skipped_step"] == 0,
+         f"OneBWdsTransformerLm: step {state.step}, {out}")
+  _Check(not any(launches.values()), f"launches {launches}")
+  peak = torch.cuda.max_memory_allocated()
+  print(f"OneBWdsTransformerLm: {sum(x.numel() for x in task.parameters()):,}"
+        f" params, 2 train steps in {wall:.2f} s (the first with cuBLAS's "
+        f"start), loss {out['loss']:.4f}, grad_norm {out['grad_norm']:.4f}, "
+        f"peak memory {peak / 2**30:.2f} GiB, no kernel launched")
+  del task, state, prog
+  gc.collect()
+  torch.cuda.empty_cache()
+  return dict(ms_step=wall / 2 * 1e3, peak=peak, loss=out["loss"])
+
+
+def _SampledTwin(torch, threefry, counters, tmp):
+  """A tiny twin of the sampled config (2 layers, d 64, V 1003, 64
+  negatives, residual dropout 0.1) on the card and on the CPU from one
+  npz: two TrainSteps with the program's base key, each dropout mask
+  recorded by its key (the same keys, the masks bitwise equal), the
+  losses within TWIN_LOSS_TOL; an EvalStep (the xent kernel on the card,
+  one launch, the plain version on the CPU) within it too. The negative
+  ids the card draws against the CPU's at V 793,470 over 50 step keys:
+  the mismatches counted, each one id away."""
+  from lingvo_tpu_torch.core import checkpointer
+  from lingvo_tpu_torch.core import layers
+  from lingvo_tpu_torch.core import py_utils
+  from lingvo_tpu_torch.models.lm import input_generator
+  from lingvo_tpu_torch.models.lm import layers as lm_layers
+  from lingvo_tpu_torch import convert
+
+  def _Lm(device):
+    return lm_layers.TransformerLm.Params().Set(
+        name="lm", vocab_size=1003, model_dim=64, num_layers=2, num_heads=4,
+        hidden_dim=128, softmax_num_sampled=64,
+        residual_dropout_prob=0.1).Instantiate(device=device)
+
+  src = _Lm("cpu")
+  src.InstantiateVariables(torch.Generator("cpu").manual_seed(28))
+  npz = os.path.join(tmp, "twin.npz")
+  np.savez(npz, **dict(convert.ThetaToNumpy(src).FlattenItems()))
+  gen = input_generator.SyntheticLmInput.Params().Set(
+      batch_size=4, seq_len=64, vocab_size=1003, seed=5).Instantiate()
+  batches = [gen.GetPreprocessedInputBatch() for _ in range(3)]
+  runs = {}
+  for device in ("cpu", "cuda"):
+    lm = _Lm(device)
+    lm.FinalizePaths()
+    checkpointer.ImportNpzCheckpoint(lm, npz)
+    state = lm.CreateTrainState()
+    masks, losses = {}, []
+    counters.Zero()
+    with _RecordBernoulli(threefry, masks):
+      for b in batches[:2]:
+        out = lm.TrainStep(state, b.Transform(
+            lambda x: torch.as_tensor(x).to(device)), threefry.PRNGKey(1234))
+        losses.append(float(out.metrics.loss[0]))
+    metrics, _ = lm.EvalStep(batches[2].Transform(
+        lambda x: torch.as_tensor(x).to(device)))
+    runs[device] = dict(masks=masks, losses=losses,
+                        eval=float(metrics.loss[0]), launches=counters.Read())
+  cpu, card = runs["cpu"], runs["cuda"]
+  _Check(sorted(card["masks"]) == sorted(cpu["masks"]) and len(cpu["masks"])
+         == 8, f"twin mask keys: {len(card['masks'])} vs {len(cpu['masks'])}")
+  _Check(all(torch.equal(card["masks"][k], cpu["masks"][k])
+             for k in cpu["masks"]), "twin: a dropout mask differs")
+  err = max([abs(a - b) for a, b in zip(card["losses"], cpu["losses"])]
+            + [abs(card["eval"] - cpu["eval"])])
+  _Check(err <= TWIN_LOSS_TOL, f"twin: card {card} vs CPU {cpu} losses")
+  want = dict.fromkeys(counters, 0)
+  want["fused_xent_fwd"] = 1
+  _Check(card["launches"] == want and not any(cpu["launches"].values()),
+         f"twin launches: card {card['launches']}, CPU {cpu['launches']}")
+  head = layers.SampledSoftmax.Params().Set(
+      name="sampled_softmax", input_dim=8, num_classes=793_470,
+      num_sampled=4096).Instantiate(device="meta")
+  head.FinalizePaths("lm/sampled_softmax")
+  off, total, worst = _NegativeIdsCardVsCpu(torch, threefry, py_utils, head)
+  print(f"tiny sampled twin card vs CPU: {len(cpu['masks'])} dropout masks "
+        f"bitwise equal; losses {card['losses']} vs {cpu['losses']}, eval "
+        f"{card['eval']:.6f} vs {cpu['eval']:.6f}: max |card - CPU| "
+        f"{err:.3g} (tol {TWIN_LOSS_TOL}); negative ids at V 793,470 over "
+        f"50 step keys: {off} of {total} differ between the card and the CPU"
+        f", each by one id where the two exp differ (by at most {worst} "
+        f"ulps; tol {EXP_ULPS}; limit {IDS_OFF_SHARE:.1%} of the ids)")
+  return dict(err=err, masks=len(cpu["masks"]), ids_off=off, ids=total,
+              exp_ulps=worst)
+
+
+def _NegativeIdsCardVsCpu(torch, threefry, py_utils, head, steps=50):
+  """The negative ids `head` draws on the card against the CPU's over the
+  first `steps` step keys (base 1234): the uniforms bitwise equal, the two
+  exp(u log(V + 1)) within EXP_ULPS, every id that differs one id away,
+  where the exps differ, and at most IDS_OFF_SHARE of them. Returns (ids
+  that differ, ids, the widest exp gap in ulps)."""
+  scale = np.log(head.p.num_classes + 1.0)
+  off = total = worst = 0
+  for step in range(steps):
+    with py_utils.StepSeedContext(threefry.FoldIn(threefry.PRNGKey(1234),
+                                                  step)):
+      key = py_utils.StepSeed(f"{head.path}/sampled_softmax")
+    u = {d: threefry.Uniform01(key, (head.p.num_sampled,), d)
+         for d in ("cpu", "cuda")}
+    _Check(torch.equal(u["cuda"].cpu(), u["cpu"]), "the uniforms differ")
+    e = {d: torch.exp(x * scale).cpu().view(torch.int32).long()
+         for d, x in u.items()}
+    ulps = (e["cuda"] - e["cpu"]).abs()
+    worst = max(worst, int(ulps.max()))
+    a = head.SampleNegatives(key, "cuda").cpu()
+    b = head.SampleNegatives(key, "cpu")
+    diff = a != b
+    _Check(bool(((a[diff].long() - b[diff].long()).abs() == 1).all())
+           and bool((ulps[diff] > 0).all()),
+           "a negative id differs by more than one, or where exp agrees")
+    off += int(diff.sum())
+    total += a.numel()
+  _Check(worst <= EXP_ULPS, f"exp on the card and the CPU {worst} ulps apart")
+  _Check(off <= IDS_OFF_SHARE * total,
+         f"{off} of {total} negative ids differ card vs CPU (limit "
+         f"{IDS_OFF_SHARE:.1%})")
+  return off, total, worst
+
+
+def _OneBWdsPhase(torch, fx, threefry, counters):
+  """Phase 28 (see the module docstring). Returns (the xent checks at the
+  sampled eval's shape and at V 1003, the CLI run, OneBWdsTransformerLm's
+  steps, the tiny twin)."""
+  from lingvo_tpu_torch import model_registry
+  from lingvo_tpu_torch import trainer
+  from lingvo_tpu_torch.models.lm.params import one_billion_wds
+  from lingvo_tpu_torch.runners import executor
+  from lingvo_tpu_torch.runners import program
+  t_phase = time.perf_counter()
+  rows = 32 * 512
+  geo = fx.StatsGeometry(rows, 793_470, torch.cuda.get_device_properties(
+      0).multi_processor_count)
+  print(f"row tiles x splits {geo['row_tiles']} x {geo['splits']} "
+        f"({geo['tiles_per_split']} tiles of {geo['tile']} a split; the last "
+        f"tile holds {793_470 % geo['tile']} of its {geo['tile']} columns); "
+        "library: none")
+  xent = _CheckXent(torch, fx, np.random.RandomState(28), 1024, 0.0, True,
+                    m=rows, vocab=793_470, d=1024, table_seed=28, cap=0.0,
+                    bias_seed=29, iters=(3, 0))
+  small = _CheckXent(torch, fx, np.random.RandomState(30), 1024, 0.0, False,
+                     m=300, vocab=1003, d=1024, cap=0.0, bias_seed=31)
+  xent["err"] = max(xent["err"], small["err"])
+  gc.collect()
+  torch.cuda.empty_cache()
+  print(f"phase 28: the kernel checks took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+  with tempfile.TemporaryDirectory() as tmp:
+    cli = _SampledCli(torch, trainer, executor, program, model_registry,
+                      threefry, one_billion_wds, counters, tmp)
+    print(f"phase 28: the sampled config through the CLI took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    tlm = _TransformerLm1Bw(torch, program, one_billion_wds, counters)
+    twin = _SampledTwin(torch, threefry, counters, tmp)
+  print(f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+  return xent, cli, tlm, twin
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4456,14 +4983,16 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    _Phase("16. quantized serving main path: DenseLm1B through ServingLoop "
-           "with int8 and bfloat16 KV pools")
+    _Phase(f"16. quantized serving main path: DenseLm1B (at {SERVE_DEPTH} of "
+           "its 24 layers) through ServingLoop with int8 and bfloat16 KV "
+           "pools")
     for mode, dtype in (("ragged", "int8"), ("legacy", "int8"),
                         ("ragged", "bfloat16")):
       _TinyReference(torch, spi.DenseLmTiny(), engine, ragged,
                      step_mode=mode, kv_cache_dtype=dtype)
-    lm = _ServingLm(torch, spi.DenseLm1B())
-    quant_serve, phase_ms = {}, {}
+    cfg16 = _DenseLm1BCut(spi)
+    lm = _ServingLm(torch, cfg16)
+    quant_serve, phase_ms, base_streams = {}, {}, {}
     # each step mode serves float32 pools first, unprofiled: the baseline
     # of the same process at the same point (walls drift over a process)
     for mode, kernel in (("ragged", "ragged_block_attend"),
@@ -4471,22 +5000,24 @@ def main():
       for dtype, suffix in ((None, ""), ("int8", "_int8"),
                             ("bfloat16", "_bf16")):
         key = kernel + suffix
-        per_step = {key: 24} if mode == "ragged" else {}
-        per_decode = {key: 24} if mode == "legacy" else None
+        per_step = {key: SERVE_DEPTH} if mode == "ragged" else {}
+        per_decode = {key: SERVE_DEPTH} if mode == "legacy" else None
         launches, _, streams, ms = _ServeMain(
-            torch, spi.DenseLm1B(), engine, counters, per_step, per_decode,
+            torch, cfg16, engine, counters, per_step, per_decode,
             step_mode=mode, kv_cache_dtype=dtype, lm=lm,
             profile=dtype == "int8",
             windows=LEGACY_WINDOWS if mode == "legacy" else ("first",
                                                              "last"))
         quant_serve[key] = launches[key]
         phase_ms[mode, dtype] = ms
+        base_streams.setdefault(mode, streams)
         same = sum(list(a) == list(b)
-                   for a, b in zip(streams, ragged_streams))
+                   for a, b in zip(streams, base_streams[mode]))
         print(f"(information, not a check: {same} of 8 {dtype or 'float32'} "
-              f"{mode} streams equal phase 5's float32 streams; {ms:.2f} "
+              f"{mode} streams equal this phase's float32 streams; {ms:.2f} "
               f"ms/step vs {phase_ms[mode, None]:.2f} for float32 pools in "
-              f"this phase, {serve_ms:.2f} in phase 5)")
+              f"this phase at {SERVE_DEPTH} layers, {serve_ms:.2f} in phase 5 "
+              f"at 24)")
         gc.collect()
         torch.cuda.empty_cache()
     del lm
@@ -4716,11 +5247,11 @@ def main():
         "(phase 21); the int8 pools' quantize-on-write: phases 14-17")
 
   _Phase("24. bfloat16 serving and batch decode: the bfloat16-q kernels, "
-         "then DenseLm1B at fprop_dtype=bfloat16 through ServingLoop and "
-         "GShardDecode")
+         f"then DenseLm1B (at {SERVE_DEPTH} of its 24 layers) at "
+         "fprop_dtype=bfloat16 through ServingLoop and GShardDecode")
   bf16q, int8_bf16, bf16_serve, bf16_gshard, bf16_gshard_f32 = _Bf16Phase(
       torch, rba, bd, fd, im, ragged, spi, engine, attention, checkpointer,
-      gshard, counters, prompt_lens, gshard_out)
+      gshard, counters, prompt_lens)
 
   _Phase("25. hybrid and pure-SSM batch decode through GShardDecode, and "
          "the paged steps' gather-dense fallback")
@@ -4738,7 +5269,13 @@ def main():
       torch, ssd, spi, engine, ragged, attention, checkpointer, gshard,
       counters)
 
-  _Phase("28. result")
+  _Phase("28. the 1B-words configs: the xent kernel at the sampled eval's "
+         "shape, WordLevelOneBwdsSampledSoftmax through trainer.main, "
+         "OneBWdsTransformerLm, the tiny sampled twin card vs CPU")
+  xent1bw, cli1bw, tlm1bw, twin1bw = _OneBWdsPhase(torch, fx, threefry,
+                                                   counters)
+
+  _Phase("29. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -4924,6 +5461,22 @@ def main():
       "cli_ms_per_step": cli["ms_step"],
       "cli_steady_ms_per_step": cli["steady_ms_step"],
       "cli_eval_s": cli["eval_s"]})
+  kernels.append({
+      "name": "fused_xent_fwd_1bwds_eval", "route": "cuda",
+      "source": "lingvo_tpu_torch/ops/csrc/fused_xent.cu",
+      "replaces": "lingvo_tpu/ops/fused_xent.py:277",
+      "launches": cli1bw["launches"]["fused_xent_fwd"],
+      "max_abs_err": xent1bw["err"], "ms": xent1bw["ms"],
+      "plain_ms": xent1bw["plain_ms"], "bound_ms": xent1bw["bound"][0],
+      "bound_by": xent1bw["bound"][1], "library_ms": None,
+      "shape": "x [16384, 1024] x table [793470, 1024] float32 with a "
+               "bias, no cap: WordLevelOneBwdsSampledSoftmax's eval through "
+               "trainer.main",
+      "cli_ms_per_step": cli1bw["ms_step"], "cli_eval_s": cli1bw["eval_s"],
+      "dropout_masks_a_step": cli1bw["masks"],
+      "dropout_mask_ms": cli1bw["mask_ms"],
+      "train_step_host_syncs": cli1bw["syncs"],
+      "negative_ids_card_vs_cpu_differing": twin1bw["ids_off"]})
   # the int8 serving kernels replace no pallas_call: the reference's int8
   # product is an XLA dot_general; times are the sums over the 145 products
   # of a ragged step (m = 264), the decode step's (m = 8) beside them

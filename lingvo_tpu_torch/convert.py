@@ -15,6 +15,14 @@ missing, extra or mis-shaped leaf raises.
 reference's theta, a NestedMap of numpy arrays with the repeat stack's
 per-layer parameters restacked on the leading [num_layers] axis.
 
+`LoadJaxOptState(opt_state, ref_state)` carries the reference's
+optimizer state (numpy, in its structure: Adam's `m` / `v` theta trees,
+Adafactor's `slots`, the Accumulator's `accum` and `count`, a
+CompositeOptimizer's `subs`) into the port's state of the same optimizer
+in place, so that both packages can start mid-run from one state;
+`OptStatePairs` lists the (name, port tensor, reference array) pairs it
+matches, which a test compares after some steps.
+
 `Int8ArtifactToTorch(theta, int8_tree)` carries the reference's exported
 int8 tree ({path: {"w_int8", "scale"}} as numpy) onto the device of the
 port's theta, a repeat stack's pairs split per layer as `LoadJaxTheta`
@@ -29,6 +37,7 @@ import torch
 
 from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import transformer
+from lingvo_tpu_torch.core.nested_map import NestedMap
 
 
 def _Unstack(tree, i):
@@ -96,6 +105,62 @@ def _ToNumpy(leaf) -> np.ndarray:
 def ThetaToNumpy(module: base_layer.BaseLayer):
   """The module's theta in the reference's structure, as numpy copies."""
   return module.ThetaTree().Transform(_ToNumpy)
+
+
+def OptStatePairs(opt_state, ref_state) -> list:
+  """[(name, port tensor, reference array)] for every leaf of the port's
+  optimizer state. The port's state is NestedMaps (the reference's
+  containers, by the same names), lists (CompositeOptimizer's subs), 0-d
+  tensors (the Accumulator's count) and plain dicts {theta path: slot},
+  where the reference holds a theta tree: each path is looked up in the
+  flattened tree, an Adafactor slot's names below it. A repeat stack's
+  slot is stacked on both sides. A missing leaf or a shape that differs
+  raises."""
+  out = []
+
+  def _Pair(name, dst, src):
+    arr = np.asarray(src)
+    if tuple(arr.shape) != tuple(dst.shape):
+      raise ValueError(f"{name}: reference state {arr.shape} vs port "
+                       f"{tuple(dst.shape)}")
+    out.append((name, dst, arr))
+
+  def _Walk(dst, src, name):
+    if isinstance(dst, NestedMap):
+      for k in dst:
+        if k not in src:
+          raise ValueError(f"{name}.{k}: not in the reference's state")
+        _Walk(dst[k], src[k], f"{name}.{k}")
+    elif isinstance(dst, (list, tuple)):
+      if len(dst) != len(src):
+        raise ValueError(f"{name}: {len(src)} reference entries for "
+                         f"{len(dst)}")
+      for i, (d, s) in enumerate(zip(dst, src)):
+        _Walk(d, s, f"{name}[{i}]")
+    elif isinstance(dst, dict):
+      flat = dict(NestedMap({"t": src}).FlattenItems())
+      for path, slot in dst.items():
+        if isinstance(slot, NestedMap):
+          for k, t in slot.items():
+            _Pair(f"{name}.{path}.{k}", t, flat[f"t.{path}.{k}"])
+        else:
+          _Pair(f"{name}.{path}", slot, flat[f"t.{path}"])
+    else:
+      _Pair(name, dst, src)
+
+  _Walk(opt_state, ref_state, "opt_state")
+  return out
+
+
+def LoadJaxOptState(opt_state, ref_state) -> list[str]:
+  """Copies the reference's optimizer state (a structure of numpy arrays)
+  into the port's `opt_state` in place; returns the leaves' names."""
+  names = []
+  with torch.no_grad():
+    for name, dst, arr in OptStatePairs(opt_state, ref_state):
+      dst.copy_(torch.tensor(arr).to(dst.dtype))
+      names.append(name)
+  return names
 
 
 def Int8ArtifactToTorch(theta, int8_tree) -> dict:

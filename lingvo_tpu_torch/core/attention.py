@@ -67,7 +67,6 @@ _NEG_INF = -2.3819763e38  # the reference's additive mask value
 # softmax; a tile past every query is an exact no-op, so a trimmed read
 # (live_len) gives bitwise the full read's result.
 _PREFILL_TILE = 128
-_DROPOUT = "attention dropout comes with a later training slice of the port"
 
 
 def CausalMask(t: int, device=None) -> torch.Tensor:
@@ -169,6 +168,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
           "rotary",
           layers_lib.RotaryPositionalEmbeddingLayer.Params().Set(
               embedding_dim=h))
+    self.CreateChild("atten_dropout",
+                     layers_lib.DeterministicDropoutLayer.Params())
 
   # -- projections -----------------------------------------------------------
 
@@ -220,6 +221,10 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     # fully masked queries); the clamp keeps rows finite
     logits = torch.clamp(logits, min=_NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if p.atten_dropout_prob > 0:
+      # the identity with no step seed (serving, eval)
+      probs = self.atten_dropout.FProp(
+          probs, keep_prob=1.0 - p.atten_dropout_prob)
     return py_utils.Einsum("bnts,bsnh->btnh", probs, v), probs
 
   def _OnCard(self) -> bool:
@@ -249,9 +254,8 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     atten_mask: optional additive mask. paddings: key paddings [B, S].
     segment_ids: [B, T] packed-input ids for both q and k (self-attention).
     causal=True masks the future as a flag, so the flash kernel can run.
-    Rotary positions are arange(T)."""
-    if self.p.atten_dropout_prob > 0:
-      raise NotImplementedError(_DROPOUT)
+    Rotary positions are arange(T). Attention dropout (on the einsum
+    path's probabilities, `_Atten`) draws from the step seed."""
     use_flash = self._FlashEligible(key_vec, atten_mask, query_vec.shape[1])
     key_vec = query_vec if key_vec is None else key_vec
     value_vec = key_vec if value_vec is None else value_vec
@@ -638,11 +642,10 @@ class MultiHeadedAttention(base_layer.BaseLayer):
     """Each row's logical cache, K and V [B, t_pages * P, N, H], gathered
     from the pool through its block table (dequantized to float32 for an
     int8 pool): the paged steps' read for a layer the paged kernels do
-    not serve (`BlockDecodeEligible` false: a logit cap, or on the card a
-    shape outside the kernels' limits), the reference's fallback. Dropout
-    is not ported and raises here as in FProp."""
-    if self.p.atten_dropout_prob > 0:
-      raise NotImplementedError(_DROPOUT)
+    not serve (`BlockDecodeEligible` false: a logit cap, attention
+    dropout, or on the card a shape outside the kernels' limits), the
+    reference's fallback. Its read is `_Atten`, whose dropout is the
+    identity with no step seed, as in serving."""
     k = block_decode.GatherPages(cached_states.key, block_tables)
     v = block_decode.GatherPages(cached_states.value, block_tables)
     if "key_scale" in cached_states:

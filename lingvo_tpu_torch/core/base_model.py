@@ -8,7 +8,16 @@ IN PLACE: the gradient comes from `loss.backward()`, the learner applies
 it under `torch.no_grad()`, and `state` carries the step counter and the
 optimizer state.
 
-`EvalStep` is the eval-mode FProp under `torch.no_grad()`, and
+`TrainStep` runs the forward under the step's seed, as the reference:
+the key fold_in(base_step_key, step) (base_step_key PRNGKey(0) unless
+the caller gives one; `TrainProgram` gives PRNGKey(base_step_seed)) in
+`py_utils.StepSeedContext`, with `GlobalStepContext(step)`; dropout and
+the sampled softmax draw from it. The learner's regularization loss is
+added to the loss it differentiates. `backward()` runs after those
+contexts have been left, so a rematerialized layer must carry the seeds
+it saw into its recompute (`transformer.RepeatedTransformerLayer`).
+`EvalStep` is the eval-mode FProp (`EvalContext`, no step seed) under
+`torch.no_grad()`, and
 `VariableSpecs()` lists the weights' shapes under the reference's theta
 paths (a repeat stack's leaves with their leading [num_layers] axis), as
 `model_analysis.txt` and `--mode=inspect_model` print them.
@@ -25,6 +34,8 @@ from lingvo_tpu_torch.core import base_layer
 from lingvo_tpu_torch.core import hyperparams
 from lingvo_tpu_torch.core import learner as learner_lib
 from lingvo_tpu_torch.core import optimizer as optimizer_lib
+from lingvo_tpu_torch.core import py_utils
+from lingvo_tpu_torch.core import threefry
 from lingvo_tpu_torch.core.nested_map import NestedMap
 
 
@@ -111,7 +122,7 @@ class BaseTask(base_layer.BaseLayer):
   def EvalStep(self, input_batch: NestedMap) -> tuple[NestedMap, NestedMap]:
     """One eval step: the eval-mode FProp, without gradients. Returns
     (metrics, per_example), every value detached."""
-    with torch.no_grad():
+    with torch.no_grad(), py_utils.EvalContext():
       return self.FProp(input_batch)
 
   def VariableSpecs(self) -> NestedMap:
@@ -138,17 +149,28 @@ class BaseTask(base_layer.BaseLayer):
     return NestedMap(step=0,
                      opt_states=[self.learner.InitState(self.TrainableTheta())])
 
-  def TrainStep(self, state: NestedMap, input_batch: NestedMap) -> NestedMap:
+  def TrainStep(self, state: NestedMap, input_batch: NestedMap,
+                base_step_key=None) -> NestedMap:
     """One training step, IN PLACE: the parameters and state.opt_states
-    are updated and state.step advances by one. Returns
-    NestedMap(metrics, stats, per_example), every value detached."""
+    are updated and state.step advances by one. base_step_key: the
+    threefry key the step's seed folds the step into (PRNGKey(0) if
+    None). Returns NestedMap(metrics, stats, per_example), every value
+    detached."""
+    if self._path is None:
+      self.FinalizePaths()   # the seeds are functions of the layer paths
     lrn = self.learner
     params = self.TrainableTheta()
     for prm in self.parameters():
       prm.grad = None
+    step_key = threefry.FoldIn(
+        threefry.PRNGKey(0) if base_step_key is None else base_step_key,
+        state.step)
     with torch.enable_grad():
-      metrics, per_example = self.FProp(input_batch)
-      metrics[lrn.p.loss_name][0].float().backward()
+      with py_utils.StepSeedContext(step_key), \
+          py_utils.GlobalStepContext(state.step):
+        metrics, per_example = self.FProp(input_batch)
+      loss = metrics[lrn.p.loss_name][0].float()
+      (loss + lrn.RegularizationLoss(params)).backward()
     grads = {}
     for key, leaf in params.items():
       members = [m.grad if m.grad is not None else torch.zeros_like(m)

@@ -1,11 +1,12 @@
 """Core NN layers the LM uses (port of part of lingvo_tpu/core/layers.py).
 
-`ProjectionLayer`, `LayerNorm`, `RotaryPositionalEmbeddingLayer` and the
+`ProjectionLayer`, `LayerNorm`, `RotaryPositionalEmbeddingLayer`, the
 tied `SharedEmbeddingSoftmaxLayer` (lookup with the sqrt(d) scale, logits
 with the tanh cap, and the training loss: the dense `XentLossFromLogits`
 or, with `xent_block_size > 0`, the fused blockwise xent of
-`ops/fused_xent.py`), with the reference's Params field names, weight
-names and op order. Under `fprop_dtype` (bfloat16) each layer casts its
+`ops/fused_xent.py`), the step-seeded `DeterministicDropoutLayer` and the
+untied `SampledSoftmax` head (log-uniform negatives), with the
+reference's Params field names, weight names and op order. Under `fprop_dtype` (bfloat16) each layer casts its
 theta and inputs as the reference does (`CastTheta`, `ToFPropDtype`):
 the norm's moments, the rotation and the losses stay float32. Only the
 fields the DenseLm models set are ported.
@@ -25,8 +26,10 @@ import torch
 
 from lingvo_tpu_torch.core import activations
 from lingvo_tpu_torch.core import base_layer
+from lingvo_tpu_torch.core import jit_arith
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import quant_utils
+from lingvo_tpu_torch.core import threefry
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.core.py_utils import WeightInit, WeightParams
 from lingvo_tpu_torch.ops import fused_xent
@@ -121,8 +124,9 @@ class RotaryPositionalEmbeddingLayer(base_layer.BaseLayer):
     half = dim // 2
     fraction = torch.arange(half, dtype=torch.float32,
                             device=inputs.device) / half
+    # a 0-dim CPU base is the kernel's scalar argument: no copy to a card
     base = torch.tensor(p.max_timescale / p.min_timescale,
-                        dtype=torch.float32, device=inputs.device)
+                        dtype=torch.float32)
     timescale = p.min_timescale * torch.pow(base, fraction)
     if position is None:
       t_ax = inputs.ndim - 3
@@ -244,3 +248,119 @@ def XentLossFromLogits(logits, num_classes, class_ids=None,
                            label_smoothing / num_classes)
   per_example_xent = -torch.sum(class_probabilities * log_probs, dim=-1)
   return NestedMap(per_example_xent=per_example_xent, log_probs=log_probs)
+
+
+class DeterministicDropoutLayer(base_layer.BaseLayer):
+  """Dropout seeded from the step-seed context (reference
+  DeterministicDropoutLayer): the identity in eval mode or with no step
+  seed active (serving, eval), so those callers need no keys.
+
+  The mask is `threefry.Bernoulli` of StepSeed(f"{path}/{name_suffix}",
+  extra_seed), bit for bit the reference's; kept values are divided by
+  keep_prob in the inputs' dtype as the reference's jitted step divides
+  by that constant: a product with its float32 reciprocal
+  (`jit_arith.Reciprocal`; at bfloat16 the constant is 0.8984375 for
+  0.9)."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("keep_prob", 1.0,
+             "Keep probability (may be overridden per call).")
+    return p
+
+  def FProp(self, inputs, keep_prob=None, name_suffix="", extra_seed=None):
+    p = self.p
+    kp = p.keep_prob if keep_prob is None else keep_prob
+    if kp >= 1.0 or py_utils.DoEval() or not py_utils.HasStepSeed():
+      return inputs
+    key = py_utils.StepSeed(f"{self.path}/{name_suffix}", extra_seed)
+    mask = threefry.Bernoulli(key, kp, inputs.shape, inputs.device)
+    scale = jit_arith.Reciprocal(
+        torch.tensor(kp, dtype=inputs.dtype).item())
+    return torch.where(mask, inputs * scale,
+                       torch.zeros((), dtype=inputs.dtype,
+                                   device=inputs.device))
+
+
+
+class SampledSoftmax(base_layer.BaseLayer):
+  """Sampled softmax for large vocabularies (reference SampledSoftmax):
+  an untied [V, D] table `w` with its bias `b`.
+
+  Training (a step seed active, not eval) scores each token's label and
+  num_sampled log-uniform negatives drawn once per step from
+  StepSeed(f"{path}/sampled_softmax"), each logit corrected by its log
+  expected count, accidental hits of the label masked. `Logits` gives the dense [..., V] logits (decode,
+  serving). The reference's jitted arithmetic is kept: its divisions by
+  Python constants are products with their float32 reciprocals
+  (`jit_arith.Reciprocal`), and an id is the truncation of
+  exp(u * log(V + 1)) - 1 to int32."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("input_dim", 0, "Input depth.")
+    p.Define("num_classes", 0, "Full vocabulary size.")
+    p.Define("num_sampled", 4096, "Negatives sampled per batch.")
+    return p
+
+  def __init__(self, params, device=None):
+    super().__init__(params, device)
+    p = self.p
+    assert p.input_dim > 0 and p.num_classes > 0, p.name
+    self.CreateVariable(
+        "w", WeightParams((p.num_classes, p.input_dim), p.params_init,
+                          p.dtype))
+    self.CreateVariable(
+        "b", WeightParams((p.num_classes,), WeightInit.Constant(0.0),
+                          p.dtype))
+
+  def _LogExpectedCount(self, ids):
+    """log(num_sampled * P(id)) under the log-uniform sampler, float32."""
+    p = self.p
+    ids = ids.float()
+    log_p = torch.log(torch.log((ids + 2.0) / (ids + 1.0)) *
+                      jit_arith.Reciprocal(math.log(p.num_classes + 1.0)))
+    return log_p + math.log(p.num_sampled)
+
+  def SampleNegatives(self, key, device):
+    """The step's num_sampled negative ids, int32 on `device`: the
+    uniforms drawn there, floor(exp(u * log(V + 1))) - 1 clipped to
+    [0, V). Above id 2^19 one float32 ulp of exp is 1/16 or more, so a
+    device whose exp rounds another way moves a few ids by one."""
+    p = self.p
+    u = threefry.Uniform01(key, (p.num_sampled,), device)
+    ids = torch.exp(u * math.log(p.num_classes + 1.0)) - 1.0
+    return torch.clamp(ids.to(torch.int32), 0, p.num_classes - 1)
+
+  def Logits(self, inputs):
+    """Dense [..., V] logits in the fprop dtype: x w^T + b."""
+    th = self.CastTheta()
+    return torch.matmul(self.ToFPropDtype(inputs), th.w.t()) + th.b
+
+  def XentLossFromInputs(self, inputs, class_ids):
+    """inputs [..., D], class_ids [...] -> the per-token sampled xent [...]
+    (training, under a step seed). The full softmax's loss is the LM's
+    fused eval over `w` and `b`, which never builds [..., V] logits."""
+    if py_utils.DoEval() or not py_utils.HasStepSeed():
+      raise RuntimeError(
+          "SampledSoftmax.XentLossFromInputs is the training loss: it needs "
+          "a StepSeedContext outside eval mode")
+    th = self.CastTheta()
+    x = self.ToFPropDtype(inputs)
+    neg_ids = self.SampleNegatives(
+        py_utils.StepSeed(f"{self.path}/sampled_softmax"), x.device)
+    ids = class_ids.long()
+    # the label's logit with its correction
+    true_logit = torch.sum(x * th.w[ids], -1) + th.b[ids]
+    true_logit = true_logit.float() - self._LogExpectedCount(class_ids)
+    # the negatives' logits with theirs; a negative equal to the label is
+    # masked
+    neg = neg_ids.long()
+    neg_logits = torch.matmul(x, th.w[neg].t()) + th.b[neg]
+    neg_logits = neg_logits.float() - self._LogExpectedCount(neg_ids)
+    hit = neg_ids == class_ids[..., None]
+    neg_logits = torch.where(hit, -1e9, neg_logits)
+    all_logits = torch.cat([true_logit[..., None], neg_logits], -1)
+    return -torch.log_softmax(all_logits, dim=-1)[..., 0]

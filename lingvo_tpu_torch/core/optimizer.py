@@ -15,16 +15,26 @@ stacked leaf are stacked, as the reference's are.
 old value of every parameter and slot where it is set (the reference's
 rollback by `jnp.where`), still without a host sync.
 
-Only `Adafactor` (the DenseLm recipe) is ported; the reference's SGD,
-Momentum, RMSProp, Adagrad, Adam, AdamW and Accumulator come with a later
-slice.
+Ported: SGD, Momentum, RMSProp, Adagrad, Adam, AdamW, Adafactor, the
+gradient `Accumulator` and `CompositeOptimizer`. The elementwise rules
+keep their slots under the reference's names, one {path: tensor} dict
+per slot (`m`, `v`, ...), a repeat stack's slot stacked. Their float32
+arithmetic follows the reference's jitted program: Python constants are
+float32 constants, and a division by one (the Accumulator's mean) is a
+product with its float32 reciprocal (`jit_arith.Reciprocal`). The
+reference's `DistributedShampoo`, `EGDD` and `AdaGraft` are not ported.
 """
 
 from __future__ import annotations
 
+import re
+
+import numpy as np
 import torch
 
 from lingvo_tpu_torch.core import base_layer
+from lingvo_tpu_torch.core import jit_arith
+from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
 
 
@@ -55,6 +65,169 @@ class BaseOptimizer(base_layer.BaseLayer):
     shapes; lr a 0-d float32 tensor; skipped None or a 0-d bool tensor on
     the parameters' device. Updates params and state in place."""
     raise NotImplementedError
+
+
+class _Elementwise(BaseOptimizer):
+  """An optimizer whose rule acts element by element: `_SLOTS` names its
+  slots ({name: initial value}), `_Rule(w, g, slots, lr, consts)` returns
+  the new parameter and {slot: new value} for one per-layer tensor, and
+  `_Consts(step)` the step's scalars. A stacked leaf's layers are updated
+  one by one against their slices of the stacked slots."""
+
+  _SLOTS: dict = {}
+
+  def _SlotInit(self, name):
+    return self._SLOTS[name]
+
+  def InitState(self, params):
+    state = NestedMap()
+    for name in self._SLOTS:
+      state[name] = {
+          k: torch.full(tuple(leaf.shape), float(self._SlotInit(name)),
+                        dtype=torch.float32, device=Members(leaf)[0].device)
+          for k, leaf in params.items()}
+    return state
+
+  def _Consts(self, step) -> dict:
+    del step
+    return {}
+
+  def _Rule(self, w, g, slots, lr, consts):
+    raise NotImplementedError
+
+  @torch.no_grad()
+  def Update(self, state, grads, params, lr, step, skipped=None):
+    consts = dict(self._Consts(step), lr=lr)
+    on_device = {}   # the step's scalars, copied once to each device
+    for key, leaf in params.items():
+      stacked = isinstance(leaf, base_layer.StackedLeaf)
+      dev = Members(leaf)[0].device
+      if dev not in on_device:
+        on_device[dev] = {k: py_utils.ToDevice(v, dev)
+                          for k, v in consts.items()}
+      c = on_device[dev]
+      lr_d = c["lr"]
+      for i, (w, g) in enumerate(zip(Members(leaf), Members(grads[key]))):
+        slots = {n: (state[n][key][i] if stacked else state[n][key])
+                 for n in self._SLOTS}
+        new_w, new_slots = self._Rule(w, g, slots, lr_d, c)
+        for n, value in new_slots.items():
+          _Write(slots[n], value, skipped)
+        _Write(w, new_w, skipped)
+
+
+def _F32(x) -> torch.Tensor:
+  return torch.tensor(np.float32(x), dtype=torch.float32)
+
+
+class SGD(_Elementwise):
+
+  def _Rule(self, w, g, slots, lr, consts):
+    return w - lr * g.to(w.dtype), {}
+
+
+class Momentum(_Elementwise):
+
+  _SLOTS = {"m": 0.0}
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("momentum", 0.9, "Momentum coefficient.")
+    p.Define("use_nesterov", False, "Nesterov variant.")
+    return p
+
+  def _Rule(self, w, g, slots, lr, consts):
+    p = self.p
+    m = p.momentum * slots["m"] + g
+    upd = p.momentum * m + g if p.use_nesterov else m
+    return w - lr * upd.to(w.dtype), {"m": m}
+
+
+class RMSProp(_Elementwise):
+
+  _SLOTS = {"ms": 1.0, "mom": 0.0}
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("decay", 0.9, "Decay of the moving second moment.")
+    p.Define("momentum", 0.0, "Optional momentum.")
+    p.Define("epsilon", 1.0, "Stability term (ref default 1.0).")
+    return p
+
+  def _Rule(self, w, g, slots, lr, consts):
+    p = self.p
+    ms = p.decay * slots["ms"] + (1 - p.decay) * torch.square(g)
+    mom = p.momentum * slots["mom"] + lr * g * torch.rsqrt(ms + p.epsilon)
+    return w - mom.to(w.dtype), {"ms": ms, "mom": mom}
+
+
+class Adagrad(_Elementwise):
+
+  _SLOTS = {"acc": None}
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("initial_accumulator_value", 0.1, "Initial accumulator.")
+    return p
+
+  def _SlotInit(self, name):
+    return self.p.initial_accumulator_value
+
+  def _Rule(self, w, g, slots, lr, consts):
+    acc = slots["acc"] + torch.square(g)
+    return w - (lr * g * torch.rsqrt(acc + 1e-30)).to(w.dtype), {"acc": acc}
+
+
+class Adam(_Elementwise):
+  """Adam (the reference's: epsilon added to sqrt(v), the bias correction
+  folded into the rate). The correction sqrt(1 - beta2^t) / (1 - beta1^t)
+  is computed once a step on the CPU in float32, t = float32(step) + 1,
+  each power a float32 `pow` as XLA's."""
+
+  _SLOTS = {"m": 0.0, "v": 0.0}
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("beta1", 0.9, "First-moment decay.")
+    p.Define("beta2", 0.999, "Second-moment decay.")
+    p.Define("epsilon", 1e-6, "Stability term (ref default 1e-6).")
+    return p
+
+  def _Consts(self, step):
+    p = self.p
+    t = _F32(step) + 1.0
+    corr = (torch.sqrt(1.0 - torch.pow(_F32(p.beta2), t)) /
+            (1.0 - torch.pow(_F32(p.beta1), t)))
+    return {"correction": corr}
+
+  def _Rule(self, w, g, slots, lr, consts):
+    p = self.p
+    m = p.beta1 * slots["m"] + (1 - p.beta1) * g
+    v = p.beta2 * slots["v"] + (1 - p.beta2) * torch.square(g)
+    upd = lr * consts["correction"] * m / (torch.sqrt(v) + p.epsilon)
+    return w - upd.to(w.dtype), {"m": m, "v": v}
+
+
+class AdamW(Adam):
+  """Adam with decoupled weight decay: the Adam step minus lr * wd * w,
+  w the parameter before the step."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("weight_decay", 0.0, "Decoupled weight decay rate.")
+    return p
+
+  def _Rule(self, w, g, slots, lr, consts):
+    new_w, new_slots = super()._Rule(w, g, slots, lr, consts)
+    wd = self.p.weight_decay
+    if wd:
+      new_w = new_w - lr * wd * w
+    return new_w, new_slots
 
 
 class Adafactor(BaseOptimizer):
@@ -131,8 +304,8 @@ class Adafactor(BaseOptimizer):
     stacked = isinstance(leaf, base_layer.StackedLeaf)
     factored = self._ShouldFactor(tuple(leaf.shape))
     dev = ws[0].device
-    decay = decay.to(dev)
-    lr = lr.to(dev)
+    decay = py_utils.ToDevice(decay, dev)
+    lr = py_utils.ToDevice(lr, dev)
 
     def _Slot(name, i):
       return slot[name][i] if stacked else slot[name]
@@ -176,3 +349,117 @@ class Adafactor(BaseOptimizer):
       for name, value in new.items():
         _Write(_Slot(name, i), value, skipped)
       _Write(w, w - (scale * u).to(w.dtype), skipped)
+
+
+class Accumulator(BaseOptimizer):
+  """Gradient accumulation (reference Accumulator): the gradients are
+  summed over accum_steps micro-steps, and on the last one the inner
+  optimizer applies their mean (a product with the float32 reciprocal of
+  accum_steps, as in the reference's jitted step) and the sum restarts.
+  On the other micro-steps the parameters and the inner state keep their
+  values."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("optimizer_tpl", Adam.Params(), "Inner optimizer.")
+    p.Define("accum_steps", 1, "Number of micro-steps per real update.")
+    return p
+
+  def __init__(self, params, device=None):
+    super().__init__(params, device)
+    self.CreateChild("opt", self.p.optimizer_tpl)
+
+  def InitState(self, params):
+    dev = next(iter(params.values()))
+    dev = Members(dev)[0].device
+    return NestedMap(
+        inner=self.opt.InitState(params),
+        accum={k: torch.zeros(tuple(leaf.shape), dtype=torch.float32,
+                              device=Members(leaf)[0].device)
+               for k, leaf in params.items()},
+        count=torch.zeros((), dtype=torch.int32, device=dev))
+
+  @torch.no_grad()
+  def Update(self, state, grads, params, lr, step, skipped=None):
+    p = self.p
+    count = state.count + 1
+    do_apply = count >= p.accum_steps
+    inv = jit_arith.Reciprocal(p.accum_steps)
+    accums, means = {}, {}
+    for key, leaf in params.items():
+      stacked = isinstance(leaf, base_layer.StackedLeaf)
+      acc_l, mean_l = [], []
+      for i, g in enumerate(Members(grads[key])):
+        a = (state.accum[key][i] if stacked else state.accum[key]) + g
+        acc_l.append(a)
+        mean_l.append(a * inv)
+      accums[key] = acc_l
+      means[key] = (base_layer.StackedLeaf(tuple(mean_l)) if stacked
+                    else mean_l[0])
+    hold = ~do_apply if skipped is None else (skipped | ~do_apply)
+    self.opt.Update(state.inner, means, params, lr, step, skipped=hold)
+    for key, leaf in params.items():
+      stacked = isinstance(leaf, base_layer.StackedLeaf)
+      for i, a in enumerate(accums[key]):
+        dst = state.accum[key][i] if stacked else state.accum[key]
+        _Write(dst, torch.where(do_apply, torch.zeros_like(a), a), skipped)
+    _Write(state.count, torch.where(do_apply, torch.zeros_like(count), count),
+           skipped)
+
+
+class CompositeOptimizer(BaseOptimizer):
+  """Routes each parameter to a sub-optimizer by regex (reference
+  CompositeOptimizer): optimizer_map is [(regex, optimizer Params, lr
+  multiplier)], the first `re.match` of a theta path wins. As in the
+  reference, every sub-optimizer keeps state for the whole tree and is
+  run over all of it, the gradients of the parameters routed elsewhere
+  zeroed, and only its own parameters take its result (the others run
+  it on copies that are dropped): so the slots of unrouted parameters
+  evolve as the reference's do."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("optimizer_map", [],
+             "List of (regex, optimizer Params, lr multiplier). First match "
+             "wins; a '.*' default entry is required.")
+    return p
+
+  def __init__(self, params, device=None):
+    super().__init__(params, device)
+    self.CreateChildren("subs", [tpl for _, tpl, _ in self.p.optimizer_map])
+
+  def _RouteIndex(self, path: str) -> int:
+    for i, (regex, _, _) in enumerate(self.p.optimizer_map):
+      if re.match(regex, path):
+        return i
+    raise ValueError(f"No optimizer_map entry matches {path!r}")
+
+  def InitState(self, params):
+    for k in params:
+      self._RouteIndex(k)
+    return NestedMap(subs=[opt.InitState(params) for opt in self.subs])
+
+  @torch.no_grad()
+  def Update(self, state, grads, params, lr, step, skipped=None):
+    routes = {k: self._RouteIndex(k) for k in params}
+
+    def _Copy(leaf):
+      if isinstance(leaf, base_layer.StackedLeaf):
+        return base_layer.StackedLeaf(tuple(x.clone() for x in leaf.layers))
+      return leaf.clone()
+
+    def _Zeros(leaf):
+      if isinstance(leaf, base_layer.StackedLeaf):
+        return base_layer.StackedLeaf(
+            tuple(torch.zeros_like(x) for x in leaf.layers))
+      return torch.zeros_like(leaf)
+
+    for i, opt in enumerate(self.subs):
+      mult = self.p.optimizer_map[i][2]
+      mine = {k: routes[k] == i for k in params}
+      masked = {k: grads[k] if mine[k] else _Zeros(grads[k]) for k in params}
+      view = {k: params[k] if mine[k] else _Copy(params[k]) for k in params}
+      opt.Update(state.subs[i], masked, view, lr * mult, step,
+                 skipped=skipped)

@@ -9,19 +9,27 @@ across with `convert.LoadJaxTheta` rather than re-drawing them.
 
 And what the train step needs: `ApplyPadding`, `SequenceMask` and
 `GlobalNorm`, in the reference's float32 op order; the bf16 activations
-policy, `MaybeBfloat16` and `WeakScalar`; and the shape bucketing of
-batch decode, `RoundUpToBucket`.
+policy, `MaybeBfloat16` and `WeakScalar`; the shape bucketing of
+batch decode, `RoundUpToBucket`; and the per-step seeds of the stochastic
+layers: `StepSeedContext` / `HasStepSeed` / `StepSeed`, `StepSeedSalt`,
+`EvalContext` / `DoEval` and `GlobalStepContext`, thread-local stacks as
+in the reference, plus `SeedState` / `InSeedState`, which carry a
+snapshot of them into a function that runs again later (the backward's
+recompute of a rematerialized layer, perhaps on another thread).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import math
-from typing import Any, Sequence
+import threading
+from typing import Any, NamedTuple, Sequence
 
 import torch
 
+from lingvo_tpu_torch.core import threefry
 from lingvo_tpu_torch.core.hyperparams import RegisterSerializableType
 
 
@@ -254,6 +262,17 @@ def GlobalNorm(tensors) -> torch.Tensor:
   return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tensors))
 
 
+def ToDevice(x: torch.Tensor, device) -> torch.Tensor:
+  """x on `device` without making the host wait: a CPU tensor bound for a
+  card goes through pinned memory as a non-blocking copy (a copy from
+  pageable memory synchronizes the stream; the pinned block is kept
+  until the copy is done). Any other move is x.to(device)."""
+  device = torch.device(device)
+  if x.device.type == "cpu" and device.type == "cuda":
+    return x.pin_memory().to(device, non_blocking=True)
+  return x.to(device)
+
+
 def RoundUpToBucket(n: int, buckets) -> int:
   """Smallest bucket >= n; n itself when it exceeds every bucket.
 
@@ -265,3 +284,114 @@ def RoundUpToBucket(n: int, buckets) -> int:
     if n <= b:
       return int(b)
   return int(n)
+
+
+# -- per-step seeds and modes of the forward pass -----------------------------
+
+_TLS = threading.local()
+
+
+def _Stack(name: str) -> list:
+  if not hasattr(_TLS, name):
+    setattr(_TLS, name, [])
+  return getattr(_TLS, name)
+
+
+@contextlib.contextmanager
+def _Pushed(name: str, value):
+  stack = _Stack(name)
+  stack.append(value)
+  try:
+    yield
+  finally:
+    stack.pop()
+
+
+def GlobalStepContext(step):
+  """Makes the global step available to layers during FProp (TrainStep
+  enters it)."""
+  return _Pushed("global_step", step)
+
+
+def GetGlobalStep():
+  """The current global step inside FProp, or None outside TrainStep."""
+  stack = _Stack("global_step")
+  return stack[-1] if stack else None
+
+
+def StepSeedContext(key):
+  """Makes a per-step key (a threefry key [2], on the CPU) available to
+  the stochastic layers during FProp."""
+  return _Pushed("step_seed", threefry._AsKey(key))
+
+
+def HasStepSeed() -> bool:
+  return bool(_Stack("step_seed"))
+
+
+def StepSeed(name: str, extra=None):
+  """A layer-unique key from the current step seed, as the reference
+  derives it: fold_in(key, GenerateSeedFromName(name)), then each active
+  StepSeedSalt from the outermost in, then `extra`. A CPU key [2]."""
+  stack = _Stack("step_seed")
+  if not stack:
+    raise RuntimeError(
+        "No StepSeedContext active; wrap the train FProp in "
+        "py_utils.StepSeedContext(step_key)")
+  key = threefry.FoldIn(stack[-1], GenerateSeedFromName(name))
+  for salt in _Stack("seed_salt"):
+    key = threefry.FoldIn(key, salt)
+  if extra is not None:
+    key = threefry.FoldIn(key, extra)
+  return key
+
+
+def StepSeedSalt(salt):
+  """Folds `salt` (a repeat stack's layer index) into every StepSeed drawn
+  inside."""
+  return _Pushed("seed_salt", salt)
+
+
+def EvalContext(do_eval: bool = True):
+  """Marks FProp as eval-mode (dropout off)."""
+  return _Pushed("do_eval", do_eval)
+
+
+def DoEval() -> bool:
+  stack = _Stack("do_eval")
+  return stack[-1] if stack else False
+
+
+class SeedState(NamedTuple):
+  """What StepSeed, DoEval and GetGlobalStep read on this thread now."""
+  step_seed: Any
+  salts: tuple
+  do_eval: Any
+  global_step: Any
+
+
+def CurrentSeedState() -> SeedState:
+  top = lambda name: _Stack(name)[-1] if _Stack(name) else None
+  return SeedState(top("step_seed"), tuple(_Stack("seed_salt")),
+                   top("do_eval"), top("global_step"))
+
+
+def InSeedState(state: SeedState, fn, *args, **kwargs):
+  """fn(*args, **kwargs) with exactly `state`'s step seed, salts, eval
+  mode and global step active on this thread, whatever is active around
+  the call: a rematerialized layer's recompute runs inside backward(),
+  where the forward's contexts have been left (and autograd may run it on
+  a thread of its own)."""
+  saved = {n: list(_Stack(n)) for n in ("step_seed", "seed_salt", "do_eval",
+                                        "global_step")}
+  _Stack("step_seed")[:] = [] if state.step_seed is None else [
+      state.step_seed]
+  _Stack("seed_salt")[:] = list(state.salts)
+  _Stack("do_eval")[:] = [] if state.do_eval is None else [state.do_eval]
+  _Stack("global_step")[:] = [] if state.global_step is None else [
+      state.global_step]
+  try:
+    return fn(*args, **kwargs)
+  finally:
+    for n, v in saved.items():
+      _Stack(n)[:] = v

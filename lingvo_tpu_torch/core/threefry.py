@@ -20,9 +20,13 @@ SC 2011; Threefry-2x32 with 20 rounds), as plain PyTorch:
   flat index of each element, split into its high and low 32 bits;
 - `Uniform`: the mantissa (bits >> 9) | 0x3f800000 as a float32, minus 1,
   then times (1 - tiny) (1.0 in float32), plus tiny, floored at tiny;
-- `Gumbel` in JAX's default mode ("low"): -log(-log(u)).
+- `Gumbel` in JAX's default mode ("low"): -log(-log(u));
+- `Uniform01`: `jax.random.uniform(key, shape)` on [0, 1), the same
+  mantissa minus 1 with no floor (dropout and the sampled softmax's
+  negatives draw these);
+- `Bernoulli`: `jax.random.bernoulli(key, p, shape)`, Uniform01 < float32(p).
 
-The bits and uniforms equal JAX's bit for bit. `log` is the framework's:
+The bits, uniforms and Bernoulli masks equal JAX's bit for bit. `log` is the framework's:
 PyTorch's and XLA's float32 logarithms differ by one ulp on some
 elements, so a Gumbel value may differ by about 1e-6 and a token only
 where two perturbed logits are that close.
@@ -99,15 +103,23 @@ def _Counters(shape, device):
   return idx >> 32, idx & MASK32
 
 
-def Bits32(key, shape):
+def Bits32(key, shape, device=None):
   """jax.random.bits(key, shape, uint32): b0 ^ b1 over flat-index counters.
   key [..., 2] draws one array of `shape` per leading index: -> [...,
-  *shape] int64 holding uint32 values."""
+  *shape] int64 holding uint32 values, on `device` (default the key's).
+  A single key on the CPU enters as two Python ints, the kernels' scalar
+  arguments, so a draw on a card copies nothing to it and never waits
+  for its stream."""
   key = _AsKey(key)
-  hi, lo = _Counters(tuple(shape), key.device)
-  lead = key.shape[:-1]
-  k0 = key[..., 0].reshape(lead + (1,) * len(shape))
-  k1 = key[..., 1].reshape(lead + (1,) * len(shape))
+  device = key.device if device is None else torch.device(device)
+  hi, lo = _Counters(tuple(shape), device)
+  if key.dim() == 1 and key.device.type == "cpu":
+    k0, k1 = key.tolist()
+  else:
+    lead = key.shape[:-1]
+    key = key.to(device)
+    k0 = key[..., 0].reshape(lead + (1,) * len(shape))
+    k1 = key[..., 1].reshape(lead + (1,) * len(shape))
   y0, y1 = Threefry2x32(k0, k1, hi, lo)
   return y0 ^ y1
 
@@ -130,3 +142,18 @@ def Gumbel(key, shape):
   """jax.random.gumbel(key, shape, float32), mode "low"."""
   return -torch.log(-torch.log(Uniform(key, shape)))
 
+
+
+def Uniform01(key, shape, device=None):
+  """jax.random.uniform(key, shape, float32) on [0, 1), on `device`: the
+  mantissa trick minus 1 (the product by maxval - minval = 1 and the sum
+  with minval = 0 are exact, and so is the floor at 0)."""
+  mant = ((Bits32(key, shape, device) >> 9) | 0x3F800000).to(
+      torch.int32).view(torch.float32)
+  return mant - 1.0
+
+
+def Bernoulli(key, p: float, shape, device=None):
+  """jax.random.bernoulli(key, p, shape), mode "low": a bool tensor on
+  `device`, Uniform01(key, shape) < float32(p)."""
+  return Uniform01(key, shape, device) < float(np.float32(p))

@@ -28,8 +28,13 @@ legacy serving step, [B, C] rows) and `RaggedStep` (the packed serving
 step). `PagedStep` dispatches per mixer, so an SSM layer's own
 `PagedStep` serves its slot state.
 
-Only the Params fields the DenseLm models set are ported (no dropout,
-gating or cross-attention fields).
+Only the Params fields the DenseLm and 1B-words models set are ported
+(the residual and ReLU dropouts, drawn from the step seed; no gating or
+cross-attention fields). The repeat's layers all take the reference's one
+body path, and layer i folds i into its dropout seeds (`StepSeedSalt`),
+as the reference's scan does; under remat the forward's seed state is
+passed into the checkpointed function, so the backward's recompute draws
+the same masks.
 """
 
 from __future__ import annotations
@@ -56,6 +61,8 @@ class TransformerFeedForwardLayer(base_layer.BaseLayer):
     p.Define("input_dim", 0, "Model dim.")
     p.Define("hidden_dim", 0, "Inner dim.")
     p.Define("activation", "RELU", "Inner activation.")
+    p.Define("residual_dropout_prob", 0.0, "Dropout on the residual add.")
+    p.Define("relu_dropout_prob", 0.0, "Dropout after the inner activation.")
     return p
 
   def __init__(self, params, device=None):
@@ -72,11 +79,19 @@ class TransformerFeedForwardLayer(base_layer.BaseLayer):
         "ffn_out",
         layers_lib.ProjectionLayer.Params().Set(
             input_dim=p.hidden_dim, output_dim=p.input_dim))
+    self.CreateChild("dropout", layers_lib.DeterministicDropoutLayer.Params())
 
   def FProp(self, inputs, paddings=None):
-    h = activations.GetFn(self.p.activation)(
+    p = self.p
+    h = activations.GetFn(p.activation)(
         self.ffn_in.FProp(self.ln.FProp(inputs)))
+    if p.relu_dropout_prob > 0:
+      h = self.dropout.FProp(h, keep_prob=1.0 - p.relu_dropout_prob,
+                             name_suffix="relu")
     out = self.ffn_out.FProp(h)
+    if p.residual_dropout_prob > 0:
+      out = self.dropout.FProp(out, keep_prob=1.0 - p.residual_dropout_prob,
+                               name_suffix="res")
     if paddings is not None:
       out = py_utils.ApplyPadding(paddings, out)
     return inputs + out
@@ -93,6 +108,7 @@ class TransformerAttentionLayer(base_layer.BaseLayer):
     p.Define("atten_tpl", attention_lib.MultiHeadedAttention.Params(),
              "Attention template.")
     p.Define("is_masked", False, "Causal self-attention.")
+    p.Define("residual_dropout_prob", 0.0, "Residual dropout.")
     return p
 
   def __init__(self, params, device=None):
@@ -105,15 +121,19 @@ class TransformerAttentionLayer(base_layer.BaseLayer):
         hidden_dim=p.atten_tpl.hidden_dim or p.input_dim,
         num_heads=p.num_heads)
     self.CreateChild("atten", atten_p)
+    self.CreateChild("dropout", layers_lib.DeterministicDropoutLayer.Params())
 
   def FProp(self, query_vec, paddings=None, atten_mask=None,
             segment_ids=None):
     """Self-attention; causality is passed as a flag (not a materialized
     mask) so the fused flash kernel can take over when eligible."""
+    p = self.p
     x = self.ln.FProp(query_vec)
     out, probs = self.atten.FProp(x, paddings=paddings, atten_mask=atten_mask,
                                   segment_ids=segment_ids,
-                                  causal=self.p.is_masked)
+                                  causal=p.is_masked)
+    if p.residual_dropout_prob > 0:
+      out = self.dropout.FProp(out, keep_prob=1.0 - p.residual_dropout_prob)
     return query_vec + out, probs
 
   def InitStates(self, batch_size, max_len):
@@ -350,6 +370,14 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
       raise ValueError(f"remat_policy {self.p.remat_policy!r}")
     self.CreateChildren("body", [self.p.body] * self.p.num_layers)
 
+  def _AssignPaths(self, path: str) -> None:
+    """Every layer of the loop takes the reference's one body path,
+    `{path}/body`: the reference scans a single body, and its layers'
+    dropout seeds differ only by the layer index folded in as a salt."""
+    self._path = path
+    for layer in self.body:
+      layer._AssignPaths(f"{path}/body")
+
   def ThetaTree(self) -> NestedMap:
     """The reference's repeat theta: each leaf of the body as a
     StackedLeaf of the num_layers per-layer parameters."""
@@ -370,13 +398,18 @@ class RepeatedTransformerLayer(base_layer.BaseLayer):
           "remat_policy='dots' (save matmul outputs) comes with a later "
           "training slice of the port; use 'full' or 'none'")
     x = inputs
-    for layer in self.body:
-      if remat:
-        x = checkpoint_lib.checkpoint(layer.FProp, x, paddings, segment_ids,
-                                      use_reentrant=False,
-                                      context_fn=_RematContexts)
-      else:
-        x = layer.FProp(x, paddings, segment_ids)
+    for i, layer in enumerate(self.body):
+      # layer i's dropout seeds fold in i, as the reference's scan index
+      with py_utils.StepSeedSalt(i):
+        if remat:
+          # the seeds the forward saw go into the checkpointed function:
+          # its recompute runs inside backward(), outside these contexts
+          x = checkpoint_lib.checkpoint(
+              py_utils.InSeedState, py_utils.CurrentSeedState(),
+              layer.FProp, x, paddings, segment_ids, use_reentrant=False,
+              context_fn=_RematContexts)
+        else:
+          x = layer.FProp(x, paddings, segment_ids)
     return x
 
   def _Stacked(self, one: NestedMap) -> NestedMap:

@@ -3,3 +3,4 @@
 port does not have yet)."""
 
 from lingvo_tpu_torch.models.lm.params import synthetic_packed_input  # noqa: F401
+from lingvo_tpu_torch.models.lm.params import one_billion_wds  # noqa: F401

@@ -9,7 +9,10 @@ mixer everywhere (`mixer_atten_every_n == 0`). It implements:
 
 - the training surface: `ComputePredictions` / `ComputeLoss` over packed
   batches (ids, labels, paddings, segment_ids), with the dense head or,
-  with `xent_block_size > 0`, the fused blockwise xent; `BaseTask.TrainStep`
+  with `xent_block_size > 0`, the fused blockwise xent, or, with
+  `softmax_num_sampled > 0`, an untied sampled-softmax head
+  (`core/layers.SampledSoftmax`); `residual_dropout_prob` and
+  `atten_dropout_prob` draw from the step seed; `BaseTask.TrainStep`
   drives them;
 - incremental decode over a dense per-batch KV cache, which
   `runners/gshard_decode.GShardDecode` drives: `InitDecodeState`,
@@ -21,10 +24,20 @@ mixer everywhere (`mixer_atten_every_n == 0`). It implements:
 Decode follows the reference's position policy: rotary positions are the
 global cache slots and no absolute position embedding is added.
 
-Only the Params fields the DenseLm models set are ported, plus those whose
-other values raise NotImplementedError naming the slice that brings them
-(MoE, int8 KV pools, attention dropout, the sampled softmax, the
-bidirectional encoder).
+A sampled-softmax task trains on its sampled loss under a step seed.
+Its eval (and any FProp without a step seed) computes the reference's
+full-softmax metrics through the fused xent statistics
+(`ops/fused_xent.FusedXent`, the kernel on the card) over the untied
+table and its bias: the same function as the reference's dense
+`XentLossFromLogits` and `argmax`, its float32 sums in another order,
+and the [B, T, V] logits (52 GB at the 1B-words eval's 793,470 words)
+never exist. Decode and serving score with the untied head, as the
+reference's do.
+
+Only the Params fields the DenseLm and 1B-words models set are ported,
+plus those whose other values raise NotImplementedError naming the slice
+that brings them (MoE, absolute position embeddings, the bidirectional
+encoder).
 
 Construct on an explicit device: `TransformerLm.Params().Set(...)
 .Instantiate(device="cpu")`; with no device the model goes to CUDA and
@@ -40,6 +53,11 @@ from lingvo_tpu_torch.core import layers as layers_lib
 from lingvo_tpu_torch.core import py_utils
 from lingvo_tpu_torch.core import transformer as transformer_lib
 from lingvo_tpu_torch.core.nested_map import NestedMap
+from lingvo_tpu_torch.ops import fused_xent
+
+# the vocab block of a sampled-softmax task's fused eval statistics (the
+# plain version's block; the kernel tiles the vocabulary its own way)
+SAMPLED_EVAL_XENT_BLOCK = 1024
 
 
 class TransformerLm(base_model.BaseTask):
@@ -93,12 +111,16 @@ class TransformerLm(base_model.BaseTask):
              "with per-token-per-head scales; quant/kv.py). SSM state slots "
              "stay float32. Overridable per engine through "
              "InitPagedDecodeState(..., kv_cache_dtype=...).")
-    # fields whose non-default values raise until their slice is ported
-    p.Define("atten_dropout_prob", 0.0,
-             "Attention dropout (a later training slice; the serving step "
-             "needs the gather-dense fallback).")
     p.Define("softmax_num_sampled", 0,
-             "Sampled-softmax training head (the sampled-softmax slice).")
+             "If >0, train with a sampled softmax over this many log-uniform "
+             "negatives (untied output head; the word-level 793k-vocab "
+             "1B-words recipe). Eval computes the full softmax's metrics "
+             "through the fused xent statistics.")
+    p.Define("residual_dropout_prob", 0.0, "Residual dropout.")
+    p.Define("atten_dropout_prob", 0.0,
+             "Attention dropout (the serving steps then take the "
+             "gather-dense fallback, where it is the identity).")
+    # fields whose non-default values raise until their slice is ported
     p.Define("num_experts", 0, "GShard MoE experts (the MoE slice).")
     return p
 
@@ -107,10 +129,6 @@ class TransformerLm(base_model.BaseTask):
     p = self.p
     if p.num_experts > 0:
       raise NotImplementedError("MoE layers come with the MoE slice")
-    if p.softmax_num_sampled > 0:
-      raise NotImplementedError(
-          "the sampled-softmax head comes with the sampled-softmax slice of "
-          "the port")
     if p.bidirectional:
       raise NotImplementedError(
           "the bidirectional (BERT-style) encoder comes with a later slice")
@@ -129,6 +147,8 @@ class TransformerLm(base_model.BaseTask):
         use_rotary_position_emb=p.use_rotary,
         kv_cache_dtype=p.kv_cache_dtype,
         atten_dropout_prob=p.atten_dropout_prob)
+    layer_body.tr_atten_tpl.residual_dropout_prob = p.residual_dropout_prob
+    layer_body.tr_fflayer_tpl.residual_dropout_prob = p.residual_dropout_prob
     ssm_body = None
     if p.mixer_tpl is not None:
       assert p.num_experts == 0, (
@@ -178,14 +198,25 @@ class TransformerLm(base_model.BaseTask):
               num_layers=p.num_layers, input_dim=p.model_dim,
               transformer_layer_params_tpl=ssm_body or layer_body,
               final_ln=False))
+    if p.softmax_num_sampled > 0:
+      assert p.xent_block_size == 0, (
+          "sampled softmax and the fused blockwise xent are both "
+          "no-[B,T,V]-logits training paths; pick one")
+      assert p.label_smoothing == 0.0, (
+          "label_smoothing is not supported with the sampled softmax")
+      self.CreateChild(
+          "sampled_softmax",
+          layers_lib.SampledSoftmax.Params().Set(
+              input_dim=p.model_dim, num_classes=p.vocab_size,
+              num_sampled=p.softmax_num_sampled))
     self.CreateChild(
         "final_ln", layers_lib.LayerNorm.Params().Set(input_dim=p.model_dim))
 
   # -- training forward ----------------------------------------------------------
 
   def ComputePredictions(self, input_batch: NestedMap) -> NestedMap:
-    """NestedMap(hidden [b, t, D]) with the fused head, else
-    NestedMap(logits [b, t, V])."""
+    """NestedMap(hidden [b, t, D]) with the fused or the sampled head,
+    else NestedMap(logits [b, t, V])."""
     if not self.p.use_rotary:
       raise NotImplementedError(
           "absolute position embeddings come with a later training slice; "
@@ -194,9 +225,47 @@ class TransformerLm(base_model.BaseTask):
     x = self.stack.FProp(x, paddings=input_batch.paddings,
                          segment_ids=input_batch.Get("segment_ids"))
     x = self.final_ln.FProp(x)
-    if self.p.xent_block_size > 0:
+    if self.p.xent_block_size > 0 or self.p.softmax_num_sampled > 0:
       return NestedMap(hidden=x)
     return NestedMap(logits=self.emb.Logits(x))
+
+  def _FullLogits(self, predictions: NestedMap):
+    """Dense [..., V] logits from a predictions map, for consumers that
+    need the whole distribution: the head's logits over the hidden state
+    where ComputePredictions deferred them."""
+    if "logits" in predictions:
+      return predictions.logits
+    if self.p.softmax_num_sampled > 0:
+      return self.sampled_softmax.Logits(predictions.hidden)
+    return self.emb.Logits(predictions.hidden)
+
+  def _SampledLoss(self, predictions, labels, weights, tot_weight):
+    """The sampled-softmax task's metrics: its sampled loss in training,
+    else the full softmax's loss, log_pplx and next-step accuracy from the
+    fused xent statistics over the untied table and bias (no cap, no
+    smoothing), which the reference takes from dense logits."""
+    if not py_utils.DoEval() and py_utils.HasStepSeed():
+      per_tok = self.sampled_softmax.XentLossFromInputs(predictions.hidden,
+                                                        labels)
+      avg_xent = torch.sum(per_tok * weights) / tot_weight
+      return NestedMap(
+          loss=(avg_xent, tot_weight), log_pplx=(avg_xent, tot_weight),
+          num_predictions=(tot_weight, 1.0)), NestedMap(xent=per_tok)
+    sm = self.sampled_softmax
+    th = sm.CastTheta()
+    out = fused_xent.FusedXent(
+        sm.ToFPropDtype(predictions.hidden), th.w, labels,
+        block_size=SAMPLED_EVAL_XENT_BLOCK, bias=th.b, logits_soft_max=0.0,
+        label_smoothing=0.0, weight_layout="vd")
+    avg_xent = torch.sum(out.per_example_xent * weights) / tot_weight
+    correct = out.argmax == labels
+    return NestedMap(
+        loss=(avg_xent, tot_weight),
+        log_pplx=(avg_xent, tot_weight),
+        fraction_of_correct_next_step_preds=(
+            torch.sum(correct * weights) / tot_weight, tot_weight),
+        num_predictions=(tot_weight, 1.0)), NestedMap(
+            xent=out.per_example_xent)
 
   def ComputeLoss(self, predictions: NestedMap, input_batch: NestedMap):
     """(metrics of (value, weight) pairs, NestedMap(xent [b, t])), as the
@@ -205,6 +274,8 @@ class TransformerLm(base_model.BaseTask):
     labels = input_batch.labels
     weights = py_utils.SequenceMask(input_batch.paddings)
     tot_weight = torch.clamp(torch.sum(weights), min=1e-8)
+    if p.softmax_num_sampled > 0:
+      return self._SampledLoss(predictions, labels, weights, tot_weight)
     if "hidden" in predictions:
       # fused blockwise xent: the per-token loss and the argmax metric come
       # out of the streaming pass
@@ -233,7 +304,12 @@ class TransformerLm(base_model.BaseTask):
     return self.stack.InitStates(batch_size, max_len)
 
   def _Head(self, x):
-    return self.emb.Logits(self.final_ln.FProp(x))
+    """Decode and serving logits: the untied sampled-softmax head where
+    there is one (the head that was trained), else the tied one."""
+    x = self.final_ln.FProp(x)
+    if self.p.softmax_num_sampled > 0:
+      return self.sampled_softmax.Logits(x)
+    return self.emb.Logits(x)
 
   @torch.no_grad()
   def ExtendStep(self, ids_t, states, cache_paddings=None):

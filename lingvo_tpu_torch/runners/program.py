@@ -55,6 +55,7 @@ from lingvo_tpu_torch.core import hyperparams
 from lingvo_tpu_torch.core import input_policy
 from lingvo_tpu_torch.core import metrics as metrics_lib
 from lingvo_tpu_torch.core import summary_utils
+from lingvo_tpu_torch.core import threefry
 from lingvo_tpu_torch.core.nested_map import NestedMap
 from lingvo_tpu_torch.runners import infeed as infeed_lib
 
@@ -252,6 +253,9 @@ class TrainProgram(BaseProgram):
   def Params(cls):
     p = super().Params()
     p.name = "train"
+    p.Define("base_step_seed", 1234,
+             "Base PRNG seed of the step seeds: step s draws dropout and "
+             "sampled negatives from fold_in(PRNGKey(base_step_seed), s).")
     p.Define("pipeline_depth", 2,
              "Dispatch window under async_infeed: Run may leave up to this "
              "many loops' telemetry unresolved, so loop k+1 dispatches "
@@ -292,13 +296,23 @@ class TrainProgram(BaseProgram):
     return self._telemetry
 
   def _Step(self, state, batch, acc, stats_acc):
-    out = self._task.TrainStep(state, batch)
+    out = self._task.TrainStep(state, batch,
+                               threefry.PRNGKey(self.p.base_step_seed))
     acc = metrics_lib.AccumulateMetrics(acc, out.metrics)
     stats_acc = metrics_lib.AccumulateMetrics(stats_acc, NestedMap(
         {k: (v, 1.0) for k, v in out.stats.FlattenItems()}))
     return acc, stats_acc
 
+  def _RefreshHostSchedules(self) -> None:
+    """Host-driven schedules (DevBasedSchedule's anneal on plateau) read
+    their metric history before each loop; the reference also drops its
+    jitted functions when the value changed, the port has none to drop."""
+    sched = self._task.learner.lr_sched
+    if hasattr(sched, "UpdateFromHistory"):
+      sched.UpdateFromHistory()
+
   def Run(self, state: NestedMap) -> tuple[NestedMap, dict[str, float]]:
+    self._RefreshHostSchedules()
     if not self.p.async_infeed:
       return self._RunSync(state)
     return self._RunAsync(state)

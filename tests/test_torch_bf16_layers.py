@@ -93,7 +93,9 @@ def test_fprop_dtype_propagates_like_reference():
     path = re.sub(r"/body_\d+", "/body", m.path)
     assert m.p.fprop_dtype == names[jax_dtypes[path]], m.path
     assert m.fprop_dtype == torch.bfloat16, m.path
-  assert len(port_layers) == 24
+  # 13 a body (3 of them dropout layers, as in the reference) times 2
+  # bodies, plus the LM, its embedding, stack and final norm
+  assert len(port_layers) == 30
   assert all(p.dtype == torch.float32 for p in port.parameters())
   # theta casts: bf16 copies, float32 gradients, StackedLeafs per layer
   proj = port.stack.body[0].fflayer.ffn_in

@@ -212,15 +212,49 @@ def test_ragged_step_fallback_matches_reference(dtype):
 
 
 def test_dropout_still_raises_in_the_fallback():
+  """Attention dropout sends the paged steps to the gather-dense fallback,
+  where, with no step seed (serving), it is the identity: a mixed [2, 4]
+  and a decode [2, 1] `PagedStep` match the jitted reference's outputs
+  and pools, as the same layer without dropout does."""
+  j = _Jax()
+  fields = dict(input_dim=16, num_heads=2, use_rotary_position_emb=True)
+  ref = j.attention.MultiHeadedAttention.Params().Set(
+      name="a", atten_dropout_prob=0.1, **fields).Instantiate()
+  theta = _Noised(ref.InstantiateVariables(j.jax.random.PRNGKey(0)))
   port = attention.MultiHeadedAttention.Params().Set(
-      name="a", input_dim=8, num_heads=2,
-      atten_dropout_prob=0.1).Instantiate(device="cpu")
-  assert not port.BlockDecodeEligible(8)
-  states = port.InitPagedStates(3, 8)
-  pos = torch.zeros(1, dtype=torch.int32)
-  with pytest.raises(NotImplementedError, match="attention dropout"):
-    port.PagedStep(torch.zeros(1, 1, 8), states,
-                   torch.zeros((1, 2), dtype=torch.int32), pos, pos + 1)
+      name="a", atten_dropout_prob=0.1, **fields).Instantiate(device="cpu")
+  plain = attention.MultiHeadedAttention.Params().Set(
+      name="a", **fields).Instantiate(device="cpu")
+  convert.LoadJaxTheta(port, theta)
+  convert.LoadJaxTheta(plain, theta)
+  assert not port.BlockDecodeEligible(8) and plain.BlockDecodeEligible(8)
+  rng = np.random.RandomState(2)
+  tables = np.array([[0, 1], [2, 3]], np.int32)
+  k0 = rng.randn(5, 8, 2, 8).astype(np.float32)
+  v0 = rng.randn(5, 8, 2, 8).astype(np.float32)
+  from lingvo_tpu.core.nested_map import NestedMap as JaxNestedMap
+  j_states = JaxNestedMap(key=j.jnp.asarray(k0), value=j.jnp.asarray(v0))
+  states = [port.InitPagedStates(5, 8), plain.InitPagedStates(5, 8)]
+  for st in states:
+    st.key.copy_(torch.as_tensor(k0))
+    st.value.copy_(torch.as_tensor(v0))
+  step = j.jax.jit(ref.PagedStep)
+  for c, q_pos, in_len in ((4, [0, 3], [4, 2]), (1, [4, 5], [1, 1])):
+    x = _Dyadic((2, c, 16), rng, 8, 8)
+    qp = np.asarray(q_pos, np.int32)
+    il = np.asarray(in_len, np.int32)
+    j_out, j_states = step(theta, j.jnp.asarray(x), j_states,
+                           j.jnp.asarray(tables), j.jnp.asarray(qp),
+                           j.jnp.asarray(il))
+    outs = [layer.PagedStep(torch.as_tensor(x), st, torch.as_tensor(tables),
+                            torch.as_tensor(qp), torch.as_tensor(il))[0]
+            for layer, st in zip((port, plain), states)]
+    keep = np.arange(c)[None] < il[:, None]
+    for out in outs:
+      np.testing.assert_allclose(out.numpy()[keep], np.asarray(j_out)[keep],
+                                 atol=ATOL)
+    np.testing.assert_allclose(states[0].key.numpy()[:-1],
+                               np.asarray(j_states.key)[:-1], atol=ATOL)
 
 
 # -- the engine ----------------------------------------------------------------

@@ -123,13 +123,34 @@ def test_mha_ragged_step():
 
 def test_mha_ineligible_config_raises():
   """A layer the paged kernels do not serve takes the gather-dense
-  fallback (tests/test_torch_dense_fallback.py), except for what the
-  port has not ported: attention dropout raises there, as in FProp."""
-  tl = attention.MultiHeadedAttention.Params().Set(
-      name="a", input_dim=8, num_heads=2,
-      atten_dropout_prob=0.1).Instantiate(device="cpu")
-  states = tl.InitPagedStates(3, 8)
-  rows = ragged.ToTorch(ragged.BuildRaggedRows([1], [0], 2, 1), "cpu")
-  with pytest.raises(NotImplementedError, match="attention dropout"):
-    tl.RaggedStep(torch.zeros(1, 2, 8), states,
-                  torch.zeros((1, 2), dtype=torch.int32), rows)
+  fallback (tests/test_torch_dense_fallback.py). With attention dropout
+  it no longer raises: serving has no step seed, so the dropout is the
+  identity, and the step's outputs and pools match the reference's
+  `RaggedStep` (which serves it through the same fallback)."""
+  page, n_pages, b = 8, 4, 2
+  jl, theta, tl = _Pair(jax_attention.MultiHeadedAttention,
+                        attention.MultiHeadedAttention, input_dim=16,
+                        num_heads=2, use_rotary_position_emb=True,
+                        atten_dropout_prob=0.1)
+  assert not tl.BlockDecodeEligible(page)
+  rng = np.random.RandomState(6)
+  tables = rng.permutation(b * n_pages).reshape(b, n_pages).astype(np.int32)
+  rows = jax_ragged.BuildRaggedRows([1, 5], [9, 0], 8, 6)
+  x = rng.randn(1, 8, 16).astype(np.float32)
+  k0 = rng.randn(b * n_pages + 1, page, 2, 8).astype(np.float32)
+  v0 = rng.randn(b * n_pages + 1, page, 2, 8).astype(np.float32)
+  j_states = jax_nested_map.NestedMap(key=jnp.asarray(k0),
+                                      value=jnp.asarray(v0))
+  j_out, j_new = jax.jit(jl.RaggedStep)(
+      theta, jnp.asarray(x), j_states, jnp.asarray(tables),
+      jax_ragged.RaggedRows(*(jnp.asarray(m) for m in rows)))
+  t_states = tl.InitPagedStates(b * n_pages + 1, page)
+  t_states.key.copy_(torch.as_tensor(k0))
+  t_states.value.copy_(torch.as_tensor(v0))
+  t_out, t_new = tl.RaggedStep(torch.as_tensor(x), t_states,
+                               torch.as_tensor(tables),
+                               ragged.ToTorch(rows, "cpu"))
+  valid = np.asarray(rows.valid)
+  _Close(np.asarray(j_out)[:, valid], t_out[:, torch.as_tensor(valid)])
+  _Close(np.asarray(j_new.key)[:-1], t_new.key[:-1])
+  _Close(np.asarray(j_new.value)[:-1], t_new.value[:-1])

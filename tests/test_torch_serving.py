@@ -275,26 +275,78 @@ def test_unported_engine_features_raise(kw, match):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("num_experts", 4), ("bidirectional", True), ("softmax_num_sampled", 8)])
+    ("num_experts", 4), ("bidirectional", True)])
 def test_unported_model_features_raise(field, value):
   p = synthetic_packed_input.DenseLmTiny().Task().Set(**{field: value})
   with pytest.raises(NotImplementedError):
     p.Instantiate(device="cpu")
 
 
+def _FieldTwins(seed, **fields):
+  """(reference task, noised theta, port LM) of TinyLmParams with
+  `fields` set on both sides."""
+  task, theta = InstantiateLm(TinyLmParams(**fields), seed=seed)
+  rng = np.random.RandomState(seed)
+  theta = jax.tree_util.tree_map(
+      lambda x: np.asarray(x) + 0.5 * rng.randn(*x.shape).astype(np.float32),
+      theta)
+  port = _PortParams(task.p).Set(**fields).Instantiate(device="cpu")
+  convert.LoadJaxTheta(port, theta)
+  return task, theta, port
+
+
+def _CompareServing(task, theta, port):
+  """One packed RaggedStep's logits, then the engine's greedy streams,
+  against the reference's."""
+  rng = np.random.RandomState(4)
+  tables = rng.permutation(16)[:12].reshape(3, 4).astype(np.int32)
+  rows = jax_ragged.BuildRaggedRows([6, 9, 1], [0, 0, 3], 16, 9)
+  ids = rng.randint(0, task.p.vocab_size, size=(1, 16)).astype(np.int32)
+  j_logits, _ = task.RaggedStep(
+      theta, jnp.asarray(ids), task.InitPagedDecodeState(theta, 17, 8, 3),
+      jnp.asarray(tables),
+      jax_ragged.RaggedRows(*(jnp.asarray(m) for m in rows)))
+  with torch.no_grad():
+    t_logits, _ = port.RaggedStep(
+        torch.as_tensor(ids), port.InitPagedDecodeState(17, 8, 3),
+        torch.as_tensor(tables), ragged.ToTorch(rows, "cpu"))
+  valid = np.asarray(rows.valid)
+  np.testing.assert_allclose(np.asarray(j_logits)[0, valid],
+                             t_logits[0, torch.as_tensor(valid)].numpy(),
+                             atol=1e-4, rtol=1e-4)
+  prompts, lens = _Prompts(task.p.vocab_size)
+  want = jax_engine.ServingLoop(task, theta, trace=False,
+                                **_ENGINE_KW).RunBatch(prompts, lens,
+                                                       max_new_tokens=8)
+  got = engine.ServingLoop(port, device="cpu", **_ENGINE_KW).RunBatch(
+      prompts, lens, max_new_tokens=8)
+  np.testing.assert_array_equal(got, want)
+  return t_logits
+
+
+def test_sampled_softmax_task_serves_through_its_untied_head():
+  """A sampled-softmax task serves through the head it trained, the
+  untied [V, D] table and its bias, as the reference's does: the packed
+  step's logits and the engine's streams match the reference's."""
+  task, theta, port = _FieldTwins(5, softmax_num_sampled=8)
+  assert "sampled_softmax" in theta
+  logits = _CompareServing(task, theta, port)
+  with torch.no_grad():
+    tied = port.emb.Logits(torch.zeros(1, 32))
+  assert logits.shape[-1] == tied.shape[-1] == task.p.vocab_size
+
+
 @pytest.mark.parametrize("field, value, match", [
     ("atten_dropout_prob", 0.1, "attention dropout")])
 def test_unservable_attention_configs_raise(field, value, match):
-  """Configs the reference serves through its gather-dense fallback with
-  a feature the port has not ported raise when served, never run another
-  path: the fallback does not pretend to apply dropout."""
-  p = synthetic_packed_input.DenseLmTiny().Task().Set(**{field: value})
-  lm = p.Instantiate(device="cpu")
-  with pytest.raises(NotImplementedError, match=match):
-    states = lm.InitPagedDecodeState(9, 8)
-    rows = ragged.ToTorch(ragged.BuildRaggedRows([2], [0], 4, 2), "cpu")
-    lm.RaggedStep(torch.zeros((1, 4), dtype=torch.int32), states,
-                  torch.zeros((1, 2), dtype=torch.int32), rows)
+  """Configs the reference serves through its gather-dense fallback: the
+  port serves them there too. Attention dropout is the identity with no
+  step seed, so the packed step's logits and the engine's streams match
+  the reference's (the engine classifies the path as 'dense')."""
+  task, theta, port = _FieldTwins(6, **{field: value})
+  eng = engine.ServingLoop(port, device="cpu", **_ENGINE_KW)
+  assert eng.paged_path == "dense", match
+  _CompareServing(task, theta, port)
 
 
 def test_dense_lm_1b_widths():

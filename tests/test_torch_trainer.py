@@ -376,11 +376,11 @@ def test_transient_failure_in_the_step_replays_the_same_batches(
   step = ex.task.TrainStep
   calls = []
 
-  def _Flaky(state, batch):
+  def _Flaky(state, batch, *base_step_key):
     calls.append(int(state.step))
     if len(calls) == 17:
       raise RuntimeError("UNAVAILABLE: lost the host")
-    return step(state, batch)
+    return step(state, batch, *base_step_key)
 
   monkeypatch.setattr(ex.task, "TrainStep", _Flaky)
   state = ex.Start()
