@@ -421,13 +421,53 @@
    the card) within 1e-5; and the negative ids at V 793,470 over 50 step
    keys, card against CPU: the mismatches counted, each one id away, at
    most 0.3% of them. Prints the phase's seconds.
-29. Prints the per-kernel JSON line (every kernel and every int8 /
+29. The trainer's remaining training surface (no registered config sets
+   these options, so the phase sets them by hand). First the Shampoo
+   inverse root's library call (`torch.linalg.eigh`, cuSOLVER) timed at
+   4096 and 1024. (a) `trainer.main` on a distillation experiment:
+   `DenseLm1B`'s task as registered with flash on as the frozen teacher,
+   `OneBWdsTransformerLm`'s task at its registered widths (d 1024, 16
+   heads, FFN 4096, V 32,000, residual dropout 0.1) cut to 8 unrolled
+   layers with flash on as the student, `DenseLm1B`'s input (8 x 1024),
+   two learners split by `bprop_variable_filter` (Adam over the
+   student's embedding and norms, `DistributedShampoo(block_size=4096)`
+   over the rest: the 16 FFN matrices preconditioned, the 3-D attention
+   weights on the diagonal fallback), `ema_decay` 0.999 and pruning of the
+   FFN weights to 0.5 (frequency 1, the ramp over the 6 steps); 2 steps a
+   loop to --max_steps=4 (step 0 a refresh; one eval batch a loop, on the
+   EMA weights; the step-0 save skipped, the final save kept), then a
+   resume to 6 (its final save skipped). Gates: FINISHED, finite losses,
+   the teacher's theta bitwise unchanged by each run, the realized
+   sparsity the schedule's at the run's last step (int(sparsity x size)
+   zeros a matrix, plus at most 64 ties at a threshold, which the
+   reference's rule prunes too), the resume's
+   restored `ema_theta` and both learners' states bitwise equal to the
+   first run's final ones, and the flash kernels' launches exact (per
+   learner and step 24 teacher forwards and 8 student forwards,
+   backwards 8 each; 32 forwards an eval batch). Prints each step's
+   time (a refresh step against a plain one) and the peak memory. (b)
+   `ExecutorTpu(None, logdir, schedule=MultiTaskProgramSchedule(...))` on
+   two tasks at the student's widths with the fused xent (block 1280),
+   the embedding shared by `variable_renaming_rules`, task a on EGDD and
+   task b on AdaGraft(Adam, Momentum), `ConstantScheduler` seed 3, 4
+   cycles of 2 steps: both tasks sampled, the shared leaves bitwise equal
+   after every cycle, the launches exact (8 flash forwards, dK/dV and dQ
+   and 1 xent a step), the combined checkpoint round-trips. (c) The tiny
+   twins on the card and the CPU: the distillation experiment at
+   `DenseLmTiny`'s widths through the CLI (train to 8, resume to 16,
+   eval) and the multi-task run on `DenseLmTiny`-sized tasks: every loss
+   within 1e-4, but the distillation's after Shampoo's step-10 refresh
+   within 1e-3 (its roots' near-null directions follow the solver's
+   rounding, ROADMAP §3). (b) and (c) skip the step-0 save. Prints the
+   phase's seconds.
+30. Prints the per-kernel JSON line (every kernel and every int8 /
    bfloat16 instantiation, and the bfloat16-q ones; the int8 serving
    kernels, the sampling kernel and the scan's backward with "replaces":
    null; the scan's and flash decode's times at the hybrid decode's
    shapes beside their main ones; the xent kernel at DenseLmWord793k's
-   shape and at the sampled eval's, each with its CLI run's launches),
-   then the result line.
+   shape and at the sampled eval's, each with its CLI run's launches;
+   the flash and xent rows with phase 29's launches), then the result
+   line.
 
 Kernel times are device times: CUDA events around the call, after an L2
 flush and a spin kernel that covers the host's enqueue (`_TimeMs`).
@@ -441,6 +481,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4763,6 +4804,441 @@ def _OneBWdsPhase(torch, fx, threefry, counters):
   return xent, cli, tlm, twin
 
 
+# phase 29: the trainer's remaining training surface
+DISTILL_STEPS, DISTILL_RESUME = 4, 6   # --max_steps of the run and its resume
+DISTILL_LOOP = 2                       # steps a loop: two loops, then one
+STUDENT_LAYERS = 8                     # OneBWdsTransformerLm's 20, cut
+MT_STEPS, MT_LOOP = 8, 2               # 4 multi-task cycles of 2 steps
+# the two learners: Adam over the student's embedding and norms, Shampoo
+# over the rest of the student (DistillationTask excludes the teacher)
+EMB_NORM = r"^student\.(emb\.|final_ln\.|.*\.ln\.)"
+REST = r"^student\.(?!emb\.|final_ln\.)(?!.*\.ln\.)"
+FFN_W = r"student\.stack\.x_layers\[\d+\]\.fflayer\.ffn_(in|out)\.w"
+SHARE = [(r"emb\.(.*)", r"shared_emb.\1")]
+TWIN29_TOL = 1e-4
+# the tiny distillation's losses after Shampoo's step-10 refresh, card vs
+# CPU (measured 2.6e-4 on one H100)
+SHAMPOO_TWIN_TOL = 1e-3
+
+
+def _Flash(p):
+  from lingvo_tpu_torch.core import attention
+  p.atten_tpl = attention.MultiHeadedAttention.Params().Set(
+      use_flash_attention=True)
+  return p
+
+
+def _Student(one_billion_wds, tiny):
+  """OneBWdsTransformerLm's task at its registered widths (or
+  DenseLmTiny's), cut to STUDENT_LAYERS (2) unrolled layers, flash on."""
+  p = _Flash(one_billion_wds.OneBWdsTransformerLm().Task())
+  p.num_layers = 2 if tiny else STUDENT_LAYERS
+  p.use_repeat_layer = False
+  if tiny:
+    p.Set(model_dim=64, num_heads=4, hidden_dim=128, vocab_size=128)
+  return p
+
+
+def _Learner(name, regex, opt):
+  from lingvo_tpu_torch.core import learner
+  from lingvo_tpu_torch.core import schedule
+  return learner.Learner.Params().Set(
+      name=name, learning_rate=1e-3, bprop_variable_filter=regex,
+      optimizer=opt, clip_gradient_norm_to_value=1.0,
+      lr_schedule=schedule.LinearRampupCosineDecay.Params().Set(
+          warmup_steps=2, total_steps=1000))
+
+
+def _DistillModel(spi, one_billion_wds, tiny):
+  """A registered experiment: DenseLm1B's task (DenseLmTiny's) as the
+  frozen teacher with flash on, the student above, two learners, the EMA
+  and pruning of the student's FFN weights; DenseLm1B's input."""
+  from lingvo_tpu_torch import model_registry
+  from lingvo_tpu_torch.core import base_model_params
+  from lingvo_tpu_torch.core import distillation_task
+  from lingvo_tpu_torch.core import optimizer
+  from lingvo_tpu_torch.core import pruning
+  data = spi.DenseLmTiny() if tiny else spi.DenseLm1B()
+
+  def _Task(self):
+    p = distillation_task.DistillationTask.Params().Set(
+        name="distill", teacher=_Flash(data.Task()),
+        student=_Student(one_billion_wds, tiny), distill_weight=0.5,
+        temperature=2.0)
+    p.train.learner = [
+        _Learner("emb_norm", EMB_NORM,
+                 optimizer.Adam.Params().Set(beta2=0.98)),
+        _Learner("shampoo", REST,
+                 optimizer.DistributedShampoo.Params().Set(block_size=4096))]
+    p.train.ema_decay = 0.999
+    p.train.pruning = pruning.PruningSchedule.Params().Set(
+        weight_regex=FFN_W, final_sparsity=0.5, begin_step=0,
+        end_step=16 if tiny else DISTILL_RESUME, frequency=1)
+    p.train.tpu_steps_per_loop = 4 if tiny else DISTILL_LOOP
+    p.train.save_interval_steps = 1_000_000
+    p.train.save_max_to_keep = 1
+    p.eval.samples_per_summary = 32 if tiny else data.BATCH_SIZE
+    return p
+
+  name = "DistillTiny" if tiny else "Distill1B"
+  return model_registry.RegisterSingleTaskModel(type(
+      name, (base_model_params.SingleTaskModelParams,),
+      {"Train": lambda self: data.Train(), "Test": lambda self: data.Test(),
+       "Task": _Task}))._registry_key
+
+
+def _CloneTensors(tensors):
+  return [t.detach().clone() for t in tensors]
+
+
+def _StateTensors(checkpointer, state):
+  return [t for _, t in checkpointer._OptItems(state)]
+
+
+def _DistillCli(torch, spi, one_billion_wds, counters, tmp):
+  """Phase 29 (a): trainer.main on the distillation experiment to
+  DISTILL_STEPS, then a resume to DISTILL_RESUME, with the counts set to 0
+  before each run. Returns the launches of both runs and the numbers."""
+  from lingvo_tpu_torch import trainer
+  from lingvo_tpu_torch.core import base_model
+  from lingvo_tpu_torch.core import checkpointer
+  from lingvo_tpu_torch.core import pruning
+  from lingvo_tpu_torch.runners import executor
+  key = _DistillModel(spi, one_billion_wds, tiny=False)
+  logdir = os.path.join(tmp, "distill")
+  runs, step_ms = [], []
+  start, main_loop = executor.ExecutorTpu.Start, executor.ExecutorTpu._MainLoop
+  restore = checkpointer.Checkpointer.Restore
+  save = checkpointer.Checkpointer.Save
+  save_async = checkpointer.Checkpointer.SaveAsync
+  train_step = base_model.BaseTask.TrainStep
+  restored = {}
+
+  def _Start(ex):
+    runs.append(dict(ex=ex))
+    runs[-1]["state"] = start(ex)
+    return runs[-1]["state"]
+
+  def _MainLoop(ex, state, start_step):
+    runs[-1]["teacher"] = _CloneTensors(ex.task.teacher.parameters())
+    return main_loop(ex, state, start_step)
+
+  def _Restore(ckpt, task, step=None, state=None):
+    out = restore(ckpt, task, step=step, state=state)
+    if len(runs) == 2 and state is not None:
+      old = _StateTensors(checkpointer, runs[0]["state"])
+      new = _StateTensors(checkpointer, out[0])
+      restored["ok"] = len(old) == len(new) and all(
+          torch.equal(a, b) for a, b in zip(old, new))
+      restored["tensors"] = len(new)
+      restored["ema"] = sum(1 for k, _ in checkpointer._OptItems(out[0])
+                            if k.startswith("ema_theta"))
+    return out
+
+  def _Save(ckpt, step, *args, **kwargs):
+    # one save: the first run's final one; the resume's final save skipped
+    return False if step == DISTILL_RESUME else save(ckpt, step, *args,
+                                                     **kwargs)
+
+  def _SaveAsync(ckpt, step, *args, **kwargs):
+    return False if step == 0 else save_async(ckpt, step, *args, **kwargs)
+
+  def _TrainStep(task, *args, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_step(task, *args, **kwargs)
+    torch.cuda.synchronize()
+    step_ms.append((args[0].step - 1, (time.perf_counter() - t0) * 1e3))
+    return out
+
+  launches, peaks, walls = [], [], []
+  (executor.ExecutorTpu.Start, executor.ExecutorTpu._MainLoop,
+   checkpointer.Checkpointer.Restore, checkpointer.Checkpointer.Save,
+   checkpointer.Checkpointer.SaveAsync, base_model.BaseTask.TrainStep) = (
+       _Start, _MainLoop, _Restore, _Save, _SaveAsync, _TrainStep)
+  try:
+    for steps in (DISTILL_STEPS, DISTILL_RESUME):
+      torch.cuda.synchronize()
+      counters.Zero()
+      torch.cuda.reset_peak_memory_stats()
+      t0 = time.perf_counter()
+      rc = trainer.main([f"--model={key}", f"--logdir={logdir}",
+                         "--mode=train", f"--max_steps={steps}"])
+      torch.cuda.synchronize()
+      walls.append(time.perf_counter() - t0)
+      launches.append(counters.Read())
+      peaks.append(torch.cuda.max_memory_allocated())
+      with open(os.path.join(logdir, "train", "FINISHED")) as f:
+        finished = f.read()
+      _Check(rc == 0 and finished == str(steps),
+             f"distillation to {steps}: rc {rc}, FINISHED {finished!r}")
+      run = runs[-1]
+      ex, task = run["ex"], run["ex"].task
+      unchanged = all(torch.equal(a, b) for a, b in
+                      zip(run.pop("teacher"), task.teacher.parameters()))
+      _Check(unchanged, f"distillation to {steps}: the teacher's theta moved")
+      # the schedule's zeros at the run's last step, k = int(sparsity *
+      # size) a matrix; ties at a matrix's threshold are pruned too (the
+      # reference's rule), so a few more may be zero
+      sched = pruning.PruningSchedule(task.p.train.pruning)
+      masks = ex.pruning_masks
+      total = sum(m.numel() for m in masks.values())
+      want = sum(int(sched.SparsityAt(steps) * m.numel())
+                 for m in masks.values())
+      got = round(pruning.Sparsity(masks, sched) * total)
+      _Check(len(masks) == 2 * STUDENT_LAYERS and 0 <= got - want <= 64,
+             f"distillation to {steps}: {len(masks)} masks, {got} zeros vs "
+             f"the schedule's {want} of {total}")
+      run.update(sparsity=got / total, tie_zeros=got - want)
+      if steps == DISTILL_STEPS:   # the resume restores from these
+        del run["ex"]
+      else:
+        del runs[0]["state"]
+      del ex, task
+      gc.collect()
+      torch.cuda.empty_cache()
+  finally:
+    (executor.ExecutorTpu.Start, executor.ExecutorTpu._MainLoop,
+     checkpointer.Checkpointer.Restore, checkpointer.Checkpointer.Save,
+     checkpointer.Checkpointer.SaveAsync, base_model.BaseTask.TrainStep) = (
+         start, main_loop, restore, save, save_async, train_step)
+  _Check(restored.get("ok") and restored["ema"] > 0,
+         f"the resume did not restore the saved state: {restored}")
+  with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+  _Check([r["step"] for r in rows] == [2, 4, 6] and all(
+      np.isfinite(r[k]["loss"]) for r in rows for k in ("train",
+                                                        "eval_test")),
+         f"distillation metrics.jsonl rows {rows}")
+  # per learner and step: the teacher forward only (24 layers), the
+  # student forward and backward (8 layers); an eval batch both forwards
+  teacher_layers = spi.DenseLm1B.NUM_LAYERS
+  for steps, got, evals in ((DISTILL_STEPS, launches[0], 2),
+                            (DISTILL_RESUME - DISTILL_STEPS, launches[1], 1)):
+    want = dict.fromkeys(counters, 0)
+    want["flash_attention_fwd"] = (steps * 2 * (teacher_layers
+                                                + STUDENT_LAYERS)
+                                   + evals * (teacher_layers
+                                              + STUDENT_LAYERS))
+    want["flash_attention_dkdv"] = want["flash_attention_dq"] = (
+        steps * 2 * STUDENT_LAYERS)
+    _Check(got == want, f"distillation launches {got} != {want}")
+  refresh = [ms for s, ms in step_ms if s == 0]
+  plain = [ms for s, ms in step_ms if s != 0]
+  last = rows[-1]
+  print(f"distillation (DenseLm1B teacher, 8-layer OneBWds student, 2 "
+        f"learners, EMA 0.999, FFN pruning to 0.5) through trainer.main: "
+        f"{walls[0]:.1f} s to {DISTILL_STEPS} steps, {walls[1]:.1f} s for the "
+        f"resume to {DISTILL_RESUME}; the refresh step (0) {refresh[0]:.1f} "
+        f"ms against {np.mean(plain):.1f} ms a plain step (mean of "
+        f"{len(plain)}: {[round(ms, 1) for _, ms in step_ms]}); peak memory "
+        f"{peaks[0] / 2**30:.2f} / {peaks[1] / 2**30:.2f} GiB; last loss "
+        f"{last['train']['loss']:.4f} (hard {last['train']['hard_loss']:.4f}"
+        f", distill {last['train']['distill_loss']:.4f}), eval on the EMA "
+        f"{last['eval_test']['loss']:.4f}; sparsity {runs[0]['sparsity']:.6f}"
+        f" ({runs[0]['tie_zeros']} zeros past the schedule's: ties at a "
+        f"threshold); the resume restored {restored['tensors']} state tensors "
+        f"({restored['ema']} of the EMA) bit for bit; launches {launches}")
+  shutil.rmtree(logdir)
+  return launches, dict(walls=walls, refresh_ms=refresh[0],
+                        plain_ms=float(np.mean(plain)), peaks=peaks,
+                        step_ms=step_ms)
+
+
+def _EighMs(torch, optimizer):
+  """Device ms of one Shampoo inverse root (eigh and the products) at
+  4096 and 1024, on a full-rank statistic."""
+  out = {}
+  opt = optimizer.DistributedShampoo.Params().Instantiate(device="cuda")
+  for n in (4096, 1024):
+    g = torch.randn(n, n + 64, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(n))
+    stat = g @ g.T
+    opt.InverseQuarterRoot(stat)
+    eigh = [_EventMs(torch, lambda: torch.linalg.eigh(stat))
+            for _ in range(3)]
+    root = [_EventMs(torch, lambda: opt.InverseQuarterRoot(stat))
+            for _ in range(3)]
+    out[n] = dict(eigh_ms=min(eigh), root_ms=min(root))
+  per_refresh = 2 * STUDENT_LAYERS * (out[4096]["root_ms"]
+                                      + out[1024]["root_ms"])
+  print(f"Shampoo's inverse root (torch.linalg.eigh: cuSOLVER, a library "
+        f"call; the reference's jnp.linalg.eigh is no pallas_call): eigh "
+        f"4096 {out[4096]['eigh_ms']:.1f} ms, 1024 {out[1024]['eigh_ms']:.1f}"
+        f" ms; the whole root {out[4096]['root_ms']:.1f} / "
+        f"{out[1024]['root_ms']:.1f} ms; {2 * STUDENT_LAYERS} FFN matrices "
+        f"a refresh: {per_refresh:.0f} ms")
+  return dict(out, per_refresh_ms=per_refresh)
+
+
+def _MultiTask(torch, spi, one_billion_wds, tmp, device, tiny, counters=None):
+  """Phase 29 (b): ExecutorTpu over a MultiTaskProgramSchedule of two LM
+  tasks (EGDD; AdaGraft(Adam, Momentum)) sharing their embedding,
+  ConstantScheduler seed 3, MT_STEPS steps in cycles of MT_LOOP. Returns
+  (metrics rows, launches or None, final state, the schedule)."""
+  from lingvo_tpu_torch.core import checkpointer
+  from lingvo_tpu_torch.core import hyperparams
+  from lingvo_tpu_torch.core import learner
+  from lingvo_tpu_torch.core import multitask_model
+  from lingvo_tpu_torch.core import optimizer
+  from lingvo_tpu_torch.core import task_scheduler
+  from lingvo_tpu_torch.runners import executor
+  from lingvo_tpu_torch.runners import program
+  data = spi.DenseLmTiny() if tiny else spi.DenseLm1B()
+  opts = dict(a=optimizer.EGDD.Params(), b=optimizer.AdaGraft.Params().Set(
+      magnitude_optimizer=optimizer.Adam.Params().Set(beta2=0.98),
+      direction_optimizer=optimizer.Momentum.Params()))
+  logdir = os.path.join(tmp, f"multitask_{device}_{tiny}")
+  train_programs = hyperparams.Params()
+  tasks, gens = {}, {}
+  for i, name in enumerate(("a", "b")):
+    p = _Student(one_billion_wds, tiny).Set(name=name, xent_block_size=(
+        32 if tiny else 1280))
+    p.train.learner = learner.Learner.Params().Set(
+        name="lrn", learning_rate=1e-3, optimizer=opts[name],
+        clip_gradient_norm_to_value=1.0)
+    p.train.max_steps = MT_STEPS
+    p.train.save_interval_steps = 1_000_000
+    p.train.save_max_to_keep = 1
+    tasks[name] = p.Instantiate(device=device)
+    train_programs.Define(name, program.TrainProgram.Params().Set(
+        task=p, logdir=logdir, name=f"train_{name}",
+        steps_per_loop=MT_LOOP), "")
+    gens[(name, "Train")] = data.Train().Set(seed=11 + i).Instantiate()
+  sched = program.MultiTaskProgramSchedule(
+      program.MultiTaskProgramSchedule.Params().Set(
+          task_schedule=task_scheduler.ConstantScheduler.Params().Set(
+              task_probs=[("a", 0.5), ("b", 0.5)], seed=3),
+          train_programs=train_programs, variable_renaming_rules=SHARE),
+      tasks=tasks, input_generators=gens)
+  shared = list(multitask_model.SharedVariableRules(SHARE).SharedPaths(
+      tasks).values())
+  run, tied = sched.Run, []
+
+  def _Run(state):
+    state, results = run(state)
+    theta = {n: dict(t.ThetaTree().FlattenItems()) for n, t in tasks.items()}
+    tied.append(all(torch.equal(theta[n][p], theta[e[0][0]][e[0][1]])
+                    for e in shared for n, p in e[1:]))
+    return state, results
+
+  sched.Run = _Run
+  if counters is not None:
+    torch.cuda.synchronize()
+    counters.Zero()
+  save = checkpointer.Checkpointer.Save
+
+  def _Save(ckpt, step, *args, **kwargs):
+    # the step-0 save of the random weights, which nothing reads, skipped
+    return False if step == 0 else save(ckpt, step, *args, **kwargs)
+
+  checkpointer.Checkpointer.Save = _Save
+  try:
+    state = executor.ExecutorTpu(None, logdir, schedule=sched).Start()
+  finally:
+    checkpointer.Checkpointer.Save = save
+  launches = None
+  if counters is not None:
+    torch.cuda.synchronize()
+    launches = counters.Read()
+  with open(os.path.join(logdir, "metrics.jsonl")) as f:
+    rows = [json.loads(line) for line in f]
+  cycles = [r["sampled_task"] for r in rows if "sampled_task" in r]
+  _Check(len(cycles) == MT_STEPS // MT_LOOP and set(cycles) == {"a", "b"}
+         and all(tied) and state.step == MT_STEPS,
+         f"multi-task on {device}: cycles {cycles}, shared leaves tied "
+         f"after each {tied}, step {state.step}")
+  losses = [r[k]["loss"] for r in rows for k in r if k.startswith("train_")]
+  _Check(all(np.isfinite(losses)), f"multi-task losses {losses}")
+  # the combined checkpoint round-trips into a fresh state
+  ckpt = checkpointer.Checkpointer(os.path.join(logdir, "train"))
+  fresh = sched.CreateTrainState()
+  restored, step = ckpt.Restore(sched.model, state=fresh)
+  same = all(torch.equal(a, b) for a, b in zip(
+      _StateTensors(checkpointer, restored),
+      _StateTensors(checkpointer, state)))
+  _Check(step == MT_STEPS and same and all(
+      restored.tasks[n].step == state.tasks[n].step for n in tasks),
+         f"multi-task checkpoint round trip: step {step}, tensors equal "
+         f"{same}")
+  return rows, launches, state, sched
+
+
+def _TrainSurfacePhase(torch, spi, counters):
+  """Phase 29 (see the module docstring). Returns (the distillation run's
+  launches and numbers, the multi-task run's launches, the eigh times,
+  the tiny twins' errors)."""
+  from lingvo_tpu_torch import trainer
+  from lingvo_tpu_torch.core import optimizer
+  from lingvo_tpu_torch.models.lm.params import one_billion_wds
+  t_phase = time.perf_counter()
+  eigh = _EighMs(torch, optimizer)
+  with tempfile.TemporaryDirectory() as tmp:
+    print(f"{tmp}: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free")
+    distill, dnum = _DistillCli(torch, spi, one_billion_wds, counters, tmp)
+    print(f"phase 29 (a) done at {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rows, mt_launches, state, sched = _MultiTask(
+        torch, spi, one_billion_wds, tmp, "cuda", tiny=False,
+        counters=counters)
+    mt_s = time.perf_counter() - t0
+    want = dict.fromkeys(counters, 0)
+    want["flash_attention_fwd"] = want["flash_attention_dkdv"] = want[
+        "flash_attention_dq"] = MT_STEPS * STUDENT_LAYERS
+    want["fused_xent_fwd"] = MT_STEPS
+    _Check(mt_launches == want, f"multi-task launches {mt_launches} != "
+           f"{want}")
+    cycles = [r["sampled_task"] for r in rows if "sampled_task" in r]
+    print(f"multi-task (two 8-layer OneBWds-width tasks, EGDD and "
+          f"AdaGraft(Adam, Momentum), the embedding shared) through "
+          f"ExecutorTpu: {mt_s:.1f} s, cycles {cycles}, steps "
+          f"{ {n: s.step for n, s in state.tasks.items()} }, shared leaves "
+          f"bitwise equal after every cycle, the checkpoint round-tripped; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB;"
+          f" launches {mt_launches}")
+    del state, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 29 (b) done at {time.perf_counter() - t_phase:.1f} s")
+    key = _DistillModel(spi, one_billion_wds, tiny=True)
+    got = _TinyCliRuns(trainer, key, os.path.join(tmp, "dt_cuda"), "cuda")
+    want = _TinyCliRuns(trainer, key, os.path.join(tmp, "dt_cpu"), "cpu")
+    _Check(sorted(got[0]) == sorted(want[0]) == [4, 8, 12, 16]
+           and len(got[1]) == len(want[1]) == 5,
+           f"tiny distillation rows: {got} vs {want}")
+    # the losses up to step 8 (the train rows at 4 and 8, the evals at 4
+    # and 8) come before Shampoo's second refresh (step 10); after it the
+    # roots' near-null directions follow the solver's rounding (cuSOLVER
+    # against LAPACK: ROADMAP §3), which the later losses carry
+    diffs = ([abs(got[0][s] - want[0][s]) for s in sorted(want[0])] +
+             [abs(a - b) for a, b in zip(got[1], want[1])])
+    before = max(diffs[:2] + diffs[4:6])
+    distill_err = max(diffs)
+    _Check(before <= TWIN29_TOL and distill_err <= SHAMPOO_TWIN_TOL,
+           f"tiny distillation, card {got} vs CPU {want}: max err "
+           f"{before} before step 10's refresh, {distill_err} in all")
+    mt = {dev: _MultiTask(torch, spi, one_billion_wds, tmp, dev,
+                          tiny=True)[0] for dev in ("cuda", "cpu")}
+    pairs = [(a[k]["loss"], b[k]["loss"]) for a, b in zip(mt["cuda"],
+                                                          mt["cpu"])
+             for k in a if k.startswith("train_")]
+    _Check([r.get("sampled_task") for r in mt["cuda"]] ==
+           [r.get("sampled_task") for r in mt["cpu"]] and pairs,
+           f"tiny multi-task rows {mt}")
+    mt_err = max(abs(a - b) for a, b in pairs)
+    _Check(mt_err <= TWIN29_TOL, f"tiny multi-task, card vs CPU: {pairs}")
+    print(f"tiny twins, card vs CPU: distillation through the CLI (train to "
+          f"8, resume to 16, eval) max |card - CPU| {before:.3g} up to step "
+          f"8 (tol {TWIN29_TOL}), {distill_err:.3g} in all (tol "
+          f"{SHAMPOO_TWIN_TOL}: Shampoo's step-10 refresh), losses "
+          f"{got[0]}; multi-task max {mt_err:.3g} over {len(pairs)} cycles "
+          f"(tol {TWIN29_TOL})")
+  print(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+  return distill, dnum, mt_launches, eigh, dict(
+      distill_to_step_8=before, distill=distill_err, multitask=mt_err)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5275,7 +5751,15 @@ def main():
   xent1bw, cli1bw, tlm1bw, twin1bw = _OneBWdsPhase(torch, fx, threefry,
                                                    counters)
 
-  _Phase("29. result")
+  _Phase("29. the trainer's remaining training surface: distillation of "
+         "DenseLm1B into an 8-layer student with two learners (Adam, "
+         "DistributedShampoo), the EMA and pruning through trainer.main; two "
+         "tasks through a MultiTaskProgramSchedule; the tiny twins card vs "
+         "CPU")
+  distill29, dnum29, mt29, eigh29, twins29 = _TrainSurfacePhase(
+      torch, spi, counters)
+
+  _Phase("30. result")
   main_check = checks[0]
   kernels = [{
       "name": "ragged_block_attend", "route": "cuda",
@@ -5350,7 +5834,10 @@ def main():
         "launches": train_launches[name], "max_abs_err": res["err"],
         "ms": res["ms"], "plain_ms": res["plain_ms"],
         "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
-        "library_ms": res["library_ms"]})
+        "library_ms": res["library_ms"],
+        # phase 29: the distillation run and its resume, the multi-task run
+        "distill_cli_launches": [run[name] for run in distill29],
+        "multitask_launches": mt29[name]})
   kernels.append({
       "name": "fused_xent_fwd", "route": "cuda",
       "source": "lingvo_tpu_torch/ops/csrc/fused_xent.cu",
@@ -5358,7 +5845,8 @@ def main():
       "launches": train_launches["fused_xent_fwd"],
       "max_abs_err": xent["err"], "ms": xent["ms"],
       "plain_ms": xent["plain_ms"], "bound_ms": xent["bound"][0],
-      "bound_by": xent["bound"][1], "library_ms": None})
+      "bound_by": xent["bound"][1], "library_ms": None,
+      "multitask_launches": mt29["fused_xent_fwd"]})
   main_block = block[16]
   kernels.append({
       "name": "block_decode", "route": "cuda",
@@ -5583,6 +6071,10 @@ def main():
         "decode_step_bound_ms": int8_bf16[8][f"{key}_bound"],
         "shape": "bfloat16 x and y, sum over the 145 products of a step, "
                  "m = 264"})
+  print(f"phase 29, not a kernel: Shampoo's inverse root is "
+        f"torch.linalg.eigh (cuSOLVER): {json.dumps(eigh29)}; the refresh "
+        f"step {dnum29['refresh_ms']:.1f} ms against a plain step "
+        f"{dnum29['plain_ms']:.1f} ms; tiny twins {twins29}")
   print(json.dumps({"kernels": kernels}))
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

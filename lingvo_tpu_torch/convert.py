@@ -18,10 +18,16 @@ per-layer parameters restacked on the leading [num_layers] axis.
 `LoadJaxOptState(opt_state, ref_state)` carries the reference's
 optimizer state (numpy, in its structure: Adam's `m` / `v` theta trees,
 Adafactor's `slots`, the Accumulator's `accum` and `count`, a
-CompositeOptimizer's `subs`) into the port's state of the same optimizer
+CompositeOptimizer's `subs`, Shampoo's `stat_l` / `stat_r` / `root_l` /
+`root_r` / `accum`, EGDD's `m` / `gbar` / `gain` / `lr_scale`,
+AdaGraft's `mag` / `dir`) into the port's state of the same optimizer
 in place, so that both packages can start mid-run from one state;
 `OptStatePairs` lists the (name, port tensor, reference array) pairs it
-matches, which a test compares after some steps.
+matches, which a test compares after some steps. `TrainStatePairs` /
+`LoadJaxTrainState` do the same for a whole train state: one optimizer
+state per learner, `ema_theta`, and a multi-task state's tasks (the
+steps, host ints in the port, are set by the load and compared by the
+caller).
 
 `Int8ArtifactToTorch(theta, int8_tree)` carries the reference's exported
 int8 tree ({path: {"w_int8", "scale"}} as numpy) onto the device of the
@@ -107,7 +113,7 @@ def ThetaToNumpy(module: base_layer.BaseLayer):
   return module.ThetaTree().Transform(_ToNumpy)
 
 
-def OptStatePairs(opt_state, ref_state) -> list:
+def OptStatePairs(opt_state, ref_state, name: str = "opt_state") -> list:
   """[(name, port tensor, reference array)] for every leaf of the port's
   optimizer state. The port's state is NestedMaps (the reference's
   containers, by the same names), lists (CompositeOptimizer's subs), 0-d
@@ -148,7 +154,7 @@ def OptStatePairs(opt_state, ref_state) -> list:
     else:
       _Pair(name, dst, src)
 
-  _Walk(opt_state, ref_state, "opt_state")
+  _Walk(opt_state, ref_state, name)
   return out
 
 
@@ -160,6 +166,47 @@ def LoadJaxOptState(opt_state, ref_state) -> list[str]:
     for name, dst, arr in OptStatePairs(opt_state, ref_state):
       dst.copy_(torch.tensor(arr).to(dst.dtype))
       names.append(name)
+  return names
+
+
+def TrainStatePairs(state, ref_state, name: str = "state") -> list:
+  """[(name, port tensor, reference array)] of a train state's tensors:
+  each learner's optimizer state, the EMA (a theta tree in the
+  reference, {theta path: tensor} in the port) and, for a multi-task
+  state, every task's under `tasks.{task}`."""
+  if "tasks" in state:
+    out = []
+    for task in sorted(state.tasks):
+      out += TrainStatePairs(state.tasks[task], ref_state["tasks"][task],
+                             f"{name}.tasks.{task}")
+    return out
+  if len(state.opt_states) != len(ref_state["opt_states"]):
+    raise ValueError(f"{name}: {len(ref_state['opt_states'])} reference "
+                     f"learner states for {len(state.opt_states)}")
+  out = []
+  for i, (s, r) in enumerate(zip(state.opt_states, ref_state["opt_states"])):
+    out += OptStatePairs(s, r, f"{name}.opt_states[{i}]")
+  if ("ema_theta" in state) != ("ema_theta" in ref_state):
+    raise ValueError(f"{name}: ema_theta in only one of the states")
+  if "ema_theta" in state:
+    out += OptStatePairs(state.ema_theta, ref_state["ema_theta"],
+                         f"{name}.ema_theta")
+  return out
+
+
+def LoadJaxTrainState(state, ref_state) -> list[str]:
+  """Copies the reference's train state (numpy, its structure) into the
+  port's `state` in place: the tensors of `TrainStatePairs` and the steps
+  (a multi-task state's per task too). Theta goes through
+  `LoadJaxTheta`. Returns the tensors' names."""
+  names = []
+  with torch.no_grad():
+    for name, dst, arr in TrainStatePairs(state, ref_state):
+      dst.copy_(torch.tensor(arr).to(dst.dtype))
+      names.append(name)
+  state.step = int(ref_state["step"])
+  for task in state.get("tasks", {}):
+    state.tasks[task].step = int(ref_state["tasks"][task]["step"])
   return names
 
 

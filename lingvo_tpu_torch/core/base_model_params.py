@@ -2,8 +2,9 @@
 
 An experiment is a class with dataset methods (`Train()/Dev()/Test()`), a
 `Task()` returning the task Params, and `Model()` wrapping it into a
-`SingleTaskModel` Params tree, as in the reference. The multi-task
-experiment comes with the multi-task schedule.
+`SingleTaskModel` Params tree, as in the reference; a multi-task
+experiment's `Task()` returns one sub-Params per task name, which
+`Model()` wraps into a `MultiTaskModel`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ class _BaseModelParams:
 
   def GetDatasetNames(self) -> list[str]:
     """Dataset methods the experiment defines (not the base stubs)."""
-    base_owners = ("_BaseModelParams", "SingleTaskModelParams")
+    base_owners = ("_BaseModelParams", "SingleTaskModelParams",
+                   "MultiTaskModelParams")
     names = []
     for name, member in inspect.getmembers(type(self), inspect.isfunction):
       if name.startswith("_") or name in (
@@ -74,4 +76,18 @@ class SingleTaskModelParams(_BaseModelParams):
     p = base_model.SingleTaskModel.Params()
     p.task = self.Task()
     p.name = p.task.name or type(self).__name__
+    return p
+
+
+class MultiTaskModelParams(_BaseModelParams):
+  """Multi-task experiment: defines per-task params."""
+
+  def Task(self) -> hyperparams.Params:
+    raise NotImplementedError
+
+  def Model(self) -> hyperparams.InstantiableParams:
+    from lingvo_tpu_torch.core import base_model
+    p = base_model.MultiTaskModel.Params()
+    p.task_params = self.Task()
+    p.name = type(self).__name__
     return p

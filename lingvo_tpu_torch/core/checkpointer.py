@@ -17,14 +17,25 @@ One directory per step, `<train_dir>/ckpt_<step, 8 digits>/`, holds
 - `theta.pt`: the task's weights, `{parameter name: CPU tensor}` under the
   names of the module's `state_dict`;
 - `train_state.pt` (when a train state is saved): the step counter and
-  the optimizer state, `{path: CPU tensor}` flattened in the state's
-  order.
+  the state's tensors, `{path: CPU tensor}` flattened in the state's
+  order: one optimizer state per learner (`opt_states[i]...`) and, with
+  an EMA, `ema_theta...`. A multi-task state (NestedMap(tasks={name:
+  state}, step)) keeps each task's under `tasks.{name}.` and each task's
+  step beside the total.
+
+`Save` and `Restore` take the module whose `state_dict` holds the
+weights: a task, or a multi-task schedule's `model` (its tasks as
+children).
 
 A step is written under a temporary name and renamed when complete, so a
 reader polling the directory never sees half a step. The weights sit in a
 file of their own, so a decoder reads only them. Files are read with
 `torch.load(weights_only=True)`: tensors and plain containers, nothing
-that runs code.
+that runs code. They are memory-mapped, so each tensor is read from the
+file once, where it is copied to. `torch.save` writes them without the
+zip records' CRC32, which took 15–45% of a write on an H100's host
+(`tools/torch_train_surface_probe.py`) and which `torch.load` never
+checks.
 
 `SaveAsync` copies every tensor to the host before it returns, so a later
 in-place optimizer update cannot tear the snapshot; only the file write
@@ -126,6 +137,8 @@ class Checkpointer:
     if opt is not None:
       opt = {"step": int(state.step),
              "opt_states": {k: host(v) for k, v in opt.items()}}
+      if "tasks" in state:
+        opt["task_steps"] = {n: int(s.step) for n, s in state.tasks.items()}
     return theta, opt, finite
 
   @staticmethod
@@ -193,9 +206,14 @@ class Checkpointer:
     tmp = f"{final}.tmp{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
-    torch.save(theta, os.path.join(tmp, THETA_FILE))
-    if opt is not None:
-      torch.save(opt, os.path.join(tmp, TRAIN_STATE_FILE))
+    crc = torch.serialization.get_crc32_options()
+    torch.serialization.set_crc32_options(False)
+    try:
+      torch.save(theta, os.path.join(tmp, THETA_FILE))
+      if opt is not None:
+        torch.save(opt, os.path.join(tmp, TRAIN_STATE_FILE))
+    finally:
+      torch.serialization.set_crc32_options(crc)
     nbytes = sum(os.path.getsize(os.path.join(tmp, f))
                  for f in os.listdir(tmp))
     if os.path.isdir(final):   # a forced save over an existing step
@@ -228,11 +246,9 @@ class Checkpointer:
     if not os.path.isdir(path):
       raise FileNotFoundError(f"no checkpoint for step {target} in "
                               f"{self._train_dir}")
-    task.load_state_dict(torch.load(os.path.join(path, THETA_FILE),
-                                    map_location="cpu", weights_only=True))
+    task.load_state_dict(_Load(os.path.join(path, THETA_FILE)))
     if state is not None:
-      saved = torch.load(os.path.join(path, TRAIN_STATE_FILE),
-                         map_location="cpu", weights_only=True)
+      saved = _Load(os.path.join(path, TRAIN_STATE_FILE))
       items = _OptItems(state)
       if [k for k, _ in items] != list(saved["opt_states"]):
         raise ValueError(f"checkpoint {target}: optimizer state structure "
@@ -241,6 +257,8 @@ class Checkpointer:
         for k, v in items:
           v.copy_(saved["opt_states"][k])
       state.step = saved["step"]
+      for name, step in saved.get("task_steps", {}).items():
+        state.tasks[name].step = step
     return state, int(target)
 
   def Close(self) -> None:
@@ -251,9 +269,24 @@ class Checkpointer:
       self._save_pool = None
 
 
+def _Load(path: str) -> dict:
+  return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def _TensorPart(state: NestedMap) -> NestedMap:
+  part = NestedMap(opt_states=state.opt_states)
+  if "ema_theta" in state:
+    part.ema_theta = state.ema_theta
+  return part
+
+
 def _OptItems(state: NestedMap) -> list:
-  """[(path, tensor)] of a train state's optimizer state, in order."""
-  return NestedMap(opt_states=state.opt_states).FlattenItems()
+  """[(path, tensor)] of a train state's tensors (the optimizer states
+  and the EMA; a multi-task state's per task), in order."""
+  if "tasks" in state:
+    return NestedMap(tasks={n: _TensorPart(s) for n, s in
+                            state.tasks.items()}).FlattenItems()
+  return _TensorPart(state).FlattenItems()
 
 
 def _Members(leaf) -> tuple:
@@ -313,14 +346,27 @@ def _ThetaOfStateDict(state_dict: dict) -> dict:
   return out
 
 
+def _MirrorEma(state, path: str, leaf) -> None:
+  """A warm-started leaf's value into the state's EMA too (ref
+  checkpointer.py:381): eval on the EMA must not score the random init."""
+  if state is not None and "ema_theta" in state:
+    with torch.no_grad():
+      ema = state.ema_theta[path]
+      if isinstance(leaf, base_layer.StackedLeaf):
+        ema.copy_(torch.stack(leaf.layers))
+      else:
+        ema.copy_(leaf)
+
+
 def ApplyInitFromCheckpointRules(task: base_layer.BaseLayer,
-                                 rules: dict) -> int:
+                                 rules: dict, state=None) -> int:
   """Warm start (ref `checkpointer.py:214`): `rules` maps a source run's
   train dir to [(target_regex, source_template)]. Every theta leaf of
   `task` whose path fully matches a target regex takes the source's
   latest checkpoint's leaf at re.sub(target_regex, source_template,
   path), cast to the target dtype. Shapes must match, and a matching rule
-  whose source leaf is missing raises. Returns the leaves loaded."""
+  whose source leaf is missing raises. A train `state` with an EMA gets
+  each loaded value in its `ema_theta` too. Returns the leaves loaded."""
   n_total = 0
   targets = task.ThetaTree().FlattenItems()
   for ckpt_dir, pairs in rules.items():
@@ -342,6 +388,7 @@ def ApplyInitFromCheckpointRules(task: base_layer.BaseLayer,
             f"init_from_checkpoint_rules: {path!r} maps to source var "
             f"{src_path!r} which is not in {ckpt_dir} (has {len(src)} vars)")
       _Assign(path, leaf, src[src_path], "init_from_checkpoint_rules")
+      _MirrorEma(state, path, leaf)
       n_loaded += 1
     print(f"[checkpointer] warm start: {n_loaded} vars from {ckpt_dir} "
           f"@ step {step}", flush=True)
@@ -350,14 +397,15 @@ def ApplyInitFromCheckpointRules(task: base_layer.BaseLayer,
 
 
 def ImportNpzCheckpoint(task: base_layer.BaseLayer, npz_path: str,
-                        rules=None) -> int:
+                        rules=None, state=None) -> int:
   """Initializes `task`'s weights from an npz of reference-layout arrays
   keyed by the reference's dotted theta paths (`stack.body.fflayer.ffn_in.w`
   with its leading [num_layers] axis). `rules`: optional
   [(target_regex, source_template)] name mapping; None means the npz keys
   are the theta paths. Leaves without an npz entry keep their
-  initialization, but a rule whose mapped source is missing raises.
-  Returns the leaves loaded."""
+  initialization, but a rule whose mapped source is missing raises. A
+  train `state` with an EMA gets each loaded value in its `ema_theta`
+  too. Returns the leaves loaded."""
   src = np.load(npz_path)
   src_keys = set(src.files)
   n_loaded = 0
@@ -375,6 +423,7 @@ def ImportNpzCheckpoint(task: base_layer.BaseLayer, npz_path: str,
             f"not in {npz_path} ({len(src_keys)} vars)")
       continue
     _Assign(path, leaf, src[src_path], "ImportNpzCheckpoint")
+    _MirrorEma(state, path, leaf)
     n_loaded += 1
   print(f"[checkpointer] npz import: {n_loaded} vars from {npz_path}",
         flush=True)

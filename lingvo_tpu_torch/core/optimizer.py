@@ -16,13 +16,16 @@ old value of every parameter and slot where it is set (the reference's
 rollback by `jnp.where`), still without a host sync.
 
 Ported: SGD, Momentum, RMSProp, Adagrad, Adam, AdamW, Adafactor, the
-gradient `Accumulator` and `CompositeOptimizer`. The elementwise rules
-keep their slots under the reference's names, one {path: tensor} dict
-per slot (`m`, `v`, ...), a repeat stack's slot stacked. Their float32
-arithmetic follows the reference's jitted program: Python constants are
-float32 constants, and a division by one (the Accumulator's mean) is a
-product with its float32 reciprocal (`jit_arith.Reciprocal`). The
-reference's `DistributedShampoo`, `EGDD` and `AdaGraft` are not ported.
+gradient `Accumulator`, `CompositeOptimizer`, `DistributedShampoo`,
+`EGDD` and `AdaGraft`. The rules keep their slots under the reference's
+names, one {path: tensor} dict per slot (`m`, `v`, ...), a repeat
+stack's slot stacked. Their float32 arithmetic follows the reference's
+jitted program: Python constants are float32 constants, and a division
+by one (the Accumulator's mean) is a product with its float32
+reciprocal (`jit_arith.Reciprocal`). A rule that takes a norm or a
+matrix shape of a leaf (Adafactor's RMS, Shampoo's preconditioning test,
+EGDD's and AdaGraft's per-tensor scales) takes it over a repeat stack's
+whole stacked leaf, as the reference does.
 """
 
 from __future__ import annotations
@@ -50,6 +53,22 @@ def _Write(dst: torch.Tensor, new: torch.Tensor, skipped) -> None:
     dst.copy_(new)
   else:
     dst.copy_(torch.where(skipped, dst, new))
+
+
+def _CopyLeaf(leaf):
+  """A copy of a leaf (a StackedLeaf's layers copied one by one)."""
+  if isinstance(leaf, base_layer.StackedLeaf):
+    return base_layer.StackedLeaf(tuple(x.clone() for x in leaf.layers))
+  return leaf.clone()
+
+
+def _Slice(slot: torch.Tensor, stacked: bool, i: int) -> torch.Tensor:
+  """Layer i's view of a leaf's slot (the slot itself for a plain leaf)."""
+  return slot[i] if stacked else slot
+
+
+def _SumSquares(tensors) -> torch.Tensor:
+  return sum(torch.sum(torch.square(t)) for t in tensors)
 
 
 class BaseOptimizer(base_layer.BaseLayer):
@@ -445,11 +464,6 @@ class CompositeOptimizer(BaseOptimizer):
   def Update(self, state, grads, params, lr, step, skipped=None):
     routes = {k: self._RouteIndex(k) for k in params}
 
-    def _Copy(leaf):
-      if isinstance(leaf, base_layer.StackedLeaf):
-        return base_layer.StackedLeaf(tuple(x.clone() for x in leaf.layers))
-      return leaf.clone()
-
     def _Zeros(leaf):
       if isinstance(leaf, base_layer.StackedLeaf):
         return base_layer.StackedLeaf(
@@ -460,6 +474,251 @@ class CompositeOptimizer(BaseOptimizer):
       mult = self.p.optimizer_map[i][2]
       mine = {k: routes[k] == i for k in params}
       masked = {k: grads[k] if mine[k] else _Zeros(grads[k]) for k in params}
-      view = {k: params[k] if mine[k] else _Copy(params[k]) for k in params}
+      view = {k: params[k] if mine[k] else _CopyLeaf(params[k])
+            for k in params}
       opt.Update(state.subs[i], masked, view, lr * mult, step,
                  skipped=skipped)
+
+
+class DistributedShampoo(BaseOptimizer):
+  """Shampoo with Kronecker-factored preconditioners (reference
+  `DistributedShampoo`).
+
+  A leaf of the reference's shape [m, n], both dims at most block_size,
+  keeps its statistics L += G G^T, R += G^T G (`stat_l`, `stat_r`,
+  decayed by beta2) and their inverse quarter roots (`root_l`,
+  `root_r`), and steps along root_l G root_r scaled to the norm of the
+  diagonal AdaGrad step. A repeat stack's stacked vectors ([L, n]) are
+  such a matrix, as in the reference. Any other leaf, a repeat stack's
+  3-D stacked weights and a [D, N, H] attention weight included, takes
+  that diagonal AdaGrad step (`accum`) itself; its four matrix slots are
+  0-d placeholders, as the reference's.
+
+  The roots are recomputed from the updated statistics on steps where
+  step % statistics_compute_steps == 0 (the reference's `lax.cond`; the
+  port's step is a host int, so this is a host branch, and `eigh` runs
+  on refresh steps only). The inverse root is `torch.linalg.eigh` in
+  float32, as the reference's `jnp.linalg.eigh` runs outside any kernel.
+  A skipped step keeps the old statistics, roots and accumulators."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("block_size", 1024, "Max dim preconditioned (bigger: diag).")
+    p.Define("statistics_compute_steps", 10,
+             "Refresh the inverse roots every N steps.")
+    p.Define("epsilon", 1e-6, "Damping added to the factor diagonals.")
+    p.Define("beta2", 1.0, "Statistics decay (1.0 = accumulate, ref).")
+    p.Define("graft_epsilon", 1e-8, "AdaGrad graft stability.")
+    return p
+
+  def _Preconditioned(self, leaf) -> bool:
+    shape = tuple(leaf.shape)
+    return (len(shape) == 2 and shape[0] <= self.p.block_size
+            and shape[1] <= self.p.block_size)
+
+  def InitState(self, params):
+    state = NestedMap(stat_l={}, stat_r={}, root_l={}, root_r={}, accum={})
+    for k, leaf in params.items():
+      dev = Members(leaf)[0].device
+      shape = tuple(leaf.shape)
+      for side, n in (("l", shape[0]), ("r", shape[-1])):
+        if self._Preconditioned(leaf):
+          state[f"stat_{side}"][k] = torch.zeros(
+              (n, n), dtype=torch.float32, device=dev)
+          state[f"root_{side}"][k] = torch.eye(n, dtype=torch.float32,
+                                               device=dev)
+        else:
+          state[f"stat_{side}"][k] = torch.zeros((), dtype=torch.float32,
+                                                 device=dev)
+          state[f"root_{side}"][k] = torch.zeros((), dtype=torch.float32,
+                                                 device=dev)
+      state.accum[k] = torch.zeros(shape, dtype=torch.float32, device=dev)
+    return state
+
+  def InverseQuarterRoot(self, stat: torch.Tensor) -> torch.Tensor:
+    """(stat + epsilon I)^(-1/4) by eigh, eigenvalues floored at epsilon."""
+    eps = self.p.epsilon
+    n = stat.shape[0]
+    damped = stat + eps * torch.eye(n, dtype=stat.dtype, device=stat.device)
+    evals, evecs = torch.linalg.eigh(damped)
+    inv_root = torch.pow(torch.clamp(evals, min=eps), -0.25)
+    return (evecs * inv_root[None, :]) @ evecs.T
+
+  @torch.no_grad()
+  def Update(self, state, grads, params, lr, step, skipped=None):
+    p = self.p
+    refresh = int(step) % p.statistics_compute_steps == 0
+    for key, leaf in params.items():
+      stacked = isinstance(leaf, base_layer.StackedLeaf)
+      lr_d = py_utils.ToDevice(lr, Members(leaf)[0].device)
+      if not self._Preconditioned(leaf):
+        for i, (w, g) in enumerate(zip(Members(leaf), Members(grads[key]))):
+          acc = _Slice(state.accum[key], stacked, i)
+          new_acc = acc + torch.square(g.to(acc.dtype))
+          adagrad_dir = g.float() / (torch.sqrt(new_acc) + p.graft_epsilon)
+          _Write(acc, new_acc, skipped)
+          _Write(w, w - (lr_d * adagrad_dir).to(w.dtype), skipped)
+        continue
+      # one matrix: a 2-D weight, or a repeat stack's stacked vectors
+      if stacked:
+        w = torch.stack(leaf.layers)
+        g32 = torch.stack(grads[key].layers).float()
+      else:
+        w, g32 = leaf, grads[key].float()
+      acc = state.accum[key]
+      new_acc = acc + torch.square(g32.to(acc.dtype))
+      adagrad_dir = g32 / (torch.sqrt(new_acc) + p.graft_epsilon)
+      sl, sr = state.stat_l[key], state.stat_r[key]
+      rl, rr = state.root_l[key], state.root_r[key]
+      new_sl = p.beta2 * sl + g32 @ g32.T
+      new_sr = p.beta2 * sr + g32.T @ g32
+      if refresh:
+        new_rl = self.InverseQuarterRoot(new_sl)
+        new_rr = self.InverseQuarterRoot(new_sr)
+      else:
+        new_rl, new_rr = rl, rr
+      precond = new_rl @ g32 @ new_rr
+      # graft: the Shampoo direction with the AdaGrad step's norm
+      pn = torch.clamp(torch.linalg.norm(precond), min=1e-16)
+      an = torch.linalg.norm(adagrad_dir)
+      new_w = w - (lr_d * (precond * (an / pn))).to(w.dtype)
+      for dst, new in ((acc, new_acc), (sl, new_sl), (sr, new_sr)):
+        _Write(dst, new, skipped)
+      if refresh:
+        _Write(rl, new_rl, skipped)
+        _Write(rr, new_rr, skipped)
+      for i, member in enumerate(Members(leaf)):
+        _Write(member, new_w[i] if stacked else new_w, skipped)
+
+
+class EGDD(BaseOptimizer):
+  """Exponentiated Gradient Delta-Delta (reference `EGDD`): momentum with
+  a per-weight gain and a per-tensor lr scale, both updated by
+  unnormalized exponentiated gradient.
+
+    scale    <- clip(scale * exp(scale_lr * <g/|g|, m/|m|>))
+    gain     <- clip(gain * exp(gain_lr * sign(g) sign(gbar)))
+    m        <- mu m + lr gain g;  gbar <- beta gbar + (1 - beta) g
+    w        <- w - scale m
+
+  The scale (`lr_scale`, a 0-d slot per leaf) and the norms and inner
+  product it reads are taken over a repeat stack's whole stacked leaf.
+  Every slot is float32."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("momentum", 0.9, "Momentum coefficient (mu).")
+    p.Define("beta", 0.9, "Decay of the gradient EMA (gbar).")
+    p.Define("gain_learning_rate", 0.01, "EG step on per-weight gains.")
+    p.Define("scale_learning_rate", 0.001, "EG step on per-tensor lr scale.")
+    p.Define("initial_gain", 1.0, "Initial per-weight gain.")
+    p.Define("min_gain", 1e-2, "Gain lower clip.")
+    p.Define("max_gain", 1e2, "Gain upper clip.")
+    p.Define("initial_scale", 1.0, "Initial lr scale.")
+    p.Define("min_scale", 1e-1, "lr scale lower clip.")
+    p.Define("max_scale", 1e1, "lr scale upper clip.")
+    p.Define("use_directions", True,
+             "lr-scale update from normalized grad/momentum directions.")
+    p.Define("use_signs", True,
+             "Gain update from sign(grad)*sign(gbar) instead of magnitudes.")
+    return p
+
+  def InitState(self, params):
+    p = self.p
+    state = NestedMap(m={}, gbar={}, gain={}, lr_scale={})
+    for k, leaf in params.items():
+      dev = Members(leaf)[0].device
+      shape = tuple(leaf.shape)
+      state.m[k] = torch.zeros(shape, dtype=torch.float32, device=dev)
+      state.gbar[k] = torch.zeros(shape, dtype=torch.float32, device=dev)
+      state.gain[k] = torch.full(shape, float(p.initial_gain),
+                                 dtype=torch.float32, device=dev)
+      state.lr_scale[k] = torch.full((), float(p.initial_scale),
+                                     dtype=torch.float32, device=dev)
+    return state
+
+  @torch.no_grad()
+  def Update(self, state, grads, params, lr, step, skipped=None):
+    p = self.p
+    t = torch.clamp(_F32(step), min=1.0)
+    # the bias correction of gbar, a float32 power as the jitted reference
+    corr = 1.0 - torch.pow(_F32(p.beta), torch.clamp(t - 1.0, min=1.0))
+    for key, leaf in params.items():
+      stacked = isinstance(leaf, base_layer.StackedLeaf)
+      dev = Members(leaf)[0].device
+      lr_d = py_utils.ToDevice(lr, dev)
+      gs = [g.float() for g in Members(grads[key])]
+      ms = [_Slice(state.m[key], stacked, i) for i in range(len(gs))]
+      if p.use_directions:
+        gnorm = torch.sqrt(_SumSquares(gs)) + 1e-10
+        mnorm = torch.sqrt(_SumSquares(ms)) + 1e-10
+        inner = sum(torch.sum((g / gnorm) * (m / mnorm))
+                    for g, m in zip(gs, ms))
+      else:
+        inner = sum(torch.sum(g * m) for g, m in zip(gs, ms))
+      scale = state.lr_scale[key]
+      new_scale = torch.clamp(
+          scale * torch.exp(p.scale_learning_rate * inner), p.min_scale,
+          p.max_scale)
+      for i, (w, g, m) in enumerate(zip(Members(leaf), gs, ms)):
+        gbar = _Slice(state.gbar[key], stacked, i)
+        gain = _Slice(state.gain[key], stacked, i)
+        if p.use_signs:
+          gain_grad = torch.sign(g) * torch.sign(gbar)
+        else:
+          gain_grad = g * (gbar / py_utils.ToDevice(corr, dev))
+        new_gain = torch.clamp(
+            gain * torch.exp(p.gain_learning_rate * gain_grad), p.min_gain,
+            p.max_gain)
+        new_m = p.momentum * m + lr_d * new_gain * g
+        new_gbar = p.beta * gbar + (1.0 - p.beta) * g
+        _Write(w, w - (new_scale * new_m).to(w.dtype), skipped)
+        _Write(m, new_m, skipped)
+        _Write(gbar, new_gbar, skipped)
+        _Write(gain, new_gain, skipped)
+      _Write(scale, new_scale, skipped)
+
+
+class AdaGraft(BaseOptimizer):
+  """Grafts one optimizer's step magnitude onto another's direction
+  (reference `AdaGraft`): both children step from copies of the
+  parameters, and each leaf moves by |dM| * dD / |dD|, the norms over a
+  repeat stack's whole stacked leaf. The children never write the
+  caller's tensors; their slots (`mag`, `dir`) follow their own rules,
+  the skip flag included."""
+
+  @classmethod
+  def Params(cls):
+    p = super().Params()
+    p.Define("magnitude_optimizer", None, "Optimizer supplying step size.")
+    p.Define("direction_optimizer", None, "Optimizer supplying direction.")
+    return p
+
+  def __init__(self, params, device=None):
+    super().__init__(params, device)
+    p = self.p
+    assert p.magnitude_optimizer is not None
+    assert p.direction_optimizer is not None
+    self.CreateChild("mag", p.magnitude_optimizer)
+    self.CreateChild("dir", p.direction_optimizer)
+
+  def InitState(self, params):
+    return NestedMap(mag=self.mag.InitState(params),
+                     dir=self.dir.InitState(params))
+
+  @torch.no_grad()
+  def Update(self, state, grads, params, lr, step, skipped=None):
+    mag = {k: _CopyLeaf(v) for k, v in params.items()}
+    self.mag.Update(state.mag, grads, mag, lr, step, skipped=skipped)
+    drc = {k: _CopyLeaf(v) for k, v in params.items()}
+    self.dir.Update(state.dir, grads, drc, lr, step, skipped=skipped)
+    for key, leaf in params.items():
+      ws = Members(leaf)
+      dms = [(m - w).float() for m, w in zip(Members(mag[key]), ws)]
+      dds = [(d - w).float() for d, w in zip(Members(drc[key]), ws)]
+      dd_norm = torch.clamp(torch.sqrt(_SumSquares(dds)), min=1e-16)
+      step_len = torch.sqrt(_SumSquares(dms))
+      for w, dd in zip(ws, dds):
+        _Write(w, w + (step_len * dd / dd_norm).to(w.dtype), skipped)

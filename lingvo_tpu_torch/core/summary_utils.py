@@ -87,12 +87,17 @@ class StepRateTracker:
 def ModelAnalysis(task) -> list[str]:
   """The parameter-count report of `model_analysis.txt` and
   `--mode=inspect_model` (ref summary_utils.ModelAnalysis): one row per
-  theta path with its shape and size, then the TOTAL."""
+  theta path with its shape and size, then the TOTAL. `task` may also be
+  {task name: task} (a multi-task schedule's), each row's path then
+  prefixed `{name}.`."""
+  tasks = task if isinstance(task, dict) else {"": task}
   lines = []
   total = 0
-  for path, spec in task.VariableSpecs().FlattenItems():
-    n = int(np.prod(spec.shape)) if spec.shape else 1
-    total += n
-    lines.append(f"{path:<60} {str(tuple(spec.shape)):<20} {n}")
+  for tname, t in sorted(tasks.items()):
+    prefix = f"{tname}." if tname else ""
+    for path, spec in t.VariableSpecs().FlattenItems():
+      n = int(np.prod(spec.shape)) if spec.shape else 1
+      total += n
+      lines.append(f"{prefix}{path:<60} {str(tuple(spec.shape)):<20} {n}")
   lines.append(f"{'TOTAL':<60} {'':<20} {total}")
   return lines

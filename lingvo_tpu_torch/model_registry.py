@@ -41,6 +41,13 @@ def RegisterSingleTaskModel(cls):
   return _RegisterModel(cls)
 
 
+def RegisterMultiTaskModel(cls):
+  """Class decorator registering a MultiTaskModelParams subclass."""
+  if not issubclass(cls, base_model_params.MultiTaskModelParams):
+    raise TypeError(f"{cls} must subclass MultiTaskModelParams")
+  return _RegisterModel(cls)
+
+
 def _MaybeImportFor(name: str) -> None:
   parts = name.split(".")
   if len(parts) < 3:

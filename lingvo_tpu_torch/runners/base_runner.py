@@ -1,11 +1,13 @@
 """Checkpoint-polling runner: eval jobs that follow a training run (port of lingvo_tpu/runners/base_runner.py).
 
 A separate job (`trainer --job=evaler`) watches the trainer's checkpoint
-directory; each time a new checkpoint appears it restores the weights
-into its task and runs its programs against them, writing summaries
-tagged with the checkpoint's step. It exits when a checkpoint at or after
-the task's max_steps has been processed, when the trainer's `FINISHED`
-marker appears, or when no new checkpoint appears within `timeout_secs`.
+directory; each time a new checkpoint appears it restores the train
+state (the weights, the optimizer state and the EMA of the weights, which
+an eval program reads by default) and runs its programs against it,
+writing summaries tagged with the checkpoint's step. It exits when a
+checkpoint at or after the task's max_steps has been processed, when the
+trainer's `FINISHED` marker appears, or when no new checkpoint appears
+within `timeout_secs`.
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ import time
 from typing import Callable, Sequence
 
 from lingvo_tpu_torch.core import checkpointer as checkpointer_lib
-from lingvo_tpu_torch.core.nested_map import NestedMap
 
 
 class CheckpointPollingRunner:
@@ -31,6 +32,9 @@ class CheckpointPollingRunner:
     self._poll_interval = poll_interval_secs
     self._timeout = timeout_secs
     self._last_evaled_step = -1
+    # the state every restore writes into, built once: its values are
+    # all overwritten, so the weights are not drawn
+    self._state = task.CreateTrainState()
 
   def _FindNewCheckpoint(self) -> int | None:
     """The latest unseen checkpoint step, or None."""
@@ -40,9 +44,9 @@ class CheckpointPollingRunner:
     return latest
 
   def RunOnce(self, step: int) -> dict:
-    """Restores checkpoint `step`'s weights and runs all programs."""
-    _, restored_step = self._checkpointer.Restore(self._task, step=step)
-    state = NestedMap(step=restored_step)
+    """Restores checkpoint `step` and runs all programs against it."""
+    state, restored_step = self._checkpointer.Restore(
+        self._task, step=step, state=self._state)
     results = {}
     for prog in self._programs:
       _, results[prog.p.name] = prog.Run(state)

@@ -19,18 +19,27 @@ reference's; the port's device is the card the task lives on):
   MLPerf log as in the reference;
 - `metrics.jsonl`: one row per step with every program's result.
 
-One main-loop body, the reference's pipelined one: it saves with
-`SaveAsync` and makes its cadence decisions (`_CadenceDecisions`) over
-the loops that completed, which a synchronous train program reports at
-once and a pipelined one within `pipeline_depth` loops. The reference's
-second body, for its lag-1 window and schedules without a train
-program, is not ported (ROADMAP item 1.13). At each fence (the start, a
-restore) the programs learn the step (`SyncHostStep`), and a seekable
-train input moves to it.
+Two main-loop bodies, as the reference's. A schedule with a
+deterministic `StepsPerCycle` (`SimpleProgramSchedule`) runs the
+pipelined one: it saves with `SaveAsync` and makes its cadence decisions
+(`_CadenceDecisions`) over the loops that completed, which a synchronous
+train program reports at once and a pipelined one within
+`pipeline_depth` loops. At each of its fences (the start, a restore) the
+programs learn the step (`SyncHostStep`), and a seekable train input
+moves to it. A schedule without one (`MultiTaskProgramSchedule`, whose
+cycle's steps depend on the sampled task) runs the sequential one (the
+reference's `_LegacyMainLoopBody`): a synchronous save, one cycle, the
+step read from the state, the decisions over that cycle's results. For
+a multi-task schedule `ExecutorTpu(None, logdir, schedule=...)` takes
+the tasks from the schedule and checkpoints its `model`.
+
+Magnitude pruning (`train.pruning`, core/pruning.py): after every cycle
+the masks are recomputed if a `frequency` boundary was crossed since
+their last update, and re-applied to theta and `ema_theta`. They are not
+checkpointed; a restarted run recomputes them at its first boundary.
 
 The status server (`serve_port`), the stall watchdog and the goodput
-tracker come with `observe/` (ROADMAP item 11); pruning is not ported.
-Both raise when asked for.
+tracker come with `observe/` (ROADMAP item 11) and raise when asked for.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from lingvo_tpu_torch.core import base_trial
 from lingvo_tpu_torch.core import checkpointer as checkpointer_lib
 from lingvo_tpu_torch.core import early_stop as early_stop_lib
 from lingvo_tpu_torch.core import ml_perf_log
+from lingvo_tpu_torch.core import pruning as pruning_lib
 from lingvo_tpu_torch.core import retry as retry_lib
 from lingvo_tpu_torch.core import summary_utils
 from lingvo_tpu_torch.core.nested_map import NestedMap
@@ -73,9 +83,10 @@ class ExecutorTpu:
     """model_params: SingleTaskModel params (task + input attached).
 
     `task`: the instance the schedule's programs share; None builds the
-    model from model_params on `device`. `max_train_retries`: consecutive
-    transient failures tolerated, each retry restoring the last
-    checkpoint."""
+    model from model_params on `device`, or, for a multi-task schedule
+    (one with `tasks`), takes the schedule's tasks. `max_train_retries`:
+    consecutive transient failures tolerated, each retry restoring the
+    last checkpoint."""
     if serve_port is not None or watchdog:
       raise NotImplementedError(
           "the status server and the stall watchdog come with observe/ "
@@ -83,23 +94,34 @@ class ExecutorTpu:
     self._logdir = logdir
     os.makedirs(logdir, exist_ok=True)
     self._max_train_retries = max_train_retries
-    if task is None:
-      if trial is not None:
-        model_params = trial.OverrideModelParams(model_params)
-      self._model = model_params.Instantiate(device=device)
-      task = self._model.GetTask()
+    if task is None and hasattr(schedule, "tasks"):
+      tasks = schedule.tasks   # multi-task: the schedule owns the task set
+      self._module = schedule.model
+    else:
+      if task is None:
+        if trial is not None:
+          model_params = trial.OverrideModelParams(model_params)
+        self._model = model_params.Instantiate(device=device)
+        task = self._model.GetTask()
+      tasks = task
+      self._module = task
     self._task = task
-    self._task.FinalizePaths()
-    tp = self._task.p.train
-    if tp.pruning is not None:
-      raise NotImplementedError("magnitude pruning is not ported")
+    for t in (tasks.values() if isinstance(tasks, dict) else [tasks]):
+      t.FinalizePaths()
+    ref_task = next(iter(tasks.values())) if task is None else task
+    tp = ref_task.p.train
+    self._pruning_schedule = (tp.pruning.Instantiate()
+                              if task is not None and tp.pruning is not None
+                              else None)
+    self._pruning_masks = None
+    self._last_prune_step = -1
     # the full experiment config, for reproducibility
     if model_params is not None:
       with open(os.path.join(logdir, "trainer_params.txt"), "w") as f:
         f.write(model_params.ToText())
     self._schedule = schedule
     with open(os.path.join(logdir, "model_analysis.txt"), "w") as f:
-      f.write("\n".join(summary_utils.ModelAnalysis(self._task)) + "\n")
+      f.write("\n".join(summary_utils.ModelAnalysis(tasks)) + "\n")
     self._checkpointer = checkpointer_lib.Checkpointer(
         os.path.join(logdir, "train"),
         save_interval_steps=tp.save_interval_steps,
@@ -132,16 +154,41 @@ class ExecutorTpu:
     return self._checkpointer
 
   def _CreateTrainState(self, initialize: bool) -> NestedMap:
-    """A train state of the task's structure; with `initialize`, the
-    weights are drawn first from a CPU generator seeded with INIT_SEED."""
+    """A train state of the task's (or the multi-task schedule's)
+    structure; with `initialize`, the weights are drawn first from a CPU
+    generator seeded with INIT_SEED."""
     gen = (torch.Generator("cpu").manual_seed(INIT_SEED)
            if initialize else None)
+    if self._task is None:
+      return self._schedule.CreateTrainState(gen)
     return self._task.CreateTrainState(gen)
 
   def _Restore(self) -> tuple[NestedMap, int]:
     """The last checkpoint into a fresh state of the task's structure."""
-    return self._checkpointer.Restore(self._task,
+    return self._checkpointer.Restore(self._module,
                                       state=self._CreateTrainState(False))
+
+  def _MaybePrune(self, state: NestedMap, step: int) -> None:
+    """Magnitude pruning at a program-run boundary: masks recomputed when
+    a frequency boundary was crossed since their last update, then applied
+    to theta and ema_theta, so pruned weights cannot regrow."""
+    sched = self._pruning_schedule
+    if sched is None:
+      return
+    theta = dict(self._task.ThetaTree().FlattenItems())
+    if self._pruning_masks is None or sched.ShouldUpdate(
+        step, self._last_prune_step):
+      self._pruning_masks = pruning_lib.ComputeMasks(theta, sched, step)
+      self._last_prune_step = step
+    pruning_lib.ApplyMasks(theta, self._pruning_masks)
+    if "ema_theta" in state:
+      # eval reads the EMA weights: they must be pruned too
+      pruning_lib.ApplyMasks(state.ema_theta, self._pruning_masks)
+
+  @property
+  def pruning_masks(self) -> dict | None:
+    """The masks last applied ({theta path: mask}), None before any."""
+    return self._pruning_masks
 
   def Start(self) -> NestedMap:
     """Runs the main loop until max_steps; returns the final state."""
@@ -149,15 +196,16 @@ class ExecutorTpu:
     # step-0 checkpoint': warm starts apply only to the former
     fresh_run = self._checkpointer.LatestStep() is None
     state = self._CreateTrainState(fresh_run)
-    state, start_step = self._checkpointer.Restore(self._task, state=state)
-    if fresh_run:
+    state, start_step = self._checkpointer.Restore(self._module, state=state)
+    if fresh_run and self._task is not None:
       tp = self._task.p.train
       if tp.init_from_checkpoint_rules:
         checkpointer_lib.ApplyInitFromCheckpointRules(
-            self._task, tp.init_from_checkpoint_rules)
+            self._task, tp.init_from_checkpoint_rules, state=state)
       if tp.init_from_npz:
         checkpointer_lib.ImportNpzCheckpoint(
-            self._task, tp.init_from_npz, tp.init_from_npz_rules)
+            self._task, tp.init_from_npz, tp.init_from_npz_rules,
+            state=state)
     if self._mlperf is not None:
       self._mlperf.Print(ml_perf_log.INIT_STOP)
       self._mlperf.Print(ml_perf_log.RUN_START)
@@ -236,6 +284,8 @@ class ExecutorTpu:
     they fire within pipeline_depth loops of the offending step; eval
     results are fresh (the schedule flushes the train window before
     eval), and the exit path flushes and decides again over the tail."""
+    if not hasattr(self._schedule, "StepsPerCycle"):
+      return self._SequentialMainLoopBody(state, start_step)
     if not self._schedule.StepsPerCycle():
       raise ValueError("the executor's schedule needs a train program")
     step = start_step
@@ -243,7 +293,7 @@ class ExecutorTpu:
     consecutive_failures = 0
     while step < self._max_steps:
       # the snapshot is taken here; the write overlaps the cycle below
-      self._checkpointer.SaveAsync(step, self._task, state)
+      self._checkpointer.SaveAsync(step, self._module, state)
       if self._mlperf is not None:
         self._mlperf.Print(ml_perf_log.BLOCK_START, metadata={"step": step})
       try:
@@ -257,6 +307,7 @@ class ExecutorTpu:
         state, step = self._Recover(e, consecutive_failures)
         continue
       step = int(state.step)
+      self._MaybePrune(state, step)
       # this cycle's inline eval results (fresh), plus the train loops
       # that completed; Run's train result is the same stream lagged
       completed = [(name, r) for name, r in (run_results or {}).items()
@@ -272,6 +323,43 @@ class ExecutorTpu:
       self._CadenceDecisions(step, tail)
     return self._Finish(step, state)
 
+  def _SequentialMainLoopBody(self, state, start_step):
+    """The reference's sequential body, for schedules without a
+    deterministic StepsPerCycle (multi-task sampling): a synchronous
+    cadence save, one cycle, the step read from the state, and the
+    decisions over that cycle's results, every row at that step."""
+    step = start_step
+    consecutive_failures = 0
+    while step < self._max_steps:
+      self._checkpointer.Save(step, self._module, state)
+      if self._mlperf is not None:
+        self._mlperf.Print(ml_perf_log.BLOCK_START, metadata={"step": step})
+      try:
+        state, results = self._schedule.Run(state)
+        consecutive_failures = 0
+      except BaseException as e:  # noqa: BLE001
+        if self._mlperf is not None:
+          self._mlperf.Print(ml_perf_log.BLOCK_STOP,
+                             metadata={"step": step, "status": "error"})
+        consecutive_failures += 1
+        state, step = self._Recover(e, consecutive_failures)
+        continue
+      step = int(state.step)
+      self._MaybePrune(state, step)
+      self._PollPrograms()   # the same results, as the stream reports them
+      if self._CadenceDecisions(step, list(results.items()),
+                                own_steps=False):
+        break
+      if self._mlperf is not None:
+        self._mlperf.Print(ml_perf_log.BLOCK_STOP, metadata={"step": step})
+    tail = {self._ProgramName(prog): prog.Flush()
+            for prog in self._SchedulePrograms()}
+    tail = {k: v for k, v in tail.items() if v is not None}
+    self._PollPrograms()
+    if tail:
+      self._CadenceDecisions(step, list(tail.items()), own_steps=False)
+    return self._Finish(step, state)
+
   def _Finish(self, step, state):
     """Run-stop records, the final forced save and the FINISHED marker
     for follower jobs."""
@@ -281,7 +369,7 @@ class ExecutorTpu:
       self._mlperf.Close()
     if not self._trial_done:
       self._trial.ReportDone()
-    self._checkpointer.Save(step, self._task, state, force=True)
+    self._checkpointer.Save(step, self._module, state, force=True)
     self._checkpointer.Close()
     for w in self._checkpointer.writes:
       print(f"[executor] checkpoint step {w['step']}: {w['bytes']} bytes, "
@@ -292,14 +380,17 @@ class ExecutorTpu:
       f.write(str(step))
     return state
 
-  def _CadenceDecisions(self, step: int, completed: list) -> bool:
+  def _CadenceDecisions(self, step: int, completed: list,
+                        own_steps: bool = True) -> bool:
     """One cadence pass: metric rows (train rows at their own `at_step`,
-    eval rows at `step`), then the NaN stop, trial reports, MLPerf eval
-    markers and the early stop. Returns True when the loop must stop."""
+    eval rows at `step`; every row at `step` without own_steps: a
+    multi-task train result's `at_step` counts its task's steps), then
+    the NaN stop, trial reports, MLPerf eval markers and the early stop.
+    Returns True when the loop must stop."""
     rows: dict[int, dict] = {}
     for name, r in completed:
-      at = (int(r["at_step"]) if isinstance(r, dict) and "at_step" in r
-            else step)
+      at = (int(r["at_step"]) if own_steps and isinstance(r, dict)
+            and "at_step" in r else step)
       rows.setdefault(at, {})[name] = r
     for at in sorted(rows):
       self._ExportMetrics(at, rows[at])
@@ -334,7 +425,7 @@ class ExecutorTpu:
         if "loss" in r:
           self._mlperf.Print("eval_loss", r["loss"],
                              metadata={"step": step, "program": name})
-    if self._early_stop is not None:
+    if self._early_stop is not None and self._task is not None:
       tp = self._task.p.train
       for name, r in completed:
         if (name == tp.early_stop_program and isinstance(r, dict)

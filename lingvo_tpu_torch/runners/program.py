@@ -34,10 +34,23 @@ and reduced-precision reductions off for bf16 ones: weights, gradients
 and optimizer slots are float32, and under `fprop_dtype=bfloat16` the
 activations' products sum in float32.
 
-The reference's on-device loop, its decode and input-benchmark programs,
-its multi-task schedule and its switches for a lag-1 window and for
-fetching metrics on the calling thread wait for later slices (ROADMAP
-§1).
+`EvalProgram.use_ema` (default True, as the reference's) evaluates with
+the state's `ema_theta` when it has one: the parameters hold the EMA's
+values for the eval and theta is given back bit for bit
+(`BaseTask.EmaThetaActive`).
+
+`MultiTaskProgramSchedule` samples one task a cycle with its
+`task_schedule` (`core/task_scheduler.py`, a seeded numpy RandomState,
+so the sequence is the reference's) and runs that task's train program;
+the combined state is NestedMap(tasks={name: state}, step=sum of the
+tasks' steps), which one checkpointer saves with `model`, the tasks as
+one module. `variable_renaming_rules` share leaves across tasks
+(`core/multitask_model.py`): unified at init, the sampled task's values
+copied into the others after its cycle.
+
+The reference's on-device loop, its decode and input-benchmark programs
+and its switches for a lag-1 window and for fetching metrics on the
+calling thread are not implemented here (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -49,11 +62,15 @@ import os
 import time
 from typing import Any
 
+import contextlib
+
 import torch
 
+from lingvo_tpu_torch.core import base_model
 from lingvo_tpu_torch.core import hyperparams
 from lingvo_tpu_torch.core import input_policy
 from lingvo_tpu_torch.core import metrics as metrics_lib
+from lingvo_tpu_torch.core import multitask_model
 from lingvo_tpu_torch.core import summary_utils
 from lingvo_tpu_torch.core import threefry
 from lingvo_tpu_torch.core.nested_map import NestedMap
@@ -307,9 +324,9 @@ class TrainProgram(BaseProgram):
     """Host-driven schedules (DevBasedSchedule's anneal on plateau) read
     their metric history before each loop; the reference also drops its
     jitted functions when the value changed, the port has none to drop."""
-    sched = self._task.learner.lr_sched
-    if hasattr(sched, "UpdateFromHistory"):
-      sched.UpdateFromHistory()
+    for lrn in self._task.Learners():
+      if hasattr(lrn.lr_sched, "UpdateFromHistory"):
+        lrn.lr_sched.UpdateFromHistory()
 
   def Run(self, state: NestedMap) -> tuple[NestedMap, dict[str, float]]:
     self._RefreshHostSchedules()
@@ -415,6 +432,7 @@ class EvalProgram(BaseProgram):
     p = super().Params()
     p.name = "eval"
     p.dataset_name = "Test"
+    p.Define("use_ema", True, "Eval with EMA weights when available.")
     return p
 
   def _MaxEvalBatches(self) -> int:
@@ -437,12 +455,15 @@ class EvalProgram(BaseProgram):
                                 f"{self.p.name or 'eval'}-infeed")
     acc = None
     infeed_wait_s = 0.0
+    theta = (self._task.EmaThetaActive(state) if self.p.use_ema
+             else contextlib.nullcontext())
     try:
-      for batch in (infeed.Iter() if infeed is not None else raw):
-        if infeed is None:
-          batch = self._PutBatch(batch)
-        metrics, _ = self._task.EvalStep(batch)
-        acc = metrics_lib.AccumulateMetrics(acc, metrics)
+      with theta:
+        for batch in (infeed.Iter() if infeed is not None else raw):
+          if infeed is None:
+            batch = self._PutBatch(batch)
+          metrics, _ = self._task.EvalStep(batch)
+          acc = metrics_lib.AccumulateMetrics(acc, metrics)
     finally:
       if infeed is not None:
         infeed_wait_s = infeed.wait_s
@@ -530,4 +551,118 @@ class SimpleProgramSchedule:
     for ep in self.eval_programs:
       state, r = ep.Run(state)
       results[ep.p.name] = r
+    return state, results
+
+
+class MultiTaskProgramSchedule:
+  """Per-task train programs driven by a sampling TaskScheduler (ref
+  MultiTaskProgramSchedule:1285): each cycle samples one task name and
+  runs that task's TrainProgram. It has no `StepsPerCycle` (the steps of
+  a cycle depend on the sampled task), so the executor runs it in its
+  sequential main-loop body."""
+
+  @classmethod
+  def Params(cls):
+    p = hyperparams.InstantiableParams(cls)
+    p.Define("name", "multitask_schedule", "Name.")
+    p.Define("task_schedule", None, "TaskScheduler params.")
+    p.Define("train_programs", None,
+             "Params holding one TrainProgram params per task name.")
+    p.Define("eval_programs", [], "Eval program params (any task).")
+    p.Define("train_executions_per_eval", 1,
+             "Train cycles between eval rounds.")
+    p.Define("variable_renaming_rules", [],
+             "[(regex, replacement)] over dotted theta paths; tasks whose "
+             "renamed paths collide share those variables "
+             "(core/multitask_model.py).")
+    return p
+
+  def __init__(self, params, tasks: dict | None = None,
+               input_generators: dict | None = None, device=None):
+    """tasks: {task_name: task instance} (instantiated on `device` from
+    each train program's task params when omitted); input_generators:
+    {(task_name, dataset_name): generator}, or {dataset_name: generator}
+    for every task."""
+    self.p = params.Copy()
+    input_generators = input_generators or {}
+    # the tasks as one module, what the checkpointer saves and restores
+    model_p = base_model.MultiTaskModel.Params().Set(name=self.p.name)
+    if tasks is None:
+      model_p.task_params = hyperparams.Params()
+      for name, tp in self.p.train_programs.IterParams():
+        model_p.task_params.Define(name, tp.task, "")
+      self.model = model_p.Instantiate(device=device)
+      tasks = {n: self.model.GetTask(n) for n in self.model.task_names}
+    else:
+      self.model = model_p.Instantiate(
+          device=next(iter(tasks.values())).device, tasks=tasks)
+    for t in tasks.values():
+      t.FinalizePaths()
+    self._tasks = dict(tasks)
+    self._scheduler = self.p.task_schedule.Instantiate()
+    self._runs_since_eval = 0
+    self._shared_rules = None
+    if self.p.variable_renaming_rules:
+      self._shared_rules = multitask_model.SharedVariableRules(
+          self.p.variable_renaming_rules)
+
+    def _GenFor(name, dataset):
+      if (name, dataset) in input_generators:
+        return input_generators[(name, dataset)]
+      return input_generators.get(dataset)
+
+    self.train_programs = {}
+    for name, tp in self.p.train_programs.IterParams():
+      self.train_programs[name] = tp.cls(
+          tp, task=tasks[name],
+          input_generator=_GenFor(name, tp.dataset_name))
+    self.eval_programs = []
+    for ep in self.p.eval_programs:
+      task_name = getattr(ep, "task_name", None) or next(iter(tasks))
+      self.eval_programs.append(
+          ep.cls(ep, task=tasks[task_name],
+                 input_generator=_GenFor(task_name, ep.dataset_name)))
+
+  @property
+  def programs(self):
+    return list(self.train_programs.values()) + list(self.eval_programs)
+
+  @property
+  def tasks(self):
+    return dict(self._tasks)
+
+  def CreateTrainState(self, generator: torch.Generator | None = None
+                       ) -> NestedMap:
+    """NestedMap(tasks={name: train state}, step=0). With a generator,
+    each task's weights are drawn from it in sorted task order, then the
+    shared leaves are unified (the first task in sorted order donates)."""
+    states = NestedMap()
+    for name in sorted(self._tasks):
+      states[name] = self._tasks[name].CreateTrainState(generator)
+    if self._shared_rules is not None and generator is not None:
+      self._shared_rules.UnifyStates(self._tasks)
+    return NestedMap(tasks=states, step=0)
+
+  def Run(self, state: NestedMap) -> tuple[NestedMap, dict[str, Any]]:
+    name = self._scheduler.Sample(int(state.step))
+    task_state, result = self.train_programs[name].Run(state.tasks[name])
+    state.tasks[name] = task_state
+    if self._shared_rules is not None:
+      self._shared_rules.Propagate(self._tasks, name)
+    state.step = sum(int(state.tasks[n].step) for n in sorted(self._tasks))
+    results = {f"train_{name}": result, "sampled_task": name}
+    self._runs_since_eval += 1
+    if self._runs_since_eval >= max(1, self.p.train_executions_per_eval):
+      self._runs_since_eval = 0
+      if self.eval_programs:
+        # program boundary: see SimpleProgramSchedule.Run
+        flushed = self.train_programs[name].Flush()
+        if flushed is not None:
+          results[f"train_{name}"] = flushed
+      for ep in self.eval_programs:
+        task_name = (getattr(ep.p, "task_name", None)
+                     or next(iter(self._tasks)))
+        st, r = ep.Run(state.tasks[task_name])
+        state.tasks[task_name] = st
+        results[ep.p.name] = r
     return state, results

@@ -190,14 +190,14 @@ def main(argv=None):
     return 0
   import torch
   from lingvo_tpu_torch.runners import executor as executor_lib
-  task.InstantiateVariables(
+  # the whole train state, so that an eval program reads the EMA
+  state = task.CreateTrainState(
       torch.Generator("cpu").manual_seed(executor_lib.INIT_SEED))
   ckpt = checkpointer_lib.Checkpointer(os.path.join(args.logdir, "train"))
-  _, step = ckpt.Restore(task)
+  state, step = ckpt.Restore(task, state=state)
   ckpt.Close()
-  from lingvo_tpu_torch.core.nested_map import NestedMap
   for prog in progs:
-    _, results = prog.Run(NestedMap(step=step))
+    _, results = prog.Run(state)
     prog.Shutdown()
     print(f"[{prog.p.name}] step={step} {results}")
   return 0
